@@ -1,0 +1,86 @@
+"""Model registry with the reference's names.
+
+Counterpart of mofo_tpu/models/registry.py (:39-80, the pretraining
+models; the finetuning models come with the finetune port).
+create_model(name, device=..., dtype=..., seed=..., **overrides) returns
+the nn.Module on its device, initialised from `seed` on the CPU (so a seed
+gives the same weights on every device) and then moved.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict
+
+import torch
+
+from mofo_tpu_torch.core.device import DeviceLike, resolve_device
+from mofo_tpu_torch.models.pretrain import PretrainVisionTransformer
+
+_REGISTRY: Dict[str, Callable[..., Any]] = {}
+
+
+def register_model(fn: Callable[..., Any]) -> Callable[..., Any]:
+    _REGISTRY[fn.__name__] = fn
+    return fn
+
+
+def list_models():
+    return sorted(_REGISTRY)
+
+
+def create_model(name: str, *, device: DeviceLike = None,
+                 dtype: torch.dtype = torch.float32, seed: int = 0,
+                 **kwargs: Any) -> torch.nn.Module:
+    """Builds a registered model. `device` defaults to CUDA and raises when
+    no GPU is present; `dtype` is the compute dtype (parameters stay f32)."""
+    dev = resolve_device(device)
+    if name not in _REGISTRY:
+        raise KeyError(
+            f"Unknown model '{name}'. Available: {', '.join(list_models())}"
+        )
+    generator = torch.Generator().manual_seed(seed)
+    model = _REGISTRY[name](dtype=dtype, generator=generator, **kwargs)
+    return model.to(dev)
+
+
+def _pretrain(enc_dim, enc_depth, enc_heads, dec_dim, dec_heads, **kwargs):
+    cfg = dict(
+        img_size=224,
+        patch_size=16,
+        encoder_embed_dim=enc_dim,
+        encoder_depth=enc_depth,
+        encoder_num_heads=enc_heads,
+        decoder_num_classes=1536,
+        decoder_embed_dim=dec_dim,
+        decoder_num_heads=dec_heads,
+        mlp_ratio=4.0,
+        qkv_bias=True,
+    )
+    cfg.update(kwargs)  # explicit overrides win
+    return PretrainVisionTransformer(**cfg)
+
+
+# --- pretraining models (modeling_pretrain.py:268-338) ---------------------
+
+
+@register_model
+def pretrain_videomae_small_patch16_224(**kwargs):
+    return _pretrain(384, 12, 6, 192, 3, **kwargs)
+
+
+@register_model
+def pretrain_videomae_base_patch16_224(**kwargs):
+    return _pretrain(768, 12, 12, 384, 6, **kwargs)
+
+
+@register_model
+def pretrain_videomae_large_patch16_224(**kwargs):
+    return _pretrain(1024, 24, 16, 512, 8, **kwargs)
+
+
+@register_model
+def pretrain_videomae_tiny_debug(**kwargs):
+    """Rebuild-only CI preset (no reference counterpart): 2-block dim-64
+    encoder + dim-32 decoder. Its 32-dim heads run on the CPU only: the
+    CUDA attention kernels are built for 64-dim heads."""
+    return _pretrain(64, 2, 2, 32, 2, **kwargs)

@@ -1,0 +1,240 @@
+"""Fused-qkv multihead attention, forward and backward, as hand-written CUDA
+kernels for Hopper (csrc/qkv_flash_attention.cu).
+
+Counterpart of mofo_tpu/ops/flash_attention.py's fused-qkv interface
+(flash_attention_qkv, :1341) and of the two TPU kernel families it runs:
+the forward (_qkv_fwd_impl / _mh_fwd_kernel) and the fused backward
+(_qkv_bwd_impl / _qkv_bwd_kernel, _qkv_bwd_kernel_houter).
+
+qkv is the fused (B, N, 3A) projection: [0, A) q, [A, 2A) k, [2A, 3A) v,
+A = H * D. The forward returns out (B, N, A) and a compact (B, H, N) f32
+row log-sum-exp; the backward returns one (B, N, 3A) dqkv.
+
+Dispatch is by the tensor's device: a CUDA tensor goes to the kernel (or
+the wrapper raises), a CPU tensor to the plain PyTorch version below, which
+repeats the kernel's numerics (module docstring of the .cu file):
+  - the scale is folded into q in the input dtype;
+  - scores and softmax statistics are f32;
+  - P is rounded to the input dtype before P.V; 1/l divides the output;
+  - bf16 works in base 2 (exp2/log2, LSE in log2 units, dK rescaled by
+    1/log2 e), f32 in base e;
+  - bf16 dS is the bf16 product of P with the rounded f32 (dP - delta).
+"""
+
+from __future__ import annotations
+
+import torch
+
+LOG2E = 1.4426950408889634
+HEAD_DIM = 64  # the one head dim the CUDA kernels are built for
+
+KERNELS = ("qkv_attn_fwd", "qkv_attn_bwd_dkv", "qkv_attn_bwd_dq")
+# launches of each CUDA kernel by its wrapper since the last reset
+launch_counts = dict.fromkeys(KERNELS, 0)
+
+
+def reset_launch_counts() -> None:
+    for name in KERNELS:
+        launch_counts[name] = 0
+
+
+def split_heads(qkv: torch.Tensor, heads: int):
+    B, N, A3 = qkv.shape
+    A = A3 // 3
+    hd = A // heads
+    q, k, v = (
+        qkv[..., i * A:(i + 1) * A].reshape(B, N, heads, hd).transpose(1, 2)
+        for i in range(3)
+    )
+    return q, k, v  # (B, H, N, D) views
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    B, H, N, D = x.shape
+    return x.transpose(1, 2).reshape(B, N, H * D)
+
+
+def _scales(scale: float, dtype: torch.dtype):
+    """(q_scale, k_scale, base2): the scale factors rounded to the input
+    dtype, as the kernels fold them (q carries log2 e in bf16)."""
+    base2 = dtype == torch.bfloat16
+    q_scale = scale * LOG2E if base2 else scale
+    rnd = lambda x: torch.tensor(x, dtype=dtype).item()  # noqa: E731
+    return rnd(q_scale), rnd(scale), base2
+
+
+def attention_qkv_fwd_plain(qkv: torch.Tensor, scale: float, heads: int):
+    """Plain PyTorch version of the forward kernel: (out, lse)."""
+    dt = qkv.dtype
+    q_scale, _, base2 = _scales(scale, dt)
+    q, k, v = split_heads(qkv, heads)
+    qs = q * torch.tensor(q_scale, dtype=dt, device=qkv.device)
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m) if base2 else torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(dt).float(), v.float()) / l
+    lse = (m + (torch.log2(l) if base2 else torch.log(l)))[..., 0]
+    return merge_heads(o.to(dt)), lse
+
+
+def attention_qkv_bwd_plain(qkv, out, lse, dout, scale: float, heads: int):
+    """Plain PyTorch version of the two backward kernels: dqkv."""
+    dt = qkv.dtype
+    q_scale, k_scale, base2 = _scales(scale, dt)
+    q, k, v = split_heads(qkv, heads)
+    B, N, A = out.shape
+    hd = A // heads
+    o = out.reshape(B, N, heads, hd).transpose(1, 2).float()
+    do = dout.reshape(B, N, heads, hd).transpose(1, 2).float()
+    qs = q * torch.tensor(q_scale, dtype=dt, device=qkv.device)
+    ks = k * torch.tensor(k_scale, dtype=dt, device=qkv.device)
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    p = torch.exp2(s - lse[..., None]) if base2 else torch.exp(
+        s - lse[..., None]
+    )
+    p16 = p.to(dt)
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p16.float().transpose(-1, -2), do)
+    ds = (p16 * (dp - delta).to(dt)).float()  # in f32 this is p*(dp-delta)
+    dk = torch.matmul(ds.transpose(-1, -2), qs.float())
+    if base2:
+        dk = dk * torch.tensor(1.0 / LOG2E, dtype=torch.float32)
+    dq = torch.matmul(ds, ks.float())
+    return torch.cat(
+        [merge_heads(g.to(dt)) for g in (dq, dk, dv)], dim=-1
+    )
+
+
+def _check_cuda(qkv: torch.Tensor, heads: int, *others: torch.Tensor):
+    if qkv.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels need CUDA tensors, got {qkv.device}")
+    if qkv.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"unsupported dtype {qkv.dtype} (float32, bfloat16)")
+    if qkv.ndim != 3 or qkv.shape[-1] % (3 * heads):
+        raise ValueError(f"qkv must be (B, N, 3*H*D), got {tuple(qkv.shape)}")
+    hd = qkv.shape[-1] // (3 * heads)
+    if hd != HEAD_DIM:
+        raise ValueError(
+            f"head dim {hd} unsupported: the kernels are built for "
+            f"{HEAD_DIM}"
+        )
+    if qkv.shape[0] * heads > 65535:
+        raise ValueError("B * H exceeds the kernels' grid limit of 65535")
+    for t in (qkv, *others):
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernels need contiguous tensors")
+        if t.device != qkv.device:
+            raise ValueError("all tensors must be on one device")
+        if t.data_ptr() % 16:
+            raise ValueError("the CUDA kernels need 16-byte aligned tensors")
+
+
+def _launch(name: str, *args):
+    from mofo_tpu_torch.ops import _build
+
+    rc = getattr(_build.load(), name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} failed to launch: error {rc}")
+    launch_counts[name] += 1
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def qkv_attn_fwd(qkv: torch.Tensor, scale: float, heads: int):
+    """Forward: (out (B, N, A), lse (B, H, N) f32). Kernel on CUDA, plain
+    version on the CPU."""
+    if qkv.device.type == "cpu":
+        return attention_qkv_fwd_plain(qkv, scale, heads)
+    _check_cuda(qkv, heads)
+    B, N, A3 = qkv.shape
+    q_scale, _, base2 = _scales(scale, qkv.dtype)
+    out = torch.empty((B, N, A3 // 3), dtype=qkv.dtype, device=qkv.device)
+    lse = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        _launch("qkv_attn_fwd", qkv.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), B, N, heads, HEAD_DIM, q_scale, int(base2),
+                _stream(qkv))
+    return out, lse
+
+
+def _check_bwd(qkv, out, lse, dout, dqkv, heads: int):
+    _check_cuda(qkv, heads, out, lse, dout, dqkv)
+    B, N, A3 = qkv.shape
+    if out.shape != (B, N, A3 // 3) or dout.shape != out.shape:
+        raise ValueError("out and dout must be (B, N, A)")
+    if dqkv.shape != qkv.shape:
+        raise ValueError("dqkv must be shaped like qkv")
+    if any(t.dtype != qkv.dtype for t in (out, dout, dqkv)):
+        raise ValueError("qkv, out, dout and dqkv must share one dtype")
+    if lse.shape != (B, heads, N) or lse.dtype != torch.float32:
+        raise ValueError("lse must be (B, H, N) float32")
+
+
+def qkv_attn_bwd_dkv(qkv, out, lse, dout, dqkv, scale: float, heads: int):
+    """Writes dK and dV, columns [A, 3A) of dqkv (CUDA only)."""
+    _check_bwd(qkv, out, lse, dout, dqkv, heads)
+    B, N, _ = qkv.shape
+    q_scale, _, base2 = _scales(scale, qkv.dtype)
+    dk_fix = 1.0 / LOG2E if base2 else 1.0
+    with torch.cuda.device(qkv.device):
+        _launch("qkv_attn_bwd_dkv", qkv.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), B, N,
+                heads, HEAD_DIM, q_scale, dk_fix, int(base2), _stream(qkv))
+
+
+def qkv_attn_bwd_dq(qkv, out, lse, dout, dqkv, scale: float, heads: int):
+    """Writes dQ, columns [0, A) of dqkv (CUDA only)."""
+    _check_bwd(qkv, out, lse, dout, dqkv, heads)
+    B, N, _ = qkv.shape
+    q_scale, k_scale, base2 = _scales(scale, qkv.dtype)
+    with torch.cuda.device(qkv.device):
+        _launch("qkv_attn_bwd_dq", qkv.data_ptr(), out.data_ptr(),
+                lse.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), B, N,
+                heads, HEAD_DIM, q_scale, k_scale, int(base2), _stream(qkv))
+
+
+def qkv_attn_bwd(qkv, out, lse, dout, scale: float, heads: int):
+    """Backward: dqkv (B, N, 3A). On CUDA two kernels fill it, dK/dV
+    (qkv_attn_bwd_dkv) and dQ (qkv_attn_bwd_dq); plain version on the
+    CPU."""
+    if qkv.device.type == "cpu":
+        return attention_qkv_bwd_plain(qkv, out, lse, dout, scale, heads)
+    dqkv = torch.empty_like(qkv)
+    qkv_attn_bwd_dkv(qkv, out, lse, dout, dqkv, scale, heads)
+    qkv_attn_bwd_dq(qkv, out, lse, dout, dqkv, scale, heads)
+    return dqkv
+
+
+class _QKVFlash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, scale, heads):
+        out, lse = qkv_attn_fwd(qkv, scale, heads)
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.scale, ctx.heads = scale, heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, out, lse = ctx.saved_tensors
+        dqkv = qkv_attn_bwd(
+            qkv, out, lse, dout.contiguous(), ctx.scale, ctx.heads
+        )
+        return dqkv, None, None
+
+
+def flash_attention_qkv(
+    qkv: torch.Tensor, *, scale: float, num_heads: int
+) -> torch.Tensor:
+    """Fused multihead attention straight from the fused qkv projection.
+
+    qkv: (B, N, 3*H*Dh). Returns (B, N, H*Dh), projection-ready. Runs the
+    CUDA kernels on a CUDA tensor and their plain versions on a CPU one;
+    differentiable through both.
+    """
+    if qkv.shape[-1] % (3 * num_heads):
+        raise ValueError(f"qkv width {qkv.shape[-1]} vs {num_heads} heads")
+    return _QKVFlash.apply(qkv.contiguous(), float(scale), int(num_heads))

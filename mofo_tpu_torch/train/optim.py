@@ -1,0 +1,146 @@
+"""AdamW with per-step LR / WD schedules, the no-decay mask and global-norm
+clipping, as plain tensor code.
+
+Counterpart of the AdamW path of mofo_tpu/train/optim.create_optimizer
+(:500-670), whose optax chain is
+    [clip_by_global_norm] -> scale_by_adam -> + wd(t) * p (masked) -> * -lr(t)
+The update below repeats that chain operation for operation, so the two
+packages agree to f32 rounding (reference semantics: torch AdamW,
+p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p), with the groups of
+optim_factory.get_parameter_groups). Parameters and moments are updated in
+place. The rest of the optimizer zoo and layer decay are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+Params = Dict[str, torch.Tensor]
+
+NO_DECAY_NAMES = ("pos_embed", "cls_token", "mask_token")
+
+
+def is_no_decay(name: str, param: torch.Tensor) -> bool:
+    """ndim <= 1, names ending in 'bias', and the no_weight_decay set get
+    no weight decay (optim_factory.py:49-88)."""
+    return (
+        param.ndim <= 1
+        or name.endswith("bias")
+        or any(part in NO_DECAY_NAMES for part in name.split("."))
+    )
+
+
+def decay_mask(params: Params) -> Dict[str, bool]:
+    """name -> True where weight decay applies."""
+    return {n: not is_no_decay(n, p) for n, p in params.items()}
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """Global L2 norm in f32 (reference get_grad_norm_, utils.py:376-388):
+    the norm of the per-tensor norms, a few launches for any count."""
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    return torch.linalg.vector_norm(torch.stack(norms))
+
+
+@dataclasses.dataclass
+class AdamWState:
+    count: int  # updates applied so far: indexes the schedules
+    mu: Params
+    nu: Params
+
+
+class AdamW:
+    """optax's scale_by_adam -> scheduled decoupled weight decay -> -lr(t),
+    after an optional clip_by_global_norm."""
+
+    def __init__(self, params: Params, *, lr_schedule: np.ndarray,
+                 wd_schedule: Optional[np.ndarray] = None,
+                 weight_decay: float = 0.05,
+                 betas: Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8, clip_grad: Optional[float] = None):
+        self.mask = decay_mask(params)
+        self.lr_schedule = np.asarray(lr_schedule, np.float32)
+        self.wd_schedule = (
+            None if wd_schedule is None
+            else np.asarray(wd_schedule, np.float32)
+        )
+        self.weight_decay = np.float32(weight_decay)
+        self.b1, self.b2 = betas
+        self.eps = eps
+        self.clip_grad = clip_grad
+
+    def init(self, params: Params) -> AdamWState:
+        zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}  # noqa: E731
+        return AdamWState(count=0, mu=zeros(), nu=zeros())
+
+    @staticmethod
+    def _at(schedule: np.ndarray, count: int) -> float:
+        return float(schedule[min(count, schedule.shape[0] - 1)])
+
+    @torch.no_grad()
+    def update(self, grads: Params, state: AdamWState,
+               params: Params) -> None:
+        """Applies one update to `params` and `state`, in place. Each line
+        is one multi-tensor (foreach) operation over all parameters, in
+        optax's order of operations and roundings."""
+        names = list(params)
+        g = [grads[n] for n in names]
+        if self.clip_grad is not None and self.clip_grad > 0:
+            g_norm = global_norm(g)
+            if not bool(g_norm < self.clip_grad):
+                g = [(x / g_norm) * self.clip_grad for x in g]
+        b1, b2 = self.b1, self.b2
+        count = state.count + 1
+        # bias corrections in f32, as optax computes them
+        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+        wd = (self.weight_decay if self.wd_schedule is None
+              else self._at(self.wd_schedule, state.count))
+        lr = self._at(self.lr_schedule, state.count)
+        mu = [state.mu[n] for n in names]
+        nu = [state.nu[n] for n in names]
+        p = [params[n] for n in names]
+        # mu = (1 - b1) * g + b1 * mu;  nu = (1 - b2) * g^2 + b2 * nu
+        g1 = torch._foreach_mul(g, 1 - b1)
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, g1)
+        g2 = torch._foreach_mul(g, g)
+        torch._foreach_mul_(g2, 1 - b2)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_add_(nu, g2)
+        # u = (mu / bc1) / (sqrt(nu / bc2) + eps)
+        u = torch._foreach_div(mu, bc1)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        torch._foreach_div_(u, den)
+        # u += wd * p on the decayed parameters, then p += -lr * u
+        decayed = [i for i, n in enumerate(names) if self.mask[n]]
+        if decayed:
+            torch._foreach_add_(
+                [u[i] for i in decayed],
+                torch._foreach_mul([p[i] for i in decayed], float(wd)),
+            )
+        torch._foreach_mul_(u, -lr)
+        torch._foreach_add_(p, u)
+        state.count = count
+
+
+def create_optimizer(params: Params, *, opt: str = "adamw",
+                     lr_schedule: np.ndarray,
+                     wd_schedule: Optional[np.ndarray] = None,
+                     weight_decay: float = 0.05,
+                     betas: Tuple[float, float] = (0.9, 0.999),
+                     eps: float = 1e-8,
+                     clip_grad: Optional[float] = None) -> AdamW:
+    """The AdamW path of mofo_tpu.train.optim.create_optimizer. `params`
+    maps the model's parameter names to its tensors."""
+    if opt.lower() != "adamw":
+        raise ValueError(f"optimizer {opt!r} is not ported yet (adamw only)")
+    return AdamW(params, lr_schedule=lr_schedule, wd_schedule=wd_schedule,
+                 weight_decay=weight_decay, betas=betas, eps=eps,
+                 clip_grad=clip_grad)

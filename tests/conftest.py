@@ -33,3 +33,7 @@ def pytest_configure(config):
         "markers", "slow: long-running end-to-end tests (multi-process "
         "spawns, CLI e2e)"
     )
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device (mofo_tpu_torch kernels); "
+        "skips without one"
+    )

@@ -1,0 +1,117 @@
+"""The port's CUDA kernels on the card (`gpu` marker; each case skips when
+no CUDA device is present).
+
+This file imports no JAX, so it runs where only the port is installed:
+
+    python -m pytest tests/test_torch_gpu.py --noconftest -q
+
+(--noconftest skips tests/conftest.py, which sets up JAX.) The kernels are
+held against their plain PyTorch versions with the bounds of
+mofo_tpu_torch/tools/main_path.py (the ones chip_smoke.py uses), which the
+CPU tests hold against the JAX package.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mofo_tpu_torch.core.config import MaskingConfig, PretrainConfig
+from mofo_tpu_torch.models import create_model
+from mofo_tpu_torch.ops import flash_attention as fa
+from mofo_tpu_torch.ops import masking
+from mofo_tpu_torch.tools.main_path import (
+    attention_against_plain,
+    check_against_plain,
+    compare_with_plain,
+    planted_faults,
+)
+from mofo_tpu_torch.train import optim
+from mofo_tpu_torch.train.pretrain_step import make_pretrain_step
+from mofo_tpu_torch.train.train_state import TrainState
+
+pytestmark = pytest.mark.gpu
+D = fa.HEAD_DIM
+SCALE = D ** -0.5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _qkv(B, N, H, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(B, N, 3 * H * D, generator=g).to(dtype).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H", [(2, 160, 12), (1, 1568, 6), (2, 100, 2),
+                                   (1, 64, 1)])
+def test_kernels_match_plain(cuda, dtype, B, N, H):
+    got, want = attention_against_plain(_qkv(B, N, H, dtype, cuda), H, SCALE)
+    torch.cuda.synchronize()
+    check_against_plain(got, want)
+    for fault, outputs in planted_faults(got).items():
+        assert compare_with_plain(outputs, want)["beyond_bounds"], fault
+
+
+def test_autograd_runs_the_kernels(cuda):
+    x = _qkv(2, 100, 2, torch.float32, cuda, seed=1)
+    qkv = x.clone().requires_grad_(True)
+    fa.reset_launch_counts()
+    (fa.flash_attention_qkv(qkv, scale=SCALE, num_heads=2) ** 2).sum() \
+        .backward()
+    assert fa.launch_counts == dict.fromkeys(fa.KERNELS, 1)
+    ref = x.cpu().clone().requires_grad_(True)
+    (fa.flash_attention_qkv(ref, scale=SCALE, num_heads=2) ** 2).sum() \
+        .backward()
+    np.testing.assert_allclose(qkv.grad.cpu().numpy(), ref.grad.numpy(),
+                               atol=5e-4, rtol=0)
+
+
+def test_wrapper_rejects_what_the_kernels_do_not_take(cuda):
+    with pytest.raises(ValueError, match="head dim"):
+        fa.qkv_attn_fwd(torch.zeros(1, 8, 3 * 2 * 32, device=cuda), 1.0, 2)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.qkv_attn_fwd(torch.zeros(1, 8, 3 * D, device=cuda,
+                                    dtype=torch.float16), 1.0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.qkv_attn_fwd(torch.zeros(1, 3 * D, 8, device=cuda).transpose(1, 2),
+                        1.0, 1)
+
+
+def test_step_on_the_card_matches_the_cpu(cuda):
+    """One f32 step of a small 64-dim-head model: loss and gradient norm on
+    the card (kernels) against the CPU (plain versions)."""
+    geo = dict(img_size=32, num_frames=4, encoder_embed_dim=128,
+               encoder_depth=2, encoder_num_heads=2, decoder_embed_dim=64,
+               decoder_depth=1, decoder_num_heads=1,
+               decoder_num_classes=1536)
+    cfg = PretrainConfig(input_size=32, num_frames=4, batch_size=2,
+                         dtype="float32", motion_loss_weight=True,
+                         masking=MaskingConfig(mask_type="tube_bb",
+                                               mask_ratio=0.5))
+    gen = torch.Generator().manual_seed(3)
+    clip = torch.randn(2, 4, 32, 32, 3, generator=gen)
+    xy1 = torch.rand(2, 4, 2, generator=gen) * 12
+    boxes = torch.cat([xy1, xy1 + 12], dim=-1)
+    mask = masking.motion_tube_mask(boxes, temporal_positions=2,
+                                    patches_per_side=2, mask_ratio=0.5,
+                                    generator=gen)
+    lr = np.full(2, 1e-3, np.float32)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        model = create_model("pretrain_videomae_base_patch16_224",
+                             device=dev, **geo)
+        named = dict(model.named_parameters())
+        tx = optim.create_optimizer(named, lr_schedule=lr)
+        step = make_pretrain_step(model, tx, cfg, lr, device=dev)
+        _, m = step(TrainState.create(model, tx),
+                    {"clip": clip.to(dev), "boxes": boxes.to(dev)}, None,
+                    0.5, mask=mask.to(dev))
+        got[dev] = (float(m["loss"]), float(m["grad_norm"]))
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-4)
