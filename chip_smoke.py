@@ -8,21 +8,37 @@ Phases, each printing one JSON line:
                (nvidia-smi); TF32 off for the f32 phases.
   2. build   - compiles the CUDA kernels from mofo_tpu_torch/csrc (nvcc,
                sm_90a), or reuses the build of this checkout.
-  3. kernels - each kernel against its plain PyTorch version at the step's
-               encoder and decoder shapes (B=16) and a ragged one, bf16 and
-               f32, with the bounds of mofo_tpu_torch/tools/main_path.py
-               (which must also reject two planted faults); then, on the
-               same bf16 qkv, kernel, plain, library
-               (F.scaled_dot_product_attention, a yardstick the port never
-               calls) and bound times.
-  4. step    - the ViT-B MOFO pretrain step at full width (tube_bb masks,
+  3. kernels - each fused-qkv kernel (K1/K2) against its plain PyTorch
+               version at the pretrain step's encoder and decoder shapes
+               (B=16), the finetune backbone's (B=10, N=1568, H=12) and a
+               ragged one, bf16 and f32, with the bounds of
+               mofo_tpu_torch/tools/main_path.py (which must also reject two
+               planted faults); then, on the same bf16 qkv, kernel, plain,
+               library (F.scaled_dot_product_attention, a yardstick the port
+               never calls) and bound times.
+  4. mh_kernels - the same for the masked multihead kernels (K3): the MCA
+               (B=10, N=1568, 3 x 256), 12 x 64 at N=1568 and ragged N=100
+               at 1 x 256 and 2 x 64, bf16 and f32, bias present and
+               absent; planted faults (the bias ignored, dQ zeroed, dK
+               without its 1/log2 e fix) must be rejected and masked kv
+               rows must get zero dK/dV; then the times at the MCA shape.
+  5. step    - the ViT-B MOFO pretrain step at full width (tube_bb masks,
                motion-weighted loss, AdamW): 1 warm-up + 5 timed steps, the
                launch counts of every kernel checked.
-  5. parity  - a ViT-B-width model cut to 2+1 blocks, f32, B=1: loss and
+  6. parity  - a ViT-B-width model cut to 2+1 blocks, f32, B=1: loss and
                gradient norm on the card (kernels) against the CPU (plain
                versions), same weights and masks. f32 runs the FMA kernels,
                so this phase does not cover the bf16 (tensor-core) kernels
                of the step: phase 3 holds those.
+  7. finetune_step - the ViT-B BB-focused MCA finetune step at the
+               FinetuneConfig defaults (bf16, B=10, mixup, cutmix, label
+               smoothing, drop path 0.1, AdamW with layer decay), backbone
+               from the pretrain model: 1 warm-up + 5 timed steps and one
+               eval call, every kernel's launches checked.
+  8. finetune_parity - the BB-focused model at ViT-B width cut to 2
+               Blocks, f32, B=2, same weights and mixup draws: loss and
+               gradient norm on the card against the CPU; one sample has no
+               in-box token, the other a box over the whole frame.
 Then the card's nvidia-smi line, the kernels line and, last, the ok line.
 Any failed check raises, and the script exits non-zero without the ok line.
 """
@@ -39,38 +55,66 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mofo_tpu_torch.core.config import MaskingConfig, PretrainConfig
+from mofo_tpu_torch.core.config import (
+    FinetuneConfig,
+    MaskingConfig,
+    PretrainConfig,
+)
 from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.ops import _build
 from mofo_tpu_torch.ops import flash_attention as fa
 from mofo_tpu_torch.ops import masking
 from mofo_tpu_torch.tools.main_path import (
+    FINETUNE_MODEL,
     MODEL,
     attention_against_plain,
+    build_finetune_step,
     build_step,
     check_against_plain,
     compare_with_plain,
+    finetune_model,
+    masked_kv_grad,
+    mh_attention_against_plain,
+    mh_inputs,
     planted_faults,
     synthetic_batch,
+    synthetic_finetune_batch,
 )
 from mofo_tpu_torch.train import optim
+from mofo_tpu_torch.train.finetune_step import (
+    make_eval_step,
+    make_finetune_step,
+    mixup_for,
+)
 from mofo_tpu_torch.train.pretrain_step import make_pretrain_step
 from mofo_tpu_torch.train.train_state import TrainState
 
-SOURCE = "mofo_tpu_torch/csrc/qkv_flash_attention.cu"
+SOURCES = {n: "mofo_tpu_torch/csrc/qkv_flash_attention.cu"
+           for n in fa.QKV_KERNELS}
+SOURCES.update({n: "mofo_tpu_torch/csrc/mh_flash_attention.cu"
+                for n in fa.MH_KERNELS})
 TPU_FILE = "mofo_tpu/ops/flash_attention.py"
 REPLACES = {  # the pallas_call sites of the TPU kernels
     "qkv_attn_fwd": f"{TPU_FILE}:1160",  # _qkv_fwd_impl -> _mh_fwd_kernel
     "qkv_attn_bwd_dkv": f"{TPU_FILE}:1224",  # _qkv_bwd_impl (dK, dV)
     "qkv_attn_bwd_dq": f"{TPU_FILE}:1224",  # _qkv_bwd_impl (dQ)
+    # _mh_fwd_impl -> _mh_fwd_kernel with has_bias
+    "mh_attn_fwd": f"{TPU_FILE}:678",
+    "mh_attn_bwd_dkv": f"{TPU_FILE}:783",  # _mh_bwd_impl (dK, dV)
+    "mh_attn_bwd_dq": f"{TPU_FILE}:783",  # _mh_bwd_impl (dQ)
 }
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 HBM = 3.35e12  # H100 SXM bytes/s
 STEP_BATCH = 16
 # (B, N, H) of the main path's attention at STEP_BATCH; the checks add a
 # ragged geometry
-MAIN = {"encoder": (STEP_BATCH, 160, 12), "decoder": (STEP_BATCH, 1568, 6)}
+MAIN = {"encoder": (STEP_BATCH, 160, 12), "decoder": (STEP_BATCH, 1568, 6),
+        "backbone": (10, 1568, 12)}  # the finetune backbone's Blocks
 CHECKS = {**MAIN, "ragged": (8, 100, 2)}
+FT_BATCH = 10
+# K3: (B, N, H, D); the MCA is the finetune step's own
+MH_CHECKS = {"mca": (FT_BATCH, 1568, 3, 256), "h12": (FT_BATCH, 1568, 12, 64),
+             "ragged_d256": (4, 100, 1, 256), "ragged_d64": (4, 100, 2, 64)}
 D = fa.HEAD_DIM
 SCALE = D ** -0.5
 
@@ -96,12 +140,18 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """Builds both sources with one nvcc call; reports each kernel
+    instance's registers and spills (ptxas -v)."""
     info = _build.build()
     _build.load()
-    usage = [line.strip() for line in info["report"].splitlines()
-             if "registers" in line or "spill" in line]
+    ptxas, name = {}, None
+    for line in info["report"].splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("registers" in line or "spill" in line):
+            ptxas.setdefault(name, []).append(line.strip())
     emit("build", seconds=info["seconds"], cached=info["cached"],
-         library=info["path"], ptxas=usage)
+         library=info["path"], sources=list(_build.SOURCES), ptxas=ptxas)
 
 
 def _qkv(B, N, H, dtype, seed):
@@ -208,8 +258,9 @@ def time_kernels(x, H) -> dict:
 
 
 def phase_kernels():
-    """Checks every kernel at the step's shapes (and a ragged one) in bf16
-    and f32, and times them, in bf16, on the very qkv that was checked."""
+    """Checks every fused-qkv kernel at the steps' shapes (and a ragged
+    one) in bf16 and f32, and times them, in bf16, on the very qkv that was
+    checked."""
     errors, timings = {}, {}
     for i, (geo, (B, N, H)) in enumerate(CHECKS.items()):
         for dtype in (torch.bfloat16, torch.float32):
@@ -226,6 +277,117 @@ def phase_kernels():
                 emit("kernel_times", geometry=geo, B=B, N=N, H=H,
                      dtype="bfloat16", times=timings[geo])
             del x
+    return errors, timings
+
+
+def bounds_mh(B, N, H, D) -> dict:
+    """bounds() for the K3 kernels: separate q, k, v (each read once), the
+    bias row, and the backward's delta; the work at its least (the dK/dV
+    kernel's recomputed products not counted)."""
+    e, A = 2, H * D
+    mm = 2 * B * H * N * N * D
+    row, stat = B * N * A * e, B * H * N * 4
+    inputs = 3 * row + B * N * 4  # q, k, v, bias
+    work = {
+        "mh_attn_fwd": (2 * mm, inputs + row + stat),  # -> out, lse
+        # + dout, lse, delta -> dk, dv
+        "mh_attn_bwd_dkv": (4 * mm, inputs + row + 2 * stat + 2 * row),
+        "mh_attn_bwd_dq": (3 * mm, inputs + row + 2 * stat + row),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM * 1e3
+        out[name] = (max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def time_mh_kernels(q, k, v, b, H, D) -> dict:
+    """kernel, plain, library and bound times (ms) of K3 on bf16 inputs."""
+    scale = D ** -0.5
+    B, N, _ = q.shape
+    out, lse = fa.mh_attn_fwd(q, k, v, b, scale, H)
+    dout = (2 * out.float()).to(q.dtype)
+    delta = fa.mh_delta(out, dout, H)
+    dkv = torch.empty(B, N, 2 * H * D, dtype=q.dtype, device=q.device)
+    dq = torch.empty_like(q)
+    heads = [t.reshape(B, N, H, D).transpose(1, 2).contiguous()
+             .requires_grad_(True) for t in (q, k, v)]
+    mask = b[:, None, None, :].to(q.dtype)
+    o_lib = F.scaled_dot_product_attention(*heads, attn_mask=mask,
+                                           scale=scale)
+    g_lib = dout.reshape(B, N, H, D).transpose(1, 2).contiguous()
+    plain_bwd = time_ms(lambda: fa.attention_mh_bwd_plain(
+        q, k, v, b, out, lse, dout, scale, H), runs=5)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        o_lib, heads, g_lib, retain_graph=True))
+    res = {
+        "mh_attn_fwd": {
+            "ms": time_ms(lambda: fa.mh_attn_fwd(q, k, v, b, scale, H)),
+            "plain_ms": time_ms(lambda: fa.attention_mh_fwd_plain(
+                q, k, v, b, scale, H), runs=5),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                *(t.detach() for t in heads), attn_mask=mask, scale=scale)),
+        },
+        "mh_attn_bwd_dkv": {
+            "ms": time_ms(lambda: fa.mh_attn_bwd_dkv(
+                q, k, v, b, dout, lse, delta, dkv[..., :H * D],
+                dkv[..., H * D:], scale, H)),
+            "plain_ms": plain_bwd, "library_ms": lib_bwd,
+        },
+        "mh_attn_bwd_dq": {
+            "ms": time_ms(lambda: fa.mh_attn_bwd_dq(
+                q, k, v, b, dout, lse, delta, dq, scale, H)),
+            "plain_ms": plain_bwd, "library_ms": lib_bwd,
+        },
+    }
+    for name, (bound, by) in bounds_mh(B, N, H, D).items():
+        res[name].update(bound_ms=bound, bound_by=by)
+        if res[name]["ms"] < bound:
+            raise AssertionError(f"{name} beat its bound: {res[name]}")
+    return res
+
+
+def phase_mh_kernels():
+    """K3 against its plain version at every MH_CHECKS geometry, bf16 and
+    f32, bias present and absent: main_path's bounds, the planted faults
+    rejected, masked kv rows with exactly zero dK/dV. Times at the MCA."""
+    errors, timings = {}, {}
+    for i, (geo, (B, N, H, D)) in enumerate(MH_CHECKS.items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            for bias in (True, False):
+                q, k, v, b = mh_inputs(B, N, H, D, dtype, i, "cuda", bias)
+                got, want = mh_attention_against_plain(q, k, v, b, H,
+                                                       D ** -0.5)
+                torch.cuda.synchronize()
+                res = check_against_plain(got, want)
+                ignored = None
+                if bias:
+                    ignored, _ = mh_attention_against_plain(
+                        q, k, v, None, H, D ** -0.5)
+                res["planted"] = {}
+                for fault, outputs in planted_faults(got, ignored).items():
+                    caught = compare_with_plain(outputs, want)
+                    if not caught["beyond_bounds"]:
+                        raise AssertionError(
+                            f"the bounds let a planted fault pass: {fault} "
+                            f"({geo}, {dtype}, bias={bias})")
+                    res["planted"][fault] = caught["beyond_bounds"]
+                res["masked_kv_grad"] = masked_kv_grad(got, b)
+                if res["masked_kv_grad"] != 0.0:
+                    raise AssertionError(f"masked kv rows got dK/dV: {res}")
+                emit("mh_kernels_vs_plain", geometry=geo, B=B, N=N, H=H, D=D,
+                     dtype=str(dtype).replace("torch.", ""), bias=bias,
+                     **res)
+                if geo == "mca" and dtype == torch.bfloat16 and bias:
+                    err = res["max_abs_err"]
+                    errors = {"mh_attn_fwd": err["out"],
+                              "mh_attn_bwd_dkv": max(err["dk"], err["dv"]),
+                              "mh_attn_bwd_dq": err["dq"]}
+                    timings = time_mh_kernels(q, k, v, b, H, D)
+                    emit("mh_kernel_times", geometry=geo, B=B, N=N, H=H,
+                         D=D, dtype="bfloat16", bias=True, times=timings)
+                del q, k, v, b, got, want, ignored
     return errors, timings
 
 
@@ -252,9 +414,10 @@ def phase_step(smi: str) -> dict:
         norms.append(float(metrics["grad_norm"]))
     launches = dict(fa.launch_counts)
 
-    expected = n_steps * blocks
-    if launches != dict.fromkeys(fa.KERNELS, expected):
-        raise AssertionError(f"launches {launches}, expected {expected} each")
+    expected = {**dict.fromkeys(fa.QKV_KERNELS, n_steps * blocks),
+                **dict.fromkeys(fa.MH_KERNELS, 0)}
+    if launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}")
     if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
         raise AssertionError(f"non-finite loss/grad_norm {losses} {norms}")
     unchanged = [n for n in watched if torch.equal(before[n], named[n])]
@@ -293,7 +456,7 @@ def phase_parity() -> None:
                           0.5, mask=mask.to(dev))
         results[dev] = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
         results[dev]["launches"] = dict(fa.launch_counts)
-    if min(results["cuda"]["launches"].values()) < 3:
+    if min(results["cuda"]["launches"][k] for k in fa.QKV_KERNELS) < 3:
         raise AssertionError(f"the card run skipped a kernel: {results}")
     rel = {k: abs(results["cuda"][k] - results["cpu"][k])
            / abs(results["cpu"][k]) for k in ("loss", "grad_norm")}
@@ -303,26 +466,143 @@ def phase_parity() -> None:
         raise AssertionError(f"card vs CPU beyond rtol 1e-4: {rel}")
 
 
+def phase_finetune_step(smi: str) -> dict:
+    """The main path of this slice: the full-width ViT-B BB-focused MCA
+    finetune step on the card, then one eval call."""
+    B = FT_BATCH
+    model, state, step, gen, batch, cfg = build_finetune_step(B)
+    named = dict(model.named_parameters())
+    watched = ["backbone.blocks.0.attn.qkv.weight",
+               "local_MCA.0.attn.q.weight", "head.weight"]
+    before = {n: named[n].detach().clone() for n in watched}
+    blocks = len(model.backbone.blocks)
+    mca = len(model.local_MCA)
+
+    n_steps = 6  # 1 warm-up + 5 timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    times, losses, norms = [], [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+    launches = dict(fa.launch_counts)
+    expected = {**dict.fromkeys(fa.QKV_KERNELS, n_steps * blocks),
+                **dict.fromkeys(fa.MH_KERNELS, n_steps * mca)}
+    if launches != expected:
+        raise AssertionError(f"launches {launches}, expected {expected}")
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise AssertionError(f"non-finite loss/grad_norm {losses} {norms}")
+    unchanged = [n for n in watched if torch.equal(before[n], named[n])]
+    if unchanged:
+        raise AssertionError(f"parameters did not change: {unchanged}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    fa.reset_launch_counts()
+    ev = make_eval_step(model, cfg, bb_focused=True)(batch)
+    torch.cuda.synchronize()
+    eval_launches = dict(fa.launch_counts)
+    want_eval = {**dict.fromkeys(fa.KERNELS, 0), "qkv_attn_fwd": blocks,
+                 "mh_attn_fwd": mca}
+    if eval_launches != want_eval:
+        raise AssertionError(f"eval launches {eval_launches}, expected "
+                             f"{want_eval}")
+    if ev["logits"].shape != (B, cfg.nb_classes) or not all(
+            np.isfinite(float(ev[k])) for k in ("loss", "acc1", "acc5")):
+        raise AssertionError(f"bad eval output: {ev}")
+    step_ms = statistics.median(times[1:])
+    emit("finetune_step", model=FINETUNE_MODEL, fusing="MCA",
+         dtype="bfloat16", batch=B, blocks=blocks, mca_blocks=mca,
+         mixup=cfg.mixup, cutmix=cfg.cutmix, smoothing=cfg.smoothing,
+         drop_path=cfg.drop_path, layer_decay=cfg.optimizer.layer_decay,
+         steps=n_steps, step_ms=step_ms, step_ms_all=times,
+         clips_per_s=B / step_ms * 1e3, loss=losses, grad_norm=norms,
+         launches=launches, launches_per_step={
+             k: v / n_steps for k, v in launches.items()},
+         eval_launches=eval_launches,
+         eval={k: float(ev[k]) for k in ("loss", "acc1", "acc5")},
+         peak_mem_gib=peak, device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi)
+    return launches
+
+
+def phase_finetune_parity() -> None:
+    """BB-focused MCA at ViT-B width, 2 Blocks, f32, B=2: card (kernels)
+    against CPU (plain versions), same weights and mixup draws."""
+    cfg = FinetuneConfig(batch_size=2, dtype="float32", drop_path=0.0,
+                         model=FINETUNE_MODEL)
+    gen = torch.Generator().manual_seed(9)
+    batch = synthetic_finetune_batch(2, gen, "cpu", cfg.nb_classes)
+    batch["boxes"][0] = torch.tensor([300.0, 300.0, 330.0, 330.0])  # no in
+    batch["boxes"][1] = torch.tensor([0.0, 0.0, 224.0, 224.0])  # no out
+    mix = mixup_for(cfg)
+    draws = mix.sample(np.random.default_rng(1), mix.count(2), 224, 224)
+    lr = np.full(4, 1e-4, np.float32)
+    results = {}
+    for dev in ("cpu", "cuda"):
+        model = finetune_model(cfg, device=dev, seed=5, depth=2)
+        named = dict(model.named_parameters())
+        tx = optim.create_optimizer(named, lr_schedule=lr,
+                                    weight_decay=0.05, layer_decay=0.75)
+        step = make_finetune_step(model, tx, cfg, lr, bb_focused=True,
+                                  device=dev)
+        fa.reset_launch_counts()
+        _, metrics = step(TrainState.create(model, tx),
+                          {k: v.to(dev) for k, v in batch.items()}, None,
+                          draws)
+        results[dev] = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
+        results[dev]["launches"] = dict(fa.launch_counts)
+    if min(results["cuda"]["launches"].values()) < 1:
+        raise AssertionError(f"the card run skipped a kernel: {results}")
+    rel = {k: abs(results["cuda"][k] - results["cpu"][k])
+           / abs(results["cpu"][k]) for k in ("loss", "grad_norm")}
+    emit("finetune_parity", model=FINETUNE_MODEL, fusing="MCA", depth=2,
+         dtype="float32", batch=2, results=results, rel_diff=rel,
+         bound=1e-4)
+    if max(rel.values()) > 1e-4:
+        raise AssertionError(f"card vs CPU beyond rtol 1e-4: {rel}")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
     errors, timings = phase_kernels()
+    mh_errors, mh_timings = phase_mh_kernels()
     launches = phase_step(smi)
     phase_parity()
+    ft_launches = phase_finetune_step(smi)
+    phase_finetune_parity()
     kernels = []
-    for name in fa.KERNELS:
+    for name in fa.QKV_KERNELS:
         dec = timings["decoder"][name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": errors["decoder"][name], "ms": dec["ms"],
             "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
             "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
             "shape": "decoder (B=%d, N=%d, H=%d, D=%d) bf16" % (
                 *MAIN["decoder"], D),
-            "encoder": {**timings["encoder"][name],
-                        "max_abs_err": errors["encoder"][name]},
+            "launches_finetune": ft_launches[name],
+            **{geo: {**timings[geo][name],
+                     "max_abs_err": errors[geo][name]}
+               for geo in ("encoder", "backbone")},
+        })
+    for name in fa.MH_KERNELS:
+        mca = mh_timings[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": ft_launches[name],
+            "max_abs_err": mh_errors[name], "ms": mca["ms"],
+            "plain_ms": mca["plain_ms"], "bound_ms": mca["bound_ms"],
+            "bound_by": mca["bound_by"], "library_ms": mca["library_ms"],
+            "shape": "MCA (B=%d, N=%d, H=%d, D=%d) bf16, kv bias" % (
+                MH_CHECKS["mca"]),
         })
     emit("done", seconds=time.perf_counter() - t0)
     print(smi, flush=True)

@@ -1,10 +1,11 @@
-"""Typed configuration dataclasses for pretraining.
+"""Typed configuration dataclasses for pretraining and finetuning.
 
-A copy of mofo_tpu/core/config.py's MaskingConfig, OptimizerConfig and
-PretrainConfig (knob names and defaults mirror the reference argparse
-surfaces, run_mae_pretraining.py:22-132 and run_mae_pretraining_BB.py).
-The port runs on one device and has no mesh, so PretrainConfig has no
-`mesh` field; finetuning's config comes with the finetune port.
+A copy of mofo_tpu/core/config.py's MaskingConfig, OptimizerConfig,
+PretrainConfig and FinetuneConfig (knob names and defaults mirror the
+reference argparse surfaces, run_mae_pretraining.py:22-132,
+run_mae_pretraining_BB.py and run_class_finetuning.py:31-214). The port
+runs on one device and has no mesh yet, so neither config has a `mesh`
+field: it comes with distributed training.
 """
 
 from __future__ import annotations
@@ -86,3 +87,57 @@ class PretrainConfig:
         return self.window_size[0] * int(
             self.masking.mask_ratio * self.patches_per_frame
         )
+
+
+@dataclasses.dataclass
+class FinetuneConfig:
+    """mofo_tpu/core/config.py:99-148 field for field, without `mesh`."""
+
+    model: str = "vit_base_patch16_224"
+    nb_classes: int = 174
+    input_size: int = 224
+    num_frames: int = 16
+    tubelet_size: int = 2
+    patch_size: int = 16
+    drop: float = 0.0
+    attn_drop_rate: float = 0.0
+    drop_path: float = 0.1
+    init_scale: float = 0.001
+    use_mean_pooling: bool = True
+    batch_size: int = 10
+    epochs: int = 100
+    update_freq: int = 1
+    save_ckpt_freq: int = 10
+    seed: int = 0
+    dtype: str = "bfloat16"
+    model_ema: bool = False
+    model_ema_decay: float = 0.9999
+    # augmentation (reference defaults, run_class_finetuning.py)
+    color_jitter: float = 0.4
+    aa: str = "rand-m7-n4-mstd0.5-inc1"
+    smoothing: float = 0.1
+    train_interpolation: str = "bicubic"
+    reprob: float = 0.25
+    remode: str = "pixel"
+    recount: int = 1
+    mixup: float = 0.8
+    cutmix: float = 1.0
+    cutmix_minmax: Optional[Tuple[float, float]] = None
+    mixup_prob: float = 1.0
+    mixup_switch_prob: float = 0.5
+    mixup_mode: str = "batch"
+    # eval
+    test_num_segment: int = 2
+    test_num_crop: int = 3
+    # MOFO finetune
+    fusing_mode: str = "MCA"
+    classtype: str = "action"  # EK: verb | noun | action
+    optimizer: OptimizerConfig = dataclasses.field(
+        default_factory=lambda: OptimizerConfig(
+            lr=5e-4,
+            warmup_epochs=5,
+            opt_betas=(0.9, 0.999),
+            layer_decay=0.75,
+            weight_decay=0.05,
+        )
+    )

@@ -1,6 +1,9 @@
 """Transformer primitives for the MOFO / VideoMAE model family.
 
-Counterpart of mofo_tpu/models/layers.py (reference modeling_finetune.py).
+Counterpart of mofo_tpu/models/layers.py (reference modeling_finetune.py):
+Mlp, Attention, Block, PatchEmbed and the BB-focused classifier's
+CrossAttention, MCABlock and SoftAttention. Dropout is not ported (every
+recipe runs it at rate 0); drop path draws from an explicit generator.
 Parameters are float32 and carry the reference's state_dict names; each
 matmul casts its operands to the module's compute dtype, as the JAX
 modules do (this is not torch.autocast). LayerNorm runs in f32.
@@ -20,7 +23,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mofo_tpu_torch.ops.flash_attention import flash_attention_qkv
+from mofo_tpu_torch.ops.flash_attention import (
+    flash_attention_mh,
+    flash_attention_qkv,
+)
 from mofo_tpu_torch.ops.patchify import patchify_flat
 
 
@@ -63,13 +69,40 @@ def init_linear(layer: nn.Linear, generator: Optional[torch.Generator]):
         nn.init.zeros_(layer.bias)
 
 
-def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
-    """Stochastic depth per sample (reference modeling_finetune.py:20-31)."""
+def trunc_normal_(w: torch.Tensor, generator: Optional[torch.Generator],
+                  std: float = 0.02) -> torch.Tensor:
+    """Normal(0, std) truncated at +-2 std (the JAX package's
+    trunc_normal_init, mofo_tpu/models/layers.py:38-44)."""
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                                     generator=generator)
+
+
+def init_trunc_normal(module: nn.Module,
+                      generator: Optional[torch.Generator]) -> None:
+    """Trunc-normal(.02) weights and zero biases for every nn.Linear (and
+    the patch embedding's Conv3d) under `module`: the finetune models'
+    init (reference modeling_finetune.py:366-373)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv3d)):
+            trunc_normal_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Stochastic depth per sample (reference modeling_finetune.py:20-31).
+    The keep mask is drawn from `generator` (on x's device), which the step
+    passes down; drawing at rate > 0 without one raises."""
     if not training or rate == 0.0:
         return x
+    if generator is None:
+        raise ValueError(f"drop path at rate {rate} needs an explicit "
+                         "torch.Generator")
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.rand(shape, device=x.device) < keep
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -78,8 +111,9 @@ class DropPath(nn.Module):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return drop_path(x, self.rate, self.training)
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return drop_path(x, self.rate, self.training, generator)
 
 
 class Mlp(nn.Module):
@@ -169,16 +203,18 @@ class Block(nn.Module):
         else:
             self.gamma_1 = self.gamma_2 = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` draws the drop-path masks (needed at a rate > 0)."""
         in_dtype = x.dtype
         a = self.attn(layer_norm(x, self.norm1, self.dtype))
         if self.gamma_1 is not None:
             a = a * self.gamma_1.to(a.dtype)
-        x = x + self.drop_path(a)
+        x = x + self.drop_path(a, generator)
         m = self.mlp(layer_norm(x, self.norm2, self.dtype))
         if self.gamma_2 is not None:
             m = m * self.gamma_2.to(m.dtype)
-        x = x + self.drop_path(m)
+        x = x + self.drop_path(m, generator)
         return x.to(in_dtype)
 
 
@@ -223,3 +259,114 @@ class PatchEmbed(nn.Module):
             raise ValueError(f"patch rows {x.shape[-1]} != {w.shape[1]}")
         return F.linear(x.to(self.dtype), w.to(self.dtype),
                         self.proj.bias.to(self.dtype))
+
+
+class CrossAttention(nn.Module):
+    """Cross-attention, queries from x and keys/values from y (reference
+    modeling_finetune.py:100-160): a q projection with a learned q bias, a
+    fused kv projection whose bias is cat(0, v_bias), and the masked
+    attention of flash_attention_mh on the flat (B, N, A) layout with
+    kv_bias = 0 / -1e30 from kv_mask (mofo_tpu/models/layers.py:369-396)."""
+
+    def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
+                 qk_scale: Optional[float] = None,
+                 attn_head_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32, generator=None):
+        super().__init__()
+        self.num_heads = num_heads
+        head_dim = attn_head_dim or dim // num_heads
+        self.all_head_dim = all_head_dim = head_dim * num_heads
+        self.scale = qk_scale or head_dim ** -0.5
+        self.dtype = dtype
+        self.q = nn.Linear(dim, all_head_dim, bias=False)
+        self.kv = nn.Linear(dim, 2 * all_head_dim, bias=False)
+        if qkv_bias:
+            self.q_bias = nn.Parameter(torch.zeros(all_head_dim))
+            self.v_bias = nn.Parameter(torch.zeros(all_head_dim))
+        else:
+            self.q_bias = self.v_bias = None
+        self.proj = nn.Linear(all_head_dim, dim)
+        init_trunc_normal(self, generator)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor,
+                kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        dt, A = self.dtype, self.all_head_dim
+        q = F.linear(x.to(dt), self.q.weight.to(dt))
+        kv = F.linear(y.to(dt), self.kv.weight.to(dt))
+        if self.q_bias is not None:
+            q = q + self.q_bias.to(dt)
+            kv = kv + torch.cat(
+                [torch.zeros_like(self.v_bias), self.v_bias]).to(dt)
+        kv_bias = None
+        if kv_mask is not None:
+            # every sample keeps a valid column (the BB fusing falls back to
+            # the in-box set when the out-box set is empty)
+            kv_bias = torch.where(kv_mask, 0.0, -1e30).to(torch.float32)
+        out = flash_attention_mh(q, kv[..., :A], kv[..., A:],
+                                 scale=self.scale, num_heads=self.num_heads,
+                                 kv_bias=kv_bias)
+        return linear(out, self.proj, dt)
+
+
+class MCABlock(nn.Module):
+    """The BB-focused classifier's cross-attention block, "MCA" (reference
+    modeling_finetune.py:162-191): norm1 on both x and y, cross-attention,
+    then an MLP, both residual (no drop path, as in the JAX model)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = False, qk_scale: Optional[float] = None,
+                 init_values: float = 0.0,
+                 dtype: torch.dtype = torch.float32, generator=None):
+        super().__init__()
+        self.dtype = dtype
+        self.norm1 = nn.LayerNorm(dim, eps=1e-6)
+        self.attn = CrossAttention(dim, num_heads, qkv_bias, qk_scale,
+                                   dtype=dtype, generator=generator)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-6)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, generator)
+        init_trunc_normal(self.mlp, generator)
+        if init_values > 0:
+            self.gamma_1 = nn.Parameter(torch.full((dim,), init_values))
+            self.gamma_2 = nn.Parameter(torch.full((dim,), init_values))
+        else:
+            self.gamma_1 = self.gamma_2 = None
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor,
+                kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        a = self.attn(layer_norm(x, self.norm1, self.dtype),
+                      layer_norm(y, self.norm1, self.dtype), kv_mask)
+        if self.gamma_1 is not None:
+            a = a * self.gamma_1.to(a.dtype)
+        x = x + a
+        m = self.mlp(layer_norm(x, self.norm2, self.dtype))
+        if self.gamma_2 is not None:
+            m = m * self.gamma_2.to(m.dtype)
+        return x + m
+
+
+class SoftAttention(nn.Module):
+    """Soft attention pooling of the 'soft_attn' fusing mode (reference
+    modeling_finetune.py:264-303), in its literal masked form: with
+    step_dim = 1 it reduces to mean(a) * sum(x) over the selected tokens
+    (mofo_tpu/models/layers.py:687-730)."""
+
+    def __init__(self, feature_dim: int, bias: bool = True,
+                 generator=None):
+        super().__init__()
+        bound = math.sqrt(6.0)  # kaiming_uniform_ with fan_in = 1
+        self.weight = nn.Parameter(torch.empty(feature_dim, 1))
+        with torch.no_grad():
+            self.weight.uniform_(-bound, bound, generator=generator)
+        self.b = nn.Parameter(torch.zeros(1)) if bias else None
+
+    def forward(self, x: torch.Tensor,
+                token_mask: torch.Tensor) -> torch.Tensor:
+        eij = torch.matmul(x.float(), self.weight)[..., 0]
+        if self.b is not None:
+            eij = eij + self.b
+        a = torch.exp(torch.tanh(eij)) * token_mask.float()
+        a = a / (a.sum(dim=1, keepdim=True) + 1e-10)
+        count = token_mask.sum(dim=1).clamp(min=1).float()
+        mean_a = a.sum(dim=1) / count
+        sum_x = (x * token_mask[..., None].to(x.dtype)).sum(dim=1)
+        return (mean_a[:, None] * sum_x.float()).to(x.dtype)

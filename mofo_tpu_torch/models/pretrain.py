@@ -61,14 +61,16 @@ class PretrainEncoder(nn.Module):
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
-    def forward(self, x: torch.Tensor, vis_idx: torch.Tensor):
+    def forward(self, x: torch.Tensor, vis_idx: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         """x: flat patch rows (B, N, P) or a clip (B, T, H, W, C); vis_idx
-        (B, N_vis). Returns (B, N_vis, D)."""
+        (B, N_vis); `generator` draws the drop-path masks. Returns
+        (B, N_vis, D)."""
         tokens = self.patch_embed(x)
         tokens = tokens + self.pos_embed.to(tokens.dtype)
         x_vis = gather_tokens(tokens, vis_idx)
         for blk in self.blocks:
-            x_vis = blk(x_vis)
+            x_vis = blk(x_vis, generator)
         return layer_norm(x_vis, self.norm, self.dtype)
 
 
@@ -91,9 +93,10 @@ class PretrainDecoder(nn.Module):
         self.head = nn.Linear(embed_dim, num_classes)
         init_linear(self.head, generator)
 
-    def forward(self, x: torch.Tensor, return_token_num: int):
+    def forward(self, x: torch.Tensor, return_token_num: int,
+                generator: Optional[torch.Generator] = None):
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         if return_token_num > 0:
             x = x[:, -return_token_num:]
         return linear(layer_norm(x, self.norm, self.dtype), self.head,
@@ -142,11 +145,13 @@ class PretrainVisionTransformer(nn.Module):
         )
 
     def forward(self, x: torch.Tensor, vis_idx: torch.Tensor,
-                masked_idx: torch.Tensor) -> torch.Tensor:
+                masked_idx: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: flat patch rows (B, N, P) or a clip (B, T, H, W, C);
-        vis_idx (B, N_vis), masked_idx (B, N_mask) from mask_to_indices.
+        vis_idx (B, N_vis), masked_idx (B, N_mask) from mask_to_indices;
+        `generator` draws the drop-path masks (needed at a rate > 0).
         Returns (B, N_mask, decoder_num_classes) pixel predictions."""
-        x_vis = self.encoder(x.to(self.dtype), vis_idx)
+        x_vis = self.encoder(x.to(self.dtype), vis_idx, generator)
         x_vis = linear(x_vis, self.encoder_to_decoder, self.dtype)
         B = x_vis.shape[0]
         # decoder table gathered to follow the (visible ++ masked) order,
@@ -156,4 +161,4 @@ class PretrainVisionTransformer(nn.Module):
         pos_mask = gather_tokens(pos, masked_idx)
         mask_token = self.mask_token.to(self.dtype)
         x_full = torch.cat([x_vis + pos_vis, mask_token + pos_mask], dim=1)
-        return self.decoder(x_full, masked_idx.shape[1])
+        return self.decoder(x_full, masked_idx.shape[1], generator)

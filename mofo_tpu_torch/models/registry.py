@@ -1,7 +1,7 @@
 """Model registry with the reference's names.
 
-Counterpart of mofo_tpu/models/registry.py (:39-80, the pretraining
-models; the finetuning models come with the finetune port).
+Counterpart of mofo_tpu/models/registry.py: the pretraining models
+(:39-80) and the finetuning ones (:85-155).
 create_model(name, device=..., dtype=..., seed=..., **overrides) returns
 the nn.Module on its device, initialised from `seed` on the CPU (so a seed
 gives the same weights on every device) and then moved.
@@ -14,6 +14,8 @@ from typing import Any, Callable, Dict
 import torch
 
 from mofo_tpu_torch.core.device import DeviceLike, resolve_device
+from mofo_tpu_torch.models.bb_focused import VisionTransformerBBFocused
+from mofo_tpu_torch.models.classifier import VisionTransformer
 from mofo_tpu_torch.models.pretrain import PretrainVisionTransformer
 
 _REGISTRY: Dict[str, Callable[..., Any]] = {}
@@ -84,3 +86,79 @@ def pretrain_videomae_tiny_debug(**kwargs):
     encoder + dim-32 decoder. Its 32-dim heads run on the CPU only: the
     CUDA attention kernels are built for 64-dim heads."""
     return _pretrain(64, 2, 2, 32, 2, **kwargs)
+
+
+# --- finetuning models (modeling_finetune.py:637-705) ----------------------
+
+
+def _vit(_embed_dim, _depth, _num_heads, _img_size=224, **kwargs):
+    cfg = dict(
+        img_size=_img_size,
+        patch_size=16,
+        embed_dim=_embed_dim,
+        depth=_depth,
+        num_heads=_num_heads,
+        mlp_ratio=4.0,
+        qkv_bias=True,
+    )
+    cfg.update(kwargs)  # explicit overrides win
+    return VisionTransformer(**cfg)
+
+
+@register_model
+def vit_small_patch16_224(**kwargs):
+    return _vit(384, 12, 6, **kwargs)
+
+
+@register_model
+def vit_base_patch16_224(**kwargs):
+    return _vit(768, 12, 12, **kwargs)
+
+
+@register_model
+def vit_base_patch16_384(**kwargs):
+    return _vit(768, 12, 12, _img_size=384, **kwargs)
+
+
+@register_model
+def vit_large_patch16_224(**kwargs):
+    return _vit(1024, 24, 16, **kwargs)
+
+
+@register_model
+def vit_large_patch16_384(**kwargs):
+    return _vit(1024, 24, 16, _img_size=384, **kwargs)
+
+
+@register_model
+def vit_large_patch16_512(**kwargs):
+    return _vit(1024, 24, 16, _img_size=512, **kwargs)
+
+
+@register_model
+def vit_tiny_debug(**kwargs):
+    """Rebuild-only CI preset (no reference counterpart): 2-block dim-64
+    classifier. Its 32-dim heads run on the CPU only."""
+    return _vit(64, 2, 2, **kwargs)
+
+
+@register_model
+def vit_base_patch16_224_feature_ext(**kwargs):
+    # the same module; call it with return_features=True
+    kwargs.setdefault("num_classes", 0)
+    return _vit(768, 12, 12, **kwargs)
+
+
+@register_model
+def vit_base_patch16_224_BB_focused(**kwargs):
+    cfg = dict(
+        img_size=224,
+        patch_size=16,
+        embed_dim=768,
+        depth=12,
+        num_heads=12,
+        mlp_ratio=4.0,
+        qkv_bias=True,
+    )
+    cfg.update(kwargs)
+    return VisionTransformerBBFocused(**cfg)

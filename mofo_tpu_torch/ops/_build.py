@@ -1,5 +1,6 @@
 """Builds the CUDA sources under mofo_tpu_torch/csrc into one shared library
-with a plain C interface and loads it with ctypes.
+with a plain C interface and loads it with ctypes (one nvcc call compiles
+every source).
 
 The library is compiled with nvcc for sm_90a at first use, into
 mofo_tpu_torch/build/ (git-ignored), under a name keyed by the sources'
@@ -21,7 +22,7 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "build"
-SOURCES = ("qkv_flash_attention.cu",)
+SOURCES = ("qkv_flash_attention.cu", "mh_flash_attention.cu")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -30,11 +31,14 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# name -> argtypes of the C entry points (see csrc/qkv_flash_attention.cu)
+# name -> argtypes of the C entry points (see the csrc/*.cu sources)
 SIGNATURES = {
     "qkv_attn_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "qkv_attn_bwd_dkv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
     "qkv_attn_bwd_dq": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
+    "mh_attn_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
+    "mh_attn_bwd_dkv": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P],
+    "mh_attn_bwd_dq": [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P],
 }
 
 

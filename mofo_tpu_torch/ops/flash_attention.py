@@ -1,14 +1,19 @@
-"""Fused-qkv multihead attention, forward and backward, as hand-written CUDA
-kernels for Hopper (csrc/qkv_flash_attention.cu).
+"""Multihead flash attention, forward and backward, as hand-written CUDA
+kernels for Hopper.
 
-Counterpart of mofo_tpu/ops/flash_attention.py's fused-qkv interface
-(flash_attention_qkv, :1341) and of the two TPU kernel families it runs:
-the forward (_qkv_fwd_impl / _mh_fwd_kernel) and the fused backward
-(_qkv_bwd_impl / _qkv_bwd_kernel, _qkv_bwd_kernel_houter).
-
-qkv is the fused (B, N, 3A) projection: [0, A) q, [A, 2A) k, [2A, 3A) v,
-A = H * D. The forward returns out (B, N, A) and a compact (B, H, N) f32
-row log-sum-exp; the backward returns one (B, N, 3A) dqkv.
+Two interfaces of mofo_tpu/ops/flash_attention.py and the TPU kernels they
+run:
+  - flash_attention_qkv (:1341), the fused-qkv self-attention of every
+    Block: K1 (_qkv_fwd_impl / _mh_fwd_kernel) and K2 (_qkv_bwd_impl /
+    _qkv_bwd_kernel, _qkv_bwd_kernel_houter), here csrc/qkv_flash_attention.cu.
+    qkv is the fused (B, N, 3A) projection: [0, A) q, [A, 2A) k, [2A, 3A) v,
+    A = H * D (D = 64). The forward returns out (B, N, A) and a compact
+    (B, H, N) f32 row log-sum-exp; the backward returns one (B, N, 3A) dqkv.
+  - flash_attention_mh (:901), separate q, k, v (B, N, A) with an optional
+    (B, N) f32 kv bias row (0 / -1e30), the masked cross-attention of the
+    BB-focused classifier's MCA block: K3 (_mh_fwd_impl / _mh_fwd_kernel
+    with has_bias, _mh_bwd_impl / _mh_dqkv_kernel), here
+    csrc/mh_flash_attention.cu, for D in {64, 256}.
 
 Dispatch is by the tensor's device: a CUDA tensor goes to the kernel (or
 the wrapper raises), a CPU tensor to the plain PyTorch version below, which
@@ -18,17 +23,23 @@ repeats the kernel's numerics (module docstring of the .cu file):
   - P is rounded to the input dtype before P.V; 1/l divides the output;
   - bf16 works in base 2 (exp2/log2, LSE in log2 units, dK rescaled by
     1/log2 e), f32 in base e;
-  - bf16 dS is the bf16 product of P with the rounded f32 (dP - delta).
+  - bf16 dS is the bf16 product of P with the rounded f32 (dP - delta);
+  - (K3) the bias is added to the scores after the scale fold.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 LOG2E = 1.4426950408889634
-HEAD_DIM = 64  # the one head dim the CUDA kernels are built for
+HEAD_DIM = 64  # the one head dim the fused-qkv CUDA kernels are built for
+MH_HEAD_DIMS = (64, 256)  # the head dims of the K3 kernels
 
-KERNELS = ("qkv_attn_fwd", "qkv_attn_bwd_dkv", "qkv_attn_bwd_dq")
+QKV_KERNELS = ("qkv_attn_fwd", "qkv_attn_bwd_dkv", "qkv_attn_bwd_dq")
+MH_KERNELS = ("mh_attn_fwd", "mh_attn_bwd_dkv", "mh_attn_bwd_dq")
+KERNELS = QKV_KERNELS + MH_KERNELS
 # launches of each CUDA kernel by its wrapper since the last reset
 launch_counts = dict.fromkeys(KERNELS, 0)
 
@@ -238,3 +249,228 @@ def flash_attention_qkv(
     if qkv.shape[-1] % (3 * num_heads):
         raise ValueError(f"qkv width {qkv.shape[-1]} vs {num_heads} heads")
     return _QKVFlash.apply(qkv.contiguous(), float(scale), int(num_heads))
+
+
+# ---------------------------------------------------------------------------
+# K3: separate q, k, v with an optional kv bias row
+# ---------------------------------------------------------------------------
+
+
+def _heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    B, N, A = x.shape
+    return x.reshape(B, N, heads, A // heads).transpose(1, 2)
+
+
+def _bias4(kv_bias):
+    return 0.0 if kv_bias is None else kv_bias.float()[:, None, None, :]
+
+
+def attention_mh_fwd_plain(q, k, v, kv_bias, scale: float, heads: int):
+    """Plain PyTorch version of mh_attn_fwd: (out (B, N, A), lse (B, H, N)
+    f32). The bias is added after the scale fold."""
+    dt = q.dtype
+    q_scale, _, base2 = _scales(scale, dt)
+    qs = _heads(q, heads) * torch.tensor(q_scale, dtype=dt, device=q.device)
+    s = torch.matmul(qs.float(), _heads(k, heads).float().transpose(-1, -2))
+    s = s + _bias4(kv_bias)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m) if base2 else torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul(p.to(dt).float(), _heads(v, heads).float()) / l
+    lse = (m + (torch.log2(l) if base2 else torch.log(l)))[..., 0]
+    return merge_heads(o.to(dt)), lse
+
+
+def attention_mh_bwd_plain(q, k, v, kv_bias, out, lse, dout, scale: float,
+                           heads: int):
+    """Plain PyTorch version of mh_attn_bwd_dkv and mh_attn_bwd_dq:
+    (dq, dk, dv), each (B, N, A)."""
+    dt = q.dtype
+    q_scale, k_scale, base2 = _scales(scale, dt)
+    kh, vh = _heads(k, heads), _heads(v, heads)
+    qs = _heads(q, heads) * torch.tensor(q_scale, dtype=dt, device=q.device)
+    ks = kh * torch.tensor(k_scale, dtype=dt, device=q.device)
+    o, do = _heads(out, heads).float(), _heads(dout, heads).float()
+    s = torch.matmul(qs.float(), kh.float().transpose(-1, -2))
+    s = s + _bias4(kv_bias)
+    p = torch.exp2(s - lse[..., None]) if base2 else torch.exp(
+        s - lse[..., None]
+    )
+    p16 = p.to(dt)
+    dp = torch.matmul(do, vh.float().transpose(-1, -2))
+    delta = (do * o).sum(dim=-1, keepdim=True)
+    dv = torch.matmul(p16.float().transpose(-1, -2), do)
+    ds = (p16 * (dp - delta).to(dt)).float()  # in f32 this is p*(dp-delta)
+    dk = torch.matmul(ds.transpose(-1, -2), qs.float())
+    if base2:
+        dk = dk * torch.tensor(1.0 / LOG2E, dtype=torch.float32)
+    dq = torch.matmul(ds, ks.float())
+    return tuple(merge_heads(g.to(dt)) for g in (dq, dk, dv))
+
+
+def _check_mh(q, k, v, kv_bias, heads: int):
+    """Raises on inputs the K3 kernels do not take. Returns D."""
+    if q.ndim != 3 or q.shape[-1] % heads:
+        raise ValueError(f"q must be (B, N, H*D), got {tuple(q.shape)}")
+    B, N, A = q.shape
+    D = A // heads
+    if D not in MH_HEAD_DIMS:
+        raise ValueError(f"head dim {D} unsupported: the kernels are built "
+                         f"for {MH_HEAD_DIMS}")
+    if q.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels need CUDA tensors, got {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"unsupported dtype {q.dtype} (float32, bfloat16)")
+    if B * heads > 65535:
+        raise ValueError("B * H exceeds the kernels' grid limit of 65535")
+    align = 8 if q.dtype == torch.bfloat16 else 1  # 16-byte bf16 rows
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must be {tuple(q.shape)} {q.dtype} on "
+                             f"{q.device}, like q")
+        if t.stride(2) != 1 or t.stride(0) != N * t.stride(1):
+            raise ValueError(f"{name} needs unit column stride and rows "
+                             "packed by batch")
+        if t.stride(1) % align or t.data_ptr() % 16:
+            raise ValueError(f"{name}: the CUDA kernels need 16-byte "
+                             "aligned rows")
+    if kv_bias is not None and (
+        kv_bias.shape != (B, N) or kv_bias.dtype != torch.float32
+        or not kv_bias.is_contiguous() or kv_bias.device != q.device
+    ):
+        raise ValueError("kv_bias must be a contiguous (B, N) float32 "
+                         "tensor on q's device")
+    return D
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def mh_attn_fwd(q, k, v, kv_bias, scale: float, heads: int):
+    """Forward: (out (B, N, A), lse (B, H, N) f32). Kernel on CUDA, plain
+    version on the CPU."""
+    if q.device.type == "cpu":
+        return attention_mh_fwd_plain(q, k, v, kv_bias, scale, heads)
+    D = _check_mh(q, k, v, kv_bias, heads)
+    B, N, A = q.shape
+    q_scale, _, base2 = _scales(scale, q.dtype)
+    out = torch.empty((B, N, A), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, heads, N), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _launch("mh_attn_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                _ptr(kv_bias), out.data_ptr(), lse.data_ptr(), B, N, heads,
+                D, q.stride(1), k.stride(1), v.stride(1), q_scale,
+                int(base2), _stream(q))
+    return out, lse
+
+
+def mh_delta(out, dout, heads: int) -> torch.Tensor:
+    """delta = rowsum(dO * O) per head, (B, H, N) f32: one reduction before
+    the backward kernels, as the TPU computes it in XLA
+    (mofo_tpu/ops/flash_attention.py:751-758)."""
+    return (_heads(dout, heads).float() * _heads(out, heads).float()).sum(
+        dim=-1).contiguous()
+
+
+def _check_mh_bwd(q, out, lse, dout, heads: int):
+    B, N, A = q.shape
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous and shaped like q")
+    if lse.shape != (B, heads, N) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous():
+        raise ValueError("lse must be a contiguous (B, H, N) float32")
+
+
+def mh_attn_bwd_dkv(q, k, v, kv_bias, dout, lse, delta, dk, dv,
+                    scale: float, heads: int):
+    """Writes dK and dV (CUDA only): dk and dv share one row stride, as the
+    two halves of a (B, N, 2A) dkv do."""
+    D = _check_mh(q, k, v, kv_bias, heads)
+    B, N, _ = q.shape
+    if dk.stride() != dv.stride() or dk.stride(2) != 1 or \
+            dk.shape != q.shape or dk.dtype != q.dtype:
+        raise ValueError("dk and dv must be shaped like q, with one stride")
+    q_scale, _, base2 = _scales(scale, q.dtype)
+    dk_fix = 1.0 / LOG2E if base2 else 1.0
+    with torch.cuda.device(q.device):
+        _launch("mh_attn_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                _ptr(kv_bias), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, heads,
+                D, q.stride(1), k.stride(1), v.stride(1), dk.stride(1),
+                q_scale, dk_fix, int(base2), _stream(q))
+
+
+def mh_attn_bwd_dq(q, k, v, kv_bias, dout, lse, delta, dq, scale: float,
+                   heads: int):
+    """Writes dQ (B, N, A) contiguous (CUDA only)."""
+    D = _check_mh(q, k, v, kv_bias, heads)
+    B, N, _ = q.shape
+    if dq.shape != q.shape or dq.dtype != q.dtype or not dq.is_contiguous():
+        raise ValueError("dq must be contiguous and shaped like q")
+    q_scale, k_scale, base2 = _scales(scale, q.dtype)
+    with torch.cuda.device(q.device):
+        _launch("mh_attn_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                _ptr(kv_bias), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dq.data_ptr(), B, N, heads, D,
+                q.stride(1), k.stride(1), v.stride(1), q_scale, k_scale,
+                int(base2), _stream(q))
+
+
+def mh_attn_bwd(q, k, v, kv_bias, out, lse, dout, scale: float, heads: int):
+    """Backward: (dq, dk, dv). On CUDA, two kernels: dK/dV into one
+    (B, N, 2A) buffer (mh_attn_bwd_dkv; dk and dv are its halves) and dQ
+    (mh_attn_bwd_dq); plain version on the CPU."""
+    if q.device.type == "cpu":
+        return attention_mh_bwd_plain(q, k, v, kv_bias, out, lse, dout,
+                                      scale, heads)
+    _check_mh_bwd(q, out, lse, dout, heads)
+    A = q.shape[-1]
+    delta = mh_delta(out, dout, heads)
+    dkv = torch.empty(q.shape[:2] + (2 * A,), dtype=q.dtype, device=q.device)
+    dk, dv = dkv[..., :A], dkv[..., A:]
+    dq = torch.empty_like(q)
+    mh_attn_bwd_dkv(q, k, v, kv_bias, dout, lse, delta, dk, dv, scale, heads)
+    mh_attn_bwd_dq(q, k, v, kv_bias, dout, lse, delta, dq, scale, heads)
+    return dq, dk, dv
+
+
+class _MHFlash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, kv_bias, scale, heads):
+        out, lse = mh_attn_fwd(q, k, v, kv_bias, scale, heads)
+        ctx.save_for_backward(q, k, v, kv_bias, out, lse)
+        ctx.scale, ctx.heads = scale, heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, kv_bias, out, lse = ctx.saved_tensors
+        dq, dk, dv = mh_attn_bwd(q, k, v, kv_bias, out, lse,
+                                 dout.contiguous(), ctx.scale, ctx.heads)
+        # the bias is a 0 / -1e30 mask encoding: no gradient
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_mh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       *, scale: float, num_heads: int,
+                       kv_bias: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Multihead attention in token-major flat layout.
+
+    q, k, v: (B, N, H*Dh); k and v may be column views of one (B, N, 2A)
+    kv projection. kv_bias: optional (B, N) additive bias per kv position,
+    shared across heads and queries (0 / -1e30 masks kv columns exactly:
+    their weight underflows to 0 in forward and backward); every row must
+    keep one unmasked column. Returns (B, N, H*Dh). Runs the CUDA kernels on
+    CUDA tensors and their plain versions on CPU ones; differentiable in
+    q, k and v through both.
+    """
+    if q.shape[-1] % num_heads:
+        raise ValueError(f"width {q.shape[-1]} vs {num_heads} heads")
+    if kv_bias is not None:
+        if kv_bias.shape != (q.shape[0], k.shape[1]):
+            raise ValueError(f"kv_bias {tuple(kv_bias.shape)} must be (B, N)")
+        kv_bias = kv_bias.detach().float().contiguous()
+    return _MHFlash.apply(q, k, v, kv_bias, float(scale), int(num_heads))

@@ -1,0 +1,178 @@
+"""Finetuning train and eval steps, plain and BB-focused.
+
+Counterpart of mofo_tpu/train/finetune_step.py (reference
+engine_for_finetuning.py:25-225 and train_one_epoch_BB_focused, :504-558):
+mixup, the criterion choice, the model (with per-frame boxes when
+bb_focused), the backward pass, update_freq gradient accumulation, the
+gradient norm, the optimizer update and EMA; the eval step's loss, acc1
+and acc5 with the `valid` weighting.
+
+Random draws have three roles, as the JAX step splits its key three ways:
+mixup draws on the host from an np.random.Generator seeded from
+cfg.seed, drop path on the device from the
+torch.Generator the caller hands each step, and dropout, which is not
+ported (every recipe runs it at rate 0). The fp16 loss scale, adahessian
+(second_order) and in-step augmentation (augment_fn) are not ported yet
+and raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from mofo_tpu_torch.core.config import FinetuneConfig
+from mofo_tpu_torch.core.device import DeviceLike, device_of, resolve_device
+from mofo_tpu_torch.ops.mixup import Mixup, MixupParams
+from mofo_tpu_torch.train import losses
+from mofo_tpu_torch.train.optim import global_norm
+from mofo_tpu_torch.train.train_state import TrainState, ema_update
+
+Batch = Dict[str, torch.Tensor]
+
+
+def build_criterion(cfg: FinetuneConfig, mixup_active: bool) -> Callable:
+    """Reference criterion selection (run_class_finetuning.py:476-495)."""
+    if mixup_active:
+        return losses.soft_target_cross_entropy  # takes soft targets
+    if cfg.smoothing > 0:
+        return lambda logits, targets: losses.label_smoothing_cross_entropy(
+            logits, targets, cfg.smoothing)
+    return losses.cross_entropy
+
+
+def mixup_for(cfg: FinetuneConfig) -> Mixup:
+    return Mixup(mixup_alpha=cfg.mixup, cutmix_alpha=cfg.cutmix,
+                 cutmix_minmax=cfg.cutmix_minmax, prob=cfg.mixup_prob,
+                 switch_prob=cfg.mixup_switch_prob, mode=cfg.mixup_mode,
+                 label_smoothing=cfg.smoothing, num_classes=cfg.nb_classes)
+
+
+def _check_device(model: torch.nn.Module, device: DeviceLike):
+    dev = resolve_device(device)
+    mdev = device_of(model)
+    if mdev is None or mdev.type != dev.type or (
+        dev.index is not None and mdev.index != dev.index
+    ):
+        raise ValueError(f"the model is on {mdev}, the step on {dev}")
+    return dev
+
+
+def make_finetune_step(
+    model: torch.nn.Module,
+    tx,
+    cfg: FinetuneConfig,
+    lr_schedule: Optional[np.ndarray] = None,
+    bb_focused: bool = False,
+    augment_fn: Optional[Callable] = None,
+    second_order: bool = False,
+    device: DeviceLike = None,
+) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """Returns step_fn(state, batch, generator, mixup_params=None) ->
+    (state, metrics).
+
+    The step runs on `device` (CUDA unless the caller passes "cpu"; raises
+    without a GPU), where the model must already be. batch: 'clip'
+    (B, T, H, W, C) normalized clips, 'label' (B,) int and, when
+    bb_focused, 'boxes' (B, T, 4). With update_freq > 1, B splits into that
+    many microbatches. `generator` (on the step's device) draws drop path;
+    `mixup_params` replaces the mixup draws, one MixupParams per
+    microbatch (or a single one when update_freq is 1), for tests.
+    Metrics: loss, grad_norm and, with a schedule, lr - tensors left on
+    the device.
+    """
+    if augment_fn is not None:
+        raise NotImplementedError("augment_fn: ops/augment is not ported")
+    if second_order:
+        raise NotImplementedError("second_order (adahessian) is not ported")
+    if cfg.dtype == "float16":
+        raise NotImplementedError("the fp16 loss scale is not ported; "
+                                  "finetune in bfloat16 or float32")
+    dev = _check_device(model, device)
+    mixup_fn = mixup_for(cfg)
+    mixup_active = mixup_fn.enabled
+    criterion = build_criterion(cfg, mixup_active)
+    rng = np.random.default_rng(cfg.seed)
+    k = cfg.update_freq
+
+    def step_fn(state: TrainState, batch: Batch,
+                generator: Optional[torch.Generator],
+                mixup_params: Union[MixupParams, Sequence[MixupParams],
+                                    None] = None):
+        model.train()
+        B = batch["clip"].shape[0]
+        if B % k:
+            raise ValueError(f"batch {B} does not split into {k} micro")
+        if isinstance(mixup_params, MixupParams):
+            mixup_params = [mixup_params]
+        mb = B // k
+        for p in state.params.values():
+            p.grad = None
+        loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(k):
+            micro = {n: v[i * mb:(i + 1) * mb] for n, v in batch.items()}
+            clip, target = micro["clip"], micro["label"]
+            if mixup_active:
+                clip, target = mixup_fn(
+                    clip, target, rng,
+                    None if mixup_params is None else mixup_params[i])
+            if bb_focused:
+                logits = model(clip, micro["boxes"], generator)
+            else:
+                logits = model(clip, generator)
+            loss = criterion(logits, target)
+            loss.backward()
+            loss_sum = loss_sum + loss.detach()
+        grads = {n: p.grad for n, p in state.params.items()}
+        if k > 1:
+            grads = dict(zip(grads, torch._foreach_div(list(grads.values()),
+                                                       k)))
+        loss = loss_sum / k if k > 1 else loss_sum
+        grad_norm = global_norm(grads.values())
+        tx.update(grads, state.opt_state, state.params)
+        if state.ema_params is not None:
+            ema_update(state.ema_params, state.params, cfg.model_ema_decay)
+        metrics = {"loss": loss, "grad_norm": grad_norm}
+        if lr_schedule is not None:
+            metrics["lr"] = torch.tensor(
+                float(lr_schedule[min(state.step, len(lr_schedule) - 1)]),
+                device=dev)
+        state.step += 1
+        return state, metrics
+
+    return step_fn
+
+
+def make_eval_step(model: torch.nn.Module, cfg: FinetuneConfig,
+                   bb_focused: bool = False,
+                   device: DeviceLike = None) -> Callable[[Batch], Dict]:
+    """eval_fn(batch) -> {loss, acc1, acc5, n_valid, logits (f32)}
+    (validation_one_epoch, engine_for_finetuning.py:172-225). An optional
+    batch['valid'] flags the real rows of a padded last batch; the metrics
+    average over those."""
+    del cfg  # the JAX signature; nothing in it changes the eval
+    _check_device(model, device)
+
+    @torch.no_grad()
+    def eval_fn(batch: Batch) -> Dict[str, torch.Tensor]:
+        model.eval()
+        clip, label = batch["clip"], batch["label"]
+        logits = (model(clip, batch["boxes"]) if bb_focused
+                  else model(clip))
+        valid = batch.get("valid")
+        w = (torch.ones(label.shape[0], device=logits.device)
+             if valid is None else valid.float())
+        n = w.sum().clamp(min=1.0)
+        nll = losses.cross_entropy_per_sample(logits, label)
+        hit1, hit5 = losses.topk_hits(logits, label, topk=(1, 5))
+        return {
+            "loss": (nll * w).sum() / n,
+            "acc1": (hit1 * w).sum() / n * 100.0,
+            "acc5": (hit5 * w).sum() / n * 100.0,
+            "n_valid": n,
+            "logits": logits.float(),
+        }
+
+    return eval_fn

@@ -1,14 +1,16 @@
-"""AdamW with per-step LR / WD schedules, the no-decay mask and global-norm
-clipping, as plain tensor code.
+"""AdamW with per-step LR / WD schedules, the no-decay mask, global-norm
+clipping and layer-wise LR decay, as plain tensor code.
 
 Counterpart of the AdamW path of mofo_tpu/train/optim.create_optimizer
 (:500-670), whose optax chain is
-    [clip_by_global_norm] -> scale_by_adam -> + wd(t) * p (masked) -> * -lr(t)
+    [clip_by_global_norm] -> scale_by_adam -> + wd(t) * p (masked)
+        -> * lr_scale (per parameter, layer decay) -> * -lr(t)
 The update below repeats that chain operation for operation, so the two
 packages agree to f32 rounding (reference semantics: torch AdamW,
-p -= lr * (m_hat / (sqrt(v_hat) + eps) + wd * p), with the groups of
-optim_factory.get_parameter_groups). Parameters and moments are updated in
-place. The rest of the optimizer zoo and layer decay are not ported yet.
+p -= lr * lr_scale * (m_hat / (sqrt(v_hat) + eps) + wd * p), with the
+groups of optim_factory.get_parameter_groups and the scales of
+LayerDecayValueAssigner). Parameters and moments are updated in place. The
+rest of the optimizer zoo and `trainable` are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +41,43 @@ def decay_mask(params: Params) -> Dict[str, bool]:
     return {n: not is_no_decay(n, p) for n, p in params.items()}
 
 
+def layer_id_for_name(name: str, num_layers: int) -> int:
+    """get_num_layer_for_vit (optim_factory.py:24-35) on the port's
+    parameter names, skipping the BB-focused model's 'backbone.' prefix
+    (mofo_tpu/train/optim.py:78-95): 0 for the patch embedding and tokens,
+    i + 1 for blocks.i, num_layers - 1 for everything else."""
+    parts = name.split(".")
+    if parts[0] == "backbone":
+        parts = parts[1:]
+    head = parts[0]
+    if head in NO_DECAY_NAMES or head.startswith("patch_embed"):
+        return 0
+    if head == "blocks" and len(parts) > 1 and parts[1].isdigit():
+        return int(parts[1]) + 1
+    return num_layers - 1
+
+
+def infer_depth(names: Iterable[str]) -> int:
+    """Block depth from the parameter names (the largest blocks.i plus
+    one), 12 when there are no blocks (mofo_tpu/train/optim.py:98-112)."""
+    depth = 0
+    for name in names:
+        parts = name.split(".")
+        for a, b in zip(parts, parts[1:]):
+            if a == "blocks" and b.isdigit():
+                depth = max(depth, int(b) + 1)
+    return depth or 12
+
+
+def layer_decay_scales(params: Params, depth: int,
+                       layer_decay: float) -> Dict[str, float]:
+    """name -> layer_decay ** (depth + 1 - layer_id)
+    (run_class_finetuning.py:441-443)."""
+    num_layers = depth + 2
+    values = [layer_decay ** (depth + 1 - i) for i in range(num_layers)]
+    return {n: values[layer_id_for_name(n, num_layers)] for n in params}
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
     """Global L2 norm in f32 (reference get_grad_norm_, utils.py:376-388):
     the norm of the per-tensor norms, a few launches for any count."""
@@ -54,15 +93,18 @@ class AdamWState:
 
 
 class AdamW:
-    """optax's scale_by_adam -> scheduled decoupled weight decay -> -lr(t),
-    after an optional clip_by_global_norm."""
+    """optax's scale_by_adam -> scheduled decoupled weight decay -> the
+    per-parameter lr scale (layer decay) -> -lr(t), after an optional
+    clip_by_global_norm."""
 
     def __init__(self, params: Params, *, lr_schedule: np.ndarray,
                  wd_schedule: Optional[np.ndarray] = None,
                  weight_decay: float = 0.05,
                  betas: Tuple[float, float] = (0.9, 0.999),
-                 eps: float = 1e-8, clip_grad: Optional[float] = None):
+                 eps: float = 1e-8, clip_grad: Optional[float] = None,
+                 lr_scales: Optional[Dict[str, float]] = None):
         self.mask = decay_mask(params)
+        self.lr_scales = lr_scales
         self.lr_schedule = np.asarray(lr_schedule, np.float32)
         self.wd_schedule = (
             None if wd_schedule is None
@@ -125,6 +167,12 @@ class AdamW:
                 [u[i] for i in decayed],
                 torch._foreach_mul([p[i] for i in decayed], float(wd)),
             )
+        if self.lr_scales is not None:
+            groups: Dict[float, list] = {}
+            for i, n in enumerate(names):
+                groups.setdefault(self.lr_scales[n], []).append(u[i])
+            for scale, group in groups.items():
+                torch._foreach_mul_(group, scale)
         torch._foreach_mul_(u, -lr)
         torch._foreach_add_(p, u)
         state.count = count
@@ -136,11 +184,20 @@ def create_optimizer(params: Params, *, opt: str = "adamw",
                      weight_decay: float = 0.05,
                      betas: Tuple[float, float] = (0.9, 0.999),
                      eps: float = 1e-8,
-                     clip_grad: Optional[float] = None) -> AdamW:
+                     clip_grad: Optional[float] = None,
+                     layer_decay: Optional[float] = None,
+                     depth: Optional[int] = None) -> AdamW:
     """The AdamW path of mofo_tpu.train.optim.create_optimizer. `params`
-    maps the model's parameter names to its tensors."""
+    maps the model's parameter names to its tensors. With layer_decay < 1
+    each update is scaled by layer_decay_scales (depth inferred from the
+    names unless given)."""
     if opt.lower() != "adamw":
         raise ValueError(f"optimizer {opt!r} is not ported yet (adamw only)")
+    scales = None
+    if layer_decay is not None and layer_decay < 1.0:
+        scales = layer_decay_scales(
+            params, infer_depth(params) if depth is None else depth,
+            layer_decay)
     return AdamW(params, lr_schedule=lr_schedule, wd_schedule=wd_schedule,
                  weight_decay=weight_decay, betas=betas, eps=eps,
-                 clip_grad=clip_grad)
+                 clip_grad=clip_grad, lr_scales=scales)

@@ -55,8 +55,11 @@ def generate_mask(batch: Batch, cfg: PretrainConfig,
 
 def loss_for_batch(model: torch.nn.Module, batch: Batch,
                    mask: torch.Tensor, cfg: PretrainConfig,
-                   loss_weight) -> torch.Tensor:
-    """The reconstruction loss of one (micro)batch under a given mask."""
+                   loss_weight,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """The reconstruction loss of one (micro)batch under a given mask;
+    `generator` also draws the model's drop-path masks."""
     vis_idx, masked_idx = masking.mask_to_indices(mask, cfg.num_masked)
     bf16 = cfg.dtype == "bfloat16"
     clip = batch["clip"]
@@ -80,7 +83,7 @@ def loss_for_batch(model: torch.nn.Module, batch: Batch,
             patch_size=cfg.patch_size,
         ).to(torch.float32)
         weights = 1.0 + loss_weight * in_masked
-    pred = model(tokens_pix, vis_idx, masked_idx)
+    pred = model(tokens_pix, vis_idx, masked_idx, generator)
     return patchify.masked_mse_loss(pred, targets, weights=weights)
 
 
@@ -98,7 +101,8 @@ def make_pretrain_step(
     without a GPU), where the model must already be. batch['clip'] (B, T,
     H, W, C) holds normalized clips and, for motion masking, batch['boxes']
     (B, T, 4). With update_freq > 1, B must divide into that many
-    microbatches. `generator` (on the step's device) draws the masks;
+    microbatches. `generator` (on the step's device) draws the masks (and
+    drop path, which pretraining runs at rate 0);
     `mask` (B, N) bool replaces the draw, for tests. loss_weight is the
     MOFO in-box weight (0.0 if unused). Metrics: loss, grad_norm and, with
     a schedule, lr — tensors left on the device.
@@ -126,7 +130,8 @@ def make_pretrain_step(
             micro = {n: v[i * mb:(i + 1) * mb] for n, v in batch.items()}
             m = (generate_mask(micro, cfg, generator) if mask is None
                  else mask[i * mb:(i + 1) * mb])
-            loss = loss_for_batch(model, micro, m, cfg, loss_weight)
+            loss = loss_for_batch(model, micro, m, cfg, loss_weight,
+                                  generator)
             loss.backward()
             loss_sum = loss_sum + loss.detach()
         grads = {n: p.grad for n, p in state.params.items()}

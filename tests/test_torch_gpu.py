@@ -15,7 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from mofo_tpu_torch.core.config import MaskingConfig, PretrainConfig
+from mofo_tpu_torch.core.config import (
+    FinetuneConfig,
+    MaskingConfig,
+    PretrainConfig,
+)
 from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.ops import flash_attention as fa
 from mofo_tpu_torch.ops import masking
@@ -23,9 +27,15 @@ from mofo_tpu_torch.tools.main_path import (
     attention_against_plain,
     check_against_plain,
     compare_with_plain,
+    finetune_model,
+    masked_kv_grad,
+    mh_attention_against_plain,
+    mh_inputs,
     planted_faults,
+    synthetic_finetune_batch,
 )
 from mofo_tpu_torch.train import optim
+from mofo_tpu_torch.train.finetune_step import make_finetune_step
 from mofo_tpu_torch.train.pretrain_step import make_pretrain_step
 from mofo_tpu_torch.train.train_state import TrainState
 
@@ -65,7 +75,8 @@ def test_autograd_runs_the_kernels(cuda):
     fa.reset_launch_counts()
     (fa.flash_attention_qkv(qkv, scale=SCALE, num_heads=2) ** 2).sum() \
         .backward()
-    assert fa.launch_counts == dict.fromkeys(fa.KERNELS, 1)
+    assert fa.launch_counts == {**dict.fromkeys(fa.QKV_KERNELS, 1),
+                                **dict.fromkeys(fa.MH_KERNELS, 0)}
     ref = x.cpu().clone().requires_grad_(True)
     (fa.flash_attention_qkv(ref, scale=SCALE, num_heads=2) ** 2).sum() \
         .backward()
@@ -114,4 +125,82 @@ def test_step_on_the_card_matches_the_cpu(cuda):
                     {"clip": clip.to(dev), "boxes": boxes.to(dev)}, None,
                     0.5, mask=mask.to(dev))
         got[dev] = (float(m["loss"]), float(m["grad_norm"]))
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,N,H,D", [(10, 1568, 3, 256), (10, 1568, 12, 64),
+                                     (4, 100, 1, 256), (4, 100, 2, 64)])
+def test_mh_kernels_match_plain(cuda, dtype, B, N, H, D, bias):
+    """K3 at chip_smoke.py's geometries (the MCA is 3 x 256): within the
+    bounds, masked kv rows with zero dK/dV, planted faults rejected."""
+    q, k, v, b = mh_inputs(B, N, H, D, dtype, 0, cuda, bias)
+    got, want = mh_attention_against_plain(q, k, v, b, H, D ** -0.5)
+    torch.cuda.synchronize()
+    check_against_plain(got, want)
+    assert masked_kv_grad(got, b) == 0.0
+    ignored = None
+    if bias:
+        ignored, _ = mh_attention_against_plain(q, k, v, None, H, D ** -0.5)
+    for fault, outputs in planted_faults(got, ignored).items():
+        assert compare_with_plain(outputs, want)["beyond_bounds"], fault
+
+
+def test_mh_autograd_runs_the_kernels(cuda):
+    q, k, v, b = mh_inputs(2, 100, 1, 256, torch.float32, 1, cuda)
+    ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    fa.reset_launch_counts()
+    (fa.flash_attention_mh(*ts, scale=0.0625, num_heads=1, kv_bias=b)
+     ** 2).sum().backward()
+    assert fa.launch_counts == {**dict.fromkeys(fa.QKV_KERNELS, 0),
+                                **dict.fromkeys(fa.MH_KERNELS, 1)}
+    refs = [t.detach().cpu().clone().requires_grad_(True) for t in (q, k, v)]
+    (fa.flash_attention_mh(*refs, scale=0.0625, num_heads=1,
+                           kv_bias=b.cpu()) ** 2).sum().backward()
+    for t, r in zip(ts, refs):
+        np.testing.assert_allclose(t.grad.cpu().numpy(), r.grad.numpy(),
+                                   atol=5e-4, rtol=0)
+
+
+def test_mh_wrapper_rejects_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(1, 8, 128, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.mh_attn_fwd(x, x, x, None, 1.0, 1)
+    with pytest.raises(ValueError, match="dtype"):
+        h = x.half()
+        fa.mh_attn_fwd(h, h, h, None, 1.0, 2)
+    with pytest.raises(ValueError, match="kv_bias"):
+        fa.mh_attn_fwd(x, x, x, torch.zeros(1, 8, device=cuda,
+                                            dtype=torch.bfloat16), 1.0, 2)
+    with pytest.raises(ValueError, match="packed"):
+        t = torch.zeros(8, 1, 128, device=cuda).transpose(0, 1)
+        fa.mh_attn_fwd(x, t, x, None, 1.0, 2)
+
+
+def test_bb_finetune_step_on_the_card_matches_the_cpu(cuda):
+    """One f32 BB-focused MCA step of a small model (MCA 1 x 256): loss
+    and gradient norm on the card (kernels) against the CPU."""
+    cfg = FinetuneConfig(batch_size=2, input_size=32, num_frames=4,
+                         dtype="float32", drop_path=0.0, mixup=0.0,
+                         cutmix=0.0)
+    batch = synthetic_finetune_batch(2, torch.Generator().manual_seed(2),
+                                     "cpu")
+    batch = {"clip": batch["clip"][:, :4, :32, :32],
+             "boxes": batch["boxes"][:, :4] / 7, "label": batch["label"]}
+    lr = np.full(2, 1e-4, np.float32)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        model = finetune_model(cfg, device=dev, depth=2, embed_dim=256,
+                               num_heads=4, mca_num_heads=1)
+        named = dict(model.named_parameters())
+        tx = optim.create_optimizer(named, lr_schedule=lr, layer_decay=0.75)
+        step = make_finetune_step(model, tx, cfg, lr, bb_focused=True,
+                                  device=dev)
+        fa.reset_launch_counts()
+        _, m = step(TrainState.create(model, tx),
+                    {k: v.to(dev) for k, v in batch.items()}, None)
+        got[dev] = (float(m["loss"]), float(m["grad_norm"]))
+        if dev == "cuda":
+            assert min(fa.launch_counts.values()) >= 1
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-4)
