@@ -39,6 +39,26 @@ Phases, each printing one JSON line:
                Blocks, f32, B=2, same weights and mixup draws: loss and
                gradient norm on the card against the CPU; one sample has no
                in-box token, the other a box over the whole frame.
+  9. hm_kernels - the head-major kernels (K4) against their plain versions
+               at the ViT-S runner's decoder (B=32, H=3, N=1568), the TPU's
+               own gated geometry (B=2, H=6, N=1568), ragged N=100 and the
+               32-frame N=3136, bf16 and f32, D=64; planted faults (dQ
+               zeroed, the LSE in log2 units) must be rejected; then the
+               times at the runner's decoder shape, and (k1_vs_k4) how far
+               K1's numerics, which the ViT-S decoder ran before it took
+               the head-major route, lie from K4's on the same inputs.
+ 10. vits_step - the ViT-S MOFO pretrain step at full width (bf16, B=32):
+               1 warm-up + 5 timed steps, 12 K1/K2 launches (encoder) and 4
+               K4 launches (decoder) of each kernel per step, exactly.
+ 11. vits_parity - ViT-S width cut to 2+1 blocks, f32, B=1: card against
+               CPU as in phase 6; covers the f32 K4 kernels.
+ 12. runner  - the main path of this slice: the ViT-S MOFO pretrain runner
+               (mofo_tpu_torch.cli.pretrain_mofo.main, in this process) on
+               64 synthetic uint8 clips at B=32 for 2 epochs into a
+               temporary output dir, then again with --epochs 3, which must
+               resume at epoch 2; log.txt, checkpoint-{0,1,2}.pth, finite
+               losses and the launches per step are checked, and the step
+               time and the loader wait printed apart.
 Then the card's nvidia-smi line, the kernels line and, last, the ok line.
 Any failed check raises, and the script exits non-zero without the ok line.
 """
@@ -46,15 +66,18 @@ Any failed check raises, and the script exits non-zero without the ok line.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from mofo_tpu_torch.cli import pretrain_mofo
 from mofo_tpu_torch.core.config import (
     FinetuneConfig,
     MaskingConfig,
@@ -67,12 +90,16 @@ from mofo_tpu_torch.ops import masking
 from mofo_tpu_torch.tools.main_path import (
     FINETUNE_MODEL,
     MODEL,
+    VITS_MODEL,
     attention_against_plain,
     build_finetune_step,
     build_step,
     check_against_plain,
     compare_with_plain,
     finetune_model,
+    hm_attention_against_plain,
+    hm_inputs,
+    hm_planted_faults,
     masked_kv_grad,
     mh_attention_against_plain,
     mh_inputs,
@@ -93,6 +120,8 @@ SOURCES = {n: "mofo_tpu_torch/csrc/qkv_flash_attention.cu"
            for n in fa.QKV_KERNELS}
 SOURCES.update({n: "mofo_tpu_torch/csrc/mh_flash_attention.cu"
                 for n in fa.MH_KERNELS})
+SOURCES.update({n: "mofo_tpu_torch/csrc/hm_flash_attention.cu"
+                for n in fa.HM_KERNELS})
 TPU_FILE = "mofo_tpu/ops/flash_attention.py"
 REPLACES = {  # the pallas_call sites of the TPU kernels
     "qkv_attn_fwd": f"{TPU_FILE}:1160",  # _qkv_fwd_impl -> _mh_fwd_kernel
@@ -102,6 +131,9 @@ REPLACES = {  # the pallas_call sites of the TPU kernels
     "mh_attn_fwd": f"{TPU_FILE}:678",
     "mh_attn_bwd_dkv": f"{TPU_FILE}:783",  # _mh_bwd_impl (dK, dV)
     "mh_attn_bwd_dq": f"{TPU_FILE}:783",  # _mh_bwd_impl (dQ)
+    "hm_attn_fwd": f"{TPU_FILE}:275",  # _fwd_impl -> _fwd_kernel
+    "hm_attn_bwd_dkv": f"{TPU_FILE}:359",  # _bwd_impl -> _dkv_kernel
+    "hm_attn_bwd_dq": f"{TPU_FILE}:332",  # _bwd_impl -> _dq_kernel
 }
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 HBM = 3.35e12  # H100 SXM bytes/s
@@ -115,6 +147,25 @@ FT_BATCH = 10
 # K3: (B, N, H, D); the MCA is the finetune step's own
 MH_CHECKS = {"mca": (FT_BATCH, 1568, 3, 256), "h12": (FT_BATCH, 1568, 12, 64),
              "ragged_d256": (4, 100, 1, 256), "ragged_d64": (4, 100, 2, 64)}
+VITS_BATCH = 32  # B*H = 96 in the ViT-S decoder, as ViT-B's at B=16
+# K4: (B, H, N); the runner's decoder is the main path's own
+HM_CHECKS = {"runner_decoder": (VITS_BATCH, 3, 1568),
+             "tpu_gated": (2, 6, 1568), "ragged": (4, 3, 100),
+             "frames32": (2, 6, 3136)}
+# launches of each kernel per step: ViT-B runs K1/K2 in all 16 Blocks; the
+# ViT-S decoder's 3 x 64 heads (A = 192) take K4 in its 4 Blocks
+STEP_LAUNCHES = {
+    MODEL: {**dict.fromkeys(fa.KERNELS, 0),
+            **dict.fromkeys(fa.QKV_KERNELS, 16)},
+    VITS_MODEL: {**dict.fromkeys(fa.KERNELS, 0),
+                 **dict.fromkeys(fa.QKV_KERNELS, 12),
+                 **dict.fromkeys(fa.HM_KERNELS, 4)},
+}
+# the runner's flags; --warmup_epochs 1 because the default 40 warm-up
+# epochs do not fit a 2-epoch cosine schedule
+RUNNER_ARGS = ["--model", VITS_MODEL, "--synthetic", "64", "--batch_size",
+               str(VITS_BATCH), "--steps_per_epoch", "2", "--save_ckpt_freq",
+               "1", "--warmup_epochs", "1"]
 D = fa.HEAD_DIM
 SCALE = D ** -0.5
 
@@ -195,6 +246,16 @@ def time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def least_times(work: dict) -> dict:
+    """name -> (least ms, what bounds it) for name -> (FLOPs, bytes)."""
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM * 1e3
+        out[name] = (max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
 def bounds(B, N, H) -> dict:
     """Least time (ms) for each kernel's work on an H100 SXM: the larger of
     its FLOPs over the bf16 tensor peak and its bytes (each input read once,
@@ -208,12 +269,7 @@ def bounds(B, N, H) -> dict:
         "qkv_attn_bwd_dkv": (4 * mm, qkv + 2 * row + lse + 2 * row),
         "qkv_attn_bwd_dq": (3 * mm, qkv + 2 * row + lse + row),
     }
-    out = {}
-    for name, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM * 1e3
-        out[name] = (max(t_ops, t_bytes),
-                     "operations" if t_ops >= t_bytes else "bytes")
-    return out
+    return least_times(work)
 
 
 def time_kernels(x, H) -> dict:
@@ -294,12 +350,7 @@ def bounds_mh(B, N, H, D) -> dict:
         "mh_attn_bwd_dkv": (4 * mm, inputs + row + 2 * stat + 2 * row),
         "mh_attn_bwd_dq": (3 * mm, inputs + row + 2 * stat + row),
     }
-    out = {}
-    for name, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM * 1e3
-        out[name] = (max(t_ops, t_bytes),
-                     "operations" if t_ops >= t_bytes else "bytes")
-    return out
+    return least_times(work)
 
 
 def time_mh_kernels(q, k, v, b, H, D) -> dict:
@@ -391,18 +442,22 @@ def phase_mh_kernels():
     return errors, timings
 
 
-def phase_step(smi: str) -> dict:
-    """The main path: the full-width ViT-B MOFO step on the card."""
-    B = STEP_BATCH
-    model, state, step, gen, batch = build_step(B)
+def phase_step(smi: str, phase: str = "step", model_name: str = MODEL,
+               B: int = STEP_BATCH) -> dict:
+    """A full-width MOFO pretrain step on the card (ViT-B by default): 1
+    warm-up + 5 timed steps, every kernel's launches checked exactly
+    against STEP_LAUNCHES."""
+    model, state, step, gen, batch = build_step(B, model_name)
     named = dict(model.named_parameters())
     watched = ["encoder.blocks.0.attn.qkv.weight",
                "decoder.blocks.3.mlp.fc2.weight", "mask_token"]
     before = {n: named[n].detach().clone() for n in watched}
     blocks = len(model.encoder.blocks) + len(model.decoder.blocks)
+    per_step = STEP_LAUNCHES[model_name]
 
     n_steps = 6  # 1 warm-up + 5 timed
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     times, losses, norms = [], [], []
     for _ in range(n_steps):
@@ -414,8 +469,7 @@ def phase_step(smi: str) -> dict:
         norms.append(float(metrics["grad_norm"]))
     launches = dict(fa.launch_counts)
 
-    expected = {**dict.fromkeys(fa.QKV_KERNELS, n_steps * blocks),
-                **dict.fromkeys(fa.MH_KERNELS, 0)}
+    expected = {k: n_steps * v for k, v in per_step.items()}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
     if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
@@ -424,27 +478,29 @@ def phase_step(smi: str) -> dict:
     if unchanged:
         raise AssertionError(f"parameters did not change: {unchanged}")
     step_ms = statistics.median(times[1:])
-    emit("step", model=MODEL, dtype="bfloat16", batch=B, blocks=blocks,
+    emit(phase, model=model_name, dtype="bfloat16", batch=B, blocks=blocks,
          steps=n_steps, step_ms=step_ms, step_ms_all=times,
          clips_per_s=B / step_ms * 1e3, loss=losses, grad_norm=norms,
-         launches=launches, launches_per_step={
-             k: v / n_steps for k, v in launches.items()},
+         launches=launches, launches_per_step=per_step,
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi)
     return launches
 
 
-def phase_parity() -> None:
-    """Card (kernels) against CPU (plain versions) at ViT-B width."""
-    cfg = PretrainConfig(batch_size=1, dtype="float32", masking=MaskingConfig(
-        mask_type="tube_bb"), motion_loss_weight=True)
+def phase_parity(phase: str = "parity", model_name: str = MODEL,
+                 kernels=fa.QKV_KERNELS) -> None:
+    """Card (kernels) against CPU (plain versions) at full width, cut to
+    2+1 blocks, f32, B=1; each of `kernels` must have run on the card."""
+    cfg = PretrainConfig(model=model_name, batch_size=1, dtype="float32",
+                         masking=MaskingConfig(mask_type="tube_bb"),
+                         motion_loss_weight=True)
     gen = torch.Generator().manual_seed(7)
     batch = synthetic_batch(1, gen, "cpu")
     mask = masking.motion_tube_mask(batch["boxes"], generator=gen)
     lr = np.full(4, 1e-4, np.float32)
     results = {}
     for dev in ("cpu", "cuda"):
-        model = create_model(MODEL, device=dev, seed=5, encoder_depth=2,
+        model = create_model(model_name, device=dev, seed=5, encoder_depth=2,
                              decoder_depth=1)
         named = dict(model.named_parameters())
         tx = optim.create_optimizer(named, lr_schedule=lr,
@@ -456,11 +512,11 @@ def phase_parity() -> None:
                           0.5, mask=mask.to(dev))
         results[dev] = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
         results[dev]["launches"] = dict(fa.launch_counts)
-    if min(results["cuda"]["launches"][k] for k in fa.QKV_KERNELS) < 3:
+    if min(results["cuda"]["launches"][k] for k in kernels) < 1:
         raise AssertionError(f"the card run skipped a kernel: {results}")
     rel = {k: abs(results["cuda"][k] - results["cpu"][k])
            / abs(results["cpu"][k]) for k in ("loss", "grad_norm")}
-    emit("parity", model=MODEL, depth="2+1", dtype="float32", batch=1,
+    emit(phase, model=model_name, depth="2+1", dtype="float32", batch=1,
          results=results, rel_diff=rel, bound=1e-4)
     if max(rel.values()) > 1e-4:
         raise AssertionError(f"card vs CPU beyond rtol 1e-4: {rel}")
@@ -491,7 +547,8 @@ def phase_finetune_step(smi: str) -> dict:
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
     launches = dict(fa.launch_counts)
-    expected = {**dict.fromkeys(fa.QKV_KERNELS, n_steps * blocks),
+    expected = {**dict.fromkeys(fa.KERNELS, 0),
+                **dict.fromkeys(fa.QKV_KERNELS, n_steps * blocks),
                 **dict.fromkeys(fa.MH_KERNELS, n_steps * mca)}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
@@ -556,7 +613,8 @@ def phase_finetune_parity() -> None:
                           draws)
         results[dev] = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
         results[dev]["launches"] = dict(fa.launch_counts)
-    if min(results["cuda"]["launches"].values()) < 1:
+    if min(results["cuda"]["launches"][k]
+           for k in fa.QKV_KERNELS + fa.MH_KERNELS) < 1:
         raise AssertionError(f"the card run skipped a kernel: {results}")
     rel = {k: abs(results["cuda"][k] - results["cpu"][k])
            / abs(results["cpu"][k]) for k in ("loss", "grad_norm")}
@@ -565,6 +623,176 @@ def phase_finetune_parity() -> None:
          bound=1e-4)
     if max(rel.values()) > 1e-4:
         raise AssertionError(f"card vs CPU beyond rtol 1e-4: {rel}")
+
+
+def bounds_hm(BH, N, D) -> dict:
+    """bounds() for the K4 kernels on (BH, N, D) q, k, v (each read once),
+    the LSE and the backward's delta; the work at its least (the forward's
+    second score product and the dK/dV kernel's recomputed ones not
+    counted)."""
+    mm = 2 * BH * N * N * D
+    row, stat = BH * N * D * 2, BH * N * 4
+    return least_times({
+        "hm_attn_fwd": (2 * mm, 3 * row + row + stat),  # -> out, lse
+        # + dout, lse, delta -> dk, dv
+        "hm_attn_bwd_dkv": (4 * mm, 4 * row + 2 * stat + 2 * row),
+        "hm_attn_bwd_dq": (3 * mm, 4 * row + 2 * stat + row),
+    })
+
+
+def time_hm_kernels(q, k, v, B, H) -> dict:
+    """kernel, plain, library and bound times (ms) of K4 on bf16 (B*H, N,
+    D) inputs."""
+    BH, N, D = q.shape
+    scale = D ** -0.5
+    out, lse = fa.hm_attn_fwd(q, k, v, scale)
+    dout = (2 * out.float()).to(q.dtype)
+    delta = fa.hm_delta(out, dout)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    heads = [t.reshape(B, H, N, D).clone().requires_grad_(True)
+             for t in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*heads, scale=scale)
+    g_lib = dout.reshape(B, H, N, D)
+    plain_bwd = time_ms(lambda: fa.attention_hm_bwd_plain(
+        q, k, v, out, lse, dout, scale), runs=5)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        o_lib, heads, g_lib, retain_graph=True))
+    res = {
+        "hm_attn_fwd": {
+            "ms": time_ms(lambda: fa.hm_attn_fwd(q, k, v, scale)),
+            "plain_ms": time_ms(lambda: fa.attention_hm_fwd_plain(
+                q, k, v, scale), runs=5),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                *(t.detach() for t in heads), scale=scale)),
+        },
+        "hm_attn_bwd_dkv": {
+            "ms": time_ms(lambda: fa.hm_attn_bwd_dkv(
+                q, k, v, dout, lse, delta, dk, dv, scale)),
+            "plain_ms": plain_bwd, "library_ms": lib_bwd,
+        },
+        "hm_attn_bwd_dq": {
+            "ms": time_ms(lambda: fa.hm_attn_bwd_dq(
+                q, k, v, dout, lse, delta, dq, scale)),
+            "plain_ms": plain_bwd, "library_ms": lib_bwd,
+        },
+    }
+    for name, (bound, by) in bounds_hm(BH, N, D).items():
+        res[name].update(bound_ms=bound, bound_by=by)
+        if res[name]["ms"] < bound:
+            raise AssertionError(f"{name} beat its bound: {res[name]}")
+    return res
+
+
+def k1_vs_k4(B, H, N, dtype) -> dict:
+    """The K1/K2 kernels and the K4 kernels on the same q, k, v (and the
+    same dout): how far the two numerics lie apart (max |K1 - K4| of out,
+    dq, dk, dv, each beside its max |K4|)."""
+    x = _qkv(B, N, H, dtype, seed=11)
+    out1, lse1 = fa.qkv_attn_fwd(x, SCALE, H)
+    dout = torch.randn(out1.shape, generator=torch.Generator().manual_seed(
+        12)).to(dtype).cuda()
+    dqkv = fa.qkv_attn_bwd(x, out1, lse1, dout, SCALE, H)
+    q, k, v = (t.reshape(B * H, N, D).contiguous()
+               for t in fa.split_heads(x, H))
+    to_hm = lambda t: t.reshape(B, N, H, D).transpose(1, 2).reshape(  # noqa
+        B * H, N, D).contiguous()
+    out4, lse4 = fa.hm_attn_fwd(q, k, v, SCALE)
+    grads4 = fa.hm_attn_bwd(q, k, v, out4, lse4, to_hm(dout), SCALE)
+    A = H * D
+    k1 = {"out": out1, "dq": dqkv[..., :A], "dk": dqkv[..., A:2 * A],
+          "dv": dqkv[..., 2 * A:]}
+    back = lambda t: t.reshape(B, H, N, D).transpose(1, 2).reshape(  # noqa
+        B, N, A)
+    k4 = {"out": back(out4), **{n: back(g) for n, g in
+                                zip(("dq", "dk", "dv"), grads4)}}
+    torch.cuda.synchronize()
+    return {n: {"max_abs_diff": (k1[n].float() - k4[n].float()).abs().max()
+                .item(),
+                "max_abs_k4": k4[n].float().abs().max().item(),
+                "share_differing": (k1[n] != k4[n]).float().mean().item()}
+            for n in k1}
+
+
+def phase_hm_kernels():
+    """K4 against its plain version at every HM_CHECKS geometry, bf16 and
+    f32: main_path's bounds, the planted faults rejected. Times at the
+    runner's decoder shape, and K1's numerics against K4's there."""
+    errors, timings = {}, {}
+    for i, (geo, (B, H, N)) in enumerate(HM_CHECKS.items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = hm_inputs(B * H, N, dtype, i, "cuda")
+            got, want = hm_attention_against_plain(q, k, v, SCALE)
+            torch.cuda.synchronize()
+            res = check_against_plain(got, want)
+            res["planted"] = {}
+            for fault, outputs in hm_planted_faults(got).items():
+                caught = compare_with_plain(outputs, want)
+                if not caught["beyond_bounds"]:
+                    raise AssertionError(
+                        f"the bounds let a planted fault pass: {fault} "
+                        f"({geo}, {dtype})")
+                res["planted"][fault] = caught["beyond_bounds"]
+            emit("hm_kernels_vs_plain", geometry=geo, B=B, H=H, N=N, D=D,
+                 dtype=str(dtype).replace("torch.", ""), **res)
+            if geo == "runner_decoder" and dtype == torch.bfloat16:
+                err = res["max_abs_err"]
+                errors = {"hm_attn_fwd": err["out"],
+                          "hm_attn_bwd_dkv": max(err["dk"], err["dv"]),
+                          "hm_attn_bwd_dq": err["dq"]}
+                timings = time_hm_kernels(q, k, v, B, H)
+                emit("hm_kernel_times", geometry=geo, B=B, H=H, N=N, D=D,
+                     dtype="bfloat16", times=timings)
+            del q, k, v, got, want
+    B, H, N = HM_CHECKS["runner_decoder"]
+    emit("k1_vs_k4", B=B, H=H, N=N, D=D,
+         **{str(dt).replace("torch.", ""): k1_vs_k4(B, H, N, dt)
+            for dt in (torch.bfloat16, torch.float32)})
+    return errors, timings
+
+
+def phase_runner(smi: str) -> dict:
+    """The main path of this slice: the ViT-S MOFO pretrain runner, 2
+    epochs, then resumed for a third."""
+    calls = []
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        for epochs in (2, 3):
+            args = pretrain_mofo.get_args(
+                RUNNER_ARGS + ["--epochs", str(epochs), "--output_dir", out],
+                mofo_defaults=True)
+            t0 = time.perf_counter()
+            state = pretrain_mofo.main(args)
+            torch.cuda.synchronize()
+            calls.append({"epochs": epochs, "steps_after": state.step,
+                          "seconds": time.perf_counter() - t0})
+        launches = dict(fa.launch_counts)
+        with open(os.path.join(out, "log.txt")) as f:
+            log = [json.loads(line) for line in f]
+        ckpts = sorted(n for n in os.listdir(out) if n.endswith(".pth"))
+    steps = calls[-1]["steps_after"]
+    per_step = {k: v / steps for k, v in launches.items()}
+    want = STEP_LAUNCHES[VITS_MODEL]
+    if [c["steps_after"] for c in calls] != [4, 6]:
+        raise AssertionError(f"the runner took other steps: {calls}")
+    if [line["epoch"] for line in log] != [0, 1, 2]:
+        raise AssertionError(f"log.txt holds other epochs: {log}")
+    if ckpts != [f"checkpoint-{e}.pth" for e in range(3)]:
+        raise AssertionError(f"checkpoints {ckpts}")
+    if not all(np.isfinite(line["train_loss"]) for line in log):
+        raise AssertionError(f"non-finite losses: {log}")
+    if per_step != want:
+        raise AssertionError(f"launches per step {per_step}, expected {want}")
+    emit("runner", model=VITS_MODEL, dtype="bfloat16", batch=VITS_BATCH,
+         args=RUNNER_ARGS, calls=calls, launches=launches,
+         launches_per_step=per_step,
+         epochs=[{k: line[k] for k in ("epoch", "train_loss", "step_s",
+                                       "data_wait_s")} for line in log],
+         step_ms=[line["step_s"] * 1e3 for line in log],
+         loader_wait_ms=[line["data_wait_s"] * 1e3 for line in log],
+         checkpoints=ckpts, device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi)
+    return launches
 
 
 def main() -> int:
@@ -577,6 +805,10 @@ def main() -> int:
     phase_parity()
     ft_launches = phase_finetune_step(smi)
     phase_finetune_parity()
+    hm_errors, hm_timings = phase_hm_kernels()
+    vits_launches = phase_step(smi, "vits_step", VITS_MODEL, VITS_BATCH)
+    phase_parity("vits_parity", VITS_MODEL, fa.QKV_KERNELS + fa.HM_KERNELS)
+    runner_launches = phase_runner(smi)
     kernels = []
     for name in fa.QKV_KERNELS:
         dec = timings["decoder"][name]
@@ -589,6 +821,8 @@ def main() -> int:
             "shape": "decoder (B=%d, N=%d, H=%d, D=%d) bf16" % (
                 *MAIN["decoder"], D),
             "launches_finetune": ft_launches[name],
+            "launches_vits_step": vits_launches[name],
+            "launches_runner": runner_launches[name],
             **{geo: {**timings[geo][name],
                      "max_abs_err": errors[geo][name]}
                for geo in ("encoder", "backbone")},
@@ -603,6 +837,18 @@ def main() -> int:
             "bound_by": mca["bound_by"], "library_ms": mca["library_ms"],
             "shape": "MCA (B=%d, N=%d, H=%d, D=%d) bf16, kv bias" % (
                 MH_CHECKS["mca"]),
+        })
+    for name in fa.HM_KERNELS:
+        dec = hm_timings[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": runner_launches[name],
+            "max_abs_err": hm_errors[name], "ms": dec["ms"],
+            "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
+            "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
+            "shape": "ViT-S runner decoder (B=%d, H=%d, N=%d, D=%d) bf16"
+                     % (*HM_CHECKS["runner_decoder"], D),
+            "launches_vits_step": vits_launches[name],
         })
     emit("done", seconds=time.perf_counter() - t0)
     print(smi, flush=True)

@@ -2,11 +2,11 @@
 
 Counterpart of mofo_tpu/models/classifier.py (reference
 modeling_finetune.py:305-420): patch embedding, the frozen sin-cos table,
-Blocks over all tokens (their attention is flash_attention_qkv, K1/K2),
-then fc_norm of the token mean (use_mean_pooling) or the final norm, and
-the head. Every linear is trunc-normal(.02) with a zero bias, the head's
-weight scaled by init_scale. Dropout is not ported: drop_rate and
-attn_drop_rate must be 0, as in every recipe.
+Blocks over all tokens (K1/K2 at the published widths; layers.Attention
+has the routes), then fc_norm of the token mean (use_mean_pooling) or the
+final norm, and the head. Every linear is trunc-normal(.02) with a zero
+bias, the head's weight scaled by init_scale. Dropout is not ported:
+drop_rate and attn_drop_rate must be 0, as in every recipe.
 """
 
 from __future__ import annotations

@@ -23,6 +23,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mofo_tpu_torch.ops.attention import (
+    _PALLAS_MIN_SEQ,
+    dot_product_attention,
+)
 from mofo_tpu_torch.ops.flash_attention import (
     flash_attention_mh,
     flash_attention_qkv,
@@ -142,18 +146,29 @@ class Mlp(nn.Module):
 class Attention(nn.Module):
     """Multi-head self-attention with a fused qkv projection, learned q/v
     biases and the k bias pinned to zero (reference modeling_finetune.py:
-    54-98); attention itself is flash_attention_qkv on the fused (B, N, 3A)
-    projection."""
+    54-98). Attention takes one of two routes, chosen from the shapes alone
+    as mofo_tpu/models/layers.py:189-219 chooses on a TPU: the flat route,
+    flash_attention_qkv (K1/K2) on the fused (B, N, 3A) projection, when
+    N >= 128 and A = H * Dh is a multiple of 128; otherwise the head-major
+    route, a (3, B, H, N, Dh) copy of the projection and
+    dot_product_attention (K4 for N >= 128, plain math below). attn_impl
+    "pallas" takes the kernels at every N (flat where A is aligned), "xla"
+    the plain head-major math."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
                  qk_scale: Optional[float] = None,
-                 dtype: torch.dtype = torch.float32, generator=None):
+                 dtype: torch.dtype = torch.float32, generator=None,
+                 attn_impl: str = "auto"):
         super().__init__()
+        if attn_impl not in ("auto", "xla", "pallas"):
+            raise ValueError(f"unknown attn_impl {attn_impl!r} (auto, xla, "
+                             "pallas)")
         self.num_heads = num_heads
         head_dim = dim // num_heads
-        all_head_dim = head_dim * num_heads
+        self.all_head_dim = all_head_dim = head_dim * num_heads
         self.scale = qk_scale or head_dim ** -0.5
         self.dtype = dtype
+        self.attn_impl = attn_impl
         self.qkv = nn.Linear(dim, 3 * all_head_dim, bias=False)
         if qkv_bias:
             self.q_bias = nn.Parameter(torch.zeros(all_head_dim))
@@ -164,15 +179,32 @@ class Attention(nn.Module):
         init_linear(self.qkv, generator)
         init_linear(self.proj, generator)
 
+    def uses_flat(self, n_tokens: int) -> bool:
+        """Whether a sequence of n_tokens takes the flat K1/K2 route."""
+        aligned = self.all_head_dim % 128 == 0
+        if self.attn_impl == "pallas":
+            return aligned
+        return (self.attn_impl == "auto" and n_tokens >= _PALLAS_MIN_SEQ
+                and aligned)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, N, _ = x.shape
         qkv = F.linear(x.to(self.dtype), self.qkv.weight.to(self.dtype))
         if self.q_bias is not None:
             qkv = qkv + torch.cat(
                 [self.q_bias, torch.zeros_like(self.q_bias), self.v_bias]
             ).to(self.dtype)
-        out = flash_attention_qkv(
-            qkv, scale=self.scale, num_heads=self.num_heads
-        )
+        if self.uses_flat(N):
+            out = flash_attention_qkv(
+                qkv, scale=self.scale, num_heads=self.num_heads
+            )
+        else:
+            qkv = qkv.reshape(B, N, 3, self.num_heads, -1).permute(
+                2, 0, 3, 1, 4).contiguous()  # (3, B, H, N, Dh)
+            out = dot_product_attention(qkv[0], qkv[1], qkv[2],
+                                        scale=self.scale,
+                                        impl=self.attn_impl)
+            out = out.transpose(1, 2).reshape(B, N, self.all_head_dim)
         return linear(out, self.proj, self.dtype)
 
 
@@ -188,12 +220,13 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
                  drop_path_rate: float = 0.0, init_values: float = 0.0,
-                 dtype: torch.dtype = torch.float32, generator=None):
+                 dtype: torch.dtype = torch.float32, generator=None,
+                 attn_impl: str = "auto"):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, dtype,
-                              generator)
+                              generator, attn_impl)
         self.drop_path = DropPath(drop_path_rate)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, generator)

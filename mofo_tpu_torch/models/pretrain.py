@@ -42,7 +42,7 @@ class PretrainEncoder(nn.Module):
                  embed_dim=768, depth=12, num_heads=12, mlp_ratio=4.0,
                  qkv_bias=True, qk_scale=None, drop_path_rate=0.0,
                  init_values=0.0, tubelet_size=2, num_frames=16,
-                 dtype=torch.float32, generator=None):
+                 dtype=torch.float32, generator=None, attn_impl="auto"):
         super().__init__()
         self.dtype = dtype
         self.patch_embed = PatchEmbed(img_size, patch_size, in_chans,
@@ -58,6 +58,7 @@ class PretrainEncoder(nn.Module):
             depth, drop_path_rate, generator, dim=embed_dim,
             num_heads=num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
             qk_scale=qk_scale, init_values=init_values, dtype=dtype,
+            attn_impl=attn_impl,
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
@@ -81,13 +82,14 @@ class PretrainDecoder(nn.Module):
     def __init__(self, num_classes=1536, embed_dim=384, depth=4,
                  num_heads=6, mlp_ratio=4.0, qkv_bias=True, qk_scale=None,
                  drop_path_rate=0.0, init_values=0.0, dtype=torch.float32,
-                 generator=None):
+                 generator=None, attn_impl="auto"):
         super().__init__()
         self.dtype = dtype
         self.blocks = _blocks(
             depth, drop_path_rate, generator, dim=embed_dim,
             num_heads=num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
             qk_scale=qk_scale, init_values=init_values, dtype=dtype,
+            attn_impl=attn_impl,
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
         self.head = nn.Linear(embed_dim, num_classes)
@@ -105,7 +107,10 @@ class PretrainDecoder(nn.Module):
 
 class PretrainVisionTransformer(nn.Module):
     """Full MAE: encoder -> encoder_to_decoder -> decoder
-    (modeling_pretrain.py:163-266)."""
+    (modeling_pretrain.py:163-266). attn_impl ("auto" | "xla" | "pallas")
+    goes to every Block's Attention, which picks its route from it and the
+    shapes (the ViT-S decoder's 3 x 64 heads take the head-major K4
+    route)."""
 
     def __init__(self, img_size=224, patch_size=16, encoder_in_chans=3,
                  encoder_embed_dim=768, encoder_depth=12,
@@ -114,19 +119,19 @@ class PretrainVisionTransformer(nn.Module):
                  decoder_num_heads=6, mlp_ratio=4.0, qkv_bias=True,
                  qk_scale: Optional[float] = None, drop_path_rate=0.0,
                  init_values=0.0, tubelet_size=2, num_frames=16,
-                 dtype=torch.float32, generator=None):
+                 dtype=torch.float32, generator=None, attn_impl="auto"):
         super().__init__()
         self.dtype = dtype
         self.encoder = PretrainEncoder(
             img_size, patch_size, encoder_in_chans, encoder_embed_dim,
             encoder_depth, encoder_num_heads, mlp_ratio, qkv_bias, qk_scale,
             drop_path_rate, init_values, tubelet_size, num_frames, dtype,
-            generator,
+            generator, attn_impl,
         )
         self.decoder = PretrainDecoder(
             decoder_num_classes, decoder_embed_dim, decoder_depth,
             decoder_num_heads, mlp_ratio, qkv_bias, qk_scale,
-            drop_path_rate, init_values, dtype, generator,
+            drop_path_rate, init_values, dtype, generator, attn_impl,
         )
         self.encoder_to_decoder = nn.Linear(
             encoder_embed_dim, decoder_embed_dim, bias=False

@@ -3,8 +3,9 @@
 Counterpart of mofo_tpu/models/registry.py: the pretraining models
 (:39-80) and the finetuning ones (:85-155).
 create_model(name, device=..., dtype=..., seed=..., **overrides) returns
-the nn.Module on its device, initialised from `seed` on the CPU (so a seed
-gives the same weights on every device) and then moved.
+the nn.Module on its device (the pretraining models take attn_impl among
+the overrides), initialised from `seed` on the CPU (so a seed gives the
+same weights on every device) and then moved.
 """
 
 from __future__ import annotations
@@ -83,8 +84,11 @@ def pretrain_videomae_large_patch16_224(**kwargs):
 @register_model
 def pretrain_videomae_tiny_debug(**kwargs):
     """Rebuild-only CI preset (no reference counterpart): 2-block dim-64
-    encoder + dim-32 decoder. Its 32-dim heads run on the CPU only: the
-    CUDA attention kernels are built for 64-dim heads."""
+    encoder + dim-32 decoder. Neither width is a multiple of 128, so every
+    Block takes the head-major route: plain attention math below 128 tokens
+    (on the card too), K4 from 128 on, whose CUDA kernels take 64-dim heads
+    only and raise on these 32-dim ones (the CPU runs their plain
+    versions)."""
     return _pretrain(64, 2, 2, 32, 2, **kwargs)
 
 
@@ -138,7 +142,10 @@ def vit_large_patch16_512(**kwargs):
 @register_model
 def vit_tiny_debug(**kwargs):
     """Rebuild-only CI preset (no reference counterpart): 2-block dim-64
-    classifier. Its 32-dim heads run on the CPU only."""
+    classifier. Its Blocks take the head-major route, as
+    pretrain_videomae_tiny_debug's do: plain math below 128 tokens on
+    every device; from 128 tokens, K4, whose CUDA kernels raise on 32-dim
+    heads."""
     return _vit(64, 2, 2, **kwargs)
 
 

@@ -22,7 +22,9 @@ from pathlib import Path
 PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "build"
-SOURCES = ("qkv_flash_attention.cu", "mh_flash_attention.cu")
+SOURCES = ("qkv_flash_attention.cu", "mh_flash_attention.cu",
+           "hm_flash_attention.cu")
+HEADERS = ("flash_tiles.cuh",)  # included by the sources, part of the key
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,6 +41,9 @@ SIGNATURES = {
     "mh_attn_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
     "mh_attn_bwd_dkv": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P],
     "mh_attn_bwd_dq": [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P],
+    "hm_attn_fwd": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
+    "hm_attn_bwd_dkv": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
+    "hm_attn_bwd_dq": [_P] * 7 + [_I] * 3 + [_F, _F, _I, _P],
 }
 
 
@@ -58,7 +63,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         digest.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libmofo_kernels_{digest.hexdigest()[:16]}.so"
 

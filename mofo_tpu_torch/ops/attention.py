@@ -1,14 +1,26 @@
-"""Reference-parity attention math, head-major.
+"""Head-major attention: reference-parity math and the dispatcher.
 
-Counterpart of mofo_tpu/ops/attention.py's xla_attention (:40-74): the
-reference's naive O(N^2) attention (modeling_finetune.py:88-95) with the
-softmax in float32. The port's blocks run flash_attention_qkv; this is
-the tests' oracle and nothing on the training path calls it.
+Counterpart of mofo_tpu/ops/attention.py:
+  - xla_attention (:40-74): the reference's naive O(N^2) attention
+    (modeling_finetune.py:88-95) with the softmax in float32, as plain
+    tensor math (the JAX package leaves it to XLA; it is no kernel);
+  - dot_product_attention (:77-127): "auto" takes the flash kernel (K4,
+    ops.flash_attention.flash_attention) for sequences of at least
+    _PALLAS_MIN_SEQ tokens whose q and kv lengths agree, and xla_attention
+    otherwise; "pallas" always takes the kernel, "xla" never. Unlike the
+    JAX "auto", the choice depends on shapes only, never on the device: the
+    device only chooses between a kernel and its plain version.
 """
 
 from __future__ import annotations
 
 import torch
+
+from mofo_tpu_torch.ops.flash_attention import flash_attention
+
+# Sequences at least this long take the flash kernel under "auto"
+# (mofo_tpu/ops/attention.py:24-30).
+_PALLAS_MIN_SEQ = 128
 
 
 def xla_attention(
@@ -24,3 +36,23 @@ def xla_attention(
     logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
     probs = torch.softmax(logits, dim=-1).to(dtype)
     return torch.matmul(probs, v)
+
+
+def dot_product_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    scale: float,
+    impl: str = "auto",
+) -> torch.Tensor:
+    """Dispatching attention entry point. q, k, v: (B, H, N, Dh)."""
+    if impl == "auto":
+        long_self = q.shape[2] >= _PALLAS_MIN_SEQ and q.shape[2] == k.shape[2]
+        impl = "pallas" if long_self else "xla"
+    if impl == "pallas":
+        return flash_attention(q, k, v, scale=scale)
+    if impl != "xla":
+        raise ValueError(f"unknown attention impl {impl!r} (auto, xla, "
+                         "pallas)")
+    return xla_attention(q, k, v, scale=scale)

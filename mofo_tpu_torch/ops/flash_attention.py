@@ -25,6 +25,13 @@ repeats the kernel's numerics (module docstring of the .cu file):
     1/log2 e), f32 in base e;
   - bf16 dS is the bf16 product of P with the rounded f32 (dP - delta);
   - (K3) the bias is added to the scores after the scale fold.
+
+A third interface, flash_attention (:427), takes head-major (B, H, N, D)
+q, k, v and runs K4 (_fwd_impl / _fwd_kernel, _bwd_impl / _dq_kernel and
+_dkv_kernel), here csrc/hm_flash_attention.cu on the (B*H, N, D) view, for
+D = 64. Its numerics differ from K1/K3's in two ways: it works in base e in
+every dtype, and it rounds the normalized p / l (not the un-normalized P)
+to the input dtype before P.V.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ MH_HEAD_DIMS = (64, 256)  # the head dims of the K3 kernels
 
 QKV_KERNELS = ("qkv_attn_fwd", "qkv_attn_bwd_dkv", "qkv_attn_bwd_dq")
 MH_KERNELS = ("mh_attn_fwd", "mh_attn_bwd_dkv", "mh_attn_bwd_dq")
-KERNELS = QKV_KERNELS + MH_KERNELS
+HM_KERNELS = ("hm_attn_fwd", "hm_attn_bwd_dkv", "hm_attn_bwd_dq")
+KERNELS = QKV_KERNELS + MH_KERNELS + HM_KERNELS
 # launches of each CUDA kernel by its wrapper since the last reset
 launch_counts = dict.fromkeys(KERNELS, 0)
 
@@ -65,13 +73,17 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, N, H * D)
 
 
+def _rounded(x: float, dtype: torch.dtype) -> float:
+    """x rounded to `dtype`, as a kernel receives a folded scale."""
+    return torch.tensor(x, dtype=dtype).item()
+
+
 def _scales(scale: float, dtype: torch.dtype):
     """(q_scale, k_scale, base2): the scale factors rounded to the input
     dtype, as the kernels fold them (q carries log2 e in bf16)."""
     base2 = dtype == torch.bfloat16
     q_scale = scale * LOG2E if base2 else scale
-    rnd = lambda x: torch.tensor(x, dtype=dtype).item()  # noqa: E731
-    return rnd(q_scale), rnd(scale), base2
+    return _rounded(q_scale, dtype), _rounded(scale, dtype), base2
 
 
 def attention_qkv_fwd_plain(qkv: torch.Tensor, scale: float, heads: int):
@@ -474,3 +486,164 @@ def flash_attention_mh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"kv_bias {tuple(kv_bias.shape)} must be (B, N)")
         kv_bias = kv_bias.detach().float().contiguous()
     return _MHFlash.apply(q, k, v, kv_bias, float(scale), int(num_heads))
+
+
+# ---------------------------------------------------------------------------
+# K4: head-major single-head attention on (B*H, N, D)
+# ---------------------------------------------------------------------------
+
+
+def attention_hm_fwd_plain(q, k, v, scale: float):
+    """Plain PyTorch version of hm_attn_fwd on (..., N, D): (out, lse f32).
+    Base e in every dtype; the normalized p / l is rounded to the input
+    dtype before P.V (mofo_tpu/ops/flash_attention.py:138-157)."""
+    dt = q.dtype
+    qs = q * torch.tensor(_rounded(scale, dt), dtype=dt, device=q.device)
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.matmul((p / l).to(dt).float(), v.float())
+    return o.to(dt), (m + torch.log(l))[..., 0]
+
+
+def hm_delta(out, dout) -> torch.Tensor:
+    """delta = rowsum(dO * O), (..., N) f32: one reduction before the
+    backward kernels, as the TPU computes it in XLA
+    (mofo_tpu/ops/flash_attention.py:313-315)."""
+    return (dout.float() * out.float()).sum(dim=-1).contiguous()
+
+
+def attention_hm_bwd_plain(q, k, v, out, lse, dout, scale: float):
+    """Plain PyTorch version of hm_attn_bwd_dkv and hm_attn_bwd_dq:
+    (dq, dk, dv) (mofo_tpu/ops/flash_attention.py:160-250)."""
+    dt = q.dtype
+    sc = torch.tensor(_rounded(scale, dt), dtype=dt, device=q.device)
+    qs, ks = q * sc, k * sc
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    p16 = torch.exp(s - lse[..., None]).to(dt)
+    do = dout.float()
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    dv = torch.matmul(p16.float().transpose(-1, -2), do)
+    delta = hm_delta(out, dout)[..., None]
+    ds = (p16 * (dp - delta).to(dt)).float()  # in f32 this is p*(dp-delta)
+    dk = torch.matmul(ds.transpose(-1, -2), qs.float())
+    dq = torch.matmul(ds, ks.float())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _check_hm(q, *others):
+    """Raises on (B*H, N, D) tensors the K4 kernels do not take."""
+    if q.ndim != 3:
+        raise ValueError(f"q must be (B*H, N, D), got {tuple(q.shape)}")
+    if q.shape[-1] != HEAD_DIM:
+        raise ValueError(f"head dim {q.shape[-1]} unsupported: the kernels "
+                         f"are built for {HEAD_DIM}")
+    if q.device.type != "cuda":
+        raise ValueError(f"the CUDA kernels need CUDA tensors, got {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"unsupported dtype {q.dtype} (float32, bfloat16)")
+    if q.shape[0] > 65535:
+        raise ValueError("B * H exceeds the kernels' grid limit of 65535")
+    for t in (q, *others):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"every tensor must be {tuple(q.shape)} "
+                             f"{q.dtype} on {q.device}, like q")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the CUDA kernels need contiguous, 16-byte "
+                             "aligned tensors")
+
+
+def _check_hm_stats(q, *stats):
+    for t in stats:
+        if t.shape != q.shape[:2] or t.dtype != torch.float32 or \
+                not t.is_contiguous() or t.device != q.device:
+            raise ValueError("lse and delta must be contiguous (B*H, N) "
+                             "float32 on q's device")
+
+
+def hm_attn_fwd(q, k, v, scale: float):
+    """Forward on (B*H, N, D): (out, lse (B*H, N) f32, natural log).
+    Kernel on CUDA, plain version on the CPU."""
+    if q.device.type == "cpu":
+        return attention_hm_fwd_plain(q, k, v, scale)
+    _check_hm(q, k, v)
+    BH, N, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty((BH, N), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _launch("hm_attn_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), lse.data_ptr(), BH, N, D,
+                _rounded(scale, q.dtype), int(q.dtype == torch.bfloat16),
+                _stream(q))
+    return out, lse
+
+
+def hm_attn_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, scale: float):
+    """Writes dK and dV (CUDA only)."""
+    _check_hm(q, k, v, dout, dk, dv)
+    _check_hm_stats(q, lse, delta)
+    BH, N, D = q.shape
+    with torch.cuda.device(q.device):
+        _launch("hm_attn_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), BH, N, D,
+                _rounded(scale, q.dtype), int(q.dtype == torch.bfloat16),
+                _stream(q))
+
+
+def hm_attn_bwd_dq(q, k, v, dout, lse, delta, dq, scale: float):
+    """Writes dQ (CUDA only)."""
+    _check_hm(q, k, v, dout, dq)
+    _check_hm_stats(q, lse, delta)
+    BH, N, D = q.shape
+    sc = _rounded(scale, q.dtype)
+    with torch.cuda.device(q.device):
+        _launch("hm_attn_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), BH, N, D, sc, sc,
+                int(q.dtype == torch.bfloat16), _stream(q))
+
+
+def hm_attn_bwd(q, k, v, out, lse, dout, scale: float):
+    """Backward on (B*H, N, D): (dq, dk, dv). On CUDA, delta (one torch
+    reduction), then the dK/dV and dQ kernels; plain version on the CPU."""
+    if q.device.type == "cpu":
+        return attention_hm_bwd_plain(q, k, v, out, lse, dout, scale)
+    _check_hm(q, out)
+    delta = hm_delta(out, dout)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    hm_attn_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, scale)
+    hm_attn_bwd_dq(q, k, v, dout, lse, delta, dq, scale)
+    return dq, dk, dv
+
+
+class _HMFlash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = hm_attn_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = hm_attn_bwd(q, k, v, out, lse, dout.contiguous(),
+                                 ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float) -> torch.Tensor:
+    """Fused self-attention, head-major: q, k, v (B, H, N, Dh) -> the same
+    layout. The kernels see the (B*H, N, Dh) view of contiguous copies.
+    Runs the CUDA kernels on CUDA tensors and their plain versions on CPU
+    ones; differentiable in q, k and v through both."""
+    if k.shape != q.shape or v.shape != q.shape or q.ndim != 4:
+        raise ValueError(f"q, k, v must share one (B, H, N, D) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, N, D = q.shape
+    q, k, v = (t.reshape(B * H, N, D).contiguous() for t in (q, k, v))
+    return _HMFlash.apply(q, k, v, float(scale)).reshape(B, H, N, D)

@@ -3,7 +3,8 @@ tools/profile_step.py and tests/test_torch_gpu.py.
 
 - `build_step`: the ViT-B MOFO pretrain step of bench.py:119-157 (bf16,
   tube_bb masks, motion-weighted loss, AdamW with cosine schedules) on
-  synthetic clips and boxes from a seed.
+  synthetic clips and boxes from a seed; with model=VITS_MODEL the same
+  step at ViT-S width (its decoder runs K4).
 - `build_finetune_step`: the ViT-B BB-focused MCA finetune step at the
   FinetuneConfig defaults (bf16, mixup 0.8 / cutmix 1.0, smoothing 0.1,
   drop path 0.1, AdamW with layer decay 0.75), its backbone started from
@@ -13,9 +14,12 @@ tools/profile_step.py and tests/test_torch_gpu.py.
   forward, dK/dV, dQ) and their plain PyTorch versions on the same qkv;
   `mh_inputs` / `mh_attention_against_plain`: the same for the masked
   multihead kernels (K3) on q, k, v and a kv bias row;
+  `hm_inputs` / `hm_attention_against_plain`: the same for the head-major
+  kernels (K4) on (B*H, N, 64) q, k, v;
   `compare_with_plain` / `check_against_plain`: the bounds that hold one
-  against the other, and `planted_faults`: wrong outputs those bounds must
-  reject (`masked_kv_grad` checks that masked kv rows get zero dK/dV).
+  against the other, and `planted_faults` / `hm_planted_faults`: wrong
+  outputs those bounds must reject (`masked_kv_grad` checks that masked kv
+  rows get zero dK/dV).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from mofo_tpu_torch.train.pretrain_step import make_pretrain_step
 from mofo_tpu_torch.train.train_state import TrainState
 
 MODEL = "pretrain_videomae_base_patch16_224"
+VITS_MODEL = "pretrain_videomae_small_patch16_224"
 FINETUNE_MODEL = "vit_base_patch16_224_BB_focused"
 OUTPUTS = ("out", "lse", "dq", "dk", "dv")
 
@@ -62,12 +67,12 @@ def synthetic_batch(B: int, generator: torch.Generator,
     return {"clip": clip, "boxes": torch.cat([xy1, xy1 + wh], dim=-1)}
 
 
-def build_step(B: int):
-    """The ViT-B MOFO pretrain step on CUDA at batch B.
-    Returns (model, state, step_fn, generator, batch)."""
-    cfg = PretrainConfig(batch_size=B, masking=MaskingConfig(
+def build_step(B: int, name: str = MODEL):
+    """The MOFO pretrain step of model `name` (ViT-B by default) on CUDA at
+    batch B. Returns (model, state, step_fn, generator, batch)."""
+    cfg = PretrainConfig(model=name, batch_size=B, masking=MaskingConfig(
         mask_type="tube_bb"), motion_loss_weight=True)
-    model = create_model(MODEL, dtype=torch.bfloat16, seed=1)
+    model = create_model(name, dtype=torch.bfloat16, seed=1)
     lr = schedules.cosine_schedule(1.5e-4, 1e-5, 800, 100, 40)
     tx = optim.create_optimizer(dict(model.named_parameters()),
                                 lr_schedule=lr, betas=(0.9, 0.95),
@@ -177,6 +182,28 @@ def mh_attention_against_plain(q, k, v, kv_bias, heads: int, scale: float):
     return got, want
 
 
+def hm_inputs(BH: int, N: int, dtype: torch.dtype, seed: int, device):
+    """q, k, v (B*H, N, 64) contiguous, standard normal, for K4."""
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(BH, N, fa.HEAD_DIM, generator=g).to(dtype)
+                 .to(device) for _ in range(3))
+
+
+def hm_attention_against_plain(q, k, v, scale: float):
+    """(got, want) of the K4 kernels (their plain versions on CPU tensors)
+    and the plain versions on the same inputs; the backward takes the
+    kernels' out and lse and dout = 2 out."""
+    out, lse = fa.hm_attn_fwd(q, k, v, scale)
+    p_out, p_lse = fa.attention_hm_fwd_plain(q, k, v, scale)
+    dout = (2 * out.float()).to(q.dtype)
+    dq, dk, dv = fa.hm_attn_bwd(q, k, v, out, lse, dout, scale)
+    p_dq, p_dk, p_dv = fa.attention_hm_bwd_plain(q, k, v, out, lse, dout,
+                                                 scale)
+    got = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+    want = {"out": p_out, "lse": p_lse, "dq": p_dq, "dk": p_dk, "dv": p_dv}
+    return got, want
+
+
 def masked_kv_grad(got: dict, kv_bias) -> float:
     """Largest |dK|, |dV| on kv rows the bias masks (must be exactly 0)."""
     if kv_bias is None:
@@ -236,3 +263,10 @@ def planted_faults(got: dict, bias_ignored: dict = None) -> dict:
     if bias_ignored is not None:
         faults["bias_ignored"] = bias_ignored
     return faults
+
+
+def hm_planted_faults(got: dict) -> dict:
+    """Wrong K4 outputs that compare_with_plain must reject: dQ zeroed, and
+    the LSE in log2 units (K4 works in base e in every dtype)."""
+    return {"dq_zero": dict(got, dq=torch.zeros_like(got["dq"])),
+            "lse_log2": dict(got, lse=got["lse"] * fa.LOG2E)}

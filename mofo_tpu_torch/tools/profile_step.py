@@ -1,12 +1,13 @@
-"""Profile the ViT-B MOFO pretrain step, or the BB-focused MCA finetune
-step, on the GPU with torch.profiler.
+"""Profile the ViT-B MOFO pretrain step, the ViT-S one, or the BB-focused
+MCA finetune step, on the GPU with torch.profiler.
 
-    python -m mofo_tpu_torch.tools.profile_step [--finetune] [--batch B]
-        [--steps 3] [--trace OUT.json]
+    python -m mofo_tpu_torch.tools.profile_step [--vits | --finetune]
+        [--batch B] [--steps 3] [--trace OUT.json]
 
 Counterpart of tools/profile_step.py. Runs the step of chip_smoke.py's
 phase `step` (main_path.build_step: bf16, tube_bb masks, motion-weighted
-loss, AdamW; B=16 by default) or, with --finetune, of its phase
+loss, AdamW; B=16 by default), with --vits of its phase `vits_step` (the
+same step at ViT-S width, B=32 by default) or, with --finetune, of its phase
 `finetune_step` (main_path.build_finetune_step: bf16, mixup, drop path,
 AdamW with layer decay; B=10 by default), warms it up, then traces a few
 steps
@@ -26,13 +27,19 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from mofo_tpu_torch.ops.flash_attention import KERNELS
-from mofo_tpu_torch.tools.main_path import build_finetune_step, build_step
+from mofo_tpu_torch.tools.main_path import (
+    VITS_MODEL,
+    build_finetune_step,
+    build_step,
+)
 
 
 def _group(name: str) -> str:
     low = name.lower()
     if "mh_fwd_" in name or "mh_bwd_" in name:
         return "masked attention, K3 (port kernels)"
+    if "hm_fwd_" in name or "hm_bwd_" in name:
+        return "head-major attention, K4 (port kernels)"
     if any(k in name for k in ("fwd_bf16", "bwd_dkv_bf16", "bwd_dq_bf16",
                                "fwd_f32", "bwd_dkv_f32", "bwd_dq_f32")):
         return "attention, K1/K2 (port kernels)"
@@ -45,7 +52,9 @@ def _group(name: str) -> str:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--finetune", action="store_true")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--finetune", action="store_true")
+    which.add_argument("--vits", action="store_true")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None)
@@ -56,8 +65,9 @@ def main() -> None:
         _, state, step_fn, gen, batch, _ = build_finetune_step(B)
         step = lambda st: step_fn(st, batch, gen)  # noqa: E731
     else:
-        B = args.batch or 16
-        _, state, step_fn, gen, batch = build_step(B)
+        B = args.batch or (32 if args.vits else 16)
+        _, state, step_fn, gen, batch = build_step(
+            B, VITS_MODEL) if args.vits else build_step(B)
         step = lambda st: step_fn(st, batch, gen, 0.5)  # noqa: E731
 
     for _ in range(2):
@@ -87,7 +97,8 @@ def main() -> None:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "step": "finetune" if args.finetune else "pretrain", "batch": B,
+        "step": ("finetune" if args.finetune else
+                 "pretrain ViT-S" if args.vits else "pretrain"), "batch": B,
         "steps": args.steps, "host_ms_per_step": host_ms,
         "device_kernel_ms_per_step": device_ms,
         "device_busy_share": device_ms / host_ms,

@@ -9,13 +9,23 @@ that the port's modules carry, e.g. encoder.blocks.0.attn.qkv.weight
 (out, in), a Conv3d patch_embed.proj.weight (D, C, p0, p, p),
 backbone.blocks.0.mlp.fc1.weight or local_MCA.0.attn.q.weight.
 finetune_init_from_pretrain starts a classifier from a pretrain model's
-state_dict. Saving, restoring and resuming training state are not ported
-yet.
+state_dict.
+
+save_checkpoint, latest_checkpoint and auto_resume are the counterparts of
+mofo_tpu/train/checkpoint.py:36-79: the JAX package saves orbax
+directories, the port saves torch files checkpoint-<epoch>.pth in the
+reference's layout (utils.py:411-496): {"model": state_dict, "optimizer":
+torch AdamW's state_dict layout ("state" by parameter index with "step",
+"exp_avg", "exp_avg_sq"; "param_groups" with the parameter names), "epoch",
+"step", "args"}. A saved "model" loads into mofo_tpu through
+load_torch_checkpoint + import_torch_pretrain.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import os
+import re
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -134,3 +144,82 @@ def finetune_init_from_pretrain(model: torch.nn.Module,
                          "matches the classifier")
     target.load_state_dict(copied, strict=False)
     return sorted(copied)
+
+
+def save_checkpoint(output_dir: str, model: torch.nn.Module, state,
+                    epoch: int, args=None) -> str:
+    """Writes the model, the AdamW moments and step, the train step and the
+    epoch to <output_dir>/checkpoint-<epoch>.pth (through a temporary file,
+    so a reader never sees half a file). `state` is the TrainState of
+    `model`; `args` an argparse.Namespace of the run or None."""
+    opt = state.opt_state
+    names = list(state.params)
+    cpu = lambda t: t.detach().cpu()  # noqa: E731
+    payload = {
+        "model": {k: cpu(v) for k, v in model.state_dict().items()},
+        "optimizer": {
+            "state": {i: {"step": torch.tensor(float(opt.count)),
+                          "exp_avg": cpu(opt.mu[n]),
+                          "exp_avg_sq": cpu(opt.nu[n])}
+                      for i, n in enumerate(names)},
+            "param_groups": [{"params": list(range(len(names))),
+                              "param_names": names}],
+        },
+        "epoch": epoch,
+        "step": state.step,
+    }
+    if state.ema_params is not None:
+        payload["model_ema"] = {k: cpu(v) for k, v in state.ema_params.items()}
+    if args is not None:
+        payload["args"] = dict(vars(args))
+    os.makedirs(output_dir, exist_ok=True)
+    path = os.path.join(output_dir, f"checkpoint-{epoch}.pth")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path: str, model: torch.nn.Module, state) -> int:
+    """Restores a save_checkpoint file into `model` and its TrainState in
+    place (parameters, AdamW moments and count, step, EMA). Returns the
+    checkpoint's epoch. Raises when the parameter names differ."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    opt = ckpt["optimizer"]
+    names = opt["param_groups"][0]["param_names"]
+    if names != list(state.params):
+        raise ValueError(f"{path} holds other parameters than the model")
+    model.load_state_dict(ckpt["model"])
+    with torch.no_grad():
+        for i, n in enumerate(names):
+            state.opt_state.mu[n].copy_(opt["state"][i]["exp_avg"])
+            state.opt_state.nu[n].copy_(opt["state"][i]["exp_avg_sq"])
+        if state.ema_params is not None and "model_ema" in ckpt:
+            for n, v in ckpt["model_ema"].items():
+                state.ema_params[n].copy_(v)
+    state.opt_state.count = int(opt["state"][0]["step"]) if names else 0
+    state.step = int(ckpt["step"])
+    return int(ckpt["epoch"])
+
+
+def latest_checkpoint(output_dir: str) -> Optional[Tuple[str, int]]:
+    """(path, epoch) of checkpoint-<n>.pth with the highest n (the
+    reference's auto_resume glob), None when there is none."""
+    if not os.path.isdir(output_dir):
+        return None
+    best = None
+    for entry in os.listdir(output_dir):
+        m = re.fullmatch(r"checkpoint-(\d+)\.pth", entry)
+        if m and (best is None or int(m.group(1)) > best[1]):
+            best = (os.path.join(output_dir, entry), int(m.group(1)))
+    return best
+
+
+def auto_resume(output_dir: str, model: torch.nn.Module,
+                state) -> Optional[int]:
+    """Restores the latest checkpoint of output_dir into model and state;
+    returns its epoch, or None when there is none."""
+    found = latest_checkpoint(output_dir)
+    if found is None:
+        return None
+    return load_checkpoint(found[0], model, state)

@@ -93,6 +93,8 @@ def make_pretrain_step(
     cfg: PretrainConfig,
     lr_schedule: Optional[np.ndarray] = None,
     device: DeviceLike = None,
+    augment_fn: Optional[Callable[[Optional[torch.Generator], Batch],
+                                  Batch]] = None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns step_fn(state, batch, generator, loss_weight, mask=None) ->
     (state, metrics).
@@ -100,9 +102,12 @@ def make_pretrain_step(
     The step runs on `device` (CUDA unless the caller passes "cpu"; raises
     without a GPU), where the model must already be. batch['clip'] (B, T,
     H, W, C) holds normalized clips and, for motion masking, batch['boxes']
-    (B, T, 4). With update_freq > 1, B must divide into that many
-    microbatches. `generator` (on the step's device) draws the masks (and
-    drop path, which pretraining runs at rate 0);
+    (B, T, 4) — or raw decoded uint8 frames when augment_fn is given:
+    augment_fn(generator, batch) -> batch runs first, inside the step, on
+    the step's device (mofo_tpu/train/pretrain_step.py:136, 158-160). With
+    update_freq > 1, B must divide into that many microbatches.
+    `generator` (on the step's device) draws the augmentation, then the
+    masks (and drop path, which pretraining runs at rate 0);
     `mask` (B, N) bool replaces the draw, for tests. loss_weight is the
     MOFO in-box weight (0.0 if unused). Metrics: loss, grad_norm and, with
     a schedule, lr — tensors left on the device.
@@ -119,6 +124,8 @@ def make_pretrain_step(
                 generator: Optional[torch.Generator], loss_weight,
                 mask: Optional[torch.Tensor] = None):
         model.train()
+        if augment_fn is not None:
+            batch = augment_fn(generator, batch)
         B = batch["clip"].shape[0]
         if B % k:
             raise ValueError(f"batch {B} does not split into {k} micro")

@@ -169,6 +169,8 @@ def test_build_lists_both_sources():
     from mofo_tpu_torch.ops import _build
 
     assert _build.SOURCES == ("qkv_flash_attention.cu",
-                              "mh_flash_attention.cu")
-    assert all((_build.CSRC / s).exists() for s in _build.SOURCES)
+                              "mh_flash_attention.cu",
+                              "hm_flash_attention.cu")
+    assert all((_build.CSRC / s).exists()
+               for s in _build.SOURCES + _build.HEADERS)
     assert set(fa.KERNELS) == set(_build.SIGNATURES)
