@@ -6,16 +6,21 @@
 Phases, each printing one JSON line:
   1. device  - refuses to run without CUDA; the card's name and power limit
                (nvidia-smi); TF32 off for the f32 phases.
-  2. build   - compiles the CUDA kernels from mofo_tpu_torch/csrc (nvcc,
-               sm_90a), or reuses the build of this checkout.
-  3. kernels - each fused-qkv kernel (K1/K2) against its plain PyTorch
-               version at the pretrain step's encoder and decoder shapes
-               (B=16), the finetune backbone's (B=10, N=1568, H=12) and a
-               ragged one, bf16 and f32, with the bounds of
-               mofo_tpu_torch/tools/main_path.py (which must also reject two
-               planted faults); then, on the same bf16 qkv, kernel, plain,
-               library (F.scaled_dot_product_attention, a yardstick the port
-               never calls) and bound times.
+  2. build   - compiles the CUDA kernels from mofo_tpu_torch/csrc (one
+               nvcc per source, all started together, sm_90a), or reuses the
+               build of this checkout; ptxas's registers and spills.
+  3. kernels - each fused-qkv kernel (K1/K2, in bf16 with the backward's
+               prep pass) against its plain PyTorch version at the pretrain
+               step's encoder and decoder shapes (B=16), the finetune
+               backbone's (B=10, N=1568, H=12) and a ragged one, bf16 and
+               f32, with the bounds of mofo_tpu_torch/tools/main_path.py
+               (which must also reject two planted faults), the ragged one
+               again at scale 0.1 (dQ's scaled-K copy); then, on the same
+               bf16 qkv, kernel, plain, library
+               (F.scaled_dot_product_attention, a yardstick the port never
+               calls) and bound times, and K2 (prep + dK/dV + dQ) over the
+               library's backward (k2_vs_library). Every time is the median
+               of 5 runs of back-to-back calls between two CUDA events.
   4. mh_kernels - the same for the masked multihead kernels (K3): the MCA
                (B=10, N=1568, 3 x 256), 12 x 64 at N=1568 and ragged N=100
                at 1 x 256 and 2 x 64, bf16 and f32, bias present and
@@ -44,7 +49,8 @@ Phases, each printing one JSON line:
                own gated geometry (B=2, H=6, N=1568), ragged N=100 and the
                32-frame N=3136, bf16 and f32, D=64; planted faults (dQ
                zeroed, the LSE in log2 units) must be rejected; then the
-               times at the runner's decoder shape, and (k1_vs_k4) how far
+               times at the runner's decoder shape (with the forward over
+               the library's), and (k1_vs_k4) how far
                K1's numerics, which the ViT-S decoder ran before it took
                the head-major route, lie from K4's on the same inputs.
  10. vits_step - the ViT-S MOFO pretrain step at full width (bf16, B=32):
@@ -95,6 +101,7 @@ from mofo_tpu_torch.tools.main_path import (
     build_finetune_step,
     build_step,
     check_against_plain,
+    check_prep,
     compare_with_plain,
     finetune_model,
     hm_attention_against_plain,
@@ -125,6 +132,8 @@ SOURCES.update({n: "mofo_tpu_torch/csrc/hm_flash_attention.cu"
 TPU_FILE = "mofo_tpu/ops/flash_attention.py"
 REPLACES = {  # the pallas_call sites of the TPU kernels
     "qkv_attn_fwd": f"{TPU_FILE}:1160",  # _qkv_fwd_impl -> _mh_fwd_kernel
+    # _qkv_bwd_impl's in-kernel delta (:1016-1023) and the scale fold
+    "qkv_attn_bwd_prep": f"{TPU_FILE}:1224",
     "qkv_attn_bwd_dkv": f"{TPU_FILE}:1224",  # _qkv_bwd_impl (dK, dV)
     "qkv_attn_bwd_dq": f"{TPU_FILE}:1224",  # _qkv_bwd_impl (dQ)
     # _mh_fwd_impl -> _mh_fwd_kernel with has_bias
@@ -191,8 +200,8 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
-    """Builds both sources with one nvcc call; reports each kernel
-    instance's registers and spills (ptxas -v)."""
+    """Builds the sources (one nvcc per source, in parallel); reports each
+    kernel instance's registers and spills (ptxas -v)."""
     info = _build.build()
     _build.load()
     ptxas, name = {}, None
@@ -210,13 +219,17 @@ def _qkv(B, N, H, dtype, seed):
     return torch.randn(B, N, 3 * H * D, generator=g).to(dtype).cuda()
 
 
-def check_kernels(x, H) -> dict:
+def check_kernels(x, H, scale: float = SCALE) -> dict:
     """Each kernel against its plain version on qkv x (main_path's bounds;
-    raises beyond them). The same bounds must reject two planted faults,
-    dQ zeroed and dK without its 1/log2(e) fix."""
-    got, want = attention_against_plain(x, H, SCALE)
+    raises beyond them), in bf16 the backward's prep pass too. The same
+    bounds must reject two planted faults, dQ zeroed and dK without its
+    1/log2(e) fix."""
+    got, want = attention_against_plain(x, H, scale)
     torch.cuda.synchronize()
     res = check_against_plain(got, want)
+    if x.dtype == torch.bfloat16:
+        res["prep"] = check_prep(x, got["out"], (2 * got["out"].float()).to(
+            x.dtype), H, scale)
     res["planted"] = {}
     for fault, outputs in planted_faults(got).items():
         caught = compare_with_plain(outputs, want)
@@ -230,19 +243,31 @@ def check_kernels(x, H) -> dict:
     return res
 
 
-def time_ms(fn, runs: int = 20, warmup: int = 3) -> float:
-    """Median of `runs` single calls timed with CUDA events."""
+def time_ms(fn, runs: int = 5, warmup: int = 3, run_ms: float = 20.0,
+            max_reps: int = 200) -> float:
+    """Milliseconds per call: after `warmup` calls, `runs` runs of R
+    back-to-back calls, each run between two CUDA events, divided by R; the
+    median of the runs. R fills about `run_ms` per run (one synchronized call
+    sizes it), so the host's launch time overlaps the device's work as it
+    does in a step."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = (time.perf_counter() - t0) * 1e3
+    reps = max(1, min(max_reps, int(run_ms / max(once, 1e-3))))
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -263,11 +288,14 @@ def bounds(B, N, H) -> dict:
     e, A = 2, H * D
     mm = 2 * B * H * N * N * D  # one (N x N x D) product
     qkv, row = B * N * 3 * A * e, B * N * A * e
-    lse = B * H * N * 4
+    stat = B * H * N * 4
     work = {
-        "qkv_attn_fwd": (2 * mm, qkv + row + lse),  # S, P.V
-        "qkv_attn_bwd_dkv": (4 * mm, qkv + 2 * row + lse + 2 * row),
-        "qkv_attn_bwd_dq": (3 * mm, qkv + 2 * row + lse + row),
+        "qkv_attn_fwd": (2 * mm, qkv + row + stat),  # S, P.V -> out, lse
+        # q, out, dout -> q * scale, delta
+        "qkv_attn_bwd_prep": (2 * B * N * A + B * N * A, 3 * row + row + stat),
+        # k, v, q * scale, dout, lse, delta -> dk, dv
+        "qkv_attn_bwd_dkv": (4 * mm, 4 * row + 2 * stat + 2 * row),
+        "qkv_attn_bwd_dq": (3 * mm, 4 * row + 2 * stat + row),  # -> dq
     }
     return least_times(work)
 
@@ -287,6 +315,7 @@ def time_kernels(x, H) -> dict:
         x, out, lse, dout, SCALE, H), runs=10)
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         o_lib, (q, k, v), g_lib, retain_graph=True))
+    prep = fa.qkv_attn_bwd_prep(x, out, dout, SCALE, H)
     res = {
         "qkv_attn_fwd": {
             "ms": time_ms(lambda: fa.qkv_attn_fwd(x, SCALE, H)),
@@ -295,14 +324,22 @@ def time_kernels(x, H) -> dict:
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q.detach(), k.detach(), v.detach(), scale=SCALE)),
         },
+        # no one library call computes delta and the scaled q alone
+        "qkv_attn_bwd_prep": {
+            "ms": time_ms(lambda: fa.qkv_attn_bwd_prep(
+                x, out, dout, SCALE, H)),
+            "plain_ms": time_ms(lambda: fa.attention_qkv_bwd_prep_plain(
+                x, out, dout, SCALE, H)),
+            "library_ms": None,
+        },
         "qkv_attn_bwd_dkv": {
             "ms": time_ms(lambda: fa.qkv_attn_bwd_dkv(
-                x, out, lse, dout, dqkv, SCALE, H)),
+                x, out, lse, dout, dqkv, SCALE, H, prep)),
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
         "qkv_attn_bwd_dq": {
             "ms": time_ms(lambda: fa.qkv_attn_bwd_dq(
-                x, out, lse, dout, dqkv, SCALE, H)),
+                x, out, lse, dout, dqkv, SCALE, H, prep)),
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
     }
@@ -327,12 +364,23 @@ def phase_kernels():
             if dtype == torch.bfloat16 and geo in MAIN:
                 err = res["max_abs_err"]
                 errors[geo] = {"qkv_attn_fwd": err["out"],
+                               "qkv_attn_bwd_prep": res["prep"]["max_abs_err"],
                                "qkv_attn_bwd_dkv": max(err["dk"], err["dv"]),
                                "qkv_attn_bwd_dq": err["dq"]}
                 timings[geo] = time_kernels(x, H)
                 emit("kernel_times", geometry=geo, B=B, N=N, H=H,
                      dtype="bfloat16", times=timings[geo])
             del x
+    # a scale that is not a power of two: dQ reads its own scaled K copy
+    B, N, H = CHECKS["ragged"]
+    for dtype in (torch.bfloat16, torch.float32):
+        emit("kernels_vs_plain", geometry="ragged", B=B, N=N, H=H, scale=0.1,
+             dtype=str(dtype).replace("torch.", ""),
+             **check_kernels(_qkv(B, N, H, dtype, seed=7), H, 0.1))
+    emit("k2_vs_library", **{
+        geo: (t["qkv_attn_bwd_prep"]["ms"] + t["qkv_attn_bwd_dkv"]["ms"]
+              + t["qkv_attn_bwd_dq"]["ms"]) / t["qkv_attn_bwd_dq"]
+        ["library_ms"] for geo, t in timings.items()})
     return errors, timings
 
 
@@ -488,7 +536,7 @@ def phase_step(smi: str, phase: str = "step", model_name: str = MODEL,
 
 
 def phase_parity(phase: str = "parity", model_name: str = MODEL,
-                 kernels=fa.QKV_KERNELS) -> None:
+                 kernels=fa.QKV_F32_KERNELS) -> None:
     """Card (kernels) against CPU (plain versions) at full width, cut to
     2+1 blocks, f32, B=1; each of `kernels` must have run on the card."""
     cfg = PretrainConfig(model=model_name, batch_size=1, dtype="float32",
@@ -614,7 +662,7 @@ def phase_finetune_parity() -> None:
         results[dev] = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
         results[dev]["launches"] = dict(fa.launch_counts)
     if min(results["cuda"]["launches"][k]
-           for k in fa.QKV_KERNELS + fa.MH_KERNELS) < 1:
+           for k in fa.QKV_F32_KERNELS + fa.MH_KERNELS) < 1:
         raise AssertionError(f"the card run skipped a kernel: {results}")
     rel = {k: abs(results["cuda"][k] - results["cpu"][k])
            / abs(results["cpu"][k]) for k in ("loss", "grad_norm")}
@@ -741,7 +789,9 @@ def phase_hm_kernels():
                           "hm_attn_bwd_dq": err["dq"]}
                 timings = time_hm_kernels(q, k, v, B, H)
                 emit("hm_kernel_times", geometry=geo, B=B, H=H, N=N, D=D,
-                     dtype="bfloat16", times=timings)
+                     dtype="bfloat16", times=timings,
+                     fwd_vs_library=timings["hm_attn_fwd"]["ms"]
+                     / timings["hm_attn_fwd"]["library_ms"])
             del q, k, v, got, want
     B, H, N = HM_CHECKS["runner_decoder"]
     emit("k1_vs_k4", B=B, H=H, N=N, D=D,
@@ -807,7 +857,8 @@ def main() -> int:
     phase_finetune_parity()
     hm_errors, hm_timings = phase_hm_kernels()
     vits_launches = phase_step(smi, "vits_step", VITS_MODEL, VITS_BATCH)
-    phase_parity("vits_parity", VITS_MODEL, fa.QKV_KERNELS + fa.HM_KERNELS)
+    phase_parity("vits_parity", VITS_MODEL,
+                 fa.QKV_F32_KERNELS + fa.HM_KERNELS)
     runner_launches = phase_runner(smi)
     kernels = []
     for name in fa.QKV_KERNELS:

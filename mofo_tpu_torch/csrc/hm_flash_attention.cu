@@ -2,7 +2,8 @@
 // two halves of the backward on (B*H, N, D) q, k and v. Plain C interface,
 // loaded from Python with ctypes (mofo_tpu_torch/ops/flash_attention.py);
 // built by mofo_tpu_torch/ops/_build.py with the other csrc/*.cu sources.
-// The tile loads, products and reductions are flash_tiles.cuh's.
+// The mma.sync tile loads, products and reductions are flash_tiles.cuh's,
+// the TMA, mbarrier and wgmma pieces of the bf16 forward wgmma_tiles.cuh's.
 //
 // Replaces the TPU kernel K4 of mofo_tpu/ops/flash_attention.py:
 //   hm_attn_fwd      <- _fwd_impl (:262) / _fwd_kernel (:130)
@@ -20,17 +21,31 @@
 // kernels are bound by operations (the bf16 tensor-core rate), not bytes.
 //
 // What the design does about it. Every product of the bf16 kernels runs on
-// the tensor cores (mma.sync m16n8k16, bf16 in, f32 accumulate); four warps
-// own 16 rows each of a 64-row tile and the other side streams in 64-row
-// tiles. The f32 kernels (the parity path) use FMAs, since tensor cores would
-// round f32 to TF32. The TPU rounds the normalized p / l before P.V, which an
-// online softmax cannot do (it rounds exp(s - m_running)): so the forward
-// makes two passes over kv, the first for the row max and sum, the second for
-// P = exp(s - m) / l and P.V, one product more than an online softmax. The
-// backward is two kernels (dK/dV over kv tiles, dQ over q tiles), so each
-// output has one writer and no atomics. Ragged N is masked in-kernel: kv
-// columns >= N and q rows >= N get P = 0; nothing is padded in HBM. wgmma,
-// TMA and pipelined loads are later work.
+// the tensor cores, bf16 in, f32 accumulate. The TPU rounds the normalized
+// p / l before P.V, which an online softmax cannot do (it rounds
+// exp(s - m_running)): so the forward makes two passes over kv, the first
+// for the row max and sum, the second for P = exp(s - m) / l and P.V, one
+// product more than an online softmax (3 products are the floor).
+//   - The bf16 forward (redesigned for Hopper, wgmma_tiles.cuh) runs two
+//     consumer warpgroups of 64 query rows each and a producer warpgroup
+//     whose first warp keeps a ring of 3 shared-memory stages full by TMA
+//     (its registers go to the consumers by setmaxnreg) (K alone in pass
+//     1, K and V in pass 2), so tile j + 1 is in flight while tile j is
+//     multiplied. Every product is one wgmma.mma_async m64n64k16 chain: q's
+//     fragments (times the scale) stay in registers across both passes and
+//     P goes from registers to P.V; K and V are read from 128-byte-swizzled
+//     shared memory, V MN-major. The exponentials are ex2 of log2(e)-scaled
+//     f32 differences and pass 2 multiplies by 1/l: an ulp or two of the
+//     f32 value before the bf16 rounding. The LSE stays in natural-log
+//     units. The 3D tensor maps (BH, N, 64) zero-fill rows past N per head.
+//   - The bf16 backward still runs mma.sync m16n8k16 with four warps that
+//     own 16 rows each of a 64-row tile, the other side streamed in 64-row
+//     tiles through plain loads; it is two kernels (dK/dV over kv tiles, dQ
+//     over q tiles), so each output has one writer and no atomics.
+//   - The f32 kernels (the parity path) use FMAs, since tensor cores would
+//     round f32 to TF32.
+// Ragged N is masked in-kernel: kv columns >= N and q rows >= N get P = 0;
+// nothing is padded in HBM.
 //
 // Numerics (those of the TPU kernel, which the tests hold the plain
 // versions against):
@@ -43,6 +58,7 @@
 //     subtraction in f32; in f32 it is P * (dP - delta).
 
 #include "flash_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -295,85 +311,162 @@ __global__ void __launch_bounds__(kThreads)
 // bf16: tensor-core kernels (flash_tiles.cuh's mma.sync layout)
 // -------------------------------------------------------------------------
 
-template <int BK>
-constexpr size_t smem_fwd_bf16() {
-  return (size_t)(kRowsH + 2 * BK) * (kD + 8) * sizeof(bf16);
-}
+// The redesigned bf16 forward: kWG consumer warpgroups, each the 64 query
+// rows of one wgmma strip, then the producer warpgroup, whose first warp
+// keeps a ring of kStages kv stages filled by TMA (K alone in pass 1, K and
+// V in pass 2).
+constexpr int kStages = 3;
+constexpr int kTileElems = kTileRows * kD;
+constexpr size_t kSmemFwdBf16 =
+    1024 + (size_t)(kWG + 2 * kStages) * kTileBytes +
+    (2 * kStages + 1) * sizeof(uint64_t);
 
-// Grid (ceil(N / 64), BH). One block: 64 query rows of one head against all
-// N keys, in two passes over BK-row kv tiles.
-template <int BK>
-__global__ void __launch_bounds__(kMmaThreads)
-    hm_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out,
-                float* __restrict__ lse, int N, float q_scale) {
-  constexpr int D = kD, LD = D + 8, NO = D / 8, NS = BK / 8;
-  extern __shared__ __align__(16) unsigned char hsmem[];
-  bf16* sQ = reinterpret_cast<bf16*>(hsmem);
-  bf16* sK = sQ + kRowsH * LD;
-  bf16* sV = sK + BK * LD;
-  const size_t base = (size_t)blockIdx.y * N * D;
-  const int q0 = blockIdx.x * kRowsH, r0 = 16 * (threadIdx.x >> 5);
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+// Grid (ceil(N / (64 kWG)), BH). One block: 64 kWG query rows of one head
+// against all N keys, in two passes over 64-row kv tiles. Each consumer
+// warpgroup keeps its q fragments (q times the scale, in bf16) in registers;
+// warp w of it owns rows 16w..16w+15 of the strip, in mma.sync's accumulator
+// layout.
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    hm_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                bf16* __restrict__ out, float* __restrict__ lse, int N,
+                float q_scale) {
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ unsigned char wsmem[];
+  unsigned char* sm = smem_1024(wsmem);
+  bf16* sQ = reinterpret_cast<bf16*>(sm);
+  bf16* sK = sQ + kWG * kTileElems;
+  bf16* sV = sK + kStages * kTileElems;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + kStages * kTileElems);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kWG * kTileRows;
+  const int T = (N + kTileRows - 1) / kTileRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  load_bf16<kRowsH, D>(sQ, q + base, q0, N, D, q_scale);
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < N; k0 += BK) {  // pass 1: row max and sum
-    __syncthreads();  // sQ is written / the previous tile's reads are done
-    load_bf16<BK, D>(sK, k + base, k0, N, D, 1.f);
-    __syncthreads();
-    float s[NS][4] = {};
-    mm_nt<NS, D / 16, LD>(s, sQ, r0, sK);
-    float mx[2] = {-INFINITY, -INFINITY}, rs[2] = {0.f, 0.f}, m_new[2];
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (k0 + 8 * nt + 2 * t + (e & 1) < N)
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r)  // finite: the tile holds a column < N
-      m_new[r] = fmaxf(m[r], quad_max(mx[r]));
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (k0 + 8 * nt + 2 * t + (e & 1) < N)
-          rs[e >> 1] += expf(s[nt][e] - m_new[e >> 1]);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] = l[r] * expf(m[r] - m_new[r]) + quad_sum(rs[r]);
-      m[r] = m_new[r];
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kWG);  // one arrival per consumer warp
     }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  float o[NO][4] = {};
-  for (int k0 = 0; k0 < N; k0 += BK) {  // pass 2: P = exp(s - m) / l, P.V
-    __syncthreads();
-    load_bf16<BK, D>(sK, k + base, k0, N, D, 1.f);
-    load_bf16<BK, D>(sV, v + base, k0, N, D, 1.f);
-    __syncthreads();
-    float s[NS][4] = {};
-    mm_nt<NS, D / 16, LD>(s, sQ, r0, sK);
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[nt][e] = k0 + 8 * nt + 2 * t + (e & 1) < N
-                       ? expf(s[nt][e] - m[e >> 1]) / l[e >> 1]
-                       : 0.f;
-    uint32_t pa[NS / 2][4];
-    to_a<NS / 2>(pa, s);  // p / l rounded to bf16 before P.V
-    mm_nn<NO, NS / 2, LD, false>(o, pa, sV, 1.f);
-  }
+  if (warp >= 4 * kWG) {  // producer
+    producer_registers();
+    if (warp == 4 * kWG && lane == 0) {
+      mbar_expect_tx(qbar, kWG * kTileBytes);
+      for (int w = 0; w < kWG; ++w)
+        tma_tile(sQ + w * kTileElems, &tq, qbar, 0, q0 + kTileRows * w, bh);
+      for (int it = 0; it < 2 * T; ++it) {
+        const int s = it % kStages;
+        const bool second = it >= T;
+        const int k0 = (second ? it - T : it) * kTileRows;
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], second ? 2 * kTileBytes : kTileBytes);
+        tma_tile(sK + s * kTileElems, &tk, &full[s], 0, k0, bh);
+        if (second) tma_tile(sV + s * kTileElems, &tv, &full[s], 0, k0, bh);
+      }
+    }
+  } else {
+    consumer_registers();
+    const int wg = warp >> 2, r0 = 16 * (warp & 3);
+    const int t = lane & 3;
+    mbar_wait(qbar, 0);
+    uint32_t qa[4][4];
+    load_a_sw128(qa, sQ + wg * kTileElems, r0, q_scale);
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  store_rows<NO>(out + base, D, o, q0 + r0, N, 1.f);
+    int it = 0;
+    for (int j = 0; j < T; ++j, ++it) {  // pass 1: row max and sum
+      const int s = it % kStages;
+      mbar_wait(&full[s], (it / kStages) & 1);
+      float sc[8][4] = {};
+      wgmma_tile<0>(sc, qa, sK + s * kTileElems);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if ((j + 1) * kTileRows > N) {  // the ragged last tile
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + r0 + g + 8 * half;
-    if (t == 0 && row < N)
-      lse[(size_t)blockIdx.y * N + row] = m[half] + logf(l[half]);
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j * kTileRows + 8 * nt + 2 * t + (e & 1) >= N)
+              sc[nt][e] = -INFINITY;
+      }
+      float mx[2] = {-INFINITY, -INFINITY}, rs[2] = {0.f, 0.f}, ml[2];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // finite: the tile holds a column < N
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        l[r] *= exp2f((m[r] - m_new) * kLog2e);
+        m[r] = m_new;
+        ml[r] = m_new * kLog2e;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          rs[e >> 1] += exp2f(fmaf(sc[nt][e], kLog2e, -ml[e >> 1]));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] += quad_sum(rs[r]);
+    }
+
+    float ml[2], inv_l[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) ml[r] = m[r] * kLog2e, inv_l[r] = 1.f / l[r];
+    float o[8][4] = {};
+    for (int j = 0; j < T; ++j, ++it) {  // pass 2: P = exp(s - m) / l, P.V
+      const int s = it % kStages;
+      mbar_wait(&full[s], (it / kStages) & 1);
+      float sc[8][4] = {};
+      wgmma_tile<0>(sc, qa, sK + s * kTileElems);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      const bool ragged = (j + 1) * kTileRows > N;
+      uint32_t pa[4][4];  // p / l rounded to bf16: the A fragments of P.V
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int col = j * kTileRows + 8 * nt + 2 * t;
+          const int r = e >> 1;
+          float p0 = exp2f(fmaf(sc[nt][e], kLog2e, -ml[r])) * inv_l[r];
+          float p1 = exp2f(fmaf(sc[nt][e + 1], kLog2e, -ml[r])) * inv_l[r];
+          if (ragged) {
+            p0 = col < N ? p0 : 0.f;
+            p1 = col + 1 < N ? p1 : 0.f;
+          }
+          pa[nt >> 1][2 * (nt & 1) + (e >> 1)] = bf16x2(p0, p1);
+        }
+      wgmma_tile<1>(o, pa, sV + s * kTileElems);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    const size_t base = (size_t)bh * N * kD;
+    const int row0 = q0 + kTileRows * wg + r0;
+    store_rows<8>(out + base, kD, o, row0, N, 1.f);
+    const int g = lane >> 2;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + g + 8 * half;
+      if (t == 0 && row < N)
+        lse[(size_t)bh * N + row] = m[half] + logf(l[half]);
+    }
   }
 }
 
@@ -525,12 +618,15 @@ extern "C" int hm_attn_fwd(const void* q, const void* k, const void* v,
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
   if (is_bf16) {
-    constexpr size_t smem = smem_fwd_bf16<kTile>();
-    auto kernel = hm_fwd_bf16<kTile>;
-    if (int e = max_smem((const void*)kernel, smem)) return e;
-    kernel<<<dim3(cdiv(N, kRowsH), BH), kMmaThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out), l, N, q_scale);
+    CUtensorMap tq, tk, tv;
+    const long plane = (long)N * kD;
+    if (int e = tile_map(&tq, q, kD, N, BH, kD, plane)) return e;
+    if (int e = tile_map(&tk, k, kD, N, BH, kD, plane)) return e;
+    if (int e = tile_map(&tv, v, kD, N, BH, kD, plane)) return e;
+    if (int e = max_smem((const void*)hm_fwd_bf16, kSmemFwdBf16)) return e;
+    hm_fwd_bf16<<<dim3(cdiv(N, kWG * kTileRows), BH), kHopperThreads,
+                  kSmemFwdBf16, st>>>(tq, tk, tv, static_cast<bf16*>(out), l,
+                                      N, q_scale);
   } else {
     constexpr size_t smem = smem_fwd_f32<kTile, kTile>();
     auto kernel = hm_fwd_f32<kTile, kTile>;

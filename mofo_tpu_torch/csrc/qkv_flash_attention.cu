@@ -4,6 +4,8 @@
 //
 // Replaces the TPU kernels of mofo_tpu/ops/flash_attention.py:
 //   qkv_attn_fwd      <- _qkv_fwd_impl / _mh_fwd_kernel            (K1)
+//   qkv_attn_bwd_prep <- _qkv_bwd_impl (:1224) / _qkv_bwd_kernel's
+//                        in-kernel delta (K2, bf16 only)
 //   qkv_attn_bwd_dkv  <- _qkv_bwd_impl / _qkv_bwd_kernel and
 //   qkv_attn_bwd_dq      _qkv_bwd_kernel_houter (dK/dV and dQ)    (K2)
 //
@@ -11,32 +13,51 @@
 // (A = H * D, D = 64): q at column h*D, k at A + h*D, v at 2A + h*D, row
 // stride 3A. The forward writes out (B, N, A) at column h*D and a compact
 // (B, H, N) f32 row log-sum-exp. The backward writes one fused dqkv
-// (B, N, 3A): dK/dV from one kernel, dQ from the other.
+// (B, N, 3A): dK/dV from one kernel, dQ from the other; in bf16 both read
+// the prep pass's delta (B, H, N) f32 and q * q_scale (B, N, A).
 //
 // What bounds it on this card. At the MOFO geometries (N = 160 and 1568,
 // D = 64) attention does N^2*D work on N*D bytes: at N = 1568 it is bound
-// by operations (the bf16 tensor-core rate), at N = 160 by bytes.
+// by operations (the bf16 tensor-core rate), at N = 160 by bytes (and, for
+// a kernel this short, by the host's launch).
 //
-// What the design does about it. Each block holds a 64-row tile of queries
-// (or of keys/values) and streams the other side in 64-row tiles through
-// shared memory with an online softmax: one head's K and V at N = 1568 do
-// not fit in a block's shared memory, so the TPU's "whole K/V rows
-// resident" design does not carry over. The bf16 kernels (the training
-// path) run every product on the tensor cores with mma.sync m16n8k16 (bf16
-// in, f32 accumulate): four warps own 16 rows each, and P and dS go from
-// the accumulators to the next product's A operand in registers. The f32
-// kernels (the parity path) do their products with f32 FMAs, each thread a
-// 4x4 register micro-tile, since tensor cores would round f32 to TF32. So
-// the f32 card-against-CPU step check of chip_smoke.py runs these FMA
-// kernels only; the bf16 kernels are held against their plain versions on
-// their own (mofo_tpu_torch/tools/main_path.py's bounds).
-// Shared-memory rows are padded (bf16: 72, f32: 65 elements) so fragment
-// and micro-tile reads are free of bank conflicts. Ragged edges are masked
-// in-kernel (kv columns >= N score -inf, q rows >= N carry +inf LSE in the
-// backward and are never stored); nothing is padded in HBM. The backward is
-// two kernels, dK/dV over kv tiles and dQ over q tiles, so each output has
-// exactly one writer: no atomics, deterministic sums. wgmma, TMA and
-// pipelined loads are later work.
+// What the design does about it. Each block holds 64-row tiles of queries
+// (or of keys/values) and streams the other side in 64-row tiles: one
+// head's K and V at N = 1568 do not fit in a block's shared memory, so the
+// TPU's "whole K/V rows resident" design does not carry over.
+//   - The bf16 forward (K1) runs every product on the tensor cores with
+//     mma.sync m16n8k16 (bf16 in, f32 accumulate) and an online softmax:
+//     four warps own 16 rows each, P goes from the accumulators to P.V's A
+//     operand in registers; tiles come through plain synchronous loads.
+//   - The bf16 backward (K2, redesigned for Hopper, wgmma_tiles.cuh) reads
+//     each byte its math needs once. A prep kernel, qkv_attn_bwd_prep, reads
+//     q, O and dO once and writes delta = rowsum(dO * O) and q * q_scale in
+//     bf16 (the TPU kernel forms both inside, :1016-1023); the dK/dV and dQ
+//     kernels then stream plain tiles and never read O. Each is two
+//     consumer warpgroups (64 rows of wgmma.mma_async m64n64k16 each) and a
+//     producer warpgroup whose first warp keeps a 2-stage ring full by TMA
+//     from 3D tensor maps over (B, N, 3A) and (B, N, A), which zero-fill
+//     rows past N per batch (its lanes also stage the q tiles' LSE and
+//     delta); setmaxnreg hands the producer's registers to the consumers.
+//     The A operands stay in registers (K's in dK/dV; q's and dO's in dQ)
+//     or come from the accumulators (P, dS); B and V's A are read from
+//     128-byte-swizzled shared memory. dQ's k_scale is 0.125 at head dim 64,
+//     a power of two, so (dS K) * 0.125 on the f32 accumulator equals
+//     dS bf16(K * 0.125) bit for bit and K is loaded once; another scale
+//     reads a scaled copy that the prep pass writes. The split into dK/dV
+//     over kv tiles and dQ over q tiles keeps one writer per output: no
+//     atomics, deterministic sums, 7 products in all.
+//   - The f32 kernels (the parity path) do their products with f32 FMAs,
+//     each thread a 4x4 register micro-tile, since tensor cores would round
+//     f32 to TF32; their backward forms delta itself. So the f32
+//     card-against-CPU step check of chip_smoke.py runs these FMA kernels
+//     only; the bf16 kernels are held against their plain versions on their
+//     own (mofo_tpu_torch/tools/main_path.py's bounds).
+// The mma.sync kernels pad shared-memory rows (bf16: 72, f32: 65 elements)
+// so fragment and micro-tile reads are free of bank conflicts. Ragged edges
+// are masked in-kernel (kv columns >= N score -inf or get P = 0, q rows >=
+// N carry +inf LSE in the backward and are never stored); nothing is padded
+// in HBM.
 //
 // Numerics (held by the tests against the TPU kernels):
 //   - the softmax scale is folded into q in the input dtype;
@@ -54,6 +75,10 @@
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -362,15 +387,6 @@ constexpr int kMmaThreads = 32 * kWarps;
 constexpr int kLdh = kD + 8;  // padded bf16 row stride: 144 bytes
 constexpr int kTileH = kRows * kLdh;
 
-__device__ __forceinline__ float rnd(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
@@ -466,10 +482,10 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[4][4],
                                      const float (&c)[8][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack2(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = pack2(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = pack2(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = pack2(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+    a[kk][0] = bf16x2(c[2 * kk][0], c[2 * kk][1]);
+    a[kk][1] = bf16x2(c[2 * kk][2], c[2 * kk][3]);
+    a[kk][2] = bf16x2(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+    a[kk][3] = bf16x2(c[2 * kk + 1][2], c[2 * kk + 1][3]);
   }
 }
 
@@ -500,48 +516,6 @@ __device__ __forceinline__ void store_rows(bf16* dst, size_t ld,
           __floats2bfloat162_rn(c[nt][2 * half] * mul,
                                 c[nt][2 * half + 1] * mul);
   }
-}
-
-// delta[r] = sum_d dO[r, d] * O[r, d] (f32) for the 64 rows of a tile:
-// two threads to a row, 16-byte loads.
-__device__ __forceinline__ void row_delta_h(float* delta, const bf16* dO,
-                                            const bf16* O) {
-  static_assert(kMmaThreads == 2 * kRows, "two threads to a row");
-  const int r = threadIdx.x >> 1, c0 = (kD / 2) * (threadIdx.x & 1);
-  float acc = 0.f;
-#pragma unroll
-  for (int c = c0; c < c0 + kD / 2; c += 8) {
-    const uint4 a = *reinterpret_cast<const uint4*>(dO + r * kLdh + c);
-    const uint4 b = *reinterpret_cast<const uint4*>(O + r * kLdh + c);
-    const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
-    const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 fx = __bfloat1622float2(x[e]);
-      const float2 fy = __bfloat1622float2(y[e]);
-      acc = fmaf(fx.x, fy.x, acc);
-      acc = fmaf(fx.y, fy.y, acc);
-    }
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  if ((threadIdx.x & 1) == 0) delta[r] = acc;
-}
-
-// Loads one q tile's scaled q, dO and O and its LSE (+inf on rows >= N),
-// and computes its delta.
-__device__ __forceinline__ void load_q_side_h(
-    bf16* sQ, bf16* sdO, bf16* sO, float* sLse, float* sDelta,
-    const bf16* qkv_b, const bf16* out_b, const bf16* dout_b,
-    const float* lse_bh, int q0, int N, int A, int h, float q_scale) {
-  load_tile_h(sQ, qkv_b + h * kD, q0, N, 3 * A, q_scale);
-  load_tile_h(sdO, dout_b + h * kD, q0, N, A, 1.f);
-  load_tile_h(sO, out_b + h * kD, q0, N, A, 1.f);
-  if (threadIdx.x < kRows) {
-    const int row = q0 + threadIdx.x;
-    sLse[threadIdx.x] = row < N ? lse_bh[row] : INFINITY;
-  }
-  __syncthreads();
-  row_delta_h(sDelta, sdO, sO);
 }
 
 // Grid (ceil(N / 64), B * H). One block: one head's 64 query rows against
@@ -617,120 +591,342 @@ __global__ void __launch_bounds__(kMmaThreads)
   }
 }
 
-// P (rounded to bf16) and dS = bf16(P * bf16(dP - delta)) in place, for an
-// accumulator pair whose delta and LSE are per row (dq) or per column
-// (dkv, where the tile is transposed). Masked entries get p = 0, ds = 0.
-template <bool kPerColumn>
-__device__ __forceinline__ void p_and_ds_h(float (&s)[8][4],
-                                           float (&dp)[8][4],
-                                           const float* sLse,
-                                           const float* sDelta, int r0,
-                                           int k0, int N) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+// -------------------------------------------------------------------------
+// bf16 backward, redesigned for Hopper. A prep pass reads q, O and dO once
+// and writes delta = rowsum(dO * O) and q * q_scale in bf16; the dK/dV and
+// dQ kernels then stream plain tiles by TMA and never read O. Each block is
+// kWG consumer warpgroups, one 64-row wgmma strip each (warp w of a
+// warpgroup owns rows 16w..16w+15, in the mma.sync accumulator layout
+// above), and a producer warpgroup whose first warp keeps a ring of kStages
+// stages full (wgmma_tiles.cuh's block layout).
+// -------------------------------------------------------------------------
+
+constexpr int kStages = 2;
+constexpr int kTileElems = kTileRows * kD;
+constexpr int kPrepThreads = 256;
+
+// Grid-stride over the 8-value chunks of the (B*N, A) rows: chunk c of row
+// i is q[i, 8c..8c+7] (and dO, O and k at the same columns). Eight
+// consecutive chunks are one head, so delta is an eight-lane shuffle sum.
+// ks (when not null) gets k * k_scale rounded to bf16.
+__global__ void __launch_bounds__(kPrepThreads)
+    bwd_prep_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ out,
+                  const bf16* __restrict__ dout, float* __restrict__ delta,
+                  bf16* __restrict__ qs, bf16* __restrict__ ks, int BN,
+                  int N, int H, float q_scale, float k_scale) {
+  const int A = H * kD, C = A / 8;
+  const int total = BN * C;  // < 2^31: the wrapper's B * N * 3A bound
+  const int stride = gridDim.x * blockDim.x;
+  const int lane = threadIdx.x & 31;
+  for (int i0 = blockIdx.x * blockDim.x + (threadIdx.x - lane); i0 < total;
+       i0 += stride) {  // i0 is uniform across the warp
+    const int i = i0 + lane;
+    const bool on = i < total;
+    const int row = on ? i / C : 0;
+    const int c = on ? i - row * C : 0;
+    float acc = 0.f;
+    if (on) {
+      const size_t at = (size_t)row * A + 8 * c;
+      const uint4 a = *reinterpret_cast<const uint4*>(dout + at);
+      const uint4 o = *reinterpret_cast<const uint4*>(out + at);
+      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&o);
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
+      for (int e = 0; e < 4; ++e) {
+        const float2 fx = __bfloat1622float2(x[e]);
+        const float2 fy = __bfloat1622float2(y[e]);
+        acc = fmaf(fx.x, fy.x, acc);
+        acc = fmaf(fx.y, fy.y, acc);
+      }
+      const bf16* src = qkv + (size_t)row * 3 * A + 8 * c;
+      for (int part = 0; part < (ks ? 2 : 1); ++part) {
+        uint4 v = *reinterpret_cast<const uint4*>(src + part * A);
+        const float mul = part ? k_scale : q_scale;
+        __nv_bfloat162* z = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = 8 * nt + 2 * t + (e & 1);
-      const int i = kPerColumn ? col : r0 + g + 8 * (e >> 1);
-      const float p =
-          k0 + col < N ? rnd(exp2f(s[nt][e] - sLse[i])) : 0.f;
-      s[nt][e] = p;
-      dp[nt][e] = rnd(p * rnd(dp[nt][e] - sDelta[i]));
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(z[e]);
+          z[e] = __floats2bfloat162_rn(f.x * mul, f.y * mul);
+        }
+        *reinterpret_cast<uint4*>((part ? ks : qs) + at) = v;
+      }
     }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (on && (c & 7) == 0) {
+      const int b = row / N, n = row - b * N;
+      delta[((size_t)b * H + c / 8) * N + n] = acc;
+    }
+  }
 }
 
-// Grid (ceil(N / 64), B * H). One block: one head's 64 key/value rows;
-// loops over all q tiles and accumulates dK and dV in registers. Each warp
-// computes its 16 kv rows of S^T = K Q^T and dP^T = V dO^T, so P^T and
+// P (rounded to bf16) and dS = bf16(P * bf16(dP - delta)) of one pair of
+// accumulator values, as the packed A-fragment words of the next products.
+__device__ __forceinline__ void p_and_ds_pair(float s0, float s1, float dp0,
+                                              float dp1, float lse0,
+                                              float lse1, float d0, float d1,
+                                              uint32_t& pw, uint32_t& dsw) {
+  pw = bf16x2(exp2f(s0 - lse0), exp2f(s1 - lse1));
+  const uint32_t dd = bf16x2(dp0 - d0, dp1 - d1);
+  dsw = bf16x2(bf16_lo(pw) * bf16_lo(dd), bf16_hi(pw) * bf16_hi(dd));
+}
+
+constexpr size_t kSmemDkvBf16 =
+    1024 + (size_t)(2 * kWG + 2 * kStages) * kTileBytes +
+    kStages * 2 * kTileRows * sizeof(float) +
+    (2 * kStages + 1) * sizeof(uint64_t);
+
+// Grid (ceil(N / (64 kWG)), B * H). One block: one head's 64 kWG key/value
+// rows (K fragments in registers, V in shared memory); streams (q * scale,
+// dO) tiles and their LSE and delta, and accumulates dK and dV in registers.
+// Each
+// warpgroup forms S^T = K Q^T and dP^T = V dO^T for its kv rows, so P^T and
 // dS^T feed dV += P^T dO and dK += dS^T Q straight from the accumulators.
-__global__ void __launch_bounds__(kMmaThreads)
-    bwd_dkv_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ out,
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    bwd_dkv_bf16(const __grid_constant__ CUtensorMap tqkv,
+                 const __grid_constant__ CUtensorMap tqs,
+                 const __grid_constant__ CUtensorMap tdo,
                  const float* __restrict__ lse,
-                 const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
-                 int N, int H, float q_scale, float dk_fix) {
-  __shared__ __align__(16) bf16 sK[kTileH];
-  __shared__ __align__(16) bf16 sV[kTileH];
-  __shared__ __align__(16) bf16 sQ[kTileH];
-  __shared__ __align__(16) bf16 sdO[kTileH];
-  __shared__ __align__(16) bf16 sO[kTileH];
-  __shared__ float sLse[kRows], sDelta[kRows];
-  const int A = H * kD, ld = 3 * A;
+                 const float* __restrict__ delta, bf16* __restrict__ dqkv,
+                 int N, int H, float dk_fix) {
+  extern __shared__ unsigned char wsmem[];
+  unsigned char* sm = smem_1024(wsmem);
+  bf16* sK = reinterpret_cast<bf16*>(sm);
+  bf16* sV = sK + kWG * kTileElems;
+  bf16* sQ = sV + kWG * kTileElems;
+  bf16* sdO = sQ + kStages * kTileElems;
+  float* sStat = reinterpret_cast<float*>(sdO + kStages * kTileElems);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sStat + 2 * kStages * kTileRows);
+  uint64_t* empty = full + kStages;
+  uint64_t* kvbar = empty + kStages;
+  const int A = H * kD;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * kRows, r0 = 16 * (threadIdx.x >> 5);
-  const bf16* qkv_b = qkv + (size_t)b * N * ld;
+  const int k0 = blockIdx.x * kWG * kTileRows;
+  const int T = (N + kTileRows - 1) / kTileRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  load_tile_h(sK, qkv_b + A + h * kD, k0, N, ld, 1.f);
-  load_tile_h(sV, qkv_b + 2 * A + h * kD, k0, N, ld, 1.f);
-  float dk[8][4] = {}, dv[8][4] = {};
-
-  for (int q0 = 0; q0 < N; q0 += kRows) {
-    __syncthreads();  // the previous q tile's reads are done
-    load_q_side_h(sQ, sdO, sO, sLse, sDelta, qkv_b, out + (size_t)b * N * A,
-                  dout + (size_t)b * N * A, lse + (size_t)bh * N, q0, N, A,
-                  h, q_scale);
-    __syncthreads();
-    uint32_t fa[4][4];
-    float st[8][4] = {}, dpt[8][4] = {};
-    load_a(fa, sK, r0);
-    mm_nt(st, fa, sQ);
-    load_a(fa, sV, r0);
-    mm_nt(dpt, fa, sdO);
-    // q rows >= N carry +inf LSE, so no column mask
-    p_and_ds_h<true>(st, dpt, sLse, sDelta, r0, 0, kRows);
-    to_a(fa, st);
-    mm_nn(dv, fa, sdO);
-    to_a(fa, dpt);
-    mm_nn(dk, fa, sQ);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA arrival and the stats' lanes
+      mbar_init(&empty[s], 4 * kWG);
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  bf16* dst = dqkv + (size_t)b * N * ld + h * kD;
-  store_rows(dst + A, ld, dk, k0 + r0, N, dk_fix);
-  store_rows(dst + 2 * A, ld, dv, k0 + r0, N, 1.f);
+  if (warp >= 4 * kWG) {  // producer
+    producer_registers();
+    if (warp == 4 * kWG) {  // its lanes load the stats, lane 0 the tiles
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, 2 * kWG * kTileBytes);
+        for (int w = 0; w < kWG; ++w) {
+          const int row = k0 + kTileRows * w;
+          tma_tile(sK + w * kTileElems, &tqkv, kvbar, A + h * kD, row, b);
+          tma_tile(sV + w * kTileElems, &tqkv, kvbar, 2 * A + h * kD, row,
+                   b);
+        }
+      }
+      const float* lse_bh = lse + (size_t)bh * N;
+      const float* delta_bh = delta + (size_t)bh * N;
+      for (int j = 0; j < T; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * kTileBytes);
+          tma_tile(sQ + s * kTileElems, &tqs, &full[s], h * kD,
+                   j * kTileRows, b);
+          tma_tile(sdO + s * kTileElems, &tdo, &full[s], h * kD,
+                   j * kTileRows, b);
+        }
+        float* st = sStat + s * 2 * kTileRows;
+        for (int r = lane; r < kTileRows; r += 32) {
+          const int row = j * kTileRows + r;  // rows >= N: P = 0, dS = 0
+          st[r] = row < N ? lse_bh[row] : INFINITY;
+          st[kTileRows + r] = row < N ? delta_bh[row] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    consumer_registers();
+    const int wg = warp >> 2, r0 = 16 * (warp & 3);
+    const int t = lane & 3;
+    mbar_wait(kvbar, 0);
+    uint32_t ka[4][4];  // V stays in shared memory: A of dP^T through desc
+    load_a_sw128(ka, sK + wg * kTileElems, r0, 1.f);
+    float dk[8][4] = {}, dv[8][4] = {};
+
+    for (int j = 0; j < T; ++j) {
+      const int s = j % kStages;
+      mbar_wait(&full[s], (j / kStages) & 1);
+      const bf16* q_tile = sQ + s * kTileElems;
+      const bf16* do_tile = sdO + s * kTileElems;
+      float st[8][4] = {}, dpt[8][4] = {};
+      wgmma_tile<0>(st, ka, q_tile);
+      wgmma_tile_ss<0>(dpt, sV + wg * kTileElems, do_tile);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(st);
+      fence_acc(dpt);
+      const float* sl = sStat + s * 2 * kTileRows;
+      const float* sd = sl + kTileRows;
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = 8 * nt + 2 * t;  // the q row within the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(sl + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(sd + col);
+#pragma unroll
+        for (int e = 0; e < 4; e += 2)
+          p_and_ds_pair(st[nt][e], st[nt][e + 1], dpt[nt][e], dpt[nt][e + 1],
+                        l2.x, l2.y, d2.x, d2.y,
+                        pa[nt >> 1][2 * (nt & 1) + (e >> 1)],
+                        da[nt >> 1][2 * (nt & 1) + (e >> 1)]);
+      }
+      wgmma_tile<1>(dv, pa, do_tile);
+      wgmma_tile<1>(dk, da, q_tile);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dk);
+      fence_acc(dv);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    bf16* dst = dqkv + (size_t)b * N * 3 * A + h * kD;
+    const int row0 = k0 + kTileRows * wg + r0;
+    store_rows(dst + A, 3 * A, dk, row0, N, dk_fix);
+    store_rows(dst + 2 * A, 3 * A, dv, row0, N, 1.f);
+  }
 }
 
-// Grid (ceil(N / 64), B * H). One block: one head's 64 query rows; loops
-// over all kv tiles and accumulates dQ in registers. q and dO stay in
-// registers as A fragments, so their shared tiles are reused for K, K*scale
-// and V.
-__global__ void __launch_bounds__(kMmaThreads)
-    bwd_dq_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ out,
-                const float* __restrict__ lse, const bf16* __restrict__ dout,
-                bf16* __restrict__ dqkv, int N, int H, float q_scale,
-                float k_scale) {
-  __shared__ __align__(16) bf16 s0[kTileH];
-  __shared__ __align__(16) bf16 s1[kTileH];
-  __shared__ __align__(16) bf16 s2[kTileH];
-  __shared__ float sLse[kRows], sDelta[kRows];
-  const int A = H * kD, ld = 3 * A;
+template <bool kScaledCopy>
+constexpr size_t smem_dq_bf16() {
+  return 1024 +
+         (size_t)(2 * kWG + (kScaledCopy ? 3 : 2) * kStages) * kTileBytes +
+         (2 * kStages + 1) * sizeof(uint64_t);
+}
+
+// Grid (ceil(N / (64 kWG)), B * H). One block: one head's 64 kWG query rows
+// (q * scale and dO fragments in registers); streams (K, V) tiles and
+// accumulates dQ = dS K in registers, times acc_mul at the store. With
+// kScaledCopy the dS K product reads K * k_scale from its own copy (a
+// scale that is not a power of two); otherwise it reads the K tile of S and
+// acc_mul = k_scale, which is the same in bf16.
+template <bool kScaledCopy>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    bwd_dq_bf16(const __grid_constant__ CUtensorMap tqkv,
+                const __grid_constant__ CUtensorMap tqs,
+                const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tks,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dqkv,
+                int N, int H, float acc_mul) {
+  constexpr int kLoads = kScaledCopy ? 3 : 2;
+  extern __shared__ unsigned char wsmem[];
+  unsigned char* sm = smem_1024(wsmem);
+  bf16* sQ = reinterpret_cast<bf16*>(sm);
+  bf16* sdO = sQ + kWG * kTileElems;
+  bf16* sKV = sdO + kWG * kTileElems;  // per stage: K, V (, K * k_scale)
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(sKV + kLoads * kStages * kTileElems);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+  const int A = H * kD;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kRows, r0 = 16 * (threadIdx.x >> 5);
-  const bf16* qkv_b = qkv + (size_t)b * N * ld;
+  const int q0 = blockIdx.x * kWG * kTileRows;
+  const int T = (N + kTileRows - 1) / kTileRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  load_q_side_h(s0, s1, s2, sLse, sDelta, qkv_b, out + (size_t)b * N * A,
-                dout + (size_t)b * N * A, lse + (size_t)bh * N, q0, N, A, h,
-                q_scale);
-  uint32_t qa[4][4], da[4][4];
-  load_a(qa, s0, r0);
-  load_a(da, s1, r0);
-  float dq[8][4] = {};
-
-  for (int k0 = 0; k0 < N; k0 += kRows) {
-    __syncthreads();  // fragments and delta are read / the last tile is used
-    load_tile_h(s0, qkv_b + A + h * kD, k0, N, ld, 1.f);
-    load_tile_h(s1, qkv_b + A + h * kD, k0, N, ld, k_scale);
-    load_tile_h(s2, qkv_b + 2 * A + h * kD, k0, N, ld, 1.f);
-    __syncthreads();
-    float s[8][4] = {}, dp[8][4] = {};
-    mm_nt(s, qa, s0);
-    mm_nt(dp, da, s2);
-    p_and_ds_h<false>(s, dp, sLse, sDelta, r0, k0, N);
-    uint32_t sa[4][4];
-    to_a(sa, dp);
-    mm_nn(dq, sa, s1);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kWG);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  store_rows(dqkv + (size_t)b * N * ld + h * kD, ld, dq, q0 + r0, N, 1.f);
+  if (warp >= 4 * kWG) {  // producer
+    producer_registers();
+    if (warp == 4 * kWG && lane == 0) {
+      mbar_expect_tx(qbar, 2 * kWG * kTileBytes);
+      for (int w = 0; w < kWG; ++w) {
+        const int row = q0 + kTileRows * w;
+        tma_tile(sQ + w * kTileElems, &tqs, qbar, h * kD, row, b);
+        tma_tile(sdO + w * kTileElems, &tdo, qbar, h * kD, row, b);
+      }
+      for (int j = 0; j < T; ++j) {
+        const int s = j % kStages;
+        bf16* stage = sKV + s * kLoads * kTileElems;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], kLoads * kTileBytes);
+        tma_tile(stage, &tqkv, &full[s], A + h * kD, j * kTileRows, b);
+        tma_tile(stage + kTileElems, &tqkv, &full[s], 2 * A + h * kD,
+                 j * kTileRows, b);
+        if (kScaledCopy)
+          tma_tile(stage + 2 * kTileElems, &tks, &full[s], h * kD,
+                   j * kTileRows, b);
+      }
+    }
+  } else {
+    consumer_registers();
+    const int wg = warp >> 2, r0 = 16 * (warp & 3);
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + kTileRows * wg + r0;
+    float lse_r[2], delta_r[2];  // rows >= N: P = 0, dS = 0
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + g + 8 * half;
+      lse_r[half] = row < N ? lse[(size_t)bh * N + row] : INFINITY;
+      delta_r[half] = row < N ? delta[(size_t)bh * N + row] : 0.f;
+    }
+    mbar_wait(qbar, 0);
+    uint32_t qa[4][4], da[4][4];
+    load_a_sw128(qa, sQ + wg * kTileElems, r0, 1.f);
+    load_a_sw128(da, sdO + wg * kTileElems, r0, 1.f);
+    float dq[8][4] = {};
+
+    for (int j = 0; j < T; ++j) {
+      const int s = j % kStages;
+      mbar_wait(&full[s], (j / kStages) & 1);
+      const bf16* stage = sKV + s * kLoads * kTileElems;
+      float sc[8][4] = {}, dp[8][4] = {};
+      wgmma_tile<0>(sc, qa, stage);
+      wgmma_tile<0>(dp, da, stage + kTileElems);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      fence_acc(dp);
+      const bool ragged = (j + 1) * kTileRows > N;
+      uint32_t sa[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int col = j * kTileRows + 8 * nt + 2 * t;
+          // kv columns >= N: P = 0 (so dS = 0), whatever their score
+          const float l0 = ragged && col >= N ? INFINITY : lse_r[e >> 1];
+          const float l1 = ragged && col + 1 >= N ? INFINITY : lse_r[e >> 1];
+          uint32_t pw;
+          p_and_ds_pair(sc[nt][e], sc[nt][e + 1], dp[nt][e], dp[nt][e + 1], l0,
+                        l1, delta_r[e >> 1], delta_r[e >> 1], pw,
+                        sa[nt >> 1][2 * (nt & 1) + (e >> 1)]);
+        }
+      wgmma_tile<1>(dq, sa, stage + (kScaledCopy ? 2 : 0) * kTileElems);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dq);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    store_rows(dqkv + (size_t)b * N * 3 * A + h * kD, 3 * A, dq, row0, N,
+               acc_mul);
+  }
 }
 
 // -------------------------------------------------------------------------
@@ -753,6 +949,22 @@ constexpr int kBadArgument = -1;
 
 bool bad(int B, int N, int H, int D) {
   return D != kD || B < 1 || N < 1 || H < 1 || B * H > 65535;
+}
+
+template <bool kScaledCopy>
+int launch_dq_bf16(const CUtensorMap& tqkv, const CUtensorMap& tqs,
+                   const CUtensorMap& tdo, const CUtensorMap& tks,
+                   const void* lse, const void* delta, void* dqkv, int B,
+                   int N, int H, float acc_mul, cudaStream_t st) {
+  constexpr size_t smem = smem_dq_bf16<kScaledCopy>();
+  auto kernel = bwd_dq_bf16<kScaledCopy>;
+  if (int e = max_smem((const void*)kernel, smem)) return e;
+  kernel<<<dim3((N + kWG * kTileRows - 1) / (kWG * kTileRows), B * H),
+           kHopperThreads, smem, st>>>(
+      tqkv, tqs, tdo, tks, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dqkv), N, H,
+      acc_mul);
+  return 0;
 }
 
 }  // namespace
@@ -782,24 +994,56 @@ extern "C" int qkv_attn_fwd(const void* qkv, void* out, void* lse, int B,
   return (int)cudaGetLastError();
 }
 
+// The bf16 backward's prep pass: delta (B, H, N) f32 and q * q_scale (B, N,
+// A) bf16, and k * k_scale into ks unless ks is null (k_scale a power of
+// two: the dQ kernel then scales its accumulator).
+extern "C" int qkv_attn_bwd_prep(const void* qkv, const void* out,
+                                 const void* dout, void* delta, void* qs,
+                                 void* ks, int B, int N, int H, int D,
+                                 float q_scale, float k_scale, void* stream) {
+  if (bad(B, N, H, D) || (long)B * N * 3 * H * kD >= (1l << 31))
+    return kBadArgument;
+  const long chunks = (long)B * N * H * (kD / 8);
+  const int blocks = (int)std::min<long>(
+      (chunks + kPrepThreads - 1) / kPrepThreads, 132 * 16);
+  bwd_prep_bf16<<<blocks, kPrepThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(qkv),
+      static_cast<const __nv_bfloat16*>(out),
+      static_cast<const __nv_bfloat16*>(dout), static_cast<float*>(delta),
+      static_cast<__nv_bfloat16*>(qs), static_cast<__nv_bfloat16*>(ks),
+      B * N, N, H, q_scale, k_scale);
+  return (int)cudaGetLastError();
+}
+
+// bf16: delta and qs come from qkv_attn_bwd_prep (out is not read); f32:
+// delta and qs are null and the kernel forms them from out and qkv.
 extern "C" int qkv_attn_bwd_dkv(const void* qkv, const void* out,
-                                const void* lse, const void* dout, void* dqkv,
+                                const void* lse, const void* dout,
+                                const void* delta, const void* qs, void* dqkv,
                                 int B, int N, int H, int D, float q_scale,
                                 float dk_fix, int bf16, void* stream) {
   if (bad(B, N, H, D)) return kBadArgument;
   auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_for(B, N, H);
   if (bf16) {
-    bwd_dkv_bf16<<<grid, kMmaThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(qkv),
-        static_cast<const __nv_bfloat16*>(out),
-        static_cast<const float*>(lse),
-        static_cast<const __nv_bfloat16*>(dout),
-        static_cast<__nv_bfloat16*>(dqkv), N, H, q_scale, dk_fix);
+    if (!delta || !qs) return kBadArgument;
+    const int A = H * kD;
+    CUtensorMap tqkv, tqs, tdo;
+    if (int e = tile_map(&tqkv, qkv, 3 * A, N, B, 3 * A, (long)N * 3 * A))
+      return e;
+    if (int e = tile_map(&tqs, qs, A, N, B, A, (long)N * A)) return e;
+    if (int e = tile_map(&tdo, dout, A, N, B, A, (long)N * A)) return e;
+    if (int e = max_smem((const void*)bwd_dkv_bf16, kSmemDkvBf16)) return e;
+    bwd_dkv_bf16<<<dim3((N + kWG * kTileRows - 1) / (kWG * kTileRows),
+                        B * H),
+                   kHopperThreads, kSmemDkvBf16, st>>>(
+        tqkv, tqs, tdo, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dqkv),
+        N, H, dk_fix);
   } else {
     // f32 works in base e: dK needs no 1/log2(e) fix
     if (int e = max_smem((const void*)bwd_dkv_f32, kSmemBwdF32)) return e;
-    bwd_dkv_f32<<<grid, kThreads, kSmemBwdF32, st>>>(
+    bwd_dkv_f32<<<grid_for(B, N, H), kThreads, kSmemBwdF32, st>>>(
         static_cast<const float*>(qkv), static_cast<const float*>(out),
         static_cast<const float*>(lse), static_cast<const float*>(dout),
         static_cast<float*>(dqkv), N, H, q_scale);
@@ -807,23 +1051,36 @@ extern "C" int qkv_attn_bwd_dkv(const void* qkv, const void* out,
   return (int)cudaGetLastError();
 }
 
+// bf16: delta, qs and (unless k_scale is a power of two) ks come from
+// qkv_attn_bwd_prep; f32: they are null and the kernel reads out and qkv.
 extern "C" int qkv_attn_bwd_dq(const void* qkv, const void* out,
-                               const void* lse, const void* dout, void* dqkv,
-                               int B, int N, int H, int D, float q_scale,
-                               float k_scale, int bf16, void* stream) {
+                               const void* lse, const void* dout,
+                               const void* delta, const void* qs,
+                               const void* ks, void* dqkv, int B, int N,
+                               int H, int D, float q_scale, float k_scale,
+                               int bf16, void* stream) {
   if (bad(B, N, H, D)) return kBadArgument;
   auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_for(B, N, H);
   if (bf16) {
-    bwd_dq_bf16<<<grid, kMmaThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(qkv),
-        static_cast<const __nv_bfloat16*>(out),
-        static_cast<const float*>(lse),
-        static_cast<const __nv_bfloat16*>(dout),
-        static_cast<__nv_bfloat16*>(dqkv), N, H, q_scale, k_scale);
+    int exponent;
+    const bool power_of_two = frexpf(k_scale, &exponent) == 0.5f;
+    if (!delta || !qs || (!ks && !power_of_two)) return kBadArgument;
+    const int A = H * kD;
+    CUtensorMap tqkv, tqs, tdo, tks;
+    if (int e = tile_map(&tqkv, qkv, 3 * A, N, B, 3 * A, (long)N * 3 * A))
+      return e;
+    if (int e = tile_map(&tqs, qs, A, N, B, A, (long)N * A)) return e;
+    if (int e = tile_map(&tdo, dout, A, N, B, A, (long)N * A)) return e;
+    if (int e = tile_map(&tks, ks ? ks : qs, A, N, B, A, (long)N * A))
+      return e;
+    const int e = ks ? launch_dq_bf16<true>(tqkv, tqs, tdo, tks, lse, delta,
+                                            dqkv, B, N, H, 1.f, st)
+                     : launch_dq_bf16<false>(tqkv, tqs, tdo, tks, lse, delta,
+                                             dqkv, B, N, H, k_scale, st);
+    if (e) return e;
   } else {
     if (int e = max_smem((const void*)bwd_dq_f32, kSmemBwdF32)) return e;
-    bwd_dq_f32<<<grid, kThreads, kSmemBwdF32, st>>>(
+    bwd_dq_f32<<<grid_for(B, N, H), kThreads, kSmemBwdF32, st>>>(
         static_cast<const float*>(qkv), static_cast<const float*>(out),
         static_cast<const float*>(lse), static_cast<const float*>(dout),
         static_cast<float*>(dqkv), N, H, q_scale, k_scale);

@@ -1,0 +1,328 @@
+// Hopper building blocks of the redesigned bf16 attention kernels
+// (hm_flash_attention.cu's K4 forward, qkv_flash_attention.cu's K2
+// backward): TMA tile loads into a ring of shared-memory stages with
+// mbarrier completion, warpgroup products (wgmma.mma_async m64n64k16, A from
+// registers, B from 128-byte-swizzled shared memory) and the host-side tensor
+// maps. Everything is in an anonymous namespace: each source that includes it
+// gets its own copy.
+//
+// Tiles are 64 rows x 64 bf16 columns (128 bytes a row), written by TMA with
+// CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r lies at chunk
+// c ^ (r % 8), in 1024-byte atoms of 8 rows. A tile is read by wgmma either
+// K-major (the row index is the product's N, the 64 columns its contraction:
+// B = K^T of S = Q K^T) or MN-major (the rows are the contraction: B = V of
+// O = P V), which the descriptor and the trans-b flag select.
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and its enums; libcuda's encoder is reached
+                   // through cudaGetDriverEntryPoint, so nothing new is linked
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTileRows = 64;                // rows of every TMA tile
+constexpr int kTileBytes = kTileRows * 128;  // 64 x 64 bf16
+constexpr int kWarpgroup = 128;
+
+// Block layout: kWG consumer warpgroups (one 64-row wgmma strip each) and
+// one producer warpgroup, whose first warp issues the loads. ptxas gives a
+// warpgroup kernel of 384 threads 168 registers a thread; the producer
+// hands its share to the consumers (setmaxnreg), 40 + 2 x 232 = 3 x 168.
+constexpr int kWG = 2;
+constexpr int kHopperThreads = (kWG + 1) * kWarpgroup;
+
+__device__ __forceinline__ void producer_registers() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void consumer_registers() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The dynamic shared memory rounded up to the 1024 bytes a swizzled tile
+// needs (the launch asks for 1024 bytes more than the layout).
+__device__ __forceinline__ unsigned char* smem_1024(unsigned char* raw) {
+  return raw + ((1024u - (smem_u32(raw) & 1023u)) & 1023u);
+}
+
+// --- mbarriers -------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic to come.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// --- TMA -------------------------------------------------------------------
+
+// The 64 x 64 box at (column c0, row c1, plane c2) of `map` into dst;
+// completion (its bytes) is reported to bar. Rows past the tensor's extent
+// arrive as zeros.
+__device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// --- wgmma -----------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 =
+// 128-byte swizzle. The stride between 8-row atoms is 1024 bytes in both
+// majors; the leading offset is unused at 64 columns (one atom wide).
+__device__ __forceinline__ uint64_t desc_sw128(const void* tile,
+                                               uint32_t lbo) {
+  return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) |
+         ((uint64_t)lbo << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// B = tile^T, contraction over the tile's columns (S = Q K^T): k-step kk
+// starts 32 bytes further along the row.
+__device__ __forceinline__ uint64_t desc_kmajor(const void* tile, int kk) {
+  return desc_sw128(tile, 1) + (uint64_t)(2 * kk);
+}
+
+// B = tile, contraction over the tile's rows (O = P V): k-step kk starts 16
+// rows (2048 bytes) further down.
+__device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int kk) {
+  return desc_sw128(tile, 1024 >> 4) + (uint64_t)(128 * kk);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// A pair of f32 values rounded to bf16 and packed (low half first), and
+// the two halves back as f32.
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// Ties the accumulator registers to the preceding wait, so that no read of
+// them is scheduled before the product lands.
+__device__ __forceinline__ void fence_acc(float (&c)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(c[i][j])::"memory");
+}
+
+// c (64 x 64, f32, this warp's 16 rows as mma.sync's accumulator layout)
+// += a (64 x 16 bf16 from registers, mma.sync's A fragment layout) . B (16 x
+// 64 from shared memory through desc). kTransB: 0 for a K-major B, 1 for an
+// MN-major one.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&c)[8][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(c[0][0]), "+f"(c[0][1]), "+f"(c[0][2]), "+f"(c[0][3]),
+        "+f"(c[1][0]), "+f"(c[1][1]), "+f"(c[1][2]), "+f"(c[1][3]),
+        "+f"(c[2][0]), "+f"(c[2][1]), "+f"(c[2][2]), "+f"(c[2][3]),
+        "+f"(c[3][0]), "+f"(c[3][1]), "+f"(c[3][2]), "+f"(c[3][3]),
+        "+f"(c[4][0]), "+f"(c[4][1]), "+f"(c[4][2]), "+f"(c[4][3]),
+        "+f"(c[5][0]), "+f"(c[5][1]), "+f"(c[5][2]), "+f"(c[5][3]),
+        "+f"(c[6][0]), "+f"(c[6][1]), "+f"(c[6][2]), "+f"(c[6][3]),
+        "+f"(c[7][0]), "+f"(c[7][1]), "+f"(c[7][2]), "+f"(c[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(kTransB));
+}
+
+// The same product with A (64 x 16) also from shared memory, K-major
+// through desc_a.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_ss(float (&c)[8][4], uint64_t desc_a,
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(c[0][0]), "+f"(c[0][1]), "+f"(c[0][2]), "+f"(c[0][3]),
+        "+f"(c[1][0]), "+f"(c[1][1]), "+f"(c[1][2]), "+f"(c[1][3]),
+        "+f"(c[2][0]), "+f"(c[2][1]), "+f"(c[2][2]), "+f"(c[2][3]),
+        "+f"(c[3][0]), "+f"(c[3][1]), "+f"(c[3][2]), "+f"(c[3][3]),
+        "+f"(c[4][0]), "+f"(c[4][1]), "+f"(c[4][2]), "+f"(c[4][3]),
+        "+f"(c[5][0]), "+f"(c[5][1]), "+f"(c[5][2]), "+f"(c[5][3]),
+        "+f"(c[6][0]), "+f"(c[6][1]), "+f"(c[6][2]), "+f"(c[6][3]),
+        "+f"(c[7][0]), "+f"(c[7][1]), "+f"(c[7][2]), "+f"(c[7][3])
+      : "l"(desc_a), "l"(desc), "r"(1), "n"(kTransB));
+}
+
+// c += a (64 x 64 from registers, four k-steps) . B: the whole product on
+// one tile, committed and waited for.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_tile(float (&c)[8][4],
+                                           const uint32_t (&a)[4][4],
+                                           const void* tile) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<kTransB>(c, a[kk], kTransB ? desc_mnmajor(tile, kk)
+                                        : desc_kmajor(tile, kk));
+}
+
+// c += A . B with A the 64 x 64 tile a_tile (its columns the contraction)
+// read from shared memory: for a product whose A operand is used once.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_tile_ss(float (&c)[8][4],
+                                              const void* a_tile,
+                                              const void* tile) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss<kTransB>(c, desc_kmajor(a_tile, kk),
+                      kTransB ? desc_mnmajor(tile, kk)
+                              : desc_kmajor(tile, kk));
+}
+
+// A fragments (k = 64: four k-steps of 16) of rows [r0, r0 + 16) of a
+// swizzled tile, r0 a multiple of 8. With mul != 1 each value is multiplied
+// by mul and rounded to bf16 (the scale fold).
+__device__ __forceinline__ void load_a_sw128(uint32_t (&a)[4][4],
+                                             const __nv_bfloat16* tile,
+                                             int r0, float mul) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const unsigned char* base = reinterpret_cast<const unsigned char*>(tile);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // i: row + 8 (bit 0), column + 8 (bit 1)
+      const int row = r0 + g + 8 * (i & 1), chunk = 2 * kk + (i >> 1);
+      uint32_t v = *reinterpret_cast<const uint32_t*>(
+          base + row * 128 + ((chunk ^ g) << 4) + 4 * t);
+      if (mul != 1.f) {
+        const float2 f = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&v));
+        const __nv_bfloat162 r = __floats2bfloat162_rn(f.x * mul, f.y * mul);
+        v = *reinterpret_cast<const uint32_t*>(&r);
+      }
+      a[kk][i] = v;
+    }
+}
+
+// --- host: tensor maps -----------------------------------------------------
+
+constexpr int kNoTensorMapEntry = -2;  // libcuda has no TMA encoder
+constexpr int kBadTensorMap = -3;      // the encoder refused the layout
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// 64 x 64 swizzled boxes of a bf16 tensor of `planes` planes of `rows` rows
+// of `cols` values: row stride `ld` and plane stride `plane` in elements.
+// Box (c0, c1, c2) covers columns [c0, c0 + 64) of rows [c1, c1 + 64) of
+// plane c2; rows >= `rows` read as zeros. Returns 0 or a negative error.
+int tile_map(CUtensorMap* map, const void* base, long cols, long rows,
+             long planes, long ld, long plane) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return kNoTensorMapEntry;
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
+                              (cuuint64_t)planes};
+  const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)plane * 2};
+  const cuuint32_t box[3] = {64, kTileRows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kBadTensorMap;
+}
+
+}  // namespace

@@ -1,6 +1,6 @@
 """Builds the CUDA sources under mofo_tpu_torch/csrc into one shared library
-with a plain C interface and loads it with ctypes (one nvcc call compiles
-every source).
+with a plain C interface and loads it with ctypes (one nvcc process per
+source, all started together, then one link).
 
 The library is compiled with nvcc for sm_90a at first use, into
 mofo_tpu_torch/build/ (git-ignored), under a name keyed by the sources'
@@ -24,10 +24,11 @@ CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "build"
 SOURCES = ("qkv_flash_attention.cu", "mh_flash_attention.cu",
            "hm_flash_attention.cu")
-HEADERS = ("flash_tiles.cuh",)  # included by the sources, part of the key
+# included by the sources, part of the key
+HEADERS = ("flash_tiles.cuh", "wgmma_tiles.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -36,8 +37,9 @@ _F = ctypes.c_float
 # name -> argtypes of the C entry points (see the csrc/*.cu sources)
 SIGNATURES = {
     "qkv_attn_fwd": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    "qkv_attn_bwd_dkv": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
-    "qkv_attn_bwd_dq": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
+    "qkv_attn_bwd_prep": [_P] * 6 + [_I] * 4 + [_F, _F, _P],
+    "qkv_attn_bwd_dkv": [_P] * 7 + [_I] * 4 + [_F, _F, _I, _P],
+    "qkv_attn_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P],
     "mh_attn_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
     "mh_attn_bwd_dkv": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P],
     "mh_attn_bwd_dq": [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P],
@@ -77,20 +79,45 @@ def build() -> dict:
         return {"path": str(path), "seconds": 0.0, "cached": True,
                 "report": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
+    tag = f"{os.getpid()}.tmp"
+    objects = [path.with_name(f"{Path(name).stem}.{tag}.o")
+               for name in SOURCES]
     t0 = time.perf_counter()
+    compiles = [
+        (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True))
+        for cmd in ([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                     str(CSRC / name)]
+                    for name, obj in zip(SOURCES, objects))
+    ]
+    report = []
+    try:
+        for cmd, proc in compiles:
+            report.append(_finish(cmd, proc.communicate()[0],
+                                  proc.returncode))
+    finally:
+        for _, proc in compiles:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    tmp = path.with_suffix(f".{tag}")
+    cmd = [_nvcc(), NVCC_FLAGS[0], "-shared", "-o", str(tmp),
+           *map(str, objects)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
+    _finish(cmd, proc.stdout + proc.stderr, proc.returncode)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    for obj in objects:
+        obj.unlink()
     os.replace(tmp, path)
     return {"path": str(path), "seconds": seconds, "cached": False,
-            "report": proc.stdout + proc.stderr}
+            "report": "".join(report)}
+
+
+def _finish(cmd, output: str, returncode: int) -> str:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n"
+                           f"{output}")
+    return output
 
 
 @functools.lru_cache(maxsize=1)

@@ -8,7 +8,9 @@ run:
     _qkv_bwd_kernel, _qkv_bwd_kernel_houter), here csrc/qkv_flash_attention.cu.
     qkv is the fused (B, N, 3A) projection: [0, A) q, [A, 2A) k, [2A, 3A) v,
     A = H * D (D = 64). The forward returns out (B, N, A) and a compact
-    (B, H, N) f32 row log-sum-exp; the backward returns one (B, N, 3A) dqkv.
+    (B, H, N) f32 row log-sum-exp; the backward returns one (B, N, 3A) dqkv,
+    in bf16 after a prep pass (qkv_attn_bwd_prep: delta = rowsum(dO * O)
+    and q * q_scale, read once) that its two kernels share.
   - flash_attention_mh (:901), separate q, k, v (B, N, A) with an optional
     (B, N) f32 kv bias row (0 / -1e30), the masked cross-attention of the
     BB-focused classifier's MCA block: K3 (_mh_fwd_impl / _mh_fwd_kernel
@@ -36,6 +38,8 @@ to the input dtype before P.V.
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional
 
 import torch
@@ -44,7 +48,11 @@ LOG2E = 1.4426950408889634
 HEAD_DIM = 64  # the one head dim the fused-qkv CUDA kernels are built for
 MH_HEAD_DIMS = (64, 256)  # the head dims of the K3 kernels
 
-QKV_KERNELS = ("qkv_attn_fwd", "qkv_attn_bwd_dkv", "qkv_attn_bwd_dq")
+# the bf16 backward runs qkv_attn_bwd_prep once before its two kernels; the
+# f32 backward runs the two kernels alone (QKV_F32_KERNELS)
+QKV_KERNELS = ("qkv_attn_fwd", "qkv_attn_bwd_prep", "qkv_attn_bwd_dkv",
+               "qkv_attn_bwd_dq")
+QKV_F32_KERNELS = ("qkv_attn_fwd", "qkv_attn_bwd_dkv", "qkv_attn_bwd_dq")
 MH_KERNELS = ("mh_attn_fwd", "mh_attn_bwd_dkv", "mh_attn_bwd_dq")
 HM_KERNELS = ("hm_attn_fwd", "hm_attn_bwd_dkv", "hm_attn_bwd_dq")
 KERNELS = QKV_KERNELS + MH_KERNELS + HM_KERNELS
@@ -73,6 +81,7 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(B, N, H * D)
 
 
+@functools.lru_cache(maxsize=None)
 def _rounded(x: float, dtype: torch.dtype) -> float:
     """x rounded to `dtype`, as a kernel receives a folded scale."""
     return torch.tensor(x, dtype=dtype).item()
@@ -130,6 +139,60 @@ def attention_qkv_bwd_plain(qkv, out, lse, dout, scale: float, heads: int):
     )
 
 
+def _power_of_two(x: float) -> bool:
+    return x > 0 and math.frexp(x)[0] == 0.5
+
+
+def attention_qkv_bwd_prep_plain(qkv, out, dout, scale: float, heads: int):
+    """Plain PyTorch version of qkv_attn_bwd_prep: (delta (B, H, N) f32,
+    q * q_scale (B, N, A) in the input dtype, and k * k_scale the same way,
+    or None when k_scale is a power of two)."""
+    dt = qkv.dtype
+    q_scale, k_scale, _ = _scales(scale, dt)
+    B, N, A = out.shape
+    hd = A // heads
+    o = out.reshape(B, N, heads, hd).transpose(1, 2).float()
+    do = dout.reshape(B, N, heads, hd).transpose(1, 2).float()
+    delta = (do * o).sum(dim=-1)
+    qs = qkv[..., :A] * torch.tensor(q_scale, dtype=dt, device=qkv.device)
+    ks = None if _power_of_two(k_scale) else (
+        qkv[..., A:2 * A] * torch.tensor(k_scale, dtype=dt, device=qkv.device))
+    return delta, qs, ks
+
+
+def attention_qkv_bwd_from_prep_plain(qkv, lse, dout, delta, qs, ks,
+                                      scale: float, heads: int):
+    """Plain PyTorch version of qkv_attn_bwd_dkv and qkv_attn_bwd_dq after
+    the prep pass: dqkv from its delta, q * q_scale and k * k_scale (None:
+    dQ's product takes k and is scaled after)."""
+    dt = qkv.dtype
+    _, k_scale, base2 = _scales(scale, dt)
+    _, k, v = split_heads(qkv, heads)
+    B, N, A = qs.shape
+    hd = A // heads
+    to_heads = lambda t: t.reshape(B, N, heads, hd).transpose(1, 2)  # noqa
+    qh = to_heads(qs).float()
+    do = to_heads(dout).float()
+    s = torch.matmul(qh, k.float().transpose(-1, -2))
+    p = torch.exp2(s - lse[..., None]) if base2 else torch.exp(
+        s - lse[..., None]
+    )
+    p16 = p.to(dt)
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    dv = torch.matmul(p16.float().transpose(-1, -2), do)
+    ds = (p16 * (dp - delta[..., None]).to(dt)).float()
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    if base2:
+        dk = dk * torch.tensor(1.0 / LOG2E, dtype=torch.float32)
+    if ks is None:
+        dq = torch.matmul(ds, k.float()) * k_scale
+    else:
+        dq = torch.matmul(ds, to_heads(ks).float())
+    return torch.cat(
+        [merge_heads(g.to(dt)) for g in (dq, dk, dv)], dim=-1
+    )
+
+
 def _check_cuda(qkv: torch.Tensor, heads: int, *others: torch.Tensor):
     if qkv.device.type != "cuda":
         raise ValueError(f"the CUDA kernels need CUDA tensors, got {qkv.device}")
@@ -154,17 +217,25 @@ def _check_cuda(qkv: torch.Tensor, heads: int, *others: torch.Tensor):
             raise ValueError("the CUDA kernels need 16-byte aligned tensors")
 
 
-def _launch(name: str, *args):
+def _launch(name: str, t: torch.Tensor, *args):
+    """Calls entry point `name` with `args` and the current stream of t's
+    device (every entry point's last argument), on that device; raises if
+    the kernel does not launch. The raw stream handle and the guard only
+    when t is not on the current device keep the host's cost per launch
+    low, which is most of a launch's time at N = 160."""
     from mofo_tpu_torch.ops import _build
 
-    rc = getattr(_build.load(), name)(*args)
+    fn = getattr(_build.load(), name)
+    device = t.device.index
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    if device == torch.cuda.current_device():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} failed to launch: error {rc}")
     launch_counts[name] += 1
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def qkv_attn_fwd(qkv: torch.Tensor, scale: float, heads: int):
@@ -177,10 +248,8 @@ def qkv_attn_fwd(qkv: torch.Tensor, scale: float, heads: int):
     q_scale, _, base2 = _scales(scale, qkv.dtype)
     out = torch.empty((B, N, A3 // 3), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        _launch("qkv_attn_fwd", qkv.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), B, N, heads, HEAD_DIM, q_scale, int(base2),
-                _stream(qkv))
+    _launch("qkv_attn_fwd", qkv, qkv.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, N, heads, HEAD_DIM, q_scale, int(base2))
     return out, lse
 
 
@@ -197,38 +266,85 @@ def _check_bwd(qkv, out, lse, dout, dqkv, heads: int):
         raise ValueError("lse must be (B, H, N) float32")
 
 
-def qkv_attn_bwd_dkv(qkv, out, lse, dout, dqkv, scale: float, heads: int):
-    """Writes dK and dV, columns [A, 3A) of dqkv (CUDA only)."""
+def qkv_attn_bwd_prep(qkv, out, dout, scale: float, heads: int):
+    """The bf16 backward's prep pass: (delta (B, H, N) f32, q * q_scale
+    (B, N, A), k * k_scale or None), read from q, O and dO once. Kernel on
+    CUDA (bf16 only), plain version on the CPU."""
+    if qkv.device.type == "cpu":
+        return attention_qkv_bwd_prep_plain(qkv, out, dout, scale, heads)
+    _check_cuda(qkv, heads, out, dout)
+    B, N, A3 = qkv.shape
+    if out.shape != (B, N, A3 // 3) or dout.shape != out.shape or \
+            out.dtype != qkv.dtype or dout.dtype != qkv.dtype:
+        raise ValueError("out and dout must be (B, N, A), qkv's dtype")
+    if qkv.dtype != torch.bfloat16:
+        raise ValueError("qkv_attn_bwd_prep is the bf16 backward's: the f32 "
+                         "kernels read out themselves")
+    A = A3 // 3
+    q_scale, k_scale, _ = _scales(scale, qkv.dtype)
+    delta = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
+    qs = torch.empty((B, N, A), dtype=qkv.dtype, device=qkv.device)
+    ks = None if _power_of_two(k_scale) else torch.empty_like(qs)
+    _launch("qkv_attn_bwd_prep", qkv, qkv.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), delta.data_ptr(), qs.data_ptr(), _ptr(ks), B, N,
+            heads, HEAD_DIM, q_scale, k_scale)
+    return delta, qs, ks
+
+
+def _prep_ptrs(qkv, out, dout, scale, heads, prep):
+    """(delta, qs, ks) pointers of the bf16 kernels (the prep pass run here
+    unless `prep` holds its outputs); all None in f32."""
+    if qkv.dtype != torch.bfloat16:
+        return None, None, None
+    if prep is None:
+        prep = qkv_attn_bwd_prep(qkv, out, dout, scale, heads)
+    delta, qs, ks = prep
+    B, N, A3 = qkv.shape
+    if delta.shape != (B, heads, N) or qs.shape != (B, N, A3 // 3) or (
+            ks is not None and ks.shape != qs.shape):
+        raise ValueError("prep must be (delta (B, H, N), qs (B, N, A), ks)")
+    _check_cuda(qkv, heads, delta, qs, *([] if ks is None else [ks]))
+    return delta.data_ptr(), qs.data_ptr(), _ptr(ks)
+
+
+def qkv_attn_bwd_dkv(qkv, out, lse, dout, dqkv, scale: float, heads: int,
+                     prep=None):
+    """Writes dK and dV, columns [A, 3A) of dqkv (CUDA only). bf16 takes
+    qkv_attn_bwd_prep's outputs as `prep` (or runs it)."""
     _check_bwd(qkv, out, lse, dout, dqkv, heads)
     B, N, _ = qkv.shape
     q_scale, _, base2 = _scales(scale, qkv.dtype)
     dk_fix = 1.0 / LOG2E if base2 else 1.0
-    with torch.cuda.device(qkv.device):
-        _launch("qkv_attn_bwd_dkv", qkv.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), B, N,
-                heads, HEAD_DIM, q_scale, dk_fix, int(base2), _stream(qkv))
+    delta, qs, _ = _prep_ptrs(qkv, out, dout, scale, heads, prep)
+    _launch("qkv_attn_bwd_dkv", qkv, qkv.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), delta, qs, dqkv.data_ptr(), B, N,
+            heads, HEAD_DIM, q_scale, dk_fix, int(base2))
 
 
-def qkv_attn_bwd_dq(qkv, out, lse, dout, dqkv, scale: float, heads: int):
-    """Writes dQ, columns [0, A) of dqkv (CUDA only)."""
+def qkv_attn_bwd_dq(qkv, out, lse, dout, dqkv, scale: float, heads: int,
+                    prep=None):
+    """Writes dQ, columns [0, A) of dqkv (CUDA only). bf16 takes
+    qkv_attn_bwd_prep's outputs as `prep` (or runs it)."""
     _check_bwd(qkv, out, lse, dout, dqkv, heads)
     B, N, _ = qkv.shape
     q_scale, k_scale, base2 = _scales(scale, qkv.dtype)
-    with torch.cuda.device(qkv.device):
-        _launch("qkv_attn_bwd_dq", qkv.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), B, N,
-                heads, HEAD_DIM, q_scale, k_scale, int(base2), _stream(qkv))
+    delta, qs, ks = _prep_ptrs(qkv, out, dout, scale, heads, prep)
+    _launch("qkv_attn_bwd_dq", qkv, qkv.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), dout.data_ptr(), delta, qs, ks, dqkv.data_ptr(),
+            B, N, heads, HEAD_DIM, q_scale, k_scale, int(base2))
 
 
 def qkv_attn_bwd(qkv, out, lse, dout, scale: float, heads: int):
     """Backward: dqkv (B, N, 3A). On CUDA two kernels fill it, dK/dV
-    (qkv_attn_bwd_dkv) and dQ (qkv_attn_bwd_dq); plain version on the
-    CPU."""
+    (qkv_attn_bwd_dkv) and dQ (qkv_attn_bwd_dq), in bf16 after one prep pass
+    (qkv_attn_bwd_prep); plain version on the CPU."""
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_plain(qkv, out, lse, dout, scale, heads)
     dqkv = torch.empty_like(qkv)
-    qkv_attn_bwd_dkv(qkv, out, lse, dout, dqkv, scale, heads)
-    qkv_attn_bwd_dq(qkv, out, lse, dout, dqkv, scale, heads)
+    prep = (qkv_attn_bwd_prep(qkv, out, dout, scale, heads)
+            if qkv.dtype == torch.bfloat16 else None)
+    qkv_attn_bwd_dkv(qkv, out, lse, dout, dqkv, scale, heads, prep)
+    qkv_attn_bwd_dq(qkv, out, lse, dout, dqkv, scale, heads, prep)
     return dqkv
 
 
@@ -369,11 +485,9 @@ def mh_attn_fwd(q, k, v, kv_bias, scale: float, heads: int):
     q_scale, _, base2 = _scales(scale, q.dtype)
     out = torch.empty((B, N, A), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, heads, N), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        _launch("mh_attn_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                _ptr(kv_bias), out.data_ptr(), lse.data_ptr(), B, N, heads,
-                D, q.stride(1), k.stride(1), v.stride(1), q_scale,
-                int(base2), _stream(q))
+    _launch("mh_attn_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _ptr(kv_bias), out.data_ptr(), lse.data_ptr(), B, N, heads, D,
+            q.stride(1), k.stride(1), v.stride(1), q_scale, int(base2))
     return out, lse
 
 
@@ -406,12 +520,11 @@ def mh_attn_bwd_dkv(q, k, v, kv_bias, dout, lse, delta, dk, dv,
         raise ValueError("dk and dv must be shaped like q, with one stride")
     q_scale, _, base2 = _scales(scale, q.dtype)
     dk_fix = 1.0 / LOG2E if base2 else 1.0
-    with torch.cuda.device(q.device):
-        _launch("mh_attn_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                _ptr(kv_bias), dout.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, heads,
-                D, q.stride(1), k.stride(1), v.stride(1), dk.stride(1),
-                q_scale, dk_fix, int(base2), _stream(q))
+    _launch("mh_attn_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _ptr(kv_bias), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, N, heads, D, q.stride(1),
+            k.stride(1), v.stride(1), dk.stride(1), q_scale, dk_fix,
+            int(base2))
 
 
 def mh_attn_bwd_dq(q, k, v, kv_bias, dout, lse, delta, dq, scale: float,
@@ -422,12 +535,10 @@ def mh_attn_bwd_dq(q, k, v, kv_bias, dout, lse, delta, dq, scale: float,
     if dq.shape != q.shape or dq.dtype != q.dtype or not dq.is_contiguous():
         raise ValueError("dq must be contiguous and shaped like q")
     q_scale, k_scale, base2 = _scales(scale, q.dtype)
-    with torch.cuda.device(q.device):
-        _launch("mh_attn_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                _ptr(kv_bias), dout.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dq.data_ptr(), B, N, heads, D,
-                q.stride(1), k.stride(1), v.stride(1), q_scale, k_scale,
-                int(base2), _stream(q))
+    _launch("mh_attn_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _ptr(kv_bias), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq.data_ptr(), B, N, heads, D, q.stride(1), k.stride(1),
+            v.stride(1), q_scale, k_scale, int(base2))
 
 
 def mh_attn_bwd(q, k, v, kv_bias, out, lse, dout, scale: float, heads: int):
@@ -571,11 +682,9 @@ def hm_attn_fwd(q, k, v, scale: float):
     BH, N, D = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((BH, N), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        _launch("hm_attn_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), BH, N, D,
-                _rounded(scale, q.dtype), int(q.dtype == torch.bfloat16),
-                _stream(q))
+    _launch("hm_attn_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), BH, N, D,
+            _rounded(scale, q.dtype), int(q.dtype == torch.bfloat16))
     return out, lse
 
 
@@ -584,12 +693,10 @@ def hm_attn_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, scale: float):
     _check_hm(q, k, v, dout, dk, dv)
     _check_hm_stats(q, lse, delta)
     BH, N, D = q.shape
-    with torch.cuda.device(q.device):
-        _launch("hm_attn_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), BH, N, D,
-                _rounded(scale, q.dtype), int(q.dtype == torch.bfloat16),
-                _stream(q))
+    _launch("hm_attn_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), BH, N, D, _rounded(scale, q.dtype),
+            int(q.dtype == torch.bfloat16))
 
 
 def hm_attn_bwd_dq(q, k, v, dout, lse, delta, dq, scale: float):
@@ -598,11 +705,9 @@ def hm_attn_bwd_dq(q, k, v, dout, lse, delta, dq, scale: float):
     _check_hm_stats(q, lse, delta)
     BH, N, D = q.shape
     sc = _rounded(scale, q.dtype)
-    with torch.cuda.device(q.device):
-        _launch("hm_attn_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dq.data_ptr(), BH, N, D, sc, sc,
-                int(q.dtype == torch.bfloat16), _stream(q))
+    _launch("hm_attn_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            BH, N, D, sc, sc, int(q.dtype == torch.bfloat16))
 
 
 def hm_attn_bwd(q, k, v, out, lse, dout, scale: float):

@@ -17,7 +17,8 @@ tools/profile_step.py and tests/test_torch_gpu.py.
   `hm_inputs` / `hm_attention_against_plain`: the same for the head-major
   kernels (K4) on (B*H, N, 64) q, k, v;
   `compare_with_plain` / `check_against_plain`: the bounds that hold one
-  against the other, and `planted_faults` / `hm_planted_faults`: wrong
+  against the other, `check_prep`: the bf16 backward's prep pass against
+  its plain version, and `planted_faults` / `hm_planted_faults`: wrong
   outputs those bounds must reject (`masked_kv_grad` checks that masked kv
   rows get zero dK/dV).
 """
@@ -53,6 +54,10 @@ F32_ATOL = {"out": 1e-4, "lse": 1e-4, "dq": 5e-4, "dk": 5e-4, "dv": 5e-4}
 # atol/rtol 3e-2 on dqkv.
 BF16_REL = 2.0 ** -6
 BF16_LSE_ATOL = 1e-4
+# the K2 prep pass: q * scale (and k * scale) bit-equal to the plain
+# version; delta, an f32 sum of D products taken in another order, within
+# PREP_DELTA_RTOL of its row's sum of |dO * O|
+PREP_DELTA_RTOL = 1e-5
 
 
 def synthetic_batch(B: int, generator: torch.Generator,
@@ -270,3 +275,25 @@ def hm_planted_faults(got: dict) -> dict:
     the LSE in log2 units (K4 works in base e in every dtype)."""
     return {"dq_zero": dict(got, dq=torch.zeros_like(got["dq"])),
             "lse_log2": dict(got, lse=got["lse"] * fa.LOG2E)}
+
+
+def check_prep(qkv, out, dout, heads: int, scale: float) -> dict:
+    """qkv_attn_bwd_prep (the kernel on a CUDA tensor) against its plain
+    version on the same inputs; raises AssertionError beyond the bounds
+    above. Returns delta's max abs error and the bound's worst share."""
+    delta, qs, ks = fa.qkv_attn_bwd_prep(qkv, out, dout, scale, heads)
+    p_delta, p_qs, p_ks = fa.attention_qkv_bwd_prep_plain(qkv, out, dout,
+                                                          scale, heads)
+    B, N, A = out.shape
+    absum = (dout.float().abs() * out.float().abs()).reshape(
+        B, N, heads, A // heads).sum(-1).transpose(1, 2)
+    err = (delta - p_delta).abs()
+    res = {"max_abs_err": err.max().item(),
+           "bound_share": (err / (PREP_DELTA_RTOL * absum + 1e-30)).max()
+           .item(),
+           "qs_equal": torch.equal(qs, p_qs),
+           "ks": None if ks is None else torch.equal(ks, p_ks)}
+    if (ks is None) != (p_ks is None) or not res["qs_equal"] or \
+            res["ks"] is False or not res["bound_share"] <= 1.0:
+        raise AssertionError(f"prep pass vs plain beyond the bounds: {res}")
+    return res

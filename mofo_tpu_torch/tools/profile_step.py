@@ -40,8 +40,9 @@ def _group(name: str) -> str:
         return "masked attention, K3 (port kernels)"
     if "hm_fwd_" in name or "hm_bwd_" in name:
         return "head-major attention, K4 (port kernels)"
-    if any(k in name for k in ("fwd_bf16", "bwd_dkv_bf16", "bwd_dq_bf16",
-                               "fwd_f32", "bwd_dkv_f32", "bwd_dq_f32")):
+    if any(k in name for k in ("fwd_bf16", "bwd_prep_bf16", "bwd_dkv_bf16",
+                               "bwd_dq_bf16", "fwd_f32", "bwd_dkv_f32",
+                               "bwd_dq_f32")):
         return "attention, K1/K2 (port kernels)"
     if any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet")):
         return "gemm (cuBLAS)"

@@ -155,3 +155,52 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert _build.library_path().name.startswith("libmofo_kernels_")
+
+
+@pytest.mark.parametrize("scale", [SCALE, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H", GEOMS)
+def test_prep_then_rest_is_the_plain_backward(N, H, dtype, scale):
+    """The bf16 backward's prep pass (delta, q * scale, k * scale when the
+    scale is not a power of two) followed by the rest of the backward is
+    attention_qkv_bwd_plain, bit for bit."""
+    x = torch.from_numpy(_qkv(N, H, seed=7)).to(dtype)
+    out, lse = fa.attention_qkv_fwd_plain(x, scale, H)
+    dout = torch.from_numpy(
+        np.random.RandomState(8).randn(*out.shape).astype(np.float32)
+    ).to(dtype)
+    prep = fa.qkv_attn_bwd_prep(x, out, dout, scale, H)  # plain on the CPU
+    delta, qs, ks = prep
+    assert delta.shape == (2, H, N) and delta.dtype == torch.float32
+    assert qs.shape == out.shape and qs.dtype == dtype
+    assert (ks is None) == (scale == SCALE)
+    got = fa.attention_qkv_bwd_from_prep_plain(x, lse, dout, *prep, scale, H)
+    assert torch.equal(got,
+                       fa.attention_qkv_bwd_plain(x, out, lse, dout, scale, H))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,H", GEOMS)
+def test_prep_then_rest_matches_tpu_kernels(N, H, dtype):
+    """The same split backward against K2 (_qkv_bwd_impl) in interpret
+    mode, at the bounds of the K2 tests above."""
+    x = _qkv(N, H, seed=9)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    _, _, j_grad = _jax_run(x, H, jdt)
+    qkv = torch.from_numpy(x).to(dtype)
+    out, lse = fa.attention_qkv_fwd_plain(qkv, SCALE, H)
+    dout = (2 * out.float()).to(dtype)  # the gradient of sum(out^2)
+    prep = fa.attention_qkv_bwd_prep_plain(qkv, out, dout, SCALE, H)
+    got = fa.attention_qkv_bwd_from_prep_plain(qkv, lse, dout, *prep, SCALE,
+                                               H).float().numpy()
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got, j_grad, atol=1e-4, rtol=0)
+    else:
+        np.testing.assert_allclose(got, j_grad, atol=3e-2, rtol=3e-2)
+
+
+def test_a_power_of_two_scale_needs_no_scaled_k_copy():
+    """dQ scales its f32 accumulator by k_scale only where that equals the
+    product with bf16(k * k_scale): k_scale a power of two."""
+    assert fa._power_of_two(0.125) and fa._power_of_two(1.0)
+    assert not fa._power_of_two(0.1) and not fa._power_of_two(0.0)

@@ -30,6 +30,7 @@ from mofo_tpu_torch.tools.main_path import (
     VITS_MODEL,
     attention_against_plain,
     check_against_plain,
+    check_prep,
     compare_with_plain,
     finetune_model,
     hm_attention_against_plain,
@@ -82,13 +83,68 @@ def test_autograd_runs_the_kernels(cuda):
     fa.reset_launch_counts()
     (fa.flash_attention_qkv(qkv, scale=SCALE, num_heads=2) ** 2).sum() \
         .backward()
+    # f32: the FMA kernels form delta themselves, no prep pass
     assert fa.launch_counts == {**dict.fromkeys(fa.KERNELS, 0),
-                                **dict.fromkeys(fa.QKV_KERNELS, 1)}
+                                **dict.fromkeys(fa.QKV_F32_KERNELS, 1)}
     ref = x.cpu().clone().requires_grad_(True)
     (fa.flash_attention_qkv(ref, scale=SCALE, num_heads=2) ** 2).sum() \
         .backward()
     np.testing.assert_allclose(qkv.grad.cpu().numpy(), ref.grad.numpy(),
                                atol=5e-4, rtol=0)
+
+
+def _check_at_edge(got, want, N):
+    """check_against_plain, except at N = 1: there P = 1, so dS = dP - delta
+    is f32 rounding noise around 0, and so are dQ and dK (of either
+    version); they are held to 1e-4 absolute, out, lse and dV to the
+    bounds."""
+    if N > 1:
+        check_against_plain(got, want)
+        return
+    assert set(compare_with_plain(got, want)["beyond_bounds"]) <= {"dq", "dk"}
+    assert max(got[k].float().abs().max().item() for k in ("dq", "dk")) \
+        <= 1e-4
+
+
+@pytest.mark.parametrize("H", [2, 6, 12])
+@pytest.mark.parametrize("N", [1, 63, 65, 100, 160, 1568])
+def test_k2_backward_at_tile_edges(cuda, N, H):
+    """The bf16 backward (prep pass, TMA-fed wgmma dK/dV and dQ kernels) at
+    N on both sides of its 64-row tiles and 128-row blocks, against the
+    plain versions; the prep pass against its own."""
+    x = _qkv(2, N, H, torch.bfloat16, cuda, seed=N + H)
+    got, want = attention_against_plain(x, H, SCALE)
+    torch.cuda.synchronize()
+    _check_at_edge(got, want, N)
+    check_prep(x, got["out"], (2 * got["out"].float()).to(x.dtype), H, SCALE)
+    for fault, outputs in planted_faults(got).items():
+        assert compare_with_plain(outputs, want)["beyond_bounds"], fault
+
+
+@pytest.mark.parametrize("N", [65, 160])
+def test_k2_backward_with_a_scale_not_a_power_of_two(cuda, N):
+    """scale 0.1: the prep pass writes k * scale and dQ reads that copy."""
+    x = _qkv(2, N, 2, torch.bfloat16, cuda, seed=5)
+    got, want = attention_against_plain(x, 2, 0.1)
+    torch.cuda.synchronize()
+    check_against_plain(got, want)
+    assert check_prep(x, got["out"], (2 * got["out"].float()).to(x.dtype),
+                      2, 0.1)["ks"] is True
+
+
+def test_bf16_autograd_runs_the_prep_pass(cuda):
+    x = _qkv(2, 100, 2, torch.bfloat16, cuda, seed=2)
+    qkv = x.clone().requires_grad_(True)
+    fa.reset_launch_counts()
+    (fa.flash_attention_qkv(qkv, scale=SCALE, num_heads=2).float() ** 2) \
+        .sum().backward()
+    assert fa.launch_counts == {**dict.fromkeys(fa.KERNELS, 0),
+                                **dict.fromkeys(fa.QKV_KERNELS, 1)}
+    # one writer per output, no atomics: the same call gives the same bits
+    out, lse = fa.qkv_attn_fwd(x, SCALE, 2)
+    want = fa.qkv_attn_bwd(x, out, lse, (2 * out.float()).to(x.dtype),
+                           SCALE, 2)
+    assert torch.equal(qkv.grad, want)
 
 
 def test_wrapper_rejects_what_the_kernels_do_not_take(cuda):
@@ -136,7 +192,7 @@ def test_step_on_the_card_matches_the_cpu(cuda):
                     0.5, mask=mask.to(dev))
         got[dev] = (float(m["loss"]), float(m["grad_norm"]))
     assert min(fa.launch_counts[k]
-               for k in fa.QKV_KERNELS + fa.HM_KERNELS) >= 1
+               for k in fa.QKV_F32_KERNELS + fa.HM_KERNELS) >= 1
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-4)
 
 
@@ -216,7 +272,7 @@ def test_bb_finetune_step_on_the_card_matches_the_cpu(cuda):
         got[dev] = (float(m["loss"]), float(m["grad_norm"]))
         if dev == "cuda":
             assert min(fa.launch_counts[k]
-                       for k in fa.QKV_KERNELS + fa.MH_KERNELS) >= 1
+                       for k in fa.QKV_F32_KERNELS + fa.MH_KERNELS) >= 1
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-4)
 
 
@@ -230,6 +286,19 @@ def test_hm_kernels_match_plain(cuda, dtype, B, H, N):
     got, want = hm_attention_against_plain(q, k, v, SCALE)
     torch.cuda.synchronize()
     check_against_plain(got, want)
+    for fault, outputs in hm_planted_faults(got).items():
+        assert compare_with_plain(outputs, want)["beyond_bounds"], fault
+
+
+@pytest.mark.parametrize("N", [1, 63, 65, 100, 1568, 3136])
+def test_hm_forward_at_tile_edges(cuda, N):
+    """The redesigned bf16 K4 forward (two TMA-fed wgmma passes) at N on
+    both sides of its 64-row tiles and 128-row blocks, against the plain
+    version (and the backward with it), planted faults rejected."""
+    q, k, v = hm_inputs(6, N, torch.bfloat16, N, cuda)
+    got, want = hm_attention_against_plain(q, k, v, SCALE)
+    torch.cuda.synchronize()
+    _check_at_edge(got, want, N)
     for fault, outputs in hm_planted_faults(got).items():
         assert compare_with_plain(outputs, want)["beyond_bounds"], fault
 

@@ -1,0 +1,83 @@
+"""The C interface of the port's CUDA sources against what Python declares.
+
+The kernels are loaded with ctypes (mofo_tpu_torch/ops/_build.py), so a
+wrong argtypes list is no compile error: it passes a pointer as a 32-bit
+int or shifts every later argument, and crashes or computes garbage only on
+the card. These tests parse the sources here and hold each `extern "C"`
+entry point against `_build.SIGNATURES`, and hold the files under csrc/
+against the lists the build hashes into its key.
+"""
+
+import ctypes
+import re
+
+import pytest
+
+from mofo_tpu_torch.ops import _build
+from mofo_tpu_torch.ops import flash_attention as fa
+
+ENTRY = re.compile(r'extern "C" int (\w+)\(([^)]*)\)', re.S)
+CTYPE = {"pointer": ctypes.c_void_p, "int": ctypes.c_int,
+         "float": ctypes.c_float}
+
+
+def _kind(param: str) -> str:
+    param = " ".join(param.split())
+    if "*" in param:
+        return "pointer"
+    words = param.replace("const ", "").split()
+    if len(words) != 2 or words[0] not in ("int", "float"):
+        raise AssertionError(f"unexpected C parameter {param!r}")
+    return words[0]
+
+
+def _entry_points() -> dict:
+    found = {}
+    for name in _build.SOURCES:
+        text = (_build.CSRC / name).read_text()
+        for fn, params in ENTRY.findall(text):
+            assert fn not in found, f"{fn} defined twice"
+            found[fn] = [_kind(p) for p in params.split(",")]
+    return found
+
+
+def test_every_entry_point_is_declared_and_no_other():
+    assert set(_entry_points()) == set(_build.SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_argtypes_match_the_c_parameters(name):
+    kinds = _entry_points()[name]
+    declared = _build.SIGNATURES[name]
+    assert len(declared) == len(kinds), (name, kinds)
+    assert declared == [CTYPE[k] for k in kinds], (name, kinds)
+
+
+def test_every_kernel_wrapper_has_an_entry_point():
+    assert set(fa.KERNELS) <= set(_build.SIGNATURES)
+
+
+def test_the_build_key_covers_every_source_and_header():
+    on_disk = {p.name for p in _build.CSRC.iterdir()
+               if p.suffix in (".cu", ".cuh")}
+    assert on_disk == set(_build.SOURCES) | set(_build.HEADERS)
+    assert {n for n in on_disk if n.endswith(".cuh")} == set(_build.HEADERS)
+
+
+def test_every_include_of_a_source_is_a_listed_header():
+    for name in _build.SOURCES + _build.HEADERS:
+        text = (_build.CSRC / name).read_text()
+        for inc in re.findall(r'#include "([^"]+)"', text):
+            assert inc in _build.HEADERS, (name, inc)
+
+
+def test_the_library_name_follows_the_headers(monkeypatch, tmp_path):
+    """A change to a header gives the library another name, so a stale
+    build is never loaded."""
+    for name in _build.SOURCES + _build.HEADERS:
+        (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path()
+    header = tmp_path / _build.HEADERS[-1]
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path() != before
