@@ -26,7 +26,8 @@ Phases, each printing one JSON line:
                at 1 x 256 and 2 x 64, bf16 and f32, bias present and
                absent; planted faults (the bias ignored, dQ zeroed, dK
                without its 1/log2 e fix) must be rejected and masked kv
-               rows must get zero dK/dV; then the times at the MCA shape.
+               rows must get zero dK/dV; then the times at the MCA shape
+               (k3_fwd_vs_library: the forward over the library's).
   5. step    - the ViT-B MOFO pretrain step at full width (tube_bb masks,
                motion-weighted loss, AdamW): 1 warm-up + 5 timed steps, the
                launch counts of every kernel checked.
@@ -47,15 +48,19 @@ Phases, each printing one JSON line:
   9. hm_kernels - the head-major kernels (K4) against their plain versions
                at the ViT-S runner's decoder (B=32, H=3, N=1568), the TPU's
                own gated geometry (B=2, H=6, N=1568), ragged N=100 and the
-               32-frame N=3136, bf16 and f32, D=64; planted faults (dQ
-               zeroed, the LSE in log2 units) must be rejected; then the
-               times at the runner's decoder shape (with the forward over
-               the library's), and (k1_vs_k4) how far
+               32-frame N=3136, bf16 and f32, D=64, in bf16 with the
+               backward's prep pass; planted faults (dQ zeroed, the LSE in
+               log2 units) must be rejected; the ragged one again at scale
+               0.1 (dQ's scaled-K copy); then the times at the runner's
+               decoder shape (with the forward over the library's, and
+               k4_bwd_vs_library: prep + dK/dV + dQ over the library's
+               backward), and (k1_vs_k4) how far
                K1's numerics, which the ViT-S decoder ran before it took
                the head-major route, lie from K4's on the same inputs.
  10. vits_step - the ViT-S MOFO pretrain step at full width (bf16, B=32):
                1 warm-up + 5 timed steps, 12 K1/K2 launches (encoder) and 4
-               K4 launches (decoder) of each kernel per step, exactly.
+               K4 launches (decoder) of each kernel, the prep passes
+               included, per step, exactly.
  11. vits_parity - ViT-S width cut to 2+1 blocks, f32, B=1: card against
                CPU as in phase 6; covers the f32 K4 kernels.
  12. runner  - the main path of this slice: the ViT-S MOFO pretrain runner
@@ -101,6 +106,7 @@ from mofo_tpu_torch.tools.main_path import (
     build_finetune_step,
     build_step,
     check_against_plain,
+    check_hm_prep,
     check_prep,
     compare_with_plain,
     finetune_model,
@@ -141,6 +147,8 @@ REPLACES = {  # the pallas_call sites of the TPU kernels
     "mh_attn_bwd_dkv": f"{TPU_FILE}:783",  # _mh_bwd_impl (dK, dV)
     "mh_attn_bwd_dq": f"{TPU_FILE}:783",  # _mh_bwd_impl (dQ)
     "hm_attn_fwd": f"{TPU_FILE}:275",  # _fwd_impl -> _fwd_kernel
+    # _bwd_impl's delta in XLA (:313-315) and the kernels' scale folds
+    "hm_attn_bwd_prep": f"{TPU_FILE}:313",
     "hm_attn_bwd_dkv": f"{TPU_FILE}:359",  # _bwd_impl -> _dkv_kernel
     "hm_attn_bwd_dq": f"{TPU_FILE}:332",  # _bwd_impl -> _dq_kernel
 }
@@ -162,7 +170,8 @@ HM_CHECKS = {"runner_decoder": (VITS_BATCH, 3, 1568),
              "tpu_gated": (2, 6, 1568), "ragged": (4, 3, 100),
              "frames32": (2, 6, 3136)}
 # launches of each kernel per step: ViT-B runs K1/K2 in all 16 Blocks; the
-# ViT-S decoder's 3 x 64 heads (A = 192) take K4 in its 4 Blocks
+# ViT-S decoder's 3 x 64 heads (A = 192) take K4 (its prep pass too) in its
+# 4 Blocks
 STEP_LAUNCHES = {
     MODEL: {**dict.fromkeys(fa.KERNELS, 0),
             **dict.fromkeys(fa.QKV_KERNELS, 16)},
@@ -206,7 +215,10 @@ def phase_build() -> None:
     _build.load()
     ptxas, name = {}, None
     for line in info["report"].splitlines():
-        if "Compiling entry function" in line:
+        if "(C7517)" in line:  # names its function; precedes the entries
+            ptxas.setdefault(line.split("'")[1], []).append(
+                line.split(" in function")[0].strip())
+        elif "Compiling entry function" in line:
             name = line.split("'")[1]
         elif name and ("registers" in line or "spill" in line):
             ptxas.setdefault(name, []).append(line.strip())
@@ -486,6 +498,9 @@ def phase_mh_kernels():
                     timings = time_mh_kernels(q, k, v, b, H, D)
                     emit("mh_kernel_times", geometry=geo, B=B, N=N, H=H,
                          D=D, dtype="bfloat16", bias=True, times=timings)
+                    emit("k3_fwd_vs_library", **{
+                        geo: timings["mh_attn_fwd"]["ms"]
+                        / timings["mh_attn_fwd"]["library_ms"]})
                 del q, k, v, b, got, want, ignored
     return errors, timings
 
@@ -682,9 +697,11 @@ def bounds_hm(BH, N, D) -> dict:
     row, stat = BH * N * D * 2, BH * N * 4
     return least_times({
         "hm_attn_fwd": (2 * mm, 3 * row + row + stat),  # -> out, lse
-        # + dout, lse, delta -> dk, dv
+        # q, out, dout -> q * scale, delta
+        "hm_attn_bwd_prep": (3 * BH * N * D, 3 * row + row + stat),
+        # k, v, q * scale, dout, lse, delta -> dk, dv
         "hm_attn_bwd_dkv": (4 * mm, 4 * row + 2 * stat + 2 * row),
-        "hm_attn_bwd_dq": (3 * mm, 4 * row + 2 * stat + row),
+        "hm_attn_bwd_dq": (3 * mm, 4 * row + 2 * stat + row),  # -> dq
     })
 
 
@@ -695,7 +712,7 @@ def time_hm_kernels(q, k, v, B, H) -> dict:
     scale = D ** -0.5
     out, lse = fa.hm_attn_fwd(q, k, v, scale)
     dout = (2 * out.float()).to(q.dtype)
-    delta = fa.hm_delta(out, dout)
+    prep = fa.hm_attn_bwd_prep(q, k, out, dout, scale)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     heads = [t.reshape(B, H, N, D).clone().requires_grad_(True)
              for t in (q, k, v)]
@@ -713,14 +730,22 @@ def time_hm_kernels(q, k, v, B, H) -> dict:
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 *(t.detach() for t in heads), scale=scale)),
         },
+        # no one library call computes delta and the scaled q alone
+        "hm_attn_bwd_prep": {
+            "ms": time_ms(lambda: fa.hm_attn_bwd_prep(q, k, out, dout,
+                                                      scale)),
+            "plain_ms": time_ms(lambda: fa.attention_hm_bwd_prep_plain(
+                q, k, out, dout, scale)),
+            "library_ms": None,
+        },
         "hm_attn_bwd_dkv": {
             "ms": time_ms(lambda: fa.hm_attn_bwd_dkv(
-                q, k, v, dout, lse, delta, dk, dv, scale)),
+                q, k, v, out, lse, dout, dk, dv, scale, prep)),
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
         "hm_attn_bwd_dq": {
             "ms": time_ms(lambda: fa.hm_attn_bwd_dq(
-                q, k, v, dout, lse, delta, dq, scale)),
+                q, k, v, out, lse, dout, dq, scale, prep)),
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
     }
@@ -761,30 +786,41 @@ def k1_vs_k4(B, H, N, dtype) -> dict:
             for n in k1}
 
 
+def check_hm_kernels(q, k, v, scale: float = SCALE) -> dict:
+    """check_kernels for K4 on (B*H, N, 64) q, k, v: the planted faults are
+    dQ zeroed and the LSE in log2 units."""
+    got, want = hm_attention_against_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    res = check_against_plain(got, want)
+    if q.dtype == torch.bfloat16:
+        res["prep"] = check_hm_prep(q, k, got["out"], (
+            2 * got["out"].float()).to(q.dtype), scale)
+    res["planted"] = {}
+    for fault, outputs in hm_planted_faults(got).items():
+        caught = compare_with_plain(outputs, want)
+        if not caught["beyond_bounds"]:
+            raise AssertionError(f"the bounds let a planted fault pass: "
+                                 f"{fault}")
+        res["planted"][fault] = caught["beyond_bounds"]
+    return res
+
+
 def phase_hm_kernels():
     """K4 against its plain version at every HM_CHECKS geometry, bf16 and
-    f32: main_path's bounds, the planted faults rejected. Times at the
-    runner's decoder shape, and K1's numerics against K4's there."""
+    f32 (in bf16 the prep pass too): main_path's bounds, the planted faults
+    rejected; the ragged one again at scale 0.1. Times at the runner's
+    decoder shape, and K1's numerics against K4's there."""
     errors, timings = {}, {}
     for i, (geo, (B, H, N)) in enumerate(HM_CHECKS.items()):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = hm_inputs(B * H, N, dtype, i, "cuda")
-            got, want = hm_attention_against_plain(q, k, v, SCALE)
-            torch.cuda.synchronize()
-            res = check_against_plain(got, want)
-            res["planted"] = {}
-            for fault, outputs in hm_planted_faults(got).items():
-                caught = compare_with_plain(outputs, want)
-                if not caught["beyond_bounds"]:
-                    raise AssertionError(
-                        f"the bounds let a planted fault pass: {fault} "
-                        f"({geo}, {dtype})")
-                res["planted"][fault] = caught["beyond_bounds"]
+            res = check_hm_kernels(q, k, v)
             emit("hm_kernels_vs_plain", geometry=geo, B=B, H=H, N=N, D=D,
                  dtype=str(dtype).replace("torch.", ""), **res)
             if geo == "runner_decoder" and dtype == torch.bfloat16:
                 err = res["max_abs_err"]
                 errors = {"hm_attn_fwd": err["out"],
+                          "hm_attn_bwd_prep": res["prep"]["max_abs_err"],
                           "hm_attn_bwd_dkv": max(err["dk"], err["dv"]),
                           "hm_attn_bwd_dq": err["dq"]}
                 timings = time_hm_kernels(q, k, v, B, H)
@@ -792,7 +828,16 @@ def phase_hm_kernels():
                      dtype="bfloat16", times=timings,
                      fwd_vs_library=timings["hm_attn_fwd"]["ms"]
                      / timings["hm_attn_fwd"]["library_ms"])
-            del q, k, v, got, want
+                emit("k4_bwd_vs_library", **{geo: sum(
+                    timings[n]["ms"] for n in fa.HM_KERNELS[1:])
+                    / timings["hm_attn_bwd_dq"]["library_ms"]})
+            del q, k, v
+    # a scale that is not a power of two: dQ reads its own scaled K copy
+    B, H, N = HM_CHECKS["ragged"]
+    for dtype in (torch.bfloat16, torch.float32):
+        emit("hm_kernels_vs_plain", geometry="ragged", B=B, H=H, N=N, D=D,
+             scale=0.1, dtype=str(dtype).replace("torch.", ""),
+             **check_hm_kernels(*hm_inputs(B * H, N, dtype, 7, "cuda"), 0.1))
     B, H, N = HM_CHECKS["runner_decoder"]
     emit("k1_vs_k4", B=B, H=H, N=N, D=D,
          **{str(dt).replace("torch.", ""): k1_vs_k4(B, H, N, dt)
@@ -858,7 +903,7 @@ def main() -> int:
     hm_errors, hm_timings = phase_hm_kernels()
     vits_launches = phase_step(smi, "vits_step", VITS_MODEL, VITS_BATCH)
     phase_parity("vits_parity", VITS_MODEL,
-                 fa.QKV_F32_KERNELS + fa.HM_KERNELS)
+                 fa.QKV_F32_KERNELS + fa.HM_F32_KERNELS)
     runner_launches = phase_runner(smi)
     kernels = []
     for name in fa.QKV_KERNELS:

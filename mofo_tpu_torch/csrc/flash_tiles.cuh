@@ -12,9 +12,9 @@
 #include <stddef.h>
 #include <stdint.h>
 
-namespace {
+#include "wgmma_tiles.cuh"  // bf16, kBadArgument, max_smem
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 // -------------------------------------------------------------------------
 // f32: FMA kernels. 256 threads as 16 x 16 (ty, tx); in an R x C product a
@@ -234,13 +234,6 @@ __device__ __forceinline__ void store_rows(bf16* dst, size_t ld,
 // -------------------------------------------------------------------------
 // Launch helpers
 // -------------------------------------------------------------------------
-
-constexpr int kBadArgument = -1;
-
-int max_smem(const void* kernel, size_t smem) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 

@@ -2,11 +2,14 @@
 // two halves of the backward on (B*H, N, D) q, k and v. Plain C interface,
 // loaded from Python with ctypes (mofo_tpu_torch/ops/flash_attention.py);
 // built by mofo_tpu_torch/ops/_build.py with the other csrc/*.cu sources.
-// The mma.sync tile loads, products and reductions are flash_tiles.cuh's,
-// the TMA, mbarrier and wgmma pieces of the bf16 forward wgmma_tiles.cuh's.
+// The f32 tile loads, products and reductions are flash_tiles.cuh's, the
+// TMA, mbarrier and wgmma pieces of the bf16 forward wgmma_tiles.cuh's, and
+// the bf16 backward's kernels wgmma_attn_bwd.cuh's.
 //
 // Replaces the TPU kernel K4 of mofo_tpu/ops/flash_attention.py:
 //   hm_attn_fwd      <- _fwd_impl (:262) / _fwd_kernel (:130)
+//   hm_attn_bwd_prep <- _bwd_impl's delta, computed in XLA (:313-315), and
+//                       the kernels' in-kernel scale folds (bf16 only)
 //   hm_attn_bwd_dq   <- _bwd_impl (:304) / _dq_kernel (:160)
 //   hm_attn_bwd_dkv  <- _bwd_impl (:304) / _dkv_kernel (:204)
 //
@@ -14,11 +17,14 @@
 // D = 64: the ViT-S pretrain decoder's 3 x 64 heads, which take the
 // head-major route of models/layers.Attention because A = 192 is not a
 // multiple of 128. The forward writes a (BH, N) f32 LSE in natural-log units;
-// the backward takes delta = rowsum(dO * O), (BH, N) f32, from the caller.
+// the backward takes delta = rowsum(dO * O), (BH, N) f32, from the caller:
+// in bf16 from the prep pass, which also writes q * scale (BH, N, D) once
+// for both backward kernels.
 //
 // What bounds it on this card. At the ViT-S decoder (BH = 96, N = 1568) each
 // head does N^2 D multiply-adds per product on 2 N D bytes per operand: the
-// kernels are bound by operations (the bf16 tensor-core rate), not bytes.
+// kernels are bound by operations (the bf16 tensor-core rate), not bytes; the
+// prep pass (3 reads, 1 write of N D values) is bound by bytes.
 //
 // What the design does about it. Every product of the bf16 kernels runs on
 // the tensor cores, bf16 in, f32 accumulate. The TPU rounds the normalized
@@ -38,10 +44,21 @@
 //     f32 differences and pass 2 multiplies by 1/l: an ulp or two of the
 //     f32 value before the bf16 rounding. The LSE stays in natural-log
 //     units. The 3D tensor maps (BH, N, 64) zero-fill rows past N per head.
-//   - The bf16 backward still runs mma.sync m16n8k16 with four warps that
-//     own 16 rows each of a 64-row tile, the other side streamed in 64-row
-//     tiles through plain loads; it is two kernels (dK/dV over kv tiles, dQ
-//     over q tiles), so each output has one writer and no atomics.
+//   - The bf16 backward (redesigned for Hopper) is the design of the
+//     fused-qkv backward, whose kernels it shares (wgmma_attn_bwd.cuh) with
+//     the softmax base and the layout as parameters: a prep pass over q, O
+//     and dO writes delta and q * scale, so that no torch reduction runs on
+//     the card and neither kernel reads O or rescales a tile; dK/dV (two
+//     consumer warpgroups of 64 kv rows each, K fragments in registers, V
+//     the A operand from shared memory) streams (q * scale, dO) tiles with
+//     their LSE and delta through a 2-stage TMA ring and forms S^T = K Q^T
+//     and dP^T = V dO^T, so P^T and dS^T go from the accumulators into
+//     dV += P^T dO and dK += dS^T Q; dQ (128 q rows a block) streams (K, V)
+//     tiles. Each output has one writer and no atomics. P is exp2 of the
+//     log2(e)-scaled f32 difference to the natural-log LSE (scaled once
+//     where it is staged). The scale 0.125 is a power of two, so dQ scales
+//     its f32 accumulator at the store; another scale reads k * scale from
+//     a copy the prep pass writes.
 //   - The f32 kernels (the parity path) use FMAs, since tensor cores would
 //     round f32 to TF32.
 // Ragged N is masked in-kernel: kv columns >= N and q rows >= N get P = 0;
@@ -58,6 +75,7 @@
 //     subtraction in f32; in f32 it is P * (dP - delta).
 
 #include "flash_tiles.cuh"
+#include "wgmma_attn_bwd.cuh"
 #include "wgmma_tiles.cuh"
 
 namespace {
@@ -308,7 +326,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // -------------------------------------------------------------------------
-// bf16: tensor-core kernels (flash_tiles.cuh's mma.sync layout)
+// bf16: tensor-core kernels (wgmma; a warp's 16 accumulator rows keep
+// flash_tiles.cuh's mma.sync layout)
 // -------------------------------------------------------------------------
 
 // The redesigned bf16 forward: kWG consumer warpgroups, each the 64 query
@@ -316,7 +335,6 @@ __global__ void __launch_bounds__(kThreads)
 // keeps a ring of kStages kv stages filled by TMA (K alone in pass 1, K and
 // V in pass 2).
 constexpr int kStages = 3;
-constexpr int kTileElems = kTileRows * kD;
 constexpr size_t kSmemFwdBf16 =
     1024 + (size_t)(kWG + 2 * kStages) * kTileBytes +
     (2 * kStages + 1) * sizeof(uint64_t);
@@ -332,7 +350,6 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                 const __grid_constant__ CUtensorMap tv,
                 bf16* __restrict__ out, float* __restrict__ lse, int N,
                 float q_scale) {
-  constexpr float kLog2e = 1.4426950408889634f;
   extern __shared__ unsigned char wsmem[];
   unsigned char* sm = smem_1024(wsmem);
   bf16* sQ = reinterpret_cast<bf16*>(sm);
@@ -470,133 +487,11 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   }
 }
 
-template <int BK>
-constexpr size_t smem_dq_bf16() {
-  return (size_t)(2 * kRowsH + 2 * BK) * (kD + 8) * sizeof(bf16) +
-         2 * kRowsH * sizeof(float);
-}
-
-// Grid (ceil(N / 64), BH). One block: 64 query rows of one head; loops over
-// all kv tiles and accumulates dQ = dS (K * scale) in registers.
-template <int BK>
-__global__ void __launch_bounds__(kMmaThreads)
-    hm_bwd_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, bf16* __restrict__ dq,
-                   int N, float q_scale, float k_scale) {
-  constexpr int D = kD, LD = D + 8, NO = D / 8, NS = BK / 8;
-  extern __shared__ __align__(16) unsigned char hsmem[];
-  bf16* sQ = reinterpret_cast<bf16*>(hsmem);
-  bf16* sdO = sQ + kRowsH * LD;
-  bf16* sK = sdO + kRowsH * LD;
-  bf16* sV = sK + BK * LD;
-  float* sLse = reinterpret_cast<float*>(sV + BK * LD);
-  float* sDelta = sLse + kRowsH;
-  const size_t base = (size_t)blockIdx.y * N * D;
-  const int q0 = blockIdx.x * kRowsH, r0 = 16 * (threadIdx.x >> 5);
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-
-  load_bf16<kRowsH, D>(sQ, q + base, q0, N, D, q_scale);
-  load_bf16<kRowsH, D>(sdO, dout + base, q0, N, D, 1.f);
-  load_stats(sLse, sDelta, lse + (size_t)blockIdx.y * N,
-             delta + (size_t)blockIdx.y * N, q0, N, kRowsH);
-  float acc[NO][4] = {};
-
-  for (int k0 = 0; k0 < N; k0 += BK) {
-    __syncthreads();  // the q side is written / the last tile is consumed
-    load_bf16<BK, D>(sK, k + base, k0, N, D, 1.f);
-    load_bf16<BK, D>(sV, v + base, k0, N, D, 1.f);
-    __syncthreads();
-    float s[NS][4] = {}, dp[NS][4] = {};
-    mm_nt<NS, D / 16, LD>(s, sQ, r0, sK);
-    mm_nt<NS, D / 16, LD>(dp, sdO, r0, sV);
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * nt + 2 * t + (e & 1);
-        const int i = r0 + g + 8 * (e >> 1);
-        const float p =
-            k0 + col < N ? rnd(expf(s[nt][e] - sLse[i])) : 0.f;
-        dp[nt][e] = rnd(p * rnd(dp[nt][e] - sDelta[i]));
-      }
-    uint32_t sa[NS / 2][4];
-    to_a<NS / 2>(sa, dp);
-    mm_nn<NO, NS / 2, LD, true>(acc, sa, sK, k_scale);
-  }
-
-  store_rows<NO>(dq + base, D, acc, q0 + r0, N, 1.f);
-}
-
-template <int BQ>
-constexpr size_t smem_dkv_bf16() {
-  return (size_t)(2 * kRowsH + 2 * BQ) * (kD + 8) * sizeof(bf16) +
-         2 * BQ * sizeof(float);
-}
-
-// Grid (ceil(N / 64), BH). One block: 64 key/value rows of one head; loops
-// over all q tiles. Each warp computes its 16 kv rows of S^T = K Q^T (and
-// dP^T = V dO^T), so P^T and dS^T feed dV += P^T dO and dK += dS^T Q straight
-// from the accumulators.
-template <int BQ>
-__global__ void __launch_bounds__(kMmaThreads)
-    hm_bwd_dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v,
-                    const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int N, float q_scale) {
-  constexpr int D = kD, LD = D + 8, NO = D / 8, NS = BQ / 8;
-  extern __shared__ __align__(16) unsigned char hsmem[];
-  bf16* sK = reinterpret_cast<bf16*>(hsmem);
-  bf16* sV = sK + kRowsH * LD;
-  bf16* sQ = sV + kRowsH * LD;
-  bf16* sdO = sQ + BQ * LD;
-  float* sLse = reinterpret_cast<float*>(sdO + BQ * LD);
-  float* sDelta = sLse + BQ;
-  const size_t base = (size_t)blockIdx.y * N * D;
-  const int k0 = blockIdx.x * kRowsH, r0 = 16 * (threadIdx.x >> 5);
-  const int t = threadIdx.x & 3;
-
-  load_bf16<kRowsH, D>(sK, k + base, k0, N, D, 1.f);
-  load_bf16<kRowsH, D>(sV, v + base, k0, N, D, 1.f);
-  float dka[NO][4] = {}, dva[NO][4] = {};
-
-  for (int q0 = 0; q0 < N; q0 += BQ) {
-    __syncthreads();  // the previous q tile's reads are done
-    load_bf16<BQ, D>(sQ, q + base, q0, N, D, q_scale);
-    load_bf16<BQ, D>(sdO, dout + base, q0, N, D, 1.f);
-    load_stats(sLse, sDelta, lse + (size_t)blockIdx.y * N,
-               delta + (size_t)blockIdx.y * N, q0, N, BQ);
-    __syncthreads();
-    float st[NS][4] = {};
-    mm_nt<NS, D / 16, LD>(st, sK, r0, sQ);
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * nt + 2 * t + (e & 1);  // q row
-        st[nt][e] = q0 + col < N ? rnd(expf(st[nt][e] - sLse[col])) : 0.f;
-      }
-    uint32_t fa[NS / 2][4];
-    to_a<NS / 2>(fa, st);
-    mm_nn<NO, NS / 2, LD, false>(dva, fa, sdO, 1.f);
-    float dpt[NS][4] = {};
-    mm_nt<NS, D / 16, LD>(dpt, sV, r0, sdO);
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * nt + 2 * t + (e & 1);
-        dpt[nt][e] = rnd(st[nt][e] * rnd(dpt[nt][e] - sDelta[col]));
-      }
-    to_a<NS / 2>(fa, dpt);
-    mm_nn<NO, NS / 2, LD, false>(dka, fa, sQ, 1.f);
-  }
-
-  store_rows<NO>(dk + base, D, dka, k0 + r0, N, 1.f);
-  store_rows<NO>(dv + base, D, dva, k0 + r0, N, 1.f);
+// The bf16 backward is wgmma_attn_bwd.cuh's prep pass and dK/dV and dQ
+// kernels (shared with qkv_flash_attention.cu), in base e on the head-major
+// layout: every operand its own (BH, N, 64) tensor map, one head a plane.
+int hm_map(CUtensorMap* map, const void* base, int BH, int N) {
+  return tile_map(map, base, kD, N, BH, kD, (long)N * kD);
 }
 
 bool bad(int BH, int N, int D) {
@@ -619,10 +514,9 @@ extern "C" int hm_attn_fwd(const void* q, const void* k, const void* v,
   auto l = static_cast<float*>(lse);
   if (is_bf16) {
     CUtensorMap tq, tk, tv;
-    const long plane = (long)N * kD;
-    if (int e = tile_map(&tq, q, kD, N, BH, kD, plane)) return e;
-    if (int e = tile_map(&tk, k, kD, N, BH, kD, plane)) return e;
-    if (int e = tile_map(&tv, v, kD, N, BH, kD, plane)) return e;
+    if (int e = hm_map(&tq, q, BH, N)) return e;
+    if (int e = hm_map(&tk, k, BH, N)) return e;
+    if (int e = hm_map(&tv, v, BH, N)) return e;
     if (int e = max_smem((const void*)hm_fwd_bf16, kSmemFwdBf16)) return e;
     hm_fwd_bf16<<<dim3(cdiv(N, kWG * kTileRows), BH), kHopperThreads,
                   kSmemFwdBf16, st>>>(tq, tk, tv, static_cast<bf16*>(out), l,
@@ -639,23 +533,43 @@ extern "C" int hm_attn_fwd(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// The bf16 backward's prep pass: delta (BH, N) f32 and q * q_scale (BH, N,
+// D) bf16, and k * k_scale into ks unless ks is null (k_scale a power of
+// two: the dQ kernel then scales its accumulator).
+extern "C" int hm_attn_bwd_prep(const void* q, const void* k,
+                                const void* out, const void* dout,
+                                void* delta, void* qs, void* ks, int BH,
+                                int N, int D, float q_scale, float k_scale,
+                                void* stream) {
+  if (bad(BH, N, D)) return kBadArgument;
+  if (int e = launch_bwd_prep(q, k, kD, out, dout, delta, qs, ks, BH, N, 1,
+                              q_scale, k_scale,
+                              static_cast<cudaStream_t>(stream)))
+    return e;
+  return (int)cudaGetLastError();
+}
+
+// bf16: delta and qs come from hm_attn_bwd_prep (q is not read); f32: qs is
+// null and the kernel scales q itself.
 extern "C" int hm_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
-                               const void* delta, void* dk, void* dv, int BH,
-                               int N, int D, float q_scale, int is_bf16,
-                               void* stream) {
+                               const void* delta, const void* qs, void* dk,
+                               void* dv, int BH, int N, int D, float q_scale,
+                               int is_bf16, void* stream) {
   if (bad(BH, N, D)) return kBadArgument;
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<const float*>(lse);
   auto d = static_cast<const float*>(delta);
   if (is_bf16) {
-    constexpr size_t smem = smem_dkv_bf16<kTile>();
-    auto kernel = hm_bwd_dkv_bf16<kTile>;
-    if (int e = max_smem((const void*)kernel, smem)) return e;
-    kernel<<<dim3(cdiv(N, kRowsH), BH), kMmaThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, d,
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, q_scale);
+    if (!qs) return kBadArgument;
+    CUtensorMap tk, tv, tqs, tdo;
+    if (int e = hm_map(&tk, k, BH, N)) return e;
+    if (int e = hm_map(&tv, v, BH, N)) return e;
+    if (int e = hm_map(&tqs, qs, BH, N)) return e;
+    if (int e = hm_map(&tdo, dout, BH, N)) return e;
+    if (int e = launch_bwd_dkv<true>(tk, tv, tqs, tdo, 0, 0, l, d, dk, dv, kD,
+                                     BH, N, 1, 1.f, st))
+      return e;
   } else {
     constexpr size_t smem = smem_dkv_f32<kTile, kTile>();
     auto kernel = hm_bwd_dkv_f32<kTile, kTile>;
@@ -668,23 +582,30 @@ extern "C" int hm_attn_bwd_dkv(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+// bf16: delta, qs and (unless k_scale is a power of two) ks come from
+// hm_attn_bwd_prep; f32: qs and ks are null and the kernel scales q and k.
 extern "C" int hm_attn_bwd_dq(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
-                              const void* delta, void* dq, int BH, int N,
-                              int D, float q_scale, float k_scale,
-                              int is_bf16, void* stream) {
+                              const void* delta, const void* qs,
+                              const void* ks, void* dq, int BH, int N, int D,
+                              float q_scale, float k_scale, int is_bf16,
+                              void* stream) {
   if (bad(BH, N, D)) return kBadArgument;
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<const float*>(lse);
   auto d = static_cast<const float*>(delta);
   if (is_bf16) {
-    constexpr size_t smem = smem_dq_bf16<kTile>();
-    auto kernel = hm_bwd_dq_bf16<kTile>;
-    if (int e = max_smem((const void*)kernel, smem)) return e;
-    kernel<<<dim3(cdiv(N, kRowsH), BH), kMmaThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l, d,
-        static_cast<bf16*>(dq), N, q_scale, k_scale);
+    if (!qs) return kBadArgument;
+    CUtensorMap tk, tv, tqs, tdo, tks;
+    if (int e = hm_map(&tk, k, BH, N)) return e;
+    if (int e = hm_map(&tv, v, BH, N)) return e;
+    if (int e = hm_map(&tqs, qs, BH, N)) return e;
+    if (int e = hm_map(&tdo, dout, BH, N)) return e;
+    if (ks)
+      if (int e = hm_map(&tks, ks, BH, N)) return e;
+    if (int e = launch_bwd_dq<true>(tk, tv, tqs, tdo, ks ? &tks : nullptr, 0,
+                                    0, l, d, dq, kD, BH, N, 1, k_scale, st))
+      return e;
   } else {
     constexpr size_t smem = smem_dq_f32<kTile, kTile>();
     auto kernel = hm_bwd_dq_f32<kTile, kTile>;

@@ -3,8 +3,9 @@
 // halves of the backward. Plain C interface, loaded from Python with ctypes
 // (mofo_tpu_torch/ops/flash_attention.py); built by
 // mofo_tpu_torch/ops/_build.py together with the other csrc/*.cu sources.
-// Its tile loads, products and reductions are in flash_tiles.cuh, which
-// hm_flash_attention.cu (K4) shares.
+// The f32 and mma.sync tile loads, products and reductions are in
+// flash_tiles.cuh, which hm_flash_attention.cu (K4) shares; the TMA, mbarrier
+// and wgmma pieces of the bf16 forward in wgmma_tiles.cuh.
 //
 // Replaces the TPU kernel K3 of mofo_tpu/ops/flash_attention.py:
 //   mh_attn_fwd      <- _mh_fwd_impl (:653) / _mh_fwd_kernel with has_bias
@@ -25,24 +26,44 @@
 // attention (A = 768) on N * A bytes per operand: it is bound by operations
 // (the bf16 tensor-core rate), about 190 FLOP per byte moved.
 //
-// What the design does about it. D = 256 is the hard part: a warp's 16 x 256
-// f32 output accumulator is 128 registers a thread. So at D = 256 the bf16
-// kernels read their q / k operands as fragments from shared memory at every
-// k step (nothing but accumulators lives in registers), stream the other side
-// in 32-row tiles (a 16 x 32 score tile is 16 registers), and the dK/dV
-// kernel splits its two 64 x 256 accumulators across blockIdx.z: one block
-// computes dK, another dV, for the same 64 kv rows (the score tile is
-// recomputed, 5 products instead of 4). Every product of the bf16 kernels
-// runs on the tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate);
-// four warps own 16 rows each of a 64-row tile. The f32 kernels (the parity
-// path) use FMAs, since tensor cores would round f32 to TF32; at D = 256
-// their tiles shrink to 32 rows so that a padded tile (32 x 257 f32, 33 KB)
-// leaves room for the rest. All tiles above 48 KB are dynamic shared memory.
+// What the design does about it. D = 256 is the hard part: a 64 x 256 f32
+// output accumulator is 128 registers a thread.
+//   - The bf16 forward (redesigned for Hopper, wgmma_tiles.cuh; D = 64 is
+//     the same template) runs two consumer warpgroups of 64 query rows each
+//     (232 registers: 128 of output, 32 of a 64 x 64 score tile, 16 of P)
+//     and a producer warpgroup (40) whose first warp keeps a ring of (K, V)
+//     stages full by TMA, so tile j + 1 is in flight while tile j is
+//     multiplied. q's fragments would be 64 registers more, so each q strip
+//     stays in shared memory, where its warpgroup folds scale * log2 e into
+//     it once, and S = Q K^T is wgmma.mma_async m64n64k16 with both operands
+//     from 128-byte-swizzled shared memory, 16 k-steps over four 64-column
+//     boxes; P goes from the accumulators into P.V, four m64n64k16 chains
+//     (one per 64 output columns) on the MN-major V boxes. The tensor maps
+//     keep q's, k's and v's row strides, so k and v stay column views of the
+//     fused (B, N, 2A) kv projection, head h's boxes at column h D + 64 j;
+//     rows past N arrive as zeros. The producer warp's lanes copy the 64
+//     bias values of each tile into the stage (-inf past N). Shared memory
+//     bounds the ring at D = 256: two q strips (64 KB) and two stages of K
+//     and V (128 KB) fit a block's 227 KB, a third stage does not; D = 64
+//     takes four stages. One block an SM: 13 x 30 blocks at the MCA are
+//     three waves on 132 SMs.
+//   - The bf16 backward still runs mma.sync m16n8k16 (bf16 in, f32
+//     accumulate) with four warps that own 16 rows each of a 64-row tile and
+//     plain synchronous loads. At D = 256 it reads its q / k operands as
+//     fragments from shared memory at every k step (nothing but accumulators
+//     lives in registers), streams the other side in 32-row tiles (a 16 x 32
+//     score tile is 16 registers), and the dK/dV kernel splits its two
+//     64 x 256 accumulators across blockIdx.z: one block computes dK, another
+//     dV, for the same 64 kv rows (the score tile is recomputed, 5 products
+//     instead of 4). It is two kernels (dK/dV over kv tiles, dQ over q
+//     tiles), so each output has exactly one writer: no atomics. wgmma, TMA
+//     and pipelined loads are later work for it.
+//   - The f32 kernels (the parity path) use FMAs, since tensor cores would
+//     round f32 to TF32; at D = 256 their tiles shrink to 32 rows so that a
+//     padded tile (32 x 257 f32, 33 KB) leaves room for the rest. All tiles
+//     above 48 KB are dynamic shared memory.
 // Ragged N is masked in-kernel (kv columns >= N score -inf, q rows >= N carry
 // +inf LSE in the backward and are never stored); nothing is padded in HBM.
-// The backward is two kernels (dK/dV over kv tiles, dQ over q tiles), so
-// each output has exactly one writer: no atomics. wgmma, TMA and pipelined
-// loads are later work.
 //
 // Numerics (held by the tests against the TPU kernel):
 //   - the softmax scale is folded into q in the input dtype (bf16: times
@@ -56,6 +77,7 @@
 //     in f32 it is P * (dP - delta).
 
 #include "flash_tiles.cuh"
+#include "wgmma_tiles.cuh"
 
 namespace {
 
@@ -325,91 +347,198 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, int BK>
-constexpr size_t smem_fwd_bf16() {
-  return (size_t)(kRowsH + 2 * BK) * (D + 8) * sizeof(bf16) +
-         BK * sizeof(float);
-}
+// -------------------------------------------------------------------------
+// bf16 forward, redesigned for Hopper (wgmma_tiles.cuh). A 64-row strip of
+// D columns is D / 64 swizzled 64 x 64 boxes, one after the other.
+// -------------------------------------------------------------------------
 
-// Grid (ceil(N / 64), B * H). One block: one head's 64 query rows against
-// all N keys, streamed in BK-row tiles with an online softmax (base 2).
-template <int D, int BK>
-__global__ void __launch_bounds__(kMmaThreads)
-    mh_fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const float* __restrict__ bias,
-                bf16* __restrict__ out, float* __restrict__ lse, int N,
-                int H, int ldq, int ldk, int ldv, float q_scale) {
-  constexpr int LD = D + 8, NO = D / 8, NS = BK / 8;
-  extern __shared__ __align__(16) unsigned char hsmem[];
-  bf16* sQ = reinterpret_cast<bf16*>(hsmem);
-  bf16* sK = sQ + kRowsH * LD;
-  bf16* sV = sK + BK * LD;
-  float* sB = reinterpret_cast<float*>(sV + BK * LD);
+template <int D>
+struct FwdShape {
+  static constexpr int kBoxes = D / 64;
+  // D = 256: two q strips (64 KB) and two stages of a K and a V strip
+  // (128 KB) fit the 227 KB a block can use; a third stage does not
+  static constexpr int kStages = D == 64 ? 4 : 2;
+  static constexpr int kStrip = kBoxes * kTileElems;  // elements
+  static constexpr size_t kSmem =
+      1024 + (size_t)(kWG + 2 * kStages) * kStrip * sizeof(bf16) +
+      kStages * kTileRows * sizeof(float) +
+      (2 * kStages + 1) * sizeof(uint64_t);
+};
+
+// Grid (ceil(N / (64 kWG)), B * H). One block: 64 kWG query rows of one head
+// against all N keys, streamed in 64-row (K, V) tiles with an online softmax
+// (base 2). Each consumer warpgroup owns a 64-row q strip, which stays in
+// shared memory (its fragments would take D / 4 registers a thread beside
+// the D / 2 of the output): the warpgroup folds the scale into it in place,
+// once, and S = Q K^T reads it as wgmma's A operand. P goes from the
+// accumulators into P.V, one m64n64k16 chain per 64 output columns. The
+// producer warp's lanes copy each tile's 64 bias values into the stage
+// (-inf past N), lane 0 issues the TMA loads.
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    mh_fwd_bf16(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const float* __restrict__ bias, bf16* __restrict__ out,
+                float* __restrict__ lse, int N, int H, float q_scale) {
+  using Shape = FwdShape<D>;
+  constexpr int NB = Shape::kBoxes, kStages = Shape::kStages,
+                kStrip = Shape::kStrip;
+  extern __shared__ unsigned char wsmem[];
+  unsigned char* sm = smem_1024(wsmem);
+  bf16* sQ = reinterpret_cast<bf16*>(sm);
+  bf16* sKV = sQ + kWG * kStrip;  // per stage: a K strip, a V strip
+  float* sBias = reinterpret_cast<float*>(sKV + 2 * kStages * kStrip);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sBias + kStages * kTileRows);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
   const int bh = blockIdx.y, b = bh / H, h = bh % H, A = H * D;
-  const int q0 = blockIdx.x * kRowsH, r0 = 16 * (threadIdx.x >> 5);
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const bf16* kb = k + (size_t)b * N * ldk + h * D;
-  const bf16* vb = v + (size_t)b * N * ldv + h * D;
-  const float* bb = bias ? bias + (size_t)b * N : nullptr;
+  const int q0 = blockIdx.x * kWG * kTileRows;
+  const int T = (N + kTileRows - 1) / kTileRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  load_bf16<kRowsH, D>(sQ, q + (size_t)b * N * ldq + h * D, q0, N, ldq,
-                       q_scale);
-  float o[NO][4] = {}, m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < N; k0 += BK) {
-    __syncthreads();  // sQ is written / the previous tile's reads are done
-    load_bf16<BK, D>(sK, kb, k0, N, ldk, 1.f);
-    load_bf16<BK, D>(sV, vb, k0, N, ldv, 1.f);
-    load_bias(sB, bb, k0, N, BK);
-    __syncthreads();
-    float s[NS][4] = {};
-    mm_nt<NS, D / 16, LD>(s, sQ, r0, sK);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] += sB[8 * nt + 2 * t + (e & 1)];  // -inf past N
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    float corr[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // every tile holds a column < N, so the max is finite
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      corr[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA arrival and the bias' lanes
+      mbar_init(&empty[s], 4 * kWG);
     }
-#pragma unroll
-    for (int nt = 0; nt < NS; ++nt)
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kWG) {  // producer
+    producer_registers();
+    if (warp == 4 * kWG) {
+      if (lane == 0) {
+        mbar_expect_tx(qbar, kWG * NB * kTileBytes);
+        for (int w = 0; w < kWG; ++w)
+          for (int jb = 0; jb < NB; ++jb)
+            tma_tile(sQ + w * kStrip + jb * kTileElems, &tq, qbar,
+                     h * D + 64 * jb, q0 + kTileRows * w, b);
+      }
+      const float* bias_b = bias ? bias + (size_t)b * N : nullptr;
+      for (int j = 0; j < T; ++j) {
+        const int s = j % kStages;
+        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          bf16* stage = sKV + s * 2 * kStrip;
+          mbar_expect_tx(&full[s], 2 * NB * kTileBytes);
+          for (int jb = 0; jb < NB; ++jb) {
+            tma_tile(stage + jb * kTileElems, &tk, &full[s],
+                     h * D + 64 * jb, j * kTileRows, b);
+            tma_tile(stage + kStrip + jb * kTileElems, &tv, &full[s],
+                     h * D + 64 * jb, j * kTileRows, b);
+          }
+        }
+        float* sb = sBias + s * kTileRows;
+        for (int r = lane; r < kTileRows; r += 32) {
+          const int col = j * kTileRows + r;  // -inf masks columns >= N
+          sb[r] = col < N ? (bias_b ? bias_b[col] : 0.f) : -INFINITY;
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    consumer_registers();
+    const int wg = warp >> 2, r0 = 16 * (warp & 3);
+    const int g = lane >> 2, t = lane & 3;
+    bf16* strip = sQ + wg * kStrip;
+    mbar_wait(qbar, 0);
+    // q * q_scale rounded to bf16, in place (elementwise, so the swizzle
+    // does not matter), then visible to wgmma's reads
+    for (int i = threadIdx.x & (kWarpgroup - 1); i < kStrip / 8;
+         i += kWarpgroup) {
+      uint4 v = reinterpret_cast<uint4*>(strip)[i];
+      __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - m[e >> 1]);
-        rs[e >> 1] += s[nt][e];
+        const float2 f = __bfloat1622float2(x[e]);
+        x[e] = __floats2bfloat162_rn(f.x * q_scale, f.y * q_scale);
       }
+      reinterpret_cast<uint4*>(strip)[i] = v;
+    }
+    fence_proxy_async();
+    warpgroup_sync(1 + wg);
+
+    float o[NB][8][4] = {}, m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int j = 0; j < T; ++j) {
+      const int s = j % kStages;
+      mbar_wait(&full[s], (j / kStages) & 1);
+      const bf16* k_strip = sKV + s * 2 * kStrip;
+      const bf16* v_strip = k_strip + kStrip;
+      float sc[8][4] = {};
 #pragma unroll
-    for (int nt = 0; nt < NO; ++nt)
+      for (int jb = 0; jb < NB; ++jb)
+        wgmma_tile_ss<0>(sc, strip + jb * kTileElems,
+                         k_strip + jb * kTileElems);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      const float* sb = sBias + s * kTileRows;
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[nt][e] *= corr[e >> 1];
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 b2 =
+            *reinterpret_cast<const float2*>(sb + 8 * nt + 2 * t);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(rs[r]);
-    uint32_t pa[NS / 2][4];
-    to_a<NS / 2>(pa, s);  // P rounded to bf16 before P.V
-    mm_nn<NO, NS / 2, LD, false>(o, pa, sV, 1.f);
-  }
+        for (int e = 0; e < 4; ++e) {
+          sc[nt][e] += (e & 1) ? b2.y : b2.x;  // after the scale fold
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+        }
+      }
+      float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // every tile holds a column < N, so the max is finite
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        corr[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+      }
+      uint32_t pa[4][4];  // P rounded to bf16: the A fragments of P.V
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const float p0 = exp2f(sc[nt][e] - m[e >> 1]);
+          const float p1 = exp2f(sc[nt][e + 1] - m[e >> 1]);
+          rs[e >> 1] += p0 + p1;
+          pa[nt >> 1][2 * (nt & 1) + (e >> 1)] = bf16x2(p0, p1);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(rs[r]);
+#pragma unroll
+      for (int jb = 0; jb < NB; ++jb)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[jb][nt][e] *= corr[e >> 1];
+#pragma unroll
+      for (int jb = 0; jb < NB; ++jb)
+        wgmma_tile<1>(o[jb], pa, v_strip + jb * kTileElems);
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int jb = 0; jb < NB; ++jb) fence_acc(o[jb]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
 
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + r0 + g + 8 * half;
-    if (row >= N) continue;
-    bf16* dst = out + ((size_t)b * N + row) * A + h * D;
+    for (int half = 0; half < 2; ++half) {
+      const int row = q0 + kTileRows * wg + r0 + g + 8 * half;
+      if (row >= N) continue;
+      bf16* dst = out + ((size_t)b * N + row) * A + h * D + 2 * t;
 #pragma unroll
-    for (int nt = 0; nt < NO; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * nt + 2 * t) =
-          __floats2bfloat162_rn(o[nt][2 * half] / l[half],
-                                o[nt][2 * half + 1] / l[half]);
-    // LSE in log2 units: the scores carry log2(e)
-    if (t == 0) lse[(size_t)bh * N + row] = m[half] + log2f(l[half]);
+      for (int jb = 0; jb < NB; ++jb)
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+          *reinterpret_cast<__nv_bfloat162*>(dst + 64 * jb + 8 * nt) =
+              __floats2bfloat162_rn(o[jb][nt][2 * half] / l[half],
+                                    o[jb][nt][2 * half + 1] / l[half]);
+      // LSE in log2 units: the scores carry log2(e)
+      if (t == 0) lse[(size_t)bh * N + row] = m[half] + log2f(l[half]);
+    }
   }
 }
 
@@ -583,9 +712,9 @@ bool bad(int B, int N, int H, int D, int ldq, int ldk, int ldv) {
          B * H > 65535 || ldq < A || ldk < A || ldv < A;
 }
 
-// Tiles: the bf16 kernels' own tile is 64 rows; their streamed tile is 64
-// rows at D = 64 and 32 at D = 256. The f32 kernels use 64 x 64 tiles at
-// D = 64 and 32 x 32 at D = 256.
+// Tiles of the mma.sync and FMA kernels: the bf16 backward's own tile is 64
+// rows; its streamed tile is 64 rows at D = 64 and 32 at D = 256. The f32
+// kernels use 64 x 64 tiles at D = 64 and 32 x 32 at D = 256.
 template <int D>
 constexpr int stream_rows() { return D == 64 ? 64 : 32; }
 
@@ -593,16 +722,22 @@ template <int D>
 int fwd(const void* q, const void* k, const void* v, const float* bias,
         void* out, float* lse, int B, int N, int H, int ldq, int ldk,
         int ldv, float q_scale, int bf16_, cudaStream_t st) {
-  constexpr int T = stream_rows<D>();
   if (bf16_) {
-    constexpr size_t smem = smem_fwd_bf16<D, T>();
-    auto kernel = mh_fwd_bf16<D, T>;
+    // q, k and v keep their row strides: k and v may be column views of a
+    // fused (B, N, 2A) kv projection
+    const int A = H * D;
+    CUtensorMap tq, tk, tv;
+    if (int e = tile_map(&tq, q, A, N, B, ldq, (long)N * ldq)) return e;
+    if (int e = tile_map(&tk, k, A, N, B, ldk, (long)N * ldk)) return e;
+    if (int e = tile_map(&tv, v, A, N, B, ldv, (long)N * ldv)) return e;
+    constexpr size_t smem = FwdShape<D>::kSmem;
+    auto kernel = mh_fwd_bf16<D>;
     if (int e = max_smem((const void*)kernel, smem)) return e;
-    kernel<<<dim3(cdiv(N, kRowsH), B * H), kMmaThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), bias, static_cast<bf16*>(out), lse, N,
-        H, ldq, ldk, ldv, q_scale);
+    kernel<<<dim3(cdiv(N, kWG * kTileRows), B * H), kHopperThreads, smem,
+             st>>>(tq, tk, tv, bias, static_cast<bf16*>(out), lse, N, H,
+                   q_scale);
   } else {
+    constexpr int T = stream_rows<D>();
     constexpr size_t smem = smem_fwd_f32<D, T, T>();
     auto kernel = mh_fwd_f32<D, T, T>;
     if (int e = max_smem((const void*)kernel, smem)) return e;

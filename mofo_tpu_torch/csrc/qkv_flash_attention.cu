@@ -29,7 +29,8 @@
 //     mma.sync m16n8k16 (bf16 in, f32 accumulate) and an online softmax:
 //     four warps own 16 rows each, P goes from the accumulators to P.V's A
 //     operand in registers; tiles come through plain synchronous loads.
-//   - The bf16 backward (K2, redesigned for Hopper, wgmma_tiles.cuh) reads
+//   - The bf16 backward (K2, redesigned for Hopper; its kernels are
+//     wgmma_attn_bwd.cuh's, shared with K4's backward, here in base 2) reads
 //     each byte its math needs once. A prep kernel, qkv_attn_bwd_prep, reads
 //     q, O and dO once and writes delta = rowsum(dO * O) and q * q_scale in
 //     bf16 (the TPU kernel forms both inside, :1016-1023); the dK/dV and dQ
@@ -76,8 +77,7 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include <algorithm>
-
+#include "wgmma_attn_bwd.cuh"
 #include "wgmma_tiles.cuh"
 
 namespace {
@@ -381,7 +381,6 @@ __global__ void __launch_bounds__(kThreads)
 // 8*nt + 2t and 8*nt + 2t + 1.
 // -------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
 constexpr int kWarps = 4;
 constexpr int kMmaThreads = 32 * kWarps;
 constexpr int kLdh = kD + 8;  // padded bf16 row stride: 144 bytes
@@ -500,24 +499,6 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Stores rows [r0, r0 + 16) of a 16 x 64 accumulator (times mul) at
-// dst + row * ld, rows >= n skipped.
-__device__ __forceinline__ void store_rows(bf16* dst, size_t ld,
-                                           const float (&c)[8][4], int r0,
-                                           int n, float mul) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = r0 + g + 8 * half;
-    if (row >= n) continue;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(dst + row * ld + 8 * nt + 2 * t) =
-          __floats2bfloat162_rn(c[nt][2 * half] * mul,
-                                c[nt][2 * half + 1] * mul);
-  }
-}
-
 // Grid (ceil(N / 64), B * H). One block: one head's 64 query rows against
 // all N keys, streamed in 64-row tiles with an online softmax (base 2).
 __global__ void __launch_bounds__(kMmaThreads)
@@ -592,351 +573,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 }
 
 // -------------------------------------------------------------------------
-// bf16 backward, redesigned for Hopper. A prep pass reads q, O and dO once
-// and writes delta = rowsum(dO * O) and q * q_scale in bf16; the dK/dV and
-// dQ kernels then stream plain tiles by TMA and never read O. Each block is
-// kWG consumer warpgroups, one 64-row wgmma strip each (warp w of a
-// warpgroup owns rows 16w..16w+15, in the mma.sync accumulator layout
-// above), and a producer warpgroup whose first warp keeps a ring of kStages
-// stages full (wgmma_tiles.cuh's block layout).
-// -------------------------------------------------------------------------
-
-constexpr int kStages = 2;
-constexpr int kTileElems = kTileRows * kD;
-constexpr int kPrepThreads = 256;
-
-// Grid-stride over the 8-value chunks of the (B*N, A) rows: chunk c of row
-// i is q[i, 8c..8c+7] (and dO, O and k at the same columns). Eight
-// consecutive chunks are one head, so delta is an eight-lane shuffle sum.
-// ks (when not null) gets k * k_scale rounded to bf16.
-__global__ void __launch_bounds__(kPrepThreads)
-    bwd_prep_bf16(const bf16* __restrict__ qkv, const bf16* __restrict__ out,
-                  const bf16* __restrict__ dout, float* __restrict__ delta,
-                  bf16* __restrict__ qs, bf16* __restrict__ ks, int BN,
-                  int N, int H, float q_scale, float k_scale) {
-  const int A = H * kD, C = A / 8;
-  const int total = BN * C;  // < 2^31: the wrapper's B * N * 3A bound
-  const int stride = gridDim.x * blockDim.x;
-  const int lane = threadIdx.x & 31;
-  for (int i0 = blockIdx.x * blockDim.x + (threadIdx.x - lane); i0 < total;
-       i0 += stride) {  // i0 is uniform across the warp
-    const int i = i0 + lane;
-    const bool on = i < total;
-    const int row = on ? i / C : 0;
-    const int c = on ? i - row * C : 0;
-    float acc = 0.f;
-    if (on) {
-      const size_t at = (size_t)row * A + 8 * c;
-      const uint4 a = *reinterpret_cast<const uint4*>(dout + at);
-      const uint4 o = *reinterpret_cast<const uint4*>(out + at);
-      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
-      const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&o);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 fx = __bfloat1622float2(x[e]);
-        const float2 fy = __bfloat1622float2(y[e]);
-        acc = fmaf(fx.x, fy.x, acc);
-        acc = fmaf(fx.y, fy.y, acc);
-      }
-      const bf16* src = qkv + (size_t)row * 3 * A + 8 * c;
-      for (int part = 0; part < (ks ? 2 : 1); ++part) {
-        uint4 v = *reinterpret_cast<const uint4*>(src + part * A);
-        const float mul = part ? k_scale : q_scale;
-        __nv_bfloat162* z = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(z[e]);
-          z[e] = __floats2bfloat162_rn(f.x * mul, f.y * mul);
-        }
-        *reinterpret_cast<uint4*>((part ? ks : qs) + at) = v;
-      }
-    }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 4);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (on && (c & 7) == 0) {
-      const int b = row / N, n = row - b * N;
-      delta[((size_t)b * H + c / 8) * N + n] = acc;
-    }
-  }
-}
-
-// P (rounded to bf16) and dS = bf16(P * bf16(dP - delta)) of one pair of
-// accumulator values, as the packed A-fragment words of the next products.
-__device__ __forceinline__ void p_and_ds_pair(float s0, float s1, float dp0,
-                                              float dp1, float lse0,
-                                              float lse1, float d0, float d1,
-                                              uint32_t& pw, uint32_t& dsw) {
-  pw = bf16x2(exp2f(s0 - lse0), exp2f(s1 - lse1));
-  const uint32_t dd = bf16x2(dp0 - d0, dp1 - d1);
-  dsw = bf16x2(bf16_lo(pw) * bf16_lo(dd), bf16_hi(pw) * bf16_hi(dd));
-}
-
-constexpr size_t kSmemDkvBf16 =
-    1024 + (size_t)(2 * kWG + 2 * kStages) * kTileBytes +
-    kStages * 2 * kTileRows * sizeof(float) +
-    (2 * kStages + 1) * sizeof(uint64_t);
-
-// Grid (ceil(N / (64 kWG)), B * H). One block: one head's 64 kWG key/value
-// rows (K fragments in registers, V in shared memory); streams (q * scale,
-// dO) tiles and their LSE and delta, and accumulates dK and dV in registers.
-// Each
-// warpgroup forms S^T = K Q^T and dP^T = V dO^T for its kv rows, so P^T and
-// dS^T feed dV += P^T dO and dK += dS^T Q straight from the accumulators.
-__global__ void __launch_bounds__(kHopperThreads, 1)
-    bwd_dkv_bf16(const __grid_constant__ CUtensorMap tqkv,
-                 const __grid_constant__ CUtensorMap tqs,
-                 const __grid_constant__ CUtensorMap tdo,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dqkv,
-                 int N, int H, float dk_fix) {
-  extern __shared__ unsigned char wsmem[];
-  unsigned char* sm = smem_1024(wsmem);
-  bf16* sK = reinterpret_cast<bf16*>(sm);
-  bf16* sV = sK + kWG * kTileElems;
-  bf16* sQ = sV + kWG * kTileElems;
-  bf16* sdO = sQ + kStages * kTileElems;
-  float* sStat = reinterpret_cast<float*>(sdO + kStages * kTileElems);
-  uint64_t* full = reinterpret_cast<uint64_t*>(sStat + 2 * kStages * kTileRows);
-  uint64_t* empty = full + kStages;
-  uint64_t* kvbar = empty + kStages;
-  const int A = H * kD;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * kWG * kTileRows;
-  const int T = (N + kTileRows - 1) / kTileRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1 + 32);  // the TMA arrival and the stats' lanes
-      mbar_init(&empty[s], 4 * kWG);
-    }
-    mbar_init(kvbar, 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (warp >= 4 * kWG) {  // producer
-    producer_registers();
-    if (warp == 4 * kWG) {  // its lanes load the stats, lane 0 the tiles
-      if (lane == 0) {
-        mbar_expect_tx(kvbar, 2 * kWG * kTileBytes);
-        for (int w = 0; w < kWG; ++w) {
-          const int row = k0 + kTileRows * w;
-          tma_tile(sK + w * kTileElems, &tqkv, kvbar, A + h * kD, row, b);
-          tma_tile(sV + w * kTileElems, &tqkv, kvbar, 2 * A + h * kD, row,
-                   b);
-        }
-      }
-      const float* lse_bh = lse + (size_t)bh * N;
-      const float* delta_bh = delta + (size_t)bh * N;
-      for (int j = 0; j < T; ++j) {
-        const int s = j % kStages;
-        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
-        if (lane == 0) {
-          mbar_expect_tx(&full[s], 2 * kTileBytes);
-          tma_tile(sQ + s * kTileElems, &tqs, &full[s], h * kD,
-                   j * kTileRows, b);
-          tma_tile(sdO + s * kTileElems, &tdo, &full[s], h * kD,
-                   j * kTileRows, b);
-        }
-        float* st = sStat + s * 2 * kTileRows;
-        for (int r = lane; r < kTileRows; r += 32) {
-          const int row = j * kTileRows + r;  // rows >= N: P = 0, dS = 0
-          st[r] = row < N ? lse_bh[row] : INFINITY;
-          st[kTileRows + r] = row < N ? delta_bh[row] : 0.f;
-        }
-        mbar_arrive(&full[s]);
-      }
-    }
-  } else {
-    consumer_registers();
-    const int wg = warp >> 2, r0 = 16 * (warp & 3);
-    const int t = lane & 3;
-    mbar_wait(kvbar, 0);
-    uint32_t ka[4][4];  // V stays in shared memory: A of dP^T through desc
-    load_a_sw128(ka, sK + wg * kTileElems, r0, 1.f);
-    float dk[8][4] = {}, dv[8][4] = {};
-
-    for (int j = 0; j < T; ++j) {
-      const int s = j % kStages;
-      mbar_wait(&full[s], (j / kStages) & 1);
-      const bf16* q_tile = sQ + s * kTileElems;
-      const bf16* do_tile = sdO + s * kTileElems;
-      float st[8][4] = {}, dpt[8][4] = {};
-      wgmma_tile<0>(st, ka, q_tile);
-      wgmma_tile_ss<0>(dpt, sV + wg * kTileElems, do_tile);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(st);
-      fence_acc(dpt);
-      const float* sl = sStat + s * 2 * kTileRows;
-      const float* sd = sl + kTileRows;
-      uint32_t pa[4][4], da[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = 8 * nt + 2 * t;  // the q row within the tile
-        const float2 l2 = *reinterpret_cast<const float2*>(sl + col);
-        const float2 d2 = *reinterpret_cast<const float2*>(sd + col);
-#pragma unroll
-        for (int e = 0; e < 4; e += 2)
-          p_and_ds_pair(st[nt][e], st[nt][e + 1], dpt[nt][e], dpt[nt][e + 1],
-                        l2.x, l2.y, d2.x, d2.y,
-                        pa[nt >> 1][2 * (nt & 1) + (e >> 1)],
-                        da[nt >> 1][2 * (nt & 1) + (e >> 1)]);
-      }
-      wgmma_tile<1>(dv, pa, do_tile);
-      wgmma_tile<1>(dk, da, q_tile);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(dk);
-      fence_acc(dv);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
-    }
-
-    bf16* dst = dqkv + (size_t)b * N * 3 * A + h * kD;
-    const int row0 = k0 + kTileRows * wg + r0;
-    store_rows(dst + A, 3 * A, dk, row0, N, dk_fix);
-    store_rows(dst + 2 * A, 3 * A, dv, row0, N, 1.f);
-  }
-}
-
-template <bool kScaledCopy>
-constexpr size_t smem_dq_bf16() {
-  return 1024 +
-         (size_t)(2 * kWG + (kScaledCopy ? 3 : 2) * kStages) * kTileBytes +
-         (2 * kStages + 1) * sizeof(uint64_t);
-}
-
-// Grid (ceil(N / (64 kWG)), B * H). One block: one head's 64 kWG query rows
-// (q * scale and dO fragments in registers); streams (K, V) tiles and
-// accumulates dQ = dS K in registers, times acc_mul at the store. With
-// kScaledCopy the dS K product reads K * k_scale from its own copy (a
-// scale that is not a power of two); otherwise it reads the K tile of S and
-// acc_mul = k_scale, which is the same in bf16.
-template <bool kScaledCopy>
-__global__ void __launch_bounds__(kHopperThreads, 1)
-    bwd_dq_bf16(const __grid_constant__ CUtensorMap tqkv,
-                const __grid_constant__ CUtensorMap tqs,
-                const __grid_constant__ CUtensorMap tdo,
-                const __grid_constant__ CUtensorMap tks,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dqkv,
-                int N, int H, float acc_mul) {
-  constexpr int kLoads = kScaledCopy ? 3 : 2;
-  extern __shared__ unsigned char wsmem[];
-  unsigned char* sm = smem_1024(wsmem);
-  bf16* sQ = reinterpret_cast<bf16*>(sm);
-  bf16* sdO = sQ + kWG * kTileElems;
-  bf16* sKV = sdO + kWG * kTileElems;  // per stage: K, V (, K * k_scale)
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(sKV + kLoads * kStages * kTileElems);
-  uint64_t* empty = full + kStages;
-  uint64_t* qbar = empty + kStages;
-  const int A = H * kD;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kWG * kTileRows;
-  const int T = (N + kTileRows - 1) / kTileRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], 4 * kWG);
-    }
-    mbar_init(qbar, 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (warp >= 4 * kWG) {  // producer
-    producer_registers();
-    if (warp == 4 * kWG && lane == 0) {
-      mbar_expect_tx(qbar, 2 * kWG * kTileBytes);
-      for (int w = 0; w < kWG; ++w) {
-        const int row = q0 + kTileRows * w;
-        tma_tile(sQ + w * kTileElems, &tqs, qbar, h * kD, row, b);
-        tma_tile(sdO + w * kTileElems, &tdo, qbar, h * kD, row, b);
-      }
-      for (int j = 0; j < T; ++j) {
-        const int s = j % kStages;
-        bf16* stage = sKV + s * kLoads * kTileElems;
-        mbar_wait(&empty[s], ((j / kStages) & 1) ^ 1);
-        mbar_expect_tx(&full[s], kLoads * kTileBytes);
-        tma_tile(stage, &tqkv, &full[s], A + h * kD, j * kTileRows, b);
-        tma_tile(stage + kTileElems, &tqkv, &full[s], 2 * A + h * kD,
-                 j * kTileRows, b);
-        if (kScaledCopy)
-          tma_tile(stage + 2 * kTileElems, &tks, &full[s], h * kD,
-                   j * kTileRows, b);
-      }
-    }
-  } else {
-    consumer_registers();
-    const int wg = warp >> 2, r0 = 16 * (warp & 3);
-    const int g = lane >> 2, t = lane & 3;
-    const int row0 = q0 + kTileRows * wg + r0;
-    float lse_r[2], delta_r[2];  // rows >= N: P = 0, dS = 0
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = row0 + g + 8 * half;
-      lse_r[half] = row < N ? lse[(size_t)bh * N + row] : INFINITY;
-      delta_r[half] = row < N ? delta[(size_t)bh * N + row] : 0.f;
-    }
-    mbar_wait(qbar, 0);
-    uint32_t qa[4][4], da[4][4];
-    load_a_sw128(qa, sQ + wg * kTileElems, r0, 1.f);
-    load_a_sw128(da, sdO + wg * kTileElems, r0, 1.f);
-    float dq[8][4] = {};
-
-    for (int j = 0; j < T; ++j) {
-      const int s = j % kStages;
-      mbar_wait(&full[s], (j / kStages) & 1);
-      const bf16* stage = sKV + s * kLoads * kTileElems;
-      float sc[8][4] = {}, dp[8][4] = {};
-      wgmma_tile<0>(sc, qa, stage);
-      wgmma_tile<0>(dp, da, stage + kTileElems);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(sc);
-      fence_acc(dp);
-      const bool ragged = (j + 1) * kTileRows > N;
-      uint32_t sa[4][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; e += 2) {
-          const int col = j * kTileRows + 8 * nt + 2 * t;
-          // kv columns >= N: P = 0 (so dS = 0), whatever their score
-          const float l0 = ragged && col >= N ? INFINITY : lse_r[e >> 1];
-          const float l1 = ragged && col + 1 >= N ? INFINITY : lse_r[e >> 1];
-          uint32_t pw;
-          p_and_ds_pair(sc[nt][e], sc[nt][e + 1], dp[nt][e], dp[nt][e + 1], l0,
-                        l1, delta_r[e >> 1], delta_r[e >> 1], pw,
-                        sa[nt >> 1][2 * (nt & 1) + (e >> 1)]);
-        }
-      wgmma_tile<1>(dq, sa, stage + (kScaledCopy ? 2 : 0) * kTileElems);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(dq);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s]);
-    }
-
-    store_rows(dqkv + (size_t)b * N * 3 * A + h * kD, 3 * A, dq, row0, N,
-               acc_mul);
-  }
-}
-
-// -------------------------------------------------------------------------
 // Launchers
 // -------------------------------------------------------------------------
-
-int max_smem(const void* kernel, size_t smem) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
 
 constexpr size_t kSmemFwdF32 = 4 * kTile * sizeof(float);
 constexpr size_t kSmemBwdF32 = (6 * kTile + 2 * kRows) * sizeof(float);
@@ -945,26 +583,20 @@ dim3 grid_for(int B, int N, int H) {
   return dim3((N + kRows - 1) / kRows, B * H);
 }
 
-constexpr int kBadArgument = -1;
-
 bool bad(int B, int N, int H, int D) {
   return D != kD || B < 1 || N < 1 || H < 1 || B * H > 65535;
 }
 
-template <bool kScaledCopy>
-int launch_dq_bf16(const CUtensorMap& tqkv, const CUtensorMap& tqs,
-                   const CUtensorMap& tdo, const CUtensorMap& tks,
-                   const void* lse, const void* delta, void* dqkv, int B,
-                   int N, int H, float acc_mul, cudaStream_t st) {
-  constexpr size_t smem = smem_dq_bf16<kScaledCopy>();
-  auto kernel = bwd_dq_bf16<kScaledCopy>;
-  if (int e = max_smem((const void*)kernel, smem)) return e;
-  kernel<<<dim3((N + kWG * kTileRows - 1) / (kWG * kTileRows), B * H),
-           kHopperThreads, smem, st>>>(
-      tqkv, tqs, tdo, tks, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dqkv), N, H,
-      acc_mul);
-  return 0;
+// The tensor maps of the bf16 backward (wgmma_attn_bwd.cuh, base 2 on the
+// fused layout): one map over (B, N, 3A) serves k (column offset A) and v
+// (2A); q * q_scale and dO are (B, N, A).
+int fused_maps(CUtensorMap* tqkv, CUtensorMap* tqs, CUtensorMap* tdo,
+               const void* qkv, const void* qs, const void* dout, int B,
+               int N, int A) {
+  if (int e = tile_map(tqkv, qkv, 3 * A, N, B, 3 * A, (long)N * 3 * A))
+    return e;
+  if (int e = tile_map(tqs, qs, A, N, B, A, (long)N * A)) return e;
+  return tile_map(tdo, dout, A, N, B, A, (long)N * A);
 }
 
 }  // namespace
@@ -1001,18 +633,13 @@ extern "C" int qkv_attn_bwd_prep(const void* qkv, const void* out,
                                  const void* dout, void* delta, void* qs,
                                  void* ks, int B, int N, int H, int D,
                                  float q_scale, float k_scale, void* stream) {
-  if (bad(B, N, H, D) || (long)B * N * 3 * H * kD >= (1l << 31))
-    return kBadArgument;
-  const long chunks = (long)B * N * H * (kD / 8);
-  const int blocks = (int)std::min<long>(
-      (chunks + kPrepThreads - 1) / kPrepThreads, 132 * 16);
-  bwd_prep_bf16<<<blocks, kPrepThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(qkv),
-      static_cast<const __nv_bfloat16*>(out),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<float*>(delta),
-      static_cast<__nv_bfloat16*>(qs), static_cast<__nv_bfloat16*>(ks),
-      B * N, N, H, q_scale, k_scale);
+  if (bad(B, N, H, D)) return kBadArgument;
+  const int A = H * kD;
+  if (int e = launch_bwd_prep(
+          qkv, static_cast<const __nv_bfloat16*>(qkv) + A, 3 * A, out, dout,
+          delta, qs, ks, B, N, H, q_scale, k_scale,
+          static_cast<cudaStream_t>(stream)))
+    return e;
   return (int)cudaGetLastError();
 }
 
@@ -1029,17 +656,13 @@ extern "C" int qkv_attn_bwd_dkv(const void* qkv, const void* out,
     if (!delta || !qs) return kBadArgument;
     const int A = H * kD;
     CUtensorMap tqkv, tqs, tdo;
-    if (int e = tile_map(&tqkv, qkv, 3 * A, N, B, 3 * A, (long)N * 3 * A))
+    if (int e = fused_maps(&tqkv, &tqs, &tdo, qkv, qs, dout, B, N, A))
       return e;
-    if (int e = tile_map(&tqs, qs, A, N, B, A, (long)N * A)) return e;
-    if (int e = tile_map(&tdo, dout, A, N, B, A, (long)N * A)) return e;
-    if (int e = max_smem((const void*)bwd_dkv_bf16, kSmemDkvBf16)) return e;
-    bwd_dkv_bf16<<<dim3((N + kWG * kTileRows - 1) / (kWG * kTileRows),
-                        B * H),
-                   kHopperThreads, kSmemDkvBf16, st>>>(
-        tqkv, tqs, tdo, static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dqkv),
-        N, H, dk_fix);
+    auto dk = static_cast<__nv_bfloat16*>(dqkv) + A;
+    if (int e = launch_bwd_dkv<false>(tqkv, tqkv, tqs, tdo, A, 2 * A, lse,
+                                      delta, dk, dk + A, 3 * A, B, N, H,
+                                      dk_fix, st))
+      return e;
   } else {
     // f32 works in base e: dK needs no 1/log2(e) fix
     if (int e = max_smem((const void*)bwd_dkv_f32, kSmemBwdF32)) return e;
@@ -1062,22 +685,18 @@ extern "C" int qkv_attn_bwd_dq(const void* qkv, const void* out,
   if (bad(B, N, H, D)) return kBadArgument;
   auto st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    int exponent;
-    const bool power_of_two = frexpf(k_scale, &exponent) == 0.5f;
-    if (!delta || !qs || (!ks && !power_of_two)) return kBadArgument;
+    if (!delta || !qs) return kBadArgument;
     const int A = H * kD;
     CUtensorMap tqkv, tqs, tdo, tks;
-    if (int e = tile_map(&tqkv, qkv, 3 * A, N, B, 3 * A, (long)N * 3 * A))
+    if (int e = fused_maps(&tqkv, &tqs, &tdo, qkv, qs, dout, B, N, A))
       return e;
-    if (int e = tile_map(&tqs, qs, A, N, B, A, (long)N * A)) return e;
-    if (int e = tile_map(&tdo, dout, A, N, B, A, (long)N * A)) return e;
-    if (int e = tile_map(&tks, ks ? ks : qs, A, N, B, A, (long)N * A))
+    if (ks)
+      if (int e = tile_map(&tks, ks, A, N, B, A, (long)N * A)) return e;
+    if (int e = launch_bwd_dq<false>(tqkv, tqkv, tqs, tdo,
+                                     ks ? &tks : nullptr, A, 2 * A, lse,
+                                     delta, dqkv, 3 * A, B, N, H, k_scale,
+                                     st))
       return e;
-    const int e = ks ? launch_dq_bf16<true>(tqkv, tqs, tdo, tks, lse, delta,
-                                            dqkv, B, N, H, 1.f, st)
-                     : launch_dq_bf16<false>(tqkv, tqs, tdo, tks, lse, delta,
-                                             dqkv, B, N, H, k_scale, st);
-    if (e) return e;
   } else {
     if (int e = max_smem((const void*)bwd_dq_f32, kSmemBwdF32)) return e;
     bwd_dq_f32<<<grid_for(B, N, H), kThreads, kSmemBwdF32, st>>>(

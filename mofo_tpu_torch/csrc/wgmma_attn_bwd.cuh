@@ -1,0 +1,477 @@
+// The bf16 attention backward for Hopper that qkv_flash_attention.cu (K2,
+// fused-qkv layout, base 2) and hm_flash_attention.cu (K4, head-major layout,
+// base e) share: a prep pass and the dK/dV and dQ kernels, built from
+// wgmma_tiles.cuh. The layout and the softmax base are the parameters.
+//
+// Layout. Every operand is reached through a 3D tensor map (columns, rows,
+// planes) of 64 x 64 boxes, and block (x, y) works on plane b = y / H at
+// columns h * 64 + a per-operand offset, h = y % H:
+//   - fused qkv (B, N, 3A): one map serves q, k and v, H heads a plane, k at
+//     column offset A, v at 2A; outputs go to columns of one dqkv, row stride
+//     3A;
+//   - head-major (BH, N, 64): H = 1, every offset 0, each operand its own
+//     map; outputs are (BH, N, 64), row stride 64.
+// Rows past N arrive as zeros (the maps' planes are N rows), and P = 0 for
+// kv columns >= N and q rows >= N in-kernel. lse and delta are (planes * H,
+// N) f32.
+//
+// Base. With kBaseE the LSE is a natural log and the scores carry the plain
+// scale: P = exp2(s * log2 e - lse * log2 e), the LSE scaled once where it
+// is staged. Otherwise the scores carry scale * log2 e and the LSE is in
+// log2 units: P = exp2(s - lse), and the caller's dk_fix = 1 / log2 e
+// rescales dK.
+//
+// Design. The prep pass reads q, O and dO once and writes delta =
+// rowsum(dO * O) (f32) and q * q_scale in bf16, and k * k_scale when that
+// scale is not a power of two; the two kernels then stream plain tiles and
+// never read O. Each is two consumer warpgroups (64 rows of
+// wgmma.mma_async m64n64k16 each, 232 registers) and a producer warpgroup
+// (40 registers) whose first warp keeps a ring of kBwdStages stages full by
+// TMA; in dK/dV its lanes also copy the 64 LSE and delta values of each q
+// tile into the stage. The split into dK/dV over kv tiles and dQ over q
+// tiles keeps one writer per output: no atomics, deterministic sums.
+//
+// Numerics: P is rounded to bf16; dS = bf16(P) * bf16(dP - delta), the
+// subtraction in f32, rounded to bf16. dQ = dS (K * k_scale): with a
+// power-of-two k_scale the f32 accumulator of dS K is scaled at the store,
+// which is the same number bit for bit.
+
+#pragma once
+
+#include <math.h>
+
+#include <algorithm>
+
+#include "wgmma_tiles.cuh"
+
+namespace {
+
+constexpr int kBwdStages = 2;
+constexpr int kPrepThreads = 256;
+
+// Grid-stride over the 8-value chunks of BN rows of A = 64 H columns: chunk
+// c of row i is q[i, 8c..8c+7] (row stride ld; k the same) and the same
+// columns of dO, O, qs and ks (row stride A). Eight consecutive chunks are
+// one head, so delta is an eight-lane shuffle sum, written at
+// ((i / N) * H + c / 8) * N + i % N. ks (when not null) gets k * k_scale
+// rounded to bf16.
+__global__ void __launch_bounds__(kPrepThreads)
+    bwd_prep_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  int ld, const bf16* __restrict__ out,
+                  const bf16* __restrict__ dout, float* __restrict__ delta,
+                  bf16* __restrict__ qs, bf16* __restrict__ ks, int BN, int N,
+                  int H, float q_scale, float k_scale) {
+  const int A = H * 64, C = A / 8;
+  const int total = BN * C;  // < 2^31: launch_bwd_prep's bound
+  const int stride = gridDim.x * blockDim.x;
+  const int lane = threadIdx.x & 31;
+  for (int i0 = blockIdx.x * blockDim.x + (threadIdx.x - lane); i0 < total;
+       i0 += stride) {  // i0 is uniform across the warp
+    const int i = i0 + lane;
+    const bool on = i < total;
+    const int row = on ? i / C : 0;
+    const int c = on ? i - row * C : 0;
+    float acc = 0.f;
+    if (on) {
+      const size_t at = (size_t)row * A + 8 * c;
+      const uint4 a = *reinterpret_cast<const uint4*>(dout + at);
+      const uint4 o = *reinterpret_cast<const uint4*>(out + at);
+      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&o);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 fx = __bfloat1622float2(x[e]);
+        const float2 fy = __bfloat1622float2(y[e]);
+        acc = fmaf(fx.x, fy.x, acc);
+        acc = fmaf(fx.y, fy.y, acc);
+      }
+      const size_t from = (size_t)row * ld + 8 * c;
+      for (int part = 0; part < (ks ? 2 : 1); ++part) {
+        uint4 v = *reinterpret_cast<const uint4*>((part ? k : q) + from);
+        const float mul = part ? k_scale : q_scale;
+        __nv_bfloat162* z = reinterpret_cast<__nv_bfloat162*>(&v);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(z[e]);
+          z[e] = __floats2bfloat162_rn(f.x * mul, f.y * mul);
+        }
+        *reinterpret_cast<uint4*>((part ? ks : qs) + at) = v;
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (on && (c & 7) == 0) {
+      const int b = row / N, n = row - b * N;
+      delta[((size_t)b * H + c / 8) * N + n] = acc;
+    }
+  }
+}
+
+// The LSE as the kernels subtract it from a score (see "Base" above).
+template <bool kBaseE>
+__device__ __forceinline__ float staged_lse(float lse) {
+  return kBaseE ? lse * kLog2e : lse;
+}
+
+// P (rounded to bf16) and dS = bf16(P * bf16(dP - delta)) of one pair of
+// accumulator values, as the packed A-fragment words of the next products.
+// lse0 and lse1 are staged_lse values; +inf gives P = 0.
+template <bool kBaseE>
+__device__ __forceinline__ void p_and_ds_pair(float s0, float s1, float dp0,
+                                              float dp1, float lse0,
+                                              float lse1, float d0, float d1,
+                                              uint32_t& pw, uint32_t& dsw) {
+  pw = kBaseE ? bf16x2(exp2f(fmaf(s0, kLog2e, -lse0)),
+                       exp2f(fmaf(s1, kLog2e, -lse1)))
+              : bf16x2(exp2f(s0 - lse0), exp2f(s1 - lse1));
+  const uint32_t dd = bf16x2(dp0 - d0, dp1 - d1);
+  dsw = bf16x2(bf16_lo(pw) * bf16_lo(dd), bf16_hi(pw) * bf16_hi(dd));
+}
+
+constexpr size_t kSmemDkvBf16 =
+    1024 + (size_t)(2 * kWG + 2 * kBwdStages) * kTileBytes +
+    kBwdStages * 2 * kTileRows * sizeof(float) +
+    (2 * kBwdStages + 1) * sizeof(uint64_t);
+
+// Grid (ceil(N / (64 kWG)), planes * H). One block: one head's 64 kWG
+// key/value rows (K fragments in registers, V in shared memory); streams
+// (q * scale, dO) tiles and their LSE and delta, and accumulates dK and dV
+// in registers. Each warpgroup forms S^T = K Q^T and dP^T = V dO^T for its
+// kv rows, so P^T and dS^T feed dV += P^T dO and dK += dS^T Q straight from
+// the accumulators. dk and dv point at head 0's column of plane 0, row
+// stride ld_out.
+template <bool kBaseE>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    bwd_dkv_bf16(const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tqs,
+                 const __grid_constant__ CUtensorMap tdo, int col_k,
+                 int col_v, const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, int ld_out, int N, int H,
+                 float dk_fix) {
+  extern __shared__ unsigned char wsmem[];
+  unsigned char* sm = smem_1024(wsmem);
+  bf16* sK = reinterpret_cast<bf16*>(sm);
+  bf16* sV = sK + kWG * kTileElems;
+  bf16* sQ = sV + kWG * kTileElems;
+  bf16* sdO = sQ + kBwdStages * kTileElems;
+  float* sStat = reinterpret_cast<float*>(sdO + kBwdStages * kTileElems);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(sStat + 2 * kBwdStages * kTileRows);
+  uint64_t* empty = full + kBwdStages;
+  uint64_t* kvbar = empty + kBwdStages;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * kWG * kTileRows;
+  const int T = (N + kTileRows - 1) / kTileRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA arrival and the stats' lanes
+      mbar_init(&empty[s], 4 * kWG);
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kWG) {  // producer
+    producer_registers();
+    if (warp == 4 * kWG) {  // its lanes load the stats, lane 0 the tiles
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, 2 * kWG * kTileBytes);
+        for (int w = 0; w < kWG; ++w) {
+          const int row = k0 + kTileRows * w;
+          tma_tile(sK + w * kTileElems, &tk, kvbar, col_k + h * 64, row, b);
+          tma_tile(sV + w * kTileElems, &tv, kvbar, col_v + h * 64, row, b);
+        }
+      }
+      const float* lse_bh = lse + (size_t)bh * N;
+      const float* delta_bh = delta + (size_t)bh * N;
+      for (int j = 0; j < T; ++j) {
+        const int s = j % kBwdStages;
+        mbar_wait(&empty[s], ((j / kBwdStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], 2 * kTileBytes);
+          tma_tile(sQ + s * kTileElems, &tqs, &full[s], h * 64,
+                   j * kTileRows, b);
+          tma_tile(sdO + s * kTileElems, &tdo, &full[s], h * 64,
+                   j * kTileRows, b);
+        }
+        float* st = sStat + s * 2 * kTileRows;
+        for (int r = lane; r < kTileRows; r += 32) {
+          const int row = j * kTileRows + r;  // rows >= N: P = 0, dS = 0
+          st[r] = row < N ? staged_lse<kBaseE>(lse_bh[row]) : INFINITY;
+          st[kTileRows + r] = row < N ? delta_bh[row] : 0.f;
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    consumer_registers();
+    const int wg = warp >> 2, r0 = 16 * (warp & 3);
+    const int t = lane & 3;
+    mbar_wait(kvbar, 0);
+    uint32_t ka[4][4];  // V stays in shared memory: A of dP^T through desc
+    load_a_sw128(ka, sK + wg * kTileElems, r0, 1.f);
+    float dka[8][4] = {}, dva[8][4] = {};
+
+    for (int j = 0; j < T; ++j) {
+      const int s = j % kBwdStages;
+      mbar_wait(&full[s], (j / kBwdStages) & 1);
+      const bf16* q_tile = sQ + s * kTileElems;
+      const bf16* do_tile = sdO + s * kTileElems;
+      float st[8][4] = {}, dpt[8][4] = {};
+      wgmma_tile<0>(st, ka, q_tile);
+      wgmma_tile_ss<0>(dpt, sV + wg * kTileElems, do_tile);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(st);
+      fence_acc(dpt);
+      const float* sl = sStat + s * 2 * kTileRows;
+      const float* sd = sl + kTileRows;
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int col = 8 * nt + 2 * t;  // the q row within the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(sl + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(sd + col);
+#pragma unroll
+        for (int e = 0; e < 4; e += 2)
+          p_and_ds_pair<kBaseE>(st[nt][e], st[nt][e + 1], dpt[nt][e],
+                                dpt[nt][e + 1], l2.x, l2.y, d2.x, d2.y,
+                                pa[nt >> 1][2 * (nt & 1) + (e >> 1)],
+                                da[nt >> 1][2 * (nt & 1) + (e >> 1)]);
+      }
+      wgmma_tile<1>(dva, pa, do_tile);
+      wgmma_tile<1>(dka, da, q_tile);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dka);
+      fence_acc(dva);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    const size_t off = (size_t)b * N * ld_out + h * 64;
+    const int row0 = k0 + kTileRows * wg + r0;
+    store_acc(dk + off, ld_out, dka, row0, N, dk_fix);
+    store_acc(dv + off, ld_out, dva, row0, N, 1.f);
+  }
+}
+
+template <bool kScaledCopy>
+constexpr size_t smem_dq_bf16() {
+  return 1024 +
+         (size_t)(2 * kWG + (kScaledCopy ? 3 : 2) * kBwdStages) * kTileBytes +
+         (2 * kBwdStages + 1) * sizeof(uint64_t);
+}
+
+// Grid (ceil(N / (64 kWG)), planes * H). One block: one head's 64 kWG query
+// rows (q * scale and dO fragments in registers); streams (K, V) tiles and
+// accumulates dQ = dS K in registers, times acc_mul at the store. With
+// kScaledCopy the dS K product reads K * k_scale from its own copy (a
+// scale that is not a power of two); otherwise it reads the K tile of S and
+// acc_mul = k_scale, which is the same in bf16. dq points at head 0's
+// column of plane 0, row stride ld_out.
+template <bool kBaseE, bool kScaledCopy>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    bwd_dq_bf16(const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                const __grid_constant__ CUtensorMap tqs,
+                const __grid_constant__ CUtensorMap tdo,
+                const __grid_constant__ CUtensorMap tks, int col_k,
+                int col_v, const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dq,
+                int ld_out, int N, int H, float acc_mul) {
+  constexpr int kLoads = kScaledCopy ? 3 : 2;
+  extern __shared__ unsigned char wsmem[];
+  unsigned char* sm = smem_1024(wsmem);
+  bf16* sQ = reinterpret_cast<bf16*>(sm);
+  bf16* sdO = sQ + kWG * kTileElems;
+  bf16* sKV = sdO + kWG * kTileElems;  // per stage: K, V (, K * k_scale)
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(sKV + kLoads * kBwdStages * kTileElems);
+  uint64_t* empty = full + kBwdStages;
+  uint64_t* qbar = empty + kBwdStages;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kWG * kTileRows;
+  const int T = (N + kTileRows - 1) / kTileRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kWG);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kWG) {  // producer
+    producer_registers();
+    if (warp == 4 * kWG && lane == 0) {
+      mbar_expect_tx(qbar, 2 * kWG * kTileBytes);
+      for (int w = 0; w < kWG; ++w) {
+        const int row = q0 + kTileRows * w;
+        tma_tile(sQ + w * kTileElems, &tqs, qbar, h * 64, row, b);
+        tma_tile(sdO + w * kTileElems, &tdo, qbar, h * 64, row, b);
+      }
+      for (int j = 0; j < T; ++j) {
+        const int s = j % kBwdStages;
+        bf16* stage = sKV + s * kLoads * kTileElems;
+        mbar_wait(&empty[s], ((j / kBwdStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], kLoads * kTileBytes);
+        tma_tile(stage, &tk, &full[s], col_k + h * 64, j * kTileRows, b);
+        tma_tile(stage + kTileElems, &tv, &full[s], col_v + h * 64,
+                 j * kTileRows, b);
+        if (kScaledCopy)
+          tma_tile(stage + 2 * kTileElems, &tks, &full[s], h * 64,
+                   j * kTileRows, b);
+      }
+    }
+  } else {
+    consumer_registers();
+    const int wg = warp >> 2, r0 = 16 * (warp & 3);
+    const int g = lane >> 2, t = lane & 3;
+    const int row0 = q0 + kTileRows * wg + r0;
+    float lse_r[2], delta_r[2];  // rows >= N: P = 0, dS = 0
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + g + 8 * half;
+      lse_r[half] = row < N ? staged_lse<kBaseE>(lse[(size_t)bh * N + row])
+                            : INFINITY;
+      delta_r[half] = row < N ? delta[(size_t)bh * N + row] : 0.f;
+    }
+    mbar_wait(qbar, 0);
+    uint32_t qa[4][4], da[4][4];
+    load_a_sw128(qa, sQ + wg * kTileElems, r0, 1.f);
+    load_a_sw128(da, sdO + wg * kTileElems, r0, 1.f);
+    float acc[8][4] = {};
+
+    for (int j = 0; j < T; ++j) {
+      const int s = j % kBwdStages;
+      mbar_wait(&full[s], (j / kBwdStages) & 1);
+      const bf16* stage = sKV + s * kLoads * kTileElems;
+      float sc[8][4] = {}, dp[8][4] = {};
+      wgmma_tile<0>(sc, qa, stage);
+      wgmma_tile<0>(dp, da, stage + kTileElems);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      fence_acc(dp);
+      const bool ragged = (j + 1) * kTileRows > N;
+      uint32_t sa[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int col = j * kTileRows + 8 * nt + 2 * t;
+          // kv columns >= N: P = 0 (so dS = 0), whatever their score
+          const float l0 = ragged && col >= N ? INFINITY : lse_r[e >> 1];
+          const float l1 = ragged && col + 1 >= N ? INFINITY : lse_r[e >> 1];
+          uint32_t pw;
+          p_and_ds_pair<kBaseE>(sc[nt][e], sc[nt][e + 1], dp[nt][e],
+                                dp[nt][e + 1], l0, l1, delta_r[e >> 1],
+                                delta_r[e >> 1], pw,
+                                sa[nt >> 1][2 * (nt & 1) + (e >> 1)]);
+        }
+      wgmma_tile<1>(acc, sa, stage + (kScaledCopy ? 2 : 0) * kTileElems);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    store_acc(dq + (size_t)b * N * ld_out + h * 64, ld_out, acc, row0, N,
+              acc_mul);
+  }
+}
+
+// -------------------------------------------------------------------------
+// Launchers. B planes of N rows, H heads of 64 columns a plane; each returns
+// 0, kBadArgument or a cudaError_t from the launch set-up (the caller reads
+// cudaGetLastError after).
+// -------------------------------------------------------------------------
+
+dim3 hopper_grid(int B, int N, int H) {
+  return dim3((N + kWG * kTileRows - 1) / (kWG * kTileRows), B * H);
+}
+
+bool power_of_two(float x) {
+  int exponent;
+  return frexpf(x, &exponent) == 0.5f;
+}
+
+// q and k (row stride ld), out and dout (row stride 64 H) -> delta, qs and,
+// unless ks is null, ks.
+int launch_bwd_prep(const void* q, const void* k, int ld, const void* out,
+                    const void* dout, void* delta, void* qs, void* ks, int B,
+                    int N, int H, float q_scale, float k_scale,
+                    cudaStream_t st) {
+  if ((long)B * N * ld >= (1l << 31)) return kBadArgument;
+  const long chunks = (long)B * N * H * 8;
+  const int blocks = (int)std::min<long>(
+      (chunks + kPrepThreads - 1) / kPrepThreads, 132 * 16);
+  bwd_prep_bf16<<<blocks, kPrepThreads, 0, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), ld,
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
+      static_cast<float*>(delta), static_cast<bf16*>(qs),
+      static_cast<bf16*>(ks), B * N, N, H, q_scale, k_scale);
+  return 0;
+}
+
+template <bool kBaseE>
+int launch_bwd_dkv(const CUtensorMap& tk, const CUtensorMap& tv,
+                   const CUtensorMap& tqs, const CUtensorMap& tdo, int col_k,
+                   int col_v, const void* lse, const void* delta, void* dk,
+                   void* dv, int ld_out, int B, int N, int H, float dk_fix,
+                   cudaStream_t st) {
+  auto kernel = bwd_dkv_bf16<kBaseE>;
+  if (int e = max_smem((const void*)kernel, kSmemDkvBf16)) return e;
+  kernel<<<hopper_grid(B, N, H), kHopperThreads, kSmemDkvBf16, st>>>(
+      tk, tv, tqs, tdo, col_k, col_v, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), ld_out, N, H, dk_fix);
+  return 0;
+}
+
+template <bool kBaseE, bool kScaledCopy>
+int launch_bwd_dq_as(const CUtensorMap& tk, const CUtensorMap& tv,
+                     const CUtensorMap& tqs, const CUtensorMap& tdo,
+                     const CUtensorMap& tks, int col_k, int col_v,
+                     const void* lse, const void* delta, void* dq,
+                     int ld_out, int B, int N, int H, float acc_mul,
+                     cudaStream_t st) {
+  constexpr size_t smem = smem_dq_bf16<kScaledCopy>();
+  auto kernel = bwd_dq_bf16<kBaseE, kScaledCopy>;
+  if (int e = max_smem((const void*)kernel, smem)) return e;
+  kernel<<<hopper_grid(B, N, H), kHopperThreads, smem, st>>>(
+      tk, tv, tqs, tdo, tks, col_k, col_v, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), ld_out, N,
+      H, acc_mul);
+  return 0;
+}
+
+// tks is null when k_scale is a power of two (the accumulator is scaled);
+// otherwise it maps the prep pass's k * k_scale.
+template <bool kBaseE>
+int launch_bwd_dq(const CUtensorMap& tk, const CUtensorMap& tv,
+                  const CUtensorMap& tqs, const CUtensorMap& tdo,
+                  const CUtensorMap* tks, int col_k, int col_v,
+                  const void* lse, const void* delta, void* dq, int ld_out,
+                  int B, int N, int H, float k_scale, cudaStream_t st) {
+  if (!tks && !power_of_two(k_scale)) return kBadArgument;
+  return tks ? launch_bwd_dq_as<kBaseE, true>(tk, tv, tqs, tdo, *tks, col_k,
+                                              col_v, lse, delta, dq, ld_out,
+                                              B, N, H, 1.f, st)
+             : launch_bwd_dq_as<kBaseE, false>(tk, tv, tqs, tdo, tqs, col_k,
+                                               col_v, lse, delta, dq, ld_out,
+                                               B, N, H, k_scale, st);
+}
+
+}  // namespace

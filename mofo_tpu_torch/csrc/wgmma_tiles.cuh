@@ -1,10 +1,11 @@
 // Hopper building blocks of the redesigned bf16 attention kernels
-// (hm_flash_attention.cu's K4 forward, qkv_flash_attention.cu's K2
-// backward): TMA tile loads into a ring of shared-memory stages with
-// mbarrier completion, warpgroup products (wgmma.mma_async m64n64k16, A from
-// registers, B from 128-byte-swizzled shared memory) and the host-side tensor
-// maps. Everything is in an anonymous namespace: each source that includes it
-// gets its own copy.
+// (hm_flash_attention.cu's K4 forward, mh_flash_attention.cu's K3 forward and,
+// through wgmma_attn_bwd.cuh, the K2 and K4 backwards): TMA tile loads into a
+// ring of shared-memory stages with mbarrier completion, warpgroup products
+// (wgmma.mma_async m64n64k16, A from registers or shared memory, B from
+// 128-byte-swizzled shared memory), the host-side tensor maps and the launch
+// helpers every source shares. Everything is in an anonymous namespace: each
+// source that includes it gets its own copy.
 //
 // Tiles are 64 rows x 64 bf16 columns (128 bytes a row), written by TMA with
 // CU_TENSOR_MAP_SWIZZLE_128B: 16-byte chunk c of row r lies at chunk
@@ -23,9 +24,13 @@
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kTileRows = 64;                // rows of every TMA tile
 constexpr int kTileBytes = kTileRows * 128;  // 64 x 64 bf16
+constexpr int kTileElems = kTileRows * 64;
 constexpr int kWarpgroup = 128;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // Block layout: kWG consumer warpgroups (one 64-row wgmma strip each) and
 // one producer warpgroup, whose first warp issues the loads. ptxas gives a
@@ -94,6 +99,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   }
+}
+
+// Makes this thread's writes to shared memory visible to the async proxy
+// (wgmma and TMA read shared memory through it); a barrier among the
+// writers and the readers follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads') among the 128 threads of one
+// warpgroup.
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
 // --- TMA -------------------------------------------------------------------
@@ -274,7 +292,32 @@ __device__ __forceinline__ void load_a_sw128(uint32_t (&a)[4][4],
     }
 }
 
-// --- host: tensor maps -----------------------------------------------------
+// Stores rows [r0, r0 + 16) of a warp's 16 x 64 accumulator (times mul) as
+// bf16 at dst + row * ld, rows >= n skipped.
+__device__ __forceinline__ void store_acc(bf16* dst, size_t ld,
+                                          const float (&c)[8][4], int r0,
+                                          int n, float mul) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + g + 8 * half;
+    if (row >= n) continue;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      *reinterpret_cast<__nv_bfloat162*>(dst + row * ld + 8 * nt + 2 * t) =
+          __floats2bfloat162_rn(c[nt][2 * half] * mul,
+                                c[nt][2 * half + 1] * mul);
+  }
+}
+
+// --- host: launch helpers and tensor maps ----------------------------------
+
+constexpr int kBadArgument = -1;  // arguments the kernels do not take
+
+int max_smem(const void* kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
 
 constexpr int kNoTensorMapEntry = -2;  // libcuda has no TMA encoder
 constexpr int kBadTensorMap = -3;      // the encoder refused the layout

@@ -25,7 +25,7 @@ BUILD_DIR = PACKAGE / "build"
 SOURCES = ("qkv_flash_attention.cu", "mh_flash_attention.cu",
            "hm_flash_attention.cu")
 # included by the sources, part of the key
-HEADERS = ("flash_tiles.cuh", "wgmma_tiles.cuh")
+HEADERS = ("flash_tiles.cuh", "wgmma_tiles.cuh", "wgmma_attn_bwd.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -44,8 +44,9 @@ SIGNATURES = {
     "mh_attn_bwd_dkv": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P],
     "mh_attn_bwd_dq": [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P],
     "hm_attn_fwd": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
-    "hm_attn_bwd_dkv": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
-    "hm_attn_bwd_dq": [_P] * 7 + [_I] * 3 + [_F, _F, _I, _P],
+    "hm_attn_bwd_prep": [_P] * 7 + [_I] * 3 + [_F, _F, _P],
+    "hm_attn_bwd_dkv": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+    "hm_attn_bwd_dq": [_P] * 9 + [_I] * 3 + [_F, _F, _I, _P],
 }
 
 

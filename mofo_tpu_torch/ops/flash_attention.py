@@ -33,7 +33,8 @@ q, k, v and runs K4 (_fwd_impl / _fwd_kernel, _bwd_impl / _dq_kernel and
 _dkv_kernel), here csrc/hm_flash_attention.cu on the (B*H, N, D) view, for
 D = 64. Its numerics differ from K1/K3's in two ways: it works in base e in
 every dtype, and it rounds the normalized p / l (not the un-normalized P)
-to the input dtype before P.V.
+to the input dtype before P.V. Its bf16 backward runs a prep pass
+(hm_attn_bwd_prep: delta and q * scale) before its two kernels, as K2's.
 """
 
 from __future__ import annotations
@@ -54,7 +55,10 @@ QKV_KERNELS = ("qkv_attn_fwd", "qkv_attn_bwd_prep", "qkv_attn_bwd_dkv",
                "qkv_attn_bwd_dq")
 QKV_F32_KERNELS = ("qkv_attn_fwd", "qkv_attn_bwd_dkv", "qkv_attn_bwd_dq")
 MH_KERNELS = ("mh_attn_fwd", "mh_attn_bwd_dkv", "mh_attn_bwd_dq")
-HM_KERNELS = ("hm_attn_fwd", "hm_attn_bwd_dkv", "hm_attn_bwd_dq")
+# as K2: hm_attn_bwd_prep runs in bf16 only (HM_F32_KERNELS without it)
+HM_KERNELS = ("hm_attn_fwd", "hm_attn_bwd_prep", "hm_attn_bwd_dkv",
+              "hm_attn_bwd_dq")
+HM_F32_KERNELS = ("hm_attn_fwd", "hm_attn_bwd_dkv", "hm_attn_bwd_dq")
 KERNELS = QKV_KERNELS + MH_KERNELS + HM_KERNELS
 # launches of each CUDA kernel by its wrapper since the last reset
 launch_counts = dict.fromkeys(KERNELS, 0)
@@ -619,9 +623,9 @@ def attention_hm_fwd_plain(q, k, v, scale: float):
 
 
 def hm_delta(out, dout) -> torch.Tensor:
-    """delta = rowsum(dO * O), (..., N) f32: one reduction before the
-    backward kernels, as the TPU computes it in XLA
-    (mofo_tpu/ops/flash_attention.py:313-315)."""
+    """delta = rowsum(dO * O), (..., N) f32, as the TPU computes it in XLA
+    (mofo_tpu/ops/flash_attention.py:313-315): the plain version of the
+    prep pass's delta, and the f32 backward's one reduction."""
     return (dout.float() * out.float()).sum(dim=-1).contiguous()
 
 
@@ -640,6 +644,37 @@ def attention_hm_bwd_plain(q, k, v, out, lse, dout, scale: float):
     ds = (p16 * (dp - delta).to(dt)).float()  # in f32 this is p*(dp-delta)
     dk = torch.matmul(ds.transpose(-1, -2), qs.float())
     dq = torch.matmul(ds, ks.float())
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def attention_hm_bwd_prep_plain(q, k, out, dout, scale: float):
+    """Plain PyTorch version of hm_attn_bwd_prep on (..., N, D): (delta
+    (..., N) f32, q * scale in the input dtype, and k * scale the same way,
+    or None when the rounded scale is a power of two)."""
+    dt = q.dtype
+    sc = _rounded(scale, dt)
+    mul = torch.tensor(sc, dtype=dt, device=q.device)
+    return (hm_delta(out, dout), q * mul,
+            None if _power_of_two(sc) else k * mul)
+
+
+def attention_hm_bwd_from_prep_plain(k, v, lse, dout, delta, qs, ks,
+                                     scale: float):
+    """Plain PyTorch version of hm_attn_bwd_dkv and hm_attn_bwd_dq after
+    the prep pass: (dq, dk, dv) from its delta, q * scale and k * scale
+    (None: dQ's product takes k and is scaled after)."""
+    dt = k.dtype
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    p16 = torch.exp(s - lse[..., None]).to(dt)
+    do = dout.float()
+    dp = torch.matmul(do, v.float().transpose(-1, -2))
+    dv = torch.matmul(p16.float().transpose(-1, -2), do)
+    ds = (p16 * (dp - delta[..., None]).to(dt)).float()
+    dk = torch.matmul(ds.transpose(-1, -2), qs.float())
+    if ks is None:
+        dq = torch.matmul(ds, k.float()) * _rounded(scale, dt)
+    else:
+        dq = torch.matmul(ds, ks.float())
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
@@ -688,38 +723,81 @@ def hm_attn_fwd(q, k, v, scale: float):
     return out, lse
 
 
-def hm_attn_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, scale: float):
-    """Writes dK and dV (CUDA only)."""
-    _check_hm(q, k, v, dout, dk, dv)
-    _check_hm_stats(q, lse, delta)
+def hm_attn_bwd_prep(q, k, out, dout, scale: float):
+    """The bf16 backward's prep pass on (B*H, N, D): (delta (B*H, N) f32,
+    q * scale, k * scale or None), read from q, O and dO once. Kernel on
+    CUDA (bf16 only), plain version on the CPU."""
+    if q.device.type == "cpu":
+        return attention_hm_bwd_prep_plain(q, k, out, dout, scale)
+    _check_hm(q, k, out, dout)
+    if q.dtype != torch.bfloat16:
+        raise ValueError("hm_attn_bwd_prep is the bf16 backward's: the f32 "
+                         "kernels scale q and k themselves")
+    BH, N, D = q.shape
+    sc = _rounded(scale, q.dtype)
+    delta = torch.empty((BH, N), dtype=torch.float32, device=q.device)
+    qs = torch.empty_like(q)
+    ks = None if _power_of_two(sc) else torch.empty_like(q)
+    _launch("hm_attn_bwd_prep", q, q.data_ptr(), k.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), delta.data_ptr(), qs.data_ptr(),
+            _ptr(ks), BH, N, D, sc, sc)
+    return delta, qs, ks
+
+
+def _hm_prep(q, k, out, dout, scale, prep):
+    """(delta, qs, ks) of the backward kernels: `prep` if given, else the
+    prep pass in bf16 and (hm_delta, None, None) in f32, whose kernels
+    scale q and k themselves."""
+    if prep is None:
+        prep = (hm_attn_bwd_prep(q, k, out, dout, scale)
+                if q.dtype == torch.bfloat16
+                else (hm_delta(out, dout), None, None))
+    delta, qs, ks = prep
+    _check_hm_stats(q, delta)
+    if q.dtype == torch.bfloat16:
+        if qs is None:
+            raise ValueError("the bf16 kernels need the prep pass's q * scale")
+        _check_hm(q, qs, *([] if ks is None else [ks]))
+    return delta, qs, ks
+
+
+def hm_attn_bwd_dkv(q, k, v, out, lse, dout, dk, dv, scale: float,
+                    prep=None):
+    """Writes dK and dV (CUDA only). `prep`: hm_attn_bwd_prep's outputs in
+    bf16, (delta, None, None) in f32; computed here when None."""
+    _check_hm(q, k, v, out, dout, dk, dv)
+    _check_hm_stats(q, lse)
+    delta, qs, _ = _hm_prep(q, k, out, dout, scale, prep)
     BH, N, D = q.shape
     _launch("hm_attn_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), BH, N, D, _rounded(scale, q.dtype),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(qs),
+            dk.data_ptr(), dv.data_ptr(), BH, N, D, _rounded(scale, q.dtype),
             int(q.dtype == torch.bfloat16))
 
 
-def hm_attn_bwd_dq(q, k, v, dout, lse, delta, dq, scale: float):
-    """Writes dQ (CUDA only)."""
-    _check_hm(q, k, v, dout, dq)
-    _check_hm_stats(q, lse, delta)
+def hm_attn_bwd_dq(q, k, v, out, lse, dout, dq, scale: float, prep=None):
+    """Writes dQ (CUDA only). `prep` as for hm_attn_bwd_dkv."""
+    _check_hm(q, k, v, out, dout, dq)
+    _check_hm_stats(q, lse)
+    delta, qs, ks = _hm_prep(q, k, out, dout, scale, prep)
     BH, N, D = q.shape
     sc = _rounded(scale, q.dtype)
     _launch("hm_attn_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            BH, N, D, sc, sc, int(q.dtype == torch.bfloat16))
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), _ptr(qs),
+            _ptr(ks), dq.data_ptr(), BH, N, D, sc, sc,
+            int(q.dtype == torch.bfloat16))
 
 
 def hm_attn_bwd(q, k, v, out, lse, dout, scale: float):
-    """Backward on (B*H, N, D): (dq, dk, dv). On CUDA, delta (one torch
-    reduction), then the dK/dV and dQ kernels; plain version on the CPU."""
+    """Backward on (B*H, N, D): (dq, dk, dv). On CUDA the dK/dV and dQ
+    kernels, in bf16 after one prep pass (hm_attn_bwd_prep), in f32 after
+    hm_delta's reduction; plain version on the CPU."""
     if q.device.type == "cpu":
         return attention_hm_bwd_plain(q, k, v, out, lse, dout, scale)
-    _check_hm(q, out)
-    delta = hm_delta(out, dout)
+    prep = _hm_prep(q, k, out, dout, scale, None)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    hm_attn_bwd_dkv(q, k, v, dout, lse, delta, dk, dv, scale)
-    hm_attn_bwd_dq(q, k, v, dout, lse, delta, dq, scale)
+    hm_attn_bwd_dkv(q, k, v, out, lse, dout, dk, dv, scale, prep)
+    hm_attn_bwd_dq(q, k, v, out, lse, dout, dq, scale, prep)
     return dq, dk, dv
 
 

@@ -17,10 +17,10 @@ tools/profile_step.py and tests/test_torch_gpu.py.
   `hm_inputs` / `hm_attention_against_plain`: the same for the head-major
   kernels (K4) on (B*H, N, 64) q, k, v;
   `compare_with_plain` / `check_against_plain`: the bounds that hold one
-  against the other, `check_prep`: the bf16 backward's prep pass against
-  its plain version, and `planted_faults` / `hm_planted_faults`: wrong
-  outputs those bounds must reject (`masked_kv_grad` checks that masked kv
-  rows get zero dK/dV).
+  against the other, `check_prep` / `check_hm_prep`: the bf16 backwards'
+  prep passes against their plain versions, and `planted_faults` /
+  `hm_planted_faults`: wrong outputs those bounds must reject
+  (`masked_kv_grad` checks that masked kv rows get zero dK/dV).
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ F32_ATOL = {"out": 1e-4, "lse": 1e-4, "dq": 5e-4, "dk": 5e-4, "dv": 5e-4}
 # atol/rtol 3e-2 on dqkv.
 BF16_REL = 2.0 ** -6
 BF16_LSE_ATOL = 1e-4
-# the K2 prep pass: q * scale (and k * scale) bit-equal to the plain
+# the K2 and K4 prep passes: q * scale (and k * scale) bit-equal to the plain
 # version; delta, an f32 sum of D products taken in another order, within
 # PREP_DELTA_RTOL of its row's sum of |dO * O|
 PREP_DELTA_RTOL = 1e-5
@@ -277,16 +277,10 @@ def hm_planted_faults(got: dict) -> dict:
             "lse_log2": dict(got, lse=got["lse"] * fa.LOG2E)}
 
 
-def check_prep(qkv, out, dout, heads: int, scale: float) -> dict:
-    """qkv_attn_bwd_prep (the kernel on a CUDA tensor) against its plain
-    version on the same inputs; raises AssertionError beyond the bounds
-    above. Returns delta's max abs error and the bound's worst share."""
-    delta, qs, ks = fa.qkv_attn_bwd_prep(qkv, out, dout, scale, heads)
-    p_delta, p_qs, p_ks = fa.attention_qkv_bwd_prep_plain(qkv, out, dout,
-                                                          scale, heads)
-    B, N, A = out.shape
-    absum = (dout.float().abs() * out.float().abs()).reshape(
-        B, N, heads, A // heads).sum(-1).transpose(1, 2)
+def _prep_against_plain(got, want, absum) -> dict:
+    """Holds a prep pass's (delta, qs, ks) against its plain version's;
+    `absum` is each row's sum of |dO * O|, shaped like delta."""
+    (delta, qs, ks), (p_delta, p_qs, p_ks) = got, want
     err = (delta - p_delta).abs()
     res = {"max_abs_err": err.max().item(),
            "bound_share": (err / (PREP_DELTA_RTOL * absum + 1e-30)).max()
@@ -297,3 +291,23 @@ def check_prep(qkv, out, dout, heads: int, scale: float) -> dict:
             res["ks"] is False or not res["bound_share"] <= 1.0:
         raise AssertionError(f"prep pass vs plain beyond the bounds: {res}")
     return res
+
+
+def check_prep(qkv, out, dout, heads: int, scale: float) -> dict:
+    """qkv_attn_bwd_prep (the kernel on a CUDA tensor) against its plain
+    version on the same inputs; raises AssertionError beyond the bounds
+    above. Returns delta's max abs error and the bound's worst share."""
+    B, N, A = out.shape
+    absum = (dout.float().abs() * out.float().abs()).reshape(
+        B, N, heads, A // heads).sum(-1).transpose(1, 2)
+    return _prep_against_plain(
+        fa.qkv_attn_bwd_prep(qkv, out, dout, scale, heads),
+        fa.attention_qkv_bwd_prep_plain(qkv, out, dout, scale, heads), absum)
+
+
+def check_hm_prep(q, k, out, dout, scale: float) -> dict:
+    """check_prep for hm_attn_bwd_prep on (B*H, N, 64) tensors."""
+    return _prep_against_plain(
+        fa.hm_attn_bwd_prep(q, k, out, dout, scale),
+        fa.attention_hm_bwd_prep_plain(q, k, out, dout, scale),
+        (dout.float().abs() * out.float().abs()).sum(-1))

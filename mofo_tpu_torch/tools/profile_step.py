@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 
 import torch
@@ -34,13 +35,20 @@ from mofo_tpu_torch.tools.main_path import (
 )
 
 
+# the base-e instances of the shared bf16 backward kernels (K4's), by their
+# demangled or mangled first template argument
+_BASE_E = re.compile(r"bwd_d(kv|q)_bf16(<true|ILb1)")
+
+
 def _group(name: str) -> str:
     low = name.lower()
     if "mh_fwd_" in name or "mh_bwd_" in name:
         return "masked attention, K3 (port kernels)"
-    if "hm_fwd_" in name or "hm_bwd_" in name:
+    if "hm_fwd_" in name or "hm_bwd_" in name or _BASE_E.search(name):
         return "head-major attention, K4 (port kernels)"
-    if any(k in name for k in ("fwd_bf16", "bwd_prep_bf16", "bwd_dkv_bf16",
+    if "bwd_prep_bf16" in name:  # one kernel, launched by K2 and by K4
+        return "backward prep pass, K2 and K4 (port kernels)"
+    if any(k in name for k in ("fwd_bf16", "bwd_dkv_bf16",
                                "bwd_dq_bf16", "fwd_f32", "bwd_dkv_f32",
                                "bwd_dq_f32")):
         return "attention, K1/K2 (port kernels)"

@@ -30,6 +30,7 @@ from mofo_tpu_torch.tools.main_path import (
     VITS_MODEL,
     attention_against_plain,
     check_against_plain,
+    check_hm_prep,
     check_prep,
     compare_with_plain,
     finetune_model,
@@ -192,7 +193,7 @@ def test_step_on_the_card_matches_the_cpu(cuda):
                     0.5, mask=mask.to(dev))
         got[dev] = (float(m["loss"]), float(m["grad_norm"]))
     assert min(fa.launch_counts[k]
-               for k in fa.QKV_F32_KERNELS + fa.HM_KERNELS) >= 1
+               for k in fa.QKV_F32_KERNELS + fa.HM_F32_KERNELS) >= 1
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-4)
 
 
@@ -213,6 +214,27 @@ def test_mh_kernels_match_plain(cuda, dtype, B, N, H, D, bias):
         ignored, _ = mh_attention_against_plain(q, k, v, None, H, D ** -0.5)
     for fault, outputs in planted_faults(got, ignored).items():
         assert compare_with_plain(outputs, want)["beyond_bounds"], fault
+
+
+@pytest.mark.parametrize("fused_kv", [True, False])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("H,D", [(2, 64), (1, 256)])
+@pytest.mark.parametrize("N", [1, 63, 65, 100, 1568])
+def test_mh_forward_at_tile_edges(cuda, N, H, D, bias, fused_kv):
+    """The redesigned bf16 K3 forward (TMA-fed wgmma, online softmax) at N
+    on both sides of its 64-row tiles and 128-row blocks, with k and v as
+    column views of one (B, N, 2A) tensor or as tensors of their own,
+    against the plain version (and the backward with it)."""
+    q, k, v, b = mh_inputs(3, N, H, D, torch.bfloat16, N + D, cuda, bias)
+    if not fused_kv:
+        k, v = k.contiguous(), v.contiguous()
+    assert (k.stride(1) == 2 * H * D) == fused_kv
+    got, want = mh_attention_against_plain(q, k, v, b, H, D ** -0.5)
+    torch.cuda.synchronize()
+    _check_at_edge(got, want, N)
+    if bias and N > 1:
+        ignored, _ = mh_attention_against_plain(q, k, v, None, H, D ** -0.5)
+        assert compare_with_plain(ignored, want)["beyond_bounds"]
 
 
 def test_mh_autograd_runs_the_kernels(cuda):
@@ -244,6 +266,11 @@ def test_mh_wrapper_rejects_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="packed"):
         t = torch.zeros(8, 1, 128, device=cuda).transpose(0, 1)
         fa.mh_attn_fwd(x, t, x, None, 1.0, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        # a bf16 view whose rows start 2 bytes off a 16-byte boundary
+        t = torch.zeros(1, 8, 136, device=cuda, dtype=torch.bfloat16)
+        fa.mh_attn_fwd(x.bfloat16(), t[..., 1:129], x.bfloat16(), None, 1.0,
+                       2)
 
 
 def test_bb_finetune_step_on_the_card_matches_the_cpu(cuda):
@@ -303,14 +330,58 @@ def test_hm_forward_at_tile_edges(cuda, N):
         assert compare_with_plain(outputs, want)["beyond_bounds"], fault
 
 
+@pytest.mark.parametrize("N", [1, 63, 65, 100, 1568, 3136])
+def test_hm_backward_at_tile_edges(cuda, N):
+    """The redesigned bf16 K4 backward (prep pass, TMA-fed wgmma dK/dV and
+    dQ kernels) at N on both sides of its 64-row tiles and 128-row blocks,
+    against the plain versions; the prep pass against its own."""
+    q, k, v = hm_inputs(5, N, torch.bfloat16, N + 1, cuda)
+    got, want = hm_attention_against_plain(q, k, v, SCALE)
+    torch.cuda.synchronize()
+    _check_at_edge(got, want, N)
+    res = check_hm_prep(q, k, got["out"], (2 * got["out"].float()).to(
+        q.dtype), SCALE)
+    assert res["ks"] is None  # 0.125: dQ scales its accumulator
+    for fault, outputs in hm_planted_faults(got).items():
+        assert compare_with_plain(outputs, want)["beyond_bounds"], fault
+
+
+@pytest.mark.parametrize("N", [65, 100, 1568])
+def test_hm_backward_with_a_scale_not_a_power_of_two(cuda, N):
+    """scale 0.1: the prep pass writes k * scale and dQ reads that copy."""
+    q, k, v = hm_inputs(5, N, torch.bfloat16, 5, cuda)
+    got, want = hm_attention_against_plain(q, k, v, 0.1)
+    torch.cuda.synchronize()
+    check_against_plain(got, want)
+    assert check_hm_prep(q, k, got["out"], (2 * got["out"].float()).to(
+        q.dtype), 0.1)["ks"] is True
+
+
+def test_hm_bf16_autograd_runs_the_prep_pass(cuda):
+    q, k, v = hm_inputs(6, 100, torch.bfloat16, 2, cuda)
+    ts = [t.reshape(2, 3, 100, D).clone().requires_grad_(True)
+          for t in (q, k, v)]
+    fa.reset_launch_counts()
+    (fa.flash_attention(*ts, scale=SCALE).float() ** 2).sum().backward()
+    assert fa.launch_counts == {**dict.fromkeys(fa.KERNELS, 0),
+                                **dict.fromkeys(fa.HM_KERNELS, 1)}
+    # one writer per output, no atomics: the same call gives the same bits
+    out, lse = fa.hm_attn_fwd(q, k, v, SCALE)
+    want = fa.hm_attn_bwd(q, k, v, out, lse, (2 * out.float()).to(q.dtype),
+                          SCALE)
+    for t, w in zip(ts, want):
+        assert torch.equal(t.grad.reshape(w.shape), w)
+
+
 def test_hm_autograd_runs_the_kernels(cuda):
     q, k, v = hm_inputs(6, 100, torch.float32, 1, cuda)
     ts = [t.reshape(2, 3, 100, D).clone().requires_grad_(True)
           for t in (q, k, v)]
     fa.reset_launch_counts()
     (fa.flash_attention(*ts, scale=SCALE) ** 2).sum().backward()
+    # f32: delta is hm_delta's reduction, no prep pass
     assert fa.launch_counts == {**dict.fromkeys(fa.KERNELS, 0),
-                                **dict.fromkeys(fa.HM_KERNELS, 1)}
+                                **dict.fromkeys(fa.HM_F32_KERNELS, 1)}
     refs = [t.detach().cpu().clone().requires_grad_(True) for t in ts]
     (fa.flash_attention(*refs, scale=SCALE) ** 2).sum().backward()
     for t, r in zip(ts, refs):
@@ -329,6 +400,19 @@ def test_hm_wrapper_rejects_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         t = torch.zeros(8, 2, D, device=cuda).transpose(0, 1)
         fa.hm_attn_fwd(x, t, x, 1.0)
+    stat = torch.zeros(2, 8, device=cuda)
+    with pytest.raises(ValueError, match="bf16 backward's"):
+        fa.hm_attn_bwd_prep(x, x, x, x, 1.0)  # f32 has no prep pass
+    h = x.bfloat16()
+    with pytest.raises(ValueError, match="q \\* scale"):
+        fa.hm_attn_bwd_dq(h, h, h, h, stat, h, h, 1.0,
+                          prep=(stat, None, None))
+    with pytest.raises(ValueError, match="float32"):
+        fa.hm_attn_bwd_dkv(h, h, h, h, stat, h, h, h, 1.0,
+                           prep=(stat.double(), h, None))
+    with pytest.raises(ValueError, match="like q"):
+        fa.hm_attn_bwd_dkv(h, h, h, h, stat, h, h, h, 1.0,
+                           prep=(stat, h[:, :4], None))
 
 
 def test_vits_step_on_the_card_matches_the_cpu(cuda):
@@ -357,7 +441,7 @@ def test_vits_step_on_the_card_matches_the_cpu(cuda):
                     0.5, mask=mask.to(dev))
         got[dev] = (float(m["loss"]), float(m["grad_norm"]))
     assert fa.launch_counts == {**dict.fromkeys(fa.KERNELS, 0),
-                                **dict.fromkeys(fa.HM_KERNELS, 1)}
+                                **dict.fromkeys(fa.HM_F32_KERNELS, 1)}
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-4)
 
 

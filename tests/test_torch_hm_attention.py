@@ -2,8 +2,8 @@
 against the JAX package.
 
 On the CPU, mofo_tpu_torch.ops.flash_attention.flash_attention runs the
-plain PyTorch versions of its CUDA kernels (hm_attn_fwd, hm_attn_bwd_dkv,
-hm_attn_bwd_dq); here they are held against
+plain PyTorch versions of its CUDA kernels (hm_attn_fwd, hm_attn_bwd_prep,
+hm_attn_bwd_dkv, hm_attn_bwd_dq); here they are held against
 mofo_tpu.ops.flash_attention.flash_attention(..., interpret=True), which
 runs the TPU kernel K4 (_fwd_kernel, _dq_kernel, _dkv_kernel), forward and
 the gradients of sum(out^2). models.layers.Attention picks the flat K1/K2
@@ -39,9 +39,9 @@ def _inputs(N, seed=0):
     return [rng.randn(B, H, N, D).astype(np.float32) for _ in range(3)]
 
 
-def _jax_run(x, dtype):
+def _jax_run(x, dtype, scale=SCALE):
     def loss(q, k, v):
-        out = jax_flash(q, k, v, scale=SCALE, interpret=True)
+        out = jax_flash(q, k, v, scale=scale, interpret=True)
         return jnp.sum(out.astype(jnp.float32) ** 2), out
 
     args = [jnp.asarray(a).astype(dtype) for a in x]
@@ -78,6 +78,53 @@ def test_bf16_matches_tpu_kernel(N):
     for p, j in zip([p_out] + p_grads, [j_out] + j_grads):
         assert np.abs(p - j).max() <= 2.0 ** -6 * np.abs(j).max()
         np.testing.assert_allclose(p, j, atol=3e-2, rtol=3e-2)
+
+
+def _prep_route(x, dtype, scale):
+    """The backward as the bf16 kernels split it, in plain versions: the
+    forward, dout = d sum(out^2) / d out, the prep pass, then dQ, dK and dV
+    from its outputs. Returns (whole, split): attention_hm_bwd_plain's
+    gradients and the split route's."""
+    q, k, v = (torch.from_numpy(a).to(dtype).reshape(B * H, -1, D)
+               for a in x)
+    out, lse = fa.attention_hm_fwd_plain(q, k, v, scale)
+    dout = (2 * out.float()).to(dtype)
+    delta, qs, ks = fa.hm_attn_bwd_prep(q, k, out, dout, scale)
+    assert (ks is None) == (scale == SCALE)  # 0.125 is a power of two
+    assert delta.dtype == torch.float32 and delta.shape == q.shape[:2]
+    return (fa.attention_hm_bwd_plain(q, k, v, out, lse, dout, scale),
+            fa.attention_hm_bwd_from_prep_plain(k, v, lse, dout, delta, qs,
+                                                ks, scale))
+
+
+@pytest.mark.parametrize("N", [16, 37, 128])
+@pytest.mark.parametrize("scale", [SCALE, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prep_route_equals_the_plain_backward(dtype, scale, N):
+    """The prep pass and the backward from its outputs give the whole plain
+    backward bit for bit, also where dQ scales its accumulator."""
+    whole, split = _prep_route(_inputs(N, seed=2), dtype, scale)
+    for w, s in zip(whole, split):
+        assert torch.equal(w, s)
+
+
+@pytest.mark.parametrize("N", [16, 37, 128])
+@pytest.mark.parametrize("scale", [SCALE, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prep_route_matches_tpu_kernel(dtype, scale, N):
+    """The split backward against the interpret-mode TPU K4 backward, to the
+    tolerances of the two tests above."""
+    x = _inputs(N, seed=2)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    _, j_grads = _jax_run(x, jdt, scale)
+    _, split = _prep_route(x, dtype, scale)
+    for p, j in zip(split, j_grads):
+        p = p.float().reshape(j.shape).numpy()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(p, j, atol=1e-4, rtol=0)
+        else:
+            assert np.abs(p - j).max() <= 2.0 ** -6 * np.abs(j).max()
+            np.testing.assert_allclose(p, j, atol=3e-2, rtol=3e-2)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -136,12 +183,17 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="CUDA tensors"):
         fa._check_hm(x)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fa.hm_attn_bwd_dq(x, x, x, x, x[..., 0], x[..., 0], x, 1.0)
+        fa.hm_attn_bwd_dq(x, x, x, x, x[..., 0], x, x, 1.0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa.hm_attn_bwd_dkv(x, x, x, x, x[..., 0], x, x, x, 1.0,
+                           prep=(x[..., 0], x, None))
     with pytest.raises(ValueError, match="share one"):
         fa.flash_attention(torch.zeros(1, 2, 8, D), torch.zeros(1, 2, 9, D),
                            torch.zeros(1, 2, 9, D), scale=1.0)
-    assert fa.HM_KERNELS == ("hm_attn_fwd", "hm_attn_bwd_dkv",
-                             "hm_attn_bwd_dq")
+    assert fa.HM_KERNELS == ("hm_attn_fwd", "hm_attn_bwd_prep",
+                             "hm_attn_bwd_dkv", "hm_attn_bwd_dq")
+    assert fa.HM_F32_KERNELS == ("hm_attn_fwd", "hm_attn_bwd_dkv",
+                                 "hm_attn_bwd_dq")
     assert set(fa.HM_KERNELS) <= set(fa.launch_counts)
 
 
