@@ -12,22 +12,29 @@ Phases, each printing one JSON line:
   3. kernels - each fused-qkv kernel (K1/K2, in bf16 with the backward's
                prep pass) against its plain PyTorch version at the pretrain
                step's encoder and decoder shapes (B=16), the finetune
-               backbone's (B=10, N=1568, H=12) and a ragged one, bf16 and
-               f32, with the bounds of mofo_tpu_torch/tools/main_path.py
-               (which must also reject two planted faults), the ragged one
-               again at scale 0.1 (dQ's scaled-K copy); then, on the same
-               bf16 qkv, kernel, plain, library
+               backbone's (B=10, N=1568, H=12), a ragged one, the long
+               sequences the TPU kernels are gated at (N=3136 with 6 and 12
+               heads, N=4608) and ViT-L's 16 heads, bf16 and f32, with the
+               bounds of mofo_tpu_torch/tools/main_path.py (which must also
+               reject two planted faults), the ragged one again at scale
+               0.1 (dQ's scaled-K copy); then, on the same bf16 qkv at the
+               steps' shapes, kernel, plain, library
                (F.scaled_dot_product_attention, a yardstick the port never
-               calls) and bound times, and K2 (prep + dK/dV + dQ) over the
+               calls) and bound times, the forward over the library's
+               (k1_fwd_vs_library) and K2 (prep + dK/dV + dQ) over the
                library's backward (k2_vs_library). Every time is the median
                of 5 runs of back-to-back calls between two CUDA events.
   4. mh_kernels - the same for the masked multihead kernels (K3): the MCA
-               (B=10, N=1568, 3 x 256), 12 x 64 at N=1568 and ragged N=100
-               at 1 x 256 and 2 x 64, bf16 and f32, bias present and
-               absent; planted faults (the bias ignored, dQ zeroed, dK
-               without its 1/log2 e fix) must be rejected and masked kv
-               rows must get zero dK/dV; then the times at the MCA shape
-               (k3_fwd_vs_library: the forward over the library's).
+               (B=10, N=1568, 3 x 256), 12 x 64 at N=1568 and N=3136 and
+               ragged N=100 at 1 x 256 and 2 x 64, bf16 and f32, bias
+               present and absent, in bf16 with the backward's prep pass;
+               planted faults (the bias ignored, dQ zeroed, dK without its
+               1/log2 e fix) must be rejected and masked kv rows must get
+               zero dK/dV; the ragged ones again at scale 0.1 (the scaled-K
+               copy at head dim 64, the in-place fold at 256); then the
+               times at the MCA shape (k3_fwd_vs_library: the forward over
+               the library's; k3_bwd_vs_library: prep + dK/dV + dQ over the
+               library's backward).
   5. step    - the ViT-B MOFO pretrain step at full width (tube_bb masks,
                motion-weighted loss, AdamW): 1 warm-up + 5 timed steps, the
                launch counts of every kernel checked.
@@ -40,7 +47,9 @@ Phases, each printing one JSON line:
                FinetuneConfig defaults (bf16, B=10, mixup, cutmix, label
                smoothing, drop path 0.1, AdamW with layer decay), backbone
                from the pretrain model: 1 warm-up + 5 timed steps and one
-               eval call, every kernel's launches checked.
+               eval call, every kernel's launches checked (one of each of
+               the four K3 kernels per train step, one K3 forward in the
+               eval call).
   8. finetune_parity - the BB-focused model at ViT-B width cut to 2
                Blocks, f32, B=2, same weights and mixup draws: loss and
                gradient norm on the card against the CPU; one sample has no
@@ -57,13 +66,22 @@ Phases, each printing one JSON line:
                backward), and (k1_vs_k4) how far
                K1's numerics, which the ViT-S decoder ran before it took
                the head-major route, lie from K4's on the same inputs.
- 10. vits_step - the ViT-S MOFO pretrain step at full width (bf16, B=32):
+ 10. bf16_step_vs_plain - the bf16 steps through the kernels against the
+               same steps through the plain bf16 versions on the same CUDA
+               tensors (main_path's plain=True, a switch of the checks
+               only): ViT-B and ViT-S pretrain cut to 2+1 Blocks and the
+               ViT-B BB-focused MCA finetune step cut to 2 Blocks, full
+               width, B=2, two steps each from the same weights, masks,
+               mixup and drop-path draws; loss and gradient norm within
+               BF16_STEP_RTOL, the kernels' launches counted (none in the
+               plain run).
+ 11. vits_step - the ViT-S MOFO pretrain step at full width (bf16, B=32):
                1 warm-up + 5 timed steps, 12 K1/K2 launches (encoder) and 4
                K4 launches (decoder) of each kernel, the prep passes
                included, per step, exactly.
- 11. vits_parity - ViT-S width cut to 2+1 blocks, f32, B=1: card against
+ 12. vits_parity - ViT-S width cut to 2+1 blocks, f32, B=1: card against
                CPU as in phase 6; covers the f32 K4 kernels.
- 12. runner  - the main path of this slice: the ViT-S MOFO pretrain runner
+ 13. runner  - the main path of this slice: the ViT-S MOFO pretrain runner
                (mofo_tpu_torch.cli.pretrain_mofo.main, in this process) on
                64 synthetic uint8 clips at B=32 for 2 epochs into a
                temporary output dir, then again with --epochs 3, which must
@@ -107,6 +125,7 @@ from mofo_tpu_torch.tools.main_path import (
     build_step,
     check_against_plain,
     check_hm_prep,
+    check_mh_prep,
     check_prep,
     compare_with_plain,
     finetune_model,
@@ -144,6 +163,8 @@ REPLACES = {  # the pallas_call sites of the TPU kernels
     "qkv_attn_bwd_dq": f"{TPU_FILE}:1224",  # _qkv_bwd_impl (dQ)
     # _mh_fwd_impl -> _mh_fwd_kernel with has_bias
     "mh_attn_fwd": f"{TPU_FILE}:678",
+    # _mh_bwd_impl's delta in XLA (:751-758) and the kernels' scale folds
+    "mh_attn_bwd_prep": f"{TPU_FILE}:751",
     "mh_attn_bwd_dkv": f"{TPU_FILE}:783",  # _mh_bwd_impl (dK, dV)
     "mh_attn_bwd_dq": f"{TPU_FILE}:783",  # _mh_bwd_impl (dQ)
     "hm_attn_fwd": f"{TPU_FILE}:275",  # _fwd_impl -> _fwd_kernel
@@ -156,14 +177,19 @@ PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
 HBM = 3.35e12  # H100 SXM bytes/s
 STEP_BATCH = 16
 # (B, N, H) of the main path's attention at STEP_BATCH; the checks add a
-# ragged geometry
+# ragged geometry, the long sequences the TPU kernels are gated at
+# (tests/test_tpu_kernels.py:302-321: 32 frames at 224^2 with 6 and 12
+# heads, 16 frames at 384^2) and ViT-L's 16 heads
 MAIN = {"encoder": (STEP_BATCH, 160, 12), "decoder": (STEP_BATCH, 1568, 6),
         "backbone": (10, 1568, 12)}  # the finetune backbone's Blocks
-CHECKS = {**MAIN, "ragged": (8, 100, 2)}
+CHECKS = {**MAIN, "ragged": (8, 100, 2), "frames32_h6": (2, 3136, 6),
+          "frames32_h12": (2, 3136, 12), "res384_h12": (1, 4608, 12),
+          "vitl_h16": (2, 1568, 16)}
 FT_BATCH = 10
 # K3: (B, N, H, D); the MCA is the finetune step's own
 MH_CHECKS = {"mca": (FT_BATCH, 1568, 3, 256), "h12": (FT_BATCH, 1568, 12, 64),
-             "ragged_d256": (4, 100, 1, 256), "ragged_d64": (4, 100, 2, 64)}
+             "ragged_d256": (4, 100, 1, 256), "ragged_d64": (4, 100, 2, 64),
+             "frames32_h12": (2, 3136, 12, 64)}
 VITS_BATCH = 32  # B*H = 96 in the ViT-S decoder, as ViT-B's at B=16
 # K4: (B, H, N); the runner's decoder is the main path's own
 HM_CHECKS = {"runner_decoder": (VITS_BATCH, 3, 1568),
@@ -186,6 +212,12 @@ RUNNER_ARGS = ["--model", VITS_MODEL, "--synthetic", "64", "--batch_size",
                "1", "--warmup_epochs", "1"]
 D = fa.HEAD_DIM
 SCALE = D ** -0.5
+# a bf16 step through the kernels against the same step through the plain
+# bf16 versions: loss and gradient norm, relative. The plain versions repeat
+# the kernels' roundings, so the two differ by the order of their f32 sums:
+# at most 8.4e-5 (a gradient norm) when the bound was set, far below the 1%
+# by which a bf16 loss sits off the f32 one
+BF16_STEP_RTOL = 1e-3
 
 
 def emit(phase: str, **fields) -> None:
@@ -389,6 +421,9 @@ def phase_kernels():
         emit("kernels_vs_plain", geometry="ragged", B=B, N=N, H=H, scale=0.1,
              dtype=str(dtype).replace("torch.", ""),
              **check_kernels(_qkv(B, N, H, dtype, seed=7), H, 0.1))
+    emit("k1_fwd_vs_library", **{
+        geo: t["qkv_attn_fwd"]["ms"] / t["qkv_attn_fwd"]["library_ms"]
+        for geo, t in timings.items()})
     emit("k2_vs_library", **{
         geo: (t["qkv_attn_bwd_prep"]["ms"] + t["qkv_attn_bwd_dkv"]["ms"]
               + t["qkv_attn_bwd_dq"]["ms"]) / t["qkv_attn_bwd_dq"]
@@ -406,6 +441,8 @@ def bounds_mh(B, N, H, D) -> dict:
     inputs = 3 * row + B * N * 4  # q, k, v, bias
     work = {
         "mh_attn_fwd": (2 * mm, inputs + row + stat),  # -> out, lse
+        # q, out, dout -> q * scale, delta
+        "mh_attn_bwd_prep": (3 * B * N * A, 3 * row + row + stat),
         # + dout, lse, delta -> dk, dv
         "mh_attn_bwd_dkv": (4 * mm, inputs + row + 2 * stat + 2 * row),
         "mh_attn_bwd_dq": (3 * mm, inputs + row + 2 * stat + row),
@@ -419,7 +456,7 @@ def time_mh_kernels(q, k, v, b, H, D) -> dict:
     B, N, _ = q.shape
     out, lse = fa.mh_attn_fwd(q, k, v, b, scale, H)
     dout = (2 * out.float()).to(q.dtype)
-    delta = fa.mh_delta(out, dout, H)
+    prep = fa.mh_attn_bwd_prep(q, k, out, dout, scale, H)
     dkv = torch.empty(B, N, 2 * H * D, dtype=q.dtype, device=q.device)
     dq = torch.empty_like(q)
     heads = [t.reshape(B, N, H, D).transpose(1, 2).contiguous()
@@ -440,15 +477,23 @@ def time_mh_kernels(q, k, v, b, H, D) -> dict:
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 *(t.detach() for t in heads), attn_mask=mask, scale=scale)),
         },
+        # no one library call computes delta and the scaled q alone
+        "mh_attn_bwd_prep": {
+            "ms": time_ms(lambda: fa.mh_attn_bwd_prep(
+                q, k, out, dout, scale, H)),
+            "plain_ms": time_ms(lambda: fa.attention_mh_bwd_prep_plain(
+                q, k, out, dout, scale, H)),
+            "library_ms": None,
+        },
         "mh_attn_bwd_dkv": {
             "ms": time_ms(lambda: fa.mh_attn_bwd_dkv(
-                q, k, v, b, dout, lse, delta, dkv[..., :H * D],
-                dkv[..., H * D:], scale, H)),
+                q, k, v, b, out, lse, dout, dkv[..., :H * D],
+                dkv[..., H * D:], scale, H, prep)),
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
         "mh_attn_bwd_dq": {
             "ms": time_ms(lambda: fa.mh_attn_bwd_dq(
-                q, k, v, b, dout, lse, delta, dq, scale, H)),
+                q, k, v, b, out, lse, dout, dq, scale, H, prep)),
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
     }
@@ -459,40 +504,50 @@ def time_mh_kernels(q, k, v, b, H, D) -> dict:
     return res
 
 
+def check_mh_kernels(q, k, v, b, H, scale: float) -> dict:
+    """check_kernels for K3 on q, k, v and the bias row b (or None): the
+    bounds, in bf16 the backward's prep pass too, the planted faults (with a
+    bias also the kernels' outputs without it) rejected, and masked kv rows
+    with exactly zero dK/dV."""
+    got, want = mh_attention_against_plain(q, k, v, b, H, scale)
+    torch.cuda.synchronize()
+    res = check_against_plain(got, want)
+    if q.dtype == torch.bfloat16:
+        res["prep"] = check_mh_prep(q, k, got["out"], (
+            2 * got["out"].float()).to(q.dtype), H, scale)
+    ignored = None
+    if b is not None:
+        ignored, _ = mh_attention_against_plain(q, k, v, None, H, scale)
+    res["planted"] = {}
+    for fault, outputs in planted_faults(got, ignored).items():
+        caught = compare_with_plain(outputs, want)
+        if not caught["beyond_bounds"]:
+            raise AssertionError(f"the bounds let a planted fault pass: "
+                                 f"{fault}")
+        res["planted"][fault] = caught["beyond_bounds"]
+    res["masked_kv_grad"] = masked_kv_grad(got, b)
+    if res["masked_kv_grad"] != 0.0:
+        raise AssertionError(f"masked kv rows got dK/dV: {res}")
+    return res
+
+
 def phase_mh_kernels():
     """K3 against its plain version at every MH_CHECKS geometry, bf16 and
-    f32, bias present and absent: main_path's bounds, the planted faults
-    rejected, masked kv rows with exactly zero dK/dV. Times at the MCA."""
+    f32, bias present and absent (check_mh_kernels); the ragged ones again
+    at scale 0.1. Times at the MCA."""
     errors, timings = {}, {}
     for i, (geo, (B, N, H, D)) in enumerate(MH_CHECKS.items()):
         for dtype in (torch.bfloat16, torch.float32):
             for bias in (True, False):
                 q, k, v, b = mh_inputs(B, N, H, D, dtype, i, "cuda", bias)
-                got, want = mh_attention_against_plain(q, k, v, b, H,
-                                                       D ** -0.5)
-                torch.cuda.synchronize()
-                res = check_against_plain(got, want)
-                ignored = None
-                if bias:
-                    ignored, _ = mh_attention_against_plain(
-                        q, k, v, None, H, D ** -0.5)
-                res["planted"] = {}
-                for fault, outputs in planted_faults(got, ignored).items():
-                    caught = compare_with_plain(outputs, want)
-                    if not caught["beyond_bounds"]:
-                        raise AssertionError(
-                            f"the bounds let a planted fault pass: {fault} "
-                            f"({geo}, {dtype}, bias={bias})")
-                    res["planted"][fault] = caught["beyond_bounds"]
-                res["masked_kv_grad"] = masked_kv_grad(got, b)
-                if res["masked_kv_grad"] != 0.0:
-                    raise AssertionError(f"masked kv rows got dK/dV: {res}")
+                res = check_mh_kernels(q, k, v, b, H, D ** -0.5)
                 emit("mh_kernels_vs_plain", geometry=geo, B=B, N=N, H=H, D=D,
                      dtype=str(dtype).replace("torch.", ""), bias=bias,
                      **res)
                 if geo == "mca" and dtype == torch.bfloat16 and bias:
                     err = res["max_abs_err"]
                     errors = {"mh_attn_fwd": err["out"],
+                              "mh_attn_bwd_prep": res["prep"]["max_abs_err"],
                               "mh_attn_bwd_dkv": max(err["dk"], err["dv"]),
                               "mh_attn_bwd_dq": err["dq"]}
                     timings = time_mh_kernels(q, k, v, b, H, D)
@@ -501,7 +556,23 @@ def phase_mh_kernels():
                     emit("k3_fwd_vs_library", **{
                         geo: timings["mh_attn_fwd"]["ms"]
                         / timings["mh_attn_fwd"]["library_ms"]})
-                del q, k, v, b, got, want, ignored
+                    emit("k3_bwd_vs_library", **{geo: sum(
+                        timings[n]["ms"] for n in fa.MH_KERNELS[1:])
+                        / timings["mh_attn_bwd_dq"]["library_ms"]})
+                del q, k, v, b
+    # a scale that is not a power of two: at head dim 64 dQ reads the prep
+    # pass's scaled K copy, at 256 it folds the scale into its K strip
+    for geo in ("ragged_d64", "ragged_d256"):
+        B, N, H, D = MH_CHECKS[geo]
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, b = mh_inputs(B, N, H, D, dtype, 7, "cuda")
+            res = check_mh_kernels(q, k, v, b, H, 0.1)
+            if dtype == torch.bfloat16 and res["prep"]["ks"] is not (
+                    True if D == fa.HEAD_DIM else None):
+                raise AssertionError(f"the scaled K copy at D={D}: {res}")
+            emit("mh_kernels_vs_plain", geometry=geo, B=B, N=N, H=H, D=D,
+                 scale=0.1, dtype=str(dtype).replace("torch.", ""),
+                 bias=True, **res)
     return errors, timings
 
 
@@ -677,7 +748,7 @@ def phase_finetune_parity() -> None:
         results[dev] = {k: float(metrics[k]) for k in ("loss", "grad_norm")}
         results[dev]["launches"] = dict(fa.launch_counts)
     if min(results["cuda"]["launches"][k]
-           for k in fa.QKV_F32_KERNELS + fa.MH_KERNELS) < 1:
+           for k in fa.QKV_F32_KERNELS + fa.MH_F32_KERNELS) < 1:
         raise AssertionError(f"the card run skipped a kernel: {results}")
     rel = {k: abs(results["cuda"][k] - results["cpu"][k])
            / abs(results["cpu"][k]) for k in ("loss", "grad_norm")}
@@ -686,6 +757,55 @@ def phase_finetune_parity() -> None:
          bound=1e-4)
     if max(rel.values()) > 1e-4:
         raise AssertionError(f"card vs CPU beyond rtol 1e-4: {rel}")
+
+
+def phase_bf16_steps() -> None:
+    """The bf16 steps on the card through the kernels against the same
+    steps through the plain bf16 versions on the same CUDA tensors: ViT-B
+    and ViT-S pretrain (2+1 Blocks) and the ViT-B BB-focused MCA finetune
+    step (2 Blocks + the MCA), full width, B=2, two steps each from the
+    same weights, masks, mixup and drop-path draws. The second step's loss
+    also holds the first step's gradients."""
+    n_steps, B = 2, 2
+    for which in ("pretrain", "vits_pretrain", "finetune"):
+        runs = {}
+        for route in ("kernels", "plain"):
+            plain = route == "plain"
+            if which == "finetune":
+                _, state, step, gen, batch, _ = build_finetune_step(
+                    B, plain=plain, depth=2)
+                extra = ()
+                per_step = {**dict.fromkeys(fa.QKV_KERNELS, 2),
+                            **dict.fromkeys(fa.MH_KERNELS, 1)}
+            else:
+                vits = which == "vits_pretrain"
+                _, state, step, gen, batch = build_step(
+                    B, VITS_MODEL if vits else MODEL, plain=plain,
+                    encoder_depth=2, decoder_depth=1)
+                extra = (0.5,)
+                per_step = {**dict.fromkeys(fa.QKV_KERNELS, 2 if vits else 3),
+                            **dict.fromkeys(fa.HM_KERNELS, int(vits))}
+            fa.reset_launch_counts()
+            metrics = []
+            for _ in range(n_steps):
+                state, m = step(state, batch, gen, *extra)
+                metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+            torch.cuda.synchronize()
+            want = {**dict.fromkeys(fa.KERNELS, 0),
+                    **({} if plain else {k: n_steps * v
+                                         for k, v in per_step.items()})}
+            if fa.launch_counts != want:
+                raise AssertionError(f"{which} through the {route}: launches "
+                                     f"{fa.launch_counts}, expected {want}")
+            runs[route] = metrics
+            del state, step, batch
+        rel = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in a}
+               for a, b in zip(runs["kernels"], runs["plain"])]
+        emit("bf16_step_vs_plain", step=which, dtype="bfloat16", batch=B,
+             steps=n_steps, **runs, rel_diff=rel, bound=BF16_STEP_RTOL)
+        if not max(max(r.values()) for r in rel) <= BF16_STEP_RTOL:
+            raise AssertionError(f"{which}: kernels vs plain versions beyond "
+                                 f"rtol {BF16_STEP_RTOL}: {rel}")
 
 
 def bounds_hm(BH, N, D) -> dict:
@@ -901,6 +1021,7 @@ def main() -> int:
     ft_launches = phase_finetune_step(smi)
     phase_finetune_parity()
     hm_errors, hm_timings = phase_hm_kernels()
+    phase_bf16_steps()
     vits_launches = phase_step(smi, "vits_step", VITS_MODEL, VITS_BATCH)
     phase_parity("vits_parity", VITS_MODEL,
                  fa.QKV_F32_KERNELS + fa.HM_F32_KERNELS)

@@ -326,8 +326,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // -------------------------------------------------------------------------
-// bf16: tensor-core kernels (wgmma; a warp's 16 accumulator rows keep
-// flash_tiles.cuh's mma.sync layout)
+// bf16: tensor-core kernels (wgmma; a warp's 16 accumulator rows are in
+// mma.sync's m16n8 layout, see wgmma_tiles.cuh)
 // -------------------------------------------------------------------------
 
 // The redesigned bf16 forward: kWG consumer warpgroups, each the 64 query
@@ -476,7 +476,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 
     const size_t base = (size_t)bh * N * kD;
     const int row0 = q0 + kTileRows * wg + r0;
-    store_rows<8>(out + base, kD, o, row0, N, 1.f);
+    store_acc(out + base, kD, o, row0, N, 1.f);
     const int g = lane >> 2;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -542,9 +542,9 @@ extern "C" int hm_attn_bwd_prep(const void* q, const void* k,
                                 int N, int D, float q_scale, float k_scale,
                                 void* stream) {
   if (bad(BH, N, D)) return kBadArgument;
-  if (int e = launch_bwd_prep(q, k, kD, out, dout, delta, qs, ks, BH, N, 1,
-                              q_scale, k_scale,
-                              static_cast<cudaStream_t>(stream)))
+  if (int e = launch_bwd_prep<kD / 8>(q, k, kD, kD, out, dout, delta, qs, ks,
+                                      BH, N, 1, q_scale, k_scale,
+                                      static_cast<cudaStream_t>(stream)))
     return e;
   return (int)cudaGetLastError();
 }
@@ -567,8 +567,9 @@ extern "C" int hm_attn_bwd_dkv(const void* q, const void* k, const void* v,
     if (int e = hm_map(&tv, v, BH, N)) return e;
     if (int e = hm_map(&tqs, qs, BH, N)) return e;
     if (int e = hm_map(&tdo, dout, BH, N)) return e;
-    if (int e = launch_bwd_dkv<true>(tk, tv, tqs, tdo, 0, 0, l, d, dk, dv, kD,
-                                     BH, N, 1, 1.f, st))
+    if (int e = launch_bwd_dkv<true, false>(tk, tv, tqs, tdo, 0, 0, l, d,
+                                            nullptr, dk, dv, kD, BH, N, 1,
+                                            1.f, st))
       return e;
   } else {
     constexpr size_t smem = smem_dkv_f32<kTile, kTile>();
@@ -603,8 +604,10 @@ extern "C" int hm_attn_bwd_dq(const void* q, const void* k, const void* v,
     if (int e = hm_map(&tdo, dout, BH, N)) return e;
     if (ks)
       if (int e = hm_map(&tks, ks, BH, N)) return e;
-    if (int e = launch_bwd_dq<true>(tk, tv, tqs, tdo, ks ? &tks : nullptr, 0,
-                                    0, l, d, dq, kD, BH, N, 1, k_scale, st))
+    if (int e = launch_bwd_dq<true, false>(tk, tv, tqs, tdo,
+                                           ks ? &tks : nullptr, 0, 0, l, d,
+                                           nullptr, dq, kD, BH, N, 1, k_scale,
+                                           st))
       return e;
   } else {
     constexpr size_t smem = smem_dq_f32<kTile, kTile>();

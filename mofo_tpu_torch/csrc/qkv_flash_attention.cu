@@ -25,10 +25,19 @@
 // (or of keys/values) and streams the other side in 64-row tiles: one
 // head's K and V at N = 1568 do not fit in a block's shared memory, so the
 // TPU's "whole K/V rows resident" design does not carry over.
-//   - The bf16 forward (K1) runs every product on the tensor cores with
-//     mma.sync m16n8k16 (bf16 in, f32 accumulate) and an online softmax:
-//     four warps own 16 rows each, P goes from the accumulators to P.V's A
-//     operand in registers; tiles come through plain synchronous loads.
+//   - The bf16 forward (K1, redesigned for Hopper, wgmma_tiles.cuh) makes
+//     one pass over kv with an online softmax: two consumer warpgroups of 64
+//     query rows each keep their q fragments (times scale * log2 e) in
+//     registers, and a producer warpgroup's first warp keeps a ring of 3
+//     (K, V) stages full by TMA from one 3D tensor map over (B, N, 3A)
+//     (q, k and v are column offsets h * 64, A + h * 64 and 2A + h * 64 of
+//     it; rows past N arrive as zeros), so tile j + 1 is in flight while
+//     tile j is multiplied; setmaxnreg hands the producer's registers to
+//     the consumers. S = Q K^T and O += P V are wgmma.mma_async m64n64k16
+//     chains on 128-byte-swizzled shared memory (V MN-major); the
+//     un-normalized P goes from the accumulators (rounded to bf16) into
+//     P.V, the accumulator is rescaled by exp2(m_old - m_new), and 1 / l
+//     divides it at the end. 3 products would be the floor; it does 2.
 //   - The bf16 backward (K2, redesigned for Hopper; its kernels are
 //     wgmma_attn_bwd.cuh's, shared with K4's backward, here in base 2) reads
 //     each byte its math needs once. A prep kernel, qkv_attn_bwd_prep, reads
@@ -53,9 +62,10 @@
 //     f32 to TF32; their backward forms delta itself. So the f32
 //     card-against-CPU step check of chip_smoke.py runs these FMA kernels
 //     only; the bf16 kernels are held against their plain versions on their
-//     own (mofo_tpu_torch/tools/main_path.py's bounds).
-// The mma.sync kernels pad shared-memory rows (bf16: 72, f32: 65 elements)
-// so fragment and micro-tile reads are free of bank conflicts. Ragged edges
+//     own (mofo_tpu_torch/tools/main_path.py's bounds) and in a bf16 step
+//     against the same step through the plain versions.
+// The FMA kernels pad shared-memory rows to 65 f32 values so micro-tile
+// reads are free of bank conflicts. Ragged edges
 // are masked in-kernel (kv columns >= N score -inf or get P = 0, q rows >=
 // N carry +inf LSE in the backward and are never stored); nothing is padded
 // in HBM.
@@ -373,202 +383,145 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // -------------------------------------------------------------------------
-// bf16: tensor-core kernels. 128 threads = 4 warps; warp w owns rows
-// [16w, 16w + 16) of the block's 64-row tile. mma.sync m16n8k16 fragment
-// layout (g = lane / 4, t = lane % 4): A holds rows g and g + 8, columns
-// 2t, 2t + 1 (+8); B holds k rows 2t, 2t + 1 (+8) of column g; the f32
-// accumulator c[nt] holds rows g (c0, c1) and g + 8 (c2, c3), columns
-// 8*nt + 2t and 8*nt + 2t + 1.
+// bf16 forward (K1), redesigned for Hopper (wgmma_tiles.cuh). A warp's 16
+// accumulator rows are in mma.sync's m16n8 layout (g = lane / 4, t = lane %
+// 4): c[nt] holds rows g (c0, c1) and g + 8 (c2, c3), columns 8 nt + 2t and
+// 8 nt + 2t + 1.
 // -------------------------------------------------------------------------
 
-constexpr int kWarps = 4;
-constexpr int kMmaThreads = 32 * kWarps;
-constexpr int kLdh = kD + 8;  // padded bf16 row stride: 144 bytes
-constexpr int kTileH = kRows * kLdh;
+constexpr int kFwdStages = 3;
+constexpr size_t kSmemFwdBf16 =
+    1024 + (size_t)(kWG + 2 * kFwdStages) * kTileBytes +
+    (2 * kFwdStages + 1) * sizeof(uint64_t);
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Copies rows [row0, row0 + 64) x kD columns of a row-major bf16 matrix
-// (row stride ld, 16-byte aligned rows) into dst (stride kLdh), 8 values a
-// thread at a time. Rows >= n are zero. With mul != 1 each value is
-// multiplied by mul and rounded to bf16 (the scale fold).
-__device__ __forceinline__ void load_tile_h(bf16* dst, const bf16* src,
-                                            int row0, int n, int ld,
-                                            float mul) {
-  for (int idx = threadIdx.x; idx < kRows * kD / 8; idx += blockDim.x) {
-    const int r = idx / (kD / 8), c = 8 * (idx % (kD / 8)), row = row0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row < n) {
-      v = *reinterpret_cast<const uint4*>(src + (size_t)row * ld + c);
-      if (mul != 1.f) {
-        __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(&v);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(x[e]);
-          x[e] = __floats2bfloat162_rn(f.x * mul, f.y * mul);
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLdh + c) = v;
-  }
-}
-
-// A fragments (k = 64: four k-steps) of the 16-row strip at row r0.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4][4], const bf16* s,
-                                       int r0) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const bf16* p = s + (r0 + g) * kLdh + 16 * kk + 2 * t;
-    a[kk][0] = ld32(p);
-    a[kk][1] = ld32(p + 8 * kLdh);
-    a[kk][2] = ld32(p + 8);
-    a[kk][3] = ld32(p + 8 * kLdh + 8);
-  }
-}
-
-// c (16 x 64) += a (16 x 64) . M^T for a row-major 64 x 64 tile M whose
-// rows are the output columns (S = Q K^T).
-__device__ __forceinline__ void mm_nt(float (&c)[8][4],
-                                      const uint32_t (&a)[4][4],
-                                      const bf16* m) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const bf16* p = m + (8 * nt + g) * kLdh + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mma(c[nt], a[kk], ld32(p + 16 * kk), ld32(p + 16 * kk + 8));
-  }
-}
-
-// c (16 x 64) += a (16 x 64) . M for a row-major 64 x 64 tile M whose rows
-// are the contraction index (O = P V).
-__device__ __forceinline__ void mm_nn(float (&c)[8][4],
-                                      const uint32_t (&a)[4][4],
-                                      const bf16* m) {
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const bf16* p = m + (16 * kk + 2 * t) * kLdh + 8 * nt + g;
-      mma(c[nt], a[kk], pack_bf(p[0], p[kLdh]),
-          pack_bf(p[8 * kLdh], p[9 * kLdh]));
-    }
-  }
-}
-
-// Accumulators (16 x 64 f32) -> A fragments of the next product, rounded
-// to bf16.
-__device__ __forceinline__ void to_a(uint32_t (&a)[4][4],
-                                     const float (&c)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = bf16x2(c[2 * kk][0], c[2 * kk][1]);
-    a[kk][1] = bf16x2(c[2 * kk][2], c[2 * kk][3]);
-    a[kk][2] = bf16x2(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-    a[kk][3] = bf16x2(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-  }
-}
-
-// Reductions over the 4 threads that share an accumulator row.
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Grid (ceil(N / 64), B * H). One block: one head's 64 query rows against
-// all N keys, streamed in 64-row tiles with an online softmax (base 2).
-__global__ void __launch_bounds__(kMmaThreads)
-    fwd_bf16(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+// Grid (ceil(N / (64 kWG)), B * H). One block: 64 kWG query rows of one head
+// against all N keys, streamed once in 64-row (K, V) tiles with an online
+// softmax (base 2). Each consumer warpgroup keeps the fragments of its 64
+// query rows (q times q_scale, in bf16) in registers; the producer
+// warpgroup's first warp keeps a ring of kFwdStages (K, V) stages full by
+// TMA. One tensor map over the fused (B, N, 3A) serves q (column h * 64), k
+// (A + h * 64) and v (2A + h * 64); rows past N arrive as zeros. The
+// un-normalized P is rounded to bf16 before P.V, and 1 / l divides the
+// output at the end.
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    fwd_bf16(const __grid_constant__ CUtensorMap tqkv, bf16* __restrict__ out,
              float* __restrict__ lse, int N, int H, float q_scale) {
-  __shared__ __align__(16) bf16 sQ[kTileH];
-  __shared__ __align__(16) bf16 sK[kTileH];
-  __shared__ __align__(16) bf16 sV[kTileH];
-  const int A = H * kD, ld = 3 * A;
+  extern __shared__ unsigned char wsmem[];
+  unsigned char* sm = smem_1024(wsmem);
+  bf16* sQ = reinterpret_cast<bf16*>(sm);
+  bf16* sK = sQ + kWG * kTileElems;
+  bf16* sV = sK + kFwdStages * kTileElems;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + kFwdStages * kTileElems);
+  uint64_t* empty = full + kFwdStages;
+  uint64_t* qbar = empty + kFwdStages;
+  const int A = H * kD;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kRows, r0 = 16 * (threadIdx.x >> 5);
-  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
-  const bf16* base = qkv + (size_t)b * N * ld;
+  const int q0 = blockIdx.x * kWG * kTileRows;
+  const int T = (N + kTileRows - 1) / kTileRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  load_tile_h(sQ, base + h * kD, q0, N, ld, q_scale);
-  __syncthreads();
-  uint32_t qa[4][4];
-  load_a(qa, sQ, r0);
-  float o[8][4] = {}, m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-  for (int k0 = 0; k0 < N; k0 += kRows) {
-    __syncthreads();  // the previous tile's sK/sV reads are done
-    load_tile_h(sK, base + A + h * kD, k0, N, ld, 1.f);
-    load_tile_h(sV, base + 2 * A + h * kD, k0, N, ld, 1.f);
-    __syncthreads();
-    float s[8][4] = {};
-    mm_nt(s, qa, sK);
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (k0 + 8 * nt + 2 * t + (e & 1) >= N) s[nt][e] = -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    float corr[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      // every tile holds at least one valid column, so the max is finite
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      corr[r] = exp2f(m[r] - m_new);
-      m[r] = m_new;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kWG);  // one arrival per consumer warp
     }
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = exp2f(s[nt][e] - m[e >> 1]);
-        rs[e >> 1] += s[nt][e];
-        o[nt][e] *= corr[e >> 1];
-      }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(rs[r]);
-    uint32_t pa[4][4];
-    to_a(pa, s);  // P rounded to bf16 before P.V
-    mm_nn(o, pa, sV);
+    mbar_init(qbar, 1);
+    mbar_fence_init();
   }
+  __syncthreads();
+
+  if (warp >= 4 * kWG) {  // producer
+    producer_registers();
+    if (warp == 4 * kWG && lane == 0) {
+      mbar_expect_tx(qbar, kWG * kTileBytes);
+      for (int w = 0; w < kWG; ++w)
+        tma_tile(sQ + w * kTileElems, &tqkv, qbar, h * kD,
+                 q0 + kTileRows * w, b);
+      for (int j = 0; j < T; ++j) {
+        const int s = j % kFwdStages;
+        mbar_wait(&empty[s], ((j / kFwdStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * kTileBytes);
+        tma_tile(sK + s * kTileElems, &tqkv, &full[s], A + h * kD,
+                 j * kTileRows, b);
+        tma_tile(sV + s * kTileElems, &tqkv, &full[s], 2 * A + h * kD,
+                 j * kTileRows, b);
+      }
+    }
+  } else {
+    consumer_registers();
+    const int wg = warp >> 2, r0 = 16 * (warp & 3);
+    const int g = lane >> 2, t = lane & 3;
+    mbar_wait(qbar, 0);
+    uint32_t qa[4][4];
+    load_a_sw128(qa, sQ + wg * kTileElems, r0, q_scale);
+    float o[8][4] = {}, m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    for (int j = 0; j < T; ++j) {
+      const int s = j % kFwdStages;
+      mbar_wait(&full[s], (j / kFwdStages) & 1);
+      float sc[8][4] = {};
+      wgmma_tile<0>(sc, qa, sK + s * kTileElems);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      if ((j + 1) * kTileRows > N) {  // the ragged last tile
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j * kTileRows + 8 * nt + 2 * t + (e & 1) >= N)
+              sc[nt][e] = -INFINITY;
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+      float corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // every tile holds at least one valid column, so the max is finite
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        corr[r] = exp2f(m[r] - m_new);
+        m[r] = m_new;
+      }
+      uint32_t pa[4][4];  // P rounded to bf16: the A fragments of P.V
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const float p0 = exp2f(sc[nt][e] - m[e >> 1]);
+          const float p1 = exp2f(sc[nt][e + 1] - m[e >> 1]);
+          rs[e >> 1] += p0 + p1;
+          pa[nt >> 1][2 * (nt & 1) + (e >> 1)] = bf16x2(p0, p1);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(rs[r]);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nt][e] *= corr[e >> 1];
+      wgmma_tile<1>(o, pa, sV + s * kTileElems);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(o);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
 
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = q0 + r0 + g + 8 * half;
-    if (row >= N) continue;
-    bf16* dst = out + ((size_t)b * N + row) * A + h * kD;
+    for (int half = 0; half < 2; ++half) {
+      const int row = q0 + kTileRows * wg + r0 + g + 8 * half;
+      if (row >= N) continue;
+      bf16* dst = out + ((size_t)b * N + row) * A + h * kD + 2 * t;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * nt + 2 * t) =
-          __floats2bfloat162_rn(o[nt][2 * half] / l[half],
-                                o[nt][2 * half + 1] / l[half]);
-    // LSE in log2 units: the scores carry log2(e)
-    if (t == 0) lse[(size_t)bh * N + row] = m[half] + log2f(l[half]);
+      for (int nt = 0; nt < 8; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * nt) =
+            __floats2bfloat162_rn(o[nt][2 * half] / l[half],
+                                  o[nt][2 * half + 1] / l[half]);
+      // LSE in log2 units: the scores carry log2(e)
+      if (t == 0) lse[(size_t)bh * N + row] = m[half] + log2f(l[half]);
+    }
   }
 }
 
@@ -611,15 +564,18 @@ extern "C" int qkv_attn_fwd(const void* qkv, void* out, void* lse, int B,
                             void* stream) {
   if (bad(B, N, H, D)) return kBadArgument;
   auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid = grid_for(B, N, H);
   if (bf16) {
-    fwd_bf16<<<grid, kMmaThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(qkv),
-        static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), N, H,
-        q_scale);
+    const int A = H * kD;
+    CUtensorMap tqkv;
+    if (int e = tile_map(&tqkv, qkv, 3 * A, N, B, 3 * A, (long)N * 3 * A))
+      return e;
+    if (int e = max_smem((const void*)fwd_bf16, kSmemFwdBf16)) return e;
+    fwd_bf16<<<hopper_grid(B, N, H), kHopperThreads, kSmemFwdBf16, st>>>(
+        tqkv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), N,
+        H, q_scale);
   } else {
     if (int e = max_smem((const void*)fwd_f32, kSmemFwdF32)) return e;
-    fwd_f32<<<grid, kThreads, kSmemFwdF32, st>>>(
+    fwd_f32<<<grid_for(B, N, H), kThreads, kSmemFwdF32, st>>>(
         static_cast<const float*>(qkv), static_cast<float*>(out),
         static_cast<float*>(lse), N, H, q_scale);
   }
@@ -635,9 +591,9 @@ extern "C" int qkv_attn_bwd_prep(const void* qkv, const void* out,
                                  float q_scale, float k_scale, void* stream) {
   if (bad(B, N, H, D)) return kBadArgument;
   const int A = H * kD;
-  if (int e = launch_bwd_prep(
-          qkv, static_cast<const __nv_bfloat16*>(qkv) + A, 3 * A, out, dout,
-          delta, qs, ks, B, N, H, q_scale, k_scale,
+  if (int e = launch_bwd_prep<kD / 8>(
+          qkv, static_cast<const __nv_bfloat16*>(qkv) + A, 3 * A, 3 * A, out,
+          dout, delta, qs, ks, B, N, H, q_scale, k_scale,
           static_cast<cudaStream_t>(stream)))
     return e;
   return (int)cudaGetLastError();
@@ -659,9 +615,9 @@ extern "C" int qkv_attn_bwd_dkv(const void* qkv, const void* out,
     if (int e = fused_maps(&tqkv, &tqs, &tdo, qkv, qs, dout, B, N, A))
       return e;
     auto dk = static_cast<__nv_bfloat16*>(dqkv) + A;
-    if (int e = launch_bwd_dkv<false>(tqkv, tqkv, tqs, tdo, A, 2 * A, lse,
-                                      delta, dk, dk + A, 3 * A, B, N, H,
-                                      dk_fix, st))
+    if (int e = launch_bwd_dkv<false, false>(tqkv, tqkv, tqs, tdo, A, 2 * A,
+                                             lse, delta, nullptr, dk, dk + A,
+                                             3 * A, B, N, H, dk_fix, st))
       return e;
   } else {
     // f32 works in base e: dK needs no 1/log2(e) fix
@@ -692,10 +648,10 @@ extern "C" int qkv_attn_bwd_dq(const void* qkv, const void* out,
       return e;
     if (ks)
       if (int e = tile_map(&tks, ks, A, N, B, A, (long)N * A)) return e;
-    if (int e = launch_bwd_dq<false>(tqkv, tqkv, tqs, tdo,
-                                     ks ? &tks : nullptr, A, 2 * A, lse,
-                                     delta, dqkv, 3 * A, B, N, H, k_scale,
-                                     st))
+    if (int e = launch_bwd_dq<false, false>(tqkv, tqkv, tqs, tdo,
+                                            ks ? &tks : nullptr, A, 2 * A,
+                                            lse, delta, nullptr, dqkv, 3 * A,
+                                            B, N, H, k_scale, st))
       return e;
   } else {
     if (int e = max_smem((const void*)bwd_dq_f32, kSmemBwdF32)) return e;

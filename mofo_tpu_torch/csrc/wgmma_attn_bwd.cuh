@@ -1,7 +1,10 @@
 // The bf16 attention backward for Hopper that qkv_flash_attention.cu (K2,
-// fused-qkv layout, base 2) and hm_flash_attention.cu (K4, head-major layout,
-// base e) share: a prep pass and the dK/dV and dQ kernels, built from
-// wgmma_tiles.cuh. The layout and the softmax base are the parameters.
+// fused-qkv layout, base 2), hm_flash_attention.cu (K4, head-major layout,
+// base e) and mh_flash_attention.cu (K3 at head dim 64: separate q, k, v
+// with a kv bias row, base 2) share: a prep pass and the dK/dV and dQ
+// kernels, built from wgmma_tiles.cuh. The layout, the softmax base and the
+// bias are the parameters. K3 at head dim 256 has kernels of its own
+// (mh_flash_attention.cu) and shares the prep pass.
 //
 // Layout. Every operand is reached through a 3D tensor map (columns, rows,
 // planes) of 64 x 64 boxes, and block (x, y) works on plane b = y / H at
@@ -10,7 +13,10 @@
 //     column offset A, v at 2A; outputs go to columns of one dqkv, row stride
 //     3A;
 //   - head-major (BH, N, 64): H = 1, every offset 0, each operand its own
-//     map; outputs are (BH, N, 64), row stride 64.
+//     map; outputs are (BH, N, 64), row stride 64;
+//   - separate q, k, v (B, N, 64 H), each with its own row stride (k and v
+//     may be column views of a fused kv): every offset 0, each operand its
+//     own map; dk and dv share one row stride.
 // Rows past N arrive as zeros (the maps' planes are N rows), and P = 0 for
 // kv columns >= N and q rows >= N in-kernel. lse and delta are (planes * H,
 // N) f32.
@@ -31,6 +37,12 @@
 // tile into the stage. The split into dK/dV over kv tiles and dQ over q
 // tiles keeps one writer per output: no atomics, deterministic sums.
 //
+// Bias. With kBias a (planes, N) f32 row (or null: zeros) is added to the
+// scores after the scale fold, before exp2f: dK/dV reads the two values of
+// each thread's own kv rows once, dQ's producer lanes stage the 64 values of
+// each kv tile beside it (-inf past N). Without kBias the kernels compile to
+// what they were before the flag.
+//
 // Numerics: P is rounded to bf16; dS = bf16(P) * bf16(dP - delta), the
 // subtraction in f32, rounded to bf16. dQ = dS (K * k_scale): with a
 // power-of-two k_scale the f32 accumulator of dS K is scaled at the store,
@@ -49,19 +61,22 @@ namespace {
 constexpr int kBwdStages = 2;
 constexpr int kPrepThreads = 256;
 
-// Grid-stride over the 8-value chunks of BN rows of A = 64 H columns: chunk
-// c of row i is q[i, 8c..8c+7] (row stride ld; k the same) and the same
-// columns of dO, O, qs and ks (row stride A). Eight consecutive chunks are
-// one head, so delta is an eight-lane shuffle sum, written at
-// ((i / N) * H + c / 8) * N + i % N. ks (when not null) gets k * k_scale
-// rounded to bf16.
+// Grid-stride over the 8-value chunks of BN rows of A = 8 kHeadChunks H
+// columns: chunk c of row i is q[i, 8c..8c+7] (row stride ldq; k the same
+// with ldk) and the same columns of dO, O, qs and ks (row stride A).
+// kHeadChunks consecutive chunks are one head (8 at head dim 64, 32 at 256:
+// a warp never straddles two heads), so delta is a shuffle sum over that
+// many lanes, written at ((i / N) * H + c / kHeadChunks) * N + i % N. ks
+// (when not null) gets k * k_scale rounded to bf16.
+template <int kHeadChunks>
 __global__ void __launch_bounds__(kPrepThreads)
     bwd_prep_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  int ld, const bf16* __restrict__ out,
+                  int ldq, int ldk, const bf16* __restrict__ out,
                   const bf16* __restrict__ dout, float* __restrict__ delta,
                   bf16* __restrict__ qs, bf16* __restrict__ ks, int BN, int N,
                   int H, float q_scale, float k_scale) {
-  const int A = H * 64, C = A / 8;
+  static_assert(kHeadChunks == 8 || kHeadChunks == 32, "head dim 64 or 256");
+  const int A = H * 8 * kHeadChunks, C = A / 8;
   const int total = BN * C;  // < 2^31: launch_bwd_prep's bound
   const int stride = gridDim.x * blockDim.x;
   const int lane = threadIdx.x & 31;
@@ -85,8 +100,8 @@ __global__ void __launch_bounds__(kPrepThreads)
         acc = fmaf(fx.x, fy.x, acc);
         acc = fmaf(fx.y, fy.y, acc);
       }
-      const size_t from = (size_t)row * ld + 8 * c;
       for (int part = 0; part < (ks ? 2 : 1); ++part) {
+        const size_t from = (size_t)row * (part ? ldk : ldq) + 8 * c;
         uint4 v = *reinterpret_cast<const uint4*>((part ? k : q) + from);
         const float mul = part ? k_scale : q_scale;
         __nv_bfloat162* z = reinterpret_cast<__nv_bfloat162*>(&v);
@@ -98,12 +113,12 @@ __global__ void __launch_bounds__(kPrepThreads)
         *reinterpret_cast<uint4*>((part ? ks : qs) + at) = v;
       }
     }
-    acc += __shfl_xor_sync(0xffffffffu, acc, 4);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-    if (on && (c & 7) == 0) {
+#pragma unroll
+    for (int o = kHeadChunks / 2; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (on && c % kHeadChunks == 0) {
       const int b = row / N, n = row - b * N;
-      delta[((size_t)b * H + c / 8) * N + n] = acc;
+      delta[((size_t)b * H + c / kHeadChunks) * N + n] = acc;
     }
   }
 }
@@ -140,15 +155,16 @@ constexpr size_t kSmemDkvBf16 =
 // in registers. Each warpgroup forms S^T = K Q^T and dP^T = V dO^T for its
 // kv rows, so P^T and dS^T feed dV += P^T dO and dK += dS^T Q straight from
 // the accumulators. dk and dv point at head 0's column of plane 0, row
-// stride ld_out.
-template <bool kBaseE>
+// stride ld_out. bias (kBias only): (planes, N) f32 or null.
+template <bool kBaseE, bool kBias>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     bwd_dkv_bf16(const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
                  const __grid_constant__ CUtensorMap tqs,
                  const __grid_constant__ CUtensorMap tdo, int col_k,
                  int col_v, const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dk,
+                 const float* __restrict__ delta,
+                 const float* __restrict__ bias, bf16* __restrict__ dk,
                  bf16* __restrict__ dv, int ld_out, int N, int H,
                  float dk_fix) {
   extern __shared__ unsigned char wsmem[];
@@ -213,6 +229,15 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
     consumer_registers();
     const int wg = warp >> 2, r0 = 16 * (warp & 3);
     const int t = lane & 3;
+    float bias_r[2] = {0.f, 0.f};  // of this thread's two kv rows
+    if (kBias && bias) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        // rows >= N are never stored: any finite bias will do
+        const int row = k0 + kTileRows * wg + r0 + (lane >> 2) + 8 * half;
+        if (row < N) bias_r[half] = bias[(size_t)b * N + row];
+      }
+    }
     mbar_wait(kvbar, 0);
     uint32_t ka[4][4];  // V stays in shared memory: A of dP^T through desc
     load_a_sw128(ka, sK + wg * kTileElems, r0, 1.f);
@@ -239,11 +264,16 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         const float2 l2 = *reinterpret_cast<const float2*>(sl + col);
         const float2 d2 = *reinterpret_cast<const float2*>(sd + col);
 #pragma unroll
-        for (int e = 0; e < 4; e += 2)
+        for (int e = 0; e < 4; e += 2) {
+          if (kBias) {  // after the scale fold
+            st[nt][e] += bias_r[e >> 1];
+            st[nt][e + 1] += bias_r[e >> 1];
+          }
           p_and_ds_pair<kBaseE>(st[nt][e], st[nt][e + 1], dpt[nt][e],
                                 dpt[nt][e + 1], l2.x, l2.y, d2.x, d2.y,
                                 pa[nt >> 1][2 * (nt & 1) + (e >> 1)],
                                 da[nt >> 1][2 * (nt & 1) + (e >> 1)]);
+        }
       }
       wgmma_tile<1>(dva, pa, do_tile);
       wgmma_tile<1>(dka, da, q_tile);
@@ -262,10 +292,11 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   }
 }
 
-template <bool kScaledCopy>
+template <bool kScaledCopy, bool kBias>
 constexpr size_t smem_dq_bf16() {
   return 1024 +
          (size_t)(2 * kWG + (kScaledCopy ? 3 : 2) * kBwdStages) * kTileBytes +
+         (kBias ? kBwdStages * kTileRows * sizeof(float) : 0) +
          (2 * kBwdStages + 1) * sizeof(uint64_t);
 }
 
@@ -275,8 +306,10 @@ constexpr size_t smem_dq_bf16() {
 // kScaledCopy the dS K product reads K * k_scale from its own copy (a
 // scale that is not a power of two); otherwise it reads the K tile of S and
 // acc_mul = k_scale, which is the same in bf16. dq points at head 0's
-// column of plane 0, row stride ld_out.
-template <bool kBaseE, bool kScaledCopy>
+// column of plane 0, row stride ld_out. With kBias the whole producer warp
+// runs: lane 0 starts the loads, the lanes stage each tile's bias values
+// ((planes, N) f32 or null; -inf past N).
+template <bool kBaseE, bool kScaledCopy, bool kBias>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     bwd_dq_bf16(const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
@@ -284,7 +317,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                 const __grid_constant__ CUtensorMap tdo,
                 const __grid_constant__ CUtensorMap tks, int col_k,
                 int col_v, const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dq,
+                const float* __restrict__ delta,
+                const float* __restrict__ bias, bf16* __restrict__ dq,
                 int ld_out, int N, int H, float acc_mul) {
   constexpr int kLoads = kScaledCopy ? 3 : 2;
   extern __shared__ unsigned char wsmem[];
@@ -292,8 +326,10 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   bf16* sQ = reinterpret_cast<bf16*>(sm);
   bf16* sdO = sQ + kWG * kTileElems;
   bf16* sKV = sdO + kWG * kTileElems;  // per stage: K, V (, K * k_scale)
-  uint64_t* full =
-      reinterpret_cast<uint64_t*>(sKV + kLoads * kBwdStages * kTileElems);
+  float* sBias =
+      reinterpret_cast<float*>(sKV + kLoads * kBwdStages * kTileElems);
+  uint64_t* full = reinterpret_cast<uint64_t*>(
+      sBias + (kBias ? kBwdStages * kTileRows : 0));
   uint64_t* empty = full + kBwdStages;
   uint64_t* qbar = empty + kBwdStages;
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -303,7 +339,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kBwdStages; ++s) {
-      mbar_init(&full[s], 1);
+      mbar_init(&full[s], kBias ? 1 + 32 : 1);  // TMA (and the bias' lanes)
       mbar_init(&empty[s], 4 * kWG);
     }
     mbar_init(qbar, 1);
@@ -313,24 +349,37 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 
   if (warp >= 4 * kWG) {  // producer
     producer_registers();
-    if (warp == 4 * kWG && lane == 0) {
-      mbar_expect_tx(qbar, 2 * kWG * kTileBytes);
-      for (int w = 0; w < kWG; ++w) {
-        const int row = q0 + kTileRows * w;
-        tma_tile(sQ + w * kTileElems, &tqs, qbar, h * 64, row, b);
-        tma_tile(sdO + w * kTileElems, &tdo, qbar, h * 64, row, b);
+    if (warp == 4 * kWG && (kBias || lane == 0)) {
+      if (lane == 0) {
+        mbar_expect_tx(qbar, 2 * kWG * kTileBytes);
+        for (int w = 0; w < kWG; ++w) {
+          const int row = q0 + kTileRows * w;
+          tma_tile(sQ + w * kTileElems, &tqs, qbar, h * 64, row, b);
+          tma_tile(sdO + w * kTileElems, &tdo, qbar, h * 64, row, b);
+        }
       }
+      const float* bias_b = kBias && bias ? bias + (size_t)b * N : nullptr;
       for (int j = 0; j < T; ++j) {
         const int s = j % kBwdStages;
         bf16* stage = sKV + s * kLoads * kTileElems;
         mbar_wait(&empty[s], ((j / kBwdStages) & 1) ^ 1);
-        mbar_expect_tx(&full[s], kLoads * kTileBytes);
-        tma_tile(stage, &tk, &full[s], col_k + h * 64, j * kTileRows, b);
-        tma_tile(stage + kTileElems, &tv, &full[s], col_v + h * 64,
-                 j * kTileRows, b);
-        if (kScaledCopy)
-          tma_tile(stage + 2 * kTileElems, &tks, &full[s], h * 64,
+        if (lane == 0) {
+          mbar_expect_tx(&full[s], kLoads * kTileBytes);
+          tma_tile(stage, &tk, &full[s], col_k + h * 64, j * kTileRows, b);
+          tma_tile(stage + kTileElems, &tv, &full[s], col_v + h * 64,
                    j * kTileRows, b);
+          if (kScaledCopy)
+            tma_tile(stage + 2 * kTileElems, &tks, &full[s], h * 64,
+                     j * kTileRows, b);
+        }
+        if (kBias) {
+          float* sb = sBias + s * kTileRows;
+          for (int r = lane; r < kTileRows; r += 32) {
+            const int col = j * kTileRows + r;  // -inf masks columns >= N
+            sb[r] = col < N ? (bias_b ? bias_b[col] : 0.f) : -INFINITY;
+          }
+          mbar_arrive(&full[s]);
+        }
       }
     }
   } else {
@@ -366,7 +415,13 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       const bool ragged = (j + 1) * kTileRows > N;
       uint32_t sa[4][4];
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
+      for (int nt = 0; nt < 8; ++nt) {
+        if (kBias) {  // after the scale fold
+          const float2 b2 = *reinterpret_cast<const float2*>(
+              sBias + s * kTileRows + 8 * nt + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[nt][e] += (e & 1) ? b2.y : b2.x;
+        }
 #pragma unroll
         for (int e = 0; e < 4; e += 2) {
           const int col = j * kTileRows + 8 * nt + 2 * t;
@@ -379,6 +434,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                                 delta_r[e >> 1], pw,
                                 sa[nt >> 1][2 * (nt & 1) + (e >> 1)]);
         }
+      }
       wgmma_tile<1>(acc, sa, stage + (kScaledCopy ? 2 : 0) * kTileElems);
       wgmma_commit();
       wgmma_wait<0>();
@@ -407,71 +463,73 @@ bool power_of_two(float x) {
   return frexpf(x, &exponent) == 0.5f;
 }
 
-// q and k (row stride ld), out and dout (row stride 64 H) -> delta, qs and,
-// unless ks is null, ks.
-int launch_bwd_prep(const void* q, const void* k, int ld, const void* out,
-                    const void* dout, void* delta, void* qs, void* ks, int B,
-                    int N, int H, float q_scale, float k_scale,
-                    cudaStream_t st) {
-  if ((long)B * N * ld >= (1l << 31)) return kBadArgument;
-  const long chunks = (long)B * N * H * 8;
+// q (row stride ldq) and k (row stride ldk), out and dout (row stride
+// A = 8 kHeadChunks H) -> delta, qs and, unless ks is null, ks.
+template <int kHeadChunks>
+int launch_bwd_prep(const void* q, const void* k, int ldq, int ldk,
+                    const void* out, const void* dout, void* delta, void* qs,
+                    void* ks, int B, int N, int H, float q_scale,
+                    float k_scale, cudaStream_t st) {
+  if ((long)B * N * std::max(ldq, ldk) >= (1l << 31)) return kBadArgument;
+  const long chunks = (long)B * N * H * kHeadChunks;
   const int blocks = (int)std::min<long>(
       (chunks + kPrepThreads - 1) / kPrepThreads, 132 * 16);
-  bwd_prep_bf16<<<blocks, kPrepThreads, 0, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), ld,
+  bwd_prep_bf16<kHeadChunks><<<blocks, kPrepThreads, 0, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), ldq, ldk,
       static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
       static_cast<float*>(delta), static_cast<bf16*>(qs),
       static_cast<bf16*>(ks), B * N, N, H, q_scale, k_scale);
   return 0;
 }
 
-template <bool kBaseE>
+template <bool kBaseE, bool kBias>
 int launch_bwd_dkv(const CUtensorMap& tk, const CUtensorMap& tv,
                    const CUtensorMap& tqs, const CUtensorMap& tdo, int col_k,
-                   int col_v, const void* lse, const void* delta, void* dk,
-                   void* dv, int ld_out, int B, int N, int H, float dk_fix,
-                   cudaStream_t st) {
-  auto kernel = bwd_dkv_bf16<kBaseE>;
+                   int col_v, const void* lse, const void* delta,
+                   const void* bias, void* dk, void* dv, int ld_out, int B,
+                   int N, int H, float dk_fix, cudaStream_t st) {
+  auto kernel = bwd_dkv_bf16<kBaseE, kBias>;
   if (int e = max_smem((const void*)kernel, kSmemDkvBf16)) return e;
   kernel<<<hopper_grid(B, N, H), kHopperThreads, kSmemDkvBf16, st>>>(
       tk, tv, tqs, tdo, col_k, col_v, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), ld_out, N, H, dk_fix);
+      static_cast<const float*>(delta), static_cast<const float*>(bias),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), ld_out, N, H, dk_fix);
   return 0;
 }
 
-template <bool kBaseE, bool kScaledCopy>
+template <bool kBaseE, bool kScaledCopy, bool kBias>
 int launch_bwd_dq_as(const CUtensorMap& tk, const CUtensorMap& tv,
                      const CUtensorMap& tqs, const CUtensorMap& tdo,
                      const CUtensorMap& tks, int col_k, int col_v,
-                     const void* lse, const void* delta, void* dq,
-                     int ld_out, int B, int N, int H, float acc_mul,
-                     cudaStream_t st) {
-  constexpr size_t smem = smem_dq_bf16<kScaledCopy>();
-  auto kernel = bwd_dq_bf16<kBaseE, kScaledCopy>;
+                     const void* lse, const void* delta, const void* bias,
+                     void* dq, int ld_out, int B, int N, int H,
+                     float acc_mul, cudaStream_t st) {
+  constexpr size_t smem = smem_dq_bf16<kScaledCopy, kBias>();
+  auto kernel = bwd_dq_bf16<kBaseE, kScaledCopy, kBias>;
   if (int e = max_smem((const void*)kernel, smem)) return e;
   kernel<<<hopper_grid(B, N, H), kHopperThreads, smem, st>>>(
       tk, tv, tqs, tdo, tks, col_k, col_v, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq), ld_out, N,
-      H, acc_mul);
+      static_cast<const float*>(delta), static_cast<const float*>(bias),
+      static_cast<bf16*>(dq), ld_out, N, H, acc_mul);
   return 0;
 }
 
 // tks is null when k_scale is a power of two (the accumulator is scaled);
 // otherwise it maps the prep pass's k * k_scale.
-template <bool kBaseE>
+template <bool kBaseE, bool kBias>
 int launch_bwd_dq(const CUtensorMap& tk, const CUtensorMap& tv,
                   const CUtensorMap& tqs, const CUtensorMap& tdo,
                   const CUtensorMap* tks, int col_k, int col_v,
-                  const void* lse, const void* delta, void* dq, int ld_out,
-                  int B, int N, int H, float k_scale, cudaStream_t st) {
+                  const void* lse, const void* delta, const void* bias,
+                  void* dq, int ld_out, int B, int N, int H, float k_scale,
+                  cudaStream_t st) {
   if (!tks && !power_of_two(k_scale)) return kBadArgument;
-  return tks ? launch_bwd_dq_as<kBaseE, true>(tk, tv, tqs, tdo, *tks, col_k,
-                                              col_v, lse, delta, dq, ld_out,
-                                              B, N, H, 1.f, st)
-             : launch_bwd_dq_as<kBaseE, false>(tk, tv, tqs, tdo, tqs, col_k,
-                                               col_v, lse, delta, dq, ld_out,
-                                               B, N, H, k_scale, st);
+  return tks ? launch_bwd_dq_as<kBaseE, true, kBias>(
+                   tk, tv, tqs, tdo, *tks, col_k, col_v, lse, delta, bias,
+                   dq, ld_out, B, N, H, 1.f, st)
+             : launch_bwd_dq_as<kBaseE, false, kBias>(
+                   tk, tv, tqs, tdo, tqs, col_k, col_v, lse, delta, bias, dq,
+                   ld_out, B, N, H, k_scale, st);
 }
 
 }  // namespace

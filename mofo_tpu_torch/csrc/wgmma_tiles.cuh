@@ -1,7 +1,9 @@
-// Hopper building blocks of the redesigned bf16 attention kernels
-// (hm_flash_attention.cu's K4 forward, mh_flash_attention.cu's K3 forward and,
-// through wgmma_attn_bwd.cuh, the K2 and K4 backwards): TMA tile loads into a
-// ring of shared-memory stages with mbarrier completion, warpgroup products
+// Hopper building blocks of every bf16 attention kernel (the forwards of
+// qkv_flash_attention.cu (K1), mh_flash_attention.cu (K3) and
+// hm_flash_attention.cu (K4), K3's backward at head dim 256 and, through
+// wgmma_attn_bwd.cuh, the K2, K4 and head-dim-64 K3 backwards): TMA tile
+// loads into a ring of shared-memory stages with mbarrier completion,
+// warpgroup products
 // (wgmma.mma_async m64n64k16, A from registers or shared memory, B from
 // 128-byte-swizzled shared memory), the host-side tensor maps and the launch
 // helpers every source shares. Everything is in an anonymous namespace: each
@@ -290,6 +292,17 @@ __device__ __forceinline__ void load_a_sw128(uint32_t (&a)[4][4],
       }
       a[kk][i] = v;
     }
+}
+
+// Reductions over the 4 threads that share an accumulator row.
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Stores rows [r0, r0 + 16) of a warp's 16 x 64 accumulator (times mul) as

@@ -41,8 +41,9 @@ SIGNATURES = {
     "qkv_attn_bwd_dkv": [_P] * 7 + [_I] * 4 + [_F, _F, _I, _P],
     "qkv_attn_bwd_dq": [_P] * 8 + [_I] * 4 + [_F, _F, _I, _P],
     "mh_attn_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
-    "mh_attn_bwd_dkv": [_P] * 9 + [_I] * 8 + [_F, _F, _I, _P],
-    "mh_attn_bwd_dq": [_P] * 8 + [_I] * 7 + [_F, _F, _I, _P],
+    "mh_attn_bwd_prep": [_P] * 7 + [_I] * 6 + [_F, _F, _P],
+    "mh_attn_bwd_dkv": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
+    "mh_attn_bwd_dq": [_P] * 10 + [_I] * 7 + [_F, _F, _I, _P],
     "hm_attn_fwd": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
     "hm_attn_bwd_prep": [_P] * 7 + [_I] * 3 + [_F, _F, _P],
     "hm_attn_bwd_dkv": [_P] * 9 + [_I] * 3 + [_F, _I, _P],

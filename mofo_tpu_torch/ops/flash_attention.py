@@ -15,7 +15,13 @@ run:
     (B, N) f32 kv bias row (0 / -1e30), the masked cross-attention of the
     BB-focused classifier's MCA block: K3 (_mh_fwd_impl / _mh_fwd_kernel
     with has_bias, _mh_bwd_impl / _mh_dqkv_kernel), here
-    csrc/mh_flash_attention.cu, for D in {64, 256}.
+    csrc/mh_flash_attention.cu, for D in {64, 256}; its bf16 backward runs
+    a prep pass too (mh_attn_bwd_prep), its f32 backward after mh_delta's
+    reduction.
+
+Every bf16 kernel is a TMA + wgmma kernel (csrc/wgmma_tiles.cuh; the K2, K4
+and head-dim-64 K3 backwards share csrc/wgmma_attn_bwd.cuh); every f32
+kernel runs FMAs.
 
 Dispatch is by the tensor's device: a CUDA tensor goes to the kernel (or
 the wrapper raises), a CPU tensor to the plain PyTorch version below, which
@@ -54,8 +60,11 @@ MH_HEAD_DIMS = (64, 256)  # the head dims of the K3 kernels
 QKV_KERNELS = ("qkv_attn_fwd", "qkv_attn_bwd_prep", "qkv_attn_bwd_dkv",
                "qkv_attn_bwd_dq")
 QKV_F32_KERNELS = ("qkv_attn_fwd", "qkv_attn_bwd_dkv", "qkv_attn_bwd_dq")
-MH_KERNELS = ("mh_attn_fwd", "mh_attn_bwd_dkv", "mh_attn_bwd_dq")
-# as K2: hm_attn_bwd_prep runs in bf16 only (HM_F32_KERNELS without it)
+# as K2: mh_attn_bwd_prep and hm_attn_bwd_prep run in bf16 only (the
+# *_F32_KERNELS are without them)
+MH_KERNELS = ("mh_attn_fwd", "mh_attn_bwd_prep", "mh_attn_bwd_dkv",
+              "mh_attn_bwd_dq")
+MH_F32_KERNELS = ("mh_attn_fwd", "mh_attn_bwd_dkv", "mh_attn_bwd_dq")
 HM_KERNELS = ("hm_attn_fwd", "hm_attn_bwd_prep", "hm_attn_bwd_dkv",
               "hm_attn_bwd_dq")
 HM_F32_KERNELS = ("hm_attn_fwd", "hm_attn_bwd_dkv", "hm_attn_bwd_dq")
@@ -496,70 +505,186 @@ def mh_attn_fwd(q, k, v, kv_bias, scale: float, heads: int):
 
 
 def mh_delta(out, dout, heads: int) -> torch.Tensor:
-    """delta = rowsum(dO * O) per head, (B, H, N) f32: one reduction before
-    the backward kernels, as the TPU computes it in XLA
-    (mofo_tpu/ops/flash_attention.py:751-758)."""
+    """delta = rowsum(dO * O) per head, (B, H, N) f32, as the TPU computes
+    it in XLA (mofo_tpu/ops/flash_attention.py:751-758): the plain version
+    of the prep pass's delta, and the f32 backward's one reduction."""
     return (_heads(dout, heads).float() * _heads(out, heads).float()).sum(
         dim=-1).contiguous()
 
 
+def _mh_scaled_k_copy(k_scale: float, D: int) -> bool:
+    """Whether the prep pass writes k * k_scale for dQ: only at head dim 64
+    and a scale that is not a power of two. A power of two scales dQ's f32
+    accumulator instead, and at head dim 256 the dQ kernel has no shared
+    memory for a third strip and folds the scale into its K strip."""
+    return D == HEAD_DIM and not _power_of_two(k_scale)
+
+
+def attention_mh_bwd_prep_plain(q, k, out, dout, scale: float, heads: int):
+    """Plain PyTorch version of mh_attn_bwd_prep: (delta (B, H, N) f32,
+    q * q_scale (B, N, A) in the input dtype, and k * k_scale the same way
+    or None, see _mh_scaled_k_copy)."""
+    dt = q.dtype
+    q_scale, k_scale, _ = _scales(scale, dt)
+    qs = q * torch.tensor(q_scale, dtype=dt, device=q.device)
+    ks = None
+    if _mh_scaled_k_copy(k_scale, q.shape[-1] // heads):
+        ks = k * torch.tensor(k_scale, dtype=dt, device=q.device)
+    return mh_delta(out, dout, heads), qs, ks
+
+
+def attention_mh_bwd_from_prep_plain(k, v, kv_bias, lse, dout, delta, qs, ks,
+                                     scale: float, heads: int):
+    """Plain PyTorch version of mh_attn_bwd_dkv and mh_attn_bwd_dq after the
+    prep pass: (dq, dk, dv) from its delta, q * q_scale and k * k_scale
+    (None: dQ's product takes k and is scaled after when the scale is a
+    power of two, and takes k * k_scale formed here otherwise, as the
+    head-dim-256 kernel folds it into its K strip)."""
+    dt = k.dtype
+    _, k_scale, base2 = _scales(scale, dt)
+    kh, vh = _heads(k, heads), _heads(v, heads)
+    qh, do = _heads(qs, heads).float(), _heads(dout, heads).float()
+    s = torch.matmul(qh, kh.float().transpose(-1, -2)) + _bias4(kv_bias)
+    p = torch.exp2(s - lse[..., None]) if base2 else torch.exp(
+        s - lse[..., None]
+    )
+    p16 = p.to(dt)
+    dp = torch.matmul(do, vh.float().transpose(-1, -2))
+    dv = torch.matmul(p16.float().transpose(-1, -2), do)
+    ds = (p16 * (dp - delta[..., None]).to(dt)).float()
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    if base2:
+        dk = dk * torch.tensor(1.0 / LOG2E, dtype=torch.float32)
+    if ks is not None:
+        dq = torch.matmul(ds, _heads(ks, heads).float())
+    elif _power_of_two(k_scale):
+        dq = torch.matmul(ds, kh.float()) * k_scale
+    else:
+        dq = torch.matmul(ds, (kh * torch.tensor(
+            k_scale, dtype=dt, device=k.device)).float())
+    return tuple(merge_heads(g.to(dt)) for g in (dq, dk, dv))
+
+
+def _check_like_q(q, **tensors):
+    """Raises unless each tensor is contiguous, 16-byte aligned and like q."""
+    for name, t in tensors.items():
+        if t.shape != q.shape or t.dtype != q.dtype or \
+                not t.is_contiguous() or t.device != q.device or \
+                t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous, 16-byte aligned "
+                             "and like q")
+
+
+def _check_mh_stat(q, heads: int, **stats):
+    B, N, _ = q.shape
+    for name, t in stats.items():
+        if t.shape != (B, heads, N) or t.dtype != torch.float32 or \
+                not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous (B, H, N) "
+                             "float32 on q's device")
+
+
 def _check_mh_bwd(q, out, lse, dout, heads: int):
+    _check_like_q(q, out=out, dout=dout)
+    _check_mh_stat(q, heads, lse=lse)
+
+
+def mh_attn_bwd_prep(q, k, out, dout, scale: float, heads: int):
+    """The bf16 backward's prep pass: (delta (B, H, N) f32, q * q_scale
+    (B, N, A), k * k_scale or None), read from q, O and dO once. q and k
+    keep their row strides. Kernel on CUDA (bf16 only), plain version on
+    the CPU."""
+    if q.device.type == "cpu":
+        return attention_mh_bwd_prep_plain(q, k, out, dout, scale, heads)
+    D = _check_mh(q, k, k, None, heads)
+    if q.dtype != torch.bfloat16:
+        raise ValueError("mh_attn_bwd_prep is the bf16 backward's: the f32 "
+                         "kernels scale q themselves and take mh_delta")
+    _check_like_q(q, out=out, dout=dout)
     B, N, A = q.shape
-    for name, t in (("out", out), ("dout", dout)):
-        if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous and shaped like q")
-    if lse.shape != (B, heads, N) or lse.dtype != torch.float32 or \
-            not lse.is_contiguous():
-        raise ValueError("lse must be a contiguous (B, H, N) float32")
+    q_scale, k_scale, _ = _scales(scale, q.dtype)
+    delta = torch.empty((B, heads, N), dtype=torch.float32, device=q.device)
+    qs = torch.empty((B, N, A), dtype=q.dtype, device=q.device)
+    ks = torch.empty_like(qs) if _mh_scaled_k_copy(k_scale, D) else None
+    _launch("mh_attn_bwd_prep", q, q.data_ptr(), k.data_ptr(),
+            out.data_ptr(), dout.data_ptr(), delta.data_ptr(), qs.data_ptr(),
+            _ptr(ks), B, N, heads, D, q.stride(1), k.stride(1), q_scale,
+            k_scale)
+    return delta, qs, ks
 
 
-def mh_attn_bwd_dkv(q, k, v, kv_bias, dout, lse, delta, dk, dv,
-                    scale: float, heads: int):
+def _mh_prep(q, k, out, dout, scale, heads, prep):
+    """(delta, qs, ks) of the backward kernels: `prep` if given, else the
+    prep pass in bf16 and (mh_delta, None, None) in f32, whose kernels
+    scale q and k themselves."""
+    if prep is None:
+        prep = (mh_attn_bwd_prep(q, k, out, dout, scale, heads)
+                if q.dtype == torch.bfloat16
+                else (mh_delta(out, dout, heads), None, None))
+    delta, qs, ks = prep
+    _check_mh_stat(q, heads, delta=delta)
+    if q.dtype == torch.bfloat16:
+        if qs is None:
+            raise ValueError("the bf16 kernels need the prep pass's "
+                             "q * q_scale")
+        _check_like_q(q, qs=qs, **({} if ks is None else {"ks": ks}))
+    return delta, qs, ks
+
+
+def mh_attn_bwd_dkv(q, k, v, kv_bias, out, lse, dout, dk, dv, scale: float,
+                    heads: int, prep=None):
     """Writes dK and dV (CUDA only): dk and dv share one row stride, as the
-    two halves of a (B, N, 2A) dkv do."""
+    two halves of a (B, N, 2A) dkv do. `prep`: mh_attn_bwd_prep's outputs in
+    bf16, (delta, None, None) in f32; computed here when None."""
     D = _check_mh(q, k, v, kv_bias, heads)
+    _check_mh_bwd(q, out, lse, dout, heads)
     B, N, _ = q.shape
     if dk.stride() != dv.stride() or dk.stride(2) != 1 or \
             dk.shape != q.shape or dk.dtype != q.dtype:
         raise ValueError("dk and dv must be shaped like q, with one stride")
+    delta, qs, _ = _mh_prep(q, k, out, dout, scale, heads, prep)
     q_scale, _, base2 = _scales(scale, q.dtype)
     dk_fix = 1.0 / LOG2E if base2 else 1.0
     _launch("mh_attn_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(kv_bias), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B, N, heads, D, q.stride(1),
-            k.stride(1), v.stride(1), dk.stride(1), q_scale, dk_fix,
-            int(base2))
+            _ptr(qs), dk.data_ptr(), dv.data_ptr(), B, N, heads, D,
+            q.stride(1), k.stride(1), v.stride(1), dk.stride(1), q_scale,
+            dk_fix, int(base2))
 
 
-def mh_attn_bwd_dq(q, k, v, kv_bias, dout, lse, delta, dq, scale: float,
-                   heads: int):
-    """Writes dQ (B, N, A) contiguous (CUDA only)."""
+def mh_attn_bwd_dq(q, k, v, kv_bias, out, lse, dout, dq, scale: float,
+                   heads: int, prep=None):
+    """Writes dQ (B, N, A) contiguous (CUDA only). `prep` as for
+    mh_attn_bwd_dkv."""
     D = _check_mh(q, k, v, kv_bias, heads)
+    _check_mh_bwd(q, out, lse, dout, heads)
     B, N, _ = q.shape
     if dq.shape != q.shape or dq.dtype != q.dtype or not dq.is_contiguous():
         raise ValueError("dq must be contiguous and shaped like q")
+    delta, qs, ks = _mh_prep(q, k, out, dout, scale, heads, prep)
     q_scale, k_scale, base2 = _scales(scale, q.dtype)
     _launch("mh_attn_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(kv_bias), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq.data_ptr(), B, N, heads, D, q.stride(1), k.stride(1),
-            v.stride(1), q_scale, k_scale, int(base2))
+            _ptr(qs), _ptr(ks), dq.data_ptr(), B, N, heads, D, q.stride(1),
+            k.stride(1), v.stride(1), q_scale, k_scale, int(base2))
 
 
 def mh_attn_bwd(q, k, v, kv_bias, out, lse, dout, scale: float, heads: int):
     """Backward: (dq, dk, dv). On CUDA, two kernels: dK/dV into one
     (B, N, 2A) buffer (mh_attn_bwd_dkv; dk and dv are its halves) and dQ
-    (mh_attn_bwd_dq); plain version on the CPU."""
+    (mh_attn_bwd_dq), in bf16 after one prep pass (mh_attn_bwd_prep), in f32
+    after mh_delta's reduction; plain version on the CPU."""
     if q.device.type == "cpu":
         return attention_mh_bwd_plain(q, k, v, kv_bias, out, lse, dout,
                                       scale, heads)
-    _check_mh_bwd(q, out, lse, dout, heads)
+    prep = _mh_prep(q, k, out, dout, scale, heads, None)
     A = q.shape[-1]
-    delta = mh_delta(out, dout, heads)
     dkv = torch.empty(q.shape[:2] + (2 * A,), dtype=q.dtype, device=q.device)
     dk, dv = dkv[..., :A], dkv[..., A:]
     dq = torch.empty_like(q)
-    mh_attn_bwd_dkv(q, k, v, kv_bias, dout, lse, delta, dk, dv, scale, heads)
-    mh_attn_bwd_dq(q, k, v, kv_bias, dout, lse, delta, dq, scale, heads)
+    mh_attn_bwd_dkv(q, k, v, kv_bias, out, lse, dout, dk, dv, scale, heads,
+                    prep)
+    mh_attn_bwd_dq(q, k, v, kv_bias, out, lse, dout, dq, scale, heads, prep)
     return dq, dk, dv
 
 

@@ -17,13 +17,22 @@ tools/profile_step.py and tests/test_torch_gpu.py.
   `hm_inputs` / `hm_attention_against_plain`: the same for the head-major
   kernels (K4) on (B*H, N, 64) q, k, v;
   `compare_with_plain` / `check_against_plain`: the bounds that hold one
-  against the other, `check_prep` / `check_hm_prep`: the bf16 backwards'
-  prep passes against their plain versions, and `planted_faults` /
+  against the other, `check_prep` / `check_mh_prep` / `check_hm_prep`: the
+  bf16 backwards' prep passes against their plain versions, and
+  `planted_faults` /
   `hm_planted_faults`: wrong outputs those bounds must reject
   (`masked_kv_grad` checks that masked kv rows get zero dK/dV).
+- `plain_attention`: inside it every attention wrapper takes its plain
+  PyTorch version whatever the device; `build_step(..., plain=True)` and
+  `build_finetune_step(..., plain=True)` run their steps so. It exists for
+  the checks that hold a bf16 step on the card through the kernels against
+  the same step through the plain versions; no CLI reaches it.
 """
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 
@@ -72,18 +81,56 @@ def synthetic_batch(B: int, generator: torch.Generator,
     return {"clip": clip, "boxes": torch.cat([xy1, xy1 + wh], dim=-1)}
 
 
-def build_step(B: int, name: str = MODEL):
+# wrapper -> the plain version that takes the same arguments
+_PLAIN = {
+    "qkv_attn_fwd": fa.attention_qkv_fwd_plain,
+    "qkv_attn_bwd": fa.attention_qkv_bwd_plain,
+    "mh_attn_fwd": fa.attention_mh_fwd_plain,
+    "mh_attn_bwd": fa.attention_mh_bwd_plain,
+    "hm_attn_fwd": fa.attention_hm_fwd_plain,
+    "hm_attn_bwd": fa.attention_hm_bwd_plain,
+}
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Inside, the attention wrappers the autograd functions call (forward
+    and backward of K1/K2, K3 and K4) are their plain PyTorch versions on
+    any device, and no kernel is launched."""
+    kept = {name: getattr(fa, name) for name in _PLAIN}
+    try:
+        for name, plain in _PLAIN.items():
+            setattr(fa, name, plain)
+        yield
+    finally:
+        for name, wrapper in kept.items():
+            setattr(fa, name, wrapper)
+
+
+def _through_plain(step):
+    @functools.wraps(step)
+    def run(*args, **kwargs):
+        with plain_attention():
+            return step(*args, **kwargs)
+    return run
+
+
+def build_step(B: int, name: str = MODEL, plain: bool = False, **overrides):
     """The MOFO pretrain step of model `name` (ViT-B by default) on CUDA at
-    batch B. Returns (model, state, step_fn, generator, batch)."""
+    batch B; `overrides` go to create_model (the checks cut the depth).
+    With `plain` the step's attention runs the plain versions on the card
+    (plain_attention). Returns (model, state, step_fn, generator, batch)."""
     cfg = PretrainConfig(model=name, batch_size=B, masking=MaskingConfig(
         mask_type="tube_bb"), motion_loss_weight=True)
-    model = create_model(name, dtype=torch.bfloat16, seed=1)
+    model = create_model(name, dtype=torch.bfloat16, seed=1, **overrides)
     lr = schedules.cosine_schedule(1.5e-4, 1e-5, 800, 100, 40)
     tx = optim.create_optimizer(dict(model.named_parameters()),
                                 lr_schedule=lr, betas=(0.9, 0.95),
                                 weight_decay=0.05)
     state = TrainState.create(model, tx)
     step = make_pretrain_step(model, tx, cfg, lr)
+    if plain:
+        step = _through_plain(step)
     gen = torch.Generator(device="cuda").manual_seed(0)
     return model, state, step, gen, synthetic_batch(B, gen, "cuda")
 
@@ -110,12 +157,15 @@ def finetune_model(cfg: FinetuneConfig, device="cuda", seed: int = 2,
                         dtype=getattr(torch, cfg.dtype), seed=seed, **kw)
 
 
-def build_finetune_step(B: int):
-    """The ViT-B BB-focused MCA finetune step on CUDA at batch B.
+def build_finetune_step(B: int, plain: bool = False, depth: int = 12):
+    """The ViT-B BB-focused MCA finetune step on CUDA at batch B, its
+    backbone `depth` Blocks deep (the checks cut it). With `plain` the
+    step's attention runs the plain versions on the card (plain_attention).
     Returns (model, state, step_fn, generator, batch, cfg)."""
     cfg = FinetuneConfig(batch_size=B, model=FINETUNE_MODEL)
-    model = finetune_model(cfg)
-    pretrain = create_model(MODEL, dtype=torch.bfloat16, seed=1)
+    model = finetune_model(cfg, depth=depth)
+    pretrain = create_model(MODEL, dtype=torch.bfloat16, seed=1,
+                            encoder_depth=depth)
     finetune_init_from_pretrain(model, pretrain.state_dict())
     del pretrain
     oc = cfg.optimizer
@@ -128,6 +178,8 @@ def build_finetune_step(B: int):
                                 eps=oc.opt_eps, layer_decay=oc.layer_decay)
     state = TrainState.create(model, tx)
     step = make_finetune_step(model, tx, cfg, lr, bb_focused=True)
+    if plain:
+        step = _through_plain(step)
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = synthetic_finetune_batch(B, gen, "cuda", cfg.nb_classes)
     return model, state, step, gen, batch, cfg
@@ -303,6 +355,17 @@ def check_prep(qkv, out, dout, heads: int, scale: float) -> dict:
     return _prep_against_plain(
         fa.qkv_attn_bwd_prep(qkv, out, dout, scale, heads),
         fa.attention_qkv_bwd_prep_plain(qkv, out, dout, scale, heads), absum)
+
+
+def check_mh_prep(q, k, out, dout, heads: int, scale: float) -> dict:
+    """check_prep for mh_attn_bwd_prep on (B, N, A) q and k with their own
+    row strides."""
+    B, N, A = out.shape
+    absum = (dout.float().abs() * out.float().abs()).reshape(
+        B, N, heads, A // heads).sum(-1).transpose(1, 2)
+    return _prep_against_plain(
+        fa.mh_attn_bwd_prep(q, k, out, dout, scale, heads),
+        fa.attention_mh_bwd_prep_plain(q, k, out, dout, scale, heads), absum)
 
 
 def check_hm_prep(q, k, out, dout, scale: float) -> dict:

@@ -13,8 +13,8 @@ AdamW with layer decay; B=10 by default), warms it up, then traces a few
 steps
 and prints one JSON line: host time per step, device kernel time per step
 and the device's busy share, the time of each kernel group (the port's
-attention kernels, the GEMMs, the rest) and the top kernels. --trace
-writes the Chrome trace.
+attention kernels, the GEMMs, the rest), the top kernels and every kernel
+instance of the port by name. --trace writes the Chrome trace.
 """
 
 from __future__ import annotations
@@ -35,14 +35,18 @@ from mofo_tpu_torch.tools.main_path import (
 )
 
 
-# the base-e instances of the shared bf16 backward kernels (K4's), by their
-# demangled or mangled first template argument
+# the instances of the shared bf16 backward kernels (wgmma_attn_bwd.cuh) by
+# their demangled or mangled template arguments: base e is K4's, the bias
+# flag (the last argument) and the prep pass at 32 chunks a head K3's
 _BASE_E = re.compile(r"bwd_d(kv|q)_bf16(<true|ILb1)")
+_BIAS = re.compile(r"bwd_d(kv|q)_bf16(<[^>]*true>|I(Lb[01]E)+Lb1EE)")
+_PREP_K3 = re.compile(r"bwd_prep_bf16(<32>|ILi32E)")
 
 
 def _group(name: str) -> str:
     low = name.lower()
-    if "mh_fwd_" in name or "mh_bwd_" in name:
+    if "mh_fwd_" in name or "mh_bwd_" in name or _BIAS.search(name) or \
+            _PREP_K3.search(name):
         return "masked attention, K3 (port kernels)"
     if "hm_fwd_" in name or "hm_bwd_" in name or _BASE_E.search(name):
         return "head-major attention, K4 (port kernels)"
@@ -119,6 +123,11 @@ def main() -> None:
             for n, (ms, c) in top
         ],
         "port_kernels": list(KERNELS),
+        "port_kernels_ms_per_step": [
+            {"name": n[:160], "ms": ms, "calls": c / args.steps}
+            for n, (ms, c) in sorted(kernels.items())
+            if "port kernels" in _group(n)
+        ],
         "loss": float(metrics["loss"]),
     }), flush=True)
 

@@ -31,6 +31,7 @@ from mofo_tpu_torch.tools.main_path import (
     attention_against_plain,
     check_against_plain,
     check_hm_prep,
+    check_mh_prep,
     check_prep,
     compare_with_plain,
     finetune_model,
@@ -69,8 +70,11 @@ def _qkv(B, N, H, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,H", [(2, 160, 12), (1, 1568, 6), (2, 100, 2),
-                                   (1, 64, 1)])
+                                   (1, 64, 1), (2, 3136, 6), (2, 3136, 12),
+                                   (1, 4608, 12), (2, 1568, 16)])
 def test_kernels_match_plain(cuda, dtype, B, N, H):
+    """K1/K2 at the steps' geometries and at the long sequences the TPU
+    kernels are gated at (32 frames, 384^2) and ViT-L's 16 heads."""
     got, want = attention_against_plain(_qkv(B, N, H, dtype, cuda), H, SCALE)
     torch.cuda.synchronize()
     check_against_plain(got, want)
@@ -107,12 +111,13 @@ def _check_at_edge(got, want, N):
         <= 1e-4
 
 
-@pytest.mark.parametrize("H", [2, 6, 12])
-@pytest.mark.parametrize("N", [1, 63, 65, 100, 160, 1568])
+@pytest.mark.parametrize("H", [2, 6, 12, 16])
+@pytest.mark.parametrize("N", [1, 63, 65, 100, 160, 1568, 3136])
 def test_k2_backward_at_tile_edges(cuda, N, H):
-    """The bf16 backward (prep pass, TMA-fed wgmma dK/dV and dQ kernels) at
-    N on both sides of its 64-row tiles and 128-row blocks, against the
-    plain versions; the prep pass against its own."""
+    """The bf16 forward (TMA-fed wgmma, online softmax) and backward (prep
+    pass, TMA-fed wgmma dK/dV and dQ kernels) at N on both sides of their
+    64-row tiles and 128-row blocks, against the plain versions; the prep
+    pass against its own."""
     x = _qkv(2, N, H, torch.bfloat16, cuda, seed=N + H)
     got, want = attention_against_plain(x, H, SCALE)
     torch.cuda.synchronize()
@@ -200,14 +205,20 @@ def test_step_on_the_card_matches_the_cpu(cuda):
 @pytest.mark.parametrize("bias", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,H,D", [(10, 1568, 3, 256), (10, 1568, 12, 64),
-                                     (4, 100, 1, 256), (4, 100, 2, 64)])
+                                     (4, 100, 1, 256), (4, 100, 2, 64),
+                                     (2, 3136, 12, 64)])
 def test_mh_kernels_match_plain(cuda, dtype, B, N, H, D, bias):
     """K3 at chip_smoke.py's geometries (the MCA is 3 x 256): within the
-    bounds, masked kv rows with zero dK/dV, planted faults rejected."""
+    bounds, masked kv rows with zero dK/dV, planted faults rejected; in
+    bf16 the backward's prep pass against its plain version."""
     q, k, v, b = mh_inputs(B, N, H, D, dtype, 0, cuda, bias)
     got, want = mh_attention_against_plain(q, k, v, b, H, D ** -0.5)
     torch.cuda.synchronize()
     check_against_plain(got, want)
+    if dtype == torch.bfloat16:
+        res = check_mh_prep(q, k, got["out"], (2 * got["out"].float()).to(
+            dtype), H, D ** -0.5)
+        assert res["ks"] is None  # 1/8 and 1/16: dQ scales its accumulator
     assert masked_kv_grad(got, b) == 0.0
     ignored = None
     if bias:
@@ -221,10 +232,11 @@ def test_mh_kernels_match_plain(cuda, dtype, B, N, H, D, bias):
 @pytest.mark.parametrize("H,D", [(2, 64), (1, 256)])
 @pytest.mark.parametrize("N", [1, 63, 65, 100, 1568])
 def test_mh_forward_at_tile_edges(cuda, N, H, D, bias, fused_kv):
-    """The redesigned bf16 K3 forward (TMA-fed wgmma, online softmax) at N
-    on both sides of its 64-row tiles and 128-row blocks, with k and v as
-    column views of one (B, N, 2A) tensor or as tensors of their own,
-    against the plain version (and the backward with it)."""
+    """The bf16 K3 forward (TMA-fed wgmma, online softmax) and backward
+    (prep pass, TMA-fed wgmma dK/dV and dQ kernels) at N on both sides of
+    their 64-row tiles and 128-row blocks, with k and v as column views of
+    one (B, N, 2A) tensor or as tensors of their own, against the plain
+    versions."""
     q, k, v, b = mh_inputs(3, N, H, D, torch.bfloat16, N + D, cuda, bias)
     if not fused_kv:
         k, v = k.contiguous(), v.contiguous()
@@ -237,14 +249,63 @@ def test_mh_forward_at_tile_edges(cuda, N, H, D, bias, fused_kv):
         assert compare_with_plain(ignored, want)["beyond_bounds"]
 
 
+@pytest.mark.parametrize("H,D", [(2, 64), (1, 256)])
+@pytest.mark.parametrize("N", [65, 100, 1568])
+def test_mh_backward_with_a_scale_not_a_power_of_two(cuda, N, H, D):
+    """scale 0.1: at head dim 64 the prep pass writes k * scale and dQ reads
+    that copy; at 256 dQ folds the scale into its K strip in place."""
+    q, k, v, b = mh_inputs(3, N, H, D, torch.bfloat16, 5, cuda)
+    got, want = mh_attention_against_plain(q, k, v, b, H, 0.1)
+    torch.cuda.synchronize()
+    check_against_plain(got, want)
+    assert masked_kv_grad(got, b) == 0.0
+    res = check_mh_prep(q, k, got["out"], (2 * got["out"].float()).to(
+        q.dtype), H, 0.1)
+    assert res["ks"] is (True if D == 64 else None)
+
+
+@pytest.mark.parametrize("H,D", [(2, 64), (1, 256)])
+def test_mh_kernels_take_q_as_a_column_view(cuda, H, D):
+    """q, k and v as column views of one (B, N, 3A) tensor: the prep pass
+    and the forward read q on its own row stride too."""
+    A = H * D
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(3, 100, 3 * A, generator=g).to(torch.bfloat16).to(cuda)
+    q, k, v = x[..., :A], x[..., A:2 * A], x[..., 2 * A:]
+    assert q.stride(1) == 3 * A
+    got, want = mh_attention_against_plain(q, k, v, None, H, D ** -0.5)
+    torch.cuda.synchronize()
+    check_against_plain(got, want)
+    check_mh_prep(q, k, got["out"], (2 * got["out"].float()).to(q.dtype), H,
+                  D ** -0.5)
+
+
+@pytest.mark.parametrize("H,D", [(2, 64), (1, 256)])
+def test_mh_bf16_autograd_runs_the_prep_pass(cuda, H, D):
+    q, k, v, b = mh_inputs(2, 100, H, D, torch.bfloat16, 2, cuda)
+    ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    fa.reset_launch_counts()
+    (fa.flash_attention_mh(*ts, scale=D ** -0.5, num_heads=H, kv_bias=b)
+     .float() ** 2).sum().backward()
+    assert fa.launch_counts == {**dict.fromkeys(fa.KERNELS, 0),
+                                **dict.fromkeys(fa.MH_KERNELS, 1)}
+    # one writer per output, no atomics: the same call gives the same bits
+    out, lse = fa.mh_attn_fwd(q, k, v, b, D ** -0.5, H)
+    want = fa.mh_attn_bwd(q, k, v, b, out, lse, (2 * out.float()).to(
+        q.dtype), D ** -0.5, H)
+    for t, w in zip(ts, want):
+        assert torch.equal(t.grad, w)
+
+
 def test_mh_autograd_runs_the_kernels(cuda):
     q, k, v, b = mh_inputs(2, 100, 1, 256, torch.float32, 1, cuda)
     ts = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     fa.reset_launch_counts()
     (fa.flash_attention_mh(*ts, scale=0.0625, num_heads=1, kv_bias=b)
      ** 2).sum().backward()
+    # f32: delta is mh_delta's reduction, no prep pass
     assert fa.launch_counts == {**dict.fromkeys(fa.KERNELS, 0),
-                                **dict.fromkeys(fa.MH_KERNELS, 1)}
+                                **dict.fromkeys(fa.MH_F32_KERNELS, 1)}
     refs = [t.detach().cpu().clone().requires_grad_(True) for t in (q, k, v)]
     (fa.flash_attention_mh(*refs, scale=0.0625, num_heads=1,
                            kv_bias=b.cpu()) ** 2).sum().backward()
@@ -271,6 +332,19 @@ def test_mh_wrapper_rejects_what_the_kernels_do_not_take(cuda):
         t = torch.zeros(1, 8, 136, device=cuda, dtype=torch.bfloat16)
         fa.mh_attn_fwd(x.bfloat16(), t[..., 1:129], x.bfloat16(), None, 1.0,
                        2)
+    stat = torch.zeros(1, 2, 8, device=cuda)
+    with pytest.raises(ValueError, match="bf16 backward's"):
+        fa.mh_attn_bwd_prep(x, x, x, x, 1.0, 2)  # f32 has no prep pass
+    h = x.bfloat16()
+    with pytest.raises(ValueError, match="q \\* q_scale"):
+        fa.mh_attn_bwd_dq(h, h, h, None, h, stat, h, h, 1.0, 2,
+                          prep=(stat, None, None))
+    with pytest.raises(ValueError, match="float32"):
+        fa.mh_attn_bwd_dkv(h, h, h, None, h, stat, h, h, h, 1.0, 2,
+                           prep=(stat.double(), h, None))
+    with pytest.raises(ValueError, match="like q"):
+        fa.mh_attn_bwd_dkv(h, h, h, None, h, stat, h, h, h, 1.0, 2,
+                           prep=(stat, h[:, :4], None))
 
 
 def test_bb_finetune_step_on_the_card_matches_the_cpu(cuda):
@@ -299,7 +373,7 @@ def test_bb_finetune_step_on_the_card_matches_the_cpu(cuda):
         got[dev] = (float(m["loss"]), float(m["grad_norm"]))
         if dev == "cuda":
             assert min(fa.launch_counts[k]
-                       for k in fa.QKV_F32_KERNELS + fa.MH_KERNELS) >= 1
+                       for k in fa.QKV_F32_KERNELS + fa.MH_F32_KERNELS) >= 1
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-4)
 
 

@@ -81,3 +81,25 @@ def test_the_library_name_follows_the_headers(monkeypatch, tmp_path):
     header = tmp_path / _build.HEADERS[-1]
     header.write_text(header.read_text() + "\n// edited\n")
     assert _build.library_path() != before
+
+
+# the mma.sync tile helpers that the bf16 kernels were built from before
+# they became TMA + wgmma kernels
+REMOVED_HELPERS = ("load_bf16", "mm_nt", "mm_nn", "to_a", "store_rows",
+                   "kMmaThreads", "kRowsH", "pack_bf")
+
+
+@pytest.mark.parametrize("name", _build.SOURCES + _build.HEADERS)
+def test_no_source_uses_the_removed_mma_sync_helpers(name):
+    """Every bf16 kernel is a wgmma kernel: no source has mma.sync in its
+    assembly or names a helper that went with the old kernels."""
+    text = (_build.CSRC / name).read_text()
+    assert "mma.sync.aligned" not in text
+    for helper in REMOVED_HELPERS:
+        assert not re.search(rf"\b{helper}\b", text), (name, helper)
+
+
+def test_the_prep_pass_is_declared_for_k3():
+    assert "mh_attn_bwd_prep" in _entry_points()
+    assert "mh_attn_bwd_prep" in fa.MH_KERNELS
+    assert "mh_attn_bwd_prep" not in fa.MH_F32_KERNELS

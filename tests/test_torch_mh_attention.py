@@ -2,14 +2,18 @@
 Pallas kernel.
 
 On the CPU, mofo_tpu_torch.ops.flash_attention.flash_attention_mh runs the
-plain PyTorch versions of its CUDA kernels (mh_attn_fwd, mh_attn_bwd_dkv,
-mh_attn_bwd_dq); here they are held against
+plain PyTorch versions of its CUDA kernels (mh_attn_fwd, mh_attn_bwd_prep,
+mh_attn_bwd_dkv, mh_attn_bwd_dq); here they are held against
 mofo_tpu.ops.flash_attention.flash_attention_mh(..., kv_bias=,
 interpret=True), which runs the TPU kernel K3 (_mh_fwd_impl / _mh_fwd_kernel
 with has_bias, _mh_bwd_impl / _mh_dqkv_kernel), forward and gradients of
 sum(out^2), at the head dims the CUDA kernels take: 64, and 256 (the ViT-B
-MCA, 3 x 256). The CUDA kernels themselves are held against the plain
-versions on the card by tests/test_torch_gpu.py and chip_smoke.py.
+MCA, 3 x 256). The bf16 backward on the card is a prep pass and two
+kernels; their plain versions together (attention_mh_bwd_prep_plain, then
+attention_mh_bwd_from_prep_plain) are held here against the whole plain
+backward bit for bit, and against the interpret-mode K3 backward. The CUDA
+kernels themselves are held against the plain versions on the card by
+tests/test_torch_gpu.py and chip_smoke.py.
 """
 
 import jax
@@ -42,11 +46,12 @@ def _inputs(N, H, D, bias, B=2, seed=0):
     return q, k, v, kv_bias
 
 
-def _jax_run(q, k, v, kv_bias, H, D, dtype):
+def _jax_run(q, k, v, kv_bias, H, D, dtype, scale=None):
     bias = None if kv_bias is None else jnp.asarray(kv_bias)
+    scale = D ** -0.5 if scale is None else scale
 
     def fwd(q, k, v):
-        return jax_mh(q, k, v, scale=D ** -0.5, num_heads=H, kv_bias=bias,
+        return jax_mh(q, k, v, scale=scale, num_heads=H, kv_bias=bias,
                       interpret=True)
 
     def loss(q, k, v):
@@ -99,6 +104,69 @@ def test_bf16_matches_tpu_kernel(N, H, D, bias):
     if bias:
         masked = x[3] != 0
         assert not p_grads[1][masked].any() and not p_grads[2][masked].any()
+
+
+def _prep_route(q, k, v, b, out, lse, dout, scale, H):
+    """(dq, dk, dv) through the prep pass's plain version and the rest of
+    the plain backward, as the bf16 kernels split the work on the card."""
+    delta, qs, ks = fa.mh_attn_bwd_prep(q, k, out, dout, scale, H)
+    return (delta, qs, ks), fa.attention_mh_bwd_from_prep_plain(
+        k, v, b, lse, dout, delta, qs, ks, scale, H)
+
+
+@pytest.mark.parametrize("fused_kv", [True, False])
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("scale", [None, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,D", [(2, 64), (1, 256)])
+@pytest.mark.parametrize("N", [16, 37, 128])
+def test_prep_pass_then_the_rest_equals_the_plain_backward(
+        N, H, D, dtype, scale, bias, fused_kv):
+    """delta, q * q_scale and (head dim 64, scale 0.1) k * k_scale from the
+    prep pass, then dQ, dK and dV from them: the whole plain backward bit
+    for bit, with k and v as column views of a fused kv and as tensors of
+    their own."""
+    scale = D ** -0.5 if scale is None else scale
+    q, k, v, b = main_path.mh_inputs(2, N, H, D, dtype, N + D, "cpu", bias)
+    if not fused_kv:
+        k, v = k.contiguous(), v.contiguous()
+    assert (k.stride(1) == 2 * H * D) == fused_kv
+    out, lse = fa.attention_mh_fwd_plain(q, k, v, b, scale, H)
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+        N)).to(dtype)
+    (delta, qs, ks), got = _prep_route(q, k, v, b, out, lse, dout, scale, H)
+    want = fa.attention_mh_bwd_plain(q, k, v, b, out, lse, dout, scale, H)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert delta.shape == (2, H, N) and delta.dtype == torch.float32
+    assert torch.equal(delta, fa.mh_delta(out, dout, H))
+    assert qs.dtype == dtype and qs.shape == q.shape
+    # the copy exists only where a kernel reads it (module docstring)
+    assert (ks is not None) == (D == 64 and scale == 0.1)
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("scale", [None, 0.1])
+@pytest.mark.parametrize("H,D", [(2, 64), (1, 256)])
+@pytest.mark.parametrize("N", [16, 37, 128])
+def test_prep_route_matches_tpu_backward(N, H, D, scale, bias):
+    """The prep pass + the rest, on the port's own forward, against the
+    gradients of the interpret-mode K3 kernel, f32 and bf16, to the bounds
+    of test_f32_matches_tpu_kernel and test_bf16_matches_tpu_kernel."""
+    x = _inputs(N, H, D, bias, seed=2)
+    sc = D ** -0.5 if scale is None else scale
+    for jdt, tdt, tol in ((jnp.float32, torch.float32, dict(atol=1e-4,
+                                                            rtol=0)),
+                          (jnp.bfloat16, torch.bfloat16, dict(atol=3e-2,
+                                                              rtol=3e-2))):
+        _, _, j_grads = _jax_run(*x, H, D, jdt, sc)
+        q, k, v = (torch.from_numpy(t).to(tdt) for t in x[:3])
+        b = None if x[3] is None else torch.from_numpy(x[3])
+        out, lse = fa.attention_mh_fwd_plain(q, k, v, b, sc, H)
+        dout = (2 * out.float()).to(tdt)  # the gradient of sum(out^2)
+        _, grads = _prep_route(q, k, v, b, out, lse, dout, sc, H)
+        for p, j in zip(grads, j_grads):
+            np.testing.assert_allclose(p.float().numpy(), j, **tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -160,8 +228,11 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="kv_bias"):
         fa.flash_attention_mh(q, q, q, scale=1.0, num_heads=2,
                               kv_bias=torch.zeros(1, 9))
-    assert fa.MH_KERNELS == ("mh_attn_fwd", "mh_attn_bwd_dkv",
-                             "mh_attn_bwd_dq")
+    assert fa.MH_KERNELS == ("mh_attn_fwd", "mh_attn_bwd_prep",
+                             "mh_attn_bwd_dkv", "mh_attn_bwd_dq")
+    # the prep pass is the bf16 backward's: f32 runs mh_delta's reduction
+    assert fa.MH_F32_KERNELS == ("mh_attn_fwd", "mh_attn_bwd_dkv",
+                                 "mh_attn_bwd_dq")
     assert set(fa.MH_KERNELS) <= set(fa.launch_counts)
 
 
@@ -174,3 +245,27 @@ def test_build_lists_both_sources():
     assert all((_build.CSRC / s).exists()
                for s in _build.SOURCES + _build.HEADERS)
     assert set(fa.KERNELS) == set(_build.SIGNATURES)
+
+
+def test_plain_attention_swaps_the_wrappers_and_restores_them():
+    """main_path.plain_attention sends the autograd functions to the plain
+    versions (the checks' bf16 step through them on the card) and puts the
+    wrappers back, also after an error; no CLI module names it."""
+    from pathlib import Path
+
+    kept = {n: getattr(fa, n) for n in main_path._PLAIN}
+    q, k, v, b = main_path.mh_inputs(1, 16, 1, 64, torch.float32, 8, "cpu")
+    with pytest.raises(RuntimeError, match="inside"):
+        with main_path.plain_attention():
+            assert all(getattr(fa, n) is p
+                       for n, p in main_path._PLAIN.items())
+            out = fa.flash_attention_mh(q, k, v, scale=0.125, num_heads=1,
+                                        kv_bias=b)
+            raise RuntimeError("inside")
+    assert all(getattr(fa, n) is w for n, w in kept.items())
+    assert torch.equal(out, fa.attention_mh_fwd_plain(q, k, v, b, 0.125,
+                                                      1)[0])
+    cli = Path(fa.__file__).resolve().parent.parent / "cli"
+    for path in cli.glob("*.py"):
+        text = path.read_text()
+        assert "plain_attention" not in text and "plain=" not in text, path
