@@ -81,21 +81,51 @@ Phases, each printing one JSON line:
                included, per step, exactly.
  12. vits_parity - ViT-S width cut to 2+1 blocks, f32, B=1: card against
                CPU as in phase 6; covers the f32 K4 kernels.
- 13. runner  - the main path of this slice: the ViT-S MOFO pretrain runner
+ 13. runner  - the ViT-S MOFO pretrain runner
                (mofo_tpu_torch.cli.pretrain_mofo.main, in this process) on
                64 synthetic uint8 clips at B=32 for 2 epochs into a
                temporary output dir, then again with --epochs 3, which must
                resume at epoch 2; log.txt, checkpoint-{0,1,2}.pth, finite
                losses and the launches per step are checked, and the step
                time and the loader wait printed apart.
+ 14. finetune_augment - the finetune runner's augmentations at its shapes
+               (B=10 uint8 clips of 16 x 256 x 320, boxes, out 224):
+               finetune_augment (RandAugment rand-m7-n4-mstd0.5-inc1, flip,
+               erasing 0.25), eval_augment and test_view_augment (splits 0,
+               1, 2), each on the card and on the CPU with the same draws,
+               which force all 15 RandAugment ops, the geometric ones in
+               both interpolations: max |card - CPU| and the share of pixels
+               within 1e-3 (at least AUG_SHARE), which an equalize LUT off
+               by one bin must fail; and each pipeline's time at B=10 beside
+               the finetune step's.
+ 15. fp16_finetune_step - three ViT-B BB-focused MCA finetune steps in fp16
+               under the dynamic loss scale (the kernels through their fp16
+               boundary, on bf16 operands) against the same steps in f32 on
+               the same inputs: losses within 1%, the scale 128, nothing
+               skipped; then a step with one clip scaled to inf must be
+               skipped, halve the scale and leave the parameters, the AdamW
+               moments and count as they were, bit for bit.
+ 16. finetune_runner - the main path of this slice: the ViT-B BB-focused
+               MCA finetune runner (mofo_tpu_torch.cli.finetune_mofo's main,
+               in this process, bf16) on 40 synthetic clips at B=10 from a
+               ViT-B pretrain checkpoint (seed 1) for 2 epochs, then again
+               with --epochs 3, which must resume; log.txt (epochs, losses,
+               val_acc1), checkpoint-1, -2 and -best, one "Final test" line
+               per call and the kernels' launches (per train step and per
+               eval call) are checked; the step time, the loader wait and
+               the seconds of validation, the final test and each
+               checkpoint save are printed.
 Then the card's nvidia-smi line, the kernels line and, last, the ok line.
 Any failed check raises, and the script exits non-zero without the ok line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -106,7 +136,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mofo_tpu_torch.cli import pretrain_mofo
+from mofo_tpu_torch.cli import finetune_mofo, pretrain_mofo
 from mofo_tpu_torch.core.config import (
     FinetuneConfig,
     MaskingConfig,
@@ -114,13 +144,18 @@ from mofo_tpu_torch.core.config import (
 )
 from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.ops import _build
+from mofo_tpu_torch.ops import augment as A
 from mofo_tpu_torch.ops import flash_attention as fa
 from mofo_tpu_torch.ops import masking
+from mofo_tpu_torch.ops import rand_augment as RA
 from mofo_tpu_torch.tools.main_path import (
+    AUG_ATOL,
+    AUG_SHARE,
     FINETUNE_MODEL,
     MODEL,
     VITS_MODEL,
     attention_against_plain,
+    augment_against_cpu,
     build_finetune_step,
     build_step,
     check_against_plain,
@@ -129,14 +164,17 @@ from mofo_tpu_torch.tools.main_path import (
     check_prep,
     compare_with_plain,
     finetune_model,
+    forced_draws,
     hm_attention_against_plain,
     hm_inputs,
     hm_planted_faults,
     masked_kv_grad,
     mh_attention_against_plain,
     mh_inputs,
+    moved_draws,
     planted_faults,
     synthetic_batch,
+    synthetic_clips_u8,
     synthetic_finetune_batch,
 )
 from mofo_tpu_torch.train import optim
@@ -204,12 +242,26 @@ STEP_LAUNCHES = {
     VITS_MODEL: {**dict.fromkeys(fa.KERNELS, 0),
                  **dict.fromkeys(fa.QKV_KERNELS, 12),
                  **dict.fromkeys(fa.HM_KERNELS, 4)},
+    # the 12 backbone Blocks and the one MCA block
+    FINETUNE_MODEL: {**dict.fromkeys(fa.KERNELS, 0),
+                     **dict.fromkeys(fa.QKV_KERNELS, 12),
+                     **dict.fromkeys(fa.MH_KERNELS, 1)},
 }
+# an eval call (validation or a test view) runs the forwards only
+EVAL_LAUNCHES = {FINETUNE_MODEL: {**dict.fromkeys(fa.KERNELS, 0),
+                                  "qkv_attn_fwd": 12, "mh_attn_fwd": 1}}
 # the runner's flags; --warmup_epochs 1 because the default 40 warm-up
 # epochs do not fit a 2-epoch cosine schedule
 RUNNER_ARGS = ["--model", VITS_MODEL, "--synthetic", "64", "--batch_size",
                str(VITS_BATCH), "--steps_per_epoch", "2", "--save_ckpt_freq",
                "1", "--warmup_epochs", "1"]
+# the finetune runner's flags: 40 clips at B=10, 4 steps an epoch; the
+# reference's --save_ckpt_freq (10), --test_num_segment (2) and
+# --test_num_crop (3) defaults
+FT_RUNNER_CLIPS = 40
+FT_RUNNER_ARGS = ["--synthetic", str(FT_RUNNER_CLIPS), "--batch_size",
+                  str(FT_BATCH), "--warmup_epochs", "1"]
+DECODE_HW = (256, 320)  # the runners' decoded frames
 D = fa.HEAD_DIM
 SCALE = D ** -0.5
 # a bf16 step through the kernels against the same step through the plain
@@ -656,9 +708,9 @@ def phase_parity(phase: str = "parity", model_name: str = MODEL,
         raise AssertionError(f"card vs CPU beyond rtol 1e-4: {rel}")
 
 
-def phase_finetune_step(smi: str) -> dict:
-    """The main path of this slice: the full-width ViT-B BB-focused MCA
-    finetune step on the card, then one eval call."""
+def phase_finetune_step(smi: str):
+    """The full-width ViT-B BB-focused MCA finetune step on the card, then
+    one eval call. Returns the launches and the median step time (ms)."""
     B = FT_BATCH
     model, state, step, gen, batch, cfg = build_finetune_step(B)
     named = dict(model.named_parameters())
@@ -681,9 +733,8 @@ def phase_finetune_step(smi: str) -> dict:
         losses.append(float(metrics["loss"]))
         norms.append(float(metrics["grad_norm"]))
     launches = dict(fa.launch_counts)
-    expected = {**dict.fromkeys(fa.KERNELS, 0),
-                **dict.fromkeys(fa.QKV_KERNELS, n_steps * blocks),
-                **dict.fromkeys(fa.MH_KERNELS, n_steps * mca)}
+    expected = {k: n_steps * v
+                for k, v in STEP_LAUNCHES[FINETUNE_MODEL].items()}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
     if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
@@ -697,8 +748,7 @@ def phase_finetune_step(smi: str) -> dict:
     ev = make_eval_step(model, cfg, bb_focused=True)(batch)
     torch.cuda.synchronize()
     eval_launches = dict(fa.launch_counts)
-    want_eval = {**dict.fromkeys(fa.KERNELS, 0), "qkv_attn_fwd": blocks,
-                 "mh_attn_fwd": mca}
+    want_eval = EVAL_LAUNCHES[FINETUNE_MODEL]
     if eval_launches != want_eval:
         raise AssertionError(f"eval launches {eval_launches}, expected "
                              f"{want_eval}")
@@ -718,7 +768,7 @@ def phase_finetune_step(smi: str) -> dict:
          eval={k: float(ev[k]) for k in ("loss", "acc1", "acc5")},
          peak_mem_gib=peak, device=torch.cuda.get_device_name(0),
          nvidia_smi=smi)
-    return launches
+    return launches, step_ms
 
 
 def phase_finetune_parity() -> None:
@@ -1010,6 +1060,220 @@ def phase_runner(smi: str) -> dict:
     return launches
 
 
+def _equalize_lut_off_by_one(hist, n):
+    lut, step = EQUALIZE_LUT(hist, n)
+    return torch.cat([lut[..., :1], lut[..., :-1]], dim=-1), step
+
+
+EQUALIZE_LUT = RA.equalize_lut
+
+
+def phase_finetune_augment(smi: str, step_ms: float) -> dict:
+    """The finetune runner's augmentations on the card against the CPU with
+    the same draws (forced_draws), a planted equalize fault, and each
+    pipeline's time at B=10."""
+    B = FT_BATCH
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batch = synthetic_clips_u8(B, gen, "cuda", hw=DECODE_HW)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    draws = forced_draws(B, DECODE_HW)
+
+    def pipelines(b, d, g=None):
+        return {
+            "finetune_augment": lambda: A.finetune_augment(
+                g, b["clip"], 224, flip=True, reprob=0.25, boxes=b["boxes"],
+                draws=d),
+            "eval_augment": lambda: A.eval_augment(b["clip"],
+                                                   boxes=b["boxes"]),
+            **{f"test_view_augment_{s}": (
+                lambda s=s: A.test_view_augment(b["clip"], s,
+                                                boxes=b["boxes"]))
+               for s in range(3)},
+        }
+
+    card = pipelines(batch, moved_draws(draws, "cuda"))
+    cpu = {name: fn() for name, fn in pipelines(cpu_batch, draws).items()}
+    res = {}
+    for name in card:
+        got = card[name]()
+        torch.cuda.synchronize()
+        res[name] = augment_against_cpu(got, cpu[name])
+        if not res[name]["share_within"] >= AUG_SHARE:
+            raise AssertionError(f"{name}: card vs CPU beyond the bound "
+                                 f"({AUG_SHARE} within {AUG_ATOL}): "
+                                 f"{res[name]}")
+    RA.equalize_lut = _equalize_lut_off_by_one  # on the card only
+    try:
+        planted = augment_against_cpu(card["finetune_augment"](),
+                                      cpu["finetune_augment"])
+    finally:
+        RA.equalize_lut = EQUALIZE_LUT
+    if planted["share_within"] >= AUG_SHARE:
+        raise AssertionError(f"the bound let the equalize fault pass: "
+                             f"{planted}")
+    # times with the draws the runner makes (from the generator)
+    timed = pipelines(batch, None, torch.Generator(device="cuda"))
+    for name, fn in timed.items():
+        res[name]["ms"] = time_ms(fn)
+        res[name]["share_of_finetune_step"] = res[name]["ms"] / step_ms
+    emit("finetune_augment", batch=B, clips=list(batch["clip"].shape),
+         out=224, aa="rand-m7-n4-mstd0.5-inc1", bound={
+             "atol": AUG_ATOL, "share": AUG_SHARE},
+         pipelines=res, planted_equalize_lut_off_by_one=planted,
+         finetune_step_ms=step_ms, nvidia_smi=smi)
+    return res
+
+
+def phase_fp16_finetune_step() -> None:
+    """Three fp16 BB-focused MCA finetune steps under the loss scale
+    against the same steps in f32, then a step with a non-finite
+    gradient."""
+    B, n_steps = FT_BATCH, 3
+    runs = {}
+    for dtype in ("float32", "float16"):
+        model, state, step, gen, batch, cfg = build_finetune_step(
+            B, dtype=dtype)
+        fa.reset_launch_counts()
+        metrics = []
+        for _ in range(n_steps):
+            state, m = step(state, batch, gen)
+            metrics.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        runs[dtype] = {"metrics": metrics, "launches": dict(fa.launch_counts)}
+        if dtype == "float32":
+            del model, state, step
+    per_step = STEP_LAUNCHES[FINETUNE_MODEL]
+    want = {"float16": {k: n_steps * v for k, v in per_step.items()},
+            "float32": {k: (n_steps * v if k in fa.QKV_F32_KERNELS
+                            + fa.MH_F32_KERNELS else 0)
+                        for k, v in per_step.items()}}
+    for dtype, run in runs.items():
+        if run["launches"] != want[dtype]:
+            raise AssertionError(f"{dtype}: launches {run['launches']}, "
+                                 f"expected {want[dtype]}")
+    rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+           for a, b in zip(runs["float16"]["metrics"],
+                           runs["float32"]["metrics"])]
+    if not max(rel) <= 0.01:
+        raise AssertionError(f"fp16 losses beyond 1% of f32: {rel}")
+    if any(m["loss_scale"] != 128.0 or m["skipped"] != 0.0
+           for m in runs["float16"]["metrics"]):
+        raise AssertionError(f"fp16 steps: {runs['float16']['metrics']}")
+
+    # a non-finite gradient: one clip scaled to inf
+    bad = dict(batch, clip=batch["clip"].clone())
+    bad["clip"][0] *= float("inf")
+    opt = state.opt_state
+    before = {"params": {n: p.detach().clone()
+                         for n, p in state.params.items()},
+              "mu": {n: t.clone() for n, t in opt.mu.items()},
+              "nu": {n: t.clone() for n, t in opt.nu.items()}}
+    count, step_before = opt.count, state.step
+    state, m = step(state, bad, gen)
+    skip = {k: float(v) for k, v in m.items()}
+    changed = [f"{part}:{n}" for part, now in (
+        ("params", state.params), ("mu", opt.mu), ("nu", opt.nu))
+        for n, t in now.items() if not torch.equal(t.detach(),
+                                                   before[part][n])]
+    emit("fp16_finetune_step", model=FINETUNE_MODEL, batch=B, steps=n_steps,
+         float16=runs["float16"]["metrics"],
+         float32=runs["float32"]["metrics"], loss_rel_diff=rel, bound=0.01,
+         launches={k: r["launches"] for k, r in runs.items()},
+         skipped_step=skip, changed_by_skipped_step=changed,
+         count=[count, opt.count], step=[step_before, state.step])
+    if skip["skipped"] != 1.0 or skip["loss_scale"] != 64.0 or \
+            state.loss_scale.scale != 64.0:
+        raise AssertionError(f"the non-finite step was not skipped: {skip}")
+    if changed or opt.count != count or state.step != step_before + 1:
+        raise AssertionError(f"the skipped step changed the state: "
+                             f"{changed[:5]}, count {count} -> {opt.count}")
+
+
+def eval_calls(n: int, B: int, segments: int, crops: int,
+               epochs_run: int) -> int:
+    """The eval calls of one finetune runner call: ceil(n / B) validation
+    batches an epoch, and for the final test one call per spatial window
+    present in each batch of the split-major test views
+    (data.pipeline.MultiViewDataset)."""
+    split = [i // (n * segments) for i in range(n * segments * crops)]
+    test = sum(len(set(split[b:b + B])) for b in range(0, len(split), B))
+    return epochs_run * -(-n // B) + test
+
+
+def phase_finetune_runner(smi: str) -> dict:
+    """The main path of this slice: the ViT-B BB-focused MCA finetune
+    runner from a pretrain checkpoint, 2 epochs, then resumed for a
+    third."""
+    calls = []
+    with tempfile.TemporaryDirectory() as tmp:
+        pretrain = os.path.join(tmp, "pretrain.pth")
+        sd = create_model(MODEL, dtype=torch.bfloat16, seed=1).state_dict()
+        torch.save({"model": {k: v.cpu() for k, v in sd.items()}}, pretrain)
+        del sd
+        out = os.path.join(tmp, "ft")
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        for epochs in (2, 3):
+            args = finetune_mofo.get_args(
+                FT_RUNNER_ARGS + ["--epochs", str(epochs), "--finetune",
+                                  pretrain, "--output_dir", out],
+                bb_defaults=True)
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(text):
+                    finetune_mofo.main(args)
+                torch.cuda.synchronize()
+            except BaseException:
+                print(text.getvalue()[-4000:], flush=True)
+                raise
+            final = re.findall(r"Final test: Acc@1 ([\d.]+) Acc@5 ([\d.]+) "
+                               r"\(([\d.]+) s\)", text.getvalue())
+            calls.append({"epochs": epochs, "final_tests": final,
+                          "seconds": time.perf_counter() - t0})
+        launches = dict(fa.launch_counts)
+        with open(os.path.join(out, "log.txt")) as f:
+            log = [json.loads(line) for line in f]
+        ckpts = sorted(n for n in os.listdir(out) if n.endswith(".pth"))
+    steps_after = [[line["step"] for line in log if line["epoch"] < e][-1]
+                   for e in (2, 3)]
+    steps = steps_after[-1]
+    n_eval = (eval_calls(FT_RUNNER_CLIPS, FT_BATCH, 2, 3, 2)
+              + eval_calls(FT_RUNNER_CLIPS, FT_BATCH, 2, 3, 1))
+    want = {k: steps * STEP_LAUNCHES[FINETUNE_MODEL][k]
+            + n_eval * EVAL_LAUNCHES[FINETUNE_MODEL][k] for k in fa.KERNELS}
+    if steps_after != [8, 12]:
+        raise AssertionError(f"the runner took other steps: {steps_after}")
+    if [line["epoch"] for line in log] != [0, 1, 2]:
+        raise AssertionError(f"log.txt holds other epochs: {log}")
+    if not all(np.isfinite(line["train_loss"]) and "val_acc1" in line
+               for line in log):
+        raise AssertionError(f"non-finite losses or no val_acc1: {log}")
+    if ckpts != ["checkpoint-1.pth", "checkpoint-2.pth",
+                 "checkpoint-best.pth"]:
+        raise AssertionError(f"checkpoints {ckpts}")
+    if [len(c["final_tests"]) for c in calls] != [1, 1]:
+        raise AssertionError(f"Final test lines per call: {calls}")
+    if launches != want:
+        raise AssertionError(f"launches {launches}, expected {want} "
+                             f"({steps} steps, {n_eval} eval calls)")
+    emit("finetune_runner", model=FINETUNE_MODEL, fusing="MCA",
+         dtype="bfloat16", batch=FT_BATCH, args=FT_RUNNER_ARGS, calls=calls,
+         steps_after=steps_after, eval_calls=n_eval, launches=launches,
+         launches_per_step=STEP_LAUNCHES[FINETUNE_MODEL],
+         launches_per_eval_call=EVAL_LAUNCHES[FINETUNE_MODEL],
+         epochs=[{k: line[k] for k in ("epoch", "train_loss", "val_acc1",
+                                       "val_loss")} for line in log],
+         step_ms=[line["step_s"] * 1e3 for line in log],
+         loader_wait_ms=[line["data_wait_s"] * 1e3 for line in log],
+         validation_s=[line["val_s"] for line in log],
+         final_test_s=[float(c["final_tests"][0][2]) for c in calls],
+         checkpoint_save_s=[line["save_s"] for line in log],
+         checkpoints=ckpts, device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi)
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -1018,7 +1282,7 @@ def main() -> int:
     mh_errors, mh_timings = phase_mh_kernels()
     launches = phase_step(smi)
     phase_parity()
-    ft_launches = phase_finetune_step(smi)
+    ft_launches, ft_step_ms = phase_finetune_step(smi)
     phase_finetune_parity()
     hm_errors, hm_timings = phase_hm_kernels()
     phase_bf16_steps()
@@ -1026,6 +1290,9 @@ def main() -> int:
     phase_parity("vits_parity", VITS_MODEL,
                  fa.QKV_F32_KERNELS + fa.HM_F32_KERNELS)
     runner_launches = phase_runner(smi)
+    phase_finetune_augment(smi, ft_step_ms)
+    phase_fp16_finetune_step()
+    ft_runner_launches = phase_finetune_runner(smi)
     kernels = []
     for name in fa.QKV_KERNELS:
         dec = timings["decoder"][name]
@@ -1040,6 +1307,7 @@ def main() -> int:
             "launches_finetune": ft_launches[name],
             "launches_vits_step": vits_launches[name],
             "launches_runner": runner_launches[name],
+            "launches_finetune_runner": ft_runner_launches[name],
             **{geo: {**timings[geo][name],
                      "max_abs_err": errors[geo][name]}
                for geo in ("encoder", "backbone")},
@@ -1054,6 +1322,7 @@ def main() -> int:
             "bound_by": mca["bound_by"], "library_ms": mca["library_ms"],
             "shape": "MCA (B=%d, N=%d, H=%d, D=%d) bf16, kv bias" % (
                 MH_CHECKS["mca"]),
+            "launches_finetune_runner": ft_runner_launches[name],
         })
     for name in fa.HM_KERNELS:
         dec = hm_timings[name]

@@ -10,6 +10,9 @@ augmentation runs batched on the device (ops.augment).
                          permutation, padded to a multiple of the world
                          size, strided per process
   SyntheticClipDataset — random uint8 clips (+ labels, boxes) from a seed
+  MultiViewDataset     — a dataset's clips as test_num_segment x
+                         test_num_crop views tagged (chunk_nb, split_nb), as
+                         the reference's test datasets expand them
   collate              — stacks samples into numpy batch arrays
   PrefetchLoader       — a background thread batches (num_workers threads
                          fetch the samples of one batch), pins the batch and
@@ -95,6 +98,31 @@ class SyntheticClipDataset:
                    y1 + rng.randint(8, h // 2)]
             out["boxes"] = np.tile(np.asarray(box, np.float32),
                                    (self.num_frames, 1))
+        return out
+
+
+@dataclasses.dataclass
+class MultiViewDataset:
+    """Each clip of `base` as num_segment x num_crop test views tagged
+    (chunk_nb, split_nb), the way the reference's test datasets expand each
+    video (ssv2.py:68-77). Views are ordered split-major, so that a batch
+    mostly holds one spatial window; the view's pixels are the base
+    sample's (the synthetic clips have no segments to sample), the window
+    is test_view_augment's."""
+
+    base: object
+    num_segment: int = 2
+    num_crop: int = 3
+
+    def __len__(self) -> int:
+        return len(self.base) * self.num_segment * self.num_crop
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        n = len(self.base)
+        split, rest = divmod(i, n * self.num_segment)
+        chunk, video = divmod(rest, n)
+        out = dict(self.base[video])
+        out["chunk_nb"], out["split_nb"] = np.int32(chunk), np.int32(split)
         return out
 
 

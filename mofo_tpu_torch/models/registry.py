@@ -156,16 +156,31 @@ def vit_base_patch16_224_feature_ext(**kwargs):
     return _vit(768, 12, 12, **kwargs)
 
 
-@register_model
-def vit_base_patch16_224_BB_focused(**kwargs):
+def _bb(_embed_dim, _depth, _num_heads, **kwargs):
     cfg = dict(
         img_size=224,
         patch_size=16,
-        embed_dim=768,
-        depth=12,
-        num_heads=12,
+        embed_dim=_embed_dim,
+        depth=_depth,
+        num_heads=_num_heads,
         mlp_ratio=4.0,
         qkv_bias=True,
     )
     cfg.update(kwargs)
     return VisionTransformerBBFocused(**cfg)
+
+
+@register_model
+def vit_base_patch16_224_BB_focused(**kwargs):
+    return _bb(768, 12, 12, **kwargs)
+
+
+@register_model
+def vit_tiny_debug_BB_focused(**kwargs):
+    """Rebuild-only CI preset of the port (no reference counterpart): the
+    BB-focused model on vit_tiny_debug's 2-block dim-64 backbone with a
+    2-head MCA, for the finetune CLI's CPU tests. Its 32-dim heads take the
+    plain versions on the CPU; on the card K3 (head dims 64 and 256) and K4
+    raise on them."""
+    kwargs.setdefault("mca_num_heads", 2)
+    return _bb(64, 2, 2, **kwargs)

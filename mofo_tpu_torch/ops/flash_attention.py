@@ -23,6 +23,12 @@ Every bf16 kernel is a TMA + wgmma kernel (csrc/wgmma_tiles.cuh; the K2, K4
 and head-dim-64 K3 backwards share csrc/wgmma_attn_bwd.cuh); every f32
 kernel runs FMAs.
 
+fp16 callers (the fp16 finetune) run the bf16 kernels: each public entry
+point casts f16 operands to bf16 and the output back to f16 inside autograd,
+so the cotangents come back as f16, as mofo_tpu's _f16_boundary does
+(:413-424, applied at :435-439, :920-925 and :1356); the kernels themselves
+take f32 and bf16 only.
+
 Dispatch is by the tensor's device: a CUDA tensor goes to the kernel (or
 the wrapper raises), a CPU tensor to the plain PyTorch version below, which
 repeats the kernel's numerics (module docstring of the .cu file):
@@ -389,6 +395,9 @@ def flash_attention_qkv(
     """
     if qkv.shape[-1] % (3 * num_heads):
         raise ValueError(f"qkv width {qkv.shape[-1]} vs {num_heads} heads")
+    if qkv.dtype == torch.float16:  # see the module docstring
+        return flash_attention_qkv(qkv.to(torch.bfloat16), scale=scale,
+                                   num_heads=num_heads).to(torch.float16)
     return _QKVFlash.apply(qkv.contiguous(), float(scale), int(num_heads))
 
 
@@ -721,6 +730,10 @@ def flash_attention_mh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if q.shape[-1] % num_heads:
         raise ValueError(f"width {q.shape[-1]} vs {num_heads} heads")
+    if q.dtype == torch.float16:  # see the module docstring
+        return flash_attention_mh(
+            *(t.to(torch.bfloat16) for t in (q, k, v)), scale=scale,
+            num_heads=num_heads, kv_bias=kv_bias).to(torch.float16)
     if kv_bias is not None:
         if kv_bias.shape != (q.shape[0], k.shape[1]):
             raise ValueError(f"kv_bias {tuple(kv_bias.shape)} must be (B, N)")
@@ -952,6 +965,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"q, k, v must share one (B, H, N, D) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
+    if q.dtype == torch.float16:  # see the module docstring
+        return flash_attention(*(t.to(torch.bfloat16) for t in (q, k, v)),
+                               scale=scale).to(torch.float16)
     B, H, N, D = q.shape
     q, k, v = (t.reshape(B * H, N, D).contiguous() for t in (q, k, v))
     return _HMFlash.apply(q, k, v, float(scale)).reshape(B, H, N, D)

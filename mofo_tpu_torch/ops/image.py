@@ -1,18 +1,23 @@
-"""Batched image ops on the device, for the pretrain augmentation.
+"""Batched image ops on the device, for the pretrain and finetune
+augmentations.
 
-Counterpart of the parts of mofo_tpu/ops/image.py that pretrain_augment
-runs: the bilinear crop-and-resize (:44-107), GroupMultiScaleCrop's crop
-boxes (:168-231; reference transforms.py:137-389) and normalize (:282-289).
-Clips are (B, T, H, W, C); boxes (B, 4) = (y1, x1, y2, x2) floats in source
-pixels; sampling uses half-pixel centres and clamps to the edge. The crop
-draws come from a torch.Generator; multi_scale_crop_boxes also takes the
-pair and offset indices, so that tests can hand both packages the same
-draws.
+Counterpart of mofo_tpu/ops/image.py: the bilinear crop-and-resize
+(:44-107), the Inception-style random-resized-crop boxes (:115-165;
+reference video_transforms.py:499-538, ten tries, first fit, torchvision's
+central fallback), GroupMultiScaleCrop's crop boxes (:168-231; reference
+transforms.py:137-389), the centre and three-crop windows and the short-side
+scale (:234-266), the horizontal flip, normalize and RandomErasing in cube
+mode with per-pixel normal fill, one box per clip (:274-345; reference
+random_erasing.py:27-173). Clips are (B, T, H, W, C); boxes (B, 4) = (y1,
+x1, y2, x2) floats in source pixels; sampling uses half-pixel centres and
+clamps to the edge. Every random op draws from a torch.Generator on the
+clips' device, or takes its draws (a NamedTuple below, or index tensors), so
+that tests can hand both packages the same draws.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +65,12 @@ def crop_and_resize(imgs: torch.Tensor, boxes: torch.Tensor,
     ys = y1[:, None] + (oy + 0.5) * ((y2 - y1) / out_h)[:, None] - 0.5
     xs = x1[:, None] + (ox + 0.5) * ((x2 - x1) / out_w)[:, None] - 0.5
     return _bilinear_gather(imgs, ys, xs)
+
+
+def _uniform(generator, shape, lo: float, hi: float, device):
+    """lo + (hi - lo) * U[0, 1), f32."""
+    u = torch.rand(shape, generator=generator, device=device)
+    return u * (hi - lo) + lo
 
 
 def resize(imgs: torch.Tensor, out_size: Tuple[int, int]) -> torch.Tensor:
@@ -126,6 +137,114 @@ def multi_scale_crop_boxes(generator: Optional[torch.Generator], batch: int,
     return torch.stack([y1, x1, y1 + ch, x1 + cw], dim=1)
 
 
+class CropDraws(NamedTuple):
+    """random_resized_crop_boxes' draws: per clip and try (B, 10) the area
+    share in `scale` and the log aspect ratio in log(`ratio`); per clip (B,)
+    the placement fractions in [0, 1)."""
+    area: torch.Tensor
+    log_ratio: torch.Tensor
+    u_i: torch.Tensor
+    u_j: torch.Tensor
+
+
+CROP_TRIES = 10
+
+
+def sample_crop_draws(generator: Optional[torch.Generator], batch: int,
+                      scale=(0.08, 1.0), ratio=(3.0 / 4.0, 4.0 / 3.0),
+                      device=None) -> CropDraws:
+    shape = (batch, CROP_TRIES)
+    return CropDraws(
+        _uniform(generator, shape, scale[0], scale[1], device),
+        _uniform(generator, shape, float(np.log(ratio[0])),
+                 float(np.log(ratio[1])), device),
+        torch.rand(batch, generator=generator, device=device),
+        torch.rand(batch, generator=generator, device=device))
+
+
+def random_resized_crop_boxes(generator: Optional[torch.Generator],
+                              batch: int, img_hw: Tuple[int, int],
+                              scale: Tuple[float, float] = (0.08, 1.0),
+                              ratio: Tuple[float, float] = (3.0 / 4.0,
+                                                            4.0 / 3.0),
+                              device=None,
+                              draws: Optional[CropDraws] = None
+                              ) -> torch.Tensor:
+    """Inception-style crop boxes: ten tries of (area, log-uniform aspect
+    ratio), the first that fits wins, else torchvision's central fallback.
+    Returns (B, 4) = (y1, x1, y2, x2) on `device`; `draws` replaces the
+    draws from `generator`."""
+    H, W = img_hw
+    if draws is None:
+        draws = sample_crop_draws(generator, batch, scale, ratio, device)
+    area = H * W * draws.area.to(device)
+    aspect = torch.exp(draws.log_ratio.to(device))
+    w = torch.sqrt(area * aspect)
+    h = torch.sqrt(area / aspect)
+    ok = (w <= W) & (h <= H)
+    first = ok.to(torch.uint8).argmax(dim=1, keepdim=True)  # first fit
+    any_ok = ok.any(dim=1)
+    w = torch.gather(w, 1, first)[:, 0]
+    h = torch.gather(h, 1, first)[:, 0]
+    i = draws.u_i.to(device) * (H - h)
+    j = draws.u_j.to(device) * (W - w)
+    # central fallback (torchvision: clamp the ratio, centre the crop)
+    in_ratio = W / H
+    if in_ratio < ratio[0]:
+        fb_w, fb_h = float(W), W / ratio[0]
+    elif in_ratio > ratio[1]:
+        fb_w, fb_h = H * ratio[1], float(H)
+    else:
+        fb_w, fb_h = float(W), float(H)
+    fb = torch.tensor([(H - fb_h) / 2.0, (W - fb_w) / 2.0, fb_h, fb_w],
+                      dtype=torch.float32, device=device)
+    h = torch.where(any_ok, h, fb[2])
+    w = torch.where(any_ok, w, fb[3])
+    i = torch.where(any_ok, i, fb[0])
+    j = torch.where(any_ok, j, fb[1])
+    return torch.stack([i, j, i + h, j + w], dim=1)
+
+
+def center_crop_boxes(batch: int, img_hw: Tuple[int, int],
+                      crop: Tuple[int, int], device=None) -> torch.Tensor:
+    H, W = img_hw
+    ch, cw = crop
+    y1, x1 = (H - ch) / 2.0, (W - cw) / 2.0
+    return torch.tensor([y1, x1, y1 + ch, x1 + cw], dtype=torch.float32,
+                        device=device).repeat(batch, 1)
+
+
+def three_crop_boxes(img_hw: Tuple[int, int], size: int, split_nb: int,
+                     num_crops: int = 3
+                     ) -> Tuple[float, float, float, float]:
+    """Spatial window of test view split_nb along the long side
+    (ssv2.py:138-147): start = split_nb * (long - size) / (crops - 1)."""
+    H, W = img_hw
+    if H >= W:
+        y1 = split_nb * (H - size) / max(num_crops - 1, 1)
+        return (y1, 0.0, y1 + size, float(W))
+    x1 = split_nb * (W - size) / max(num_crops - 1, 1)
+    return (0.0, x1, float(H), x1 + size)
+
+
+def short_side_scale_size(h: int, w: int, short_side: int) -> Tuple[int, int]:
+    if h <= w:
+        return short_side, int(round(w * short_side / h))
+    return int(round(h * short_side / w)), short_side
+
+
+def horizontal_flip(generator: Optional[torch.Generator],
+                    imgs: torch.Tensor, prob: float = 0.5,
+                    flip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-clip random horizontal flip; `flip` (B,) bool replaces the
+    draw."""
+    if flip is None:
+        flip = torch.rand(imgs.shape[0], generator=generator,
+                          device=imgs.device) < prob
+    flip = flip.to(imgs.device)[:, None, None, None, None]
+    return torch.where(flip, torch.flip(imgs, dims=(3,)), imgs)
+
+
 def normalize(imgs: torch.Tensor,
               mean: Sequence[float] = constants.IMAGENET_DEFAULT_MEAN,
               std: Sequence[float] = constants.IMAGENET_DEFAULT_STD
@@ -133,3 +252,62 @@ def normalize(imgs: torch.Tensor,
     m = torch.tensor(mean, dtype=imgs.dtype, device=imgs.device)
     s = torch.tensor(std, dtype=imgs.dtype, device=imgs.device)
     return (imgs - m) / s
+
+
+class ErasingDraws(NamedTuple):
+    """random_erasing's draws, per clip (B,): whether to erase, the area
+    share in `area_range`, the log aspect ratio in log(`aspect_range`), the
+    placement fractions in [0, 1); and the standard-normal fill, (B, 1, H,
+    W, C) in cube mode."""
+    apply: torch.Tensor
+    area: torch.Tensor
+    log_ratio: torch.Tensor
+    u_y: torch.Tensor
+    u_x: torch.Tensor
+    fill: torch.Tensor
+
+
+def sample_erasing_draws(generator: Optional[torch.Generator],
+                         shape: Tuple[int, ...], prob: float = 0.25,
+                         area_range=(0.02, 1.0 / 3.0),
+                         aspect_range=(0.3, 10.0 / 3.0),
+                         device=None) -> ErasingDraws:
+    B, _, H, W, C = shape
+    return ErasingDraws(
+        torch.rand(B, generator=generator, device=device) < prob,
+        _uniform(generator, (B,), area_range[0], area_range[1], device),
+        _uniform(generator, (B,), float(np.log(aspect_range[0])),
+                 float(np.log(aspect_range[1])), device),
+        torch.rand(B, generator=generator, device=device),
+        torch.rand(B, generator=generator, device=device),
+        torch.randn((B, 1, H, W, C), generator=generator, device=device))
+
+
+def random_erasing(generator: Optional[torch.Generator], imgs: torch.Tensor,
+                   prob: float = 0.25,
+                   area_range: Tuple[float, float] = (0.02, 1.0 / 3.0),
+                   aspect_range: Tuple[float, float] = (0.3, 10.0 / 3.0),
+                   draws: Optional[ErasingDraws] = None) -> torch.Tensor:
+    """RandomErasing in the reference recipe's mode: the same box in every
+    frame of a clip (cube), filled with per-pixel standard-normal noise, one
+    box per clip. Runs on normalized clips (the reference erases after
+    normalizing, kinetics.py:216-222). `draws` replaces the draws from
+    `generator`."""
+    B, _, H, W, _ = imgs.shape
+    dev = imgs.device
+    if draws is None:
+        draws = sample_erasing_draws(generator, imgs.shape, prob, area_range,
+                                     aspect_range, dev)
+    area = H * W * draws.area.to(dev)
+    aspect = torch.exp(draws.log_ratio.to(dev))
+    eh = torch.clamp(torch.sqrt(area * aspect), 1, H - 1).to(torch.int32)
+    ew = torch.clamp(torch.sqrt(area / aspect), 1, W - 1).to(torch.int32)
+    y1 = (draws.u_y.to(dev) * (H - eh)).to(torch.int32)
+    x1 = (draws.u_x.to(dev) * (W - ew)).to(torch.int32)
+    rows = torch.arange(H, device=dev)[None, :, None]
+    cols = torch.arange(W, device=dev)[None, None, :]
+    box = ((rows >= y1[:, None, None]) & (rows < (y1 + eh)[:, None, None])
+           & (cols >= x1[:, None, None]) & (cols < (x1 + ew)[:, None, None]))
+    box = box & draws.apply.to(dev)[:, None, None]  # (B, H, W)
+    return torch.where(box[:, None, :, :, None],
+                       draws.fill.to(dev, imgs.dtype), imgs)

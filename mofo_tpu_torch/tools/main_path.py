@@ -9,7 +9,9 @@ tools/profile_step.py and tests/test_torch_gpu.py.
   FinetuneConfig defaults (bf16, mixup 0.8 / cutmix 1.0, smoothing 0.1,
   drop path 0.1, AdamW with layer decay 0.75), its backbone started from
   the pretrain model through finetune_init_from_pretrain, on
-  `synthetic_finetune_batch`.
+  `synthetic_finetune_batch`; with `augment` on the finetune runner's
+  uint8 clips (`synthetic_clips_u8`) augmented inside the step as the CLI
+  does, with dtype="float16" under the dynamic loss scale.
 - `attention_against_plain`: the fused-qkv attention kernels (K1/K2:
   forward, dK/dV, dQ) and their plain PyTorch versions on the same qkv;
   `mh_inputs` / `mh_attention_against_plain`: the same for the masked
@@ -22,6 +24,10 @@ tools/profile_step.py and tests/test_torch_gpu.py.
   `planted_faults` /
   `hm_planted_faults`: wrong outputs those bounds must reject
   (`masked_kv_grad` checks that masked kv rows get zero dK/dV).
+- `forced_draws` / `moved_draws` / `augment_against_cpu`: finetune_augment
+  draws that force all 15 RandAugment ops (the geometric ones in both
+  interpolations), and the bound that holds an augmentation on the card
+  against the same one on the CPU.
 - `plain_attention`: inside it every attention wrapper takes its plain
   PyTorch version whatever the device; `build_step(..., plain=True)` and
   `build_finetune_step(..., plain=True)` run their steps so. It exists for
@@ -41,11 +47,15 @@ from mofo_tpu_torch.core.config import (
     MaskingConfig,
     PretrainConfig,
 )
+from mofo_tpu_torch.cli.finetune import make_train_augment
 from mofo_tpu_torch.models import create_model
+from mofo_tpu_torch.ops import augment as A
 from mofo_tpu_torch.ops import flash_attention as fa
+from mofo_tpu_torch.ops import rand_augment as RA
 from mofo_tpu_torch.train import optim, schedules
 from mofo_tpu_torch.train.checkpoint import finetune_init_from_pretrain
 from mofo_tpu_torch.train.finetune_step import make_finetune_step
+from mofo_tpu_torch.train.loss_scale import DynamicLossScale
 from mofo_tpu_torch.train.pretrain_step import make_pretrain_step
 from mofo_tpu_torch.train.train_state import TrainState
 
@@ -67,6 +77,12 @@ BF16_LSE_ATOL = 1e-4
 # version; delta, an f32 sum of D products taken in another order, within
 # PREP_DELTA_RTOL of its row's sum of |dO * O|
 PREP_DELTA_RTOL = 1e-5
+# an augmentation on the card against the CPU: the share of output values
+# within AUG_ATOL. A geometric op (cos / sin of two libms) or a rounding in
+# equalize or posterize may move a pixel across a sampling or rounding
+# boundary, so a few pixels may differ by more
+AUG_ATOL = 1e-3
+AUG_SHARE = 0.999
 
 
 def synthetic_batch(B: int, generator: torch.Generator,
@@ -157,12 +173,34 @@ def finetune_model(cfg: FinetuneConfig, device="cuda", seed: int = 2,
                         dtype=getattr(torch, cfg.dtype), seed=seed, **kw)
 
 
-def build_finetune_step(B: int, plain: bool = False, depth: int = 12):
+def synthetic_clips_u8(B: int, generator: torch.Generator, device: str,
+                       num_classes: int = 174, hw=(256, 320)) -> dict:
+    """What the finetune runner's loader hands its step: uint8 clips (B, 16,
+    H, W, 3) decoded at `hw`, per-frame pixel boxes (B, 16, 4) and labels."""
+    H, W = hw
+    clip = torch.randint(0, 256, (B, 16, H, W, 3), dtype=torch.uint8,
+                         generator=generator, device=device)
+    size = torch.tensor([W, H], dtype=torch.float32, device=device)
+    xy1 = torch.rand((B, 16, 2), generator=generator, device=device) * (
+        size / 2)
+    wh = (0.2 + 0.3 * torch.rand((B, 16, 2), generator=generator,
+                                 device=device)) * size
+    label = torch.randint(0, num_classes, (B,), generator=generator,
+                          device=device)
+    return {"clip": clip, "boxes": torch.cat([xy1, xy1 + wh], dim=-1),
+            "label": label}
+
+
+def build_finetune_step(B: int, plain: bool = False, depth: int = 12,
+                        augment: bool = False, dtype: str = "bfloat16"):
     """The ViT-B BB-focused MCA finetune step on CUDA at batch B, its
     backbone `depth` Blocks deep (the checks cut it). With `plain` the
-    step's attention runs the plain versions on the card (plain_attention).
-    Returns (model, state, step_fn, generator, batch, cfg)."""
-    cfg = FinetuneConfig(batch_size=B, model=FINETUNE_MODEL)
+    step's attention runs the plain versions on the card (plain_attention);
+    with `augment` the batch is synthetic_clips_u8's and the step augments
+    it as the finetune CLI does (RandAugment, crop, flip, erasing); in
+    dtype "float16" the state carries the dynamic loss scale. Returns
+    (model, state, step_fn, generator, batch, cfg)."""
+    cfg = FinetuneConfig(batch_size=B, model=FINETUNE_MODEL, dtype=dtype)
     model = finetune_model(cfg, depth=depth)
     pretrain = create_model(MODEL, dtype=torch.bfloat16, seed=1,
                             encoder_depth=depth)
@@ -176,12 +214,17 @@ def build_finetune_step(B: int, plain: bool = False, depth: int = 12):
     tx = optim.create_optimizer(named, lr_schedule=lr, betas=oc.opt_betas,
                                 weight_decay=oc.weight_decay,
                                 eps=oc.opt_eps, layer_decay=oc.layer_decay)
-    state = TrainState.create(model, tx)
-    step = make_finetune_step(model, tx, cfg, lr, bb_focused=True)
+    state = TrainState.create(
+        model, tx, loss_scale=(DynamicLossScale.create()
+                               if dtype == "float16" else None))
+    step = make_finetune_step(
+        model, tx, cfg, lr, bb_focused=True,
+        augment_fn=make_train_augment(cfg, flip=True) if augment else None)
     if plain:
         step = _through_plain(step)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    batch = synthetic_finetune_batch(B, gen, "cuda", cfg.nb_classes)
+    make_batch = synthetic_clips_u8 if augment else synthetic_finetune_batch
+    batch = make_batch(B, gen, "cuda", cfg.nb_classes)
     return model, state, step, gen, batch, cfg
 
 
@@ -374,3 +417,45 @@ def check_hm_prep(q, k, out, dout, scale: float) -> dict:
         fa.hm_attn_bwd_prep(q, k, out, dout, scale),
         fa.attention_hm_bwd_prep_plain(q, k, out, dout, scale),
         (dout.float().abs() * out.float().abs()).sum(-1))
+
+
+def forced_draws(B: int, hw, out_size: int = 224,
+                 seed: int = 21) -> A.FinetuneDraws:
+    """finetune_augment's draws (default config, 4 layers) for B >= 8
+    clips of 16 frames at `hw` cropped to out_size, on the CPU, with every
+    RandAugment layer applied and the ops dealt round the B * 4 slots in
+    turn: every op appears, each geometric op once per interpolation."""
+    draws = A.sample_finetune_draws(torch.Generator().manual_seed(seed),
+                                    (B, 16, *hw, 3), out_size)
+    ra = draws.rand_augment
+    n_ops = len(RA.TRANSFORMS)
+    slots = torch.arange(ra.op.numel()).reshape(ra.op.shape)
+    ra = ra._replace(op=slots % n_ops, interp=(slots // n_ops) % 2,
+                     apply=torch.ones_like(ra.apply))
+    seen = {(int(o), int(i) if int(o) in RA.GEOMETRIC else 0)
+            for o, i in zip(ra.op.flatten(), ra.interp.flatten())}
+    want = {(o, i) for o in range(n_ops)
+            for i in ((0, 1) if o in RA.GEOMETRIC else (0,))}
+    if seen != want:
+        raise ValueError(f"{B} clips are too few to draw every op: "
+                         f"{sorted(want - seen)} missing")
+    return draws._replace(rand_augment=ra)
+
+
+def moved_draws(draws, device):
+    """A NamedTuple of draws (nested, None allowed) on `device`."""
+    if draws is None or isinstance(draws, torch.Tensor):
+        return None if draws is None else draws.to(device)
+    return type(draws)(*(moved_draws(d, device) for d in draws))
+
+
+def augment_against_cpu(card, cpu) -> dict:
+    """An augmentation's (clips, boxes) on the card against the CPU's: max
+    |card - CPU| of each, and the share of clip values within AUG_ATOL
+    (the bound: at least AUG_SHARE)."""
+    diff = (card[0].cpu() - cpu[0]).abs()
+    res = {"max_abs_err": diff.max().item(),
+           "share_within": (diff <= AUG_ATOL).float().mean().item()}
+    if card[1] is not None:
+        res["boxes_max_abs_err"] = (card[1].cpu() - cpu[1]).abs().max().item()
+    return res

@@ -1,17 +1,18 @@
 """Profile the ViT-B MOFO pretrain step, the ViT-S one, or the BB-focused
 MCA finetune step, on the GPU with torch.profiler.
 
-    python -m mofo_tpu_torch.tools.profile_step [--vits | --finetune]
-        [--batch B] [--steps 3] [--trace OUT.json]
+    python -m mofo_tpu_torch.tools.profile_step [--vits | --finetune
+        [--augment]] [--batch B] [--steps 3] [--trace OUT.json]
 
 Counterpart of tools/profile_step.py. Runs the step of chip_smoke.py's
 phase `step` (main_path.build_step: bf16, tube_bb masks, motion-weighted
 loss, AdamW; B=16 by default), with --vits of its phase `vits_step` (the
 same step at ViT-S width, B=32 by default) or, with --finetune, of its phase
 `finetune_step` (main_path.build_finetune_step: bf16, mixup, drop path,
-AdamW with layer decay; B=10 by default), warms it up, then traces a few
-steps
-and prints one JSON line: host time per step, device kernel time per step
+AdamW with layer decay; B=10 by default) and with --finetune --augment the
+finetune runner's step (the same on uint8 clips of 16 x 256 x 320 that the
+step augments first, as cli.finetune does), warms it up, then traces a few
+steps and prints one JSON line: host time per step, device kernel time per step
 and the device's busy share, the time of each kernel group (the port's
 attention kernels, the GEMMs, the rest), the top kernels and every kernel
 instance of the port by name. --trace writes the Chrome trace.
@@ -68,14 +69,19 @@ def main() -> None:
     which = ap.add_mutually_exclusive_group()
     which.add_argument("--finetune", action="store_true")
     which.add_argument("--vits", action="store_true")
+    ap.add_argument("--augment", action="store_true",
+                    help="with --finetune: augment uint8 clips in the step")
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default=None)
     args = ap.parse_args()
+    if args.augment and not args.finetune:
+        ap.error("--augment goes with --finetune")
 
     if args.finetune:
         B = args.batch or 10
-        _, state, step_fn, gen, batch, _ = build_finetune_step(B)
+        _, state, step_fn, gen, batch, _ = build_finetune_step(
+            B, augment=args.augment)
         step = lambda st: step_fn(st, batch, gen)  # noqa: E731
     else:
         B = args.batch or (32 if args.vits else 16)
@@ -110,7 +116,8 @@ def main() -> None:
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "step": ("finetune" if args.finetune else
+        "step": ("finetune, augmented in the step" if args.augment else
+                 "finetune" if args.finetune else
                  "pretrain ViT-S" if args.vits else "pretrain"), "batch": B,
         "steps": args.steps, "host_ms_per_step": host_ms,
         "device_kernel_ms_per_step": device_ms,

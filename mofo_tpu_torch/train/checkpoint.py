@@ -17,12 +17,18 @@ directories, the port saves torch files checkpoint-<epoch>.pth in the
 reference's layout (utils.py:411-496): {"model": state_dict, "optimizer":
 torch AdamW's state_dict layout ("state" by parameter index with "step",
 "exp_avg", "exp_avg_sq"; "param_groups" with the parameter names), "epoch",
-"step", "args"}. A saved "model" loads into mofo_tpu through
-load_torch_checkpoint + import_torch_pretrain.
+"step", "args"}, plus "model_ema" with EMA and "scaler" (the fp16 loss
+scale) when the run has them. A saved "model" loads into mofo_tpu through
+load_torch_checkpoint + import_torch_pretrain (or import_torch_finetune).
+save_checkpoint's `name` writes a named file instead, e.g. the finetune
+runner's checkpoint-best.pth, which latest_checkpoint skips;
+load_checkpoint restores any such file. load_pretrain_encoder reads the
+pretrain .pth that --finetune names.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import re
 from typing import Dict, Mapping, Optional, Tuple
@@ -146,22 +152,42 @@ def finetune_init_from_pretrain(model: torch.nn.Module,
     return sorted(copied)
 
 
+def load_pretrain_encoder(path: str) -> Dict[str, torch.Tensor]:
+    """The state_dict of a pretrain checkpoint (.pth / .pt, the reference's
+    layout: "model" holding encoder.* names, as the port's pretrain runner
+    writes it) for finetune_init_from_pretrain: the counterpart of
+    mofo_tpu/cli/finetune.py:189-202. An orbax directory is a JAX format,
+    which the port does not read."""
+    if os.path.isdir(path) or not path.endswith((".pth", ".pt")):
+        raise ValueError(
+            f"{path}: not a .pth file. An orbax checkpoint directory is the "
+            "JAX package's format, which the port does not read; pass a "
+            "torch checkpoint (the port's pretrain runner writes them)")
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("model", "module"):
+        if isinstance(sd.get(key), dict):
+            return sd[key]
+    return sd
+
+
 def save_checkpoint(output_dir: str, model: torch.nn.Module, state,
-                    epoch: int, args=None) -> str:
+                    epoch: int, args=None, name: Optional[str] = None) -> str:
     """Writes the model, the AdamW moments and step, the train step and the
-    epoch to <output_dir>/checkpoint-<epoch>.pth (through a temporary file,
-    so a reader never sees half a file). `state` is the TrainState of
-    `model`; `args` an argparse.Namespace of the run or None."""
+    epoch to <output_dir>/checkpoint-<epoch>.pth, or <output_dir>/<name>.pth
+    (through a temporary file, so a reader never sees half a file). `state`
+    is the TrainState of `model`; `args` an argparse.Namespace of the run or
+    None."""
     opt = state.opt_state
     names = list(state.params)
     cpu = lambda t: t.detach().cpu()  # noqa: E731
     payload = {
         "model": {k: cpu(v) for k, v in model.state_dict().items()},
         "optimizer": {
+            # torch keeps no state for a parameter it never updates
             "state": {i: {"step": torch.tensor(float(opt.count)),
                           "exp_avg": cpu(opt.mu[n]),
                           "exp_avg_sq": cpu(opt.nu[n])}
-                      for i, n in enumerate(names)},
+                      for i, n in enumerate(names) if n in opt.mu},
             "param_groups": [{"params": list(range(len(names))),
                               "param_names": names}],
         },
@@ -170,10 +196,13 @@ def save_checkpoint(output_dir: str, model: torch.nn.Module, state,
     }
     if state.ema_params is not None:
         payload["model_ema"] = {k: cpu(v) for k, v in state.ema_params.items()}
+    if state.loss_scale is not None:
+        payload["scaler"] = {"scale": state.loss_scale.scale,
+                             "good_steps": state.loss_scale.good_steps}
     if args is not None:
         payload["args"] = dict(vars(args))
     os.makedirs(output_dir, exist_ok=True)
-    path = os.path.join(output_dir, f"checkpoint-{epoch}.pth")
+    path = os.path.join(output_dir, f"{name or f'checkpoint-{epoch}'}.pth")
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
@@ -190,14 +219,22 @@ def load_checkpoint(path: str, model: torch.nn.Module, state) -> int:
     if names != list(state.params):
         raise ValueError(f"{path} holds other parameters than the model")
     model.load_state_dict(ckpt["model"])
+    saved = {names[i]: s for i, s in opt["state"].items()}
+    if set(saved) != set(state.opt_state.mu):
+        raise ValueError(f"{path} holds the moments of other parameters")
     with torch.no_grad():
-        for i, n in enumerate(names):
-            state.opt_state.mu[n].copy_(opt["state"][i]["exp_avg"])
-            state.opt_state.nu[n].copy_(opt["state"][i]["exp_avg_sq"])
+        for n, s in saved.items():
+            state.opt_state.mu[n].copy_(s["exp_avg"])
+            state.opt_state.nu[n].copy_(s["exp_avg_sq"])
         if state.ema_params is not None and "model_ema" in ckpt:
             for n, v in ckpt["model_ema"].items():
                 state.ema_params[n].copy_(v)
-    state.opt_state.count = int(opt["state"][0]["step"]) if names else 0
+    state.opt_state.count = (int(next(iter(saved.values()))["step"])
+                             if saved else 0)
+    if state.loss_scale is not None and "scaler" in ckpt:
+        state.loss_scale = dataclasses.replace(
+            state.loss_scale, scale=float(ckpt["scaler"]["scale"]),
+            good_steps=int(ckpt["scaler"]["good_steps"]))
     state.step = int(ckpt["step"])
     return int(ckpt["epoch"])
 

@@ -2,18 +2,19 @@
 
 Counterpart of mofo_tpu/train/finetune_step.py (reference
 engine_for_finetuning.py:25-225 and train_one_epoch_BB_focused, :504-558):
-mixup, the criterion choice, the model (with per-frame boxes when
-bb_focused), the backward pass, update_freq gradient accumulation, the
-gradient norm, the optimizer update and EMA; the eval step's loss, acc1
-and acc5 with the `valid` weighting.
+the augmentation of the uint8 batch (augment_fn), mixup, the criterion
+choice, the model (with per-frame boxes when bb_focused), the backward
+pass, update_freq gradient accumulation, the fp16 loss scale, the gradient
+norm, the optimizer update and EMA; the eval step's loss, acc1 and acc5
+with the `valid` weighting.
 
-Random draws have three roles, as the JAX step splits its key three ways:
-mixup draws on the host from an np.random.Generator seeded from
-cfg.seed, drop path on the device from the
-torch.Generator the caller hands each step, and dropout, which is not
-ported (every recipe runs it at rate 0). The fp16 loss scale, adahessian
-(second_order) and in-step augmentation (augment_fn) are not ported yet
-and raise NotImplementedError.
+Random draws have four roles, as the JAX step splits its key: the
+augmentation and then drop path draw on the device from the
+torch.Generator the caller hands each step; mixup draws on the host from
+an np.random.Generator seeded from (cfg.seed, the step), so a resumed run
+draws what an uninterrupted one draws; dropout is not ported (every recipe
+runs it at rate 0). adahessian (second_order) is not ported yet and raises
+NotImplementedError (ROADMAP Queue 1, item 17).
 """
 
 from __future__ import annotations
@@ -76,25 +77,30 @@ def make_finetune_step(
     The step runs on `device` (CUDA unless the caller passes "cpu"; raises
     without a GPU), where the model must already be. batch: 'clip'
     (B, T, H, W, C) normalized clips, 'label' (B,) int and, when
-    bb_focused, 'boxes' (B, T, 4). With update_freq > 1, B splits into that
-    many microbatches. `generator` (on the step's device) draws drop path;
+    bb_focused, 'boxes' (B, T, 4) — or raw decoded uint8 frames when
+    augment_fn is given: augment_fn(generator, batch) -> batch runs first,
+    inside the step (mofo_tpu/train/finetune_step.py:103-106). With
+    update_freq > 1, B splits into that many microbatches. `generator` (on
+    the step's device) draws the augmentation, then drop path;
     `mixup_params` replaces the mixup draws, one MixupParams per
     microbatch (or a single one when update_freq is 1), for tests.
-    Metrics: loss, grad_norm and, with a schedule, lr - tensors left on
-    the device.
+
+    With state.loss_scale (fp16) the loss is scaled before the backward
+    pass and the gradients unscaled in f32; when the gradient norm is not
+    finite the parameters, the moments and the optimizer's count stay as
+    they are and the scale backs off (one host read of the norm's
+    finiteness per step); state.step advances either way, as in JAX.
+
+    Metrics: loss, grad_norm, with a schedule lr and with a loss scale
+    loss_scale and skipped — tensors left on the device.
     """
-    if augment_fn is not None:
-        raise NotImplementedError("augment_fn: ops/augment is not ported")
     if second_order:
-        raise NotImplementedError("second_order (adahessian) is not ported")
-    if cfg.dtype == "float16":
-        raise NotImplementedError("the fp16 loss scale is not ported; "
-                                  "finetune in bfloat16 or float32")
+        raise NotImplementedError("second_order (adahessian) is not ported "
+                                  "(ROADMAP Queue 1, item 17)")
     dev = _check_device(model, device)
     mixup_fn = mixup_for(cfg)
     mixup_active = mixup_fn.enabled
     criterion = build_criterion(cfg, mixup_active)
-    rng = np.random.default_rng(cfg.seed)
     k = cfg.update_freq
 
     def step_fn(state: TrainState, batch: Batch,
@@ -102,11 +108,15 @@ def make_finetune_step(
                 mixup_params: Union[MixupParams, Sequence[MixupParams],
                                     None] = None):
         model.train()
+        if augment_fn is not None:
+            batch = augment_fn(generator, batch)
         B = batch["clip"].shape[0]
         if B % k:
             raise ValueError(f"batch {B} does not split into {k} micro")
         if isinstance(mixup_params, MixupParams):
             mixup_params = [mixup_params]
+        rng = np.random.default_rng([cfg.seed, state.step])
+        scale = 1.0 if state.loss_scale is None else state.loss_scale.scale
         mb = B // k
         for p in state.params.values():
             p.grad = None
@@ -123,18 +133,27 @@ def make_finetune_step(
             else:
                 logits = model(clip, generator)
             loss = criterion(logits, target)
-            loss.backward()
+            (loss * scale).backward()
             loss_sum = loss_sum + loss.detach()
         grads = {n: p.grad for n, p in state.params.items()}
-        if k > 1:
+        if k * scale != 1.0:
             grads = dict(zip(grads, torch._foreach_div(list(grads.values()),
-                                                       k)))
+                                                       k * scale)))
         loss = loss_sum / k if k > 1 else loss_sum
         grad_norm = global_norm(grads.values())
-        tx.update(grads, state.opt_state, state.params)
+        finite = True
+        if state.loss_scale is not None:
+            finite = bool(torch.isfinite(grad_norm))
+            state.loss_scale = state.loss_scale.update(finite)
+        if finite:
+            tx.update(grads, state.opt_state, state.params)
         if state.ema_params is not None:
             ema_update(state.ema_params, state.params, cfg.model_ema_decay)
         metrics = {"loss": loss, "grad_norm": grad_norm}
+        if state.loss_scale is not None:
+            metrics["loss_scale"] = torch.tensor(state.loss_scale.scale,
+                                                 device=dev)
+            metrics["skipped"] = torch.tensor(float(not finite), device=dev)
         if lr_schedule is not None:
             metrics["lr"] = torch.tensor(
                 float(lr_schedule[min(state.step, len(lr_schedule) - 1)]),

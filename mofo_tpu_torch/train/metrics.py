@@ -1,9 +1,10 @@
 """Metrics, console logging and the epoch logs of the runners.
 
 Counterpart of mofo_tpu/train/metrics.py (reference utils.py:17-194):
-  - SmoothedValue / MetricLogger: windowed meters and `log_every` console
-    lines with ETA and data / iteration time; the logger keeps the epoch's
-    data-wait and iteration times (`data_time`, `iter_time`);
+  - SmoothedValue / MetricLogger: windowed meters (update_weighted counts
+    a batch by its real rows) and `log_every` console lines with ETA and
+    data / iteration time; the logger keeps the epoch's data-wait and
+    iteration times (`data_time`, `iter_time`);
   - JsonlLogger: the rank-0 JSONL log.txt per epoch
     (run_mae_pretraining.py:289-293);
   - TensorboardLogger: per-step scalar heads, a no-op without tensorboardX
@@ -81,6 +82,14 @@ class MetricLogger:
                 v = float(v)
             self.meters[k].update(v)
 
+    def update_weighted(self, n: int, **kwargs):
+        """update with a sample count, so that global_avg weights batches by
+        their real (not padded) size."""
+        for k, v in kwargs.items():
+            if hasattr(v, "item"):
+                v = float(v)
+            self.meters[k].update(v, n=max(int(n), 0) or 1)
+
     def __str__(self):
         return self.delimiter.join(f"{name}: {meter}"
                                    for name, meter in self.meters.items())
@@ -115,8 +124,11 @@ class MetricLogger:
                    f"{str(datetime.timedelta(seconds=int(elapsed)))} "
                    f"({elapsed / max(i, 1):.4f} s / it)")
 
-    def epoch_stats(self) -> Dict[str, float]:
-        """Per-meter global averages (one process: nothing to reduce)."""
+    def epoch_stats(self, sync: bool = False) -> Dict[str, float]:
+        """Per-meter global averages. `sync` would reduce the totals across
+        processes first (the reference's synchronize_between_processes); the
+        port runs one process, so there is nothing to reduce."""
+        del sync
         return {k: m.global_avg for k, m in self.meters.items()}
 
 

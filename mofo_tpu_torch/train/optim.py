@@ -9,14 +9,18 @@ The update below repeats that chain operation for operation, so the two
 packages agree to f32 rounding (reference semantics: torch AdamW,
 p -= lr * lr_scale * (m_hat / (sqrt(v_hat) + eps) + wd * p), with the
 groups of optim_factory.get_parameter_groups and the scales of
-LayerDecayValueAssigner). Parameters and moments are updated in place. The
-rest of the optimizer zoo and `trainable` are not ported yet.
+LayerDecayValueAssigner). Parameters and moments are updated in place.
+With `trainable` (--only_finetune_last) the other parameters get neither
+moments nor updates (mofo_tpu/train/optim.py:514, 621-633: optax.masked
+moments and exact-zero updates); the global-norm clip still sees every
+gradient, as it does there. The rest of the optimizer zoo is not ported
+yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,15 +99,18 @@ class AdamWState:
 class AdamW:
     """optax's scale_by_adam -> scheduled decoupled weight decay -> the
     per-parameter lr scale (layer decay) -> -lr(t), after an optional
-    clip_by_global_norm."""
+    clip_by_global_norm; only the `trained` parameters (all by default)
+    have moments and are updated."""
 
     def __init__(self, params: Params, *, lr_schedule: np.ndarray,
                  wd_schedule: Optional[np.ndarray] = None,
                  weight_decay: float = 0.05,
                  betas: Tuple[float, float] = (0.9, 0.999),
                  eps: float = 1e-8, clip_grad: Optional[float] = None,
-                 lr_scales: Optional[Dict[str, float]] = None):
+                 lr_scales: Optional[Dict[str, float]] = None,
+                 trained: Optional[Iterable[str]] = None):
         self.mask = decay_mask(params)
+        self.trained = list(params if trained is None else trained)
         self.lr_scales = lr_scales
         self.lr_schedule = np.asarray(lr_schedule, np.float32)
         self.wd_schedule = (
@@ -116,7 +123,8 @@ class AdamW:
         self.clip_grad = clip_grad
 
     def init(self, params: Params) -> AdamWState:
-        zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}  # noqa: E731
+        zeros = lambda: {n: torch.zeros_like(params[n])  # noqa: E731
+                         for n in self.trained}
         return AdamWState(count=0, mu=zeros(), nu=zeros())
 
     @staticmethod
@@ -129,10 +137,10 @@ class AdamW:
         """Applies one update to `params` and `state`, in place. Each line
         is one multi-tensor (foreach) operation over all parameters, in
         optax's order of operations and roundings."""
-        names = list(params)
+        names = self.trained
         g = [grads[n] for n in names]
         if self.clip_grad is not None and self.clip_grad > 0:
-            g_norm = global_norm(g)
+            g_norm = global_norm(grads.values())  # every gradient
             if not bool(g_norm < self.clip_grad):
                 g = [(x / g_norm) * self.clip_grad for x in g]
         b1, b2 = self.b1, self.b2
@@ -186,13 +194,22 @@ def create_optimizer(params: Params, *, opt: str = "adamw",
                      eps: float = 1e-8,
                      clip_grad: Optional[float] = None,
                      layer_decay: Optional[float] = None,
-                     depth: Optional[int] = None) -> AdamW:
+                     depth: Optional[int] = None,
+                     trainable: Optional[Callable[[str, torch.Tensor],
+                                                  bool]] = None) -> AdamW:
     """The AdamW path of mofo_tpu.train.optim.create_optimizer. `params`
     maps the model's parameter names to its tensors. With layer_decay < 1
     each update is scaled by layer_decay_scales (depth inferred from the
-    names unless given)."""
+    names unless given). trainable(name, tensor) picks the parameters that
+    are trained (all without it); it must pick one."""
     if opt.lower() != "adamw":
         raise ValueError(f"optimizer {opt!r} is not ported yet (adamw only)")
+    trained = None
+    if trainable is not None:
+        trained = [n for n, p in params.items() if trainable(n, p)]
+        if not trained:
+            raise ValueError("trainable selected no parameters (renamed "
+                             "module?)")
     scales = None
     if layer_decay is not None and layer_decay < 1.0:
         scales = layer_decay_scales(
@@ -200,4 +217,4 @@ def create_optimizer(params: Params, *, opt: str = "adamw",
             layer_decay)
     return AdamW(params, lr_schedule=lr_schedule, wd_schedule=wd_schedule,
                  weight_decay=weight_decay, betas=betas, eps=eps,
-                 clip_grad=clip_grad, lr_scales=scales)
+                 clip_grad=clip_grad, lr_scales=scales, trained=trained)

@@ -3,7 +3,8 @@
 Counterpart of mofo_tpu/train/train_state.py. `params` maps names to the
 model's own parameter tensors, which the optimizer updates in place (the
 JAX state is an immutable pytree; here the update saves a copy of the
-weights and moments).
+weights and moments). `loss_scale` is the fp16 DynamicLossScale, None in
+the other dtypes.
 """
 
 from __future__ import annotations
@@ -22,17 +23,18 @@ class TrainState:
     params: Params
     opt_state: Any
     ema_params: Optional[Params] = None
+    loss_scale: Optional[Any] = None
 
     @classmethod
-    def create(cls, model: torch.nn.Module, tx,
-               use_ema: bool = False) -> "TrainState":
+    def create(cls, model: torch.nn.Module, tx, use_ema: bool = False,
+               loss_scale: Optional[Any] = None) -> "TrainState":
         params = dict(model.named_parameters())
         ema = (
             {n: p.detach().clone() for n, p in params.items()}
             if use_ema else None
         )
         return cls(step=0, params=params, opt_state=tx.init(params),
-                   ema_params=ema)
+                   ema_params=ema, loss_scale=loss_scale)
 
 
 @torch.no_grad()

@@ -23,25 +23,32 @@ from mofo_tpu_torch.core.config import (
     PretrainConfig,
 )
 from mofo_tpu_torch.models import create_model
+from mofo_tpu_torch.ops import augment as A
 from mofo_tpu_torch.ops import flash_attention as fa
 from mofo_tpu_torch.ops import masking
-from mofo_tpu_torch.cli import pretrain_mofo
+from mofo_tpu_torch.cli import finetune_mofo, pretrain_mofo
 from mofo_tpu_torch.tools.main_path import (
+    AUG_SHARE,
     VITS_MODEL,
     attention_against_plain,
+    augment_against_cpu,
+    build_finetune_step,
     check_against_plain,
     check_hm_prep,
     check_mh_prep,
     check_prep,
     compare_with_plain,
     finetune_model,
+    forced_draws,
     hm_attention_against_plain,
     hm_inputs,
     hm_planted_faults,
     masked_kv_grad,
     mh_attention_against_plain,
     mh_inputs,
+    moved_draws,
     planted_faults,
+    synthetic_clips_u8,
     synthetic_finetune_batch,
 )
 from mofo_tpu_torch.train import optim
@@ -545,3 +552,137 @@ def test_runner_saves_and_resumes_on_the_card(cuda, tmp_path):
     assert [x["epoch"] for x in logs[1]] == [1]
     np.testing.assert_allclose(logs[1][0]["train_loss"],
                                logs[0][1]["train_loss"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("pipeline", ["finetune", "eval", "view0", "view1",
+                                      "view2"])
+def test_augmentation_on_the_card_matches_the_cpu(cuda, pipeline):
+    """The finetune runner's augmentations at a small decode size (8 clips
+    of 16 x 72 x 96, out 64) on the card against the CPU with the same
+    draws, which force all 15 RandAugment ops in both interpolations (8
+    clips of 4 layers are enough slots)."""
+    batch = synthetic_clips_u8(8, torch.Generator().manual_seed(1), "cpu",
+                               hw=(72, 96))
+    draws = forced_draws(8, (72, 96), out_size=64)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        if pipeline == "finetune":
+            got[dev] = A.finetune_augment(None, b["clip"], 64,
+                                          boxes=b["boxes"],
+                                          draws=moved_draws(draws, dev))
+        elif pipeline == "eval":
+            got[dev] = A.eval_augment(b["clip"], 64, 64, boxes=b["boxes"])
+        else:
+            got[dev] = A.test_view_augment(b["clip"], int(pipeline[-1]), 64,
+                                           64, boxes=b["boxes"])
+    res = augment_against_cpu(got["cuda"], got["cpu"])
+    assert res["share_within"] >= AUG_SHARE, res
+    assert res["boxes_max_abs_err"] <= 1e-3, res
+
+
+@pytest.mark.parametrize("route", ["qkv", "mh_d64", "mh_d256", "hm"])
+def test_fp16_boundary_runs_the_bf16_kernels(cuda, route):
+    """An fp16 caller of each kernel family gets the bf16 kernels' numbers
+    in f16, and f16 gradients, through the kernels (launches counted)."""
+    g = torch.Generator().manual_seed(0)
+    bias = None
+    if route == "qkv":
+        shapes = [(2, 200, 3 * 128)]
+        call = lambda x: fa.flash_attention_qkv(  # noqa: E731
+            x, scale=0.125, num_heads=2)
+        kernels = fa.QKV_KERNELS
+    elif route.startswith("mh"):
+        H, D = (2, 64) if route == "mh_d64" else (1, 256)
+        shapes = [(2, 200, H * D)] * 3
+        bias = torch.where(torch.rand(2, 200, generator=g) < 0.5, 0.0,
+                           -1e30).to(cuda)
+        bias[:, 0] = 0.0
+        call = lambda q, k, v: fa.flash_attention_mh(  # noqa: E731
+            q, k, v, scale=D ** -0.5, num_heads=H, kv_bias=bias)
+        kernels = fa.MH_KERNELS
+    else:
+        shapes = [(2, 3, 200, 64)] * 3
+        call = lambda q, k, v: fa.flash_attention(q, k, v,  # noqa: E731
+                                                  scale=0.125)
+        kernels = fa.HM_KERNELS
+    xs = [torch.randn(s, generator=g).half().to(cuda) for s in shapes]
+    width = shapes[0][-1] // 3 if route == "qkv" else shapes[0][-1]
+    weight = torch.linspace(-1, 1, width, device=cuda)
+    runs = {}
+    for dtype in (torch.float16, torch.bfloat16):
+        ins = [x.to(dtype).clone().requires_grad_(True) for x in xs]
+        fa.reset_launch_counts()
+        out = call(*ins).to(torch.float16)
+        (out.float() * weight).sum().backward()
+        assert all(fa.launch_counts[k] == 1 for k in kernels), route
+        runs[dtype] = (out.detach(), [t.grad for t in ins])
+    (out16, grads16), (out_bf, grads_bf) = runs[torch.float16], runs[
+        torch.bfloat16]
+    assert out16.dtype == torch.float16 and torch.equal(out16, out_bf)
+    for a, b in zip(grads16, grads_bf):
+        assert a.dtype == torch.float16 and torch.equal(a, b.half())
+
+
+def test_fp16_finetune_step_and_its_skip_on_the_card(cuda):
+    """Two fp16 BB-focused MCA steps (ViT-B width, 2 Blocks, B=2) under the
+    loss scale, then a step with one clip scaled to inf: skipped, the scale
+    halved, the parameters, moments and count as they were."""
+    _, state, step, gen, batch, _ = build_finetune_step(2, depth=2,
+                                                        dtype="float16")
+    fa.reset_launch_counts()
+    for _ in range(2):
+        state, m = step(state, batch, gen)
+        assert float(m["loss_scale"]) == 128.0 and float(m["skipped"]) == 0
+        assert np.isfinite(float(m["loss"]))
+    assert fa.launch_counts == {**dict.fromkeys(fa.KERNELS, 0),
+                                **dict.fromkeys(fa.QKV_KERNELS, 4),
+                                **dict.fromkeys(fa.MH_KERNELS, 2)}
+    opt = state.opt_state
+    kept = {n: p.detach().clone() for n, p in state.params.items()}
+    mu = {n: t.clone() for n, t in opt.mu.items()}
+    bad = dict(batch, clip=batch["clip"].clone())
+    bad["clip"][0] = float("inf")
+    state, m = step(state, bad, gen)
+    assert float(m["skipped"]) == 1.0 and float(m["loss_scale"]) == 64.0
+    assert opt.count == 2 and state.step == 3
+    for n, p in state.params.items():
+        assert torch.equal(p.detach(), kept[n]) and torch.equal(opt.mu[n],
+                                                                mu[n]), n
+
+
+def test_finetune_step_with_augmentation_on_the_card(cuda):
+    """The BB-focused MCA step on uint8 clips augmented inside the step
+    (RandAugment, crop, flip, erasing; ViT-B width, 2 Blocks, B=2)."""
+    model, state, step, gen, batch, _ = build_finetune_step(2, depth=2,
+                                                            augment=True)
+    assert batch["clip"].dtype == torch.uint8
+    before = model.head.weight.detach().clone()
+    fa.reset_launch_counts()
+    state, m = step(state, batch, gen)
+    assert np.isfinite(float(m["loss"])) and state.step == 1
+    assert not torch.equal(model.head.weight, before)
+    assert fa.launch_counts == {**dict.fromkeys(fa.KERNELS, 0),
+                                **dict.fromkeys(fa.QKV_KERNELS, 2),
+                                **dict.fromkeys(fa.MH_KERNELS, 1)}
+
+
+def test_finetune_runner_on_the_card(cuda, tmp_path, capsys):
+    """cli.finetune_mofo on the card (ViT-B BB-focused MCA at 64^2, 128
+    tokens on the flat route): one epoch, checkpoint-best, the multi-view
+    test, the kernels launched by the train steps and the eval calls."""
+    argv = ["--synthetic", "4", "--batch_size", "2", "--input_size", "64",
+            "--epochs", "1", "--warmup_epochs", "0", "--decode_height", "72",
+            "--decode_width", "96", "--output_dir", str(tmp_path)]
+    fa.reset_launch_counts()
+    state = finetune_mofo.main(finetune_mofo.get_args(argv,
+                                                      bb_defaults=True))
+    assert state.step == 2
+    assert (tmp_path / "checkpoint-best.pth").is_file()
+    assert capsys.readouterr().out.count("Final test: Acc@1") == 1
+    # 2 train steps; eval calls: 2 validation batches + 24 test views in
+    # 12 batches of one window each
+    assert fa.launch_counts["qkv_attn_bwd_dq"] == 2 * 12
+    assert fa.launch_counts["mh_attn_bwd_dq"] == 2
+    assert fa.launch_counts["qkv_attn_fwd"] == (2 + 2 + 12) * 12
+    assert fa.launch_counts["mh_attn_fwd"] == 2 + 2 + 12

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from mofo_tpu_torch.cli import finetune_mofo
 from mofo_tpu_torch.core.config import PretrainConfig
 from mofo_tpu_torch.core.device import resolve_device
 from mofo_tpu_torch.models import create_model
@@ -34,7 +35,9 @@ def _imports(path: Path):
 
 def test_scan_covers_the_package():
     names = {p.name for p in FILES}
-    assert {"flash_attention.py", "pretrain_step.py", "chip_smoke.py"} <= names
+    assert {"flash_attention.py", "pretrain_step.py", "chip_smoke.py",
+            "rand_augment.py", "augment.py", "image.py", "loss_scale.py",
+            "multiview.py", "finetune.py", "finetune_mofo.py"} <= names
     assert len(FILES) >= 20
 
 
@@ -63,3 +66,7 @@ def test_entry_points_raise_without_a_gpu():
     with pytest.raises(ValueError, match="the model is on"):
         make_pretrain_step(model.to("meta"), tx, PretrainConfig(),
                            device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        finetune_mofo.main(finetune_mofo.get_args(
+            ["--synthetic", "2", "--model", "vit_tiny_debug_BB_focused"],
+            bb_defaults=True))
