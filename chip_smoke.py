@@ -114,7 +114,35 @@ Phases, each printing one JSON line:
                per call and the kernels' launches (per train step and per
                eval call) are checked; the step time, the loader wait and
                the seconds of validation, the final test and each
-               checkpoint save are printed.
+               checkpoint save are printed. The synthetic test set is the
+               clips themselves, one view each, as mofo_tpu's.
+ 17. real_data_runner - the main path of the real-data slice: SSV2-style
+               setting files over 64 mp4 files that cv2 writes (40-60
+               frames of main_path.MemoryReader's frames each), an
+               Unsupervised_BB_SSV2_train.json with one box per frame and
+               EPIC_100-shaped CSVs over 1 KB placeholders, in a temporary
+               dir; 8 of the mp4 files decoded through the port's
+               VideoReader (frame counts and shapes checked). Then, in this
+               process: the ViT-S MOFO pretrain runner with --data_path
+               --bb_json (B=32, 2 epochs of 2 steps, --num_workers 4) in
+               bf16 and in f32, the bf16 losses within PRETRAIN_F32_RTOL of
+               the f32 ones; the ViT-B BB-focused MCA finetune runner on
+               the SSV2 lists (--val_path, --test_path; B=10, 1 epoch, the
+               final test over 2 x 3 entry-major views), decoding the mp4
+               files through VideoReader, and on EK-100 (--classtype
+               action, its marginalized line); and feature_extract from the
+               SSV2 run's checkpoint-best (8 videos through VideoReader,
+               B=4: (8, 768) finite features). The pretrain and EK-100 runs
+               read MemoryReader's frames through the datasets' `reader`
+               field (the EK-100 files are placeholders). Steps, log.txt,
+               losses, the Final test lines and every kernel's launches
+               (eval calls from the test views' entry-major order) are
+               checked, and the in-memory datasets through the loader onto
+               the card must equal the same datasets on the CPU after the
+               same np.random.seed, each box the square of its frame.
+ 18. loader_modes - the ViT-S runner's dataset through PrefetchLoader at
+               B=32 with one thread and with four: the first batch and the
+               mean wait of the next three (a line, no gate).
 Then the card's nvidia-smi line, the kernels line and, last, the ok line.
 Any failed check raises, and the script exits non-zero without the ok line.
 """
@@ -136,12 +164,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mofo_tpu_torch.cli import finetune_mofo, pretrain_mofo
+from mofo_tpu_torch.cli import feature_extract, finetune_mofo
+from mofo_tpu_torch.cli import pretrain_mofo
 from mofo_tpu_torch.core.config import (
     FinetuneConfig,
     MaskingConfig,
     PretrainConfig,
 )
+from mofo_tpu_torch.data import pipeline as P
+from mofo_tpu_torch.data.epic import EpicClipDataset
+from mofo_tpu_torch.data.filelist import (
+    MotionBoxIndex,
+    epic_action_space,
+    read_epic_csv,
+    read_setting_file,
+)
+from mofo_tpu_torch.data.video_reader import VideoReader, native_available
 from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.ops import _build
 from mofo_tpu_torch.ops import augment as A
@@ -154,6 +192,7 @@ from mofo_tpu_torch.tools.main_path import (
     FINETUNE_MODEL,
     MODEL,
     VITS_MODEL,
+    MemoryReader,
     attention_against_plain,
     augment_against_cpu,
     build_finetune_step,
@@ -165,10 +204,12 @@ from mofo_tpu_torch.tools.main_path import (
     compare_with_plain,
     finetune_model,
     forced_draws,
+    frame_ids,
     hm_attention_against_plain,
     hm_inputs,
     hm_planted_faults,
     masked_kv_grad,
+    memory_box_json,
     mh_attention_against_plain,
     mh_inputs,
     moved_draws,
@@ -262,6 +303,12 @@ FT_RUNNER_CLIPS = 40
 FT_RUNNER_ARGS = ["--synthetic", str(FT_RUNNER_CLIPS), "--batch_size",
                   str(FT_BATCH), "--warmup_epochs", "1"]
 DECODE_HW = (256, 320)  # the runners' decoded frames
+REAL_CLIPS = 64  # the SSV2-style videos of phase real_data_runner
+# the real-data ViT-S pretrain runner's bf16 losses against its f32 run's, on
+# frames without a near-flat patch (a bf16 fault there reads 1e3-1e7 x)
+PRETRAIN_F32_RTOL = 0.05
+FINAL_TEST = re.compile(r"Final test: Acc@1 ([\d.]+) Acc@5 ([\d.]+) "
+                        r"\(([\d.]+) s\)")
 D = fa.HEAD_DIM
 SCALE = D ** -0.5
 # a bf16 step through the kernels against the same step through the plain
@@ -1015,6 +1062,25 @@ def phase_hm_kernels():
     return errors, timings
 
 
+def _runner_log(out: str) -> list:
+    with open(os.path.join(out, "log.txt")) as f:
+        return [json.loads(line) for line in f]
+
+
+def _quiet_main(main_fn, args, reader=MemoryReader):
+    """Runs an entry point with its stdout kept; printed on a failure."""
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(text):
+            result = main_fn(args, reader=reader)
+        torch.cuda.synchronize()
+    except BaseException:
+        print(text.getvalue()[-4000:], flush=True)
+        raise
+    return result, text.getvalue(), time.perf_counter() - t0
+
+
 def phase_runner(smi: str) -> dict:
     """The main path of this slice: the ViT-S MOFO pretrain runner, 2
     epochs, then resumed for a third."""
@@ -1032,8 +1098,7 @@ def phase_runner(smi: str) -> dict:
             calls.append({"epochs": epochs, "steps_after": state.step,
                           "seconds": time.perf_counter() - t0})
         launches = dict(fa.launch_counts)
-        with open(os.path.join(out, "log.txt")) as f:
-            log = [json.loads(line) for line in f]
+        log = _runner_log(out)
         ckpts = sorted(n for n in os.listdir(out) if n.endswith(".pth"))
     steps = calls[-1]["steps_after"]
     per_step = {k: v / steps for k, v in launches.items()}
@@ -1189,15 +1254,13 @@ def phase_fp16_finetune_step() -> None:
                              f"{changed[:5]}, count {count} -> {opt.count}")
 
 
-def eval_calls(n: int, B: int, segments: int, crops: int,
-               epochs_run: int) -> int:
-    """The eval calls of one finetune runner call: ceil(n / B) validation
-    batches an epoch, and for the final test one call per spatial window
-    present in each batch of the split-major test views
-    (data.pipeline.MultiViewDataset)."""
-    split = [i // (n * segments) for i in range(n * segments * crops)]
-    test = sum(len(set(split[b:b + B])) for b in range(0, len(split), B))
-    return epochs_run * -(-n // B) + test
+def eval_calls(splits: list, B: int, n_val: int, epochs_run: int) -> int:
+    """The eval calls of one finetune runner call: ceil(n_val / B)
+    validation batches an epoch, and for the final test one call per
+    spatial window present in each batch of B test samples (the padded rows
+    of the last batch dropped)."""
+    test = sum(len(set(splits[b:b + B])) for b in range(0, len(splits), B))
+    return epochs_run * -(-n_val // B) + test
 
 
 def phase_finetune_runner(smi: str) -> dict:
@@ -1218,28 +1281,19 @@ def phase_finetune_runner(smi: str) -> dict:
                 FT_RUNNER_ARGS + ["--epochs", str(epochs), "--finetune",
                                   pretrain, "--output_dir", out],
                 bb_defaults=True)
-            text = io.StringIO()
-            t0 = time.perf_counter()
-            try:
-                with contextlib.redirect_stdout(text):
-                    finetune_mofo.main(args)
-                torch.cuda.synchronize()
-            except BaseException:
-                print(text.getvalue()[-4000:], flush=True)
-                raise
-            final = re.findall(r"Final test: Acc@1 ([\d.]+) Acc@5 ([\d.]+) "
-                               r"\(([\d.]+) s\)", text.getvalue())
-            calls.append({"epochs": epochs, "final_tests": final,
-                          "seconds": time.perf_counter() - t0})
+            _, text, seconds = _quiet_main(finetune_mofo.main, args)
+            calls.append({"epochs": epochs,
+                          "final_tests": FINAL_TEST.findall(text),
+                          "seconds": seconds})
         launches = dict(fa.launch_counts)
-        with open(os.path.join(out, "log.txt")) as f:
-            log = [json.loads(line) for line in f]
+        log = _runner_log(out)
         ckpts = sorted(n for n in os.listdir(out) if n.endswith(".pth"))
     steps_after = [[line["step"] for line in log if line["epoch"] < e][-1]
                    for e in (2, 3)]
     steps = steps_after[-1]
-    n_eval = (eval_calls(FT_RUNNER_CLIPS, FT_BATCH, 2, 3, 2)
-              + eval_calls(FT_RUNNER_CLIPS, FT_BATCH, 2, 3, 1))
+    splits = [0] * FT_RUNNER_CLIPS  # the synthetic clips: one view each
+    n_eval = (eval_calls(splits, FT_BATCH, FT_RUNNER_CLIPS, 2)
+              + eval_calls(splits, FT_BATCH, FT_RUNNER_CLIPS, 1))
     want = {k: steps * STEP_LAUNCHES[FINETUNE_MODEL][k]
             + n_eval * EVAL_LAUNCHES[FINETUNE_MODEL][k] for k in fa.KERNELS}
     if steps_after != [8, 12]:
@@ -1274,6 +1328,334 @@ def phase_finetune_runner(smi: str) -> dict:
     return launches
 
 
+def write_memory_video(path: str, hw=DECODE_HW) -> None:
+    """An mp4 (cv2, mp4v, 10 fps) of MemoryReader's frames for `path`, at
+    `hw`: a video that the port's own VideoReader decodes."""
+    import cv2  # only for the files of phase real_data_runner
+
+    frames = MemoryReader(path, width=hw[1], height=hw[0])
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10,
+                             (hw[1], hw[0]))
+    if not writer.isOpened():
+        raise RuntimeError(f"cv2 cannot write {path}")
+    for frame in frames.get_batch(range(len(frames))):
+        writer.write(np.ascontiguousarray(frame[..., ::-1]))  # RGB -> BGR
+    writer.release()
+
+
+def write_real_data(root: str) -> dict:
+    """Into `root`: SSV2-style setting files over 64 videos (pretrain: all;
+    finetune: 40 train, 20 validation, 10 test; feature extraction: 8), an
+    Unsupervised_BB_SSV2_train.json with one box per frame, and
+    EPIC_100-shaped train (20) and validation (10) CSVs with their
+    video_<i>.mp4 under epic/<split>/. The SSV2 videos are mp4 files of
+    MemoryReader's frames (write_memory_video); each EPIC video is a 1 KB
+    placeholder, so that the datasets' loadability guard runs on files that
+    MemoryReader serves."""
+    def touch(path):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as f:
+            f.write(b"\0" * 1024)
+        return path
+
+    os.makedirs(os.path.join(root, "ssv2"))
+    videos = [os.path.join(root, "ssv2", f"v{i}.mp4")
+              for i in range(REAL_CLIPS)]
+    for path in videos:
+        write_memory_video(path)
+    lists = {"pretrain": range(64), "train": range(40),
+             "val": range(40, 60), "test": range(54, 64),
+             "features": range(40, 48)}
+    paths = {}
+    for name, ids in lists.items():
+        paths[name] = os.path.join(root, f"{name}.csv")
+        with open(paths[name], "w") as f:
+            f.writelines(f"{videos[i]} {i % 174}\n" for i in ids)
+    epic = {"train": [(i % 4, (3 * i) % 5) for i in range(20)],
+            "validation": [((i + 1) % 4, (3 * i) % 5) for i in range(10)]}
+    header = ("narration_id,participant_id,video_id,narration_timestamp,"
+              "start_timestamp,stop_timestamp,start_frame,stop_frame,"
+              "narration,verb,verb_class,noun,noun_class,all_nouns,"
+              "all_noun_classes\n")
+    for split, pairs in epic.items():
+        paths[f"epic_{split}"] = os.path.join(root, f"EPIC_100_{split}.csv")
+        with open(paths[f"epic_{split}"], "w") as f:
+            f.write(header)
+            for i, (verb, noun) in enumerate(pairs):
+                videos.append(touch(os.path.join(root, "epic", split,
+                                                 f"video_{i}.mp4")))
+                f.write(f"P01_{i},P01,P01_1{i:02d},00:00:01.00,00:00:01.00,"
+                        f"00:00:03.00,1,60,cut it,cut,{verb},it,{noun},"
+                        f"\"['it']\",[{noun}]\n")
+    paths["bb_json"] = os.path.join(root, "Unsupervised_BB_SSV2_train.json")
+    with open(paths["bb_json"], "w") as f:
+        json.dump(memory_box_json(videos, DECODE_HW), f)
+    paths["epic_root"] = os.path.join(root, "epic")
+    return paths
+
+
+def decoded_against_memory(paths) -> dict:
+    """The SSV2 mp4 files through the port's VideoReader (the backend that
+    opens them on this machine) against the frames they were written from:
+    the same frame count and shape, and the mean absolute difference that
+    mp4v's lossy coding leaves. Also whether native/decoder's library
+    loads here, and cv2's version and FFmpeg libraries."""
+    import cv2
+
+    video_io = [" ".join(line.split()) for line in cv2.getBuildInformation(
+    ).split("\n") if line.strip().startswith(("FFMPEG:", "avcodec:",
+                                               "avformat:", "swscale:"))]
+    res = {"native_library_loads": native_available(), "cv2": cv2.__version__,
+           "cv2_video_io": video_io, "backends": set(), "mean_abs_diff": []}
+    for path in paths:
+        with VideoReader(path, width=DECODE_HW[1], height=DECODE_HW[0]) as vr:
+            want = MemoryReader(path, DECODE_HW[1], DECODE_HW[0])
+            if len(vr) != len(want):
+                raise AssertionError(f"{path}: {len(vr)} frames decoded, "
+                                     f"{len(want)} written")
+            ids = np.arange(0, len(want), 7)
+            got = vr.get_batch(ids)
+            res["backends"].add(vr.backend)
+        if got.shape != (len(ids), *DECODE_HW, 3):
+            raise AssertionError(f"{path}: decoded {got.shape}")
+        res["mean_abs_diff"].append(float(np.abs(
+            got.astype(np.int16) - want.get_batch(ids)).mean()))
+    res["backends"] = sorted(res["backends"])
+    return res
+
+
+def datasets_card_vs_cpu(data: dict) -> dict:
+    """The in-memory datasets of the phase through the loader onto the card
+    and on the CPU after the same np.random.seed: equal frames (so equal
+    frame ids), labels, tags and boxes; and each box the square of its
+    frame."""
+    boxes = MotionBoxIndex.from_file(data["bb_json"])
+    entries = read_setting_file(data["pretrain"])[:20]
+    mapping = epic_action_space([data["epic_train"],
+                                 data["epic_validation"]])[1]
+
+    def epic_ds(split, mode):
+        return EpicClipDataset(
+            read_epic_csv(data[f"epic_{split}"]), data["epic_root"], split,
+            mode=mode, action_mapping=mapping, decode_size=DECODE_HW,
+            boxes=boxes, reader=MemoryReader)
+
+    sets = {
+        "pretrain": P.PretrainClipDataset(entries, decode_size=DECODE_HW,
+                                          boxes=boxes, reader=MemoryReader),
+        "ssv2_train": P.FinetuneClipDataset(entries, decode_size=DECODE_HW,
+                                            boxes=boxes, reader=MemoryReader),
+        "ssv2_test": P.FinetuneClipDataset(entries[:3], mode="test",
+                                           decode_size=DECODE_HW,
+                                           boxes=boxes, reader=MemoryReader),
+        "ek100_train": epic_ds("train", "train"),
+        "ek100_test": epic_ds("validation", "test"),
+    }
+    res = {}
+    for name, ds in sets.items():
+        got = {}
+        for device in ("cuda", "cpu"):
+            np.random.seed(7)
+            batches = [{k: v.cpu().numpy() for k, v in b.items()}
+                       for b in P.PrefetchLoader(ds, FT_BATCH, device=device,
+                                                 drop_last=False)]
+            got[device] = {k: np.concatenate([b[k] for b in batches])
+                           for k in batches[0]}
+        card, cpu = got["cuda"], got["cpu"]
+        differ = [k for k in cpu if not np.array_equal(card[k], cpu[k])]
+        ids = frame_ids(card["clip"])
+        # the box of (sample, t) is the square of the frame decoded there
+        paths = [ds.entries[int(v)].path if name.startswith(
+            ("pretrain", "ssv2")) else f"video_{int(v)}.mp4"
+            for v in card.get("video_idx", range(len(ids)))]
+        want_boxes = np.array([
+            [MemoryReader(p, DECODE_HW[1], DECODE_HW[0]).box(int(i))
+             for i in row] for p, row in zip(paths, ids)], np.float32)
+        if differ or set(card) != set(cpu) or not np.array_equal(
+                card["boxes"], want_boxes):
+            raise AssertionError(f"{name}: card vs CPU differ in {differ}, "
+                                 "or the boxes are not the frames' squares")
+        res[name] = {"samples": len(ids), "keys": sorted(card),
+                     "frame_ids_0": ids[0].tolist()}
+    return res
+
+
+def loader_modes(data: dict) -> dict:
+    """The wait per batch of the ViT-S runner's dataset (B=32, 16 frames at
+    256 x 320, boxes, frames from MemoryReader) with one thread and with
+    four: the first batch and the mean of the next three, each batch pinned
+    and copied to the card."""
+    ds = P.PretrainClipDataset(
+        read_setting_file(data["pretrain"]) * 2, decode_size=DECODE_HW,
+        boxes=MotionBoxIndex.from_file(data["bb_json"]), reader=MemoryReader)
+    res = {}
+    for workers in (1, 4):
+        waits = []
+        t = time.perf_counter()
+        for batch in P.PrefetchLoader(ds, VITS_BATCH, num_workers=workers):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            waits.append(now - t)
+            t = now
+        res[f"threadx{workers}"] = {
+            "first_batch_ms": waits[0] * 1e3,
+            "wait_ms_per_batch": statistics.mean(waits[1:]) * 1e3,
+            "batches": len(waits)}
+    return res
+
+
+def phase_real_data_runner(smi: str) -> dict:
+    """The runners on file lists, motion boxes and EPIC_100 CSVs: the ViT-S
+    pretrain runner (bf16, then f32 as its reference), the ViT-B BB-focused
+    MCA finetune runner on SSV2 (mp4 files through the port's VideoReader)
+    and on EK-100 actions, and feature_extract from the SSV2 run's
+    checkpoint-best (VideoReader). The pretrain and EK-100 runs read
+    MemoryReader's frames."""
+    runs, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = write_real_data(tmp)
+        written_s = time.perf_counter() - t0
+        decoded = decoded_against_memory(
+            [e.path for e in read_setting_file(data["pretrain"])[:8]])
+        common = ["--bb_json", data["bb_json"], "--num_workers", "4"]
+
+        def run(name, main_fn, args, reader=MemoryReader):
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            result, text, seconds = _quiet_main(main_fn, args, reader)
+            launches[name] = dict(fa.launch_counts)
+            runs[name] = {"seconds": seconds}
+            return result, text
+
+        # 1. ViT-S MOFO pretraining: 64 clips, B=32, 2 epochs of 2 steps, in
+        # bf16 and, as its reference, in f32 (the f32 kernels)
+        losses = {}
+        for name, dtype in (("pretrain", "bfloat16"),
+                            ("pretrain_f32", "float32")):
+            pt_out = os.path.join(tmp, name)
+            state, _ = run(name, pretrain_mofo.main, pretrain_mofo.get_args(
+                ["--model", VITS_MODEL, "--data_path", data["pretrain"],
+                 "--batch_size", str(VITS_BATCH), "--epochs", "2",
+                 "--warmup_epochs", "1", "--dtype", dtype,
+                 "--output_dir", pt_out] + common, mofo_defaults=True))
+            log = _runner_log(pt_out)
+            kernels = fa.KERNELS if dtype == "bfloat16" else (
+                fa.QKV_F32_KERNELS + fa.HM_F32_KERNELS)
+            want = {k: (state.step * v if k in kernels else 0)
+                    for k, v in STEP_LAUNCHES[VITS_MODEL].items()}
+            if state.step != 2 * (REAL_CLIPS // VITS_BATCH) or \
+                    [x["epoch"] for x in log] != [0, 1] or \
+                    not all(np.isfinite(x["train_loss"]) for x in log) or \
+                    launches[name] != want:
+                raise AssertionError(
+                    f"{name}: step {state.step}, log {log}, launches "
+                    f"{launches[name]} != {want}")
+            losses[name] = [x["train_loss"] for x in log]
+            runs[name].update(
+                steps=state.step, losses=losses[name],
+                step_ms=[x["step_s"] * 1e3 for x in log],
+                loader_wait_ms=[x["data_wait_s"] * 1e3 for x in log])
+            del state
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["pretrain"],
+                                                   losses["pretrain_f32"])]
+        runs["pretrain"].update(loss_rel_to_f32=rel,
+                                bound=PRETRAIN_F32_RTOL)
+        if not max(rel) <= PRETRAIN_F32_RTOL:
+            raise AssertionError(f"bf16 pretrain losses {losses['pretrain']} "
+                                 f"beyond {PRETRAIN_F32_RTOL} of f32's "
+                                 f"{losses['pretrain_f32']}")
+
+        # 2-3. the ViT-B BB-focused MCA finetune runner, SSV2 and EK-100
+        pretrain = os.path.join(tmp, "pretrain.pth")
+        sd = create_model(MODEL, dtype=torch.bfloat16, seed=1).state_dict()
+        torch.save({"model": {k: v.cpu() for k, v in sd.items()}}, pretrain)
+        del sd
+        ft_sets = {
+            "ssv2": (["--data_set", "SSV2", "--data_path", data["train"],
+                      "--val_path", data["val"], "--test_path", data["test"]],
+                     [len(read_setting_file(data[k]))
+                      for k in ("train", "val", "test")], VideoReader),
+            "ek100": (["--data_set", "EK100", "--classtype", "action",
+                       "--data_path", data["epic_train"], "--val_path",
+                       data["epic_validation"], "--data_root",
+                       data["epic_root"]],
+                      [len(read_epic_csv(data[k])) for k in (
+                          "epic_train", "epic_validation", "epic_validation")],
+                      MemoryReader),
+        }
+        for name, (flags, (n_train, n_val, n_test), reader) in \
+                ft_sets.items():
+            out = os.path.join(tmp, name)
+            args = finetune_mofo.get_args(
+                flags + common + ["--batch_size", str(FT_BATCH), "--epochs",
+                                  "1", "--warmup_epochs", "0", "--finetune",
+                                  pretrain, "--output_dir", out],
+                bb_defaults=True)
+            _, text = run(name, finetune_mofo.main, args, reader)
+            log = _runner_log(out)
+            steps = log[-1]["step"]
+            splits = [split for _, _, split in P.expand_views(
+                n_test, args.test_num_segment, args.test_num_crop)]
+            n_eval = eval_calls(splits, FT_BATCH, n_val, 1)
+            want = {k: steps * STEP_LAUNCHES[FINETUNE_MODEL][k]
+                    + n_eval * EVAL_LAUNCHES[FINETUNE_MODEL][k]
+                    for k in fa.KERNELS}
+            final = FINAL_TEST.findall(text)
+            marg = re.findall(r"Final test \(EK marginalized\): verb "
+                              r"([\d.]+) noun ([\d.]+)", text)
+            if steps != n_train // FT_BATCH or len(final) != 1 or \
+                    [x["epoch"] for x in log] != [0] or \
+                    not np.isfinite(log[0]["train_loss"]) or \
+                    len(marg) != (name == "ek100") or \
+                    launches[name] != want:
+                raise AssertionError(
+                    f"{name}: steps {steps}, log {log}, final {final}, "
+                    f"marginalized {marg}, launches {launches[name]} != "
+                    f"{want} ({n_eval} eval calls)")
+            runs[name].update(
+                reader=reader.__name__, steps=steps, eval_calls=n_eval,
+                test_views=len(splits), loss=log[0]["train_loss"],
+                val_acc1=log[0]["val_acc1"], step_ms=log[0]["step_s"] * 1e3,
+                loader_wait_ms=log[0]["data_wait_s"] * 1e3,
+                validation_s=log[0]["val_s"], final_test_s=float(final[0][2]),
+                final_test={"acc1": float(final[0][0]),
+                            "acc5": float(final[0][1])},
+                checkpoint_save_s=log[0]["save_s"])
+            if marg:
+                runs[name]["marginalized"] = {"verb": float(marg[0][0]),
+                                              "noun": float(marg[0][1])}
+                runs[name]["nb_classes"] = len(epic_action_space(
+                    [data["epic_train"], data["epic_validation"]])[0])
+
+        # 4. feature_extract from the SSV2 run's checkpoint-best, 8 videos
+        feats, _ = run("feature_extract", feature_extract.main,
+                       feature_extract.get_args([
+                           "--data_path", data["features"], "--model_path",
+                           os.path.join(tmp, "ssv2", "checkpoint-best.pth"),
+                           "--batch_size", "4", "--output",
+                           os.path.join(tmp, "features.npy")]), VideoReader)
+        want = {**dict.fromkeys(fa.KERNELS, 0), "qkv_attn_fwd": 2 * 12}
+        if feats.shape != (8, 768) or not np.isfinite(feats).all() or \
+                launches["feature_extract"] != want:
+            raise AssertionError(f"feature_extract: {feats.shape}, launches "
+                                 f"{launches['feature_extract']} != {want}")
+        runs["feature_extract"].update(reader="VideoReader",
+                                       shape=list(feats.shape),
+                                       mean_abs=float(np.abs(feats).mean()))
+        datasets = datasets_card_vs_cpu(data)
+        modes = loader_modes(data)
+    total = {k: sum(run[k] for run in launches.values()) for k in fa.KERNELS}
+    emit("real_data_runner", runs=runs, launches=launches,
+         mp4_written_s=written_s, decoded_against_memory=decoded,
+         datasets_card_vs_cpu=datasets, device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi)
+    emit("loader_modes", dataset="PretrainClipDataset (MemoryReader)",
+         batch=VITS_BATCH, frames=16, decode=list(DECODE_HW), modes=modes,
+         nvidia_smi=smi)
+    return total
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -1293,6 +1675,7 @@ def main() -> int:
     phase_finetune_augment(smi, ft_step_ms)
     phase_fp16_finetune_step()
     ft_runner_launches = phase_finetune_runner(smi)
+    real_launches = phase_real_data_runner(smi)
     kernels = []
     for name in fa.QKV_KERNELS:
         dec = timings["decoder"][name]
@@ -1308,6 +1691,7 @@ def main() -> int:
             "launches_vits_step": vits_launches[name],
             "launches_runner": runner_launches[name],
             "launches_finetune_runner": ft_runner_launches[name],
+            "launches_real_data": real_launches[name],
             **{geo: {**timings[geo][name],
                      "max_abs_err": errors[geo][name]}
                for geo in ("encoder", "backbone")},
@@ -1323,6 +1707,7 @@ def main() -> int:
             "shape": "MCA (B=%d, N=%d, H=%d, D=%d) bf16, kv bias" % (
                 MH_CHECKS["mca"]),
             "launches_finetune_runner": ft_runner_launches[name],
+            "launches_real_data": real_launches[name],
         })
     for name in fa.HM_KERNELS:
         dec = hm_timings[name]
@@ -1335,6 +1720,7 @@ def main() -> int:
             "shape": "ViT-S runner decoder (B=%d, H=%d, N=%d, D=%d) bf16"
                      % (*HM_CHECKS["runner_decoder"], D),
             "launches_vits_step": vits_launches[name],
+            "launches_real_data": real_launches[name],
         })
     emit("done", seconds=time.perf_counter() - t0)
     print(smi, flush=True)

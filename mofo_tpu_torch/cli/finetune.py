@@ -14,24 +14,37 @@ writes checkpoint-<epoch>.pth every save_ckpt_freq epochs and
 checkpoint-best.pth on a new best acc1, and stops early after
 --early_stop_patience epochs without a lower validation loss; a rerun
 resumes after the latest checkpoint. Last, checkpoint-best's weights run
-the multi-view test: each clip as test_num_segment x test_num_crop views,
-softmax-averaged per video ("Final test: Acc@1 ... Acc@5 ...").
+the multi-view test on the test set's views, softmax-averaged per video
+("Final test: Acc@1 ... Acc@5 ..."; with EK100 and --classtype action also
+the verb and noun accuracies of the marginalized action scores).
+
+Data (mofo_tpu/cli/finetune.py:236-322): --data_path / --val_path /
+--test_path setting files ("path [duration] label"; validation falls back
+to the train list, test to validation), decoded through data.video_reader
+(native/decoder's FFmpeg library, else cv2), the dense sampler for
+Kinetics-400, UCF101 and HMDB51 and the uniform one otherwise, with
+--bb_json's motion boxes (a BB-focused model needs them); --data_set EK100
+reads the EPIC_100 CSVs (--data_path, --val_path) and the pre-cut videos
+under --data_root, labelled by --classtype; or --synthetic N random clips,
+tested one view each as mofo_tpu does.
 
 Usage (the warm-up epochs must fit in --epochs: the default is 5):
-  python -m mofo_tpu_torch.cli.finetune_mofo --synthetic 40 --epochs 2 \\
+  python -m mofo_tpu_torch.cli.finetune_mofo --data_set SSV2 \\
+      --data_path train.csv --val_path val.csv --test_path test.csv \\
+      --bb_json Unsupervised_BB_SSV2_train.json --epochs 2 \\
       --warmup_epochs 1 --finetune pretrain/checkpoint-799.pth \\
       --output_dir ft/
 
-Not ported yet, and refused with NotImplementedError: --data_path,
---bb_json and --data_set EK100 (video decoding and the real datasets,
-ROADMAP Queue 1 item 10), an --opt other than adamw (item 17) and a mesh
-other than one device (DDP, item 12).
+Not ported yet, and refused with NotImplementedError: an --opt other than
+adamw (ROADMAP Queue 1 item 17) and a mesh other than one device (DDP,
+item 12).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import os
 import sys
 import time
@@ -44,9 +57,19 @@ from mofo_tpu_torch.core import distributed
 from mofo_tpu_torch.core.config import FinetuneConfig, OptimizerConfig
 from mofo_tpu_torch.core.device import resolve_device
 from mofo_tpu_torch.data import pipeline as P
+from mofo_tpu_torch.data.epic import EpicClipDataset
+from mofo_tpu_torch.data.filelist import (
+    MotionBoxIndex,
+    epic_action_space,
+    read_epic_csv,
+    read_setting_file,
+)
+from mofo_tpu_torch.data.video_reader import VideoReader
 from mofo_tpu_torch.eval.multiview import (
     MultiViewAggregator,
     gather_across_processes,
+    get_marginal_indexes,
+    marginalize,
 )
 from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.ops import augment as A
@@ -165,13 +188,6 @@ def get_args(argv=None, bb_defaults: bool = False):
 
 
 def _refuse_unported(args) -> None:
-    for flag, value in (("--data_path", args.data_path),
-                        ("--bb_json", args.bb_json),
-                        ("--data_set EK100", args.data_set == "EK100")):
-        if value:
-            raise NotImplementedError(
-                f"{flag}: video decoding and the real datasets are not "
-                "ported yet (ROADMAP Queue 1, item 10); use --synthetic N")
     if args.opt.lower() != "adamw":
         raise NotImplementedError(
             f"--opt {args.opt}: only adamw is ported (ROADMAP Queue 1, "
@@ -234,6 +250,64 @@ def build_config(args) -> FinetuneConfig:
     )
 
 
+def build_datasets(args, cfg: FinetuneConfig, bb_focused: bool, log,
+                   reader=VideoReader):
+    """(train, validation, test datasets, cfg, action_to_vn) of the run, as
+    mofo_tpu/cli/finetune.py:236-322 builds them. With EK100 and
+    --classtype action, cfg's nb_classes becomes the size of the action
+    space and action_to_vn holds each action's (verb, noun); else it is
+    None. `reader` replaces VideoReader (an in-memory reader in the checks;
+    no CLI flag reaches it)."""
+    sampler_kind = "dense" if args.data_set in (
+        "Kinetics-400", "UCF101", "HMDB51") else "uniform"
+    decode_size = (args.decode_height, args.decode_width)
+    boxes = MotionBoxIndex.from_file(args.bb_json) if args.bb_json else None
+    if bb_focused and boxes is None and not args.synthetic:
+        raise SystemExit("BB-focused model requires --bb_json")
+    action_to_vn = None
+    if args.synthetic:
+        # the test set too is the plain clips: one view each, through
+        # window 0 (mofo_tpu/cli/finetune.py:257-260)
+        train_ds, val_ds, test_ds = (P.SyntheticClipDataset(
+            n=args.synthetic, num_frames=cfg.num_frames,
+            decode_size=decode_size, num_classes=cfg.nb_classes,
+            with_boxes=bb_focused) for _ in range(3))
+    elif args.data_set == "EK100":
+        vn_list, mapping, action_to_vn = epic_action_space(
+            [args.data_path, args.val_path])
+        if args.classtype == "action" and cfg.nb_classes != len(vn_list):
+            log(f"nb_classes -> {len(vn_list)} (EK action space)")
+            cfg = dataclasses.replace(cfg, nb_classes=len(vn_list))
+
+        def epic(csv_path, split, mode):
+            return EpicClipDataset(
+                entries=read_epic_csv(csv_path), video_root=args.data_root,
+                split=split, mode=mode, classtype=args.classtype,
+                action_mapping=mapping, num_frames=cfg.num_frames,
+                decode_size=decode_size,
+                test_num_segment=cfg.test_num_segment,
+                test_num_crop=cfg.test_num_crop, boxes=boxes, reader=reader)
+
+        train_ds = epic(args.data_path, "train", "train")
+        val_ds = epic(args.val_path, "validation", "validation")
+        test_ds = epic(args.val_path, "validation", "test")
+    else:
+        def clips(path, mode):
+            return P.FinetuneClipDataset(
+                entries=read_setting_file(path), mode=mode,
+                sampler=sampler_kind, num_frames=cfg.num_frames,
+                frame_sample_rate=args.sampling_rate,
+                decode_size=decode_size,
+                test_num_segment=cfg.test_num_segment,
+                test_num_crop=cfg.test_num_crop, boxes=boxes, reader=reader)
+
+        train_ds = clips(args.data_path, "train")
+        val_ds = clips(args.val_path or args.data_path, "validation")
+        test_ds = clips(args.test_path or args.val_path or args.data_path,
+                        "test")
+    return train_ds, val_ds, test_ds, cfg, action_to_vn
+
+
 def head_only(name: str, param: torch.Tensor) -> bool:
     """--only_finetune_last: the head, fc_norm and fusing modules train,
     the backbone stays as it is (the reference declared the flag without
@@ -291,17 +365,16 @@ def _weights(model: torch.nn.Module, params):
                 p.copy_(kept[n])
 
 
-def main(args=None):
+def main(args=None, reader=VideoReader):
     """Runs the finetuning and the final test; returns the final TrainState
     (checkpoint-best's when an output dir holds one), or the validation
-    stats with --eval."""
+    stats with --eval. `reader` opens the datasets' videos (see
+    build_datasets)."""
     if args is None:
         args = get_args()
     distributed.init_distributed_mode()
     log = distributed.setup_printing()
     cfg = build_config(args)
-    if not args.synthetic:
-        raise ValueError("no data: pass --synthetic N")
     bb_focused = "BB_focused" in cfg.model
     log(f"config: {cfg}")
     device = resolve_device(args.device)
@@ -309,22 +382,18 @@ def main(args=None):
         + (f" ({torch.cuda.get_device_name(device)})"
            if device.type == "cuda" else ""))
 
-    # ----- data: train, validation and the test views of synthetic clips
-    dataset = P.SyntheticClipDataset(
-        n=args.synthetic, num_frames=cfg.num_frames,
-        decode_size=(args.decode_height, args.decode_width),
-        num_classes=cfg.nb_classes, with_boxes=bb_focused)
-    test_ds = P.MultiViewDataset(dataset, cfg.test_num_segment,
-                                 cfg.test_num_crop)
+    # ----- data -----
+    train_ds, val_ds, test_ds, cfg, action_to_vn = build_datasets(
+        args, cfg, bb_focused, log, reader)
     rank, world = distributed.process_index(), distributed.process_count()
-    train_sampler = P.ShardedSampler(len(dataset), rank, world,
+    train_sampler = P.ShardedSampler(len(train_ds), rank, world,
                                      seed=cfg.seed)
-    train_loader = P.PrefetchLoader(dataset, cfg.batch_size, train_sampler,
+    train_loader = P.PrefetchLoader(train_ds, cfg.batch_size, train_sampler,
                                     device=device,
                                     num_workers=args.num_workers)
     val_loader = P.PrefetchLoader(
-        dataset, cfg.batch_size,
-        P.ShardedSampler(len(dataset), rank, world, shuffle=False),
+        val_ds, cfg.batch_size,
+        P.ShardedSampler(len(val_ds), rank, world, shuffle=False),
         device=device, drop_last=False, num_workers=args.num_workers)
     steps_per_epoch = max(len(train_loader), 1)
 
@@ -489,15 +558,19 @@ def main(args=None):
             ckpt.load_checkpoint(best, model, state)
             log("loaded checkpoint-best for the final test")
     final_test(model, test_ds, cfg, bb_focused, log, device,
-               args.num_workers)
+               args.num_workers,
+               action_to_vn if args.classtype == "action" else None)
     return state
 
 
 def final_test(model, test_ds, cfg: FinetuneConfig, bb_focused: bool, log,
-               device, num_workers: int = 1):
-    """The multi-view test of `model` on test_ds's views: each spatial
-    window (split_nb) through test_view_augment (boxes too), the padded rows
-    dropped, softmax-mean per video. Prints and returns (top1, top5)."""
+               device, num_workers: int = 1, action_to_vn=None):
+    """The multi-view test of `model` on test_ds's views
+    (engine_for_finetuning.py:227-348): each batch grouped by its views'
+    spatial window (split_nb) through test_view_augment (boxes too), the
+    padded rows dropped, softmax-mean per video. With action_to_vn (EK-100
+    actions) also the verb and noun accuracies of the marginalized scores
+    (utils.py:584-606). Prints and returns (top1, top5)."""
     t0 = time.time()
     rank, world = distributed.process_index(), distributed.process_count()
     loader = P.PrefetchLoader(
@@ -528,9 +601,23 @@ def final_test(model, test_ds, cfg: FinetuneConfig, bb_focused: bool, log,
             agg.add(sub["video_idx"].tolist(), sub["chunk_nb"].tolist(),
                     sub["split_nb"].tolist(), out["logits"].cpu().numpy(),
                     sub["label"].tolist())
-    top1, top5, _ = gather_across_processes(agg).finalize()
+    agg = gather_across_processes(agg)
+    top1, top5, _ = agg.finalize()
     log(f"Final test: Acc@1 {top1:.2f} Acc@5 {top5:.2f} "
         f"({time.time() - t0:.3f} s)")
+    if action_to_vn is not None:
+        feats, labels = agg.merge_feats()
+        vids = list(feats)
+        probs = np.stack([feats[v] for v in vids])
+        lab = np.array([labels[v] for v in vids])
+        acc = {}
+        for col, mode in enumerate(("verb", "noun")):
+            marg = marginalize(probs, get_marginal_indexes(action_to_vn,
+                                                           mode))
+            true = np.array([action_to_vn[a][col] for a in lab])
+            acc[mode] = float(np.mean(np.argmax(marg, axis=1) == true)) * 100
+        log(f"Final test (EK marginalized): verb {acc['verb']:.2f} "
+            f"noun {acc['noun']:.2f}")
     return top1, top5
 
 

@@ -12,13 +12,20 @@ every epoch appends a line to <output_dir>/log.txt, every save_ckpt_freq
 epochs writes checkpoint-<epoch>.pth, and a rerun resumes after the latest
 one.
 
+Data: --data_path, a "path [duration] label" setting file, decoded
+through data.video_reader (native/decoder's FFmpeg library, else cv2) at
+--decode_height x --decode_width, TSN ids at --sampling_rate, with
+--bb_json's motion boxes (needed by --mask_type tube_bb); or --synthetic N
+random clips.
+
 Usage (the warm-up epochs must fit in --epochs: the default is 40):
-  python -m mofo_tpu_torch.cli.pretrain_mofo --synthetic 64 --epochs 2 \\
+  python -m mofo_tpu_torch.cli.pretrain_mofo --data_path train.csv \\
+      --bb_json Unsupervised_BB_SSV2_train.json --epochs 2 \\
       --warmup_epochs 1 --output_dir out/
 
-Not ported yet, and refused with NotImplementedError: --data_path (video
-decoding, ROADMAP Queue 1 item 10), an --opt other than adamw (Queue 1
-item 17) and a mesh other than one device (DDP, Queue 1 item 12).
+Not ported yet, and refused with NotImplementedError: an --opt other than
+adamw (ROADMAP Queue 1 item 17) and a mesh other than one device (DDP,
+Queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ from mofo_tpu_torch.core.config import (
 )
 from mofo_tpu_torch.core.device import resolve_device
 from mofo_tpu_torch.data import pipeline as P
+from mofo_tpu_torch.data.filelist import MotionBoxIndex, read_setting_file
+from mofo_tpu_torch.data.video_reader import VideoReader
 from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.ops import augment as A
 from mofo_tpu_torch.train import checkpoint as ckpt
@@ -86,7 +95,7 @@ def get_args(argv=None, mofo_defaults: bool = False):
     p.add_argument("--warmup_steps", default=-1, type=int)
     # data
     p.add_argument("--data_path", default=None, type=str,
-                   help="train list csv ('path label' lines); not ported")
+                   help="train list csv ('path label' lines)")
     p.add_argument("--bb_json", default=None, type=str,
                    help="Unsupervised_BB_*.json motion boxes")
     p.add_argument("--synthetic", default=0, type=int,
@@ -117,11 +126,6 @@ def get_args(argv=None, mofo_defaults: bool = False):
 
 
 def _refuse_unported(args) -> None:
-    if args.data_path:
-        raise NotImplementedError(
-            "--data_path: video decoding (PretrainClipDataset over "
-            "native/decoder) is not ported yet (ROADMAP Queue 1, item 10); "
-            "use --synthetic N")
     if args.opt.lower() != "adamw":
         raise NotImplementedError(
             f"--opt {args.opt}: only adamw is ported (ROADMAP Queue 1, "
@@ -174,6 +178,28 @@ def build_config(args) -> PretrainConfig:
     )
 
 
+def build_dataset(args, cfg: PretrainConfig, reader=VideoReader):
+    """The run's clips: --synthetic N random ones, or --data_path's setting
+    file through PretrainClipDataset (mofo_tpu/cli/pretrain.py:165-190).
+    tube_bb masks need --bb_json's boxes. `reader` replaces VideoReader
+    (an in-memory reader in the checks; no CLI flag reaches it)."""
+    with_boxes = cfg.masking.mask_type == "tube_bb"
+    decode_size = (args.decode_height, args.decode_width)
+    if args.synthetic:
+        return P.SyntheticClipDataset(n=args.synthetic,
+                                      num_frames=cfg.num_frames,
+                                      decode_size=decode_size,
+                                      with_boxes=with_boxes)
+    entries = read_setting_file(args.data_path)
+    boxes = MotionBoxIndex.from_file(args.bb_json) if args.bb_json else None
+    if with_boxes and boxes is None:
+        raise SystemExit("--mask_type tube_bb requires --bb_json")
+    return P.PretrainClipDataset(
+        entries=entries, num_frames=cfg.num_frames,
+        sampling_rate=args.sampling_rate, decode_size=decode_size,
+        boxes=boxes, reader=reader)
+
+
 def step_seed(seed: int, step: int) -> int:
     """The seed of a step's draws (crop, masks). The JAX runner folds its
     run key with the step counter (pretrain_step.py:157); deriving the seed
@@ -182,15 +208,14 @@ def step_seed(seed: int, step: int) -> int:
     return ((seed + 1) << 32) + step
 
 
-def main(args=None):
-    """Runs the pretraining; returns the final TrainState."""
+def main(args=None, reader=VideoReader):
+    """Runs the pretraining; returns the final TrainState. `reader` opens
+    --data_path's videos (see build_dataset)."""
     if args is None:
         args = get_args()
     distributed.init_distributed_mode()
     log = distributed.setup_printing()
     cfg = build_config(args)
-    if not args.synthetic:
-        raise ValueError("no data: pass --synthetic N")
     log(f"config: {cfg}")
     device = resolve_device(args.device)
     log(f"device: {device}"
@@ -198,12 +223,7 @@ def main(args=None):
            if device.type == "cuda" else ""))
 
     # ----- data -----
-    dataset = P.SyntheticClipDataset(
-        n=args.synthetic,
-        num_frames=cfg.num_frames,
-        decode_size=(args.decode_height, args.decode_width),
-        with_boxes=cfg.masking.mask_type == "tube_bb",
-    )
+    dataset = build_dataset(args, cfg, reader)
     sampler = P.ShardedSampler(len(dataset),
                                rank=distributed.process_index(),
                                world=distributed.process_count(),

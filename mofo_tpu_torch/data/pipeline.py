@@ -1,39 +1,78 @@
-"""Host-side input pipeline: the sampler, synthetic clips and a prefetching
-loader that feeds the device.
+"""Host-side input pipeline: datasets, the sampler and a prefetching loader
+that feeds the device.
 
-Counterpart of mofo_tpu/data/pipeline.py (:66-98, 253-454), which replaces
-torch DataLoader + DistributedSampler (run_mae_pretraining.py:187-206). Host
-work stays thin: fixed-size uint8 frames are stacked into a batch, and all
-augmentation runs batched on the device (ops.augment).
+Counterpart of mofo_tpu/data/pipeline.py, which replaces torch DataLoader +
+DistributedSampler (run_mae_pretraining.py:187-206). Host work stays thin:
+fixed-size uint8 frames are decoded (the native decoder scales while it
+decodes) and stacked into a batch; all augmentation runs batched on the
+device (ops.augment).
 
   ShardedSampler       — DistributedSampler semantics: a per-epoch seeded
                          permutation, padded to a multiple of the world
                          size, strided per process
+  PretrainClipDataset  — a file list + TSN sampling (+ motion boxes)
+  FinetuneClipDataset  — classification clips: dense (Kinetics) / uniform
+                         (SSV2) samplers, train / validation / test modes,
+                         test mode expanded into (chunk, split) views
   SyntheticClipDataset — random uint8 clips (+ labels, boxes) from a seed
-  MultiViewDataset     — a dataset's clips as test_num_segment x
-                         test_num_crop views tagged (chunk_nb, split_nb), as
-                         the reference's test datasets expand them
   collate              — stacks samples into numpy batch arrays
   PrefetchLoader       — a background thread batches (num_workers threads
                          fetch the samples of one batch), pins the batch and
                          the consumer moves it to the device
 
-PretrainClipDataset (video decoding through native/decoder) and the
-loader's process mode and multi-process sharding are not ported yet.
+The datasets draw their random frame ids from the process-global np.random,
+as the reference's do: after np.random.seed(s) a dataset returns the
+reference's samples. They open videos through their `reader` field, a
+callable (path, width=, height=) -> an object with __len__, get_batch and
+the context manager; VideoReader unless a test or a check on the card gives
+an in-memory one. Multi-process sharding (DDP) is not ported yet.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import dataclasses
+import functools
+import os
 import queue
 import threading
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from mofo_tpu_torch.core.device import DeviceLike, resolve_device
+from mofo_tpu_torch.data import sampling
+from mofo_tpu_torch.data.filelist import ClipEntry, MotionBoxIndex
+from mofo_tpu_torch.data.video_reader import VideoReader
+
+
+@functools.lru_cache(maxsize=65536)
+def _entry_loadable(path: str, reader: Callable = VideoReader) -> bool:
+    """The reference's bad-video guards (kinetics.py:229-243): exists, at
+    least 1 KB, decodable. Cached per (path, reader) for the life of the
+    process."""
+    if not os.path.exists(path) or os.path.getsize(path) < 1024:
+        return False
+    try:
+        with reader(path) as vr:
+            return len(vr) > 0
+    except (RuntimeError, OSError):
+        return False
+
+
+def _resilient_entry(entries, i: int, reader: Callable = VideoReader):
+    """Skip-and-resample on corrupt or missing videos (the reference's
+    while-loop resample in __getitem__, kinetics.py:92-97, 229-243): up to
+    10 draws from the global np.random."""
+    entry = entries[i]
+    tries = 0
+    while not _entry_loadable(entry.path, reader) and tries < 10:
+        j = int(np.random.randint(len(entries)))
+        print(f"video {entry.path} not loadable; resampling index {j}")
+        entry = entries[j]
+        tries += 1
+    return entry
 
 
 class ShardedSampler:
@@ -63,6 +102,139 @@ class ShardedSampler:
         if total > self.n:
             order = np.concatenate([order, order[: total - self.n]])
         return order[self.rank::self.world]
+
+
+@dataclasses.dataclass
+class PretrainClipDataset:
+    """Decoded clips for MAE pretraining (the VideoMAE / VideoMAE_BB
+    datasets, kinetics.py:377-561, 996-1064): uint8 frames at a fixed
+    decoded size; masking and augmentation happen on the device."""
+
+    entries: Sequence[ClipEntry]
+    num_frames: int = 16
+    sampling_rate: int = 2
+    decode_size: Tuple[int, int] = (256, 320)  # (h, w)
+    boxes: Optional[MotionBoxIndex] = None
+    pin_seed: bool = False  # the reference's np.random.seed(10) quirk
+    reader: Callable = VideoReader
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        entry = _resilient_entry(self.entries, i, self.reader)
+        h, w = self.decode_size
+        with self.reader(entry.path, width=w, height=h) as vr:
+            ids = sampling.tsn_frame_ids(
+                len(vr), skip_length=self.num_frames * self.sampling_rate,
+                new_step=self.sampling_rate, pin_seed=self.pin_seed,
+                rng=np.random)
+            frames = vr.get_batch(ids)
+        out = {"clip": frames}
+        if self.boxes is not None:
+            # the boxes stay in the factory's pixel space, which decode_size
+            # must match (the reference hardcodes both to one preprocessed
+            # resolution, kinetics.py:915-917); the step's augment_fn maps
+            # them through the crop
+            out["boxes"] = self.boxes.get(MotionBoxIndex.video_key(
+                entry.path), ids)
+        return out
+
+
+def expand_views(n_entries: int, segments: int,
+                 crops: int) -> List[Tuple[int, int, int]]:
+    """The (entry, chunk_nb, split_nb) of every test view, entry-major, as
+    the reference's test datasets expand each video (ssv2.py:68-77)."""
+    return [(i, c, s) for i in range(n_entries) for c in range(segments)
+            for s in range(crops)]
+
+
+@dataclasses.dataclass
+class FinetuneClipDataset:
+    """Classification clips (VideoClsDataset / SSVideoClsDataset). mode:
+    train | validation | test. In test mode each entry is expanded into
+    test_num_segment x test_num_crop views tagged (chunk_nb, split_nb)."""
+
+    entries: Sequence[ClipEntry]
+    mode: str = "train"
+    sampler: str = "uniform"  # dense | uniform
+    num_frames: int = 16
+    frame_sample_rate: int = 4  # the dense sampler's stride
+    decode_size: Tuple[int, int] = (256, 320)
+    test_num_segment: int = 2
+    test_num_crop: int = 3
+    boxes: Optional[MotionBoxIndex] = None
+    reader: Callable = VideoReader
+
+    def __post_init__(self):
+        assert self.sampler in ("dense", "uniform"), self.sampler
+        if self.mode == "test":
+            self._views = expand_views(len(self.entries),
+                                       self.test_num_segment,
+                                       self.test_num_crop)
+
+    def __len__(self) -> int:
+        if self.mode == "test":
+            return len(self._views)
+        return len(self.entries)
+
+    def _frame_ids(self, duration: int, chunk_nb: int = 0) -> np.ndarray:
+        if self.mode == "train":
+            if self.sampler == "dense":
+                return sampling.dense_train_indices(
+                    duration, clip_len=self.num_frames,
+                    frame_sample_rate=self.frame_sample_rate, rng=np.random)
+            return sampling.uniform_train_indices(
+                duration, num_segment=self.num_frames, rng=np.random)
+        if self.mode == "validation":
+            if self.sampler == "dense":
+                return sampling.dense_test_indices(
+                    duration, clip_len=self.num_frames,
+                    frame_sample_rate=self.frame_sample_rate)
+            # SSV2 validation: uniform mid-segment ticks
+            tick = duration / float(self.num_frames)
+            return np.asarray(
+                [int(tick / 2.0 + tick * x) for x in range(self.num_frames)],
+                dtype=np.int64)
+        if self.sampler == "dense":
+            # Kinetics-style: the full strided enumeration, then a temporal
+            # window offset by chunk_nb (kinetics.py:144-155, 246-252)
+            all_idx = sampling.dense_test_indices(
+                duration, clip_len=self.num_frames,
+                frame_sample_rate=self.frame_sample_rate)
+            n = len(all_idx)
+            if n > self.num_frames:
+                start = int(round((n - self.num_frames) * chunk_nb
+                                  / max(self.test_num_segment - 1, 1)))
+                return all_idx[start:start + self.num_frames]
+            return all_idx
+        # SSV2-style: the tick grid; the chunk takes [chunk_nb::segments]
+        grid = sampling.uniform_test_indices(
+            duration, num_segment=self.num_frames,
+            test_num_segment=self.test_num_segment)
+        return grid[chunk_nb::self.test_num_segment]
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        if self.mode == "test":
+            entry_idx, chunk_nb, split_nb = self._views[i]
+        else:
+            entry_idx, chunk_nb, split_nb = i, 0, 0
+        entry = _resilient_entry(self.entries, entry_idx, self.reader)
+        h, w = self.decode_size
+        with self.reader(entry.path, width=w, height=h) as vr:
+            ids = np.clip(self._frame_ids(len(vr), chunk_nb), 0, len(vr) - 1)
+            frames = vr.get_batch(ids)
+        out = {
+            "clip": frames,
+            "label": np.int32(entry.label),
+            "video_idx": np.int32(entry_idx),
+            "chunk_nb": np.int32(chunk_nb),
+            "split_nb": np.int32(split_nb),
+        }
+        if self.boxes is not None:
+            out["boxes"] = self.boxes.get(MotionBoxIndex.video_key(
+                entry.path), ids)
+        return out
 
 
 @dataclasses.dataclass
@@ -101,31 +273,6 @@ class SyntheticClipDataset:
         return out
 
 
-@dataclasses.dataclass
-class MultiViewDataset:
-    """Each clip of `base` as num_segment x num_crop test views tagged
-    (chunk_nb, split_nb), the way the reference's test datasets expand each
-    video (ssv2.py:68-77). Views are ordered split-major, so that a batch
-    mostly holds one spatial window; the view's pixels are the base
-    sample's (the synthetic clips have no segments to sample), the window
-    is test_view_augment's."""
-
-    base: object
-    num_segment: int = 2
-    num_crop: int = 3
-
-    def __len__(self) -> int:
-        return len(self.base) * self.num_segment * self.num_crop
-
-    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
-        n = len(self.base)
-        split, rest = divmod(i, n * self.num_segment)
-        chunk, video = divmod(rest, n)
-        out = dict(self.base[video])
-        out["chunk_nb"], out["split_nb"] = np.int32(chunk), np.int32(split)
-        return out
-
-
 def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
@@ -135,7 +282,9 @@ class PrefetchLoader:
 
     - A background thread assembles up to `prefetch` batches ahead; with
       num_workers > 1 the samples of a batch are fetched concurrently in a
-      thread pool (the reference's DataLoader(num_workers) per rank).
+      thread pool (the reference's DataLoader(num_workers) per rank; FFmpeg
+      decode releases the GIL). The threads share the process's np.random,
+      from which the datasets draw (ROADMAP Queue 3).
     - On a CUDA device each batch is pinned on the host and copied without
       blocking the host (the copy is ordered on the current stream).
     - drop_last=False pads the final partial batch up to batch_size by

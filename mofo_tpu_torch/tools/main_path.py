@@ -28,6 +28,10 @@ tools/profile_step.py and tests/test_torch_gpu.py.
   draws that force all 15 RandAugment ops (the geometric ones in both
   interpolations), and the bound that holds an augmentation on the card
   against the same one on the CPU.
+- `MemoryReader` / `memory_box_json` / `frame_ids`: videos served from
+  memory through the datasets' `reader` field, their motion boxes, and the
+  frame ids read back from a clip, for the real-data runs on the card,
+  where no video decoder is installed.
 - `plain_attention`: inside it every attention wrapper takes its plain
   PyTorch version whatever the device; `build_step(..., plain=True)` and
   `build_finetune_step(..., plain=True)` run their steps so. It exists for
@@ -39,7 +43,10 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import os
+import zlib
 
+import numpy as np
 import torch
 
 from mofo_tpu_torch.core.config import (
@@ -189,6 +196,80 @@ def synthetic_clips_u8(B: int, generator: torch.Generator, device: str,
                           device=device)
     return {"clip": clip, "boxes": torch.cat([xy1, xy1 + wh], dim=-1),
             "label": label}
+
+
+class MemoryReader:
+    """An in-memory stand-in for data.video_reader.VideoReader, which the
+    datasets take through their `reader` field where no video can be
+    decoded: the video of a path has 40-60 frames, and its frame i is a
+    bright square moving over a gradient, both textured, at the asked size
+    (256 x 320 by default). Length, gradient and square follow the path's
+    basename alone, so that the boxes of
+    `memory_box_json` (keyed by basename, as MotionBoxIndex keys them) hold
+    in every split. Pixel (0, 0) carries (i % 256, i // 256, key), so the
+    frame ids can be read back from a clip (`frame_ids`)."""
+
+    def __init__(self, path: str, width: int = 0, height: int = 0):
+        self.key = zlib.crc32(os.path.basename(path).encode()) % 251
+        self.n = 40 + self.key % 21
+        self.h, self.w = height or 256, width or 320
+
+    def __len__(self) -> int:
+        return self.n
+
+    def box(self, i: int) -> list:
+        """[x1, y1, x2, y2] of frame i's square, in pixels."""
+        side = max(min(self.h, self.w) // 4, 1)
+        x1 = (self.key + 9 * i) % max(self.w - side, 1)
+        y1 = (self.key + 5 * i) % max(self.h - side, 1)
+        return [x1, y1, x1 + side, y1 + side]
+
+    def get_batch(self, indices) -> np.ndarray:
+        ids = np.asarray(indices, dtype=np.int64)
+        if len(ids) and (ids.min() < 0 or ids.max() >= self.n):
+            raise RuntimeError(f"frame ids outside [0, {self.n})")
+        y = np.arange(self.h)[:, None, None]
+        x = np.arange(self.w)[None, :, None]
+        # a fixed texture on the gradient and on the square, so that no patch
+        # of a resized crop is near-flat: the pretrain loss normalizes each
+        # patch by its spread, which bf16 loses on a near-flat patch
+        # (ROADMAP Queue 3)
+        texture = np.random.RandomState(self.key).randint(
+            0, 64, (self.h, self.w, 3))
+        out = np.empty((len(ids), self.h, self.w, 3), np.uint8)
+        out[...] = ((x * 200 // self.w + y * 55 // self.h + self.key
+                     + texture) % 256).astype(np.uint8)
+        for j, i in enumerate(ids):
+            x1, y1, x2, y2 = self.box(int(i))
+            out[j, y1:y2, x1:x2] = 255 - texture[y1:y2, x1:x2]
+            out[j, 0, 0] = (i % 256, i // 256, self.key)
+        return out
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        pass
+
+
+def frame_ids(clips: np.ndarray) -> np.ndarray:
+    """The frame ids that MemoryReader wrote into (..., T, H, W, 3) clips."""
+    first = clips[..., 0, 0, :2].astype(np.int64)
+    return first[..., 0] + 256 * first[..., 1]
+
+
+def memory_box_json(paths, hw=(256, 320)) -> dict:
+    """An Unsupervised_BB_*.json body for MemoryReader's videos: per frame
+    one box around the moving square, in the pixel space of `hw`."""
+    out = {}
+    for path in paths:
+        video = MemoryReader(path, width=hw[1], height=hw[0])
+        out[os.path.splitext(os.path.basename(path))[0]] = [
+            {"labels": [{"box2d": dict(zip(("x1", "y1", "x2", "y2"),
+                                           map(float, video.box(i)))),
+                         "gt_annotation": "motion"}]}
+            for i in range(len(video))]
+    return out
 
 
 def build_finetune_step(B: int, plain: bool = False, depth: int = 12,

@@ -25,6 +25,7 @@ import torch
 
 from mofo_tpu.cli import finetune as jax_cli
 from mofo_tpu.core.config import FinetuneConfig as JaxFinetuneConfig
+from mofo_tpu.data import filelist as jax_filelist
 from mofo_tpu.eval import multiview as jax_mv
 from mofo_tpu.models import create_model as jax_create_model
 from mofo_tpu.train import loss_scale as jax_ls
@@ -507,9 +508,6 @@ def test_get_args_and_build_config_match_jax():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--data_path", "train.csv"], "--data_path.*item 10"),
-    (["--bb_json", "bb.json"], "--bb_json.*item 10"),
-    (["--data_set", "EK100"], "EK100.*item 10"),
     (["--opt", "lamb"], "--opt lamb.*item 17"),
     (["--mesh_fsdp", "2"], "a mesh.*item 12"),
 ])
@@ -518,14 +516,37 @@ def test_unported_flags_raise(flags, match):
         FT.build_config(FT.get_args(flags))
 
 
-def test_multiview_dataset_expands_every_clip():
-    base = pipeline.SyntheticClipDataset(n=3, num_frames=1,
-                                         decode_size=(4, 4))
-    views = pipeline.MultiViewDataset(base, num_segment=2, num_crop=3)
-    assert len(views) == 18
-    tags = {(int(v["video_idx"]), int(v["chunk_nb"]), int(v["split_nb"]))
-            for v in (views[i] for i in range(18))}
-    assert tags == {(v, c, s) for v in range(3) for c in range(2)
-                    for s in range(3)}
-    assert [int(views[i]["split_nb"]) for i in range(0, 18, 6)] == [0, 1, 2]
-    np.testing.assert_array_equal(views[7]["clip"], base[1]["clip"])
+@pytest.mark.parametrize("flags", [
+    ["--data_path", "train.csv"],
+    ["--data_path", "train.csv", "--bb_json", "bb.json"],
+    ["--data_set", "EK100"],
+])
+def test_data_flags_fail_as_mofo_tpu_fails(flags, tmp_path, monkeypatch):
+    """--data_path, --bb_json and --data_set EK100 are no longer refused:
+    without their files they fail where and as mofo_tpu's readers fail."""
+    monkeypatch.chdir(tmp_path)
+    args = FT.get_args(flags + ["--device", "cpu"])
+    if args.data_set == "EK100":
+        def ref():
+            jax_filelist.epic_action_space([args.data_path, args.val_path])
+    elif args.bb_json:
+        def ref():
+            jax_filelist.MotionBoxIndex.from_file(args.bb_json)
+    else:
+        def ref():
+            jax_filelist.read_setting_file(args.data_path)
+    with pytest.raises(Exception) as want:
+        ref()
+    with pytest.raises(want.type) as got:
+        FT.build_datasets(args, FT.build_config(args), False, print)
+    assert str(got.value) == str(want.value)
+
+
+def test_synthetic_test_set_is_the_plain_clips():
+    """--synthetic tests the clips themselves, one view each, as mofo_tpu
+    does (data.pipeline's test-mode datasets expand real clips' views)."""
+    args = FT.get_args(TINY_FINETUNE)
+    _, _, test, _, _ = FT.build_datasets(args, FT.build_config(args), False,
+                                         print)
+    assert isinstance(test, pipeline.SyntheticClipDataset) and len(test) == 4
+    assert {int(test[i]["split_nb"]) for i in range(4)} == {0}

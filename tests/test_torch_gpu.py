@@ -22,6 +22,8 @@ from mofo_tpu_torch.core.config import (
     MaskingConfig,
     PretrainConfig,
 )
+from mofo_tpu_torch.data import pipeline as P
+from mofo_tpu_torch.data.filelist import ClipEntry, MotionBoxIndex
 from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.ops import augment as A
 from mofo_tpu_torch.ops import flash_attention as fa
@@ -30,6 +32,7 @@ from mofo_tpu_torch.cli import finetune_mofo, pretrain_mofo
 from mofo_tpu_torch.tools.main_path import (
     AUG_SHARE,
     VITS_MODEL,
+    MemoryReader,
     attention_against_plain,
     augment_against_cpu,
     build_finetune_step,
@@ -40,10 +43,12 @@ from mofo_tpu_torch.tools.main_path import (
     compare_with_plain,
     finetune_model,
     forced_draws,
+    frame_ids,
     hm_attention_against_plain,
     hm_inputs,
     hm_planted_faults,
     masked_kv_grad,
+    memory_box_json,
     mh_attention_against_plain,
     mh_inputs,
     moved_draws,
@@ -680,9 +685,61 @@ def test_finetune_runner_on_the_card(cuda, tmp_path, capsys):
     assert state.step == 2
     assert (tmp_path / "checkpoint-best.pth").is_file()
     assert capsys.readouterr().out.count("Final test: Acc@1") == 1
-    # 2 train steps; eval calls: 2 validation batches + 24 test views in
-    # 12 batches of one window each
+    # 2 train steps; eval calls: 2 validation batches + the 4 synthetic
+    # clips tested one view each, in 2 batches
     assert fa.launch_counts["qkv_attn_bwd_dq"] == 2 * 12
     assert fa.launch_counts["mh_attn_bwd_dq"] == 2
-    assert fa.launch_counts["qkv_attn_fwd"] == (2 + 2 + 12) * 12
-    assert fa.launch_counts["mh_attn_fwd"] == 2 + 2 + 12
+    assert fa.launch_counts["qkv_attn_fwd"] == (2 + 2 + 2) * 12
+    assert fa.launch_counts["mh_attn_fwd"] == 2 + 2 + 2
+
+
+def _memory_clips(tmp_path, n=6):
+    """n listed videos (1 KB placeholders) served by MemoryReader, with
+    their motion boxes at a 64 x 80 decode."""
+    paths = []
+    for i in range(n):
+        paths.append(str(tmp_path / f"v{i}.mp4"))
+        (tmp_path / f"v{i}.mp4").write_bytes(b"\0" * 1024)
+    (tmp_path / "bb.json").write_text(json.dumps(memory_box_json(paths,
+                                                                 (64, 80))))
+    return ([ClipEntry(p, i % 3) for i, p in enumerate(paths)],
+            MotionBoxIndex.from_file(str(tmp_path / "bb.json")))
+
+
+@pytest.mark.parametrize("kind,workers", [
+    ("test", 2), ("validation", 2), ("train", 1), ("pretrain", 1)])
+def test_memory_datasets_reach_the_card_as_on_the_cpu(cuda, tmp_path, kind,
+                                                      workers):
+    """The in-memory datasets through PrefetchLoader onto the card (one
+    thread or two) equal the CPU's batches after the same np.random.seed:
+    frames, ids, labels, tags and boxes."""
+    entries, boxes = _memory_clips(tmp_path)
+    kw = dict(decode_size=(64, 80), boxes=boxes, reader=MemoryReader,
+              num_frames=4)
+    ds = (P.PretrainClipDataset(entries, sampling_rate=4, **kw)
+          if kind == "pretrain" else
+          P.FinetuneClipDataset(entries, mode=kind, **kw))
+    got = {}
+    for device, n in ((cuda, workers), ("cpu", 1)):
+        np.random.seed(3)
+        got[str(device)] = list(P.PrefetchLoader(
+            ds, 4, device=device, drop_last=False, num_workers=n))
+    assert len(got["cuda"]) == len(got["cpu"]) == -(-len(ds) // 4)
+    for a, b in zip(got["cuda"], got["cpu"]):
+        assert a.keys() == b.keys()
+        for k in b:
+            assert a[k].device.type == "cuda"
+            assert torch.equal(a[k].cpu(), b[k]), k
+
+
+def test_the_loader_pins_its_host_batches_for_the_card(cuda, tmp_path):
+    entries, boxes = _memory_clips(tmp_path)
+    ds = P.FinetuneClipDataset(entries, mode="validation", num_frames=4,
+                               decode_size=(64, 80), boxes=boxes,
+                               reader=MemoryReader)
+    batch = P.PrefetchLoader(ds, 4, device=cuda)._fetch(np.arange(4), None)
+    assert all(v.is_pinned() for v in batch.values())
+    ids = frame_ids(batch["clip"].numpy())
+    assert ids.shape == (4, 4) and (ids >= 0).all()
+    host = P.PrefetchLoader(ds, 4, device="cpu")._fetch(np.arange(4), None)
+    assert not any(v.is_pinned() for v in host.values())

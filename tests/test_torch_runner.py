@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from mofo_tpu.cli import pretrain as jax_cli
+from mofo_tpu.data import filelist as jax_filelist
 from mofo_tpu.models import create_model as jax_create_model
 from mofo_tpu.train import metrics as jax_metrics
 from mofo_tpu.train.checkpoint import (
@@ -117,13 +118,24 @@ def test_get_args_and_build_config_match_jax():
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--data_path", "train.csv"], "--data_path"),
     (["--opt", "lamb"], "--opt lamb"),
     (["--mesh_fsdp", "2"], "a mesh"),
 ])
 def test_unported_flags_raise(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         PT.build_config(PT.get_args(flags))
+
+
+def test_data_path_reads_the_setting_file_as_mofo_tpu_does(tmp_path):
+    """--data_path is no longer refused: a missing file fails where and as
+    mofo_tpu's read_setting_file fails."""
+    path = str(tmp_path / "train.csv")
+    with pytest.raises(RuntimeError) as ref:
+        jax_filelist.read_setting_file(path)
+    with pytest.raises(RuntimeError) as ours:
+        PT.main(PT.get_args(TINY_PRETRAIN[:4] + TINY_PRETRAIN[6:]
+                            + ["--data_path", path]))
+    assert str(ours.value) == str(ref.value)
 
 
 def test_distributed_is_one_process(monkeypatch, capsys):
