@@ -143,6 +143,41 @@ Phases, each printing one JSON line:
  18. loader_modes - the ViT-S runner's dataset through PrefetchLoader at
                B=32 with one thread and with four: the first batch and the
                mean wait of the next three (a line, no gate).
+ 19. ddp_step - data parallelism over NCCL at world 1 (a process group on
+               localhost, a free port): the ViT-B MOFO pretrain step of
+               phase `step` (B=16, bf16) through DistributedDataParallel
+               (main_path.build_step's wrap=True) against the same step
+               without it from the same weights and tensors: 1 warm-up + 5
+               timed steps each, losses and gradient norms within
+               DDP_STEP_RTOL (bit-equality expected), both step times
+               printed, the DDP run's launches checked exactly.
+ 20. ddp_two_ranks - two processes on cuda:0 over gloo (NCCL refuses two
+               ranks on one device; mofo_tpu_torch.tools.ddp_ranks check),
+               each on its rows of the global batch G', against one
+               process at G' on the same card (tools.ddp_ranks.
+               two_rank_runs): the ViT-B MOFO pretrain step at full width
+               and depth (B=8 a rank, update_freq 2, motion weights, masks
+               drawn in the step), 3 steps in f32 and in bf16; the ViT-B
+               BB-focused MCA finetune step (f32, 10 classes, B=5 a rank,
+               RandAugment, crop, flip, erasing, mixup elem with cutmix,
+               drop path 0.1), 2 steps, then one validation pass (its sums
+               over the ranks) and the multi-view merge across them. f32:
+               losses and gradient norms within DDP_F32_RTOL, parameters
+               within DDP_F32_ATOL; bf16: BF16_STEP_RTOL; validation Acc@1
+               / Acc@5 and the merged ones equal, per-view logits within
+               DDP_F32_ATOL. K1/K2 and K3 run under DDP's hooks in the
+               ranks; their launches are counted there.
+ 21. ddp_runner - the runners through the launcher: `python -m
+               torch.distributed.run --standalone --nproc_per_node 1 -m
+               mofo_tpu_torch.tools.ddp_ranks cli ...` (which calls the
+               runner's main and writes the process's launch counts) runs
+               cli.pretrain_mofo (ViT-S, 64 synthetic clips at B=32, one
+               epoch of 2 steps, then auto-resumed for a second) and
+               cli.finetune_mofo (ViT-B BB-focused MCA, 20 clips at B=10,
+               one epoch with validation and the final test); log.txt, the
+               checkpoints (no `module.` names), the resume, the Final
+               test line and every kernel's launches are checked (K4 in
+               the ViT-S decoder).
 Then the card's nvidia-smi line, the kernels line and, last, the ok line.
 Any failed check raises, and the script exits non-zero without the ok line.
 """
@@ -154,6 +189,7 @@ import io
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -162,6 +198,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from mofo_tpu_torch.cli import feature_extract, finetune_mofo
@@ -186,6 +223,7 @@ from mofo_tpu_torch.ops import augment as A
 from mofo_tpu_torch.ops import flash_attention as fa
 from mofo_tpu_torch.ops import masking
 from mofo_tpu_torch.ops import rand_augment as RA
+from mofo_tpu_torch.tools import ddp_ranks
 from mofo_tpu_torch.tools.main_path import (
     AUG_ATOL,
     AUG_SHARE,
@@ -317,6 +355,22 @@ SCALE = D ** -0.5
 # at most 8.4e-5 (a gradient norm) when the bound was set, far below the 1%
 # by which a bf16 loss sits off the f32 one
 BF16_STEP_RTOL = 1e-3
+# DDP at world 1 against the same step without it: the same kernels on the
+# same tensors, gradients divided by a world of 1, so bits are expected
+DDP_STEP_RTOL = 1e-6
+# two ranks against one process at G' in f32: losses and gradient norms
+# (the ranks' sums taken in another order), parameters and per-view logits
+DDP_F32_RTOL = 1e-5
+DDP_F32_ATOL = 1e-5
+# ViT-S runner through the launcher: one epoch of 2 steps, then a second;
+# the BB-focused finetune runner: 20 clips at B=10, one epoch
+DDP_RUNNER_ARGS = ["--model", VITS_MODEL, "--synthetic", "64",
+                   "--batch_size", str(VITS_BATCH), "--save_ckpt_freq", "1",
+                   "--warmup_epochs", "0"]
+DDP_FT_CLIPS = 20
+DDP_FT_ARGS = ["--synthetic", str(DDP_FT_CLIPS), "--batch_size",
+               str(FT_BATCH), "--epochs", "1", "--warmup_epochs", "0"]
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def emit(phase: str, **fields) -> None:
@@ -1656,6 +1710,242 @@ def phase_real_data_runner(smi: str) -> dict:
     return total
 
 
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _steps(step, state, batch, gen, n_steps: int) -> dict:
+    """n_steps pretrain steps, each timed on the host after a sync; the
+    launches counted from 0 over them."""
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    out = {"ms": [], "loss": [], "grad_norm": []}
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, gen, 0.5)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["loss"].append(float(metrics["loss"]))
+        out["grad_norm"].append(float(metrics["grad_norm"]))
+    out["launches"] = dict(fa.launch_counts)
+    out["step_ms"] = statistics.median(out["ms"][1:])
+    return out
+
+
+def phase_ddp_step(smi: str) -> dict:
+    """The ViT-B MOFO pretrain step through DDP over NCCL at world 1
+    against the same step without DDP. Returns the DDP run's launches."""
+    n_steps = 6  # 1 warm-up + 5 timed
+    runs = {}
+    for wrap in (False, True):
+        if wrap:
+            dist.init_process_group(
+                "nccl", init_method=f"tcp://localhost:{_free_port()}",
+                world_size=1, rank=0)
+        try:
+            _, state, step, gen, batch = build_step(STEP_BATCH, wrap=wrap)
+            runs["ddp" if wrap else "plain"] = _steps(step, state, batch,
+                                                      gen, n_steps)
+            if wrap:
+                backend = dist.get_backend()
+        finally:
+            if wrap:
+                dist.destroy_process_group()
+        del state, step, batch
+        torch.cuda.empty_cache()
+    plain, wrapped = runs["plain"], runs["ddp"]
+    rel = {k: max(abs(a - b) / abs(b) for a, b in zip(wrapped[k], plain[k]))
+           for k in ("loss", "grad_norm")}
+    want = {k: n_steps * v for k, v in STEP_LAUNCHES[MODEL].items()}
+    emit("ddp_step", model=MODEL, dtype="bfloat16", batch=STEP_BATCH,
+         backend=backend, world=1, steps=n_steps,
+         step_ms=wrapped["step_ms"], plain_step_ms=plain["step_ms"],
+         step_ms_all=wrapped["ms"], plain_step_ms_all=plain["ms"],
+         loss=wrapped["loss"], grad_norm=wrapped["grad_norm"],
+         rel_diff=rel, bound=DDP_STEP_RTOL,
+         bit_equal=wrapped["loss"] == plain["loss"]
+         and wrapped["grad_norm"] == plain["grad_norm"],
+         launches=wrapped["launches"], nvidia_smi=smi)
+    if wrapped["launches"] != want:
+        raise AssertionError(f"DDP launches {wrapped['launches']}, "
+                             f"expected {want}")
+    if not max(rel.values()) <= DDP_STEP_RTOL:
+        raise AssertionError(f"DDP vs plain beyond {DDP_STEP_RTOL}: {rel}")
+    return wrapped["launches"]
+
+
+def _run_module(args: list) -> str:
+    """`python -m <args>` from the checkout's root; its output is printed
+    and AssertionError raised when it fails."""
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                          capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        print((proc.stdout + proc.stderr)[-6000:], flush=True)
+        raise AssertionError(f"{args[:4]} exited {proc.returncode}")
+    return proc.stdout
+
+
+def phase_ddp_two_ranks(smi: str) -> dict:
+    """Two ranks on cuda:0 over gloo against one process at G' on the same
+    card. Returns the ranks' launches, summed."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref = ddp_ranks.two_rank_runs(0, 1)
+        ref_s = time.perf_counter() - t0
+        runs = [r for r in ref if r != "launches"]
+        torch.save({r: ref[r].pop("params") for r in runs},
+                   os.path.join(tmp, "reference.pt"))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        procs = []
+        for rank in range(ddp_ranks.WORLD):
+            env = dict(os.environ, RANK=str(rank),
+                       WORLD_SIZE=str(ddp_ranks.WORLD), LOCAL_RANK="0")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "mofo_tpu_torch.tools.ddp_ranks",
+                 "check", tmp], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        outs = []
+        try:
+            for proc in procs:
+                outs.append(proc.communicate(timeout=900)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+        ranks_s = time.perf_counter() - t0
+        for proc, out in zip(procs, outs):
+            if proc.returncode != 0:
+                print(out[-6000:], flush=True)
+                raise AssertionError(f"a rank exited {proc.returncode}")
+        got = [torch.load(os.path.join(tmp, f"rank-{r}.pt"))
+               for r in range(ddp_ranks.WORLD)]
+    report, bad = {}, []
+    for run in runs:
+        rtol = BF16_STEP_RTOL if "bfloat16" in run else DDP_F32_RTOL
+        want = ref[run]
+        rows = []
+        for r, out in enumerate(got):
+            res = {k: max(abs(a - b) / abs(b)
+                          for a, b in zip(out[run][k], want[k]))
+                   for k in ("loss", "grad_norm")}
+            res["params_max_abs_err"] = out[run]["params_max_abs_err"]
+            res["step_ms"] = out[run]["ms"]
+            bad += [f"{run} rank {r} {k}" for k in ("loss", "grad_norm")
+                    if not res[k] <= rtol]
+            if "float32" in run and not res["params_max_abs_err"] <= \
+                    DDP_F32_ATOL:
+                bad.append(f"{run} rank {r} parameters")
+            if "eval" in want:
+                n = len(out[run]["logits"])
+                res["logits_max_abs_err"] = (
+                    out[run]["logits"] - want["logits"][r * n:(r + 1) * n]
+                ).abs().max().item()
+                res["eval"], res["multiview"] = (out[run]["eval"],
+                                                 out[run]["multiview"])
+                if not res["logits_max_abs_err"] <= DDP_F32_ATOL:
+                    bad.append(f"{run} rank {r} logits")
+                for key in ("acc1", "acc5"):
+                    if out[run]["eval"][key] != want["eval"][key]:
+                        bad.append(f"{run} rank {r} validation {key}")
+                if out[run]["multiview"] != want["multiview"]:
+                    bad.append(f"{run} rank {r} multi-view")
+                if abs(out[run]["eval"]["loss"] - want["eval"]["loss"]) > \
+                        DDP_F32_RTOL * abs(want["eval"]["loss"]):
+                    bad.append(f"{run} rank {r} validation loss")
+            rows.append(res)
+        report[run] = {"ranks": rows, "bound_rtol": rtol,
+                       "one_process": {k: want[k] for k in (
+                           "loss", "grad_norm", "ms", "eval", "multiview")
+                           if k in want}}
+    launches = {k: sum(out["launches"][k] for out in got) for k in fa.KERNELS}
+    path = fa.QKV_KERNELS + fa.MH_F32_KERNELS
+    skipped = [k for k in path if launches[k] < 1]
+    emit("ddp_two_ranks", world=ddp_ranks.WORLD, backend="gloo",
+         device="cuda:0 (both ranks)", runs=report,
+         batch_per_rank={"pretrain": ddp_ranks.PRETRAIN_BK[0],
+                         "finetune": ddp_ranks.FINETUNE_B},
+         update_freq=ddp_ranks.PRETRAIN_BK[1], steps=ddp_ranks.STEPS,
+         one_process_s=ref_s, ranks_s=ranks_s, launches=launches,
+         nvidia_smi=smi)
+    if bad or skipped:
+        raise AssertionError(f"ranks vs one process: {bad}; kernels not "
+                             f"launched under DDP: {skipped}")
+    return launches
+
+
+def phase_ddp_runner(smi: str) -> dict:
+    """The ViT-S pretrain runner (then resumed) and the BB-focused finetune
+    runner through torch.distributed.run. Returns their launches,
+    summed."""
+    launch = ["torch.distributed.run", "--standalone", "--nproc_per_node",
+              "1", "-m", "mofo_tpu_torch.tools.ddp_ranks", "cli"]
+    with tempfile.TemporaryDirectory() as tmp:
+        pt, ft = os.path.join(tmp, "pt"), os.path.join(tmp, "ft")
+        calls = (("pretrain", "pretrain_mofo",
+                  DDP_RUNNER_ARGS + ["--epochs", "1", "--output_dir", pt]),
+                 ("resume", "pretrain_mofo",
+                  DDP_RUNNER_ARGS + ["--epochs", "2", "--output_dir", pt]),
+                 ("finetune", "finetune_mofo",
+                  DDP_FT_ARGS + ["--output_dir", ft]))
+        launches, texts, seconds = {}, {}, {}
+        for name, runner, args in calls:
+            counts = os.path.join(tmp, f"{name}.json")
+            t0 = time.perf_counter()
+            texts[name] = _run_module(launch + [counts, runner, *args])
+            seconds[name] = time.perf_counter() - t0
+            with open(counts) as f:
+                launches[name] = json.load(f)
+        pt_log, ft_log = _runner_log(pt), _runner_log(ft)
+        pt_files = sorted(os.listdir(pt))
+        ft_files = sorted(os.listdir(ft))
+        names = list(torch.load(os.path.join(pt, "checkpoint-1.pth"),
+                                map_location="cpu",
+                                weights_only=True)["model"])
+    steps = {"pretrain": 2, "resume": 2, "finetune": DDP_FT_CLIPS // FT_BATCH}
+    n_eval = 2 * (DDP_FT_CLIPS // FT_BATCH)  # validation + final test
+    want = {name: {k: steps[name] * v for k, v in STEP_LAUNCHES[
+        VITS_MODEL if name != "finetune" else FINETUNE_MODEL].items()}
+        for name in steps}
+    for k in fa.KERNELS:
+        want["finetune"][k] += n_eval * EVAL_LAUNCHES[FINETUNE_MODEL][k]
+    final = FINAL_TEST.findall(texts["finetune"])
+    problems = [
+        f"{name} launches {launches[name]} != {want[name]}"
+        for name in steps if launches[name] != want[name]]
+    if [x["epoch"] for x in pt_log] != [0, 1] or pt_files != [
+            "checkpoint-0.pth", "checkpoint-1.pth", "log.txt"]:
+        problems.append(f"pretrain log {pt_log}, files {pt_files}")
+    if "auto-resumed at epoch 1" not in texts["resume"]:
+        problems.append("the second pretrain call did not resume")
+    if any(n.startswith("module.") for n in names):
+        problems.append("a checkpoint holds module. names")
+    if len(final) != 1 or [x["epoch"] for x in ft_log] != [0] or \
+            "checkpoint-best.pth" not in ft_files:
+        problems.append(f"finetune: final {final}, log {ft_log}, files "
+                        f"{ft_files}")
+    if not all(np.isfinite(x["train_loss"]) for x in pt_log + ft_log):
+        problems.append(f"non-finite losses {pt_log} {ft_log}")
+    total = {k: sum(c[k] for c in launches.values()) for k in fa.KERNELS}
+    emit("ddp_runner", launcher="torch.distributed.run --standalone "
+         "--nproc_per_node 1", seconds=seconds, launches=launches,
+         pretrain={"model": VITS_MODEL, "batch": VITS_BATCH,
+                   "epochs": [{k: x[k] for k in ("epoch", "train_loss",
+                                                 "step_s")} for x in pt_log],
+                   "files": pt_files},
+         finetune={"model": FINETUNE_MODEL, "batch": FT_BATCH,
+                   "train_loss": ft_log[0]["train_loss"],
+                   "val_acc1": ft_log[0]["val_acc1"],
+                   "step_s": ft_log[0]["step_s"],
+                   "final_test": final, "files": ft_files},
+         nvidia_smi=smi)
+    if problems:
+        raise AssertionError(f"ddp_runner: {problems}")
+    return total
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -1676,6 +1966,9 @@ def main() -> int:
     phase_fp16_finetune_step()
     ft_runner_launches = phase_finetune_runner(smi)
     real_launches = phase_real_data_runner(smi)
+    ddp = {"launches_ddp_step": phase_ddp_step(smi),
+           "launches_ddp_two_ranks": phase_ddp_two_ranks(smi),
+           "launches_ddp_runner": phase_ddp_runner(smi)}
     kernels = []
     for name in fa.QKV_KERNELS:
         dec = timings["decoder"][name]
@@ -1692,6 +1985,7 @@ def main() -> int:
             "launches_runner": runner_launches[name],
             "launches_finetune_runner": ft_runner_launches[name],
             "launches_real_data": real_launches[name],
+            **{key: counts[name] for key, counts in ddp.items()},
             **{geo: {**timings[geo][name],
                      "max_abs_err": errors[geo][name]}
                for geo in ("encoder", "backbone")},
@@ -1708,6 +2002,7 @@ def main() -> int:
                 MH_CHECKS["mca"]),
             "launches_finetune_runner": ft_runner_launches[name],
             "launches_real_data": real_launches[name],
+            **{key: counts[name] for key, counts in ddp.items()},
         })
     for name in fa.HM_KERNELS:
         dec = hm_timings[name]
@@ -1721,6 +2016,7 @@ def main() -> int:
                      % (*HM_CHECKS["runner_decoder"], D),
             "launches_vits_step": vits_launches[name],
             "launches_real_data": real_launches[name],
+            **{key: counts[name] for key, counts in ddp.items()},
         })
     emit("done", seconds=time.perf_counter() - t0)
     print(smi, flush=True)

@@ -3,8 +3,10 @@
 Counterpart of mofo_tpu/cli/feature_extract.py, plus --device (default
 cuda): each listed video through the validation sampler (uniform, 16
 frames decoded at 256x320) and eval_augment, then the classifier's pooled
-(N, D) features (return_features=True) into a .npy file, one row per
-video. --model_path is a torch .pth (a finetune checkpoint, the BB-focused
+features (return_features=True) into a .npy file: ceil(N / B) * B rows
+for N videos at --batch_size B, as mofo_tpu writes them (its loader pads
+the last batch by wrapping to the first videos and keeps those rows).
+--model_path is a torch .pth (a finetune checkpoint, the BB-focused
 model's too, or a pretrain one): whatever of its backbone, norms and
 fc_norm matches the model is loaded, the rest left as initialized (the
 reference's lenient load, utils.py:299-344). An orbax directory is the JAX
@@ -64,7 +66,7 @@ def as_encoder(state_dict) -> dict:
 
 
 def main(args=None, reader=VideoReader) -> np.ndarray:
-    """Writes and returns the (N, D) features. `reader` opens the videos
+    """Writes and returns the (ceil(N / B) * B, D) features. `reader` opens the videos
     (an in-memory reader in the checks; no CLI flag reaches it)."""
     if args is None:
         args = get_args()
@@ -91,10 +93,9 @@ def main(args=None, reader=VideoReader) -> np.ndarray:
         for batch in loader:
             clips, _ = A.eval_augment(batch["clip"], out_size=args.input_size,
                                       short_side=args.input_size)
+            # the rows that pad the last batch stay, as in mofo_tpu
             out = model(clips, return_features=True)
-            # the padded rows of the last batch are dropped: one row per
-            # video (mofo_tpu keeps them, ROADMAP Queue 3)
-            feats.append(out[batch["valid"]].float().cpu().numpy())
+            feats.append(out.float().cpu().numpy())
     feats = np.concatenate(feats, axis=0)
     np.save(args.output, feats)
     print(f"wrote features {feats.shape} to {args.output}")

@@ -1,5 +1,5 @@
 """Classification finetuning runner (plain and MOFO BB-focused), on one
-device.
+device or data-parallel over W processes.
 
 Counterpart of mofo_tpu/cli/finetune.py: the flags and defaults of
 run_class_finetuning.py:31-214 / run_class_finetuning_BB.py, plus --device
@@ -35,9 +35,19 @@ Usage (the warm-up epochs must fit in --epochs: the default is 5):
       --warmup_epochs 1 --finetune pretrain/checkpoint-799.pth \\
       --output_dir ft/
 
+On W GPUs, one process each: torchrun --nproc_per_node W -m
+mofo_tpu_torch.cli.finetune_mofo ... (as cli/pretrain.py). The ranks train
+on their shards of the train set as one process on the global batch
+(parallel/ddp.py); validation, the EMA validation and the final multi-view
+test run on every rank over its shard and merge (the sums of the eval step,
+the views through gather_across_processes); every rank acts on rank 0's
+validation numbers (best checkpoint, early stop). Rank 0 prints, writes
+log.txt and the checkpoints.
+
 Not ported yet, and refused with NotImplementedError: an --opt other than
-adamw (ROADMAP Queue 1 item 17) and a mesh other than one device (DDP,
-item 12).
+adamw (ROADMAP Queue 1 item 17) and a mesh with an fsdp or model axis
+(item 20); a --mesh_data other than -1 or the world size raises
+ValueError.
 """
 
 from __future__ import annotations
@@ -52,7 +62,7 @@ import time
 import numpy as np
 import torch
 
-from mofo_tpu_torch.cli.pretrain import step_seed
+from mofo_tpu_torch.cli.pretrain import refuse_unported, step_seed
 from mofo_tpu_torch.core import distributed
 from mofo_tpu_torch.core.config import FinetuneConfig, OptimizerConfig
 from mofo_tpu_torch.core.device import resolve_device
@@ -73,6 +83,7 @@ from mofo_tpu_torch.eval.multiview import (
 )
 from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.ops import augment as A
+from mofo_tpu_torch.parallel import ddp
 from mofo_tpu_torch.train import checkpoint as ckpt
 from mofo_tpu_torch.train import metrics as M
 from mofo_tpu_torch.train import optim, schedules
@@ -187,22 +198,10 @@ def get_args(argv=None, bb_defaults: bool = False):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
-    if args.opt.lower() != "adamw":
-        raise NotImplementedError(
-            f"--opt {args.opt}: only adamw is ported (ROADMAP Queue 1, "
-            "item 17)")
-    if args.mesh_data not in (-1, 1) or args.mesh_fsdp != 1 or \
-            args.mesh_model != 1:
-        raise NotImplementedError(
-            "a mesh other than one device: multi-device training is not "
-            "ported yet (ROADMAP Queue 1, item 12)")
-
-
-def build_config(args) -> FinetuneConfig:
-    """The run's FinetuneConfig; raises NotImplementedError on flags the
-    port does not run yet."""
-    _refuse_unported(args)
+def build_config(args, world: int = 1) -> FinetuneConfig:
+    """The run's FinetuneConfig at `world` processes; raises on flags the
+    port does not run (cli/pretrain.py's refuse_unported)."""
+    refuse_unported(args, world)
     return FinetuneConfig(
         model=args.model,
         nb_classes=args.nb_classes,
@@ -372,12 +371,21 @@ def main(args=None, reader=VideoReader):
     build_datasets)."""
     if args is None:
         args = get_args()
-    distributed.init_distributed_mode()
+    joined = distributed.init_distributed_mode(device=args.device)
+    try:
+        return _train(args, reader)
+    finally:
+        if joined:
+            distributed.destroy()
+
+
+def _train(args, reader):
     log = distributed.setup_printing()
-    cfg = build_config(args)
+    rank, world = distributed.process_index(), distributed.process_count()
+    cfg = build_config(args, world)
     bb_focused = "BB_focused" in cfg.model
     log(f"config: {cfg}")
-    device = resolve_device(args.device)
+    device = resolve_device(distributed.run_device(args.device))
     log(f"device: {device}"
         + (f" ({torch.cuda.get_device_name(device)})"
            if device.type == "cuda" else ""))
@@ -385,7 +393,6 @@ def main(args=None, reader=VideoReader):
     # ----- data -----
     train_ds, val_ds, test_ds, cfg, action_to_vn = build_datasets(
         args, cfg, bb_focused, log, reader)
-    rank, world = distributed.process_index(), distributed.process_count()
     train_sampler = P.ShardedSampler(len(train_ds), rank, world,
                                      seed=cfg.seed)
     train_loader = P.PrefetchLoader(train_ds, cfg.batch_size, train_sampler,
@@ -413,7 +420,7 @@ def main(args=None, reader=VideoReader):
     log(f"params: {sum(p.numel() for p in named.values()) / 1e6:.2f}M")
     if args.finetune:
         copied = ckpt.finetune_init_from_pretrain(
-            model, ckpt.load_pretrain_encoder(args.finetune))
+            model, ckpt.load_pretrain_encoder(args.finetune, device))
         log(f"initialized the backbone from {args.finetune} "
             f"({len(copied)} tensors)")
 
@@ -460,11 +467,13 @@ def main(args=None, reader=VideoReader):
             out["valid"] = batch["valid"]
         return out
 
+    # the steps see the DDP wrapper; saves, loads and EMA the module
+    train_model = ddp.wrap_model(model) if world > 1 else model
     step_fn = make_finetune_step(
-        model, tx, cfg, lr_sched, bb_focused=bb_focused,
+        train_model, tx, cfg, lr_sched, bb_focused=bb_focused,
         augment_fn=make_train_augment(cfg, flip, args.num_sample),
         device=device)
-    eval_fn = make_eval_step(model, cfg, bb_focused=bb_focused,
+    eval_fn = make_eval_step(train_model, cfg, bb_focused=bb_focused,
                              device=device)
     jsonl = M.JsonlLogger(args.output_dir, distributed.is_main_process())
     generator = torch.Generator(device=device)
@@ -480,6 +489,8 @@ def main(args=None, reader=VideoReader):
                                        acc1=float(out["acc1"]),
                                        acc5=float(out["acc5"]))
         stats = logger.epoch_stats(sync=True)
+        if world > 1:  # every rank decides on rank 0's numbers
+            stats = ddp.broadcast_object(stats)
         log(f"* Acc@1 {stats.get('acc1', 0):.3f} "
             f"Acc@5 {stats.get('acc5', 0):.3f} "
             f"loss {stats.get('loss', 0):.3f}")
@@ -509,7 +520,8 @@ def main(args=None, reader=VideoReader):
             if not np.isfinite(loss):
                 log(f"Loss is {loss}, stopping training")
                 sys.exit(2)
-        stats = {f"train_{k}": v for k, v in logger.epoch_stats().items()}
+        stats = {f"train_{k}": v
+                 for k, v in logger.epoch_stats(sync=True).items()}
         # seconds per step: waiting on the loader, and the rest of the step
         stats.update(data_wait_s=logger.data_time.global_avg,
                      step_s=logger.iter_time.global_avg
@@ -570,14 +582,17 @@ def final_test(model, test_ds, cfg: FinetuneConfig, bb_focused: bool, log,
     spatial window (split_nb) through test_view_augment (boxes too), the
     padded rows dropped, softmax-mean per video. With action_to_vn (EK-100
     actions) also the verb and noun accuracies of the marginalized scores
-    (utils.py:584-606). Prints and returns (top1, top5)."""
+    (utils.py:584-606). Prints and returns (top1, top5). Each process tests
+    its shard of the views; the rows are merged across processes before
+    the scores (gather_across_processes)."""
     t0 = time.time()
     rank, world = distributed.process_index(), distributed.process_count()
     loader = P.PrefetchLoader(
         test_ds, cfg.batch_size,
         P.ShardedSampler(len(test_ds), rank, world, shuffle=False),
         device=device, drop_last=False, num_workers=num_workers)
-    eval_fn = make_eval_step(model, cfg, bb_focused=bb_focused,
+    # per-process logits: the ranks may make different numbers of calls
+    eval_fn = make_eval_step(ddp.unwrap(model), cfg, bb_focused=bb_focused,
                              device=device)
     agg = MultiViewAggregator()
     for batch in loader:

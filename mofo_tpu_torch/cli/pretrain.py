@@ -1,5 +1,5 @@
 """MAE pretraining runner (plain VideoMAE and MOFO motion-aware), on one
-device.
+device or data-parallel over W processes.
 
 Counterpart of mofo_tpu/cli/pretrain.py: the flags and defaults of
 run_mae_pretraining.py:22-132 plus the BB flags of
@@ -23,9 +23,20 @@ Usage (the warm-up epochs must fit in --epochs: the default is 40):
       --bb_json Unsupervised_BB_SSV2_train.json --epochs 2 \\
       --warmup_epochs 1 --output_dir out/
 
+On W GPUs, one process each (torchrun, SLURM or OpenMPI set the ranks;
+core/distributed.py):
+  torchrun --nproc_per_node W -m mofo_tpu_torch.cli.pretrain_mofo ...
+--batch_size stays per process and the LR is scaled by the global batch;
+the W ranks compute what one process computes on their global batch
+(parallel/ddp.py). Rank 0 prints, writes log.txt and the checkpoints.
+--device cpu runs the ranks over gloo. A caller that has joined the
+process group itself (init_distributed_mode with its own init_method)
+may call main() in each process.
+
 Not ported yet, and refused with NotImplementedError: an --opt other than
-adamw (ROADMAP Queue 1 item 17) and a mesh other than one device (DDP,
-Queue 1 item 12).
+adamw (ROADMAP Queue 1 item 17) and a mesh with an fsdp or model axis
+(Queue 1 item 20); a --mesh_data other than -1 or the world size raises
+ValueError.
 """
 
 from __future__ import annotations
@@ -49,6 +60,7 @@ from mofo_tpu_torch.data.filelist import MotionBoxIndex, read_setting_file
 from mofo_tpu_torch.data.video_reader import VideoReader
 from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.ops import augment as A
+from mofo_tpu_torch.parallel import ddp
 from mofo_tpu_torch.train import checkpoint as ckpt
 from mofo_tpu_torch.train import metrics as M
 from mofo_tpu_torch.train import optim, schedules
@@ -125,22 +137,29 @@ def get_args(argv=None, mofo_defaults: bool = False):
     return p.parse_args(argv)
 
 
-def _refuse_unported(args) -> None:
+def refuse_unported(args, world: int) -> None:
+    """Raises on the flags the port does not run (shared with
+    cli/finetune.py): an --opt other than adamw, a mesh with an fsdp or
+    model axis, a --mesh_data that is not the world size (or -1)."""
     if args.opt.lower() != "adamw":
         raise NotImplementedError(
             f"--opt {args.opt}: only adamw is ported (ROADMAP Queue 1, "
             "item 17)")
-    if args.mesh_data not in (-1, 1) or args.mesh_fsdp != 1 or \
-            args.mesh_model != 1:
+    if args.mesh_fsdp != 1 or args.mesh_model != 1:
         raise NotImplementedError(
-            "a mesh other than one device: multi-device training is not "
-            "ported yet (ROADMAP Queue 1, item 12)")
+            f"a mesh with --mesh_fsdp {args.mesh_fsdp} --mesh_model "
+            f"{args.mesh_model}: only the data axis is ported; the fsdp and "
+            "model axes are not ported yet (ROADMAP Queue 1, item 20)")
+    if args.mesh_data not in (-1, world):
+        raise ValueError(f"--mesh_data {args.mesh_data} with {world} "
+                         f"process(es): the data axis spans every process "
+                         "(-1 or the world size)")
 
 
-def build_config(args) -> PretrainConfig:
-    """The run's PretrainConfig; raises NotImplementedError on flags the
-    port does not run yet."""
-    _refuse_unported(args)
+def build_config(args, world: int = 1) -> PretrainConfig:
+    """The run's PretrainConfig at `world` processes; raises on flags the
+    port does not run (refuse_unported)."""
+    refuse_unported(args, world)
     return PretrainConfig(
         model=args.model,
         decoder_depth=args.decoder_depth,
@@ -213,11 +232,20 @@ def main(args=None, reader=VideoReader):
     --data_path's videos (see build_dataset)."""
     if args is None:
         args = get_args()
-    distributed.init_distributed_mode()
+    joined = distributed.init_distributed_mode(device=args.device)
+    try:
+        return _train(args, reader)
+    finally:
+        if joined:
+            distributed.destroy()
+
+
+def _train(args, reader):
     log = distributed.setup_printing()
-    cfg = build_config(args)
+    world = distributed.process_count()
+    cfg = build_config(args, world)
     log(f"config: {cfg}")
-    device = resolve_device(args.device)
+    device = resolve_device(distributed.run_device(args.device))
     log(f"device: {device}"
         + (f" ({torch.cuda.get_device_name(device)})"
            if device.type == "cuda" else ""))
@@ -226,8 +254,7 @@ def main(args=None, reader=VideoReader):
     dataset = build_dataset(args, cfg, reader)
     sampler = P.ShardedSampler(len(dataset),
                                rank=distributed.process_index(),
-                               world=distributed.process_count(),
-                               seed=cfg.seed)
+                               world=world, seed=cfg.seed)
     loader = P.PrefetchLoader(dataset, batch_size=cfg.batch_size,
                               sampler=sampler, device=device,
                               num_workers=args.num_workers)
@@ -244,8 +271,7 @@ def main(args=None, reader=VideoReader):
         img_size=cfg.input_size,
     )
     oc = cfg.optimizer
-    lr = schedules.scaled_lr(oc.lr,
-                             cfg.batch_size * distributed.process_count())
+    lr = schedules.scaled_lr(oc.lr, cfg.batch_size * world)
     log(f"base lr: {oc.lr:.2e}  scaled lr: {lr:.2e}")
     lr_sched = schedules.cosine_schedule(
         lr, oc.min_lr, cfg.epochs, steps_per_epoch, oc.warmup_epochs,
@@ -283,10 +309,12 @@ def main(args=None, reader=VideoReader):
             out["boxes"] = boxes
         return out
 
-    step_fn = make_pretrain_step(model, tx, cfg, lr_sched, device=device,
-                                 augment_fn=augment_batch)
-    jsonl = M.JsonlLogger(args.output_dir, distributed.is_main_process())
-    tb = M.TensorboardLogger(args.log_dir)
+    step_fn = make_pretrain_step(
+        ddp.wrap_model(model) if world > 1 else model, tx, cfg, lr_sched,
+        device=device, augment_fn=augment_batch)
+    is_main = distributed.is_main_process()
+    jsonl = M.JsonlLogger(args.output_dir, is_main)
+    tb = M.TensorboardLogger(args.log_dir if is_main else None)
     generator = torch.Generator(device=device)
 
     log(f"Start training for {cfg.epochs} epochs "
@@ -307,7 +335,8 @@ def main(args=None, reader=VideoReader):
             if not np.isfinite(loss):
                 log(f"Loss is {loss}, stopping training")
                 sys.exit(1)
-        stats = {f"train_{k}": v for k, v in logger.epoch_stats().items()}
+        stats = {f"train_{k}": v
+                 for k, v in logger.epoch_stats(sync=True).items()}
         # seconds per step: waiting on the loader, and the rest of the
         # step (augmentation, forward, backward, update, the loss read)
         stats.update(epoch=epoch, data_wait_s=logger.data_time.global_avg,

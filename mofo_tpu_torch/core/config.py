@@ -3,9 +3,10 @@
 A copy of mofo_tpu/core/config.py's MaskingConfig, OptimizerConfig,
 PretrainConfig and FinetuneConfig (knob names and defaults mirror the
 reference argparse surfaces, run_mae_pretraining.py:22-132,
-run_mae_pretraining_BB.py and run_class_finetuning.py:31-214). The port
-runs on one device and has no mesh yet, so neither config has a `mesh`
-field: it comes with distributed training.
+run_mae_pretraining_BB.py and run_class_finetuning.py:31-214). Neither
+config has a `mesh` field: the port's only axis is the data axis, which
+spans every process of the run (parallel/ddp.py), and the runners check
+their --mesh_* flags against the world size themselves.
 """
 
 from __future__ import annotations

@@ -25,7 +25,13 @@ as the reference's do: after np.random.seed(s) a dataset returns the
 reference's samples. They open videos through their `reader` field, a
 callable (path, width=, height=) -> an object with __len__, get_batch and
 the context manager; VideoReader unless a test or a check on the card gives
-an in-memory one. Multi-process sharding (DDP) is not ported yet.
+an in-memory one.
+
+With W processes each rank's sampler takes its stride rank::W of the
+epoch's permutation, padded by wrapping to a multiple of W (validation
+too, as mofo_tpu/data/pipeline.py:66-69 pads), so every rank makes the same
+number of batches, and its loader pins them and copies them to the rank's
+own device (cuda:<local rank>).
 """
 
 from __future__ import annotations

@@ -6,8 +6,11 @@ Reference behaviour: test datasets expand each video into (test_num_segment
 x test_num_crop) views tagged (chunk_nb, split_nb) (ssv2.py:68-77); per
 video, duplicate (chunk, split) rows are dropped, each view is softmaxed,
 the views are averaged and top1 / top5 taken (engine_for_finetuning.py:
-227-348). gather_across_processes is the single-process case: multi-process
-runs (DDP) are not ported yet.
+227-348). gather_across_processes merges every process's view rows, in
+process order (mofo_tpu/eval/multiview.py:130-175, which replaces the
+reference's per-rank prediction files, engine_for_finetuning.py:281-339);
+the rows a sampler's wrap-padding repeats are dropped as duplicates by
+merge_feats, as there.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from mofo_tpu_torch.core import distributed
+from mofo_tpu_torch.parallel import ddp
 
 
 def softmax_np(x: np.ndarray, axis: int = -1) -> np.ndarray:
@@ -73,13 +77,14 @@ class MultiViewAggregator:
 
 
 def gather_across_processes(agg: MultiViewAggregator) -> MultiViewAggregator:
-    """Every process's view rows in one aggregator: with one process, the
-    aggregator itself."""
+    """Every process's view rows in one aggregator, in process order: with
+    one process, the aggregator itself. Every process must call it."""
     if distributed.process_count() == 1:
         return agg
-    raise NotImplementedError(
-        "gathering test views across processes: multi-process evaluation "
-        "(DDP) is not ported yet (ROADMAP Queue 1, item 12)")
+    merged = MultiViewAggregator()
+    for rows in ddp.all_gather_object(agg._rows):
+        merged._rows.extend(rows)
+    return merged
 
 
 def get_marginal_indexes(action_to_vn: Sequence[Tuple[int, int]],

@@ -32,6 +32,7 @@ from mofo_tpu_torch.ops.flash_attention import (
     flash_attention_qkv,
 )
 from mofo_tpu_torch.ops.patchify import patchify_flat
+from mofo_tpu_torch.parallel import ddp
 
 
 @functools.lru_cache(maxsize=16)
@@ -106,7 +107,8 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
                          "torch.Generator")
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    mask = ddp.per_sample(lambda s: torch.rand(
+        s, generator=generator, device=x.device), shape) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

@@ -106,7 +106,7 @@ def sample_finetune_draws(generator: Optional[torch.Generator],
     return FinetuneDraws(
         sample_rand_augment_draws(generator, B, aa, device) if aa else None,
         I.sample_crop_draws(generator, B, device=device),
-        (torch.rand(B, generator=generator, device=device) < 0.5
+        (I.rand(generator, (B,), device) < 0.5
          if flip else None),
         (I.sample_erasing_draws(generator, (B, T, out_size, out_size, C),
                                 reprob, device=device)

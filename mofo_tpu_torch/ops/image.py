@@ -12,7 +12,9 @@ random_erasing.py:27-173). Clips are (B, T, H, W, C); boxes (B, 4) = (y1,
 x1, y2, x2) floats in source pixels; sampling uses half-pixel centres and
 clamps to the edge. Every random op draws from a torch.Generator on the
 clips' device, or takes its draws (a NamedTuple below, or index tensors), so
-that tests can hand both packages the same draws.
+that tests can hand both packages the same draws. Every draw is per sample
+(leading dimension the batch) through parallel.ddp.per_sample, so that a
+data-parallel step's ranks draw the global batch's draws.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from mofo_tpu_torch.core import constants
+from mofo_tpu_torch.parallel import ddp
 
 
 def _bilinear_gather(imgs: torch.Tensor, ys: torch.Tensor,
@@ -67,10 +70,28 @@ def crop_and_resize(imgs: torch.Tensor, boxes: torch.Tensor,
     return _bilinear_gather(imgs, ys, xs)
 
 
+def rand(generator, shape, device) -> torch.Tensor:
+    """Per-sample U[0, 1) of `shape` (batch, ...)."""
+    return ddp.per_sample(
+        lambda s: torch.rand(s, generator=generator, device=device), shape)
+
+
+def randn(generator, shape, device) -> torch.Tensor:
+    """Per-sample standard normals of `shape` (batch, ...)."""
+    return ddp.per_sample(
+        lambda s: torch.randn(s, generator=generator, device=device), shape)
+
+
+def randint(generator, low: int, high: int, shape, device) -> torch.Tensor:
+    """Per-sample integers in [low, high) of `shape` (batch, ...)."""
+    return ddp.per_sample(
+        lambda s: torch.randint(low, high, s, generator=generator,
+                                device=device), shape)
+
+
 def _uniform(generator, shape, lo: float, hi: float, device):
     """lo + (hi - lo) * U[0, 1), f32."""
-    u = torch.rand(shape, generator=generator, device=device)
-    return u * (hi - lo) + lo
+    return rand(generator, shape, device) * (hi - lo) + lo
 
 
 def resize(imgs: torch.Tensor, out_size: Tuple[int, int]) -> torch.Tensor:
@@ -124,11 +145,9 @@ def multi_scale_crop_boxes(generator: Optional[torch.Generator], batch: int,
     H, W = img_hw
     pairs = torch.from_numpy(_msc_size_pairs(min(H, W), base_size)).to(device)
     if pair_idx is None:
-        pair_idx = torch.randint(0, pairs.shape[0], (batch,),
-                                 generator=generator, device=device)
+        pair_idx = randint(generator, 0, pairs.shape[0], (batch,), device)
     if off_idx is None:
-        off_idx = torch.randint(0, MSC_OFFSETS, (batch,),
-                                generator=generator, device=device)
+        off_idx = randint(generator, 0, MSC_OFFSETS, (batch,), device)
     pair_idx, off_idx = pair_idx.to(device).long(), off_idx.to(device).long()
     ch, cw = pairs[pair_idx, 0], pairs[pair_idx, 1]
     sel = _msc_offsets(H, W, ch, cw)[torch.arange(batch, device=device),
@@ -158,8 +177,8 @@ def sample_crop_draws(generator: Optional[torch.Generator], batch: int,
         _uniform(generator, shape, scale[0], scale[1], device),
         _uniform(generator, shape, float(np.log(ratio[0])),
                  float(np.log(ratio[1])), device),
-        torch.rand(batch, generator=generator, device=device),
-        torch.rand(batch, generator=generator, device=device))
+        rand(generator, (batch,), device),
+        rand(generator, (batch,), device))
 
 
 def random_resized_crop_boxes(generator: Optional[torch.Generator],
@@ -239,8 +258,7 @@ def horizontal_flip(generator: Optional[torch.Generator],
     """Per-clip random horizontal flip; `flip` (B,) bool replaces the
     draw."""
     if flip is None:
-        flip = torch.rand(imgs.shape[0], generator=generator,
-                          device=imgs.device) < prob
+        flip = rand(generator, (imgs.shape[0],), imgs.device) < prob
     flip = flip.to(imgs.device)[:, None, None, None, None]
     return torch.where(flip, torch.flip(imgs, dims=(3,)), imgs)
 
@@ -274,13 +292,13 @@ def sample_erasing_draws(generator: Optional[torch.Generator],
                          device=None) -> ErasingDraws:
     B, _, H, W, C = shape
     return ErasingDraws(
-        torch.rand(B, generator=generator, device=device) < prob,
+        rand(generator, (B,), device) < prob,
         _uniform(generator, (B,), area_range[0], area_range[1], device),
         _uniform(generator, (B,), float(np.log(aspect_range[0])),
                  float(np.log(aspect_range[1])), device),
-        torch.rand(B, generator=generator, device=device),
-        torch.rand(B, generator=generator, device=device),
-        torch.randn((B, 1, H, W, C), generator=generator, device=device))
+        rand(generator, (B,), device),
+        rand(generator, (B,), device),
+        randn(generator, (B, 1, H, W, C), device))
 
 
 def random_erasing(generator: Optional[torch.Generator], imgs: torch.Tensor,

@@ -18,6 +18,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from mofo_tpu_torch.parallel import ddp
+
 
 def num_masked_per_frame(patches_per_frame: int, mask_ratio: float) -> int:
     """int(mask_ratio * patches_per_frame), reference masking_generator.py:8."""
@@ -25,7 +27,10 @@ def num_masked_per_frame(patches_per_frame: int, mask_ratio: float) -> int:
 
 
 def _uniform(shape, generator, device) -> torch.Tensor:
-    return torch.rand(shape, generator=generator, device=device)
+    """Per-sample uniforms (batch, ...); in a data-parallel step the global
+    batch's, this rank's rows (parallel.ddp.per_sample)."""
+    return ddp.per_sample(
+        lambda s: torch.rand(s, generator=generator, device=device), shape)
 
 
 def _rank_small(keys: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,12 @@ them with np.random (torch.distributions.Beta takes no generator). The
 blend runs on the clips' device, the cutmix box as a coordinate mask.
 Clips are (B, T, H, W, C) channel-last. `params` injects the raw draws, so
 tests can hand both packages the same ones.
+
+Inside a data-parallel step (parallel.ddp.global_draws) each rank's B rows
+are rows r * B .. r * B + B - 1 of a global batch of W * B: the draws are
+made (or injected) at the global count and the rank keeps its rows, and
+the partner of global row g, W * B - 1 - g, is rank W-1-r's rows flipped
+(parallel.ddp.exchange_flipped), for the clips and the one-hot targets.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from mofo_tpu_torch.parallel import ddp
 
 
 def one_hot_smooth(targets: torch.Tensor, num_classes: int,
@@ -140,17 +148,29 @@ class Mixup:
                  params: Optional[MixupParams] = None):
         """clips (B, T, H, W, C), targets (B,) int labels. Returns (mixed
         clips, soft targets (B, num_classes) f32). The draws come from
-        `rng` or, given, from `params`."""
+        `rng` or, given, from `params` (at the global count in a
+        data-parallel step)."""
         B, T, H, W, C = clips.shape
         if not self.enabled:
             return clips, one_hot_smooth(targets, self.num_classes,
                                          self.label_smoothing)
+        layout = ddp.layout()
+        if layout is not None and layout[2] != 1:
+            raise ValueError("mixup acts on one microbatch: global_draws "
+                             f"with k={layout[2]}")
+        rank, world = (0, 1) if layout is None else layout[:2]
         if params is None:
             if rng is None:
                 raise ValueError("Mixup draws from an explicit "
                                  "np.random.Generator; pass rng or params")
-            params = self.sample(rng, self.count(B), H, W)
-        lam, use_cutmix, cut, box = self._per_sample(params, B, H, W)
+            params = self.sample(rng, self.count(world * B), H, W)
+        lam, use_cutmix, cut, box = self._per_sample(params, world * B, H, W)
+        if world > 1:
+            rows = ddp.global_rows(rank, world, B)
+            lam, use_cutmix, cut = lam[rows], use_cutmix[rows], cut[rows]
+            box = box[:, rows]
+        flipped = ddp.exchange_flipped if world > 1 else (
+            lambda t: torch.flip(t, dims=[0]))
         dev = clips.device
         lam_t = torch.from_numpy(np.ascontiguousarray(lam)).to(dev)
         yl, yh, xl, xh = (torch.from_numpy(np.ascontiguousarray(c)).to(dev)
@@ -161,7 +181,7 @@ class Mixup:
         inside = inside & torch.from_numpy(
             np.ascontiguousarray(cut)).to(dev)[:, None, None]
 
-        partner = torch.flip(clips, dims=[0])
+        partner = flipped(clips)
         lam_b = lam_t[:, None, None, None, None]
         blended = clips * lam_b + partner * (1.0 - lam_b)
         cutmixed = torch.where(inside[:, None, :, :, None], partner, clips)
@@ -170,6 +190,6 @@ class Mixup:
         mixed = torch.where(use_cut_b, cutmixed, blended)
 
         y1 = one_hot_smooth(targets, self.num_classes, self.label_smoothing)
-        y2 = torch.flip(y1, dims=[0])
+        y2 = flipped(y1)
         soft = y1 * lam_t[:, None] + y2 * (1.0 - lam_t[:, None])
         return mixed.to(clips.dtype), soft

@@ -106,12 +106,16 @@ def masked_mse_loss(
     pred: torch.Tensor,
     target: torch.Tensor,
     weights: Optional[torch.Tensor] = None,
+    weight_sum: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Mean squared error over the predicted masked tokens; with weights
-    (B, M), sum(err * w) / (sum(w) * D + 1e-12)."""
+    (B, M), sum(err * w) / (sum(w) * D + 1e-12). `weight_sum` replaces
+    sum(w) in the denominator (a data-parallel step passes the global
+    batch's)."""
     acc = _wide(torch.promote_types(pred.dtype, target.dtype))
     err = torch.square(pred.to(acc) - target.to(acc))
     if weights is None:
         return err.mean()
     w = weights.to(acc)[..., None]
-    return (err * w).sum() / (w.sum() * err.shape[-1] + 1e-12)
+    total = w.sum() if weight_sum is None else weight_sum.to(acc)
+    return (err * w).sum() / (total * err.shape[-1] + 1e-12)

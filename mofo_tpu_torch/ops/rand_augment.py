@@ -36,6 +36,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from mofo_tpu_torch.ops import image as I
+
 MAX_LEVEL = 10.0
 FILL = 128.0
 
@@ -348,13 +350,12 @@ def sample_rand_augment_draws(generator: Optional[torch.Generator],
                               device=None) -> RandAugmentDraws:
     cfg = parse_rand_augment_config(config_str)
     shape = (batch, cfg["num_layers"])
-    kw = dict(generator=generator, device=device)
-    op = torch.randint(0, len(TRANSFORMS), shape, **kw)
-    apply = torch.rand(shape, **kw) < cfg["prob"]
+    op = I.randint(generator, 0, len(TRANSFORMS), shape, device)
+    apply = I.rand(generator, shape, device) < cfg["prob"]
     mag = torch.clamp(cfg["magnitude"] + cfg["magnitude_std"]
-                      * torch.randn(shape, **kw), 0.0, MAX_LEVEL)
-    neg = torch.where(torch.rand(shape, **kw) < 0.5, -1.0, 1.0)
-    interp = torch.randint(0, 2, shape, **kw)
+                      * I.randn(generator, shape, device), 0.0, MAX_LEVEL)
+    neg = torch.where(I.rand(generator, shape, device) < 0.5, -1.0, 1.0)
+    interp = I.randint(generator, 0, 2, shape, device)
     return RandAugmentDraws(op, apply, mag, neg, interp)
 
 

@@ -37,6 +37,15 @@ tools/profile_step.py and tests/test_torch_gpu.py.
   `build_finetune_step(..., plain=True)` run their steps so. It exists for
   the checks that hold a bf16 step on the card through the kernels against
   the same step through the plain versions; no CLI reaches it.
+- Data parallelism: `rank_batch` / `global_batch` carry a global batch G'
+  to a rank's local rows and back (parallel.ddp.global_rows);
+  `pretrain_steps` / `finetune_steps` run a few steps of a model, wrapped
+  by parallel.ddp.wrap_model or not, on a rank's batch or on G', drawing
+  from a generator seeded per step, and return the metrics, the final
+  parameters and (finetune) one validation pass with its multi-view merge:
+  the rank processes and the single process at G' of chip_smoke.py's
+  `ddp_two_ranks` and of tests/test_torch_ddp.py run these same functions.
+  `build_step(..., wrap=True)` puts the main-path step under DDP.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import os
+import time
 import zlib
 
 import numpy as np
@@ -55,13 +65,22 @@ from mofo_tpu_torch.core.config import (
     PretrainConfig,
 )
 from mofo_tpu_torch.cli.finetune import make_train_augment
+from mofo_tpu_torch.core.device import device_of
+from mofo_tpu_torch.eval.multiview import (
+    MultiViewAggregator,
+    gather_across_processes,
+)
 from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.ops import augment as A
 from mofo_tpu_torch.ops import flash_attention as fa
 from mofo_tpu_torch.ops import rand_augment as RA
+from mofo_tpu_torch.parallel import ddp
 from mofo_tpu_torch.train import optim, schedules
 from mofo_tpu_torch.train.checkpoint import finetune_init_from_pretrain
-from mofo_tpu_torch.train.finetune_step import make_finetune_step
+from mofo_tpu_torch.train.finetune_step import (
+    make_eval_step,
+    make_finetune_step,
+)
 from mofo_tpu_torch.train.loss_scale import DynamicLossScale
 from mofo_tpu_torch.train.pretrain_step import make_pretrain_step
 from mofo_tpu_torch.train.train_state import TrainState
@@ -90,6 +109,8 @@ PREP_DELTA_RTOL = 1e-5
 # boundary, so a few pixels may differ by more
 AUG_ATOL = 1e-3
 AUG_SHARE = 0.999
+# the constant AdamW LR of pretrain_steps / finetune_steps
+STEPS_LR = 1e-4
 
 
 def synthetic_batch(B: int, generator: torch.Generator,
@@ -138,11 +159,14 @@ def _through_plain(step):
     return run
 
 
-def build_step(B: int, name: str = MODEL, plain: bool = False, **overrides):
+def build_step(B: int, name: str = MODEL, plain: bool = False,
+               wrap: bool = False, **overrides):
     """The MOFO pretrain step of model `name` (ViT-B by default) on CUDA at
     batch B; `overrides` go to create_model (the checks cut the depth).
     With `plain` the step's attention runs the plain versions on the card
-    (plain_attention). Returns (model, state, step_fn, generator, batch)."""
+    (plain_attention); with `wrap` the step trains the model through
+    parallel.ddp.wrap_model (a process group must be up). Returns (model,
+    state, step_fn, generator, batch)."""
     cfg = PretrainConfig(model=name, batch_size=B, masking=MaskingConfig(
         mask_type="tube_bb"), motion_loss_weight=True)
     model = create_model(name, dtype=torch.bfloat16, seed=1, **overrides)
@@ -151,7 +175,8 @@ def build_step(B: int, name: str = MODEL, plain: bool = False, **overrides):
                                 lr_schedule=lr, betas=(0.9, 0.95),
                                 weight_decay=0.05)
     state = TrainState.create(model, tx)
-    step = make_pretrain_step(model, tx, cfg, lr)
+    step = make_pretrain_step(ddp.wrap_model(model) if wrap else model, tx,
+                              cfg, lr)
     if plain:
         step = _through_plain(step)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -307,6 +332,132 @@ def build_finetune_step(B: int, plain: bool = False, depth: int = 12,
     make_batch = synthetic_clips_u8 if augment else synthetic_finetune_batch
     batch = make_batch(B, gen, "cuda", cfg.nb_classes)
     return model, state, step, gen, batch, cfg
+
+
+def rank_batch(batch: dict, rank: int, world: int, k: int = 1) -> dict:
+    """Rank `rank`'s local rows of a global batch G' of `world` ranks whose
+    local batches split into k microbatches (parallel.ddp.global_rows)."""
+    n = next(iter(batch.values())).shape[0] // world
+    rows = torch.from_numpy(ddp.global_rows(rank, world, n, k))
+    return {name: v.index_select(0, rows.to(v.device))
+            for name, v in batch.items()}
+
+
+def global_batch(parts: list, k: int = 1) -> dict:
+    """G' from the ranks' local batches, in rank order: its microbatch i is
+    the ranks' microbatches i side by side (the inverse of rank_batch)."""
+    m = next(iter(parts[0].values())).shape[0] // k
+    return {name: torch.cat([p[name][i * m:(i + 1) * m]
+                             for i in range(k) for p in parts])
+            for name in parts[0]}
+
+
+def _timed(dev):
+    """A clock that waits for the device first (CUDA)."""
+    def now():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.perf_counter()
+    return now
+
+
+def _final(model) -> dict:
+    return {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+
+
+def pretrain_steps(model, cfg: PretrainConfig, batch: dict, steps: int, *,
+                   wrap: bool = False, masks=None,
+                   augment: bool = False) -> dict:
+    """`steps` pretrain steps of `model` (through parallel.ddp.wrap_model
+    with `wrap`) on `batch`, AdamW at STEPS_LR, loss weight 0.5;
+    step s draws from a generator on the model's device seeded s. `masks[s]` replaces
+    step s's mask draw; with `augment` the batch holds uint8 clips that
+    pretrain_augment crops inside the step. Returns the losses, gradient
+    norms, host times (ms) of each step and the final parameters (f32, on
+    the CPU)."""
+    dev = device_of(model)
+    lrs = np.full(steps, STEPS_LR, np.float32)
+    named = dict(model.named_parameters())
+    tx = optim.create_optimizer(named, lr_schedule=lrs, betas=(0.9, 0.95),
+                                weight_decay=0.05)
+    state = TrainState.create(model, tx)
+
+    def augment_fn(generator, b):
+        clips, boxes = A.pretrain_augment(generator, b["clip"],
+                                          out_size=cfg.input_size,
+                                          boxes=b["boxes"])
+        return {"clip": clips, "boxes": boxes}
+
+    step = make_pretrain_step(ddp.wrap_model(model) if wrap else model, tx,
+                              cfg, lrs, device=dev,
+                              augment_fn=augment_fn if augment else None)
+    gen, now = torch.Generator(device=dev), _timed(dev)
+    out = {"loss": [], "grad_norm": [], "ms": []}
+    for s in range(steps):
+        gen.manual_seed(s)
+        t0 = now()
+        state, m = step(state, batch, gen, 0.5,
+                        mask=None if masks is None else masks[s])
+        out["ms"].append((now() - t0) * 1e3)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    out["params"] = _final(model)
+    return out
+
+
+def finetune_steps(model, cfg: FinetuneConfig, batch: dict, steps: int, *,
+                   wrap: bool = False, augment: bool = False,
+                   eval_batch: dict = None) -> dict:
+    """`steps` finetune steps of `model` (a BB-focused one when cfg.model
+    is; through parallel.ddp.wrap_model with `wrap`) on `batch`, AdamW at
+    STEPS_LR with cfg's layer decay; step s draws from a generator
+    seeded s and mixup from cfg.seed and the step. With `augment`
+    the batch holds uint8 clips that the finetune CLI's train augmentation
+    takes inside the step. Then, given `eval_batch` (normalized clips,
+    boxes, labels, `valid` and the views' video_idx, chunk_nb, split_nb),
+    one eval call (the ranks' sums with `wrap`) and the multi-view merge of
+    its valid rows across the processes. Returns the losses, gradient
+    norms, host times (ms), the final parameters (f32, on the CPU) and the
+    eval's metrics, logits and Acc@1 / Acc@5."""
+    dev = device_of(model)
+    bb = "BB_focused" in cfg.model
+    lrs = np.full(steps, STEPS_LR, np.float32)
+    oc = cfg.optimizer
+    named = dict(model.named_parameters())
+    tx = optim.create_optimizer(named, lr_schedule=lrs, betas=oc.opt_betas,
+                                weight_decay=oc.weight_decay, eps=oc.opt_eps,
+                                layer_decay=oc.layer_decay)
+    state = TrainState.create(model, tx)
+    net = ddp.wrap_model(model) if wrap else model
+    step = make_finetune_step(
+        net, tx, cfg, lrs, bb_focused=bb, device=dev,
+        augment_fn=make_train_augment(cfg, flip=True) if augment else None)
+    gen, now = torch.Generator(device=dev), _timed(dev)
+    out = {"loss": [], "grad_norm": [], "ms": []}
+    for s in range(steps):
+        gen.manual_seed(s)
+        t0 = now()
+        state, m = step(state, batch, gen)
+        out["ms"].append((now() - t0) * 1e3)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+    out["params"] = _final(model)
+    if eval_batch is not None:
+        ev = make_eval_step(net, cfg, bb_focused=bb, device=dev)(
+            {n: eval_batch[n] for n in ("clip", "boxes", "label", "valid")
+             if n in eval_batch})
+        out["eval"] = {n: float(ev[n]) for n in ("loss", "acc1", "acc5",
+                                                  "n_valid")}
+        out["logits"] = ev["logits"].cpu()
+        keep = eval_batch["valid"].cpu().numpy()
+        host = {n: eval_batch[n].cpu().numpy()[keep] for n in (
+            "video_idx", "chunk_nb", "split_nb", "label")}
+        agg = MultiViewAggregator()
+        agg.add(host["video_idx"], host["chunk_nb"], host["split_nb"],
+                out["logits"].numpy()[keep], host["label"])
+        top1, top5, _ = gather_across_processes(agg).finalize()
+        out["multiview"] = {"acc1": top1, "acc5": top5}
+    return out
 
 
 def _parts(out, lse, dqkv) -> dict:

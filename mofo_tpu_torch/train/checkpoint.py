@@ -23,7 +23,11 @@ load_torch_checkpoint + import_torch_pretrain (or import_torch_finetune).
 save_checkpoint's `name` writes a named file instead, e.g. the finetune
 runner's checkpoint-best.pth, which latest_checkpoint skips;
 load_checkpoint restores any such file. load_pretrain_encoder reads the
-pretrain .pth that --finetune names.
+pretrain .pth that --finetune names. With more than one process, rank 0
+writes each file and every rank waits at a barrier after it; every rank
+reads (on auto-resume and --finetune) onto its own device. The model
+saved is the module itself, never its DistributedDataParallel wrapper, so
+the names carry no `module.` prefix.
 """
 
 from __future__ import annotations
@@ -35,6 +39,10 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+
+from mofo_tpu_torch.core import distributed
+from mofo_tpu_torch.core.device import device_of
+from mofo_tpu_torch.parallel import ddp
 
 # flax leaf path (inside blocks_N) -> (torch name, transposed)
 _BLOCK = {
@@ -152,7 +160,8 @@ def finetune_init_from_pretrain(model: torch.nn.Module,
     return sorted(copied)
 
 
-def load_pretrain_encoder(path: str) -> Dict[str, torch.Tensor]:
+def load_pretrain_encoder(path: str, map_location="cpu"
+                          ) -> Dict[str, torch.Tensor]:
     """The state_dict of a pretrain checkpoint (.pth / .pt, the reference's
     layout: "model" holding encoder.* names, as the port's pretrain runner
     writes it) for finetune_init_from_pretrain: the counterpart of
@@ -163,7 +172,7 @@ def load_pretrain_encoder(path: str) -> Dict[str, torch.Tensor]:
             f"{path}: not a .pth file. An orbax checkpoint directory is the "
             "JAX package's format, which the port does not read; pass a "
             "torch checkpoint (the port's pretrain runner writes them)")
-    sd = torch.load(path, map_location="cpu", weights_only=True)
+    sd = torch.load(path, map_location=map_location, weights_only=True)
     for key in ("model", "module"):
         if isinstance(sd.get(key), dict):
             return sd[key]
@@ -176,7 +185,19 @@ def save_checkpoint(output_dir: str, model: torch.nn.Module, state,
     epoch to <output_dir>/checkpoint-<epoch>.pth, or <output_dir>/<name>.pth
     (through a temporary file, so a reader never sees half a file). `state`
     is the TrainState of `model`; `args` an argparse.Namespace of the run or
-    None."""
+    None. A DistributedDataParallel wrapper is saved as its module. With
+    more than one process rank 0 writes and every rank waits for it; all
+    return the path."""
+    model = ddp.unwrap(model)
+    path = os.path.join(output_dir, f"{name or f'checkpoint-{epoch}'}.pth")
+    if distributed.is_main_process():
+        _write(path, model, state, epoch, args)
+    distributed.barrier()
+    return path
+
+
+def _write(path: str, model: torch.nn.Module, state, epoch: int,
+           args) -> None:
     opt = state.opt_state
     names = list(state.params)
     cpu = lambda t: t.detach().cpu()  # noqa: E731
@@ -201,19 +222,19 @@ def save_checkpoint(output_dir: str, model: torch.nn.Module, state,
                              "good_steps": state.loss_scale.good_steps}
     if args is not None:
         payload["args"] = dict(vars(args))
-    os.makedirs(output_dir, exist_ok=True)
-    path = os.path.join(output_dir, f"{name or f'checkpoint-{epoch}'}.pth")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
     os.replace(tmp, path)
-    return path
 
 
 def load_checkpoint(path: str, model: torch.nn.Module, state) -> int:
     """Restores a save_checkpoint file into `model` and its TrainState in
-    place (parameters, AdamW moments and count, step, EMA). Returns the
-    checkpoint's epoch. Raises when the parameter names differ."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    place (parameters, AdamW moments and count, step, EMA), read onto the
+    model's device. Returns the checkpoint's epoch. Raises when the
+    parameter names differ."""
+    ckpt = torch.load(path, map_location=device_of(model) or "cpu",
+                      weights_only=True)
     opt = ckpt["optimizer"]
     names = opt["param_groups"][0]["param_names"]
     if names != list(state.params):

@@ -15,10 +15,21 @@ an np.random.Generator seeded from (cfg.seed, the step), so a resumed run
 draws what an uninterrupted one draws; dropout is not ported (every recipe
 runs it at rate 0). adahessian (second_order) is not ported yet and raises
 NotImplementedError (ROADMAP Queue 1, item 17).
+
+A model wrapped by parallel.ddp.wrap_model trains data-parallel, as in
+train/pretrain_step.py: the augmentation, mixup and drop path draw the
+global batch's draws and mixup's partner rows come from rank W-1-r
+(ops/mixup.py); the criterion is a mean over equal local batches, so DDP's
+mean over the ranks is the global one; the loss metric is the ranks' mean.
+The fp16 skip reads the gradient norm of the reduced gradients, so every
+rank skips together. The eval step of a wrapped model sums loss * w, hit1
+* w, hit5 * w and the valid count over the ranks before it divides
+(mofo_tpu/train/finetune_step.py:224-238 averages over the global batch).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -27,6 +38,7 @@ import torch
 from mofo_tpu_torch.core.config import FinetuneConfig
 from mofo_tpu_torch.core.device import DeviceLike, device_of, resolve_device
 from mofo_tpu_torch.ops.mixup import Mixup, MixupParams
+from mofo_tpu_torch.parallel import ddp
 from mofo_tpu_torch.train import losses
 from mofo_tpu_torch.train.optim import global_norm
 from mofo_tpu_torch.train.train_state import TrainState, ema_update
@@ -83,7 +95,9 @@ def make_finetune_step(
     update_freq > 1, B splits into that many microbatches. `generator` (on
     the step's device) draws the augmentation, then drop path;
     `mixup_params` replaces the mixup draws, one MixupParams per
-    microbatch (or a single one when update_freq is 1), for tests.
+    microbatch (or a single one when update_freq is 1; at the global count
+    in a data-parallel step), for tests. `model` may be wrapped by
+    parallel.ddp.wrap_model (see above).
 
     With state.loss_scale (fp16) the loss is scaled before the backward
     pass and the gradients unscaled in f32; when the gradient norm is not
@@ -102,6 +116,7 @@ def make_finetune_step(
     mixup_active = mixup_fn.enabled
     criterion = build_criterion(cfg, mixup_active)
     k = cfg.update_freq
+    rank, world = ddp.data_parallel(model) or (0, 1)
 
     def step_fn(state: TrainState, batch: Batch,
                 generator: Optional[torch.Generator],
@@ -109,7 +124,8 @@ def make_finetune_step(
                                     None] = None):
         model.train()
         if augment_fn is not None:
-            batch = augment_fn(generator, batch)
+            with ddp.global_draws(rank, world, k):
+                batch = augment_fn(generator, batch)
         B = batch["clip"].shape[0]
         if B % k:
             raise ValueError(f"batch {B} does not split into {k} micro")
@@ -124,17 +140,22 @@ def make_finetune_step(
         for i in range(k):
             micro = {n: v[i * mb:(i + 1) * mb] for n, v in batch.items()}
             clip, target = micro["clip"], micro["label"]
-            if mixup_active:
-                clip, target = mixup_fn(
-                    clip, target, rng,
-                    None if mixup_params is None else mixup_params[i])
-            if bb_focused:
-                logits = model(clip, micro["boxes"], generator)
-            else:
-                logits = model(clip, generator)
-            loss = criterion(logits, target)
-            (loss * scale).backward()
+            sync = world == 1 or i == k - 1
+            with ddp.global_draws(rank, world), \
+                    (contextlib.nullcontext() if sync else model.no_sync()):
+                if mixup_active:
+                    clip, target = mixup_fn(
+                        clip, target, rng,
+                        None if mixup_params is None else mixup_params[i])
+                if bb_focused:
+                    logits = model(clip, micro["boxes"], generator)
+                else:
+                    logits = model(clip, generator)
+                loss = criterion(logits, target)
+                (loss * scale).backward()
             loss_sum = loss_sum + loss.detach()
+        if world > 1:
+            loss_sum = ddp.all_reduce_sum(loss_sum) / world
         grads = {n: p.grad for n, p in state.params.items()}
         if k * scale != 1.0:
             grads = dict(zip(grads, torch._foreach_div(list(grads.values()),
@@ -170,26 +191,33 @@ def make_eval_step(model: torch.nn.Module, cfg: FinetuneConfig,
     """eval_fn(batch) -> {loss, acc1, acc5, n_valid, logits (f32)}
     (validation_one_epoch, engine_for_finetuning.py:172-225). An optional
     batch['valid'] flags the real rows of a padded last batch; the metrics
-    average over those."""
+    average over those. With a model wrapped by parallel.ddp.wrap_model the
+    sums and the count are the ranks' together (every rank must call
+    eval_fn as often); the logits stay the rank's own."""
     del cfg  # the JAX signature; nothing in it changes the eval
     _check_device(model, device)
+    world = (ddp.data_parallel(model) or (0, 1))[1]
+    net = ddp.unwrap(model)
 
     @torch.no_grad()
     def eval_fn(batch: Batch) -> Dict[str, torch.Tensor]:
-        model.eval()
+        net.eval()
         clip, label = batch["clip"], batch["label"]
-        logits = (model(clip, batch["boxes"]) if bb_focused
-                  else model(clip))
+        logits = net(clip, batch["boxes"]) if bb_focused else net(clip)
         valid = batch.get("valid")
         w = (torch.ones(label.shape[0], device=logits.device)
              if valid is None else valid.float())
-        n = w.sum().clamp(min=1.0)
         nll = losses.cross_entropy_per_sample(logits, label)
         hit1, hit5 = losses.topk_hits(logits, label, topk=(1, 5))
+        sums = torch.stack([(nll * w).sum(), (hit1 * w).sum(),
+                            (hit5 * w).sum(), w.sum()]).float()
+        if world > 1:
+            sums = ddp.all_reduce_sum(sums)
+        n = sums[3].clamp(min=1.0)
         return {
-            "loss": (nll * w).sum() / n,
-            "acc1": (hit1 * w).sum() / n * 100.0,
-            "acc5": (hit5 * w).sum() / n * 100.0,
+            "loss": sums[0] / n,
+            "acc1": sums[1] / n * 100.0,
+            "acc5": sums[2] / n * 100.0,
             "n_valid": n,
             "logits": logits.float(),
         }

@@ -21,6 +21,10 @@ from collections import defaultdict, deque
 from typing import Dict, Iterable, Optional
 
 import numpy as np
+import torch
+
+from mofo_tpu_torch.core import distributed
+from mofo_tpu_torch.parallel import ddp
 
 
 class SmoothedValue:
@@ -125,10 +129,18 @@ class MetricLogger:
                    f"({elapsed / max(i, 1):.4f} s / it)")
 
     def epoch_stats(self, sync: bool = False) -> Dict[str, float]:
-        """Per-meter global averages. `sync` would reduce the totals across
-        processes first (the reference's synchronize_between_processes); the
-        port runs one process, so there is nothing to reduce."""
-        del sync
+        """Per-meter global averages. With `sync` and more than one process
+        each meter's (total, count) is summed over the processes first (the
+        reference's synchronize_between_processes all-reduce, utils.py:
+        45-56; mofo_tpu/train/metrics.py:138-160); every process must call
+        it with the same meters."""
+        if sync and distributed.process_count() > 1:
+            names = sorted(self.meters)
+            local = torch.tensor([[self.meters[k].total, self.meters[k].count]
+                                  for k in names], dtype=torch.float64)
+            tot = ddp.all_reduce_sum(local).numpy()
+            return {k: float(tot[i, 0] / max(tot[i, 1], 1.0))
+                    for i, k in enumerate(names)}
         return {k: m.global_avg for k, m in self.meters.items()}
 
 

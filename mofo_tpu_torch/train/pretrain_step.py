@@ -7,10 +7,22 @@ the patch embedding and the normalized-pixel targets, the model, the
 gradient accumulation, the gradient norm and the AdamW update. The mask is
 drawn from a torch.Generator on the step's device (the JAX step folds its
 key with the step counter instead).
+
+A model wrapped by parallel.ddp.wrap_model trains data-parallel: every rank
+runs this step on its local batch with the same generator state and
+computes what one process computes on the global batch G' (parallel/ddp.py
+states the contract). The augmentation, the masks and drop path draw the
+global batch's draws (parallel.ddp.global_draws); microbatches 0..k-2
+accumulate without DDP's reduction (no_sync), the last one reduces; the
+motion-weighted loss divides by the global microbatch's weight sum and is
+scaled by W, so that DDP's mean over the ranks gives mofo_tpu's global
+ratio (mofo_tpu/ops/patchify.py:287-288); the loss metric is the mean over
+the ranks. The gradient norm, the update and EMA then match on every rank.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -19,6 +31,7 @@ import torch
 from mofo_tpu_torch.core.config import PretrainConfig
 from mofo_tpu_torch.core.device import DeviceLike, device_of, resolve_device
 from mofo_tpu_torch.ops import masking, patchify
+from mofo_tpu_torch.parallel import ddp
 from mofo_tpu_torch.train.optim import global_norm
 from mofo_tpu_torch.train.train_state import TrainState, ema_update
 
@@ -56,10 +69,13 @@ def generate_mask(batch: Batch, cfg: PretrainConfig,
 def loss_for_batch(model: torch.nn.Module, batch: Batch,
                    mask: torch.Tensor, cfg: PretrainConfig,
                    loss_weight,
-                   generator: Optional[torch.Generator] = None
-                   ) -> torch.Tensor:
+                   generator: Optional[torch.Generator] = None,
+                   world: int = 1) -> torch.Tensor:
     """The reconstruction loss of one (micro)batch under a given mask;
-    `generator` also draws the model's drop-path masks."""
+    `generator` also draws the model's drop-path masks. With world > 1 (a
+    data-parallel step) the motion-weighted loss takes the weight sum over
+    the ranks and is scaled by the world size, so that the ranks' mean is
+    the global batch's loss."""
     vis_idx, masked_idx = masking.mask_to_indices(mask, cfg.num_masked)
     bf16 = cfg.dtype == "bfloat16"
     clip = batch["clip"]
@@ -84,7 +100,11 @@ def loss_for_batch(model: torch.nn.Module, batch: Batch,
         ).to(torch.float32)
         weights = 1.0 + loss_weight * in_masked
     pred = model(tokens_pix, vis_idx, masked_idx, generator)
-    return patchify.masked_mse_loss(pred, targets, weights=weights)
+    if weights is None or world == 1:
+        return patchify.masked_mse_loss(pred, targets, weights=weights)
+    total = ddp.all_reduce_sum(weights.sum(dtype=torch.float32))
+    return world * patchify.masked_mse_loss(pred, targets, weights=weights,
+                                            weight_sum=total)
 
 
 def make_pretrain_step(
@@ -108,7 +128,9 @@ def make_pretrain_step(
     update_freq > 1, B must divide into that many microbatches.
     `generator` (on the step's device) draws the augmentation, then the
     masks (and drop path, which pretraining runs at rate 0);
-    `mask` (B, N) bool replaces the draw, for tests. loss_weight is the
+    `mask` (B, N) bool replaces the draw, for tests (in a data-parallel
+    step the rank's rows of G''s masks). `model` may be wrapped by
+    parallel.ddp.wrap_model (see above). loss_weight is the
     MOFO in-box weight (0.0 if unused). Metrics: loss, grad_norm and, with
     a schedule, lr — tensors left on the device.
     """
@@ -119,13 +141,15 @@ def make_pretrain_step(
     ):
         raise ValueError(f"the model is on {mdev}, the step on {dev}")
     k = cfg.update_freq
+    rank, world = ddp.data_parallel(model) or (0, 1)
 
     def step_fn(state: TrainState, batch: Batch,
                 generator: Optional[torch.Generator], loss_weight,
                 mask: Optional[torch.Tensor] = None):
         model.train()
         if augment_fn is not None:
-            batch = augment_fn(generator, batch)
+            with ddp.global_draws(rank, world, k):
+                batch = augment_fn(generator, batch)
         B = batch["clip"].shape[0]
         if B % k:
             raise ValueError(f"batch {B} does not split into {k} micro")
@@ -135,12 +159,17 @@ def make_pretrain_step(
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(k):
             micro = {n: v[i * mb:(i + 1) * mb] for n, v in batch.items()}
-            m = (generate_mask(micro, cfg, generator) if mask is None
-                 else mask[i * mb:(i + 1) * mb])
-            loss = loss_for_batch(model, micro, m, cfg, loss_weight,
-                                  generator)
-            loss.backward()
+            sync = world == 1 or i == k - 1
+            with ddp.global_draws(rank, world), \
+                    (contextlib.nullcontext() if sync else model.no_sync()):
+                m = (generate_mask(micro, cfg, generator) if mask is None
+                     else mask[i * mb:(i + 1) * mb])
+                loss = loss_for_batch(model, micro, m, cfg, loss_weight,
+                                      generator, world)
+                loss.backward()
             loss_sum = loss_sum + loss.detach()
+        if world > 1:
+            loss_sum = ddp.all_reduce_sum(loss_sum) / world
         grads = {n: p.grad for n, p in state.params.items()}
         if k > 1:
             grads = dict(zip(grads, torch._foreach_div(list(grads.values()),

@@ -385,9 +385,9 @@ def test_synthetic_final_test_scores_one_view_per_clip_as_mofo_tpu(
 
 @pytest.mark.parametrize("batch_size", [2, 3])
 def test_feature_extract_equals_mofo_tpu(data, tmp_path, batch_size):
-    """The same .pth (a port classifier checkpoint) through both: features
-    within 1e-5. mofo_tpu keeps the rows that pad the last batch; the port
-    writes one row per video, mofo_tpu's first rows."""
+    """The same .pth (a port classifier checkpoint) through both: the
+    whole arrays within 1e-5, the rows that pad the last batch included
+    (ceil(N / B) * B rows for N videos, as mofo_tpu writes them)."""
     model = create_model("vit_tiny_debug", device="cpu", img_size=32,
                          all_frames=4, num_classes=3, seed=5)
     pth = tmp_path / "ft.pth"
@@ -399,9 +399,8 @@ def test_feature_extract_equals_mofo_tpu(data, tmp_path, batch_size):
         argv + ["--output", str(tmp_path / "a.npy"), "--device", "cpu"]))
     ref = jax_feature_extract.main(jax_feature_extract.get_args(
         argv + ["--output", str(tmp_path / "b.npy")]))
-    assert ours.shape == (4, 64)
-    assert ref.shape[0] == -(-4 // batch_size) * batch_size
-    np.testing.assert_allclose(ours, ref[:4], atol=1e-5, rtol=0)
+    assert ours.shape == ref.shape == (-(-4 // batch_size) * batch_size, 64)
+    np.testing.assert_allclose(ours, ref, atol=1e-5, rtol=0)
     np.testing.assert_array_equal(np.load(tmp_path / "a.npy"), ours)
     # one video file in place of a list
     one = feature_extract.main(feature_extract.get_args(
