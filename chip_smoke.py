@@ -178,6 +178,32 @@ Phases, each printing one JSON line:
                checkpoints (no `module.` names), the resume, the Final
                test line and every kernel's launches are checked (K4 in
                the ViT-S decoder).
+ 22. factory - the offline motion-box factory (mofo_tpu_torch.cli.
+               motion_factory's main, in this process, its defaults: TV-L1
+               with 4 scales, 8 warps and 100 iterations on the card, window
+               8, --max_frames 64) on 8 of write_real_data's SSV2-style mp4
+               files (256 x 320, 40-60 frames, cv2 writes them here): every
+               video in the JSON with a box per frame, no SKIP line; two
+               frame pairs of the shortest video through tvl1_flow on the
+               card against the CPU (FLOW_CPU_MAX, FLOW_CPU_P99; with the
+               count of results of each elementwise op that round
+               differently on the two devices, op_roundings); four pairs
+               batched against one call a pair on the card (BATCHED_ATOL),
+               both timed; that video's JSON from --device cpu against the
+               card's (at most FACTORY_BOX_PX per coordinate). Printed, not
+               gated: seconds per video by stage (decode, flow, maps, boxes,
+               write), flow ms per pair and per video, peak memory, and the
+               mean IoU of the per-frame boxes (--no_clip_union) against
+               MemoryReader's square. Then the loop closed: the ViT-S MOFO
+               pretrain runner, one epoch on the 8 videos at B=4 (decoded by
+               VideoReader) with the factory's JSON as --bb_json, its K1/K2
+               and K4 launches checked.
+ 23. vis     - mofo_tpu_torch.cli.vis (pretrain_videomae_base_patch16_224,
+               16 frames at 224, mask 0.9, f32, weights from seed 0) on one
+               such video: 48 frames written, 16 launches of qkv_attn_fwd
+               (its 12 encoder and 4 decoder Blocks on K1's f32 route), the
+               reconstruction within VIS_ATOL of the same call on the CPU
+               (the plain versions, the same mask).
 Then the card's nvidia-smi line, the kernels line and, last, the ok line.
 Any failed check raises, and the script exits non-zero without the ok line.
 """
@@ -202,7 +228,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from mofo_tpu_torch.cli import feature_extract, finetune_mofo
-from mofo_tpu_torch.cli import pretrain_mofo
+from mofo_tpu_torch.cli import motion_factory, pretrain_mofo, vis
 from mofo_tpu_torch.core.config import (
     FinetuneConfig,
     MaskingConfig,
@@ -217,6 +243,7 @@ from mofo_tpu_torch.data.filelist import (
     read_setting_file,
 )
 from mofo_tpu_torch.data.video_reader import VideoReader, native_available
+from mofo_tpu_torch.factory import flow
 from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.ops import _build
 from mofo_tpu_torch.ops import augment as A
@@ -370,6 +397,20 @@ DDP_RUNNER_ARGS = ["--model", VITS_MODEL, "--synthetic", "64",
 DDP_FT_CLIPS = 20
 DDP_FT_ARGS = ["--synthetic", str(DDP_FT_CLIPS), "--batch_size",
                str(FT_BATCH), "--epochs", "1", "--warmup_epochs", "0"]
+# the factory: 8 videos, TV-L1 on the card against the CPU on two pairs (the
+# same elementwise ops in the same order on both devices, each rounding
+# alike, op_roundings shows it: bits are expected, the bounds are the ones
+# the slice was specified with), batched against one call a pair (the same
+# ops on the same values), the boxes of --device cuda against --device cpu
+# (a uint8 map level may flip)
+FACTORY_VIDEOS = 8
+FACTORY_BATCH = 4
+FLOW_CPU_MAX = 1e-3
+FLOW_CPU_P99 = 1e-4
+BATCHED_ATOL = 1e-5
+FACTORY_BOX_PX = 2
+# vis in f32: the card's reconstruction against the CPU's, pixels in [0, 1]
+VIS_ATOL = 1e-4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1946,6 +1987,232 @@ def phase_ddp_runner(smi: str) -> dict:
     return total
 
 
+def _json_boxes(path: str) -> dict:
+    with open(path) as f:
+        return {k: np.array([[lab["labels"][0]["box2d"][c] for c in (
+            "x1", "y1", "x2", "y2")] for lab in v], np.float64)
+            for k, v in json.load(f).items()}
+
+
+def _iou(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Row-wise IoU of (n, 4) x1, y1, x2, y2 boxes."""
+    w = np.clip(np.minimum(a[:, 2], b[:, 2]) - np.maximum(a[:, 0], b[:, 0]),
+                0, None)
+    h = np.clip(np.minimum(a[:, 3], b[:, 3]) - np.maximum(a[:, 1], b[:, 1]),
+                0, None)
+    area = (a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1]) + \
+        (b[:, 2] - b[:, 0]) * (b[:, 3] - b[:, 1])
+    return w * h / np.maximum(area - w * h, 1e-9)
+
+
+def op_roundings(n: int = 1 << 20) -> dict:
+    """For each elementwise op that TV-L1 runs, how many of n f32 results
+    differ in any bit between the card and the CPU (same inputs); for the
+    f32 square root also how many on each device differ from the correctly
+    rounded root (an f64 root rounded to f32)."""
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn(n, generator=g)
+    b = torch.rand(n, generator=g) + 0.5
+    ops = {"mul": lambda x, y: x * y, "add": lambda x, y: x + y,
+           "sub": lambda x, y: x - y, "div": lambda x, y: x / y,
+           "sqrt": lambda x, y: torch.sqrt(y), "pow2": lambda x, y: x ** 2,
+           "flow_sqrt": lambda x, y: flow._sqrt(y),
+           "scalar_mul": lambda x, y: 0.045 * x,
+           "scalar_add": lambda x, y: 1.0 + 0.8333333 * y,
+           "rsub": lambda x, y: 1 - y}
+    res = {name: int((f(a, b) != f(a.cuda(), b.cuda()).cpu()).sum())
+           for name, f in ops.items()}
+    root = torch.sqrt(b.double()).float()
+    res["sqrt_cpu_vs_f64"] = int((torch.sqrt(b) != root).sum())
+    res["sqrt_card_vs_f64"] = int((torch.sqrt(b.cuda()).cpu() != root).sum())
+    return res
+
+
+def _factory(args: list, reader=VideoReader) -> tuple:
+    """cli.motion_factory's main on `args`; (its result, its stdout,
+    seconds), the stdout printed and AssertionError raised on a SKIP."""
+    result, text, seconds = _quiet_main(
+        motion_factory.main, motion_factory.get_args(args), reader)
+    if result["skipped"] or "SKIP" in text:
+        print(text[-4000:], flush=True)
+        raise AssertionError(f"the factory skipped {result['skipped']}")
+    return result, text, seconds
+
+
+def phase_factory(smi: str) -> dict:
+    """The motion-box factory on 8 SSV2-style videos on the card, held
+    against the CPU, then the ViT-S MOFO pretrain runner on its JSON.
+    Returns the runner's launches."""
+    problems = []
+    with tempfile.TemporaryDirectory() as tmp:
+        videos = [os.path.join(tmp, f"v{i}.mp4")
+                  for i in range(FACTORY_VIDEOS)]
+        for path in videos:
+            write_memory_video(path)
+        lengths = {MotionBoxIndex.video_key(p): len(MemoryReader(p))
+                   for p in videos}
+        listing = os.path.join(tmp, "train.csv")
+        with open(listing, "w") as f:
+            f.writelines(f"{p} {i}\n" for i, p in enumerate(videos))
+        bb_json = os.path.join(tmp, "Unsupervised_BB_SSV2_train.json")
+
+        # 1. the factory on the card, its defaults
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        card, _, card_s = _factory(["--data_path", listing, "--output",
+                                    bb_json])
+        peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+        boxes = _json_boxes(bb_json)
+        counts = {k: len(v) for k, v in boxes.items()}
+        if counts != lengths:
+            problems.append(f"boxes per video {counts} != frames {lengths}")
+        stages = {k: card["seconds"][k] for k in lengths}
+        flow_ms_per_pair = {k: 1e3 * stages[k]["flow"] / (lengths[k] - 1)
+                            for k in lengths}
+
+        # 2. two pairs of the shortest video: card against CPU
+        short = min(lengths, key=lengths.get)
+        path = videos[list(lengths).index(short)]
+        with VideoReader(path) as vr:
+            frames = vr.get_batch(np.arange(len(vr)))
+        mid = len(frames) // 2
+        prev, nxt = frames[[0, mid]], frames[[1, mid + 1]]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        on_card = flow.tvl1_flow(prev, nxt).cpu().numpy()
+        two_pairs_card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        on_cpu = flow.tvl1_flow(prev, nxt, device="cpu").numpy()
+        two_pairs_cpu_s = time.perf_counter() - t0
+        d = np.abs(on_card - on_cpu)
+        card_vs_cpu = {"pairs": [[0, 1], [mid, mid + 1]],
+                       "op_roundings": op_roundings(),
+                       "max_abs_px": float(d.max()),
+                       "p99_abs_px": float(np.percentile(d, 99)),
+                       "bounds": [FLOW_CPU_MAX, FLOW_CPU_P99],
+                       "card_s": two_pairs_card_s,
+                       "cpu_s": two_pairs_cpu_s,
+                       "median_flow_px": np.median(on_card, axis=(1, 2)
+                                                   ).tolist()}
+        if not (d.max() <= FLOW_CPU_MAX and np.percentile(d, 99)
+                <= FLOW_CPU_P99):
+            problems.append(f"TV-L1 card vs CPU {card_vs_cpu}")
+
+        # 3. four pairs batched against one call a pair, on the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batched = flow.tvl1_flow_batch(frames[:5])
+        torch.cuda.synchronize()
+        batched_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        singles = torch.stack([flow.tvl1_flow(frames[i], frames[i + 1])
+                               for i in range(4)])
+        torch.cuda.synchronize()
+        singles_s = time.perf_counter() - t0
+        gap = float((batched - singles).abs().max())
+        batched_vs_pairs = {"pairs": 4, "max_abs_px": gap,
+                            "bound": BATCHED_ATOL, "batched_s": batched_s,
+                            "one_call_a_pair_s": singles_s}
+        if not gap <= BATCHED_ATOL:
+            problems.append(f"batched vs per pair {batched_vs_pairs}")
+
+        # 4. that video's JSON from --device cpu
+        cpu_json = os.path.join(tmp, "cpu.json")
+        cpu, _, cpu_s = _factory(["--data_path", path, "--output", cpu_json,
+                                  "--device", "cpu"])
+        box_gap = np.abs(_json_boxes(cpu_json)[short] - boxes[short])
+        boxes_card_vs_cpu = {
+            "video": short, "frames": lengths[short],
+            "max_abs_px": float(box_gap.max()),
+            "frames_differing": int((box_gap.max(axis=1) > 0).sum()),
+            "bound": FACTORY_BOX_PX, "cpu_seconds": cpu["seconds"][short],
+            "card_seconds": stages[short]}
+        if not box_gap.max() <= FACTORY_BOX_PX:
+            problems.append(f"boxes card vs CPU {boxes_card_vs_cpu}")
+
+        # 5. per-frame boxes against the moving square (information)
+        frame_json = os.path.join(tmp, "per_frame.json")
+        _, _, per_frame_s = _factory(["--data_path", listing, "--output",
+                                      frame_json, "--no_clip_union"])
+        ious = {}
+        for key, got in _json_boxes(frame_json).items():
+            square = MemoryReader(videos[list(lengths).index(key)])
+            ious[key] = float(_iou(got, np.array(
+                [square.box(i) for i in range(len(got))], np.float64)
+            ).mean())
+
+        # 6. the loop closed: the ViT-S runner on the factory's boxes
+        out = os.path.join(tmp, "pretrain")
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        state, _, runner_s = _quiet_main(
+            pretrain_mofo.main, pretrain_mofo.get_args(
+                ["--model", VITS_MODEL, "--data_path", listing, "--bb_json",
+                 bb_json, "--batch_size", str(FACTORY_BATCH), "--epochs",
+                 "1", "--warmup_epochs", "0", "--output_dir", out],
+                mofo_defaults=True), VideoReader)
+        launches = dict(fa.launch_counts)
+        log = _runner_log(out)
+    steps = FACTORY_VIDEOS // FACTORY_BATCH
+    want = {k: steps * v for k, v in STEP_LAUNCHES[VITS_MODEL].items()}
+    if state.step != steps or [x["epoch"] for x in log] != [0] or \
+            not np.isfinite(log[0]["train_loss"]) or launches != want:
+        problems.append(f"runner on the factory's boxes: step {state.step}, "
+                        f"log {log}, launches {launches} != {want}")
+    per_video = {k: sum(v.values()) for k, v in stages.items()}
+    emit("factory", videos=lengths, flow="tvl1 4 scales x 8 warps x 100 "
+         "iterations, window 8, max_frames 64", seconds=card_s,
+         seconds_per_video=per_video, stages_per_video=stages,
+         stage_means={s: statistics.mean(v[s] for v in stages.values())
+                      for s in ("decode", "flow", "maps", "boxes", "write")},
+         flow_ms_per_pair=flow_ms_per_pair,
+         flow_ms_per_video={k: 1e3 * v["flow"] for k, v in stages.items()},
+         peak_memory_mb=peak_mb, flow_card_vs_cpu=card_vs_cpu,
+         batched_vs_pairs=batched_vs_pairs,
+         boxes_card_vs_cpu=boxes_card_vs_cpu, cpu_call_s=cpu_s,
+         per_frame_iou=ious, mean_iou=statistics.mean(ious.values()),
+         per_frame_call_s=per_frame_s,
+         runner={"model": VITS_MODEL, "batch": FACTORY_BATCH,
+                 "steps": state.step, "seconds": runner_s,
+                 "train_loss": log[0]["train_loss"],
+                 "step_s": log[0]["step_s"],
+                 "data_wait_s": log[0]["data_wait_s"]},
+         launches=launches, device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi)
+    if problems:
+        raise AssertionError(f"factory: {problems}")
+    return launches
+
+
+def phase_vis(smi: str) -> dict:
+    """cli.vis on ViT-B at 224 on the card and on the CPU, the same mask.
+    Returns the card call's launches."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "v0.mp4")
+        write_memory_video(path)
+        common = ["--img_path", path, "--model", MODEL]
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        card, _, card_s = _quiet_main(vis.main, vis.get_args(
+            common + ["--save_path", os.path.join(tmp, "card")]), VideoReader)
+        launches = dict(fa.launch_counts)
+        files = sorted(os.listdir(os.path.join(tmp, "card")))
+        cpu, _, cpu_s = _quiet_main(vis.main, vis.get_args(
+            common + ["--save_path", os.path.join(tmp, "cpu"), "--device",
+                      "cpu"]), VideoReader)
+    gaps = {k: float((card[k] - cpu[k]).abs().max()) for k in card}
+    want = {**dict.fromkeys(fa.KERNELS, 0), "qkv_attn_fwd": 16}
+    emit("vis", model=MODEL, frames=16, input_size=224, mask_ratio=0.9,
+         dtype="float32", files=len(files), card_s=card_s, cpu_s=cpu_s,
+         max_abs_card_vs_cpu=gaps, bound=VIS_ATOL, launches=launches,
+         nvidia_smi=smi)
+    if len(files) != 48 or launches != want or not max(gaps.values()) <= \
+            VIS_ATOL:
+        raise AssertionError(f"vis: {len(files)} files, launches {launches} "
+                             f"!= {want}, card vs CPU {gaps}")
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -1966,9 +2233,11 @@ def main() -> int:
     phase_fp16_finetune_step()
     ft_runner_launches = phase_finetune_runner(smi)
     real_launches = phase_real_data_runner(smi)
-    ddp = {"launches_ddp_step": phase_ddp_step(smi),
-           "launches_ddp_two_ranks": phase_ddp_two_ranks(smi),
-           "launches_ddp_runner": phase_ddp_runner(smi)}
+    later = {"launches_ddp_step": phase_ddp_step(smi),
+             "launches_ddp_two_ranks": phase_ddp_two_ranks(smi),
+             "launches_ddp_runner": phase_ddp_runner(smi),
+             "launches_factory": phase_factory(smi),
+             "launches_vis": phase_vis(smi)}
     kernels = []
     for name in fa.QKV_KERNELS:
         dec = timings["decoder"][name]
@@ -1985,7 +2254,7 @@ def main() -> int:
             "launches_runner": runner_launches[name],
             "launches_finetune_runner": ft_runner_launches[name],
             "launches_real_data": real_launches[name],
-            **{key: counts[name] for key, counts in ddp.items()},
+            **{key: counts[name] for key, counts in later.items()},
             **{geo: {**timings[geo][name],
                      "max_abs_err": errors[geo][name]}
                for geo in ("encoder", "backbone")},
@@ -2002,7 +2271,7 @@ def main() -> int:
                 MH_CHECKS["mca"]),
             "launches_finetune_runner": ft_runner_launches[name],
             "launches_real_data": real_launches[name],
-            **{key: counts[name] for key, counts in ddp.items()},
+            **{key: counts[name] for key, counts in later.items()},
         })
     for name in fa.HM_KERNELS:
         dec = hm_timings[name]
@@ -2016,7 +2285,7 @@ def main() -> int:
                      % (*HM_CHECKS["runner_decoder"], D),
             "launches_vits_step": vits_launches[name],
             "launches_real_data": real_launches[name],
-            **{key: counts[name] for key, counts in ddp.items()},
+            **{key: counts[name] for key, counts in later.items()},
         })
     emit("done", seconds=time.perf_counter() - t0)
     print(smi, flush=True)

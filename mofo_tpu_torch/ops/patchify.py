@@ -1,7 +1,8 @@
 """Flat patch rows and normalized-pixel reconstruction targets.
 
-Counterpart of mofo_tpu/ops/patchify.py (patchify_flat :113-137, the
-masked targets :140-255, the loss :272-288), after the reference target
+Counterpart of mofo_tpu/ops/patchify.py (patchify, unpatchify and
+unnormalize_clip :34-72, patchify_flat :113-137, the masked targets
+:140-255, the loss :272-288), after the reference target
 construction in engine_for_pretraining.py:43-63: un-normalize the clip,
 per-patch per-channel (x - mean) / (sqrt(unbiased var) + 1e-6) with f32
 statistics, channel fastest, masked positions only. Clips are
@@ -20,6 +21,38 @@ from mofo_tpu_torch.core import constants
 def _wide(dtype: torch.dtype) -> torch.dtype:
     """f32 accumulation, except f64 inputs stay f64."""
     return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def patchify(clip: torch.Tensor, patch_size: int = 16,
+             tubelet_size: int = 2) -> torch.Tensor:
+    """(B, T, H, W, C) -> (B, N, P, C), N = t*h*w tokens and P =
+    tubelet*patch*patch pixel positions: the reference rearrange
+    'b c (t p0) (h p1) (w p2) -> b (t h w) (p0 p1 p2) c'."""
+    B, T, H, W, C = clip.shape
+    p0, p = tubelet_size, patch_size
+    t, h, w = T // p0, H // p, W // p
+    x = clip.reshape(B, t, p0, h, p, w, p, C)
+    x = x.permute(0, 1, 3, 5, 2, 4, 6, 7)  # (B, t, h, w, p0, p1, p2, C)
+    return x.reshape(B, t * h * w, p0 * p * p, C)
+
+
+def unpatchify(patches: torch.Tensor, t: int, h: int, w: int,
+               patch_size: int = 16, tubelet_size: int = 2) -> torch.Tensor:
+    """(B, N, P, C) -> (B, T, H, W, C). Inverse of patchify."""
+    B, N, P, C = patches.shape
+    p0, p = tubelet_size, patch_size
+    x = patches.reshape(B, t, h, w, p0, p, p, C)
+    x = x.permute(0, 1, 4, 2, 5, 3, 6, 7)  # (B, t, p0, h, p1, w, p2, C)
+    return x.reshape(B, t * p0, h * p, w * p, C)
+
+
+def unnormalize_clip(clip: torch.Tensor,
+                     mean=constants.IMAGENET_DEFAULT_MEAN,
+                     std=constants.IMAGENET_DEFAULT_STD) -> torch.Tensor:
+    """Inverts ImageNet normalization, x * std + mean, channel-last."""
+    mean_a = torch.tensor(mean, dtype=clip.dtype, device=clip.device)
+    std_a = torch.tensor(std, dtype=clip.dtype, device=clip.device)
+    return clip * std_a + mean_a
 
 
 def patchify_flat(

@@ -28,7 +28,8 @@ from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.ops import augment as A
 from mofo_tpu_torch.ops import flash_attention as fa
 from mofo_tpu_torch.ops import masking
-from mofo_tpu_torch.cli import finetune_mofo, pretrain_mofo
+from mofo_tpu_torch.cli import finetune_mofo, motion_factory, pretrain_mofo
+from mofo_tpu_torch.factory import flow, motion_maps
 from mofo_tpu_torch.tools.main_path import (
     AUG_SHARE,
     VITS_MODEL,
@@ -743,3 +744,73 @@ def test_the_loader_pins_its_host_batches_for_the_card(cuda, tmp_path):
     assert ids.shape == (4, 4) and (ids >= 0).all()
     host = P.PrefetchLoader(ds, 4, device="cpu")._fetch(np.arange(4), None)
     assert not any(v.is_pinned() for v in host.values())
+
+
+def _textured_pair(H, W, shift, seed):
+    g = np.random.RandomState(seed)
+    base = (g.rand(H + 16, W + 16) * 255).astype(np.float32)
+    base = (base + np.roll(base, 1, 0) + np.roll(base, 1, 1)
+            + np.roll(base, 1, (0, 1))) / 4
+    dx, dy = shift
+    return base[8:8 + H, 8:8 + W], base[8 - dy:8 - dy + H, 8 - dx:8 - dx + W]
+
+
+@pytest.mark.parametrize("H,W,P", [(64, 64, 1), (50, 70, 3), (256, 320, 2)])
+def test_tvl1_on_the_card_matches_the_cpu(cuda, H, W, P):
+    """The factory's TV-L1 (tensor ops, no kernel of the port) on the card
+    against the CPU: max 1e-3 px, p99 1e-4 (chip_smoke's bounds); a batch
+    of pairs equals each pair alone on the card."""
+    pairs = [_textured_pair(H, W, (2, 1), seed) for seed in range(P)]
+    prev = np.stack([a for a, _ in pairs])
+    nxt = np.stack([b for _, b in pairs])
+    kw = dict(n_iters=30) if H > 64 else {}
+    card = flow.tvl1_flow(prev, nxt, device=cuda, **kw)
+    assert card.device.type == "cuda" and card.shape == (P, H, W, 2)
+    cpu = flow.tvl1_flow(prev, nxt, device="cpu", **kw)
+    d = (card.cpu() - cpu).abs().numpy()
+    assert d.max() <= 1e-3 and np.percentile(d, 99) <= 1e-4
+    one = flow.tvl1_flow(prev[-1], nxt[-1], device=cuda, **kw)
+    assert torch.equal(one, card[-1])
+
+
+def test_motion_boundary_on_the_card_matches_the_cpu(cuda):
+    x = torch.randn(7, 48, 40, generator=torch.Generator().manual_seed(0))
+    torch.backends.cudnn.allow_tf32 = True  # no convolution library is used
+    try:
+        got = motion_maps.motion_boundary(x.to(cuda)).cpu()
+        sts = motion_maps.motion_sts(x[:, :40].to(cuda), 5, 40).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    np.testing.assert_allclose(got.numpy(),
+                               motion_maps.motion_boundary(x).numpy(),
+                               atol=1e-5, rtol=0)
+    np.testing.assert_allclose(sts.numpy(),
+                               motion_maps.motion_sts(x[:, :40], 5,
+                                                      40).numpy(),
+                               atol=1e-5, rtol=0)
+
+
+def test_motion_factory_on_the_card_matches_the_cpu(cuda, tmp_path):
+    import cv2
+
+    path = tmp_path / "sq.mp4"
+    g = np.random.RandomState(0)
+    bg = g.randint(0, 120, (64, 64, 3)).astype(np.uint8)
+    fg = g.randint(130, 256, (20, 20, 3)).astype(np.uint8)
+    w = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 10,
+                        (64, 64))
+    for i in range(8):
+        frame = bg.copy()
+        frame[12 + 2 * i:32 + 2 * i, 10 + 3 * i:30 + 3 * i] = fg
+        w.write(frame)
+    w.release()
+    got = {}
+    for device in ("cuda", "cpu"):
+        out = str(tmp_path / f"{device}.json")
+        res = motion_factory.main(motion_factory.get_args(
+            ["--data_path", str(path), "--output", out, "--device",
+             device]))
+        assert not res["skipped"]
+        with open(out) as f:
+            got[device] = json.load(f)
+    assert got["cuda"] == got["cpu"] and len(got["cpu"]["sq"]) == 8
