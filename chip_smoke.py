@@ -66,6 +66,11 @@ Phases, each printing one JSON line:
                backward), and (k1_vs_k4) how far
                K1's numerics, which the ViT-S decoder ran before it took
                the head-major route, lie from K4's on the same inputs.
+     hm_head_dims - K4's four entry points at head dims 16 and 32 (the
+               tiny presets'), bf16 and f32, at (B*H, N) = (4, 1568) and
+               the ragged (4, 200), against their plain versions with the
+               same bounds and planted faults; then kernel, plain, library
+               and bound times at (4, 1568) for D = 16, 32 and 64.
  10. bf16_step_vs_plain - the bf16 steps through the kernels against the
                same steps through the plain bf16 versions on the same CUDA
                tensors (main_path's plain=True, a switch of the checks
@@ -204,6 +209,28 @@ Phases, each printing one JSON line:
                (its 12 encoder and 4 decoder Blocks on K1's f32 route), the
                reconstruction within VIS_ATOL of the same call on the CPU
                (the plain versions, the same mask).
+ 24. tiny_debug_step - pretrain_videomae_tiny_debug at 224^2 and 16 frames
+               (every Block on K4: the encoder's 2 x 32 heads on 160
+               visible tokens, the decoder's 2 x 16 on 1568), B=8, two steps
+               in f32 and two in bf16 through the kernels against the same
+               steps through the plain versions on the card (F32_STEP_RTOL,
+               BF16_STEP_RTOL), K4's launches checked exactly.
+ 25. dropout_step - the ViT-B BB-focused MCA finetune step at --drop 0.1:
+               two runs of 2 steps from one seed, bit-equal, each launching
+               K1/K2/K3 as finetune_step does, the loss off the same step
+               without dropout; at --attn_drop_rate 0.1 (B=2) the plain
+               head-major route, no K1/K2/K3 launch, finite losses.
+ 26. attention_vis - mofo_tpu_torch.cli.attention_vis on ViT-B (224^2, 16
+               frames, f32, a seeded .pth) for grad, rollout, gradcam and
+               gradcam++ on the card: 16 files each, the map's max 1, the
+               launches (K1's f32 forward in 12 Blocks and K2 in the Blocks
+               the gradient needs; none for rollout), the seconds; gradcam++
+               and rollout again on the CPU, within VIS_ATOL.
+ 27. factory_chunks - motion_factory.video_flows on a cv2-written 1920 x
+               1080, 16-frame video of a square moving rigidly, under a byte
+               budget of CHUNK_PAIRS pairs (3 calls) and in one call: flows
+               and per-frame boxes equal, each run's peak memory and seconds,
+               the boxes' mean IoU with the square.
 Then the card's nvidia-smi line, the kernels line and, last, the ok line.
 Any failed check raises, and the script exits non-zero without the ok line.
 """
@@ -227,7 +254,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
-from mofo_tpu_torch.cli import feature_extract, finetune_mofo
+from mofo_tpu_torch.cli import attention_vis, feature_extract, finetune_mofo
 from mofo_tpu_torch.cli import motion_factory, pretrain_mofo, vis
 from mofo_tpu_torch.core.config import (
     FinetuneConfig,
@@ -248,7 +275,7 @@ from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.ops import _build
 from mofo_tpu_torch.ops import augment as A
 from mofo_tpu_torch.ops import flash_attention as fa
-from mofo_tpu_torch.ops import masking
+from mofo_tpu_torch.ops import attention, masking
 from mofo_tpu_torch.ops import rand_augment as RA
 from mofo_tpu_torch.tools import ddp_ranks
 from mofo_tpu_torch.tools.main_path import (
@@ -339,6 +366,16 @@ VITS_BATCH = 32  # B*H = 96 in the ViT-S decoder, as ViT-B's at B=16
 HM_CHECKS = {"runner_decoder": (VITS_BATCH, 3, 1568),
              "tpu_gated": (2, 6, 1568), "ragged": (4, 3, 100),
              "frames32": (2, 6, 3136)}
+# K4 at the tiny presets' head dims (32 in the encoders, 16 in the
+# decoder): (B*H, N), a long and a ragged one; times at the first, D = 64
+# beside them
+HM_HEAD_DIMS = (16, 32)
+HM_HEAD_DIM_CHECKS = {"long": (4, 1568), "ragged": (4, 200)}
+# the geometries at which tiny_debug_step runs K4, (B*H, N, D): B = 8 x 2
+# heads, the encoder's 160 visible tokens of 32-dim heads and the decoder's
+# 1568 tokens of 16-dim heads
+HM_TINY_CHECKS = {"tiny_encoder": (16, 160, 32),
+                  "tiny_decoder": (16, 1568, 16)}
 # launches of each kernel per step: ViT-B runs K1/K2 in all 16 Blocks; the
 # ViT-S decoder's 3 x 64 heads (A = 192) take K4 (its prep pass too) in its
 # 4 Blocks
@@ -410,7 +447,32 @@ FLOW_CPU_P99 = 1e-4
 BATCHED_ATOL = 1e-5
 FACTORY_BOX_PX = 2
 # vis in f32: the card's reconstruction against the CPU's, pixels in [0, 1]
+# (attention_vis: its maps, scaled to a max of 1)
 VIS_ATOL = 1e-4
+# the tiny preset at 224^2 and 16 frames: every Block takes K4, the
+# encoder's 2 on 160 visible tokens with 2 x 32 heads, the decoder's 4 on
+# 1568 tokens with 2 x 16 heads
+TINY_MODEL = "pretrain_videomae_tiny_debug"
+TINY_BATCH = 8
+TINY_BLOCKS = 6
+# the f32 steps' bound, card against the plain versions (phase parity's)
+F32_STEP_RTOL = 1e-4
+DROP = 0.1
+# attention dropout takes the plain head-major math, whose f32
+# probabilities (B, 12, 1568, 1568) every Block keeps for its backward
+ATTN_DROP_BATCH = 2
+# how far a dropout run's kept share may lie from 1 - DROP
+KEEP_SHARE_ATOL = 1e-3
+VIS_MODEL = "vit_base_patch16_224"
+VIS_METHODS = ("grad", "rollout", "gradcam", "gradcam++")
+VIS_LAYER = 5  # attention_vis's default Grad-CAM target Block
+# the factory on a 1080p video whose square moves rigidly: 15 pairs, at
+# most CHUNK_PAIRS a call under the forced budget (3 calls)
+CHUNK_HW = (1080, 1920)
+CHUNK_FRAMES = 16
+CHUNK_PAIRS = 5
+SQUARE = 360
+SQUARE_STEP = (6, 4)  # px a frame, (x, y)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -852,7 +914,8 @@ def phase_parity(phase: str = "parity", model_name: str = MODEL,
 
 def phase_finetune_step(smi: str):
     """The full-width ViT-B BB-focused MCA finetune step on the card, then
-    one eval call. Returns the launches and the median step time (ms)."""
+    one eval call. Returns the launches, the median step time (ms) and the
+    first step's loss."""
     B = FT_BATCH
     model, state, step, gen, batch, cfg = build_finetune_step(B)
     named = dict(model.named_parameters())
@@ -910,7 +973,7 @@ def phase_finetune_step(smi: str):
          eval={k: float(ev[k]) for k in ("loss", "acc1", "acc5")},
          peak_mem_gib=peak, device=torch.cuda.get_device_name(0),
          nvidia_smi=smi)
-    return launches, step_ms
+    return launches, step_ms, losses[0]
 
 
 def phase_finetune_parity() -> None:
@@ -1099,7 +1162,7 @@ def k1_vs_k4(B, H, N, dtype) -> dict:
 
 
 def check_hm_kernels(q, k, v, scale: float = SCALE) -> dict:
-    """check_kernels for K4 on (B*H, N, 64) q, k, v: the planted faults are
+    """check_kernels for K4 on (B*H, N, D) q, k, v: the planted faults are
     dQ zeroed and the LSE in log2 units."""
     got, want = hm_attention_against_plain(q, k, v, scale)
     torch.cuda.synchronize()
@@ -1155,6 +1218,47 @@ def phase_hm_kernels():
          **{str(dt).replace("torch.", ""): k1_vs_k4(B, H, N, dt)
             for dt in (torch.bfloat16, torch.float32)})
     return errors, timings
+
+
+def phase_hm_head_dims(smi: str) -> dict:
+    """K4's four entry points at head dims 16 and 32 against their plain
+    versions (check_hm_kernels' bounds and planted faults; the scale
+    D^-0.5, which at 32 is no power of two: dQ's scaled-K copy) at
+    HM_HEAD_DIM_CHECKS and at tiny_debug_step's own HM_TINY_CHECKS, bf16
+    and f32; then kernel, plain, library and
+    bound times at the long geometry in bf16 for D = 16, 32 and 64.
+    Returns {D: (max errors, times)} for D = 16 and 32."""
+    out = {}
+    for hd in HM_HEAD_DIMS:
+        errors = {}
+        for i, (geo, (BH, N)) in enumerate(HM_HEAD_DIM_CHECKS.items()):
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v = hm_inputs(BH, N, dtype, hd + i, "cuda", D=hd)
+                res = check_hm_kernels(q, k, v, hd ** -0.5)
+                emit("hm_head_dims_vs_plain", D=hd, geometry=geo, BH=BH,
+                     N=N, dtype=str(dtype).replace("torch.", ""), **res)
+                if geo == "long" and dtype == torch.bfloat16:
+                    err = res["max_abs_err"]
+                    errors = {"hm_attn_fwd": err["out"],
+                              "hm_attn_bwd_prep": res["prep"]["max_abs_err"],
+                              "hm_attn_bwd_dkv": max(err["dk"], err["dv"]),
+                              "hm_attn_bwd_dq": err["dq"]}
+        out[hd] = errors
+    for i, (geo, (BH, N, hd)) in enumerate(HM_TINY_CHECKS.items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = hm_inputs(BH, N, dtype, 40 + i, "cuda", D=hd)
+            emit("hm_head_dims_vs_plain", D=hd, geometry=geo, BH=BH, N=N,
+                 dtype=str(dtype).replace("torch.", ""),
+                 **check_hm_kernels(q, k, v, hd ** -0.5))
+    BH, N = HM_HEAD_DIM_CHECKS["long"]
+    for hd in HM_HEAD_DIMS + (64,):
+        q, k, v = hm_inputs(BH, N, torch.bfloat16, 5, "cuda", D=hd)
+        times = time_hm_kernels(q, k, v, 1, BH)
+        emit("hm_head_dim_times", D=hd, BH=BH, N=N, dtype="bfloat16",
+             times=times, nvidia_smi=smi)
+        if hd in out:
+            out[hd] = (out[hd], times)
+    return out
 
 
 def _runner_log(out: str) -> list:
@@ -2213,6 +2317,311 @@ def phase_vis(smi: str) -> dict:
     return launches
 
 
+def phase_tiny_debug_step(smi: str) -> dict:
+    """pretrain_videomae_tiny_debug at 224^2 and 16 frames, B=8: two steps
+    in f32 and two in bf16 through K4 (D = 32 and 16) against the same
+    steps through the plain versions on the card, from the same weights,
+    masks and draws; K4's launches checked exactly. Returns the kernel
+    runs' launches, both dtypes together."""
+    n_steps = 2
+    total = dict.fromkeys(fa.KERNELS, 0)
+    for dtype in ("float32", "bfloat16"):
+        runs = {}
+        for route in ("kernels", "plain"):
+            plain = route == "plain"
+            _, state, step, gen, batch = build_step(
+                TINY_BATCH, TINY_MODEL, plain=plain, dtype=dtype)
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            metrics = []
+            for _ in range(n_steps):
+                state, m = step(state, batch, gen, 0.5)
+                metrics.append({k: float(m[k]) for k in ("loss",
+                                                          "grad_norm")})
+            torch.cuda.synchronize()
+            launches = dict(fa.launch_counts)
+            kernels = (fa.HM_KERNELS if dtype == "bfloat16"
+                       else fa.HM_F32_KERNELS)
+            want = {**dict.fromkeys(fa.KERNELS, 0), **({} if plain else
+                    dict.fromkeys(kernels, n_steps * TINY_BLOCKS))}
+            if launches != want:
+                raise AssertionError(f"tiny_debug_step {dtype} through the "
+                                     f"{route}: launches {launches} != "
+                                     f"{want}")
+            if not plain:
+                total = {k: total[k] + launches[k] for k in fa.KERNELS}
+            runs[route] = metrics
+            del state, step, batch
+        rel = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in a}
+               for a, b in zip(runs["kernels"], runs["plain"])]
+        bound = BF16_STEP_RTOL if dtype == "bfloat16" else F32_STEP_RTOL
+        emit("tiny_debug_step", model=TINY_MODEL, dtype=dtype,
+             batch=TINY_BATCH, steps=n_steps, head_dims={"encoder": 32,
+                                                         "decoder": 16},
+             kernels=runs["kernels"], plain=runs["plain"], rel_diff=rel,
+             bound=bound, nvidia_smi=smi)
+        values = [v for m in runs["kernels"] for v in m.values()]
+        if not np.isfinite(values).all() or max(
+                max(r.values()) for r in rel) > bound:
+            raise AssertionError(f"tiny_debug_step {dtype}: {rel} beyond "
+                                 f"{bound} or non-finite {values}")
+    return total
+
+
+@contextlib.contextmanager
+def keep_shares():
+    """Counts, by rate, the entries that ops.attention.keep_mask draws and
+    those it keeps, over the dropout masks (drop path's per-sample masks,
+    one entry a sample, are left out). Yields {rate: [kept, drawn]} as
+    0-dim tensors on the masks' device."""
+    real, counts = attention.keep_mask, {}
+
+    def counted(shape, rate, generator, device):
+        mask = real(shape, rate, generator, device)
+        if mask[0].numel() > 1:
+            c = counts.setdefault(rate, [0, 0])
+            c[0], c[1] = c[0] + mask.sum(), c[1] + mask.numel()
+        return mask
+
+    attention.keep_mask = counted
+    try:
+        yield counts
+    finally:
+        attention.keep_mask = real
+
+
+def _shares(counts: dict) -> dict:
+    """{rate: kept share} of keep_shares' counts."""
+    return {rate: float(kept) / drawn for rate, (kept, drawn)
+            in counts.items()}
+
+
+def phase_dropout_step(smi: str, no_drop_loss: float) -> tuple:
+    """The ViT-B BB-focused MCA finetune step with dropout: at --drop 0.1
+    (attention dropout 0) two runs of 2 steps from the same seeds, each
+    launching K1/K2/K3 as phase finetune_step does, bit-equal to each other
+    (losses, gradient norms, every parameter) and off the same step
+    without dropout (`no_drop_loss`, its first loss); then at
+    --attn_drop_rate 0.1 (B=2) no K1/K2/K3 launch and finite losses.
+    Returns the launches of the first run and of the last."""
+    n_steps = 2
+    runs = []
+    for _ in range(2):
+        model, state, step, gen, batch, _ = build_finetune_step(
+            FT_BATCH, drop=DROP)
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        metrics = []
+        with keep_shares() as counts:
+            for _ in range(n_steps):
+                state, m = step(state, batch, gen)
+                metrics.append({k: float(m[k])
+                                for k in ("loss", "grad_norm")})
+        torch.cuda.synchronize()
+        runs.append({"metrics": metrics, "launches": dict(fa.launch_counts),
+                     "keep_shares": _shares(counts),
+                     "params": [p.detach().clone()
+                                for p in model.parameters()]})
+        del model, state, step, batch
+    want = {k: n_steps * v for k, v in STEP_LAUNCHES[FINETUNE_MODEL].items()}
+    same = runs[0]["metrics"] == runs[1]["metrics"] and all(
+        torch.equal(a, b) for a, b in zip(runs[0]["params"],
+                                          runs[1]["params"]))
+    first = runs[0]
+    del runs
+    torch.cuda.empty_cache()
+
+    _, state, step, gen, batch, _ = build_finetune_step(
+        ATTN_DROP_BATCH, attn_drop_rate=DROP)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    attn_metrics = []
+    with keep_shares() as counts:
+        for _ in range(n_steps):
+            state, m = step(state, batch, gen)
+            attn_metrics.append({k: float(m[k])
+                                 for k in ("loss", "grad_norm")})
+    torch.cuda.synchronize()
+    attn_launches = dict(fa.launch_counts)
+    attn_shares = _shares(counts)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, step, batch
+    emit("dropout_step", model=FINETUNE_MODEL, dtype="bfloat16",
+         drop={"batch": FT_BATCH, "rate": DROP, "metrics": first["metrics"],
+               "launches": first["launches"], "runs_bit_equal": same,
+               "keep_shares": first["keep_shares"],
+               "first_loss_without_dropout": no_drop_loss},
+         attn_drop={"batch": ATTN_DROP_BATCH, "rate": DROP,
+                    "metrics": attn_metrics, "launches": attn_launches,
+                    "keep_shares": attn_shares, "peak_mem_gib": peak},
+         nvidia_smi=smi)
+    problems = []
+    if first["launches"] != want:
+        problems.append(f"--drop launches {first['launches']} != {want}")
+    if not same:
+        problems.append("two runs from one seed differ")
+    if first["metrics"][0]["loss"] == no_drop_loss:
+        problems.append("dropout did not move the loss")
+    # every dropout mask is drawn at the rate asked for: over some 1e8
+    # entries a run, a binomial share's deviation is of order 1e-4
+    for name, shares in (("--drop", first["keep_shares"]),
+                         ("--attn_drop_rate", attn_shares)):
+        if list(shares) != [DROP] or abs(
+                shares[DROP] - (1.0 - DROP)) > KEEP_SHARE_ATOL:
+            problems.append(f"{name} keep shares {shares}, want "
+                            f"{1.0 - DROP} at rate {DROP} only")
+    if any(attn_launches.values()):
+        problems.append(f"--attn_drop_rate launched {attn_launches}")
+    values = [v for m in first["metrics"] + attn_metrics for v in m.values()]
+    if not np.isfinite(values).all():
+        problems.append(f"non-finite {values}")
+    if problems:
+        raise AssertionError(f"dropout_step: {problems}")
+    return first["launches"], attn_launches
+
+
+def phase_attention_vis(smi: str) -> dict:
+    """cli.attention_vis on ViT-B at 224^2 and 16 frames, f32, from a
+    seeded .pth (a head of scale 1, so the class scores have gradients),
+    on the card for each method: 16 files, the map's max 1, the launches
+    (grad: K1's f32 forward and K2 in all 12 Blocks; Grad-CAM(++): K2 only
+    in the Blocks from the target layer on, which autograd needs for the
+    gradient at its norm1; rollout: none, its sowing takes the plain
+    math); gradcam++ and rollout once more with --device cpu, the maps
+    within VIS_ATOL. Returns the launches of the four card calls."""
+    depth = 12
+    zeros = dict.fromkeys(fa.KERNELS, 0)
+    total, res = dict(zeros), {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "v0.mp4")
+        write_memory_video(path)
+        pth = os.path.join(tmp, "ft.pth")
+        torch.save({"model": create_model(
+            VIS_MODEL, device="cpu", seed=1, init_scale=1.0,
+            num_classes=attention_vis.get_args(["--video", "", "--save_path",
+                                                ""]).nb_classes
+        ).state_dict()}, pth)
+        common = ["--video", path, "--model", VIS_MODEL, "--model_path", pth,
+                  "--layer", str(VIS_LAYER)]
+        for method in VIS_METHODS:
+            out = os.path.join(tmp, method)
+            torch.cuda.synchronize()
+            fa.reset_launch_counts()
+            sal, _, card_s = _quiet_main(attention_vis.main,
+                                         attention_vis.get_args(
+                common + ["--method", method, "--save_path", out]),
+                VideoReader)
+            launches = dict(fa.launch_counts)
+            total = {k: total[k] + launches[k] for k in fa.KERNELS}
+            back = depth if method == "grad" else depth - VIS_LAYER
+            want = dict(zeros) if method == "rollout" else {
+                **zeros, "qkv_attn_fwd": depth, "qkv_attn_bwd_dkv": back,
+                "qkv_attn_bwd_dq": back}
+            res[method] = {"card_s": card_s, "launches": launches,
+                           "files": len(os.listdir(out)),
+                           "max": float(sal.max())}
+            if method in ("gradcam++", "rollout"):
+                cpu, _, cpu_s = _quiet_main(attention_vis.main,
+                                            attention_vis.get_args(
+                    common + ["--method", method, "--save_path",
+                              out + "_cpu", "--device", "cpu"]), VideoReader)
+                res[method].update(cpu_s=cpu_s, max_abs_card_vs_cpu=float(
+                    np.abs(sal - cpu).max()))
+            r = res[method]
+            if r["files"] != 16 or launches != want or not \
+                    abs(r["max"] - 1.0) < 1e-3 or \
+                    r.get("max_abs_card_vs_cpu", 0.0) > VIS_ATOL:
+                emit("attention_vis", methods=res)
+                raise AssertionError(f"attention_vis {method}: {r}, "
+                                     f"launches want {want}")
+    emit("attention_vis", model=VIS_MODEL, frames=16, input_size=224,
+         dtype="float32", layer=VIS_LAYER, methods=res, bound=VIS_ATOL,
+         nvidia_smi=smi)
+    return total
+
+
+def write_rigid_video(path: str) -> np.ndarray:
+    """A CHUNK_HW mp4 (cv2, mp4v) of CHUNK_FRAMES frames: a smoothed
+    textured square of SQUARE px moving SQUARE_STEP px a frame over a
+    static smoothed texture. Returns the square's (x1, y1, x2, y2) per
+    frame."""
+    import cv2
+
+    H, W = CHUNK_HW
+    rng = np.random.RandomState(0)
+    bg = cv2.GaussianBlur(rng.randint(0, 256, (H, W, 3)).astype(np.uint8),
+                          (0, 0), 2)
+    fg = cv2.GaussianBlur(rng.randint(0, 256, (SQUARE, SQUARE, 3)).astype(
+        np.uint8), (0, 0), 2)
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 10,
+                             (W, H))
+    boxes = []
+    for i in range(CHUNK_FRAMES):
+        x, y = W // 3 + SQUARE_STEP[0] * i, H // 4 + SQUARE_STEP[1] * i
+        frame = bg.copy()
+        frame[y:y + SQUARE, x:x + SQUARE] = fg
+        writer.write(frame)
+        boxes.append((x, y, x + SQUARE, y + SQUARE))
+    writer.release()
+    return np.array(boxes, np.float64)
+
+
+def phase_factory_chunks(smi: str) -> None:
+    """The factory's TV-L1 under a byte budget (motion_factory.video_flows)
+    on a 1080p video of rigid motion, decoded by VideoReader: once under a
+    budget of CHUNK_PAIRS pairs (3 calls), once in one call; the flows
+    bit-equal and so the per-frame boxes (--no_clip_union), each run's peak
+    memory, seconds and the boxes' mean IoU with the square printed."""
+    H, W = CHUNK_HW
+    pair = motion_factory.PAIR_BYTES_PER_PIXEL * H * W
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rigid.mp4")
+        square = write_rigid_video(path)
+        with VideoReader(path) as vr:
+            frames = vr.get_batch(np.arange(len(vr)))
+    args = motion_factory.get_args(["--data_path", path, "--output",
+                                    "unused", "--no_clip_union"])
+    dev = torch.device("cuda")
+    runs = {}
+    for name, budget in (("chunked", CHUNK_PAIRS * pair),
+                         ("one_call", len(frames) * pair)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        flows = motion_factory.video_flows(frames, args, dev, budget=budget)
+        torch.cuda.synchronize()
+        flow_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        t0 = time.perf_counter()
+        boxes = np.array(motion_factory.frame_boxes(
+            motion_factory.magnitude_maps(flows, args.window), len(frames),
+            clip_union=False), np.float64)
+        runs[name] = {"flows": flows, "boxes": boxes, "calls": -(-(
+            len(frames) - 1) // motion_factory.pairs_per_call(H, W, budget)),
+            "flow_s": flow_s, "peak_mb": peak,
+            "host_s": time.perf_counter() - t0}
+    a, b = runs["chunked"], runs["one_call"]
+    flows_equal = np.array_equal(a["flows"], b["flows"])
+    boxes_equal = np.array_equal(a["boxes"], b["boxes"])
+    iou = _iou(a["boxes"], square)
+    emit("factory_chunks", hw=list(CHUNK_HW), frames=len(frames),
+         pairs=len(frames) - 1, square=SQUARE, step_px=list(SQUARE_STEP),
+         **{n: {k: v for k, v in r.items() if k not in ("flows", "boxes")}
+            for n, r in runs.items()},
+         flows_bit_equal=flows_equal, boxes_equal=boxes_equal,
+         median_flow_px=[float(np.median(b["flows"][..., c][
+             :, square[0, 1].astype(int):square[0, 3].astype(int),
+             square[0, 0].astype(int):square[0, 2].astype(int)]))
+             for c in (0, 1)],
+         mean_iou=float(iou.mean()), nvidia_smi=smi)
+    if a["calls"] < 3 or b["calls"] != 1 or not (flows_equal and boxes_equal):
+        raise AssertionError(f"factory_chunks: {a['calls']} / {b['calls']} "
+                             f"calls, flows equal {flows_equal}, boxes "
+                             f"equal {boxes_equal}")
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -2221,9 +2630,10 @@ def main() -> int:
     mh_errors, mh_timings = phase_mh_kernels()
     launches = phase_step(smi)
     phase_parity()
-    ft_launches, ft_step_ms = phase_finetune_step(smi)
+    ft_launches, ft_step_ms, ft_loss = phase_finetune_step(smi)
     phase_finetune_parity()
     hm_errors, hm_timings = phase_hm_kernels()
+    head_dims = phase_hm_head_dims(smi)
     phase_bf16_steps()
     vits_launches = phase_step(smi, "vits_step", VITS_MODEL, VITS_BATCH)
     phase_parity("vits_parity", VITS_MODEL,
@@ -2238,6 +2648,13 @@ def main() -> int:
              "launches_ddp_runner": phase_ddp_runner(smi),
              "launches_factory": phase_factory(smi),
              "launches_vis": phase_vis(smi)}
+    t_new = time.perf_counter()
+    later["launches_tiny_debug_step"] = phase_tiny_debug_step(smi)
+    (later["launches_dropout_step"],
+     later["launches_attn_dropout_step"]) = phase_dropout_step(smi, ft_loss)
+    later["launches_attention_vis"] = phase_attention_vis(smi)
+    phase_factory_chunks(smi)
+    new_s = time.perf_counter() - t_new
     kernels = []
     for name in fa.QKV_KERNELS:
         dec = timings["decoder"][name]
@@ -2286,8 +2703,15 @@ def main() -> int:
             "launches_vits_step": vits_launches[name],
             "launches_real_data": real_launches[name],
             **{key: counts[name] for key, counts in later.items()},
+            "head_dims": {
+                hd: {**head_dims[hd][1][name],
+                     "max_abs_err": head_dims[hd][0][name],
+                     "shape": "(BH=%d, N=%d, D=%d) bf16" % (
+                         *HM_HEAD_DIM_CHECKS["long"], hd)}
+                for hd in HM_HEAD_DIMS},
         })
-    emit("done", seconds=time.perf_counter() - t0)
+    emit("done", seconds=time.perf_counter() - t0,
+         new_phases_seconds=new_s)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

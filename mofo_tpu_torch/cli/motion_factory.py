@@ -4,8 +4,8 @@ Counterpart of mofo_tpu/cli/motion_factory.py, plus --device (default
 cuda). One command replaces the reference's three-stage pipeline
 (motion_map_creator.py --data-type flow / mag, then
 bounding_box_creator_*.py): per video, decode (the port's VideoReader),
-TV-L1 optical flow of every consecutive pair in one batched call on the
-device, motion-boundary magnitude maps over a sliding window and per-frame
+TV-L1 optical flow of every consecutive pair in batched calls on the
+device (as many pairs a call as a memory budget allows), motion-boundary magnitude maps over a sliding window and per-frame
 motion boxes with temporal cleanup and the clip-union overwrite on the
 host, then everything into one Unsupervised_BB JSON. --flow_backend dis |
 farneback computes the flow with OpenCV on the host instead.
@@ -61,20 +61,71 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-def video_flows(frames: np.ndarray, args, device: torch.device
-                ) -> np.ndarray:
+# Bytes a pair holds at the peak of a batched TV-L1 call, per pixel of a
+# frame: 1594.7 MB for 58 pairs at 256 x 320 is 335.6 (torch.cuda's peak,
+# NVIDIA H100 80GB HBM3 at 700 W; chip_smoke.py phase factory).
+PAIR_BYTES_PER_PIXEL = 336
+CUDA_FREE_SHARE = 0.5  # of the card's free bytes, for one call's pairs
+CPU_FLOW_BUDGET = 2 << 30  # bytes of one call's pairs on the host
+
+
+def flow_budget(device: torch.device) -> int:
+    """Bytes one TV-L1 call may hold: a share of the card's free memory,
+    or a fixed cap on the host."""
+    if device.type == "cuda":
+        return int(torch.cuda.mem_get_info(device)[0] * CUDA_FREE_SHARE)
+    return CPU_FLOW_BUDGET
+
+
+def pairs_per_call(height: int, width: int, budget: int) -> int:
+    return max(1, budget // (PAIR_BYTES_PER_PIXEL * height * width))
+
+
+def video_flows(frames: np.ndarray, args, device: torch.device,
+                budget: int = None) -> np.ndarray:
     """(T, H, W, 3) uint8 frames -> (T-1, H, W, 2) float32 flows: TV-L1 of
-    all pairs in one batched call (each pair's flow is the one a call per
-    pair gives), or OpenCV per pair on the host. float32 as mofo_tpu hands
-    them to the maps: ndimage.convolve keeps its input's dtype, and float64
-    would change the uint8 maps."""
+    consecutive chunks of pairs, one batched call a chunk, each at most
+    pairs_per_call(H, W, budget) pairs (budget: flow_budget(device) when
+    None; each pair's flow is the one a call per pair gives), or OpenCV per
+    pair on the host. float32 as mofo_tpu hands them to the maps:
+    ndimage.convolve keeps its input's dtype, and float64 would change the
+    uint8 maps."""
     if args.flow_backend == "tvl1":
-        return flow.tvl1_flow_batch(frames, device=device).cpu().numpy()
+        budget = flow_budget(device) if budget is None else budget
+        step = pairs_per_call(frames.shape[1], frames.shape[2], budget)
+        return np.concatenate([
+            flow.tvl1_flow_batch(frames[i:i + step + 1], device=device)
+            .cpu().numpy()
+            for i in range(0, len(frames) - 1, step)
+        ])
     return np.stack([
         flow.compute_flow(frames[i], frames[i + 1],
                           backend=args.flow_backend)
         for i in range(len(frames) - 1)
     ])
+
+
+def magnitude_maps(flows: np.ndarray, window: int) -> list:
+    """One uint8 motion-boundary magnitude map per flow pair, over the
+    sliding window. The flow components are stacked like the reference's
+    packed flow images (x and y treated as separate images in the boundary
+    sum)."""
+    flow_imgs = []
+    for f in flows:
+        flow_imgs.append(f[..., 0])
+        flow_imgs.append(f[..., 1])
+    mags = motion_maps.motion_magnitude_frames_np(flow_imgs, window=window)
+    # one magnitude frame per pair (the pair's x / y maps were interleaved)
+    return mags[::2]
+
+
+def frame_boxes(mags: list, n_frames: int, clip_union: bool) -> list:
+    """Per-frame boxes of n_frames frames from the pairs' maps; the final
+    frame (no outgoing flow) repeats the last box."""
+    boxes = bbox.extract_boxes(mags, clip_union=clip_union)
+    if len(boxes) < n_frames:
+        boxes = list(boxes) + [boxes[-1]] * (n_frames - len(boxes))
+    return boxes
 
 
 def process_video(path: str, args, device: torch.device, reader=VideoReader
@@ -95,27 +146,11 @@ def process_video(path: str, args, device: torch.device, reader=VideoReader
     seconds["flow"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    # per-frame magnitude maps over the sliding window; stack flow
-    # components like the reference's packed flow images (x and y treated
-    # as separate images in the boundary sum)
-    flow_imgs = []
-    for f in flows:
-        flow_imgs.append(f[..., 0])
-        flow_imgs.append(f[..., 1])
-    mags = motion_maps.motion_magnitude_frames_np(
-        flow_imgs, window=args.window
-    )
-    # one magnitude frame per video frame (pair x/y maps were interleaved)
-    mags = mags[::2]
+    mags = magnitude_maps(flows, args.window)
     seconds["maps"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    boxes = bbox.extract_boxes(
-        mags, clip_union=not args.no_clip_union
-    )
-    # boxes for the final frame (no outgoing flow): repeat last
-    if len(boxes) < len(frames):
-        boxes = list(boxes) + [boxes[-1]] * (len(frames) - len(boxes))
+    boxes = frame_boxes(mags, len(frames), not args.no_clip_union)
     seconds["boxes"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()

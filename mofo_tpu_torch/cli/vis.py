@@ -51,15 +51,16 @@ def get_args(argv=None):
 
 
 def load_clip(path: str, num_frames: int, input_size: int,
-              device: torch.device, reader=VideoReader) -> torch.Tensor:
-    """The normalized (1, T, S, S, 3) clip: uniform frame ids, short side
-    scaled to S, centre crop."""
+              device: torch.device, reader=VideoReader):
+    """(frame ids, the (1, T, S, S, 3) clip in [0, 1] pixels): uniform
+    frame ids, short side scaled to S, centre crop."""
     with reader(path) as vr:
         duration = len(vr)
         # fixed frame grid like run_videomae_vis (uniform ids)
         tick = duration / float(num_frames)
-        ids = np.array([int(tick / 2.0 + tick * x) for x in range(num_frames)])
-        frames = vr.get_batch(np.clip(ids, 0, duration - 1))
+        ids = np.clip([int(tick / 2.0 + tick * x) for x in range(num_frames)],
+                      0, duration - 1)
+        frames = vr.get_batch(ids)
     clips = torch.from_numpy(frames[None].astype(np.float32)).to(device)
     clips = clips / 255.0
     rh, rw = I.short_side_scale_size(frames.shape[1], frames.shape[2],
@@ -67,8 +68,7 @@ def load_clip(path: str, num_frames: int, input_size: int,
     clips = I.resize(clips, (rh, rw))
     crop = I.center_crop_boxes(1, (rh, rw), (input_size, input_size),
                                device=device)
-    clips = I.crop_and_resize(clips, crop, (input_size, input_size))
-    return I.normalize(clips)
+    return ids, I.crop_and_resize(clips, crop, (input_size, input_size))
 
 
 def load_weights(model: torch.nn.Module, path: str) -> None:
@@ -136,8 +136,9 @@ def main(args=None, reader=VideoReader) -> dict:
     device = resolve_device(args.device)
     os.makedirs(args.save_path, exist_ok=True)
 
-    normed = load_clip(args.img_path, args.num_frames, args.input_size,
-                       device, reader)
+    _, clips = load_clip(args.img_path, args.num_frames, args.input_size,
+                         device, reader)
+    normed = I.normalize(clips)
     model = create_model(args.model, device=device,
                          decoder_depth=args.decoder_depth,
                          num_frames=args.num_frames,

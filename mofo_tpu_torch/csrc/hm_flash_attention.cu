@@ -14,9 +14,12 @@
 //   hm_attn_bwd_dkv  <- _bwd_impl (:304) / _dkv_kernel (:204)
 //
 // Layout. q, k, v, out, dout, dq, dk and dv are (BH, N, D) contiguous with
-// D = 64: the ViT-S pretrain decoder's 3 x 64 heads, which take the
-// head-major route of models/layers.Attention because A = 192 is not a
-// multiple of 128. The forward writes a (BH, N) f32 LSE in natural-log units;
+// D in {16, 32, 64}, the head dims of the registry's presets: 64 for the
+// ViT-S pretrain decoder's 3 x 64 heads, which take the head-major route of
+// models/layers.Attention because A = 192 is not a multiple of 128, 32 and
+// 16 for the tiny presets' encoder and decoder heads. Every kernel and its
+// shared memory take D as a template parameter; the entry points dispatch
+// on it. The forward writes a (BH, N) f32 LSE in natural-log units;
 // the backward takes delta = rowsum(dO * O), (BH, N) f32, from the caller:
 // in bf16 from the prep pass, which also writes q * scale (BH, N, D) once
 // for both backward kernels.
@@ -37,13 +40,16 @@
 //     whose first warp keeps a ring of 3 shared-memory stages full by TMA
 //     (its registers go to the consumers by setmaxnreg) (K alone in pass
 //     1, K and V in pass 2), so tile j + 1 is in flight while tile j is
-//     multiplied. Every product is one wgmma.mma_async m64n64k16 chain: q's
-//     fragments (times the scale) stay in registers across both passes and
-//     P goes from registers to P.V; K and V are read from 128-byte-swizzled
-//     shared memory, V MN-major. The exponentials are ex2 of log2(e)-scaled
+//     multiplied. Every product is one wgmma.mma_async chain (m64n64 for
+//     S, m64nD for P.V, D / 16 k-steps in S): q's fragments (times the
+//     scale) stay in registers across both passes and P goes from registers
+//     to P.V; K and V are read from swizzled shared memory (128-, 64- or
+//     32-byte swizzle: a row is 2 D bytes), V MN-major. At D = 16 and 32
+//     the tiles are narrower and the kernels are the same; they are right
+//     first and not tuned. The exponentials are ex2 of log2(e)-scaled
 //     f32 differences and pass 2 multiplies by 1/l: an ulp or two of the
 //     f32 value before the bf16 rounding. The LSE stays in natural-log
-//     units. The 3D tensor maps (BH, N, 64) zero-fill rows past N per head.
+//     units. The 3D tensor maps (BH, N, D) zero-fill rows past N per head.
 //   - The bf16 backward (redesigned for Hopper) is the design of the
 //     fused-qkv backward, whose kernels it shares (wgmma_attn_bwd.cuh) with
 //     the softmax base and the layout as parameters: a prep pass over q, O
@@ -74,13 +80,14 @@
 //   - in bf16 dS is the bf16 product of bf16(P) with bf16(dP - delta), the
 //     subtraction in f32; in f32 it is P * (dP - delta).
 
+#include <type_traits>
+
 #include "flash_tiles.cuh"
 #include "wgmma_attn_bwd.cuh"
 #include "wgmma_tiles.cuh"
 
 namespace {
 
-constexpr int kD = 64;     // the one head dim the kernels take
 constexpr int kTile = 64;  // rows of the streamed tiles (and of f32 q tiles)
 
 // One q tile's LSE and delta; rows >= N get 0 (their P is masked).
@@ -99,19 +106,19 @@ __device__ __forceinline__ void load_stats(float* sLse, float* sDelta,
 // f32: FMA kernels (flash_tiles.cuh's 16 x 16 thread layout)
 // -------------------------------------------------------------------------
 
-template <int BQ, int BK>
+template <int BQ, int BK, int D>
 constexpr size_t smem_fwd_f32() {
-  return ((size_t)(BQ + 2 * BK) * (kD + 1) + BQ * (BK + 1)) * sizeof(float);
+  return ((size_t)(BQ + 2 * BK) * (D + 1) + BQ * (BK + 1)) * sizeof(float);
 }
 
 // Grid (ceil(N / BQ), BH). One block: BQ query rows of one head against all
 // N keys, in two passes over BK-row kv tiles.
-template <int BQ, int BK>
+template <int BQ, int BK, int D>
 __global__ void __launch_bounds__(kThreads)
     hm_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, float* __restrict__ out,
                float* __restrict__ lse, int N, float q_scale) {
-  constexpr int D = kD, I = BQ / 16, JS = BK / 16, JO = D / 16, LD = D + 1,
+  constexpr int I = BQ / 16, JS = BK / 16, JO = D / 16, LD = D + 1,
                 LDP = BK + 1;
   extern __shared__ float fsmem[];
   float* sQ = fsmem;
@@ -181,15 +188,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int BQ, int BK>
+template <int BQ, int BK, int D>
 constexpr size_t smem_dq_f32() {
-  return ((size_t)(2 * BQ + 2 * BK) * (kD + 1) + BQ * (BK + 1) + 2 * BQ) *
+  return ((size_t)(2 * BQ + 2 * BK) * (D + 1) + BQ * (BK + 1) + 2 * BQ) *
          sizeof(float);
 }
 
 // Grid (ceil(N / BQ), BH). One block: BQ query rows of one head; loops over
 // all kv tiles and accumulates dQ = dS (K * scale) in registers.
-template <int BQ, int BK>
+template <int BQ, int BK, int D>
 __global__ void __launch_bounds__(kThreads)
     hm_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v,
@@ -197,7 +204,7 @@ __global__ void __launch_bounds__(kThreads)
                   const float* __restrict__ lse,
                   const float* __restrict__ delta, float* __restrict__ dq,
                   int N, float q_scale, float k_scale) {
-  constexpr int D = kD, I = BQ / 16, JS = BK / 16, JO = D / 16, LD = D + 1,
+  constexpr int I = BQ / 16, JS = BK / 16, JO = D / 16, LD = D + 1,
                 LDP = BK + 1;
   extern __shared__ float fsmem[];
   float* sQ = fsmem;
@@ -249,9 +256,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int BKV, int BQ>
+template <int BKV, int BQ, int D>
 constexpr size_t smem_dkv_f32() {
-  return ((size_t)(2 * BKV + 2 * BQ) * (kD + 1) + 2 * BKV * (BQ + 1) +
+  return ((size_t)(2 * BKV + 2 * BQ) * (D + 1) + 2 * BKV * (BQ + 1) +
           2 * BQ) * sizeof(float);
 }
 
@@ -259,7 +266,7 @@ constexpr size_t smem_dkv_f32() {
 // over all q tiles and accumulates dK and dV in registers. It forms
 // S^T = K Q^T and dP^T = V dO^T directly (rows kv, columns q), so P^T and
 // dS^T are row-major A operands of dV += P^T dO and dK += dS^T Q.
-template <int BKV, int BQ>
+template <int BKV, int BQ, int D>
 __global__ void __launch_bounds__(kThreads)
     hm_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v,
@@ -267,7 +274,7 @@ __global__ void __launch_bounds__(kThreads)
                    const float* __restrict__ lse,
                    const float* __restrict__ delta, float* __restrict__ dk,
                    float* __restrict__ dv, int N, float q_scale) {
-  constexpr int D = kD, I = BKV / 16, JQ = BQ / 16, JO = D / 16, LD = D + 1,
+  constexpr int I = BKV / 16, JQ = BQ / 16, JO = D / 16, LD = D + 1,
                 LDP = BQ + 1;
   extern __shared__ float fsmem[];
   float* sK = fsmem;
@@ -335,27 +342,31 @@ __global__ void __launch_bounds__(kThreads)
 // keeps a ring of kStages kv stages filled by TMA (K alone in pass 1, K and
 // V in pass 2).
 constexpr int kStages = 3;
-constexpr size_t kSmemFwdBf16 =
-    1024 + (size_t)(kWG + 2 * kStages) * kTileBytes +
-    (2 * kStages + 1) * sizeof(uint64_t);
+template <int D>
+constexpr size_t smem_fwd_bf16() {
+  return 1024 + (size_t)(kWG + 2 * kStages) * tile_bytes<D>() +
+         (2 * kStages + 1) * sizeof(uint64_t);
+}
 
 // Grid (ceil(N / (64 kWG)), BH). One block: 64 kWG query rows of one head
 // against all N keys, in two passes over 64-row kv tiles. Each consumer
 // warpgroup keeps its q fragments (q times the scale, in bf16) in registers;
 // warp w of it owns rows 16w..16w+15 of the strip, in mma.sync's accumulator
 // layout.
+template <int D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     hm_fwd_bf16(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
                 bf16* __restrict__ out, float* __restrict__ lse, int N,
                 float q_scale) {
+  constexpr int kTE = tile_elems<D>(), kTB = tile_bytes<D>(), kRB = 2 * D;
   extern __shared__ unsigned char wsmem[];
   unsigned char* sm = smem_1024(wsmem);
   bf16* sQ = reinterpret_cast<bf16*>(sm);
-  bf16* sK = sQ + kWG * kTileElems;
-  bf16* sV = sK + kStages * kTileElems;
-  uint64_t* full = reinterpret_cast<uint64_t*>(sV + kStages * kTileElems);
+  bf16* sK = sQ + kWG * kTE;
+  bf16* sV = sK + kStages * kTE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + kStages * kTE);
   uint64_t* empty = full + kStages;
   uint64_t* qbar = empty + kStages;
   const int bh = blockIdx.y, q0 = blockIdx.x * kWG * kTileRows;
@@ -375,17 +386,17 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   if (warp >= 4 * kWG) {  // producer
     producer_registers();
     if (warp == 4 * kWG && lane == 0) {
-      mbar_expect_tx(qbar, kWG * kTileBytes);
+      mbar_expect_tx(qbar, kWG * kTB);
       for (int w = 0; w < kWG; ++w)
-        tma_tile(sQ + w * kTileElems, &tq, qbar, 0, q0 + kTileRows * w, bh);
+        tma_tile(sQ + w * kTE, &tq, qbar, 0, q0 + kTileRows * w, bh);
       for (int it = 0; it < 2 * T; ++it) {
         const int s = it % kStages;
         const bool second = it >= T;
         const int k0 = (second ? it - T : it) * kTileRows;
         mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
-        mbar_expect_tx(&full[s], second ? 2 * kTileBytes : kTileBytes);
-        tma_tile(sK + s * kTileElems, &tk, &full[s], 0, k0, bh);
-        if (second) tma_tile(sV + s * kTileElems, &tv, &full[s], 0, k0, bh);
+        mbar_expect_tx(&full[s], second ? 2 * kTB : kTB);
+        tma_tile(sK + s * kTE, &tk, &full[s], 0, k0, bh);
+        if (second) tma_tile(sV + s * kTE, &tv, &full[s], 0, k0, bh);
       }
     }
   } else {
@@ -393,8 +404,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
     const int wg = warp >> 2, r0 = 16 * (warp & 3);
     const int t = lane & 3;
     mbar_wait(qbar, 0);
-    uint32_t qa[4][4];
-    load_a_sw128(qa, sQ + wg * kTileElems, r0, q_scale);
+    uint32_t qa[D / 16][4];
+    load_a_sw(qa, sQ + wg * kTE, r0, q_scale);
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
     int it = 0;
@@ -402,7 +413,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       const int s = it % kStages;
       mbar_wait(&full[s], (it / kStages) & 1);
       float sc[8][4] = {};
-      wgmma_tile<0>(sc, qa, sK + s * kTileElems);
+      wgmma_tile<0, kRB>(sc, qa, sK + s * kTE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(sc);
@@ -441,12 +452,12 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
     float ml[2], inv_l[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) ml[r] = m[r] * kLog2e, inv_l[r] = 1.f / l[r];
-    float o[8][4] = {};
+    float o[D / 8][4] = {};
     for (int j = 0; j < T; ++j, ++it) {  // pass 2: P = exp(s - m) / l, P.V
       const int s = it % kStages;
       mbar_wait(&full[s], (it / kStages) & 1);
       float sc[8][4] = {};
-      wgmma_tile<0>(sc, qa, sK + s * kTileElems);
+      wgmma_tile<0, kRB>(sc, qa, sK + s * kTE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(sc);
@@ -466,7 +477,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
           }
           pa[nt >> 1][2 * (nt & 1) + (e >> 1)] = bf16x2(p0, p1);
         }
-      wgmma_tile<1>(o, pa, sV + s * kTileElems);
+      wgmma_tile<1, kRB>(o, pa, sV + s * kTE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(o);
@@ -474,9 +485,9 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
-    const size_t base = (size_t)bh * N * kD;
+    const size_t base = (size_t)bh * N * D;
     const int row0 = q0 + kTileRows * wg + r0;
-    store_acc(out + base, kD, o, row0, N, 1.f);
+    store_acc(out + base, D, o, row0, N, 1.f);
     const int g = lane >> 2;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -489,22 +500,116 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 
 // The bf16 backward is wgmma_attn_bwd.cuh's prep pass and dK/dV and dQ
 // kernels (shared with qkv_flash_attention.cu), in base e on the head-major
-// layout: every operand its own (BH, N, 64) tensor map, one head a plane.
-int hm_map(CUtensorMap* map, const void* base, int BH, int N) {
-  return tile_map(map, base, kD, N, BH, kD, (long)N * kD);
+// layout: every operand its own (BH, N, D) tensor map, one head a plane.
+int hm_map(CUtensorMap* map, const void* base, int BH, int N, int D) {
+  return tile_map(map, base, D, N, BH, D, (long)N * D, D);
 }
 
 bool bad(int BH, int N, int D) {
-  return D != kD || BH < 1 || BH > 65535 || N < 1;
+  return (D != 16 && D != 32 && D != 64) || BH < 1 || BH > 65535 || N < 1;
+}
+
+template <int D>
+int run_fwd(const void* q, const void* k, const void* v, void* out, float* l,
+        int BH, int N, float q_scale, int is_bf16, cudaStream_t st) {
+  if (is_bf16) {
+    CUtensorMap tq, tk, tv;
+    if (int e = hm_map(&tq, q, BH, N, D)) return e;
+    if (int e = hm_map(&tk, k, BH, N, D)) return e;
+    if (int e = hm_map(&tv, v, BH, N, D)) return e;
+    constexpr size_t smem = smem_fwd_bf16<D>();
+    auto kernel = hm_fwd_bf16<D>;
+    if (int e = max_smem((const void*)kernel, smem)) return e;
+    kernel<<<dim3(cdiv(N, kWG * kTileRows), BH), kHopperThreads, smem, st>>>(
+        tq, tk, tv, static_cast<bf16*>(out), l, N, q_scale);
+  } else {
+    constexpr size_t smem = smem_fwd_f32<kTile, kTile, D>();
+    auto kernel = hm_fwd_f32<kTile, kTile, D>;
+    if (int e = max_smem((const void*)kernel, smem)) return e;
+    kernel<<<dim3(cdiv(N, kTile), BH), kThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<float*>(out), l, N,
+        q_scale);
+  }
+  return 0;
+}
+
+template <int D>
+int run_dkv(const void* q, const void* k, const void* v, const void* dout,
+        const float* l, const float* d, const void* qs, void* dk, void* dv,
+        int BH, int N, float q_scale, int is_bf16, cudaStream_t st) {
+  if (is_bf16) {
+    if (!qs) return kBadArgument;
+    CUtensorMap tk, tv, tqs, tdo;
+    if (int e = hm_map(&tk, k, BH, N, D)) return e;
+    if (int e = hm_map(&tv, v, BH, N, D)) return e;
+    if (int e = hm_map(&tqs, qs, BH, N, D)) return e;
+    if (int e = hm_map(&tdo, dout, BH, N, D)) return e;
+    return launch_bwd_dkv<true, false, D>(tk, tv, tqs, tdo, 0, 0, l, d,
+                                          nullptr, dk, dv, D, BH, N, 1, 1.f,
+                                          st);
+  }
+  constexpr size_t smem = smem_dkv_f32<kTile, kTile, D>();
+  auto kernel = hm_bwd_dkv_f32<kTile, kTile, D>;
+  if (int e = max_smem((const void*)kernel, smem)) return e;
+  kernel<<<dim3(cdiv(N, kTile), BH), kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), l, d,
+      static_cast<float*>(dk), static_cast<float*>(dv), N, q_scale);
+  return 0;
+}
+
+template <int D>
+int run_dq(const void* q, const void* k, const void* v, const void* dout,
+       const float* l, const float* d, const void* qs, const void* ks,
+       void* dq_out, int BH, int N, float q_scale, float k_scale, int is_bf16,
+       cudaStream_t st) {
+  if (is_bf16) {
+    if (!qs) return kBadArgument;
+    CUtensorMap tk, tv, tqs, tdo, tks;
+    if (int e = hm_map(&tk, k, BH, N, D)) return e;
+    if (int e = hm_map(&tv, v, BH, N, D)) return e;
+    if (int e = hm_map(&tqs, qs, BH, N, D)) return e;
+    if (int e = hm_map(&tdo, dout, BH, N, D)) return e;
+    if (ks)
+      if (int e = hm_map(&tks, ks, BH, N, D)) return e;
+    return launch_bwd_dq<true, false, D>(tk, tv, tqs, tdo,
+                                         ks ? &tks : nullptr, 0, 0, l, d,
+                                         nullptr, dq_out, D, BH, N, 1,
+                                         k_scale, st);
+  }
+  constexpr size_t smem = smem_dq_f32<kTile, kTile, D>();
+  auto kernel = hm_bwd_dq_f32<kTile, kTile, D>;
+  if (int e = max_smem((const void*)kernel, smem)) return e;
+  kernel<<<dim3(cdiv(N, kTile), BH), kThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), l, d,
+      static_cast<float*>(dq_out), N, q_scale, k_scale);
+  return 0;
+}
+
+// Runs f.template operator()<D> for the runtime head dim D (one of the three
+// that bad() lets through).
+template <typename F>
+int by_head_dim(int D, F f) {
+  switch (D) {
+    case 16:
+      return f(std::integral_constant<int, 16>());
+    case 32:
+      return f(std::integral_constant<int, 32>());
+    default:
+      return f(std::integral_constant<int, 64>());
+  }
 }
 
 }  // namespace
 
 // All entry points return 0 on success, a cudaError_t from the launch, or -1
-// for arguments the kernels do not take. `is_bf16` selects __nv_bfloat16
-// (the tensor-core kernels) over float (the FMA kernels). q_scale and
-// k_scale are already rounded to the element type. Every (BH, N, D) tensor is
-// contiguous and 16-byte aligned; lse and delta are (BH, N) f32.
+// for arguments the kernels do not take (a head dim other than 16, 32 and
+// 64 among them). `is_bf16` selects __nv_bfloat16 (the tensor-core kernels)
+// over float (the FMA kernels). q_scale and k_scale are already rounded to
+// the element type. Every (BH, N, D) tensor is contiguous and 16-byte
+// aligned; lse and delta are (BH, N) f32.
 
 extern "C" int hm_attn_fwd(const void* q, const void* k, const void* v,
                            void* out, void* lse, int BH, int N, int D,
@@ -512,24 +617,11 @@ extern "C" int hm_attn_fwd(const void* q, const void* k, const void* v,
   if (bad(BH, N, D)) return kBadArgument;
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
-  if (is_bf16) {
-    CUtensorMap tq, tk, tv;
-    if (int e = hm_map(&tq, q, BH, N)) return e;
-    if (int e = hm_map(&tk, k, BH, N)) return e;
-    if (int e = hm_map(&tv, v, BH, N)) return e;
-    if (int e = max_smem((const void*)hm_fwd_bf16, kSmemFwdBf16)) return e;
-    hm_fwd_bf16<<<dim3(cdiv(N, kWG * kTileRows), BH), kHopperThreads,
-                  kSmemFwdBf16, st>>>(tq, tk, tv, static_cast<bf16*>(out), l,
-                                      N, q_scale);
-  } else {
-    constexpr size_t smem = smem_fwd_f32<kTile, kTile>();
-    auto kernel = hm_fwd_f32<kTile, kTile>;
-    if (int e = max_smem((const void*)kernel, smem)) return e;
-    kernel<<<dim3(cdiv(N, kTile), BH), kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), l, N,
-        q_scale);
-  }
+  if (int e = by_head_dim(D, [&](auto d) {
+        return run_fwd<decltype(d)::value>(q, k, v, out, l, BH, N, q_scale,
+                                       is_bf16, st);
+      }))
+    return e;
   return (int)cudaGetLastError();
 }
 
@@ -542,9 +634,12 @@ extern "C" int hm_attn_bwd_prep(const void* q, const void* k,
                                 int N, int D, float q_scale, float k_scale,
                                 void* stream) {
   if (bad(BH, N, D)) return kBadArgument;
-  if (int e = launch_bwd_prep<kD / 8>(q, k, kD, kD, out, dout, delta, qs, ks,
-                                      BH, N, 1, q_scale, k_scale,
-                                      static_cast<cudaStream_t>(stream)))
+  if (int e = by_head_dim(D, [&](auto d) {
+        constexpr int kD = decltype(d)::value;
+        return launch_bwd_prep<kD / 8>(q, k, kD, kD, out, dout, delta, qs, ks,
+                                       BH, N, 1, q_scale, k_scale,
+                                       static_cast<cudaStream_t>(stream));
+      }))
     return e;
   return (int)cudaGetLastError();
 }
@@ -557,29 +652,13 @@ extern "C" int hm_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                void* dv, int BH, int N, int D, float q_scale,
                                int is_bf16, void* stream) {
   if (bad(BH, N, D)) return kBadArgument;
-  auto st = static_cast<cudaStream_t>(stream);
-  auto l = static_cast<const float*>(lse);
-  auto d = static_cast<const float*>(delta);
-  if (is_bf16) {
-    if (!qs) return kBadArgument;
-    CUtensorMap tk, tv, tqs, tdo;
-    if (int e = hm_map(&tk, k, BH, N)) return e;
-    if (int e = hm_map(&tv, v, BH, N)) return e;
-    if (int e = hm_map(&tqs, qs, BH, N)) return e;
-    if (int e = hm_map(&tdo, dout, BH, N)) return e;
-    if (int e = launch_bwd_dkv<true, false>(tk, tv, tqs, tdo, 0, 0, l, d,
-                                            nullptr, dk, dv, kD, BH, N, 1,
-                                            1.f, st))
-      return e;
-  } else {
-    constexpr size_t smem = smem_dkv_f32<kTile, kTile>();
-    auto kernel = hm_bwd_dkv_f32<kTile, kTile>;
-    if (int e = max_smem((const void*)kernel, smem)) return e;
-    kernel<<<dim3(cdiv(N, kTile), BH), kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), l, d,
-        static_cast<float*>(dk), static_cast<float*>(dv), N, q_scale);
-  }
+  if (int e = by_head_dim(D, [&](auto d) {
+        return run_dkv<decltype(d)::value>(
+            q, k, v, dout, static_cast<const float*>(lse),
+            static_cast<const float*>(delta), qs, dk, dv, BH, N, q_scale,
+            is_bf16, static_cast<cudaStream_t>(stream));
+      }))
+    return e;
   return (int)cudaGetLastError();
 }
 
@@ -592,31 +671,12 @@ extern "C" int hm_attn_bwd_dq(const void* q, const void* k, const void* v,
                               float q_scale, float k_scale, int is_bf16,
                               void* stream) {
   if (bad(BH, N, D)) return kBadArgument;
-  auto st = static_cast<cudaStream_t>(stream);
-  auto l = static_cast<const float*>(lse);
-  auto d = static_cast<const float*>(delta);
-  if (is_bf16) {
-    if (!qs) return kBadArgument;
-    CUtensorMap tk, tv, tqs, tdo, tks;
-    if (int e = hm_map(&tk, k, BH, N)) return e;
-    if (int e = hm_map(&tv, v, BH, N)) return e;
-    if (int e = hm_map(&tqs, qs, BH, N)) return e;
-    if (int e = hm_map(&tdo, dout, BH, N)) return e;
-    if (ks)
-      if (int e = hm_map(&tks, ks, BH, N)) return e;
-    if (int e = launch_bwd_dq<true, false>(tk, tv, tqs, tdo,
-                                           ks ? &tks : nullptr, 0, 0, l, d,
-                                           nullptr, dq, kD, BH, N, 1, k_scale,
-                                           st))
-      return e;
-  } else {
-    constexpr size_t smem = smem_dq_f32<kTile, kTile>();
-    auto kernel = hm_bwd_dq_f32<kTile, kTile>;
-    if (int e = max_smem((const void*)kernel, smem)) return e;
-    kernel<<<dim3(cdiv(N, kTile), BH), kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), l, d,
-        static_cast<float*>(dq), N, q_scale, k_scale);
-  }
+  if (int e = by_head_dim(D, [&](auto d) {
+        return run_dq<decltype(d)::value>(
+            q, k, v, dout, static_cast<const float*>(lse),
+            static_cast<const float*>(delta), qs, ks, dq, BH, N, q_scale,
+            k_scale, is_bf16, static_cast<cudaStream_t>(stream));
+      }))
+    return e;
   return (int)cudaGetLastError();
 }

@@ -453,7 +453,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
     const int g = lane >> 2, t = lane & 3;
     mbar_wait(qbar, 0);
     uint32_t qa[4][4];
-    load_a_sw128(qa, sQ + wg * kTileElems, r0, q_scale);
+    load_a_sw(qa, sQ + wg * kTileElems, r0, q_scale);
     float o[8][4] = {}, m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
     for (int j = 0; j < T; ++j) {

@@ -7,13 +7,15 @@
 // (mh_flash_attention.cu) and shares the prep pass.
 //
 // Layout. Every operand is reached through a 3D tensor map (columns, rows,
-// planes) of 64 x 64 boxes, and block (x, y) works on plane b = y / H at
-// columns h * 64 + a per-operand offset, h = y % H:
+// planes) of 64 x D boxes (D = 64 but for K4, which also takes 16 and 32:
+// the kernels and launchers take D as a template parameter, 64 by default),
+// and block (x, y) works on plane b = y / H at columns h * D + a
+// per-operand offset, h = y % H:
 //   - fused qkv (B, N, 3A): one map serves q, k and v, H heads a plane, k at
 //     column offset A, v at 2A; outputs go to columns of one dqkv, row stride
 //     3A;
-//   - head-major (BH, N, 64): H = 1, every offset 0, each operand its own
-//     map; outputs are (BH, N, 64), row stride 64;
+//   - head-major (BH, N, D): H = 1, every offset 0, each operand its own
+//     map; outputs are (BH, N, D), row stride D;
 //   - separate q, k, v (B, N, 64 H), each with its own row stride (k and v
 //     may be column views of a fused kv): every offset 0, each operand its
 //     own map; dk and dv share one row stride.
@@ -64,8 +66,9 @@ constexpr int kPrepThreads = 256;
 // Grid-stride over the 8-value chunks of BN rows of A = 8 kHeadChunks H
 // columns: chunk c of row i is q[i, 8c..8c+7] (row stride ldq; k the same
 // with ldk) and the same columns of dO, O, qs and ks (row stride A).
-// kHeadChunks consecutive chunks are one head (8 at head dim 64, 32 at 256:
-// a warp never straddles two heads), so delta is a shuffle sum over that
+// kHeadChunks consecutive chunks are one head (2, 4 or 8 at head dims 16,
+// 32 or 64, 32 at 256: a warp never straddles two heads), so delta is a
+// shuffle sum over that
 // many lanes, written at ((i / N) * H + c / kHeadChunks) * N + i % N. ks
 // (when not null) gets k * k_scale rounded to bf16.
 template <int kHeadChunks>
@@ -75,7 +78,9 @@ __global__ void __launch_bounds__(kPrepThreads)
                   const bf16* __restrict__ dout, float* __restrict__ delta,
                   bf16* __restrict__ qs, bf16* __restrict__ ks, int BN, int N,
                   int H, float q_scale, float k_scale) {
-  static_assert(kHeadChunks == 8 || kHeadChunks == 32, "head dim 64 or 256");
+  static_assert(kHeadChunks == 2 || kHeadChunks == 4 || kHeadChunks == 8 ||
+                    kHeadChunks == 32,
+                "head dim 16, 32, 64 or 256");
   const int A = H * 8 * kHeadChunks, C = A / 8;
   const int total = BN * C;  // < 2^31: launch_bwd_prep's bound
   const int stride = gridDim.x * blockDim.x;
@@ -144,10 +149,12 @@ __device__ __forceinline__ void p_and_ds_pair(float s0, float s1, float dp0,
   dsw = bf16x2(bf16_lo(pw) * bf16_lo(dd), bf16_hi(pw) * bf16_hi(dd));
 }
 
-constexpr size_t kSmemDkvBf16 =
-    1024 + (size_t)(2 * kWG + 2 * kBwdStages) * kTileBytes +
-    kBwdStages * 2 * kTileRows * sizeof(float) +
-    (2 * kBwdStages + 1) * sizeof(uint64_t);
+template <int D>
+constexpr size_t smem_dkv_bf16() {
+  return 1024 + (size_t)(2 * kWG + 2 * kBwdStages) * tile_bytes<D>() +
+         kBwdStages * 2 * kTileRows * sizeof(float) +
+         (2 * kBwdStages + 1) * sizeof(uint64_t);
+}
 
 // Grid (ceil(N / (64 kWG)), planes * H). One block: one head's 64 kWG
 // key/value rows (K fragments in registers, V in shared memory); streams
@@ -156,7 +163,7 @@ constexpr size_t kSmemDkvBf16 =
 // kv rows, so P^T and dS^T feed dV += P^T dO and dK += dS^T Q straight from
 // the accumulators. dk and dv point at head 0's column of plane 0, row
 // stride ld_out. bias (kBias only): (planes, N) f32 or null.
-template <bool kBaseE, bool kBias>
+template <bool kBaseE, bool kBias, int D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     bwd_dkv_bf16(const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
@@ -167,13 +174,14 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                  const float* __restrict__ bias, bf16* __restrict__ dk,
                  bf16* __restrict__ dv, int ld_out, int N, int H,
                  float dk_fix) {
+  constexpr int kTE = tile_elems<D>(), kTB = tile_bytes<D>(), kRB = 2 * D;
   extern __shared__ unsigned char wsmem[];
   unsigned char* sm = smem_1024(wsmem);
   bf16* sK = reinterpret_cast<bf16*>(sm);
-  bf16* sV = sK + kWG * kTileElems;
-  bf16* sQ = sV + kWG * kTileElems;
-  bf16* sdO = sQ + kBwdStages * kTileElems;
-  float* sStat = reinterpret_cast<float*>(sdO + kBwdStages * kTileElems);
+  bf16* sV = sK + kWG * kTE;
+  bf16* sQ = sV + kWG * kTE;
+  bf16* sdO = sQ + kBwdStages * kTE;
+  float* sStat = reinterpret_cast<float*>(sdO + kBwdStages * kTE);
   uint64_t* full =
       reinterpret_cast<uint64_t*>(sStat + 2 * kBwdStages * kTileRows);
   uint64_t* empty = full + kBwdStages;
@@ -197,11 +205,11 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
     producer_registers();
     if (warp == 4 * kWG) {  // its lanes load the stats, lane 0 the tiles
       if (lane == 0) {
-        mbar_expect_tx(kvbar, 2 * kWG * kTileBytes);
+        mbar_expect_tx(kvbar, 2 * kWG * kTB);
         for (int w = 0; w < kWG; ++w) {
           const int row = k0 + kTileRows * w;
-          tma_tile(sK + w * kTileElems, &tk, kvbar, col_k + h * 64, row, b);
-          tma_tile(sV + w * kTileElems, &tv, kvbar, col_v + h * 64, row, b);
+          tma_tile(sK + w * kTE, &tk, kvbar, col_k + h * D, row, b);
+          tma_tile(sV + w * kTE, &tv, kvbar, col_v + h * D, row, b);
         }
       }
       const float* lse_bh = lse + (size_t)bh * N;
@@ -210,10 +218,10 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         const int s = j % kBwdStages;
         mbar_wait(&empty[s], ((j / kBwdStages) & 1) ^ 1);
         if (lane == 0) {
-          mbar_expect_tx(&full[s], 2 * kTileBytes);
-          tma_tile(sQ + s * kTileElems, &tqs, &full[s], h * 64,
+          mbar_expect_tx(&full[s], 2 * kTB);
+          tma_tile(sQ + s * kTE, &tqs, &full[s], h * D,
                    j * kTileRows, b);
-          tma_tile(sdO + s * kTileElems, &tdo, &full[s], h * 64,
+          tma_tile(sdO + s * kTE, &tdo, &full[s], h * D,
                    j * kTileRows, b);
         }
         float* st = sStat + s * 2 * kTileRows;
@@ -239,18 +247,18 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       }
     }
     mbar_wait(kvbar, 0);
-    uint32_t ka[4][4];  // V stays in shared memory: A of dP^T through desc
-    load_a_sw128(ka, sK + wg * kTileElems, r0, 1.f);
-    float dka[8][4] = {}, dva[8][4] = {};
+    uint32_t ka[D / 16][4];  // V stays in shared memory: A of dP^T through desc
+    load_a_sw(ka, sK + wg * kTE, r0, 1.f);
+    float dka[D / 8][4] = {}, dva[D / 8][4] = {};
 
     for (int j = 0; j < T; ++j) {
       const int s = j % kBwdStages;
       mbar_wait(&full[s], (j / kBwdStages) & 1);
-      const bf16* q_tile = sQ + s * kTileElems;
-      const bf16* do_tile = sdO + s * kTileElems;
+      const bf16* q_tile = sQ + s * kTE;
+      const bf16* do_tile = sdO + s * kTE;
       float st[8][4] = {}, dpt[8][4] = {};
-      wgmma_tile<0>(st, ka, q_tile);
-      wgmma_tile_ss<0>(dpt, sV + wg * kTileElems, do_tile);
+      wgmma_tile<0, kRB>(st, ka, q_tile);
+      wgmma_tile_ss<0, kRB>(dpt, sV + wg * kTE, do_tile);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(st);
@@ -275,8 +283,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                                 da[nt >> 1][2 * (nt & 1) + (e >> 1)]);
         }
       }
-      wgmma_tile<1>(dva, pa, do_tile);
-      wgmma_tile<1>(dka, da, q_tile);
+      wgmma_tile<1, kRB>(dva, pa, do_tile);
+      wgmma_tile<1, kRB>(dka, da, q_tile);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(dka);
@@ -285,17 +293,18 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
-    const size_t off = (size_t)b * N * ld_out + h * 64;
+    const size_t off = (size_t)b * N * ld_out + h * D;
     const int row0 = k0 + kTileRows * wg + r0;
     store_acc(dk + off, ld_out, dka, row0, N, dk_fix);
     store_acc(dv + off, ld_out, dva, row0, N, 1.f);
   }
 }
 
-template <bool kScaledCopy, bool kBias>
+template <bool kScaledCopy, bool kBias, int D>
 constexpr size_t smem_dq_bf16() {
   return 1024 +
-         (size_t)(2 * kWG + (kScaledCopy ? 3 : 2) * kBwdStages) * kTileBytes +
+         (size_t)(2 * kWG + (kScaledCopy ? 3 : 2) * kBwdStages) *
+             tile_bytes<D>() +
          (kBias ? kBwdStages * kTileRows * sizeof(float) : 0) +
          (2 * kBwdStages + 1) * sizeof(uint64_t);
 }
@@ -309,7 +318,7 @@ constexpr size_t smem_dq_bf16() {
 // column of plane 0, row stride ld_out. With kBias the whole producer warp
 // runs: lane 0 starts the loads, the lanes stage each tile's bias values
 // ((planes, N) f32 or null; -inf past N).
-template <bool kBaseE, bool kScaledCopy, bool kBias>
+template <bool kBaseE, bool kScaledCopy, bool kBias, int D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     bwd_dq_bf16(const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
@@ -321,13 +330,14 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                 const float* __restrict__ bias, bf16* __restrict__ dq,
                 int ld_out, int N, int H, float acc_mul) {
   constexpr int kLoads = kScaledCopy ? 3 : 2;
+  constexpr int kTE = tile_elems<D>(), kTB = tile_bytes<D>(), kRB = 2 * D;
   extern __shared__ unsigned char wsmem[];
   unsigned char* sm = smem_1024(wsmem);
   bf16* sQ = reinterpret_cast<bf16*>(sm);
-  bf16* sdO = sQ + kWG * kTileElems;
-  bf16* sKV = sdO + kWG * kTileElems;  // per stage: K, V (, K * k_scale)
+  bf16* sdO = sQ + kWG * kTE;
+  bf16* sKV = sdO + kWG * kTE;  // per stage: K, V (, K * k_scale)
   float* sBias =
-      reinterpret_cast<float*>(sKV + kLoads * kBwdStages * kTileElems);
+      reinterpret_cast<float*>(sKV + kLoads * kBwdStages * kTE);
   uint64_t* full = reinterpret_cast<uint64_t*>(
       sBias + (kBias ? kBwdStages * kTileRows : 0));
   uint64_t* empty = full + kBwdStages;
@@ -351,25 +361,25 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
     producer_registers();
     if (warp == 4 * kWG && (kBias || lane == 0)) {
       if (lane == 0) {
-        mbar_expect_tx(qbar, 2 * kWG * kTileBytes);
+        mbar_expect_tx(qbar, 2 * kWG * kTB);
         for (int w = 0; w < kWG; ++w) {
           const int row = q0 + kTileRows * w;
-          tma_tile(sQ + w * kTileElems, &tqs, qbar, h * 64, row, b);
-          tma_tile(sdO + w * kTileElems, &tdo, qbar, h * 64, row, b);
+          tma_tile(sQ + w * kTE, &tqs, qbar, h * D, row, b);
+          tma_tile(sdO + w * kTE, &tdo, qbar, h * D, row, b);
         }
       }
       const float* bias_b = kBias && bias ? bias + (size_t)b * N : nullptr;
       for (int j = 0; j < T; ++j) {
         const int s = j % kBwdStages;
-        bf16* stage = sKV + s * kLoads * kTileElems;
+        bf16* stage = sKV + s * kLoads * kTE;
         mbar_wait(&empty[s], ((j / kBwdStages) & 1) ^ 1);
         if (lane == 0) {
-          mbar_expect_tx(&full[s], kLoads * kTileBytes);
-          tma_tile(stage, &tk, &full[s], col_k + h * 64, j * kTileRows, b);
-          tma_tile(stage + kTileElems, &tv, &full[s], col_v + h * 64,
+          mbar_expect_tx(&full[s], kLoads * kTB);
+          tma_tile(stage, &tk, &full[s], col_k + h * D, j * kTileRows, b);
+          tma_tile(stage + kTE, &tv, &full[s], col_v + h * D,
                    j * kTileRows, b);
           if (kScaledCopy)
-            tma_tile(stage + 2 * kTileElems, &tks, &full[s], h * 64,
+            tma_tile(stage + 2 * kTE, &tks, &full[s], h * D,
                      j * kTileRows, b);
         }
         if (kBias) {
@@ -396,18 +406,18 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       delta_r[half] = row < N ? delta[(size_t)bh * N + row] : 0.f;
     }
     mbar_wait(qbar, 0);
-    uint32_t qa[4][4], da[4][4];
-    load_a_sw128(qa, sQ + wg * kTileElems, r0, 1.f);
-    load_a_sw128(da, sdO + wg * kTileElems, r0, 1.f);
-    float acc[8][4] = {};
+    uint32_t qa[D / 16][4], da[D / 16][4];
+    load_a_sw(qa, sQ + wg * kTE, r0, 1.f);
+    load_a_sw(da, sdO + wg * kTE, r0, 1.f);
+    float acc[D / 8][4] = {};
 
     for (int j = 0; j < T; ++j) {
       const int s = j % kBwdStages;
       mbar_wait(&full[s], (j / kBwdStages) & 1);
-      const bf16* stage = sKV + s * kLoads * kTileElems;
+      const bf16* stage = sKV + s * kLoads * kTE;
       float sc[8][4] = {}, dp[8][4] = {};
-      wgmma_tile<0>(sc, qa, stage);
-      wgmma_tile<0>(dp, da, stage + kTileElems);
+      wgmma_tile<0, kRB>(sc, qa, stage);
+      wgmma_tile<0, kRB>(dp, da, stage + kTE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(sc);
@@ -435,7 +445,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                                 sa[nt >> 1][2 * (nt & 1) + (e >> 1)]);
         }
       }
-      wgmma_tile<1>(acc, sa, stage + (kScaledCopy ? 2 : 0) * kTileElems);
+      wgmma_tile<1, kRB>(acc, sa, stage + (kScaledCopy ? 2 : 0) * kTE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(acc);
@@ -443,13 +453,13 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       if (lane == 0) mbar_arrive(&empty[s]);
     }
 
-    store_acc(dq + (size_t)b * N * ld_out + h * 64, ld_out, acc, row0, N,
+    store_acc(dq + (size_t)b * N * ld_out + h * D, ld_out, acc, row0, N,
               acc_mul);
   }
 }
 
 // -------------------------------------------------------------------------
-// Launchers. B planes of N rows, H heads of 64 columns a plane; each returns
+// Launchers. B planes of N rows, H heads of D columns a plane; each returns
 // 0, kBadArgument or a cudaError_t from the launch set-up (the caller reads
 // cudaGetLastError after).
 // -------------------------------------------------------------------------
@@ -482,30 +492,31 @@ int launch_bwd_prep(const void* q, const void* k, int ldq, int ldk,
   return 0;
 }
 
-template <bool kBaseE, bool kBias>
+template <bool kBaseE, bool kBias, int D = 64>
 int launch_bwd_dkv(const CUtensorMap& tk, const CUtensorMap& tv,
                    const CUtensorMap& tqs, const CUtensorMap& tdo, int col_k,
                    int col_v, const void* lse, const void* delta,
                    const void* bias, void* dk, void* dv, int ld_out, int B,
                    int N, int H, float dk_fix, cudaStream_t st) {
-  auto kernel = bwd_dkv_bf16<kBaseE, kBias>;
-  if (int e = max_smem((const void*)kernel, kSmemDkvBf16)) return e;
-  kernel<<<hopper_grid(B, N, H), kHopperThreads, kSmemDkvBf16, st>>>(
+  constexpr size_t smem = smem_dkv_bf16<D>();
+  auto kernel = bwd_dkv_bf16<kBaseE, kBias, D>;
+  if (int e = max_smem((const void*)kernel, smem)) return e;
+  kernel<<<hopper_grid(B, N, H), kHopperThreads, smem, st>>>(
       tk, tv, tqs, tdo, col_k, col_v, static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const float*>(bias),
       static_cast<bf16*>(dk), static_cast<bf16*>(dv), ld_out, N, H, dk_fix);
   return 0;
 }
 
-template <bool kBaseE, bool kScaledCopy, bool kBias>
+template <bool kBaseE, bool kScaledCopy, bool kBias, int D>
 int launch_bwd_dq_as(const CUtensorMap& tk, const CUtensorMap& tv,
                      const CUtensorMap& tqs, const CUtensorMap& tdo,
                      const CUtensorMap& tks, int col_k, int col_v,
                      const void* lse, const void* delta, const void* bias,
                      void* dq, int ld_out, int B, int N, int H,
                      float acc_mul, cudaStream_t st) {
-  constexpr size_t smem = smem_dq_bf16<kScaledCopy, kBias>();
-  auto kernel = bwd_dq_bf16<kBaseE, kScaledCopy, kBias>;
+  constexpr size_t smem = smem_dq_bf16<kScaledCopy, kBias, D>();
+  auto kernel = bwd_dq_bf16<kBaseE, kScaledCopy, kBias, D>;
   if (int e = max_smem((const void*)kernel, smem)) return e;
   kernel<<<hopper_grid(B, N, H), kHopperThreads, smem, st>>>(
       tk, tv, tqs, tdo, tks, col_k, col_v, static_cast<const float*>(lse),
@@ -516,7 +527,7 @@ int launch_bwd_dq_as(const CUtensorMap& tk, const CUtensorMap& tv,
 
 // tks is null when k_scale is a power of two (the accumulator is scaled);
 // otherwise it maps the prep pass's k * k_scale.
-template <bool kBaseE, bool kBias>
+template <bool kBaseE, bool kBias, int D = 64>
 int launch_bwd_dq(const CUtensorMap& tk, const CUtensorMap& tv,
                   const CUtensorMap& tqs, const CUtensorMap& tdo,
                   const CUtensorMap* tks, int col_k, int col_v,
@@ -524,10 +535,10 @@ int launch_bwd_dq(const CUtensorMap& tk, const CUtensorMap& tv,
                   void* dq, int ld_out, int B, int N, int H, float k_scale,
                   cudaStream_t st) {
   if (!tks && !power_of_two(k_scale)) return kBadArgument;
-  return tks ? launch_bwd_dq_as<kBaseE, true, kBias>(
+  return tks ? launch_bwd_dq_as<kBaseE, true, kBias, D>(
                    tk, tv, tqs, tdo, *tks, col_k, col_v, lse, delta, bias,
                    dq, ld_out, B, N, H, 1.f, st)
-             : launch_bwd_dq_as<kBaseE, false, kBias>(
+             : launch_bwd_dq_as<kBaseE, false, kBias, D>(
                    tk, tv, tqs, tdo, tqs, col_k, col_v, lse, delta, bias, dq,
                    ld_out, B, N, H, k_scale, st);
 }

@@ -15,6 +15,15 @@
 // K-major (the row index is the product's N, the 64 columns its contraction:
 // B = K^T of S = Q K^T) or MN-major (the rows are the contraction: B = V of
 // O = P V), which the descriptor and the trans-b flag select.
+//
+// K4 also takes head dims 16 and 32 (hm_flash_attention.cu): its tiles are
+// then 64 rows of 32 or 64 bytes, written with the 32- or 64-byte swizzle
+// (chunk c of the 16-byte chunks at byte offset o lies at c ^ ((o >> 7) &
+// (row bytes / 16 - 1)), atoms of 8 rows of 256 or 512 bytes). Every piece
+// below that depends on the row width takes the tile's row bytes (kRowBytes,
+// 2 D) or the count of 16-column k-steps (D / 16) as a template parameter,
+// whose default, or whose only instantiation from the 64-column callers,
+// is the 128-byte code these pieces had before.
 
 #pragma once
 
@@ -31,6 +40,16 @@ using bf16 = __nv_bfloat16;
 constexpr int kTileRows = 64;                // rows of every TMA tile
 constexpr int kTileBytes = kTileRows * 128;  // 64 x 64 bf16
 constexpr int kTileElems = kTileRows * 64;
+
+// A 64-row tile of D bf16 columns (D in {16, 32, 64}).
+template <int D>
+__host__ __device__ constexpr int tile_bytes() {
+  return kTileRows * 2 * D;
+}
+template <int D>
+__host__ __device__ constexpr int tile_elems() {
+  return kTileRows * D;
+}
 constexpr int kWarpgroup = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -135,27 +154,34 @@ __device__ __forceinline__ void tma_tile(void* dst, const CUtensorMap* map,
 
 // --- wgmma -----------------------------------------------------------------
 
-// Shared-memory matrix descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1 =
-// 128-byte swizzle. The stride between 8-row atoms is 1024 bytes in both
-// majors; the leading offset is unused at 64 columns (one atom wide).
-__device__ __forceinline__ uint64_t desc_sw128(const void* tile,
-                                               uint32_t lbo) {
+// Shared-memory matrix descriptor of a swizzled operand whose rows are
+// kRowBytes (128, 64 or 32) long: start address, leading and stride byte
+// offsets (16-byte units), layout 1, 2 or 3 = 128-, 64- or 32-byte swizzle.
+// The stride between 8-row atoms is 8 rows in both majors; the leading
+// offset is unused at one atom's width (64 columns at 128 bytes, D at D).
+template <int kRowBytes = 128>
+__device__ __forceinline__ uint64_t desc_sw(const void* tile, uint32_t lbo) {
+  static_assert(kRowBytes == 128 || kRowBytes == 64 || kRowBytes == 32,
+                "rows of 128, 64 or 32 bytes");
+  constexpr uint64_t layout = kRowBytes == 128 ? 1 : kRowBytes == 64 ? 2 : 3;
   return (uint64_t)((smem_u32(tile) & 0x3FFFF) >> 4) |
-         ((uint64_t)lbo << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         (1ull << 62);
+         ((uint64_t)lbo << 16) | ((uint64_t)(8 * kRowBytes >> 4) << 32) |
+         (layout << 62);
 }
 
 // B = tile^T, contraction over the tile's columns (S = Q K^T): k-step kk
 // starts 32 bytes further along the row.
+template <int kRowBytes = 128>
 __device__ __forceinline__ uint64_t desc_kmajor(const void* tile, int kk) {
-  return desc_sw128(tile, 1) + (uint64_t)(2 * kk);
+  return desc_sw<kRowBytes>(tile, 1) + (uint64_t)(2 * kk);
 }
 
 // B = tile, contraction over the tile's rows (O = P V): k-step kk starts 16
-// rows (2048 bytes) further down.
+// rows (16 kRowBytes bytes) further down.
+template <int kRowBytes = 128>
 __device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int kk) {
-  return desc_sw128(tile, 1024 >> 4) + (uint64_t)(128 * kk);
+  return desc_sw<kRowBytes>(tile, 8 * kRowBytes >> 4) +
+         (uint64_t)(kRowBytes * kk);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -187,9 +213,10 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
 
 // Ties the accumulator registers to the preceding wait, so that no read of
 // them is scheduled before the product lands.
-__device__ __forceinline__ void fence_acc(float (&c)[8][4]) {
+template <int NT>
+__device__ __forceinline__ void fence_acc(float (&c)[NT][4]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < NT; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+f"(c[i][j])::"memory");
 }
@@ -220,6 +247,40 @@ __device__ __forceinline__ void wgmma_rs(float (&c)[8][4],
         "n"(kTransB));
 }
 
+// The same product at n = 32 and n = 16 (c holds a warp's 16 x 32 or 16 x
+// 16 accumulator): the P.V-shaped products of K4 at head dims 32 and 16.
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&c)[4][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(c[0][0]), "+f"(c[0][1]), "+f"(c[0][2]), "+f"(c[0][3]),
+        "+f"(c[1][0]), "+f"(c[1][1]), "+f"(c[1][2]), "+f"(c[1][3]),
+        "+f"(c[2][0]), "+f"(c[2][1]), "+f"(c[2][2]), "+f"(c[2][3]),
+        "+f"(c[3][0]), "+f"(c[3][1]), "+f"(c[3][2]), "+f"(c[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&c)[2][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "%14;\n}\n"
+      : "+f"(c[0][0]), "+f"(c[0][1]), "+f"(c[0][2]), "+f"(c[0][3]),
+        "+f"(c[1][0]), "+f"(c[1][1]), "+f"(c[1][2]), "+f"(c[1][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(kTransB));
+}
+
 // The same product with A (64 x 16) also from shared memory, K-major
 // through desc_a.
 template <int kTransB>
@@ -242,48 +303,56 @@ __device__ __forceinline__ void wgmma_ss(float (&c)[8][4], uint64_t desc_a,
       : "l"(desc_a), "l"(desc), "r"(1), "n"(kTransB));
 }
 
-// c += a (64 x 64 from registers, four k-steps) . B: the whole product on
-// one tile, committed and waited for.
-template <int kTransB>
-__device__ __forceinline__ void wgmma_tile(float (&c)[8][4],
-                                           const uint32_t (&a)[4][4],
+// c += a (64 x 16 KS from registers, KS k-steps) . B, B read from the
+// swizzled tile of kRowBytes-long rows (K-major: KS = kRowBytes / 32;
+// MN-major: the tile's 16 KS rows, n = 8 NT = kRowBytes / 2): the whole
+// product on one tile, committed and waited for.
+template <int kTransB, int kRowBytes = 128, int NT, int KS>
+__device__ __forceinline__ void wgmma_tile(float (&c)[NT][4],
+                                           const uint32_t (&a)[KS][4],
                                            const void* tile) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_rs<kTransB>(c, a[kk], kTransB ? desc_mnmajor(tile, kk)
-                                        : desc_kmajor(tile, kk));
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_rs<kTransB>(c, a[kk], kTransB ? desc_mnmajor<kRowBytes>(tile, kk)
+                                        : desc_kmajor<kRowBytes>(tile, kk));
 }
 
-// c += A . B with A the 64 x 64 tile a_tile (its columns the contraction)
-// read from shared memory: for a product whose A operand is used once.
-template <int kTransB>
+// c (n = 64) += A . B with A the 64-row tile a_tile (its kRowBytes / 2
+// columns the contraction) read from shared memory: for a product whose A
+// operand is used once.
+template <int kTransB, int kRowBytes = 128>
 __device__ __forceinline__ void wgmma_tile_ss(float (&c)[8][4],
                                               const void* a_tile,
                                               const void* tile) {
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    wgmma_ss<kTransB>(c, desc_kmajor(a_tile, kk),
-                      kTransB ? desc_mnmajor(tile, kk)
-                              : desc_kmajor(tile, kk));
+  for (int kk = 0; kk < kRowBytes / 32; ++kk)
+    wgmma_ss<kTransB>(c, desc_kmajor<kRowBytes>(a_tile, kk),
+                      kTransB ? desc_mnmajor<kRowBytes>(tile, kk)
+                              : desc_kmajor<kRowBytes>(tile, kk));
 }
 
-// A fragments (k = 64: four k-steps of 16) of rows [r0, r0 + 16) of a
-// swizzled tile, r0 a multiple of 8. With mul != 1 each value is multiplied
-// by mul and rounded to bf16 (the scale fold).
-__device__ __forceinline__ void load_a_sw128(uint32_t (&a)[4][4],
-                                             const __nv_bfloat16* tile,
-                                             int r0, float mul) {
+// A fragments (k = 16 KS: KS k-steps of 16) of rows [r0, r0 + 16) of a
+// swizzled tile of 32 KS-byte rows, r0 a multiple of 8. With mul != 1 each
+// value is multiplied by mul and rounded to bf16 (the scale fold).
+template <int KS>
+__device__ __forceinline__ void load_a_sw(uint32_t (&a)[KS][4],
+                                          const __nv_bfloat16* tile, int r0,
+                                          float mul) {
+  constexpr int kRowBytes = 32 * KS;
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   const unsigned char* base = reinterpret_cast<const unsigned char*>(tile);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
+  for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {  // i: row + 8 (bit 0), column + 8 (bit 1)
       const int row = r0 + g + 8 * (i & 1), chunk = 2 * kk + (i >> 1);
+      // the swizzle: address bits 7.. xor into the chunk index (row % 8 at
+      // 128-byte rows)
+      const int swz = ((row * kRowBytes) >> 7) & (kRowBytes / 16 - 1);
       uint32_t v = *reinterpret_cast<const uint32_t*>(
-          base + row * 128 + ((chunk ^ g) << 4) + 4 * t);
+          base + row * kRowBytes + ((chunk ^ swz) << 4) + 4 * t);
       if (mul != 1.f) {
         const float2 f = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(&v));
@@ -305,10 +374,11 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// Stores rows [r0, r0 + 16) of a warp's 16 x 64 accumulator (times mul) as
-// bf16 at dst + row * ld, rows >= n skipped.
+// Stores rows [r0, r0 + 16) of a warp's 16 x 8 NT accumulator (times mul)
+// as bf16 at dst + row * ld, rows >= n skipped.
+template <int NT>
 __device__ __forceinline__ void store_acc(bf16* dst, size_t ld,
-                                          const float (&c)[8][4], int r0,
+                                          const float (&c)[NT][4], int r0,
                                           int n, float mul) {
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
 #pragma unroll
@@ -316,7 +386,7 @@ __device__ __forceinline__ void store_acc(bf16* dst, size_t ld,
     const int row = r0 + g + 8 * half;
     if (row >= n) continue;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
       *reinterpret_cast<__nv_bfloat162*>(dst + row * ld + 8 * nt + 2 * t) =
           __floats2bfloat162_rn(c[nt][2 * half] * mul,
                                 c[nt][2 * half + 1] * mul);
@@ -360,24 +430,29 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// 64 x 64 swizzled boxes of a bf16 tensor of `planes` planes of `rows` rows
+// 64-row swizzled boxes of a bf16 tensor of `planes` planes of `rows` rows
 // of `cols` values: row stride `ld` and plane stride `plane` in elements.
-// Box (c0, c1, c2) covers columns [c0, c0 + 64) of rows [c1, c1 + 64) of
-// plane c2; rows >= `rows` read as zeros. Returns 0 or a negative error.
+// Box (c0, c1, c2) covers columns [c0, c0 + box_cols) of rows [c1, c1 + 64)
+// of plane c2; rows >= `rows` read as zeros. box_cols is 64 (128-byte
+// swizzle), 32 (64-byte) or 16 (32-byte). Returns 0 or a negative error.
 int tile_map(CUtensorMap* map, const void* base, long cols, long rows,
-             long planes, long ld, long plane) {
+             long planes, long ld, long plane, int box_cols = 64) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return kNoTensorMapEntry;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)planes};
   const cuuint64_t strides[2] = {(cuuint64_t)ld * 2, (cuuint64_t)plane * 2};
-  const cuuint32_t box[3] = {64, kTileRows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, kTileRows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+      : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                       : CU_TENSOR_MAP_SWIZZLE_32B;
+  if (box_cols != 64 && box_cols != 32 && box_cols != 16) return kBadTensorMap;
   const CUresult r = encode(
       map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kBadTensorMap;
 }
 

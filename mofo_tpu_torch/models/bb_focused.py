@@ -11,6 +11,7 @@ in-box (local) and out-box (global) token sets:
   'MCA'           cross-attention blocks (queries: all tokens, kv: the
                   out-box tokens through a kv bias row), then the mean over
                   the in-box tokens; its attention is flash_attention_mh (K3)
+                  unless attention dropout is active
 Per sample, no in-box token falls back to the plain token mean, and an
 empty out-box set makes the kv the in-box set. Every mode is a masked,
 batched computation.
@@ -95,7 +96,8 @@ class VisionTransformerBBFocused(nn.Module):
         if fusing_method == "MCA":
             self.local_MCA = nn.ModuleList(
                 MCABlock(embed_dim, mca_num_heads, mlp_ratio, qkv_bias,
-                         qk_scale, init_values, dtype, generator)
+                         qk_scale, init_values, dtype, generator,
+                         drop=drop_rate, attn_drop=attn_drop_rate)
                 for _ in range(mca_depth)
             )
         self.fc_norm = nn.LayerNorm(embed_dim, eps=1e-6)
@@ -110,7 +112,8 @@ class VisionTransformerBBFocused(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B, T, H, W, C); boxes: (B, T, 4) per-frame pixel boxes.
         Returns (B, num_classes) logits (the pooled features without a
-        head). `generator` draws the backbone's drop-path masks."""
+        head). `generator` draws the dropout and drop-path masks (in train
+        mode)."""
         tokens = self.backbone(x, generator, return_tokens=True)
         in_map = token_in_box_map(boxes, tubelet_size=self.tubelet_size,
                                   patches_per_side=self.patches_per_side,
@@ -133,7 +136,7 @@ class VisionTransformerBBFocused(nn.Module):
             kv_mask = torch.where(has_out[:, None], out_map, in_map)
             mca = tokens
             for blk in self.local_MCA:
-                mca = blk(mca, tokens, kv_mask)
+                mca = blk(mca, tokens, kv_mask, generator)
             fused = _masked_mean(mca, in_map)
         if mode != "org":
             fused = torch.where(has_in[:, None], fused, plain_mean)

@@ -1,12 +1,13 @@
 """Video classification ViT (finetuning backbone + head).
 
 Counterpart of mofo_tpu/models/classifier.py (reference
-modeling_finetune.py:305-420): patch embedding, the frozen sin-cos table,
-Blocks over all tokens (K1/K2 at the published widths; layers.Attention
-has the routes), then fc_norm of the token mean (use_mean_pooling) or the
-final norm, and the head. Every linear is trunc-normal(.02) with a zero
-bias, the head's weight scaled by init_scale. Dropout is not ported:
-drop_rate and attn_drop_rate must be 0, as in every recipe.
+modeling_finetune.py:305-420): patch embedding, the frozen sin-cos table
+and its dropout (pos_drop), Blocks over all tokens (K1/K2 at the published
+widths; layers.Attention has the routes, and drop_rate / attn_drop_rate
+are every Block's dropouts), then fc_norm of the token mean
+(use_mean_pooling) or the final norm, and the head. Every linear is
+trunc-normal(.02) with a zero bias, the head's weight scaled by init_scale.
+attn_impl and sow_attn go to every Block's Attention.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from torch import nn
 from mofo_tpu_torch.models.layers import (
     Block,
     PatchEmbed,
+    dropout,
     get_sinusoid_encoding_table,
     init_trunc_normal,
     layer_norm,
@@ -38,13 +40,11 @@ class VisionTransformer(nn.Module):
                  attn_drop_rate=0.0, drop_path_rate=0.0, init_values=0.0,
                  init_scale=0.0, all_frames=16, tubelet_size=2,
                  use_mean_pooling=True, tokens_only=False,
-                 dtype=torch.float32, generator=None):
+                 dtype=torch.float32, generator=None, attn_impl="auto",
+                 sow_attn=False):
         super().__init__()
-        if drop_rate or attn_drop_rate:
-            raise NotImplementedError(
-                "dropout is not ported: drop_rate and attn_drop_rate must be 0"
-            )
         self.dtype = dtype
+        self.drop_rate = drop_rate
         self.use_mean_pooling = use_mean_pooling
         self.patch_embed = PatchEmbed(img_size, patch_size, in_chans,
                                       embed_dim, all_frames, tubelet_size,
@@ -58,7 +58,9 @@ class VisionTransformer(nn.Module):
         dpr = [float(r) for r in np.linspace(0.0, drop_path_rate, depth)]
         self.blocks = nn.ModuleList(
             Block(embed_dim, num_heads, mlp_ratio, qkv_bias, qk_scale,
-                  dpr[i], init_values, dtype, generator)
+                  dpr[i], init_values, dtype, generator, attn_impl,
+                  drop=drop_rate, attn_drop=attn_drop_rate,
+                  sow_attn=sow_attn)
             for i in range(depth)
         )
         self.norm = (None if use_mean_pooling
@@ -74,9 +76,11 @@ class VisionTransformer(nn.Module):
 
     def backbone_tokens(self, x: torch.Tensor,
                         generator: Optional[torch.Generator] = None):
-        """Patch-embed + pos + blocks -> (B, N, D) token features."""
+        """Patch-embed + pos (+ its dropout) + blocks -> (B, N, D) token
+        features."""
         tokens = self.patch_embed(x.to(self.dtype))
         tokens = tokens + self.pos_embed.to(tokens.dtype)
+        tokens = dropout(tokens, self.drop_rate, self.training, generator)
         for blk in self.blocks:
             tokens = blk(tokens, generator)
         if self.norm is not None:
@@ -100,7 +104,8 @@ class VisionTransformer(nn.Module):
         """x: (B, T, H, W, C). Returns (B, num_classes) logits; the pooled
         (B, D) features with return_features (the reference's
         VisionTransformer_feat_ext); the (B, N, D) tokens with
-        return_tokens. `generator` draws the drop-path masks."""
+        return_tokens. `generator` draws the dropout and drop-path masks
+        (in train mode)."""
         tokens = self.backbone_tokens(x, generator)
         if return_tokens:
             return tokens

@@ -2,8 +2,10 @@
 
 Counterpart of mofo_tpu/models/layers.py (reference modeling_finetune.py):
 Mlp, Attention, Block, PatchEmbed and the BB-focused classifier's
-CrossAttention, MCABlock and SoftAttention. Dropout is not ported (every
-recipe runs it at rate 0); drop path draws from an explicit generator.
+CrossAttention, MCABlock and SoftAttention. Dropout and drop path are
+active in train mode only (nn.Module.training, the JAX modules'
+deterministic=False) and draw their masks from an explicit generator
+(ops.attention.keep_mask).
 Parameters are float32 and carry the reference's state_dict names; each
 matmul casts its operands to the module's compute dtype, as the JAX
 modules do (this is not torch.autocast). LayerNorm runs in f32.
@@ -23,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mofo_tpu_torch.ops import attention
 from mofo_tpu_torch.ops.attention import (
     _PALLAS_MIN_SEQ,
     dot_product_attention,
@@ -32,7 +35,6 @@ from mofo_tpu_torch.ops.flash_attention import (
     flash_attention_qkv,
 )
 from mofo_tpu_torch.ops.patchify import patchify_flat
-from mofo_tpu_torch.parallel import ddp
 
 
 @functools.lru_cache(maxsize=16)
@@ -105,11 +107,21 @@ def drop_path(x: torch.Tensor, rate: float, training: bool,
     if generator is None:
         raise ValueError(f"drop path at rate {rate} needs an explicit "
                          "torch.Generator")
-    keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = ddp.per_sample(lambda s: torch.rand(
-        s, generator=generator, device=x.device), shape) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    mask = attention.keep_mask(shape, rate, generator, x.device)
+    return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's nn.Dropout: where(keep, x / (1 - rate), 0) with keep ~
+    Bernoulli(1 - rate) of x's shape, drawn from `generator` by
+    ops.attention.keep_mask. Outside training or at rate 0 it returns x
+    and draws nothing."""
+    if not training or rate == 0.0:
+        return x
+    keep = attention.keep_mask(x.shape, rate, generator, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 class DropPath(nn.Module):
@@ -123,54 +135,73 @@ class DropPath(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU -> fc2 (reference modeling_finetune.py:34-51). In bf16
+    """fc1 -> GELU -> fc2 -> dropout (reference modeling_finetune.py:34-51;
+    one dropout, after fc2, as mofo_tpu/models/layers.py:125-132). In bf16
     the GELU is the tanh form computed in f32; otherwise exact erf, as in
     mofo_tpu/models/layers.py:119-124."""
 
     def __init__(self, in_features: int, hidden_features: int,
-                 dtype: torch.dtype = torch.float32, generator=None):
+                 dtype: torch.dtype = torch.float32, generator=None,
+                 drop: float = 0.0):
         super().__init__()
         self.dtype = dtype
+        self.drop = drop
         self.fc1 = nn.Linear(in_features, hidden_features)
         self.fc2 = nn.Linear(hidden_features, in_features)
         init_linear(self.fc1, generator)
         init_linear(self.fc2, generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = linear(x, self.fc1, self.dtype)
         if self.dtype == torch.bfloat16:
             x = F.gelu(x.float(), approximate="tanh").to(self.dtype)
         else:
             x = F.gelu(x)
-        return linear(x, self.fc2, self.dtype)
+        x = linear(x, self.fc2, self.dtype)
+        return dropout(x, self.drop, self.training, generator)
 
 
 class Attention(nn.Module):
     """Multi-head self-attention with a fused qkv projection, learned q/v
     biases and the k bias pinned to zero (reference modeling_finetune.py:
-    54-98). Attention takes one of two routes, chosen from the shapes alone
-    as mofo_tpu/models/layers.py:189-219 chooses on a TPU: the flat route,
-    flash_attention_qkv (K1/K2) on the fused (B, N, 3A) projection, when
-    N >= 128 and A = H * Dh is a multiple of 128; otherwise the head-major
-    route, a (3, B, H, N, Dh) copy of the projection and
-    dot_product_attention (K4 for N >= 128, plain math below). attn_impl
-    "pallas" takes the kernels at every N (flat where A is aligned), "xla"
-    the plain head-major math."""
+    54-98). Attention takes one of two routes, chosen from the shapes and
+    the switches alone as mofo_tpu/models/layers.py:186-219 chooses on a
+    TPU: the flat route, flash_attention_qkv (K1/K2) on the fused
+    (B, N, 3A) projection, when N >= 128, A = H * Dh is a multiple of 128
+    and there is no attention bias, no active attention dropout and no
+    sowing; otherwise the head-major route, a (3, B, H, N, Dh) copy of the
+    projection and dot_product_attention (K4 for N >= 128 without a bias or
+    active dropout, the plain math otherwise). attn_impl "pallas" takes the
+    kernels at every N (flat where A is aligned; it raises on a bias or
+    active dropout), "xla" the plain head-major math.
+
+    attn_head_dim overrides dim // num_heads (A = attn_head_dim * H).
+    attn_drop drops attention probabilities and proj_drop the projected
+    output, in train mode. With sow_attn every forward keeps the f32
+    softmax of (q * scale) k^T as attn_probs, (B, H, N, N): the
+    counterpart of sow("intermediates", "attn_probs", ...)."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
                  qk_scale: Optional[float] = None,
                  dtype: torch.dtype = torch.float32, generator=None,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", attn_drop: float = 0.0,
+                 proj_drop: float = 0.0,
+                 attn_head_dim: Optional[int] = None,
+                 sow_attn: bool = False):
         super().__init__()
         if attn_impl not in ("auto", "xla", "pallas"):
             raise ValueError(f"unknown attn_impl {attn_impl!r} (auto, xla, "
                              "pallas)")
         self.num_heads = num_heads
-        head_dim = dim // num_heads
+        head_dim = attn_head_dim or dim // num_heads
         self.all_head_dim = all_head_dim = head_dim * num_heads
         self.scale = qk_scale or head_dim ** -0.5
         self.dtype = dtype
         self.attn_impl = attn_impl
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
+        self.sow_attn = sow_attn
+        self.attn_probs = None
         self.qkv = nn.Linear(dim, 3 * all_head_dim, bias=False)
         if qkv_bias:
             self.q_bias = nn.Parameter(torch.zeros(all_head_dim))
@@ -181,33 +212,63 @@ class Attention(nn.Module):
         init_linear(self.qkv, generator)
         init_linear(self.proj, generator)
 
-    def uses_flat(self, n_tokens: int) -> bool:
-        """Whether a sequence of n_tokens takes the flat K1/K2 route."""
+    def _drop_active(self) -> bool:
+        return self.training and self.attn_drop > 0.0
+
+    def uses_flat(self, n_tokens: int,
+                  attn_bias: Optional[torch.Tensor] = None) -> bool:
+        """Whether a sequence of n_tokens takes the flat K1/K2 route. The
+        "pallas" impl raises on a bias or active attention dropout."""
         aligned = self.all_head_dim % 128 == 0
         if self.attn_impl == "pallas":
-            return aligned
-        return (self.attn_impl == "auto" and n_tokens >= _PALLAS_MIN_SEQ
-                and aligned)
+            if attn_bias is not None:
+                raise ValueError(
+                    "attn_impl='pallas' does not support an attention bias")
+            if self._drop_active():
+                raise ValueError(
+                    "attn_impl='pallas' does not support attention dropout")
+            return not self.sow_attn and aligned
+        fusable = (attn_bias is None and not self._drop_active()
+                   and not self.sow_attn)
+        return (fusable and self.attn_impl == "auto"
+                and n_tokens >= _PALLAS_MIN_SEQ and aligned)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                attn_bias: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, N, dim); attn_bias broadcasts to (B, H, N, N) (f32,
+        additive); `generator` draws the dropout masks in train mode."""
         B, N, _ = x.shape
         qkv = F.linear(x.to(self.dtype), self.qkv.weight.to(self.dtype))
         if self.q_bias is not None:
             qkv = qkv + torch.cat(
                 [self.q_bias, torch.zeros_like(self.q_bias), self.v_bias]
             ).to(self.dtype)
-        if self.uses_flat(N):
+        if self.uses_flat(N, attn_bias):
             out = flash_attention_qkv(
                 qkv, scale=self.scale, num_heads=self.num_heads
             )
         else:
             qkv = qkv.reshape(B, N, 3, self.num_heads, -1).permute(
                 2, 0, 3, 1, 4).contiguous()  # (3, B, H, N, Dh)
-            out = dot_product_attention(qkv[0], qkv[1], qkv[2],
-                                        scale=self.scale,
-                                        impl=self.attn_impl)
+            q, k, v = qkv[0], qkv[1], qkv[2]
+            if self.sow_attn:
+                logits = torch.matmul((q * self.scale).float(),
+                                      k.float().transpose(-1, -2))
+                self.attn_probs = torch.softmax(logits, dim=-1)
+            # explicit pallas lands here for sowing (the probabilities are
+            # materialized: the plain math) or an unaligned flat layout
+            # (the head-major kernel)
+            impl = self.attn_impl
+            if impl == "pallas":
+                impl = "xla" if self.sow_attn else "pallas"
+            out = dot_product_attention(
+                q, k, v, scale=self.scale, bias=attn_bias,
+                dropout_rate=self.attn_drop, deterministic=not self.training,
+                generator=generator, impl=impl)
             out = out.transpose(1, 2).reshape(B, N, self.all_head_dim)
-        return linear(out, self.proj, self.dtype)
+        out = linear(out, self.proj, self.dtype)
+        return dropout(out, self.proj_drop, self.training, generator)
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype: torch.dtype):
@@ -223,15 +284,20 @@ class Block(nn.Module):
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
                  drop_path_rate: float = 0.0, init_values: float = 0.0,
                  dtype: torch.dtype = torch.float32, generator=None,
-                 attn_impl: str = "auto"):
+                 attn_impl: str = "auto", drop: float = 0.0,
+                 attn_drop: float = 0.0,
+                 attn_head_dim: Optional[int] = None,
+                 sow_attn: bool = False):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = Attention(dim, num_heads, qkv_bias, qk_scale, dtype,
-                              generator, attn_impl)
+                              generator, attn_impl, attn_drop=attn_drop,
+                              proj_drop=drop, attn_head_dim=attn_head_dim,
+                              sow_attn=sow_attn)
         self.drop_path = DropPath(drop_path_rate)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, generator)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, generator, drop)
         if init_values > 0:
             self.gamma_1 = nn.Parameter(torch.full((dim,), init_values))
             self.gamma_2 = nn.Parameter(torch.full((dim,), init_values))
@@ -240,13 +306,15 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """`generator` draws the drop-path masks (needed at a rate > 0)."""
+        """`generator` draws the dropout and drop-path masks (needed at a
+        rate > 0 in train mode)."""
         in_dtype = x.dtype
-        a = self.attn(layer_norm(x, self.norm1, self.dtype))
+        a = self.attn(layer_norm(x, self.norm1, self.dtype),
+                      generator=generator)
         if self.gamma_1 is not None:
             a = a * self.gamma_1.to(a.dtype)
         x = x + self.drop_path(a, generator)
-        m = self.mlp(layer_norm(x, self.norm2, self.dtype))
+        m = self.mlp(layer_norm(x, self.norm2, self.dtype), generator)
         if self.gamma_2 is not None:
             m = m * self.gamma_2.to(m.dtype)
         x = x + self.drop_path(m, generator)
@@ -299,15 +367,21 @@ class PatchEmbed(nn.Module):
 class CrossAttention(nn.Module):
     """Cross-attention, queries from x and keys/values from y (reference
     modeling_finetune.py:100-160): a q projection with a learned q bias, a
-    fused kv projection whose bias is cat(0, v_bias), and the masked
-    attention of flash_attention_mh on the flat (B, N, A) layout with
-    kv_bias = 0 / -1e30 from kv_mask (mofo_tpu/models/layers.py:369-396)."""
+    fused kv projection whose bias is cat(0, v_bias), then attention routed
+    as mofo_tpu/models/layers.py:365-434 routes it: without active
+    attention dropout and with as many queries as keys, the masked
+    attention of flash_attention_mh (K3) on the flat (B, N, A) layout with
+    kv_bias = 0 / -1e30 from kv_mask; otherwise the head-major plain math
+    with an additive -inf bias from kv_mask and attention dropout.
+    proj_drop drops the projected output in train mode."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
                  qk_scale: Optional[float] = None,
                  attn_head_dim: Optional[int] = None,
-                 dtype: torch.dtype = torch.float32, generator=None):
+                 dtype: torch.dtype = torch.float32, generator=None,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
+        self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.num_heads = num_heads
         head_dim = attn_head_dim or dim // num_heads
         self.all_head_dim = all_head_dim = head_dim * num_heads
@@ -324,41 +398,62 @@ class CrossAttention(nn.Module):
         init_trunc_normal(self, generator)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor,
-                kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        dt, A = self.dtype, self.all_head_dim
+                kv_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`generator` draws the dropout masks in train mode."""
+        dt, A, H = self.dtype, self.all_head_dim, self.num_heads
+        (B, Nx, _), Ny = x.shape, y.shape[1]
         q = F.linear(x.to(dt), self.q.weight.to(dt))
         kv = F.linear(y.to(dt), self.kv.weight.to(dt))
         if self.q_bias is not None:
             q = q + self.q_bias.to(dt)
             kv = kv + torch.cat(
                 [torch.zeros_like(self.v_bias), self.v_bias]).to(dt)
-        kv_bias = None
-        if kv_mask is not None:
-            # every sample keeps a valid column (the BB fusing falls back to
-            # the in-box set when the out-box set is empty)
-            kv_bias = torch.where(kv_mask, 0.0, -1e30).to(torch.float32)
-        out = flash_attention_mh(q, kv[..., :A], kv[..., A:],
-                                 scale=self.scale, num_heads=self.num_heads,
-                                 kv_bias=kv_bias)
-        return linear(out, self.proj, dt)
+        if not (self.training and self.attn_drop > 0.0) and Nx == Ny:
+            kv_bias = None
+            if kv_mask is not None:
+                # every sample keeps a valid column (the BB fusing falls
+                # back to the in-box set when the out-box set is empty)
+                kv_bias = torch.where(kv_mask, 0.0, -1e30).to(torch.float32)
+            out = flash_attention_mh(q, kv[..., :A], kv[..., A:],
+                                     scale=self.scale, num_heads=H,
+                                     kv_bias=kv_bias)
+        else:
+            qh = q.reshape(B, Nx, H, -1).transpose(1, 2)
+            kvh = kv.reshape(B, Ny, 2, H, -1)
+            k, v = kvh[:, :, 0].transpose(1, 2), kvh[:, :, 1].transpose(1, 2)
+            bias = None
+            if kv_mask is not None:  # (B, Ny) -> additive (B, 1, 1, Ny)
+                bias = torch.where(kv_mask[:, None, None, :], 0.0,
+                                   -torch.inf).to(torch.float32)
+            out = dot_product_attention(
+                qh, k, v, scale=self.scale, bias=bias,
+                dropout_rate=self.attn_drop, deterministic=not self.training,
+                generator=generator, impl="xla")
+            out = out.transpose(1, 2).reshape(B, Nx, A)
+        out = linear(out, self.proj, dt)
+        return dropout(out, self.proj_drop, self.training, generator)
 
 
 class MCABlock(nn.Module):
     """The BB-focused classifier's cross-attention block, "MCA" (reference
     modeling_finetune.py:162-191): norm1 on both x and y, cross-attention,
-    then an MLP, both residual (no drop path, as in the JAX model)."""
+    then an MLP, both residual (no drop path, as in the JAX model). drop is
+    the projection's and the MLP's dropout, attn_drop the attention's."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
                  init_values: float = 0.0,
-                 dtype: torch.dtype = torch.float32, generator=None):
+                 dtype: torch.dtype = torch.float32, generator=None,
+                 drop: float = 0.0, attn_drop: float = 0.0):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = CrossAttention(dim, num_heads, qkv_bias, qk_scale,
-                                   dtype=dtype, generator=generator)
+                                   dtype=dtype, generator=generator,
+                                   attn_drop=attn_drop, proj_drop=drop)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, generator)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, generator, drop)
         init_trunc_normal(self.mlp, generator)
         if init_values > 0:
             self.gamma_1 = nn.Parameter(torch.full((dim,), init_values))
@@ -367,13 +462,15 @@ class MCABlock(nn.Module):
             self.gamma_1 = self.gamma_2 = None
 
     def forward(self, x: torch.Tensor, y: torch.Tensor,
-                kv_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                kv_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         a = self.attn(layer_norm(x, self.norm1, self.dtype),
-                      layer_norm(y, self.norm1, self.dtype), kv_mask)
+                      layer_norm(y, self.norm1, self.dtype), kv_mask,
+                      generator)
         if self.gamma_1 is not None:
             a = a * self.gamma_1.to(a.dtype)
         x = x + a
-        m = self.mlp(layer_norm(x, self.norm2, self.dtype))
+        m = self.mlp(layer_norm(x, self.norm2, self.dtype), generator)
         if self.gamma_2 is not None:
             m = m * self.gamma_2.to(m.dtype)
         return x + m

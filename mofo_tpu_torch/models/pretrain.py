@@ -42,7 +42,8 @@ class PretrainEncoder(nn.Module):
                  embed_dim=768, depth=12, num_heads=12, mlp_ratio=4.0,
                  qkv_bias=True, qk_scale=None, drop_path_rate=0.0,
                  init_values=0.0, tubelet_size=2, num_frames=16,
-                 dtype=torch.float32, generator=None, attn_impl="auto"):
+                 dtype=torch.float32, generator=None, attn_impl="auto",
+                 drop_rate=0.0, attn_drop_rate=0.0):
         super().__init__()
         self.dtype = dtype
         self.patch_embed = PatchEmbed(img_size, patch_size, in_chans,
@@ -58,14 +59,15 @@ class PretrainEncoder(nn.Module):
             depth, drop_path_rate, generator, dim=embed_dim,
             num_heads=num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
             qk_scale=qk_scale, init_values=init_values, dtype=dtype,
-            attn_impl=attn_impl,
+            attn_impl=attn_impl, drop=drop_rate, attn_drop=attn_drop_rate,
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
 
     def forward(self, x: torch.Tensor, vis_idx: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
         """x: flat patch rows (B, N, P) or a clip (B, T, H, W, C); vis_idx
-        (B, N_vis); `generator` draws the drop-path masks. Returns
+        (B, N_vis); `generator` draws the dropout and drop-path masks.
+        Returns
         (B, N_vis, D)."""
         tokens = self.patch_embed(x)
         tokens = tokens + self.pos_embed.to(tokens.dtype)
@@ -82,14 +84,15 @@ class PretrainDecoder(nn.Module):
     def __init__(self, num_classes=1536, embed_dim=384, depth=4,
                  num_heads=6, mlp_ratio=4.0, qkv_bias=True, qk_scale=None,
                  drop_path_rate=0.0, init_values=0.0, dtype=torch.float32,
-                 generator=None, attn_impl="auto"):
+                 generator=None, attn_impl="auto", drop_rate=0.0,
+                 attn_drop_rate=0.0):
         super().__init__()
         self.dtype = dtype
         self.blocks = _blocks(
             depth, drop_path_rate, generator, dim=embed_dim,
             num_heads=num_heads, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
             qk_scale=qk_scale, init_values=init_values, dtype=dtype,
-            attn_impl=attn_impl,
+            attn_impl=attn_impl, drop=drop_rate, attn_drop=attn_drop_rate,
         )
         self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
         self.head = nn.Linear(embed_dim, num_classes)
@@ -110,7 +113,8 @@ class PretrainVisionTransformer(nn.Module):
     (modeling_pretrain.py:163-266). attn_impl ("auto" | "xla" | "pallas")
     goes to every Block's Attention, which picks its route from it and the
     shapes (the ViT-S decoder's 3 x 64 heads take the head-major K4
-    route)."""
+    route); drop_rate and attn_drop_rate are every Block's dropouts, in
+    the encoder and the decoder."""
 
     def __init__(self, img_size=224, patch_size=16, encoder_in_chans=3,
                  encoder_embed_dim=768, encoder_depth=12,
@@ -119,19 +123,21 @@ class PretrainVisionTransformer(nn.Module):
                  decoder_num_heads=6, mlp_ratio=4.0, qkv_bias=True,
                  qk_scale: Optional[float] = None, drop_path_rate=0.0,
                  init_values=0.0, tubelet_size=2, num_frames=16,
-                 dtype=torch.float32, generator=None, attn_impl="auto"):
+                 dtype=torch.float32, generator=None, attn_impl="auto",
+                 drop_rate=0.0, attn_drop_rate=0.0):
         super().__init__()
         self.dtype = dtype
         self.encoder = PretrainEncoder(
             img_size, patch_size, encoder_in_chans, encoder_embed_dim,
             encoder_depth, encoder_num_heads, mlp_ratio, qkv_bias, qk_scale,
             drop_path_rate, init_values, tubelet_size, num_frames, dtype,
-            generator, attn_impl,
+            generator, attn_impl, drop_rate, attn_drop_rate,
         )
         self.decoder = PretrainDecoder(
             decoder_num_classes, decoder_embed_dim, decoder_depth,
             decoder_num_heads, mlp_ratio, qkv_bias, qk_scale,
             drop_path_rate, init_values, dtype, generator, attn_impl,
+            drop_rate, attn_drop_rate,
         )
         self.encoder_to_decoder = nn.Linear(
             encoder_embed_dim, decoder_embed_dim, bias=False
@@ -154,7 +160,8 @@ class PretrainVisionTransformer(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: flat patch rows (B, N, P) or a clip (B, T, H, W, C);
         vis_idx (B, N_vis), masked_idx (B, N_mask) from mask_to_indices;
-        `generator` draws the drop-path masks (needed at a rate > 0).
+        `generator` draws the dropout and drop-path masks (needed at a
+        rate > 0 in train mode).
         Returns (B, N_mask, decoder_num_classes) pixel predictions."""
         x_vis = self.encoder(x.to(self.dtype), vis_idx, generator)
         x_vis = linear(x_vis, self.encoder_to_decoder, self.dtype)

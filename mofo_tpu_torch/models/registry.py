@@ -3,9 +3,11 @@
 Counterpart of mofo_tpu/models/registry.py: the pretraining models
 (:39-80) and the finetuning ones (:85-155).
 create_model(name, device=..., dtype=..., seed=..., **overrides) returns
-the nn.Module on its device (the pretraining models take attn_impl among
-the overrides), initialised from `seed` on the CPU (so a seed gives the
-same weights on every device) and then moved.
+the nn.Module on its device, initialised from `seed` on the CPU (so a seed
+gives the same weights on every device) and then moved. The overrides
+reach the model's constructor: drop_rate and attn_drop_rate on every
+model, attn_impl on the pretraining models and the classifiers, sow_attn
+on the classifiers.
 """
 
 from __future__ import annotations
@@ -84,11 +86,11 @@ def pretrain_videomae_large_patch16_224(**kwargs):
 @register_model
 def pretrain_videomae_tiny_debug(**kwargs):
     """Rebuild-only CI preset (no reference counterpart): 2-block dim-64
-    encoder + dim-32 decoder. Neither width is a multiple of 128, so every
-    Block takes the head-major route: plain attention math below 128 tokens
-    (on the card too), K4 from 128 on, whose CUDA kernels take 64-dim heads
-    only and raise on these 32-dim ones (the CPU runs their plain
-    versions)."""
+    encoder (2 x 32 heads) + dim-32 decoder (2 x 16 heads). Neither width
+    is a multiple of 128, so every Block takes the head-major route: plain
+    attention math below 128 tokens (on the card too), K4 from 128 on,
+    whose CUDA kernels are built for head dims 16, 32 and 64 (the CPU runs
+    their plain versions)."""
     return _pretrain(64, 2, 2, 32, 2, **kwargs)
 
 
@@ -142,10 +144,10 @@ def vit_large_patch16_512(**kwargs):
 @register_model
 def vit_tiny_debug(**kwargs):
     """Rebuild-only CI preset (no reference counterpart): 2-block dim-64
-    classifier. Its Blocks take the head-major route, as
+    classifier (2 x 32 heads). Its Blocks take the head-major route, as
     pretrain_videomae_tiny_debug's do: plain math below 128 tokens on
-    every device; from 128 tokens, K4, whose CUDA kernels raise on 32-dim
-    heads."""
+    every device; from 128 tokens, K4 (head dims 16, 32 and 64 on the
+    card)."""
     return _vit(64, 2, 2, **kwargs)
 
 
@@ -180,7 +182,7 @@ def vit_tiny_debug_BB_focused(**kwargs):
     """Rebuild-only CI preset of the port (no reference counterpart): the
     BB-focused model on vit_tiny_debug's 2-block dim-64 backbone with a
     2-head MCA, for the finetune CLI's CPU tests. Its 32-dim heads take the
-    plain versions on the CPU; on the card K3 (head dims 64 and 256) and K4
-    raise on them."""
+    plain versions on the CPU; on the card the backbone's take K4 from 128
+    tokens, and the MCA's K3 (head dims 64 and 256) raises on them."""
     kwargs.setdefault("mca_num_heads", 2)
     return _bb(64, 2, 2, **kwargs)

@@ -43,7 +43,8 @@ repeats the kernel's numerics (module docstring of the .cu file):
 A third interface, flash_attention (:427), takes head-major (B, H, N, D)
 q, k, v and runs K4 (_fwd_impl / _fwd_kernel, _bwd_impl / _dq_kernel and
 _dkv_kernel), here csrc/hm_flash_attention.cu on the (B*H, N, D) view, for
-D = 64. Its numerics differ from K1/K3's in two ways: it works in base e in
+D in HM_HEAD_DIMS (16, 32, 64: the head dims of every registry preset). Its
+numerics differ from K1/K3's in two ways: it works in base e in
 every dtype, and it rounds the normalized p / l (not the un-normalized P)
 to the input dtype before P.V. Its bf16 backward runs a prep pass
 (hm_attn_bwd_prep: delta and q * scale) before its two kernels, as K2's.
@@ -60,6 +61,7 @@ import torch
 LOG2E = 1.4426950408889634
 HEAD_DIM = 64  # the one head dim the fused-qkv CUDA kernels are built for
 MH_HEAD_DIMS = (64, 256)  # the head dims of the K3 kernels
+HM_HEAD_DIMS = (16, 32, 64)  # the head dims of the K4 kernels
 
 # the bf16 backward runs qkv_attn_bwd_prep once before its two kernels; the
 # f32 backward runs the two kernels alone (QKV_F32_KERNELS)
@@ -820,9 +822,9 @@ def _check_hm(q, *others):
     """Raises on (B*H, N, D) tensors the K4 kernels do not take."""
     if q.ndim != 3:
         raise ValueError(f"q must be (B*H, N, D), got {tuple(q.shape)}")
-    if q.shape[-1] != HEAD_DIM:
+    if q.shape[-1] not in HM_HEAD_DIMS:
         raise ValueError(f"head dim {q.shape[-1]} unsupported: the kernels "
-                         f"are built for {HEAD_DIM}")
+                         f"are built for {HM_HEAD_DIMS}")
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernels need CUDA tensors, got {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):

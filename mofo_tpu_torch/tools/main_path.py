@@ -17,7 +17,7 @@ tools/profile_step.py and tests/test_torch_gpu.py.
   `mh_inputs` / `mh_attention_against_plain`: the same for the masked
   multihead kernels (K3) on q, k, v and a kv bias row;
   `hm_inputs` / `hm_attention_against_plain`: the same for the head-major
-  kernels (K4) on (B*H, N, 64) q, k, v;
+  kernels (K4) on (B*H, N, D) q, k, v, D in 16, 32, 64;
   `compare_with_plain` / `check_against_plain`: the bounds that hold one
   against the other, `check_prep` / `check_mh_prep` / `check_hm_prep`: the
   bf16 backwards' prep passes against their plain versions, and
@@ -160,16 +160,17 @@ def _through_plain(step):
 
 
 def build_step(B: int, name: str = MODEL, plain: bool = False,
-               wrap: bool = False, **overrides):
+               wrap: bool = False, dtype: str = "bfloat16", **overrides):
     """The MOFO pretrain step of model `name` (ViT-B by default) on CUDA at
-    batch B; `overrides` go to create_model (the checks cut the depth).
-    With `plain` the step's attention runs the plain versions on the card
-    (plain_attention); with `wrap` the step trains the model through
-    parallel.ddp.wrap_model (a process group must be up). Returns (model,
-    state, step_fn, generator, batch)."""
+    batch B in compute dtype `dtype`; `overrides` go to create_model (the
+    checks cut the depth). With `plain` the step's attention runs the plain
+    versions on the card (plain_attention); with `wrap` the step trains the
+    model through parallel.ddp.wrap_model (a process group must be up).
+    Returns (model, state, step_fn, generator, batch)."""
     cfg = PretrainConfig(model=name, batch_size=B, masking=MaskingConfig(
-        mask_type="tube_bb"), motion_loss_weight=True)
-    model = create_model(name, dtype=torch.bfloat16, seed=1, **overrides)
+        mask_type="tube_bb"), motion_loss_weight=True, dtype=dtype)
+    model = create_model(name, dtype=getattr(torch, dtype), seed=1,
+                         **overrides)
     lr = schedules.cosine_schedule(1.5e-4, 1e-5, 800, 100, 40)
     tx = optim.create_optimizer(dict(model.named_parameters()),
                                 lr_schedule=lr, betas=(0.9, 0.95),
@@ -194,10 +195,12 @@ def synthetic_finetune_batch(B: int, generator: torch.Generator,
 
 def finetune_model(cfg: FinetuneConfig, device="cuda", seed: int = 2,
                    **overrides):
-    """The BB-focused classifier of `cfg` (its fusing mode, classes, drop
-    path and head init scale), compute dtype cfg.dtype."""
+    """The BB-focused classifier of `cfg` (its fusing mode, classes,
+    dropout, drop path and head init scale), compute dtype cfg.dtype."""
     kw = dict(img_size=cfg.input_size, all_frames=cfg.num_frames,
-              num_classes=cfg.nb_classes, drop_path_rate=cfg.drop_path,
+              num_classes=cfg.nb_classes, drop_rate=cfg.drop,
+              attn_drop_rate=cfg.attn_drop_rate,
+              drop_path_rate=cfg.drop_path,
               init_scale=cfg.init_scale, fusing_method=cfg.fusing_mode,
               use_mean_pooling=cfg.use_mean_pooling)
     kw.update(overrides)
@@ -298,15 +301,18 @@ def memory_box_json(paths, hw=(256, 320)) -> dict:
 
 
 def build_finetune_step(B: int, plain: bool = False, depth: int = 12,
-                        augment: bool = False, dtype: str = "bfloat16"):
+                        augment: bool = False, dtype: str = "bfloat16",
+                        **cfg_fields):
     """The ViT-B BB-focused MCA finetune step on CUDA at batch B, its
     backbone `depth` Blocks deep (the checks cut it). With `plain` the
     step's attention runs the plain versions on the card (plain_attention);
     with `augment` the batch is synthetic_clips_u8's and the step augments
     it as the finetune CLI does (RandAugment, crop, flip, erasing); in
-    dtype "float16" the state carries the dynamic loss scale. Returns
-    (model, state, step_fn, generator, batch, cfg)."""
-    cfg = FinetuneConfig(batch_size=B, model=FINETUNE_MODEL, dtype=dtype)
+    dtype "float16" the state carries the dynamic loss scale; `cfg_fields`
+    set more FinetuneConfig fields (drop, attn_drop_rate). Returns (model,
+    state, step_fn, generator, batch, cfg)."""
+    cfg = FinetuneConfig(batch_size=B, model=FINETUNE_MODEL, dtype=dtype,
+                         **cfg_fields)
     model = finetune_model(cfg, depth=depth)
     pretrain = create_model(MODEL, dtype=torch.bfloat16, seed=1,
                             encoder_depth=depth)
@@ -514,10 +520,11 @@ def mh_attention_against_plain(q, k, v, kv_bias, heads: int, scale: float):
     return got, want
 
 
-def hm_inputs(BH: int, N: int, dtype: torch.dtype, seed: int, device):
-    """q, k, v (B*H, N, 64) contiguous, standard normal, for K4."""
+def hm_inputs(BH: int, N: int, dtype: torch.dtype, seed: int, device,
+              D: int = 64):
+    """q, k, v (B*H, N, D) contiguous, standard normal, for K4."""
     g = torch.Generator().manual_seed(seed)
-    return tuple(torch.randn(BH, N, fa.HEAD_DIM, generator=g).to(dtype)
+    return tuple(torch.randn(BH, N, D, generator=g).to(dtype)
                  .to(device) for _ in range(3))
 
 
@@ -644,7 +651,7 @@ def check_mh_prep(q, k, out, dout, heads: int, scale: float) -> dict:
 
 
 def check_hm_prep(q, k, out, dout, scale: float) -> dict:
-    """check_prep for hm_attn_bwd_prep on (B*H, N, 64) tensors."""
+    """check_prep for hm_attn_bwd_prep on (B*H, N, D) tensors."""
     return _prep_against_plain(
         fa.hm_attn_bwd_prep(q, k, out, dout, scale),
         fa.attention_hm_bwd_prep_plain(q, k, out, dout, scale),

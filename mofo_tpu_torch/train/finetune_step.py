@@ -9,16 +9,18 @@ norm, the optimizer update and EMA; the eval step's loss, acc1 and acc5
 with the `valid` weighting.
 
 Random draws have four roles, as the JAX step splits its key: the
-augmentation and then drop path draw on the device from the
-torch.Generator the caller hands each step; mixup draws on the host from
-an np.random.Generator seeded from (cfg.seed, the step), so a resumed run
-draws what an uninterrupted one draws; dropout is not ported (every recipe
-runs it at rate 0). adahessian (second_order) is not ported yet and raises
+augmentation and then the model's dropout and drop path (in the order the
+model's modules run) draw on the device from the torch.Generator the
+caller hands each step; mixup draws on the host from an
+np.random.Generator seeded from (cfg.seed, the step), so a resumed run
+draws what an uninterrupted one draws. Dropout (--drop, --attn_drop_rate)
+is active in the train step only: the eval step runs the model in eval
+mode. adahessian (second_order) is not ported yet and raises
 NotImplementedError (ROADMAP Queue 1, item 17).
 
 A model wrapped by parallel.ddp.wrap_model trains data-parallel, as in
-train/pretrain_step.py: the augmentation, mixup and drop path draw the
-global batch's draws and mixup's partner rows come from rank W-1-r
+train/pretrain_step.py: the augmentation, mixup, dropout and drop path
+draw the global batch's draws and mixup's partner rows come from rank W-1-r
 (ops/mixup.py); the criterion is a mean over equal local batches, so DDP's
 mean over the ranks is the global one; the loss metric is the ranks' mean.
 The fp16 skip reads the gradient norm of the reduced gradients, so every
@@ -93,7 +95,7 @@ def make_finetune_step(
     augment_fn is given: augment_fn(generator, batch) -> batch runs first,
     inside the step (mofo_tpu/train/finetune_step.py:103-106). With
     update_freq > 1, B splits into that many microbatches. `generator` (on
-    the step's device) draws the augmentation, then drop path;
+    the step's device) draws the augmentation, then dropout and drop path;
     `mixup_params` replaces the mixup draws, one MixupParams per
     microbatch (or a single one when update_freq is 1; at the global count
     in a data-parallel step), for tests. `model` may be wrapped by

@@ -444,6 +444,39 @@ def test_hm_backward_with_a_scale_not_a_power_of_two(cuda, N):
         q.dtype), 0.1)["ks"] is True
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32])
+@pytest.mark.parametrize("N", [1, 65, 200, 1568])
+def test_hm_kernels_at_head_dims_16_and_32(cuda, hd, N, dtype):
+    """K4 at the tiny presets' head dims (64- and 32-byte rows, their own
+    swizzles in bf16), forward and backward at N on both sides of the
+    tiles, scale D^-0.5 (at 32 no power of two: dQ's scaled-K copy):
+    within the bounds, the prep pass against its own, faults rejected."""
+    q, k, v = hm_inputs(4, N, dtype, hd + N, cuda, D=hd)
+    got, want = hm_attention_against_plain(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
+    _check_at_edge(got, want, N)
+    if dtype == torch.bfloat16:
+        res = check_hm_prep(q, k, got["out"], (2 * got["out"].float()).to(
+            q.dtype), hd ** -0.5)
+        assert res["ks"] is (True if hd == 32 else None)
+    faults = hm_planted_faults(got)
+    if N == 1:  # dQ is rounding noise around 0 there (_check_at_edge)
+        del faults["dq_zero"]
+    for fault, outputs in faults.items():
+        assert compare_with_plain(outputs, want)["beyond_bounds"], fault
+
+
+def test_hm_autograd_at_head_dim_16_runs_the_kernels(cuda):
+    q, k, v = hm_inputs(4, 160, torch.bfloat16, 3, cuda, D=16)
+    ts = [t.reshape(2, 2, 160, 16).clone().requires_grad_(True)
+          for t in (q, k, v)]
+    fa.reset_launch_counts()
+    (fa.flash_attention(*ts, scale=0.25).float() ** 2).sum().backward()
+    assert fa.launch_counts == {**dict.fromkeys(fa.KERNELS, 0),
+                                **dict.fromkeys(fa.HM_KERNELS, 1)}
+
+
 def test_hm_bf16_autograd_runs_the_prep_pass(cuda):
     q, k, v = hm_inputs(6, 100, torch.bfloat16, 2, cuda)
     ts = [t.reshape(2, 3, 100, D).clone().requires_grad_(True)
@@ -477,7 +510,7 @@ def test_hm_autograd_runs_the_kernels(cuda):
 
 
 def test_hm_wrapper_rejects_what_the_kernels_do_not_take(cuda):
-    x = torch.zeros(2, 8, 32, device=cuda)
+    x = torch.zeros(2, 8, 48, device=cuda)  # built for 16, 32 and 64
     with pytest.raises(ValueError, match="head dim"):
         fa.hm_attn_fwd(x, x, x, 1.0)
     h = torch.zeros(2, 8, D, device=cuda, dtype=torch.float16)

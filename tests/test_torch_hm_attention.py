@@ -80,6 +80,31 @@ def test_bf16_matches_tpu_kernel(N):
         np.testing.assert_allclose(p, j, atol=3e-2, rtol=3e-2)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32])
+def test_head_dims_16_and_32_match_tpu_kernel(hd, dtype):
+    """K4's plain versions at the tiny presets' head dims (BH = 2, N = 130,
+    past one 128-row tile) against the interpret-mode TPU K4, forward and
+    the gradients of sum(out^2), at the bounds of the D = 64 cases."""
+    rng = np.random.RandomState(hd)
+    x = [rng.randn(1, 2, 130, hd).astype(np.float32) for _ in range(3)]
+    scale = hd ** -0.5
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    j_out, j_grads = _jax_run(x, jdt, scale)
+    ts = [torch.from_numpy(a).to(dtype).requires_grad_(True) for a in x]
+    out = fa.flash_attention(*ts, scale=scale)
+    (out.float() ** 2).sum().backward()
+    p_out = out.detach().float().numpy()
+    p_grads = [t.grad.float().numpy() for t in ts]
+    for p, j, atol in zip([p_out] + p_grads, [j_out] + j_grads,
+                          [2e-5, 1e-4, 1e-4, 1e-4]):
+        if dtype == torch.float32:
+            np.testing.assert_allclose(p, j, atol=atol, rtol=0)
+        else:
+            assert np.abs(p - j).max() <= 2.0 ** -6 * np.abs(j).max()
+            np.testing.assert_allclose(p, j, atol=3e-2, rtol=3e-2)
+
+
 def _prep_route(x, dtype, scale):
     """The backward as the bf16 kernels split it, in plain versions: the
     forward, dout = d sum(out^2) / d out, the prep pass, then dQ, dK and dV
@@ -176,8 +201,8 @@ def test_kernel_bounds_reject_planted_faults(dtype):
 
 
 def test_wrapper_rejects_what_the_kernels_do_not_take():
-    x = torch.zeros(2, 8, 32)
-    with pytest.raises(ValueError, match="head dim"):
+    x = torch.zeros(2, 8, 48)  # the kernels are built for 16, 32 and 64
+    with pytest.raises(ValueError, match=r"head dim 48.*\(16, 32, 64\)"):
         fa._check_hm(x)
     x = torch.zeros(2, 8, D)
     with pytest.raises(ValueError, match="CUDA tensors"):
