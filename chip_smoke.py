@@ -231,6 +231,36 @@ Phases, each printing one JSON line:
                budget of CHUNK_PAIRS pairs (3 calls) and in one call: flows
                and per-frame boxes equal, each run's peak memory and seconds,
                the boxes' mean IoU with the square.
+ 28. zoo_parity - every distinct first-order zoo entry (ZOO_PARITY_OPTS:
+               the 20 base names but adahessian, lookahead over adamw and
+               sgd), three f32 steps each (seven for radam and lookahead:
+               RAdam's rectified branch and a lookahead sync run, both
+               checked) of the ViT-B pretrain at full width
+               cut to 2+1 Blocks, B=1, on the card (K1/K2's f32 kernels, at
+               least one launch each) and on the CPU from the same weights
+               and masks: parameters, losses and gradient norms within
+               ZOO_PARAM_RTOL, the parameters' change within
+               ZOO_UPDATE_RTOL of the CPU's; then two AdamP updates, the
+               second from gradients orthogonal to the weights in
+               mofo_tpu's channel view: the change card against CPU within
+               ZOO_PARAM_RTOL, and with the planted fault (the channel view
+               on the port's own axis 0) beyond it.
+ 29. zoo_steps - the full ViT-B pretrain step (bf16, B=16, K1/K2) with
+               adamw, lamb, adafactor, adamp and lookahead_adamw: ms a step
+               from CUDA events over a chain of 5, the update's own ms, peak
+               memory and the launches a step (16 of each, as `step`).
+ 30. adahessian_step - the full ViT-B pretrain step with adahessian on the
+               plain attention route (bf16, B=16): no kernel launch, a
+               finite loss, ms a step and peak memory; the probe z * Hz at
+               2+1 Blocks in f32, card against CPU with the same injected z
+               (ZOO_PARAM_RTOL); one ViT-B BB-focused MCA finetune step with
+               adahessian under the fp16 loss scale (B=10): finite, not
+               skipped, no kernel launch. An OOM fails the phase.
+ 31. zoo_runner - the ViT-S pretrain runner (phase `runner`'s flags) with
+               --opt lookahead_adamp: 2 epochs; checkpoint-1 read back into
+               a fresh state equals the run's own state bit for bit
+               (moments, slow weights, count, parameters); then resumed for
+               a third epoch, launches a step as phase `runner`'s.
 Then the card's nvidia-smi line, the kernels line and, last, the ok line.
 Any failed check raises, and the script exits non-zero without the ok line.
 """
@@ -310,6 +340,7 @@ from mofo_tpu_torch.tools.main_path import (
     synthetic_clips_u8,
     synthetic_finetune_batch,
 )
+from mofo_tpu_torch.train import checkpoint as ckpt
 from mofo_tpu_torch.train import optim
 from mofo_tpu_torch.train.finetune_step import (
     make_eval_step,
@@ -473,6 +504,31 @@ CHUNK_FRAMES = 16
 CHUNK_PAIRS = 5
 SQUARE = 360
 SQUARE_STEP = (6, 4)  # px a frame, (x, y)
+# the optimizer zoo (phases zoo_parity, zoo_steps, adahessian_step,
+# zoo_runner): every distinct first-order entry of mofo_tpu's 30 names (the
+# fused* and nvnovograd aliases left out), lookahead over two of them
+ZOO_PARITY_OPTS = ("adamw", "adam", "sgd", "nesterov", "momentum", "lamb",
+                   "adafactor", "rmsprop", "adadelta", "lars", "lion",
+                   "nadam", "radam", "novograd", "adamax", "adagrad",
+                   "adabelief", "yogi", "adamp", "sgdp", "lookahead_adamw",
+                   "lookahead_sgd")
+ZOO_PARITY_STEPS = 3
+# where a branch starts later: lookahead syncs at update 6, and RAdam
+# rectifies from rho_t >= 5 (rho_t = 5.7 at update 6 with b2 = 0.95)
+ZOO_PARITY_LONG = ("radam", "lookahead_adamw", "lookahead_sgd")
+ZOO_PARITY_LONG_STEPS = 7
+LOOKAHEAD_K = 6
+# card against CPU in f32: ||card - CPU|| / ||CPU|| over the parameters (and
+# the probe), and the loss and gradient norm, within the f32 step bound
+ZOO_PARAM_RTOL = 1e-4
+# and the parameters' change, card against CPU, relative to the CPU's: an
+# update skipped, doubled or of the wrong sign is off by 1 or more, while
+# Lion's signs may flip where their argument is ~0 (~1e-3 at ViT-B width)
+ZOO_UPDATE_RTOL = 1e-2
+ZOO_STEP_OPTS = ("adamw", "lamb", "adafactor", "adamp", "lookahead_adamw")
+ZOO_STEP_CHAIN = 5  # timed steps between two CUDA events
+ADAHESSIAN_CHAIN = 3
+ZOO_RUNNER_OPT = "lookahead_adamp"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -2622,6 +2678,394 @@ def phase_factory_chunks(smi: str) -> None:
                              f"equal {boxes_equal}")
 
 
+# --- the optimizer zoo and second-order training ---------------------------
+
+
+def _rel(a: dict, b: dict) -> float:
+    """||a - b|| / ||b|| over every tensor of two name -> tensor dicts (on
+    the CPU, f64 sums)."""
+    num = sum(float((a[n].double() - b[n].double()).square().sum())
+              for n in b)
+    den = sum(float(b[n].double().square().sum()) for n in b)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def _host(params: dict) -> dict:
+    """f32 copies on the CPU (never views of the tensors)."""
+    return {n: p.detach().float().cpu().clone() for n, p in params.items()}
+
+
+def _cut_vitb(dev: str, **overrides):
+    """ViT-B width cut to 2+1 Blocks, the weights of phase_parity."""
+    return create_model(MODEL, device=dev, seed=5, encoder_depth=2,
+                        decoder_depth=1, **overrides)
+
+
+def _parity_inputs(steps: int):
+    """phase_parity's clip and boxes (B=1) and one tube_bb mask a step."""
+    gen = torch.Generator().manual_seed(7)
+    batch = synthetic_batch(1, gen, "cpu")
+    masks = [masking.motion_tube_mask(batch["boxes"], generator=gen)
+             for _ in range(steps)]
+    cfg = PretrainConfig(model=MODEL, batch_size=1, dtype="float32",
+                         masking=MaskingConfig(mask_type="tube_bb"),
+                         motion_loss_weight=True)
+    return cfg, batch, masks
+
+
+def _channel_orthogonal(params: dict, seed: int) -> dict:
+    """Gradients orthogonal to each weight in every row of mofo_tpu's
+    channel view (axis 0 of optim.jax_layout): where AdamP projects."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for n, p in params.items():
+        g = torch.randn(p.shape, generator=gen)
+        if p.ndim >= 2:
+            pj = optim.jax_layout(n, p).double()
+            gj = optim.jax_layout(n, g).double()
+            pm, gm = pj.reshape(pj.shape[0], -1), gj.reshape(gj.shape[0], -1)
+            gm = gm - pm * (gm * pm).sum(1, keepdim=True) / (pm * pm).sum(
+                1, keepdim=True)
+            g = optim.torch_layout(n, gm.reshape(pj.shape).float(),
+                                   p.shape).contiguous()
+        out[n] = g
+    return out
+
+
+@contextlib.contextmanager
+def _channels_on_torch_axis():
+    """The planted AdamP fault: the channel view on the port's own axis 0
+    (a Linear's output features), not mofo_tpu's."""
+    kept = optim.jax_layout, optim.torch_layout
+    optim.jax_layout = lambda name, t: t
+    optim.torch_layout = lambda name, t, shape: t
+    try:
+        yield
+    finally:
+        optim.jax_layout, optim.torch_layout = kept
+
+
+def _adamp_fault_check() -> dict:
+    """Two AdamP updates (lr 1e-3) of the cut ViT-B's weights, from random
+    gradients and then from channel-orthogonal ones, whose projection takes
+    out the first step's momentum along the weights. The parameters' change
+    on the card against the CPU's within ZOO_PARAM_RTOL (relative to the
+    CPU's change), the card's with the channel view on the torch axis
+    beyond it."""
+    params = _host(dict(_cut_vitb("cpu").named_parameters()))
+    gen = torch.Generator().manual_seed(2)
+    grads = [{n: torch.randn(p.shape, generator=gen)
+              for n, p in params.items()},
+             _channel_orthogonal(params, seed=3)]
+    lr = np.full(2, 1e-3, np.float32)
+
+    def one(dev: str, fault: bool) -> dict:
+        p = {n: t.to(dev).clone() for n, t in params.items()}
+        tx = optim.create_optimizer(p, opt="adamp", lr_schedule=lr,
+                                    weight_decay=0.05)
+        st = tx.init(p)
+        with _channels_on_torch_axis() if fault else contextlib.nullcontext():
+            for g in grads:
+                tx.update({n: t.to(dev) for n, t in g.items()}, st, p)
+        return {n: t - params[n] for n, t in _host(p).items()}
+
+    cpu = one("cpu", False)
+    out = {"card_vs_cpu": _rel(one("cuda", False), cpu),
+           "torch_axis_fault_vs_cpu": _rel(one("cuda", True), cpu),
+           "update_rel": _rel({n: params[n] + d for n, d in cpu.items()},
+                              params)}
+    if not out["card_vs_cpu"] <= ZOO_PARAM_RTOL:
+        raise AssertionError(f"AdamP card vs CPU: {out}")
+    if not out["torch_axis_fault_vs_cpu"] > ZOO_PARAM_RTOL:
+        raise AssertionError(f"the planted AdamP fault passed: {out}")
+    return out
+
+
+def _radam_rho(t: int, b2: float) -> float:
+    """optax.scale_by_radam's rho_t at update t (>= 5: rectified)."""
+    ro_inf = 2.0 / (1.0 - b2) - 1.0
+    return ro_inf - 2.0 * t * b2 ** t / (1.0 - b2 ** t)
+
+
+def phase_zoo_parity() -> dict:
+    """Every distinct first-order zoo entry: ZOO_PARITY_STEPS f32 steps
+    (ZOO_PARITY_LONG_STEPS for ZOO_PARITY_LONG, so that their later branch
+    runs) of the ViT-B pretrain at full width cut to 2+1 Blocks, B=1, on
+    the card (K1/K2's f32 kernels) and on the CPU (their plain versions)
+    from the same weights and masks; then AdamP's planted fault. Returns
+    the card runs' launches."""
+    cfg, batch, masks = _parity_inputs(ZOO_PARITY_LONG_STEPS)
+    t0 = time.perf_counter()
+    total = dict.fromkeys(fa.KERNELS, 0)
+    results = {}
+    for opt in ZOO_PARITY_OPTS:
+        steps = (ZOO_PARITY_LONG_STEPS if opt in ZOO_PARITY_LONG
+                 else ZOO_PARITY_STEPS)
+        lr = np.full(steps, 1e-4, np.float32)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            model = _cut_vitb(dev)
+            named = dict(model.named_parameters())
+            start = _host(named)
+            tx = optim.create_optimizer(named, opt=opt, lr_schedule=lr,
+                                        betas=(0.9, 0.95), weight_decay=0.05)
+            state = TrainState.create(model, tx)
+            step = make_pretrain_step(model, tx, cfg, lr, device=dev)
+            fa.reset_launch_counts()
+            losses, norms = [], []
+            for s in range(steps):
+                state, m = step(state, {k: v.to(dev) for k, v in
+                                        batch.items()}, None, 0.5,
+                                mask=masks[s].to(dev))
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            slow = state.opt_state.slow
+            runs[dev] = {"loss": losses, "grad_norm": norms,
+                         "params": _host(named),
+                         "launches": dict(fa.launch_counts),
+                         "synced": slow is not None and any(
+                             not torch.equal(t.cpu(), start[n])
+                             for n, t in slow.items())}
+        card, cpu = runs["cuda"], runs["cpu"]
+        for k, v in card["launches"].items():
+            total[k] += v
+        if min(card["launches"][k] for k in fa.QKV_F32_KERNELS) < 1:
+            raise AssertionError(f"{opt}: the card run skipped a kernel: "
+                                 f"{card['launches']}")
+        res = {"params_rel": _rel(card["params"], cpu["params"]),
+               "update_err": _rel(
+                   {n: t - start[n] for n, t in card["params"].items()},
+                   {n: t - start[n] for n, t in cpu["params"].items()}),
+               "update_rel": _rel(cpu["params"], start),
+               "loss_rel": max(abs(a - b) / abs(b) for a, b in
+                               zip(card["loss"], cpu["loss"])),
+               "grad_norm_rel": max(abs(a - b) / abs(b) for a, b in
+                                    zip(card["grad_norm"],
+                                        cpu["grad_norm"])),
+               "loss": card["loss"], "steps": steps}
+        if opt.startswith("lookahead_") and not (card["synced"]
+                                                 and cpu["synced"]):
+            raise AssertionError(f"{opt}: no lookahead sync in {steps} "
+                                 f"steps (k = {LOOKAHEAD_K})")
+        if opt == "radam":
+            res["rho_last"] = _radam_rho(steps, b2=0.95)
+            if not res["rho_last"] >= 5.0:
+                raise AssertionError(f"radam never rectified: {res}")
+        results[opt] = res
+        worst = max(res["params_rel"], res["loss_rel"], res["grad_norm_rel"])
+        if not (worst <= ZOO_PARAM_RTOL
+                and res["update_err"] <= ZOO_UPDATE_RTOL):
+            raise AssertionError(f"{opt}: card vs CPU beyond "
+                                 f"{ZOO_PARAM_RTOL} / {ZOO_UPDATE_RTOL}: "
+                                 f"{res}")
+    fault = _adamp_fault_check()
+    emit("zoo_parity", model=MODEL, depth="2+1", dtype="float32", batch=1,
+         steps=ZOO_PARITY_STEPS, steps_long=ZOO_PARITY_LONG_STEPS,
+         bound=ZOO_PARAM_RTOL, results=results,
+         adamp_fault=fault, launches=total,
+         seconds=time.perf_counter() - t0)
+    return total
+
+
+def _timed_chain(step, state, batch, gen, n: int):
+    """n steps between two CUDA events: (state, ms a step, last metrics)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        state, m = step(state, batch, gen, 0.5)
+    end.record()
+    end.synchronize()
+    return state, start.elapsed_time(end) / n, m
+
+
+def phase_zoo_steps(smi: str) -> dict:
+    """The full ViT-B pretrain step (bf16, B=16, K1/K2) with each of
+    ZOO_STEP_OPTS: step ms from CUDA events over a chain of steps, the
+    update's own ms (ZOO_STEP_CHAIN updates of a second optimizer of the
+    same entry on the last step's gradients), peak memory and the launches
+    per step (phase_step's). Returns the launches."""
+    n = ZOO_STEP_CHAIN
+    per_step = STEP_LAUNCHES[MODEL]
+    total = dict.fromkeys(fa.KERNELS, 0)
+    out = {}
+    for opt in ZOO_STEP_OPTS:
+        model, state, step, gen, batch = build_step(STEP_BATCH, opt=opt)
+        state, _ = step(state, batch, gen, 0.5)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        state, step_ms, m = _timed_chain(step, state, batch, gen, n)
+        launches = dict(fa.launch_counts)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        loss = float(m["loss"])
+        if launches != {k: n * v for k, v in per_step.items()}:
+            raise AssertionError(f"{opt}: launches {launches}, expected "
+                                 f"{n} x {per_step}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"{opt}: loss {loss}")
+        for k, v in launches.items():
+            total[k] += v
+        named = state.params
+        grads = {k: p.grad for k, p in named.items()}
+        tx = optim.create_optimizer(named, opt=opt, lr_schedule=np.full(
+            1, 1e-6, np.float32), betas=(0.9, 0.95), weight_decay=0.05)
+        st = tx.init(named)
+        update_ms = time_ms(lambda: tx.update(grads, st, named), runs=5,
+                            warmup=1, run_ms=0.0)
+        out[opt] = {"step_ms": step_ms, "update_ms": update_ms,
+                    "peak_mem_gib": peak, "loss": loss,
+                    "launches_per_step": {k: v / n
+                                          for k, v in launches.items()}}
+        del model, state, step, batch, named, grads, tx, st
+        torch.cuda.empty_cache()
+    emit("zoo_steps", model=MODEL, dtype="bfloat16", batch=STEP_BATCH,
+         chain=n, results=out, device=torch.cuda.get_device_name(0),
+         nvidia_smi=smi)
+    return total
+
+
+class _Recorder:
+    """An optimizer that applies nothing and keeps the gradients and the
+    probe its step hands it."""
+
+    def init(self, params):
+        return None
+
+    def update(self, grads, state, params, hessian_diag=None):
+        self.grads = _host(grads)
+        self.hess = _host(hessian_diag)
+
+
+def phase_adahessian_step(smi: str) -> dict:
+    """adahessian: the full ViT-B pretrain step on the plain attention route
+    (bf16, B=16: 29 GiB at peak), no kernel launched; its probe at 2+1
+    Blocks in f32, card against CPU with the same injected z; one ViT-B
+    BB-focused MCA finetune step under the fp16 loss scale (B=10: 71 GiB at
+    peak; an OOM fails the phase). Returns the launches (all 0)."""
+    fa.reset_launch_counts()
+    model, state, step, gen, batch = build_step(STEP_BATCH, opt="adahessian")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = step(state, batch, gen, 0.5)  # warm-up
+    state, ms, m = _timed_chain(step, state, batch, gen, ADAHESSIAN_CHAIN)
+    vitb = {"step_ms": ms, "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "batch": STEP_BATCH}
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    if not np.isfinite(vitb["loss"]):
+        raise AssertionError(f"adahessian ViT-B: {vitb}")
+
+    # the probe, card against CPU, z injected
+    cfg, batch, masks = _parity_inputs(1)
+    lr = np.full(1, 1e-4, np.float32)
+    probe = {}
+    for dev in ("cpu", "cuda"):
+        model = _cut_vitb(dev, attn_impl="xla")
+        named = dict(model.named_parameters())
+        if dev == "cpu":
+            z = optim.rademacher(named, torch.Generator().manual_seed(11))
+        rec = _Recorder()
+        step = make_pretrain_step(model, rec, cfg, lr, device=dev,
+                                  second_order=True)
+        _, m = step(TrainState.create(model, rec),
+                    {k: v.to(dev) for k, v in batch.items()}, None, 0.5,
+                    mask=masks[0].to(dev),
+                    probe_z=[{n: t.to(dev) for n, t in z.items()}])
+        probe[dev] = {"loss": float(m["loss"]), "grads": rec.grads,
+                      "hess": rec.hess}
+    parity = {"probe_rel": _rel(probe["cuda"]["hess"], probe["cpu"]["hess"]),
+              "grads_rel": _rel(probe["cuda"]["grads"],
+                                probe["cpu"]["grads"]),
+              "loss_rel": abs(probe["cuda"]["loss"] - probe["cpu"]["loss"])
+              / abs(probe["cpu"]["loss"])}
+    if not max(parity.values()) <= ZOO_PARAM_RTOL:
+        raise AssertionError(f"adahessian probe card vs CPU: {parity}")
+
+    model, state, step, gen, batch, _ = build_finetune_step(
+        FT_BATCH, dtype="float16", opt="adahessian")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    ft = {"step_ms": (time.perf_counter() - t0) * 1e3,
+          "metrics": {k: float(v) for k, v in m.items()},
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "batch": FT_BATCH}
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    launches = dict(fa.launch_counts)
+    emit("adahessian_step", model=MODEL, dtype="bfloat16", vitb=vitb,
+         probe_parity=dict(parity, depth="2+1", dtype="float32",
+                           bound=ZOO_PARAM_RTOL),
+         finetune_fp16=dict(ft, model=FINETUNE_MODEL), launches=launches,
+         device=torch.cuda.get_device_name(0), nvidia_smi=smi)
+    if any(launches.values()):
+        raise AssertionError(f"adahessian launched kernels: {launches}")
+    m = ft["metrics"]
+    if not (np.isfinite(m["loss"]) and m["skipped"] == 0.0
+            and m["loss_scale"] == 128.0):
+        raise AssertionError(f"adahessian fp16 finetune step: {ft}")
+    return launches
+
+
+def phase_zoo_runner(smi: str) -> dict:
+    """The ViT-S pretrain runner with --opt lookahead_adamp: 2 epochs, the
+    last checkpoint read back into a fresh state equal to the run's own,
+    then resumed for a third epoch (the lookahead syncs at step 6)."""
+    argv = RUNNER_ARGS + ["--opt", ZOO_RUNNER_OPT]
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        args = pretrain_mofo.get_args(argv + ["--epochs", "2",
+                                              "--output_dir", out],
+                                      mofo_defaults=True)
+        first, _, s1 = _quiet_main(pretrain_mofo.main, args)
+        model = create_model(VITS_MODEL, seed=9)
+        named = dict(model.named_parameters())
+        tx = optim.create_optimizer(named, opt=ZOO_RUNNER_OPT,
+                                    lr_schedule=np.ones(1, np.float32))
+        back = TrainState.create(model, tx)
+        ckpt.load_checkpoint(os.path.join(out, "checkpoint-1.pth"), model,
+                             back)
+        ours, theirs = first.opt_state, back.opt_state
+        differ = [f"{f}:{n}" for f, buf in ours.buffers.items()
+                  for n, t in buf.items()
+                  if not torch.equal(t, theirs.buffers[f][n])]
+        differ += [f"slow:{n}" for n, t in ours.slow.items()
+                   if not torch.equal(t, theirs.slow[n])]
+        differ += [n for n, p in first.params.items()
+                   if not torch.equal(p.detach(), back.params[n].detach())]
+        counts = [ours.count, theirs.count]
+        del model, named, tx, back
+        args = pretrain_mofo.get_args(argv + ["--epochs", "3",
+                                              "--output_dir", out],
+                                      mofo_defaults=True)
+        last, _, s2 = _quiet_main(pretrain_mofo.main, args)
+        launches = dict(fa.launch_counts)
+        log = _runner_log(out)
+    per_step = {k: v / last.step for k, v in launches.items()}
+    emit("zoo_runner", model=VITS_MODEL, opt=ZOO_RUNNER_OPT, args=argv,
+         steps=[first.step, last.step], counts_read_back=counts,
+         differ_after_read_back=differ[:5], seconds=[s1, s2],
+         losses=[line["train_loss"] for line in log],
+         launches_per_step=per_step, nvidia_smi=smi)
+    if differ or counts != [4, 4]:
+        raise AssertionError(f"the state read back differs: {differ[:5]}, "
+                             f"counts {counts}")
+    if [first.step, last.step] != [4, 6] or [
+            line["epoch"] for line in log] != [0, 1, 2]:
+        raise AssertionError(f"the runner took other steps: {log}")
+    if not all(np.isfinite(line["train_loss"]) for line in log):
+        raise AssertionError(f"non-finite losses: {log}")
+    if per_step != STEP_LAUNCHES[VITS_MODEL]:
+        raise AssertionError(f"launches per step {per_step}")
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -2648,13 +3092,17 @@ def main() -> int:
              "launches_ddp_runner": phase_ddp_runner(smi),
              "launches_factory": phase_factory(smi),
              "launches_vis": phase_vis(smi)}
-    t_new = time.perf_counter()
     later["launches_tiny_debug_step"] = phase_tiny_debug_step(smi)
     (later["launches_dropout_step"],
      later["launches_attn_dropout_step"]) = phase_dropout_step(smi, ft_loss)
     later["launches_attention_vis"] = phase_attention_vis(smi)
     phase_factory_chunks(smi)
-    new_s = time.perf_counter() - t_new
+    t_zoo = time.perf_counter()
+    later["launches_zoo_parity"] = phase_zoo_parity()
+    later["launches_zoo_steps"] = phase_zoo_steps(smi)
+    later["launches_adahessian_step"] = phase_adahessian_step(smi)
+    later["launches_zoo_runner"] = phase_zoo_runner(smi)
+    new_s = time.perf_counter() - t_zoo
     kernels = []
     for name in fa.QKV_KERNELS:
         dec = timings["decoder"][name]

@@ -7,8 +7,11 @@ run_class_finetuning.py:31-214 / run_class_finetuning_BB.py, plus --device
 model. Each step takes a batch of uint8 clips from the prefetching loader,
 augments it on the device (RandAugment, random resized crop, flip,
 RandomErasing; boxes through the rotate and the crop), mixes it (mixup /
-cutmix) and trains with AdamW and layer-wise LR decay (in fp16 under the
-dynamic loss scale). Every epoch validates (resize, centre crop; and the
+cutmix) and trains with the optimizer --opt names (every name of
+mofo_tpu's zoo; AdamW by default) and layer-wise LR decay (in fp16 under
+the dynamic loss scale); a second-order --opt (adahessian) builds the model
+with the plain attention route (attn_impl="xla") and trains with the
+Hutchinson probe. Every epoch validates (resize, centre crop; and the
 EMA weights with --model_ema), appends a line to <output_dir>/log.txt,
 writes checkpoint-<epoch>.pth every save_ckpt_freq epochs and
 checkpoint-best.pth on a new best acc1, and stops early after
@@ -44,10 +47,13 @@ the views through gather_across_processes); every rank acts on rank 0's
 validation numbers (best checkpoint, early stop). Rank 0 prints, writes
 log.txt and the checkpoints.
 
-Not ported yet, and refused with NotImplementedError: an --opt other than
-adamw (ROADMAP Queue 1 item 17) and a mesh with an fsdp or model axis
-(item 20); a --mesh_data other than -1 or the world size raises
-ValueError.
+With WANDB_PROJECT (and WANDB_GROUP, WANDB_NAME) set, rank 0 also logs
+every epoch's line to wandb when the package is installed
+(train/wandb_compat.py).
+
+Not ported yet, and refused with NotImplementedError: a mesh with an fsdp
+or model axis (ROADMAP Queue 1 item 20); a --mesh_data other than -1 or
+the world size raises ValueError.
 """
 
 from __future__ import annotations
@@ -93,6 +99,7 @@ from mofo_tpu_torch.train.finetune_step import (
 )
 from mofo_tpu_torch.train.loss_scale import DynamicLossScale
 from mofo_tpu_torch.train.train_state import TrainState
+from mofo_tpu_torch.train.wandb_compat import WandbLogger
 
 # what --only_finetune_last trains (mofo_tpu/cli/finetune.py:382-397)
 HEAD_MODULES = ("head", "fc_norm", "soft_att_local", "soft_att_global")
@@ -413,6 +420,12 @@ def _train(args, reader):
         use_mean_pooling=cfg.use_mean_pooling)
     if bb_focused:
         model_kwargs["fusing_method"] = cfg.fusing_mode
+    second_order = optim.is_second_order(args.opt)
+    if second_order:
+        # the Hutchinson probe differentiates the backward pass; the
+        # kernels' backwards are first-order only
+        model_kwargs["attn_impl"] = "xla"
+        log("second-order optimizer: attention routed through XLA")
     model = create_model(cfg.model, device=device,
                          dtype=getattr(torch, cfg.dtype), seed=cfg.seed,
                          **model_kwargs)
@@ -472,10 +485,15 @@ def _train(args, reader):
     step_fn = make_finetune_step(
         train_model, tx, cfg, lr_sched, bb_focused=bb_focused,
         augment_fn=make_train_augment(cfg, flip, args.num_sample),
-        device=device)
+        second_order=second_order, device=device)
     eval_fn = make_eval_step(train_model, cfg, bb_focused=bb_focused,
                              device=device)
     jsonl = M.JsonlLogger(args.output_dir, distributed.is_main_process())
+    wandb = WandbLogger(project=os.environ.get("WANDB_PROJECT"),
+                        group=os.environ.get("WANDB_GROUP"),
+                        name=os.environ.get("WANDB_NAME"),
+                        config=vars(args),
+                        enabled=distributed.is_main_process())
     generator = torch.Generator(device=device)
 
     def run_validation(params=None):
@@ -550,6 +568,7 @@ def _train(args, reader):
                 saves[os.path.basename(path)] = time.time() - t0
         stats.update(epoch=epoch, step=state.step, save_s=saves)
         jsonl.write(stats)
+        wandb.log(stats, step=epoch)
         # early stopping on the validation loss (run_class_finetuning.py:
         # 582-598)
         if args.early_stop_patience > 0:

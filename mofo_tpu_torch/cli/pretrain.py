@@ -33,15 +33,23 @@ the W ranks compute what one process computes on their global batch
 process group itself (init_distributed_mode with its own init_method)
 may call main() in each process.
 
-Not ported yet, and refused with NotImplementedError: an --opt other than
-adamw (ROADMAP Queue 1 item 17) and a mesh with an fsdp or model axis
-(Queue 1 item 20); a --mesh_data other than -1 or the world size raises
-ValueError.
+--opt takes every name of mofo_tpu's zoo (train/optim.py); an unknown one
+raises ValueError("Unknown optimizer: ..."). A second-order one
+(adahessian, lookahead_adahessian) builds the model with the plain
+attention route, attn_impl="xla" (the kernels' backwards are first-order
+only), and trains with the Hutchinson probe. With WANDB_PROJECT (and
+WANDB_GROUP, WANDB_NAME) set, rank 0 also logs every epoch's line to
+wandb when the package is installed (train/wandb_compat.py).
+
+Not ported yet, and refused with NotImplementedError: a mesh with an fsdp
+or model axis (ROADMAP Queue 1 item 20); a --mesh_data other than -1 or
+the world size raises ValueError.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -66,6 +74,7 @@ from mofo_tpu_torch.train import metrics as M
 from mofo_tpu_torch.train import optim, schedules
 from mofo_tpu_torch.train.pretrain_step import make_pretrain_step
 from mofo_tpu_torch.train.train_state import TrainState
+from mofo_tpu_torch.train.wandb_compat import WandbLogger
 
 
 def get_args(argv=None, mofo_defaults: bool = False):
@@ -139,12 +148,8 @@ def get_args(argv=None, mofo_defaults: bool = False):
 
 def refuse_unported(args, world: int) -> None:
     """Raises on the flags the port does not run (shared with
-    cli/finetune.py): an --opt other than adamw, a mesh with an fsdp or
-    model axis, a --mesh_data that is not the world size (or -1)."""
-    if args.opt.lower() != "adamw":
-        raise NotImplementedError(
-            f"--opt {args.opt}: only adamw is ported (ROADMAP Queue 1, "
-            "item 17)")
+    cli/finetune.py): a mesh with an fsdp or model axis, a --mesh_data that
+    is not the world size (or -1)."""
     if args.mesh_fsdp != 1 or args.mesh_model != 1:
         raise NotImplementedError(
             f"a mesh with --mesh_fsdp {args.mesh_fsdp} --mesh_model "
@@ -261,6 +266,13 @@ def _train(args, reader):
     steps_per_epoch = args.steps_per_epoch or max(len(loader), 1)
 
     # ----- model & optimizer -----
+    second_order = optim.is_second_order(args.opt)
+    model_kwargs = {}
+    if second_order:
+        # the Hutchinson probe differentiates the backward pass; the
+        # kernels' backwards are first-order only
+        model_kwargs["attn_impl"] = "xla"
+        log("second-order optimizer: attention routed through XLA")
     model = create_model(
         cfg.model, device=device, seed=cfg.seed,
         dtype=torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32,
@@ -269,6 +281,7 @@ def _train(args, reader):
         num_frames=cfg.num_frames,
         tubelet_size=cfg.tubelet_size,
         img_size=cfg.input_size,
+        **model_kwargs,
     )
     oc = cfg.optimizer
     lr = schedules.scaled_lr(oc.lr, cfg.batch_size * world)
@@ -311,9 +324,13 @@ def _train(args, reader):
 
     step_fn = make_pretrain_step(
         ddp.wrap_model(model) if world > 1 else model, tx, cfg, lr_sched,
-        device=device, augment_fn=augment_batch)
+        device=device, augment_fn=augment_batch, second_order=second_order)
     is_main = distributed.is_main_process()
     jsonl = M.JsonlLogger(args.output_dir, is_main)
+    wandb = WandbLogger(project=os.environ.get("WANDB_PROJECT"),
+                        group=os.environ.get("WANDB_GROUP"),
+                        name=os.environ.get("WANDB_NAME"),
+                        config=vars(args), enabled=is_main)
     tb = M.TensorboardLogger(args.log_dir if is_main else None)
     generator = torch.Generator(device=device)
 
@@ -343,6 +360,7 @@ def _train(args, reader):
                      step_s=logger.iter_time.global_avg
                      - logger.data_time.global_avg)
         jsonl.write(stats)
+        wandb.log(stats, step=epoch)
         if args.output_dir and ((epoch + 1) % cfg.save_ckpt_freq == 0
                                 or epoch + 1 == cfg.epochs):
             ckpt.save_checkpoint(args.output_dir, model, state, epoch, args)

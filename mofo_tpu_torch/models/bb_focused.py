@@ -11,7 +11,8 @@ in-box (local) and out-box (global) token sets:
   'MCA'           cross-attention blocks (queries: all tokens, kv: the
                   out-box tokens through a kv bias row), then the mean over
                   the in-box tokens; its attention is flash_attention_mh (K3)
-                  unless attention dropout is active
+                  unless attention dropout is active or attn_impl is "xla"
+                  (which the backbone's Blocks take too)
 Per sample, no in-box token falls back to the plain token mean, and an
 empty out-box set makes the kv the in-box set. Every mode is a masked,
 batched computation.
@@ -73,7 +74,7 @@ class VisionTransformerBBFocused(nn.Module):
                  init_scale=0.0, all_frames=16, tubelet_size=2,
                  use_mean_pooling=True, fusing_method="weighted_mean",
                  mca_depth=1, mca_num_heads=3, dtype=torch.float32,
-                 generator=None):
+                 generator=None, attn_impl="auto"):
         super().__init__()
         if fusing_method not in FUSING_MODES:
             raise ValueError(f"unknown fusing_method {fusing_method!r}")
@@ -86,7 +87,7 @@ class VisionTransformerBBFocused(nn.Module):
             mlp_ratio, qkv_bias, qk_scale, drop_rate, attn_drop_rate,
             drop_path_rate, init_values, 0.0, all_frames, tubelet_size,
             use_mean_pooling, tokens_only=True, dtype=dtype,
-            generator=generator,
+            generator=generator, attn_impl=attn_impl,
         )
         if fusing_method == "soft_attn":
             self.soft_att_local = SoftAttention(embed_dim,
@@ -97,7 +98,8 @@ class VisionTransformerBBFocused(nn.Module):
             self.local_MCA = nn.ModuleList(
                 MCABlock(embed_dim, mca_num_heads, mlp_ratio, qkv_bias,
                          qk_scale, init_values, dtype, generator,
-                         drop=drop_rate, attn_drop=attn_drop_rate)
+                         drop=drop_rate, attn_drop=attn_drop_rate,
+                         attn_impl=attn_impl)
                 for _ in range(mca_depth)
             )
         self.fc_norm = nn.LayerNorm(embed_dim, eps=1e-6)

@@ -373,14 +373,21 @@ class CrossAttention(nn.Module):
     attention of flash_attention_mh (K3) on the flat (B, N, A) layout with
     kv_bias = 0 / -1e30 from kv_mask; otherwise the head-major plain math
     with an additive -inf bias from kv_mask and attention dropout.
+    attn_impl "xla" takes the plain math always (a second-order step's
+    route), "auto" and "pallas" the routing above.
     proj_drop drops the projected output in train mode."""
 
     def __init__(self, dim: int, num_heads: int = 8, qkv_bias: bool = False,
                  qk_scale: Optional[float] = None,
                  attn_head_dim: Optional[int] = None,
                  dtype: torch.dtype = torch.float32, generator=None,
-                 attn_drop: float = 0.0, proj_drop: float = 0.0):
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 attn_impl: str = "auto"):
         super().__init__()
+        if attn_impl not in ("auto", "xla", "pallas"):
+            raise ValueError(f"unknown attn_impl {attn_impl!r} (auto, xla, "
+                             "pallas)")
+        self.attn_impl = attn_impl
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
         self.num_heads = num_heads
         head_dim = attn_head_dim or dim // num_heads
@@ -409,7 +416,8 @@ class CrossAttention(nn.Module):
             q = q + self.q_bias.to(dt)
             kv = kv + torch.cat(
                 [torch.zeros_like(self.v_bias), self.v_bias]).to(dt)
-        if not (self.training and self.attn_drop > 0.0) and Nx == Ny:
+        if (self.attn_impl != "xla" and Nx == Ny
+                and not (self.training and self.attn_drop > 0.0)):
             kv_bias = None
             if kv_mask is not None:
                 # every sample keeps a valid column (the BB fusing falls
@@ -439,19 +447,22 @@ class MCABlock(nn.Module):
     """The BB-focused classifier's cross-attention block, "MCA" (reference
     modeling_finetune.py:162-191): norm1 on both x and y, cross-attention,
     then an MLP, both residual (no drop path, as in the JAX model). drop is
-    the projection's and the MLP's dropout, attn_drop the attention's."""
+    the projection's and the MLP's dropout, attn_drop the attention's;
+    attn_impl routes the cross-attention (CrossAttention)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  qkv_bias: bool = False, qk_scale: Optional[float] = None,
                  init_values: float = 0.0,
                  dtype: torch.dtype = torch.float32, generator=None,
-                 drop: float = 0.0, attn_drop: float = 0.0):
+                 drop: float = 0.0, attn_drop: float = 0.0,
+                 attn_impl: str = "auto"):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.attn = CrossAttention(dim, num_heads, qkv_bias, qk_scale,
                                    dtype=dtype, generator=generator,
-                                   attn_drop=attn_drop, proj_drop=drop)
+                                   attn_drop=attn_drop, proj_drop=drop,
+                                   attn_impl=attn_impl)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype, generator, drop)
         init_trunc_normal(self.mlp, generator)

@@ -6,8 +6,8 @@ create_model(name, device=..., dtype=..., seed=..., **overrides) returns
 the nn.Module on its device, initialised from `seed` on the CPU (so a seed
 gives the same weights on every device) and then moved. The overrides
 reach the model's constructor: drop_rate and attn_drop_rate on every
-model, attn_impl on the pretraining models and the classifiers, sow_attn
-on the classifiers.
+model, attn_impl on the pretraining models and the classifiers (the
+BB-focused one too), sow_attn on the classifiers.
 """
 
 from __future__ import annotations

@@ -48,6 +48,17 @@ numerics differ from K1/K3's in two ways: it works in base e in
 every dtype, and it rounds the normalized p / l (not the un-normalized P)
 to the input dtype before P.V. Its bf16 backward runs a prep pass
 (hm_attn_bwd_prep: delta and q * scale) before its two kernels, as K2's.
+
+The three autograd functions are first-order only: their backwards run on
+the forward's saved output and LSE, which carry no graph. Each backward is
+marked once_differentiable and first_order_only: a create_graph=True
+backward through it (AdaHessian's Hessian-vector product) raises instead of
+returning a product without attention's second-order terms.
+once_differentiable alone does not: the error node it puts on the backward's
+outputs hangs off detached copies, so a torch.autograd.grad(..., inputs=
+params) never reaches it and the product comes back short. A second-order
+step takes the plain attention route (attn_impl="xla"), as mofo_tpu's does
+(its Pallas backward kernels define a first-order VJP only).
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.autograd.function import once_differentiable
 
 LOG2E = 1.4426950408889634
 HEAD_DIM = 64  # the one head dim the fused-qkv CUDA kernels are built for
@@ -79,6 +91,20 @@ HM_F32_KERNELS = ("hm_attn_fwd", "hm_attn_bwd_dkv", "hm_attn_bwd_dq")
 KERNELS = QKV_KERNELS + MH_KERNELS + HM_KERNELS
 # launches of each CUDA kernel by its wrapper since the last reset
 launch_counts = dict.fromkeys(KERNELS, 0)
+
+
+def first_order_only(backward):
+    """Raises when `backward` runs inside a create_graph=True backward (grad
+    mode is on there), i.e. when a caller differentiates through it twice."""
+    @functools.wraps(backward)
+    def run(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "the flash attention kernels are first-order only: a "
+                "create_graph=True backward (a Hessian-vector product) needs "
+                "the plain attention route, attn_impl='xla'")
+        return backward(ctx, *grads)
+    return run
 
 
 def reset_launch_counts() -> None:
@@ -378,6 +404,8 @@ class _QKVFlash(torch.autograd.Function):
         return out
 
     @staticmethod
+    @first_order_only
+    @once_differentiable
     def backward(ctx, dout):
         qkv, out, lse = ctx.saved_tensors
         dqkv = qkv_attn_bwd(
@@ -708,6 +736,8 @@ class _MHFlash(torch.autograd.Function):
         return out
 
     @staticmethod
+    @first_order_only
+    @once_differentiable
     def backward(ctx, dout):
         q, k, v, kv_bias, out, lse = ctx.saved_tensors
         dq, dk, dv = mh_attn_bwd(q, k, v, kv_bias, out, lse,
@@ -950,6 +980,8 @@ class _HMFlash(torch.autograd.Function):
         return out
 
     @staticmethod
+    @first_order_only
+    @once_differentiable
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = hm_attn_bwd(q, k, v, out, lse, dout.contiguous(),

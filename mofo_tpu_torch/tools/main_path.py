@@ -160,24 +160,31 @@ def _through_plain(step):
 
 
 def build_step(B: int, name: str = MODEL, plain: bool = False,
-               wrap: bool = False, dtype: str = "bfloat16", **overrides):
+               wrap: bool = False, dtype: str = "bfloat16",
+               opt: str = "adamw", **overrides):
     """The MOFO pretrain step of model `name` (ViT-B by default) on CUDA at
-    batch B in compute dtype `dtype`; `overrides` go to create_model (the
-    checks cut the depth). With `plain` the step's attention runs the plain
-    versions on the card (plain_attention); with `wrap` the step trains the
-    model through parallel.ddp.wrap_model (a process group must be up).
-    Returns (model, state, step_fn, generator, batch)."""
+    batch B in compute dtype `dtype`, trained by zoo entry `opt`;
+    `overrides` go to create_model (the checks cut the depth). With `plain`
+    the step's attention runs the plain versions on the card
+    (plain_attention); with `wrap` the step trains the model through
+    parallel.ddp.wrap_model (a process group must be up). A second-order
+    `opt` (adahessian) takes the Hutchinson probe, on a model with the
+    plain attention route. Returns (model, state, step_fn, generator,
+    batch)."""
+    second_order = optim.is_second_order(opt)
+    if second_order:
+        overrides.setdefault("attn_impl", "xla")
     cfg = PretrainConfig(model=name, batch_size=B, masking=MaskingConfig(
         mask_type="tube_bb"), motion_loss_weight=True, dtype=dtype)
     model = create_model(name, dtype=getattr(torch, dtype), seed=1,
                          **overrides)
     lr = schedules.cosine_schedule(1.5e-4, 1e-5, 800, 100, 40)
-    tx = optim.create_optimizer(dict(model.named_parameters()),
+    tx = optim.create_optimizer(dict(model.named_parameters()), opt=opt,
                                 lr_schedule=lr, betas=(0.9, 0.95),
                                 weight_decay=0.05)
     state = TrainState.create(model, tx)
     step = make_pretrain_step(ddp.wrap_model(model) if wrap else model, tx,
-                              cfg, lr)
+                              cfg, lr, second_order=second_order)
     if plain:
         step = _through_plain(step)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -302,18 +309,22 @@ def memory_box_json(paths, hw=(256, 320)) -> dict:
 
 def build_finetune_step(B: int, plain: bool = False, depth: int = 12,
                         augment: bool = False, dtype: str = "bfloat16",
-                        **cfg_fields):
+                        opt: str = "adamw", **cfg_fields):
     """The ViT-B BB-focused MCA finetune step on CUDA at batch B, its
-    backbone `depth` Blocks deep (the checks cut it). With `plain` the
-    step's attention runs the plain versions on the card (plain_attention);
-    with `augment` the batch is synthetic_clips_u8's and the step augments
-    it as the finetune CLI does (RandAugment, crop, flip, erasing); in
-    dtype "float16" the state carries the dynamic loss scale; `cfg_fields`
-    set more FinetuneConfig fields (drop, attn_drop_rate). Returns (model,
-    state, step_fn, generator, batch, cfg)."""
+    backbone `depth` Blocks deep (the checks cut it), trained by zoo entry
+    `opt`. With `plain` the step's attention runs the plain versions on the
+    card (plain_attention); with `augment` the batch is synthetic_clips_u8's
+    and the step augments it as the finetune CLI does (RandAugment, crop,
+    flip, erasing); in dtype "float16" the state carries the dynamic loss
+    scale; a second-order `opt` (adahessian) takes the Hutchinson probe,
+    on a model with the plain attention route; `cfg_fields` set more
+    FinetuneConfig fields (drop, attn_drop_rate). Returns (model, state,
+    step_fn, generator, batch, cfg)."""
+    second_order = optim.is_second_order(opt)
+    overrides = {"attn_impl": "xla"} if second_order else {}
     cfg = FinetuneConfig(batch_size=B, model=FINETUNE_MODEL, dtype=dtype,
                          **cfg_fields)
-    model = finetune_model(cfg, depth=depth)
+    model = finetune_model(cfg, depth=depth, **overrides)
     pretrain = create_model(MODEL, dtype=torch.bfloat16, seed=1,
                             encoder_depth=depth)
     finetune_init_from_pretrain(model, pretrain.state_dict())
@@ -323,14 +334,15 @@ def build_finetune_step(B: int, plain: bool = False, depth: int = 12,
         schedules.scaled_lr(oc.lr, B), oc.min_lr, cfg.epochs, 100,
         oc.warmup_epochs, start_warmup_value=oc.warmup_lr)
     named = dict(model.named_parameters())
-    tx = optim.create_optimizer(named, lr_schedule=lr, betas=oc.opt_betas,
+    tx = optim.create_optimizer(named, opt=opt, lr_schedule=lr,
+                                betas=oc.opt_betas,
                                 weight_decay=oc.weight_decay,
                                 eps=oc.opt_eps, layer_decay=oc.layer_decay)
     state = TrainState.create(
         model, tx, loss_scale=(DynamicLossScale.create()
                                if dtype == "float16" else None))
     step = make_finetune_step(
-        model, tx, cfg, lr, bb_focused=True,
+        model, tx, cfg, lr, bb_focused=True, second_order=second_order,
         augment_fn=make_train_augment(cfg, flip=True) if augment else None)
     if plain:
         step = _through_plain(step)
@@ -373,19 +385,22 @@ def _final(model) -> dict:
 
 def pretrain_steps(model, cfg: PretrainConfig, batch: dict, steps: int, *,
                    wrap: bool = False, masks=None,
-                   augment: bool = False) -> dict:
+                   augment: bool = False, opt: str = "adamw",
+                   eps: float = 1e-8) -> dict:
     """`steps` pretrain steps of `model` (through parallel.ddp.wrap_model
-    with `wrap`) on `batch`, AdamW at STEPS_LR, loss weight 0.5;
-    step s draws from a generator on the model's device seeded s. `masks[s]` replaces
-    step s's mask draw; with `augment` the batch holds uint8 clips that
+    with `wrap`) on `batch`, zoo entry `opt` (AdamW; a second-order one
+    with the Hutchinson probe, its z drawn from the step's generator) with
+    `eps` at STEPS_LR, loss weight 0.5; step s draws from a generator on
+    the model's device seeded s. `masks[s]` replaces step s's mask draw; with `augment` the batch holds uint8 clips that
     pretrain_augment crops inside the step. Returns the losses, gradient
     norms, host times (ms) of each step and the final parameters (f32, on
     the CPU)."""
     dev = device_of(model)
     lrs = np.full(steps, STEPS_LR, np.float32)
     named = dict(model.named_parameters())
-    tx = optim.create_optimizer(named, lr_schedule=lrs, betas=(0.9, 0.95),
-                                weight_decay=0.05)
+    tx = optim.create_optimizer(named, opt=opt, lr_schedule=lrs,
+                                betas=(0.9, 0.95), weight_decay=0.05,
+                                eps=eps)
     state = TrainState.create(model, tx)
 
     def augment_fn(generator, b):
@@ -396,7 +411,8 @@ def pretrain_steps(model, cfg: PretrainConfig, batch: dict, steps: int, *,
 
     step = make_pretrain_step(ddp.wrap_model(model) if wrap else model, tx,
                               cfg, lrs, device=dev,
-                              augment_fn=augment_fn if augment else None)
+                              augment_fn=augment_fn if augment else None,
+                              second_order=optim.is_second_order(opt))
     gen, now = torch.Generator(device=dev), _timed(dev)
     out = {"loss": [], "grad_norm": [], "ms": []}
     for s in range(steps):

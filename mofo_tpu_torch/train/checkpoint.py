@@ -15,11 +15,17 @@ save_checkpoint, latest_checkpoint and auto_resume are the counterparts of
 mofo_tpu/train/checkpoint.py:36-79: the JAX package saves orbax
 directories, the port saves torch files checkpoint-<epoch>.pth in the
 reference's layout (utils.py:411-496): {"model": state_dict, "optimizer":
-torch AdamW's state_dict layout ("state" by parameter index with "step",
-"exp_avg", "exp_avg_sq"; "param_groups" with the parameter names), "epoch",
-"step", "args"}, plus "model_ema" with EMA and "scaler" (the fp16 loss
-scale) when the run has them. A saved "model" loads into mofo_tpu through
-load_torch_checkpoint + import_torch_pretrain (or import_torch_finetune).
+a torch optimizer's state_dict layout ("state" by parameter index with
+"step" and the optimizer's buffers; "param_groups" with the parameter
+names), "epoch", "step", "args"}, plus "model_ema" with EMA and "scaler"
+(the fp16 loss scale) when the run has them. The buffers carry the names
+of the reference's torch optimizers where they have one ("exp_avg" /
+"exp_avg_sq" for the Adam family and AdamP, "momentum_buffer" for SGD and
+SGDP, "exp_hessian_diag_sq" for AdaHessian, "slow_buffer" with the group's
+"lookahead_step" for lookahead), the optax stage's field names otherwise
+(Adafactor's "v_row" / "v_col" / "v", ...). A saved "model" loads into
+mofo_tpu through load_torch_checkpoint + import_torch_pretrain (or
+import_torch_finetune).
 save_checkpoint's `name` writes a named file instead, e.g. the finetune
 runner's checkpoint-best.pth, which latest_checkpoint skips;
 load_checkpoint restores any such file. load_pretrain_encoder reads the
@@ -35,7 +41,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -85,6 +91,64 @@ _MCA = {
 }
 
 
+# flax leaf path (inside a scope, at its top) -> (torch name, transposed)
+_TOP = {
+    ("norm", "scale"): ("norm.weight", False),
+    ("norm", "bias"): ("norm.bias", False),
+    ("fc_norm", "scale"): ("fc_norm.weight", False),
+    ("fc_norm", "bias"): ("fc_norm.bias", False),
+    ("head", "kernel"): ("head.weight", True),
+    ("head", "bias"): ("head.bias", False),
+}
+
+# the patch embedding's (t*p*p*C, D) kernel as (t, p, p, C, D) -> the
+# Conv3d weight (D, C, t, p, p)
+_CONV_PERM = (4, 3, 0, 1, 2)
+_SCOPES = ("encoder", "decoder", "backbone")
+# torch name (inside blocks.N, local_MCA.N, or a scope's top) -> transposed
+_TRANSPOSED = {"blocks": dict(_BLOCK.values()),
+               "local_MCA": dict(_MCA.values()),
+               None: dict(_TOP.values(),
+                          **{"encoder_to_decoder.weight": True})}
+
+
+def _layout(name: str) -> Tuple[bool, bool]:
+    """(transposed, permuted): how _name lays out the port's parameter
+    `name` from mofo_tpu's leaf; a name outside its tables (pos_embed,
+    mask_token, soft_att_*) is the same array in both packages."""
+    parts = name.split(".")
+    if parts[0] in _SCOPES:
+        parts = parts[1:]
+    if parts == ["patch_embed", "proj", "weight"]:
+        return False, True
+    if parts[0] in ("blocks", "local_MCA"):
+        return _TRANSPOSED[parts[0]].get(".".join(parts[2:]), False), False
+    return _TRANSPOSED[None].get(".".join(parts), False), False
+
+
+def jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    """`t` (the port's parameter `name`, or a tensor of its shape) in
+    mofo_tpu's layout, as _name maps one to the other: a Dense kernel
+    (in, out) for a Linear weight (out, in), the (t*p*p*C, D) kernel for
+    the Conv3d patch embedding; a view where it can be."""
+    transposed, permuted = _layout(name)
+    if permuted:
+        inverse = tuple(int(i) for i in np.argsort(_CONV_PERM))
+        return t.permute(inverse).reshape(-1, t.shape[0])
+    return t.t() if transposed else t
+
+
+def torch_layout(name: str, t: torch.Tensor,
+                 shape: Sequence[int]) -> torch.Tensor:
+    """The inverse of jax_layout for the port's parameter `name` of
+    `shape`."""
+    transposed, permuted = _layout(name)
+    if permuted:
+        D, C, tt, p, q = shape
+        return t.reshape(tt, p, q, C, D).permute(_CONV_PERM)
+    return t.t() if transposed else t
+
+
 def _leaves(tree: Mapping, prefix=()):
     for key, val in tree.items():
         if isinstance(val, Mapping):
@@ -109,18 +173,17 @@ def _name(path, arr: np.ndarray, in_chans: int, tubelet_size: int):
         # (p0*p*p*C, D), rows in (p0, p1, p2, c) order -> (D, C, p0, p, p)
         p = int(round((arr.shape[0] / (in_chans * tubelet_size)) ** 0.5))
         w = arr.reshape(tubelet_size, p, p, in_chans, arr.shape[1])
-        return join("patch_embed.proj.weight"), w.transpose(4, 3, 0, 1, 2)
-    if path[0] in ("norm", "head", "fc_norm") and len(path) == 2:
-        leaf = {"scale": "weight", "kernel": "weight"}.get(path[1], path[1])
-        return (join(path[0], leaf),
-                arr.T if path[1] == "kernel" else arr)
+        return join("patch_embed.proj.weight"), w.transpose(_CONV_PERM)
+    if tuple(path) in _TOP:
+        name, transposed = _TOP[tuple(path)]
+        return join(name), arr.T if transposed else arr
     if not scope and path[0].startswith("local_MCA_"):
         name, transposed = _MCA[tuple(path[1:])]
         return (f"local_MCA.{path[0].split('_')[-1]}.{name}",
                 arr.T if transposed else arr)
     if not scope and path[0].startswith("soft_att_") and len(path) == 2:
         return f"{path[0]}.{path[1]}", arr  # weight (D, 1), b (1,)
-    if full == ("encoder_to_decoder", "kernel"):
+    if full == ("encoder_to_decoder", "kernel"):  # _TRANSPOSED[None]
         return "encoder_to_decoder.weight", arr.T
     if full == ("mask_token",):
         return "mask_token", arr
@@ -181,13 +244,13 @@ def load_pretrain_encoder(path: str, map_location="cpu"
 
 def save_checkpoint(output_dir: str, model: torch.nn.Module, state,
                     epoch: int, args=None, name: Optional[str] = None) -> str:
-    """Writes the model, the AdamW moments and step, the train step and the
-    epoch to <output_dir>/checkpoint-<epoch>.pth, or <output_dir>/<name>.pth
-    (through a temporary file, so a reader never sees half a file). `state`
-    is the TrainState of `model`; `args` an argparse.Namespace of the run or
-    None. A DistributedDataParallel wrapper is saved as its module. With
-    more than one process rank 0 writes and every rank waits for it; all
-    return the path."""
+    """Writes the model, the optimizer's state and count, the train step
+    and the epoch to <output_dir>/checkpoint-<epoch>.pth, or
+    <output_dir>/<name>.pth (through a temporary file, so a reader never
+    sees half a file). `state` is the TrainState of `model`; `args` an
+    argparse.Namespace of the run or None. A DistributedDataParallel wrapper
+    is saved as its module. With more than one process rank 0 writes and
+    every rank waits for it; all return the path."""
     model = ddp.unwrap(model)
     path = os.path.join(output_dir, f"{name or f'checkpoint-{epoch}'}.pth")
     if distributed.is_main_process():
@@ -201,17 +264,20 @@ def _write(path: str, model: torch.nn.Module, state, epoch: int,
     opt = state.opt_state
     names = list(state.params)
     cpu = lambda t: t.detach().cpu()  # noqa: E731
+    per_param = {}
+    for i, n in enumerate(names):
+        entry = {opt.keys[f]: cpu(buf[n])
+                 for f, buf in opt.buffers.items() if n in buf}
+        if opt.slow is not None and n in opt.slow:
+            entry["slow_buffer"] = cpu(opt.slow[n])
+        if entry:  # torch keeps no state for a parameter it never updates
+            per_param[i] = {"step": torch.tensor(float(opt.count)), **entry}
+    group = {"params": list(range(len(names))), "param_names": names}
+    if opt.slow is not None:
+        group["lookahead_step"] = opt.count
     payload = {
         "model": {k: cpu(v) for k, v in model.state_dict().items()},
-        "optimizer": {
-            # torch keeps no state for a parameter it never updates
-            "state": {i: {"step": torch.tensor(float(opt.count)),
-                          "exp_avg": cpu(opt.mu[n]),
-                          "exp_avg_sq": cpu(opt.nu[n])}
-                      for i, n in enumerate(names) if n in opt.mu},
-            "param_groups": [{"params": list(range(len(names))),
-                              "param_names": names}],
-        },
+        "optimizer": {"state": per_param, "param_groups": [group]},
         "epoch": epoch,
         "step": state.step,
     }
@@ -230,9 +296,9 @@ def _write(path: str, model: torch.nn.Module, state, epoch: int,
 
 def load_checkpoint(path: str, model: torch.nn.Module, state) -> int:
     """Restores a save_checkpoint file into `model` and its TrainState in
-    place (parameters, AdamW moments and count, step, EMA), read onto the
-    model's device. Returns the checkpoint's epoch. Raises when the
-    parameter names differ."""
+    place (parameters, the optimizer's state and count, step, EMA), read
+    onto the model's device. Returns the checkpoint's epoch. Raises when the
+    parameter names or the optimizer's buffers differ."""
     ckpt = torch.load(path, map_location=device_of(model) or "cpu",
                       weights_only=True)
     opt = ckpt["optimizer"]
@@ -241,17 +307,26 @@ def load_checkpoint(path: str, model: torch.nn.Module, state) -> int:
         raise ValueError(f"{path} holds other parameters than the model")
     model.load_state_dict(ckpt["model"])
     saved = {names[i]: s for i, s in opt["state"].items()}
-    if set(saved) != set(state.opt_state.mu):
-        raise ValueError(f"{path} holds the moments of other parameters")
+    ours = state.opt_state
+    targets = {}  # name -> checkpoint key -> the state's tensor
+    for f, buf in ours.buffers.items():
+        for n, t in buf.items():
+            targets.setdefault(n, {})[ours.keys[f]] = t
+    for n, t in (ours.slow or {}).items():
+        targets.setdefault(n, {})["slow_buffer"] = t
+    if {n: sorted(k) for n, k in targets.items()} != {
+            n: sorted(set(s) - {"step"}) for n, s in saved.items()}:
+        raise ValueError(f"{path} holds the moments of other parameters "
+                         "or of another optimizer")
     with torch.no_grad():
-        for n, s in saved.items():
-            state.opt_state.mu[n].copy_(s["exp_avg"])
-            state.opt_state.nu[n].copy_(s["exp_avg_sq"])
+        for n, keys in targets.items():
+            for key, t in keys.items():
+                t.copy_(saved[n][key])
         if state.ema_params is not None and "model_ema" in ckpt:
             for n, v in ckpt["model_ema"].items():
                 state.ema_params[n].copy_(v)
-    state.opt_state.count = (int(next(iter(saved.values()))["step"])
-                             if saved else 0)
+    ours.count = (int(next(iter(saved.values()))["step"]) if saved
+                  else 0)
     if state.loss_scale is not None and "scaler" in ckpt:
         state.loss_scale = dataclasses.replace(
             state.loss_scale, scale=float(ckpt["scaler"]["scale"]),

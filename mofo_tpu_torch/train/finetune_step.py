@@ -15,8 +15,11 @@ caller hands each step; mixup draws on the host from an
 np.random.Generator seeded from (cfg.seed, the step), so a resumed run
 draws what an uninterrupted one draws. Dropout (--drop, --attn_drop_rate)
 is active in the train step only: the eval step runs the model in eval
-mode. adahessian (second_order) is not ported yet and raises
-NotImplementedError (ROADMAP Queue 1, item 17).
+mode. second_order (adahessian) also takes the Hutchinson probe of the same
+stochastic loss, as train/pretrain_step.py does (mofo_tpu/train/
+finetune_step.py:115-169): under the fp16 loss scale the probe of the
+scaled loss is divided by the scale, by k * scale with update_freq k, as
+the gradients are.
 
 A model wrapped by parallel.ddp.wrap_model trains data-parallel, as in
 train/pretrain_step.py: the augmentation, mixup, dropout and drop path
@@ -42,7 +45,11 @@ from mofo_tpu_torch.core.device import DeviceLike, device_of, resolve_device
 from mofo_tpu_torch.ops.mixup import Mixup, MixupParams
 from mofo_tpu_torch.parallel import ddp
 from mofo_tpu_torch.train import losses
-from mofo_tpu_torch.train.optim import global_norm
+from mofo_tpu_torch.train.optim import global_norm, rademacher
+from mofo_tpu_torch.train.pretrain_step import (
+    grads_and_probe,
+    second_order_reduce,
+)
 from mofo_tpu_torch.train.train_state import TrainState, ema_update
 
 Batch = Dict[str, torch.Tensor]
@@ -85,8 +92,8 @@ def make_finetune_step(
     second_order: bool = False,
     device: DeviceLike = None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
-    """Returns step_fn(state, batch, generator, mixup_params=None) ->
-    (state, metrics).
+    """Returns step_fn(state, batch, generator, mixup_params=None,
+    probe_z=None) -> (state, metrics).
 
     The step runs on `device` (CUDA unless the caller passes "cpu"; raises
     without a GPU), where the model must already be. batch: 'clip'
@@ -99,7 +106,10 @@ def make_finetune_step(
     `mixup_params` replaces the mixup draws, one MixupParams per
     microbatch (or a single one when update_freq is 1; at the global count
     in a data-parallel step), for tests. `model` may be wrapped by
-    parallel.ddp.wrap_model (see above).
+    parallel.ddp.wrap_model (see above). With second_order the optimizer
+    gets the Hutchinson probe; `probe_z`, one name -> tensor dict per
+    microbatch, replaces its draws, for tests. The model's attention must
+    take the plain route (attn_impl="xla").
 
     With state.loss_scale (fp16) the loss is scaled before the backward
     pass and the gradients unscaled in f32; when the gradient norm is not
@@ -110,20 +120,18 @@ def make_finetune_step(
     Metrics: loss, grad_norm, with a schedule lr and with a loss scale
     loss_scale and skipped — tensors left on the device.
     """
-    if second_order:
-        raise NotImplementedError("second_order (adahessian) is not ported "
-                                  "(ROADMAP Queue 1, item 17)")
     dev = _check_device(model, device)
     mixup_fn = mixup_for(cfg)
     mixup_active = mixup_fn.enabled
     criterion = build_criterion(cfg, mixup_active)
     k = cfg.update_freq
     rank, world = ddp.data_parallel(model) or (0, 1)
+    net = ddp.unwrap(model) if second_order else model
 
     def step_fn(state: TrainState, batch: Batch,
                 generator: Optional[torch.Generator],
                 mixup_params: Union[MixupParams, Sequence[MixupParams],
-                                    None] = None):
+                                    None] = None, probe_z=None):
         model.train()
         if augment_fn is not None:
             with ddp.global_draws(rank, world, k):
@@ -136,13 +144,15 @@ def make_finetune_step(
         rng = np.random.default_rng([cfg.seed, state.step])
         scale = 1.0 if state.loss_scale is None else state.loss_scale.scale
         mb = B // k
+        names = list(state.params)
         for p in state.params.values():
             p.grad = None
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        acc = None  # second order: the summed gradients and probes
         for i in range(k):
             micro = {n: v[i * mb:(i + 1) * mb] for n, v in batch.items()}
             clip, target = micro["clip"], micro["label"]
-            sync = world == 1 or i == k - 1
+            sync = world == 1 or i == k - 1 or second_order
             with ddp.global_draws(rank, world), \
                     (contextlib.nullcontext() if sync else model.no_sync()):
                 if mixup_active:
@@ -150,18 +160,34 @@ def make_finetune_step(
                         clip, target, rng,
                         None if mixup_params is None else mixup_params[i])
                 if bb_focused:
-                    logits = model(clip, micro["boxes"], generator)
+                    logits = net(clip, micro["boxes"], generator)
                 else:
-                    logits = model(clip, generator)
+                    logits = net(clip, generator)
                 loss = criterion(logits, target)
+            if second_order:
+                z = (rademacher(state.params, generator) if probe_z is None
+                     else probe_z[i])
+                g, hd = grads_and_probe(loss * scale, state.params, z)
+                part = [g[n] for n in names] + [hd[n] for n in names]
+                acc = part if acc is None else torch._foreach_add(acc, part)
+            else:
                 (loss * scale).backward()
             loss_sum = loss_sum + loss.detach()
         if world > 1:
             loss_sum = ddp.all_reduce_sum(loss_sum) / world
-        grads = {n: p.grad for n, p in state.params.items()}
+        hess = None
+        if second_order:
+            acc = second_order_reduce(acc, world)
+            grads = dict(zip(names, acc[:len(names)]))
+            hess = dict(zip(names, acc[len(names):]))
+        else:
+            grads = {n: p.grad for n, p in state.params.items()}
         if k * scale != 1.0:
             grads = dict(zip(grads, torch._foreach_div(list(grads.values()),
                                                        k * scale)))
+            if hess is not None:
+                hess = dict(zip(hess, torch._foreach_div(
+                    list(hess.values()), k * scale)))
         loss = loss_sum / k if k > 1 else loss_sum
         grad_norm = global_norm(grads.values())
         finite = True
@@ -169,7 +195,8 @@ def make_finetune_step(
             finite = bool(torch.isfinite(grad_norm))
             state.loss_scale = state.loss_scale.update(finite)
         if finite:
-            tx.update(grads, state.opt_state, state.params)
+            tx.update(grads, state.opt_state, state.params,
+                      hessian_diag=hess)
         if state.ema_params is not None:
             ema_update(state.ema_params, state.params, cfg.model_ema_decay)
         metrics = {"loss": loss, "grad_norm": grad_norm}

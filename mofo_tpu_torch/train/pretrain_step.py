@@ -18,6 +18,20 @@ motion-weighted loss divides by the global microbatch's weight sum and is
 scaled by W, so that DDP's mean over the ranks gives mofo_tpu's global
 ratio (mofo_tpu/ops/patchify.py:287-288); the loss metric is the mean over
 the ranks. The gradient norm, the update and EMA then match on every rank.
+
+second_order (adahessian, mofo_tpu/train/pretrain_step.py:137-214) also
+takes the Hutchinson probe z * Hz of the same stochastic loss (the same
+mask and drop-path draws): each microbatch's gradient is taken once with
+create_graph=True, and Hz is the gradient of sum <g, z> with z drawn from
+the step's generator after the microbatch (train/optim.hutchinson_diag);
+the probes are summed over the microbatches and divided by k, as the
+gradients are. The model's attention must take the plain route
+(attn_impl="xla"): the kernels' backwards are first-order only and raise.
+A data-parallel second-order step differentiates the unwrapped module
+(DistributedDataParallel supports no double backward, and
+torch.autograd.grad bypasses its reducer) and averages the gradients and
+the probes over the ranks itself (second_order_reduce); z is alike on every
+rank because the generator is.
 """
 
 from __future__ import annotations
@@ -32,7 +46,11 @@ from mofo_tpu_torch.core.config import PretrainConfig
 from mofo_tpu_torch.core.device import DeviceLike, device_of, resolve_device
 from mofo_tpu_torch.ops import masking, patchify
 from mofo_tpu_torch.parallel import ddp
-from mofo_tpu_torch.train.optim import global_norm
+from mofo_tpu_torch.train.optim import (
+    global_norm,
+    hutchinson_diag,
+    rademacher,
+)
 from mofo_tpu_torch.train.train_state import TrainState, ema_update
 
 Batch = Dict[str, torch.Tensor]
@@ -107,6 +125,29 @@ def loss_for_batch(model: torch.nn.Module, batch: Batch,
                                             weight_sum=total)
 
 
+def grads_and_probe(loss: torch.Tensor, params: Dict[str, torch.Tensor],
+                    z: Dict[str, torch.Tensor]):
+    """The gradients of `loss` in `params` (detached) and the Hutchinson
+    probe z * Hz of the same loss."""
+    names = list(params)
+    g = torch.autograd.grad(loss, [params[n] for n in names],
+                            create_graph=True, allow_unused=True)
+    g = {n: torch.zeros_like(params[n]) if t is None else t
+         for n, t in zip(names, g)}
+    hd = hutchinson_diag(lambda _: g, params, z=z)
+    return {n: t.detach() for n, t in g.items()}, hd
+
+
+def second_order_reduce(tensors: list, world: int) -> list:
+    """The mean over the ranks of each tensor (one flat all-reduce)."""
+    if world == 1:
+        return tensors
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    flat = ddp.all_reduce_sum(flat) / world
+    return [c.view_as(t) for c, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
 def make_pretrain_step(
     model: torch.nn.Module,
     tx,
@@ -115,9 +156,10 @@ def make_pretrain_step(
     device: DeviceLike = None,
     augment_fn: Optional[Callable[[Optional[torch.Generator], Batch],
                                   Batch]] = None,
+    second_order: bool = False,
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
-    """Returns step_fn(state, batch, generator, loss_weight, mask=None) ->
-    (state, metrics).
+    """Returns step_fn(state, batch, generator, loss_weight, mask=None,
+    probe_z=None) -> (state, metrics).
 
     The step runs on `device` (CUDA unless the caller passes "cpu"; raises
     without a GPU), where the model must already be. batch['clip'] (B, T,
@@ -131,8 +173,10 @@ def make_pretrain_step(
     `mask` (B, N) bool replaces the draw, for tests (in a data-parallel
     step the rank's rows of G''s masks). `model` may be wrapped by
     parallel.ddp.wrap_model (see above). loss_weight is the
-    MOFO in-box weight (0.0 if unused). Metrics: loss, grad_norm and, with
-    a schedule, lr — tensors left on the device.
+    MOFO in-box weight (0.0 if unused). With second_order the optimizer
+    gets the Hutchinson probe (see above); `probe_z`, one name -> tensor
+    dict per microbatch, replaces its draws, for tests. Metrics: loss,
+    grad_norm and, with a schedule, lr — tensors left on the device.
     """
     dev = resolve_device(device)
     mdev = device_of(model)
@@ -143,9 +187,11 @@ def make_pretrain_step(
     k = cfg.update_freq
     rank, world = ddp.data_parallel(model) or (0, 1)
 
+    net = ddp.unwrap(model) if second_order else model
+
     def step_fn(state: TrainState, batch: Batch,
                 generator: Optional[torch.Generator], loss_weight,
-                mask: Optional[torch.Tensor] = None):
+                mask: Optional[torch.Tensor] = None, probe_z=None):
         model.train()
         if augment_fn is not None:
             with ddp.global_draws(rank, world, k):
@@ -154,29 +200,46 @@ def make_pretrain_step(
         if B % k:
             raise ValueError(f"batch {B} does not split into {k} micro")
         mb = B // k
+        names = list(state.params)
         for p in state.params.values():
             p.grad = None
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+        acc = hess = None  # second order: summed gradients and probes
         for i in range(k):
             micro = {n: v[i * mb:(i + 1) * mb] for n, v in batch.items()}
-            sync = world == 1 or i == k - 1
+            sync = world == 1 or i == k - 1 or second_order
             with ddp.global_draws(rank, world), \
                     (contextlib.nullcontext() if sync else model.no_sync()):
                 m = (generate_mask(micro, cfg, generator) if mask is None
                      else mask[i * mb:(i + 1) * mb])
-                loss = loss_for_batch(model, micro, m, cfg, loss_weight,
+                loss = loss_for_batch(net, micro, m, cfg, loss_weight,
                                       generator, world)
+            if second_order:
+                z = (rademacher(state.params, generator) if probe_z is None
+                     else probe_z[i])
+                g, hd = grads_and_probe(loss, state.params, z)
+                part = [g[n] for n in names] + [hd[n] for n in names]
+                acc = part if acc is None else torch._foreach_add(acc, part)
+            else:
                 loss.backward()
             loss_sum = loss_sum + loss.detach()
         if world > 1:
             loss_sum = ddp.all_reduce_sum(loss_sum) / world
-        grads = {n: p.grad for n, p in state.params.items()}
+        if second_order:
+            acc = second_order_reduce(acc, world)
+            grads = dict(zip(names, acc[:len(names)]))
+            hess = dict(zip(names, acc[len(names):]))
+        else:
+            grads = {n: p.grad for n, p in state.params.items()}
         if k > 1:
             grads = dict(zip(grads, torch._foreach_div(list(grads.values()),
                                                        k)))
+            if second_order:
+                hess = dict(zip(hess, torch._foreach_div(
+                    list(hess.values()), k)))
         loss = loss_sum / k if k > 1 else loss_sum
         grad_norm = global_norm(grads.values())
-        tx.update(grads, state.opt_state, state.params)
+        tx.update(grads, state.opt_state, state.params, hessian_diag=hess)
         if state.ema_params is not None:
             ema_update(state.ema_params, state.params, 0.9999)
         metrics = {"loss": loss, "grad_norm": grad_norm}
@@ -189,3 +252,26 @@ def make_pretrain_step(
         return state, metrics
 
     return step_fn
+
+
+def make_eval_loss_fn(model: torch.nn.Module, cfg: PretrainConfig
+                      ) -> Callable[..., torch.Tensor]:
+    """eval_fn(batch, generator=None, mask=None) -> the deterministic
+    reconstruction loss (mofo_tpu/train/pretrain_step.py:239-249): the model
+    in eval mode (no dropout or drop path), no motion weighting, no
+    gradient; the mask drawn from `generator` unless given (validation
+    curves)."""
+
+    @torch.no_grad()
+    def eval_fn(batch: Batch, generator: Optional[torch.Generator] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        net = ddp.unwrap(model)
+        was_training = net.training
+        net.eval()
+        try:
+            m = generate_mask(batch, cfg, generator) if mask is None else mask
+            return loss_for_batch(net, batch, m, cfg, None)
+        finally:
+            net.train(was_training)
+
+    return eval_fn

@@ -254,10 +254,14 @@ def test_step_moves_parameters_and_refuses_what_is_not_ported():
     for n in ("backbone.blocks.0.attn.qkv.weight",
               "local_MCA.0.attn.q.weight", "head.weight"):
         assert not torch.equal(named[n].detach(), before[n]), n
-    # in-step augmentation and fp16 are ported (test_torch_finetune_cli.py,
-    # test_torch_finetune_augment.py); adahessian is not
-    with pytest.raises(NotImplementedError, match="item 17"):
-        make_finetune_step(model, tx, cfg, device="cpu", second_order=True)
+    # in-step augmentation, fp16 (test_torch_finetune_cli.py,
+    # test_torch_finetune_augment.py) and adahessian's second-order step
+    # (test_torch_second_order.py) are ported; a second-order step refuses a
+    # model on the kernel routes instead of switching routes
+    so_step = make_finetune_step(model, tx, cfg, bb_focused=True,
+                                 device="cpu", second_order=True)
+    with pytest.raises(RuntimeError, match="first-order only"):
+        so_step(state, tbatch, torch.Generator().manual_seed(0))
     make_finetune_step(model, tx, dataclasses.replace(cfg, dtype="float16"),
                        device="cpu", augment_fn=lambda g, b: b)
 

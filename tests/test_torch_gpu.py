@@ -847,3 +847,104 @@ def test_motion_factory_on_the_card_matches_the_cpu(cuda, tmp_path):
         with open(out) as f:
             got[device] = json.load(f)
     assert got["cuda"] == got["cpu"] and len(got["cpu"]["sq"]) == 8
+
+
+# --- first-order only: the kernel routes refuse a double backward ----------
+
+
+def _routes(cuda):
+    """(input, output) of each kernel route's autograd function on the
+    card: K1/K2 bf16, K3 at head dim 64 with a bias row, K4 at 32."""
+    g = torch.Generator().manual_seed(4)
+
+    def leaf(*shape):
+        return torch.randn(shape, generator=g).to(cuda, torch.bfloat16) \
+            .requires_grad_(True)
+
+    qkv = leaf(2, 160, 3 * 2 * D)
+    q, k, v = (leaf(2, 160, 2 * D) for _ in range(3))
+    hq, hk, hv = (leaf(2, 2, 160, 32) for _ in range(3))
+    return {
+        "qkv": (qkv, fa.flash_attention_qkv(qkv, scale=SCALE, num_heads=2)),
+        "mh": (q, fa.flash_attention_mh(
+            q, k, v, scale=SCALE, num_heads=2,
+            kv_bias=torch.zeros(2, 160, device=cuda))),
+        "hm": (hq, fa.flash_attention(hq, hk, hv, scale=32 ** -0.5)),
+    }
+
+
+@pytest.mark.parametrize("route", ["qkv", "mh", "hm"])
+def test_kernel_routes_refuse_a_double_backward(cuda, route):
+    x, out = _routes(cuda)[route]
+    w = torch.randn(out.shape[-1], device=cuda,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    with pytest.raises(RuntimeError, match="first-order only"):
+        torch.autograd.grad(((out * w).sum(-1).float() ** 2).sum(), [x, w],
+                            create_graph=True)
+
+
+@pytest.mark.parametrize("route", ["qkv", "mh", "hm"])
+def test_first_order_kernel_backward_is_the_wrappers_own(cuda, route):
+    """The marked backwards return what the wrappers compute, bit for
+    bit."""
+    x, out = _routes(cuda)[route]
+    dout = torch.randn(out.shape, generator=torch.Generator().manual_seed(
+        5)).to(cuda, out.dtype)
+    fn = out.grad_fn if route != "hm" else out.grad_fn.next_functions[0][0]
+    saved = fn.saved_tensors  # the function's own (K4's under a reshape)
+    got, = torch.autograd.grad(out, x, dout)
+    if route == "qkv":
+        want = fa.qkv_attn_bwd(*saved, dout, SCALE, 2)
+    elif route == "mh":
+        want = fa.mh_attn_bwd(*saved, dout, SCALE, 2)[0]
+    else:
+        want = fa.hm_attn_bwd(*saved, dout.reshape(saved[-2].shape),
+                              32 ** -0.5)[0].reshape(x.shape)
+    assert torch.equal(got, want)
+
+
+# --- the optimizer zoo and AdaHessian on the card --------------------------
+
+
+@pytest.mark.parametrize("opt", ["lamb", "adafactor", "adamp", "sgdp",
+                                 "lookahead_adamw", "novograd"])
+def test_zoo_update_on_the_card_matches_the_cpu(cuda, opt):
+    model = create_model(VITS_MODEL, device="cpu", seed=3, encoder_depth=1,
+                         decoder_depth=1)
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    g = torch.Generator().manual_seed(6)
+    grads = [{n: torch.randn(p.shape, generator=g) for n, p in
+              params.items()} for _ in range(3)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = {n: t.to(dev).clone() for n, t in params.items()}
+        tx = optim.create_optimizer(p, opt=opt, lr_schedule=np.full(
+            3, 1e-3, np.float32), clip_grad=1.0, layer_decay=0.75)
+        st = tx.init(p)
+        for gr in grads:
+            tx.update({n: t.to(dev) for n, t in gr.items()}, st, p)
+        out[dev] = {n: t.cpu() for n, t in p.items()}
+    for n, want in out["cpu"].items():
+        np.testing.assert_allclose(out["cuda"][n].numpy(), want.numpy(),
+                                   atol=1e-6, rtol=1e-5, err_msg=n)
+
+
+def test_adahessian_step_on_the_card_runs_no_kernel(cuda):
+    cfg = PretrainConfig(model=VITS_MODEL, batch_size=2, dtype="bfloat16",
+                         masking=MaskingConfig(mask_type="tube_bb"),
+                         motion_loss_weight=True)
+    model = create_model(VITS_MODEL, device=cuda, seed=3, encoder_depth=1,
+                         decoder_depth=1, attn_impl="xla",
+                         dtype=torch.bfloat16)
+    lr = np.full(2, 1e-4, np.float32)
+    tx = optim.create_optimizer(dict(model.named_parameters()),
+                                opt="adahessian", lr_schedule=lr)
+    step = make_pretrain_step(model, tx, cfg, lr, second_order=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    from mofo_tpu_torch.tools.main_path import synthetic_batch
+    batch = synthetic_batch(2, gen, "cuda")
+    fa.reset_launch_counts()
+    state, m = step(TrainState.create(model, tx), batch, gen, 0.5)
+    assert not any(fa.launch_counts.values())
+    assert np.isfinite(float(m["loss"])) and state.opt_state.count == 1
+    assert all(torch.isfinite(h).all() for h in state.opt_state.nu.values())

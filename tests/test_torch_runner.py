@@ -22,6 +22,7 @@ from mofo_tpu.cli import pretrain as jax_cli
 from mofo_tpu.data import filelist as jax_filelist
 from mofo_tpu.models import create_model as jax_create_model
 from mofo_tpu.train import metrics as jax_metrics
+from mofo_tpu.train import optim as jax_optim
 from mofo_tpu.train.checkpoint import (
     import_torch_pretrain,
     load_torch_checkpoint,
@@ -117,13 +118,21 @@ def test_get_args_and_build_config_match_jax():
         assert cfg.optimizer.opt_betas == jcfg.optimizer.opt_betas
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--opt", "lamb"], "--opt lamb"),
-    (["--mesh_fsdp", "2"], "a mesh"),
+@pytest.mark.parametrize("flags,error,match", [
+    (["--opt", "shampoo"], ValueError, "Unknown optimizer: shampoo"),
+    (["--mesh_fsdp", "2"], NotImplementedError, "a mesh"),
 ])
-def test_unported_flags_raise(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        PT.build_config(PT.get_args(flags))
+def test_unported_flags_raise(flags, error, match, tmp_path):
+    """Every --opt of mofo_tpu's zoo runs (tests/test_torch_second_order.py
+    and test_torch_optim_zoo.py): an unknown name fails in the runner as
+    mofo_tpu's create_optimizer fails; the fsdp and model mesh axes are
+    still refused."""
+    if error is ValueError:
+        with pytest.raises(error, match=match):
+            jax_optim.create_optimizer({"w": jnp.ones((2,))},
+                                       lr_schedule=np.ones(1), opt=flags[1])
+    with pytest.raises(error, match=match):
+        _run(TINY_PRETRAIN + flags, tmp_path)
 
 
 def test_data_path_reads_the_setting_file_as_mofo_tpu_does(tmp_path):

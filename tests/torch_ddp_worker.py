@@ -52,6 +52,9 @@ BB_GEO = dict(img_size=32, all_frames=4, embed_dim=128, depth=2,
               fusing_method="MCA", mca_num_heads=2, drop_path_rate=0.1)
 DECODE = (40, 48)  # (h, w) of the uint8 clips the augmentations crop
 STEPS = 3
+# adahessian's eps in the rank checks: at 1e-8 an update divides by probe
+# elements (1e-8) smaller than the probe's rounding across reduction orders
+ADAHESSIAN_EPS = 1e-3
 # per world: (local batch, update_freq) of the pretrain and finetune steps
 PRETRAIN_BK = {1: (4, 2), 2: (2, 2), 3: (2, 2)}
 FINETUNE_BK = {2: (4, 2), 3: (2, 1)}
@@ -64,8 +67,9 @@ def pretrain_cfg(B, k):
         masking=MaskingConfig(mask_type="tube_bb", mask_ratio=0.5))
 
 
-def pretrain_model():
-    return create_model(PRETRAIN, device="cpu", seed=3, **PRETRAIN_GEO)
+def pretrain_model(**overrides):
+    return create_model(PRETRAIN, device="cpu", seed=3, **PRETRAIN_GEO,
+                        **overrides)
 
 
 def finetune_cfg(B, k):
@@ -280,8 +284,18 @@ def task_cli(rank, world, out):
     return printed
 
 
-TASKS = {"pretrain": task_pretrain, "finetune": task_finetune,
-         "collectives": task_collectives, "checkpoint": task_checkpoint,
+def task_adahessian(rank, world, out):
+    """3 adahessian steps at eps ADAHESSIAN_EPS (the plain attention route,
+    masks and the probe's z drawn in the step) on the rank's rows of G'."""
+    B, k = PRETRAIN_BK[world]
+    return mp.pretrain_steps(
+        pretrain_model(attn_impl="xla"), pretrain_cfg(B, k),
+        mp.rank_batch(pretrain_batch(world * B), rank, world, k), STEPS,
+        wrap=True, opt="adahessian", eps=ADAHESSIAN_EPS)
+
+
+TASKS = {"pretrain": task_pretrain, "adahessian": task_adahessian,
+         "finetune": task_finetune, "collectives": task_collectives, "checkpoint": task_checkpoint,
          "loss_scale": task_loss_scale, "cli": task_cli}
 
 
