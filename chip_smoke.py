@@ -233,7 +233,7 @@ Phases, each printing one JSON line:
                the boxes' mean IoU with the square.
  28. zoo_parity - every distinct first-order zoo entry (ZOO_PARITY_OPTS:
                the 20 base names but adahessian, lookahead over adamw and
-               sgd), three f32 steps each (seven for radam and lookahead:
+               sgd), two f32 steps each (seven for radam and lookahead:
                RAdam's rectified branch and a lookahead sync run, both
                checked) of the ViT-B pretrain at full width
                cut to 2+1 Blocks, B=1, on the card (K1/K2's f32 kernels, at
@@ -261,6 +261,37 @@ Phases, each printing one JSON line:
                a fresh state equals the run's own state bit for bit
                (moments, slow weights, count, parameters); then resumed for
                a third epoch, launches a step as phase `runner`'s.
+ 32. mesh_step - 4 ranks on cuda:0 over gloo on the (1, 2, 2) mesh
+               (parallel/mesh.py; python -m mofo_tpu_torch.tools.mesh_ranks
+               step) against one process at G' on the same card: the ViT-B
+               MOFO pretrain at full width and depth, B=4 a rank (G'=16),
+               2 steps in f32 and 3 in bf16, and the ViT-B BB-focused MCA
+               finetune step (f32, 2 a rank, mixup elem, cutmix, drop path
+               0.1) for 2 steps with one validation pass and the
+               multi-view merge: losses and gradient norms within
+               DDP_F32_RTOL (f32) and BF16_STEP_RTOL (bf16), the parameters
+               gathered whole within DDP_F32_ATOL (f32), every rank's
+               launches equal to one process's (16 of each K1/K2 kernel a
+               pretrain step, at 6 and 3 heads a rank); the fused qkv cut
+               as a contiguous third (planted) must move the loss beyond
+               DDP_F32_RTOL.
+ 33. mesh_memory - ViT-L (1024 wide, 16 heads; decoder 512, 8 heads) at
+               full width and depth (MESH_MEMORY_DEPTH) on the 4 ranks of
+               (1, 2, 2), 2 bf16 steps: each rank's bytes of parameters,
+               gradients and AdamW moments against one process's and the
+               share the sharding rules give (within 1%), peak memory per
+               rank and step ms.
+ 34. mesh_runner - cli.pretrain_mofo's main in 4 processes that joined a
+               gloo group on cuda:0 (mesh_ranks cli), --mesh_fsdp 2
+               --mesh_model 2, ViT-B f32 on 32 synthetic clips at 4 a
+               device, epoch 0 (2 steps) at a constant LR; then epoch 1
+               resumed in this one process, against both epochs in one
+               process fed the same global batches: the losses within
+               DDP_F32_RTOL, log.txt written once, the checkpoint's names
+               the reference's, the ranks' launches.
+The kernels phase also checks and times K1/K2 at the mesh's per-rank
+head counts (MESH_GEOS: H = 3, the ViT-B decoder at model 2; H = 4 and 8,
+ViT-L's decoder and encoder).
 Then the card's nvidia-smi line, the kernels line and, last, the ok line.
 Any failed check raises, and the script exits non-zero without the ok line.
 """
@@ -278,6 +309,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -307,7 +339,8 @@ from mofo_tpu_torch.ops import augment as A
 from mofo_tpu_torch.ops import flash_attention as fa
 from mofo_tpu_torch.ops import attention, masking
 from mofo_tpu_torch.ops import rand_augment as RA
-from mofo_tpu_torch.tools import ddp_ranks
+from mofo_tpu_torch.parallel import mesh as mesh_lib
+from mofo_tpu_torch.tools import ddp_ranks, mesh_ranks
 from mofo_tpu_torch.tools.main_path import (
     AUG_ATOL,
     AUG_SHARE,
@@ -384,9 +417,16 @@ STEP_BATCH = 16
 # heads, 16 frames at 384^2) and ViT-L's 16 heads
 MAIN = {"encoder": (STEP_BATCH, 160, 12), "decoder": (STEP_BATCH, 1568, 6),
         "backbone": (10, 1568, 12)}  # the finetune backbone's Blocks
+# the heads a rank of the (1, 2, 2) mesh holds (B = 8 rows a batch
+# coordinate): the ViT-B decoder's 6 at model 2 (A = 192 a rank, qkv rows
+# of 576 bf16: a 1152-byte TMA pitch), ViT-L's decoder (8 -> 4) and encoder
+# (16 -> 8, the 160 visible tokens)
+MESH_GEOS = {"mesh_vitb_decoder_h3": (8, 1568, 3),
+             "mesh_vitl_decoder_h4": (8, 1568, 4),
+             "mesh_vitl_encoder_h8": (8, 160, 8)}
 CHECKS = {**MAIN, "ragged": (8, 100, 2), "frames32_h6": (2, 3136, 6),
           "frames32_h12": (2, 3136, 12), "res384_h12": (1, 4608, 12),
-          "vitl_h16": (2, 1568, 16)}
+          "vitl_h16": (2, 1568, 16), **MESH_GEOS}
 FT_BATCH = 10
 # K3: (B, N, H, D); the MCA is the finetune step's own
 MH_CHECKS = {"mca": (FT_BATCH, 1568, 3, 256), "h12": (FT_BATCH, 1568, 12, 64),
@@ -512,7 +552,9 @@ ZOO_PARITY_OPTS = ("adamw", "adam", "sgd", "nesterov", "momentum", "lamb",
                    "nadam", "radam", "novograd", "adamax", "adagrad",
                    "adabelief", "yogi", "adamp", "sgdp", "lookahead_adamw",
                    "lookahead_sgd")
-ZOO_PARITY_STEPS = 3
+# two updates each: the second already runs from non-zero moments, and a
+# third would push the script past 800 s with the mesh phases
+ZOO_PARITY_STEPS = 2
 # where a branch starts later: lookahead syncs at update 6, and RAdam
 # rectifies from rho_t >= 5 (rho_t = 5.7 at update 6 with b2 = 0.95)
 ZOO_PARITY_LONG = ("radam", "lookahead_adamw", "lookahead_sgd")
@@ -529,6 +571,17 @@ ZOO_STEP_OPTS = ("adamw", "lamb", "adafactor", "adamp", "lookahead_adamw")
 ZOO_STEP_CHAIN = 5  # timed steps between two CUDA events
 ADAHESSIAN_CHAIN = 3
 ZOO_RUNNER_OPT = "lookahead_adamp"
+# mesh_memory: ViT-L's (encoder, decoder) Blocks, its full depth; each
+# rank's state bytes against the share the sharding rules give it
+MESH_MEMORY_DEPTH = (24, 4)
+MESH_MEMORY_RTOL = 0.01
+# mesh_runner: ViT-B f32 on 32 synthetic clips, 4 a device on the mesh and
+# 16 in one process (G' = 16, 2 steps an epoch), at a constant LR (the
+# scaled lr, 1.6e-4 * 16 / 256, is the min_lr): a run of --epochs 1 resumed
+# with --epochs 2 steps as one of --epochs 2 does
+MESH_RUNNER_ARGS = ["--model", MODEL, "--synthetic", "32", "--dtype",
+                    "float32", "--save_ckpt_freq", "1", "--warmup_epochs",
+                    "0", "--lr", "1.6e-4", "--min_lr", "1e-5"]
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -717,7 +770,8 @@ def phase_kernels():
             res = check_kernels(x, H)
             emit("kernels_vs_plain", geometry=geo, B=B, N=N, H=H,
                  dtype=str(dtype).replace("torch.", ""), **res)
-            if dtype == torch.bfloat16 and geo in MAIN:
+            if dtype == torch.bfloat16 and (geo in MAIN or
+                                            geo in MESH_GEOS):
                 err = res["max_abs_err"]
                 errors[geo] = {"qkv_attn_fwd": err["out"],
                                "qkv_attn_bwd_prep": res["prep"]["max_abs_err"],
@@ -3066,6 +3120,237 @@ def phase_zoo_runner(smi: str) -> dict:
     return launches
 
 
+def _run_ranks(args: list, world: int, timeout: float = 900) -> tuple:
+    """`world` processes of python -m mofo_tpu_torch.tools.mesh_ranks
+    <args> on cuda:0 (RANK and WORLD_SIZE set, LOCAL_RANK 0); their outputs
+    and the seconds they took. A rank that fails fails the phase."""
+    t0 = time.perf_counter()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                   LOCAL_RANK="0")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "mofo_tpu_torch.tools.mesh_ranks", *args],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    for proc, out in zip(procs, outs):
+        if proc.returncode != 0:
+            print(out[-6000:], flush=True)
+            raise AssertionError(f"a mesh rank exited {proc.returncode}")
+    return outs, time.perf_counter() - t0
+
+
+def phase_mesh_step(smi: str) -> dict:
+    """4 ranks on the (1, 2, 2) mesh against one process at G' on the same
+    card. Returns the ranks' launches, summed."""
+    world = mesh_ranks.WORLD
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref = mesh_ranks.mesh_runs(None)
+        ref_s = time.perf_counter() - t0
+        runs = list(ref)
+        torch.save({r: ref[r].pop("params") for r in runs},
+                   os.path.join(tmp, "reference.pt"))
+        torch.cuda.empty_cache()
+        _, ranks_s = _run_ranks(["step", tmp], world)
+        got = [torch.load(os.path.join(tmp, f"rank-{r}.pt"))
+               for r in range(world)]
+    report, bad = {}, []
+    for run in runs:
+        rtol = BF16_STEP_RTOL if "bfloat16" in run else DDP_F32_RTOL
+        want, rows = ref[run], []
+        for r, out in enumerate(got):
+            res = {f"{k}_rel_diff": max(abs(a - b) / abs(b)
+                                        for a, b in zip(out[run][k], want[k]))
+                   for k in ("loss", "grad_norm")}
+            res.update(params_max_abs_err=out[run]["params_max_abs_err"],
+                       step_ms=out[run]["ms"], loss=out[run]["loss"],
+                       grad_norm=out[run]["grad_norm"],
+                       launches=out[run]["launches"])
+            bad += [f"{run} rank {r} {k}" for k in ("loss", "grad_norm")
+                    if not res[f"{k}_rel_diff"] <= rtol]
+            if "float32" in run and not res["params_max_abs_err"] <= \
+                    DDP_F32_ATOL:
+                bad.append(f"{run} rank {r} parameters")
+            if out[run]["launches"] != want["launches"]:
+                bad.append(f"{run} rank {r} launches {out[run]['launches']}"
+                           f" != one process's {want['launches']}")
+            if "eval" in want:
+                b = out["coord"][0] * 2 + out["coord"][1]
+                n = len(out[run]["logits"])
+                res["logits_max_abs_err"] = (
+                    out[run]["logits"] - want["logits"][b * n:(b + 1) * n]
+                ).abs().max().item()
+                res["eval"], res["multiview"] = (out[run]["eval"],
+                                                 out[run]["multiview"])
+                if not res["logits_max_abs_err"] <= DDP_F32_ATOL:
+                    bad.append(f"{run} rank {r} logits")
+                for key in ("acc1", "acc5"):
+                    if out[run]["eval"][key] != want["eval"][key]:
+                        bad.append(f"{run} rank {r} validation {key}")
+                if out[run]["multiview"] != want["multiview"]:
+                    bad.append(f"{run} rank {r} multi-view")
+            rows.append(res)
+        report[run] = {"ranks": rows, "bound_rtol": rtol,
+                       "one_process": {k: want[k] for k in (
+                           "loss", "grad_norm", "ms", "launches", "eval",
+                           "multiview") if k in want}}
+    first = ref["pretrain_float32"]["loss"][0]
+    planted = [abs(out["contiguous_qkv_loss"] - first) / abs(first)
+               for out in got]
+    per_step = {k: v // mesh_ranks.STEPS["pretrain_bfloat16"] for k, v in
+                got[0]["pretrain_bfloat16"]["launches"].items()}
+    launches = {k: sum(out[run]["launches"][k] for out in got
+                       for run in runs) for k in fa.KERNELS}
+    emit("mesh_step", mesh=dict(zip(mesh_lib.AXES, mesh_ranks.SHAPE)),
+         backend="gloo", device="cuda:0 (all 4 ranks)",
+         coords=[out["coord"] for out in got], runs=report,
+         batch_per_device={"pretrain": mesh_ranks.PRETRAIN_B,
+                           "finetune": mesh_ranks.FINETUNE_B},
+         steps=mesh_ranks.STEPS, pretrain_bf16_launches_per_step=per_step,
+         planted_contiguous_qkv={"loss_rel_diff": planted,
+                                 "bound": DDP_F32_RTOL},
+         one_process_s=ref_s, ranks_s=ranks_s,
+         ranks_run_s=[out["seconds"] for out in got], launches=launches,
+         nvidia_smi=smi)
+    if not all(x > DDP_F32_RTOL for x in planted):
+        bad.append(f"the contiguous qkv split passed: {planted}")
+    if any(per_step[k] != 16 for k in fa.QKV_KERNELS):
+        bad.append(f"K1/K2 launches a bf16 step {per_step}, not 16")
+    if bad:
+        raise AssertionError(f"mesh ranks vs one process: {bad}")
+    return launches
+
+
+def phase_mesh_memory(smi: str) -> dict:
+    """ViT-L at MESH_MEMORY_DEPTH on the (1, 2, 2) ranks: state bytes,
+    peak memory and step ms a rank. Returns the launches, summed."""
+    enc, dec = MESH_MEMORY_DEPTH
+    with tempfile.TemporaryDirectory() as tmp:
+        _, seconds = _run_ranks(["memory", tmp, str(enc), str(dec)],
+                                mesh_ranks.WORLD)
+        got = [torch.load(os.path.join(tmp, f"memory-{r}.pt"))
+               for r in range(mesh_ranks.WORLD)]
+    rows, bad = [], []
+    for r, out in enumerate(got):
+        one = out["one_process_param_bytes"]
+        state = out["param_bytes"] + out["grad_bytes"] + out["moment_bytes"]
+        off = abs(out["param_bytes"] - out["analytic_param_bytes"]) / \
+            out["analytic_param_bytes"]
+        rows.append({
+            "coord": out["coord"], "param_bytes": out["param_bytes"],
+            "grad_bytes": out["grad_bytes"],
+            "moment_bytes": out["moment_bytes"],
+            "state_bytes": state, "one_process_state_bytes": 4 * one,
+            "state_share": state / (4 * one),
+            "analytic_param_bytes": out["analytic_param_bytes"],
+            "analytic_share": out["analytic_param_bytes"] / one,
+            "param_bytes_vs_analytic": off,
+            "peak_bytes": out["peak_bytes"], "step_ms": out["step_ms"],
+            "loss": out["loss"], "launches": out["launches"]})
+        if not off <= MESH_MEMORY_RTOL or out["grad_bytes"] != \
+                out["param_bytes"] or out["moment_bytes"] != \
+                2 * out["param_bytes"]:
+            bad.append(f"rank {r}: {rows[-1]}")
+        if not all(np.isfinite(out["loss"])):
+            bad.append(f"rank {r} losses {out['loss']}")
+        want = enc + dec
+        if any(out["launches"][k] != mesh_ranks.MEMORY_STEPS * want
+               for k in fa.QKV_KERNELS):
+            bad.append(f"rank {r} launches {out['launches']}")
+    emit("mesh_memory", model=mesh_ranks.LARGE,
+         depth={"encoder": enc, "decoder": dec}, dtype="bfloat16",
+         mesh=dict(zip(mesh_lib.AXES, mesh_ranks.SHAPE)),
+         batch_per_device=mesh_ranks.PRETRAIN_B,
+         steps=mesh_ranks.MEMORY_STEPS, ranks=rows, seconds=seconds,
+         bound=MESH_MEMORY_RTOL, nvidia_smi=smi)
+    if bad:
+        raise AssertionError(f"mesh_memory: {bad}")
+    return {k: sum(out["launches"][k] for out in got) for k in fa.KERNELS}
+
+
+def phase_mesh_runner(smi: str) -> dict:
+    """cli.pretrain_mofo on the (1, 2, 2) ranks for epoch 0, resumed in
+    this process for epoch 1, against both epochs in one process. Returns
+    the ranks' launches, summed."""
+    mesh_flags = ["--mesh_fsdp", "2", "--mesh_model", "2"]
+    B = mesh_ranks.PRETRAIN_B
+    with tempfile.TemporaryDirectory() as tmp:
+        pt, one = os.path.join(tmp, "pt"), os.path.join(tmp, "one")
+        _, mesh_s = _run_ranks(
+            ["cli", tmp, "pretrain_mofo", *MESH_RUNNER_ARGS, "--batch_size",
+             str(B), "--epochs", "1", "--output_dir", pt, *mesh_flags],
+            mesh_ranks.WORLD)
+        mesh_log = _runner_log(pt)
+        files = sorted(os.listdir(pt))
+        names = set(torch.load(os.path.join(pt, "checkpoint-0.pth"),
+                               map_location="cpu",
+                               weights_only=True)["model"])
+        launches = []
+        for r in range(mesh_ranks.WORLD):
+            with open(os.path.join(tmp, f"counts-{r}.json")) as f:
+                launches.append(json.load(f))
+        G = B * mesh_ranks.WORLD
+        args = MESH_RUNNER_ARGS + ["--batch_size", str(G), "--epochs", "2"]
+        _, resumed_text, resume_s = _quiet_main(
+            pretrain_mofo.main, pretrain_mofo.get_args(
+                args + ["--output_dir", pt], mofo_defaults=True))
+        resumed = _runner_log(pt)
+        with mock.patch.object(P, "ShardedSampler",
+                               mesh_ranks.coord_order(2, G // 2)):
+            _, _, one_s = _quiet_main(pretrain_mofo.main,
+                                      pretrain_mofo.get_args(
+                                          args + ["--output_dir", one],
+                                          mofo_defaults=True))
+        want = _runner_log(one)
+        ref_names = set(torch.load(os.path.join(one, "checkpoint-0.pth"),
+                                   map_location="cpu",
+                                   weights_only=True)["model"])
+    rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(resumed, want)]
+           for k in ("train_loss", "train_grad_norm")}
+    problems = []
+    if [x["epoch"] for x in mesh_log] != [0] or files != [
+            "checkpoint-0.pth", "log.txt"]:
+        problems.append(f"mesh run: log {mesh_log}, files {files}")
+    if "auto-resumed at epoch 1" not in resumed_text or [
+            x["epoch"] for x in resumed] != [0, 1]:
+        problems.append(f"the one-process call did not resume: {resumed}")
+    if names != ref_names or any(n.startswith("module.") for n in names):
+        problems.append(f"checkpoint names {sorted(names ^ ref_names)[:4]}")
+    if not all(x <= DDP_F32_RTOL for v in rel.values() for x in v):
+        problems.append(f"resumed vs one process {rel}")
+    per_rank_steps = 2
+    want_launches = {k: per_rank_steps * STEP_LAUNCHES[MODEL][k]
+                     for k in fa.QKV_F32_KERNELS}
+    for r, counts_r in enumerate(launches):
+        if {k: counts_r[k] for k in fa.QKV_F32_KERNELS} != want_launches:
+            problems.append(f"rank {r} launches {counts_r}")
+    emit("mesh_runner", model=MODEL, dtype="float32",
+         mesh=dict(zip(mesh_lib.AXES, mesh_ranks.SHAPE)),
+         batch_per_device=B, global_batch=G,
+         mesh_epoch=[{k: x[k] for k in ("epoch", "train_loss",
+                                        "train_grad_norm", "step_s")}
+                     for x in mesh_log],
+         resumed=[{k: x[k] for k in ("epoch", "train_loss",
+                                     "train_grad_norm")} for x in resumed],
+         one_process=[{k: x[k] for k in ("epoch", "train_loss",
+                                         "train_grad_norm")} for x in want],
+         rel_diff=rel, bound=DDP_F32_RTOL, files=files,
+         seconds={"mesh": mesh_s, "resume": resume_s, "one_process": one_s},
+         launches=launches, nvidia_smi=smi)
+    if problems:
+        raise AssertionError(f"mesh_runner: {problems}")
+    return {k: sum(c[k] for c in launches) for k in fa.KERNELS}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -3097,12 +3382,15 @@ def main() -> int:
      later["launches_attn_dropout_step"]) = phase_dropout_step(smi, ft_loss)
     later["launches_attention_vis"] = phase_attention_vis(smi)
     phase_factory_chunks(smi)
-    t_zoo = time.perf_counter()
     later["launches_zoo_parity"] = phase_zoo_parity()
     later["launches_zoo_steps"] = phase_zoo_steps(smi)
     later["launches_adahessian_step"] = phase_adahessian_step(smi)
     later["launches_zoo_runner"] = phase_zoo_runner(smi)
-    new_s = time.perf_counter() - t_zoo
+    t_mesh = time.perf_counter()
+    later["launches_mesh_step"] = phase_mesh_step(smi)
+    later["launches_mesh_memory"] = phase_mesh_memory(smi)
+    later["launches_mesh_runner"] = phase_mesh_runner(smi)
+    new_s = time.perf_counter() - t_mesh
     kernels = []
     for name in fa.QKV_KERNELS:
         dec = timings["decoder"][name]
@@ -3122,7 +3410,7 @@ def main() -> int:
             **{key: counts[name] for key, counts in later.items()},
             **{geo: {**timings[geo][name],
                      "max_abs_err": errors[geo][name]}
-               for geo in ("encoder", "backbone")},
+               for geo in ("encoder", "backbone", *MESH_GEOS)},
         })
     for name in fa.MH_KERNELS:
         mca = mh_timings[name]

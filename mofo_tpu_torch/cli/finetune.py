@@ -47,13 +47,21 @@ the views through gather_across_processes); every rank acts on rank 0's
 validation numbers (best checkpoint, early stop). Rank 0 prints, writes
 log.txt and the checkpoints.
 
+--mesh_fsdp and --mesh_model shard the run over a (data, fsdp, model)
+mesh as in cli/pretrain.py: each batch coordinate loads batch_size *
+model rows of the train, validation and test sets and its model peers the
+same; the validation sums, the meters and the multi-view merge run over
+the batch coordinates (parallel/mesh.py's batch axis), and the multi-view
+test reads the fsdp-sharded weights from one gather (the coordinates may
+make different numbers of calls there).
+
 With WANDB_PROJECT (and WANDB_GROUP, WANDB_NAME) set, rank 0 also logs
 every epoch's line to wandb when the package is installed
 (train/wandb_compat.py).
 
-Not ported yet, and refused with NotImplementedError: a mesh with an fsdp
-or model axis (ROADMAP Queue 1 item 20); a --mesh_data other than -1 or
-the world size raises ValueError.
+A mesh mofo_tpu refuses at the world size raises ValueError; on a mesh
+with an fsdp or model axis, adahessian, adafactor, adamp and sgdp raise
+NotImplementedError (ROADMAP Queue 1 item 23).
 """
 
 from __future__ import annotations
@@ -68,9 +76,17 @@ import time
 import numpy as np
 import torch
 
-from mofo_tpu_torch.cli.pretrain import refuse_unported, step_seed
+from mofo_tpu_torch.cli.pretrain import (
+    build_run_mesh,
+    resolve_mesh,
+    step_seed,
+)
 from mofo_tpu_torch.core import distributed
-from mofo_tpu_torch.core.config import FinetuneConfig, OptimizerConfig
+from mofo_tpu_torch.core.config import (
+    FinetuneConfig,
+    MeshSpec,
+    OptimizerConfig,
+)
 from mofo_tpu_torch.core.device import resolve_device
 from mofo_tpu_torch.data import pipeline as P
 from mofo_tpu_torch.data.epic import EpicClipDataset
@@ -90,6 +106,7 @@ from mofo_tpu_torch.eval.multiview import (
 from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.ops import augment as A
 from mofo_tpu_torch.parallel import ddp
+from mofo_tpu_torch.parallel import mesh as mesh_lib
 from mofo_tpu_torch.train import checkpoint as ckpt
 from mofo_tpu_torch.train import metrics as M
 from mofo_tpu_torch.train import optim, schedules
@@ -207,8 +224,9 @@ def get_args(argv=None, bb_defaults: bool = False):
 
 def build_config(args, world: int = 1) -> FinetuneConfig:
     """The run's FinetuneConfig at `world` processes; raises on flags the
-    port does not run (cli/pretrain.py's refuse_unported)."""
-    refuse_unported(args, world)
+    port does not run: a mesh mofo_tpu refuses at that many devices
+    (cli/pretrain.py's resolve_mesh)."""
+    resolve_mesh(args, world)
     return FinetuneConfig(
         model=args.model,
         nb_classes=args.nb_classes,
@@ -253,6 +271,7 @@ def build_config(args, world: int = 1) -> FinetuneConfig:
             clip_grad=args.clip_grad,
             layer_decay=args.layer_decay,
         ),
+        mesh=MeshSpec(args.mesh_data, args.mesh_fsdp, args.mesh_model),
     )
 
 
@@ -397,17 +416,23 @@ def _train(args, reader):
         + (f" ({torch.cuda.get_device_name(device)})"
            if device.type == "cuda" else ""))
 
-    # ----- data -----
+    mesh = build_run_mesh(args, world, log)
+    group = None if mesh is None else mesh.batch
+
+    # ----- data: one shard per batch coordinate (its model peers alike) ---
     train_ds, val_ds, test_ds, cfg, action_to_vn = build_datasets(
         args, cfg, bb_focused, log, reader)
-    train_sampler = P.ShardedSampler(len(train_ds), rank, world,
+    b_rank, b_world, rows = ((rank, world, cfg.batch_size) if mesh is None
+                             else (group.index, group.size,
+                                   cfg.batch_size * mesh.shape[2]))
+    train_sampler = P.ShardedSampler(len(train_ds), b_rank, b_world,
                                      seed=cfg.seed)
-    train_loader = P.PrefetchLoader(train_ds, cfg.batch_size, train_sampler,
+    train_loader = P.PrefetchLoader(train_ds, rows, train_sampler,
                                     device=device,
                                     num_workers=args.num_workers)
     val_loader = P.PrefetchLoader(
-        val_ds, cfg.batch_size,
-        P.ShardedSampler(len(val_ds), rank, world, shuffle=False),
+        val_ds, rows,
+        P.ShardedSampler(len(val_ds), b_rank, b_world, shuffle=False),
         device=device, drop_last=False, num_workers=args.num_workers)
     steps_per_epoch = max(len(train_loader), 1)
 
@@ -448,11 +473,14 @@ def _train(args, reader):
         wd_sched = schedules.cosine_schedule(
             oc.weight_decay, oc.weight_decay_end, cfg.epochs,
             steps_per_epoch)
+    sharding = None if mesh is None else mesh_lib.shard_model(model, mesh)
+    named = dict(model.named_parameters())
     tx = optim.create_optimizer(
         named, opt=oc.opt, lr_schedule=lr_sched, wd_schedule=wd_sched,
         weight_decay=oc.weight_decay, betas=oc.opt_betas, eps=oc.opt_eps,
         clip_grad=oc.clip_grad, layer_decay=oc.layer_decay,
-        trainable=head_only if args.only_finetune_last else None)
+        trainable=head_only if args.only_finetune_last else None,
+        sharding=sharding)
     # DeepSpeed's fp16 defaults: initial scale 2^7, window 128
     loss_scale = (DynamicLossScale.create() if cfg.dtype == "float16"
                   else None)
@@ -481,7 +509,8 @@ def _train(args, reader):
         return out
 
     # the steps see the DDP wrapper; saves, loads and EMA the module
-    train_model = ddp.wrap_model(model) if world > 1 else model
+    train_model = (ddp.wrap_model(model) if world > 1 and mesh is None
+                   else model)
     step_fn = make_finetune_step(
         train_model, tx, cfg, lr_sched, bb_focused=bb_focused,
         augment_fn=make_train_augment(cfg, flip, args.num_sample),
@@ -506,7 +535,7 @@ def _train(args, reader):
                                        loss=float(out["loss"]),
                                        acc1=float(out["acc1"]),
                                        acc5=float(out["acc5"]))
-        stats = logger.epoch_stats(sync=True)
+        stats = logger.epoch_stats(sync=True, group=group)
         if world > 1:  # every rank decides on rank 0's numbers
             stats = ddp.broadcast_object(stats)
         log(f"* Acc@1 {stats.get('acc1', 0):.3f} "
@@ -538,8 +567,8 @@ def _train(args, reader):
             if not np.isfinite(loss):
                 log(f"Loss is {loss}, stopping training")
                 sys.exit(2)
-        stats = {f"train_{k}": v
-                 for k, v in logger.epoch_stats(sync=True).items()}
+        stats = {f"train_{k}": v for k, v in
+                 logger.epoch_stats(sync=True, group=group).items()}
         # seconds per step: waiting on the loader, and the rest of the step
         stats.update(data_wait_s=logger.data_time.global_avg,
                      step_s=logger.iter_time.global_avg
@@ -603,17 +632,53 @@ def final_test(model, test_ds, cfg: FinetuneConfig, bb_focused: bool, log,
     actions) also the verb and noun accuracies of the marginalized scores
     (utils.py:584-606). Prints and returns (top1, top5). Each process tests
     its shard of the views; the rows are merged across processes before
-    the scores (gather_across_processes)."""
+    the scores (gather_across_processes). A model sharded on a mesh tests
+    one shard per batch coordinate (its model peers make the same calls),
+    reads its fsdp-sharded weights from one gather and merges over the
+    batch coordinates."""
     t0 = time.time()
     rank, world = distributed.process_index(), distributed.process_count()
+    sharding, group, rows = mesh_lib.sharding_of(model), None, cfg.batch_size
+    if sharding is not None:
+        group = sharding.mesh.batch
+        rank, world = group.index, group.size
+        rows *= sharding.mesh.shape[2]
     loader = P.PrefetchLoader(
-        test_ds, cfg.batch_size,
+        test_ds, rows,
         P.ShardedSampler(len(test_ds), rank, world, shuffle=False),
         device=device, drop_last=False, num_workers=num_workers)
     # per-process logits: the ranks may make different numbers of calls
     eval_fn = make_eval_step(ddp.unwrap(model), cfg, bb_focused=bb_focused,
-                             device=device)
+                             device=device, reduce=False)
     agg = MultiViewAggregator()
+    with (contextlib.nullcontext() if sharding is None
+          else sharding.gathered(model)):
+        _test_views(loader, eval_fn, agg, cfg, bb_focused)
+    agg = (gather_across_processes(agg) if group is None
+           else gather_across_processes(agg, group))
+    top1, top5, _ = agg.finalize()
+    log(f"Final test: Acc@1 {top1:.2f} Acc@5 {top5:.2f} "
+        f"({time.time() - t0:.3f} s)")
+    if action_to_vn is not None:
+        feats, labels = agg.merge_feats()
+        vids = list(feats)
+        probs = np.stack([feats[v] for v in vids])
+        lab = np.array([labels[v] for v in vids])
+        acc = {}
+        for col, mode in enumerate(("verb", "noun")):
+            marg = marginalize(probs, get_marginal_indexes(action_to_vn,
+                                                           mode))
+            true = np.array([action_to_vn[a][col] for a in lab])
+            acc[mode] = float(np.mean(np.argmax(marg, axis=1) == true)) * 100
+        log(f"Final test (EK marginalized): verb {acc['verb']:.2f} "
+            f"noun {acc['noun']:.2f}")
+    return top1, top5
+
+
+def _test_views(loader, eval_fn, agg: MultiViewAggregator,
+                cfg: FinetuneConfig, bb_focused: bool) -> None:
+    """Each batch's valid views, grouped by their spatial window, through
+    test_view_augment and eval_fn into `agg`."""
     for batch in loader:
         split = batch["split_nb"].cpu().numpy()
         valid = (batch["valid"].cpu().numpy() if "valid" in batch
@@ -635,24 +700,6 @@ def final_test(model, test_ds, cfg: FinetuneConfig, bb_focused: bool, log,
             agg.add(sub["video_idx"].tolist(), sub["chunk_nb"].tolist(),
                     sub["split_nb"].tolist(), out["logits"].cpu().numpy(),
                     sub["label"].tolist())
-    agg = gather_across_processes(agg)
-    top1, top5, _ = agg.finalize()
-    log(f"Final test: Acc@1 {top1:.2f} Acc@5 {top5:.2f} "
-        f"({time.time() - t0:.3f} s)")
-    if action_to_vn is not None:
-        feats, labels = agg.merge_feats()
-        vids = list(feats)
-        probs = np.stack([feats[v] for v in vids])
-        lab = np.array([labels[v] for v in vids])
-        acc = {}
-        for col, mode in enumerate(("verb", "noun")):
-            marg = marginalize(probs, get_marginal_indexes(action_to_vn,
-                                                           mode))
-            true = np.array([action_to_vn[a][col] for a in lab])
-            acc[mode] = float(np.mean(np.argmax(marg, axis=1) == true)) * 100
-        log(f"Final test (EK marginalized): verb {acc['verb']:.2f} "
-            f"noun {acc['noun']:.2f}")
-    return top1, top5
 
 
 if __name__ == "__main__":

@@ -33,6 +33,18 @@ the W ranks compute what one process computes on their global batch
 process group itself (init_distributed_mode with its own init_method)
 may call main() in each process.
 
+--mesh_fsdp F and --mesh_model M lay the W ranks out on the mesh (data,
+F, M) of parallel/mesh.py (--mesh_data -1 takes what is left); the run
+accepts exactly the meshes mofo_tpu accepts at W devices and raises
+ValueError for the others. With F or M above 1 the parameters, their
+moments and the EMA are sharded over fsdp and the attention heads and MLP
+units split over model; each batch coordinate (d, f) loads batch_size * M
+rows (the global batch stays batch_size * W) and its M model peers load
+and draw the same rows. The checkpoints hold the full tensors under the
+reference's names, so a run resumes on any mesh. On one GPU the ranks of
+a mesh share it over gloo (NCCL refuses two ranks on one device); on a
+multi-GPU host torchrun's ranks use NCCL.
+
 --opt takes every name of mofo_tpu's zoo (train/optim.py); an unknown one
 raises ValueError("Unknown optimizer: ..."). A second-order one
 (adahessian, lookahead_adahessian) builds the model with the plain
@@ -41,9 +53,8 @@ only), and trains with the Hutchinson probe. With WANDB_PROJECT (and
 WANDB_GROUP, WANDB_NAME) set, rank 0 also logs every epoch's line to
 wandb when the package is installed (train/wandb_compat.py).
 
-Not ported yet, and refused with NotImplementedError: a mesh with an fsdp
-or model axis (ROADMAP Queue 1 item 20); a --mesh_data other than -1 or
-the world size raises ValueError.
+On a mesh with an fsdp or model axis, adahessian, adafactor, adamp and
+sgdp raise NotImplementedError (ROADMAP Queue 1 item 23).
 """
 
 from __future__ import annotations
@@ -59,6 +70,7 @@ import torch
 from mofo_tpu_torch.core import distributed
 from mofo_tpu_torch.core.config import (
     MaskingConfig,
+    MeshSpec,
     OptimizerConfig,
     PretrainConfig,
 )
@@ -69,6 +81,7 @@ from mofo_tpu_torch.data.video_reader import VideoReader
 from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.ops import augment as A
 from mofo_tpu_torch.parallel import ddp
+from mofo_tpu_torch.parallel import mesh as mesh_lib
 from mofo_tpu_torch.train import checkpoint as ckpt
 from mofo_tpu_torch.train import metrics as M
 from mofo_tpu_torch.train import optim, schedules
@@ -146,25 +159,37 @@ def get_args(argv=None, mofo_defaults: bool = False):
     return p.parse_args(argv)
 
 
-def refuse_unported(args, world: int) -> None:
-    """Raises on the flags the port does not run (shared with
-    cli/finetune.py): a mesh with an fsdp or model axis, a --mesh_data that
-    is not the world size (or -1)."""
-    if args.mesh_fsdp != 1 or args.mesh_model != 1:
-        raise NotImplementedError(
-            f"a mesh with --mesh_fsdp {args.mesh_fsdp} --mesh_model "
-            f"{args.mesh_model}: only the data axis is ported; the fsdp and "
-            "model axes are not ported yet (ROADMAP Queue 1, item 20)")
-    if args.mesh_data not in (-1, world):
-        raise ValueError(f"--mesh_data {args.mesh_data} with {world} "
-                         f"process(es): the data axis spans every process "
-                         "(-1 or the world size)")
+def resolve_mesh(args, world: int):
+    """The run's (data, fsdp, model) at `world` processes (shared with
+    cli/finetune.py): parallel.mesh.MeshConfig.resolve of the --mesh_*
+    flags, which raises ValueError with mofo_tpu's condition for a mesh
+    mofo_tpu refuses."""
+    try:
+        return mesh_lib.MeshConfig(args.mesh_data, args.mesh_fsdp,
+                                   args.mesh_model).resolve(world)
+    except ValueError as e:
+        raise ValueError(
+            f"--mesh_data {args.mesh_data} with {world} process(es), "
+            f"--mesh_fsdp {args.mesh_fsdp} --mesh_model {args.mesh_model}: "
+            f"{e}") from None
+
+
+def build_run_mesh(args, world: int, log):
+    """The mesh of the --mesh_* flags when it shards parameters (fsdp or
+    model above 1), else None: the data axis alone runs through DDP
+    (parallel/ddp.py)."""
+    shape = resolve_mesh(args, world)
+    if shape[1] == 1 and shape[2] == 1:
+        return None
+    mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(*shape))
+    log(f"mesh (data, fsdp, model) = {shape}")
+    return mesh
 
 
 def build_config(args, world: int = 1) -> PretrainConfig:
-    """The run's PretrainConfig at `world` processes; raises on flags the
-    port does not run (refuse_unported)."""
-    refuse_unported(args, world)
+    """The run's PretrainConfig at `world` processes; raises ValueError on
+    a mesh mofo_tpu refuses at that many devices (resolve_mesh)."""
+    resolve_mesh(args, world)
     return PretrainConfig(
         model=args.model,
         decoder_depth=args.decoder_depth,
@@ -198,6 +223,7 @@ def build_config(args, world: int = 1) -> PretrainConfig:
             opt_eps=args.opt_eps,
             clip_grad=args.clip_grad,
         ),
+        mesh=MeshSpec(args.mesh_data, args.mesh_fsdp, args.mesh_model),
         motion_loss_weight=args.mask_type == "tube_bb",
     )
 
@@ -255,14 +281,19 @@ def _train(args, reader):
         + (f" ({torch.cuda.get_device_name(device)})"
            if device.type == "cuda" else ""))
 
-    # ----- data -----
+    mesh = build_run_mesh(args, world, log)
+
+    # ----- data: one shard per batch coordinate (its model peers alike) ---
     dataset = build_dataset(args, cfg, reader)
-    sampler = P.ShardedSampler(len(dataset),
-                               rank=distributed.process_index(),
-                               world=world, seed=cfg.seed)
-    loader = P.PrefetchLoader(dataset, batch_size=cfg.batch_size,
-                              sampler=sampler, device=device,
-                              num_workers=args.num_workers)
+    sampler = P.ShardedSampler(
+        len(dataset), seed=cfg.seed,
+        rank=distributed.process_index() if mesh is None else
+        mesh.batch.index,
+        world=world if mesh is None else mesh.batch.size)
+    loader = P.PrefetchLoader(
+        dataset, batch_size=cfg.batch_size * (1 if mesh is None
+                                              else mesh.shape[2]),
+        sampler=sampler, device=device, num_workers=args.num_workers)
     steps_per_epoch = args.steps_per_epoch or max(len(loader), 1)
 
     # ----- model & optimizer -----
@@ -294,12 +325,13 @@ def _train(args, reader):
         wd_sched = schedules.cosine_schedule(
             oc.weight_decay, oc.weight_decay_end, cfg.epochs,
             steps_per_epoch)
+    log(f"params: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M")
+    sharding = None if mesh is None else mesh_lib.shard_model(model, mesh)
     named = dict(model.named_parameters())
-    log(f"params: {sum(p.numel() for p in named.values()) / 1e6:.2f}M")
     tx = optim.create_optimizer(
         named, opt=oc.opt, lr_schedule=lr_sched, wd_schedule=wd_sched,
         weight_decay=oc.weight_decay, betas=oc.opt_betas, eps=oc.opt_eps,
-        clip_grad=oc.clip_grad)
+        clip_grad=oc.clip_grad, sharding=sharding)
     state = TrainState.create(model, tx)
 
     start_epoch = args.start_epoch
@@ -323,7 +355,8 @@ def _train(args, reader):
         return out
 
     step_fn = make_pretrain_step(
-        ddp.wrap_model(model) if world > 1 else model, tx, cfg, lr_sched,
+        ddp.wrap_model(model) if world > 1 and mesh is None else model, tx,
+        cfg, lr_sched,
         device=device, augment_fn=augment_batch, second_order=second_order)
     is_main = distributed.is_main_process()
     jsonl = M.JsonlLogger(args.output_dir, is_main)
@@ -352,8 +385,8 @@ def _train(args, reader):
             if not np.isfinite(loss):
                 log(f"Loss is {loss}, stopping training")
                 sys.exit(1)
-        stats = {f"train_{k}": v
-                 for k, v in logger.epoch_stats(sync=True).items()}
+        stats = {f"train_{k}": v for k, v in logger.epoch_stats(
+            sync=True, group=None if mesh is None else mesh.batch).items()}
         # seconds per step: waiting on the loader, and the rest of the
         # step (augmentation, forward, backward, update, the loss read)
         stats.update(epoch=epoch, data_wait_s=logger.data_time.global_avg,

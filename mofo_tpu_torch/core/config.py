@@ -1,12 +1,12 @@
 """Typed configuration dataclasses for pretraining and finetuning.
 
 A copy of mofo_tpu/core/config.py's MaskingConfig, OptimizerConfig,
-PretrainConfig and FinetuneConfig (knob names and defaults mirror the
-reference argparse surfaces, run_mae_pretraining.py:22-132,
-run_mae_pretraining_BB.py and run_class_finetuning.py:31-214). Neither
-config has a `mesh` field: the port's only axis is the data axis, which
-spans every process of the run (parallel/ddp.py), and the runners check
-their --mesh_* flags against the world size themselves.
+MeshSpec, PretrainConfig and FinetuneConfig (knob names and defaults mirror
+the reference argparse surfaces, run_mae_pretraining.py:22-132,
+run_mae_pretraining_BB.py and run_class_finetuning.py:31-214). `mesh` is
+the run's (data, fsdp, model) mesh, data -1 for the processes that are
+left (mofo_tpu/core/config.py:43-46, 69, 148); the runners resolve it at
+the world size (parallel/mesh.py's MeshConfig.resolve).
 """
 
 from __future__ import annotations
@@ -43,6 +43,13 @@ class OptimizerConfig:
 
 
 @dataclasses.dataclass
+class MeshSpec:
+    data: int = -1
+    fsdp: int = 1
+    model: int = 1
+
+
+@dataclasses.dataclass
 class PretrainConfig:
     model: str = "pretrain_videomae_base_patch16_224"
     decoder_depth: int = 4  # run_mae_pretraining.py:32
@@ -62,6 +69,7 @@ class PretrainConfig:
     optimizer: OptimizerConfig = dataclasses.field(
         default_factory=OptimizerConfig
     )
+    mesh: MeshSpec = dataclasses.field(default_factory=MeshSpec)
     # MOFO gradual loss weighting (run_mae_pretraining_BB.py:262: the
     # intended in-box loss upweighting, linearly annealed 1 -> 0).
     motion_loss_weight: bool = False
@@ -92,7 +100,7 @@ class PretrainConfig:
 
 @dataclasses.dataclass
 class FinetuneConfig:
-    """mofo_tpu/core/config.py:99-148 field for field, without `mesh`."""
+    """mofo_tpu/core/config.py:99-148 field for field."""
 
     model: str = "vit_base_patch16_224"
     nb_classes: int = 174
@@ -142,3 +150,4 @@ class FinetuneConfig:
             weight_decay=0.05,
         )
     )
+    mesh: MeshSpec = dataclasses.field(default_factory=MeshSpec)

@@ -76,13 +76,17 @@ class MultiViewAggregator:
                 preds)
 
 
-def gather_across_processes(agg: MultiViewAggregator) -> MultiViewAggregator:
+def gather_across_processes(agg: MultiViewAggregator,
+                            group=None) -> MultiViewAggregator:
     """Every process's view rows in one aggregator, in process order: with
-    one process, the aggregator itself. Every process must call it."""
-    if distributed.process_count() == 1:
+    one process, the aggregator itself. With a mesh's batch axis `group`,
+    the rows of its ranks only (each batch coordinate's rows once, not once
+    per model peer). Every process must call it."""
+    size = distributed.process_count() if group is None else group.size
+    if size == 1:
         return agg
     merged = MultiViewAggregator()
-    for rows in ddp.all_gather_object(agg._rows):
+    for rows in ddp.all_gather_object(agg._rows, group):
         merged._rows.extend(rows)
     return merged
 

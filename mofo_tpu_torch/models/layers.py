@@ -12,6 +12,16 @@ modules do (this is not torch.autocast). LayerNorm runs in f32.
 
 Layout: activations are token-major (B, N, D); clips are channel-last
 (B, T, H, W, C) and enter as flat patch rows (ops.patchify.patchify_flat).
+
+On a mesh (parallel/mesh.py's shard_model) a module may hold a shard of its
+parameters: every weight is read through parallel.tensor_parallel.param,
+which gathers it over the fsdp axis, and Attention, CrossAttention and Mlp
+split over the model axis (set_model_axis) by heads and hidden units:
+their input passes copy_to, Attention's proj and Mlp's fc2 are
+row-parallel (the partial products reduced by reduce_from, in f32 for a
+low-precision dtype, the bias added once after), and CrossAttention's
+head-sharded output is gathered (gather_from) before its proj, which
+mofo_tpu shards over fsdp only.
 """
 
 from __future__ import annotations
@@ -35,6 +45,8 @@ from mofo_tpu_torch.ops.flash_attention import (
     flash_attention_qkv,
 )
 from mofo_tpu_torch.ops.patchify import patchify_flat
+from mofo_tpu_torch.parallel import tensor_parallel as tp
+from mofo_tpu_torch.parallel.tensor_parallel import param
 
 
 @functools.lru_cache(maxsize=16)
@@ -64,8 +76,31 @@ def xavier_uniform_(w: torch.Tensor, fan_in: int, fan_out: int,
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype):
     """x @ W^T + b with both operands cast to the compute dtype."""
-    bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    bias = param(layer, "bias")
+    bias = None if bias is None else bias.to(dtype)
+    return F.linear(x.to(dtype), param(layer, "weight").to(dtype), bias)
+
+
+def row_linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype,
+               axis: Optional[tp.Axis]):
+    """linear() of a row-parallel layer whose rank holds some of its input
+    columns (x holds the same ones): the partial products are summed over
+    `axis` and the bias added once, after. In a low-precision dtype each
+    partial product comes out in f32 (the operands' dtype values multiplied
+    and summed in f32), is reduced in f32 and rounded to the dtype once, as
+    one process's matmul rounds once. Without an axis, linear()."""
+    if axis is None:
+        return linear(x, layer, dtype)
+    w = param(layer, "weight").to(dtype)
+    if dtype == torch.float32:
+        part = F.linear(x.to(dtype), w)
+    else:
+        part = F.linear(x.to(dtype).float(), w.float())
+    out = tp.reduce_from(part, axis)
+    bias = param(layer, "bias")
+    if bias is not None:
+        out = out + bias.to(dtype).float()
+    return out.to(dtype)
 
 
 def init_linear(layer: nn.Linear, generator: Optional[torch.Generator]):
@@ -150,15 +185,21 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden_features, in_features)
         init_linear(self.fc1, generator)
         init_linear(self.fc2, generator)
+        self.tp: Optional[tp.Axis] = None
+
+    def set_model_axis(self, axis: tp.Axis) -> None:
+        """Split the hidden units over `axis`: fc1 column-parallel, fc2
+        row-parallel (shard_model cuts the weights)."""
+        self.tp = axis
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        x = linear(x, self.fc1, self.dtype)
+        x = linear(tp.copy_to(x, self.tp), self.fc1, self.dtype)
         if self.dtype == torch.bfloat16:
             x = F.gelu(x.float(), approximate="tanh").to(self.dtype)
         else:
             x = F.gelu(x)
-        x = linear(x, self.fc2, self.dtype)
+        x = row_linear(x, self.fc2, self.dtype, self.tp)
         return dropout(x, self.drop, self.training, generator)
 
 
@@ -193,8 +234,8 @@ class Attention(nn.Module):
         if attn_impl not in ("auto", "xla", "pallas"):
             raise ValueError(f"unknown attn_impl {attn_impl!r} (auto, xla, "
                              "pallas)")
-        self.num_heads = num_heads
-        head_dim = attn_head_dim or dim // num_heads
+        self.num_heads = self.local_heads = num_heads
+        self.head_dim = head_dim = attn_head_dim or dim // num_heads
         self.all_head_dim = all_head_dim = head_dim * num_heads
         self.scale = qk_scale or head_dim ** -0.5
         self.dtype = dtype
@@ -211,6 +252,21 @@ class Attention(nn.Module):
         self.proj = nn.Linear(all_head_dim, dim)
         init_linear(self.qkv, generator)
         init_linear(self.proj, generator)
+        self.tp: Optional[tp.Axis] = None
+
+    def set_model_axis(self, axis: tp.Axis) -> None:
+        """Hold num_heads / axis.size heads: qkv column-parallel (rows
+        [q_m; k_m; v_m]), proj row-parallel (shard_model cuts the weights).
+        The route stays the unsharded width's (uses_flat)."""
+        self.tp = axis
+        self.local_heads = self.num_heads // axis.size
+
+    def head_range(self) -> Optional[tuple]:
+        """(first head, all heads) of this rank's heads when split, for the
+        attention dropout's draw; None otherwise."""
+        if self.tp is None:
+            return None
+        return (self.tp.index * self.local_heads, self.num_heads)
 
     def _drop_active(self) -> bool:
         return self.training and self.attn_drop > 0.0
@@ -218,7 +274,10 @@ class Attention(nn.Module):
     def uses_flat(self, n_tokens: int,
                   attn_bias: Optional[torch.Tensor] = None) -> bool:
         """Whether a sequence of n_tokens takes the flat K1/K2 route. The
-        "pallas" impl raises on a bias or active attention dropout."""
+        "pallas" impl raises on a bias or active attention dropout. The
+        route follows the unsharded width, all_head_dim, also when the
+        model axis splits the heads: the ViT-B decoder's 6 x 64 heads take
+        K1/K2 at 3 heads a rank, as mofo_tpu's one-device step takes K1."""
         aligned = self.all_head_dim % 128 == 0
         if self.attn_impl == "pallas":
             if attn_bias is not None:
@@ -239,17 +298,18 @@ class Attention(nn.Module):
         """x (B, N, dim); attn_bias broadcasts to (B, H, N, N) (f32,
         additive); `generator` draws the dropout masks in train mode."""
         B, N, _ = x.shape
-        qkv = F.linear(x.to(self.dtype), self.qkv.weight.to(self.dtype))
+        heads = self.local_heads
+        x = tp.copy_to(x, self.tp)
+        qkv = F.linear(x.to(self.dtype),
+                       param(self.qkv, "weight").to(self.dtype))
         if self.q_bias is not None:
             qkv = qkv + torch.cat(
                 [self.q_bias, torch.zeros_like(self.q_bias), self.v_bias]
             ).to(self.dtype)
         if self.uses_flat(N, attn_bias):
-            out = flash_attention_qkv(
-                qkv, scale=self.scale, num_heads=self.num_heads
-            )
+            out = flash_attention_qkv(qkv, scale=self.scale, num_heads=heads)
         else:
-            qkv = qkv.reshape(B, N, 3, self.num_heads, -1).permute(
+            qkv = qkv.reshape(B, N, 3, heads, -1).permute(
                 2, 0, 3, 1, 4).contiguous()  # (3, B, H, N, Dh)
             q, k, v = qkv[0], qkv[1], qkv[2]
             if self.sow_attn:
@@ -265,9 +325,10 @@ class Attention(nn.Module):
             out = dot_product_attention(
                 q, k, v, scale=self.scale, bias=attn_bias,
                 dropout_rate=self.attn_drop, deterministic=not self.training,
-                generator=generator, impl=impl)
-            out = out.transpose(1, 2).reshape(B, N, self.all_head_dim)
-        out = linear(out, self.proj, self.dtype)
+                generator=generator, impl=impl,
+                head_range=self.head_range())
+            out = out.transpose(1, 2).reshape(B, N, heads * self.head_dim)
+        out = row_linear(out, self.proj, self.dtype, self.tp)
         return dropout(out, self.proj_drop, self.training, generator)
 
 
@@ -356,12 +417,12 @@ class PatchEmbed(nn.Module):
                     f"input size {x.shape[2]} != model {self.img_size}"
                 )
             x = patchify_flat(x, self.patch_size, self.tubelet_size)
-        w = self.proj.weight  # (D, C, p0, p1, p2) -> (D, p0*p1*p2*C)
+        w = param(self.proj, "weight")  # (D, C, p0, p1, p2) -> (D, p*C)
         w = w.permute(0, 2, 3, 4, 1).reshape(w.shape[0], -1)
         if x.shape[-1] != w.shape[1]:
             raise ValueError(f"patch rows {x.shape[-1]} != {w.shape[1]}")
         return F.linear(x.to(self.dtype), w.to(self.dtype),
-                        self.proj.bias.to(self.dtype))
+                        param(self.proj, "bias").to(self.dtype))
 
 
 class CrossAttention(nn.Module):
@@ -389,8 +450,8 @@ class CrossAttention(nn.Module):
                              "pallas)")
         self.attn_impl = attn_impl
         self.attn_drop, self.proj_drop = attn_drop, proj_drop
-        self.num_heads = num_heads
-        head_dim = attn_head_dim or dim // num_heads
+        self.num_heads = self.local_heads = num_heads
+        self.head_dim = head_dim = attn_head_dim or dim // num_heads
         self.all_head_dim = all_head_dim = head_dim * num_heads
         self.scale = qk_scale or head_dim ** -0.5
         self.dtype = dtype
@@ -403,15 +464,27 @@ class CrossAttention(nn.Module):
             self.q_bias = self.v_bias = None
         self.proj = nn.Linear(all_head_dim, dim)
         init_trunc_normal(self, generator)
+        self.tp: Optional[tp.Axis] = None
+
+    def set_model_axis(self, axis: tp.Axis) -> None:
+        """Hold num_heads / axis.size heads: q and kv column-parallel (kv
+        rows [k_m; v_m]); the attention output is gathered over `axis`
+        before proj, which stays whole over the model axis."""
+        self.tp = axis
+        self.local_heads = self.num_heads // axis.size
+
+    head_range = Attention.head_range
 
     def forward(self, x: torch.Tensor, y: torch.Tensor,
                 kv_mask: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """`generator` draws the dropout masks in train mode."""
-        dt, A, H = self.dtype, self.all_head_dim, self.num_heads
+        dt, H = self.dtype, self.local_heads
+        A = H * self.head_dim
         (B, Nx, _), Ny = x.shape, y.shape[1]
-        q = F.linear(x.to(dt), self.q.weight.to(dt))
-        kv = F.linear(y.to(dt), self.kv.weight.to(dt))
+        x, y = tp.copy_to(x, self.tp), tp.copy_to(y, self.tp)
+        q = F.linear(x.to(dt), param(self.q, "weight").to(dt))
+        kv = F.linear(y.to(dt), param(self.kv, "weight").to(dt))
         if self.q_bias is not None:
             q = q + self.q_bias.to(dt)
             kv = kv + torch.cat(
@@ -437,9 +510,10 @@ class CrossAttention(nn.Module):
             out = dot_product_attention(
                 qh, k, v, scale=self.scale, bias=bias,
                 dropout_rate=self.attn_drop, deterministic=not self.training,
-                generator=generator, impl="xla")
+                generator=generator, impl="xla",
+                head_range=self.head_range())
             out = out.transpose(1, 2).reshape(B, Nx, A)
-        out = linear(out, self.proj, dt)
+        out = linear(tp.gather_from(out, self.tp), self.proj, dt)
         return dropout(out, self.proj_drop, self.training, generator)
 
 

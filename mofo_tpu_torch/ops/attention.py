@@ -20,7 +20,7 @@ Counterpart of mofo_tpu/ops/attention.py:
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -56,20 +56,30 @@ def xla_attention(
     dropout_rate: float = 0.0,
     deterministic: bool = True,
     generator: Optional[torch.Generator] = None,
+    head_range: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """q, k, v: (B, H, N, Dh) -> (B, H, N, Dh). Logits (plus `bias`,
     broadcast to (B, H, Nq, Nk)) and softmax in f32; with dropout active
     (dropout_rate > 0, not deterministic) the f32 probabilities become
     where(keep, p / (1 - rate), 0), `keep` drawn from `generator` by
-    keep_mask; then they are cast back to the input dtype before P.V."""
+    keep_mask; then they are cast back to the input dtype before P.V.
+    head_range (first, total) marks q's H heads as heads first.. of a
+    module of `total` heads split over a mesh's model axis: the keep mask
+    is drawn for all `total` heads and these H kept, so that the ranks
+    together draw what one process draws."""
     dtype = q.dtype
     logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
     if bias is not None:
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1)
     if dropout_rate > 0.0 and not deterministic:
-        keep = keep_mask(probs.shape, dropout_rate, generator,
-                         probs.device)
+        shape = probs.shape
+        if head_range is not None:
+            first, total = head_range
+            shape = (shape[0], total) + tuple(shape[2:])
+        keep = keep_mask(shape, dropout_rate, generator, probs.device)
+        if head_range is not None:
+            keep = keep[:, first:first + probs.shape[1]]
         probs = torch.where(keep, probs / (1.0 - dropout_rate), 0.0)
     return torch.matmul(probs.to(dtype), v)
 
@@ -85,8 +95,10 @@ def dot_product_attention(
     deterministic: bool = True,
     generator: Optional[torch.Generator] = None,
     impl: str = "auto",
+    head_range: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """Dispatching attention entry point. q, k, v: (B, H, N, Dh)."""
+    """Dispatching attention entry point. q, k, v: (B, H, N, Dh);
+    head_range as xla_attention's."""
     drop_active = dropout_rate > 0.0 and not deterministic
     if impl == "auto":
         long_self = q.shape[2] >= _PALLAS_MIN_SEQ and q.shape[2] == k.shape[2]
@@ -112,4 +124,5 @@ def dot_product_attention(
                          "pallas)")
     return xla_attention(q, k, v, scale=scale, bias=bias,
                          dropout_rate=dropout_rate,
-                         deterministic=deterministic, generator=generator)
+                         deterministic=deterministic, generator=generator,
+                         head_range=head_range)

@@ -169,8 +169,9 @@ class Mixup:
             rows = ddp.global_rows(rank, world, B)
             lam, use_cutmix, cut = lam[rows], use_cutmix[rows], cut[rows]
             box = box[:, rows]
-        flipped = ddp.exchange_flipped if world > 1 else (
-            lambda t: torch.flip(t, dims=[0]))
+        group = ddp.batch_group()
+        flipped = (lambda t: ddp.exchange_flipped(t, group)) if world > 1 \
+            else (lambda t: torch.flip(t, dims=[0]))
         dev = clips.device
         lam_t = torch.from_numpy(np.ascontiguousarray(lam)).to(dev)
         yl, yh, xl, xh = (torch.from_numpy(np.ascontiguousarray(c)).to(dev)

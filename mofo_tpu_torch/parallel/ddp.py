@@ -1,6 +1,7 @@
 """Data parallelism across processes: the counterpart of the data axis of
 mofo_tpu/parallel/mesh.py (the batch sharded over ('data',), gradients
-reduced by the jitted step's psum).
+reduced by the jitted step's psum), and the batch layout that the mesh's
+(data x fsdp) batch axis shares (parallel/mesh.py: the fsdp and model axes).
 
 The contract: W ranks, each with a local batch of B rows and update_freq k,
 all seeded alike, compute what one process computes on the global batch G'
@@ -8,12 +9,17 @@ of W * B rows whose microbatch i is the concatenation over ranks r = 0..W-1
 of rank r's local microbatch i. For k = 1 that is mofo_tpu's global batch,
 rows rank-major as make_array_from_process_local_data lays them out; for
 k > 1 it is the batch whose leading reshape (mofo_tpu/train/
-pretrain_step.py:177-181) makes the same microbatches.
+pretrain_step.py:177-181) makes the same microbatches. On a mesh the
+"ranks" of this layout are the batch coordinates b = d * fsdp + f (W =
+data * fsdp of them), and the model peers of a coordinate hold the same
+rows.
 
   global_rows      - the positions in G' of a rank's local rows
   wrap_model       - DistributedDataParallel over the model (gradients
                      averaged over the ranks in its backward); the wrapped
-                     module keeps the reference's state_dict names
+                     module keeps the reference's state_dict names. It is
+                     the data-only path (fsdp = model = 1); a sharded mesh
+                     reduces its gradients itself (mesh.Sharding)
   data_parallel    - (rank, world) of a wrapped model, None otherwise
   global_draws / per_sample - inside a data-parallel step every per-sample
                      random draw is made at the global count from the
@@ -22,7 +28,10 @@ pretrain_step.py:177-181) makes the same microbatches.
                      draws for G'; with one process per_sample is the draw
   all_reduce_sum, exchange_flipped, all_gather_object, broadcast_object -
                      the collectives the steps, the metrics and the
-                     multi-view test use
+                     multi-view test use; the first three take a mesh's
+                     batch axis (`group`, a tensor_parallel.Axis) to run
+                     over the batch coordinates only, the whole world by
+                     default
 
 gloo moves CUDA tensors only for all_reduce and broadcast: its
 point-to-point sends and gathers of CUDA tensors go through the host, by
@@ -44,6 +53,8 @@ from mofo_tpu_torch.core.device import device_of
 
 # (rank, world, k) while a data-parallel step makes its draws
 _LAYOUT: Optional[Tuple[int, int, int]] = None
+# the mesh's batch axis while a sharded step makes its draws
+_GROUP = None
 
 
 def global_rows(rank: int, world: int, batch: int, k: int = 1) -> np.ndarray:
@@ -84,22 +95,31 @@ def data_parallel(model: torch.nn.Module) -> Optional[Tuple[int, int]]:
 
 
 @contextlib.contextmanager
-def global_draws(rank: int, world: int, k: int = 1):
+def global_draws(rank: int, world: int, k: int = 1, group=None):
     """Inside, per_sample draws at the global count: a leading dimension of
     n local rows in k microbatches is drawn as world * n rows and the
-    rows global_rows(rank, world, n, k) are kept."""
-    global _LAYOUT
-    kept = _LAYOUT
+    rows global_rows(rank, world, n, k) are kept. `group` is a mesh's batch
+    axis (rank and world its index and size), None for the whole world:
+    batch_group() returns it inside."""
+    global _LAYOUT, _GROUP
+    kept = _LAYOUT, _GROUP
     _LAYOUT = None if world == 1 else (rank, world, k)
+    _GROUP = group
     try:
         yield
     finally:
-        _LAYOUT = kept
+        _LAYOUT, _GROUP = kept
 
 
 def layout() -> Optional[Tuple[int, int, int]]:
     """(rank, world, k) inside global_draws with world > 1, else None."""
     return _LAYOUT
+
+
+def batch_group():
+    """The batch axis of the global_draws around the caller (None: the
+    whole world)."""
+    return _GROUP
 
 
 def per_sample(draw: Callable[[Tuple[int, ...]], torch.Tensor],
@@ -116,24 +136,35 @@ def per_sample(draw: Callable[[Tuple[int, ...]], torch.Tensor],
     return full.index_select(0, rows.to(full.device))
 
 
-def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """The sum over the ranks of `t` (a new tensor on t's device)."""
-    if dist.get_backend() == "nccl" and not t.is_cuda:
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum over the ranks (of the batch axis `group`) of `t` (a new
+    tensor on t's device)."""
+    pg = None if group is None else group.group
+    if group is not None and group.size == 1:
+        return t.clone()
+    if dist.get_backend(pg) == "nccl" and not t.is_cuda:
         out = t.to(torch.cuda.current_device())
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=pg)
         return out.to(t.device)
     out = t.clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=pg)
     return out
 
 
-def exchange_flipped(x: torch.Tensor) -> torch.Tensor:
+def exchange_flipped(x: torch.Tensor, group=None) -> torch.Tensor:
     """Rank W-1-r's rows of x, flipped along dim 0: the mixup partner of
     rank r's rows, as the partner of global row g is W * B - 1 - g. For odd
     W the middle rank keeps its own rows. A send / receive between the two
-    ranks of a pair (an all-gather would move W times the bytes)."""
-    rank, world = dist.get_rank(), dist.get_world_size()
-    peer = world - 1 - rank
+    ranks of a pair (an all-gather would move W times the bytes). With a
+    mesh's batch axis `group`, r and W are the batch coordinate and their
+    count, and the partner is the rank at coordinate W-1-r of the same
+    model coordinate."""
+    if group is None:
+        rank, world = dist.get_rank(), dist.get_world_size()
+        peer = world - 1 - rank
+    else:
+        rank = group.ranks[group.index]
+        peer = group.ranks[group.size - 1 - group.index]
     if peer == rank:
         return torch.flip(x, dims=[0])
     via_host = x.is_cuda and dist.get_backend() == "gloo"
@@ -145,10 +176,17 @@ def exchange_flipped(x: torch.Tensor) -> torch.Tensor:
     return torch.flip(recv.to(x.device) if via_host else recv, dims=[0])
 
 
-def all_gather_object(obj: Any) -> List[Any]:
-    """Every rank's `obj` (picklable, host objects), in rank order."""
-    out = [None] * dist.get_world_size()
-    dist.all_gather_object(out, obj)
+def all_gather_object(obj: Any, group=None) -> List[Any]:
+    """Every rank's `obj` (picklable, host objects), in rank order (of the
+    batch axis `group`)."""
+    if group is None:
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, obj)
+        return out
+    if group.size == 1:
+        return [obj]
+    out = [None] * group.size
+    dist.all_gather_object(out, obj, group=group.group)
     return out
 
 

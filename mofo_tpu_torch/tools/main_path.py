@@ -45,7 +45,10 @@ tools/profile_step.py and tests/test_torch_gpu.py.
   parameters and (finetune) one validation pass with its multi-view merge:
   the rank processes and the single process at G' of chip_smoke.py's
   `ddp_two_ranks` and of tests/test_torch_ddp.py run these same functions.
-  `build_step(..., wrap=True)` puts the main-path step under DDP.
+  `build_step(..., wrap=True)` puts the main-path step under DDP. With
+  `mesh` (parallel.mesh.build_mesh's) they shard the model on it first
+  (rank_batch then cuts G' by batch coordinate) and return the final
+  parameters whole, in the reference's row order.
 """
 
 from __future__ import annotations
@@ -75,6 +78,7 @@ from mofo_tpu_torch.ops import augment as A
 from mofo_tpu_torch.ops import flash_attention as fa
 from mofo_tpu_torch.ops import rand_augment as RA
 from mofo_tpu_torch.parallel import ddp
+from mofo_tpu_torch.parallel import mesh as mesh_lib
 from mofo_tpu_torch.train import optim, schedules
 from mofo_tpu_torch.train.checkpoint import finetune_init_from_pretrain
 from mofo_tpu_torch.train.finetune_step import (
@@ -380,27 +384,40 @@ def _timed(dev):
 
 
 def _final(model) -> dict:
-    return {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+    sharding = mesh_lib.sharding_of(model)
+    named = dict(model.named_parameters())
+    if sharding is not None:
+        named = {n: sharding.full(n, p) for n, p in named.items()}
+    return {n: p.detach().float().cpu() for n, p in named.items()}
+
+
+def _optimizer(model, mesh, **kw):
+    """The model (sharded on `mesh` first when given) and its optimizer."""
+    sharding = None if mesh is None else mesh_lib.shard_model(model, mesh)
+    return optim.create_optimizer(dict(model.named_parameters()),
+                                  sharding=sharding, **kw)
 
 
 def pretrain_steps(model, cfg: PretrainConfig, batch: dict, steps: int, *,
                    wrap: bool = False, masks=None,
                    augment: bool = False, opt: str = "adamw",
-                   eps: float = 1e-8) -> dict:
+                   eps: float = 1e-8, mesh=None,
+                   clip_grad=None) -> dict:
     """`steps` pretrain steps of `model` (through parallel.ddp.wrap_model
     with `wrap`) on `batch`, zoo entry `opt` (AdamW; a second-order one
     with the Hutchinson probe, its z drawn from the step's generator) with
-    `eps` at STEPS_LR, loss weight 0.5; step s draws from a generator on
-    the model's device seeded s. `masks[s]` replaces step s's mask draw; with `augment` the batch holds uint8 clips that
-    pretrain_augment crops inside the step. Returns the losses, gradient
-    norms, host times (ms) of each step and the final parameters (f32, on
-    the CPU)."""
+    `eps` at STEPS_LR (clipped at `clip_grad` when given), loss weight
+    0.5; step s draws from a generator on the model's device seeded s.
+    `masks[s]` replaces step s's mask draw; with `augment` the batch holds
+    uint8 clips that pretrain_augment crops inside the step; with `mesh`
+    the model is sharded on it and `batch` is a batch coordinate's rows.
+    Returns the losses, gradient norms, host times (ms) of each step and
+    the final parameters (f32, on the CPU, whole)."""
     dev = device_of(model)
     lrs = np.full(steps, STEPS_LR, np.float32)
-    named = dict(model.named_parameters())
-    tx = optim.create_optimizer(named, opt=opt, lr_schedule=lrs,
-                                betas=(0.9, 0.95), weight_decay=0.05,
-                                eps=eps)
+    tx = _optimizer(model, mesh, opt=opt, lr_schedule=lrs,
+                    betas=(0.9, 0.95), weight_decay=0.05, eps=eps,
+                    clip_grad=clip_grad)
     state = TrainState.create(model, tx)
 
     def augment_fn(generator, b):
@@ -429,7 +446,7 @@ def pretrain_steps(model, cfg: PretrainConfig, batch: dict, steps: int, *,
 
 def finetune_steps(model, cfg: FinetuneConfig, batch: dict, steps: int, *,
                    wrap: bool = False, augment: bool = False,
-                   eval_batch: dict = None) -> dict:
+                   eval_batch: dict = None, mesh=None) -> dict:
     """`steps` finetune steps of `model` (a BB-focused one when cfg.model
     is; through parallel.ddp.wrap_model with `wrap`) on `batch`, AdamW at
     STEPS_LR with cfg's layer decay; step s draws from a generator
@@ -445,10 +462,9 @@ def finetune_steps(model, cfg: FinetuneConfig, batch: dict, steps: int, *,
     bb = "BB_focused" in cfg.model
     lrs = np.full(steps, STEPS_LR, np.float32)
     oc = cfg.optimizer
-    named = dict(model.named_parameters())
-    tx = optim.create_optimizer(named, lr_schedule=lrs, betas=oc.opt_betas,
-                                weight_decay=oc.weight_decay, eps=oc.opt_eps,
-                                layer_decay=oc.layer_decay)
+    tx = _optimizer(model, mesh, lr_schedule=lrs, betas=oc.opt_betas,
+                    weight_decay=oc.weight_decay, eps=oc.opt_eps,
+                    layer_decay=oc.layer_decay)
     state = TrainState.create(model, tx)
     net = ddp.wrap_model(model) if wrap else model
     step = make_finetune_step(
@@ -477,7 +493,8 @@ def finetune_steps(model, cfg: FinetuneConfig, batch: dict, steps: int, *,
         agg = MultiViewAggregator()
         agg.add(host["video_idx"], host["chunk_nb"], host["split_nb"],
                 out["logits"].numpy()[keep], host["label"])
-        top1, top5, _ = gather_across_processes(agg).finalize()
+        top1, top5, _ = gather_across_processes(
+            agg, None if mesh is None else mesh.batch).finalize()
         out["multiview"] = {"acc1": top1, "acc5": top5}
     return out
 

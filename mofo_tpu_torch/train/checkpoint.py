@@ -33,7 +33,12 @@ pretrain .pth that --finetune names. With more than one process, rank 0
 writes each file and every rank waits at a barrier after it; every rank
 reads (on auto-resume and --finetune) onto its own device. The model
 saved is the module itself, never its DistributedDataParallel wrapper, so
-the names carry no `module.` prefix.
+the names carry no `module.` prefix. A model sharded on a mesh
+(parallel/mesh.py) is saved whole: every rank gathers each parameter, its
+moments and its EMA to the full tensor in the reference's names and row
+order (Sharding.full, a collective) and rank 0 writes them; a load reads
+the full tensors on every rank and keeps each rank's shard, so a file
+written on one mesh resumes on any other, or in one process.
 """
 
 from __future__ import annotations
@@ -253,41 +258,56 @@ def save_checkpoint(output_dir: str, model: torch.nn.Module, state,
     every rank waits for it; all return the path."""
     model = ddp.unwrap(model)
     path = os.path.join(output_dir, f"{name or f'checkpoint-{epoch}'}.pth")
-    if distributed.is_main_process():
-        _write(path, model, state, epoch, args)
+    sharding = model.__dict__.get("_sharding")
+    if sharding is not None or distributed.is_main_process():
+        payload = _payload(model, state, epoch, args, sharding)
+        if distributed.is_main_process():
+            _write(path, payload)
     distributed.barrier()
     return path
 
 
-def _write(path: str, model: torch.nn.Module, state, epoch: int,
-           args) -> None:
+def _payload(model: torch.nn.Module, state, epoch: int, args,
+             sharding=None) -> dict:
     opt = state.opt_state
     names = list(state.params)
-    cpu = lambda t: t.detach().cpu()  # noqa: E731
+
+    def cpu(n, t):
+        if sharding is not None:
+            t = sharding.full_like_param(n, t, state.params[n])
+        return t.detach().cpu()
+
     per_param = {}
     for i, n in enumerate(names):
-        entry = {opt.keys[f]: cpu(buf[n])
+        entry = {opt.keys[f]: cpu(n, buf[n])
                  for f, buf in opt.buffers.items() if n in buf}
         if opt.slow is not None and n in opt.slow:
-            entry["slow_buffer"] = cpu(opt.slow[n])
+            entry["slow_buffer"] = cpu(n, opt.slow[n])
         if entry:  # torch keeps no state for a parameter it never updates
             per_param[i] = {"step": torch.tensor(float(opt.count)), **entry}
     group = {"params": list(range(len(names))), "param_names": names}
     if opt.slow is not None:
         group["lookahead_step"] = opt.count
+    weights = (model.state_dict() if sharding is None
+               else sharding.full_state_dict(model))
     payload = {
-        "model": {k: cpu(v) for k, v in model.state_dict().items()},
+        "model": {k: v.detach().cpu() for k, v in weights.items()},
         "optimizer": {"state": per_param, "param_groups": [group]},
         "epoch": epoch,
         "step": state.step,
     }
     if state.ema_params is not None:
-        payload["model_ema"] = {k: cpu(v) for k, v in state.ema_params.items()}
+        payload["model_ema"] = {k: cpu(k, v)
+                                for k, v in state.ema_params.items()}
     if state.loss_scale is not None:
         payload["scaler"] = {"scale": state.loss_scale.scale,
                              "good_steps": state.loss_scale.good_steps}
     if args is not None:
         payload["args"] = dict(vars(args))
+    return payload
+
+
+def _write(path: str, payload: dict) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(payload, tmp)
@@ -297,7 +317,8 @@ def _write(path: str, model: torch.nn.Module, state, epoch: int,
 def load_checkpoint(path: str, model: torch.nn.Module, state) -> int:
     """Restores a save_checkpoint file into `model` and its TrainState in
     place (parameters, the optimizer's state and count, step, EMA), read
-    onto the model's device. Returns the checkpoint's epoch. Raises when the
+    onto the model's device; a model sharded on a mesh keeps this rank's
+    shard of each tensor. Returns the checkpoint's epoch. Raises when the
     parameter names or the optimizer's buffers differ."""
     ckpt = torch.load(path, map_location=device_of(model) or "cpu",
                       weights_only=True)
@@ -305,7 +326,15 @@ def load_checkpoint(path: str, model: torch.nn.Module, state) -> int:
     names = opt["param_groups"][0]["param_names"]
     if names != list(state.params):
         raise ValueError(f"{path} holds other parameters than the model")
-    model.load_state_dict(ckpt["model"])
+    sharding = model.__dict__.get("_sharding")
+    if sharding is None:
+        model.load_state_dict(ckpt["model"])
+        local = lambda n, t, full: full  # noqa: E731
+    else:
+        sharding.load_full_state_dict(model, ckpt["model"])
+
+        def local(n, t, full):
+            return full if t.shape == full.shape else sharding.shard(n, full)
     saved = {names[i]: s for i, s in opt["state"].items()}
     ours = state.opt_state
     targets = {}  # name -> checkpoint key -> the state's tensor
@@ -321,10 +350,10 @@ def load_checkpoint(path: str, model: torch.nn.Module, state) -> int:
     with torch.no_grad():
         for n, keys in targets.items():
             for key, t in keys.items():
-                t.copy_(saved[n][key])
+                t.copy_(local(n, t, saved[n][key]))
         if state.ema_params is not None and "model_ema" in ckpt:
             for n, v in ckpt["model_ema"].items():
-                state.ema_params[n].copy_(v)
+                state.ema_params[n].copy_(local(n, state.ema_params[n], v))
     ours.count = (int(next(iter(saved.values()))["step"]) if saved
                   else 0)
     if state.loss_scale is not None and "scaler" in ckpt:

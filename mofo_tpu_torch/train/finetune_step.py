@@ -30,6 +30,14 @@ The fp16 skip reads the gradient norm of the reduced gradients, so every
 rank skips together. The eval step of a wrapped model sums loss * w, hit1
 * w, hit5 * w and the valid count over the ranks before it divides
 (mofo_tpu/train/finetune_step.py:224-238 averages over the global batch).
+
+A model sharded by parallel.mesh.shard_model trains on its mesh as in
+train/pretrain_step.py: the draws, mixup's partner rows (from the batch
+coordinate W-1-b of the same model coordinate), the loss metric and the
+eval sums run over the batch axis; the gradients are reduced after the
+backward (Sharding.reduce_grads) and their norm is taken whole, so an inf
+in any rank's shard reaches every rank's norm and every rank skips the
+fp16 step together.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from mofo_tpu_torch.core.config import FinetuneConfig
 from mofo_tpu_torch.core.device import DeviceLike, device_of, resolve_device
 from mofo_tpu_torch.ops.mixup import Mixup, MixupParams
 from mofo_tpu_torch.parallel import ddp
+from mofo_tpu_torch.parallel.mesh import sharding_of
 from mofo_tpu_torch.train import losses
 from mofo_tpu_torch.train.optim import global_norm, rademacher
 from mofo_tpu_torch.train.pretrain_step import (
@@ -125,7 +134,17 @@ def make_finetune_step(
     mixup_active = mixup_fn.enabled
     criterion = build_criterion(cfg, mixup_active)
     k = cfg.update_freq
-    rank, world = ddp.data_parallel(model) or (0, 1)
+    sharding, group = sharding_of(model), None
+    if sharding is not None:
+        if second_order and sharding.mesh.sharded:
+            raise NotImplementedError(
+                "a second-order step (adahessian) on a mesh with an fsdp or "
+                "model axis is not ported (ROADMAP Queue 1 item 23)")
+        group = sharding.mesh.batch
+        rank, world = group.index, group.size
+    else:
+        rank, world = ddp.data_parallel(model) or (0, 1)
+    wrapped = ddp.data_parallel(model) is not None
     net = ddp.unwrap(model) if second_order else model
 
     def step_fn(state: TrainState, batch: Batch,
@@ -134,7 +153,7 @@ def make_finetune_step(
                                     None] = None, probe_z=None):
         model.train()
         if augment_fn is not None:
-            with ddp.global_draws(rank, world, k):
+            with ddp.global_draws(rank, world, k, group):
                 batch = augment_fn(generator, batch)
         B = batch["clip"].shape[0]
         if B % k:
@@ -152,8 +171,8 @@ def make_finetune_step(
         for i in range(k):
             micro = {n: v[i * mb:(i + 1) * mb] for n, v in batch.items()}
             clip, target = micro["clip"], micro["label"]
-            sync = world == 1 or i == k - 1 or second_order
-            with ddp.global_draws(rank, world), \
+            sync = not wrapped or i == k - 1 or second_order
+            with ddp.global_draws(rank, world, 1, group), \
                     (contextlib.nullcontext() if sync else model.no_sync()):
                 if mixup_active:
                     clip, target = mixup_fn(
@@ -174,7 +193,7 @@ def make_finetune_step(
                 (loss * scale).backward()
             loss_sum = loss_sum + loss.detach()
         if world > 1:
-            loss_sum = ddp.all_reduce_sum(loss_sum) / world
+            loss_sum = ddp.all_reduce_sum(loss_sum, group) / world
         hess = None
         if second_order:
             acc = second_order_reduce(acc, world)
@@ -182,6 +201,8 @@ def make_finetune_step(
             hess = dict(zip(names, acc[len(names):]))
         else:
             grads = {n: p.grad for n, p in state.params.items()}
+            if sharding is not None:
+                sharding.reduce_grads(grads)
         if k * scale != 1.0:
             grads = dict(zip(grads, torch._foreach_div(list(grads.values()),
                                                        k * scale)))
@@ -189,7 +210,8 @@ def make_finetune_step(
                 hess = dict(zip(hess, torch._foreach_div(
                     list(hess.values()), k * scale)))
         loss = loss_sum / k if k > 1 else loss_sum
-        grad_norm = global_norm(grads.values())
+        grad_norm = (global_norm(grads.values()) if sharding is None
+                     else sharding.global_norm(grads))
         finite = True
         if state.loss_scale is not None:
             finite = bool(torch.isfinite(grad_norm))
@@ -215,17 +237,26 @@ def make_finetune_step(
 
 
 def make_eval_step(model: torch.nn.Module, cfg: FinetuneConfig,
-                   bb_focused: bool = False,
-                   device: DeviceLike = None) -> Callable[[Batch], Dict]:
+                   bb_focused: bool = False, device: DeviceLike = None,
+                   reduce: bool = True) -> Callable[[Batch], Dict]:
     """eval_fn(batch) -> {loss, acc1, acc5, n_valid, logits (f32)}
     (validation_one_epoch, engine_for_finetuning.py:172-225). An optional
     batch['valid'] flags the real rows of a padded last batch; the metrics
     average over those. With a model wrapped by parallel.ddp.wrap_model the
     sums and the count are the ranks' together (every rank must call
-    eval_fn as often); the logits stay the rank's own."""
+    eval_fn as often), with a sharded one those of the batch axis; the
+    logits stay the rank's own. reduce=False keeps every rank's own sums
+    (the multi-view test, whose ranks make different numbers of calls)."""
     del cfg  # the JAX signature; nothing in it changes the eval
     _check_device(model, device)
-    world = (ddp.data_parallel(model) or (0, 1))[1]
+    sharding, group = sharding_of(model), None
+    if sharding is not None:
+        group = sharding.mesh.batch
+        world = group.size
+    else:
+        world = (ddp.data_parallel(model) or (0, 1))[1]
+    if not reduce:
+        world = 1
     net = ddp.unwrap(model)
 
     @torch.no_grad()
@@ -241,7 +272,7 @@ def make_eval_step(model: torch.nn.Module, cfg: FinetuneConfig,
         sums = torch.stack([(nll * w).sum(), (hit1 * w).sum(),
                             (hit5 * w).sum(), w.sum()]).float()
         if world > 1:
-            sums = ddp.all_reduce_sum(sums)
+            sums = ddp.all_reduce_sum(sums, group)
         n = sums[3].clamp(min=1.0)
         return {
             "loss": sums[0] / n,

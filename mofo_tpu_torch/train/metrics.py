@@ -128,17 +128,21 @@ class MetricLogger:
                    f"{str(datetime.timedelta(seconds=int(elapsed)))} "
                    f"({elapsed / max(i, 1):.4f} s / it)")
 
-    def epoch_stats(self, sync: bool = False) -> Dict[str, float]:
+    def epoch_stats(self, sync: bool = False,
+                    group=None) -> Dict[str, float]:
         """Per-meter global averages. With `sync` and more than one process
         each meter's (total, count) is summed over the processes first (the
         reference's synchronize_between_processes all-reduce, utils.py:
-        45-56; mofo_tpu/train/metrics.py:138-160); every process must call
-        it with the same meters."""
-        if sync and distributed.process_count() > 1:
+        45-56; mofo_tpu/train/metrics.py:138-160), over a mesh's batch axis
+        `group` only when given (a model peer's meters are its coordinate's
+        own); every process must call it with the same meters."""
+        size = (distributed.process_count() if group is None
+                else group.size)
+        if sync and size > 1:
             names = sorted(self.meters)
             local = torch.tensor([[self.meters[k].total, self.meters[k].count]
                                   for k in names], dtype=torch.float64)
-            tot = ddp.all_reduce_sum(local).numpy()
+            tot = ddp.all_reduce_sum(local, group).numpy()
             return {k: float(tot[i, 0] / max(tot[i, 1], 1.0))
                     for i, k in enumerate(names)}
         return {k: m.global_avg for k, m in self.meters.items()}

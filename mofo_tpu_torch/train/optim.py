@@ -40,6 +40,18 @@ parameter (train/checkpoint.py's jax_layout, from the tables that carry
 weights between the packages): Dense kernels there are (in, out), the
 port's Linear weights (out, in); the patch embedding there is (t*p*p*C, D),
 here a Conv3d (D, C, t, p, p).
+
+On a mesh with an fsdp or model axis (parallel/mesh.py; create_optimizer's
+`sharding`) the parameters, the gradients, the moments and the lookahead's
+slow weights are this rank's shards, and every elementwise stage runs on
+them as it is. What reads a whole tensor takes it over its shards: the
+clip's global norm and the per-tensor norms of TrustRatio (lamb, lars) and
+Novograd (Sharding.norms: each shard's squares summed over the axes its
+parameter is cut on, a replicated one counted once). The stages that read
+a tensor's layout or its rows, FactoredRMS (adafactor, on jax_layout's
+axes), the AdamP / SGDP projection (its channel view) and AdaHessian (its
+Hutchinson probe through the sharded backward), raise NotImplementedError
+on such a mesh (ROADMAP Queue 1 item 23).
 """
 
 from __future__ import annotations
@@ -144,6 +156,14 @@ class Stage:
 
     fields: Tuple[str, ...] = ()
     keys: Dict[str, str] = {}
+    # False where the stage reads a tensor's layout or rows: it raises on a
+    # mesh that shards parameters
+    shardable = True
+
+    @staticmethod
+    def norms(names: Sequence[str], ts: Tensors) -> Tensors:
+        """Each tensor's whole f32 norm; the optimizer sets a mesh's."""
+        return torch._foreach_norm(ts)
 
     def init(self, name: str, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {f: torch.zeros_like(p) for f in self.fields}
@@ -216,7 +236,7 @@ class TrustRatio(Stage):
     u * |p| / |u|, or u where either norm is 0."""
 
     def update(self, u, state, p, names, count, hessian_diag):
-        pn, un = torch._foreach_norm(p), torch._foreach_norm(u)
+        pn, un = self.norms(names, p), self.norms(names, u)
         ratio = [torch.where((a == 0) | (b == 0), torch.ones_like(a), a / b)
                  for a, b in zip(pn, un)]
         return torch._foreach_mul(u, ratio)
@@ -241,6 +261,7 @@ class FactoredRMS(Stage):
     otherwise. The unused fields hold one 0, as optax's do."""
 
     fields = ("v_row", "v_col", "v")
+    shardable = False
 
     def __init__(self, decay_rate: float = 0.8, min_dim: int = 128,
                  eps: float = 1e-30):
@@ -389,7 +410,7 @@ class Novograd(Stage):
 
     def update(self, u, state, p, names, count, hessian_diag):
         mu, nu = state["mu"], state["nu"]
-        sq = [x * x for x in torch._foreach_norm(u)]
+        sq = [x * x for x in self.norms(names, u)]
         first = count == 0
         if first:
             torch._foreach_copy_(nu, sq)
@@ -544,6 +565,8 @@ class _Projected(Stage):
     """The shared tail of AdamP and SGDP: the projection and the decay
     wd(t) * ratio * p folded in on the decayed parameters."""
 
+    shardable = False
+
     def __init__(self, wd_at: Callable[[int], float], mask: Dict[str, bool],
                  delta: float = 0.1, wd_ratio: float = 0.1,
                  eps: float = 1e-8):
@@ -609,6 +632,7 @@ class AdaHessian(Stage):
 
     fields, keys = ("mu", "nu"), {"mu": "exp_avg",
                                   "nu": "exp_hessian_diag_sq"}
+    shardable = False
 
     def __init__(self, b1: float, b2: float, eps: float):
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -666,7 +690,19 @@ class Optimizer:
                  clip_grad: Optional[float] = None,
                  lr_scales: Optional[Dict[str, float]] = None,
                  trained: Optional[Iterable[str]] = None, full: bool = False,
-                 lookahead: Optional[Tuple[int, float]] = None):
+                 lookahead: Optional[Tuple[int, float]] = None,
+                 sharding=None):
+        if sharding is not None and sharding.mesh.sharded:
+            refused = [type(st).__name__ for st in stages
+                       if not st.shardable]
+            if refused:
+                raise NotImplementedError(
+                    f"{', '.join(refused)} on a mesh with an fsdp or model "
+                    "axis: the stage reads a tensor's layout or rows, which "
+                    "the mesh cuts (ROADMAP Queue 1 item 23)")
+            for stage in stages:
+                stage.norms = sharding.norms
+        self.sharding = sharding
         self.stages = stages
         self.lr_schedule = np.asarray(lr_schedule, np.float32)
         self.wd_at, self.mask, self.decoupled = wd_at, mask, decoupled
@@ -704,7 +740,9 @@ class Optimizer:
         names = self.moment_names
         u = [grads[n] for n in names]
         if self.clip_grad is not None and self.clip_grad > 0:
-            g_norm = global_norm(grads.values())  # every gradient
+            g_norm = (global_norm(grads.values())  # every gradient
+                      if self.sharding is None
+                      else self.sharding.global_norm(grads))
             if not bool(g_norm < self.clip_grad):
                 u = [(x / g_norm) * self.clip_grad for x in u]
         count = state.count
@@ -812,15 +850,17 @@ def create_optimizer(params: Params, *, opt: str = "adamw",
                      depth: Optional[int] = None,
                      extra_no_decay: Sequence[str] = (),
                      trainable: Optional[Callable[[str, torch.Tensor],
-                                                  bool]] = None
-                     ) -> Optimizer:
+                                                  bool]] = None,
+                     sharding=None) -> Optimizer:
     """mofo_tpu.train.optim.create_optimizer on the model's named
     parameters. `opt` is any zoo name (module docstring); others raise
     ValueError("Unknown optimizer: ..."). extra_no_decay names parts of
     parameter names that get no decay. With layer_decay < 1 each update is
     scaled by layer_decay_scales (depth inferred from the names unless
     given). trainable(name, tensor) picks the parameters that are trained
-    (all without it); it must pick one."""
+    (all without it); it must pick one. `sharding` (parallel.mesh.
+    shard_model's) takes the whole-tensor norms over the parameters'
+    shards; the module docstring says what it refuses."""
     opt = opt.lower()
     lookahead = None
     if opt.startswith("lookahead_"):
@@ -881,4 +921,5 @@ def create_optimizer(params: Params, *, opt: str = "adamw",
                      wd_at=wd_at, mask=mask,
                      decoupled=opt not in ("adam", "adamp", "sgdp"),
                      clip_grad=clip_grad, lr_scales=scales, trained=trained,
-                     full=opt in FULL_MOMENTS, lookahead=lookahead)
+                     full=opt in FULL_MOMENTS, lookahead=lookahead,
+                     sharding=sharding)

@@ -19,6 +19,16 @@ scaled by W, so that DDP's mean over the ranks gives mofo_tpu's global
 ratio (mofo_tpu/ops/patchify.py:287-288); the loss metric is the mean over
 the ranks. The gradient norm, the update and EMA then match on every rank.
 
+A model sharded by parallel.mesh.shard_model trains on its mesh: the
+ranks of a batch coordinate (parallel/mesh.py) hold that coordinate's rows
+and draw as W = data * fsdp data-parallel ranks do (global_draws over the
+batch axis); the model's forward and backward run the model and fsdp
+axes' collectives; after the backward the gradients are reduced over the
+batch axis (Sharding.reduce_grads), the motion weight sum and the loss
+metric likewise, and the gradient norm and the optimizer's norms are taken
+whole over each parameter's shards. A second-order step on a sharded mesh
+raises NotImplementedError (ROADMAP Queue 1 item 23).
+
 second_order (adahessian, mofo_tpu/train/pretrain_step.py:137-214) also
 takes the Hutchinson probe z * Hz of the same stochastic loss (the same
 mask and drop-path draws): each microbatch's gradient is taken once with
@@ -46,6 +56,7 @@ from mofo_tpu_torch.core.config import PretrainConfig
 from mofo_tpu_torch.core.device import DeviceLike, device_of, resolve_device
 from mofo_tpu_torch.ops import masking, patchify
 from mofo_tpu_torch.parallel import ddp
+from mofo_tpu_torch.parallel.mesh import sharding_of
 from mofo_tpu_torch.train.optim import (
     global_norm,
     hutchinson_diag,
@@ -88,12 +99,12 @@ def loss_for_batch(model: torch.nn.Module, batch: Batch,
                    mask: torch.Tensor, cfg: PretrainConfig,
                    loss_weight,
                    generator: Optional[torch.Generator] = None,
-                   world: int = 1) -> torch.Tensor:
+                   world: int = 1, group=None) -> torch.Tensor:
     """The reconstruction loss of one (micro)batch under a given mask;
     `generator` also draws the model's drop-path masks. With world > 1 (a
     data-parallel step) the motion-weighted loss takes the weight sum over
-    the ranks and is scaled by the world size, so that the ranks' mean is
-    the global batch's loss."""
+    the ranks (of a mesh's batch axis `group`) and is scaled by the world
+    size, so that the ranks' mean is the global batch's loss."""
     vis_idx, masked_idx = masking.mask_to_indices(mask, cfg.num_masked)
     bf16 = cfg.dtype == "bfloat16"
     clip = batch["clip"]
@@ -120,7 +131,7 @@ def loss_for_batch(model: torch.nn.Module, batch: Batch,
     pred = model(tokens_pix, vis_idx, masked_idx, generator)
     if weights is None or world == 1:
         return patchify.masked_mse_loss(pred, targets, weights=weights)
-    total = ddp.all_reduce_sum(weights.sum(dtype=torch.float32))
+    total = ddp.all_reduce_sum(weights.sum(dtype=torch.float32), group)
     return world * patchify.masked_mse_loss(pred, targets, weights=weights,
                                             weight_sum=total)
 
@@ -185,7 +196,17 @@ def make_pretrain_step(
     ):
         raise ValueError(f"the model is on {mdev}, the step on {dev}")
     k = cfg.update_freq
-    rank, world = ddp.data_parallel(model) or (0, 1)
+    sharding, group = sharding_of(model), None
+    if sharding is not None:
+        if second_order and sharding.mesh.sharded:
+            raise NotImplementedError(
+                "a second-order step (adahessian) on a mesh with an fsdp or "
+                "model axis is not ported (ROADMAP Queue 1 item 23)")
+        group = sharding.mesh.batch
+        rank, world = group.index, group.size
+    else:
+        rank, world = ddp.data_parallel(model) or (0, 1)
+    wrapped = ddp.data_parallel(model) is not None
 
     net = ddp.unwrap(model) if second_order else model
 
@@ -194,7 +215,7 @@ def make_pretrain_step(
                 mask: Optional[torch.Tensor] = None, probe_z=None):
         model.train()
         if augment_fn is not None:
-            with ddp.global_draws(rank, world, k):
+            with ddp.global_draws(rank, world, k, group):
                 batch = augment_fn(generator, batch)
         B = batch["clip"].shape[0]
         if B % k:
@@ -207,13 +228,13 @@ def make_pretrain_step(
         acc = hess = None  # second order: summed gradients and probes
         for i in range(k):
             micro = {n: v[i * mb:(i + 1) * mb] for n, v in batch.items()}
-            sync = world == 1 or i == k - 1 or second_order
-            with ddp.global_draws(rank, world), \
+            sync = not wrapped or i == k - 1 or second_order
+            with ddp.global_draws(rank, world, 1, group), \
                     (contextlib.nullcontext() if sync else model.no_sync()):
                 m = (generate_mask(micro, cfg, generator) if mask is None
                      else mask[i * mb:(i + 1) * mb])
                 loss = loss_for_batch(net, micro, m, cfg, loss_weight,
-                                      generator, world)
+                                      generator, world, group)
             if second_order:
                 z = (rademacher(state.params, generator) if probe_z is None
                      else probe_z[i])
@@ -224,13 +245,15 @@ def make_pretrain_step(
                 loss.backward()
             loss_sum = loss_sum + loss.detach()
         if world > 1:
-            loss_sum = ddp.all_reduce_sum(loss_sum) / world
+            loss_sum = ddp.all_reduce_sum(loss_sum, group) / world
         if second_order:
             acc = second_order_reduce(acc, world)
             grads = dict(zip(names, acc[:len(names)]))
             hess = dict(zip(names, acc[len(names):]))
         else:
             grads = {n: p.grad for n, p in state.params.items()}
+            if sharding is not None:
+                sharding.reduce_grads(grads)
         if k > 1:
             grads = dict(zip(grads, torch._foreach_div(list(grads.values()),
                                                        k)))
@@ -238,7 +261,8 @@ def make_pretrain_step(
                 hess = dict(zip(hess, torch._foreach_div(
                     list(hess.values()), k)))
         loss = loss_sum / k if k > 1 else loss_sum
-        grad_norm = global_norm(grads.values())
+        grad_norm = (global_norm(grads.values()) if sharding is None
+                     else sharding.global_norm(grads))
         tx.update(grads, state.opt_state, state.params, hessian_diag=hess)
         if state.ema_params is not None:
             ema_update(state.ema_params, state.params, 0.9999)

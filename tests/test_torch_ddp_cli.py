@@ -3,8 +3,8 @@ tests/torch_ddp_worker.py: cli.pretrain_mofo (2 epochs, then auto-resumed
 for a third) and cli.finetune_mofo (validation and the final multi-view
 test). Rank 0 alone prints, writes log.txt and saves; the loss lines equal
 one process at twice the batch fed the same global batches (its sampler
-yields the two ranks' batches side by side). And the refusals of the mesh
-flags the port does not run.
+yields the two ranks' batches side by side). And the mesh flags: resolved
+as mofo_tpu resolves them, refused where it refuses them.
 """
 
 import contextlib
@@ -110,17 +110,23 @@ def test_finetune_runner_two_ranks(ranks, tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("cli", [PT, FT])
 @pytest.mark.parametrize("flags,world,error,match", [
-    (["--mesh_fsdp", "2"], 2, NotImplementedError, "fsdp.*item 20"),
-    (["--mesh_model", "2"], 1, NotImplementedError, "model.*item 20"),
+    (["--mesh_fsdp", "2"], 2, None, (1, 2, 1)),
+    (["--mesh_model", "2"], 1, ValueError,
+     r"1 devices not divisible by fsdp\*model=2"),
     (["--mesh_data", "2"], 1, ValueError, "--mesh_data 2 with 1"),
     (["--mesh_data", "1"], 2, ValueError, "--mesh_data 1 with 2"),
     (["--mesh_data", "2"], 2, None, None),
     (["--mesh_data", "-1"], 3, None, None),
 ])
 def test_mesh_flags(cli, flags, world, error, match):
+    """The --mesh_* flags resolve as mofo_tpu's MeshConfig.resolve at the
+    world size (`match` the resolved shape where they do), and raise
+    ValueError with its condition where it refuses them."""
     args = cli.get_args(flags)
     if error is None:
         assert cli.build_config(args, world).batch_size == args.batch_size
+        if match is not None:
+            assert PT.resolve_mesh(args, world) == match
         return
     with pytest.raises(error, match=match):
         cli.build_config(args, world)

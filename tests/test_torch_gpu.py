@@ -84,10 +84,12 @@ def _qkv(B, N, H, dtype, device, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,H", [(2, 160, 12), (1, 1568, 6), (2, 100, 2),
                                    (1, 64, 1), (2, 3136, 6), (2, 3136, 12),
-                                   (1, 4608, 12), (2, 1568, 16)])
+                                   (1, 4608, 12), (2, 1568, 16),
+                                   (2, 1568, 3), (2, 1568, 4), (2, 160, 8)])
 def test_kernels_match_plain(cuda, dtype, B, N, H):
-    """K1/K2 at the steps' geometries and at the long sequences the TPU
-    kernels are gated at (32 frames, 384^2) and ViT-L's 16 heads."""
+    """K1/K2 at the steps' geometries, at the long sequences the TPU
+    kernels are gated at (32 frames, 384^2), ViT-L's 16 heads and the heads
+    a rank holds at model 2 (the ViT-B decoder's 3, ViT-L's 4 and 8)."""
     got, want = attention_against_plain(_qkv(B, N, H, dtype, cuda), H, SCALE)
     torch.cuda.synchronize()
     check_against_plain(got, want)
@@ -948,3 +950,29 @@ def test_adahessian_step_on_the_card_runs_no_kernel(cuda):
     assert not any(fa.launch_counts.values())
     assert np.isfinite(float(m["loss"])) and state.opt_state.count == 1
     assert all(torch.isfinite(h).all() for h in state.opt_state.nu.values())
+
+
+def test_tensor_parallel_functions_on_cuda_tensors(cuda, tmp_path):
+    """copy_to, reduce_from, gather_from (a model axis) and gather_fsdp (an
+    fsdp axis) on CUDA tensors, forward and backward, in 2 ranks sharing
+    the card over gloo (python -m mofo_tpu_torch.tools.mesh_ranks tp),
+    against what they are defined to compute: exact, as each sums two
+    values."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "mofo_tpu_torch.tools.mesh_ranks", "tp",
+         str(tmp_path)], cwd=root, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, RANK=str(r), WORLD_SIZE="2", LOCAL_RANK="0"))
+        for r in range(2)]
+    outs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    for r in range(2):
+        with open(tmp_path / f"tp-{r}.json") as f:
+            errs = json.load(f)
+        assert len(errs) == 7 and all(v == 0.0 for v in errs.values()), errs

@@ -42,7 +42,8 @@ def test_scan_covers_the_package():
             "pipeline.py", "feature_extract.py", "bb_stats.py",
             "data_clean.py", "flow.py", "motion_maps.py", "bbox.py",
             "annot.py", "epic_segments.py", "motion_factory.py",
-            "epic_preprocess.py", "vis.py", "download.py"} <= names
+            "epic_preprocess.py", "vis.py", "download.py", "mesh.py",
+            "tensor_parallel.py", "mesh_ranks.py"} <= names
     assert len(FILES) >= 38
 
 

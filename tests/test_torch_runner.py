@@ -22,6 +22,7 @@ from mofo_tpu.cli import pretrain as jax_cli
 from mofo_tpu.data import filelist as jax_filelist
 from mofo_tpu.models import create_model as jax_create_model
 from mofo_tpu.train import metrics as jax_metrics
+from mofo_tpu.parallel import mesh as jax_mesh
 from mofo_tpu.train import optim as jax_optim
 from mofo_tpu.train.checkpoint import (
     import_torch_pretrain,
@@ -120,17 +121,22 @@ def test_get_args_and_build_config_match_jax():
 
 @pytest.mark.parametrize("flags,error,match", [
     (["--opt", "shampoo"], ValueError, "Unknown optimizer: shampoo"),
-    (["--mesh_fsdp", "2"], NotImplementedError, "a mesh"),
+    (["--mesh_fsdp", "2"], ValueError,
+     r"1 devices not divisible by fsdp\*model=2"),
 ])
 def test_unported_flags_raise(flags, error, match, tmp_path):
     """Every --opt of mofo_tpu's zoo runs (tests/test_torch_second_order.py
     and test_torch_optim_zoo.py): an unknown name fails in the runner as
-    mofo_tpu's create_optimizer fails; the fsdp and model mesh axes are
-    still refused."""
-    if error is ValueError:
+    mofo_tpu's create_optimizer fails; a mesh that mofo_tpu's
+    MeshConfig.resolve refuses at the world size (an fsdp axis of 2 in one
+    process) raises ValueError with its condition."""
+    if flags[0] == "--opt":
         with pytest.raises(error, match=match):
             jax_optim.create_optimizer({"w": jnp.ones((2,))},
                                        lr_schedule=np.ones(1), opt=flags[1])
+    else:  # mofo_tpu refuses the mesh in the same words
+        with pytest.raises(AssertionError, match=match):
+            jax_mesh.MeshConfig(fsdp=2).resolve(1)
     with pytest.raises(error, match=match):
         _run(TINY_PRETRAIN + flags, tmp_path)
 

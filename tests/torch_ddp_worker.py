@@ -1,6 +1,11 @@
-"""Rank processes of tests/test_torch_ddp.py and tests/test_torch_ddp_cli.py.
+"""Rank processes of tests/test_torch_ddp.py, tests/test_torch_ddp_cli.py
+and tests/test_torch_mesh.py.
 
     python tests/torch_ddp_worker.py <tasks> <dir>     (RANK, WORLD_SIZE set)
+
+A mesh_* task named with a shape, e.g. mesh_pretrain@122, lays the ranks
+out on that (data, fsdp, model) mesh; one set of ranks runs the tasks of
+every shape of their world.
 
 joins a gloo process group through a FileStore in <dir>, runs each of the
 comma-separated <tasks> and saves what each returns to
@@ -11,6 +16,7 @@ run the same code; the steps are mofo_tpu_torch.tools.main_path's.
 """
 
 import contextlib
+import dataclasses
 import io
 import os
 import subprocess
@@ -31,6 +37,7 @@ from mofo_tpu_torch.core.config import (  # noqa: E402
 )
 from mofo_tpu_torch.models import create_model  # noqa: E402
 from mofo_tpu_torch.parallel import ddp  # noqa: E402
+from mofo_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from mofo_tpu_torch.tools import main_path as mp  # noqa: E402
 from mofo_tpu_torch.train import checkpoint as ckpt  # noqa: E402
 from mofo_tpu_torch.train import metrics as M  # noqa: E402
@@ -294,9 +301,217 @@ def task_adahessian(rank, world, out):
         wrap=True, opt="adahessian", eps=ADAHESSIAN_EPS)
 
 
+# --- the mesh tasks (tests/test_torch_mesh.py) ------------------------------
+
+MESH_G = 8  # the global batch of the mesh tasks
+MESH_K = 2  # update_freq of the drawn pretrain steps
+MESH_STEPS = 2
+# one update an optimizer: its norms over the shards (the clip, LAMB's and
+# LARS's trust ratios, Novograd's moments) all act on the first
+MESH_OPT_STEPS = 1
+# the optimizers the mesh runs, against one process; the rest must raise
+MESH_OPTS = ("adamw", "adam", "sgd", "nesterov", "momentum", "lamb",
+             "rmsprop", "adadelta", "lars", "lion", "nadam", "radam",
+             "novograd", "adamax", "adagrad", "adabelief", "yogi",
+             "lookahead_adamw")
+MESH_REFUSED = ("adafactor", "adamp", "sgdp", "adahessian")
+
+
+# the mesh of the mesh_* task that runs (main sets it from the task name)
+_SHAPE = None
+
+
+def _mesh():
+    return mesh_lib.build_mesh(mesh_lib.MeshConfig(*_SHAPE))
+
+
+def _coord_batch(batch, mesh, k=1):
+    """The batch coordinate's rows of G' (its model peers' alike)."""
+    return mp.rank_batch(batch, mesh.batch.index, mesh.batch.size, k)
+
+
+def task_mesh_pretrain(rank, world, out):
+    """The tiny pretrain steps on the coordinate's rows of G': with G''s
+    masks injected (k = 1, the masks mofo_tpu draws), and with the uint8
+    clips augmented and the masks drawn in the step (k = MESH_K)."""
+    mesh = _mesh()
+    n = MESH_G // mesh.batch.size
+    masks = torch.load(os.path.join(out, "masks.pt"))
+    rows = torch.from_numpy(ddp.global_rows(mesh.batch.index,
+                                            mesh.batch.size, n))
+    injected = mp.pretrain_steps(
+        pretrain_model(), pretrain_cfg(n, 1),
+        _coord_batch(pretrain_batch(MESH_G), mesh), STEPS,
+        masks=[m[rows] for m in masks], mesh=mesh)
+    mesh = _mesh()
+    drawn = mp.pretrain_steps(
+        pretrain_model(), pretrain_cfg(n, MESH_K),
+        _coord_batch(u8_batch(MESH_G), mesh, MESH_K), STEPS, augment=True,
+        mesh=mesh)
+    return {"injected": injected, "drawn": drawn, "coord": mesh.coord}
+
+
+def mesh_finetune_cfg(B):
+    """finetune_cfg with dropout and attention dropout at 0.1 too: the
+    attention of a head-sharded module takes its heads' slice of the full
+    draw."""
+    return dataclasses.replace(finetune_cfg(B, 1), drop=0.1,
+                               attn_drop_rate=0.1)
+
+
+def mesh_finetune_model():
+    return create_model(BB, device="cpu", seed=4, drop_rate=0.1,
+                        attn_drop_rate=0.1, **BB_GEO)
+
+
+def task_mesh_finetune(rank, world, out):
+    """MESH_STEPS BB-MCA steps on the coordinate's uint8 rows (RandAugment,
+    crop, flip, erasing, mixup elem + cutmix, drop path, dropout and
+    attention dropout), one validation pass and the multi-view merge."""
+    mesh = _mesh()
+    n = MESH_G // mesh.batch.size
+    return mp.finetune_steps(
+        mesh_finetune_model(), mesh_finetune_cfg(n),
+        _coord_batch(u8_batch(MESH_G, labels=True), mesh), MESH_STEPS,
+        augment=True, eval_batch=_coord_batch(eval_batch(MESH_G), mesh),
+        mesh=mesh)
+
+
+def task_mesh_checkpoint(rank, world, out):
+    """One step on the mesh and a save (rank 0 writes the full tensors);
+    then <out>/one/checkpoint-0.pth, written by one process, resumed into
+    a sharded model of another seed, returned whole."""
+    mesh = _mesh()
+    n = MESH_G // mesh.batch.size
+    cfg = pretrain_cfg(n, 1)
+    lrs = np.full(2, mp.STEPS_LR, np.float32)
+
+    def sharded(seed):
+        model = create_model(PRETRAIN, device="cpu", seed=seed,
+                             **PRETRAIN_GEO)
+        sharding = mesh_lib.shard_model(model, mesh)
+        tx = optim.create_optimizer(dict(model.named_parameters()),
+                                    lr_schedule=lrs, sharding=sharding)
+        return (model, sharding, tx,
+                TrainState.create(model, tx, use_ema=True))
+
+    model, _, tx, state = sharded(3)
+    step = make_pretrain_step(model, tx, cfg, lrs, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    state, _ = step(state, _coord_batch(pretrain_batch(MESH_G), mesh),
+                    gen, 0.5)
+    d = os.path.join(out, "mesh_ckpt")
+    path = ckpt.save_checkpoint(d, model, state, 0)
+    other, sharding2, _, state2 = sharded(9)
+    epoch = ckpt.auto_resume(os.path.join(out, "one"), other, state2)
+    mu = {n: sharding2.full(n, t) for n, t in state2.opt_state.mu.items()}
+    ema = {n: sharding2.full(n, t) for n, t in state2.ema_params.items()}
+    return {"path": path, "files": sorted(os.listdir(d)), "epoch": epoch,
+            "resumed": sharding2.full_state_dict(other), "mu": mu,
+            "ema": ema, "step": state2.step,
+            "count": state2.opt_state.count}
+
+
+def task_mesh_loss_scale(rank, world, out):
+    """Two loss-scaled BB-MCA steps: in the first the clips of rank 1's
+    batch coordinate hold an inf, so every rank's norm is not finite and
+    every rank skips; the second is finite everywhere."""
+    mesh = _mesh()
+    n = MESH_G // mesh.batch.size
+    cfg = finetune_cfg(n, 1)
+    model = finetune_model()
+    sharding = mesh_lib.shard_model(model, mesh)
+    lrs = np.full(2, mp.STEPS_LR, np.float32)
+    tx = optim.create_optimizer(dict(model.named_parameters()),
+                                lr_schedule=lrs, sharding=sharding)
+    state = TrainState.create(model, tx, loss_scale=DynamicLossScale.create())
+    step = make_finetune_step(model, tx, cfg, lrs, bb_focused=True,
+                              device="cpu")
+    batch = _coord_batch(eval_batch(MESH_G), mesh)
+    batch = {k: batch[k] for k in ("clip", "boxes", "label")}
+    before = {k: p.detach().clone() for k, p in model.named_parameters()}
+    gen = torch.Generator().manual_seed(0)
+    bad = dict(batch, clip=batch["clip"].clone())
+    if mesh.batch.index == 1:
+        bad["clip"][0, 0, 0, 0, 0] = float("inf")
+    state, m1 = step(state, bad, gen)
+    kept = all(torch.equal(before[k], p) for k, p in
+               model.named_parameters())
+    state, m2 = step(state, batch, gen)
+    moved = not all(torch.equal(before[k], p) for k, p in
+                    model.named_parameters())
+    return {"skipped": [float(m1["skipped"]), float(m2["skipped"])],
+            "scale": [float(m1["loss_scale"]), float(m2["loss_scale"])],
+            "kept": kept, "moved": moved}
+
+
+def task_mesh_optim(rank, world, out):
+    """MESH_OPT_STEPS tiny pretrain steps (G''s rows, masks drawn) through
+    each zoo entry of MESH_OPTS, with a clip at 0.5; each of MESH_REFUSED
+    must raise NotImplementedError when the optimizer is made."""
+    runs, refused = {}, {}
+    for opt in MESH_OPTS:
+        mesh = _mesh()
+        n = MESH_G // mesh.batch.size
+        runs[opt] = mp.pretrain_steps(
+            pretrain_model(), pretrain_cfg(n, 1),
+            _coord_batch(pretrain_batch(MESH_G), mesh), MESH_OPT_STEPS,
+            opt=opt, mesh=mesh, clip_grad=0.5)
+    for opt in MESH_REFUSED:
+        model = pretrain_model()
+        sharding = mesh_lib.shard_model(model, _mesh())
+        try:
+            optim.create_optimizer(dict(model.named_parameters()), opt=opt,
+                                   lr_schedule=np.ones(1),
+                                   sharding=sharding)
+            refused[opt] = None
+        except NotImplementedError as e:
+            refused[opt] = str(e)
+    return {"runs": runs, "refused": refused}
+
+
+# a constant LR (the scaled lr, 2.56e-4 * 4 / 256, is the min_lr): a run of
+# --epochs 1 then resumed with --epochs 2 steps as one of --epochs 2 does
+CONSTANT_LR = ["--lr", "2.56e-4", "--min_lr", "4e-6"]
+
+
+def mesh_pretrain_argv(out, epochs):
+    """The tiny MOFO pretrain run of the CLI on the (1, 2, 2) mesh at one
+    clip a device (2 rows a batch coordinate), an epoch a checkpoint."""
+    return pretrain_argv(out, 1, epochs) + CONSTANT_LR + [
+        "--mesh_fsdp", "2", "--mesh_model", "2"]
+
+
+def task_mesh_cli(rank, world, out):
+    """cli.pretrain_mofo's first epoch on the mesh, and cli.finetune_mofo
+    (1 epoch, validation, the final multi-view test) on it."""
+    from mofo_tpu_torch.cli import finetune_mofo, pretrain_mofo
+
+    pt, ft = os.path.join(out, "mesh_pt"), os.path.join(out, "mesh_ft")
+    runs = (("pretrain", pretrain_mofo, pretrain_mofo.get_args(
+                mesh_pretrain_argv(pt, 1), mofo_defaults=True)),
+            ("finetune", finetune_mofo, finetune_mofo.get_args(
+                finetune_argv(ft, 1) + ["--epochs", "1", "--warmup_epochs",
+                                        "0", "--mesh_fsdp", "2",
+                                        "--mesh_model", "2"],
+                bb_defaults=True)))
+    printed = {}
+    for name, cli, args in runs:
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            cli.main(args)
+        printed[name] = text.getvalue()
+    return printed
+
+
 TASKS = {"pretrain": task_pretrain, "adahessian": task_adahessian,
-         "finetune": task_finetune, "collectives": task_collectives, "checkpoint": task_checkpoint,
-         "loss_scale": task_loss_scale, "cli": task_cli}
+         "finetune": task_finetune, "collectives": task_collectives,
+         "checkpoint": task_checkpoint, "loss_scale": task_loss_scale,
+         "cli": task_cli, "mesh_pretrain": task_mesh_pretrain,
+         "mesh_finetune": task_mesh_finetune,
+         "mesh_checkpoint": task_mesh_checkpoint,
+         "mesh_loss_scale": task_mesh_loss_scale,
+         "mesh_optim": task_mesh_optim, "mesh_cli": task_mesh_cli}
 
 
 def spawn(tasks: str, world: int, out: str) -> list:
@@ -334,9 +549,12 @@ def main() -> None:
         verbose=False, device="cpu",
         init_method=f"file://{os.path.join(out, 'store')}")
     rank, world = distributed.process_index(), distributed.process_count()
+    global _SHAPE
     try:
         for task in tasks:
-            torch.save(TASKS[task](rank, world, out),
+            name, _, shape = task.partition("@")
+            _SHAPE = tuple(int(c) for c in shape) or None
+            torch.save(TASKS[name](rank, world, out),
                        os.path.join(out, f"{task}-{rank}.pt"))
     finally:
         distributed.destroy()
