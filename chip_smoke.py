@@ -289,6 +289,27 @@ Phases, each printing one JSON line:
                process fed the same global batches: the losses within
                DDP_F32_RTOL, log.txt written once, the checkpoint's names
                the reference's, the ranks' launches.
+ 35. mesh_zoo - the layout-reading optimizers on the 4 ranks of (1, 2, 2)
+               (mesh_ranks zoo) against one process at G' on the same card:
+               the ViT-B MOFO pretrain at full width and depth (bf16, 4 a
+               rank, K1/K2) for 2 steps each of adamw (the yardstick),
+               adafactor, adamp and sgdp, then the ViT-B BB-MCA finetune
+               step (f32, 2 a rank, K1/K2 and K3) for 2 steps of adamp:
+               losses and gradient norms within BF16_STEP_RTOL (bf16) and
+               DDP_F32_RTOL (f32), the gathered parameters' change within
+               ZOO_UPDATE_RTOL of one process's, or MESH_ZOO_ADAMW_FACTOR
+               times AdamW's where that is more (bf16), the parameters
+               within DDP_F32_ATOL (f32), every rank's launches equal to
+               one process's; a rank's step ms, peak memory and the
+               collectives of the step and of its optimizer's update (calls
+               and bytes a step).
+ 36. mesh_adahessian - adahessian on the 4 ranks of (1, 2, 2) (mesh_ranks
+               adahessian) against one process at G': ViT-B widths (768 /
+               384, 12 / 6 heads) at mesh_ranks.AH_DEPTH Blocks, f32, the
+               plain attention route (no kernel launch), 2 a rank, 2 steps
+               with z drawn in the step: losses and gradient norms within
+               DDP_F32_RTOL, the probes and the parameters within
+               MESH_AH_BOUND; a rank's step ms, peak memory, collectives.
 The kernels phase also checks and times K1/K2 at the mesh's per-rank
 head counts (MESH_GEOS: H = 3, the ViT-B decoder at model 2; H = 4 and 8,
 ViT-L's decoder and encoder).
@@ -582,6 +603,17 @@ MESH_MEMORY_RTOL = 0.01
 MESH_RUNNER_ARGS = ["--model", MODEL, "--synthetic", "32", "--dtype",
                     "float32", "--save_ckpt_freq", "1", "--warmup_epochs",
                     "0", "--lr", "1.6e-4", "--min_lr", "1e-5"]
+# mesh_zoo, bf16: the parameters' change against one process's, relative to
+# it, within ZOO_UPDATE_RTOL or within this many times AdamW's on the same
+# ranks, batch and steps (AdamW has no stage that reads a layout; its own
+# change sits 1.08e-2 off, from the batch coordinates' bf16 gradients
+# rounded before they are summed, which sign-like first updates carry in
+# full where a gradient element is near 0)
+MESH_ZOO_ADAMW_FACTOR = 2.0
+# mesh_adahessian: the probes (each tensor's largest error over its largest
+# magnitude) and the parameters (absolute), ranks against one process, as
+# two gloo ranks are held on the CPU (tests/test_torch_second_order.py)
+MESH_AH_BOUND = 1e-4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -3230,6 +3262,127 @@ def phase_mesh_step(smi: str) -> dict:
     return launches
 
 
+def _ranks_against(runs_fn, mode: str) -> tuple:
+    """One process's runs_fn(None) on this card, then the 4 ranks of
+    mesh_ranks <mode> held against its reference.pt: (one process's
+    results, the ranks', one process's seconds, the ranks')."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ref = runs_fn(None)
+        ref_s = time.perf_counter() - t0
+        torch.save(mesh_ranks.reference_of(ref),
+                   os.path.join(tmp, "reference.pt"))
+        for res in ref.values():
+            res.pop("init")
+        torch.cuda.empty_cache()
+        _, ranks_s = _run_ranks([mode, tmp], mesh_ranks.WORLD)
+        got = [torch.load(os.path.join(tmp, f"rank-{r}.pt"))
+               for r in range(mesh_ranks.WORLD)]
+    return ref, got, ref_s, ranks_s
+
+
+def _rank_row(res: dict, want: dict, steps: int) -> dict:
+    """A rank's run against one process's: the relative differences of
+    the losses and gradient norms, the parameters' (and probes') errors,
+    its step ms, peak memory, launches and collectives a step."""
+    row = {f"{k}_rel_diff": max(abs(a - b) / abs(b)
+                                for a, b in zip(res[k], want[k]))
+           for k in ("loss", "grad_norm")}
+    row.update({k: res[k] for k in ("params_max_abs_err", "change_rel",
+                                    "probe_rel_err") if k in res})
+    row.update(step_ms=res["ms"], peak_gib=res["peak_bytes"] / 2 ** 30,
+               launches=res["launches"],
+               collectives_a_step={k: [c / steps for c in v] for k, v in
+                                   res["collectives"].items()})
+    return row
+
+
+def phase_mesh_zoo(smi: str) -> dict:
+    """Adafactor, AdamP and SGDP (and AdamW beside them) on the (1, 2, 2)
+    ranks against one process at G' on the same card. Returns the ranks'
+    launches, summed."""
+    ref, got, ref_s, ranks_s = _ranks_against(mesh_ranks.zoo_runs, "zoo")
+    yardstick = max(out["pretrain_adamw"]["change_rel"] for out in got)
+    change_bound = max(ZOO_UPDATE_RTOL, MESH_ZOO_ADAMW_FACTOR * yardstick)
+    report, bad = {}, []
+    for run, want in ref.items():
+        bf16 = run.startswith("pretrain")
+        rtol = BF16_STEP_RTOL if bf16 else DDP_F32_RTOL
+        rows = [_rank_row(out[run], want, mesh_ranks.ZOO_STEPS)
+                for out in got]
+        for r, row in enumerate(rows):
+            bad += [f"{run} rank {r} {k}" for k in ("loss", "grad_norm")
+                    if not row[f"{k}_rel_diff"] <= rtol]
+            if bf16 and run != "pretrain_adamw" and not (
+                    row["change_rel"] <= change_bound):
+                bad.append(f"{run} rank {r} change {row['change_rel']}")
+            if not bf16 and not row["params_max_abs_err"] <= DDP_F32_ATOL:
+                bad.append(f"{run} rank {r} parameters")
+            if row["launches"] != want["launches"]:
+                bad.append(f"{run} rank {r} launches {row['launches']} != "
+                           f"one process's {want['launches']}")
+        report[run] = {"ranks": rows, "dtype": "bfloat16" if bf16
+                       else "float32",
+                       "one_process": {"loss": want["loss"],
+                                       "grad_norm": want["grad_norm"],
+                                       "step_ms": want["ms"],
+                                       "peak_gib": want["peak_bytes"] / 2
+                                       ** 30, "launches": want["launches"]}}
+    launches = {k: sum(out[run]["launches"][k] for out in got for run in ref)
+                for k in fa.KERNELS}
+    emit("mesh_zoo", mesh=dict(zip(mesh_lib.AXES, mesh_ranks.SHAPE)),
+         backend="gloo", device="cuda:0 (all 4 ranks)", runs=report,
+         steps=mesh_ranks.ZOO_STEPS,
+         batch_per_device={"pretrain": mesh_ranks.PRETRAIN_B,
+                           "finetune": mesh_ranks.FINETUNE_B},
+         bounds={"bf16_rtol": BF16_STEP_RTOL,
+                 "bf16_change_rel": change_bound,
+                 "adamw_change_rel": yardstick,
+                 "f32_rtol": DDP_F32_RTOL, "f32_atol": DDP_F32_ATOL},
+         one_process_s=ref_s, ranks_s=ranks_s,
+         ranks_run_s=[out["seconds"] for out in got], launches=launches,
+         nvidia_smi=smi)
+    if bad:
+        raise AssertionError(f"mesh_zoo: {bad}")
+    return launches
+
+
+def phase_mesh_adahessian(smi: str) -> dict:
+    """AdaHessian on the (1, 2, 2) ranks against one process at G' on the
+    same card. Returns the ranks' launches, summed (all 0)."""
+    ref, got, ref_s, ranks_s = _ranks_against(mesh_ranks.adahessian_runs,
+                                              "adahessian")
+    want = ref["pretrain_adahessian"]
+    rows = [_rank_row(out["pretrain_adahessian"], want, mesh_ranks.AH_STEPS)
+            for out in got]
+    bad = []
+    for r, row in enumerate(rows):
+        bad += [f"rank {r} {k}" for k in ("loss", "grad_norm")
+                if not row[f"{k}_rel_diff"] <= DDP_F32_RTOL]
+        bad += [f"rank {r} {k} {row[k]}" for k in ("params_max_abs_err",
+                                                    "probe_rel_err")
+                if not row[k] <= MESH_AH_BOUND]
+        if row["launches"] != want["launches"] or any(
+                row["launches"].values()):
+            bad.append(f"rank {r} launches {row['launches']}")
+    emit("mesh_adahessian", model=MODEL, dtype="float32",
+         depth={"encoder": mesh_ranks.AH_DEPTH[0],
+                "decoder": mesh_ranks.AH_DEPTH[1]},
+         mesh=dict(zip(mesh_lib.AXES, mesh_ranks.SHAPE)), backend="gloo",
+         device="cuda:0 (all 4 ranks)", batch_per_device=mesh_ranks.AH_B,
+         steps=mesh_ranks.AH_STEPS, eps=mesh_ranks.AH_EPS, ranks=rows,
+         one_process={"loss": want["loss"], "grad_norm": want["grad_norm"],
+                      "step_ms": want["ms"],
+                      "peak_gib": want["peak_bytes"] / 2 ** 30},
+         bounds={"rtol": DDP_F32_RTOL, "probe_and_params": MESH_AH_BOUND},
+         one_process_s=ref_s, ranks_s=ranks_s,
+         ranks_run_s=[out["seconds"] for out in got], nvidia_smi=smi)
+    if bad:
+        raise AssertionError(f"mesh_adahessian: {bad}")
+    return {k: sum(out["pretrain_adahessian"]["launches"][k] for out in got)
+            for k in fa.KERNELS}
+
+
 def phase_mesh_memory(smi: str) -> dict:
     """ViT-L at MESH_MEMORY_DEPTH on the (1, 2, 2) ranks: state bytes,
     peak memory and step ms a rank. Returns the launches, summed."""
@@ -3386,11 +3539,13 @@ def main() -> int:
     later["launches_zoo_steps"] = phase_zoo_steps(smi)
     later["launches_adahessian_step"] = phase_adahessian_step(smi)
     later["launches_zoo_runner"] = phase_zoo_runner(smi)
-    t_mesh = time.perf_counter()
     later["launches_mesh_step"] = phase_mesh_step(smi)
     later["launches_mesh_memory"] = phase_mesh_memory(smi)
     later["launches_mesh_runner"] = phase_mesh_runner(smi)
-    new_s = time.perf_counter() - t_mesh
+    t_new = time.perf_counter()
+    later["launches_mesh_zoo"] = phase_mesh_zoo(smi)
+    later["launches_mesh_adahessian"] = phase_mesh_adahessian(smi)
+    new_s = time.perf_counter() - t_new
     kernels = []
     for name in fa.QKV_KERNELS:
         dec = timings["decoder"][name]

@@ -59,9 +59,8 @@ With WANDB_PROJECT (and WANDB_GROUP, WANDB_NAME) set, rank 0 also logs
 every epoch's line to wandb when the package is installed
 (train/wandb_compat.py).
 
-A mesh mofo_tpu refuses at the world size raises ValueError; on a mesh
-with an fsdp or model axis, adahessian, adafactor, adamp and sgdp raise
-NotImplementedError (ROADMAP Queue 1 item 23).
+A mesh mofo_tpu refuses at the world size raises ValueError; every --opt
+name runs on a mesh with an fsdp or model axis, as in cli/pretrain.py.
 """
 
 from __future__ import annotations

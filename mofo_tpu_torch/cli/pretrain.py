@@ -53,8 +53,10 @@ only), and trains with the Hutchinson probe. With WANDB_PROJECT (and
 WANDB_GROUP, WANDB_NAME) set, rank 0 also logs every epoch's line to
 wandb when the package is installed (train/wandb_compat.py).
 
-On a mesh with an fsdp or model axis, adahessian, adafactor, adamp and
-sgdp raise NotImplementedError (ROADMAP Queue 1 item 23).
+Every --opt name also runs on a mesh with an fsdp or model axis: the
+layout-reading ones (adafactor, adamp, sgdp, adahessian and their
+lookahead_ forms) take each parameter whole over its shards
+(train/optim.py).
 """
 
 from __future__ import annotations

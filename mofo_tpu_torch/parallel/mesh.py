@@ -47,6 +47,19 @@ gathers' backward and are summed over data; the others over the batch
 axis; all divided by the batch coordinates' count), takes whole-tensor
 norms over each parameter's shard axes, gathers full tensors for the
 checkpoints and shards them back on load.
+
+The optimizer stages that read a tensor's layout (train/optim.py's
+Adafactor and AdamP / SGDP) work on mofo_tpu's layout of a parameter
+(train/checkpoint.py's jax_layout: a Linear weight transposed, the Conv3d
+patch embedding as its (t*p*p*C, D) kernel, so the fsdp cut of the conv's
+D, torch dim 0, is jax axis 1). The Sharding gives them the full shape in
+that layout (full_jax_shape), the mesh axis that cuts each jax axis
+(jax_cuts), the layout of a tensor reduced over one jax axis
+(reduced_layout: Adafactor's row and column moments stay cut where the
+parameter is) and sums over the axes that cut a dim (sum_over: one
+all-reduce a mesh axis for any number of tensors). A state tensor's layout
+may differ from its parameter's, so the gathers and shards of the
+checkpoints take an explicit one (full, shard).
 """
 
 from __future__ import annotations
@@ -61,7 +74,7 @@ from torch import nn
 
 from mofo_tpu_torch.parallel import tensor_parallel as tp
 from mofo_tpu_torch.parallel.tensor_parallel import Axis
-from mofo_tpu_torch.train.checkpoint import _layout
+from mofo_tpu_torch.train.checkpoint import _layout, jax_layout
 
 AXES = ("data", "fsdp", "model")
 
@@ -255,6 +268,17 @@ def shard_tensor(full: torch.Tensor, lay: Layout, mesh: Mesh) -> torch.Tensor:
     return x
 
 
+def _jax_axis(name: str, dim: int) -> int:
+    """The axis of mofo_tpu's layout of parameter `name` (jax_layout) that
+    holds torch dim `dim`: transposed for a Linear weight; the Conv3d
+    patch embedding's D (dim 0) is axis 1 of its (t*p*p*C, D) kernel, its
+    other dims flatten into axis 0."""
+    transposed, permuted = _layout(name)
+    if permuted:
+        return 1 if dim == 0 else 0
+    return 1 - dim if transposed else dim
+
+
 def _join(parts: Sequence[torch.Tensor], dim: int,
           sections: int = 1) -> torch.Tensor:
     """The inverse of _take over every i."""
@@ -278,9 +302,12 @@ class Sharding:
 
     # --- full tensors and shards -------------------------------------------
 
-    def shard(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of the full tensor of parameter `name`."""
-        return shard_tensor(full, self.layouts[name], self.mesh)
+    def shard(self, name: str, full: torch.Tensor,
+              lay: Optional[Layout] = None) -> torch.Tensor:
+        """This rank's shard of a full tensor cut as `lay` says (by default
+        as parameter `name` is)."""
+        return shard_tensor(full, self.layouts[name] if lay is None else lay,
+                            self.mesh)
 
     def local_shape(self, name: str, shape: Sequence[int]) -> Tuple[int, ...]:
         lay, out = self.layouts[name], list(shape)
@@ -290,10 +317,21 @@ class Sharding:
             out[lay.fsdp] //= self.mesh.fsdp.size
         return tuple(out)
 
-    def full(self, name: str, local: torch.Tensor) -> torch.Tensor:
+    def full_shape(self, name: str, local: Sequence[int]) -> Tuple[int, ...]:
+        """The inverse of local_shape."""
+        lay, out = self.layouts[name], list(local)
+        if lay.model is not None:
+            out[lay.model] *= self.mesh.model.size
+        if lay.fsdp is not None:
+            out[lay.fsdp] *= self.mesh.fsdp.size
+        return tuple(out)
+
+    def full(self, name: str, local: torch.Tensor,
+             lay: Optional[Layout] = None) -> torch.Tensor:
         """The full tensor, reference row order, from every rank's shard of
-        parameter `name` (a collective: every rank calls it)."""
-        lay, mesh = self.layouts[name], self.mesh
+        a tensor cut as `lay` says (by default as parameter `name` is); a
+        collective: every rank calls it."""
+        lay, mesh = self.layouts[name] if lay is None else lay, self.mesh
         x = local.detach()
         if lay.fsdp is not None:
             x = tp.all_gather(x, mesh.fsdp, lay.fsdp)
@@ -303,32 +341,72 @@ class Sharding:
             x = _join(parts, lay.model, lay.sections)
         return x
 
-    def full_like_param(self, name: str, t: torch.Tensor,
-                        param: torch.Tensor) -> torch.Tensor:
-        """`t` whole: gathered when it is shaped like its (local) parameter,
-        as the moments and the EMA are; as it is otherwise."""
-        return self.full(name, t) if t.shape == param.shape else t.detach()
+    # --- mofo_tpu's layout of a parameter ------------------------------------
+
+    def full_jax_shape(self, name: str,
+                       local: Sequence[int]) -> Tuple[int, ...]:
+        """The full shape of parameter `name` (whose shard has the torch
+        shape `local`) in mofo_tpu's layout."""
+        full = torch.empty(self.full_shape(name, local), device="meta")
+        return tuple(jax_layout(name, full).shape)
+
+    def jax_cuts(self, name: str) -> Dict[int, str]:
+        """jax axis -> the mesh axis ("fsdp" or "model") that cuts it, for
+        each cut axis of parameter `name` in mofo_tpu's layout."""
+        lay = self.layouts[name]
+        return {_jax_axis(name, getattr(lay, key)): key
+                for key in ("fsdp", "model") if getattr(lay, key) is not None}
+
+    def reduced_layout(self, name: str, drop: int) -> Layout:
+        """The layout of parameter `name`'s tensor in mofo_tpu's layout
+        with jax axis `drop` reduced away: each other axis keeps its cut
+        (the model cut its sections)."""
+        dims = {}
+        for axis, key in self.jax_cuts(name).items():
+            if axis != drop:
+                dims[key] = axis - (axis > drop)
+        return Layout(dims.get("fsdp"), dims.get("model"),
+                      self.layouts[name].sections if "model" in dims else 1)
+
+    def sum_over(self, items: Sequence[Tuple[torch.Tensor, Sequence[str]]]
+                 ) -> List[torch.Tensor]:
+        """Each tensor summed over the mesh axes ("fsdp", "model") named
+        with it: one flat all-reduce a mesh axis for all of them (one
+        dtype). A tensor with no axis comes back as it is."""
+        out = [t for t, _ in items]
+        for key in ("fsdp", "model"):
+            axis = getattr(self.mesh, key)
+            at = [i for i, (_, keys) in enumerate(items) if key in keys]
+            if not at or axis.size == 1:
+                continue
+            flat = tp.all_reduce(torch.cat([out[i].reshape(-1) for i in at]),
+                                 axis)
+            for i, part in zip(at, flat.split([out[i].numel()
+                                               for i in at])):
+                out[i] = part.view_as(out[i])
+        return out
 
     # --- gradients and norms -----------------------------------------------
 
-    def reduce_grads(self, grads: Dict[str, torch.Tensor]) -> None:
-        """In place, the mean over the batch coordinates: the fsdp-sharded
-        gradients (already summed over fsdp by the gathers' backward) summed
+    def reduce_grads(self, *dicts: Dict[str, torch.Tensor]) -> None:
+        """In place, the mean over the batch coordinates of each name ->
+        tensor dict (the gradients; a second-order step's probes z * Hz
+        too, which arrive summed as the gradients do): the fsdp-sharded
+        tensors (already summed over fsdp by the gathers' backward) summed
         over data, every other one over the batch axis, then all divided by
         the count of batch coordinates."""
         mesh = self.mesh
-        on_fsdp = [n for n in grads if self.layouts[n].fsdp is not None]
-        rest = [n for n in grads if self.layouts[n].fsdp is None]
-        for axis, names in ((mesh.data, on_fsdp), (mesh.batch, rest)):
-            ts = [grads[n] for n in names if grads[n] is not None]
+        for axis, on_fsdp in ((mesh.data, True), (mesh.batch, False)):
+            ts = [d[n] for d in dicts for n in d if d[n] is not None
+                  and (self.layouts[n].fsdp is not None) == on_fsdp]
             if not ts or axis.size == 1:
                 continue
             flat = tp.all_reduce(torch.cat([t.reshape(-1) for t in ts]), axis)
             for t, part in zip(ts, flat.split([t.numel() for t in ts])):
                 t.copy_(part.view_as(t))
         if mesh.batch.size > 1:
-            torch._foreach_div_([g for g in grads.values() if g is not None],
-                                float(mesh.batch.size))
+            torch._foreach_div_([t for d in dicts for t in d.values()
+                                 if t is not None], float(mesh.batch.size))
 
     def sq_norms(self, names: Sequence[str],
                  tensors: Sequence[torch.Tensor]) -> torch.Tensor:

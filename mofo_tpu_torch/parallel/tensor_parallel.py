@@ -21,6 +21,16 @@ plain local tensors, and the communication is explicit:
                           backward); its gradient comes back summed over
                           the fsdp ranks and cut to the shard
 
+Each backward is the partner function, not a raw collective, so that a
+backward taken with create_graph=True (AdaHessian's Hessian-vector
+product, train/optim.hutchinson_diag) is itself differentiable across the
+ranks: copy_to's backward is reduce_from and reduce_from's copy_to;
+gather_from's backward takes this rank's slice through a function whose
+backward is gather_from; gather_fsdp's backward is a reduce-scatter
+function whose backward is the all-gather. A raw collective there would
+record only this rank's part, and the second derivative would drop the
+other ranks' terms.
+
 An Axis is one axis of the mesh as this rank sees it: its size, this rank's
 coordinate on it, the global ranks along it and their process group (None
 at size 1, where every collective is the identity).
@@ -98,17 +108,18 @@ class _CopyTo(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce(g, ctx.axis), None
+        return _ReduceFrom.apply(g, ctx.axis), None
 
 
 class _ReduceFrom(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
+        ctx.axis = axis
         return all_reduce(x, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return _CopyTo.apply(g, ctx.axis), None
 
 
 class _GatherFrom(torch.autograd.Function):
@@ -119,9 +130,21 @@ class _GatherFrom(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        axis = ctx.axis
-        return g.chunk(axis.size, ctx.dim)[axis.index].contiguous(), None, \
-            None
+        return _SliceTo.apply(g, ctx.axis, ctx.dim), None, None
+
+
+class _SliceTo(torch.autograd.Function):
+    """This rank's slice along dim of a tensor whole on every rank of the
+    axis (gather_from's backward); its backward gathers the slices."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return x.chunk(axis.size, dim)[axis.index].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherFrom.apply(g, ctx.axis, ctx.dim), None, None
 
 
 class _GatherFsdp(torch.autograd.Function):
@@ -132,7 +155,21 @@ class _GatherFsdp(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter(g, ctx.axis, ctx.dim), None, None
+        return _ReduceScatter.apply(g, ctx.axis, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """reduce_scatter (gather_fsdp's backward); its backward is the
+    all-gather of the chunks."""
+
+    @staticmethod
+    def forward(ctx, g, axis, dim):
+        ctx.axis, ctx.dim = axis, dim
+        return reduce_scatter(g, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _GatherFsdp.apply(g, ctx.axis, ctx.dim), None, None
 
 
 def copy_to(x: torch.Tensor, axis: Optional[Axis]) -> torch.Tensor:

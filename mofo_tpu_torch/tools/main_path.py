@@ -446,11 +446,14 @@ def pretrain_steps(model, cfg: PretrainConfig, batch: dict, steps: int, *,
 
 def finetune_steps(model, cfg: FinetuneConfig, batch: dict, steps: int, *,
                    wrap: bool = False, augment: bool = False,
-                   eval_batch: dict = None, mesh=None) -> dict:
+                   eval_batch: dict = None, mesh=None, opt: str = "adamw",
+                   eps: float = None) -> dict:
     """`steps` finetune steps of `model` (a BB-focused one when cfg.model
-    is; through parallel.ddp.wrap_model with `wrap`) on `batch`, AdamW at
-    STEPS_LR with cfg's layer decay; step s draws from a generator
-    seeded s and mixup from cfg.seed and the step. With `augment`
+    is; through parallel.ddp.wrap_model with `wrap`) on `batch`, zoo entry
+    `opt` (AdamW; a second-order one with the Hutchinson probe, its z drawn
+    from the step's generator) at STEPS_LR with cfg's layer decay and
+    betas, and cfg's eps unless `eps` is given; step s draws from a
+    generator seeded s and mixup from cfg.seed and the step. With `augment`
     the batch holds uint8 clips that the finetune CLI's train augmentation
     takes inside the step. Then, given `eval_batch` (normalized clips,
     boxes, labels, `valid` and the views' video_idx, chunk_nb, split_nb),
@@ -462,14 +465,16 @@ def finetune_steps(model, cfg: FinetuneConfig, batch: dict, steps: int, *,
     bb = "BB_focused" in cfg.model
     lrs = np.full(steps, STEPS_LR, np.float32)
     oc = cfg.optimizer
-    tx = _optimizer(model, mesh, lr_schedule=lrs, betas=oc.opt_betas,
-                    weight_decay=oc.weight_decay, eps=oc.opt_eps,
+    tx = _optimizer(model, mesh, opt=opt, lr_schedule=lrs,
+                    betas=oc.opt_betas, weight_decay=oc.weight_decay,
+                    eps=oc.opt_eps if eps is None else eps,
                     layer_decay=oc.layer_decay)
     state = TrainState.create(model, tx)
     net = ddp.wrap_model(model) if wrap else model
     step = make_finetune_step(
         net, tx, cfg, lrs, bb_focused=bb, device=dev,
-        augment_fn=make_train_augment(cfg, flip=True) if augment else None)
+        augment_fn=make_train_augment(cfg, flip=True) if augment else None,
+        second_order=optim.is_second_order(opt))
     gen, now = torch.Generator(device=dev), _timed(dev)
     out = {"loss": [], "grad_norm": [], "ms": []}
     for s in range(steps):

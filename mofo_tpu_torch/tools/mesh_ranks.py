@@ -19,6 +19,15 @@ refuses two ranks on one device), each joining through a FileStore.
   python -m mofo_tpu_torch.tools.mesh_ranks tp <dir>
       (2 ranks) the tensor-parallel autograd functions on CUDA tensors
       against their definitions; <dir>/tp-<r>.json.
+  python -m mofo_tpu_torch.tools.mesh_ranks zoo <dir>
+  python -m mofo_tpu_torch.tools.mesh_ranks adahessian <dir>
+      one rank of phase mesh_zoo (`zoo_runs`) or mesh_adahessian
+      (`adahessian_runs`), each run held against <dir>/reference.pt (the
+      single process's final parameters and probes at G'): the largest
+      difference of the gathered parameters, their change's distance
+      relative to one process's change, the probes' largest difference
+      relative to each tensor's largest magnitude; into <dir>/rank-<r>.pt
+      with the run's launches, step ms, peak memory and collectives.
 
 `mesh_runs(None)` is the single process at G' that chip_smoke.py holds the
 ranks against, on the same card: the ViT-B MOFO pretrain step at full
@@ -27,12 +36,21 @@ coordinate, motion-weighted loss, masks drawn in the step) for 2 steps in
 f32 and 3 in bf16, and the ViT-B BB-focused MCA finetune step (f32, 10
 classes, FINETUNE_B a device, RandAugment, crop, flip, erasing, mixup elem
 with cutmix, drop path 0.1) for 2 steps, then one validation pass and the
-multi-view merge. `coord_order` makes the single process's sampler of
-phase mesh_runner: its epoch 0 yields the mesh run's global batches.
+multi-view merge. `zoo_runs(None)` is phase mesh_zoo's single process:
+the same ViT-B pretrain in bf16 for ZOO_STEPS steps of each of
+ZOO_PRETRAIN_OPTS, then the BB-MCA finetune step in f32 for ZOO_STEPS steps
+of ZOO_FINETUNE_OPT; `adahessian_runs(None)` phase mesh_adahessian's:
+ViT-B widths at AH_DEPTH Blocks, f32, on the plain attention route, AH_B a
+device, AH_STEPS adahessian steps at eps AH_EPS with z drawn in the step.
+`counted_collectives` counts parallel.tensor_parallel's collectives (calls
+and bytes, the optimizer's update apart). `coord_order` makes the single
+process's sampler of phase mesh_runner: its epoch 0 yields the mesh run's
+global batches.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -68,6 +86,19 @@ STEPS = {"pretrain_float32": 2, "pretrain_bfloat16": 3,
 NUM_CLASSES = 10
 LARGE = "pretrain_videomae_large_patch16_224"
 MEMORY_STEPS = 2
+# phase mesh_zoo: the entries that read a tensor's layout, after AdamW (no
+# such stage), run alike as their yardstick
+ZOO_STEPS = 2
+ZOO_PRETRAIN_OPTS = ("adamw", "adafactor", "adamp", "sgdp")
+ZOO_FINETUNE_OPT = "adamp"
+# phase mesh_adahessian: ViT-B widths, its (encoder, decoder) Blocks (the
+# full depth), clips a device, steps, and eps 1e-3 (at 1e-8 an update
+# divides by probe elements smaller than their rounding across reduction
+# orders)
+AH_DEPTH = (12, 4)
+AH_B = 2
+AH_STEPS = 2
+AH_EPS = 1e-3
 
 
 def _coord(batch: dict, mesh) -> dict:
@@ -116,6 +147,172 @@ def mesh_runs(mesh) -> dict:
         augment=True, eval_batch=views, mesh=mesh)
     out["finetune_float32"]["launches"] = dict(fa.launch_counts)
     return out
+
+
+@contextlib.contextmanager
+def counted_collectives():
+    """Inside, every all_reduce and all_gather of parallel.tensor_parallel
+    over an axis of two or more ranks is counted; yields {"step": [calls,
+    bytes], "optimizer": [calls, bytes]}, the optimizer's update's apart
+    (the bytes each rank sends in: a reduce-scatter is an all-reduce)."""
+    counts = {"step": [0, 0], "optimizer": [0, 0]}
+    where = ["step"]
+
+    def counted(fn):
+        def wrapped(t, axis, *args):
+            if axis is not None and axis.size > 1:
+                counts[where[0]][0] += 1
+                counts[where[0]][1] += t.numel() * t.element_size()
+            return fn(t, axis, *args)
+        return wrapped
+
+    real_update = optim.Optimizer.update
+
+    def update(self, *args, **kwargs):
+        where[0] = "optimizer"
+        try:
+            return real_update(self, *args, **kwargs)
+        finally:
+            where[0] = "step"
+
+    with mock.patch.object(tp, "all_reduce", counted(tp.all_reduce)), \
+            mock.patch.object(tp, "all_gather", counted(tp.all_gather)), \
+            mock.patch.object(optim.Optimizer, "update", update):
+        yield counts
+
+
+@contextlib.contextmanager
+def recorded_probes():
+    """Inside, each optimizer update that gets a probe keeps a copy of this
+    rank's shards of it; on leaving, the yielded list gets each probe
+    whole (name -> z * Hz, f32 on the CPU), gathered only then, so that no
+    collective of the recording falls inside the run."""
+    kept, seen, real = [], [], optim.Optimizer.update
+
+    def update(self, grads, state, params, hessian_diag=None):
+        if hessian_diag is not None:
+            kept.append((self.sharding, {n: t.detach().clone()
+                                         for n, t in hessian_diag.items()}))
+        return real(self, grads, state, params, hessian_diag)
+
+    with mock.patch.object(optim.Optimizer, "update", update):
+        yield seen
+    for sh, probe in kept:
+        seen.append({n: (t if sh is None else sh.full(n, t)).float().cpu()
+                     for n, t in probe.items()})
+
+
+def _timed_run(run_fn) -> dict:
+    """run_fn() (main_path's results) with its kernel launches,
+    collectives and peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    with counted_collectives() as coll:
+        res = run_fn()
+    res.update(launches=dict(fa.launch_counts), collectives=coll,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    return res
+
+
+def zoo_runs(mesh) -> dict:
+    """The runs of phase mesh_zoo on this rank's batch coordinate of
+    `mesh`, or with mesh None on all of G' in one process. Returns {run:
+    main_path's results, with `init` (the weights before the steps, whole),
+    launches, collectives and peak memory}."""
+    out = {}
+    G = PRETRAIN_B * WORLD
+    for opt in ZOO_PRETRAIN_OPTS:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        batch = _coord(mp.synthetic_batch(G, gen, "cuda"), mesh)
+        model = create_model(mp.MODEL, device="cuda", seed=1,
+                             dtype=torch.bfloat16)
+        init = mp._final(model)
+        out[f"pretrain_{opt}"] = dict(_timed_run(lambda: mp.pretrain_steps(
+            model, _pretrain_cfg(len(batch["clip"]), "bfloat16"), batch,
+            ZOO_STEPS, mesh=mesh, opt=opt)), init=init)
+        del model, batch
+        torch.cuda.empty_cache()
+    G = FINETUNE_B * WORLD
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    batch = _coord(mp.synthetic_clips_u8(G, gen, "cuda", NUM_CLASSES), mesh)
+    cfg = FinetuneConfig(model=mp.FINETUNE_MODEL, dtype="float32",
+                         mixup_mode="elem", nb_classes=NUM_CLASSES,
+                         batch_size=len(batch["clip"]))
+    model = mp.finetune_model(cfg)
+    init = mp._final(model)
+    out[f"finetune_{ZOO_FINETUNE_OPT}"] = dict(_timed_run(
+        lambda: mp.finetune_steps(model, cfg, batch, ZOO_STEPS,
+                                  augment=True, mesh=mesh,
+                                  opt=ZOO_FINETUNE_OPT)), init=init)
+    return out
+
+
+def adahessian_runs(mesh) -> dict:
+    """The run of phase mesh_adahessian on this rank's batch coordinate
+    (all of G' with mesh None), as zoo_runs returns it, with the probes
+    the optimizer got, whole."""
+    G = AH_B * WORLD
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = _coord(mp.synthetic_batch(G, gen, "cuda"), mesh)
+    model = create_model(mp.MODEL, device="cuda", seed=1, attn_impl="xla",
+                         encoder_depth=AH_DEPTH[0], decoder_depth=AH_DEPTH[1])
+    init = mp._final(model)
+    with recorded_probes() as probes:
+        res = _timed_run(lambda: mp.pretrain_steps(
+            model, _pretrain_cfg(len(batch["clip"]), "float32"), batch,
+            AH_STEPS, mesh=mesh, opt="adahessian", eps=AH_EPS))
+    return {"pretrain_adahessian": dict(res, init=init, probes=probes)}
+
+
+def reference_of(runs: dict) -> dict:
+    """What the ranks are held against: each run's final parameters and
+    probes (popped from `runs`)."""
+    return {run: {"params": res.pop("params"),
+                  "probes": res.pop("probes", None)}
+            for run, res in runs.items()}
+
+
+def _against(runs: dict, reference: dict) -> None:
+    """In place, each run's parameters, initial weights and probes replaced
+    by their distance to the reference's (see the module docstring)."""
+    for run, want in reference.items():
+        got, init = runs[run].pop("params"), runs[run].pop("init")
+        num = den = 0.0
+        err = 0.0
+        for n, v in want["params"].items():
+            d = (got[n] - v).double()
+            err = max(err, d.abs().max().item())
+            num += d.square().sum().item()
+            den += (v.double() - init[n].double()).square().sum().item()
+        runs[run].update(params_max_abs_err=err,
+                         change_rel=(num / max(den, 1e-300)) ** 0.5)
+        if want["probes"] is not None:
+            probes = runs[run].pop("probes")
+            if len(probes) != len(want["probes"]):
+                raise ValueError(f"{run}: {len(probes)} probes, one process "
+                                 f"{len(want['probes'])}")
+            runs[run]["probe_rel_err"] = max(
+                (g[n] - v).abs().max().item() / max(v.abs().max().item(),
+                                                    1e-30)
+                for g, w in zip(probes, want["probes"])
+                for n, v in w.items())
+
+
+def _compared(out_dir: str, runs_fn) -> None:
+    _join(out_dir)
+    rank = distributed.process_index()
+    try:
+        mesh = mesh_lib.build_mesh(mesh_lib.MeshConfig(*SHAPE))
+        t0 = time.perf_counter()
+        out = runs_fn(mesh)
+        seconds = time.perf_counter() - t0
+    finally:
+        distributed.destroy()
+    _against(out, torch.load(os.path.join(out_dir, "reference.pt"),
+                             mmap=True))
+    out.update(seconds=seconds, coord=mesh.coord)
+    torch.save(out, os.path.join(out_dir, f"rank-{rank}.pt"))
 
 
 def contiguous_qkv_step(mesh) -> float:
@@ -327,5 +524,10 @@ if __name__ == "__main__":
         _cli(sys.argv[2], sys.argv[3], sys.argv[4:])
     elif mode == "tp":
         _tp(sys.argv[2])
+    elif mode == "zoo":
+        _compared(sys.argv[2], zoo_runs)
+    elif mode == "adahessian":
+        _compared(sys.argv[2], adahessian_runs)
     else:
-        raise SystemExit(f"unknown mode {mode!r}: step, memory, cli or tp")
+        raise SystemExit(f"unknown mode {mode!r}: step, memory, cli, tp, "
+                         "zoo or adahessian")

@@ -38,7 +38,11 @@ the names carry no `module.` prefix. A model sharded on a mesh
 moments and its EMA to the full tensor in the reference's names and row
 order (Sharding.full, a collective) and rank 0 writes them; a load reads
 the full tensors on every rank and keeps each rank's shard, so a file
-written on one mesh resumes on any other, or in one process.
+written on one mesh resumes on any other, or in one process. Each state
+tensor is gathered and cut by its own layout (the optimizer's
+OptState.layouts), not by its shape: Adafactor's row and column moments
+are cut along the parameter's axes that survive in them, Novograd's
+per-tensor moment is whole on every rank.
 """
 
 from __future__ import annotations
@@ -271,15 +275,16 @@ def _payload(model: torch.nn.Module, state, epoch: int, args,
              sharding=None) -> dict:
     opt = state.opt_state
     names = list(state.params)
+    layouts = _state_layouts(opt, sharding)
 
-    def cpu(n, t):
+    def cpu(n, t, lay=None):
         if sharding is not None:
-            t = sharding.full_like_param(n, t, state.params[n])
+            t = sharding.full(n, t, lay)
         return t.detach().cpu()
 
     per_param = {}
     for i, n in enumerate(names):
-        entry = {opt.keys[f]: cpu(n, buf[n])
+        entry = {opt.keys[f]: cpu(n, buf[n], layouts[f][n])
                  for f, buf in opt.buffers.items() if n in buf}
         if opt.slow is not None and n in opt.slow:
             entry["slow_buffer"] = cpu(n, opt.slow[n])
@@ -307,6 +312,19 @@ def _payload(model: torch.nn.Module, state, epoch: int, args,
     return payload
 
 
+def _state_layouts(opt, sharding) -> Dict[str, Dict]:
+    """field -> name -> the Layout of each optimizer state tensor (None: as
+    its parameter) for a sharded model, whose optimizer must have been
+    made with its sharding."""
+    if sharding is None:
+        return {f: dict.fromkeys(buf) for f, buf in opt.buffers.items()}
+    if opt.layouts is None:
+        raise ValueError("the optimizer of a model sharded on a mesh must "
+                         "be made with its sharding (create_optimizer's "
+                         "sharding=)")
+    return opt.layouts
+
+
 def _write(path: str, payload: dict) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -327,33 +345,32 @@ def load_checkpoint(path: str, model: torch.nn.Module, state) -> int:
     if names != list(state.params):
         raise ValueError(f"{path} holds other parameters than the model")
     sharding = model.__dict__.get("_sharding")
+    ours = state.opt_state
+    layouts = _state_layouts(ours, sharding)
     if sharding is None:
         model.load_state_dict(ckpt["model"])
-        local = lambda n, t, full: full  # noqa: E731
+        local = lambda n, full, lay=None: full  # noqa: E731
     else:
         sharding.load_full_state_dict(model, ckpt["model"])
-
-        def local(n, t, full):
-            return full if t.shape == full.shape else sharding.shard(n, full)
+        local = sharding.shard
     saved = {names[i]: s for i, s in opt["state"].items()}
-    ours = state.opt_state
-    targets = {}  # name -> checkpoint key -> the state's tensor
+    targets = {}  # name -> checkpoint key -> (the state's tensor, layout)
     for f, buf in ours.buffers.items():
         for n, t in buf.items():
-            targets.setdefault(n, {})[ours.keys[f]] = t
+            targets.setdefault(n, {})[ours.keys[f]] = (t, layouts[f][n])
     for n, t in (ours.slow or {}).items():
-        targets.setdefault(n, {})["slow_buffer"] = t
+        targets.setdefault(n, {})["slow_buffer"] = (t, None)
     if {n: sorted(k) for n, k in targets.items()} != {
             n: sorted(set(s) - {"step"}) for n, s in saved.items()}:
         raise ValueError(f"{path} holds the moments of other parameters "
                          "or of another optimizer")
     with torch.no_grad():
         for n, keys in targets.items():
-            for key, t in keys.items():
-                t.copy_(local(n, t, saved[n][key]))
+            for key, (t, lay) in keys.items():
+                t.copy_(local(n, saved[n][key], lay))
         if state.ema_params is not None and "model_ema" in ckpt:
             for n, v in ckpt["model_ema"].items():
-                state.ema_params[n].copy_(local(n, state.ema_params[n], v))
+                state.ema_params[n].copy_(local(n, v))
     ours.count = (int(next(iter(saved.values()))["step"]) if saved
                   else 0)
     if state.loss_scale is not None and "scaler" in ckpt:

@@ -37,7 +37,8 @@ coordinate W-1-b of the same model coordinate), the loss metric and the
 eval sums run over the batch axis; the gradients are reduced after the
 backward (Sharding.reduce_grads) and their norm is taken whole, so an inf
 in any rank's shard reaches every rank's norm and every rank skips the
-fp16 step together.
+fp16 step together. A second-order step there draws z and reduces the
+gradients and the probes as train/pretrain_step.py does.
 """
 
 from __future__ import annotations
@@ -136,10 +137,6 @@ def make_finetune_step(
     k = cfg.update_freq
     sharding, group = sharding_of(model), None
     if sharding is not None:
-        if second_order and sharding.mesh.sharded:
-            raise NotImplementedError(
-                "a second-order step (adahessian) on a mesh with an fsdp or "
-                "model axis is not ported (ROADMAP Queue 1 item 23)")
         group = sharding.mesh.batch
         rank, world = group.index, group.size
     else:
@@ -184,8 +181,8 @@ def make_finetune_step(
                     logits = net(clip, generator)
                 loss = criterion(logits, target)
             if second_order:
-                z = (rademacher(state.params, generator) if probe_z is None
-                     else probe_z[i])
+                z = (rademacher(state.params, generator, sharding)
+                     if probe_z is None else probe_z[i])
                 g, hd = grads_and_probe(loss * scale, state.params, z)
                 part = [g[n] for n in names] + [hd[n] for n in names]
                 acc = part if acc is None else torch._foreach_add(acc, part)
@@ -196,9 +193,9 @@ def make_finetune_step(
             loss_sum = ddp.all_reduce_sum(loss_sum, group) / world
         hess = None
         if second_order:
-            acc = second_order_reduce(acc, world)
-            grads = dict(zip(names, acc[:len(names)]))
-            hess = dict(zip(names, acc[len(names):]))
+            grads, hess = second_order_reduce(
+                dict(zip(names, acc[:len(names)])),
+                dict(zip(names, acc[len(names):])), world, sharding)
         else:
             grads = {n: p.grad for n, p in state.params.items()}
             if sharding is not None:

@@ -48,10 +48,26 @@ them as it is. What reads a whole tensor takes it over its shards: the
 clip's global norm and the per-tensor norms of TrustRatio (lamb, lars) and
 Novograd (Sharding.norms: each shard's squares summed over the axes its
 parameter is cut on, a replicated one counted once). The stages that read
-a tensor's layout or its rows, FactoredRMS (adafactor, on jax_layout's
-axes), the AdamP / SGDP projection (its channel view) and AdaHessian (its
-Hutchinson probe through the sharded backward), raise NotImplementedError
-on such a mesh (ROADMAP Queue 1 item 23).
+a tensor's layout or its rows take mofo_tpu's layout of the whole
+parameter (mofo_tpu/train/optim.py:238-384, :573, where GSPMD shards the
+state and inserts the reductions; here Sharding.sum_over does, one
+all-reduce a mesh axis for all parameters):
+  FactoredRMS   factored_dims on the full shape (a shard may fall under
+                min_dim or swap equal sides); the row and column means are
+                local sums, summed over the axis that cuts the reduced
+                axis and divided by its full length, as is the mean of
+                v_row; v_row and v_col stay cut where the parameter is
+                (Sharding.reduced_layout, the checkpoints' layout of them)
+  AdamP, SGDP   adamp_project_sharded: each channel row's dot product and
+                squared norms summed over the axes that cut the other jax
+                axes, the layer view's over every cutting axis; the channel
+                view's max decided by a sum of the rows at or above the
+                threshold over the axis that cuts the rows (exact, and the
+                same on every rank); dim_ch and dim_ly from the full shape
+  AdaHessian    elementwise; its probe (hutchinson_diag) is drawn whole
+                and sharded (rademacher), and differentiated through the
+                mesh's twice-differentiable collectives
+                (parallel/tensor_parallel.py)
 """
 
 from __future__ import annotations
@@ -62,6 +78,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mofo_tpu_torch.parallel.mesh import Layout
 from mofo_tpu_torch.train.checkpoint import jax_layout, torch_layout
 
 Params = Dict[str, torch.Tensor]
@@ -156,17 +173,24 @@ class Stage:
 
     fields: Tuple[str, ...] = ()
     keys: Dict[str, str] = {}
-    # False where the stage reads a tensor's layout or rows: it raises on a
-    # mesh that shards parameters
-    shardable = True
+    # parallel.mesh.Sharding on a mesh that cuts parameters (the optimizer
+    # sets it), None otherwise
+    sharding = None
 
-    @staticmethod
-    def norms(names: Sequence[str], ts: Tensors) -> Tensors:
-        """Each tensor's whole f32 norm; the optimizer sets a mesh's."""
-        return torch._foreach_norm(ts)
+    def norms(self, names: Sequence[str], ts: Tensors) -> Tensors:
+        """Each tensor's whole f32 norm."""
+        if self.sharding is None:
+            return torch._foreach_norm(ts)
+        return self.sharding.norms(names, ts)
 
     def init(self, name: str, p: torch.Tensor) -> Dict[str, torch.Tensor]:
         return {f: torch.zeros_like(p) for f in self.fields}
+
+    def layouts(self, name: str, p: torch.Tensor,
+                lay: Layout) -> Dict[str, Layout]:
+        """field -> where a mesh cuts its tensor of parameter `name`, whose
+        own layout is `lay` (the checkpoints gather and shard by it)."""
+        return dict.fromkeys(self.fields, lay)
 
     def update(self, u: Tensors, state: Dict[str, Tensors], p: Tensors,
                names: List[str], count: int,
@@ -261,16 +285,24 @@ class FactoredRMS(Stage):
     otherwise. The unused fields hold one 0, as optax's do."""
 
     fields = ("v_row", "v_col", "v")
-    shardable = False
 
     def __init__(self, decay_rate: float = 0.8, min_dim: int = 128,
                  eps: float = 1e-30):
         self.decay_rate, self.min_dim, self.eps = decay_rate, min_dim, eps
 
+    def _dims(self, name: str,
+              p: torch.Tensor) -> Optional[Tuple[int, int]]:
+        """factored_dims of the whole parameter in mofo_tpu's layout (on a
+        mesh not of this rank's shard, which may fall under min_dim or
+        swap two equal sides)."""
+        shape = (tuple(jax_layout(name, p).shape) if self.sharding is None
+                 else self.sharding.full_jax_shape(name, p.shape))
+        return factored_dims(shape, self.min_dim)
+
     def init(self, name, p):
         shape = tuple(jax_layout(name, p).shape)
         one = torch.zeros(1, dtype=p.dtype, device=p.device)
-        dims = factored_dims(shape, self.min_dim)
+        dims = self._dims(name, p)
         if dims is None:
             return {"v_row": one, "v_col": one.clone(),
                     "v": torch.zeros_like(p)}
@@ -279,29 +311,71 @@ class FactoredRMS(Stage):
                 "v_col": p.new_zeros(np.delete(shape, d1).tolist()),
                 "v": one}
 
+    def layouts(self, name, p, lay):
+        dims = self._dims(name, p)
+        if self.sharding is None or dims is None:
+            return {"v_row": Layout(), "v_col": Layout(), "v": lay}
+        d1, d0 = dims
+        return {"v_row": self.sharding.reduced_layout(name, d0),
+                "v_col": self.sharding.reduced_layout(name, d1),
+                "v": Layout()}
+
+    def _means(self, items) -> Tensors:
+        """x.mean(dim, keepdim) for each (x, dim, keepdim, name, jax_axis):
+        whole over the shards where the mesh cuts jax axis `jax_axis` of
+        parameter `name` (x's dim), a local sum summed over that mesh axis
+        and divided by the full length; the local mean otherwise."""
+        out, cut = [], []
+        for x, dim, keepdim, name, axis in items:
+            key = (None if self.sharding is None
+                   else self.sharding.jax_cuts(name).get(axis))
+            if key is None:
+                out.append(x.mean(dim=dim, keepdim=keepdim))
+                continue
+            n = x.shape[dim] * getattr(self.sharding.mesh, key).size
+            cut.append((len(out), n))
+            out.append((x.sum(dim=dim, keepdim=keepdim), (key,)))
+        if cut:
+            sums = self.sharding.sum_over([out[i] for i, _ in cut])
+            for (i, n), total in zip(cut, sums):
+                out[i] = total / n
+        return out
+
     def update(self, u, state, p, names, count, hessian_diag):
         t = np.float32(count + 1)
         decay = np.float32(1) - t ** np.float32(-self.decay_rate)
         keep, fresh = float(decay), float(np.float32(1) - decay)
-        out = []
+        out: List[Optional[torch.Tensor]] = [None] * len(u)
+        factored = []  # (i, name, (d1, d0), g in mofo_tpu's layout, g^2 + eps)
         for i, (g, name) in enumerate(zip(u, names)):
-            gj = jax_layout(name, g)
-            dims = factored_dims(tuple(gj.shape), self.min_dim)
+            dims = self._dims(name, g)
             if dims is None:  # elementwise: the port's layout will do
                 v = state["v"][i]
                 v.mul_(keep).add_(fresh * (g * g + self.eps))
-                out.append(g * v ** -0.5)
+                out[i] = g * v ** -0.5
                 continue
-            d1, d0 = dims
-            sq = gj * gj + self.eps
-            row, col = state["v_row"][i], state["v_col"][i]
-            row.mul_(keep).add_(fresh * sq.mean(dim=d0))
-            col.mul_(keep).add_(fresh * sq.mean(dim=d1))
-            reduced_d1 = d1 - 1 if d1 > d0 else d1
-            row_factor = (row / row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+            gj = jax_layout(name, g)
+            factored.append((i, name, dims, gj, gj * gj + self.eps))
+        n = len(factored)
+        rows = [state["v_row"][i] for i, *_ in factored]
+        cols = [state["v_col"][i] for i, *_ in factored]
+        means = self._means(
+            [(sq, d0, False, name, d0) for _, name, (_, d0), _, sq in factored]
+            + [(sq, d1, False, name, d1)
+               for _, name, (d1, _), _, sq in factored])
+        for row, col, m_row, m_col in zip(rows, cols, means[:n], means[n:]):
+            row.mul_(keep).add_(fresh * m_row)
+            col.mul_(keep).add_(fresh * m_col)
+        # v_row's own mean over its axis d1 (one lower once d0 is gone)
+        row_means = self._means(
+            [(row, d1 - 1 if d1 > d0 else d1, True, name, d1)
+             for row, (_, name, (d1, d0), _, _) in zip(rows, factored)])
+        for row, col, rm, (i, name, (d1, d0), gj, _) in zip(
+                rows, cols, row_means, factored):
+            row_factor = (row / rm) ** -0.5
             col_factor = col ** -0.5
             uj = gj * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
-            out.append(torch_layout(name, uj, g.shape).contiguous())
+            out[i] = torch_layout(name, uj, u[i].shape).contiguous()
         return out
 
 
@@ -407,6 +481,9 @@ class Novograd(Stage):
     def init(self, name, p):
         return {"mu": torch.zeros_like(p),
                 "nu": torch.zeros((), dtype=p.dtype, device=p.device)}
+
+    def layouts(self, name, p, lay):
+        return {"mu": lay, "nu": Layout()}
 
     def update(self, u, state, p, names, count, hessian_diag):
         mu, nu = state["mu"], state["nu"]
@@ -561,11 +638,69 @@ def adamp_project(name: str, p: torch.Tensor, grad: torch.Tensor,
     return torch_layout(name, out, p.shape), ratio
 
 
+def adamp_project_sharded(sharding, names: Sequence[str], ps: Tensors,
+                          grads: Tensors, perturbs: Tensors, delta: float,
+                          wd_ratio: float, eps: float) -> list:
+    """adamp_project of parameters that a mesh cuts (parallel/mesh.py's
+    Sharding), each taken whole over its shards in mofo_tpu's layout
+    (mofo_tpu/train/optim.py:238-279). In the channel view (rows on jax
+    axis 0) each row's <g, p>, |g|^2, |p|^2 and <u, p> are local sums,
+    summed over the mesh axes that cut the other jax axes; the layer view's
+    are their totals, summed again over the axis that cuts the rows. The
+    channel cosines' max is below the threshold exactly when no row reaches
+    it: a count of such rows summed over the axis that cuts the rows decides
+    it, so use_ch and use_ly come out the same on every rank. dim_ch and
+    dim_ly are the full shape's. Two rounds of Sharding.sum_over for all
+    the parameters. Returns (update, ratio, use_ch, use_ly) a parameter."""
+    views, first = [], []
+    for name, p, g, u in zip(names, ps, grads, perturbs):
+        pj = jax_layout(name, p)
+        pm = pj.reshape(pj.shape[0], -1)
+        gm, um = (jax_layout(name, t).reshape(pm.shape) for t in (g, u))
+        views.append((pj.shape, pm, um))
+        cuts = sharding.jax_cuts(name)
+        rows = [(a * b).sum(dim=1) for a, b in ((gm, pm), (gm, gm),
+                                                 (pm, pm), (um, pm))]
+        first.append((torch.stack(rows),
+                      [key for axis, key in cuts.items() if axis != 0]))
+    sums = sharding.sum_over(first)
+    second = []
+    for name, p, (dot, gg, pp, up) in zip(names, ps, sums):
+        full = sharding.full_jax_shape(name, p.shape)
+        cos = dot.abs() / (gg.sqrt() * pp.sqrt() + eps)
+        thr = float(np.float32(delta / np.sqrt(np.prod(full[1:]))))
+        reach = (~(cos < thr)).sum(dtype=torch.float32)  # a NaN reaches it
+        rows_cut = sharding.jax_cuts(name).get(0)
+        second.append((torch.stack([reach, dot.sum(), gg.sum(), pp.sum(),
+                                    up.sum()]),
+                       [rows_cut] if rows_cut else []))
+    layers = sharding.sum_over(second)
+    out = []
+    for name, p, (shape, pm, um), (_, _, pp, up), layer in zip(
+            names, ps, views, sums, layers):
+        reach, dot_l, gg_l, pp_l, up_l = layer
+        dim_ly = np.prod(sharding.full_jax_shape(name, p.shape))
+        use_ch = reach == 0
+        cos_ly = dot_l.abs() / (gg_l.sqrt() * pp_l.sqrt() + eps)
+        use_ly = ~use_ch & (cos_ly < float(np.float32(delta
+                                                      / np.sqrt(dim_ly))))
+        # u - p^ <p^, u>, p^ = p / (|p| + eps), per row and for the layer
+        n_row = (pp.sqrt() + eps)[:, None]
+        by_row = um - (pm / n_row) * (up[:, None] / n_row)
+        n_ly = pp_l.sqrt() + eps
+        by_layer = um - (pm / n_ly) * (up_l / n_ly)
+        o = torch.where(use_ch, by_row,
+                        torch.where(use_ly, by_layer, um)).reshape(shape)
+        one = torch.ones((), dtype=p.dtype, device=p.device)
+        ratio = torch.where(use_ch | use_ly, one * wd_ratio, one)
+        out.append((torch_layout(name, o, p.shape), ratio, use_ch, use_ly))
+    return out
+
+
 class _Projected(Stage):
     """The shared tail of AdamP and SGDP: the projection and the decay
-    wd(t) * ratio * p folded in on the decayed parameters."""
-
-    shardable = False
+    wd(t) * ratio * p folded in on the decayed parameters. On a mesh the
+    parameters it cuts project through adamp_project_sharded."""
 
     def __init__(self, wd_at: Callable[[int], float], mask: Dict[str, bool],
                  delta: float = 0.1, wd_ratio: float = 0.1,
@@ -575,10 +710,20 @@ class _Projected(Stage):
 
     def project(self, g, p, perturb, names, count):
         wd = np.float32(self.wd_at(count))
+        cut = [i for i, (n, pi) in enumerate(zip(names, p))
+               if self.sharding is not None and pi.ndim >= 2
+               and not self.sharding.layouts[n].replicated]
+        whole = dict(zip(cut, adamp_project_sharded(
+            self.sharding, [names[i] for i in cut], [p[i] for i in cut],
+            [g[i] for i in cut], [perturb[i] for i in cut], self.delta,
+            self.wd_ratio, self.eps))) if cut else {}
         out = []
-        for gi, pi, di, name in zip(g, p, perturb, names):
-            ui, ratio = adamp_project(name, pi, gi, di, self.delta,
-                                      self.wd_ratio, self.eps)
+        for i, (gi, pi, di, name) in enumerate(zip(g, p, perturb, names)):
+            if i in whole:
+                ui, ratio = whole[i][:2]
+            else:
+                ui, ratio = adamp_project(name, pi, gi, di, self.delta,
+                                          self.wd_ratio, self.eps)
             if self.mask[name]:
                 ui = ui + (float(wd) * ratio) * pi
             out.append(ui)
@@ -632,7 +777,6 @@ class AdaHessian(Stage):
 
     fields, keys = ("mu", "nu"), {"mu": "exp_avg",
                                   "nu": "exp_hessian_diag_sq"}
-    shardable = False
 
     def __init__(self, b1: float, b2: float, eps: float):
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -664,12 +808,16 @@ class OptState:
     """count: updates applied so far (indexes the schedules); buffers:
     field -> name -> tensor, the moment stages' state (mu and nu for the
     Adam family, read as state.mu / state.nu); keys: field -> checkpoint
-    key; slow: the lookahead's slow weights, None without lookahead."""
+    key; slow: the lookahead's slow weights, None without lookahead;
+    layouts: field -> name -> where the mesh cuts the tensor (parallel/
+    mesh.py's Layout), for an optimizer made with a sharding (None
+    otherwise)."""
 
     count: int
     buffers: Dict[str, Params]
     keys: Dict[str, str]
     slow: Optional[Params] = None
+    layouts: Optional[Dict[str, Dict[str, Layout]]] = None
 
     def __getattr__(self, field: str) -> Params:
         buffers = self.__dict__.get("buffers")
@@ -693,15 +841,8 @@ class Optimizer:
                  lookahead: Optional[Tuple[int, float]] = None,
                  sharding=None):
         if sharding is not None and sharding.mesh.sharded:
-            refused = [type(st).__name__ for st in stages
-                       if not st.shardable]
-            if refused:
-                raise NotImplementedError(
-                    f"{', '.join(refused)} on a mesh with an fsdp or model "
-                    "axis: the stage reads a tensor's layout or rows, which "
-                    "the mesh cuts (ROADMAP Queue 1 item 23)")
             for stage in stages:
-                stage.norms = sharding.norms
+                stage.sharding = sharding
         self.sharding = sharding
         self.stages = stages
         self.lr_schedule = np.asarray(lr_schedule, np.float32)
@@ -716,6 +857,7 @@ class Optimizer:
     def init(self, params: Params) -> OptState:
         buffers: Dict[str, Params] = {}
         keys: Dict[str, str] = {}
+        layouts = None if self.sharding is None else {}
         for stage in self.stages:
             for f in stage.fields:
                 buffers[f] = {}
@@ -723,10 +865,15 @@ class Optimizer:
             for n in self.moment_names:
                 for f, t in stage.init(n, params[n]).items():
                     buffers[f][n] = t
+                if layouts is not None:
+                    for f, lay in stage.layouts(
+                            n, params[n], self.sharding.layouts[n]).items():
+                        layouts.setdefault(f, {})[n] = lay
         slow = None
         if self.lookahead is not None:  # real copies, never aliases
             slow = {n: params[n].detach().clone() for n in self.trained}
-        return OptState(count=0, buffers=buffers, keys=keys, slow=slow)
+        return OptState(count=0, buffers=buffers, keys=keys, slow=slow,
+                        layouts=layouts)
 
     @staticmethod
     def _at(schedule: np.ndarray, count: int) -> float:
@@ -798,12 +945,20 @@ def is_second_order(opt: str) -> bool:
     return opt == "adahessian"
 
 
-def rademacher(params: Params,
-               generator: Optional[torch.Generator] = None) -> Params:
-    """A +-1 tensor like each parameter, drawn in order from `generator`."""
-    return {n: torch.randint(0, 2, p.shape, generator=generator,
-                             device=p.device).to(p.dtype) * 2 - 1
-            for n, p in params.items()}
+def rademacher(params: Params, generator: Optional[torch.Generator] = None,
+               sharding=None) -> Params:
+    """A +-1 tensor like each parameter, drawn in order from `generator`.
+    With a sharding (parallel.mesh's) each is drawn on the parameter's full
+    shape and this rank's shard kept: the z one process draws from the
+    same generator state, cut as the parameter is."""
+    out = {}
+    for n, p in params.items():
+        shape = p.shape if sharding is None else sharding.full_shape(
+            n, p.shape)
+        z = torch.randint(0, 2, shape, generator=generator,
+                          device=p.device).to(p.dtype) * 2 - 1
+        out[n] = z if sharding is None else sharding.shard(n, z).contiguous()
+    return out
 
 
 def hutchinson_diag(grad_fn: Callable[[Params], Params], params: Params,
@@ -815,7 +970,18 @@ def hutchinson_diag(grad_fn: Callable[[Params], Params], params: Params,
     (torch.autograd.grad(..., create_graph=True)); H z is the gradient of
     sum <g, z> in f32. z is drawn from `generator` unless given (the tests
     inject mofo_tpu's draws). A parameter with no second-order path gets
-    a zero estimate."""
+    a zero estimate.
+
+    On a mesh (params and z this rank's shards) each rank differentiates
+    the sum of its own terms, and that is the one-process probe: the model
+    ranks' terms of a model-sharded parameter add up to its <g, z>, and
+    that sum (a reduce_from) has the identity for its backward, so each
+    rank's own terms give the same Hz without a collective; a parameter
+    replicated over model has its gradient whole on every model rank, one
+    value held M times, so its term enters once on each; the fsdp ranks
+    hold different rows, and the gathers' twice-differentiable backward
+    (parallel/tensor_parallel.py) sums their terms as it sums their
+    gradients."""
     if z is None:
         z = rademacher(params, generator)
     names = list(params)

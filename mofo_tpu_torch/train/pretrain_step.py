@@ -26,8 +26,7 @@ batch axis); the model's forward and backward run the model and fsdp
 axes' collectives; after the backward the gradients are reduced over the
 batch axis (Sharding.reduce_grads), the motion weight sum and the loss
 metric likewise, and the gradient norm and the optimizer's norms are taken
-whole over each parameter's shards. A second-order step on a sharded mesh
-raises NotImplementedError (ROADMAP Queue 1 item 23).
+whole over each parameter's shards.
 
 second_order (adahessian, mofo_tpu/train/pretrain_step.py:137-214) also
 takes the Hutchinson probe z * Hz of the same stochastic loss (the same
@@ -41,7 +40,13 @@ A data-parallel second-order step differentiates the unwrapped module
 (DistributedDataParallel supports no double backward, and
 torch.autograd.grad bypasses its reducer) and averages the gradients and
 the probes over the ranks itself (second_order_reduce); z is alike on every
-rank because the generator is.
+rank because the generator is. A second-order step on a mesh differentiates
+through the mesh's twice-differentiable collectives (parallel/
+tensor_parallel.py); each rank draws z on the full shapes and keeps its
+shards (optim.rademacher), and the gradients and the probes are reduced as
+the first-order gradients are (Sharding.reduce_grads: the fsdp-sharded ones
+over data, the others over the batch axis), never over the whole world,
+whose model ranks hold different shards.
 """
 
 from __future__ import annotations
@@ -149,14 +154,25 @@ def grads_and_probe(loss: torch.Tensor, params: Dict[str, torch.Tensor],
     return {n: t.detach() for n, t in g.items()}, hd
 
 
-def second_order_reduce(tensors: list, world: int) -> list:
-    """The mean over the ranks of each tensor (one flat all-reduce)."""
+def second_order_reduce(grads: Dict[str, torch.Tensor],
+                        hess: Dict[str, torch.Tensor], world: int,
+                        sharding=None) -> Tuple[Dict, Dict]:
+    """The gradients and the probes (name -> tensor) averaged over the
+    batch: on a mesh (`sharding`) by Sharding.reduce_grads, in place;
+    otherwise the mean over the `world` data-parallel ranks (one flat
+    all-reduce)."""
+    if sharding is not None:
+        sharding.reduce_grads(grads, hess)
+        return grads, hess
     if world == 1:
-        return tensors
+        return grads, hess
+    tensors = list(grads.values()) + list(hess.values())
     flat = torch.cat([t.reshape(-1) for t in tensors])
     flat = ddp.all_reduce_sum(flat) / world
-    return [c.view_as(t) for c, t in
-            zip(flat.split([t.numel() for t in tensors]), tensors)]
+    parts = [c.view_as(t) for c, t in
+             zip(flat.split([t.numel() for t in tensors]), tensors)]
+    return (dict(zip(grads, parts[:len(grads)])),
+            dict(zip(hess, parts[len(grads):])))
 
 
 def make_pretrain_step(
@@ -198,10 +214,6 @@ def make_pretrain_step(
     k = cfg.update_freq
     sharding, group = sharding_of(model), None
     if sharding is not None:
-        if second_order and sharding.mesh.sharded:
-            raise NotImplementedError(
-                "a second-order step (adahessian) on a mesh with an fsdp or "
-                "model axis is not ported (ROADMAP Queue 1 item 23)")
         group = sharding.mesh.batch
         rank, world = group.index, group.size
     else:
@@ -236,8 +248,8 @@ def make_pretrain_step(
                 loss = loss_for_batch(net, micro, m, cfg, loss_weight,
                                       generator, world, group)
             if second_order:
-                z = (rademacher(state.params, generator) if probe_z is None
-                     else probe_z[i])
+                z = (rademacher(state.params, generator, sharding)
+                     if probe_z is None else probe_z[i])
                 g, hd = grads_and_probe(loss, state.params, z)
                 part = [g[n] for n in names] + [hd[n] for n in names]
                 acc = part if acc is None else torch._foreach_add(acc, part)
@@ -247,9 +259,9 @@ def make_pretrain_step(
         if world > 1:
             loss_sum = ddp.all_reduce_sum(loss_sum, group) / world
         if second_order:
-            acc = second_order_reduce(acc, world)
-            grads = dict(zip(names, acc[:len(names)]))
-            hess = dict(zip(names, acc[len(names):]))
+            grads, hess = second_order_reduce(
+                dict(zip(names, acc[:len(names)])),
+                dict(zip(names, acc[len(names):])), world, sharding)
         else:
             grads = {n: p.grad for n, p in state.params.items()}
             if sharding is not None:

@@ -1,5 +1,5 @@
-"""Rank processes of tests/test_torch_ddp.py, tests/test_torch_ddp_cli.py
-and tests/test_torch_mesh.py.
+"""Rank processes of tests/test_torch_ddp.py, tests/test_torch_ddp_cli.py,
+tests/test_torch_mesh.py and tests/test_torch_mesh_zoo.py.
 
     python tests/torch_ddp_worker.py <tasks> <dir>     (RANK, WORLD_SIZE set)
 
@@ -21,6 +21,7 @@ import io
 import os
 import subprocess
 import sys
+from unittest import mock
 
 import numpy as np
 import torch
@@ -39,9 +40,12 @@ from mofo_tpu_torch.models import create_model  # noqa: E402
 from mofo_tpu_torch.parallel import ddp  # noqa: E402
 from mofo_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from mofo_tpu_torch.tools import main_path as mp  # noqa: E402
+from mofo_tpu_torch.tools.mesh_ranks import recorded_probes  # noqa: E402
 from mofo_tpu_torch.train import checkpoint as ckpt  # noqa: E402
 from mofo_tpu_torch.train import metrics as M  # noqa: E402
+from mofo_tpu_torch.train import finetune_step  # noqa: E402
 from mofo_tpu_torch.train import optim  # noqa: E402
+from mofo_tpu_torch.train import pretrain_step  # noqa: E402
 from mofo_tpu_torch.train.finetune_step import make_finetune_step  # noqa
 from mofo_tpu_torch.train.loss_scale import DynamicLossScale  # noqa: E402
 from mofo_tpu_torch.train.pretrain_step import make_pretrain_step  # noqa
@@ -86,8 +90,8 @@ def finetune_cfg(B, k):
                           seed=5)
 
 
-def finetune_model():
-    return create_model(BB, device="cpu", seed=4, **BB_GEO)
+def finetune_model(**overrides):
+    return create_model(BB, device="cpu", seed=4, **BB_GEO, **overrides)
 
 
 def _boxes(rng, G, hw):
@@ -309,12 +313,20 @@ MESH_STEPS = 2
 # one update an optimizer: its norms over the shards (the clip, LAMB's and
 # LARS's trust ratios, Novograd's moments) all act on the first
 MESH_OPT_STEPS = 1
-# the optimizers the mesh runs, against one process; the rest must raise
+# the elementwise and norm-reading optimizers the mesh runs here, against
+# one process (the layout-reading ones: tests/test_torch_mesh_zoo.py)
 MESH_OPTS = ("adamw", "adam", "sgd", "nesterov", "momentum", "lamb",
              "rmsprop", "adadelta", "lars", "lion", "nadam", "radam",
              "novograd", "adamax", "adagrad", "adabelief", "yogi",
              "lookahead_adamw")
-MESH_REFUSED = ("adafactor", "adamp", "sgdp", "adahessian")
+# every --opt name of mofo_tpu's zoo (tests/test_optim.py:199-205 and
+# adahessian): create_optimizer builds each on a sharded mesh
+ZOO_NAMES = ("adamw", "adam", "sgd", "nesterov", "momentum", "lamb",
+             "adafactor", "rmsprop", "adadelta", "lars", "lion", "nadam",
+             "radam", "novograd", "adamax", "adagrad", "adabelief", "yogi",
+             "fusedadam", "fusedadamw", "fusedsgd", "fusedlamb",
+             "fusednovograd", "nvnovograd", "fusedmomentum", "adamp", "sgdp",
+             "lookahead_adamw", "lookahead_sgd", "adahessian")
 
 
 # the mesh of the mesh_* task that runs (main sets it from the task name)
@@ -447,9 +459,10 @@ def task_mesh_loss_scale(rank, world, out):
 
 def task_mesh_optim(rank, world, out):
     """MESH_OPT_STEPS tiny pretrain steps (G''s rows, masks drawn) through
-    each zoo entry of MESH_OPTS, with a clip at 0.5; each of MESH_REFUSED
-    must raise NotImplementedError when the optimizer is made."""
-    runs, refused = {}, {}
+    each zoo entry of MESH_OPTS, with a clip at 0.5; then every name of
+    ZOO_NAMES made on the sharded model (its stages' names, or the error
+    it raised)."""
+    runs, built = {}, {}
     for opt in MESH_OPTS:
         mesh = _mesh()
         n = MESH_G // mesh.batch.size
@@ -457,17 +470,271 @@ def task_mesh_optim(rank, world, out):
             pretrain_model(), pretrain_cfg(n, 1),
             _coord_batch(pretrain_batch(MESH_G), mesh), MESH_OPT_STEPS,
             opt=opt, mesh=mesh, clip_grad=0.5)
-    for opt in MESH_REFUSED:
-        model = pretrain_model()
-        sharding = mesh_lib.shard_model(model, _mesh())
+    model = pretrain_model()
+    sharding = mesh_lib.shard_model(model, _mesh())
+    for opt in ZOO_NAMES:
         try:
-            optim.create_optimizer(dict(model.named_parameters()), opt=opt,
-                                   lr_schedule=np.ones(1),
-                                   sharding=sharding)
-            refused[opt] = None
-        except NotImplementedError as e:
-            refused[opt] = str(e)
-    return {"runs": runs, "refused": refused}
+            tx = optim.create_optimizer(dict(model.named_parameters()),
+                                        opt=opt, lr_schedule=np.ones(1),
+                                        sharding=sharding)
+            built[opt] = [type(st).__name__ for st in tx.stages]
+        except Exception as e:  # noqa: BLE001 (the test names it)
+            built[opt] = f"{type(e).__name__}: {e}"
+    return {"runs": runs, "built": built}
+
+
+# --- the layout-reading zoo on the mesh (tests/test_torch_mesh_zoo.py) -------
+
+# the tiny pretrain steps of each entry (7 for lookahead: its k = 6 sync)
+ZOO_PRETRAIN = {"adamp": MESH_STEPS, "sgdp": MESH_STEPS,
+                "lookahead_adamp": 7}
+# the pretrain geometry at BB_GEO's width, where Adafactor factors (both
+# axes of mofo_tpu's layout at least 128)
+WIDE_GEO = dict(PRETRAIN_GEO, encoder_embed_dim=128, decoder_embed_dim=128)
+# the two updates of adamp_updates, the second from gradients orthogonal to
+# the weights in every channel row, where AdamP / SGDP project
+PROJECT_LR = 1e-2
+# the entries whose state the checkpoint tasks carry across meshes
+ZOO_CKPT = ("adafactor", "adahessian")
+
+
+def wide_model(**overrides):
+    return create_model(PRETRAIN, device="cpu", seed=3, **WIDE_GEO,
+                        **overrides)
+
+
+def channel_orthogonal(params: dict, seed: int) -> dict:
+    """Random gradients, made orthogonal to each weight in every row of
+    mofo_tpu's channel view (axis 0 of optim.jax_layout)."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for n, p in params.items():
+        g = torch.randn(p.shape, generator=gen)
+        if p.ndim >= 2:
+            pj = optim.jax_layout(n, p).double()
+            gj = optim.jax_layout(n, g).double()
+            pm, gm = pj.reshape(pj.shape[0], -1), gj.reshape(gj.shape[0], -1)
+            gm = gm - pm * (gm * pm).sum(1, keepdim=True) / (pm * pm).sum(
+                1, keepdim=True)
+            g = optim.torch_layout(n, gm.reshape(pj.shape).float(),
+                                   p.shape).contiguous()
+        out[n] = g
+    return out
+
+
+def adamp_updates(opt: str, mesh=None) -> dict:
+    """Two updates of `opt` (adamp or sgdp) at PROJECT_LR of the BB-MCA
+    model's weights (sharded on `mesh` when given), from random gradients
+    and then from gradients orthogonal to the updated weights; the final
+    weights, whole."""
+    model = finetune_model()
+    sharding = None if mesh is None else mesh_lib.shard_model(model, mesh)
+    cut = (lambda n, t: t) if sharding is None else sharding.shard
+    params = dict(model.named_parameters())
+    tx = optim.create_optimizer(
+        params, opt=opt, lr_schedule=np.full(2, PROJECT_LR, np.float32),
+        weight_decay=0.05, sharding=sharding)
+    state = tx.init(params)
+    full = mp._final(model)
+    gen = torch.Generator().manual_seed(6)
+    for g in ({n: torch.randn(p.shape, generator=gen)
+               for n, p in full.items()}, None):
+        if g is None:
+            g = channel_orthogonal(mp._final(model), 7)
+        tx.update({n: cut(n, t).contiguous() for n, t in g.items()}, state,
+                  params)
+    return mp._final(model)
+
+
+@contextlib.contextmanager
+def recorded_choices():
+    """Inside, each call of optim.adamp_project_sharded appends its
+    parameters' (use_ch, use_ly), name -> pair, to the yielded list."""
+    seen, real = [], optim.adamp_project_sharded
+
+    def record(sharding, names, *args):
+        out = real(sharding, names, *args)
+        seen.append({n: (bool(o[2]), bool(o[3])) for n, o in zip(names,
+                                                                 out)})
+        return out
+
+    with mock.patch.object(optim, "adamp_project_sharded", record):
+        yield seen
+
+
+def zoo_finetune(opt: str, mesh=None, **overrides) -> dict:
+    """MESH_STEPS BB-MCA steps of `opt` (adahessian on the plain attention
+    route at ADAHESSIAN_EPS, its probes recorded) on G''s uint8 rows of
+    this batch coordinate (all of G' without a mesh): RandAugment, crop,
+    flip, erasing, mixup elem + cutmix, drop path 0.1."""
+    second = optim.is_second_order(opt)
+    n = MESH_G // (1 if mesh is None else mesh.batch.size)
+    batch = u8_batch(MESH_G, labels=True)
+    with recorded_probes() as probes:
+        res = mp.finetune_steps(
+            finetune_model(**({"attn_impl": "xla"} if second else {}),
+                           **overrides),
+            finetune_cfg(n, 1),
+            batch if mesh is None else _coord_batch(batch, mesh),
+            MESH_STEPS, augment=True, mesh=mesh, opt=opt,
+            eps=ADAHESSIAN_EPS if second else None)
+    return dict(res, probes=probes)
+
+
+def zoo_pretrain(opt: str, steps: int, mesh=None, masks=None,
+                 model=None) -> dict:
+    """`steps` pretrain steps of `opt` on this batch coordinate's rows of
+    G' (all of G' without a mesh): the tiny model (adahessian on the plain
+    route at ADAHESSIAN_EPS, update_freq MESH_K, its probes recorded) or
+    `model`; G''s `masks` injected when given (update_freq 1)."""
+    second = optim.is_second_order(opt)
+    k = MESH_K if second else 1
+    n = MESH_G // (1 if mesh is None else mesh.batch.size)
+    batch = pretrain_batch(MESH_G)
+    if mesh is not None:
+        batch = _coord_batch(batch, mesh, k)
+        if masks is not None:
+            rows = torch.from_numpy(ddp.global_rows(
+                mesh.batch.index, mesh.batch.size, n))
+            masks = [m[rows] for m in masks]
+    if model is None:
+        model = pretrain_model(**({"attn_impl": "xla"} if second else {}))
+    with recorded_probes() as probes:
+        res = mp.pretrain_steps(model, pretrain_cfg(n, k), batch, steps,
+                                opt=opt, mesh=mesh, masks=masks,
+                                eps=ADAHESSIAN_EPS if second else 1e-8)
+    return dict(res, probes=probes)
+
+
+def _shard_shapes(sharding, name, local):
+    """The planted fault of Adafactor: the shape of this rank's shard in
+    mofo_tpu's layout taken for the parameter's."""
+    return tuple(optim.jax_layout(name, torch.empty(local,
+                                                    device="meta")).shape)
+
+
+_JAX_CUTS = mesh_lib.Sharding.jax_cuts
+
+
+def _no_model_cut_but_rows(sharding, name):
+    """The planted fault of AdamP: the model axis left out of the row sums
+    (it stays where it cuts the rows)."""
+    return {axis: key for axis, key in _JAX_CUTS(sharding, name).items()
+            if key != "model" or axis == 0}
+
+
+def task_zoo_pretrain(rank, world, out):
+    """ZOO_PRETRAIN's entries, masks drawn in the step."""
+    return {opt: zoo_pretrain(opt, steps, _mesh())
+            for opt, steps in ZOO_PRETRAIN.items()}
+
+
+def task_zoo_project(rank, world, out):
+    """adamp_updates of adamp and sgdp with each update's choices; on
+    (1, 2, 2) also AdamP with the row sums left unsummed over model."""
+    res = {}
+    for opt in ("adamp", "sgdp"):
+        with recorded_choices() as choices:
+            res[opt] = adamp_updates(opt, _mesh())
+        res[f"{opt}_choices"] = choices
+    if _SHAPE == (1, 2, 2):
+        with mock.patch.object(mesh_lib.Sharding, "jax_cuts",
+                               _no_model_cut_but_rows):
+            res["fault"] = adamp_updates("adamp", _mesh())
+    return res
+
+
+def task_zoo_adafactor(rank, world, out):
+    """adafactor in the BB-MCA finetune step (BB_GEO: its weights factor);
+    on (1, 2, 2) also the wide pretrain step with G''s masks injected and
+    the finetune with the factored dims chosen from the shard."""
+    res = {"finetune": zoo_finetune("adafactor", _mesh())}
+    if _SHAPE == (1, 2, 2):
+        masks = torch.load(os.path.join(out, "masks.pt"))
+        res["wide"] = zoo_pretrain("adafactor", STEPS, _mesh(), masks,
+                                   wide_model())
+        with mock.patch.object(mesh_lib.Sharding, "full_jax_shape",
+                               _shard_shapes):
+            res["fault"] = zoo_finetune("adafactor", _mesh())
+    return res
+
+
+def task_zoo_adahessian(rank, world, out):
+    """adahessian in the pretrain and the BB-MCA finetune steps; on
+    (1, 2, 2) also the pretrain with z drawn on the shards' shapes and with
+    the probes averaged over the whole world (the planted faults)."""
+    res = {"pretrain": zoo_pretrain("adahessian", MESH_STEPS, _mesh()),
+           "finetune": zoo_finetune("adahessian", _mesh())}
+    if _SHAPE == (1, 2, 2):
+        real_z = optim.rademacher
+        with mock.patch.object(pretrain_step, "rademacher",
+                               lambda params, gen, sharding: real_z(params,
+                                                                    gen)):
+            res["local_z"] = zoo_pretrain("adahessian", MESH_STEPS, _mesh())
+        real = pretrain_step.second_order_reduce
+        with mock.patch.object(pretrain_step, "second_order_reduce",
+                               lambda g, h, w, sharding: real(g, h, world)):
+            res["world_reduce"] = zoo_pretrain("adahessian", MESH_STEPS,
+                                               _mesh())
+    return res
+
+
+def ckpt_run(opt: str, mesh, seeds, resume=None, save=None) -> dict:
+    """Steps of `opt` seeded `seeds` with G''s masks drawn (the wide model
+    for adafactor, the tiny one on the plain route for adahessian; seed 9
+    when it resumes from the latest checkpoint in `resume`, 3 otherwise),
+    a save to `save` after them when given; the final weights, whole."""
+    kw = {"seed": 9 if resume else 3}
+    if opt == "adahessian":
+        model = create_model(PRETRAIN, device="cpu", attn_impl="xla",
+                             **PRETRAIN_GEO, **kw)
+    else:
+        model = create_model(PRETRAIN, device="cpu", **WIDE_GEO, **kw)
+    sharding = None if mesh is None else mesh_lib.shard_model(model, mesh)
+    lrs = np.full(2, mp.STEPS_LR, np.float32)
+    tx = optim.create_optimizer(dict(model.named_parameters()), opt=opt,
+                                lr_schedule=lrs, eps=ADAHESSIAN_EPS,
+                                sharding=sharding)
+    state = TrainState.create(model, tx)
+    if resume:
+        ckpt.auto_resume(resume, model, state)
+    n = MESH_G // (1 if mesh is None else mesh.batch.size)
+    step = make_pretrain_step(model, tx, pretrain_cfg(n, 1), lrs,
+                              device="cpu",
+                              second_order=optim.is_second_order(opt))
+    batch = pretrain_batch(MESH_G)
+    if mesh is not None:
+        batch = _coord_batch(batch, mesh)
+    gen = torch.Generator()
+    for s in seeds:
+        gen.manual_seed(s)
+        state, _ = step(state, batch, gen, 0.5)
+    if save:
+        ckpt.save_checkpoint(save, model, state, 0)
+    return mp._final(model)
+
+
+# the zoo entries of task_zoo_cli's runners (adahessian at its eps here)
+ZOO_CLI_PRETRAIN = ["--opt", "adahessian", "--opt_eps",
+                    str(ADAHESSIAN_EPS)]
+ZOO_CLI_FINETUNE = ["--opt", "lookahead_adafactor"]
+
+
+def task_zoo_cli(rank, world, out):
+    """mesh_clis with ZOO_CLI_PRETRAIN and ZOO_CLI_FINETUNE."""
+    return mesh_clis(out, "zoo", ZOO_CLI_PRETRAIN, ZOO_CLI_FINETUNE)
+
+
+def task_zoo_checkpoint(rank, world, out):
+    """Per ZOO_CKPT entry: step 0 on the mesh, saved to <out>/mesh_<opt>;
+    then <out>/one_<opt> (one process's step 0) resumed on the mesh for
+    step 1."""
+    res = {}
+    for opt in ZOO_CKPT:
+        ckpt_run(opt, _mesh(), [0], save=os.path.join(out, f"mesh_{opt}"))
+        res[opt] = ckpt_run(opt, _mesh(), [1],
+                            resume=os.path.join(out, f"one_{opt}"))
+    return res
 
 
 # a constant LR (the scaled lr, 2.56e-4 * 4 / 256, is the min_lr): a run of
@@ -482,19 +749,23 @@ def mesh_pretrain_argv(out, epochs):
         "--mesh_fsdp", "2", "--mesh_model", "2"]
 
 
-def task_mesh_cli(rank, world, out):
-    """cli.pretrain_mofo's first epoch on the mesh, and cli.finetune_mofo
-    (1 epoch, validation, the final multi-view test) on it."""
+def mesh_clis(out: str, prefix: str, pretrain_extra=(),
+              finetune_extra=()) -> dict:
+    """cli.pretrain_mofo's first epoch on the (1, 2, 2) mesh into
+    <out>/<prefix>_pt and cli.finetune_mofo (1 epoch, validation, the final
+    multi-view test) on it into <out>/<prefix>_ft, each with its extra
+    flags; what each printed."""
     from mofo_tpu_torch.cli import finetune_mofo, pretrain_mofo
 
-    pt, ft = os.path.join(out, "mesh_pt"), os.path.join(out, "mesh_ft")
+    pt, ft = (os.path.join(out, f"{prefix}_{k}") for k in ("pt", "ft"))
     runs = (("pretrain", pretrain_mofo, pretrain_mofo.get_args(
-                mesh_pretrain_argv(pt, 1), mofo_defaults=True)),
+                mesh_pretrain_argv(pt, 1) + list(pretrain_extra),
+                mofo_defaults=True)),
             ("finetune", finetune_mofo, finetune_mofo.get_args(
                 finetune_argv(ft, 1) + ["--epochs", "1", "--warmup_epochs",
                                         "0", "--mesh_fsdp", "2",
-                                        "--mesh_model", "2"],
-                bb_defaults=True)))
+                                        "--mesh_model", "2"]
+                + list(finetune_extra), bb_defaults=True)))
     printed = {}
     for name, cli, args in runs:
         text = io.StringIO()
@@ -504,6 +775,11 @@ def task_mesh_cli(rank, world, out):
     return printed
 
 
+def task_mesh_cli(rank, world, out):
+    """mesh_clis with AdamW."""
+    return mesh_clis(out, "mesh")
+
+
 TASKS = {"pretrain": task_pretrain, "adahessian": task_adahessian,
          "finetune": task_finetune, "collectives": task_collectives,
          "checkpoint": task_checkpoint, "loss_scale": task_loss_scale,
@@ -511,7 +787,11 @@ TASKS = {"pretrain": task_pretrain, "adahessian": task_adahessian,
          "mesh_finetune": task_mesh_finetune,
          "mesh_checkpoint": task_mesh_checkpoint,
          "mesh_loss_scale": task_mesh_loss_scale,
-         "mesh_optim": task_mesh_optim, "mesh_cli": task_mesh_cli}
+         "mesh_optim": task_mesh_optim, "mesh_cli": task_mesh_cli,
+         "zoo_pretrain": task_zoo_pretrain, "zoo_project": task_zoo_project,
+         "zoo_adafactor": task_zoo_adafactor,
+         "zoo_adahessian": task_zoo_adahessian,
+         "zoo_checkpoint": task_zoo_checkpoint, "zoo_cli": task_zoo_cli}
 
 
 def spawn(tasks: str, world: int, out: str) -> list:
