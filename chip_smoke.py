@@ -146,8 +146,11 @@ Phases, each printing one JSON line:
                the card must equal the same datasets on the CPU after the
                same np.random.seed, each box the square of its frame.
  18. loader_modes - the ViT-S runner's dataset through PrefetchLoader at
-               B=32 with one thread and with four: the first batch and the
-               mean wait of the next three (a line, no gate).
+               B=32 with one thread, with four and with four forked
+               processes (threadx1, threadx4, processx4): the first batch
+               and the mean wait of the next three (a line; the gate is
+               only that every mode gives the same batches' count and
+               shapes).
  19. ddp_step - data parallelism over NCCL at world 1 (a process group on
                localhost, a free port): the ViT-B MOFO pretrain step of
                phase `step` (B=16, bf16) through DistributedDataParallel
@@ -310,6 +313,40 @@ Phases, each printing one JSON line:
                with z drawn in the step: losses and gradient norms within
                DDP_F32_RTOL, the probes and the parameters within
                MESH_AH_BOUND; a rank's step ms, peak memory, collectives.
+ 37. convergence_ab - mofo_tpu_torch.tools.convergence_ab: the ViT-B MOFO
+               pretrain at full width and depth, 50 steps at B=16 on the
+               JAX tool's synthetic stream (32 batches on the card), from
+               one seed's f32 weights, in bf16 through K1/K2 and in f32
+               through the plain attention math (TF32 off), the same masks
+               in both; mofo_tpu's gates (both arms train, max rel diff
+               below 2e-2, the improvements within 5%); 16 launches of
+               each K1/K2 kernel a bf16 step, none in f32; the production
+               arm again with a doubled learning rate (main_path.
+               doubled_lr), which the gates must reject, and with K2's dQ
+               zeroed (printed: how far the check reaches).
+ 38. convergence_ft - mofo_tpu_torch.tools.convergence_ab_finetune: the
+               ViT-B classifier (174 classes, mixup, cutmix, smoothing,
+               drop path 0.1), 50 steps at B=16, bf16 and fp16 (dynamic
+               loss scale) through K1/K2 against f32 plain attention;
+               the gates of phase 37 and the fp16 arm's max rel diff below
+               2e-2; launches counted against the model's 12 attention
+               Blocks a step (none in f32); each arm's peak memory.
+ 39. e2e_recipe - mofo_tpu_torch.tools.e2e_recipe on the card: 8 mp4 files
+               that cv2 writes, the pretrain CLI (tiny model, tube masks,
+               2 epochs), its last checkpoint into the finetune CLI, which
+               must report the tensors it took, validation and the final
+               test; finite losses, no kernel launch (8 tokens: the plain
+               math).
+ 40. overfit_real - mofo_tpu_torch.tools.overfit_real at its defaults:
+               the finetune CLI (ViT-B, B=8, lr 1e-3 as the optimizer
+               sees it) in a subprocess that writes its launch counts, on 8
+               class-pattern mp4 files with the crop, the flip and
+               RandAugment (rand-m7-n1-mstd0.5-inc1), mixup off, for
+               OVERFIT_EPOCHS = 20 epochs: the train loss must fall (the
+               mean of the last 5 epochs 0.05 below the first); the tool's own
+               60-epoch run, which must reach 100% validation accuracy on
+               the training clips, is its recorded run; K1/K2 launches from
+               the steps and the eval calls.
 The kernels phase also checks and times K1/K2 at the mesh's per-rank
 head counts (MESH_GEOS: H = 3, the ViT-B decoder at model 2; H = 4 and 8,
 ViT-L's decoder and encoder).
@@ -361,7 +398,10 @@ from mofo_tpu_torch.ops import flash_attention as fa
 from mofo_tpu_torch.ops import attention, masking
 from mofo_tpu_torch.ops import rand_augment as RA
 from mofo_tpu_torch.parallel import mesh as mesh_lib
-from mofo_tpu_torch.tools import ddp_ranks, mesh_ranks
+from mofo_tpu_torch.tools import convergence_ab as CA
+from mofo_tpu_torch.tools import convergence_ab_finetune as CF
+from mofo_tpu_torch.tools import ddp_ranks, e2e_recipe, mesh_ranks
+from mofo_tpu_torch.tools import overfit_real
 from mofo_tpu_torch.tools.main_path import (
     AUG_ATOL,
     AUG_SHARE,
@@ -378,6 +418,7 @@ from mofo_tpu_torch.tools.main_path import (
     check_mh_prep,
     check_prep,
     compare_with_plain,
+    doubled_lr,
     finetune_model,
     forced_draws,
     frame_ids,
@@ -614,6 +655,19 @@ MESH_ZOO_ADAMW_FACTOR = 2.0
 # magnitude) and the parameters (absolute), ranks against one process, as
 # two gloo ranks are held on the CPU (tests/test_torch_second_order.py)
 MESH_AH_BOUND = 1e-4
+# the convergence A/B phases: mofo_tpu's 50-step artifacts at its B=16
+CONV_STEPS = 50
+CONV_BATCH = 16
+# overfit_real: the tool's own 60 epochs reach 100% (its recorded run,
+# tests/golden/torch_overfit_real_h100.json); this script, near its time
+# limit, runs OVERFIT_EPOCHS and checks that the train loss falls: the mean
+# of the last OVERFIT_TAIL epochs at least OVERFIT_DROP below the first
+# epoch's (a run that stalls at the uniform prediction's ln 4 stays within
+# 0.02 of it)
+OVERFIT_FULL = 60
+OVERFIT_EPOCHS = 20
+OVERFIT_TAIL = 5
+OVERFIT_DROP = 0.05
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1823,25 +1877,33 @@ def datasets_card_vs_cpu(data: dict) -> dict:
 
 def loader_modes(data: dict) -> dict:
     """The wait per batch of the ViT-S runner's dataset (B=32, 16 frames at
-    256 x 320, boxes, frames from MemoryReader) with one thread and with
-    four: the first batch and the mean of the next three, each batch pinned
-    and copied to the card."""
+    256 x 320, boxes, frames from MemoryReader) with one thread, with four
+    and with four forked worker processes (worker_mode="process", forked
+    with CUDA up in this process; the workers decode on the host only): the
+    first batch and the mean of the next three, each batch pinned and
+    copied to the card. Every mode must give the same number of batches
+    of the same shapes."""
     ds = P.PretrainClipDataset(
         read_setting_file(data["pretrain"]) * 2, decode_size=DECODE_HW,
         boxes=MotionBoxIndex.from_file(data["bb_json"]), reader=MemoryReader)
-    res = {}
-    for workers in (1, 4):
+    res, shapes = {}, {}
+    for mode, workers in (("thread", 1), ("thread", 4), ("process", 4)):
         waits = []
         t = time.perf_counter()
-        for batch in P.PrefetchLoader(ds, VITS_BATCH, num_workers=workers):
+        for batch in P.PrefetchLoader(ds, VITS_BATCH, num_workers=workers,
+                                      worker_mode=mode):
             torch.cuda.synchronize()
             now = time.perf_counter()
             waits.append(now - t)
             t = now
-        res[f"threadx{workers}"] = {
-            "first_batch_ms": waits[0] * 1e3,
-            "wait_ms_per_batch": statistics.mean(waits[1:]) * 1e3,
-            "batches": len(waits)}
+            shape = {k: tuple(v.shape) for k, v in batch.items()}
+        key = f"{mode}x{workers}"
+        shapes[key] = (len(waits), shape)
+        res[key] = {"first_batch_ms": waits[0] * 1e3,
+                    "wait_ms_per_batch": statistics.mean(waits[1:]) * 1e3,
+                    "batches": len(waits)}
+    if len(set(map(str, shapes.values()))) != 1:
+        raise AssertionError(f"the loader modes differ: {shapes}")
     return res
 
 
@@ -3504,6 +3566,159 @@ def phase_mesh_runner(smi: str) -> dict:
     return {k: sum(c[k] for c in launches) for k in fa.KERNELS}
 
 
+@contextlib.contextmanager
+def _k2_without_dq():
+    """K2's dQ kernel runs and its output is zeroed: attention passes no
+    gradient to q. It measures how far the convergence check reaches into
+    a kernel's backward (printed, not a gate)."""
+    kept = fa.qkv_attn_bwd_dq
+
+    def zeroed(qkv, out, lse, dout, dqkv, *args, **kwargs):
+        kept(qkv, out, lse, dout, dqkv, *args, **kwargs)
+        dqkv[..., :dqkv.shape[-1] // 3].zero_()
+
+    fa.qkv_attn_bwd_dq = zeroed
+    try:
+        yield
+    finally:
+        fa.qkv_attn_bwd_dq = kept
+
+
+def _arm_launches(phase: str, art: dict, kernel_arms) -> dict:
+    """Each K1/K2 kernel launched steps x the model's attention Blocks
+    times in each of `kernel_arms`, no kernel in the other arms; returns
+    the launches summed over the arms."""
+    steps, blocks = art["steps"], art["attention_blocks"]
+    for arm, got in art["launches"].items():
+        want = ({k: steps * blocks for k in fa.QKV_KERNELS}
+                if arm in kernel_arms else {})
+        if got != want:
+            raise AssertionError(f"{phase} {arm}: launches {got}, "
+                                 f"expected {want}")
+    return {k: sum(a.get(k, 0) for a in art["launches"].values())
+            for k in fa.KERNELS}
+
+
+def _curve_fields(art: dict) -> dict:
+    keys = ("steps", "batch", "max_rel_diff", "final_rel_diff",
+            "fp16_max_rel_diff", "step_ms", "peak_gib", "launches",
+            "attention_blocks", "stream_s", "wall_s", "gate_failures")
+    return {k: art[k] for k in keys if k in art}
+
+
+def phase_convergence_ab(smi: str) -> dict:
+    """ViT-B MOFO pretrain, 50 steps at B=16: the bf16 production arm
+    (K1/K2) against the f32 plain-attention arm (tools/convergence_ab.py)
+    under mofo_tpu's gates; then the production arm with a doubled learning
+    rate (the planted fault the gates must reject) and with K2's dQ zeroed
+    (how far the check reaches; printed)."""
+    t0 = time.perf_counter()
+    stream = CA.synthetic_stream(CONV_STEPS, CONV_BATCH)
+    art = CA.run(CONV_STEPS, CONV_BATCH, device="cuda", stream=stream)
+    launches = _arm_launches("convergence_ab", art, ("prod",))
+    planted = {}
+    for name, fault in (("doubled_lr", doubled_lr),
+                        ("k2_dq_zeroed", _k2_without_dq)):
+        with fault():
+            bad = CA.run_curve(*CA.PRODUCTION, CONV_STEPS, *stream,
+                               device="cuda")["losses"]
+        planted[name] = {
+            "max_rel_diff": CA.rel_curve(bad, art["ref_losses"]),
+            "gate_failures": CA.gate_failures(
+                {"prod_losses": bad, "ref_losses": art["ref_losses"]})}
+    emit("convergence_ab", model=MODEL, **_curve_fields(art),
+         first_last={"prod": art["prod_losses"][::CONV_STEPS - 1],
+                     "ref": art["ref_losses"][::CONV_STEPS - 1]},
+         planted=planted, seconds=time.perf_counter() - t0,
+         nvidia_smi=smi)
+    if art["attention_blocks"] != 16:
+        raise AssertionError(f"{art['attention_blocks']} attention Blocks")
+    if art["gate_failures"]:
+        raise AssertionError(f"convergence_ab: {art['gate_failures']}")
+    if not planted["doubled_lr"]["gate_failures"]:
+        raise AssertionError("the gates passed the doubled learning rate")
+    return launches
+
+
+def phase_convergence_ft(smi: str) -> tuple:
+    """ViT-B classifier finetune, 50 steps at B=16, mixup on: the bf16 and
+    fp16 (dynamic loss scale) arms through K1/K2 against the f32
+    plain-attention arm (tools/convergence_ab_finetune.py) under
+    mofo_tpu's gates; each arm's peak memory. Returns the launches and the
+    model's attention Blocks."""
+    t0 = time.perf_counter()
+    art = CF.run(CONV_STEPS, CONV_BATCH, fp16=True, device="cuda")
+    launches = _arm_launches("convergence_ft", art, ("prod", "fp16"))
+    emit("convergence_ft", model=CF.MODEL, **_curve_fields(art),
+         fp16_skipped_steps=art["fp16_skipped_steps"],
+         fp16_loss_scale=art["fp16_loss_scale"],
+         first_last={k: art[f"{k}_losses"][::CONV_STEPS - 1]
+                     for k in ("prod", "ref", "fp16")},
+         seconds=time.perf_counter() - t0, nvidia_smi=smi)
+    if art["gate_failures"]:
+        raise AssertionError(f"convergence_ft: {art['gate_failures']}")
+    return launches, art["attention_blocks"]
+
+
+def phase_e2e_recipe(smi: str) -> None:
+    """tools/e2e_recipe.py on the card: 8 cv2-written mp4 files through the
+    pretrain CLI (2 epochs), its last checkpoint into the finetune CLI
+    (2 epochs, validation, the final test). At 32 px every Block takes the
+    plain attention math: no kernel launch."""
+    fa.reset_launch_counts()
+    text = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            rec = e2e_recipe.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+    except BaseException:
+        print(text.getvalue()[-4000:], flush=True)
+        raise
+    launches = {k: v for k, v in fa.launch_counts.items() if v}
+    emit("e2e_recipe", **rec, launches=launches, nvidia_smi=smi)
+    if not np.isfinite(rec["pretrain_final_loss"]):
+        raise AssertionError(f"pretrain loss {rec['pretrain_final_loss']}")
+    if rec["finetune_init_tensors"] < 1 or [
+            rec["pretrain_steps"], rec["finetune_steps"]] != [4, 4]:
+        raise AssertionError(f"e2e_recipe: {rec}")
+    if not np.isfinite(rec["finetune_last_epoch"]["val_loss"]) or launches:
+        raise AssertionError(f"e2e_recipe: {rec}, launches {launches}")
+
+
+def phase_overfit_real(smi: str, blocks: int) -> dict:
+    """tools/overfit_real.py at its defaults: the finetune CLI (ViT-B, B=8,
+    in a subprocess that writes its launch counts) on 8 class-pattern mp4
+    files for OVERFIT_EPOCHS epochs; at OVERFIT_FULL epochs it must reach
+    100% validation accuracy on the training clips, in a shorter run the
+    train loss must fall. Each train step launches K1/K2 `blocks` times,
+    each eval call K1's forward."""
+    with tempfile.TemporaryDirectory() as tmp:
+        counts = os.path.join(tmp, "launches.json")
+        rec = overfit_real.run(tmp, epochs=OVERFIT_EPOCHS, device="cuda",
+                               launch_counts=counts)
+        with open(counts) as f:
+            launches = json.load(f)
+    splits = [split for _, _, split in P.expand_views(
+        overfit_real.N_CLASSES * overfit_real.PER_CLASS, 2, 3)]
+    n_eval = eval_calls(splits, rec["batch"], rec["n_videos"],
+                        rec["epochs_run"])
+    want = {**dict.fromkeys(fa.KERNELS, 0),
+            **dict.fromkeys(fa.QKV_KERNELS, blocks * rec["steps"]),
+            "qkv_attn_fwd": blocks * (rec["steps"] + n_eval)}
+    emit("overfit_real", **rec, eval_calls=n_eval,
+         launches={k: v for k, v in launches.items() if v}, nvidia_smi=smi)
+    if launches != want:
+        raise AssertionError(f"overfit_real launches {launches}, "
+                             f"expected {want}")
+    if OVERFIT_EPOCHS >= OVERFIT_FULL:
+        if not rec["best_val_acc1"] >= 100.0:
+            raise AssertionError(f"overfit_real: {rec['best_val_acc1']}")
+    elif not (np.mean(rec["train_loss"][-OVERFIT_TAIL:])
+              < rec["train_loss"][0] - OVERFIT_DROP):
+        raise AssertionError(f"overfit_real: the loss did not fall: {rec}")
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -3542,9 +3757,13 @@ def main() -> int:
     later["launches_mesh_step"] = phase_mesh_step(smi)
     later["launches_mesh_memory"] = phase_mesh_memory(smi)
     later["launches_mesh_runner"] = phase_mesh_runner(smi)
-    t_new = time.perf_counter()
     later["launches_mesh_zoo"] = phase_mesh_zoo(smi)
     later["launches_mesh_adahessian"] = phase_mesh_adahessian(smi)
+    t_new = time.perf_counter()
+    later["launches_convergence_ab"] = phase_convergence_ab(smi)
+    later["launches_convergence_ft"], blocks = phase_convergence_ft(smi)
+    phase_e2e_recipe(smi)
+    later["launches_overfit_real"] = phase_overfit_real(smi, blocks)
     new_s = time.perf_counter() - t_new
     kernels = []
     for name in fa.QKV_KERNELS:

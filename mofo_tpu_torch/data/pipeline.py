@@ -17,8 +17,9 @@ device (ops.augment).
   SyntheticClipDataset — random uint8 clips (+ labels, boxes) from a seed
   collate              — stacks samples into numpy batch arrays
   PrefetchLoader       — a background thread batches (num_workers threads
-                         fetch the samples of one batch), pins the batch and
-                         the consumer moves it to the device
+                         or forked processes fetch the samples of one
+                         batch), pins the batch and the consumer moves it
+                         to the device
 
 The datasets draw their random frame ids from the process-global np.random,
 as the reference's do: after np.random.seed(s) a dataset returns the
@@ -39,7 +40,9 @@ from __future__ import annotations
 import concurrent.futures as cf
 import dataclasses
 import functools
+import multiprocessing as mp
 import os
+import pickle
 import queue
 import threading
 from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -283,6 +286,20 @@ def collate(samples: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
+# process workers: module-level so that they pickle; each worker unpickles
+# the dataset once, when the pool starts (mofo_tpu/data/pipeline.py:294-305)
+_PROC_DATASET = None
+
+
+def _proc_init(dataset_bytes: bytes) -> None:
+    global _PROC_DATASET
+    _PROC_DATASET = pickle.loads(dataset_bytes)
+
+
+def _proc_getitem(i: int):
+    return _PROC_DATASET[i]
+
+
 class PrefetchLoader:
     """Background loader: sample -> batch -> pinned host tensors -> device.
 
@@ -291,6 +308,13 @@ class PrefetchLoader:
       thread pool (the reference's DataLoader(num_workers) per rank; FFmpeg
       decode releases the GIL). The threads share the process's np.random,
       from which the datasets draw (ROADMAP Queue 3).
+    - worker_mode="process" fetches them in a pool of num_workers processes
+      instead, for datasets whose Python work holds the GIL. The pool is
+      forked when iteration starts, from the consumer's thread, and each
+      worker unpickles the dataset once: as in mofo_tpu, every worker
+      starts from the parent's np.random state at that moment (spawn would
+      draw other frame ids). The workers only decode on the host and never
+      touch CUDA, which a forked child of a process with CUDA up must not.
     - On a CUDA device each batch is pinned on the host and copied without
       blocking the host (the copy is ordered on the current stream).
     - drop_last=False pads the final partial batch up to batch_size by
@@ -302,7 +326,10 @@ class PrefetchLoader:
     def __init__(self, dataset, batch_size: int,
                  sampler: Optional[ShardedSampler] = None,
                  device: DeviceLike = None, prefetch: int = 2,
-                 drop_last: bool = True, num_workers: int = 1):
+                 drop_last: bool = True, num_workers: int = 1,
+                 worker_mode: str = "thread"):
+        if worker_mode not in ("thread", "process"):
+            raise ValueError(f"worker_mode {worker_mode!r}: thread or process")
         self.dataset = dataset
         self.batch_size = batch_size
         self.sampler = sampler or ShardedSampler(len(dataset), shuffle=False)
@@ -310,6 +337,7 @@ class PrefetchLoader:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
+        self.worker_mode = worker_mode
 
     def __len__(self) -> int:
         n = len(self.sampler.indices())
@@ -317,9 +345,25 @@ class PrefetchLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def _pool(self):
+        """The workers of one iteration (None with one worker)."""
+        if self.num_workers == 1:
+            return None
+        if self.worker_mode == "thread":
+            return cf.ThreadPoolExecutor(self.num_workers)
+        pool = cf.ProcessPoolExecutor(
+            self.num_workers, mp_context=mp.get_context("fork"),
+            initializer=_proc_init, initargs=(pickle.dumps(self.dataset),))
+        pool.submit(int).result()  # fork every worker now, in this thread
+        return pool
+
     def _fetch(self, sel, pool) -> Dict[str, torch.Tensor]:
         if pool is not None and len(sel) > 1:
-            samples = list(pool.map(lambda i: self.dataset[int(i)], sel))
+            if self.worker_mode == "process":
+                samples = list(pool.map(_proc_getitem,
+                                        [int(i) for i in sel]))
+            else:
+                samples = list(pool.map(lambda i: self.dataset[int(i)], sel))
         else:
             samples = [self.dataset[int(i)] for i in sel]
         batch = {k: torch.from_numpy(v) for k, v in collate(samples).items()}
@@ -327,10 +371,8 @@ class PrefetchLoader:
             batch = {k: v.pin_memory() for k, v in batch.items()}
         return batch
 
-    def _batches(self, put, stop: threading.Event) -> None:
+    def _batches(self, put, stop: threading.Event, pool) -> None:
         """Runs in the background thread: puts every batch, then None."""
-        pool = (cf.ThreadPoolExecutor(self.num_workers)
-                if self.num_workers > 1 else None)
         try:
             idxs = self.sampler.indices()
             for b in range(len(self)):
@@ -350,8 +392,6 @@ class PrefetchLoader:
         except Exception as e:  # surfaced to the consumer, which raises it
             put(e)
         finally:
-            if pool is not None:
-                pool.shutdown(wait=True)
             put(None)
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
@@ -366,8 +406,9 @@ class PrefetchLoader:
                 except queue.Full:
                     continue
 
-        worker = threading.Thread(target=self._batches, args=(put, stop),
-                                  daemon=True)
+        pool = self._pool()
+        worker = threading.Thread(target=self._batches,
+                                  args=(put, stop, pool), daemon=True)
         worker.start()
         try:
             while True:
@@ -381,3 +422,5 @@ class PrefetchLoader:
         finally:
             stop.set()
             worker.join(timeout=10)
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)

@@ -38,6 +38,7 @@ from torch import nn
 from mofo_tpu_torch.ops import attention
 from mofo_tpu_torch.ops.attention import (
     _PALLAS_MIN_SEQ,
+    acc_dtype,
     dot_product_attention,
 )
 from mofo_tpu_torch.ops.flash_attention import (
@@ -313,8 +314,9 @@ class Attention(nn.Module):
                 2, 0, 3, 1, 4).contiguous()  # (3, B, H, N, Dh)
             q, k, v = qkv[0], qkv[1], qkv[2]
             if self.sow_attn:
-                logits = torch.matmul((q * self.scale).float(),
-                                      k.float().transpose(-1, -2))
+                acc = acc_dtype(q.dtype)
+                logits = torch.matmul((q * self.scale).to(acc),
+                                      k.to(acc).transpose(-1, -2))
                 self.attn_probs = torch.softmax(logits, dim=-1)
             # explicit pallas lands here for sowing (the probabilities are
             # materialized: the plain math) or an unaligned flat layout
@@ -333,8 +335,9 @@ class Attention(nn.Module):
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype: torch.dtype):
-    """LayerNorm computed in f32, output cast to the compute dtype."""
-    return norm(x.float()).to(dtype)
+    """LayerNorm computed in f32 (f64 in an f64 model), output cast to the
+    compute dtype."""
+    return norm(x.to(acc_dtype(dtype))).to(dtype)
 
 
 class Block(nn.Module):

@@ -32,6 +32,12 @@ from mofo_tpu_torch.parallel import ddp
 _PALLAS_MIN_SEQ = 128
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Where the plain math accumulates: f32, or f64 for f64 inputs (the
+    float64 parity curve of tools/parity_artifact.py)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def keep_mask(shape: Sequence[int], rate: float,
               generator: Optional[torch.Generator],
               device) -> torch.Tensor:
@@ -59,18 +65,19 @@ def xla_attention(
     head_range: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """q, k, v: (B, H, N, Dh) -> (B, H, N, Dh). Logits (plus `bias`,
-    broadcast to (B, H, Nq, Nk)) and softmax in f32; with dropout active
-    (dropout_rate > 0, not deterministic) the f32 probabilities become
-    where(keep, p / (1 - rate), 0), `keep` drawn from `generator` by
-    keep_mask; then they are cast back to the input dtype before P.V.
+    broadcast to (B, H, Nq, Nk)) and softmax in f32 (f64 for f64 inputs);
+    with dropout active (dropout_rate > 0, not deterministic) the
+    probabilities become where(keep, p / (1 - rate), 0), `keep` drawn from
+    `generator` by keep_mask; then they are cast back to the input dtype
+    before P.V.
     head_range (first, total) marks q's H heads as heads first.. of a
     module of `total` heads split over a mesh's model axis: the keep mask
     is drawn for all `total` heads and these H kept, so that the ranks
     together draw what one process draws."""
-    dtype = q.dtype
-    logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+    dtype, acc = q.dtype, acc_dtype(q.dtype)
+    logits = torch.matmul((q * scale).to(acc), k.to(acc).transpose(-1, -2))
     if bias is not None:
-        logits = logits + bias.float()
+        logits = logits + bias.to(acc)
     probs = torch.softmax(logits, dim=-1)
     if dropout_rate > 0.0 and not deterministic:
         shape = probs.shape

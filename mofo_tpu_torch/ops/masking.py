@@ -9,6 +9,12 @@ Random functions take a torch.Generator, and optionally the uniforms
 themselves (`scores`, `r1`/`r2`): torch and JAX draw different numbers
 from one seed, so the tests hand both packages the same draws.
 
+TubeMaskingGeneratorNumpy and MotionTubeMaskingGeneratorNumpy are host
+twins of the reference generators (masking_generator.py:3-24, :46-77):
+they draw from the global np.random in the reference's call order, so a
+np.random.seed gives the reference's masks bit for bit (the parity curve
+of tools/parity_artifact.py).
+
 Box convention: (x1, y1, x2, y2) in pixels, x = column, y = row.
 """
 
@@ -16,6 +22,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from mofo_tpu_torch.parallel import ddp
@@ -219,3 +226,76 @@ def mask_to_indices(
     n = mask.shape[-1]
     order = torch.argsort(mask.to(torch.int32), dim=-1, stable=True)
     return order[:, : n - num_masked], order[:, n - num_masked:]
+
+
+class TubeMaskingGeneratorNumpy:
+    """One np.random.shuffle of a 0/1 row of patches_per_frame entries per
+    call, tiled over the frames (reference TubeMaskingGenerator)."""
+
+    def __init__(self, input_size, mask_ratio):
+        self.frames, self.height, self.width = input_size
+        self.patches_per_frame = self.height * self.width
+        self.num_masks_per_frame = int(mask_ratio * self.patches_per_frame)
+        self.total_patches = self.frames * self.patches_per_frame
+        self.total_masks = self.frames * self.num_masks_per_frame
+
+    def __call__(self) -> np.ndarray:
+        row = np.hstack([
+            np.zeros(self.patches_per_frame - self.num_masks_per_frame),
+            np.ones(self.num_masks_per_frame),
+        ])
+        np.random.shuffle(row)
+        return np.tile(row, (self.frames, 1)).flatten()
+
+
+class MotionTubeMaskingGeneratorNumpy:
+    """The box-biased generator (reference TubeMaskingGenerator_BB): a
+    shuffle of the in-box patch list, then a shuffle of the fill pool.
+    bug_compat=True keeps the reference's first-frame box, crossed axes
+    and fill pool of indices below num_masks_per_frame; False tests the
+    box itself and fills from every other patch."""
+
+    def __init__(self, input_size, mask_ratio, mask_ratio_bb,
+                 patch_size: int = 16, bug_compat: bool = True):
+        self.frames, self.height, self.width = input_size
+        self.patches_per_frame = self.height * self.width
+        self.num_masks_per_frame = int(mask_ratio * self.patches_per_frame)
+        self.mask_ratio_bb = mask_ratio_bb
+        self.patch_size = patch_size
+        self.bug_compat = bug_compat
+
+    def _inside_indices(self, box) -> list:
+        s = self.patch_size
+        x1, y1, x2, y2 = (float(v) for v in box)
+        idx = []
+        for j in range(self.height):
+            for k in range(self.width):
+                row_lo, row_hi = j * s, j * s + s
+                col_lo, col_hi = k * s, k * s + s
+                if self.bug_compat:
+                    row_dis = x1 > row_hi or x2 < row_lo
+                    col_dis = y1 > col_hi or y2 < col_lo
+                    hit = not (row_dis and col_dis)
+                else:
+                    hit = (x2 > x1 and y2 > y1 and x1 <= col_hi
+                           and x2 >= col_lo and y1 <= row_hi
+                           and y2 >= row_lo)
+                if hit:
+                    idx.append(j * self.width + k)
+        return idx
+
+    def __call__(self, boxes: np.ndarray) -> np.ndarray:
+        inside = self._inside_indices(boxes[0])
+        frame = np.zeros(self.patches_per_frame)
+        np.random.shuffle(inside)
+        cap = min(self.num_masks_per_frame,
+                  int(len(inside) * self.mask_ratio_bb))
+        selected = inside[:cap]
+        frame[selected] = 1
+        n_fill = self.num_masks_per_frame - len(selected)
+        pool = np.setdiff1d(np.arange(
+            self.num_masks_per_frame if self.bug_compat
+            else self.patches_per_frame), selected)
+        np.random.shuffle(pool)
+        frame[pool[:n_fill]] = 1
+        return np.tile(frame, (self.frames, 1)).flatten()

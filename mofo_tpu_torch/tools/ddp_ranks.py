@@ -8,11 +8,11 @@
       parameters against <dir>/reference.pt (the single process's at G')
       and saves its results and kernel launch counts to <dir>/rank-<r>.pt.
   python -m mofo_tpu_torch.tools.ddp_ranks cli <counts.json> <runner> ...
-      runs mofo_tpu_torch.cli.<runner>'s main (pretrain_mofo or
-      finetune_mofo) on the remaining arguments,
+      runs mofo_tpu_torch.cli.<runner>'s main (pretrain, pretrain_mofo,
+      finetune or finetune_mofo) on the remaining arguments,
       as `python -m mofo_tpu_torch.cli.<runner> ...` does, and writes this
       process's kernel launch counts to counts.json: phase ddp_runner
-      starts it under torch.distributed.run.
+      starts it under torch.distributed.run, tools/overfit_real.py as is.
 
 `two_rank_runs(0, 1)` is the single process at G' that chip_smoke.py holds
 the ranks against, on the same card: the ViT-B MOFO pretrain step at full
@@ -127,7 +127,7 @@ def _cli(counts_path: str, runner: str, argv: list) -> None:
 
     cli = importlib.import_module(f"mofo_tpu_torch.cli.{runner}")
     kw = {"pretrain_mofo": {"mofo_defaults": True},
-          "finetune_mofo": {"bb_defaults": True}}[runner]
+          "finetune_mofo": {"bb_defaults": True}}.get(runner, {})
     fa.reset_launch_counts()
     cli.main(cli.get_args(argv, **kw))
     with open(counts_path, "w") as f:

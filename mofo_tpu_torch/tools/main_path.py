@@ -32,6 +32,8 @@ tools/profile_step.py and tests/test_torch_gpu.py.
   memory through the datasets' `reader` field, their motion boxes, and the
   frame ids read back from a clip, for the real-data runs on the card,
   where no video decoder is installed.
+- `doubled_lr`: inside it the cosine schedules are doubled, the planted
+  fault of chip_smoke.py's convergence_ab phase.
 - `plain_attention`: inside it every attention wrapper takes its plain
   PyTorch version whatever the device; `build_step(..., plain=True)` and
   `build_finetune_step(..., plain=True)` run their steps so. It exists for
@@ -153,6 +155,19 @@ def plain_attention():
     finally:
         for name, wrapper in kept.items():
             setattr(fa, name, wrapper)
+
+
+@contextlib.contextmanager
+def doubled_lr():
+    """Inside, schedules.cosine_schedule returns twice its values: the
+    planted fault that the convergence A/B gates must reject (a learning
+    rate off by a constant factor)."""
+    kept = schedules.cosine_schedule
+    schedules.cosine_schedule = lambda *a, **kw: 2 * kept(*a, **kw)
+    try:
+        yield
+    finally:
+        schedules.cosine_schedule = kept
 
 
 def _through_plain(step):

@@ -8,11 +8,15 @@ Counterpart of mofo_tpu/train/metrics.py (reference utils.py:17-194):
   - JsonlLogger: the rank-0 JSONL log.txt per epoch
     (run_mae_pretraining.py:289-293);
   - TensorboardLogger: per-step scalar heads, a no-op without tensorboardX
-    or a log dir.
+    or a log dir;
+  - ThroughputMeter: step time, clips/s and MFU over the last 50 steps;
+  - profile_trace(log_dir): a torch.profiler context (CPU and, on a card,
+    CUDA activity) that writes a Chrome trace into log_dir.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import os
@@ -193,3 +197,44 @@ class TensorboardLogger:
     def flush(self):
         if self.writer is not None:
             self.writer.flush()
+
+
+class ThroughputMeter:
+    """Step time, clips/s and MFU (absent from the reference)."""
+
+    def __init__(self, batch_size: int, flops_per_step: float = 0.0,
+                 peak_flops: float = 0.0):
+        self.batch_size = batch_size
+        self.flops_per_step = flops_per_step
+        self.peak_flops = peak_flops
+        self.times = SmoothedValue(window_size=50)
+
+    def update(self, step_seconds: float):
+        self.times.update(step_seconds)
+
+    @property
+    def clips_per_sec(self) -> float:
+        return self.batch_size / max(self.times.avg, 1e-9)
+
+    @property
+    def mfu(self) -> float:
+        if not (self.flops_per_step and self.peak_flops):
+            return 0.0
+        return (self.flops_per_step / max(self.times.avg, 1e-9)
+                / self.peak_flops)
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Traces the body with torch.profiler (CPU activity, CUDA too when a
+    card is present) and writes the Chrome trace to log_dir/trace.json;
+    yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

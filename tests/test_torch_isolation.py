@@ -43,8 +43,10 @@ def test_scan_covers_the_package():
             "data_clean.py", "flow.py", "motion_maps.py", "bbox.py",
             "annot.py", "epic_segments.py", "motion_factory.py",
             "epic_preprocess.py", "vis.py", "download.py", "mesh.py",
-            "tensor_parallel.py", "mesh_ranks.py"} <= names
-    assert len(FILES) >= 38
+            "tensor_parallel.py", "mesh_ranks.py", "parity_artifact.py",
+            "convergence_ab.py", "convergence_ab_finetune.py",
+            "e2e_recipe.py", "overfit_real.py"} <= names
+    assert len(FILES) >= 43
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
