@@ -347,9 +347,33 @@ Phases, each printing one JSON line:
                60-epoch run, which must reach 100% validation accuracy on
                the training clips, is its recorded run; K1/K2 launches from
                the steps and the eval calls.
+ 41. qkv_head_dims - F7: K1/K2's four entry points at the flat head dims
+               16, 32 and 128 (QKV_HEAD_DIM_CHECKS: a long (B, 1568, H)
+               with A % 128 == 0 and a ragged N = 100), bf16 and f32,
+               against their plain versions (main_path's bounds, the
+               planted faults rejected); kernel, plain, library and bound
+               times at the long one; K1 at head dim 48 must raise.
+ 42. large_presets - the registry's large geometries as whole steps
+               through the port's entry points (tools/bench_pretrain_model
+               and tools/bench_finetune's build): ViT-L MOFO pretrain
+               (B=32), the ViT-L classifier at 224, ViT-B at 384 px and at
+               32 frames, ViT-L at 384 and 512 px, at full width and depth
+               and the JAX tools' batches: 3 bf16 train steps (1 warm-up,
+               2 timed between CUDA events) and, for the classifiers, 2
+               eval calls (1 timed); finite losses, launches equal to
+               STEP_LAUNCHES / EVAL_LAUNCHES; step ms, peak memory, clips/s
+               and MFU. Then each at 2 Blocks (2 + 2 for the pretrain
+               model), B = 1, full width and all tokens: 2 bf16 steps
+               through the kernels against the same steps through the
+               plain versions, within BF16_STEP_RTOL.
 The kernels phase also checks and times K1/K2 at the mesh's per-rank
 head counts (MESH_GEOS: H = 3, the ViT-B decoder at model 2; H = 4 and 8,
-ViT-L's decoder and encoder).
+ViT-L's decoder and encoder) and at ViT-L's 16 heads over the 4608 and
+8192 tokens of vit_large_patch16_384 and _512 (LARGE_CHECKS). Every
+phase line carries "t", the seconds since the script started. The streams
+of phases 37 and 38 (the JAX tools' numpy draws, a minute of one host core
+each) are drawn on two threads from the build until real_data_runner
+(draw_ab_streams), whose process workers fork.
 Then the card's nvidia-smi line, the kernels line and, last, the ok line.
 Any failed check raises, and the script exits non-zero without the ok line.
 """
@@ -366,6 +390,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from unittest import mock
 
@@ -398,6 +423,8 @@ from mofo_tpu_torch.ops import flash_attention as fa
 from mofo_tpu_torch.ops import attention, masking
 from mofo_tpu_torch.ops import rand_augment as RA
 from mofo_tpu_torch.parallel import mesh as mesh_lib
+from mofo_tpu_torch.tools import bench_finetune as BF
+from mofo_tpu_torch.tools import bench_pretrain_model as BP
 from mofo_tpu_torch.tools import convergence_ab as CA
 from mofo_tpu_torch.tools import convergence_ab_finetune as CF
 from mofo_tpu_torch.tools import ddp_ranks, e2e_recipe, mesh_ranks
@@ -430,6 +457,7 @@ from mofo_tpu_torch.tools.main_path import (
     mh_attention_against_plain,
     mh_inputs,
     moved_draws,
+    plain_attention,
     planted_faults,
     synthetic_batch,
     synthetic_clips_u8,
@@ -486,9 +514,19 @@ MAIN = {"encoder": (STEP_BATCH, 160, 12), "decoder": (STEP_BATCH, 1568, 6),
 MESH_GEOS = {"mesh_vitb_decoder_h3": (8, 1568, 3),
              "mesh_vitl_decoder_h4": (8, 1568, 4),
              "mesh_vitl_encoder_h8": (8, 160, 8)}
+# the registry's largest token grids at ViT-L's 16 heads, one clip each:
+# vit_large_patch16_384 (4608 tokens) and vit_large_patch16_512 (8192)
+LARGE_CHECKS = {"res384_vitl_h16": (1, 4608, 16), "res512_h16": (1, 8192, 16)}
 CHECKS = {**MAIN, "ragged": (8, 100, 2), "frames32_h6": (2, 3136, 6),
           "frames32_h12": (2, 3136, 12), "res384_h12": (1, 4608, 12),
-          "vitl_h16": (2, 1568, 16), **MESH_GEOS}
+          "vitl_h16": (2, 1568, 16), **MESH_GEOS, **LARGE_CHECKS}
+# K1/K2 at the flat head dims besides 64 (F7): (B, N, H), a long geometry
+# (the ViT-B or ViT-L heads at attn_head_dim D, A % 128 == 0) and a ragged
+# one; times at the long one
+QKV_FLAT_HEAD_DIMS = (16, 32, 128)
+QKV_HEAD_DIM_CHECKS = {16: {"long": (2, 1568, 16), "ragged": (4, 100, 8)},
+                       32: {"long": (2, 1568, 12), "ragged": (4, 100, 4)},
+                       128: {"long": (2, 1568, 12), "ragged": (4, 100, 2)}}
 FT_BATCH = 10
 # K3: (B, N, H, D); the MCA is the finetune step's own
 MH_CHECKS = {"mca": (FT_BATCH, 1568, 3, 256), "h12": (FT_BATCH, 1568, 12, 64),
@@ -526,6 +564,33 @@ STEP_LAUNCHES = {
 # an eval call (validation or a test view) runs the forwards only
 EVAL_LAUNCHES = {FINETUNE_MODEL: {**dict.fromkeys(fa.KERNELS, 0),
                                   "qkv_attn_fwd": 12, "mh_attn_fwd": 1}}
+# the registry's large geometries as whole steps (phase large_presets):
+# label -> (bench tool, its flags; the tools' batch rules give B), and the
+# K1/K2 launches of each a train step and an eval call: every Block (ViT-L
+# pretrain: 24 encoder + 4 decoder)
+LARGE_PRESETS = {
+    "vitl_pretrain": ("pretrain", ["--model", "large"]),
+    "vitl_224": ("finetune", ["--model", "large"]),
+    "vitb_384": ("finetune", ["--img", "384"]),
+    "vitb_32f": ("finetune", ["--frames", "32"]),
+    "vitl_384": ("finetune", ["--model", "large", "--img", "384"]),
+    "vitl_512": ("finetune", ["--model", "large", "--img", "512"]),
+}
+LARGE_BLOCKS = {"vitl_pretrain": 28, "vitl_224": 24, "vitb_384": 12,
+                "vitb_32f": 12, "vitl_384": 24, "vitl_512": 24}
+STEP_LAUNCHES.update({
+    label: {**dict.fromkeys(fa.KERNELS, 0),
+            **dict.fromkeys(fa.QKV_KERNELS, n)}
+    for label, n in LARGE_BLOCKS.items()})
+EVAL_LAUNCHES.update({
+    label: {**dict.fromkeys(fa.KERNELS, 0), "qkv_attn_fwd": n}
+    for label, n in LARGE_BLOCKS.items()
+    if LARGE_PRESETS[label][0] == "finetune"})
+LARGE_STEPS = 3  # 1 warm-up + 2 timed
+LARGE_EVALS = 2  # 1 warm-up + 1 timed
+# the depth of the kernels-against-plain steps: the plain versions keep
+# (B, H, N, N) f32 scores, 4.3 GB a Block at 8192 tokens and 16 heads
+LARGE_CHECK_DEPTH = 2
 # the runner's flags; --warmup_epochs 1 because the default 40 warm-up
 # epochs do not fit a 2-epoch cosine schedule
 RUNNER_ARGS = ["--model", VITS_MODEL, "--synthetic", "64", "--batch_size",
@@ -544,7 +609,7 @@ REAL_CLIPS = 64  # the SSV2-style videos of phase real_data_runner
 PRETRAIN_F32_RTOL = 0.05
 FINAL_TEST = re.compile(r"Final test: Acc@1 ([\d.]+) Acc@5 ([\d.]+) "
                         r"\(([\d.]+) s\)")
-D = fa.HEAD_DIM
+D = 64  # the registry presets' head dim
 SCALE = D ** -0.5
 # a bf16 step through the kernels against the same step through the plain
 # bf16 versions: loss and gradient norm, relative. The plain versions repeat
@@ -671,8 +736,12 @@ OVERFIT_DROP = 0.05
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "t": round(time.perf_counter() - T0, 2),
+                      **fields}), flush=True)
 
 
 def phase_device() -> str:
@@ -709,9 +778,9 @@ def phase_build() -> None:
          library=info["path"], sources=list(_build.SOURCES), ptxas=ptxas)
 
 
-def _qkv(B, N, H, dtype, seed):
+def _qkv(B, N, H, dtype, seed, d: int = D):
     g = torch.Generator().manual_seed(seed)
-    return torch.randn(B, N, 3 * H * D, generator=g).to(dtype).cuda()
+    return torch.randn(B, N, 3 * H * d, generator=g).to(dtype).cuda()
 
 
 def check_kernels(x, H, scale: float = SCALE) -> dict:
@@ -776,12 +845,12 @@ def least_times(work: dict) -> dict:
     return out
 
 
-def bounds(B, N, H) -> dict:
+def bounds(B, N, H, d: int = D) -> dict:
     """Least time (ms) for each kernel's work on an H100 SXM: the larger of
     its FLOPs over the bf16 tensor peak and its bytes (each input read once,
     each output written once) over HBM bandwidth."""
-    e, A = 2, H * D
-    mm = 2 * B * H * N * N * D  # one (N x N x D) product
+    e, A = 2, H * d
+    mm = 2 * B * H * N * N * d  # one (N x N x d) product
     qkv, row = B * N * 3 * A * e, B * N * A * e
     stat = B * H * N * 4
     work = {
@@ -796,53 +865,100 @@ def bounds(B, N, H) -> dict:
 
 
 def time_kernels(x, H) -> dict:
-    """kernel, plain, library and bound times (ms) on bf16 qkv x."""
+    """kernel, plain, library and bound times (ms) on bf16 qkv x (head dim
+    x's width / 3H, scale its -1/2 power)."""
     dtype = x.dtype
-    B, N, _ = x.shape
-    out, lse = fa.qkv_attn_fwd(x, SCALE, H)
+    B, N, A3 = x.shape
+    d = A3 // (3 * H)
+    scale = d ** -0.5
+    out, lse = fa.qkv_attn_fwd(x, scale, H)
     dout = (2 * out.float()).to(dtype)
     dqkv = torch.empty_like(x)
     q, k, v = (t.contiguous().requires_grad_(True)
                for t in fa.split_heads(x, H))
-    o_lib = F.scaled_dot_product_attention(q, k, v, scale=SCALE)
-    g_lib = dout.reshape(B, N, H, D).transpose(1, 2).contiguous()
+    o_lib = F.scaled_dot_product_attention(q, k, v, scale=scale)
+    g_lib = dout.reshape(B, N, H, d).transpose(1, 2).contiguous()
     plain_bwd = time_ms(lambda: fa.attention_qkv_bwd_plain(
-        x, out, lse, dout, SCALE, H), runs=10)
+        x, out, lse, dout, scale, H), runs=10)
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         o_lib, (q, k, v), g_lib, retain_graph=True))
-    prep = fa.qkv_attn_bwd_prep(x, out, dout, SCALE, H)
+    prep = fa.qkv_attn_bwd_prep(x, out, dout, scale, H)
     res = {
         "qkv_attn_fwd": {
-            "ms": time_ms(lambda: fa.qkv_attn_fwd(x, SCALE, H)),
+            "ms": time_ms(lambda: fa.qkv_attn_fwd(x, scale, H)),
             "plain_ms": time_ms(
-                lambda: fa.attention_qkv_fwd_plain(x, SCALE, H), runs=10),
+                lambda: fa.attention_qkv_fwd_plain(x, scale, H), runs=10),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                q.detach(), k.detach(), v.detach(), scale=SCALE)),
+                q.detach(), k.detach(), v.detach(), scale=scale)),
         },
         # no one library call computes delta and the scaled q alone
         "qkv_attn_bwd_prep": {
             "ms": time_ms(lambda: fa.qkv_attn_bwd_prep(
-                x, out, dout, SCALE, H)),
+                x, out, dout, scale, H)),
             "plain_ms": time_ms(lambda: fa.attention_qkv_bwd_prep_plain(
-                x, out, dout, SCALE, H)),
+                x, out, dout, scale, H)),
             "library_ms": None,
         },
         "qkv_attn_bwd_dkv": {
             "ms": time_ms(lambda: fa.qkv_attn_bwd_dkv(
-                x, out, lse, dout, dqkv, SCALE, H, prep)),
+                x, out, lse, dout, dqkv, scale, H, prep)),
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
         "qkv_attn_bwd_dq": {
             "ms": time_ms(lambda: fa.qkv_attn_bwd_dq(
-                x, out, lse, dout, dqkv, SCALE, H, prep)),
+                x, out, lse, dout, dqkv, scale, H, prep)),
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
     }
-    for name, (bound, by) in bounds(B, N, H).items():
+    for name, (bound, by) in bounds(B, N, H, d).items():
         res[name].update(bound_ms=bound, bound_by=by)
         if res[name]["ms"] < bound:
             raise AssertionError(f"{name} beat its bound: {res[name]}")
     return res
+
+
+def qkv_errors(res: dict) -> dict:
+    """Each K1/K2 entry point's largest error from check_kernels' bf16
+    result."""
+    err = res["max_abs_err"]
+    return {"qkv_attn_fwd": err["out"],
+            "qkv_attn_bwd_prep": res["prep"]["max_abs_err"],
+            "qkv_attn_bwd_dkv": max(err["dk"], err["dv"]),
+            "qkv_attn_bwd_dq": err["dq"]}
+
+
+def phase_qkv_head_dims(smi: str) -> dict:
+    """F7: K1/K2's four entry points at the flat head dims 16, 32 and 128
+    against their plain versions (check_kernels' bounds and planted faults;
+    the scale D^-0.5, which at 32 and 128 is no power of two: dQ's
+    scaled-K copy) at QKV_HEAD_DIM_CHECKS, bf16 and f32; kernel, plain,
+    library and bound times at the long geometry in bf16; a head dim
+    outside fa.QKV_HEAD_DIMS raises on the card. Returns {D: (max errors,
+    times)}."""
+    out = {}
+    for hd in QKV_FLAT_HEAD_DIMS:
+        for i, (geo, (B, N, heads)) in enumerate(
+                QKV_HEAD_DIM_CHECKS[hd].items()):
+            for dtype in (torch.bfloat16, torch.float32):
+                x = _qkv(B, N, heads, dtype, hd + i, d=hd)
+                res = check_kernels(x, heads, hd ** -0.5)
+                emit("qkv_head_dims_vs_plain", D=hd, geometry=geo, B=B, N=N,
+                     H=heads, dtype=str(dtype).replace("torch.", ""), **res)
+                if geo == "long" and dtype == torch.bfloat16:
+                    times = time_kernels(x, heads)
+                    emit("qkv_head_dim_times", D=hd, B=B, N=N, H=heads,
+                         dtype="bfloat16", times=times, nvidia_smi=smi)
+                    out[hd] = (qkv_errors(res), times)
+                del x
+    x = _qkv(2, 100, 8, torch.bfloat16, 0, d=48)
+    try:
+        fa.flash_attention_qkv(x, scale=48 ** -0.5, num_heads=8)
+    except ValueError as e:
+        emit("qkv_head_dim_refused", D=48, error=str(e))
+    else:
+        raise AssertionError("K1 ran at head dim 48: no kernel is built for "
+                             "it")
+    return out
 
 
 def phase_kernels():
@@ -857,12 +973,9 @@ def phase_kernels():
             emit("kernels_vs_plain", geometry=geo, B=B, N=N, H=H,
                  dtype=str(dtype).replace("torch.", ""), **res)
             if dtype == torch.bfloat16 and (geo in MAIN or
-                                            geo in MESH_GEOS):
-                err = res["max_abs_err"]
-                errors[geo] = {"qkv_attn_fwd": err["out"],
-                               "qkv_attn_bwd_prep": res["prep"]["max_abs_err"],
-                               "qkv_attn_bwd_dkv": max(err["dk"], err["dv"]),
-                               "qkv_attn_bwd_dq": err["dq"]}
+                                            geo in MESH_GEOS or
+                                            geo in LARGE_CHECKS):
+                errors[geo] = qkv_errors(res)
                 timings[geo] = time_kernels(x, H)
                 emit("kernel_times", geometry=geo, B=B, N=N, H=H,
                      dtype="bfloat16", times=timings[geo])
@@ -1020,7 +1133,7 @@ def phase_mh_kernels():
             q, k, v, b = mh_inputs(B, N, H, D, dtype, 7, "cuda")
             res = check_mh_kernels(q, k, v, b, H, 0.1)
             if dtype == torch.bfloat16 and res["prep"]["ks"] is not (
-                    True if D == fa.HEAD_DIM else None):
+                    True if D == 64 else None):
                 raise AssertionError(f"the scaled K copy at D={D}: {res}")
             emit("mh_kernels_vs_plain", geometry=geo, B=B, N=N, H=H, D=D,
                  scale=0.1, dtype=str(dtype).replace("torch.", ""),
@@ -1455,6 +1568,101 @@ def phase_hm_head_dims(smi: str) -> dict:
         if hd in out:
             out[hd] = (out[hd], times)
     return out
+
+
+def mod_is_finetune(label: str) -> bool:
+    return LARGE_PRESETS[label][0] == "finetune"
+
+
+def _large_flags(label: str, *extra: str) -> tuple:
+    """(bench module, its parsed flags) of preset `label`."""
+    tool, flags = LARGE_PRESETS[label]
+    mod = BF if tool == "finetune" else BP
+    return mod, mod.parse_args([*flags, *extra])
+
+
+def _large_check_steps(label: str, plain: bool) -> list:
+    """2 bf16 steps of preset `label` at LARGE_CHECK_DEPTH Blocks, B = 1,
+    through the kernels or (plain) their plain versions: loss and gradient
+    norm a step; each route's launches checked."""
+    depth = str(LARGE_CHECK_DEPTH)
+    mod, args = _large_flags(label, "--batch", "1", *(
+        ("--depth", depth) if mod_is_finetune(label) else
+        ("--encoder_depth", depth, "--decoder_depth", depth)))
+    run = mod.build(args)
+    extra = () if mod is BF else (BP.LOSS_WEIGHT,)
+    fa.reset_launch_counts()
+    metrics = []
+    with plain_attention() if plain else contextlib.nullcontext():
+        for _ in range(2):
+            run["state"], m = run["step"](run["state"], run["batch"],
+                                          run["generator"], *extra)
+            metrics.append({k: float(m[k]) for k in ("loss", "grad_norm")})
+    torch.cuda.synchronize()
+    want = {k: 0 if plain else 2 * v
+            for k, v in run["launches_per_step"].items()}
+    if fa.launch_counts != want:
+        raise AssertionError(f"{label} depth {depth} through the "
+                             f"{'plain versions' if plain else 'kernels'}: "
+                             f"launches {fa.launch_counts}, expected {want}")
+    return metrics
+
+
+def phase_large_presets(smi: str) -> dict:
+    """The registry's large geometries (LARGE_PRESETS) as whole bf16 steps
+    at full width and depth and the JAX tools' batches: LARGE_STEPS train
+    steps and, for the classifiers, LARGE_EVALS eval calls, finite losses,
+    every kernel's launches against STEP_LAUNCHES / EVAL_LAUNCHES; then at
+    LARGE_CHECK_DEPTH Blocks and B = 1 the steps through the kernels
+    against the same steps through the plain versions. Returns the
+    launches of the full-depth runs, summed."""
+    total = dict.fromkeys(fa.KERNELS, 0)
+    for label in LARGE_PRESETS:
+        t0 = time.perf_counter()
+        mod, args = _large_flags(label)
+        run = mod.build(args)
+        if run["launches_per_step"] != STEP_LAUNCHES[label]:
+            raise AssertionError(f"{label}: the tool's launches a step "
+                                 f"{run['launches_per_step']}")
+        res = mod.run_steps(run, LARGE_STEPS - 1)
+        rec = BF.record(run, res, label, train=True)
+        launches = dict(res["launches"])
+        ev = None
+        if mod_is_finetune(label):
+            ev = BF.run_steps(run, LARGE_EVALS - 1, ev=True)
+            if ev["launches"] != {k: LARGE_EVALS * v for k, v in
+                                  EVAL_LAUNCHES[label].items()}:
+                raise AssertionError(f"{label} eval launches "
+                                     f"{ev['launches']}")
+            launches = {k: launches[k] + ev["launches"][k] for k in launches}
+        for k in total:
+            total[k] += launches[k]
+        extra = rec["extra"]
+        emit("large_presets", preset=label, model=run["cfg"].model,
+             flags=LARGE_PRESETS[label][1], batch=run["B"],
+             tokens=run["tokens"], blocks=LARGE_BLOCKS[label],
+             steps=LARGE_STEPS, step_ms=res["ms"], losses=res["losses"],
+             clips_per_s=rec["value"], mfu=extra["mfu"],
+             peak_mem_gib=res["peak_mem_gib"],
+             eval_ms=ev and ev["ms"], eval_losses=ev and ev["losses"],
+             eval_clips_per_s=ev and run["B"] / ev["ms"] * 1e3,
+             launches={k: v for k, v in launches.items() if v},
+             seconds=time.perf_counter() - t0, nvidia_smi=smi)
+        del run
+        torch.cuda.empty_cache()
+    for label in LARGE_PRESETS:
+        runs = {route: _large_check_steps(label, route == "plain")
+                for route in ("kernels", "plain")}
+        torch.cuda.empty_cache()
+        rel = [{k: abs(a[k] - b[k]) / abs(b[k]) for k in a}
+               for a, b in zip(runs["kernels"], runs["plain"])]
+        emit("large_presets_vs_plain", preset=label, dtype="bfloat16",
+             batch=1, depth=LARGE_CHECK_DEPTH, steps=2, **runs,
+             rel_diff=rel, bound=BF16_STEP_RTOL)
+        if not max(max(r.values()) for r in rel) <= BF16_STEP_RTOL:
+            raise AssertionError(f"{label}: kernels vs plain versions beyond "
+                                 f"rtol {BF16_STEP_RTOL}: {rel}")
+    return total
 
 
 def _runner_log(out: str) -> list:
@@ -3606,14 +3814,55 @@ def _curve_fields(art: dict) -> dict:
     return {k: art[k] for k in keys if k in art}
 
 
-def phase_convergence_ab(smi: str) -> dict:
+def draw_ab_streams() -> tuple:
+    """Starts drawing the A/B phases' streams (the JAX tools' legacy numpy
+    randn, CA's and CF's synthetic_stream: about a minute of one host core
+    each) on two threads, so that they are ready when phases convergence_ab
+    and convergence_ft come; returns the threads and the dict they fill."""
+    streams = {}
+
+    def draw(key, fn):
+        try:
+            streams[key] = fn(CONV_STEPS, CONV_BATCH)
+        except BaseException as e:  # re-raised by ab_stream
+            streams["error"] = e
+
+    threads = [threading.Thread(target=draw, args=(key, fn), daemon=True,
+                                name=f"{key}-stream")
+               for key, fn in (("ab", CA.synthetic_stream),
+                               ("ft", CF.synthetic_stream))]
+    for t in threads:
+        t.start()
+    return threads, streams
+
+
+def ab_streams_drawn(drawing: tuple) -> None:
+    """Waits for draw_ab_streams' threads: before the first phase that
+    forks (the loader's process workers), and before the streams are
+    used."""
+    threads, streams = drawing
+    for t in threads:
+        t.join()
+    if "error" in streams:
+        raise RuntimeError("drawing the A/B streams failed") from \
+            streams["error"]
+
+
+def ab_stream(drawing: tuple, key: str):
+    """Stream `key` of draw_ab_streams, once drawn (it leaves the dict)."""
+    ab_streams_drawn(drawing)
+    return drawing[1].pop(key)
+
+
+def phase_convergence_ab(smi: str, drawing: tuple) -> dict:
     """ViT-B MOFO pretrain, 50 steps at B=16: the bf16 production arm
     (K1/K2) against the f32 plain-attention arm (tools/convergence_ab.py)
-    under mofo_tpu's gates; then the production arm with a doubled learning
-    rate (the planted fault the gates must reject) and with K2's dQ zeroed
-    (how far the check reaches; printed)."""
+    under mofo_tpu's gates, on the stream draw_ab_streams drew; then the
+    production arm with a doubled learning rate (the planted fault the
+    gates must reject) and with K2's dQ zeroed (how far the check reaches;
+    printed)."""
     t0 = time.perf_counter()
-    stream = CA.synthetic_stream(CONV_STEPS, CONV_BATCH)
+    stream = ab_stream(drawing, "ab")
     art = CA.run(CONV_STEPS, CONV_BATCH, device="cuda", stream=stream)
     launches = _arm_launches("convergence_ab", art, ("prod",))
     planted = {}
@@ -3640,14 +3889,15 @@ def phase_convergence_ab(smi: str) -> dict:
     return launches
 
 
-def phase_convergence_ft(smi: str) -> tuple:
+def phase_convergence_ft(smi: str, drawing: tuple) -> tuple:
     """ViT-B classifier finetune, 50 steps at B=16, mixup on: the bf16 and
     fp16 (dynamic loss scale) arms through K1/K2 against the f32
     plain-attention arm (tools/convergence_ab_finetune.py) under
-    mofo_tpu's gates; each arm's peak memory. Returns the launches and the
-    model's attention Blocks."""
+    mofo_tpu's gates, on the stream draw_ab_streams drew; each arm's peak
+    memory. Returns the launches and the model's attention Blocks."""
     t0 = time.perf_counter()
-    art = CF.run(CONV_STEPS, CONV_BATCH, fp16=True, device="cuda")
+    art = CF.run(CONV_STEPS, CONV_BATCH, fp16=True, device="cuda",
+                 stream=ab_stream(drawing, "ft"))
     launches = _arm_launches("convergence_ft", art, ("prod", "fp16"))
     emit("convergence_ft", model=CF.MODEL, **_curve_fields(art),
          fp16_skipped_steps=art["fp16_skipped_steps"],
@@ -3723,7 +3973,9 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
     phase_build()
+    drawing = draw_ab_streams()
     errors, timings = phase_kernels()
+    qkv_head_dims = phase_qkv_head_dims(smi)
     mh_errors, mh_timings = phase_mh_kernels()
     launches = phase_step(smi)
     phase_parity()
@@ -3739,6 +3991,7 @@ def main() -> int:
     phase_finetune_augment(smi, ft_step_ms)
     phase_fp16_finetune_step()
     ft_runner_launches = phase_finetune_runner(smi)
+    ab_streams_drawn(drawing)  # no fork while a drawing thread runs
     real_launches = phase_real_data_runner(smi)
     later = {"launches_ddp_step": phase_ddp_step(smi),
              "launches_ddp_two_ranks": phase_ddp_two_ranks(smi),
@@ -3759,11 +4012,13 @@ def main() -> int:
     later["launches_mesh_runner"] = phase_mesh_runner(smi)
     later["launches_mesh_zoo"] = phase_mesh_zoo(smi)
     later["launches_mesh_adahessian"] = phase_mesh_adahessian(smi)
-    t_new = time.perf_counter()
-    later["launches_convergence_ab"] = phase_convergence_ab(smi)
-    later["launches_convergence_ft"], blocks = phase_convergence_ft(smi)
+    later["launches_convergence_ab"] = phase_convergence_ab(smi, drawing)
+    later["launches_convergence_ft"], blocks = phase_convergence_ft(
+        smi, drawing)
     phase_e2e_recipe(smi)
     later["launches_overfit_real"] = phase_overfit_real(smi, blocks)
+    t_new = time.perf_counter()
+    later["launches_large_presets"] = phase_large_presets(smi)
     new_s = time.perf_counter() - t_new
     kernels = []
     for name in fa.QKV_KERNELS:
@@ -3784,7 +4039,14 @@ def main() -> int:
             **{key: counts[name] for key, counts in later.items()},
             **{geo: {**timings[geo][name],
                      "max_abs_err": errors[geo][name]}
-               for geo in ("encoder", "backbone", *MESH_GEOS)},
+               for geo in ("encoder", "backbone", *MESH_GEOS,
+                           *LARGE_CHECKS)},
+            "head_dims": {
+                hd: {**qkv_head_dims[hd][1][name],
+                     "max_abs_err": qkv_head_dims[hd][0][name],
+                     "shape": "(B=%d, N=%d, H=%d, D=%d) bf16" % (
+                         *QKV_HEAD_DIM_CHECKS[hd]["long"], hd)}
+                for hd in QKV_FLAT_HEAD_DIMS},
         })
     for name in fa.MH_KERNELS:
         mca = mh_timings[name]

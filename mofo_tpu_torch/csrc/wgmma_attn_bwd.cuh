@@ -7,8 +7,10 @@
 // (mh_flash_attention.cu) and shares the prep pass.
 //
 // Layout. Every operand is reached through a 3D tensor map (columns, rows,
-// planes) of 64 x D boxes (D = 64 but for K4, which also takes 16 and 32:
-// the kernels and launchers take D as a template parameter, 64 by default),
+// planes) of 64 x D boxes (D = 64 but for K4, which also takes 16 and 32,
+// and K2, which takes 16, 32 and 128; at 128 a tile is two 64 x 64 boxes,
+// wgmma_tiles.cuh's *_d helpers: the kernels and launchers take D as a
+// template parameter, 64 by default),
 // and block (x, y) works on plane b = y / H at columns h * D + a
 // per-operand offset, h = y % H:
 //   - fused qkv (B, N, 3A): one map serves q, k and v, H heads a plane, k at
@@ -66,10 +68,9 @@ constexpr int kPrepThreads = 256;
 // Grid-stride over the 8-value chunks of BN rows of A = 8 kHeadChunks H
 // columns: chunk c of row i is q[i, 8c..8c+7] (row stride ldq; k the same
 // with ldk) and the same columns of dO, O, qs and ks (row stride A).
-// kHeadChunks consecutive chunks are one head (2, 4 or 8 at head dims 16,
-// 32 or 64, 32 at 256: a warp never straddles two heads), so delta is a
-// shuffle sum over that
-// many lanes, written at ((i / N) * H + c / kHeadChunks) * N + i % N. ks
+// kHeadChunks consecutive chunks are one head (2, 4, 8 or 16 at head dims
+// 16, 32, 64 or 128, 32 at 256: a warp never straddles two heads), so delta
+// is a shuffle sum over that many lanes, written at ((i / N) * H + c / kHeadChunks) * N + i % N. ks
 // (when not null) gets k * k_scale rounded to bf16.
 template <int kHeadChunks>
 __global__ void __launch_bounds__(kPrepThreads)
@@ -79,8 +80,8 @@ __global__ void __launch_bounds__(kPrepThreads)
                   bf16* __restrict__ qs, bf16* __restrict__ ks, int BN, int N,
                   int H, float q_scale, float k_scale) {
   static_assert(kHeadChunks == 2 || kHeadChunks == 4 || kHeadChunks == 8 ||
-                    kHeadChunks == 32,
-                "head dim 16, 32, 64 or 256");
+                    kHeadChunks == 16 || kHeadChunks == 32,
+                "head dim 16, 32, 64, 128 or 256");
   const int A = H * 8 * kHeadChunks, C = A / 8;
   const int total = BN * C;  // < 2^31: launch_bwd_prep's bound
   const int stride = gridDim.x * blockDim.x;
@@ -157,7 +158,9 @@ constexpr size_t smem_dkv_bf16() {
 }
 
 // Grid (ceil(N / (64 kWG)), planes * H). One block: one head's 64 kWG
-// key/value rows (K fragments in registers, V in shared memory); streams
+// key/value rows (K fragments in registers, V in shared memory; at D = 128
+// K too is read from shared memory, which keeps 32 registers a thread for
+// the dK and dV accumulators' 128); streams
 // (q * scale, dO) tiles and their LSE and delta, and accumulates dK and dV
 // in registers. Each warpgroup forms S^T = K Q^T and dP^T = V dO^T for its
 // kv rows, so P^T and dS^T feed dV += P^T dO and dK += dS^T Q straight from
@@ -174,7 +177,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                  const float* __restrict__ bias, bf16* __restrict__ dk,
                  bf16* __restrict__ dv, int ld_out, int N, int H,
                  float dk_fix) {
-  constexpr int kTE = tile_elems<D>(), kTB = tile_bytes<D>(), kRB = 2 * D;
+  constexpr int kTE = tile_elems<D>(), kTB = tile_bytes<D>();
+  constexpr bool kKInRegs = D <= 64;
   extern __shared__ unsigned char wsmem[];
   unsigned char* sm = smem_1024(wsmem);
   bf16* sK = reinterpret_cast<bf16*>(sm);
@@ -208,8 +212,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         mbar_expect_tx(kvbar, 2 * kWG * kTB);
         for (int w = 0; w < kWG; ++w) {
           const int row = k0 + kTileRows * w;
-          tma_tile(sK + w * kTE, &tk, kvbar, col_k + h * D, row, b);
-          tma_tile(sV + w * kTE, &tv, kvbar, col_v + h * D, row, b);
+          tma_tile_d<D>(sK + w * kTE, &tk, kvbar, col_k + h * D, row, b);
+          tma_tile_d<D>(sV + w * kTE, &tv, kvbar, col_v + h * D, row, b);
         }
       }
       const float* lse_bh = lse + (size_t)bh * N;
@@ -219,10 +223,10 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         mbar_wait(&empty[s], ((j / kBwdStages) & 1) ^ 1);
         if (lane == 0) {
           mbar_expect_tx(&full[s], 2 * kTB);
-          tma_tile(sQ + s * kTE, &tqs, &full[s], h * D,
-                   j * kTileRows, b);
-          tma_tile(sdO + s * kTE, &tdo, &full[s], h * D,
-                   j * kTileRows, b);
+          tma_tile_d<D>(sQ + s * kTE, &tqs, &full[s], h * D, j * kTileRows,
+                        b);
+          tma_tile_d<D>(sdO + s * kTE, &tdo, &full[s], h * D, j * kTileRows,
+                        b);
         }
         float* st = sStat + s * 2 * kTileRows;
         for (int r = lane; r < kTileRows; r += 32) {
@@ -247,8 +251,9 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       }
     }
     mbar_wait(kvbar, 0);
-    uint32_t ka[D / 16][4];  // V stays in shared memory: A of dP^T through desc
-    load_a_sw(ka, sK + wg * kTE, r0, 1.f);
+    // V stays in shared memory: A of dP^T through desc (K too at D = 128)
+    uint32_t ka[kKInRegs ? D / 16 : 1][4];
+    if constexpr (kKInRegs) load_a_sw(ka, sK + wg * kTE, r0, 1.f);
     float dka[D / 8][4] = {}, dva[D / 8][4] = {};
 
     for (int j = 0; j < T; ++j) {
@@ -257,8 +262,11 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       const bf16* q_tile = sQ + s * kTE;
       const bf16* do_tile = sdO + s * kTE;
       float st[8][4] = {}, dpt[8][4] = {};
-      wgmma_tile<0, kRB>(st, ka, q_tile);
-      wgmma_tile_ss<0, kRB>(dpt, sV + wg * kTE, do_tile);
+      if constexpr (kKInRegs)
+        wgmma_tile_d<0, D>(st, ka, q_tile);
+      else
+        wgmma_tile_ss_d<D>(st, sK + wg * kTE, q_tile);
+      wgmma_tile_ss_d<D>(dpt, sV + wg * kTE, do_tile);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(st);
@@ -283,8 +291,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                                 da[nt >> 1][2 * (nt & 1) + (e >> 1)]);
         }
       }
-      wgmma_tile<1, kRB>(dva, pa, do_tile);
-      wgmma_tile<1, kRB>(dka, da, q_tile);
+      wgmma_tile_d<1, D>(dva, pa, do_tile);
+      wgmma_tile_d<1, D>(dka, da, q_tile);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(dka);
@@ -330,7 +338,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                 const float* __restrict__ bias, bf16* __restrict__ dq,
                 int ld_out, int N, int H, float acc_mul) {
   constexpr int kLoads = kScaledCopy ? 3 : 2;
-  constexpr int kTE = tile_elems<D>(), kTB = tile_bytes<D>(), kRB = 2 * D;
+  constexpr int kTE = tile_elems<D>(), kTB = tile_bytes<D>();
   extern __shared__ unsigned char wsmem[];
   unsigned char* sm = smem_1024(wsmem);
   bf16* sQ = reinterpret_cast<bf16*>(sm);
@@ -364,8 +372,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         mbar_expect_tx(qbar, 2 * kWG * kTB);
         for (int w = 0; w < kWG; ++w) {
           const int row = q0 + kTileRows * w;
-          tma_tile(sQ + w * kTE, &tqs, qbar, h * D, row, b);
-          tma_tile(sdO + w * kTE, &tdo, qbar, h * D, row, b);
+          tma_tile_d<D>(sQ + w * kTE, &tqs, qbar, h * D, row, b);
+          tma_tile_d<D>(sdO + w * kTE, &tdo, qbar, h * D, row, b);
         }
       }
       const float* bias_b = kBias && bias ? bias + (size_t)b * N : nullptr;
@@ -375,12 +383,13 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
         mbar_wait(&empty[s], ((j / kBwdStages) & 1) ^ 1);
         if (lane == 0) {
           mbar_expect_tx(&full[s], kLoads * kTB);
-          tma_tile(stage, &tk, &full[s], col_k + h * D, j * kTileRows, b);
-          tma_tile(stage + kTE, &tv, &full[s], col_v + h * D,
-                   j * kTileRows, b);
+          tma_tile_d<D>(stage, &tk, &full[s], col_k + h * D, j * kTileRows,
+                        b);
+          tma_tile_d<D>(stage + kTE, &tv, &full[s], col_v + h * D,
+                        j * kTileRows, b);
           if (kScaledCopy)
-            tma_tile(stage + 2 * kTE, &tks, &full[s], h * D,
-                     j * kTileRows, b);
+            tma_tile_d<D>(stage + 2 * kTE, &tks, &full[s], h * D,
+                          j * kTileRows, b);
         }
         if (kBias) {
           float* sb = sBias + s * kTileRows;
@@ -416,8 +425,8 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       mbar_wait(&full[s], (j / kBwdStages) & 1);
       const bf16* stage = sKV + s * kLoads * kTE;
       float sc[8][4] = {}, dp[8][4] = {};
-      wgmma_tile<0, kRB>(sc, qa, stage);
-      wgmma_tile<0, kRB>(dp, da, stage + kTE);
+      wgmma_tile_d<0, D>(sc, qa, stage);
+      wgmma_tile_d<0, D>(dp, da, stage + kTE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(sc);
@@ -445,7 +454,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                                 sa[nt >> 1][2 * (nt & 1) + (e >> 1)]);
         }
       }
-      wgmma_tile<1, kRB>(acc, sa, stage + (kScaledCopy ? 2 : 0) * kTE);
+      wgmma_tile_d<1, D>(acc, sa, stage + (kScaledCopy ? 2 : 0) * kTE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(acc);

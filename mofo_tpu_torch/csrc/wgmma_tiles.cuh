@@ -16,14 +16,23 @@
 // B = K^T of S = Q K^T) or MN-major (the rows are the contraction: B = V of
 // O = P V), which the descriptor and the trans-b flag select.
 //
-// K4 also takes head dims 16 and 32 (hm_flash_attention.cu): its tiles are
-// then 64 rows of 32 or 64 bytes, written with the 32- or 64-byte swizzle
-// (chunk c of the 16-byte chunks at byte offset o lies at c ^ ((o >> 7) &
-// (row bytes / 16 - 1)), atoms of 8 rows of 256 or 512 bytes). Every piece
-// below that depends on the row width takes the tile's row bytes (kRowBytes,
-// 2 D) or the count of 16-column k-steps (D / 16) as a template parameter,
-// whose default, or whose only instantiation from the 64-column callers,
-// is the 128-byte code these pieces had before.
+// K4 and K1/K2 also take head dims 16 and 32 (hm_flash_attention.cu,
+// qkv_flash_attention.cu): their tiles are then 64 rows of 32 or 64 bytes,
+// written with the 32- or 64-byte swizzle (chunk c of the 16-byte chunks at
+// byte offset o lies at c ^ ((o >> 7) & (row bytes / 16 - 1)), atoms of 8
+// rows of 256 or 512 bytes). Every piece below that depends on the row width
+// takes the tile's row bytes (kRowBytes, 2 D) or the count of 16-column
+// k-steps (D / 16) as a template parameter, whose default, or whose only
+// instantiation from the 64-column callers, is the 128-byte code these
+// pieces had before.
+//
+// K1/K2 also take head dim 128, wider than one 128-byte swizzle atom: a
+// 64 x 128 tile is then two 64 x 64 sub-tiles (8 KB each, one after the
+// other), each loaded by its own TMA box. The *_d helpers at the end take
+// the head dim D: at D <= 64 they are the one-tile calls above; at D = 128 a
+// contraction over D runs its k-steps 0-3 on sub-tile 0 and 4-7 on sub-tile
+// 1, and a product whose N is D (P.V) runs one n = 64 product a sub-tile
+// into its half of the accumulator.
 
 #pragma once
 
@@ -41,7 +50,7 @@ constexpr int kTileRows = 64;                // rows of every TMA tile
 constexpr int kTileBytes = kTileRows * 128;  // 64 x 64 bf16
 constexpr int kTileElems = kTileRows * 64;
 
-// A 64-row tile of D bf16 columns (D in {16, 32, 64}).
+// A 64-row tile of D bf16 columns (D in {16, 32, 64, 128}).
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
   return kTileRows * 2 * D;
@@ -49,6 +58,12 @@ __host__ __device__ constexpr int tile_bytes() {
 template <int D>
 __host__ __device__ constexpr int tile_elems() {
   return kTileRows * D;
+}
+// The columns of one TMA box and swizzle atom of such a tile: D up to 64,
+// else 64 (D = 128: two sub-tiles of 64 columns).
+template <int D>
+__host__ __device__ constexpr int box_cols() {
+  return D < 64 ? D : 64;
 }
 constexpr int kWarpgroup = 128;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -334,25 +349,29 @@ __device__ __forceinline__ void wgmma_tile_ss(float (&c)[8][4],
 }
 
 // A fragments (k = 16 KS: KS k-steps of 16) of rows [r0, r0 + 16) of a
-// swizzled tile of 32 KS-byte rows, r0 a multiple of 8. With mul != 1 each
-// value is multiplied by mul and rounded to bf16 (the scale fold).
+// swizzled tile of 32 KS-byte rows (KS = 8: two 128-byte-row sub-tiles, one
+// after the other, k-steps 4-7 in the second), r0 a multiple of 8. With
+// mul != 1 each value is multiplied by mul and rounded to bf16 (the scale
+// fold).
 template <int KS>
 __device__ __forceinline__ void load_a_sw(uint32_t (&a)[KS][4],
                                           const __nv_bfloat16* tile, int r0,
                                           float mul) {
-  constexpr int kRowBytes = 32 * KS;
+  constexpr int kRowBytes = KS < 4 ? 32 * KS : 128, kSteps = kRowBytes / 32;
   const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
   const unsigned char* base = reinterpret_cast<const unsigned char*>(tile);
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {  // i: row + 8 (bit 0), column + 8 (bit 1)
-      const int row = r0 + g + 8 * (i & 1), chunk = 2 * kk + (i >> 1);
+      const int row = r0 + g + 8 * (i & 1);
+      const int chunk = 2 * (kk % kSteps) + (i >> 1);
       // the swizzle: address bits 7.. xor into the chunk index (row % 8 at
       // 128-byte rows)
       const int swz = ((row * kRowBytes) >> 7) & (kRowBytes / 16 - 1);
       uint32_t v = *reinterpret_cast<const uint32_t*>(
-          base + row * kRowBytes + ((chunk ^ swz) << 4) + 4 * t);
+          base + (kk / kSteps) * kTileRows * kRowBytes + row * kRowBytes +
+          ((chunk ^ swz) << 4) + 4 * t);
       if (mul != 1.f) {
         const float2 f = __bfloat1622float2(
             *reinterpret_cast<const __nv_bfloat162*>(&v));
@@ -390,6 +409,95 @@ __device__ __forceinline__ void store_acc(bf16* dst, size_t ld,
       *reinterpret_cast<__nv_bfloat162*>(dst + row * ld + 8 * nt + 2 * t) =
           __floats2bfloat162_rn(c[nt][2 * half] * mul,
                                 c[nt][2 * half + 1] * mul);
+  }
+}
+
+// --- head dim D: one tile, or two sub-tiles at D = 128 -------------------
+
+// c[8 kHalf, 8 kHalf + 8) (a warp's 16 x 64 half of a 16 x 128
+// accumulator) += a . B: the n = 64 product of wgmma_rs on one half.
+template <int kTransB, int kHalf>
+__device__ __forceinline__ void wgmma_rs_half(float (&c)[16][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  constexpr int o = 8 * kHalf;
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(c[o][0]), "+f"(c[o][1]), "+f"(c[o][2]), "+f"(c[o][3]),
+        "+f"(c[o + 1][0]), "+f"(c[o + 1][1]), "+f"(c[o + 1][2]),
+        "+f"(c[o + 1][3]), "+f"(c[o + 2][0]), "+f"(c[o + 2][1]),
+        "+f"(c[o + 2][2]), "+f"(c[o + 2][3]), "+f"(c[o + 3][0]),
+        "+f"(c[o + 3][1]), "+f"(c[o + 3][2]), "+f"(c[o + 3][3]),
+        "+f"(c[o + 4][0]), "+f"(c[o + 4][1]), "+f"(c[o + 4][2]),
+        "+f"(c[o + 4][3]), "+f"(c[o + 5][0]), "+f"(c[o + 5][1]),
+        "+f"(c[o + 5][2]), "+f"(c[o + 5][3]), "+f"(c[o + 6][0]),
+        "+f"(c[o + 6][1]), "+f"(c[o + 6][2]), "+f"(c[o + 6][3]),
+        "+f"(c[o + 7][0]), "+f"(c[o + 7][1]), "+f"(c[o + 7][2]),
+        "+f"(c[o + 7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1),
+        "n"(kTransB));
+}
+
+// The 64-row tile of D columns at (column c0, row c1, plane c2) of `map`
+// (boxes of box_cols<D>() columns) into dst: one box, two at D = 128.
+template <int D>
+__device__ __forceinline__ void tma_tile_d(bf16* dst, const CUtensorMap* map,
+                                           uint64_t* bar, int c0, int c1,
+                                           int c2) {
+  constexpr int kBox = box_cols<D>();
+#pragma unroll
+  for (int s = 0; s < D / kBox; ++s)
+    tma_tile(dst + s * kTileRows * kBox, map, bar, c0 + s * kBox, c1, c2);
+}
+
+// wgmma_tile on a tile of D columns: kTransB 0 contracts over D (KS = D /
+// 16 k-steps, c n = 64), kTransB 1 has N = D (c of D / 8 column groups, KS
+// = 4 k-steps over the tile's 64 rows).
+template <int kTransB, int D, int NT, int KS>
+__device__ __forceinline__ void wgmma_tile_d(float (&c)[NT][4],
+                                             const uint32_t (&a)[KS][4],
+                                             const bf16* tile) {
+  if constexpr (D <= 64) {
+    wgmma_tile<kTransB, 2 * D>(c, a, tile);
+  } else if constexpr (kTransB == 0) {
+    static_assert(D == 128 && KS == 8 && NT == 8, "S-shaped at D = 128");
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+      wgmma_rs<0>(c, a[kk],
+                  desc_kmajor(tile + (kk / 4) * kTileElems, kk % 4));
+  } else {
+    static_assert(D == 128 && NT == 16 && KS == 4, "P.V-shaped at D = 128");
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      wgmma_rs_half<1, 0>(c, a[kk], desc_mnmajor(tile, kk));
+      wgmma_rs_half<1, 1>(c, a[kk], desc_mnmajor(tile + kTileElems, kk));
+    }
+  }
+}
+
+// c (n = 64) += A . B^T, both 64-row tiles of D columns read K-major from
+// shared memory (the contraction over D): wgmma_tile_ss at D.
+template <int D>
+__device__ __forceinline__ void wgmma_tile_ss_d(float (&c)[8][4],
+                                                const bf16* a_tile,
+                                                const bf16* tile) {
+  if constexpr (D <= 64) {
+    wgmma_tile_ss<0, 2 * D>(c, a_tile, tile);
+  } else {
+    static_assert(D == 128, "head dim 128");
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int sub = (kk / 4) * kTileElems;
+      wgmma_ss<0>(c, desc_kmajor(a_tile + sub, kk % 4),
+                  desc_kmajor(tile + sub, kk % 4));
+    }
   }
 }
 

@@ -7,10 +7,11 @@ run:
     Block: K1 (_qkv_fwd_impl / _mh_fwd_kernel) and K2 (_qkv_bwd_impl /
     _qkv_bwd_kernel, _qkv_bwd_kernel_houter), here csrc/qkv_flash_attention.cu.
     qkv is the fused (B, N, 3A) projection: [0, A) q, [A, 2A) k, [2A, 3A) v,
-    A = H * D (D = 64). The forward returns out (B, N, A) and a compact
-    (B, H, N) f32 row log-sum-exp; the backward returns one (B, N, 3A) dqkv,
-    in bf16 after a prep pass (qkv_attn_bwd_prep: delta = rowsum(dO * O)
-    and q * q_scale, read once) that its two kernels share.
+    A = H * D (D in QKV_HEAD_DIMS: 16, 32, 64 and 128, the flat route's head
+    dims; another D raises on the card). The forward returns out (B, N, A)
+    and a compact (B, H, N) f32 row log-sum-exp; the backward returns one
+    (B, N, 3A) dqkv, in bf16 after a prep pass (qkv_attn_bwd_prep: delta =
+    rowsum(dO * O) and q * q_scale, read once) that its two kernels share.
   - flash_attention_mh (:901), separate q, k, v (B, N, A) with an optional
     (B, N) f32 kv bias row (0 / -1e30), the masked cross-attention of the
     BB-focused classifier's MCA block: K3 (_mh_fwd_impl / _mh_fwd_kernel
@@ -71,7 +72,10 @@ import torch
 from torch.autograd.function import once_differentiable
 
 LOG2E = 1.4426950408889634
-HEAD_DIM = 64  # the one head dim the fused-qkv CUDA kernels are built for
+# the head dims the fused-qkv CUDA kernels (K1/K2) are built for: 64 is
+# every registry preset's, 16, 32 and 128 the flat route's at another
+# attn_head_dim (models/layers.Attention takes it when A % 128 == 0)
+QKV_HEAD_DIMS = (16, 32, 64, 128)
 MH_HEAD_DIMS = (64, 256)  # the head dims of the K3 kernels
 HM_HEAD_DIMS = (16, 32, 64)  # the head dims of the K4 kernels
 
@@ -240,19 +244,27 @@ def attention_qkv_bwd_from_prep_plain(qkv, lse, dout, delta, qs, ks,
     )
 
 
+def qkv_head_dim(qkv: torch.Tensor, heads: int) -> int:
+    """D of a fused (B, N, 3*H*D) qkv; raises unless the K1/K2 kernels are
+    built for it (QKV_HEAD_DIMS): a flat route at another head dim has no
+    kernel, and nothing falls back to the plain version on the card."""
+    if qkv.ndim != 3 or qkv.shape[-1] % (3 * heads):
+        raise ValueError(f"qkv must be (B, N, 3*H*D), got {tuple(qkv.shape)}")
+    hd = qkv.shape[-1] // (3 * heads)
+    if hd not in QKV_HEAD_DIMS:
+        raise ValueError(
+            f"head dim {hd} unsupported: the fused-qkv kernels are built "
+            f"for {QKV_HEAD_DIMS}"
+        )
+    return hd
+
+
 def _check_cuda(qkv: torch.Tensor, heads: int, *others: torch.Tensor):
+    qkv_head_dim(qkv, heads)
     if qkv.device.type != "cuda":
         raise ValueError(f"the CUDA kernels need CUDA tensors, got {qkv.device}")
     if qkv.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"unsupported dtype {qkv.dtype} (float32, bfloat16)")
-    if qkv.ndim != 3 or qkv.shape[-1] % (3 * heads):
-        raise ValueError(f"qkv must be (B, N, 3*H*D), got {tuple(qkv.shape)}")
-    hd = qkv.shape[-1] // (3 * heads)
-    if hd != HEAD_DIM:
-        raise ValueError(
-            f"head dim {hd} unsupported: the kernels are built for "
-            f"{HEAD_DIM}"
-        )
     if qkv.shape[0] * heads > 65535:
         raise ValueError("B * H exceeds the kernels' grid limit of 65535")
     for t in (qkv, *others):
@@ -296,7 +308,8 @@ def qkv_attn_fwd(qkv: torch.Tensor, scale: float, heads: int):
     out = torch.empty((B, N, A3 // 3), dtype=qkv.dtype, device=qkv.device)
     lse = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
     _launch("qkv_attn_fwd", qkv, qkv.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), B, N, heads, HEAD_DIM, q_scale, int(base2))
+            lse.data_ptr(), B, N, heads, qkv_head_dim(qkv, heads), q_scale,
+            int(base2))
     return out, lse
 
 
@@ -334,7 +347,7 @@ def qkv_attn_bwd_prep(qkv, out, dout, scale: float, heads: int):
     ks = None if _power_of_two(k_scale) else torch.empty_like(qs)
     _launch("qkv_attn_bwd_prep", qkv, qkv.data_ptr(), out.data_ptr(),
             dout.data_ptr(), delta.data_ptr(), qs.data_ptr(), _ptr(ks), B, N,
-            heads, HEAD_DIM, q_scale, k_scale)
+            heads, qkv_head_dim(qkv, heads), q_scale, k_scale)
     return delta, qs, ks
 
 
@@ -365,7 +378,7 @@ def qkv_attn_bwd_dkv(qkv, out, lse, dout, dqkv, scale: float, heads: int,
     delta, qs, _ = _prep_ptrs(qkv, out, dout, scale, heads, prep)
     _launch("qkv_attn_bwd_dkv", qkv, qkv.data_ptr(), out.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), delta, qs, dqkv.data_ptr(), B, N,
-            heads, HEAD_DIM, q_scale, dk_fix, int(base2))
+            heads, qkv_head_dim(qkv, heads), q_scale, dk_fix, int(base2))
 
 
 def qkv_attn_bwd_dq(qkv, out, lse, dout, dqkv, scale: float, heads: int,
@@ -378,7 +391,8 @@ def qkv_attn_bwd_dq(qkv, out, lse, dout, dqkv, scale: float, heads: int,
     delta, qs, ks = _prep_ptrs(qkv, out, dout, scale, heads, prep)
     _launch("qkv_attn_bwd_dq", qkv, qkv.data_ptr(), out.data_ptr(),
             lse.data_ptr(), dout.data_ptr(), delta, qs, ks, dqkv.data_ptr(),
-            B, N, heads, HEAD_DIM, q_scale, k_scale, int(base2))
+            B, N, heads, qkv_head_dim(qkv, heads), q_scale, k_scale,
+            int(base2))
 
 
 def qkv_attn_bwd(qkv, out, lse, dout, scale: float, heads: int):
@@ -556,7 +570,7 @@ def _mh_scaled_k_copy(k_scale: float, D: int) -> bool:
     and a scale that is not a power of two. A power of two scales dQ's f32
     accumulator instead, and at head dim 256 the dQ kernel has no shared
     memory for a third strip and folds the scale into its K strip."""
-    return D == HEAD_DIM and not _power_of_two(k_scale)
+    return D == 64 and not _power_of_two(k_scale)
 
 
 def attention_mh_bwd_prep_plain(q, k, out, dout, scale: float, heads: int):

@@ -154,11 +154,12 @@ def run_curve(dtype: str, attn_impl: str, steps: int,
 
 
 def run(steps: int = 50, batch: int = 16, fp16: bool = True,
-        device=None) -> dict:
-    """The A/B record: the arms on the JAX tool's stream."""
+        device=None, stream=None) -> dict:
+    """The A/B record: the arms on the JAX tool's stream (or `stream`,
+    synthetic_stream's (clips, labels), made by the caller)."""
     resolve_device(device)  # no stream for a run that cannot start
     t0 = time.time()
-    clips, labels = synthetic_stream(steps, batch)
+    clips, labels = stream or synthetic_stream(steps, batch)
     t1 = time.time()
     plan = [("prod", PRODUCTION), ("ref", REFERENCE)]
     if fp16:

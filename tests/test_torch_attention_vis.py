@@ -28,6 +28,18 @@ from mofo_tpu_torch.factory import bbox
 from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.train.checkpoint import params_from_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 KW = dict(img_size=32, all_frames=4, embed_dim=32, depth=2, num_heads=2,
           num_classes=5, init_scale=1.0)
 VIT = "vit_base_patch16_224"

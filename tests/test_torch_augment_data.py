@@ -40,6 +40,18 @@ from mofo_tpu_torch.train.pretrain_step import make_pretrain_step
 from mofo_tpu_torch.train.train_state import TrainState
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
+
 def _jax_draws(key, batch, hw, out_size):
     """The (pair_idx, off_idx) that mofo_tpu.ops.image.multi_scale_crop_boxes
     draws from `key` (image.py:220-226)."""

@@ -26,6 +26,18 @@ from mofo_tpu_torch.train.checkpoint import (
     params_from_jax,
 )
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 BB = "vit_base_patch16_224_BB_focused"
 VIT = "vit_base_patch16_224"
 # embed 128 as 2 x 64 heads (K1/K2 at A = 128); the MCA as 2 x 64 or, at

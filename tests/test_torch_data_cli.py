@@ -44,6 +44,18 @@ from mofo_tpu_torch.data.epic import EpicClipDataset
 from mofo_tpu_torch.data.video_reader import VideoReader
 from mofo_tpu_torch.models import create_model
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 W, H = 64, 48
 FRAMES = [12, 14, 16, 13, 15, 16]  # at most 16: a dense validation clip of
 # 4 frames at stride 4 (the whole stride enumeration) stays 4 frames long

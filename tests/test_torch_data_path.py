@@ -35,6 +35,18 @@ from mofo_tpu_torch.data import video_reader
 from mofo_tpu_torch.ops import augment
 from mofo_tpu_torch.tools.main_path import MemoryReader, frame_ids
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 FRAMES = {"a": 40, "b": 12, "c": 23, "d": 33}  # video name -> frame count
 W, H = 64, 48
 

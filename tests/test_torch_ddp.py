@@ -40,6 +40,18 @@ from mofo_tpu_torch.parallel import ddp
 from mofo_tpu_torch.tools import main_path as mp
 from mofo_tpu_torch.train import metrics as M
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 TASKS = {2: "pretrain,finetune,collectives,checkpoint,loss_scale",
          3: "pretrain,finetune,collectives"}
 JAX_RNG = 2

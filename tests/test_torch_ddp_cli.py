@@ -22,6 +22,18 @@ from mofo_tpu_torch.cli import finetune_mofo, pretrain_mofo
 from mofo_tpu_torch.cli import pretrain as PT
 from mofo_tpu_torch.data import pipeline as P
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 WORLD = 2
 B = 2  # per rank
 SHARDED = P.ShardedSampler

@@ -46,6 +46,18 @@ from mofo_tpu_torch.ops import attention
 from mofo_tpu_torch.tools import main_path as mp
 from mofo_tpu_torch.train.checkpoint import params_from_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 RATE = 0.1
 
@@ -193,6 +205,9 @@ def _attention_pair(dim, heads, head_dim, N, *, attn_impl="auto",
 @pytest.mark.parametrize("dim,heads,head_dim,N,jax_impl,flat", [
     (64, 2, 48, 16, "auto", False),  # A = 96: head-major, plain math
     (32, 2, 64, 128, "pallas", True),  # A = 128: the flat K1/K2 route
+    # the flat route at the head dims K1/K2 gained for it (F7)
+    (64, 4, 32, 128, "pallas", True),  # A = 128, D = 32
+    (64, 2, 128, 128, "pallas", True),  # A = 256, D = 128
 ])
 def test_attn_head_dim_matches_jax(dim, heads, head_dim, N, jax_impl, flat):
     jmod, params, port, x = _attention_pair(dim, heads, head_dim, N,

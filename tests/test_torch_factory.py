@@ -35,6 +35,18 @@ from mofo_tpu.factory import motion_maps as j_mm
 from mofo_tpu_torch.factory import annot, bbox, epic_segments, flow
 from mofo_tpu_torch.factory import motion_maps as mm
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 FLOW_MAX = 1e-3
 FLOW_P99 = 1e-4
 

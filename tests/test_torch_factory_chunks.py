@@ -21,6 +21,18 @@ from mofo_tpu.factory import flow as j_flow
 from mofo_tpu_torch.cli import motion_factory
 from mofo_tpu_torch.factory import flow
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 H, W = 32, 40
 
 

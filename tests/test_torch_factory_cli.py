@@ -36,6 +36,18 @@ from mofo_tpu_torch.cli import download, epic_preprocess, motion_factory, vis
 from mofo_tpu_torch.models import create_model
 from mofo_tpu_torch.ops import masking, patchify
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 BOX_PX = 2  # per coordinate, where a uint8 motion-map level flips
 SIDE = 64
 

@@ -26,6 +26,18 @@ from mofo_tpu.ops import rand_augment as jax_ra
 from mofo_tpu_torch.ops import augment, image
 from mofo_tpu_torch.ops import rand_augment as ra
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 AA = "rand-m7-n4-mstd0.5-inc1"
 HW = (40, 48)
 OUT = 32

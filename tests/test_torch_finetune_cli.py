@@ -57,6 +57,18 @@ from mofo_tpu_torch.train.finetune_step import make_finetune_step
 from mofo_tpu_torch.train.loss_scale import DynamicLossScale, apply_if_finite
 from mofo_tpu_torch.train.train_state import TrainState
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 BB = "vit_base_patch16_224_BB_focused"
 NC = 7
 GEO = dict(img_size=32, all_frames=4, embed_dim=128, depth=2, num_heads=2,

@@ -63,7 +63,7 @@ from mofo_tpu_torch.train.pretrain_step import make_pretrain_step
 from mofo_tpu_torch.train.train_state import TrainState
 
 pytestmark = pytest.mark.gpu
-D = fa.HEAD_DIM
+D = 64  # the registry presets' head dim
 SCALE = D ** -0.5
 
 
@@ -76,20 +76,22 @@ def cuda():
     return torch.device("cuda")
 
 
-def _qkv(B, N, H, dtype, device, seed=0):
+def _qkv(B, N, H, dtype, device, seed=0, d=D):
     g = torch.Generator().manual_seed(seed)
-    return torch.randn(B, N, 3 * H * D, generator=g).to(dtype).to(device)
+    return torch.randn(B, N, 3 * H * d, generator=g).to(dtype).to(device)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,N,H", [(2, 160, 12), (1, 1568, 6), (2, 100, 2),
                                    (1, 64, 1), (2, 3136, 6), (2, 3136, 12),
                                    (1, 4608, 12), (2, 1568, 16),
-                                   (2, 1568, 3), (2, 1568, 4), (2, 160, 8)])
+                                   (2, 1568, 3), (2, 1568, 4), (2, 160, 8),
+                                   (1, 4608, 16), (1, 8192, 16)])
 def test_kernels_match_plain(cuda, dtype, B, N, H):
     """K1/K2 at the steps' geometries, at the long sequences the TPU
-    kernels are gated at (32 frames, 384^2), ViT-L's 16 heads and the heads
-    a rank holds at model 2 (the ViT-B decoder's 3, ViT-L's 4 and 8)."""
+    kernels are gated at (32 frames, 384^2), ViT-L's 16 heads (also over
+    vit_large_patch16_384's 4608 and _512's 8192 tokens) and the heads a
+    rank holds at model 2 (the ViT-B decoder's 3, ViT-L's 4 and 8)."""
     got, want = attention_against_plain(_qkv(B, N, H, dtype, cuda), H, SCALE)
     torch.cuda.synchronize()
     check_against_plain(got, want)
@@ -168,9 +170,38 @@ def test_bf16_autograd_runs_the_prep_pass(cuda):
     assert torch.equal(qkv.grad, want)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,H", [(16, 8), (32, 4), (128, 2)])
+@pytest.mark.parametrize("N", [1, 65, 200, 1568])
+def test_kernels_at_flat_head_dims(cuda, hd, H, N, dtype):
+    """K1/K2 at the flat head dims 16, 32 and 128 (A = 128 or 256), scale
+    D^-0.5 (at 32 and 128 no power of two: dQ reads the prep pass's k *
+    scale), against the plain versions at both sides of the tiles."""
+    x = _qkv(2, N, H, dtype, cuda, seed=hd + N, d=hd)
+    got, want = attention_against_plain(x, H, hd ** -0.5)
+    torch.cuda.synchronize()
+    _check_at_edge(got, want, N)
+    if dtype == torch.bfloat16:
+        assert check_prep(x, got["out"], (2 * got["out"].float()).to(dtype),
+                          H, hd ** -0.5)["ks"] is (True if hd != 16 else None)
+    if N > 1:
+        for fault, outputs in planted_faults(got).items():
+            assert compare_with_plain(outputs, want)["beyond_bounds"], fault
+
+
+def test_autograd_at_head_dim_128_runs_the_kernels(cuda):
+    x = _qkv(2, 200, 2, torch.bfloat16, cuda, seed=3, d=128)
+    qkv = x.clone().requires_grad_(True)
+    fa.reset_launch_counts()
+    (fa.flash_attention_qkv(qkv, scale=128 ** -0.5, num_heads=2).float()
+     ** 2).sum().backward()
+    assert fa.launch_counts == {**dict.fromkeys(fa.KERNELS, 0),
+                                **dict.fromkeys(fa.QKV_KERNELS, 1)}
+
+
 def test_wrapper_rejects_what_the_kernels_do_not_take(cuda):
-    with pytest.raises(ValueError, match="head dim"):
-        fa.qkv_attn_fwd(torch.zeros(1, 8, 3 * 2 * 32, device=cuda), 1.0, 2)
+    with pytest.raises(ValueError, match="head dim 48"):
+        fa.qkv_attn_fwd(torch.zeros(1, 8, 3 * 2 * 48, device=cuda), 1.0, 2)
     with pytest.raises(ValueError, match="dtype"):
         fa.qkv_attn_fwd(torch.zeros(1, 8, 3 * D, device=cuda,
                                     dtype=torch.float16), 1.0, 1)

@@ -12,6 +12,7 @@ import ctypes
 import re
 
 import pytest
+import torch
 
 from mofo_tpu_torch.ops import _build
 from mofo_tpu_torch.ops import flash_attention as fa
@@ -103,3 +104,42 @@ def test_the_prep_pass_is_declared_for_k3():
     assert "mh_attn_bwd_prep" in _entry_points()
     assert "mh_attn_bwd_prep" in fa.MH_KERNELS
     assert "mh_attn_bwd_prep" not in fa.MH_F32_KERNELS
+
+
+def _dispatched_head_dims(source: str) -> set:
+    """The head dims a source's by_head_dim instantiates (its cases and
+    its default)."""
+    text = (_build.CSRC / source).read_text()
+    body = text[text.index("int by_head_dim("):]
+    body = body[:body.index("\n}\n")]
+    return {int(d) for d in re.findall(r"integral_constant<int, (\d+)>",
+                                       body)}
+
+
+def test_every_qkv_head_dim_is_instantiated_and_gated():
+    """K1/K2's entry points dispatch on D: every D of QKV_HEAD_DIMS has an
+    instance and bad() lets exactly those through; the C signatures take D
+    as an int after H, so SIGNATURES already carries it."""
+    assert _dispatched_head_dims("qkv_flash_attention.cu") == set(
+        fa.QKV_HEAD_DIMS)
+    text = (_build.CSRC / "qkv_flash_attention.cu").read_text()
+    gate = text[text.index("bool bad("):]
+    gate = gate[:gate.index("}")]
+    assert {int(d) for d in re.findall(r"D != (\d+)", gate)} == set(
+        fa.QKV_HEAD_DIMS)
+    for name in fa.QKV_KERNELS:
+        assert name in _build.SIGNATURES
+        params = dict(_entry_points())[name]
+        assert params.count("int") >= 4, (name, params)
+
+
+def test_k4_head_dims_are_instantiated():
+    assert _dispatched_head_dims("hm_flash_attention.cu") == set(
+        fa.HM_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("hd", [48, 8, 256])
+def test_the_qkv_gate_raises_outside_the_built_head_dims(hd):
+    x = torch.zeros(2, 8, 3 * 4 * hd)
+    with pytest.raises(ValueError, match="fused-qkv kernels are built for"):
+        fa.qkv_head_dim(x, 4)

@@ -18,6 +18,18 @@ from mofo_tpu_torch.ops import masking as tm
 from mofo_tpu_torch.ops import patchify as tp
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
+
 def _t(a, dtype=None):
     t = torch.from_numpy(np.array(a))
     return t if dtype is None else t.to(dtype)

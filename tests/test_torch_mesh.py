@@ -46,6 +46,18 @@ from mofo_tpu_torch.train.pretrain_step import make_pretrain_step
 from mofo_tpu_torch.train.train_state import TrainState
 from test_torch_ddp import JAX_RNG, jax_cfg, jax_masks
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 G = W.MESH_G
 # the tasks of each mesh, all run by one set of 4 ranks
 WORLDS = {"122": ("mesh_pretrain", "mesh_finetune", "mesh_checkpoint",

@@ -26,6 +26,18 @@ from mofo_tpu.ops.flash_attention import flash_attention_mh as jax_mh
 from mofo_tpu_torch.ops import flash_attention as fa
 from mofo_tpu_torch.tools import main_path
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 GEOMS = [(N, H, D) for N in (16, 37, 128)
          for H, D in ((2, 64), (1, 256), (3, 256))]
 

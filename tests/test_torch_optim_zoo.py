@@ -31,6 +31,18 @@ from mofo_tpu.train import optim as jax_optim
 from mofo_tpu_torch.train import optim
 from mofo_tpu_torch.train.checkpoint import params_from_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 # tests/test_optim.py:199-205
 FIRST_ORDER = [
     "adamw", "adam", "sgd", "nesterov", "momentum", "lamb",

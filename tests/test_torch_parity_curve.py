@@ -32,6 +32,18 @@ from mofo_tpu_torch.tools import parity_artifact as PA
 from mofo_tpu_torch.train import optim
 from mofo_tpu_torch.train.checkpoint import params_from_jax
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 CURVE_RTOL = 1e-6
 LOSS_ATOL = 1e-4

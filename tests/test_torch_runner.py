@@ -36,6 +36,18 @@ from mofo_tpu_torch.train import metrics as M
 from mofo_tpu_torch.train import optim
 from mofo_tpu_torch.train.train_state import TrainState
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 TINY_PRETRAIN = [
     "--model", "pretrain_videomae_tiny_debug",
     "--decoder_depth", "1",

@@ -71,6 +71,18 @@ from mofo_tpu_torch.train.pretrain_step import (
 from mofo_tpu_torch.train.train_state import TrainState
 from mofo_tpu_torch.train.wandb_compat import WandbLogger
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 PRETRAIN = "pretrain_videomae_base_patch16_224"
 PT_GEO = dict(img_size=32, num_frames=4, encoder_embed_dim=64,
               encoder_depth=2, encoder_num_heads=2, decoder_embed_dim=32,

@@ -35,6 +35,18 @@ from mofo_tpu_torch.train.checkpoint import params_from_jax
 from mofo_tpu_torch.train.pretrain_step import make_pretrain_step
 from mofo_tpu_torch.train.train_state import TrainState, ema_update
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One torch thread for the module: the test run's workers share the
+    machine's cores, and torch's own pool in each of them oversubscribes
+    them (tests/test_torch_mesh_zoo.py's fixture)."""
+    kept = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(kept)
+
+
 NAME = "pretrain_videomae_base_patch16_224"
 GEO = dict(img_size=32, num_frames=4, encoder_embed_dim=64, encoder_depth=2,
            encoder_num_heads=2, decoder_embed_dim=32, decoder_depth=1,
