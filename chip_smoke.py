@@ -67,10 +67,12 @@ Phases, each printing one JSON line:
                K1's numerics, which the ViT-S decoder ran before it took
                the head-major route, lie from K4's on the same inputs.
      hm_head_dims - K4's four entry points at head dims 16 and 32 (the
-               tiny presets'), bf16 and f32, at (B*H, N) = (4, 1568) and
-               the ragged (4, 200), against their plain versions with the
-               same bounds and planted faults; then kernel, plain, library
-               and bound times at (4, 1568) for D = 16, 32 and 64.
+               tiny presets'), 48 (zero-padded to 64), 128, 192 and 256,
+               bf16 and f32, at (B*H, N) = (4, 1568) and the ragged (4,
+               200), at 48 also (120, 1568),
+               against their plain versions at the unpadded D with the
+               same bounds and planted faults; then kernel, plain, library,
+               bound and pad times at (4, 1568) for those and D = 64.
  10. bf16_step_vs_plain - the bf16 steps through the kernels against the
                same steps through the plain bf16 versions on the same CUDA
                tensors (main_path's plain=True, a switch of the checks
@@ -189,7 +191,8 @@ Phases, each printing one JSON line:
  22. factory - the offline motion-box factory (mofo_tpu_torch.cli.
                motion_factory's main, in this process, its defaults: TV-L1
                with 4 scales, 8 warps and 100 iterations on the card, window
-               8, --max_frames 64) on 8 of write_real_data's SSV2-style mp4
+               8, --max_frames 64) on FACTORY_VIDEOS = 4 of
+               write_real_data's SSV2-style mp4
                files (256 x 320, 40-60 frames, cv2 writes them here): every
                video in the JSON with a box per frame, no SKIP line; two
                frame pairs of the shortest video through tvl1_flow on the
@@ -197,13 +200,15 @@ Phases, each printing one JSON line:
                count of results of each elementwise op that round
                differently on the two devices, op_roundings); four pairs
                batched against one call a pair on the card (BATCHED_ATOL),
-               both timed; that video's JSON from --device cpu against the
-               card's (at most FACTORY_BOX_PX per coordinate). Printed, not
+               both timed; that video's JSON from --device cpu against
+               --device cuda, both on FACTORY_CPU_FRAMES = 20 of its frames
+               (--max_frames; at most FACTORY_BOX_PX per coordinate).
+               Printed, not
                gated: seconds per video by stage (decode, flow, maps, boxes,
                write), flow ms per pair and per video, peak memory, and the
                mean IoU of the per-frame boxes (--no_clip_union) against
                MemoryReader's square. Then the loop closed: the ViT-S MOFO
-               pretrain runner, one epoch on the 8 videos at B=4 (decoded by
+               pretrain runner, one epoch on the 4 videos at B=4 (decoded by
                VideoReader) with the factory's JSON as --bb_json, its K1/K2
                and K4 launches checked.
  23. vis     - mofo_tpu_torch.cli.vis (pretrain_videomae_base_patch16_224,
@@ -230,7 +235,7 @@ Phases, each printing one JSON line:
                the gradient needs; none for rollout), the seconds; gradcam++
                and rollout again on the CPU, within VIS_ATOL.
  27. factory_chunks - motion_factory.video_flows on a cv2-written 1920 x
-               1080, 16-frame video of a square moving rigidly, under a byte
+               1080, 10-frame video of a square moving rigidly, under a byte
                budget of CHUNK_PAIRS pairs (3 calls) and in one call: flows
                and per-frame boxes equal, each run's peak memory and seconds,
                the boxes' mean IoU with the square.
@@ -347,12 +352,19 @@ Phases, each printing one JSON line:
                60-epoch run, which must reach 100% validation accuracy on
                the training clips, is its recorded run; K1/K2 launches from
                the steps and the eval calls.
- 41. qkv_head_dims - F7: K1/K2's four entry points at the flat head dims
-               16, 32 and 128 (QKV_HEAD_DIM_CHECKS: a long (B, 1568, H)
-               with A % 128 == 0 and a ragged N = 100), bf16 and f32,
-               against their plain versions (main_path's bounds, the
-               planted faults rejected); kernel, plain, library and bound
-               times at the long one; K1 at head dim 48 must raise.
+ 41. qkv_head_dims - K1/K2's four entry points at the flat head dims
+               16, 32, 128, 192 and 256 and at 48 and 96 (zero-padded to
+               64 and 128) (QKV_HEAD_DIM_CHECKS: a long (B, 1568, H) with
+               A % 128 == 0 and a ragged N = 100), bf16 and f32, against
+               their plain versions at the unpadded D (main_path's bounds,
+               the planted faults rejected); kernel, plain, library, bound
+               and pad times at the long one (at 96 also ViT-B's 12 heads
+               at B = 10); K1 at head dim 264 must
+               raise. It runs after kernels, and mh_head_dims (K3 at 16,
+               32, 128 and 192 and at 48 and 96, zero-padded, with the kv
+               bias, MH_HEAD_DIM_CHECKS: the long ones at 48, 96 and 192
+               the MCA's own in any_head_dim_steps; the same checks and
+               times) after mh_kernels.
  42. large_presets - the registry's large geometries as whole steps
                through the port's entry points (tools/bench_pretrain_model
                and tools/bench_finetune's build): ViT-L MOFO pretrain
@@ -366,6 +378,20 @@ Phases, each printing one JSON line:
                model), B = 1, full width and all tokens: 2 bf16 steps
                through the kernels against the same steps through the
                plain versions, within BF16_STEP_RTOL.
+ 43. any_head_dim_steps - the slice's path: the ViT-B BB-focused model
+               with an MCA of 8, 16 and 4 heads (mca_num_heads: K3 at head
+               dim 96, zero-padded to 128, at 48, padded to 64, and at 192
+               on the strip kernels; the backbone's K1/K2 at 64), full
+               width and depth, through the finetune step and the eval
+               step, bf16, B = 10: 3 train steps and one eval call each,
+               finite losses, the launches and the zero-padding copies
+               exact; then each at 2 Blocks, B = 2: 2 steps through the
+               kernels against the same steps through the plain versions,
+               the loss and gradient norm within BF16_STEP_RTOL and every
+               attention weight's gradient within ATTN_GRAD_RTOL, which
+               the same steps with K3's dQ zeroed must fail.
+The steps of phases 5 and 11 must make no zero-padding copy (every head
+dim of the main path is built).
 The kernels phase also checks and times K1/K2 at the mesh's per-rank
 head counts (MESH_GEOS: H = 3, the ViT-B decoder at model 2; H = 4 and 8,
 ViT-L's decoder and encoder) and at ViT-L's 16 heads over the 4608 and
@@ -445,6 +471,7 @@ from mofo_tpu_torch.tools.main_path import (
     check_mh_prep,
     check_prep,
     compare_with_plain,
+    count_pads,
     doubled_lr,
     finetune_model,
     forced_draws,
@@ -520,28 +547,52 @@ LARGE_CHECKS = {"res384_vitl_h16": (1, 4608, 16), "res512_h16": (1, 8192, 16)}
 CHECKS = {**MAIN, "ragged": (8, 100, 2), "frames32_h6": (2, 3136, 6),
           "frames32_h12": (2, 3136, 12), "res384_h12": (1, 4608, 12),
           "vitl_h16": (2, 1568, 16), **MESH_GEOS, **LARGE_CHECKS}
-# K1/K2 at the flat head dims besides 64 (F7): (B, N, H), a long geometry
-# (the ViT-B or ViT-L heads at attn_head_dim D, A % 128 == 0) and a ragged
-# one; times at the long one
-QKV_FLAT_HEAD_DIMS = (16, 32, 128)
+# K1/K2 at the flat head dims besides 64: built (16, 32, 128; 192 and 256
+# through K3's strip kernels) and zero-padded (48 -> 64, 96 -> 128); (B, N,
+# H), a long geometry (1568 tokens, A % 128 == 0) and a ragged one; times
+# at the long one; at 96 also ViT-B's 12 heads at the finetune batch. Above
+# 256 no kernel takes D.
+QKV_FLAT_HEAD_DIMS = (16, 32, 48, 96, 128, 192, 256)
 QKV_HEAD_DIM_CHECKS = {16: {"long": (2, 1568, 16), "ragged": (4, 100, 8)},
                        32: {"long": (2, 1568, 12), "ragged": (4, 100, 4)},
-                       128: {"long": (2, 1568, 12), "ragged": (4, 100, 2)}}
+                       48: {"long": (2, 1568, 8), "ragged": (4, 100, 8)},
+                       96: {"long": (2, 1568, 12), "ragged": (4, 100, 4),
+                            "vitb_b10": (10, 1568, 12)},
+                       128: {"long": (2, 1568, 12), "ragged": (4, 100, 2)},
+                       192: {"long": (2, 1568, 4), "ragged": (4, 100, 2)},
+                       256: {"long": (2, 1568, 4), "ragged": (4, 100, 1)}}
+REFUSED_HEAD_DIM = 264  # still to port (ROADMAP.md Queue 2)
 FT_BATCH = 10
 # K3: (B, N, H, D); the MCA is the finetune step's own
 MH_CHECKS = {"mca": (FT_BATCH, 1568, 3, 256), "h12": (FT_BATCH, 1568, 12, 64),
              "ragged_d256": (4, 100, 1, 256), "ragged_d64": (4, 100, 2, 64),
              "frames32_h12": (2, 3136, 12, 64)}
+# K3 at the other head dims, with the bias: built (16, 32, 128, 192) and
+# zero-padded (48 -> 64, 96 -> 128); (B, N, H), a long and a ragged one;
+# the long ones at 48, 96 and 192 are the MCA's own at 16, 8 and 4 heads
+# (any_head_dim_steps)
+MH_HEAD_DIMS = (16, 32, 48, 96, 128, 192)
+MH_HEAD_DIM_CHECKS = {16: {"long": (2, 1568, 8), "ragged": (4, 100, 2)},
+                      32: {"long": (2, 1568, 6), "ragged": (4, 100, 2)},
+                      48: {"long": (FT_BATCH, 1568, 16),
+                           "ragged": (4, 100, 2)},
+                      96: {"long": (FT_BATCH, 1568, 8),
+                           "ragged": (4, 100, 2)},
+                      128: {"long": (2, 1568, 6), "ragged": (4, 100, 1)},
+                      192: {"long": (FT_BATCH, 1568, 4),
+                            "ragged": (4, 100, 1)}}
 VITS_BATCH = 32  # B*H = 96 in the ViT-S decoder, as ViT-B's at B=16
 # K4: (B, H, N); the runner's decoder is the main path's own
 HM_CHECKS = {"runner_decoder": (VITS_BATCH, 3, 1568),
              "tpu_gated": (2, 6, 1568), "ragged": (4, 3, 100),
              "frames32": (2, 6, 3136)}
 # K4 at the tiny presets' head dims (32 in the encoders, 16 in the
-# decoder): (B*H, N), a long and a ragged one; times at the first, D = 64
-# beside them
-HM_HEAD_DIMS = (16, 32)
+# decoder), 48 (zero-padded to 64), 128, 192 and 256: (B*H, N), a long and
+# a ragged one; times at the first, D = 64 beside them; at 48 also 12 heads
+# at the finetune batch (HM_WIDE_CHECKS)
+HM_HEAD_DIMS = (16, 32, 48, 128, 192, 256)
 HM_HEAD_DIM_CHECKS = {"long": (4, 1568), "ragged": (4, 200)}
+HM_WIDE_CHECKS = {48: {"bh120": (12 * FT_BATCH, 1568)}}
 # the geometries at which tiny_debug_step runs K4, (B*H, N, D): B = 8 x 2
 # heads, the encoder's 160 visible tokens of 32-dim heads and the decoder's
 # 1568 tokens of 16-dim heads
@@ -586,6 +637,25 @@ EVAL_LAUNCHES.update({
     label: {**dict.fromkeys(fa.KERNELS, 0), "qkv_attn_fwd": n}
     for label, n in LARGE_BLOCKS.items()
     if LARGE_PRESETS[label][0] == "finetune"})
+# the slice's path (any_head_dim_steps): the ViT-B BB-focused finetune
+# model with an MCA of 8, 16 and 4 heads (mca_num_heads, a keyword of both
+# packages' create_model): its K3 at head dims 96 (-> 128) and 48 (-> 64),
+# zero-padded, and 192, built; the backbone's K1/K2 at 64 as on the main
+# path. Launches as FINETUNE_MODEL's; the zero-padding copies of a train
+# step (the MCA's q, k, v and its dout) and of an eval call (q, k, v)
+HEAD_DIM_MODELS = {"bb_mca_8_heads": 8, "bb_mca_16_heads": 16,
+                   "bb_mca_4_heads": 4}
+HEAD_DIM_PADS = {"bb_mca_8_heads": (4, 3), "bb_mca_16_heads": (4, 3),
+                 "bb_mca_4_heads": (0, 0)}
+HEAD_DIM_STEPS = 3
+HEAD_DIM_CHECK_DEPTH = 2
+# the 2-Block kernels-against-plain check reads each attention weight's
+# gradient (the Blocks' qkv and proj, the MCA's q, kv and proj): its
+# relative L2 error against the plain versions' may not pass the kernel
+# checks' bf16 gradient bound (main_path, allclose 3e-2), and K3's dQ
+# zeroed must pass it
+ATTN_LEAF = re.compile(r"\.attn\.(qkv|q|kv|proj)\.weight$")
+ATTN_GRAD_RTOL = 3e-2
 LARGE_STEPS = 3  # 1 warm-up + 2 timed
 LARGE_EVALS = 2  # 1 warm-up + 1 timed
 # the depth of the kernels-against-plain steps: the plain versions keep
@@ -632,14 +702,19 @@ DDP_RUNNER_ARGS = ["--model", VITS_MODEL, "--synthetic", "64",
 DDP_FT_CLIPS = 20
 DDP_FT_ARGS = ["--synthetic", str(DDP_FT_CLIPS), "--batch_size",
                str(FT_BATCH), "--epochs", "1", "--warmup_epochs", "0"]
-# the factory: 8 videos, TV-L1 on the card against the CPU on two pairs (the
+# the factory: 4 videos (8 before the head-dim phases needed the time: the
+# same checks on half the videos), TV-L1 on the card against the CPU on two
+# pairs (the
 # same elementwise ops in the same order on both devices, each rounding
 # alike, op_roundings shows it: bits are expected, the bounds are the ones
 # the slice was specified with), batched against one call a pair (the same
 # ops on the same values), the boxes of --device cuda against --device cpu
 # (a uint8 map level may flip)
-FACTORY_VIDEOS = 8
+FACTORY_VIDEOS = 4
 FACTORY_BATCH = 4
+# the frames (stride-sampled) of the factory's card-against-CPU run: the
+# CPU's TV-L1 takes ~2 s a pair, and the script has a time limit
+FACTORY_CPU_FRAMES = 20
 FLOW_CPU_MAX = 1e-3
 FLOW_CPU_P99 = 1e-4
 BATCHED_ATOL = 1e-5
@@ -664,11 +739,12 @@ KEEP_SHARE_ATOL = 1e-3
 VIS_MODEL = "vit_base_patch16_224"
 VIS_METHODS = ("grad", "rollout", "gradcam", "gradcam++")
 VIS_LAYER = 5  # attention_vis's default Grad-CAM target Block
-# the factory on a 1080p video whose square moves rigidly: 15 pairs, at
-# most CHUNK_PAIRS a call under the forced budget (3 calls)
+# the factory on a 1080p video whose square moves rigidly: 9 pairs, at
+# most CHUNK_PAIRS a call under the forced budget (3 calls; 15 pairs at 5
+# a call before the head-dim phases needed the time)
 CHUNK_HW = (1080, 1920)
-CHUNK_FRAMES = 16
-CHUNK_PAIRS = 5
+CHUNK_FRAMES = 10
+CHUNK_PAIRS = 3
 SQUARE = 360
 SQUARE_STEP = (6, 4)  # px a frame, (x, y)
 # the optimizer zoo (phases zoo_parity, zoo_steps, adahessian_step,
@@ -791,9 +867,10 @@ def check_kernels(x, H, scale: float = SCALE) -> dict:
     got, want = attention_against_plain(x, H, scale)
     torch.cuda.synchronize()
     res = check_against_plain(got, want)
-    if x.dtype == torch.bfloat16:
-        res["prep"] = check_prep(x, got["out"], (2 * got["out"].float()).to(
-            x.dtype), H, scale)
+    if x.dtype == torch.bfloat16:  # at the width the kernels ran D at
+        xw, out = got["at_width"]
+        res["prep"] = check_prep(xw, out, (2 * out.float()).to(x.dtype), H,
+                                 scale)
     res["planted"] = {}
     for fault, outputs in planted_faults(got).items():
         caught = compare_with_plain(outputs, want)
@@ -864,28 +941,54 @@ def bounds(B, N, H, d: int = D) -> dict:
     return least_times(work)
 
 
+def pad_times(run, xs, grads, dout, groups, heads: int) -> dict:
+    """The zero-padding copies' time (ms) of a kernel family at a head dim
+    without a kernel: fa.fwd_at_width's and fa.bwd_at_width's own copies
+    (inputs xs in, out back; dout in, the gradients back) around launchers
+    that return the outputs `run` (fwd_at_width's return) and `grads` at
+    once. {"fwd": ms, "bwd": ms}, or {} at a built head dim."""
+    xs_w, out, lse, out_d = run
+    if out.shape == out_d.shape:
+        return {}
+    return {"fwd": time_ms(lambda: fa.fwd_at_width(
+                lambda *a: (out, lse), xs, groups, heads)),
+            "bwd": time_ms(lambda: fa.bwd_at_width(
+                lambda *a: grads, xs_w, out, lse, dout, groups, heads))}
+
+
+def _with_pad_times(res: dict, pads: dict, fwd_name: str) -> None:
+    for name in res:
+        if pads:
+            res[name]["pad_ms"] = pads["fwd" if name == fwd_name else "bwd"]
+
+
 def time_kernels(x, H) -> dict:
     """kernel, plain, library and bound times (ms) on bf16 qkv x (head dim
-    x's width / 3H, scale its -1/2 power)."""
+    d = x's width / 3H, scale d^-1/2). At a d without a kernel the kernels
+    run on x zero-padded to their width as flash_attention_qkv runs them
+    (fa.fwd_at_width; their times are the padded calls'), "pad_ms" is the
+    padding copies' time (pad_times), and the plain versions, the library
+    call and the bound take d itself."""
     dtype = x.dtype
     B, N, A3 = x.shape
     d = A3 // (3 * H)
     scale = d ** -0.5
-    out, lse = fa.qkv_attn_fwd(x, scale, H)
-    dout = (2 * out.float()).to(dtype)
-    dqkv = torch.empty_like(x)
+    run = fa.fwd_at_width(fa.qkv_attn_fwd, (x,), fa.QKV_GROUPS, H, scale, H)
+    (xw,), out, lse, out_d = run
+    dout, dout_d = ((2 * t.float()).to(dtype) for t in (out, out_d))
+    dqkv = torch.empty_like(xw)
     q, k, v = (t.contiguous().requires_grad_(True)
                for t in fa.split_heads(x, H))
     o_lib = F.scaled_dot_product_attention(q, k, v, scale=scale)
-    g_lib = dout.reshape(B, N, H, d).transpose(1, 2).contiguous()
+    g_lib = dout_d.reshape(B, N, H, d).transpose(1, 2).contiguous()
     plain_bwd = time_ms(lambda: fa.attention_qkv_bwd_plain(
-        x, out, lse, dout, scale, H), runs=10)
+        x, out_d, lse, dout_d, scale, H), runs=10)
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         o_lib, (q, k, v), g_lib, retain_graph=True))
-    prep = fa.qkv_attn_bwd_prep(x, out, dout, scale, H)
+    prep = fa.qkv_attn_bwd_prep(xw, out, dout, scale, H)
     res = {
         "qkv_attn_fwd": {
-            "ms": time_ms(lambda: fa.qkv_attn_fwd(x, scale, H)),
+            "ms": time_ms(lambda: fa.qkv_attn_fwd(xw, scale, H)),
             "plain_ms": time_ms(
                 lambda: fa.attention_qkv_fwd_plain(x, scale, H), runs=10),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -894,22 +997,24 @@ def time_kernels(x, H) -> dict:
         # no one library call computes delta and the scaled q alone
         "qkv_attn_bwd_prep": {
             "ms": time_ms(lambda: fa.qkv_attn_bwd_prep(
-                x, out, dout, scale, H)),
+                xw, out, dout, scale, H)),
             "plain_ms": time_ms(lambda: fa.attention_qkv_bwd_prep_plain(
-                x, out, dout, scale, H)),
+                x, out_d, dout_d, scale, H)),
             "library_ms": None,
         },
         "qkv_attn_bwd_dkv": {
             "ms": time_ms(lambda: fa.qkv_attn_bwd_dkv(
-                x, out, lse, dout, dqkv, scale, H, prep)),
+                xw, out, lse, dout, dqkv, scale, H, prep)),
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
         "qkv_attn_bwd_dq": {
             "ms": time_ms(lambda: fa.qkv_attn_bwd_dq(
-                x, out, lse, dout, dqkv, scale, H, prep)),
+                xw, out, lse, dout, dqkv, scale, H, prep)),
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
     }
+    _with_pad_times(res, pad_times(run, (x,), dqkv, dout_d, fa.QKV_GROUPS,
+                                   H), "qkv_attn_fwd")
     for name, (bound, by) in bounds(B, N, H, d).items():
         res[name].update(bound_ms=bound, bound_by=by)
         if res[name]["ms"] < bound:
@@ -928,13 +1033,15 @@ def qkv_errors(res: dict) -> dict:
 
 
 def phase_qkv_head_dims(smi: str) -> dict:
-    """F7: K1/K2's four entry points at the flat head dims 16, 32 and 128
-    against their plain versions (check_kernels' bounds and planted faults;
-    the scale D^-0.5, which at 32 and 128 is no power of two: dQ's
-    scaled-K copy) at QKV_HEAD_DIM_CHECKS, bf16 and f32; kernel, plain,
-    library and bound times at the long geometry in bf16; a head dim
-    outside fa.QKV_HEAD_DIMS raises on the card. Returns {D: (max errors,
-    times)}."""
+    """F7 and its remainder: K1/K2's four entry points at the flat head dims
+    QKV_FLAT_HEAD_DIMS (48 and 96 zero-padded to 64 and 128, 192 and 256
+    through K3's strip kernels) against their plain versions at the
+    unpadded D (check_kernels' bounds and planted faults; the scale D^-0.5,
+    which is a power of two only at 16, 64 and 256: elsewhere dQ's
+    scaled-K copy up to 128 and the in-place fold above) at
+    QKV_HEAD_DIM_CHECKS, bf16 and f32; kernel, plain, library, bound and
+    pad times at the long geometry in bf16; a head dim above 256 raises on
+    the card. Returns {D: (max errors, times)}."""
     out = {}
     for hd in QKV_FLAT_HEAD_DIMS:
         for i, (geo, (B, N, heads)) in enumerate(
@@ -942,22 +1049,24 @@ def phase_qkv_head_dims(smi: str) -> dict:
             for dtype in (torch.bfloat16, torch.float32):
                 x = _qkv(B, N, heads, dtype, hd + i, d=hd)
                 res = check_kernels(x, heads, hd ** -0.5)
-                emit("qkv_head_dims_vs_plain", D=hd, geometry=geo, B=B, N=N,
+                emit("qkv_head_dims_vs_plain", D=hd,
+                     width=fa.head_dim_width(hd), geometry=geo, B=B, N=N,
                      H=heads, dtype=str(dtype).replace("torch.", ""), **res)
                 if geo == "long" and dtype == torch.bfloat16:
                     times = time_kernels(x, heads)
-                    emit("qkv_head_dim_times", D=hd, B=B, N=N, H=heads,
+                    emit("qkv_head_dim_times", D=hd,
+                         width=fa.head_dim_width(hd), B=B, N=N, H=heads,
                          dtype="bfloat16", times=times, nvidia_smi=smi)
                     out[hd] = (qkv_errors(res), times)
                 del x
-    x = _qkv(2, 100, 8, torch.bfloat16, 0, d=48)
+    hd = REFUSED_HEAD_DIM
+    x = _qkv(2, 100, 2, torch.bfloat16, 0, d=hd)
     try:
-        fa.flash_attention_qkv(x, scale=48 ** -0.5, num_heads=8)
+        fa.flash_attention_qkv(x, scale=hd ** -0.5, num_heads=2)
     except ValueError as e:
-        emit("qkv_head_dim_refused", D=48, error=str(e))
+        emit("qkv_head_dim_refused", D=hd, error=str(e))
     else:
-        raise AssertionError("K1 ran at head dim 48: no kernel is built for "
-                             "it")
+        raise AssertionError(f"K1 ran at head dim {hd}: no kernel takes it")
     return out
 
 
@@ -1016,27 +1125,32 @@ def bounds_mh(B, N, H, D) -> dict:
 
 
 def time_mh_kernels(q, k, v, b, H, D) -> dict:
-    """kernel, plain, library and bound times (ms) of K3 on bf16 inputs."""
+    """kernel, plain, library and bound times (ms) of K3 on bf16 inputs; at
+    a D without a kernel as time_kernels does it (the kernels on q, k, v
+    zero-padded by fa.fwd_at_width, "pad_ms" from pad_times)."""
     scale = D ** -0.5
     B, N, _ = q.shape
-    out, lse = fa.mh_attn_fwd(q, k, v, b, scale, H)
-    dout = (2 * out.float()).to(q.dtype)
-    prep = fa.mh_attn_bwd_prep(q, k, out, dout, scale, H)
-    dkv = torch.empty(B, N, 2 * H * D, dtype=q.dtype, device=q.device)
-    dq = torch.empty_like(q)
+    run = fa.fwd_at_width(fa.mh_attn_fwd, (q, k, v, b), fa.MH_GROUPS, H,
+                          scale, H)
+    (qw, kw, vw, _), out, lse, out_d = run
+    dout, dout_d = ((2 * t.float()).to(q.dtype) for t in (out, out_d))
+    prep = fa.mh_attn_bwd_prep(qw, kw, out, dout, scale, H)
+    A = qw.shape[-1]
+    dkv = torch.empty(B, N, 2 * A, dtype=q.dtype, device=q.device)
+    dq = torch.empty_like(qw)
     heads = [t.reshape(B, N, H, D).transpose(1, 2).contiguous()
              .requires_grad_(True) for t in (q, k, v)]
     mask = b[:, None, None, :].to(q.dtype)
     o_lib = F.scaled_dot_product_attention(*heads, attn_mask=mask,
                                            scale=scale)
-    g_lib = dout.reshape(B, N, H, D).transpose(1, 2).contiguous()
+    g_lib = dout_d.reshape(B, N, H, D).transpose(1, 2).contiguous()
     plain_bwd = time_ms(lambda: fa.attention_mh_bwd_plain(
-        q, k, v, b, out, lse, dout, scale, H), runs=5)
+        q, k, v, b, out_d, lse, dout_d, scale, H), runs=5)
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         o_lib, heads, g_lib, retain_graph=True))
     res = {
         "mh_attn_fwd": {
-            "ms": time_ms(lambda: fa.mh_attn_fwd(q, k, v, b, scale, H)),
+            "ms": time_ms(lambda: fa.mh_attn_fwd(qw, kw, vw, b, scale, H)),
             "plain_ms": time_ms(lambda: fa.attention_mh_fwd_plain(
                 q, k, v, b, scale, H), runs=5),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -1045,23 +1159,26 @@ def time_mh_kernels(q, k, v, b, H, D) -> dict:
         # no one library call computes delta and the scaled q alone
         "mh_attn_bwd_prep": {
             "ms": time_ms(lambda: fa.mh_attn_bwd_prep(
-                q, k, out, dout, scale, H)),
+                qw, kw, out, dout, scale, H)),
             "plain_ms": time_ms(lambda: fa.attention_mh_bwd_prep_plain(
-                q, k, out, dout, scale, H)),
+                q, k, out_d, dout_d, scale, H)),
             "library_ms": None,
         },
         "mh_attn_bwd_dkv": {
             "ms": time_ms(lambda: fa.mh_attn_bwd_dkv(
-                q, k, v, b, out, lse, dout, dkv[..., :H * D],
-                dkv[..., H * D:], scale, H, prep)),
+                qw, kw, vw, b, out, lse, dout, dkv[..., :A], dkv[..., A:],
+                scale, H, prep)),
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
         "mh_attn_bwd_dq": {
             "ms": time_ms(lambda: fa.mh_attn_bwd_dq(
-                q, k, v, b, out, lse, dout, dq, scale, H, prep)),
+                qw, kw, vw, b, out, lse, dout, dq, scale, H, prep)),
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
     }
+    _with_pad_times(res, pad_times(run, (q, k, v, b), (
+        dq, dkv[..., :A], dkv[..., A:]), dout_d, fa.MH_GROUPS, H),
+        "mh_attn_fwd")
     for name, (bound, by) in bounds_mh(B, N, H, D).items():
         res[name].update(bound_ms=bound, bound_by=by)
         if res[name]["ms"] < bound:
@@ -1077,9 +1194,10 @@ def check_mh_kernels(q, k, v, b, H, scale: float) -> dict:
     got, want = mh_attention_against_plain(q, k, v, b, H, scale)
     torch.cuda.synchronize()
     res = check_against_plain(got, want)
-    if q.dtype == torch.bfloat16:
-        res["prep"] = check_mh_prep(q, k, got["out"], (
-            2 * got["out"].float()).to(q.dtype), H, scale)
+    if q.dtype == torch.bfloat16:  # at the width the kernels ran D at
+        qw, kw, _, _, out = got["at_width"]
+        res["prep"] = check_mh_prep(qw, kw, out, (2 * out.float()).to(
+            q.dtype), H, scale)
     ignored = None
     if b is not None:
         ignored, _ = mh_attention_against_plain(q, k, v, None, H, scale)
@@ -1141,6 +1259,41 @@ def phase_mh_kernels():
     return errors, timings
 
 
+def phase_mh_head_dims(smi: str) -> dict:
+    """K3's four entry points at MH_HEAD_DIMS (16 and 32 on one box, 128 on
+    wgmma_attn_bwd.cuh's backward, 192 on the strip kernels; 48 and 96
+    zero-padded to 64 and 128) with the kv bias against their plain
+    versions at the unpadded D (check_mh_kernels: the bounds, the planted
+    faults with the bias ignored, zero dK/dV on masked kv rows; the scale
+    D^-0.5, no power of two at 32, 48, 96, 128 and 192) at
+    MH_HEAD_DIM_CHECKS, bf16 and f32; kernel, plain, library, bound and pad
+    times at the long geometry in bf16. Returns {D: (max errors, times)}."""
+    out = {}
+    for hd in MH_HEAD_DIMS:
+        for i, (geo, (B, N, H)) in enumerate(MH_HEAD_DIM_CHECKS[hd].items()):
+            for dtype in (torch.bfloat16, torch.float32):
+                q, k, v, b = mh_inputs(B, N, H, hd, dtype, hd + i, "cuda")
+                res = check_mh_kernels(q, k, v, b, H, hd ** -0.5)
+                emit("mh_head_dims_vs_plain", D=hd,
+                     width=fa.head_dim_width(hd), geometry=geo, B=B, N=N,
+                     H=H, dtype=str(dtype).replace("torch.", ""), bias=True,
+                     **res)
+                if geo == "long" and dtype == torch.bfloat16:
+                    err = res["max_abs_err"]
+                    errors = {"mh_attn_fwd": err["out"],
+                              "mh_attn_bwd_prep": res["prep"]["max_abs_err"],
+                              "mh_attn_bwd_dkv": max(err["dk"], err["dv"]),
+                              "mh_attn_bwd_dq": err["dq"]}
+                    times = time_mh_kernels(q, k, v, b, H, hd)
+                    emit("mh_head_dim_times", D=hd,
+                         width=fa.head_dim_width(hd), B=B, N=N, H=H,
+                         dtype="bfloat16", bias=True, times=times,
+                         nvidia_smi=smi)
+                    out[hd] = (errors, times)
+                del q, k, v, b
+    return out
+
+
 def phase_step(smi: str, phase: str = "step", model_name: str = MODEL,
                B: int = STEP_BATCH) -> dict:
     """A full-width MOFO pretrain step on the card (ViT-B by default): 1
@@ -1159,18 +1312,21 @@ def phase_step(smi: str, phase: str = "step", model_name: str = MODEL,
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
     times, losses, norms = [], [], []
-    for _ in range(n_steps):
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch, gen, 0.5)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(metrics["loss"]))
-        norms.append(float(metrics["grad_norm"]))
+    with count_pads() as pads:
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, gen, 0.5)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
     launches = dict(fa.launch_counts)
 
     expected = {k: n_steps * v for k, v in per_step.items()}
     if launches != expected:
         raise AssertionError(f"launches {launches}, expected {expected}")
+    if pads["copies"]:  # every head dim of the path is built
+        raise AssertionError(f"{pads['copies']} zero-padding copies")
     if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
         raise AssertionError(f"non-finite loss/grad_norm {losses} {norms}")
     unchanged = [n for n in watched if torch.equal(before[n], named[n])]
@@ -1181,6 +1337,7 @@ def phase_step(smi: str, phase: str = "step", model_name: str = MODEL,
          steps=n_steps, step_ms=step_ms, step_ms_all=times,
          clips_per_s=B / step_ms * 1e3, loss=losses, grad_norm=norms,
          launches=launches, launches_per_step=per_step,
+         pad_copies=pads["copies"],
          peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
          device=torch.cuda.get_device_name(0), nvidia_smi=smi)
     return launches
@@ -1391,24 +1548,27 @@ def bounds_hm(BH, N, D) -> dict:
 
 def time_hm_kernels(q, k, v, B, H) -> dict:
     """kernel, plain, library and bound times (ms) of K4 on bf16 (B*H, N,
-    D) inputs."""
+    D) inputs; at a D without a kernel as time_kernels does it (the
+    kernels on q, k, v zero-padded by fa.fwd_at_width, "pad_ms" from
+    pad_times)."""
     BH, N, D = q.shape
     scale = D ** -0.5
-    out, lse = fa.hm_attn_fwd(q, k, v, scale)
-    dout = (2 * out.float()).to(q.dtype)
-    prep = fa.hm_attn_bwd_prep(q, k, out, dout, scale)
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    run = fa.fwd_at_width(fa.hm_attn_fwd, (q, k, v), fa.HM_GROUPS, 1, scale)
+    (qw, kw, vw), out, lse, out_d = run
+    dout, dout_d = ((2 * t.float()).to(q.dtype) for t in (out, out_d))
+    prep = fa.hm_attn_bwd_prep(qw, kw, out, dout, scale)
+    dq, dk, dv = (torch.empty_like(qw) for _ in range(3))
     heads = [t.reshape(B, H, N, D).clone().requires_grad_(True)
              for t in (q, k, v)]
     o_lib = F.scaled_dot_product_attention(*heads, scale=scale)
-    g_lib = dout.reshape(B, H, N, D)
+    g_lib = dout_d.reshape(B, H, N, D)
     plain_bwd = time_ms(lambda: fa.attention_hm_bwd_plain(
-        q, k, v, out, lse, dout, scale), runs=5)
+        q, k, v, out_d, lse, dout_d, scale), runs=5)
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         o_lib, heads, g_lib, retain_graph=True))
     res = {
         "hm_attn_fwd": {
-            "ms": time_ms(lambda: fa.hm_attn_fwd(q, k, v, scale)),
+            "ms": time_ms(lambda: fa.hm_attn_fwd(qw, kw, vw, scale)),
             "plain_ms": time_ms(lambda: fa.attention_hm_fwd_plain(
                 q, k, v, scale), runs=5),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -1416,23 +1576,25 @@ def time_hm_kernels(q, k, v, B, H) -> dict:
         },
         # no one library call computes delta and the scaled q alone
         "hm_attn_bwd_prep": {
-            "ms": time_ms(lambda: fa.hm_attn_bwd_prep(q, k, out, dout,
+            "ms": time_ms(lambda: fa.hm_attn_bwd_prep(qw, kw, out, dout,
                                                       scale)),
             "plain_ms": time_ms(lambda: fa.attention_hm_bwd_prep_plain(
-                q, k, out, dout, scale)),
+                q, k, out_d, dout_d, scale)),
             "library_ms": None,
         },
         "hm_attn_bwd_dkv": {
             "ms": time_ms(lambda: fa.hm_attn_bwd_dkv(
-                q, k, v, out, lse, dout, dk, dv, scale, prep)),
+                qw, kw, vw, out, lse, dout, dk, dv, scale, prep)),
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
         "hm_attn_bwd_dq": {
             "ms": time_ms(lambda: fa.hm_attn_bwd_dq(
-                q, k, v, out, lse, dout, dq, scale, prep)),
+                qw, kw, vw, out, lse, dout, dq, scale, prep)),
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
     }
+    _with_pad_times(res, pad_times(run, (q, k, v), (dq, dk, dv), dout_d,
+                                   fa.HM_GROUPS, 1), "hm_attn_fwd")
     for name, (bound, by) in bounds_hm(BH, N, D).items():
         res[name].update(bound_ms=bound, bound_by=by)
         if res[name]["ms"] < bound:
@@ -1476,9 +1638,10 @@ def check_hm_kernels(q, k, v, scale: float = SCALE) -> dict:
     got, want = hm_attention_against_plain(q, k, v, scale)
     torch.cuda.synchronize()
     res = check_against_plain(got, want)
-    if q.dtype == torch.bfloat16:
-        res["prep"] = check_hm_prep(q, k, got["out"], (
-            2 * got["out"].float()).to(q.dtype), scale)
+    if q.dtype == torch.bfloat16:  # at the width the kernels ran D at
+        qw, kw, _, out = got["at_width"]
+        res["prep"] = check_hm_prep(qw, kw, out, (2 * out.float()).to(
+            q.dtype), scale)
     res["planted"] = {}
     for fault, outputs in hm_planted_faults(got).items():
         caught = compare_with_plain(outputs, want)
@@ -1530,22 +1693,26 @@ def phase_hm_kernels():
 
 
 def phase_hm_head_dims(smi: str) -> dict:
-    """K4's four entry points at head dims 16 and 32 against their plain
-    versions (check_hm_kernels' bounds and planted faults; the scale
-    D^-0.5, which at 32 is no power of two: dQ's scaled-K copy) at
-    HM_HEAD_DIM_CHECKS and at tiny_debug_step's own HM_TINY_CHECKS, bf16
-    and f32; then kernel, plain, library and
-    bound times at the long geometry in bf16 for D = 16, 32 and 64.
-    Returns {D: (max errors, times)} for D = 16 and 32."""
+    """K4's four entry points at HM_HEAD_DIMS (48 zero-padded to 64; 192
+    and 256 on the strip kernels) against their plain versions at the
+    unpadded D (check_hm_kernels' bounds and planted faults; the scale
+    D^-0.5, no power of two at 32, 48 and 128: dQ's scaled-K copy, nor at
+    192: the strip kernels' folded K) at HM_HEAD_DIM_CHECKS (and
+    HM_WIDE_CHECKS) and at tiny_debug_step's own HM_TINY_CHECKS, bf16
+    and f32; then kernel, plain, library, bound and pad times at the long
+    geometry in bf16 for each and D = 64. Returns {D: (max errors, times)}
+    for HM_HEAD_DIMS."""
     out = {}
     for hd in HM_HEAD_DIMS:
         errors = {}
-        for i, (geo, (BH, N)) in enumerate(HM_HEAD_DIM_CHECKS.items()):
+        for i, (geo, (BH, N)) in enumerate({
+                **HM_HEAD_DIM_CHECKS, **HM_WIDE_CHECKS.get(hd, {})}.items()):
             for dtype in (torch.bfloat16, torch.float32):
                 q, k, v = hm_inputs(BH, N, dtype, hd + i, "cuda", D=hd)
                 res = check_hm_kernels(q, k, v, hd ** -0.5)
-                emit("hm_head_dims_vs_plain", D=hd, geometry=geo, BH=BH,
-                     N=N, dtype=str(dtype).replace("torch.", ""), **res)
+                emit("hm_head_dims_vs_plain", D=hd,
+                     width=fa.head_dim_width(hd), geometry=geo, BH=BH, N=N,
+                     dtype=str(dtype).replace("torch.", ""), **res)
                 if geo == "long" and dtype == torch.bfloat16:
                     err = res["max_abs_err"]
                     errors = {"hm_attn_fwd": err["out"],
@@ -1563,8 +1730,8 @@ def phase_hm_head_dims(smi: str) -> dict:
     for hd in HM_HEAD_DIMS + (64,):
         q, k, v = hm_inputs(BH, N, torch.bfloat16, 5, "cuda", D=hd)
         times = time_hm_kernels(q, k, v, 1, BH)
-        emit("hm_head_dim_times", D=hd, BH=BH, N=N, dtype="bfloat16",
-             times=times, nvidia_smi=smi)
+        emit("hm_head_dim_times", D=hd, width=fa.head_dim_width(hd), BH=BH,
+             N=N, dtype="bfloat16", times=times, nvidia_smi=smi)
         if hd in out:
             out[hd] = (out[hd], times)
     return out
@@ -1662,6 +1829,138 @@ def phase_large_presets(smi: str) -> dict:
         if not max(max(r.values()) for r in rel) <= BF16_STEP_RTOL:
             raise AssertionError(f"{label}: kernels vs plain versions beyond "
                                  f"rtol {BF16_STEP_RTOL}: {rel}")
+    return total
+
+
+@contextlib.contextmanager
+def k3_dq_zeroed():
+    """A planted fault for any_head_dim_steps' step check: inside, K3's
+    backward returns dQ zeroed."""
+    kept = fa.mh_attn_bwd
+
+    def faulty(*args):
+        dq, dk, dv = kept(*args)
+        return torch.zeros_like(dq), dk, dv
+
+    fa.mh_attn_bwd = faulty
+    try:
+        yield
+    finally:
+        fa.mh_attn_bwd = kept
+
+
+def _attn_grad_steps(heads: int, route: str) -> list:
+    """2 bf16 finetune steps at B = 2 of the BB-focused model cut to
+    HEAD_DIM_CHECK_DEPTH Blocks, its MCA at `heads` heads, through the
+    kernels ("kernels"), the plain versions ("plain") or the kernels with
+    K3's dQ zeroed ("dq_zeroed"): per step the loss, the gradient norm and
+    every ATTN_LEAF weight's gradient (f32 copies)."""
+    _, state, step, gen, batch, _ = build_finetune_step(
+        2, plain=route == "plain", depth=HEAD_DIM_CHECK_DEPTH,
+        mca_num_heads=heads)
+    steps = []
+    for _ in range(2):
+        with k3_dq_zeroed() if route == "dq_zeroed" else \
+                contextlib.nullcontext():
+            state, m = step(state, batch, gen)
+        steps.append(({k: float(m[k]) for k in ("loss", "grad_norm")}, {
+            n: p.grad.float().clone() for n, p in state.params.items()
+            if ATTN_LEAF.search(n)}))
+    return steps
+
+
+def _attn_grad_rel(got: list, want: list) -> dict:
+    """Per step the worst ATTN_LEAF weight's relative L2 gradient error,
+    that weight, and the loss's and gradient norm's relative differences."""
+    out = []
+    for (m, g), (pm, pg) in zip(got, want):
+        rel = {n: (torch.linalg.vector_norm(g[n] - pg[n])
+                   / torch.linalg.vector_norm(pg[n])).item() for n in pg}
+        worst = max(rel, key=rel.get)
+        out.append({"worst_leaf": worst, "grad_rel": rel[worst],
+                    **{k: abs(m[k] - pm[k]) / abs(pm[k]) for k in m}})
+    return out
+
+
+def phase_any_head_dim_steps(smi: str) -> dict:
+    """The slice's path: the ViT-B BB-focused finetune model at full width
+    and depth with an MCA of HEAD_DIM_MODELS heads (K3 zero-padded from 96
+    to 128 and from 48 to 64, and at 192 on the strip kernels; the
+    backbone's K1/K2 at 64) through the port's finetune step and eval step,
+    bf16, B = FT_BATCH: HEAD_DIM_STEPS train steps and one eval call each,
+    finite losses, every kernel's launches against FINETUNE_MODEL's
+    STEP_LAUNCHES / EVAL_LAUNCHES and the zero-padding copies against
+    HEAD_DIM_PADS; then each at HEAD_DIM_CHECK_DEPTH Blocks, B = 2: 2 steps
+    through the kernels against the same steps through the plain versions
+    at the unpadded head dims, the loss and gradient norm within
+    BF16_STEP_RTOL and every attention weight's gradient within
+    ATTN_GRAD_RTOL (relative L2); the same steps with K3's dQ zeroed must
+    fail that bound. Returns the launches of the full-depth runs, summed."""
+    total = dict.fromkeys(fa.KERNELS, 0)
+    per_step = STEP_LAUNCHES[FINETUNE_MODEL]
+    for label, heads in HEAD_DIM_MODELS.items():
+        t0 = time.perf_counter()
+        model, state, step, gen, batch, cfg = build_finetune_step(
+            FT_BATCH, mca_num_heads=heads)
+        fa.reset_launch_counts()
+        times, losses, norms = [], [], []
+        with count_pads() as pads:
+            for _ in range(HEAD_DIM_STEPS):
+                t1 = time.perf_counter()
+                state, m = step(state, batch, gen)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t1) * 1e3)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+            train = dict(fa.launch_counts), pads["copies"]
+            fa.reset_launch_counts()
+            ev = make_eval_step(model, cfg, bb_focused=True)(batch)
+            torch.cuda.synchronize()
+            evals = dict(fa.launch_counts), pads["copies"] - train[1]
+        step_pads, eval_pads = HEAD_DIM_PADS[label]
+        want = ({k: HEAD_DIM_STEPS * v for k, v in per_step.items()},
+                HEAD_DIM_STEPS * step_pads)
+        if train != want or evals != (EVAL_LAUNCHES[FINETUNE_MODEL],
+                                      eval_pads):
+            raise AssertionError(f"{label}: launches and pad copies {train}, "
+                                 f"eval {evals}; expected {want}")
+        if not (np.isfinite(losses + norms).all() and all(
+                np.isfinite(float(ev[k])) for k in ("loss", "acc1"))) or \
+                ev["logits"].shape != (FT_BATCH, cfg.nb_classes):
+            raise AssertionError(f"{label}: {losses} {norms} {ev}")
+        for k, v in train[0].items():
+            total[k] += v + evals[0][k]
+        emit("any_head_dim_steps", model=FINETUNE_MODEL,
+             keywords={"mca_num_heads": heads}, label=label,
+             mca_head_dim=model.local_MCA[0].attn.head_dim,
+             dtype="bfloat16", batch=FT_BATCH, steps=HEAD_DIM_STEPS,
+             step_ms=times, loss=losses, grad_norm=norms,
+             eval={k: float(ev[k]) for k in ("loss", "acc1", "acc5")},
+             launches={k: v for k, v in train[0].items() if v},
+             eval_launches={k: v for k, v in evals[0].items() if v},
+             pad_copies=train[1], eval_pad_copies=evals[1],
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+             seconds=time.perf_counter() - t0, nvidia_smi=smi)
+        del model, state, step, batch
+        torch.cuda.empty_cache()
+    for label, heads in HEAD_DIM_MODELS.items():
+        runs = {route: _attn_grad_steps(heads, route)
+                for route in ("kernels", "plain", "dq_zeroed")}
+        rel = _attn_grad_rel(runs["kernels"], runs["plain"])
+        planted = _attn_grad_rel(runs["dq_zeroed"], runs["plain"])
+        emit("any_head_dim_vs_plain", label=label, dtype="bfloat16", batch=2,
+             depth=HEAD_DIM_CHECK_DEPTH, steps=2,
+             **{route: [m for m, _ in r] for route, r in runs.items()},
+             rel_diff=rel, bound=BF16_STEP_RTOL, grad_bound=ATTN_GRAD_RTOL,
+             dq_zeroed_rel=planted)
+        if not all(r["loss"] <= BF16_STEP_RTOL and r["grad_norm"] <=
+                   BF16_STEP_RTOL and r["grad_rel"] <= ATTN_GRAD_RTOL
+                   for r in rel):
+            raise AssertionError(f"{label}: kernels vs plain versions beyond "
+                                 f"the bounds: {rel}")
+        if not all(r["grad_rel"] > ATTN_GRAD_RTOL for r in planted):
+            raise AssertionError(f"{label}: the bounds let K3's dQ zeroed "
+                                 f"pass: {planted}")
     return total
 
 
@@ -2556,9 +2855,9 @@ def _factory(args: list, reader=VideoReader) -> tuple:
 
 
 def phase_factory(smi: str) -> dict:
-    """The motion-box factory on 8 SSV2-style videos on the card, held
-    against the CPU, then the ViT-S MOFO pretrain runner on its JSON.
-    Returns the runner's launches."""
+    """The motion-box factory on FACTORY_VIDEOS SSV2-style videos on the
+    card, held against the CPU, then the ViT-S MOFO pretrain runner on its
+    JSON. Returns the runner's launches."""
     problems = []
     with tempfile.TemporaryDirectory() as tmp:
         videos = [os.path.join(tmp, f"v{i}.mp4")
@@ -2632,17 +2931,22 @@ def phase_factory(smi: str) -> dict:
         if not gap <= BATCHED_ATOL:
             problems.append(f"batched vs per pair {batched_vs_pairs}")
 
-        # 4. that video's JSON from --device cpu
-        cpu_json = os.path.join(tmp, "cpu.json")
-        cpu, _, cpu_s = _factory(["--data_path", path, "--output", cpu_json,
-                                  "--device", "cpu"])
-        box_gap = np.abs(_json_boxes(cpu_json)[short] - boxes[short])
+        # 4. that video's JSON from --device cpu against --device cuda, on
+        # FACTORY_CPU_FRAMES of its frames (--max_frames, stride-sampled)
+        both = ["--data_path", path, "--max_frames", str(FACTORY_CPU_FRAMES)]
+        cut_json, cpu_json = (os.path.join(tmp, f"{d}.json")
+                              for d in ("cuda", "cpu"))
+        cut, _, _ = _factory(both + ["--output", cut_json])
+        cpu, _, cpu_s = _factory(both + ["--output", cpu_json, "--device",
+                                         "cpu"])
+        box_gap = np.abs(_json_boxes(cpu_json)[short]
+                         - _json_boxes(cut_json)[short])
         boxes_card_vs_cpu = {
-            "video": short, "frames": lengths[short],
+            "video": short, "frames": len(box_gap),
             "max_abs_px": float(box_gap.max()),
             "frames_differing": int((box_gap.max(axis=1) > 0).sum()),
             "bound": FACTORY_BOX_PX, "cpu_seconds": cpu["seconds"][short],
-            "card_seconds": stages[short]}
+            "card_seconds": cut["seconds"][short]}
         if not box_gap.max() <= FACTORY_BOX_PX:
             problems.append(f"boxes card vs CPU {boxes_card_vs_cpu}")
 
@@ -3977,6 +4281,7 @@ def main() -> int:
     errors, timings = phase_kernels()
     qkv_head_dims = phase_qkv_head_dims(smi)
     mh_errors, mh_timings = phase_mh_kernels()
+    mh_head_dims = phase_mh_head_dims(smi)
     launches = phase_step(smi)
     phase_parity()
     ft_launches, ft_step_ms, ft_loss = phase_finetune_step(smi)
@@ -4019,6 +4324,7 @@ def main() -> int:
     later["launches_overfit_real"] = phase_overfit_real(smi, blocks)
     t_new = time.perf_counter()
     later["launches_large_presets"] = phase_large_presets(smi)
+    later["launches_any_head_dim_steps"] = phase_any_head_dim_steps(smi)
     new_s = time.perf_counter() - t_new
     kernels = []
     for name in fa.QKV_KERNELS:
@@ -4044,8 +4350,9 @@ def main() -> int:
             "head_dims": {
                 hd: {**qkv_head_dims[hd][1][name],
                      "max_abs_err": qkv_head_dims[hd][0][name],
-                     "shape": "(B=%d, N=%d, H=%d, D=%d) bf16" % (
-                         *QKV_HEAD_DIM_CHECKS[hd]["long"], hd)}
+                     "shape": "(B=%d, N=%d, H=%d, D=%d) bf16, width %d" % (
+                         *QKV_HEAD_DIM_CHECKS[hd]["long"], hd,
+                         fa.head_dim_width(hd))}
                 for hd in QKV_FLAT_HEAD_DIMS},
         })
     for name in fa.MH_KERNELS:
@@ -4061,6 +4368,13 @@ def main() -> int:
             "launches_finetune_runner": ft_runner_launches[name],
             "launches_real_data": real_launches[name],
             **{key: counts[name] for key, counts in later.items()},
+            "head_dims": {
+                hd: {**mh_head_dims[hd][1][name],
+                     "max_abs_err": mh_head_dims[hd][0][name],
+                     "shape": "(B=%d, N=%d, H=%d, D=%d) bf16, kv bias, "
+                              "width %d" % (*MH_HEAD_DIM_CHECKS[hd]["long"],
+                                            hd, fa.head_dim_width(hd))}
+                for hd in MH_HEAD_DIMS},
         })
     for name in fa.HM_KERNELS:
         dec = hm_timings[name]
@@ -4078,8 +4392,9 @@ def main() -> int:
             "head_dims": {
                 hd: {**head_dims[hd][1][name],
                      "max_abs_err": head_dims[hd][0][name],
-                     "shape": "(BH=%d, N=%d, D=%d) bf16" % (
-                         *HM_HEAD_DIM_CHECKS["long"], hd)}
+                     "shape": "(BH=%d, N=%d, D=%d) bf16, width %d" % (
+                         *HM_HEAD_DIM_CHECKS["long"], hd,
+                         fa.head_dim_width(hd))}
                 for hd in HM_HEAD_DIMS},
         })
     emit("done", seconds=time.perf_counter() - t0,

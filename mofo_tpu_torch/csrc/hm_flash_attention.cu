@@ -14,12 +14,15 @@
 //   hm_attn_bwd_dkv  <- _bwd_impl (:304) / _dkv_kernel (:204)
 //
 // Layout. q, k, v, out, dout, dq, dk and dv are (BH, N, D) contiguous with
-// D in {16, 32, 64}, the head dims of the registry's presets: 64 for the
-// ViT-S pretrain decoder's 3 x 64 heads, which take the head-major route of
-// models/layers.Attention because A = 192 is not a multiple of 128, 32 and
-// 16 for the tiny presets' encoder and decoder heads. Every kernel and its
-// shared memory take D as a template parameter; the entry points dispatch
-// on it. The forward writes a (BH, N) f32 LSE in natural-log units;
+// D one of the built head dims 16, 32, 64, 128, 192 and 256
+// (wgmma_tiles.cuh's by_head_dim; the wrapper pads any other D up to 256
+// with zero columns): 64 for the ViT-S pretrain decoder's 3 x 64 heads,
+// which take the head-major route of models/layers.Attention because
+// A = 192 is not a multiple of 128, 32 and 16 for the tiny presets' encoder
+// and decoder heads, the others for an attn_head_dim whose A is not a
+// multiple of 128 (48 pads to 64). Every kernel and its shared memory take
+// D as a template parameter; the entry points dispatch on it. The forward
+// writes a (BH, N) f32 LSE in natural-log units;
 // the backward takes delta = rowsum(dO * O), (BH, N) f32, from the caller:
 // in bf16 from the prep pass, which also writes q * scale (BH, N, D) once
 // for both backward kernels.
@@ -44,9 +47,15 @@
 //     S, m64nD for P.V, D / 16 k-steps in S): q's fragments (times the
 //     scale) stay in registers across both passes and P goes from registers
 //     to P.V; K and V are read from swizzled shared memory (128-, 64- or
-//     32-byte swizzle: a row is 2 D bytes), V MN-major. At D = 16 and 32
-//     the tiles are narrower and the kernels are the same; they are right
-//     first and not tuned. The exponentials are ex2 of log2(e)-scaled
+//     32-byte swizzle: a row is 2 D bytes, two 64-column boxes at D = 128),
+//     V MN-major. At D = 16, 32 and 128 the tiles are narrower or wider and
+//     the kernels are the same; they are right first and not tuned. At
+//     D = 192 and 256 q's fragments and a 64 x D output do not fit beside
+//     each other in a thread's registers: there the forward is
+//     hm_fwd_wide_bf16, the same two passes on wgmma_attn_wide.cuh's strips
+//     (q stays in shared memory, scaled in place; the producer's lanes stage
+//     -inf past N for the ragged tile). The exponentials are ex2 of
+//     log2(e)-scaled
 //     f32 differences and pass 2 multiplies by 1/l: an ulp or two of the
 //     f32 value before the bf16 rounding. The LSE stays in natural-log
 //     units. The 3D tensor maps (BH, N, D) zero-fill rows past N per head.
@@ -64,9 +73,11 @@
 //     log2(e)-scaled f32 difference to the natural-log LSE (scaled once
 //     where it is staged). The scale 0.125 is a power of two, so dQ scales
 //     its f32 accumulator at the store; another scale reads k * scale from
-//     a copy the prep pass writes.
+//     a copy the prep pass writes. At D = 192 and 256 the backward is
+//     wgmma_attn_wide.cuh's strip kernels in base e, which fold another
+//     scale into their K strip instead (the prep pass writes no copy).
 //   - The f32 kernels (the parity path) use FMAs, since tensor cores would
-//     round f32 to TF32.
+//     round f32 to TF32; above D = 128 their tiles shrink to 32 rows.
 // Ragged N is masked in-kernel: kv columns >= N and q rows >= N get P = 0;
 // nothing is padded in HBM.
 //
@@ -84,11 +95,15 @@
 
 #include "flash_tiles.cuh"
 #include "wgmma_attn_bwd.cuh"
+#include "wgmma_attn_wide.cuh"
 #include "wgmma_tiles.cuh"
 
 namespace {
 
-constexpr int kTile = 64;  // rows of the streamed tiles (and of f32 q tiles)
+// Rows of the f32 kernels' streamed tiles (and q tiles): 64 up to D = 128,
+// 32 above (a padded 32 x 257 f32 tile is 33 KB).
+template <int D>
+constexpr int f32_rows() { return D <= 128 ? 64 : 32; }
 
 // One q tile's LSE and delta; rows >= N get 0 (their P is masked).
 __device__ __forceinline__ void load_stats(float* sLse, float* sDelta,
@@ -352,7 +367,7 @@ constexpr size_t smem_fwd_bf16() {
 // against all N keys, in two passes over 64-row kv tiles. Each consumer
 // warpgroup keeps its q fragments (q times the scale, in bf16) in registers;
 // warp w of it owns rows 16w..16w+15 of the strip, in mma.sync's accumulator
-// layout.
+// layout. D up to 128 (wgmma_tiles.cuh's *_d helpers).
 template <int D>
 __global__ void __launch_bounds__(kHopperThreads, 1)
     hm_fwd_bf16(const __grid_constant__ CUtensorMap tq,
@@ -360,7 +375,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
                 const __grid_constant__ CUtensorMap tv,
                 bf16* __restrict__ out, float* __restrict__ lse, int N,
                 float q_scale) {
-  constexpr int kTE = tile_elems<D>(), kTB = tile_bytes<D>(), kRB = 2 * D;
+  constexpr int kTE = tile_elems<D>(), kTB = tile_bytes<D>();
   extern __shared__ unsigned char wsmem[];
   unsigned char* sm = smem_1024(wsmem);
   bf16* sQ = reinterpret_cast<bf16*>(sm);
@@ -388,15 +403,15 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
     if (warp == 4 * kWG && lane == 0) {
       mbar_expect_tx(qbar, kWG * kTB);
       for (int w = 0; w < kWG; ++w)
-        tma_tile(sQ + w * kTE, &tq, qbar, 0, q0 + kTileRows * w, bh);
+        tma_tile_d<D>(sQ + w * kTE, &tq, qbar, 0, q0 + kTileRows * w, bh);
       for (int it = 0; it < 2 * T; ++it) {
         const int s = it % kStages;
         const bool second = it >= T;
         const int k0 = (second ? it - T : it) * kTileRows;
         mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
         mbar_expect_tx(&full[s], second ? 2 * kTB : kTB);
-        tma_tile(sK + s * kTE, &tk, &full[s], 0, k0, bh);
-        if (second) tma_tile(sV + s * kTE, &tv, &full[s], 0, k0, bh);
+        tma_tile_d<D>(sK + s * kTE, &tk, &full[s], 0, k0, bh);
+        if (second) tma_tile_d<D>(sV + s * kTE, &tv, &full[s], 0, k0, bh);
       }
     }
   } else {
@@ -413,7 +428,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       const int s = it % kStages;
       mbar_wait(&full[s], (it / kStages) & 1);
       float sc[8][4] = {};
-      wgmma_tile<0, kRB>(sc, qa, sK + s * kTE);
+      wgmma_tile_d<0, D>(sc, qa, sK + s * kTE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(sc);
@@ -457,7 +472,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
       const int s = it % kStages;
       mbar_wait(&full[s], (it / kStages) & 1);
       float sc[8][4] = {};
-      wgmma_tile<0, kRB>(sc, qa, sK + s * kTE);
+      wgmma_tile_d<0, D>(sc, qa, sK + s * kTE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(sc);
@@ -477,7 +492,7 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
           }
           pa[nt >> 1][2 * (nt & 1) + (e >> 1)] = bf16x2(p0, p1);
         }
-      wgmma_tile<1, kRB>(o, pa, sV + s * kTE);
+      wgmma_tile_d<1, D>(o, pa, sV + s * kTE);
       wgmma_commit();
       wgmma_wait<0>();
       fence_acc(o);
@@ -498,35 +513,199 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
   }
 }
 
-// The bf16 backward is wgmma_attn_bwd.cuh's prep pass and dK/dV and dQ
-// kernels (shared with qkv_flash_attention.cu), in base e on the head-major
-// layout: every operand its own (BH, N, D) tensor map, one head a plane.
-int hm_map(CUtensorMap* map, const void* base, int BH, int N, int D) {
-  return tile_map(map, base, D, N, BH, D, (long)N * D, D);
+// The forward at D = 192 and 256: hm_fwd_bf16's two passes on
+// wgmma_attn_wide.cuh's strips. Grid (ceil(N / (64 kWG)), BH). Each consumer
+// warpgroup owns a 64-row q strip in shared memory, which it scales in
+// place once; S = Q K^T reads both operands from shared memory. The
+// producer warp's lanes stage 0 or -inf (past N) for each kv tile beside it,
+// which masks the ragged tile in both passes; lane 0 issues the loads (K
+// alone in pass 1, K and V in pass 2).
+template <int D>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    hm_fwd_wide_bf16(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     bf16* __restrict__ out, float* __restrict__ lse, int N,
+                     float q_scale) {
+  using S = Strip<D>;
+  constexpr int NB = S::kBoxes, NT = S::kNT, kStrip = S::kElems;
+  constexpr int kSt = FwdShape<D>::kStages;
+  extern __shared__ unsigned char wsmem[];
+  unsigned char* sm = smem_1024(wsmem);
+  bf16* sQ = reinterpret_cast<bf16*>(sm);
+  bf16* sKV = sQ + kWG * kStrip;  // per stage: a K strip, a V strip
+  float* sMask = reinterpret_cast<float*>(sKV + 2 * kSt * kStrip);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sMask + kSt * kTileRows);
+  uint64_t* empty = full + kSt;
+  uint64_t* qbar = empty + kSt;
+  const int bh = blockIdx.y, q0 = blockIdx.x * kWG * kTileRows;
+  const int T = (N + kTileRows - 1) / kTileRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kSt; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA arrival and the mask's lanes
+      mbar_init(&empty[s], 4 * kWG);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kWG) {  // producer
+    producer_registers();
+    if (warp == 4 * kWG) {
+      if (lane == 0) {
+        mbar_expect_tx(qbar, kWG * S::kBytes);
+        for (int w = 0; w < kWG; ++w)
+          tma_tile_d<D>(sQ + w * kStrip, &tq, qbar, 0, q0 + kTileRows * w,
+                        bh);
+      }
+      for (int it = 0; it < 2 * T; ++it) {
+        const int s = it % kSt;
+        const bool second = it >= T;
+        const int j = second ? it - T : it;
+        mbar_wait(&empty[s], ((it / kSt) & 1) ^ 1);
+        if (lane == 0) {
+          bf16* stage = sKV + s * 2 * kStrip;
+          mbar_expect_tx(&full[s], (second ? 2 : 1) * S::kBytes);
+          tma_tile_d<D>(stage, &tk, &full[s], 0, j * kTileRows, bh);
+          if (second)
+            tma_tile_d<D>(stage + kStrip, &tv, &full[s], 0, j * kTileRows,
+                          bh);
+        }
+        stage_bias(sMask + s * kTileRows, nullptr, j, N, lane);
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {
+    consumer_registers();
+    const int wg = warp >> 2, r0 = 16 * (warp & 3);
+    const int g = lane >> 2, t = lane & 3;
+    bf16* strip = sQ + wg * kStrip;
+    mbar_wait(qbar, 0);
+    strip_scale<D>(strip, q_scale, 1 + wg);  // q * scale, in bf16
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    // S of the tile in stage s, its columns past N at -inf
+    auto scores = [&](float (&sc)[8][4], int s) {
+      strip_product<D>(sc, strip, sKV + s * 2 * kStrip);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      const float* sb = sMask + s * kTileRows;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float2 b2 =
+            *reinterpret_cast<const float2*>(sb + 8 * nt + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[nt][e] += (e & 1) ? b2.y : b2.x;
+      }
+    };
+
+    int it = 0;
+    for (int j = 0; j < T; ++j, ++it) {  // pass 1: row max and sum
+      const int s = it % kSt;
+      mbar_wait(&full[s], (it / kSt) & 1);
+      float sc[8][4] = {};
+      scores(sc, s);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      float mx[2] = {-INFINITY, -INFINITY}, rs[2] = {0.f, 0.f}, ml[2];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // finite: the tile holds a column < N
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        l[r] *= exp2f((m[r] - m_new) * kLog2e);
+        m[r] = m_new;
+        ml[r] = m_new * kLog2e;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          rs[e >> 1] += exp2f(fmaf(sc[nt][e], kLog2e, -ml[e >> 1]));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] += quad_sum(rs[r]);
+    }
+
+    float ml[2], inv_l[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) ml[r] = m[r] * kLog2e, inv_l[r] = 1.f / l[r];
+    float o[NB][NT][4] = {};
+    for (int j = 0; j < T; ++j, ++it) {  // pass 2: P = exp(s - m) / l, P.V
+      const int s = it % kSt;
+      mbar_wait(&full[s], (it / kSt) & 1);
+      float sc[8][4] = {};
+      scores(sc, s);
+      uint32_t pa[4][4];  // p / l rounded to bf16: the A fragments of P.V
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; e += 2) {
+          const int r = e >> 1;
+          pa[nt >> 1][2 * (nt & 1) + r] =
+              bf16x2(exp2f(fmaf(sc[nt][e], kLog2e, -ml[r])) * inv_l[r],
+                     exp2f(fmaf(sc[nt][e + 1], kLog2e, -ml[r])) * inv_l[r]);
+        }
+      strip_accumulate<D>(o, pa, sKV + s * 2 * kStrip + kStrip);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    const size_t base = (size_t)bh * N * D;
+    const int row0 = q0 + kTileRows * wg + r0;
+#pragma unroll
+    for (int jb = 0; jb < NB; ++jb)
+      store_acc(out + base + S::kBox * jb, D, o[jb], row0, N, 1.f);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = row0 + g + 8 * half;
+      if (t == 0 && row < N)
+        lse[(size_t)bh * N + row] = m[half] + logf(l[half]);
+    }
+  }
 }
 
-bool bad(int BH, int N, int D) {
-  return (D != 16 && D != 32 && D != 64) || BH < 1 || BH > 65535 || N < 1;
+// The bf16 backward is wgmma_attn_bwd.cuh's prep pass and dK/dV and dQ
+// kernels (shared with qkv_flash_attention.cu) up to D = 128 and
+// wgmma_attn_wide.cuh's strip kernels above, in base e on the head-major
+// layout: every operand its own (BH, N, D) tensor map, one head a plane.
+template <int D>
+int hm_map(CUtensorMap* map, const void* base, int BH, int N) {
+  return tile_map(map, base, D, N, BH, D, (long)N * D, box_cols<D>());
 }
+
+bool bad(int BH, int N) { return BH < 1 || BH > 65535 || N < 1; }
 
 template <int D>
 int run_fwd(const void* q, const void* k, const void* v, void* out, float* l,
-        int BH, int N, float q_scale, int is_bf16, cudaStream_t st) {
+            int BH, int N, float q_scale, int is_bf16, cudaStream_t st) {
   if (is_bf16) {
     CUtensorMap tq, tk, tv;
-    if (int e = hm_map(&tq, q, BH, N, D)) return e;
-    if (int e = hm_map(&tk, k, BH, N, D)) return e;
-    if (int e = hm_map(&tv, v, BH, N, D)) return e;
-    constexpr size_t smem = smem_fwd_bf16<D>();
-    auto kernel = hm_fwd_bf16<D>;
-    if (int e = max_smem((const void*)kernel, smem)) return e;
-    kernel<<<dim3(cdiv(N, kWG * kTileRows), BH), kHopperThreads, smem, st>>>(
-        tq, tk, tv, static_cast<bf16*>(out), l, N, q_scale);
+    if (int e = hm_map<D>(&tq, q, BH, N)) return e;
+    if (int e = hm_map<D>(&tk, k, BH, N)) return e;
+    if (int e = hm_map<D>(&tv, v, BH, N)) return e;
+    auto launch = [&](auto kernel, size_t smem) {
+      if (int e = max_smem((const void*)kernel, smem)) return e;
+      kernel<<<hopper_grid(1, N, BH), kHopperThreads, smem, st>>>(
+          tq, tk, tv, static_cast<bf16*>(out), l, N, q_scale);
+      return 0;
+    };
+    if constexpr (D > 128)
+      return launch(hm_fwd_wide_bf16<D>, FwdShape<D>::kSmem);
+    else
+      return launch(hm_fwd_bf16<D>, smem_fwd_bf16<D>());
   } else {
-    constexpr size_t smem = smem_fwd_f32<kTile, kTile, D>();
-    auto kernel = hm_fwd_f32<kTile, kTile, D>;
+    constexpr int T = f32_rows<D>();
+    constexpr size_t smem = smem_fwd_f32<T, T, D>();
+    auto kernel = hm_fwd_f32<T, T, D>;
     if (int e = max_smem((const void*)kernel, smem)) return e;
-    kernel<<<dim3(cdiv(N, kTile), BH), kThreads, smem, st>>>(
+    kernel<<<dim3(cdiv(N, T), BH), kThreads, smem, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), l, N,
         q_scale);
@@ -536,23 +715,29 @@ int run_fwd(const void* q, const void* k, const void* v, void* out, float* l,
 
 template <int D>
 int run_dkv(const void* q, const void* k, const void* v, const void* dout,
-        const float* l, const float* d, const void* qs, void* dk, void* dv,
-        int BH, int N, float q_scale, int is_bf16, cudaStream_t st) {
+            const float* l, const float* d, const void* qs, void* dk,
+            void* dv, int BH, int N, float q_scale, int is_bf16,
+            cudaStream_t st) {
   if (is_bf16) {
     if (!qs) return kBadArgument;
     CUtensorMap tk, tv, tqs, tdo;
-    if (int e = hm_map(&tk, k, BH, N, D)) return e;
-    if (int e = hm_map(&tv, v, BH, N, D)) return e;
-    if (int e = hm_map(&tqs, qs, BH, N, D)) return e;
-    if (int e = hm_map(&tdo, dout, BH, N, D)) return e;
-    return launch_bwd_dkv<true, false, D>(tk, tv, tqs, tdo, 0, 0, l, d,
-                                          nullptr, dk, dv, D, BH, N, 1, 1.f,
-                                          st);
+    if (int e = hm_map<D>(&tk, k, BH, N)) return e;
+    if (int e = hm_map<D>(&tv, v, BH, N)) return e;
+    if (int e = hm_map<D>(&tqs, qs, BH, N)) return e;
+    if (int e = hm_map<D>(&tdo, dout, BH, N)) return e;
+    if constexpr (D <= 128)
+      return launch_bwd_dkv<true, false, D>(tk, tv, tqs, tdo, 0, 0, l, d,
+                                            nullptr, dk, dv, D, BH, N, 1, 1.f,
+                                            st);
+    else
+      return launch_strip_dkv<D, true>(tk, tv, tqs, tdo, nullptr, l, d, dk,
+                                       dv, D, BH, N, 1, 1.f, st);
   }
-  constexpr size_t smem = smem_dkv_f32<kTile, kTile, D>();
-  auto kernel = hm_bwd_dkv_f32<kTile, kTile, D>;
+  constexpr int T = f32_rows<D>();
+  constexpr size_t smem = smem_dkv_f32<T, T, D>();
+  auto kernel = hm_bwd_dkv_f32<T, T, D>;
   if (int e = max_smem((const void*)kernel, smem)) return e;
-  kernel<<<dim3(cdiv(N, kTile), BH), kThreads, smem, st>>>(
+  kernel<<<dim3(cdiv(N, T), BH), kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), l, d,
       static_cast<float*>(dk), static_cast<float*>(dv), N, q_scale);
@@ -561,52 +746,44 @@ int run_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 template <int D>
 int run_dq(const void* q, const void* k, const void* v, const void* dout,
-       const float* l, const float* d, const void* qs, const void* ks,
-       void* dq_out, int BH, int N, float q_scale, float k_scale, int is_bf16,
-       cudaStream_t st) {
+           const float* l, const float* d, const void* qs, const void* ks,
+           void* dq_out, int BH, int N, float q_scale, float k_scale,
+           int is_bf16, cudaStream_t st) {
   if (is_bf16) {
     if (!qs) return kBadArgument;
     CUtensorMap tk, tv, tqs, tdo, tks;
-    if (int e = hm_map(&tk, k, BH, N, D)) return e;
-    if (int e = hm_map(&tv, v, BH, N, D)) return e;
-    if (int e = hm_map(&tqs, qs, BH, N, D)) return e;
-    if (int e = hm_map(&tdo, dout, BH, N, D)) return e;
-    if (ks)
-      if (int e = hm_map(&tks, ks, BH, N, D)) return e;
-    return launch_bwd_dq<true, false, D>(tk, tv, tqs, tdo,
-                                         ks ? &tks : nullptr, 0, 0, l, d,
-                                         nullptr, dq_out, D, BH, N, 1,
-                                         k_scale, st);
+    if (int e = hm_map<D>(&tk, k, BH, N)) return e;
+    if (int e = hm_map<D>(&tv, v, BH, N)) return e;
+    if (int e = hm_map<D>(&tqs, qs, BH, N)) return e;
+    if (int e = hm_map<D>(&tdo, dout, BH, N)) return e;
+    if constexpr (D <= 128) {
+      if (ks)
+        if (int e = hm_map<D>(&tks, ks, BH, N)) return e;
+      return launch_bwd_dq<true, false, D>(tk, tv, tqs, tdo,
+                                           ks ? &tks : nullptr, 0, 0, l, d,
+                                           nullptr, dq_out, D, BH, N, 1,
+                                           k_scale, st);
+    } else {
+      return launch_strip_dq<D, true>(tk, tv, tqs, tdo, nullptr, l, d,
+                                      dq_out, D, BH, N, 1, k_scale, st);
+    }
   }
-  constexpr size_t smem = smem_dq_f32<kTile, kTile, D>();
-  auto kernel = hm_bwd_dq_f32<kTile, kTile, D>;
+  constexpr int T = f32_rows<D>();
+  constexpr size_t smem = smem_dq_f32<T, T, D>();
+  auto kernel = hm_bwd_dq_f32<T, T, D>;
   if (int e = max_smem((const void*)kernel, smem)) return e;
-  kernel<<<dim3(cdiv(N, kTile), BH), kThreads, smem, st>>>(
+  kernel<<<dim3(cdiv(N, T), BH), kThreads, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(dout), l, d,
       static_cast<float*>(dq_out), N, q_scale, k_scale);
   return 0;
 }
 
-// Runs f.template operator()<D> for the runtime head dim D (one of the three
-// that bad() lets through).
-template <typename F>
-int by_head_dim(int D, F f) {
-  switch (D) {
-    case 16:
-      return f(std::integral_constant<int, 16>());
-    case 32:
-      return f(std::integral_constant<int, 32>());
-    default:
-      return f(std::integral_constant<int, 64>());
-  }
-}
-
 }  // namespace
 
 // All entry points return 0 on success, a cudaError_t from the launch, or -1
-// for arguments the kernels do not take (a head dim other than 16, 32 and
-// 64 among them). `is_bf16` selects __nv_bfloat16 (the tensor-core kernels)
+// for arguments the kernels do not take (a head dim that is not built among
+// them). `is_bf16` selects __nv_bfloat16 (the tensor-core kernels)
 // over float (the FMA kernels). q_scale and k_scale are already rounded to
 // the element type. Every (BH, N, D) tensor is contiguous and 16-byte
 // aligned; lse and delta are (BH, N) f32.
@@ -614,7 +791,7 @@ int by_head_dim(int D, F f) {
 extern "C" int hm_attn_fwd(const void* q, const void* k, const void* v,
                            void* out, void* lse, int BH, int N, int D,
                            float q_scale, int is_bf16, void* stream) {
-  if (bad(BH, N, D)) return kBadArgument;
+  if (bad(BH, N)) return kBadArgument;
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
   if (int e = by_head_dim(D, [&](auto d) {
@@ -633,7 +810,7 @@ extern "C" int hm_attn_bwd_prep(const void* q, const void* k,
                                 void* delta, void* qs, void* ks, int BH,
                                 int N, int D, float q_scale, float k_scale,
                                 void* stream) {
-  if (bad(BH, N, D)) return kBadArgument;
+  if (bad(BH, N)) return kBadArgument;
   if (int e = by_head_dim(D, [&](auto d) {
         constexpr int kD = decltype(d)::value;
         return launch_bwd_prep<kD / 8>(q, k, kD, kD, out, dout, delta, qs, ks,
@@ -651,7 +828,7 @@ extern "C" int hm_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                const void* delta, const void* qs, void* dk,
                                void* dv, int BH, int N, int D, float q_scale,
                                int is_bf16, void* stream) {
-  if (bad(BH, N, D)) return kBadArgument;
+  if (bad(BH, N)) return kBadArgument;
   if (int e = by_head_dim(D, [&](auto d) {
         return run_dkv<decltype(d)::value>(
             q, k, v, dout, static_cast<const float*>(lse),
@@ -670,7 +847,7 @@ extern "C" int hm_attn_bwd_dq(const void* q, const void* k, const void* v,
                               const void* ks, void* dq, int BH, int N, int D,
                               float q_scale, float k_scale, int is_bf16,
                               void* stream) {
-  if (bad(BH, N, D)) return kBadArgument;
+  if (bad(BH, N)) return kBadArgument;
   if (int e = by_head_dim(D, [&](auto d) {
         return run_dq<decltype(d)::value>(
             q, k, v, dout, static_cast<const float*>(lse),

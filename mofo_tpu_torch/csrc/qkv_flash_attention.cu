@@ -10,9 +10,11 @@
 //   qkv_attn_bwd_dq      _qkv_bwd_kernel_houter (dK/dV and dQ)    (K2)
 //
 // Layout. q, k and v are column views of the fused (B, N, 3A) projection
-// (A = H * D, D in {16, 32, 64, 128}: every kernel is a template on D, the
-// entry points dispatch on it): q at column h*D, k at A + h*D, v at
-// 2A + h*D, row stride 3A. The forward writes out (B, N, A) at column h*D
+// (A = H * D, D one of the built head dims 16, 32, 64, 128, 192 and 256:
+// every kernel is a template on D, the entry points dispatch on it through
+// wgmma_tiles.cuh's by_head_dim; the wrapper pads any other D up to 256 with
+// zero columns): q at column h*D, k at A + h*D, v at 2A + h*D, row stride
+// 3A. The forward writes out (B, N, A) at column h*D
 // and a compact (B, H, N) f32 row log-sum-exp. The backward writes one fused dqkv
 // (B, N, 3A): dK/dV from one kernel, dQ from the other; in bf16 both read
 // the prep pass's delta (B, H, N) f32 and q * q_scale (B, N, A).
@@ -22,8 +24,14 @@
 // by operations (the bf16 tensor-core rate), at N = 160 by bytes (and, for
 // a kernel this short, by the host's launch). The flat head dims 16, 32 and
 // 128 (models/layers.Attention's route at A % 128 == 0 with another
-// attn_head_dim) run the same kernels, templated on D: right first, not
-// tuned (D = 128 holds an O accumulator twice D = 64's).
+// attn_head_dim, e.g. 96 padded to 128) run the same kernels, templated on
+// D: right first, not tuned (D = 128 holds an O accumulator twice D = 64's).
+// At D = 192 and 256 a thread's registers cannot hold q's fragments beside
+// the 64 x D output, nor dK/dV's two accumulators: those head dims run K3's
+// strip kernels (wgmma_attn_wide.cuh) through K3's entry points
+// (mh_flash_attention.cu), which take q, k and v as row-strided column views
+// of the fused qkv and write dK, dV and dQ into the views of one dqkv; their
+// f32 backward takes delta from the caller.
 //
 // What the design does about it. Each block holds 64-row tiles of queries
 // (or of keys/values) and streams the other side in 64-row tiles: one
@@ -92,11 +100,31 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "flash_tiles.cuh"
 #include "wgmma_attn_bwd.cuh"
 #include "wgmma_tiles.cuh"
+
+// K3's entry points (mh_flash_attention.cu), which run K1/K2 at head dims
+// 192 and 256 on column views of the fused qkv: q, k and v at row stride
+// 3A, no bias.
+extern "C" {
+int mh_attn_fwd(const void* q, const void* k, const void* v,
+                const void* bias, void* out, void* lse, int B, int N, int H,
+                int D, int ldq, int ldk, int ldv, float q_scale, int bf16,
+                void* stream);
+int mh_attn_bwd_dkv(const void* q, const void* k, const void* v,
+                    const void* bias, const void* dout, const void* lse,
+                    const void* delta, const void* qs, void* dk, void* dv,
+                    int B, int N, int H, int D, int ldq, int ldk, int ldv,
+                    int lddkv, float q_scale, float dk_fix, int bf16,
+                    void* stream);
+int mh_attn_bwd_dq(const void* q, const void* k, const void* v,
+                   const void* bias, const void* dout, const void* lse,
+                   const void* delta, const void* qs, const void* ks,
+                   void* dq, int B, int N, int H, int D, int ldq, int ldk,
+                   int ldv, int lddq, float q_scale, float k_scale, int bf16,
+                   void* stream);
+}
 
 namespace {
 
@@ -521,27 +549,16 @@ dim3 grid_for(int B, int N, int H) {
   return dim3((N + kRows - 1) / kRows, B * H);
 }
 
-// D: a head dim the kernels are built for (QKV_HEAD_DIMS of
-// mofo_tpu_torch/ops/flash_attention.py)
-bool bad(int B, int N, int H, int D) {
-  return (D != 16 && D != 32 && D != 64 && D != 128) || B < 1 || N < 1 ||
-         H < 1 || (long)B * H > 65535;
+bool bad(int B, int N, int H) {
+  return B < 1 || N < 1 || H < 1 || (long)B * H > 65535;
 }
 
-// Runs f.template operator()<D> for the runtime head dim D (one of the four
-// that bad() lets through).
-template <typename F>
-int by_head_dim(int D, F f) {
-  switch (D) {
-    case 16:
-      return f(std::integral_constant<int, 16>());
-    case 32:
-      return f(std::integral_constant<int, 32>());
-    case 128:
-      return f(std::integral_constant<int, 128>());
-    default:
-      return f(std::integral_constant<int, 64>());
-  }
+// Column `col` of a row of qkv (or dqkv) of the element type.
+const void* at_col(const void* p, long col, int is_bf16) {
+  return static_cast<const char*>(p) + col * (is_bf16 ? 2 : 4);
+}
+void* at_col(void* p, long col, int is_bf16) {
+  return static_cast<char*>(p) + col * (is_bf16 ? 2 : 4);
 }
 
 // The fused (B, N, 3A) map: boxes of box_cols<D>() columns, one per tile
@@ -561,7 +578,12 @@ int row_map(CUtensorMap* map, const void* base, int B, int N, int A) {
 template <int D>
 int run_fwd(const void* qkv, void* out, void* lse, int B, int N, int H,
             float q_scale, int is_bf16, cudaStream_t st) {
-  if (is_bf16) {
+  if constexpr (D > 128) {
+    const int A = H * D;
+    return mh_attn_fwd(qkv, at_col(qkv, A, is_bf16),
+                       at_col(qkv, 2 * A, is_bf16), nullptr, out, lse, B, N,
+                       H, D, 3 * A, 3 * A, 3 * A, q_scale, is_bf16, st);
+  } else if (is_bf16) {
     CUtensorMap tqkv;
     if (int e = fused_map<D>(&tqkv, qkv, B, N, H * D)) return e;
     constexpr size_t smem = smem_fwd_bf16<D>();
@@ -570,6 +592,7 @@ int run_fwd(const void* qkv, void* out, void* lse, int B, int N, int H,
     kernel<<<hopper_grid(B, N, H), kHopperThreads, smem, st>>>(
         tqkv, static_cast<bf16*>(out), static_cast<float*>(lse), N, H,
         q_scale);
+    return 0;
   } else {
     constexpr size_t smem = smem_fwd_f32<D>();
     auto kernel = fwd_f32<D>;
@@ -577,8 +600,8 @@ int run_fwd(const void* qkv, void* out, void* lse, int B, int N, int H,
     kernel<<<grid_for(B, N, H), kThreads, smem, st>>>(
         static_cast<const float*>(qkv), static_cast<float*>(out),
         static_cast<float*>(lse), N, H, q_scale);
+    return 0;
   }
-  return 0;
 }
 
 // The tensor maps of the bf16 backward (wgmma_attn_bwd.cuh, base 2 on the
@@ -593,12 +616,20 @@ int fused_maps(CUtensorMap* tqkv, CUtensorMap* tqs, CUtensorMap* tdo,
   return row_map<D>(tdo, dout, B, N, A);
 }
 
+// f32 at D = 192 and 256 takes delta from the caller (K3's kernels).
 template <int D>
 int run_dkv(const void* qkv, const void* out, const void* lse,
             const void* dout, const void* delta, const void* qs, void* dqkv,
             int B, int N, int H, float q_scale, float dk_fix, int is_bf16,
             cudaStream_t st) {
-  if (is_bf16) {
+  if constexpr (D > 128) {
+    const int A = H * D;
+    return mh_attn_bwd_dkv(qkv, at_col(qkv, A, is_bf16),
+                           at_col(qkv, 2 * A, is_bf16), nullptr, dout, lse,
+                           delta, qs, at_col(dqkv, A, is_bf16),
+                           at_col(dqkv, 2 * A, is_bf16), B, N, H, D, 3 * A,
+                           3 * A, 3 * A, 3 * A, q_scale, dk_fix, is_bf16, st);
+  } else if (is_bf16) {
     if (!delta || !qs) return kBadArgument;
     const int A = H * D;
     CUtensorMap tqkv, tqs, tdo;
@@ -608,16 +639,17 @@ int run_dkv(const void* qkv, const void* out, const void* lse,
     return launch_bwd_dkv<false, false, D>(tqkv, tqkv, tqs, tdo, A, 2 * A,
                                            lse, delta, nullptr, dk, dk + A,
                                            3 * A, B, N, H, dk_fix, st);
+  } else {
+    // f32 works in base e: dK needs no 1/log2(e) fix
+    constexpr size_t smem = smem_dkv_f32<D>();
+    auto kernel = bwd_dkv_f32<D>;
+    if (int e = max_smem((const void*)kernel, smem)) return e;
+    kernel<<<grid_for(B, N, H), kThreads, smem, st>>>(
+        static_cast<const float*>(qkv), static_cast<const float*>(out),
+        static_cast<const float*>(lse), static_cast<const float*>(dout),
+        static_cast<float*>(dqkv), N, H, q_scale);
+    return 0;
   }
-  // f32 works in base e: dK needs no 1/log2(e) fix
-  constexpr size_t smem = smem_dkv_f32<D>();
-  auto kernel = bwd_dkv_f32<D>;
-  if (int e = max_smem((const void*)kernel, smem)) return e;
-  kernel<<<grid_for(B, N, H), kThreads, smem, st>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(out),
-      static_cast<const float*>(lse), static_cast<const float*>(dout),
-      static_cast<float*>(dqkv), N, H, q_scale);
-  return 0;
 }
 
 template <int D>
@@ -625,7 +657,13 @@ int run_dq(const void* qkv, const void* out, const void* lse,
            const void* dout, const void* delta, const void* qs,
            const void* ks, void* dqkv, int B, int N, int H, float q_scale,
            float k_scale, int is_bf16, cudaStream_t st) {
-  if (is_bf16) {
+  if constexpr (D > 128) {
+    const int A = H * D;
+    return mh_attn_bwd_dq(qkv, at_col(qkv, A, is_bf16),
+                          at_col(qkv, 2 * A, is_bf16), nullptr, dout, lse,
+                          delta, qs, ks, dqkv, B, N, H, D, 3 * A, 3 * A,
+                          3 * A, 3 * A, q_scale, k_scale, is_bf16, st);
+  } else if (is_bf16) {
     if (!delta || !qs) return kBadArgument;
     const int A = H * D;
     CUtensorMap tqkv, tqs, tdo, tks;
@@ -637,29 +675,30 @@ int run_dq(const void* qkv, const void* out, const void* lse,
                                           ks ? &tks : nullptr, A, 2 * A, lse,
                                           delta, nullptr, dqkv, 3 * A, B, N,
                                           H, k_scale, st);
+  } else {
+    constexpr size_t smem = smem_dq_f32<D>();
+    auto kernel = bwd_dq_f32<D>;
+    if (int e = max_smem((const void*)kernel, smem)) return e;
+    kernel<<<grid_for(B, N, H), kThreads, smem, st>>>(
+        static_cast<const float*>(qkv), static_cast<const float*>(out),
+        static_cast<const float*>(lse), static_cast<const float*>(dout),
+        static_cast<float*>(dqkv), N, H, q_scale, k_scale);
+    return 0;
   }
-  constexpr size_t smem = smem_dq_f32<D>();
-  auto kernel = bwd_dq_f32<D>;
-  if (int e = max_smem((const void*)kernel, smem)) return e;
-  kernel<<<grid_for(B, N, H), kThreads, smem, st>>>(
-      static_cast<const float*>(qkv), static_cast<const float*>(out),
-      static_cast<const float*>(lse), static_cast<const float*>(dout),
-      static_cast<float*>(dqkv), N, H, q_scale, k_scale);
-  return 0;
 }
 
 }  // namespace
 
 // All entry points return 0 on success, a cudaError_t from the launch, or -1
-// for arguments the kernels do not take (a head dim other than 16, 32, 64
-// and 128 among them). `is_bf16` selects __nv_bfloat16 (the tensor-core
+// for arguments the kernels do not take (a head dim that is not built among
+// them). `is_bf16` selects __nv_bfloat16 (the tensor-core
 // kernels) over float (the FMA kernels). q_scale and k_scale are already
 // rounded to the element type; bf16 rows must be 16-byte aligned.
 
 extern "C" int qkv_attn_fwd(const void* qkv, void* out, void* lse, int B,
                             int N, int H, int D, float q_scale, int is_bf16,
                             void* stream) {
-  if (bad(B, N, H, D)) return kBadArgument;
+  if (bad(B, N, H)) return kBadArgument;
   if (int e = by_head_dim(D, [&](auto d) {
         return run_fwd<decltype(d)::value>(qkv, out, lse, B, N, H, q_scale,
                                            is_bf16,
@@ -676,7 +715,7 @@ extern "C" int qkv_attn_bwd_prep(const void* qkv, const void* out,
                                  const void* dout, void* delta, void* qs,
                                  void* ks, int B, int N, int H, int D,
                                  float q_scale, float k_scale, void* stream) {
-  if (bad(B, N, H, D)) return kBadArgument;
+  if (bad(B, N, H)) return kBadArgument;
   if (int e = by_head_dim(D, [&](auto d) {
         constexpr int kD = decltype(d)::value;
         const int A = H * kD;
@@ -690,13 +729,14 @@ extern "C" int qkv_attn_bwd_prep(const void* qkv, const void* out,
 }
 
 // bf16: delta and qs come from qkv_attn_bwd_prep (out is not read); f32:
-// delta and qs are null and the kernel forms them from out and qkv.
+// qs is null and, up to D = 128, delta too: the kernel forms both from out
+// and qkv.
 extern "C" int qkv_attn_bwd_dkv(const void* qkv, const void* out,
                                 const void* lse, const void* dout,
                                 const void* delta, const void* qs, void* dqkv,
                                 int B, int N, int H, int D, float q_scale,
                                 float dk_fix, int is_bf16, void* stream) {
-  if (bad(B, N, H, D)) return kBadArgument;
+  if (bad(B, N, H)) return kBadArgument;
   if (int e = by_head_dim(D, [&](auto d) {
         return run_dkv<decltype(d)::value>(
             qkv, out, lse, dout, delta, qs, dqkv, B, N, H, q_scale, dk_fix,
@@ -706,15 +746,16 @@ extern "C" int qkv_attn_bwd_dkv(const void* qkv, const void* out,
   return (int)cudaGetLastError();
 }
 
-// bf16: delta, qs and (unless k_scale is a power of two) ks come from
-// qkv_attn_bwd_prep; f32: they are null and the kernel reads out and qkv.
+// bf16: delta, qs and (up to D = 128, unless k_scale is a power of two) ks
+// come from qkv_attn_bwd_prep; f32: qs and ks are null, and delta too up to
+// D = 128 (the kernel reads out and qkv).
 extern "C" int qkv_attn_bwd_dq(const void* qkv, const void* out,
                                const void* lse, const void* dout,
                                const void* delta, const void* qs,
                                const void* ks, void* dqkv, int B, int N,
                                int H, int D, float q_scale, float k_scale,
                                int is_bf16, void* stream) {
-  if (bad(B, N, H, D)) return kBadArgument;
+  if (bad(B, N, H)) return kBadArgument;
   if (int e = by_head_dim(D, [&](auto d) {
         return run_dq<decltype(d)::value>(
             qkv, out, lse, dout, delta, qs, ks, dqkv, B, N, H, q_scale,

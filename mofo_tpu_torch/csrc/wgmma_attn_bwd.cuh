@@ -1,16 +1,16 @@
 // The bf16 attention backward for Hopper that qkv_flash_attention.cu (K2,
 // fused-qkv layout, base 2), hm_flash_attention.cu (K4, head-major layout,
-// base e) and mh_flash_attention.cu (K3 at head dim 64: separate q, k, v
-// with a kv bias row, base 2) share: a prep pass and the dK/dV and dQ
-// kernels, built from wgmma_tiles.cuh. The layout, the softmax base and the
-// bias are the parameters. K3 at head dim 256 has kernels of its own
-// (mh_flash_attention.cu) and shares the prep pass.
+// base e) and mh_flash_attention.cu (K3: separate q, k, v with a kv bias
+// row, base 2) share at head dims up to 128: a prep pass and the dK/dV and
+// dQ kernels, built from wgmma_tiles.cuh. The layout, the softmax base and
+// the bias are the parameters. At head dims 192 and 256 the three families
+// run the strip kernels of wgmma_attn_wide.cuh instead, after the same prep
+// pass.
 //
 // Layout. Every operand is reached through a 3D tensor map (columns, rows,
-// planes) of 64 x D boxes (D = 64 but for K4, which also takes 16 and 32,
-// and K2, which takes 16, 32 and 128; at 128 a tile is two 64 x 64 boxes,
-// wgmma_tiles.cuh's *_d helpers: the kernels and launchers take D as a
-// template parameter, 64 by default),
+// planes) of 64 x D boxes (D in {16, 32, 64, 128}; at 128 a tile is two
+// 64 x 64 boxes, wgmma_tiles.cuh's *_d helpers: the kernels and launchers
+// take D as a template parameter, 64 by default),
 // and block (x, y) works on plane b = y / H at columns h * D + a
 // per-operand offset, h = y % H:
 //   - fused qkv (B, N, 3A): one map serves q, k and v, H heads a plane, k at
@@ -18,7 +18,7 @@
 //     3A;
 //   - head-major (BH, N, D): H = 1, every offset 0, each operand its own
 //     map; outputs are (BH, N, D), row stride D;
-//   - separate q, k, v (B, N, 64 H), each with its own row stride (k and v
+//   - separate q, k, v (B, N, H D), each with its own row stride (k and v
 //     may be column views of a fused kv): every offset 0, each operand its
 //     own map; dk and dv share one row stride.
 // Rows past N arrive as zeros (the maps' planes are N rows), and P = 0 for
@@ -65,13 +65,21 @@ namespace {
 constexpr int kBwdStages = 2;
 constexpr int kPrepThreads = 256;
 
+// The lanes one head's row takes in the prep pass: its kHeadChunks chunks
+// of 8 values, or a whole warp for the 24 of head dim 192 (8 lanes idle).
+template <int kHeadChunks>
+__host__ __device__ constexpr int prep_lanes() {
+  return kHeadChunks == 24 ? 32 : kHeadChunks;
+}
+
 // Grid-stride over the 8-value chunks of BN rows of A = 8 kHeadChunks H
 // columns: chunk c of row i is q[i, 8c..8c+7] (row stride ldq; k the same
 // with ldk) and the same columns of dO, O, qs and ks (row stride A).
-// kHeadChunks consecutive chunks are one head (2, 4, 8 or 16 at head dims
-// 16, 32, 64 or 128, 32 at 256: a warp never straddles two heads), so delta
-// is a shuffle sum over that many lanes, written at ((i / N) * H + c / kHeadChunks) * N + i % N. ks
-// (when not null) gets k * k_scale rounded to bf16.
+// kHeadChunks consecutive chunks are one head (2, 4, 8, 16, 24 or 32 at head
+// dims 16, 32, 64, 128, 192 or 256), each on prep_lanes() lanes of one warp
+// (a warp never straddles two heads), so delta is a shuffle sum over those
+// lanes, written at ((i / N) * H + c / kHeadChunks) * N + i % N. ks (when
+// not null) gets k * k_scale rounded to bf16.
 template <int kHeadChunks>
 __global__ void __launch_bounds__(kPrepThreads)
     bwd_prep_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -80,18 +88,28 @@ __global__ void __launch_bounds__(kPrepThreads)
                   bf16* __restrict__ qs, bf16* __restrict__ ks, int BN, int N,
                   int H, float q_scale, float k_scale) {
   static_assert(kHeadChunks == 2 || kHeadChunks == 4 || kHeadChunks == 8 ||
-                    kHeadChunks == 16 || kHeadChunks == 32,
-                "head dim 16, 32, 64, 128 or 256");
+                    kHeadChunks == 16 || kHeadChunks == 24 ||
+                    kHeadChunks == 32,
+                "head dim 16, 32, 64, 128, 192 or 256");
+  constexpr int kLanes = prep_lanes<kHeadChunks>();
   const int A = H * 8 * kHeadChunks, C = A / 8;
-  const int total = BN * C;  // < 2^31: launch_bwd_prep's bound
+  const int total = BN * H * kLanes;  // < 2^31: launch_bwd_prep's bound
   const int stride = gridDim.x * blockDim.x;
   const int lane = threadIdx.x & 31;
   for (int i0 = blockIdx.x * blockDim.x + (threadIdx.x - lane); i0 < total;
        i0 += stride) {  // i0 is uniform across the warp
     const int i = i0 + lane;
-    const bool on = i < total;
-    const int row = on ? i / C : 0;
-    const int c = on ? i - row * C : 0;
+    bool on = i < total;
+    int row, c;
+    if constexpr (kLanes == kHeadChunks) {
+      row = on ? i / C : 0;
+      c = on ? i - row * C : 0;
+    } else {  // slot i: lane `part` of (row, head) i / kLanes
+      const int hr = i / kLanes, part = i - hr * kLanes;
+      on = on && part < kHeadChunks;
+      row = on ? hr / H : 0;
+      c = on ? (hr - row * H) * kHeadChunks + part : 0;
+    }
     float acc = 0.f;
     if (on) {
       const size_t at = (size_t)row * A + 8 * c;
@@ -120,7 +138,7 @@ __global__ void __launch_bounds__(kPrepThreads)
       }
     }
 #pragma unroll
-    for (int o = kHeadChunks / 2; o > 0; o >>= 1)
+    for (int o = kLanes / 2; o > 0; o >>= 1)
       acc += __shfl_xor_sync(0xffffffffu, acc, o);
     if (on && c % kHeadChunks == 0) {
       const int b = row / N, n = row - b * N;
@@ -490,7 +508,7 @@ int launch_bwd_prep(const void* q, const void* k, int ldq, int ldk,
                     void* ks, int B, int N, int H, float q_scale,
                     float k_scale, cudaStream_t st) {
   if ((long)B * N * std::max(ldq, ldk) >= (1l << 31)) return kBadArgument;
-  const long chunks = (long)B * N * H * kHeadChunks;
+  const long chunks = (long)B * N * H * prep_lanes<kHeadChunks>();
   const int blocks = (int)std::min<long>(
       (chunks + kPrepThreads - 1) / kPrepThreads, 132 * 16);
   bwd_prep_bf16<kHeadChunks><<<blocks, kPrepThreads, 0, st>>>(

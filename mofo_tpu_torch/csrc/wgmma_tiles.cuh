@@ -1,7 +1,8 @@
 // Hopper building blocks of every bf16 attention kernel (the forwards of
 // qkv_flash_attention.cu (K1), mh_flash_attention.cu (K3) and
-// hm_flash_attention.cu (K4), K3's backward at head dim 256 and, through
-// wgmma_attn_bwd.cuh, the K2, K4 and head-dim-64 K3 backwards): TMA tile
+// hm_flash_attention.cu (K4), the strip kernels of wgmma_attn_wide.cuh and,
+// through wgmma_attn_bwd.cuh, the K2, K4 and K3 backwards at head dims up
+// to 128): TMA tile
 // loads into a ring of shared-memory stages with mbarrier completion,
 // warpgroup products
 // (wgmma.mma_async m64n64k16, A from registers or shared memory, B from
@@ -16,9 +17,9 @@
 // B = K^T of S = Q K^T) or MN-major (the rows are the contraction: B = V of
 // O = P V), which the descriptor and the trans-b flag select.
 //
-// K4 and K1/K2 also take head dims 16 and 32 (hm_flash_attention.cu,
-// qkv_flash_attention.cu): their tiles are then 64 rows of 32 or 64 bytes,
-// written with the 32- or 64-byte swizzle (chunk c of the 16-byte chunks at
+// Every family also takes head dims 16 and 32 (hm_flash_attention.cu,
+// qkv_flash_attention.cu, mh_flash_attention.cu): their tiles are then 64
+// rows of 32 or 64 bytes, written with the 32- or 64-byte swizzle (chunk c of the 16-byte chunks at
 // byte offset o lies at c ^ ((o >> 7) & (row bytes / 16 - 1)), atoms of 8
 // rows of 256 or 512 bytes). Every piece below that depends on the row width
 // takes the tile's row bytes (kRowBytes, 2 D) or the count of 16-column
@@ -26,13 +27,17 @@
 // instantiation from the 64-column callers, is the 128-byte code these
 // pieces had before.
 //
-// K1/K2 also take head dim 128, wider than one 128-byte swizzle atom: a
-// 64 x 128 tile is then two 64 x 64 sub-tiles (8 KB each, one after the
+// A head dim above 64 is wider than one 128-byte swizzle atom: a 64 x D
+// tile is then D / 64 sub-tiles of 64 x 64 (8 KB each, one after the
 // other), each loaded by its own TMA box. The *_d helpers at the end take
-// the head dim D: at D <= 64 they are the one-tile calls above; at D = 128 a
-// contraction over D runs its k-steps 0-3 on sub-tile 0 and 4-7 on sub-tile
-// 1, and a product whose N is D (P.V) runs one n = 64 product a sub-tile
-// into its half of the accumulator.
+// the head dim D: at D <= 64 they are the one-tile calls above; above it a
+// contraction over D runs k-steps 4s..4s+3 on sub-tile s, and (D = 128) a
+// product whose N is D (P.V) runs one n = 64 product a sub-tile into its
+// half of the accumulator.
+//
+// Every family is built for the head dims 16, 32, 64, 128, 192 and 256
+// (by_head_dim at the end); its wrapper pads any other D up to 256 with
+// zero columns to the next of them.
 
 #pragma once
 
@@ -42,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -50,7 +57,7 @@ constexpr int kTileRows = 64;                // rows of every TMA tile
 constexpr int kTileBytes = kTileRows * 128;  // 64 x 64 bf16
 constexpr int kTileElems = kTileRows * 64;
 
-// A 64-row tile of D bf16 columns (D in {16, 32, 64, 128}).
+// A 64-row tile of D bf16 columns (D in {16, 32} or a multiple of 64).
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
   return kTileRows * 2 * D;
@@ -60,7 +67,7 @@ __host__ __device__ constexpr int tile_elems() {
   return kTileRows * D;
 }
 // The columns of one TMA box and swizzle atom of such a tile: D up to 64,
-// else 64 (D = 128: two sub-tiles of 64 columns).
+// else 64 (D / 64 sub-tiles of 64 columns).
 template <int D>
 __host__ __device__ constexpr int box_cols() {
   return D < 64 ? D : 64;
@@ -263,7 +270,7 @@ __device__ __forceinline__ void wgmma_rs(float (&c)[8][4],
 }
 
 // The same product at n = 32 and n = 16 (c holds a warp's 16 x 32 or 16 x
-// 16 accumulator): the P.V-shaped products of K4 at head dims 32 and 16.
+// 16 accumulator): the P.V-shaped products at head dims 32 and 16.
 template <int kTransB>
 __device__ __forceinline__ void wgmma_rs(float (&c)[4][4],
                                          const uint32_t (&a)[4],
@@ -412,7 +419,7 @@ __device__ __forceinline__ void store_acc(bf16* dst, size_t ld,
   }
 }
 
-// --- head dim D: one tile, or two sub-tiles at D = 128 -------------------
+// --- head dim D: one tile, or D / 64 sub-tiles above 64 -----------------
 
 // c[8 kHalf, 8 kHalf + 8) (a warp's 16 x 64 half of a 16 x 128
 // accumulator) += a . B: the n = 64 product of wgmma_rs on one half.
@@ -443,7 +450,8 @@ __device__ __forceinline__ void wgmma_rs_half(float (&c)[16][4],
 }
 
 // The 64-row tile of D columns at (column c0, row c1, plane c2) of `map`
-// (boxes of box_cols<D>() columns) into dst: one box, two at D = 128.
+// (boxes of box_cols<D>() columns) into dst: one box up to D = 64, D / 64
+// above.
 template <int D>
 __device__ __forceinline__ void tma_tile_d(bf16* dst, const CUtensorMap* map,
                                            uint64_t* bar, int c0, int c1,
@@ -490,7 +498,7 @@ __device__ __forceinline__ void wgmma_tile_ss_d(float (&c)[8][4],
   if constexpr (D <= 64) {
     wgmma_tile_ss<0, 2 * D>(c, a_tile, tile);
   } else {
-    static_assert(D == 128, "head dim 128");
+    static_assert(D % 64 == 0, "sub-tiles of 64 columns");
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
@@ -562,6 +570,32 @@ int tile_map(CUtensorMap* map, const void* base, long cols, long rows,
       dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kBadTensorMap;
+}
+
+// --- host: the built head dims ---------------------------------------------
+
+// Runs f(std::integral_constant<int, D>()) for a head dim D the kernels are
+// built for (HEAD_DIMS of mofo_tpu_torch/ops/flash_attention.py, the same
+// six for K1/K2, K3 and K4); kBadArgument for any other D, which the
+// wrappers pad with zero columns to the next built one first.
+template <typename F>
+int by_head_dim(int D, F f) {
+  switch (D) {
+    case 16:
+      return f(std::integral_constant<int, 16>());
+    case 32:
+      return f(std::integral_constant<int, 32>());
+    case 64:
+      return f(std::integral_constant<int, 64>());
+    case 128:
+      return f(std::integral_constant<int, 128>());
+    case 192:
+      return f(std::integral_constant<int, 192>());
+    case 256:
+      return f(std::integral_constant<int, 256>());
+    default:
+      return kBadArgument;
+  }
 }
 
 }  // namespace

@@ -183,6 +183,6 @@ def vit_tiny_debug_BB_focused(**kwargs):
     BB-focused model on vit_tiny_debug's 2-block dim-64 backbone with a
     2-head MCA, for the finetune CLI's CPU tests. Its 32-dim heads take the
     plain versions on the CPU; on the card the backbone's take K4 from 128
-    tokens, and the MCA's K3 (head dims 64 and 256) raises on them."""
+    tokens and the MCA's take K3, both built for head dim 32."""
     kwargs.setdefault("mca_num_heads", 2)
     return _bb(64, 2, 2, **kwargs)

@@ -25,7 +25,8 @@ BUILD_DIR = PACKAGE / "build"
 SOURCES = ("qkv_flash_attention.cu", "mh_flash_attention.cu",
            "hm_flash_attention.cu")
 # included by the sources, part of the key
-HEADERS = ("flash_tiles.cuh", "wgmma_tiles.cuh", "wgmma_attn_bwd.cuh")
+HEADERS = ("flash_tiles.cuh", "wgmma_tiles.cuh", "wgmma_attn_bwd.cuh",
+           "wgmma_attn_wide.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,7 +44,7 @@ SIGNATURES = {
     "mh_attn_fwd": [_P] * 6 + [_I] * 7 + [_F, _I, _P],
     "mh_attn_bwd_prep": [_P] * 7 + [_I] * 6 + [_F, _F, _P],
     "mh_attn_bwd_dkv": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
-    "mh_attn_bwd_dq": [_P] * 10 + [_I] * 7 + [_F, _F, _I, _P],
+    "mh_attn_bwd_dq": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
     "hm_attn_fwd": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
     "hm_attn_bwd_prep": [_P] * 7 + [_I] * 3 + [_F, _F, _P],
     "hm_attn_bwd_dkv": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
@@ -92,16 +93,20 @@ def build() -> dict:
                      str(CSRC / name)]
                     for name, obj in zip(SOURCES, objects))
     ]
-    report = []
     try:
-        for cmd, proc in compiles:
-            report.append(_finish(cmd, proc.communicate()[0],
-                                  proc.returncode))
+        outputs = [(cmd, proc.communicate()[0], proc.returncode)
+                   for cmd, proc in compiles]
     finally:
         for _, proc in compiles:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+    failed = [(cmd, out, rc) for cmd, out, rc in outputs if rc != 0]
+    if failed:  # every failed source's messages, not the first one's only
+        raise RuntimeError("\n".join(
+            f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}"
+            for cmd, out, rc in failed))
+    report = [out for _, out, _ in outputs]
     tmp = path.with_suffix(f".{tag}")
     cmd = [_nvcc(), NVCC_FLAGS[0], "-shared", "-o", str(tmp),
            *map(str, objects)]

@@ -7,8 +7,7 @@ run:
     Block: K1 (_qkv_fwd_impl / _mh_fwd_kernel) and K2 (_qkv_bwd_impl /
     _qkv_bwd_kernel, _qkv_bwd_kernel_houter), here csrc/qkv_flash_attention.cu.
     qkv is the fused (B, N, 3A) projection: [0, A) q, [A, 2A) k, [2A, 3A) v,
-    A = H * D (D in QKV_HEAD_DIMS: 16, 32, 64 and 128, the flat route's head
-    dims; another D raises on the card). The forward returns out (B, N, A)
+    A = H * D. The forward returns out (B, N, A)
     and a compact (B, H, N) f32 row log-sum-exp; the backward returns one
     (B, N, 3A) dqkv, in bf16 after a prep pass (qkv_attn_bwd_prep: delta =
     rowsum(dO * O) and q * q_scale, read once) that its two kernels share.
@@ -16,12 +15,23 @@ run:
     (B, N) f32 kv bias row (0 / -1e30), the masked cross-attention of the
     BB-focused classifier's MCA block: K3 (_mh_fwd_impl / _mh_fwd_kernel
     with has_bias, _mh_bwd_impl / _mh_dqkv_kernel), here
-    csrc/mh_flash_attention.cu, for D in {64, 256}; its bf16 backward runs
-    a prep pass too (mh_attn_bwd_prep), its f32 backward after mh_delta's
-    reduction.
+    csrc/mh_flash_attention.cu; its bf16 backward runs a prep pass too
+    (mh_attn_bwd_prep), its f32 backward after mh_delta's reduction.
 
-Every bf16 kernel is a TMA + wgmma kernel (csrc/wgmma_tiles.cuh; the K2, K4
-and head-dim-64 K3 backwards share csrc/wgmma_attn_bwd.cuh); every f32
+Head dims. mofo_tpu's kernels take any head dim D; every kernel family here
+is built for HEAD_DIMS = (16, 32, 64, 128, 192, 256). On the card the
+autograd functions pad any other D up to MAX_HEAD_DIM = 256 with zero
+columns to the next built width and slice the results back, in one place
+(fwd_at_width and bwd_at_width, on head_dim_width, pad_head_dim and
+unpad_head_dim): zero columns of q and k add exact zeros to
+QK^T, zero columns of v give zero output columns, and the scale stays the
+caller's. A built D takes no copy. D above 256 raises (still to port,
+ROADMAP.md Queue 2). The plain versions on the CPU take any D as it is.
+
+Every bf16 kernel is a TMA + wgmma kernel (csrc/wgmma_tiles.cuh; the
+backwards up to head dim 128 share csrc/wgmma_attn_bwd.cuh, the K3 forward
+and every backward at 192 and 256 csrc/wgmma_attn_wide.cuh's strip
+kernels, which K1/K2 reach there through K3's entry points); every f32
 kernel runs FMAs.
 
 fp16 callers (the fp16 finetune) run the bf16 kernels: each public entry
@@ -43,8 +53,7 @@ repeats the kernel's numerics (module docstring of the .cu file):
 
 A third interface, flash_attention (:427), takes head-major (B, H, N, D)
 q, k, v and runs K4 (_fwd_impl / _fwd_kernel, _bwd_impl / _dq_kernel and
-_dkv_kernel), here csrc/hm_flash_attention.cu on the (B*H, N, D) view, for
-D in HM_HEAD_DIMS (16, 32, 64: the head dims of every registry preset). Its
+_dkv_kernel), here csrc/hm_flash_attention.cu on the (B*H, N, D) view. Its
 numerics differ from K1/K3's in two ways: it works in base e in
 every dtype, and it rounds the normalized p / l (not the un-normalized P)
 to the input dtype before P.V. Its bf16 backward runs a prep pass
@@ -72,12 +81,11 @@ import torch
 from torch.autograd.function import once_differentiable
 
 LOG2E = 1.4426950408889634
-# the head dims the fused-qkv CUDA kernels (K1/K2) are built for: 64 is
-# every registry preset's, 16, 32 and 128 the flat route's at another
-# attn_head_dim (models/layers.Attention takes it when A % 128 == 0)
-QKV_HEAD_DIMS = (16, 32, 64, 128)
-MH_HEAD_DIMS = (64, 256)  # the head dims of the K3 kernels
-HM_HEAD_DIMS = (16, 32, 64)  # the head dims of the K4 kernels
+# the head dims every kernel family (K1/K2, K3, K4) is built for: 64 is
+# every registry preset's (256 the MCA's, 16 and 32 the tiny presets'), and
+# any other D up to MAX_HEAD_DIM runs at the next of them, zero-padded
+HEAD_DIMS = (16, 32, 64, 128, 192, 256)
+MAX_HEAD_DIM = 256
 
 # the bf16 backward runs qkv_attn_bwd_prep once before its two kernels; the
 # f32 backward runs the two kernels alone (QKV_F32_KERNELS)
@@ -130,6 +138,95 @@ def split_heads(qkv: torch.Tensor, heads: int):
 def merge_heads(x: torch.Tensor) -> torch.Tensor:
     B, H, N, D = x.shape
     return x.transpose(1, 2).reshape(B, N, H * D)
+
+
+def head_dim_width(D: int) -> int:
+    """The built head dim the kernels run a head dim D at: the smallest of
+    HEAD_DIMS >= D (D itself when it is built). Raises above MAX_HEAD_DIM:
+    no kernel takes it."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"head dim {D} unsupported: the attention kernels take head dims "
+            f"1 to {MAX_HEAD_DIM} (run at {HEAD_DIMS}, zero-padded); above "
+            f"{MAX_HEAD_DIM} is still to port (ROADMAP.md Queue 2)")
+    return next(w for w in HEAD_DIMS if w >= D)
+
+
+def kernel_width(x: torch.Tensor, D: int) -> int:
+    """The head dim at which x's heads of D columns are computed: D on the
+    CPU (the plain versions take any D), head_dim_width(D) on the card."""
+    return D if x.device.type == "cpu" else head_dim_width(D)
+
+
+def pad_head_dim(x: torch.Tensor, heads: int, D: int,
+                 width: int) -> torch.Tensor:
+    """x (..., heads * D) with each head's D columns followed by width - D
+    zeros: (..., heads * width); x itself when width == D. Plain torch ops,
+    differentiable (the backward slices the gradient back)."""
+    if width == D:
+        return x
+    lead = x.shape[:-1]
+    return torch.nn.functional.pad(x.reshape(*lead, heads, D),
+                                   (0, width - D)).reshape(*lead,
+                                                           heads * width)
+
+
+def unpad_head_dim(x: torch.Tensor, heads: int, width: int,
+                   D: int) -> torch.Tensor:
+    """pad_head_dim's inverse: each head's first D of its width columns,
+    (..., heads * D); x itself when width == D. Differentiable (the backward
+    pads the gradient with zeros)."""
+    if width == D:
+        return x
+    lead = x.shape[:-1]
+    return x.reshape(*lead, heads, width)[..., :D].reshape(*lead, heads * D)
+
+
+def fwd_at_width(fwd, xs, groups, heads: int, *args):
+    """A kernel family's forward launcher run at the head dim its inputs'
+    D runs at: the one place where the entry points, and the checks that
+    hold the kernels against their plain versions, pad.
+
+    xs: the forward's tensors, each row groups[i] * heads heads of D
+    columns (groups[i] = 0: a tensor without a head dim, K3's kv bias). At
+    a D no kernel is built for (kernel_width) each is zero-padded to the
+    next built width W (pad_head_dim); a built D, and any D on the CPU,
+    takes no copy. fwd(*xs, *args) -> (out, lse). Returns (xs at W, out at
+    W, lse, out sliced back to D); bwd_at_width takes the first three."""
+    D = xs[0].shape[-1] // (groups[0] * heads)
+    W = kernel_width(xs[0], D)
+    xs = tuple(pad_head_dim(x, g * heads, D, W) if g else x
+               for x, g in zip(xs, groups))
+    out, lse = fwd(*xs, *args)
+    return xs, out, lse, unpad_head_dim(out, heads, W, D)
+
+
+# fwd_at_width's groups: K1/K2's qkv holds 3 heads' columns a head, K3's q,
+# k and v one each (its kv bias none), K4's (B*H, N, D) views one
+QKV_GROUPS, MH_GROUPS, HM_GROUPS = (3,), (1, 1, 1, 0), (1, 1, 1)
+
+
+def bwd_at_width(bwd, xs, out, lse, dout, groups, heads: int, *args):
+    """The backward launcher on fwd_at_width's xs, out and lse at W: dout
+    (head dim D) zero-padded as out was, bwd(*xs, out, lse, dout, *args)
+    -> the gradients of xs's head tensors at W (one tensor or a tuple),
+    each sliced back to D."""
+    D, W = dout.shape[-1] // heads, out.shape[-1] // heads
+    grads = bwd(*xs, out, lse, pad_head_dim(dout, heads, D, W), *args)
+    one = isinstance(grads, torch.Tensor)
+    sliced = tuple(unpad_head_dim(g, n * heads, W, D) for g, n in zip(
+        (grads,) if one else grads, (n for n in groups if n)))
+    return sliced[0] if one else sliced
+
+
+def _built(D: int) -> int:
+    """D, after the gate (head_dim_width) and a check that a kernel is built
+    for it: the launchers take padded tensors only."""
+    if head_dim_width(D) != D:
+        raise ValueError(
+            f"head dim {D} has no kernel instance: the public entry points "
+            f"pad it to {head_dim_width(D)} (pad_head_dim) first")
+    return D
 
 
 @functools.lru_cache(maxsize=None)
@@ -194,10 +291,32 @@ def _power_of_two(x: float) -> bool:
     return x > 0 and math.frexp(x)[0] == 0.5
 
 
+def _scaled_k_copy(k_scale: float, D: int) -> bool:
+    """Whether a prep pass writes k * k_scale for dQ: up to head dim 128 (the
+    backwards of csrc/wgmma_attn_bwd.cuh) at a scale that is not a power of
+    two. A power of two scales dQ's f32 accumulator instead, and the strip
+    kernels at 192 and 256 have no shared memory for a third strip and fold
+    the scale into their K strip."""
+    return D <= 128 and not _power_of_two(k_scale)
+
+
+def _dq_plain(ds, k, ks, k_scale: float, dt):
+    """dQ = dS (K * k_scale) as the dQ kernels form it, on (..., N, D) heads:
+    from the prep pass's copy ks; else from k, with a power-of-two scale on
+    the f32 sum, or with k * k_scale rounded to dt (the strip kernels' K
+    strip)."""
+    if ks is not None:
+        return torch.matmul(ds, ks.float())
+    if _power_of_two(k_scale):
+        return torch.matmul(ds, k.float()) * k_scale
+    return torch.matmul(ds, (k * torch.tensor(
+        k_scale, dtype=dt, device=k.device)).float())
+
+
 def attention_qkv_bwd_prep_plain(qkv, out, dout, scale: float, heads: int):
     """Plain PyTorch version of qkv_attn_bwd_prep: (delta (B, H, N) f32,
-    q * q_scale (B, N, A) in the input dtype, and k * k_scale the same way,
-    or None when k_scale is a power of two)."""
+    q * q_scale (B, N, A) in the input dtype, and k * k_scale the same way
+    or None, see _scaled_k_copy)."""
     dt = qkv.dtype
     q_scale, k_scale, _ = _scales(scale, dt)
     B, N, A = out.shape
@@ -206,8 +325,9 @@ def attention_qkv_bwd_prep_plain(qkv, out, dout, scale: float, heads: int):
     do = dout.reshape(B, N, heads, hd).transpose(1, 2).float()
     delta = (do * o).sum(dim=-1)
     qs = qkv[..., :A] * torch.tensor(q_scale, dtype=dt, device=qkv.device)
-    ks = None if _power_of_two(k_scale) else (
-        qkv[..., A:2 * A] * torch.tensor(k_scale, dtype=dt, device=qkv.device))
+    ks = (qkv[..., A:2 * A] * torch.tensor(k_scale, dtype=dt,
+                                           device=qkv.device)
+          if _scaled_k_copy(k_scale, hd) else None)
     return delta, qs, ks
 
 
@@ -215,7 +335,7 @@ def attention_qkv_bwd_from_prep_plain(qkv, lse, dout, delta, qs, ks,
                                       scale: float, heads: int):
     """Plain PyTorch version of qkv_attn_bwd_dkv and qkv_attn_bwd_dq after
     the prep pass: dqkv from its delta, q * q_scale and k * k_scale (None:
-    dQ's product takes k and is scaled after)."""
+    dQ's product takes k, see _dq_plain)."""
     dt = qkv.dtype
     _, k_scale, base2 = _scales(scale, dt)
     _, k, v = split_heads(qkv, heads)
@@ -235,32 +355,25 @@ def attention_qkv_bwd_from_prep_plain(qkv, lse, dout, delta, qs, ks,
     dk = torch.matmul(ds.transpose(-1, -2), qh)
     if base2:
         dk = dk * torch.tensor(1.0 / LOG2E, dtype=torch.float32)
-    if ks is None:
-        dq = torch.matmul(ds, k.float()) * k_scale
-    else:
-        dq = torch.matmul(ds, to_heads(ks).float())
+    dq = _dq_plain(ds, k, None if ks is None else to_heads(ks), k_scale, dt)
     return torch.cat(
         [merge_heads(g.to(dt)) for g in (dq, dk, dv)], dim=-1
     )
 
 
 def qkv_head_dim(qkv: torch.Tensor, heads: int) -> int:
-    """D of a fused (B, N, 3*H*D) qkv; raises unless the K1/K2 kernels are
-    built for it (QKV_HEAD_DIMS): a flat route at another head dim has no
-    kernel, and nothing falls back to the plain version on the card."""
+    """D of a fused (B, N, 3*H*D) qkv; raises above MAX_HEAD_DIM (no kernel
+    takes it, head_dim_width), and nothing falls back to the plain version
+    on the card."""
     if qkv.ndim != 3 or qkv.shape[-1] % (3 * heads):
         raise ValueError(f"qkv must be (B, N, 3*H*D), got {tuple(qkv.shape)}")
     hd = qkv.shape[-1] // (3 * heads)
-    if hd not in QKV_HEAD_DIMS:
-        raise ValueError(
-            f"head dim {hd} unsupported: the fused-qkv kernels are built "
-            f"for {QKV_HEAD_DIMS}"
-        )
+    head_dim_width(hd)
     return hd
 
 
 def _check_cuda(qkv: torch.Tensor, heads: int, *others: torch.Tensor):
-    qkv_head_dim(qkv, heads)
+    _built(qkv_head_dim(qkv, heads))
     if qkv.device.type != "cuda":
         raise ValueError(f"the CUDA kernels need CUDA tensors, got {qkv.device}")
     if qkv.dtype not in (torch.float32, torch.bfloat16):
@@ -344,33 +457,51 @@ def qkv_attn_bwd_prep(qkv, out, dout, scale: float, heads: int):
     q_scale, k_scale, _ = _scales(scale, qkv.dtype)
     delta = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
     qs = torch.empty((B, N, A), dtype=qkv.dtype, device=qkv.device)
-    ks = None if _power_of_two(k_scale) else torch.empty_like(qs)
+    ks = (torch.empty_like(qs)
+          if _scaled_k_copy(k_scale, qkv_head_dim(qkv, heads)) else None)
     _launch("qkv_attn_bwd_prep", qkv, qkv.data_ptr(), out.data_ptr(),
             dout.data_ptr(), delta.data_ptr(), qs.data_ptr(), _ptr(ks), B, N,
             heads, qkv_head_dim(qkv, heads), q_scale, k_scale)
     return delta, qs, ks
 
 
+def _qkv_prep(qkv, out, dout, scale, heads):
+    """(delta, qs, ks) of the backward kernels: the prep pass in bf16; in
+    f32 (delta, None, None) at head dims 192 and 256, whose kernels (K3's)
+    take delta from mh_delta's reduction, and all None below, where the
+    kernels form delta themselves."""
+    if qkv.dtype == torch.bfloat16:
+        return qkv_attn_bwd_prep(qkv, out, dout, scale, heads)
+    if qkv_head_dim(qkv, heads) > 128:
+        return mh_delta(out, dout, heads), None, None
+    return None, None, None
+
+
 def _prep_ptrs(qkv, out, dout, scale, heads, prep):
-    """(delta, qs, ks) pointers of the bf16 kernels (the prep pass run here
-    unless `prep` holds its outputs); all None in f32."""
-    if qkv.dtype != torch.bfloat16:
-        return None, None, None
+    """(delta, qs, ks) pointers of the kernels (_qkv_prep run here unless
+    `prep` holds its outputs)."""
     if prep is None:
-        prep = qkv_attn_bwd_prep(qkv, out, dout, scale, heads)
+        prep = _qkv_prep(qkv, out, dout, scale, heads)
     delta, qs, ks = prep
     B, N, A3 = qkv.shape
-    if delta.shape != (B, heads, N) or qs.shape != (B, N, A3 // 3) or (
-            ks is not None and ks.shape != qs.shape):
+    if qkv.dtype == torch.bfloat16 and qs is None:
+        raise ValueError("the bf16 kernels need the prep pass's q * q_scale")
+    if (delta is None) != (qkv.dtype == torch.float32 and
+                           qkv_head_dim(qkv, heads) <= 128):
+        raise ValueError("delta comes from the prep pass (bf16) or "
+                         "mh_delta (f32 above head dim 128)")
+    if delta is not None and delta.shape != (B, heads, N) or (
+            qs is not None and qs.shape != (B, N, A3 // 3)) or (
+            ks is not None and ks.shape != (B, N, A3 // 3)):
         raise ValueError("prep must be (delta (B, H, N), qs (B, N, A), ks)")
-    _check_cuda(qkv, heads, delta, qs, *([] if ks is None else [ks]))
-    return delta.data_ptr(), qs.data_ptr(), _ptr(ks)
+    _check_cuda(qkv, heads, *(t for t in prep if t is not None))
+    return _ptr(delta), _ptr(qs), _ptr(ks)
 
 
 def qkv_attn_bwd_dkv(qkv, out, lse, dout, dqkv, scale: float, heads: int,
                      prep=None):
-    """Writes dK and dV, columns [A, 3A) of dqkv (CUDA only). bf16 takes
-    qkv_attn_bwd_prep's outputs as `prep` (or runs it)."""
+    """Writes dK and dV, columns [A, 3A) of dqkv (CUDA only). `prep`:
+    _qkv_prep's outputs (computed here when None)."""
     _check_bwd(qkv, out, lse, dout, dqkv, heads)
     B, N, _ = qkv.shape
     q_scale, _, base2 = _scales(scale, qkv.dtype)
@@ -383,8 +514,8 @@ def qkv_attn_bwd_dkv(qkv, out, lse, dout, dqkv, scale: float, heads: int,
 
 def qkv_attn_bwd_dq(qkv, out, lse, dout, dqkv, scale: float, heads: int,
                     prep=None):
-    """Writes dQ, columns [0, A) of dqkv (CUDA only). bf16 takes
-    qkv_attn_bwd_prep's outputs as `prep` (or runs it)."""
+    """Writes dQ, columns [0, A) of dqkv (CUDA only). `prep` as for
+    qkv_attn_bwd_dkv."""
     _check_bwd(qkv, out, lse, dout, dqkv, heads)
     B, N, _ = qkv.shape
     q_scale, k_scale, base2 = _scales(scale, qkv.dtype)
@@ -402,8 +533,7 @@ def qkv_attn_bwd(qkv, out, lse, dout, scale: float, heads: int):
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_plain(qkv, out, lse, dout, scale, heads)
     dqkv = torch.empty_like(qkv)
-    prep = (qkv_attn_bwd_prep(qkv, out, dout, scale, heads)
-            if qkv.dtype == torch.bfloat16 else None)
+    prep = _qkv_prep(qkv, out, dout, scale, heads)
     qkv_attn_bwd_dkv(qkv, out, lse, dout, dqkv, scale, heads, prep)
     qkv_attn_bwd_dq(qkv, out, lse, dout, dqkv, scale, heads, prep)
     return dqkv
@@ -412,19 +542,19 @@ def qkv_attn_bwd(qkv, out, lse, dout, scale: float, heads: int):
 class _QKVFlash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qkv, scale, heads):
-        out, lse = qkv_attn_fwd(qkv, scale, heads)
-        ctx.save_for_backward(qkv, out, lse)
+        xs, out, lse, sliced = fwd_at_width(
+            qkv_attn_fwd, (qkv,), QKV_GROUPS, heads, scale, heads)
+        ctx.save_for_backward(*xs, out, lse)
         ctx.scale, ctx.heads = scale, heads
-        return out
+        return sliced
 
     @staticmethod
     @first_order_only
     @once_differentiable
     def backward(ctx, dout):
         qkv, out, lse = ctx.saved_tensors
-        dqkv = qkv_attn_bwd(
-            qkv, out, lse, dout.contiguous(), ctx.scale, ctx.heads
-        )
+        dqkv = bwd_at_width(qkv_attn_bwd, (qkv,), out, lse, dout.contiguous(),
+                            QKV_GROUPS, ctx.heads, ctx.scale, ctx.heads)
         return dqkv, None, None
 
 
@@ -434,8 +564,9 @@ def flash_attention_qkv(
     """Fused multihead attention straight from the fused qkv projection.
 
     qkv: (B, N, 3*H*Dh). Returns (B, N, H*Dh), projection-ready. Runs the
-    CUDA kernels on a CUDA tensor and their plain versions on a CPU one;
-    differentiable through both.
+    CUDA kernels on a CUDA tensor (at a head dim that is not built, on qkv
+    zero-padded to head_dim_width(Dh), the output sliced back: fwd_at_width)
+    and their plain versions on a CPU one; differentiable through both.
     """
     if qkv.shape[-1] % (3 * num_heads):
         raise ValueError(f"qkv width {qkv.shape[-1]} vs {num_heads} heads")
@@ -507,10 +638,7 @@ def _check_mh(q, k, v, kv_bias, heads: int):
     if q.ndim != 3 or q.shape[-1] % heads:
         raise ValueError(f"q must be (B, N, H*D), got {tuple(q.shape)}")
     B, N, A = q.shape
-    D = A // heads
-    if D not in MH_HEAD_DIMS:
-        raise ValueError(f"head dim {D} unsupported: the kernels are built "
-                         f"for {MH_HEAD_DIMS}")
+    D = _built(A // heads)
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernels need CUDA tensors, got {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -565,23 +693,15 @@ def mh_delta(out, dout, heads: int) -> torch.Tensor:
         dim=-1).contiguous()
 
 
-def _mh_scaled_k_copy(k_scale: float, D: int) -> bool:
-    """Whether the prep pass writes k * k_scale for dQ: only at head dim 64
-    and a scale that is not a power of two. A power of two scales dQ's f32
-    accumulator instead, and at head dim 256 the dQ kernel has no shared
-    memory for a third strip and folds the scale into its K strip."""
-    return D == 64 and not _power_of_two(k_scale)
-
-
 def attention_mh_bwd_prep_plain(q, k, out, dout, scale: float, heads: int):
     """Plain PyTorch version of mh_attn_bwd_prep: (delta (B, H, N) f32,
     q * q_scale (B, N, A) in the input dtype, and k * k_scale the same way
-    or None, see _mh_scaled_k_copy)."""
+    or None, see _scaled_k_copy)."""
     dt = q.dtype
     q_scale, k_scale, _ = _scales(scale, dt)
     qs = q * torch.tensor(q_scale, dtype=dt, device=q.device)
     ks = None
-    if _mh_scaled_k_copy(k_scale, q.shape[-1] // heads):
+    if _scaled_k_copy(k_scale, q.shape[-1] // heads):
         ks = k * torch.tensor(k_scale, dtype=dt, device=q.device)
     return mh_delta(out, dout, heads), qs, ks
 
@@ -590,9 +710,7 @@ def attention_mh_bwd_from_prep_plain(k, v, kv_bias, lse, dout, delta, qs, ks,
                                      scale: float, heads: int):
     """Plain PyTorch version of mh_attn_bwd_dkv and mh_attn_bwd_dq after the
     prep pass: (dq, dk, dv) from its delta, q * q_scale and k * k_scale
-    (None: dQ's product takes k and is scaled after when the scale is a
-    power of two, and takes k * k_scale formed here otherwise, as the
-    head-dim-256 kernel folds it into its K strip)."""
+    (None: dQ's product takes k, see _dq_plain)."""
     dt = k.dtype
     _, k_scale, base2 = _scales(scale, dt)
     kh, vh = _heads(k, heads), _heads(v, heads)
@@ -608,13 +726,8 @@ def attention_mh_bwd_from_prep_plain(k, v, kv_bias, lse, dout, delta, qs, ks,
     dk = torch.matmul(ds.transpose(-1, -2), qh)
     if base2:
         dk = dk * torch.tensor(1.0 / LOG2E, dtype=torch.float32)
-    if ks is not None:
-        dq = torch.matmul(ds, _heads(ks, heads).float())
-    elif _power_of_two(k_scale):
-        dq = torch.matmul(ds, kh.float()) * k_scale
-    else:
-        dq = torch.matmul(ds, (kh * torch.tensor(
-            k_scale, dtype=dt, device=k.device)).float())
+    dq = _dq_plain(ds, kh, None if ks is None else _heads(ks, heads),
+                   k_scale, dt)
     return tuple(merge_heads(g.to(dt)) for g in (dq, dk, dv))
 
 
@@ -658,7 +771,7 @@ def mh_attn_bwd_prep(q, k, out, dout, scale: float, heads: int):
     q_scale, k_scale, _ = _scales(scale, q.dtype)
     delta = torch.empty((B, heads, N), dtype=torch.float32, device=q.device)
     qs = torch.empty((B, N, A), dtype=q.dtype, device=q.device)
-    ks = torch.empty_like(qs) if _mh_scaled_k_copy(k_scale, D) else None
+    ks = torch.empty_like(qs) if _scaled_k_copy(k_scale, D) else None
     _launch("mh_attn_bwd_prep", q, q.data_ptr(), k.data_ptr(),
             out.data_ptr(), dout.data_ptr(), delta.data_ptr(), qs.data_ptr(),
             _ptr(ks), B, N, heads, D, q.stride(1), k.stride(1), q_scale,
@@ -707,7 +820,8 @@ def mh_attn_bwd_dkv(q, k, v, kv_bias, out, lse, dout, dk, dv, scale: float,
 
 def mh_attn_bwd_dq(q, k, v, kv_bias, out, lse, dout, dq, scale: float,
                    heads: int, prep=None):
-    """Writes dQ (B, N, A) contiguous (CUDA only). `prep` as for
+    """Writes dQ (B, N, A) contiguous (CUDA only; the C entry point takes
+    dq's row stride, which K2 sets at head dims 192 and 256). `prep` as for
     mh_attn_bwd_dkv."""
     D = _check_mh(q, k, v, kv_bias, heads)
     _check_mh_bwd(q, out, lse, dout, heads)
@@ -719,7 +833,8 @@ def mh_attn_bwd_dq(q, k, v, kv_bias, out, lse, dout, dq, scale: float,
     _launch("mh_attn_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             _ptr(kv_bias), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             _ptr(qs), _ptr(ks), dq.data_ptr(), B, N, heads, D, q.stride(1),
-            k.stride(1), v.stride(1), q_scale, k_scale, int(base2))
+            k.stride(1), v.stride(1), dq.stride(1), q_scale, k_scale,
+            int(base2))
 
 
 def mh_attn_bwd(q, k, v, kv_bias, out, lse, dout, scale: float, heads: int):
@@ -744,18 +859,20 @@ def mh_attn_bwd(q, k, v, kv_bias, out, lse, dout, scale: float, heads: int):
 class _MHFlash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, kv_bias, scale, heads):
-        out, lse = mh_attn_fwd(q, k, v, kv_bias, scale, heads)
-        ctx.save_for_backward(q, k, v, kv_bias, out, lse)
+        xs, out, lse, sliced = fwd_at_width(
+            mh_attn_fwd, (q, k, v, kv_bias), MH_GROUPS, heads, scale, heads)
+        ctx.save_for_backward(*xs, out, lse)
         ctx.scale, ctx.heads = scale, heads
-        return out
+        return sliced
 
     @staticmethod
     @first_order_only
     @once_differentiable
     def backward(ctx, dout):
-        q, k, v, kv_bias, out, lse = ctx.saved_tensors
-        dq, dk, dv = mh_attn_bwd(q, k, v, kv_bias, out, lse,
-                                 dout.contiguous(), ctx.scale, ctx.heads)
+        *xs, out, lse = ctx.saved_tensors
+        dq, dk, dv = bwd_at_width(mh_attn_bwd, xs, out, lse,
+                                  dout.contiguous(), MH_GROUPS, ctx.heads,
+                                  ctx.scale, ctx.heads)
         # the bias is a 0 / -1e30 mask encoding: no gradient
         return dq, dk, dv, None, None, None
 
@@ -771,8 +888,10 @@ def flash_attention_mh(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     shared across heads and queries (0 / -1e30 masks kv columns exactly:
     their weight underflows to 0 in forward and backward); every row must
     keep one unmasked column. Returns (B, N, H*Dh). Runs the CUDA kernels on
-    CUDA tensors and their plain versions on CPU ones; differentiable in
-    q, k and v through both.
+    CUDA tensors (at a head dim that is not built, on q, k and v
+    zero-padded to head_dim_width(Dh), the output sliced back: fwd_at_width)
+    and their plain versions on CPU ones; differentiable in q, k and v
+    through both.
     """
     if q.shape[-1] % num_heads:
         raise ValueError(f"width {q.shape[-1]} vs {num_heads} heads")
@@ -833,20 +952,20 @@ def attention_hm_bwd_plain(q, k, v, out, lse, dout, scale: float):
 
 def attention_hm_bwd_prep_plain(q, k, out, dout, scale: float):
     """Plain PyTorch version of hm_attn_bwd_prep on (..., N, D): (delta
-    (..., N) f32, q * scale in the input dtype, and k * scale the same way,
-    or None when the rounded scale is a power of two)."""
+    (..., N) f32, q * scale in the input dtype, and k * scale the same way
+    or None, see _scaled_k_copy)."""
     dt = q.dtype
     sc = _rounded(scale, dt)
     mul = torch.tensor(sc, dtype=dt, device=q.device)
     return (hm_delta(out, dout), q * mul,
-            None if _power_of_two(sc) else k * mul)
+            k * mul if _scaled_k_copy(sc, q.shape[-1]) else None)
 
 
 def attention_hm_bwd_from_prep_plain(k, v, lse, dout, delta, qs, ks,
                                      scale: float):
     """Plain PyTorch version of hm_attn_bwd_dkv and hm_attn_bwd_dq after
     the prep pass: (dq, dk, dv) from its delta, q * scale and k * scale
-    (None: dQ's product takes k and is scaled after)."""
+    (None: dQ's product takes k, see _dq_plain)."""
     dt = k.dtype
     s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
     p16 = torch.exp(s - lse[..., None]).to(dt)
@@ -855,10 +974,7 @@ def attention_hm_bwd_from_prep_plain(k, v, lse, dout, delta, qs, ks,
     dv = torch.matmul(p16.float().transpose(-1, -2), do)
     ds = (p16 * (dp - delta[..., None]).to(dt)).float()
     dk = torch.matmul(ds.transpose(-1, -2), qs.float())
-    if ks is None:
-        dq = torch.matmul(ds, k.float()) * _rounded(scale, dt)
-    else:
-        dq = torch.matmul(ds, ks.float())
+    dq = _dq_plain(ds, k, ks, _rounded(scale, dt), dt)
     return dq.to(dt), dk.to(dt), dv.to(dt)
 
 
@@ -866,9 +982,7 @@ def _check_hm(q, *others):
     """Raises on (B*H, N, D) tensors the K4 kernels do not take."""
     if q.ndim != 3:
         raise ValueError(f"q must be (B*H, N, D), got {tuple(q.shape)}")
-    if q.shape[-1] not in HM_HEAD_DIMS:
-        raise ValueError(f"head dim {q.shape[-1]} unsupported: the kernels "
-                         f"are built for {HM_HEAD_DIMS}")
+    _built(q.shape[-1])
     if q.device.type != "cuda":
         raise ValueError(f"the CUDA kernels need CUDA tensors, got {q.device}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -921,7 +1035,7 @@ def hm_attn_bwd_prep(q, k, out, dout, scale: float):
     sc = _rounded(scale, q.dtype)
     delta = torch.empty((BH, N), dtype=torch.float32, device=q.device)
     qs = torch.empty_like(q)
-    ks = None if _power_of_two(sc) else torch.empty_like(q)
+    ks = torch.empty_like(q) if _scaled_k_copy(sc, D) else None
     _launch("hm_attn_bwd_prep", q, q.data_ptr(), k.data_ptr(),
             out.data_ptr(), dout.data_ptr(), delta.data_ptr(), qs.data_ptr(),
             _ptr(ks), BH, N, D, sc, sc)
@@ -988,27 +1102,30 @@ def hm_attn_bwd(q, k, v, out, lse, dout, scale: float):
 class _HMFlash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        out, lse = hm_attn_fwd(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
+        xs, out, lse, sliced = fwd_at_width(
+            hm_attn_fwd, (q, k, v), HM_GROUPS, 1, scale)
+        ctx.save_for_backward(*xs, out, lse)
         ctx.scale = scale
-        return out
+        return sliced
 
     @staticmethod
     @first_order_only
     @once_differentiable
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = hm_attn_bwd(q, k, v, out, lse, dout.contiguous(),
-                                 ctx.scale)
+        *xs, out, lse = ctx.saved_tensors
+        dq, dk, dv = bwd_at_width(hm_attn_bwd, xs, out, lse,
+                                  dout.contiguous(), HM_GROUPS, 1, ctx.scale)
         return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float) -> torch.Tensor:
     """Fused self-attention, head-major: q, k, v (B, H, N, Dh) -> the same
-    layout. The kernels see the (B*H, N, Dh) view of contiguous copies.
-    Runs the CUDA kernels on CUDA tensors and their plain versions on CPU
-    ones; differentiable in q, k and v through both."""
+    layout. The kernels see the (B*H, N, Dh) view of contiguous copies
+    (zero-padded to head_dim_width(Dh) at a head dim that is not built, the
+    output sliced back: fwd_at_width). Runs the CUDA kernels on CUDA
+    tensors and their plain versions on CPU ones; differentiable in q, k
+    and v through both."""
     if k.shape != q.shape or v.shape != q.shape or q.ndim != 4:
         raise ValueError(f"q, k, v must share one (B, H, N, D) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "

@@ -146,15 +146,38 @@ _PLAIN = {
 def plain_attention():
     """Inside, the attention wrappers the autograd functions call (forward
     and backward of K1/K2, K3 and K4) are their plain PyTorch versions on
-    any device, and no kernel is launched."""
+    any device, at the caller's head dim (fa.kernel_width pads nothing),
+    and no kernel is launched."""
     kept = {name: getattr(fa, name) for name in _PLAIN}
+    width = fa.kernel_width
     try:
         for name, plain in _PLAIN.items():
             setattr(fa, name, plain)
+        fa.kernel_width = lambda x, D: D
         yield
     finally:
         for name, wrapper in kept.items():
             setattr(fa, name, wrapper)
+        fa.kernel_width = width
+
+
+@contextlib.contextmanager
+def count_pads():
+    """Inside, every zero-padding copy the attention kernels' autograd
+    functions make (fa.pad_head_dim to a wider head dim, from
+    fa.fwd_at_width and fa.bwd_at_width) is counted: yields a dict whose
+    "copies" grows by one a copy."""
+    pad, counts = fa.pad_head_dim, {"copies": 0}
+
+    def counted(x, heads, D, width):
+        counts["copies"] += width != D
+        return pad(x, heads, D, width)
+
+    fa.pad_head_dim = counted
+    try:
+        yield counts
+    finally:
+        fa.pad_head_dim = pad
 
 
 @contextlib.contextmanager
@@ -328,7 +351,8 @@ def memory_box_json(paths, hw=(256, 320)) -> dict:
 
 def build_finetune_step(B: int, plain: bool = False, depth: int = 12,
                         augment: bool = False, dtype: str = "bfloat16",
-                        opt: str = "adamw", **cfg_fields):
+                        opt: str = "adamw", mca_num_heads: int = 3,
+                        **cfg_fields):
     """The ViT-B BB-focused MCA finetune step on CUDA at batch B, its
     backbone `depth` Blocks deep (the checks cut it), trained by zoo entry
     `opt`. With `plain` the step's attention runs the plain versions on the
@@ -336,14 +360,16 @@ def build_finetune_step(B: int, plain: bool = False, depth: int = 12,
     and the step augments it as the finetune CLI does (RandAugment, crop,
     flip, erasing); in dtype "float16" the state carries the dynamic loss
     scale; a second-order `opt` (adahessian) takes the Hutchinson probe,
-    on a model with the plain attention route; `cfg_fields` set more
-    FinetuneConfig fields (drop, attn_drop_rate). Returns (model, state,
-    step_fn, generator, batch, cfg)."""
+    on a model with the plain attention route; the MCA block has
+    `mca_num_heads` heads (3 by default: head dim 256); `cfg_fields` set
+    more FinetuneConfig fields (drop, attn_drop_rate). Returns (model,
+    state, step_fn, generator, batch, cfg)."""
     second_order = optim.is_second_order(opt)
     overrides = {"attn_impl": "xla"} if second_order else {}
     cfg = FinetuneConfig(batch_size=B, model=FINETUNE_MODEL, dtype=dtype,
                          **cfg_fields)
-    model = finetune_model(cfg, depth=depth, **overrides)
+    model = finetune_model(cfg, depth=depth, mca_num_heads=mca_num_heads,
+                           **overrides)
     pretrain = create_model(MODEL, dtype=torch.bfloat16, seed=1,
                             encoder_depth=depth)
     finetune_init_from_pretrain(model, pretrain.state_dict())
@@ -529,13 +555,21 @@ def attention_against_plain(qkv: torch.Tensor, heads: int, scale: float):
     """(got, want): out, lse, dq, dk, dv of the kernels (their plain
     versions, on a CPU tensor) and of the plain versions, on the same
     inputs. The backward takes the kernels' out and lse and dout = 2 out,
-    the gradient of sum(out^2)."""
-    out, lse = fa.qkv_attn_fwd(qkv, scale, heads)
+    the gradient of sum(out^2). The kernels run as flash_attention_qkv
+    runs them (fa.fwd_at_width, fa.bwd_at_width: at a head dim D without a
+    kernel on zero-padded inputs, the outputs sliced back); got["at_width"]
+    holds the kernels' qkv and out at that width, for the prep pass's
+    check. The plain versions run at D."""
+    xs, out_w, lse, out = fa.fwd_at_width(fa.qkv_attn_fwd, (qkv,),
+                                          fa.QKV_GROUPS, heads, scale, heads)
     p_out, p_lse = fa.attention_qkv_fwd_plain(qkv, scale, heads)
     dout = (2 * out.float()).to(qkv.dtype)
-    dqkv = fa.qkv_attn_bwd(qkv, out, lse, dout, scale, heads)
+    dqkv = fa.bwd_at_width(fa.qkv_attn_bwd, xs, out_w, lse, dout,
+                           fa.QKV_GROUPS, heads, scale, heads)
     p_dqkv = fa.attention_qkv_bwd_plain(qkv, out, lse, dout, scale, heads)
-    return _parts(out, lse, dqkv), _parts(p_out, p_lse, p_dqkv)
+    got = _parts(out, lse, dqkv)
+    got["at_width"] = (*xs, out_w)
+    return got, _parts(p_out, p_lse, p_dqkv)
 
 
 def mh_inputs(B: int, N: int, H: int, D: int, dtype: torch.dtype,
@@ -560,15 +594,19 @@ def mh_inputs(B: int, N: int, H: int, D: int, dtype: torch.dtype,
 def mh_attention_against_plain(q, k, v, kv_bias, heads: int, scale: float):
     """(got, want) of the K3 kernels (their plain versions on CPU tensors)
     and the plain versions on the same inputs; the backward takes the
-    kernels' out and lse and dout = 2 out."""
-    out, lse = fa.mh_attn_fwd(q, k, v, kv_bias, scale, heads)
+    kernels' out and lse and dout = 2 out. The kernels run as
+    flash_attention_mh runs them, got["at_width"] = (q, k, v, kv_bias,
+    out) at their width (see attention_against_plain)."""
+    xs, out_w, lse, out = fa.fwd_at_width(fa.mh_attn_fwd, (q, k, v, kv_bias),
+                                          fa.MH_GROUPS, heads, scale, heads)
     p_out, p_lse = fa.attention_mh_fwd_plain(q, k, v, kv_bias, scale, heads)
     dout = (2 * out.float()).to(q.dtype)
-    dq, dk, dv = fa.mh_attn_bwd(q, k, v, kv_bias, out, lse, dout, scale,
-                                heads)
+    dq, dk, dv = fa.bwd_at_width(fa.mh_attn_bwd, xs, out_w, lse, dout,
+                                 fa.MH_GROUPS, heads, scale, heads)
     p_dq, p_dk, p_dv = fa.attention_mh_bwd_plain(q, k, v, kv_bias, out, lse,
                                                  dout, scale, heads)
-    got = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+    got = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv,
+           "at_width": (*xs, out_w)}
     want = {"out": p_out, "lse": p_lse, "dq": p_dq, "dk": p_dk, "dv": p_dv}
     return got, want
 
@@ -584,14 +622,19 @@ def hm_inputs(BH: int, N: int, dtype: torch.dtype, seed: int, device,
 def hm_attention_against_plain(q, k, v, scale: float):
     """(got, want) of the K4 kernels (their plain versions on CPU tensors)
     and the plain versions on the same inputs; the backward takes the
-    kernels' out and lse and dout = 2 out."""
-    out, lse = fa.hm_attn_fwd(q, k, v, scale)
+    kernels' out and lse and dout = 2 out. The kernels run as
+    flash_attention runs them, got["at_width"] = (q, k, v, out) at their
+    width (see attention_against_plain)."""
+    xs, out_w, lse, out = fa.fwd_at_width(fa.hm_attn_fwd, (q, k, v),
+                                          fa.HM_GROUPS, 1, scale)
     p_out, p_lse = fa.attention_hm_fwd_plain(q, k, v, scale)
     dout = (2 * out.float()).to(q.dtype)
-    dq, dk, dv = fa.hm_attn_bwd(q, k, v, out, lse, dout, scale)
+    dq, dk, dv = fa.bwd_at_width(fa.hm_attn_bwd, xs, out_w, lse, dout,
+                                 fa.HM_GROUPS, 1, scale)
     p_dq, p_dk, p_dv = fa.attention_hm_bwd_plain(q, k, v, out, lse, dout,
                                                  scale)
-    got = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+    got = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv,
+           "at_width": (*xs, out_w)}
     want = {"out": p_out, "lse": p_lse, "dq": p_dq, "dk": p_dk, "dv": p_dv}
     return got, want
 

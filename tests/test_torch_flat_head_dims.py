@@ -2,7 +2,8 @@
 
 mofo_tpu's flat kernels take any head dim D = A / heads
 (mofo_tpu/ops/flash_attention.py:1160-1165); the port's are built for
-QKV_HEAD_DIMS = (16, 32, 64, 128) and refuse another D on the card. Here,
+HEAD_DIMS = (16, 32, 64, 128, 192, 256), pad any other D up to 256 on the
+card (tests/test_torch_any_head_dim.py) and refuse D above it. Here,
 on the CPU, the port's plain versions of K1/K2 at D = 16, 32 and 128 are
 held against mofo_tpu.ops.flash_attention.flash_attention_qkv in interpret
 mode (the TPU kernels _qkv_fwd_impl and _qkv_bwd_impl), forward and dqkv of
@@ -102,16 +103,16 @@ def test_prep_then_rest_is_the_plain_backward(D, H, dtype):
     assert torch.equal(split, whole)
 
 
-@pytest.mark.parametrize("D", [48, 80])
+@pytest.mark.parametrize("D", [264, 320])
 def test_a_head_dim_without_kernels_is_refused(D):
-    """F7's remainder: a flat D outside QKV_HEAD_DIMS (48 with 8 heads,
-    A = 384, takes the flat route) has no kernel; the gate says which D
-    are built, before it looks at the device."""
+    """A flat D above 256 has no kernel (the next slice's, ROADMAP.md Queue
+    2); the gate says so before it looks at the device. Every D up to 256
+    passes it (the wrappers pad it to a built width)."""
     x = torch.zeros(1, 16, 3 * 8 * D)
-    with pytest.raises(ValueError, match=r"\(16, 32, 64, 128\)"):
+    with pytest.raises(ValueError, match="head dims 1 to 256"):
         fa.qkv_head_dim(x, 8)
     with pytest.raises(ValueError, match=f"head dim {D} unsupported"):
         fa.qkv_attn_bwd_dkv(x, x[..., :8 * D], torch.zeros(1, 8, 16),
                             x[..., :8 * D], x, D ** -0.5, 8)
-    for hd in fa.QKV_HEAD_DIMS:
+    for hd in fa.HEAD_DIMS + (48, 80):
         assert fa.qkv_head_dim(torch.zeros(1, 16, 3 * 8 * hd), 8) == hd

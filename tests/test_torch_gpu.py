@@ -42,6 +42,7 @@ from mofo_tpu_torch.tools.main_path import (
     check_mh_prep,
     check_prep,
     compare_with_plain,
+    count_pads,
     finetune_model,
     forced_draws,
     frame_ids,
@@ -197,6 +198,114 @@ def test_autograd_at_head_dim_128_runs_the_kernels(cuda):
      ** 2).sum().backward()
     assert fa.launch_counts == {**dict.fromkeys(fa.KERNELS, 0),
                                 **dict.fromkeys(fa.QKV_KERNELS, 1)}
+
+
+# --- head dims up to 256: built widths and zero-padded ones ---------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,H", [(96, 4), (256, 1)])
+@pytest.mark.parametrize("N", [65, 200])
+def test_qkv_at_a_padded_and_a_built_wide_head_dim(cuda, hd, H, N, dtype):
+    """K1/K2 at 96 (zero-padded to 128) and at 256 (K3's strip kernels on
+    the fused layout; scale 1/16, and 96's no power of two) against the
+    plain versions at the unpadded D; faults rejected."""
+    x = _qkv(2, N, H, dtype, cuda, seed=hd + N, d=hd)
+    got, want = attention_against_plain(x, H, hd ** -0.5)
+    torch.cuda.synchronize()
+    check_against_plain(got, want)
+    for fault, outputs in planted_faults(got).items():
+        assert compare_with_plain(outputs, want)["beyond_bounds"], fault
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,H", [(100, 2), (192, 1), (16, 4)])
+@pytest.mark.parametrize("N", [65, 200])
+def test_mh_at_a_padded_and_a_built_head_dim(cuda, hd, H, N, dtype):
+    """K3 with the kv bias at 100 (zero-padded to 128), 192 (the strip
+    kernels) and 16 (one 32-byte box) against the plain versions at the
+    unpadded D; masked kv rows get zero dK/dV; faults rejected."""
+    q, k, v, b = mh_inputs(2, N, H, hd, dtype, hd + N, cuda)
+    got, want = mh_attention_against_plain(q, k, v, b, H, hd ** -0.5)
+    torch.cuda.synchronize()
+    check_against_plain(got, want)
+    assert masked_kv_grad(got, b) == 0.0
+    ignored, _ = mh_attention_against_plain(q, k, v, None, H, hd ** -0.5)
+    for fault, outputs in planted_faults(got, ignored).items():
+        assert compare_with_plain(outputs, want)["beyond_bounds"], fault
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [48, 128, 160, 192, 256])
+@pytest.mark.parametrize("N", [65, 200])
+def test_hm_at_a_padded_and_a_built_head_dim(cuda, hd, N, dtype):
+    """K4 at 48 (zero-padded to 64), 128 (two 64-column boxes), 160
+    (zero-padded to 192), 192 and 256 (the two-pass strip forward and the
+    backward on strips) against the plain versions at the unpadded D;
+    faults rejected."""
+    q, k, v = hm_inputs(4, N, dtype, hd + N, cuda, D=hd)
+    got, want = hm_attention_against_plain(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
+    check_against_plain(got, want)
+    for fault, outputs in hm_planted_faults(got).items():
+        assert compare_with_plain(outputs, want)["beyond_bounds"], fault
+
+
+@pytest.mark.parametrize("family", ["qkv", "mh", "hm"])
+def test_autograd_pads_an_unbuilt_head_dim_only(cuda, family):
+    """Each public entry point at head dim 48 (bf16): one launch of each
+    kernel, the inputs padded (1 copy for qkv, 3 for q, k, v) and the
+    backward's dout (1), the gradients those of the padded route's kernels
+    bit for bit; at 64 no copy."""
+    for hd, copies in ((48, 2 if family == "qkv" else 4), (64, 0)):
+        H = 2
+        if family == "qkv":
+            x = [_qkv(2, 100, H, torch.bfloat16, cuda, seed=1, d=hd)]
+            fn = lambda a: fa.flash_attention_qkv(  # noqa: E731
+                a, scale=hd ** -0.5, num_heads=H)
+            route = lambda: attention_against_plain(  # noqa: E731
+                x[0], H, hd ** -0.5)[0]
+            names, grads = fa.QKV_KERNELS, ("dq", "dk", "dv")
+        elif family == "mh":
+            q, k, v, _ = mh_inputs(2, 100, H, hd, torch.bfloat16, 1, cuda,
+                                   bias=False)
+            x = [q, k.contiguous(), v.contiguous()]
+            fn = lambda *a: fa.flash_attention_mh(  # noqa: E731
+                *a, scale=hd ** -0.5, num_heads=H)
+            route = lambda: mh_attention_against_plain(  # noqa: E731
+                *x, None, H, hd ** -0.5)[0]
+            names, grads = fa.MH_KERNELS, ("dq", "dk", "dv")
+        else:
+            x = list(hm_inputs(2 * H, 100, torch.bfloat16, 1, cuda, D=hd))
+            fn = lambda *a: fa.flash_attention(  # noqa: E731
+                *(t.reshape(2, H, 100, hd) for t in a), scale=hd ** -0.5)
+            route = lambda: hm_attention_against_plain(  # noqa: E731
+                *x, hd ** -0.5)[0]
+            names, grads = fa.HM_KERNELS, ("dq", "dk", "dv")
+        ts = [t.clone().requires_grad_(True) for t in x]
+        fa.reset_launch_counts()
+        with count_pads() as pads:
+            out = fn(*ts)
+            (out.float() ** 2).sum().backward()
+        assert pads["copies"] == copies
+        assert fa.launch_counts == {**dict.fromkeys(fa.KERNELS, 0),
+                                    **dict.fromkeys(names, 1)}
+        got = route()
+        if family == "qkv":
+            assert torch.equal(ts[0].grad, torch.cat(
+                [got[g] for g in grads], dim=-1))
+        else:
+            for t, g in zip(ts, grads):
+                assert torch.equal(t.grad.reshape(got[g].shape), got[g])
+
+
+def test_a_head_dim_above_256_is_refused(cuda):
+    for fn in (lambda: fa.flash_attention_qkv(torch.zeros(
+                   1, 8, 3 * 2 * 264, device=cuda), scale=1.0, num_heads=2),
+               lambda: fa.flash_attention(
+                   *[torch.zeros(1, 1, 8, 320, device=cuda)] * 3, scale=1.0)):
+        with pytest.raises(ValueError, match="still to port"):
+            fn()
 
 
 def test_wrapper_rejects_what_the_kernels_do_not_take(cuda):
@@ -361,9 +470,13 @@ def test_mh_autograd_runs_the_kernels(cuda):
 
 
 def test_mh_wrapper_rejects_what_the_kernels_do_not_take(cuda):
+    # the launchers take built head dims only (flash_attention_mh pads 48
+    # to 64 first; 128 is built now) and no kernel takes one above 256
+    for width in (48, 264):
+        y = torch.zeros(1, 8, width, device=cuda)
+        with pytest.raises(ValueError, match=f"head dim {width}"):
+            fa.mh_attn_fwd(y, y, y, None, 1.0, 1)
     x = torch.zeros(1, 8, 128, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
-        fa.mh_attn_fwd(x, x, x, None, 1.0, 1)
     with pytest.raises(ValueError, match="dtype"):
         h = x.half()
         fa.mh_attn_fwd(h, h, h, None, 1.0, 2)

@@ -213,8 +213,13 @@ def test_kernel_bounds_reject_planted_faults(dtype):
 
 
 def test_wrapper_rejects_what_the_kernels_do_not_take():
-    x = torch.zeros(2, 8, 48)  # the kernels are built for 16, 32 and 64
-    with pytest.raises(ValueError, match=r"head dim 48.*\(16, 32, 64\)"):
+    # no kernel above 256; below, the launchers take a built head dim only
+    # (flash_attention pads 48 to 64 first)
+    x = torch.zeros(2, 8, 264)
+    with pytest.raises(ValueError, match=r"head dim 264 unsupported.*256"):
+        fa._check_hm(x)
+    x = torch.zeros(2, 8, 48)
+    with pytest.raises(ValueError, match="head dim 48 has no kernel"):
         fa._check_hm(x)
     x = torch.zeros(2, 8, D)
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -106,27 +106,37 @@ def test_the_prep_pass_is_declared_for_k3():
     assert "mh_attn_bwd_prep" not in fa.MH_F32_KERNELS
 
 
-def _dispatched_head_dims(source: str) -> set:
-    """The head dims a source's by_head_dim instantiates (its cases and
-    its default)."""
-    text = (_build.CSRC / source).read_text()
+def _dispatched_head_dims() -> set:
+    """The head dims wgmma_tiles.cuh's by_head_dim instantiates (its cases;
+    its default refuses)."""
+    text = (_build.CSRC / "wgmma_tiles.cuh").read_text()
     body = text[text.index("int by_head_dim("):]
     body = body[:body.index("\n}\n")]
+    assert "default:\n      return kBadArgument;" in body
     return {int(d) for d in re.findall(r"integral_constant<int, (\d+)>",
                                        body)}
 
 
+def _entry_bodies(source: str) -> dict:
+    """name -> the body of each `extern "C"` entry point of a source."""
+    text = (_build.CSRC / source).read_text()
+    starts = [(m.group(1), m.start()) for m in ENTRY.finditer(text)]
+    ends = [s for _, s in starts[1:]] + [len(text)]
+    return {name: text[s:e] for (name, s), e in zip(starts, ends)}
+
+
 def test_every_qkv_head_dim_is_instantiated_and_gated():
-    """K1/K2's entry points dispatch on D: every D of QKV_HEAD_DIMS has an
-    instance and bad() lets exactly those through; the C signatures take D
+    """K1/K2's entry points dispatch on D through by_head_dim: every D of
+    HEAD_DIMS has an instance and any other D is refused; D above 128
+    goes to K3's entry points (the strip kernels); the C signatures take D
     as an int after H, so SIGNATURES already carries it."""
-    assert _dispatched_head_dims("qkv_flash_attention.cu") == set(
-        fa.QKV_HEAD_DIMS)
+    assert _dispatched_head_dims() == set(fa.HEAD_DIMS)
+    for name, body in _entry_bodies("qkv_flash_attention.cu").items():
+        assert "by_head_dim(D" in body, name
     text = (_build.CSRC / "qkv_flash_attention.cu").read_text()
-    gate = text[text.index("bool bad("):]
-    gate = gate[:gate.index("}")]
-    assert {int(d) for d in re.findall(r"D != (\d+)", gate)} == set(
-        fa.QKV_HEAD_DIMS)
+    assert text.count("if constexpr (D > 128)") == 3
+    for k3 in ("mh_attn_fwd(", "mh_attn_bwd_dkv(", "mh_attn_bwd_dq("):
+        assert text.count(k3) == 2, k3  # declared, then called
     for name in fa.QKV_KERNELS:
         assert name in _build.SIGNATURES
         params = dict(_entry_points())[name]
@@ -134,12 +144,33 @@ def test_every_qkv_head_dim_is_instantiated_and_gated():
 
 
 def test_k4_head_dims_are_instantiated():
-    assert _dispatched_head_dims("hm_flash_attention.cu") == set(
-        fa.HM_HEAD_DIMS)
+    assert _dispatched_head_dims() == set(fa.HEAD_DIMS)
+    for name, body in _entry_bodies("hm_flash_attention.cu").items():
+        assert "by_head_dim(D" in body, name
 
 
-@pytest.mark.parametrize("hd", [48, 8, 256])
-def test_the_qkv_gate_raises_outside_the_built_head_dims(hd):
-    x = torch.zeros(2, 8, 3 * 4 * hd)
-    with pytest.raises(ValueError, match="fused-qkv kernels are built for"):
-        fa.qkv_head_dim(x, 4)
+def test_k3_head_dims_are_instantiated():
+    """K3's four entry points dispatch on D through by_head_dim too; dQ
+    takes its output's row stride (K2 writes into dqkv through it)."""
+    assert _dispatched_head_dims() == set(fa.HEAD_DIMS)
+    bodies = _entry_bodies("mh_flash_attention.cu")
+    assert set(bodies) == set(fa.MH_KERNELS)
+    for name, body in bodies.items():
+        assert "by_head_dim(D" in body, name
+    assert "int lddq" in bodies["mh_attn_bwd_dq"]
+
+
+@pytest.mark.parametrize("family,hd", [("qkv", 264), ("qkv", 320),
+                                       ("qkv", 341), ("mh", 264),
+                                       ("hm", 512)])
+def test_the_qkv_gate_raises_outside_the_built_head_dims(family, hd):
+    """Above 256 every family's gate refuses the head dim (still to port,
+    ROADMAP.md Queue 2), before it looks at the device; below, it takes
+    any D (head_dim_width gives the width it runs at)."""
+    gate = {"qkv": lambda: fa.qkv_head_dim(torch.zeros(2, 8, 3 * 4 * hd), 4),
+            "mh": lambda: fa._check_mh(*[torch.zeros(2, 8, 4 * hd)] * 3,
+                                       None, 4),
+            "hm": lambda: fa._check_hm(torch.zeros(2, 8, hd))}[family]
+    with pytest.raises(ValueError, match="still to port"):
+        gate()
+    assert fa.qkv_head_dim(torch.zeros(2, 8, 3 * 4 * 200), 4) == 200

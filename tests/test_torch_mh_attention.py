@@ -229,8 +229,13 @@ def test_kernel_bounds_reject_planted_faults(dtype):
 
 
 def test_wrapper_rejects_what_the_kernels_do_not_take():
-    q = torch.zeros(1, 8, 2 * 32)
-    with pytest.raises(ValueError, match="head dim"):
+    # above 256 no kernel takes the head dim; below, the launchers take a
+    # built one only (flash_attention_mh pads 48 to 64 first)
+    q = torch.zeros(1, 8, 2 * 264)
+    with pytest.raises(ValueError, match="head dim 264 unsupported"):
+        fa._check_mh(q, q, q, None, 2)
+    q = torch.zeros(1, 8, 2 * 48)
+    with pytest.raises(ValueError, match="head dim 48 has no kernel"):
         fa._check_mh(q, q, q, None, 2)
     q = torch.zeros(1, 8, 128)
     with pytest.raises(ValueError, match="CUDA tensors"):
