@@ -359,8 +359,7 @@ Phases, each printing one JSON line:
                their plain versions at the unpadded D (main_path's bounds,
                the planted faults rejected); kernel, plain, library, bound
                and pad times at the long one (at 96 also ViT-B's 12 heads
-               at B = 10); K1 at head dim 264 must
-               raise. It runs after kernels, and mh_head_dims (K3 at 16,
+               at B = 10). It runs after kernels, and mh_head_dims (K3 at 16,
                32, 128 and 192 and at 48 and 96, zero-padded, with the kv
                bias, MH_HEAD_DIM_CHECKS: the long ones at 48, 96 and 192
                the MCA's own in any_head_dim_steps; the same checks and
@@ -390,6 +389,27 @@ Phases, each printing one JSON line:
                the loss and gradient norm within BF16_STEP_RTOL and every
                attention weight's gradient within ATTN_GRAD_RTOL, which
                the same steps with K3's dQ zeroed must fail.
+ 44. wide_head_dims - every family above head dim 256, on the column-split
+               kernels (csrc/wgmma_attn_split.cuh, flash_split_f32.cuh):
+               K1/K2 at (B, 1568, H, D) = (2, 2, 264 -> 320), (2, 2, 320),
+               (2, 1, 512); K3 with the kv bias at (10, 3, 341 -> 384),
+               (10, 2, 384), (10, 1, 768), (2, 1, 1024), the MCA's own;
+               K4 at (B*H, N) = (4, 1568) with D = 320, 512, 1024; bf16
+               and f32 against the plain versions at the unpadded D with
+               main_path's bounds, the prep pass, and the planted faults
+               (dQ zeroed, one output group left unwritten) rejected; then
+               kernel, plain, library and pad times, each beside its bound
+               at the least work and with the groups' recomputed S and dP
+               counted, and the library call's backends (flash takes no
+               head dim above 256). It runs after hm_head_dims.
+ 45. wide_head_dim_steps - the slice's path above 256: the BB-focused
+               model with an MCA of 2 and 1 heads at ViT-B width (K3 at
+               384 and 768, no copy) and of 3 heads at ViT-L's (embed_dim
+               1024, 16 heads, depth 24, B = 4: K3 at 341, zero-padded to
+               384), as any_head_dim_steps runs its three: 3 train steps
+               and one eval call, launches and pad copies exact, finite
+               losses, then at 2 Blocks against the plain versions with
+               K3's dQ zeroed rejected. It runs last.
 The steps of phases 5 and 11 must make no zero-padding copy (every head
 dim of the main path is built).
 The kernels phase also checks and times K1/K2 at the mesh's per-rank
@@ -418,6 +438,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -460,6 +481,7 @@ from mofo_tpu_torch.tools.main_path import (
     AUG_SHARE,
     FINETUNE_MODEL,
     MODEL,
+    SPLIT_GROUP,
     VITS_MODEL,
     MemoryReader,
     attention_against_plain,
@@ -476,6 +498,7 @@ from mofo_tpu_torch.tools.main_path import (
     finetune_model,
     forced_draws,
     frame_ids,
+    group_unwritten,
     hm_attention_against_plain,
     hm_inputs,
     hm_planted_faults,
@@ -551,7 +574,7 @@ CHECKS = {**MAIN, "ragged": (8, 100, 2), "frames32_h6": (2, 3136, 6),
 # through K3's strip kernels) and zero-padded (48 -> 64, 96 -> 128); (B, N,
 # H), a long geometry (1568 tokens, A % 128 == 0) and a ragged one; times
 # at the long one; at 96 also ViT-B's 12 heads at the finetune batch. Above
-# 256 no kernel takes D.
+# 256 the column-split kernels take D (phase wide_head_dims).
 QKV_FLAT_HEAD_DIMS = (16, 32, 48, 96, 128, 192, 256)
 QKV_HEAD_DIM_CHECKS = {16: {"long": (2, 1568, 16), "ragged": (4, 100, 8)},
                        32: {"long": (2, 1568, 12), "ragged": (4, 100, 4)},
@@ -561,7 +584,6 @@ QKV_HEAD_DIM_CHECKS = {16: {"long": (2, 1568, 16), "ragged": (4, 100, 8)},
                        128: {"long": (2, 1568, 12), "ragged": (4, 100, 2)},
                        192: {"long": (2, 1568, 4), "ragged": (4, 100, 2)},
                        256: {"long": (2, 1568, 4), "ragged": (4, 100, 1)}}
-REFUSED_HEAD_DIM = 264  # still to port (ROADMAP.md Queue 2)
 FT_BATCH = 10
 # K3: (B, N, H, D); the MCA is the finetune step's own
 MH_CHECKS = {"mca": (FT_BATCH, 1568, 3, 256), "h12": (FT_BATCH, 1568, 12, 64),
@@ -649,6 +671,29 @@ HEAD_DIM_PADS = {"bb_mca_8_heads": (4, 3), "bb_mca_16_heads": (4, 3),
                  "bb_mca_4_heads": (0, 0)}
 HEAD_DIM_STEPS = 3
 HEAD_DIM_CHECK_DEPTH = 2
+# above head dim 256, the column-split kernels (phase wide_head_dims): each
+# family against its plain version, bf16 and f32, the MCA's own geometries
+# among them. K1/K2 at D -> (B, N, H), 264 padded to 320; K3 with the kv
+# bias at the BB-focused MCA's 3 heads at ViT-L width (341, padded to 384),
+# 2 and 1 heads at ViT-B's (384, 768) and D = 1024; K4 at D -> (B*H, N)
+WIDE_QKV_CHECKS = {264: (2, 1568, 2), 320: (2, 1568, 2), 512: (2, 1568, 1)}
+WIDE_MH_CHECKS = {341: (FT_BATCH, 1568, 3), 384: (FT_BATCH, 1568, 2),
+                  768: (FT_BATCH, 1568, 1), 1024: (2, 1568, 1)}
+WIDE_HM_CHECKS = {320: (4, 1568), 512: (4, 1568), 1024: (4, 1568)}
+# the slice's path above 256 (wide_head_dim_steps): the BB-focused model
+# with an MCA of 2 and 1 heads at ViT-B width (K3 at 384 and 768, no copy)
+# and of 3 heads at ViT-L's (embed_dim 1024, 16 backbone heads, depth 24;
+# K3 at 341, zero-padded to 384): label -> (mca_num_heads, (embed_dim,
+# num_heads) or None for ViT-B's, batch, depth). ViT-L width runs at
+# B = WIDE_VITL_BATCH: the phase needs the path's launches, losses and
+# gradients, and each clip of ViT-L's 24 Blocks costs script time
+WIDE_VITL_BATCH = 4
+WIDE_HEAD_DIM_MODELS = {
+    "bb_mca_2_heads": (2, None, FT_BATCH, 12),
+    "bb_mca_1_head": (1, None, FT_BATCH, 12),
+    "bb_vitl_mca_3_heads": (3, (1024, 16), WIDE_VITL_BATCH, 24)}
+WIDE_HEAD_DIM_PADS = {"bb_mca_2_heads": (0, 0), "bb_mca_1_head": (0, 0),
+                      "bb_vitl_mca_3_heads": (4, 3)}
 # the 2-Block kernels-against-plain check reads each attention weight's
 # gradient (the Blocks' qkv and proj, the MCA's q, kv and proj): its
 # relative L2 error against the plain versions' may not pass the kernel
@@ -872,7 +917,8 @@ def check_kernels(x, H, scale: float = SCALE) -> dict:
         res["prep"] = check_prep(xw, out, (2 * out.float()).to(x.dtype), H,
                                  scale)
     res["planted"] = {}
-    for fault, outputs in planted_faults(got).items():
+    for fault, outputs in split_faults(planted_faults(got), got, H,
+                                       x.shape[-1] // (3 * H)).items():
         caught = compare_with_plain(outputs, want)
         if not caught["beyond_bounds"]:
             raise AssertionError(f"the bounds let a planted fault pass: "
@@ -882,6 +928,22 @@ def check_kernels(x, H, scale: float = SCALE) -> dict:
             "max_abs_err": {k: caught["max_abs_err"][k] for k in ("dq", "dk")},
         }
     return res
+
+
+def split_faults(faults: dict, got: dict, heads: int, d: int) -> dict:
+    """`faults` and, at a head dim above 256 (the column-split kernels),
+    the last output group of every head left unwritten
+    (main_path.group_unwritten)."""
+    if fa.head_dim_width(d) > fa.HEAD_DIMS[-1]:
+        faults["group_unwritten"] = group_unwritten(got, heads)
+    return faults
+
+
+def split_groups(d: int) -> int:
+    """The output groups the column-split kernels split head dim d into
+    (0 at a head dim up to 256, which they do not run)."""
+    w = fa.head_dim_width(d)
+    return 0 if w <= fa.HEAD_DIMS[-1] else -(-w // SPLIT_GROUP)
 
 
 def time_ms(fn, runs: int = 5, warmup: int = 3, run_ms: float = 20.0,
@@ -922,21 +984,36 @@ def least_times(work: dict) -> dict:
     return out
 
 
-def bounds(B, N, H, d: int = D) -> dict:
+def products(groups: int, two_pass: bool = False) -> dict:
+    """The (N x N x d) products of each kernel's work: at its least
+    (groups = 0: S and P.V forward, 4 in dK/dV, 3 in dQ), or as the
+    column-split kernels do it at `groups` output groups, each group forming
+    S (and dP) again: the forward G S + P.V (K4's two passes 2 G S + P.V),
+    dK/dV 2 G S^T (both warpgroups) + G dP^T + dV + dK, dQ G S + G dP + dQ."""
+    if not groups:
+        return {"fwd": 2, "dkv": 4, "dq": 3}
+    return {"fwd": (2 if two_pass else 1) * groups + 1,
+            "dkv": 3 * groups + 2, "dq": 2 * groups + 1}
+
+
+def bounds(B, N, H, d: int = D, groups: int = 0) -> dict:
     """Least time (ms) for each kernel's work on an H100 SXM: the larger of
     its FLOPs over the bf16 tensor peak and its bytes (each input read once,
-    each output written once) over HBM bandwidth."""
+    each output written once) over HBM bandwidth; with `groups` the
+    products the column-split kernels do (products())."""
     e, A = 2, H * d
     mm = 2 * B * H * N * N * d  # one (N x N x d) product
+    n = products(groups)
     qkv, row = B * N * 3 * A * e, B * N * A * e
     stat = B * H * N * 4
     work = {
-        "qkv_attn_fwd": (2 * mm, qkv + row + stat),  # S, P.V -> out, lse
+        # S, P.V -> out, lse
+        "qkv_attn_fwd": (n["fwd"] * mm, qkv + row + stat),
         # q, out, dout -> q * scale, delta
         "qkv_attn_bwd_prep": (2 * B * N * A + B * N * A, 3 * row + row + stat),
         # k, v, q * scale, dout, lse, delta -> dk, dv
-        "qkv_attn_bwd_dkv": (4 * mm, 4 * row + 2 * stat + 2 * row),
-        "qkv_attn_bwd_dq": (3 * mm, 4 * row + 2 * stat + row),  # -> dq
+        "qkv_attn_bwd_dkv": (n["dkv"] * mm, 4 * row + 2 * stat + 2 * row),
+        "qkv_attn_bwd_dq": (n["dq"] * mm, 4 * row + 2 * stat + row),  # -> dq
     }
     return least_times(work)
 
@@ -1040,8 +1117,8 @@ def phase_qkv_head_dims(smi: str) -> dict:
     which is a power of two only at 16, 64 and 256: elsewhere dQ's
     scaled-K copy up to 128 and the in-place fold above) at
     QKV_HEAD_DIM_CHECKS, bf16 and f32; kernel, plain, library, bound and
-    pad times at the long geometry in bf16; a head dim above 256 raises on
-    the card. Returns {D: (max errors, times)}."""
+    pad times at the long geometry in bf16 (above 256: phase
+    wide_head_dims). Returns {D: (max errors, times)}."""
     out = {}
     for hd in QKV_FLAT_HEAD_DIMS:
         for i, (geo, (B, N, heads)) in enumerate(
@@ -1059,14 +1136,6 @@ def phase_qkv_head_dims(smi: str) -> dict:
                          dtype="bfloat16", times=times, nvidia_smi=smi)
                     out[hd] = (qkv_errors(res), times)
                 del x
-    hd = REFUSED_HEAD_DIM
-    x = _qkv(2, 100, 2, torch.bfloat16, 0, d=hd)
-    try:
-        fa.flash_attention_qkv(x, scale=hd ** -0.5, num_heads=2)
-    except ValueError as e:
-        emit("qkv_head_dim_refused", D=hd, error=str(e))
-    else:
-        raise AssertionError(f"K1 ran at head dim {hd}: no kernel takes it")
     return out
 
 
@@ -1105,21 +1174,24 @@ def phase_kernels():
     return errors, timings
 
 
-def bounds_mh(B, N, H, D) -> dict:
+def bounds_mh(B, N, H, D, groups: int = 0) -> dict:
     """bounds() for the K3 kernels: separate q, k, v (each read once), the
     bias row, and the backward's delta; the work at its least (the dK/dV
-    kernel's recomputed products not counted)."""
+    kernel's recomputed products not counted), or with `groups` as the
+    column-split kernels do it."""
     e, A = 2, H * D
     mm = 2 * B * H * N * N * D
+    n = products(groups)
     row, stat = B * N * A * e, B * H * N * 4
     inputs = 3 * row + B * N * 4  # q, k, v, bias
     work = {
-        "mh_attn_fwd": (2 * mm, inputs + row + stat),  # -> out, lse
+        "mh_attn_fwd": (n["fwd"] * mm, inputs + row + stat),  # -> out, lse
         # q, out, dout -> q * scale, delta
         "mh_attn_bwd_prep": (3 * B * N * A, 3 * row + row + stat),
         # + dout, lse, delta -> dk, dv
-        "mh_attn_bwd_dkv": (4 * mm, inputs + row + 2 * stat + 2 * row),
-        "mh_attn_bwd_dq": (3 * mm, inputs + row + 2 * stat + row),
+        "mh_attn_bwd_dkv": (n["dkv"] * mm,
+                            inputs + row + 2 * stat + 2 * row),
+        "mh_attn_bwd_dq": (n["dq"] * mm, inputs + row + 2 * stat + row),
     }
     return least_times(work)
 
@@ -1202,7 +1274,8 @@ def check_mh_kernels(q, k, v, b, H, scale: float) -> dict:
     if b is not None:
         ignored, _ = mh_attention_against_plain(q, k, v, None, H, scale)
     res["planted"] = {}
-    for fault, outputs in planted_faults(got, ignored).items():
+    for fault, outputs in split_faults(planted_faults(got, ignored), got, H,
+                                       q.shape[-1] // H).items():
         caught = compare_with_plain(outputs, want)
         if not caught["beyond_bounds"]:
             raise AssertionError(f"the bounds let a planted fault pass: "
@@ -1529,20 +1602,21 @@ def phase_bf16_steps() -> None:
                                  f"rtol {BF16_STEP_RTOL}: {rel}")
 
 
-def bounds_hm(BH, N, D) -> dict:
+def bounds_hm(BH, N, D, groups: int = 0) -> dict:
     """bounds() for the K4 kernels on (BH, N, D) q, k, v (each read once),
     the LSE and the backward's delta; the work at its least (the forward's
     second score product and the dK/dV kernel's recomputed ones not
-    counted)."""
+    counted), or with `groups` as the column-split kernels do it."""
     mm = 2 * BH * N * N * D
+    n = products(groups, two_pass=True)
     row, stat = BH * N * D * 2, BH * N * 4
     return least_times({
-        "hm_attn_fwd": (2 * mm, 3 * row + row + stat),  # -> out, lse
+        "hm_attn_fwd": (n["fwd"] * mm, 3 * row + row + stat),  # -> out, lse
         # q, out, dout -> q * scale, delta
         "hm_attn_bwd_prep": (3 * BH * N * D, 3 * row + row + stat),
         # k, v, q * scale, dout, lse, delta -> dk, dv
-        "hm_attn_bwd_dkv": (4 * mm, 4 * row + 2 * stat + 2 * row),
-        "hm_attn_bwd_dq": (3 * mm, 4 * row + 2 * stat + row),  # -> dq
+        "hm_attn_bwd_dkv": (n["dkv"] * mm, 4 * row + 2 * stat + 2 * row),
+        "hm_attn_bwd_dq": (n["dq"] * mm, 4 * row + 2 * stat + row),  # -> dq
     })
 
 
@@ -1643,7 +1717,8 @@ def check_hm_kernels(q, k, v, scale: float = SCALE) -> dict:
         res["prep"] = check_hm_prep(qw, kw, out, (2 * out.float()).to(
             q.dtype), scale)
     res["planted"] = {}
-    for fault, outputs in hm_planted_faults(got).items():
+    for fault, outputs in split_faults(hm_planted_faults(got), got, 1,
+                                       q.shape[-1]).items():
         caught = compare_with_plain(outputs, want)
         if not caught["beyond_bounds"]:
             raise AssertionError(f"the bounds let a planted fault pass: "
@@ -1849,15 +1924,16 @@ def k3_dq_zeroed():
         fa.mh_attn_bwd = kept
 
 
-def _attn_grad_steps(heads: int, route: str) -> list:
+def _attn_grad_steps(heads: int, route: str, width=None) -> list:
     """2 bf16 finetune steps at B = 2 of the BB-focused model cut to
-    HEAD_DIM_CHECK_DEPTH Blocks, its MCA at `heads` heads, through the
-    kernels ("kernels"), the plain versions ("plain") or the kernels with
-    K3's dQ zeroed ("dq_zeroed"): per step the loss, the gradient norm and
-    every ATTN_LEAF weight's gradient (f32 copies)."""
+    HEAD_DIM_CHECK_DEPTH Blocks, its MCA at `heads` heads (at `width`,
+    build_finetune_step's), through the kernels ("kernels"), the plain
+    versions ("plain") or the kernels with K3's dQ zeroed ("dq_zeroed"):
+    per step the loss, the gradient norm and every ATTN_LEAF weight's
+    gradient (f32 copies)."""
     _, state, step, gen, batch, _ = build_finetune_step(
         2, plain=route == "plain", depth=HEAD_DIM_CHECK_DEPTH,
-        mca_num_heads=heads)
+        mca_num_heads=heads, width=width)
     steps = []
     for _ in range(2):
         with k3_dq_zeroed() if route == "dq_zeroed" else \
@@ -1882,29 +1958,34 @@ def _attn_grad_rel(got: list, want: list) -> dict:
     return out
 
 
-def phase_any_head_dim_steps(smi: str) -> dict:
-    """The slice's path: the ViT-B BB-focused finetune model at full width
-    and depth with an MCA of HEAD_DIM_MODELS heads (K3 zero-padded from 96
-    to 128 and from 48 to 64, and at 192 on the strip kernels; the
-    backbone's K1/K2 at 64) through the port's finetune step and eval step,
-    bf16, B = FT_BATCH: HEAD_DIM_STEPS train steps and one eval call each,
-    finite losses, every kernel's launches against FINETUNE_MODEL's
-    STEP_LAUNCHES / EVAL_LAUNCHES and the zero-padding copies against
-    HEAD_DIM_PADS; then each at HEAD_DIM_CHECK_DEPTH Blocks, B = 2: 2 steps
-    through the kernels against the same steps through the plain versions
-    at the unpadded head dims, the loss and gradient norm within
-    BF16_STEP_RTOL and every attention weight's gradient within
-    ATTN_GRAD_RTOL (relative L2); the same steps with K3's dQ zeroed must
-    fail that bound. Returns the launches of the full-depth runs, summed."""
+def mca_head_dim_steps(smi: str, phase: str, models: dict,
+                       pads: dict) -> dict:
+    """The BB-focused finetune model with `models`' MCAs, label ->
+    (mca_num_heads, width (build_finetune_step's) or None, batch, depth),
+    at full width and depth through the port's finetune step and eval
+    step, bf16: HEAD_DIM_STEPS train steps and one eval call each, finite
+    losses, every kernel's launches against FINETUNE_MODEL's STEP_LAUNCHES /
+    EVAL_LAUNCHES (K1/K2 in each of `depth` Blocks) and the zero-padding
+    copies against `pads` (a train step's, an eval call's); then each at
+    HEAD_DIM_CHECK_DEPTH Blocks, B = 2: 2 steps through the kernels against
+    the same steps through the plain versions at the unpadded head dims,
+    the loss and gradient norm within BF16_STEP_RTOL and every attention
+    weight's gradient within ATTN_GRAD_RTOL (relative L2); the same steps
+    with K3's dQ zeroed must fail that bound. Lines `phase` and
+    `phase`_vs_plain. Returns the launches of the full-depth runs,
+    summed."""
     total = dict.fromkeys(fa.KERNELS, 0)
-    per_step = STEP_LAUNCHES[FINETUNE_MODEL]
-    for label, heads in HEAD_DIM_MODELS.items():
+    for label, (heads, width, B, depth) in models.items():
+        per_step = {**STEP_LAUNCHES[FINETUNE_MODEL],
+                    **dict.fromkeys(fa.QKV_KERNELS, depth)}
+        per_eval = {**EVAL_LAUNCHES[FINETUNE_MODEL], "qkv_attn_fwd": depth}
         t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
         model, state, step, gen, batch, cfg = build_finetune_step(
-            FT_BATCH, mca_num_heads=heads)
+            B, depth=depth, mca_num_heads=heads, width=width)
         fa.reset_launch_counts()
         times, losses, norms = [], [], []
-        with count_pads() as pads:
+        with count_pads() as counted:
             for _ in range(HEAD_DIM_STEPS):
                 t1 = time.perf_counter()
                 state, m = step(state, batch, gen)
@@ -1912,28 +1993,32 @@ def phase_any_head_dim_steps(smi: str) -> dict:
                 times.append((time.perf_counter() - t1) * 1e3)
                 losses.append(float(m["loss"]))
                 norms.append(float(m["grad_norm"]))
-            train = dict(fa.launch_counts), pads["copies"]
+            train = dict(fa.launch_counts), counted["copies"]
             fa.reset_launch_counts()
             ev = make_eval_step(model, cfg, bb_focused=True)(batch)
             torch.cuda.synchronize()
-            evals = dict(fa.launch_counts), pads["copies"] - train[1]
-        step_pads, eval_pads = HEAD_DIM_PADS[label]
+            evals = dict(fa.launch_counts), counted["copies"] - train[1]
+        step_pads, eval_pads = pads[label]
         want = ({k: HEAD_DIM_STEPS * v for k, v in per_step.items()},
                 HEAD_DIM_STEPS * step_pads)
-        if train != want or evals != (EVAL_LAUNCHES[FINETUNE_MODEL],
-                                      eval_pads):
+        if train != want or evals != (per_eval, eval_pads):
             raise AssertionError(f"{label}: launches and pad copies {train}, "
                                  f"eval {evals}; expected {want}")
         if not (np.isfinite(losses + norms).all() and all(
                 np.isfinite(float(ev[k])) for k in ("loss", "acc1"))) or \
-                ev["logits"].shape != (FT_BATCH, cfg.nb_classes):
+                ev["logits"].shape != (B, cfg.nb_classes):
             raise AssertionError(f"{label}: {losses} {norms} {ev}")
         for k, v in train[0].items():
             total[k] += v + evals[0][k]
-        emit("any_head_dim_steps", model=FINETUNE_MODEL,
-             keywords={"mca_num_heads": heads}, label=label,
-             mca_head_dim=model.local_MCA[0].attn.head_dim,
-             dtype="bfloat16", batch=FT_BATCH, steps=HEAD_DIM_STEPS,
+        attn = model.local_MCA[0].attn
+        emit(phase, model=FINETUNE_MODEL,
+             keywords={"mca_num_heads": heads, **(
+                 {} if width is None else {"embed_dim": width[0],
+                                           "num_heads": width[1]}),
+                 "depth": depth},
+             label=label, mca_head_dim=attn.head_dim,
+             kernel_head_dim=fa.head_dim_width(attn.head_dim),
+             dtype="bfloat16", batch=B, steps=HEAD_DIM_STEPS,
              step_ms=times, loss=losses, grad_norm=norms,
              eval={k: float(ev[k]) for k in ("loss", "acc1", "acc5")},
              launches={k: v for k, v in train[0].items() if v},
@@ -1943,13 +2028,13 @@ def phase_any_head_dim_steps(smi: str) -> dict:
              seconds=time.perf_counter() - t0, nvidia_smi=smi)
         del model, state, step, batch
         torch.cuda.empty_cache()
-    for label, heads in HEAD_DIM_MODELS.items():
-        runs = {route: _attn_grad_steps(heads, route)
+    for label, (heads, width, _, _) in models.items():
+        runs = {route: _attn_grad_steps(heads, route, width)
                 for route in ("kernels", "plain", "dq_zeroed")}
         rel = _attn_grad_rel(runs["kernels"], runs["plain"])
         planted = _attn_grad_rel(runs["dq_zeroed"], runs["plain"])
-        emit("any_head_dim_vs_plain", label=label, dtype="bfloat16", batch=2,
-             depth=HEAD_DIM_CHECK_DEPTH, steps=2,
+        emit(phase.replace("_steps", "_vs_plain"), label=label,
+             dtype="bfloat16", batch=2, depth=HEAD_DIM_CHECK_DEPTH, steps=2,
              **{route: [m for m, _ in r] for route, r in runs.items()},
              rel_diff=rel, bound=BF16_STEP_RTOL, grad_bound=ATTN_GRAD_RTOL,
              dq_zeroed_rel=planted)
@@ -1962,6 +2047,141 @@ def phase_any_head_dim_steps(smi: str) -> dict:
             raise AssertionError(f"{label}: the bounds let K3's dQ zeroed "
                                  f"pass: {planted}")
     return total
+
+
+def phase_any_head_dim_steps(smi: str) -> dict:
+    """The ViT-B BB-focused finetune model at full width and depth with an
+    MCA of HEAD_DIM_MODELS heads (K3 zero-padded from 96 to 128 and from
+    48 to 64, and at 192 on the strip kernels; the backbone's K1/K2 at 64),
+    B = FT_BATCH, through mca_head_dim_steps (pads HEAD_DIM_PADS)."""
+    return mca_head_dim_steps(smi, "any_head_dim_steps", {
+        label: (heads, None, FT_BATCH, 12)
+        for label, heads in HEAD_DIM_MODELS.items()}, HEAD_DIM_PADS)
+
+
+def phase_wide_head_dim_steps(smi: str) -> dict:
+    """The slice's path above 256: WIDE_HEAD_DIM_MODELS (the MCA's K3 at
+    384 and 768 at ViT-B width, at 341 zero-padded to 384 at ViT-L's, on
+    the column-split kernels) through mca_head_dim_steps (pads
+    WIDE_HEAD_DIM_PADS)."""
+    return mca_head_dim_steps(smi, "wide_head_dim_steps",
+                              WIDE_HEAD_DIM_MODELS, WIDE_HEAD_DIM_PADS)
+
+
+def sdpa_backends(q, k, v, **kw) -> dict:
+    """The library call's backends on these inputs: which of
+    F.scaled_dot_product_attention's take them (each forced in turn; flash
+    takes no head dim above 256), and the CUDA kernels its default call
+    launches (a profiler trace; "not measured" if it shows no device
+    time)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    takes = []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel(backend):
+                warnings.simplefilter("ignore")
+                F.scaled_dot_product_attention(q, k, v, **kw)
+            takes.append(backend.name)
+        except RuntimeError:
+            pass
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+    kernels = sorted({e.key for e in prof.key_averages()
+                      if getattr(e, "self_device_time_total", 0) > 0})
+    return {"takes": takes, "default_launches": kernels or "not measured"}
+
+
+def _heads4(t, B, N, H, d):
+    return t.reshape(B, N, H, d).transpose(1, 2).contiguous()
+
+
+def phase_wide_head_dims(smi: str) -> dict:
+    """Every family above head dim 256, on the column-split kernels: K1/K2
+    at WIDE_QKV_CHECKS, K3 with the kv bias at WIDE_MH_CHECKS and K4 at
+    WIDE_HM_CHECKS, bf16 and f32, against their plain versions at the
+    unpadded D (check_kernels / check_mh_kernels / check_hm_kernels:
+    main_path's bounds, the prep pass in bf16, the planted faults with one
+    output group left unwritten among them); then kernel, plain, library
+    and pad times in bf16, each beside its bound at the unpadded D's least
+    work (bound_ms) and with the groups' recomputed S and dP counted
+    (bound_recompute_ms), and the library's backends on those inputs.
+    Returns {family: {D: (max errors, times)}}."""
+    out = {"qkv": {}, "mh": {}, "hm": {}}
+    dtypes = (torch.bfloat16, torch.float32)
+
+    def times_line(family, hd, shape, times, backends):
+        emit("wide_head_dim_times", family=family, D=hd,
+             width=fa.head_dim_width(hd), groups=split_groups(hd), **shape,
+             dtype="bfloat16", times=times, sdpa=backends, nvidia_smi=smi)
+
+    def recompute(times, extra):
+        for name, (bound, by) in extra.items():
+            times[name].update(bound_recompute_ms=bound,
+                               bound_recompute_by=by)
+
+    for hd, (B, N, H) in WIDE_QKV_CHECKS.items():
+        for dtype in dtypes:
+            x = _qkv(B, N, H, dtype, hd, d=hd)
+            res = check_kernels(x, H, hd ** -0.5)
+            emit("wide_head_dims_vs_plain", family="qkv", D=hd,
+                 width=fa.head_dim_width(hd), B=B, N=N, H=H,
+                 dtype=str(dtype).replace("torch.", ""), **res)
+            if dtype == torch.bfloat16:
+                times = time_kernels(x, H)
+                recompute(times, bounds(B, N, H, hd, split_groups(hd)))
+                q, k, v = (_heads4(t, B, N, H, hd)
+                           for t in fa.split_heads(x, H))
+                times_line("qkv", hd, {"B": B, "N": N, "H": H}, times,
+                           sdpa_backends(q, k, v, scale=hd ** -0.5))
+                out["qkv"][hd] = (qkv_errors(res), times)
+            del x
+    for hd, (B, N, H) in WIDE_MH_CHECKS.items():
+        for dtype in dtypes:
+            q, k, v, b = mh_inputs(B, N, H, hd, dtype, hd, "cuda")
+            res = check_mh_kernels(q, k, v, b, H, hd ** -0.5)
+            emit("wide_head_dims_vs_plain", family="mh", D=hd,
+                 width=fa.head_dim_width(hd), B=B, N=N, H=H,
+                 dtype=str(dtype).replace("torch.", ""), bias=True, **res)
+            if dtype == torch.bfloat16:
+                err = res["max_abs_err"]
+                errors = {"mh_attn_fwd": err["out"],
+                          "mh_attn_bwd_prep": res["prep"]["max_abs_err"],
+                          "mh_attn_bwd_dkv": max(err["dk"], err["dv"]),
+                          "mh_attn_bwd_dq": err["dq"]}
+                times = time_mh_kernels(q, k, v, b, H, hd)
+                recompute(times, bounds_mh(B, N, H, hd, split_groups(hd)))
+                times_line("mh", hd, {"B": B, "N": N, "H": H}, times,
+                           sdpa_backends(
+                               *(_heads4(t, B, N, H, hd) for t in (q, k, v)),
+                               attn_mask=b[:, None, None, :].to(q.dtype),
+                               scale=hd ** -0.5))
+                out["mh"][hd] = (errors, times)
+            del q, k, v, b
+    for hd, (BH, N) in WIDE_HM_CHECKS.items():
+        for dtype in dtypes:
+            q, k, v = hm_inputs(BH, N, dtype, hd, "cuda", D=hd)
+            res = check_hm_kernels(q, k, v, hd ** -0.5)
+            emit("wide_head_dims_vs_plain", family="hm", D=hd,
+                 width=fa.head_dim_width(hd), BH=BH, N=N,
+                 dtype=str(dtype).replace("torch.", ""), **res)
+            if dtype == torch.bfloat16:
+                err = res["max_abs_err"]
+                errors = {"hm_attn_fwd": err["out"],
+                          "hm_attn_bwd_prep": res["prep"]["max_abs_err"],
+                          "hm_attn_bwd_dkv": max(err["dk"], err["dv"]),
+                          "hm_attn_bwd_dq": err["dq"]}
+                times = time_hm_kernels(q, k, v, 1, BH)
+                recompute(times, bounds_hm(BH, N, hd, split_groups(hd)))
+                times_line("hm", hd, {"BH": BH, "N": N}, times,
+                           sdpa_backends(*(t[None] for t in (q, k, v)),
+                                         scale=hd ** -0.5))
+                out["hm"][hd] = (errors, times)
+            del q, k, v
+    return out
 
 
 def _runner_log(out: str) -> list:
@@ -4273,6 +4493,15 @@ def phase_overfit_real(smi: str, blocks: int) -> dict:
     return launches
 
 
+def wide_entries(family: dict, name: str, shapes: dict) -> dict:
+    """A kernel's entries of phase wide_head_dims for the kernels line:
+    D -> its times, largest error, shape, width and output groups."""
+    return {hd: {**times[name], "max_abs_err": errors[name],
+                 "shape": "%s, width %d, %d groups" % (
+                     shapes[hd], fa.head_dim_width(hd), split_groups(hd))}
+            for hd, (errors, times) in family.items()}
+
+
 def main() -> int:
     t0 = time.perf_counter()
     smi = phase_device()
@@ -4288,6 +4517,7 @@ def main() -> int:
     phase_finetune_parity()
     hm_errors, hm_timings = phase_hm_kernels()
     head_dims = phase_hm_head_dims(smi)
+    wide = phase_wide_head_dims(smi)
     phase_bf16_steps()
     vits_launches = phase_step(smi, "vits_step", VITS_MODEL, VITS_BATCH)
     phase_parity("vits_parity", VITS_MODEL,
@@ -4325,6 +4555,7 @@ def main() -> int:
     t_new = time.perf_counter()
     later["launches_large_presets"] = phase_large_presets(smi)
     later["launches_any_head_dim_steps"] = phase_any_head_dim_steps(smi)
+    later["launches_wide_head_dim_steps"] = phase_wide_head_dim_steps(smi)
     new_s = time.perf_counter() - t_new
     kernels = []
     for name in fa.QKV_KERNELS:
@@ -4354,6 +4585,9 @@ def main() -> int:
                          *QKV_HEAD_DIM_CHECKS[hd]["long"], hd,
                          fa.head_dim_width(hd))}
                 for hd in QKV_FLAT_HEAD_DIMS},
+            "wide_head_dims": wide_entries(wide["qkv"], name, {
+                hd: "(B=%d, N=%d, H=%d, D=%d) bf16" % (*geo, hd)
+                for hd, geo in WIDE_QKV_CHECKS.items()}),
         })
     for name in fa.MH_KERNELS:
         mca = mh_timings[name]
@@ -4375,6 +4609,9 @@ def main() -> int:
                               "width %d" % (*MH_HEAD_DIM_CHECKS[hd]["long"],
                                             hd, fa.head_dim_width(hd))}
                 for hd in MH_HEAD_DIMS},
+            "wide_head_dims": wide_entries(wide["mh"], name, {
+                hd: "(B=%d, N=%d, H=%d, D=%d) bf16, kv bias" % (*geo, hd)
+                for hd, geo in WIDE_MH_CHECKS.items()}),
         })
     for name in fa.HM_KERNELS:
         dec = hm_timings[name]
@@ -4396,6 +4633,9 @@ def main() -> int:
                          *HM_HEAD_DIM_CHECKS["long"], hd,
                          fa.head_dim_width(hd))}
                 for hd in HM_HEAD_DIMS},
+            "wide_head_dims": wide_entries(wide["hm"], name, {
+                hd: "(BH=%d, N=%d, D=%d) bf16" % (*geo, hd)
+                for hd, geo in WIDE_HM_CHECKS.items()}),
         })
     emit("done", seconds=time.perf_counter() - t0,
          new_phases_seconds=new_s)

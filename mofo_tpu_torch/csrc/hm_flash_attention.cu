@@ -15,8 +15,9 @@
 //
 // Layout. q, k, v, out, dout, dq, dk and dv are (BH, N, D) contiguous with
 // D one of the built head dims 16, 32, 64, 128, 192 and 256
-// (wgmma_tiles.cuh's by_head_dim; the wrapper pads any other D up to 256
-// with zero columns): 64 for the ViT-S pretrain decoder's 3 x 64 heads,
+// (wgmma_tiles.cuh's by_head_dim) or, above 256, any multiple of 64 (the
+// column-split kernels of wgmma_attn_split.cuh and flash_split_f32.cuh,
+// D at run time); the wrapper pads any other D with zero columns: 64 for the ViT-S pretrain decoder's 3 x 64 heads,
 // which take the head-major route of models/layers.Attention because
 // A = 192 is not a multiple of 128, 32 and 16 for the tiny presets' encoder
 // and decoder heads, the others for an attn_head_dim whose A is not a
@@ -76,6 +77,11 @@
 //     a copy the prep pass writes. At D = 192 and 256 the backward is
 //     wgmma_attn_wide.cuh's strip kernels in base e, which fold another
 //     scale into their K strip instead (the prep pass writes no copy).
+//   - Above D = 256 every kernel is wgmma_attn_split.cuh's column-split
+//     one in base e: D streamed through the score products, the output in
+//     groups of 256 columns over the grid (the forward's two passes and the
+//     backward's S and dP formed again by every group); dQ reads the prep
+//     pass's k * scale copy unless the scale is a power of two.
 //   - The f32 kernels (the parity path) use FMAs, since tensor cores would
 //     round f32 to TF32; above D = 128 their tiles shrink to 32 rows.
 // Ragged N is masked in-kernel: kv columns >= N and q rows >= N get P = 0;
@@ -93,8 +99,10 @@
 
 #include <type_traits>
 
+#include "flash_split_f32.cuh"
 #include "flash_tiles.cuh"
 #include "wgmma_attn_bwd.cuh"
+#include "wgmma_attn_split.cuh"
 #include "wgmma_attn_wide.cuh"
 #include "wgmma_tiles.cuh"
 
@@ -779,11 +787,46 @@ int run_dq(const void* q, const void* k, const void* v, const void* dout,
   return 0;
 }
 
+// ---- above head dim 256: the column-split kernels, D at run time ----------
+// (wgmma_attn_split.cuh in bf16, base e with two forward passes;
+// flash_split_f32.cuh in f32), every operand a (BH, N, D) plane a head
+
+int split_fwd(const void* q, const void* k, const void* v, void* out,
+              float* l, int BH, int N, int D, float q_scale, int is_bf16,
+              cudaStream_t st) {
+  return is_bf16 ? launch_split_fwd<true>(q, k, v, D, D, D, nullptr, out, l,
+                                          BH, N, 1, D, q_scale, st)
+                 : launch_split_fwd_f32<true>(q, k, v, nullptr, out, l, BH,
+                                              N, 1, D, D, D, D, q_scale, st);
+}
+
+int split_dkv(const void* q, const void* k, const void* v, const void* dout,
+              const float* l, const float* d, const void* qs, void* dk,
+              void* dv, int BH, int N, int D, float q_scale, int is_bf16,
+              cudaStream_t st) {
+  return is_bf16 ? launch_split_dkv<true>(k, v, D, D, qs, dout, nullptr, l,
+                                          d, dk, dv, D, BH, N, 1, D, 1.f, st)
+                 : launch_split_dkv_f32(q, k, v, nullptr, dout, l, d, dk, dv,
+                                        BH, N, 1, D, D, D, D, D, q_scale,
+                                        st);
+}
+
+int split_dq(const void* q, const void* k, const void* v, const void* dout,
+             const float* l, const float* d, const void* qs, const void* ks,
+             void* dq, int BH, int N, int D, float q_scale, float k_scale,
+             int is_bf16, cudaStream_t st) {
+  return is_bf16 ? launch_split_dq<true>(k, v, D, D, qs, ks, dout, nullptr, l,
+                                         d, dq, D, BH, N, 1, D, k_scale, st)
+                 : launch_split_dq_f32(q, k, v, nullptr, dout, l, d, dq, BH,
+                                       N, 1, D, D, D, D, D, q_scale, k_scale,
+                                       st);
+}
+
 }  // namespace
 
 // All entry points return 0 on success, a cudaError_t from the launch, or -1
-// for arguments the kernels do not take (a head dim that is not built among
-// them). `is_bf16` selects __nv_bfloat16 (the tensor-core kernels)
+// for arguments the kernels do not take (a head dim up to 256 that is not
+// built, or one above it that is no multiple of 64). `is_bf16` selects __nv_bfloat16 (the tensor-core kernels)
 // over float (the FMA kernels). q_scale and k_scale are already rounded to
 // the element type. Every (BH, N, D) tensor is contiguous and 16-byte
 // aligned; lse and delta are (BH, N) f32.
@@ -794,10 +837,12 @@ extern "C" int hm_attn_fwd(const void* q, const void* k, const void* v,
   if (bad(BH, N)) return kBadArgument;
   auto st = static_cast<cudaStream_t>(stream);
   auto l = static_cast<float*>(lse);
-  if (int e = by_head_dim(D, [&](auto d) {
-        return run_fwd<decltype(d)::value>(q, k, v, out, l, BH, N, q_scale,
-                                       is_bf16, st);
-      }))
+  if (int e = D > kStripMaxDim
+                  ? split_fwd(q, k, v, out, l, BH, N, D, q_scale, is_bf16, st)
+                  : by_head_dim(D, [&](auto d) {
+                      return run_fwd<decltype(d)::value>(
+                          q, k, v, out, l, BH, N, q_scale, is_bf16, st);
+                    }))
     return e;
   return (int)cudaGetLastError();
 }
@@ -811,12 +856,16 @@ extern "C" int hm_attn_bwd_prep(const void* q, const void* k,
                                 int N, int D, float q_scale, float k_scale,
                                 void* stream) {
   if (bad(BH, N)) return kBadArgument;
-  if (int e = by_head_dim(D, [&](auto d) {
-        constexpr int kD = decltype(d)::value;
-        return launch_bwd_prep<kD / 8>(q, k, kD, kD, out, dout, delta, qs, ks,
-                                       BH, N, 1, q_scale, k_scale,
-                                       static_cast<cudaStream_t>(stream));
-      }))
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (int e = D > kStripMaxDim
+                  ? launch_prep_wide(q, k, D, D, out, dout, delta, qs, ks, BH,
+                                     N, 1, D, q_scale, k_scale, st)
+                  : by_head_dim(D, [&](auto d) {
+                      constexpr int kD = decltype(d)::value;
+                      return launch_bwd_prep<kD / 8>(
+                          q, k, kD, kD, out, dout, delta, qs, ks, BH, N, 1,
+                          q_scale, k_scale, st);
+                    }))
     return e;
   return (int)cudaGetLastError();
 }
@@ -829,12 +878,17 @@ extern "C" int hm_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                void* dv, int BH, int N, int D, float q_scale,
                                int is_bf16, void* stream) {
   if (bad(BH, N)) return kBadArgument;
-  if (int e = by_head_dim(D, [&](auto d) {
-        return run_dkv<decltype(d)::value>(
-            q, k, v, dout, static_cast<const float*>(lse),
-            static_cast<const float*>(delta), qs, dk, dv, BH, N, q_scale,
-            is_bf16, static_cast<cudaStream_t>(stream));
-      }))
+  const auto l = static_cast<const float*>(lse);
+  const auto d_ = static_cast<const float*>(delta);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (int e = D > kStripMaxDim
+                  ? split_dkv(q, k, v, dout, l, d_, qs, dk, dv, BH, N, D,
+                              q_scale, is_bf16, st)
+                  : by_head_dim(D, [&](auto d) {
+                      return run_dkv<decltype(d)::value>(
+                          q, k, v, dout, l, d_, qs, dk, dv, BH, N, q_scale,
+                          is_bf16, st);
+                    }))
     return e;
   return (int)cudaGetLastError();
 }
@@ -848,12 +902,17 @@ extern "C" int hm_attn_bwd_dq(const void* q, const void* k, const void* v,
                               float q_scale, float k_scale, int is_bf16,
                               void* stream) {
   if (bad(BH, N)) return kBadArgument;
-  if (int e = by_head_dim(D, [&](auto d) {
-        return run_dq<decltype(d)::value>(
-            q, k, v, dout, static_cast<const float*>(lse),
-            static_cast<const float*>(delta), qs, ks, dq, BH, N, q_scale,
-            k_scale, is_bf16, static_cast<cudaStream_t>(stream));
-      }))
+  const auto l = static_cast<const float*>(lse);
+  const auto d_ = static_cast<const float*>(delta);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (int e = D > kStripMaxDim
+                  ? split_dq(q, k, v, dout, l, d_, qs, ks, dq, BH, N, D,
+                             q_scale, k_scale, is_bf16, st)
+                  : by_head_dim(D, [&](auto d) {
+                      return run_dq<decltype(d)::value>(
+                          q, k, v, dout, l, d_, qs, ks, dq, BH, N, q_scale,
+                          k_scale, is_bf16, st);
+                    }))
     return e;
   return (int)cudaGetLastError();
 }

@@ -5,11 +5,12 @@
 // (mofo_tpu_torch/ops/flash_attention.py); built by
 // mofo_tpu_torch/ops/_build.py together with the other csrc/*.cu sources.
 // The bf16 kernels are built from wgmma_tiles.cuh (TMA, mbarriers, wgmma):
-// the forward at every head dim and the backward at 192 and 256 are
+// the forward up to 256 and the backward at 192 and 256 are
 // wgmma_attn_wide.cuh's strip kernels, the backward up to 128 and the prep
-// pass wgmma_attn_bwd.cuh's, shared with K2 and K4. The f32 tile loads,
-// products and reductions are flash_tiles.cuh's, which hm_flash_attention.cu
-// (K4) shares.
+// pass wgmma_attn_bwd.cuh's, shared with K2 and K4, and every kernel above
+// 256 wgmma_attn_split.cuh's column-split ones. The f32 tile loads, products
+// and reductions are flash_tiles.cuh's (above 256 flash_split_f32.cuh's),
+// which hm_flash_attention.cu (K4) shares.
 //
 // Replaces the TPU kernel K3 of mofo_tpu/ops/flash_attention.py:
 //   mh_attn_fwd      <- _mh_fwd_impl (:653) / _mh_fwd_kernel with has_bias
@@ -21,10 +22,11 @@
 //
 // Layout. q, k and v are (B, N, H*D) with their own row strides, so k and v
 // can be column views of a fused (B, N, 2A) kv projection (A = H * D), or of
-// K1's fused (B, N, 3A) qkv: qkv_flash_attention.cu runs K1/K2 at head dims
-// 192 and 256 through these entry points. D is one of the built head dims
-// 16, 32, 64, 128, 192 and 256 (wgmma_tiles.cuh's by_head_dim; the wrapper
-// pads any other D up to 256 with zero columns). The bias is a (B, N) f32
+// K1's fused (B, N, 3A) qkv: qkv_flash_attention.cu runs K1/K2 above head
+// dim 128 through these entry points. D is one of the built head dims 16,
+// 32, 64, 128, 192 and 256 (wgmma_tiles.cuh's by_head_dim) or, above 256,
+// any multiple of 64 (the column-split kernels take it at run time); the
+// wrapper pads any other D with zero columns. The bias is a (B, N) f32
 // row (0 or -1e30), shared by every head and query, or absent (null). The
 // forward writes out (B, N, A) and a compact (B, H, N) f32 row
 // log-sum-exp; the backward takes delta = rowsum(dO * O) per head,
@@ -56,6 +58,12 @@
 //     has exactly one writer: no atomics, deterministic sums. Up to D = 128
 //     they are wgmma_attn_bwd.cuh's, with the bias flag; at 192 and 256 the
 //     strip kernels.
+//   - Above D = 256 the 64 x D output no longer fits a warpgroup's
+//     registers: the column-split kernels (wgmma_attn_split.cuh) stream D
+//     through the score products and split the output in groups of 256
+//     columns over the grid, each group forming S (and dP) again; the
+//     MCA's 2 and 1 heads (D = 384, 768) and ViT-L's 3 (341, padded to 384)
+//     run there.
 //   - The f32 kernels (the parity path) use FMAs, since tensor cores would
 //     round f32 to TF32; above D = 128 their tiles shrink to 32 rows so that
 //     a padded tile (32 x 257 f32, 33 KB) leaves room for the rest. All
@@ -74,8 +82,10 @@
 //   - in bf16 dS is the bf16 product of P with (dP - delta) rounded to bf16;
 //     in f32 it is P * (dP - delta).
 
+#include "flash_split_f32.cuh"
 #include "flash_tiles.cuh"
 #include "wgmma_attn_bwd.cuh"
+#include "wgmma_attn_split.cuh"
 #include "wgmma_attn_wide.cuh"
 #include "wgmma_tiles.cuh"
 
@@ -482,29 +492,75 @@ int bwd_dq(const void* q, const void* k, const void* v, const float* bias,
   return 0;
 }
 
+// ---- above head dim 256: the column-split kernels, D at run time ----------
+// (wgmma_attn_split.cuh in bf16, flash_split_f32.cuh in f32; D a multiple
+// of 64, the wrapper pads any other)
+
+int split_fwd(const void* q, const void* k, const void* v, const float* bias,
+              void* out, float* lse, int B, int N, int H, int D, int ldq,
+              int ldk, int ldv, float q_scale, int bf16_, cudaStream_t st) {
+  return bf16_ ? launch_split_fwd<false>(q, k, v, ldq, ldk, ldv, bias, out,
+                                         lse, B, N, H, D, q_scale, st)
+               : launch_split_fwd_f32<false>(q, k, v, bias, out, lse, B, N,
+                                             H, D, ldq, ldk, ldv, q_scale,
+                                             st);
+}
+
+int split_dkv(const void* q, const void* k, const void* v, const float* bias,
+              const void* dout, const float* lse, const float* delta,
+              const void* qs, void* dk, void* dv, int B, int N, int H, int D,
+              int ldq, int ldk, int ldv, int lddkv, float q_scale,
+              float dk_fix, int bf16_, cudaStream_t st) {
+  return bf16_ ? launch_split_dkv<false>(k, v, ldk, ldv, qs, dout, bias, lse,
+                                         delta, dk, dv, lddkv, B, N, H, D,
+                                         dk_fix, st)
+               : launch_split_dkv_f32(q, k, v, bias, dout, lse, delta, dk,
+                                      dv, B, N, H, D, ldq, ldk, ldv, lddkv,
+                                      q_scale, st);
+}
+
+int split_dq(const void* q, const void* k, const void* v, const float* bias,
+             const void* dout, const float* lse, const float* delta,
+             const void* qs, const void* ks, void* dq, int B, int N, int H,
+             int D, int ldq, int ldk, int ldv, int lddq, float q_scale,
+             float k_scale, int bf16_, cudaStream_t st) {
+  return bf16_ ? launch_split_dq<false>(k, v, ldk, ldv, qs, ks, dout, bias,
+                                        lse, delta, dq, lddq, B, N, H, D,
+                                        k_scale, st)
+               : launch_split_dq_f32(q, k, v, bias, dout, lse, delta, dq, B,
+                                     N, H, D, ldq, ldk, ldv, lddq, q_scale,
+                                     k_scale, st);
+}
+
 }  // namespace
 
 // All entry points return 0 on success, a cudaError_t from the launch, or -1
-// for arguments the kernels do not take (a head dim that is not built among
-// them). `bf16` selects __nv_bfloat16 (the tensor-core kernels) over float
+// for arguments the kernels do not take (a head dim up to 256 that is not
+// built, or one above it that is no multiple of 64). `bf16` selects __nv_bfloat16 (the tensor-core kernels) over float
 // (the FMA kernels). q_scale and k_scale are already rounded to the element
 // type; bf16 rows must be 16-byte aligned. ld* are row strides in elements;
 // dout and out are (B, N, H*D) contiguous; lse and delta (B, H, N) f32;
-// bias (B, N) f32 or null. qkv_flash_attention.cu calls these four at head
-// dims 192 and 256 with q, k and v (and dk, dv, dq) as column views of the
-// fused (B, N, 3A) qkv (dqkv) and no bias.
+// bias (B, N) f32 or null. qkv_flash_attention.cu calls these four above
+// head dim 128 with q, k and v (and dk, dv, dq) as column views of the
+// fused (B, N, 3A) qkv (dqkv) and no bias. Above head dim 256 each entry
+// point runs the column-split kernels.
 
 extern "C" int mh_attn_fwd(const void* q, const void* k, const void* v,
                            const void* bias, void* out, void* lse, int B,
                            int N, int H, int D, int ldq, int ldk, int ldv,
                            float q_scale, int bf16, void* stream) {
   if (bad(B, N, H, ldq, ldk, ldv, H * D)) return kBadArgument;
-  if (int e = by_head_dim(D, [&](auto d) {
-        return fwd<decltype(d)::value>(
-            q, k, v, static_cast<const float*>(bias), out,
-            static_cast<float*>(lse), B, N, H, ldq, ldk, ldv, q_scale, bf16,
-            static_cast<cudaStream_t>(stream));
-      }))
+  const auto b = static_cast<const float*>(bias);
+  const auto l = static_cast<float*>(lse);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (int e = D > kStripMaxDim
+                  ? split_fwd(q, k, v, b, out, l, B, N, H, D, ldq, ldk, ldv,
+                              q_scale, bf16, st)
+                  : by_head_dim(D, [&](auto d) {
+                      return fwd<decltype(d)::value>(q, k, v, b, out, l, B, N,
+                                                     H, ldq, ldk, ldv, q_scale,
+                                                     bf16, st);
+                    }))
     return e;
   return (int)cudaGetLastError();
 }
@@ -518,11 +574,15 @@ extern "C" int mh_attn_bwd_prep(const void* q, const void* k,
                                 int H, int D, int ldq, int ldk, float q_scale,
                                 float k_scale, void* stream) {
   if (bad(B, N, H, ldq, ldk, ldk, H * D)) return kBadArgument;
-  if (int e = by_head_dim(D, [&](auto d) {
-        return launch_bwd_prep<decltype(d)::value / 8>(
-            q, k, ldq, ldk, out, dout, delta, qs, ks, B, N, H, q_scale,
-            k_scale, static_cast<cudaStream_t>(stream));
-      }))
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (int e = D > kStripMaxDim
+                  ? launch_prep_wide(q, k, ldq, ldk, out, dout, delta, qs, ks,
+                                     B, N, H, D, q_scale, k_scale, st)
+                  : by_head_dim(D, [&](auto d) {
+                      return launch_bwd_prep<decltype(d)::value / 8>(
+                          q, k, ldq, ldk, out, dout, delta, qs, ks, B, N, H,
+                          q_scale, k_scale, st);
+                    }))
     return e;
   return (int)cudaGetLastError();
 }
@@ -538,19 +598,24 @@ extern "C" int mh_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                int bf16, void* stream) {
   if (bad(B, N, H, ldq, ldk, ldv, H * D) || lddkv < H * D || !delta)
     return kBadArgument;
-  if (int e = by_head_dim(D, [&](auto d) {
-        return bwd_dkv<decltype(d)::value>(
-            q, k, v, static_cast<const float*>(bias), dout,
-            static_cast<const float*>(lse), static_cast<const float*>(delta),
-            qs, dk, dv, B, N, H, ldq, ldk, ldv, lddkv, q_scale, dk_fix, bf16,
-            static_cast<cudaStream_t>(stream));
-      }))
+  const auto b = static_cast<const float*>(bias);
+  const auto l = static_cast<const float*>(lse);
+  const auto d_ = static_cast<const float*>(delta);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (int e = D > kStripMaxDim
+                  ? split_dkv(q, k, v, b, dout, l, d_, qs, dk, dv, B, N, H, D,
+                              ldq, ldk, ldv, lddkv, q_scale, dk_fix, bf16, st)
+                  : by_head_dim(D, [&](auto d) {
+                      return bwd_dkv<decltype(d)::value>(
+                          q, k, v, b, dout, l, d_, qs, dk, dv, B, N, H, ldq,
+                          ldk, ldv, lddkv, q_scale, dk_fix, bf16, st);
+                    }))
     return e;
   return (int)cudaGetLastError();
 }
 
-// bf16: delta, qs and (up to D = 128, unless k_scale is a power of two) ks
-// come from mh_attn_bwd_prep; f32: qs and ks are null. dq at row stride
+// bf16: delta, qs and (up to D = 128 and above 256, unless k_scale is a
+// power of two) ks come from mh_attn_bwd_prep; f32: qs and ks are null. dq at row stride
 // lddq.
 extern "C" int mh_attn_bwd_dq(const void* q, const void* k, const void* v,
                               const void* bias, const void* dout,
@@ -561,13 +626,18 @@ extern "C" int mh_attn_bwd_dq(const void* q, const void* k, const void* v,
                               int bf16, void* stream) {
   if (bad(B, N, H, ldq, ldk, ldv, H * D) || lddq < H * D || !delta)
     return kBadArgument;
-  if (int e = by_head_dim(D, [&](auto d) {
-        return bwd_dq<decltype(d)::value>(
-            q, k, v, static_cast<const float*>(bias), dout,
-            static_cast<const float*>(lse), static_cast<const float*>(delta),
-            qs, ks, dq, B, N, H, ldq, ldk, ldv, lddq, q_scale, k_scale, bf16,
-            static_cast<cudaStream_t>(stream));
-      }))
+  const auto b = static_cast<const float*>(bias);
+  const auto l = static_cast<const float*>(lse);
+  const auto d_ = static_cast<const float*>(delta);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (int e = D > kStripMaxDim
+                  ? split_dq(q, k, v, b, dout, l, d_, qs, ks, dq, B, N, H, D,
+                             ldq, ldk, ldv, lddq, q_scale, k_scale, bf16, st)
+                  : by_head_dim(D, [&](auto d) {
+                      return bwd_dq<decltype(d)::value>(
+                          q, k, v, b, dout, l, d_, qs, ks, dq, B, N, H, ldq,
+                          ldk, ldv, lddq, q_scale, k_scale, bf16, st);
+                    }))
     return e;
   return (int)cudaGetLastError();
 }

@@ -12,8 +12,9 @@
 // Layout. q, k and v are column views of the fused (B, N, 3A) projection
 // (A = H * D, D one of the built head dims 16, 32, 64, 128, 192 and 256:
 // every kernel is a template on D, the entry points dispatch on it through
-// wgmma_tiles.cuh's by_head_dim; the wrapper pads any other D up to 256 with
-// zero columns): q at column h*D, k at A + h*D, v at 2A + h*D, row stride
+// wgmma_tiles.cuh's by_head_dim; or, above 256, any multiple of 64, run by
+// K3's column-split kernels; the wrapper pads any other D with zero
+// columns): q at column h*D, k at A + h*D, v at 2A + h*D, row stride
 // 3A. The forward writes out (B, N, A) at column h*D
 // and a compact (B, H, N) f32 row log-sum-exp. The backward writes one fused dqkv
 // (B, N, 3A): dK/dV from one kernel, dQ from the other; in bf16 both read
@@ -31,7 +32,9 @@
 // strip kernels (wgmma_attn_wide.cuh) through K3's entry points
 // (mh_flash_attention.cu), which take q, k and v as row-strided column views
 // of the fused qkv and write dK, dV and dQ into the views of one dqkv; their
-// f32 backward takes delta from the caller.
+// f32 backward takes delta from the caller. Above 256 the same entry points
+// run the column-split kernels (wgmma_attn_split.cuh), after the prep
+// pass's wide form (a warp a head row).
 //
 // What the design does about it. Each block holds 64-row tiles of queries
 // (or of keys/values) and streams the other side in 64-row tiles: one
@@ -102,11 +105,12 @@
 
 #include "flash_tiles.cuh"
 #include "wgmma_attn_bwd.cuh"
+#include "wgmma_attn_split.cuh"
 #include "wgmma_tiles.cuh"
 
-// K3's entry points (mh_flash_attention.cu), which run K1/K2 at head dims
-// 192 and 256 on column views of the fused qkv: q, k and v at row stride
-// 3A, no bias.
+// K3's entry points (mh_flash_attention.cu), which run K1/K2 above head dim
+// 128 on column views of the fused qkv: q, k and v at row stride 3A, no
+// bias.
 extern "C" {
 int mh_attn_fwd(const void* q, const void* k, const void* v,
                 const void* bias, void* out, void* lse, int B, int N, int H,
@@ -575,14 +579,45 @@ int row_map(CUtensorMap* map, const void* base, int B, int N, int A) {
   return tile_map(map, base, A, N, B, A, (long)N * A, box_cols<D>());
 }
 
+// K1/K2 through K3's entry points (above head dim 128: the strip kernels at
+// 192 and 256, the column-split ones above): q, k and v (and dq, dk, dv)
+// the column views of qkv (dqkv) at offsets 0, A and 2A, row stride 3A.
+int k3_fwd(const void* qkv, void* out, void* lse, int B, int N, int H, int D,
+           float q_scale, int is_bf16, cudaStream_t st) {
+  const int A = H * D;
+  return mh_attn_fwd(qkv, at_col(qkv, A, is_bf16),
+                     at_col(qkv, 2 * A, is_bf16), nullptr, out, lse, B, N, H,
+                     D, 3 * A, 3 * A, 3 * A, q_scale, is_bf16, st);
+}
+
+// f32 takes delta from the caller (K3's kernels).
+int k3_dkv(const void* qkv, const void* lse, const void* dout,
+           const void* delta, const void* qs, void* dqkv, int B, int N, int H,
+           int D, float q_scale, float dk_fix, int is_bf16, cudaStream_t st) {
+  const int A = H * D;
+  return mh_attn_bwd_dkv(qkv, at_col(qkv, A, is_bf16),
+                         at_col(qkv, 2 * A, is_bf16), nullptr, dout, lse,
+                         delta, qs, at_col(dqkv, A, is_bf16),
+                         at_col(dqkv, 2 * A, is_bf16), B, N, H, D, 3 * A,
+                         3 * A, 3 * A, 3 * A, q_scale, dk_fix, is_bf16, st);
+}
+
+int k3_dq(const void* qkv, const void* lse, const void* dout,
+          const void* delta, const void* qs, const void* ks, void* dqkv,
+          int B, int N, int H, int D, float q_scale, float k_scale,
+          int is_bf16, cudaStream_t st) {
+  const int A = H * D;
+  return mh_attn_bwd_dq(qkv, at_col(qkv, A, is_bf16),
+                        at_col(qkv, 2 * A, is_bf16), nullptr, dout, lse,
+                        delta, qs, ks, dqkv, B, N, H, D, 3 * A, 3 * A, 3 * A,
+                        3 * A, q_scale, k_scale, is_bf16, st);
+}
+
 template <int D>
 int run_fwd(const void* qkv, void* out, void* lse, int B, int N, int H,
             float q_scale, int is_bf16, cudaStream_t st) {
   if constexpr (D > 128) {
-    const int A = H * D;
-    return mh_attn_fwd(qkv, at_col(qkv, A, is_bf16),
-                       at_col(qkv, 2 * A, is_bf16), nullptr, out, lse, B, N,
-                       H, D, 3 * A, 3 * A, 3 * A, q_scale, is_bf16, st);
+    return k3_fwd(qkv, out, lse, B, N, H, D, q_scale, is_bf16, st);
   } else if (is_bf16) {
     CUtensorMap tqkv;
     if (int e = fused_map<D>(&tqkv, qkv, B, N, H * D)) return e;
@@ -616,19 +651,14 @@ int fused_maps(CUtensorMap* tqkv, CUtensorMap* tqs, CUtensorMap* tdo,
   return row_map<D>(tdo, dout, B, N, A);
 }
 
-// f32 at D = 192 and 256 takes delta from the caller (K3's kernels).
 template <int D>
 int run_dkv(const void* qkv, const void* out, const void* lse,
             const void* dout, const void* delta, const void* qs, void* dqkv,
             int B, int N, int H, float q_scale, float dk_fix, int is_bf16,
             cudaStream_t st) {
   if constexpr (D > 128) {
-    const int A = H * D;
-    return mh_attn_bwd_dkv(qkv, at_col(qkv, A, is_bf16),
-                           at_col(qkv, 2 * A, is_bf16), nullptr, dout, lse,
-                           delta, qs, at_col(dqkv, A, is_bf16),
-                           at_col(dqkv, 2 * A, is_bf16), B, N, H, D, 3 * A,
-                           3 * A, 3 * A, 3 * A, q_scale, dk_fix, is_bf16, st);
+    return k3_dkv(qkv, lse, dout, delta, qs, dqkv, B, N, H, D, q_scale,
+                  dk_fix, is_bf16, st);
   } else if (is_bf16) {
     if (!delta || !qs) return kBadArgument;
     const int A = H * D;
@@ -658,11 +688,8 @@ int run_dq(const void* qkv, const void* out, const void* lse,
            const void* ks, void* dqkv, int B, int N, int H, float q_scale,
            float k_scale, int is_bf16, cudaStream_t st) {
   if constexpr (D > 128) {
-    const int A = H * D;
-    return mh_attn_bwd_dq(qkv, at_col(qkv, A, is_bf16),
-                          at_col(qkv, 2 * A, is_bf16), nullptr, dout, lse,
-                          delta, qs, ks, dqkv, B, N, H, D, 3 * A, 3 * A,
-                          3 * A, 3 * A, q_scale, k_scale, is_bf16, st);
+    return k3_dq(qkv, lse, dout, delta, qs, ks, dqkv, B, N, H, D, q_scale,
+                 k_scale, is_bf16, st);
   } else if (is_bf16) {
     if (!delta || !qs) return kBadArgument;
     const int A = H * D;
@@ -690,8 +717,9 @@ int run_dq(const void* qkv, const void* out, const void* lse,
 }  // namespace
 
 // All entry points return 0 on success, a cudaError_t from the launch, or -1
-// for arguments the kernels do not take (a head dim that is not built among
-// them). `is_bf16` selects __nv_bfloat16 (the tensor-core
+// for arguments the kernels do not take (a head dim up to 256 that is not
+// built, or one above it that is no multiple of 64; above 256 every entry
+// point runs K3's, whose column-split kernels take D at run time). `is_bf16` selects __nv_bfloat16 (the tensor-core
 // kernels) over float (the FMA kernels). q_scale and k_scale are already
 // rounded to the element type; bf16 rows must be 16-byte aligned.
 
@@ -699,11 +727,13 @@ extern "C" int qkv_attn_fwd(const void* qkv, void* out, void* lse, int B,
                             int N, int H, int D, float q_scale, int is_bf16,
                             void* stream) {
   if (bad(B, N, H)) return kBadArgument;
-  if (int e = by_head_dim(D, [&](auto d) {
-        return run_fwd<decltype(d)::value>(qkv, out, lse, B, N, H, q_scale,
-                                           is_bf16,
-                                           static_cast<cudaStream_t>(stream));
-      }))
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (int e = D > kStripMaxDim
+                  ? k3_fwd(qkv, out, lse, B, N, H, D, q_scale, is_bf16, st)
+                  : by_head_dim(D, [&](auto d) {
+                      return run_fwd<decltype(d)::value>(
+                          qkv, out, lse, B, N, H, q_scale, is_bf16, st);
+                    }))
     return e;
   return (int)cudaGetLastError();
 }
@@ -716,14 +746,18 @@ extern "C" int qkv_attn_bwd_prep(const void* qkv, const void* out,
                                  void* ks, int B, int N, int H, int D,
                                  float q_scale, float k_scale, void* stream) {
   if (bad(B, N, H)) return kBadArgument;
-  if (int e = by_head_dim(D, [&](auto d) {
-        constexpr int kD = decltype(d)::value;
-        const int A = H * kD;
-        return launch_bwd_prep<kD / 8>(
-            qkv, static_cast<const bf16*>(qkv) + A, 3 * A, 3 * A, out, dout,
-            delta, qs, ks, B, N, H, q_scale, k_scale,
-            static_cast<cudaStream_t>(stream));
-      }))
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto k = static_cast<const bf16*>(qkv) + H * D;
+  if (int e = D > kStripMaxDim
+                  ? launch_prep_wide(qkv, k, 3 * H * D, 3 * H * D, out, dout,
+                                     delta, qs, ks, B, N, H, D, q_scale,
+                                     k_scale, st)
+                  : by_head_dim(D, [&](auto d) {
+                      constexpr int kD = decltype(d)::value;
+                      return launch_bwd_prep<kD / 8>(
+                          qkv, k, 3 * H * kD, 3 * H * kD, out, dout, delta,
+                          qs, ks, B, N, H, q_scale, k_scale, st);
+                    }))
     return e;
   return (int)cudaGetLastError();
 }
@@ -737,11 +771,15 @@ extern "C" int qkv_attn_bwd_dkv(const void* qkv, const void* out,
                                 int B, int N, int H, int D, float q_scale,
                                 float dk_fix, int is_bf16, void* stream) {
   if (bad(B, N, H)) return kBadArgument;
-  if (int e = by_head_dim(D, [&](auto d) {
-        return run_dkv<decltype(d)::value>(
-            qkv, out, lse, dout, delta, qs, dqkv, B, N, H, q_scale, dk_fix,
-            is_bf16, static_cast<cudaStream_t>(stream));
-      }))
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (int e = D > kStripMaxDim
+                  ? k3_dkv(qkv, lse, dout, delta, qs, dqkv, B, N, H, D,
+                           q_scale, dk_fix, is_bf16, st)
+                  : by_head_dim(D, [&](auto d) {
+                      return run_dkv<decltype(d)::value>(
+                          qkv, out, lse, dout, delta, qs, dqkv, B, N, H,
+                          q_scale, dk_fix, is_bf16, st);
+                    }))
     return e;
   return (int)cudaGetLastError();
 }
@@ -756,11 +794,15 @@ extern "C" int qkv_attn_bwd_dq(const void* qkv, const void* out,
                                int H, int D, float q_scale, float k_scale,
                                int is_bf16, void* stream) {
   if (bad(B, N, H)) return kBadArgument;
-  if (int e = by_head_dim(D, [&](auto d) {
-        return run_dq<decltype(d)::value>(
-            qkv, out, lse, dout, delta, qs, ks, dqkv, B, N, H, q_scale,
-            k_scale, is_bf16, static_cast<cudaStream_t>(stream));
-      }))
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (int e = D > kStripMaxDim
+                  ? k3_dq(qkv, lse, dout, delta, qs, ks, dqkv, B, N, H, D,
+                          q_scale, k_scale, is_bf16, st)
+                  : by_head_dim(D, [&](auto d) {
+                      return run_dq<decltype(d)::value>(
+                          qkv, out, lse, dout, delta, qs, ks, dqkv, B, N, H,
+                          q_scale, k_scale, is_bf16, st);
+                    }))
     return e;
   return (int)cudaGetLastError();
 }

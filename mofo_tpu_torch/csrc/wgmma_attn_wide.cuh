@@ -9,6 +9,9 @@
 //   - the backward at head dims 192 and 256 of K3, of K2 (through K3's
 //     entry points, base 2) and of K4 (hm_flash_attention.cu, base e), after
 //     wgmma_attn_bwd.cuh's prep pass.
+// It stops at D = 256: above it the 64 x D output accumulator does not fit
+// a warpgroup's registers, and every family runs wgmma_attn_split.cuh's
+// column-split kernels, which stream D and split the output over the grid.
 //
 // Layout. A 64-row strip of D bf16 columns is Strip<D>::kBoxes swizzled
 // boxes of box_cols<D>() columns, one after the other (one box of D columns

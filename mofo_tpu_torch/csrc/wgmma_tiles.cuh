@@ -36,8 +36,9 @@
 // half of the accumulator.
 //
 // Every family is built for the head dims 16, 32, 64, 128, 192 and 256
-// (by_head_dim at the end); its wrapper pads any other D up to 256 with
-// zero columns to the next of them.
+// (by_head_dim at the end) and takes any multiple of 64 above 256 at run
+// time (wgmma_attn_split.cuh's column-split kernels); its wrapper pads any
+// other D with zero columns to the next of them.
 
 #pragma once
 
@@ -577,7 +578,8 @@ int tile_map(CUtensorMap* map, const void* base, long cols, long rows,
 // Runs f(std::integral_constant<int, D>()) for a head dim D the kernels are
 // built for (HEAD_DIMS of mofo_tpu_torch/ops/flash_attention.py, the same
 // six for K1/K2, K3 and K4); kBadArgument for any other D, which the
-// wrappers pad with zero columns to the next built one first.
+// wrappers pad with zero columns to the next built one first (the entry
+// points send a D above 256 to the column-split kernels before this).
 template <typename F>
 int by_head_dim(int D, F f) {
   switch (D) {

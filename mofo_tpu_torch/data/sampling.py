@@ -26,9 +26,15 @@ from it as the reference's do, so a seed gives the reference's samples.
 
 from __future__ import annotations
 
+import threading
 from typing import List, Optional
 
 import numpy as np
+
+# held by tsn_frame_ids(pin_seed=True) from its np.random.seed(10) to its last
+# draw: thread workers fetch clips at once, and another thread's reseed
+# between one thread's seed and its draw changes that thread's ids
+_PIN_SEED_LOCK = threading.Lock()
 
 
 def _rng(rng: Optional[np.random.RandomState]):
@@ -42,13 +48,20 @@ def tsn_frame_ids(num_frames: int, *, num_segments: int = 1,
                   pin_seed: bool = False) -> np.ndarray:
     """Frame ids for one pretraining clip. The defaults are the pretrain
     recipe's: 16 frames x sampling rate 2 => skip_length 32. Returns
-    skip_length // new_step ids per segment."""
+    skip_length // new_step ids per segment. With pin_seed the global RNG
+    is seeded and drawn from under one lock, and is left seeded as the
+    reference leaves it."""
     if pin_seed:
-        np.random.seed(10)
-        r = np.random
-    else:
-        r = _rng(rng)
+        with _PIN_SEED_LOCK:
+            np.random.seed(10)
+            return _tsn_frame_ids(num_frames, num_segments, skip_length,
+                                  new_step, temporal_jitter, np.random)
+    return _tsn_frame_ids(num_frames, num_segments, skip_length, new_step,
+                          temporal_jitter, _rng(rng))
 
+
+def _tsn_frame_ids(num_frames, num_segments, skip_length, new_step,
+                   temporal_jitter, r) -> np.ndarray:
     average_duration = (num_frames - skip_length + 1) // num_segments
     if average_duration > 0:
         offsets = np.multiply(list(range(num_segments)), average_duration) \

@@ -18,21 +18,26 @@ run:
     csrc/mh_flash_attention.cu; its bf16 backward runs a prep pass too
     (mh_attn_bwd_prep), its f32 backward after mh_delta's reduction.
 
-Head dims. mofo_tpu's kernels take any head dim D; every kernel family here
-is built for HEAD_DIMS = (16, 32, 64, 128, 192, 256). On the card the
-autograd functions pad any other D up to MAX_HEAD_DIM = 256 with zero
-columns to the next built width and slice the results back, in one place
-(fwd_at_width and bwd_at_width, on head_dim_width, pad_head_dim and
-unpad_head_dim): zero columns of q and k add exact zeros to
-QK^T, zero columns of v give zero output columns, and the scale stays the
-caller's. A built D takes no copy. D above 256 raises (still to port,
-ROADMAP.md Queue 2). The plain versions on the CPU take any D as it is.
+Head dims. mofo_tpu's kernels take any head dim D, and so do these: every
+kernel family is built for HEAD_DIMS = (16, 32, 64, 128, 192, 256) as
+compile-time instances, and above 256 takes any multiple of SPLIT_BOX = 64
+at run time (csrc/wgmma_attn_split.cuh's column-split kernels: the head dim
+streamed through the score products, the output split in groups of 256
+columns over the grid). On the card the autograd functions pad any other D
+with zero columns to its width (head_dim_width: the next built head dim up
+to 256, the next multiple of 64 above) and slice the results back, in one
+place (fwd_at_width and bwd_at_width, on head_dim_width, pad_head_dim and
+unpad_head_dim): zero columns of q and k add exact zeros to QK^T, zero
+columns of v give zero output columns, and the scale stays the caller's.
+A D that is its own width takes no copy. The plain versions on the CPU take
+any D as it is.
 
 Every bf16 kernel is a TMA + wgmma kernel (csrc/wgmma_tiles.cuh; the
 backwards up to head dim 128 share csrc/wgmma_attn_bwd.cuh, the K3 forward
 and every backward at 192 and 256 csrc/wgmma_attn_wide.cuh's strip
-kernels, which K1/K2 reach there through K3's entry points); every f32
-kernel runs FMAs.
+kernels, every kernel above 256 csrc/wgmma_attn_split.cuh's column-split
+ones; K1/K2 reach both through K3's entry points); every f32 kernel runs
+FMAs (above 256 flash_split_f32.cuh's column-split ones).
 
 fp16 callers (the fp16 finetune) run the bf16 kernels: each public entry
 point casts f16 operands to bf16 and the output back to f16 inside autograd,
@@ -81,11 +86,15 @@ import torch
 from torch.autograd.function import once_differentiable
 
 LOG2E = 1.4426950408889634
-# the head dims every kernel family (K1/K2, K3, K4) is built for: 64 is
-# every registry preset's (256 the MCA's, 16 and 32 the tiny presets'), and
-# any other D up to MAX_HEAD_DIM runs at the next of them, zero-padded
+# the head dims every kernel family (K1/K2, K3, K4) is built for as
+# compile-time instances: 64 is every registry preset's (256 the MCA's, 16
+# and 32 the tiny presets'), and any other D up to 256 runs at the next of
+# them, zero-padded
 HEAD_DIMS = (16, 32, 64, 128, 192, 256)
-MAX_HEAD_DIM = 256
+# above HEAD_DIMS the column-split kernels take the head dim at run time in
+# boxes of SPLIT_BOX columns (one TMA box, one 128-byte swizzle atom), so
+# any other D runs zero-padded to the next multiple of it
+SPLIT_BOX = 64
 
 # the bf16 backward runs qkv_attn_bwd_prep once before its two kernels; the
 # f32 backward runs the two kernels alone (QKV_F32_KERNELS)
@@ -141,15 +150,15 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def head_dim_width(D: int) -> int:
-    """The built head dim the kernels run a head dim D at: the smallest of
-    HEAD_DIMS >= D (D itself when it is built). Raises above MAX_HEAD_DIM:
-    no kernel takes it."""
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"head dim {D} unsupported: the attention kernels take head dims "
-            f"1 to {MAX_HEAD_DIM} (run at {HEAD_DIMS}, zero-padded); above "
-            f"{MAX_HEAD_DIM} is still to port (ROADMAP.md Queue 2)")
-    return next(w for w in HEAD_DIMS if w >= D)
+    """The head dim the kernels run a head dim D at: the smallest of
+    HEAD_DIMS >= D up to 256, D rounded up to a multiple of SPLIT_BOX above
+    (D itself when a kernel takes it as it is). Raises for D < 1 only."""
+    if D < 1:
+        raise ValueError(f"head dim {D} unsupported: a head has at least "
+                         "one column")
+    if D <= HEAD_DIMS[-1]:
+        return next(w for w in HEAD_DIMS if w >= D)
+    return -(-D // SPLIT_BOX) * SPLIT_BOX
 
 
 def kernel_width(x: torch.Tensor, D: int) -> int:
@@ -220,11 +229,11 @@ def bwd_at_width(bwd, xs, out, lse, dout, groups, heads: int, *args):
 
 
 def _built(D: int) -> int:
-    """D, after the gate (head_dim_width) and a check that a kernel is built
-    for it: the launchers take padded tensors only."""
+    """D, after the gate (head_dim_width) and a check that a kernel takes
+    it as it is: the launchers take padded tensors only."""
     if head_dim_width(D) != D:
         raise ValueError(
-            f"head dim {D} has no kernel instance: the public entry points "
+            f"head dim {D} has no kernel of its own: the public entry points "
             f"pad it to {head_dim_width(D)} (pad_head_dim) first")
     return D
 
@@ -293,11 +302,13 @@ def _power_of_two(x: float) -> bool:
 
 def _scaled_k_copy(k_scale: float, D: int) -> bool:
     """Whether a prep pass writes k * k_scale for dQ: up to head dim 128 (the
-    backwards of csrc/wgmma_attn_bwd.cuh) at a scale that is not a power of
-    two. A power of two scales dQ's f32 accumulator instead, and the strip
-    kernels at 192 and 256 have no shared memory for a third strip and fold
-    the scale into their K strip."""
-    return D <= 128 and not _power_of_two(k_scale)
+    backwards of csrc/wgmma_attn_bwd.cuh) and above 256 (the column-split
+    kernels, whose dQ streams K's group columns in boxes of their own) at a
+    scale that is not a power of two. A power of two scales dQ's f32
+    accumulator instead, and the strip kernels at 192 and 256 have no
+    shared memory for a third strip and fold the scale into their K
+    strip."""
+    return (D <= 128 or D > HEAD_DIMS[-1]) and not _power_of_two(k_scale)
 
 
 def _dq_plain(ds, k, ks, k_scale: float, dt):
@@ -362,9 +373,9 @@ def attention_qkv_bwd_from_prep_plain(qkv, lse, dout, delta, qs, ks,
 
 
 def qkv_head_dim(qkv: torch.Tensor, heads: int) -> int:
-    """D of a fused (B, N, 3*H*D) qkv; raises above MAX_HEAD_DIM (no kernel
-    takes it, head_dim_width), and nothing falls back to the plain version
-    on the card."""
+    """D of a fused (B, N, 3*H*D) qkv, after the gate (head_dim_width,
+    which takes any D >= 1); nothing falls back to the plain version on the
+    card."""
     if qkv.ndim != 3 or qkv.shape[-1] % (3 * heads):
         raise ValueError(f"qkv must be (B, N, 3*H*D), got {tuple(qkv.shape)}")
     hd = qkv.shape[-1] // (3 * heads)
@@ -467,9 +478,9 @@ def qkv_attn_bwd_prep(qkv, out, dout, scale: float, heads: int):
 
 def _qkv_prep(qkv, out, dout, scale, heads):
     """(delta, qs, ks) of the backward kernels: the prep pass in bf16; in
-    f32 (delta, None, None) at head dims 192 and 256, whose kernels (K3's)
-    take delta from mh_delta's reduction, and all None below, where the
-    kernels form delta themselves."""
+    f32 (delta, None, None) above head dim 128, whose kernels (K3's) take
+    delta from mh_delta's reduction, and all None below, where the kernels
+    form delta themselves."""
     if qkv.dtype == torch.bfloat16:
         return qkv_attn_bwd_prep(qkv, out, dout, scale, heads)
     if qkv_head_dim(qkv, heads) > 128:
@@ -821,7 +832,7 @@ def mh_attn_bwd_dkv(q, k, v, kv_bias, out, lse, dout, dk, dv, scale: float,
 def mh_attn_bwd_dq(q, k, v, kv_bias, out, lse, dout, dq, scale: float,
                    heads: int, prep=None):
     """Writes dQ (B, N, A) contiguous (CUDA only; the C entry point takes
-    dq's row stride, which K2 sets at head dims 192 and 256). `prep` as for
+    dq's row stride, which K2 sets above head dim 128). `prep` as for
     mh_attn_bwd_dkv."""
     D = _check_mh(q, k, v, kv_bias, heads)
     _check_mh_bwd(q, out, lse, dout, heads)

@@ -11,7 +11,9 @@ tools/profile_step.py and tests/test_torch_gpu.py.
   the pretrain model through finetune_init_from_pretrain, on
   `synthetic_finetune_batch`; with `augment` on the finetune runner's
   uint8 clips (`synthetic_clips_u8`) augmented inside the step as the CLI
-  does, with dtype="float16" under the dynamic loss scale.
+  does, with dtype="float16" under the dynamic loss scale; `mca_num_heads`
+  and `width` give the MCA's head dim (above 256 at 2 and 1 heads, and at
+  ViT-L's width with 3).
 - `attention_against_plain`: the fused-qkv attention kernels (K1/K2:
   forward, dK/dV, dQ) and their plain PyTorch versions on the same qkv;
   `mh_inputs` / `mh_attention_against_plain`: the same for the masked
@@ -22,7 +24,8 @@ tools/profile_step.py and tests/test_torch_gpu.py.
   against the other, `check_prep` / `check_mh_prep` / `check_hm_prep`: the
   bf16 backwards' prep passes against their plain versions, and
   `planted_faults` /
-  `hm_planted_faults`: wrong outputs those bounds must reject
+  `hm_planted_faults` / `group_unwritten` (the column-split kernels' last
+  output group left unwritten): wrong outputs those bounds must reject
   (`masked_kv_grad` checks that masked kv rows get zero dK/dV).
 - `forced_draws` / `moved_draws` / `augment_against_cpu`: finetune_augment
   draws that force all 15 RandAugment ops (the geometric ones in both
@@ -60,6 +63,7 @@ import functools
 import os
 import time
 import zlib
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -105,6 +109,8 @@ F32_ATOL = {"out": 1e-4, "lse": 1e-4, "dq": 5e-4, "dk": 5e-4, "dv": 5e-4}
 # atol/rtol 3e-2 on dqkv.
 BF16_REL = 2.0 ** -6
 BF16_LSE_ATOL = 1e-4
+# the column-split kernels (head dims above 256): output columns a block
+SPLIT_GROUP = 256
 # the K2 and K4 prep passes: q * scale (and k * scale) bit-equal to the plain
 # version; delta, an f32 sum of D products taken in another order, within
 # PREP_DELTA_RTOL of its row's sum of |dO * O|
@@ -352,6 +358,7 @@ def memory_box_json(paths, hw=(256, 320)) -> dict:
 def build_finetune_step(B: int, plain: bool = False, depth: int = 12,
                         augment: bool = False, dtype: str = "bfloat16",
                         opt: str = "adamw", mca_num_heads: int = 3,
+                        width: Optional[Tuple[int, int]] = None,
                         **cfg_fields):
     """The ViT-B BB-focused MCA finetune step on CUDA at batch B, its
     backbone `depth` Blocks deep (the checks cut it), trained by zoo entry
@@ -361,19 +368,25 @@ def build_finetune_step(B: int, plain: bool = False, depth: int = 12,
     flip, erasing); in dtype "float16" the state carries the dynamic loss
     scale; a second-order `opt` (adahessian) takes the Hutchinson probe,
     on a model with the plain attention route; the MCA block has
-    `mca_num_heads` heads (3 by default: head dim 256); `cfg_fields` set
-    more FinetuneConfig fields (drop, attn_drop_rate). Returns (model,
-    state, step_fn, generator, batch, cfg)."""
+    `mca_num_heads` heads (3 by default: head dim 256); `width` = (embed_dim,
+    num_heads) builds the model at another width than ViT-B's (ViT-L's:
+    (1024, 16)), whose backbone keeps its seed's initialisation (no
+    pretrain model is built for it); `cfg_fields` set more FinetuneConfig
+    fields (drop, attn_drop_rate). Returns (model, state, step_fn,
+    generator, batch, cfg)."""
     second_order = optim.is_second_order(opt)
     overrides = {"attn_impl": "xla"} if second_order else {}
+    if width is not None:
+        overrides.update(embed_dim=width[0], num_heads=width[1])
     cfg = FinetuneConfig(batch_size=B, model=FINETUNE_MODEL, dtype=dtype,
                          **cfg_fields)
     model = finetune_model(cfg, depth=depth, mca_num_heads=mca_num_heads,
                            **overrides)
-    pretrain = create_model(MODEL, dtype=torch.bfloat16, seed=1,
-                            encoder_depth=depth)
-    finetune_init_from_pretrain(model, pretrain.state_dict())
-    del pretrain
+    if width is None:
+        pretrain = create_model(MODEL, dtype=torch.bfloat16, seed=1,
+                                encoder_depth=depth)
+        finetune_init_from_pretrain(model, pretrain.state_dict())
+        del pretrain
     oc = cfg.optimizer
     lr = schedules.cosine_schedule(
         schedules.scaled_lr(oc.lr, B), oc.min_lr, cfg.epochs, 100,
@@ -698,6 +711,19 @@ def planted_faults(got: dict, bias_ignored: dict = None) -> dict:
     if bias_ignored is not None:
         faults["bias_ignored"] = bias_ignored
     return faults
+
+
+def group_unwritten(got: dict, heads: int) -> dict:
+    """The column-split kernels' planted fault (head dims above 256): the
+    last output group of every head (its columns from SPLIT_GROUP * (G - 1)
+    on, G = ceil(D / SPLIT_GROUP)) left unwritten in a zeroed buffer, in
+    out and in dq, dk and dv. compare_with_plain must reject it."""
+    def drop(t):
+        lead, D = t.shape[:-1], t.shape[-1] // heads
+        x = t.reshape(*lead, heads, D).clone()
+        x[..., SPLIT_GROUP * ((D - 1) // SPLIT_GROUP):] = 0
+        return x.reshape(t.shape)
+    return dict(got, **{k: drop(got[k]) for k in ("out", "dq", "dk", "dv")})
 
 
 def hm_planted_faults(got: dict) -> dict:

@@ -178,9 +178,10 @@ def test_head_dim_width_rounds_up_to_a_built_head_dim():
         16, 16, 16, 32, 64, 64, 128, 128, 128, 192, 192, 256, 256]
     for d in fa.HEAD_DIMS:
         assert fa.head_dim_width(d) == d
-    for d in (0, 257, 341, 512):
-        with pytest.raises(ValueError, match="still to port"):
-            fa.head_dim_width(d)
+    with pytest.raises(ValueError, match="head dim 0 unsupported"):
+        fa.head_dim_width(0)
+    # above 256: the next multiple of 64 (the column-split kernels' boxes)
+    assert [fa.head_dim_width(d) for d in (257, 341, 512)] == [320, 384, 512]
 
 
 def _qkv_padded_plain(qkv, H, D, W, scale, dout):

@@ -15,6 +15,7 @@ import contextlib
 import io
 import json
 import os
+import threading
 
 import cv2
 import jax
@@ -499,6 +500,43 @@ def test_thread_workers_equal_the_serial_fetch(videos, make):
         assert a.keys() == b.keys()
         for k in a:
             assert torch.equal(a[k], b[k]), k
+
+
+def test_a_pinned_draw_is_not_split_by_another_threads_seed(monkeypatch):
+    """F8: tsn_frame_ids(pin_seed=True) seeds the global RNG and draws from
+    it as one step. Thread "held" is stopped right after its
+    np.random.seed(10) by an event while thread "other" runs a whole pinned
+    call: without the lock "other" reseeds and draws in between, and
+    "held" draws the second number after the seed; with it "other" waits
+    until "held" has drawn (the hold times out), and both get the serial
+    ids. Every wait has a timeout, so a fault cannot hang the suite."""
+    args = dict(skip_length=4, new_step=1, pin_seed=True)
+    want = sampling.tsn_frame_ids(300, **args)
+    seed, seeded, go = np.random.seed, threading.Event(), threading.Event()
+
+    def held_seed(s):
+        seed(s)
+        if threading.current_thread().name == "held":
+            seeded.set()
+            go.wait(timeout=1.0)
+
+    monkeypatch.setattr(np.random, "seed", held_seed)
+    got = {}
+
+    def run(name):
+        got[name] = sampling.tsn_frame_ids(300, **args)
+        go.set()
+
+    held = threading.Thread(target=run, args=("held",), name="held")
+    held.start()
+    assert seeded.wait(timeout=10)
+    other = threading.Thread(target=run, args=("other",), name="other")
+    other.start()
+    for t in (held, other):
+        t.join(timeout=10)
+        assert not t.is_alive()
+    for name in ("held", "other"):
+        np.testing.assert_array_equal(got[name], want, err_msg=name)
 
 
 def test_thread_workers_draw_from_the_one_global_rng(videos):

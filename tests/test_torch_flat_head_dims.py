@@ -105,13 +105,15 @@ def test_prep_then_rest_is_the_plain_backward(D, H, dtype):
 
 @pytest.mark.parametrize("D", [264, 320])
 def test_a_head_dim_without_kernels_is_refused(D):
-    """A flat D above 256 has no kernel (the next slice's, ROADMAP.md Queue
-    2); the gate says so before it looks at the device. Every D up to 256
-    passes it (the wrappers pad it to a built width)."""
+    """A flat D above 256 passes the gate and runs at the next multiple of
+    64 (320 here): the launchers refuse a D that is not its own width (the
+    wrappers pad it first) and, at its width, a tensor off the card; the
+    gate looks at the head dim before it looks at the device."""
     x = torch.zeros(1, 16, 3 * 8 * D)
-    with pytest.raises(ValueError, match="head dims 1 to 256"):
-        fa.qkv_head_dim(x, 8)
-    with pytest.raises(ValueError, match=f"head dim {D} unsupported"):
+    assert fa.qkv_head_dim(x, 8) == D and fa.head_dim_width(D) == 320
+    match = ("CUDA tensors" if D == 320 else
+             f"head dim {D} has no kernel of its own: .* pad it to 320")
+    with pytest.raises(ValueError, match=match):
         fa.qkv_attn_bwd_dkv(x, x[..., :8 * D], torch.zeros(1, 8, 16),
                             x[..., :8 * D], x, D ** -0.5, 8)
     for hd in fa.HEAD_DIMS + (48, 80):

@@ -46,6 +46,7 @@ from mofo_tpu_torch.tools.main_path import (
     finetune_model,
     forced_draws,
     frame_ids,
+    group_unwritten,
     hm_attention_against_plain,
     hm_inputs,
     hm_planted_faults,
@@ -300,12 +301,88 @@ def test_autograd_pads_an_unbuilt_head_dim_only(cuda, family):
 
 
 def test_a_head_dim_above_256_is_refused(cuda):
-    for fn in (lambda: fa.flash_attention_qkv(torch.zeros(
-                   1, 8, 3 * 2 * 264, device=cuda), scale=1.0, num_heads=2),
-               lambda: fa.flash_attention(
-                   *[torch.zeros(1, 1, 8, 320, device=cuda)] * 3, scale=1.0)):
-        with pytest.raises(ValueError, match="still to port"):
-            fn()
+    """Above 256 no head dim is refused any more: K1/K2 at 264 (zero-padded
+    to 320) and K4 at 320 (the column-split kernels' own width) run the
+    kernels, one launch of each, and match their plain versions at D."""
+    for hd, run, family in (
+            (264, lambda t: fa.flash_attention_qkv(
+                t, scale=264 ** -0.5, num_heads=2), fa.QKV_KERNELS),
+            (320, lambda t: fa.flash_attention(
+                *t.reshape(1, 2, 100, 3 * 320).split(320, -1),
+                scale=320 ** -0.5), fa.HM_KERNELS)):
+        x = _qkv(1, 100, 2, torch.bfloat16, cuda, seed=hd, d=hd)
+        fa.reset_launch_counts()
+        out = run(x)
+        assert out.shape[-1] == (2 * hd if hd == 264 else hd)
+        assert fa.launch_counts["qkv_attn_fwd" if hd == 264
+                                else "hm_attn_fwd"] == 1
+    got, want = attention_against_plain(
+        _qkv(2, 200, 2, torch.bfloat16, cuda, seed=5, d=264), 2, 264 ** -0.5)
+    check_against_plain(got, want)
+    got, want = hm_attention_against_plain(
+        *hm_inputs(4, 200, torch.bfloat16, 6, cuda, D=320), 320 ** -0.5)
+    check_against_plain(got, want)
+
+
+# --- head dims above 256: the column-split kernels -------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,H", [(264, 2), (320, 2), (512, 1)])
+@pytest.mark.parametrize("N", [65, 200])
+def test_qkv_above_256(cuda, hd, H, N, dtype):
+    """K1/K2 above 256 (K3's column-split kernels on the fused layout; 264
+    zero-padded to 320) against the plain versions at the unpadded D; the
+    faults rejected, one output group left unwritten among them."""
+    x = _qkv(2, N, H, dtype, cuda, seed=hd + N, d=hd)
+    got, want = attention_against_plain(x, H, hd ** -0.5)
+    torch.cuda.synchronize()
+    check_against_plain(got, want)
+    if dtype == torch.bfloat16:
+        xw, out = got["at_width"]
+        check_prep(xw, out, (2 * out.float()).to(dtype), H, hd ** -0.5)
+    faults = dict(planted_faults(got), unwritten=group_unwritten(got, H))
+    for fault, outputs in faults.items():
+        assert compare_with_plain(outputs, want)["beyond_bounds"], fault
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,H", [(341, 3), (384, 2), (768, 1), (1024, 1)])
+@pytest.mark.parametrize("N", [65, 200])
+def test_mh_above_256(cuda, hd, H, N, dtype):
+    """K3 with the kv bias at the MCA's head dims above 256 (341 padded to
+    384) and 1024 against the plain versions at the unpadded D; masked kv
+    rows get zero dK/dV; faults rejected."""
+    q, k, v, b = mh_inputs(2, N, H, hd, dtype, hd + N, cuda)
+    got, want = mh_attention_against_plain(q, k, v, b, H, hd ** -0.5)
+    torch.cuda.synchronize()
+    check_against_plain(got, want)
+    assert masked_kv_grad(got, b) == 0.0
+    if dtype == torch.bfloat16:
+        qw, kw, _, _, out = got["at_width"]
+        check_mh_prep(qw, kw, out, (2 * out.float()).to(dtype), H,
+                      hd ** -0.5)
+    faults = dict(planted_faults(got), unwritten=group_unwritten(got, H))
+    for fault, outputs in faults.items():
+        assert compare_with_plain(outputs, want)["beyond_bounds"], fault
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [320, 512, 1024])
+@pytest.mark.parametrize("N", [65, 200])
+def test_hm_above_256(cuda, hd, N, dtype):
+    """K4 above 256 (two passes in the forward, base e) against the plain
+    versions; faults rejected."""
+    q, k, v = hm_inputs(4, N, dtype, hd + N, cuda, D=hd)
+    got, want = hm_attention_against_plain(q, k, v, hd ** -0.5)
+    torch.cuda.synchronize()
+    check_against_plain(got, want)
+    if dtype == torch.bfloat16:
+        qw, kw, _, out = got["at_width"]
+        check_hm_prep(qw, kw, out, (2 * out.float()).to(dtype), hd ** -0.5)
+    faults = dict(hm_planted_faults(got), unwritten=group_unwritten(got, 1))
+    for fault, outputs in faults.items():
+        assert compare_with_plain(outputs, want)["beyond_bounds"], fault
 
 
 def test_wrapper_rejects_what_the_kernels_do_not_take(cuda):

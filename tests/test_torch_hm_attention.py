@@ -213,11 +213,13 @@ def test_kernel_bounds_reject_planted_faults(dtype):
 
 
 def test_wrapper_rejects_what_the_kernels_do_not_take():
-    # no kernel above 256; below, the launchers take a built head dim only
-    # (flash_attention pads 48 to 64 first)
+    # the launchers take a head dim that is its own width only
+    # (flash_attention pads 48 to 64 and 264 to 320 first); 320 is one
     x = torch.zeros(2, 8, 264)
-    with pytest.raises(ValueError, match=r"head dim 264 unsupported.*256"):
+    with pytest.raises(ValueError, match="head dim 264 .* pad it to 320"):
         fa._check_hm(x)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fa._check_hm(torch.zeros(2, 8, 320))
     x = torch.zeros(2, 8, 48)
     with pytest.raises(ValueError, match="head dim 48 has no kernel"):
         fa._check_hm(x)

@@ -164,13 +164,20 @@ def test_k3_head_dims_are_instantiated():
                                        ("qkv", 341), ("mh", 264),
                                        ("hm", 512)])
 def test_the_qkv_gate_raises_outside_the_built_head_dims(family, hd):
-    """Above 256 every family's gate refuses the head dim (still to port,
-    ROADMAP.md Queue 2), before it looks at the device; below, it takes
-    any D (head_dim_width gives the width it runs at)."""
-    gate = {"qkv": lambda: fa.qkv_head_dim(torch.zeros(2, 8, 3 * 4 * hd), 4),
-            "mh": lambda: fa._check_mh(*[torch.zeros(2, 8, 4 * hd)] * 3,
-                                       None, 4),
-            "hm": lambda: fa._check_hm(torch.zeros(2, 8, hd))}[family]
-    with pytest.raises(ValueError, match="still to port"):
-        gate()
+    """Above 256 every family's gate takes the head dim at its width, the
+    next multiple of 64 (the column-split kernels): at that width the gate
+    passes and the check goes on to the device, at any other D it sends the
+    caller to the padding first; below, it takes any D (head_dim_width
+    gives the width it runs at)."""
+    width = {264: 320, 320: 320, 341: 384, 512: 512}[hd]
+    assert fa.head_dim_width(hd) == width
+    gate = {"qkv": lambda d: fa._check_cuda(torch.zeros(2, 8, 3 * 4 * d), 4),
+            "mh": lambda d: fa._check_mh(*[torch.zeros(2, 8, 4 * d)] * 3,
+                                         None, 4),
+            "hm": lambda d: fa._check_hm(torch.zeros(2, 8, d))}[family]
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gate(width)
+    if hd != width:
+        with pytest.raises(ValueError, match=f"pad it to {width}"):
+            gate(hd)
     assert fa.qkv_head_dim(torch.zeros(2, 8, 3 * 4 * 200), 4) == 200

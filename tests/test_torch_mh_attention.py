@@ -229,10 +229,13 @@ def test_kernel_bounds_reject_planted_faults(dtype):
 
 
 def test_wrapper_rejects_what_the_kernels_do_not_take():
-    # above 256 no kernel takes the head dim; below, the launchers take a
-    # built one only (flash_attention_mh pads 48 to 64 first)
+    # the launchers take a head dim that is its own width only
+    # (flash_attention_mh pads 48 to 64 and 264 to 320 first); 320 is one
     q = torch.zeros(1, 8, 2 * 264)
-    with pytest.raises(ValueError, match="head dim 264 unsupported"):
+    with pytest.raises(ValueError, match="head dim 264 .* pad it to 320"):
+        fa._check_mh(q, q, q, None, 2)
+    q = torch.zeros(1, 8, 2 * 320)
+    with pytest.raises(ValueError, match="CUDA tensors"):
         fa._check_mh(q, q, q, None, 2)
     q = torch.zeros(1, 8, 2 * 48)
     with pytest.raises(ValueError, match="head dim 48 has no kernel"):
