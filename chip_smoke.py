@@ -40,9 +40,10 @@ Phases, each printing one JSON line:
                launch counts of every kernel checked.
   6. parity  - a ViT-B-width model cut to 2+1 blocks, f32, B=1: loss and
                gradient norm on the card (kernels) against the CPU (plain
-               versions), same weights and masks. f32 runs the FMA kernels,
-               so this phase does not cover the bf16 (tensor-core) kernels
-               of the step: phase 3 holds those.
+               versions), same weights and masks. f32 runs the f32
+               kernels (K1's forward and K2's dK/dV in 3xTF32), so this
+               phase does not cover the bf16 kernels of the step: phase 3
+               holds those.
   7. finetune_step - the ViT-B BB-focused MCA finetune step at the
                FinetuneConfig defaults (bf16, B=10, mixup, cutmix, label
                smoothing, drop path 0.1, AdamW with layer decay), backbone
@@ -412,6 +413,17 @@ Phases, each printing one JSON line:
                K3's dQ zeroed rejected. It runs last.
 The steps of phases 5 and 11 must make no zero-padding copy (every head
 dim of the main path is built).
+The f32 instances: phases 3, 4 and 9 also time them (K1/K2 at the decoder
+and the backbone, K3 at the MCA, K4 at the runner's decoder; bounds with
+4-byte elements at PEAK_TF32X3 and, beside it, PEAK_FMA_F32; lines
+k1_f32_vs_library and k2_f32_vs_library, the latter with the backward's
+delta reduction); qkv_head_dims checks f32 at scale 0.1 on each ragged
+geometry; after it, f32_precision holds K1's forward and K2's dK/dV (3xTF32
+on wgmma) against a float64 run (each output within PRECISION_FACTOR of
+the plain f32 version's error, the plain version with TF32 on beyond it)
+at every head dim they take and the ViT-B decoder; after vis, f32_eval
+times feature_extract's forward (B = 4) and the f32 ViT-B step, launches
+held exactly.
 The kernels phase also checks and times K1/K2 at the mesh's per-rank
 head counts (MESH_GEOS: H = 3, the ViT-B decoder at model 2; H = 4 and 8,
 ViT-L's decoder and encoder) and at ViT-L's 16 heads over the 4608 and
@@ -481,6 +493,7 @@ from mofo_tpu_torch.tools.main_path import (
     AUG_SHARE,
     FINETUNE_MODEL,
     MODEL,
+    PRECISION_FACTOR,
     SPLIT_GROUP,
     VITS_MODEL,
     MemoryReader,
@@ -495,6 +508,7 @@ from mofo_tpu_torch.tools.main_path import (
     compare_with_plain,
     count_pads,
     doubled_lr,
+    f32_precision,
     finetune_model,
     forced_draws,
     frame_ids,
@@ -549,6 +563,11 @@ REPLACES = {  # the pallas_call sites of the TPU kernels
     "hm_attn_bwd_dq": f"{TPU_FILE}:332",  # _bwd_impl -> _dq_kernel
 }
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 FLOP/s
+# f32: the fastest f32-accurate products on the card are 3xTF32 on the
+# tensor cores (495 TFLOP/s dense TF32, three products each), the bound the
+# f32 kernels are held under; the FMA rate outside the tensor cores beside it
+PEAK_TF32X3 = 495e12 / 3
+PEAK_FMA_F32 = 67e12
 HBM = 3.35e12  # H100 SXM bytes/s
 STEP_BATCH = 16
 # (B, N, H) of the main path's attention at STEP_BATCH; the checks add a
@@ -567,6 +586,14 @@ MESH_GEOS = {"mesh_vitb_decoder_h3": (8, 1568, 3),
 # the registry's largest token grids at ViT-L's 16 heads, one clip each:
 # vit_large_patch16_384 (4608 tokens) and vit_large_patch16_512 (8192)
 LARGE_CHECKS = {"res384_vitl_h16": (1, 4608, 16), "res512_h16": (1, 8192, 16)}
+# the 3xTF32 kernels' precision check (phase f32_precision): (B, N, H, D)
+# at every head dim they take, and the ViT-B decoder's own
+F32_PRECISION_CHECKS = {"d16": (2, 1568, 8, 16), "d32": (2, 1568, 6, 32),
+                        "d64": (2, 1568, 6, 64), "d128": (2, 1568, 4, 128),
+                        "decoder": (STEP_BATCH, 1568, 6, 64)}
+# K1/K2's f32 instances are timed at the bf16 rows' main shapes (K3's at
+# the MCA, K4's at the runner's decoder: each family's timed geometry)
+F32_TIMED = ("decoder", "backbone")
 CHECKS = {**MAIN, "ragged": (8, 100, 2), "frames32_h6": (2, 3136, 6),
           "frames32_h12": (2, 3136, 12), "res384_h12": (1, 4608, 12),
           "vitl_h16": (2, 1568, 16), **MESH_GEOS, **LARGE_CHECKS}
@@ -767,6 +794,10 @@ FACTORY_BOX_PX = 2
 # vis in f32: the card's reconstruction against the CPU's, pixels in [0, 1]
 # (attention_vis: its maps, scaled to a max of 1)
 VIS_ATOL = 1e-4
+# phase f32_eval: feature_extract's default model and batch (f32 by default)
+F32_EVAL_MODEL = "vit_base_patch16_224_feature_ext"
+F32_EVAL_BATCH = 4
+F32_EVAL_REPS = 3
 # the tiny preset at 224^2 and 16 frames: every Block takes K4, the
 # encoder's 2 on 160 visible tokens with 2 x 32 heads, the decoder's 4 on
 # 1568 tokens with 2 x 16 heads
@@ -974,11 +1005,12 @@ def time_ms(fn, runs: int = 5, warmup: int = 3, run_ms: float = 20.0,
     return statistics.median(times)
 
 
-def least_times(work: dict) -> dict:
-    """name -> (least ms, what bounds it) for name -> (FLOPs, bytes)."""
+def least_times(work: dict, peak: float = PEAK_BF16) -> dict:
+    """name -> (least ms, what bounds it) for name -> (FLOPs, bytes), the
+    FLOPs at `peak` FLOP/s."""
     out = {}
     for name, (flops, nbytes) in work.items():
-        t_ops, t_bytes = flops / PEAK_BF16 * 1e3, nbytes / HBM * 1e3
+        t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM * 1e3
         out[name] = (max(t_ops, t_bytes),
                      "operations" if t_ops >= t_bytes else "bytes")
     return out
@@ -996,12 +1028,14 @@ def products(groups: int, two_pass: bool = False) -> dict:
             "dkv": 3 * groups + 2, "dq": 2 * groups + 1}
 
 
-def bounds(B, N, H, d: int = D, groups: int = 0) -> dict:
+def bounds(B, N, H, d: int = D, groups: int = 0, e: int = 2,
+           peak: float = PEAK_BF16) -> dict:
     """Least time (ms) for each kernel's work on an H100 SXM: the larger of
-    its FLOPs over the bf16 tensor peak and its bytes (each input read once,
-    each output written once) over HBM bandwidth; with `groups` the
-    products the column-split kernels do (products())."""
-    e, A = 2, H * d
+    its FLOPs over `peak` (the bf16 tensor peak) and its bytes (each input
+    read once, each output written once, e bytes an element) over HBM
+    bandwidth; with `groups` the products the column-split kernels do
+    (products())."""
+    A = H * d
     mm = 2 * B * H * N * N * d  # one (N x N x d) product
     n = products(groups)
     qkv, row = B * N * 3 * A * e, B * N * A * e
@@ -1015,7 +1049,7 @@ def bounds(B, N, H, d: int = D, groups: int = 0) -> dict:
         "qkv_attn_bwd_dkv": (n["dkv"] * mm, 4 * row + 2 * stat + 2 * row),
         "qkv_attn_bwd_dq": (n["dq"] * mm, 4 * row + 2 * stat + row),  # -> dq
     }
-    return least_times(work)
+    return least_times(work, peak)
 
 
 def pad_times(run, xs, grads, dout, groups, heads: int) -> dict:
@@ -1039,9 +1073,33 @@ def _with_pad_times(res: dict, pads: dict, fwd_name: str) -> None:
             res[name]["pad_ms"] = pads["fwd" if name == fwd_name else "bwd"]
 
 
+def with_bounds(res: dict, bound_fn, dtype, *shape) -> dict:
+    """Puts bound_fn(*shape)'s least time of each kernel in res into it
+    (bf16: 2-byte elements at the bf16 tensor peak; f32: 4-byte elements
+    at PEAK_TF32X3, and at PEAK_FMA_F32 beside it as bound_fma_ms); raises
+    if a kernel beat its bound."""
+    f32 = dtype == torch.float32
+    e = 4 if f32 else 2
+    fma = bound_fn(*shape, e=e, peak=PEAK_FMA_F32) if f32 else {}
+    for name, (bound, by) in bound_fn(
+            *shape, e=e, peak=PEAK_TF32X3 if f32 else PEAK_BF16).items():
+        if name not in res:  # the prep passes run in bf16 only
+            continue
+        res[name].update(bound_ms=bound, bound_by=by)
+        if f32:
+            res[name].update(bound_fma_ms=fma[name][0],
+                             bound_fma_by=fma[name][1])
+        if res[name]["ms"] < bound:
+            raise AssertionError(f"{name} beat its bound: {res[name]}")
+    return res
+
+
 def time_kernels(x, H) -> dict:
-    """kernel, plain, library and bound times (ms) on bf16 qkv x (head dim
-    d = x's width / 3H, scale d^-1/2). At a d without a kernel the kernels
+    """kernel, plain, library and bound times (ms) on qkv x (head dim d =
+    x's width / 3H, scale d^-1/2), bf16 or f32 (in f32 no prep pass: the
+    dK/dV row carries "delta_ms", the time of _qkv_prep's reduction, and
+    the library call is F.scaled_dot_product_attention's f32 backend).
+    At a d without a kernel the kernels
     run on x zero-padded to their width as flash_attention_qkv runs them
     (fa.fwd_at_width; their times are the padded calls'), "pad_ms" is the
     padding copies' time (pad_times), and the plain versions, the library
@@ -1062,7 +1120,8 @@ def time_kernels(x, H) -> dict:
         x, out_d, lse, dout_d, scale, H), runs=10)
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         o_lib, (q, k, v), g_lib, retain_graph=True))
-    prep = fa.qkv_attn_bwd_prep(xw, out, dout, scale, H)
+    f32 = dtype == torch.float32
+    prep = fa._qkv_prep(xw, out, dout, scale, H)
     res = {
         "qkv_attn_fwd": {
             "ms": time_ms(lambda: fa.qkv_attn_fwd(xw, scale, H)),
@@ -1070,14 +1129,6 @@ def time_kernels(x, H) -> dict:
                 lambda: fa.attention_qkv_fwd_plain(x, scale, H), runs=10),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q.detach(), k.detach(), v.detach(), scale=scale)),
-        },
-        # no one library call computes delta and the scaled q alone
-        "qkv_attn_bwd_prep": {
-            "ms": time_ms(lambda: fa.qkv_attn_bwd_prep(
-                xw, out, dout, scale, H)),
-            "plain_ms": time_ms(lambda: fa.attention_qkv_bwd_prep_plain(
-                x, out_d, dout_d, scale, H)),
-            "library_ms": None,
         },
         "qkv_attn_bwd_dkv": {
             "ms": time_ms(lambda: fa.qkv_attn_bwd_dkv(
@@ -1090,13 +1141,20 @@ def time_kernels(x, H) -> dict:
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
     }
+    if f32:
+        res["qkv_attn_bwd_dkv"]["delta_ms"] = time_ms(
+            lambda: fa._qkv_prep(xw, out, dout, scale, H))
+    else:  # no one library call computes delta and the scaled q alone
+        res["qkv_attn_bwd_prep"] = {
+            "ms": time_ms(lambda: fa.qkv_attn_bwd_prep(
+                xw, out, dout, scale, H)),
+            "plain_ms": time_ms(lambda: fa.attention_qkv_bwd_prep_plain(
+                x, out_d, dout_d, scale, H)),
+            "library_ms": None,
+        }
     _with_pad_times(res, pad_times(run, (x,), dqkv, dout_d, fa.QKV_GROUPS,
                                    H), "qkv_attn_fwd")
-    for name, (bound, by) in bounds(B, N, H, d).items():
-        res[name].update(bound_ms=bound, bound_by=by)
-        if res[name]["ms"] < bound:
-            raise AssertionError(f"{name} beat its bound: {res[name]}")
-    return res
+    return with_bounds(res, bounds, dtype, B, N, H, d)
 
 
 def qkv_errors(res: dict) -> dict:
@@ -1129,6 +1187,11 @@ def phase_qkv_head_dims(smi: str) -> dict:
                 emit("qkv_head_dims_vs_plain", D=hd,
                      width=fa.head_dim_width(hd), geometry=geo, B=B, N=N,
                      H=heads, dtype=str(dtype).replace("torch.", ""), **res)
+                if geo == "ragged" and dtype == torch.float32:
+                    emit("qkv_head_dims_vs_plain", D=hd,
+                         width=fa.head_dim_width(hd), geometry=geo, B=B,
+                         N=N, H=heads, dtype="float32", scale=0.1,
+                         **check_kernels(x, heads, 0.1))
                 if geo == "long" and dtype == torch.bfloat16:
                     times = time_kernels(x, heads)
                     emit("qkv_head_dim_times", D=hd,
@@ -1139,11 +1202,42 @@ def phase_qkv_head_dims(smi: str) -> dict:
     return out
 
 
+def f32_ratios(times: dict, fwd: str, bwd: tuple) -> dict:
+    """The f32 rows over the library's f32 call: the forward, and the
+    backward's kernels plus its delta reduction over the library's
+    backward."""
+    dkv = times[bwd[0]]
+    return {"fwd": times[fwd]["ms"] / times[fwd]["library_ms"],
+            "bwd": (dkv.get("delta_ms", 0.0) + sum(times[n]["ms"]
+                                                  for n in bwd))
+            / dkv["library_ms"]}
+
+
+def phase_f32_precision(smi: str) -> dict:
+    """The 3xTF32 kernels (K1's f32 forward, K2's f32 dK/dV) against one
+    float64 run at F32_PRECISION_CHECKS (every head dim they take, and
+    the ViT-B decoder): each output's error within PRECISION_FACTOR of
+    the plain f32 version's (TF32 off), and the plain version with TF32
+    on (1xTF32, the planted fault) beyond it (main_path.f32_precision).
+    Returns {label: each output's error over the plain version's}."""
+    out = {}
+    for label, (B, N, H, d) in F32_PRECISION_CHECKS.items():
+        res = f32_precision(_qkv(B, N, H, torch.float32, seed=5, d=d), H,
+                            d ** -0.5)
+        emit("f32_precision", geometry=label, B=B, N=N, H=H, D=d,
+             factor=PRECISION_FACTOR, nvidia_smi=smi, **res)
+        if res["beyond"] or not res["fault_beyond"]:
+            raise AssertionError(f"f32 precision at {label}: {res}")
+        out[label] = res["over_plain"]
+    return out
+
+
 def phase_kernels():
     """Checks every fused-qkv kernel at the steps' shapes (and a ragged
-    one) in bf16 and f32, and times them, in bf16, on the very qkv that was
-    checked."""
-    errors, timings = {}, {}
+    one) in bf16 and f32, and times them on the very qkv that was checked:
+    in bf16 at the main path's, the mesh's and the large geometries, in
+    f32 at F32_TIMED."""
+    errors, timings, f32_timings = {}, {}, {}
     for i, (geo, (B, N, H)) in enumerate(CHECKS.items()):
         for dtype in (torch.bfloat16, torch.float32):
             x = _qkv(B, N, H, dtype, seed=i)
@@ -1157,6 +1251,10 @@ def phase_kernels():
                 timings[geo] = time_kernels(x, H)
                 emit("kernel_times", geometry=geo, B=B, N=N, H=H,
                      dtype="bfloat16", times=timings[geo])
+            if dtype == torch.float32 and geo in F32_TIMED:
+                f32_timings[geo] = time_kernels(x, H)
+                emit("kernel_times", geometry=geo, B=B, N=N, H=H,
+                     dtype="float32", times=f32_timings[geo])
             del x
     # a scale that is not a power of two: dQ reads its own scaled K copy
     B, N, H = CHECKS["ragged"]
@@ -1171,15 +1269,20 @@ def phase_kernels():
         geo: (t["qkv_attn_bwd_prep"]["ms"] + t["qkv_attn_bwd_dkv"]["ms"]
               + t["qkv_attn_bwd_dq"]["ms"]) / t["qkv_attn_bwd_dq"]
         ["library_ms"] for geo, t in timings.items()})
-    return errors, timings
+    f32 = {geo: f32_ratios(t, "qkv_attn_fwd", fa.QKV_F32_KERNELS[1:])
+           for geo, t in f32_timings.items()}
+    emit("k1_f32_vs_library", **{geo: r["fwd"] for geo, r in f32.items()})
+    emit("k2_f32_vs_library", **{geo: r["bwd"] for geo, r in f32.items()})
+    return errors, timings, f32_timings
 
 
-def bounds_mh(B, N, H, D, groups: int = 0) -> dict:
+def bounds_mh(B, N, H, D, groups: int = 0, e: int = 2,
+              peak: float = PEAK_BF16) -> dict:
     """bounds() for the K3 kernels: separate q, k, v (each read once), the
     bias row, and the backward's delta; the work at its least (the dK/dV
     kernel's recomputed products not counted), or with `groups` as the
     column-split kernels do it."""
-    e, A = 2, H * D
+    A = H * D
     mm = 2 * B * H * N * N * D
     n = products(groups)
     row, stat = B * N * A * e, B * H * N * 4
@@ -1193,12 +1296,13 @@ def bounds_mh(B, N, H, D, groups: int = 0) -> dict:
                             inputs + row + 2 * stat + 2 * row),
         "mh_attn_bwd_dq": (n["dq"] * mm, inputs + row + 2 * stat + row),
     }
-    return least_times(work)
+    return least_times(work, peak)
 
 
 def time_mh_kernels(q, k, v, b, H, D) -> dict:
-    """kernel, plain, library and bound times (ms) of K3 on bf16 inputs; at
-    a D without a kernel as time_kernels does it (the kernels on q, k, v
+    """kernel, plain, library and bound times (ms) of K3 on bf16 or f32
+    inputs (f32 as time_kernels: "delta_ms" for mh_delta); at a D without
+    a kernel as time_kernels does it (the kernels on q, k, v
     zero-padded by fa.fwd_at_width, "pad_ms" from pad_times)."""
     scale = D ** -0.5
     B, N, _ = q.shape
@@ -1206,7 +1310,8 @@ def time_mh_kernels(q, k, v, b, H, D) -> dict:
                           scale, H)
     (qw, kw, vw, _), out, lse, out_d = run
     dout, dout_d = ((2 * t.float()).to(q.dtype) for t in (out, out_d))
-    prep = fa.mh_attn_bwd_prep(qw, kw, out, dout, scale, H)
+    f32 = q.dtype == torch.float32
+    prep = fa._mh_prep(qw, kw, out, dout, scale, H, None)
     A = qw.shape[-1]
     dkv = torch.empty(B, N, 2 * A, dtype=q.dtype, device=q.device)
     dq = torch.empty_like(qw)
@@ -1228,14 +1333,6 @@ def time_mh_kernels(q, k, v, b, H, D) -> dict:
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 *(t.detach() for t in heads), attn_mask=mask, scale=scale)),
         },
-        # no one library call computes delta and the scaled q alone
-        "mh_attn_bwd_prep": {
-            "ms": time_ms(lambda: fa.mh_attn_bwd_prep(
-                qw, kw, out, dout, scale, H)),
-            "plain_ms": time_ms(lambda: fa.attention_mh_bwd_prep_plain(
-                q, k, out_d, dout_d, scale, H)),
-            "library_ms": None,
-        },
         "mh_attn_bwd_dkv": {
             "ms": time_ms(lambda: fa.mh_attn_bwd_dkv(
                 qw, kw, vw, b, out, lse, dout, dkv[..., :A], dkv[..., A:],
@@ -1248,14 +1345,21 @@ def time_mh_kernels(q, k, v, b, H, D) -> dict:
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
     }
+    if f32:
+        res["mh_attn_bwd_dkv"]["delta_ms"] = time_ms(
+            lambda: fa.mh_delta(out, dout, H))
+    else:  # no one library call computes delta and the scaled q alone
+        res["mh_attn_bwd_prep"] = {
+            "ms": time_ms(lambda: fa.mh_attn_bwd_prep(
+                qw, kw, out, dout, scale, H)),
+            "plain_ms": time_ms(lambda: fa.attention_mh_bwd_prep_plain(
+                q, k, out_d, dout_d, scale, H)),
+            "library_ms": None,
+        }
     _with_pad_times(res, pad_times(run, (q, k, v, b), (
         dq, dkv[..., :A], dkv[..., A:]), dout_d, fa.MH_GROUPS, H),
         "mh_attn_fwd")
-    for name, (bound, by) in bounds_mh(B, N, H, D).items():
-        res[name].update(bound_ms=bound, bound_by=by)
-        if res[name]["ms"] < bound:
-            raise AssertionError(f"{name} beat its bound: {res[name]}")
-    return res
+    return with_bounds(res, bounds_mh, q.dtype, B, N, H, D)
 
 
 def check_mh_kernels(q, k, v, b, H, scale: float) -> dict:
@@ -1290,8 +1394,8 @@ def check_mh_kernels(q, k, v, b, H, scale: float) -> dict:
 def phase_mh_kernels():
     """K3 against its plain version at every MH_CHECKS geometry, bf16 and
     f32, bias present and absent (check_mh_kernels); the ragged ones again
-    at scale 0.1. Times at the MCA."""
-    errors, timings = {}, {}
+    at scale 0.1. Times at the MCA, bf16 and f32."""
+    errors, timings, f32_timings = {}, {}, {}
     for i, (geo, (B, N, H, D)) in enumerate(MH_CHECKS.items()):
         for dtype in (torch.bfloat16, torch.float32):
             for bias in (True, False):
@@ -1315,6 +1419,13 @@ def phase_mh_kernels():
                     emit("k3_bwd_vs_library", **{geo: sum(
                         timings[n]["ms"] for n in fa.MH_KERNELS[1:])
                         / timings["mh_attn_bwd_dq"]["library_ms"]})
+                if geo == "mca" and dtype == torch.float32 and bias:
+                    f32_timings = time_mh_kernels(q, k, v, b, H, D)
+                    emit("mh_kernel_times", geometry=geo, B=B, N=N, H=H,
+                         D=D, dtype="float32", bias=True,
+                         times=f32_timings, vs_library=f32_ratios(
+                             f32_timings, "mh_attn_fwd",
+                             fa.MH_F32_KERNELS[1:]))
                 del q, k, v, b
     # a scale that is not a power of two: at head dim 64 dQ reads the prep
     # pass's scaled K copy, at 256 it folds the scale into its K strip
@@ -1329,7 +1440,7 @@ def phase_mh_kernels():
             emit("mh_kernels_vs_plain", geometry=geo, B=B, N=N, H=H, D=D,
                  scale=0.1, dtype=str(dtype).replace("torch.", ""),
                  bias=True, **res)
-    return errors, timings
+    return errors, timings, f32_timings
 
 
 def phase_mh_head_dims(smi: str) -> dict:
@@ -1602,14 +1713,15 @@ def phase_bf16_steps() -> None:
                                  f"rtol {BF16_STEP_RTOL}: {rel}")
 
 
-def bounds_hm(BH, N, D, groups: int = 0) -> dict:
+def bounds_hm(BH, N, D, groups: int = 0, e: int = 2,
+              peak: float = PEAK_BF16) -> dict:
     """bounds() for the K4 kernels on (BH, N, D) q, k, v (each read once),
     the LSE and the backward's delta; the work at its least (the forward's
     second score product and the dK/dV kernel's recomputed ones not
     counted), or with `groups` as the column-split kernels do it."""
     mm = 2 * BH * N * N * D
     n = products(groups, two_pass=True)
-    row, stat = BH * N * D * 2, BH * N * 4
+    row, stat = BH * N * D * e, BH * N * 4
     return least_times({
         "hm_attn_fwd": (n["fwd"] * mm, 3 * row + row + stat),  # -> out, lse
         # q, out, dout -> q * scale, delta
@@ -1617,12 +1729,13 @@ def bounds_hm(BH, N, D, groups: int = 0) -> dict:
         # k, v, q * scale, dout, lse, delta -> dk, dv
         "hm_attn_bwd_dkv": (n["dkv"] * mm, 4 * row + 2 * stat + 2 * row),
         "hm_attn_bwd_dq": (n["dq"] * mm, 4 * row + 2 * stat + row),  # -> dq
-    })
+    }, peak)
 
 
 def time_hm_kernels(q, k, v, B, H) -> dict:
-    """kernel, plain, library and bound times (ms) of K4 on bf16 (B*H, N,
-    D) inputs; at a D without a kernel as time_kernels does it (the
+    """kernel, plain, library and bound times (ms) of K4 on bf16 or f32
+    (B*H, N, D) inputs (f32 as time_kernels: "delta_ms" for hm_delta); at
+    a D without a kernel as time_kernels does it (the
     kernels on q, k, v zero-padded by fa.fwd_at_width, "pad_ms" from
     pad_times)."""
     BH, N, D = q.shape
@@ -1630,7 +1743,8 @@ def time_hm_kernels(q, k, v, B, H) -> dict:
     run = fa.fwd_at_width(fa.hm_attn_fwd, (q, k, v), fa.HM_GROUPS, 1, scale)
     (qw, kw, vw), out, lse, out_d = run
     dout, dout_d = ((2 * t.float()).to(q.dtype) for t in (out, out_d))
-    prep = fa.hm_attn_bwd_prep(qw, kw, out, dout, scale)
+    f32 = q.dtype == torch.float32
+    prep = fa._hm_prep(qw, kw, out, dout, scale, None)
     dq, dk, dv = (torch.empty_like(qw) for _ in range(3))
     heads = [t.reshape(B, H, N, D).clone().requires_grad_(True)
              for t in (q, k, v)]
@@ -1648,14 +1762,6 @@ def time_hm_kernels(q, k, v, B, H) -> dict:
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 *(t.detach() for t in heads), scale=scale)),
         },
-        # no one library call computes delta and the scaled q alone
-        "hm_attn_bwd_prep": {
-            "ms": time_ms(lambda: fa.hm_attn_bwd_prep(qw, kw, out, dout,
-                                                      scale)),
-            "plain_ms": time_ms(lambda: fa.attention_hm_bwd_prep_plain(
-                q, k, out_d, dout_d, scale)),
-            "library_ms": None,
-        },
         "hm_attn_bwd_dkv": {
             "ms": time_ms(lambda: fa.hm_attn_bwd_dkv(
                 qw, kw, vw, out, lse, dout, dk, dv, scale, prep)),
@@ -1667,13 +1773,20 @@ def time_hm_kernels(q, k, v, B, H) -> dict:
             "plain_ms": plain_bwd, "library_ms": lib_bwd,
         },
     }
+    if f32:
+        res["hm_attn_bwd_dkv"]["delta_ms"] = time_ms(
+            lambda: fa.hm_delta(out, dout))
+    else:  # no one library call computes delta and the scaled q alone
+        res["hm_attn_bwd_prep"] = {
+            "ms": time_ms(lambda: fa.hm_attn_bwd_prep(qw, kw, out, dout,
+                                                      scale)),
+            "plain_ms": time_ms(lambda: fa.attention_hm_bwd_prep_plain(
+                q, k, out_d, dout_d, scale)),
+            "library_ms": None,
+        }
     _with_pad_times(res, pad_times(run, (q, k, v), (dq, dk, dv), dout_d,
                                    fa.HM_GROUPS, 1), "hm_attn_fwd")
-    for name, (bound, by) in bounds_hm(BH, N, D).items():
-        res[name].update(bound_ms=bound, bound_by=by)
-        if res[name]["ms"] < bound:
-            raise AssertionError(f"{name} beat its bound: {res[name]}")
-    return res
+    return with_bounds(res, bounds_hm, q.dtype, BH, N, D)
 
 
 def k1_vs_k4(B, H, N, dtype) -> dict:
@@ -1731,8 +1844,8 @@ def phase_hm_kernels():
     """K4 against its plain version at every HM_CHECKS geometry, bf16 and
     f32 (in bf16 the prep pass too): main_path's bounds, the planted faults
     rejected; the ragged one again at scale 0.1. Times at the runner's
-    decoder shape, and K1's numerics against K4's there."""
-    errors, timings = {}, {}
+    decoder shape (bf16 and f32), and K1's numerics against K4's there."""
+    errors, timings, f32_timings = {}, {}, {}
     for i, (geo, (B, H, N)) in enumerate(HM_CHECKS.items()):
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = hm_inputs(B * H, N, dtype, i, "cuda")
@@ -1753,6 +1866,12 @@ def phase_hm_kernels():
                 emit("k4_bwd_vs_library", **{geo: sum(
                     timings[n]["ms"] for n in fa.HM_KERNELS[1:])
                     / timings["hm_attn_bwd_dq"]["library_ms"]})
+            if geo == "runner_decoder" and dtype == torch.float32:
+                f32_timings = time_hm_kernels(q, k, v, B, H)
+                emit("hm_kernel_times", geometry=geo, B=B, H=H, N=N, D=D,
+                     dtype="float32", times=f32_timings,
+                     vs_library=f32_ratios(f32_timings, "hm_attn_fwd",
+                                           fa.HM_F32_KERNELS[1:]))
             del q, k, v
     # a scale that is not a power of two: dQ reads its own scaled K copy
     B, H, N = HM_CHECKS["ragged"]
@@ -1764,7 +1883,7 @@ def phase_hm_kernels():
     emit("k1_vs_k4", B=B, H=H, N=N, D=D,
          **{str(dt).replace("torch.", ""): k1_vs_k4(B, H, N, dt)
             for dt in (torch.bfloat16, torch.float32)})
-    return errors, timings
+    return errors, timings, f32_timings
 
 
 def phase_hm_head_dims(smi: str) -> dict:
@@ -3253,6 +3372,70 @@ def phase_vis(smi: str) -> dict:
     return launches
 
 
+def phase_f32_eval(smi: str) -> dict:
+    """The f32 paths end to end (K1's f32 forward, K2's f32 dK/dV): the
+    classifier forward of feature_extract (its default model and batch,
+    F32_EVAL_MODEL at B = F32_EVAL_BATCH, 16 x 224^2 clips, f32, no grad:
+    12 K1 f32 forwards a batch) and the ViT-B MOFO pretrain step in f32 at
+    B = STEP_BATCH (16 launches of each QKV_F32_KERNELS kernel), each 1
+    warm-up + F32_EVAL_REPS timed calls, medians, launches held exactly.
+    Returns the launches of both."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = create_model(F32_EVAL_MODEL, device="cuda", seed=1,
+                         num_classes=0)
+    model.eval()
+    clips = synthetic_batch(F32_EVAL_BATCH, gen, "cuda")["clip"]
+    per_batch = {**dict.fromkeys(fa.KERNELS, 0),
+                 "qkv_attn_fwd": len(model.blocks)}
+    res, total = {}, dict.fromkeys(fa.KERNELS, 0)
+
+    def timed(name, run, want):
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        times, out = [], None
+        for _ in range(1 + F32_EVAL_REPS):
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(fa.launch_counts)
+        expected = {k: (1 + F32_EVAL_REPS) * v for k, v in want.items()}
+        if launches != expected:
+            raise AssertionError(f"{name}: launches {launches} != {expected}")
+        for k in total:
+            total[k] += launches[k]
+        res[name] = {"ms": statistics.median(times[1:]), "ms_all": times,
+                     "launches": launches}
+        return out
+
+    with torch.no_grad():
+        feats = timed("classifier_forward",
+                      lambda: model(clips, return_features=True), per_batch)
+    if feats.dtype != torch.float32 or not torch.isfinite(feats).all():
+        raise AssertionError(f"features {feats.dtype}, not all finite")
+    res["classifier_forward"].update(model=F32_EVAL_MODEL,
+                                     batch=F32_EVAL_BATCH,
+                                     features=list(feats.shape))
+    del model, clips, feats
+    _, state, step, gen, batch = build_step(STEP_BATCH, dtype="float32")
+    losses = []
+
+    def one_step():
+        nonlocal state
+        state, metrics = step(state, batch, gen, 0.5)
+        losses.append(float(metrics["loss"]))
+
+    timed("pretrain_step", one_step, {
+        **dict.fromkeys(fa.KERNELS, 0),
+        **dict.fromkeys(fa.QKV_F32_KERNELS, STEP_LAUNCHES[MODEL][
+            "qkv_attn_fwd"])})
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite f32 losses {losses}")
+    res["pretrain_step"].update(model=MODEL, batch=STEP_BATCH, loss=losses)
+    emit("f32_eval", dtype="float32", nvidia_smi=smi, **res)
+    return total
+
+
 def phase_tiny_debug_step(smi: str) -> dict:
     """pretrain_videomae_tiny_debug at 224^2 and 16 frames, B=8: two steps
     in f32 and two in bf16 through K4 (D = 32 and 16) against the same
@@ -4507,15 +4690,16 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     drawing = draw_ab_streams()
-    errors, timings = phase_kernels()
+    errors, timings, f32_timings = phase_kernels()
     qkv_head_dims = phase_qkv_head_dims(smi)
-    mh_errors, mh_timings = phase_mh_kernels()
+    precision = phase_f32_precision(smi)
+    mh_errors, mh_timings, mh_f32_timings = phase_mh_kernels()
     mh_head_dims = phase_mh_head_dims(smi)
     launches = phase_step(smi)
     phase_parity()
     ft_launches, ft_step_ms, ft_loss = phase_finetune_step(smi)
     phase_finetune_parity()
-    hm_errors, hm_timings = phase_hm_kernels()
+    hm_errors, hm_timings, hm_f32_timings = phase_hm_kernels()
     head_dims = phase_hm_head_dims(smi)
     wide = phase_wide_head_dims(smi)
     phase_bf16_steps()
@@ -4532,7 +4716,8 @@ def main() -> int:
              "launches_ddp_two_ranks": phase_ddp_two_ranks(smi),
              "launches_ddp_runner": phase_ddp_runner(smi),
              "launches_factory": phase_factory(smi),
-             "launches_vis": phase_vis(smi)}
+             "launches_vis": phase_vis(smi),
+             "launches_f32_eval": phase_f32_eval(smi)}
     later["launches_tiny_debug_step"] = phase_tiny_debug_step(smi)
     (later["launches_dropout_step"],
      later["launches_attn_dropout_step"]) = phase_dropout_step(smi, ft_loss)
@@ -4578,6 +4763,8 @@ def main() -> int:
                      "max_abs_err": errors[geo][name]}
                for geo in ("encoder", "backbone", *MESH_GEOS,
                            *LARGE_CHECKS)},
+            "f32": {geo: t[name] for geo, t in f32_timings.items()
+                    if name in t},
             "head_dims": {
                 hd: {**qkv_head_dims[hd][1][name],
                      "max_abs_err": qkv_head_dims[hd][0][name],
@@ -4599,6 +4786,7 @@ def main() -> int:
             "bound_by": mca["bound_by"], "library_ms": mca["library_ms"],
             "shape": "MCA (B=%d, N=%d, H=%d, D=%d) bf16, kv bias" % (
                 MH_CHECKS["mca"]),
+            "f32": mh_f32_timings.get(name),
             "launches_finetune_runner": ft_runner_launches[name],
             "launches_real_data": real_launches[name],
             **{key: counts[name] for key, counts in later.items()},
@@ -4623,6 +4811,7 @@ def main() -> int:
             "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
             "shape": "ViT-S runner decoder (B=%d, H=%d, N=%d, D=%d) bf16"
                      % (*HM_CHECKS["runner_decoder"], D),
+            "f32": hm_f32_timings.get(name),
             "launches_vits_step": vits_launches[name],
             "launches_real_data": real_launches[name],
             **{key: counts[name] for key, counts in later.items()},

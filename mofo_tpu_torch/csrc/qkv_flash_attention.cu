@@ -73,18 +73,40 @@
 //     reads a scaled copy that the prep pass writes. The split into dK/dV
 //     over kv tiles and dQ over q tiles keeps one writer per output: no
 //     atomics, deterministic sums, 7 products in all.
-//   - The f32 kernels (the parity path) do their products with f32 FMAs,
-//     each thread a 4x4 register micro-tile, since tensor cores would round
-//     f32 to TF32; their backward forms delta itself. So the f32
-//     card-against-CPU step check of chip_smoke.py runs these FMA kernels
-//     only; the bf16 kernels are held against their plain versions on their
-//     own (mofo_tpu_torch/tools/main_path.py's bounds) and in a bf16 step
-//     against the same step through the plain versions.
-// The FMA kernels pad shared-memory rows to D + 1 (and 65) f32 values so
-// micro-tile reads are free of bank conflicts. Ragged edges
-// are masked in-kernel (kv columns >= N score -inf or get P = 0, q rows >=
-// N carry +inf LSE in the backward and are never stored); nothing is padded
-// in HBM.
+//   - The f32 forward and dK/dV (K1, K2; redesigned for Hopper, built on
+//     wgmma_tf32.cuh) replace the FMA kernels, which kept f32 off the
+//     tensor cores because TF32 rounds it: each thread's 4 x 4 micro-tile
+//     read 8 shared-memory words for every 16 FMAs, tiles loaded between
+//     two __syncthreads, and dK/dV formed delta again for every q tile (O
+//     read ceil(N / 64) times). Both now
+//     run their products in 3xTF32 on wgmma (each operand split into hi =
+//     rna(x) and lo = rna(x - hi), lo.hi + hi.lo + hi.hi in f32: as
+//     accurate as f32, at up to 495 / 3 TFLOP/s). A producer warpgroup
+//     keeps a ring of (hi, lo) tile pairs full: its first thread starts the
+//     TMA loads one tile ahead, and its 128 threads split each landed f32
+//     tile, as loaded or transposed (wgmma takes 32-bit operands K-major
+//     only: V for O += P V, dO and q for dV and dK), and the consumer
+//     warpgroups (64 rows each; one at D = 128) run the products. P and dS
+//     go from the accumulators into the A fragments, split in registers,
+//     in a K order permuted within groups of 8 that the transposed tiles
+//     share (no shuffle). The tensor cores' accumulation truncates, so a
+//     sum over N (O, dK, dV) runs in registers in f32, each chain summing
+//     one tile's products, and S (forward) and dP^T (dK/dV) sum their
+//     small terms in an accumulator of their own. dK/dV reads delta from
+//     fa.mh_delta's reduction.
+//     Bound by operations at N >= 1568; the split passes' shared-memory
+//     traffic and the waits between a chain and the softmax keep them
+//     above the 3xTF32 bound (root PERF.md, section 6).
+//   - The f32 dQ stays on FMAs (flash_tiles.cuh: 4 x 4 micro-tiles, 16 x 16
+//     threads, shared-memory rows padded to D + 1 and 65 f32 values so the
+//     micro-tile reads are free of bank conflicts) and forms delta itself.
+//   The f32 card-against-CPU step checks of chip_smoke.py run these f32
+//   kernels; the bf16 kernels are held against their plain versions on
+//   their own (mofo_tpu_torch/tools/main_path.py's bounds) and in a bf16
+//   step against the same step through the plain versions.
+// Ragged edges are masked in-kernel (kv columns >= N score -inf or get P
+// = 0, q rows >= N carry +inf LSE in the backward and are never stored);
+// nothing is padded in HBM.
 //
 // Numerics (held by the tests against the TPU kernels):
 //   - the softmax scale is folded into q in the input dtype;
@@ -95,7 +117,9 @@
 //     log2 units and the backward recomputes P with exp2 (and rescales dK by
 //     1/log2(e)); f32 works in base e. Forward and backward always agree;
 //   - in bf16, dS is the bf16 product of P with the f32 difference
-//     (dP - delta) rounded to bf16; in f32 it is P * (dP - delta).
+//     (dP - delta) rounded to bf16; in f32 it is P * (dP - delta);
+//   - f32 products are 3xTF32 (forward, dK/dV) or f32 FMAs (dQ), each
+//     within a few times the plain f32 version's error against float64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,6 +130,7 @@
 #include "flash_tiles.cuh"
 #include "wgmma_attn_bwd.cuh"
 #include "wgmma_attn_split.cuh"
+#include "wgmma_tf32.cuh"
 #include "wgmma_tiles.cuh"
 
 // K3's entry points (mh_flash_attention.cu), which run K1/K2 above head dim
@@ -135,85 +160,487 @@ namespace {
 constexpr int kRows = 64;  // rows of every tile (q and kv)
 
 // -------------------------------------------------------------------------
-// f32: FMA kernels (flash_tiles.cuh's 256 threads as 16 x 16). A 64 x 64
-// score tile is a 4 x 4 micro-tile a thread, rows 4*ty + i, columns
-// tx + 16*j; a 64 x D tile (O, dQ, dK, dV) a 4 x D/16 one.
+// f32 forward (K1) and dK/dV (K2), redesigned for Hopper: 3xTF32 products
+// on wgmma (wgmma_tf32.cuh), fed by TMA. A producer warpgroup keeps a ring
+// of kEntries entries full: its first thread starts each tile's TMA load
+// (one tile ahead), and all its 128 threads split the landed f32 tile into
+// a (hi, lo) TF32 pair, as loaded or transposed. The consumer warpgroups
+// run the products on the pairs.
+// -------------------------------------------------------------------------
+
+// 104 registers a producer thread, 200 a consumer thread: 104 x 128 + 200
+// x 256 = 168 x 384. A transposed split holds 32 values across its barrier
+// and their addresses: at D = 64 a producer spilled 68-260 bytes with 40 to
+// 88 registers, none with 104; the consumers need fewer than 200.
+__device__ __forceinline__ void producer_registers_f32() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 104;\n" ::: "memory");
+}
+__device__ __forceinline__ void consumer_registers_f32() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n" ::: "memory");
+}
+
+// The output columns of one product chain into a fresh accumulator: all D
+// up to 64, 64 at D = 128 (two chains, one per 64-row half of the B tile).
+template <int D>
+__host__ __device__ constexpr int chain_cols() {
+  return D < 64 ? D : 64;
+}
+
+// acc[64 g / 8 + ...] += the product chain of `chain` into a fresh f32
+// accumulator (chain(t, desc_offset) issues it; desc_offset moves B's
+// descriptors to the rows of group g), group by group of chain_cols<D>()
+// output columns: the tensor cores' own accumulation truncates, so a long
+// sum (over N) runs in registers in f32, and each chain sums only one
+// tile's products.
+template <int D, typename Chain>
+__device__ __forceinline__ void add_fresh(float (&acc)[D / 8][4],
+                                          Chain chain) {
+  constexpr int NG = chain_cols<D>() / 8;
+#pragma unroll
+  for (int grp = 0; grp < D / 8 / NG; ++grp) {
+    float t[NG][4] = {};
+    wgmma_fence();
+    chain(t, (uint64_t)grp * (kRows * 128 >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(t);
+#pragma unroll
+    for (int nt = 0; nt < NG; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[grp * NG + nt][e] += t[nt][e];
+  }
+}
+
+constexpr int kProducerBar = 1;  // named barriers: 1, and 2 + warpgroup
+
+// The f32 forward's block at head dim D: kWGs consumer warpgroups of 64
+// query rows (one at D = 128, where two O accumulators and two warpgroups'
+// q tiles do not fit), q's (hi, lo) fragments in registers up to D = 64 and
+// as a (hi, lo) tile pair in shared memory at 128, and a ring of kEntries
+// (hi, lo) pairs: K_j as loaded (entry 2j), V_j transposed (2j + 1).
+template <int D>
+struct FwdF32 {
+  static constexpr int kWGs = D == 128 ? 1 : 2;
+  static constexpr bool kQInRegs = D <= 64;
+  static constexpr int kQTiles = kQInRegs ? 1 : 2;  // a warpgroup's q
+  static constexpr int kTE = kRows * D;  // floats of a 64 x D tile
+  static constexpr int kEntries = D == 128 ? 2 : D == 64 ? 5 : 8;
+  static constexpr int kThreads = (kWGs + 1) * kWarpgroup;
+  static constexpr size_t smem() {
+    return 1024 +
+           (size_t)(kWGs * kQTiles + 2 * kEntries) * kTE * sizeof(float) +
+           (3 * kEntries + 1) * sizeof(uint64_t);
+  }
+};
+
+// Grid (ceil(N / (64 kWGs)), B * H). One block: 64 kWGs query rows of one
+// head against all N keys, streamed once in 64-row tiles with an online
+// softmax (base e). One tensor map over the fused (B, N, 3A) serves q
+// (column h * D), k (A + h * D) and v (2A + h * D); rows past N arrive as
+// zeros. S = (q * q_scale) K^T and O += P V in 3xTF32; P is not rounded,
+// and 1 / l divides the output at the end.
+template <int D>
+__global__ void __launch_bounds__(FwdF32<D>::kThreads, 1)
+    fwd_f32(const __grid_constant__ CUtensorMap tqkv, float* __restrict__ out,
+            float* __restrict__ lse, int N, int H, float q_scale) {
+  using P = FwdF32<D>;
+  constexpr int kTE = P::kTE, kE = P::kEntries, kWGs = P::kWGs;
+  extern __shared__ unsigned char wsmem[];
+  float* sQ = reinterpret_cast<float*>(smem_1024(wsmem));
+  float* sE = sQ + kWGs * P::kQTiles * kTE;  // entry s: hi, then lo
+  uint64_t* full = reinterpret_cast<uint64_t*>(sE + 2 * kE * kTE);
+  uint64_t* empty = full + kE;
+  uint64_t* landed = empty + kE;
+  uint64_t* qbar = landed + kE;
+  const int A = H * D;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kWGs * kRows;
+  const int T = (N + kRows - 1) / kRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kE; ++s) {
+      mbar_init(&full[s], kWarpgroup);  // every producer thread
+      mbar_init(&empty[s], 4 * kWGs);   // one arrival per consumer warp
+      mbar_init(&landed[s], 1);         // the TMA load
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kWGs) {  // producer: loads and splits
+    if constexpr (kWGs == 2) producer_registers_f32();
+    const int p = threadIdx.x - 4 * kWGs * 32;
+    const int n = 2 * T;
+    // entry e's raw tile: K_j into its hi tile (split in place), V_j into
+    // its lo tile (split transposed out of it)
+    auto issue = [&](int e) {
+      const int s = e % kE;
+      mbar_wait(&empty[s], ((e / kE) & 1) ^ 1);
+      mbar_expect_tx(&landed[s], kTE * sizeof(float));
+      tma_f32<kRows, D, kRows>(sE + (2 * s + (e & 1)) * kTE, &tqkv,
+                               &landed[s], (1 + (e & 1)) * A + h * D,
+                               (e >> 1) * kRows, b);
+    };
+    if (p == 0) {
+      mbar_expect_tx(qbar, kWGs * kTE * sizeof(float));
+      for (int w = 0; w < kWGs; ++w)
+        tma_f32<kRows, D, kRows>(sQ + w * P::kQTiles * kTE, &tqkv, qbar,
+                                 h * D, q0 + kRows * w, b);
+      issue(0);
+    }
+    for (int e = 0; e < n; ++e) {
+      if (p == 0 && e + 1 < n) issue(e + 1);
+      const int s = e % kE;
+      float* hi = sE + 2 * s * kTE;
+      mbar_wait(&landed[s], (e / kE) & 1);
+      if (e & 1)
+        split_transposed<kRows, D>(hi + kTE, hi, hi + kTE, 1.f, p,
+                                   kProducerBar);
+      else
+        split_rows<kRows, D>(hi, hi + kTE, 1.f, p);
+      fence_proxy_async();
+      mbar_arrive(&full[s]);
+    }
+  } else {
+    if constexpr (kWGs == 2) consumer_registers_f32();
+    const int wg = warp >> 2, r0 = 16 * (warp & 3);
+    const int g = lane >> 2, t = lane & 3;
+    float* sq = sQ + wg * P::kQTiles * kTE;
+    constexpr int KQ = P::kQInRegs ? D / 8 : 1;
+    uint32_t qh[KQ][4], ql[KQ][4];
+    mbar_wait(qbar, 0);
+    if constexpr (P::kQInRegs) {
+      load_a_tf32<D>(qh, ql, sq, r0, q_scale);
+    } else {
+      split_rows<kRows, D>(sq, sq + kTE, q_scale, threadIdx.x & 127);
+      fence_proxy_async();
+      warpgroup_sync(2 + wg);
+    }
+    float o[D / 8][4] = {}, m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    for (int j = 0; j < T; ++j) {
+      const int sk = (2 * j) % kE, sv = (2 * j + 1) % kE;
+      const float* kt = sE + 2 * sk * kTE;  // K hi, K lo
+      const float* vt = sE + 2 * sv * kTE;  // V^T hi, V^T lo
+      float sc[8][4] = {}, sc_small[8][4] = {};
+      mbar_wait(&full[sk], ((2 * j) / kE) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint64_t b_hi = desc_k8<kRows, D>(kt, kk);
+        const uint64_t b_lo = desc_k8<kRows, D>(kt + kTE, kk);
+        if constexpr (P::kQInRegs)
+          mma3_rs(sc, sc_small, qh[kk], ql[kk], b_hi, b_lo);
+        else
+          mma3_ss(sc, sc_small, desc_k8<kRows, D>(sq, kk),
+                  desc_k8<kRows, D>(sq + kTE, kk), b_hi, b_lo);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(sc);
+      fence_acc(sc_small);
+      add_small(sc, sc_small);
+      if constexpr (P::kQInRegs) {
+        fence_frag(qh);
+        fence_frag(ql);
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[sk]);
+      if ((j + 1) * kRows > N) {  // the ragged last tile
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j * kRows + 8 * nt + 2 * t + (e & 1) >= N)
+              sc[nt][e] = -INFINITY;
+      }
+      float mx[2] = {-INFINITY, -INFINITY}, corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // every tile holds at least one valid column, so the max is finite
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        corr[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sc[nt][e] = expf(sc[nt][e] - m[e >> 1]);
+          rs[e >> 1] += sc[nt][e];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(rs[r]);
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nt][e] *= corr[e >> 1];
+      uint32_t ph[8][4], pl[8][4];  // P, unrounded, as (hi, lo)
+      acc_to_a(sc, ph, pl);
+      mbar_wait(&full[sv], ((2 * j + 1) / kE) & 1);
+      add_fresh<D>(o, [&](auto& t, uint64_t off) {
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk)
+          mma3_rs(t, ph[kk], pl[kk], desc_k8<D, kRows>(vt, kk) + off,
+                  desc_k8<D, kRows>(vt + kTE, kk) + off);
+      });
+      fence_frag(ph);
+      fence_frag(pl);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[sv]);
+    }
+
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = q0 + kRows * wg + r0 + g + 8 * half;
+      if (row >= N) continue;
+      float* dst = out + ((size_t)b * N + row) * A + h * D + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+        *reinterpret_cast<float2*>(dst + 8 * nt) = make_float2(
+            o[nt][2 * half] / l[half], o[nt][2 * half + 1] / l[half]);
+      if (t == 0) lse[(size_t)bh * N + row] = m[half] + logf(l[half]);
+    }
+  }
+}
+
+// The f32 dK/dV kernel's block at head dim D: kWGs consumer warpgroups of
+// 64 key/value rows (one at D = 128, whose dK and dV accumulators take 128
+// registers), their K and V as (hi, lo) tile pairs in shared memory (the A
+// operands of S^T and dP^T), and a ring of kEntries (hi, lo) pairs of
+// kBQ-row q-side tiles: for q tile j, q * q_scale as loaded (entry 4j), dO
+// as loaded (4j + 1), dO transposed (4j + 2) and q * q_scale transposed
+// (4j + 3); entry 4j also carries the tile's LSE and delta.
+template <int D>
+struct DkvF32 {
+  static constexpr int kWGs = D == 128 ? 1 : 2;
+  static constexpr int kBQ = D == 128 ? 32 : 64;
+  static constexpr int kKE = kRows * D;  // floats of a K or V tile
+  static constexpr int kQE = kBQ * D;    // floats of a q-side tile
+  static constexpr int kEntries = D == 16 ? 8 : D == 32 ? 6 : 3;
+  static constexpr int kThreads = (kWGs + 1) * kWarpgroup;
+  static constexpr size_t smem() {
+    return 1024 +
+           ((size_t)4 * kWGs * kKE + 2 * kEntries * kQE +
+            2 * kEntries * kBQ) * sizeof(float) +
+           (3 * kEntries + 1) * sizeof(uint64_t);
+  }
+};
+
+// Grid (ceil(N / (64 kWGs)), B * H). One block: one head's 64 kWGs
+// key/value rows; streams the q tiles and accumulates dK and dV in
+// registers. Each warpgroup forms S^T = K (q * q_scale)^T and dP^T = V
+// dO^T for its kv rows (A from shared memory), so P^T = exp(S^T - lse) and
+// dS^T = P^T (dP^T - delta) feed dV += P^T dO and dK += dS^T (q * q_scale)
+// straight from the accumulators. delta (B, H, N) comes from the caller
+// (fa.mh_delta), read once per q tile by the producer. Base e: dK needs no
+// fix.
+template <int D>
+__global__ void __launch_bounds__(DkvF32<D>::kThreads, 1)
+    bwd_dkv_f32(const __grid_constant__ CUtensorMap tqkv,
+                const __grid_constant__ CUtensorMap tdo,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, float* __restrict__ dqkv,
+                int N, int H, float q_scale) {
+  using P = DkvF32<D>;
+  constexpr int kKE = P::kKE, kQE = P::kQE, kBQ = P::kBQ;
+  constexpr int kE = P::kEntries, kWGs = P::kWGs, NQ = kBQ / 8;
+  extern __shared__ unsigned char wsmem[];
+  float* sKV = reinterpret_cast<float*>(smem_1024(wsmem));
+  float* sE = sKV + 4 * kWGs * kKE;  // entry s: hi, then lo
+  float* sStat = sE + 2 * kE * kQE;  // entry s: lse, then delta
+  uint64_t* full = reinterpret_cast<uint64_t*>(sStat + 2 * kE * kBQ);
+  uint64_t* empty = full + kE;
+  uint64_t* landed = empty + kE;
+  uint64_t* kvbar = landed + kE;
+  const int A = H * D;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int k0 = blockIdx.x * kWGs * kRows;
+  const int T = (N + kBQ - 1) / kBQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kE; ++s) {
+      mbar_init(&full[s], kWarpgroup);
+      mbar_init(&empty[s], 4 * kWGs);
+      mbar_init(&landed[s], 1);
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kWGs) {  // producer: loads and splits
+    if constexpr (kWGs == 2) producer_registers_f32();
+    const int p = threadIdx.x - 4 * kWGs * 32;
+    const int n = 4 * T;
+    // entry e's raw tile: as-loaded kinds into the hi tile, transposed ones
+    // into the lo tile; q from the fused map, dO from its own
+    auto issue = [&](int e) {
+      const int s = e % kE, kind = e & 3;
+      mbar_wait(&empty[s], ((e / kE) & 1) ^ 1);
+      mbar_expect_tx(&landed[s], kQE * sizeof(float));
+      tma_f32<kBQ, D, kBQ>(sE + (2 * s + (kind >= 2)) * kQE,
+                           kind == 0 || kind == 3 ? &tqkv : &tdo, &landed[s],
+                           h * D, (e >> 2) * kBQ, b);
+    };
+    if (p == 0) {
+      mbar_expect_tx(kvbar, 2 * kWGs * kKE * sizeof(float));
+      for (int w = 0; w < kWGs; ++w) {
+        const int row = k0 + kRows * w;
+        tma_f32<kRows, D, kBQ>(sKV + 4 * w * kKE, &tqkv, kvbar, A + h * D,
+                               row, b);
+        tma_f32<kRows, D, kBQ>(sKV + (4 * w + 2) * kKE, &tqkv, kvbar,
+                               2 * A + h * D, row, b);
+      }
+      issue(0);
+    }
+    const float* lse_bh = lse + (size_t)bh * N;
+    const float* delta_bh = delta + (size_t)bh * N;
+    for (int e = 0; e < n; ++e) {
+      if (p == 0 && e + 1 < n) issue(e + 1);
+      const int s = e % kE, kind = e & 3;
+      float* hi = sE + 2 * s * kQE;
+      const float mul = kind == 0 || kind == 3 ? q_scale : 1.f;
+      mbar_wait(&landed[s], (e / kE) & 1);
+      if (kind < 2)
+        split_rows<kBQ, D>(hi, hi + kQE, mul, p);
+      else
+        split_transposed<kBQ, D>(hi + kQE, hi, hi + kQE, mul, p,
+                                 kProducerBar);
+      if (kind == 0) {
+        float* st = sStat + 2 * s * kBQ;
+        for (int r = p; r < kBQ; r += kWarpgroup) {
+          const int row = (e >> 2) * kBQ + r;  // rows >= N: P = 0, dS = 0
+          st[r] = row < N ? lse_bh[row] : INFINITY;
+          st[kBQ + r] = row < N ? delta_bh[row] : 0.f;
+        }
+      }
+      fence_proxy_async();
+      mbar_arrive(&full[s]);
+    }
+  } else {
+    if constexpr (kWGs == 2) consumer_registers_f32();
+    const int wg = warp >> 2, r0 = 16 * (warp & 3);
+    const int g = lane >> 2, t = lane & 3;
+    float* kt = sKV + 4 * wg * kKE;  // K hi, K lo, V hi, V lo
+    float* vt = kt + 2 * kKE;
+    mbar_wait(kvbar, 0);
+    split_rows<kRows, D>(kt, kt + kKE, 1.f, threadIdx.x & 127);
+    split_rows<kRows, D>(vt, vt + kKE, 1.f, threadIdx.x & 127);
+    fence_proxy_async();
+    warpgroup_sync(2 + wg);
+    float dka[D / 8][4] = {}, dva[D / 8][4] = {};
+
+    for (int j = 0; j < T; ++j) {
+      int s[4], par[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i] = (4 * j + i) % kE;
+        par[i] = ((4 * j + i) / kE) & 1;
+      }
+      const float* qe = sE + 2 * s[0] * kQE;   // q * scale: hi, lo
+      const float* de = sE + 2 * s[1] * kQE;   // dO
+      const float* dte = sE + 2 * s[2] * kQE;  // dO^T
+      const float* qte = sE + 2 * s[3] * kQE;  // (q * scale)^T
+      // dP^T's small terms apart: dS = P (dP - delta) cancels dP's size
+      // (at N = 1 to rounding noise), so dP carries the shorter chain; S^T
+      // keeps one accumulator (registers)
+      float st[NQ][4] = {}, dpt[NQ][4] = {}, dpt_small[NQ][4] = {};
+      mbar_wait(&full[s[0]], par[0]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        mma3_ss(st, desc_k8<kRows, D>(kt, kk),
+                desc_k8<kRows, D>(kt + kKE, kk), desc_k8<kBQ, D>(qe, kk),
+                desc_k8<kBQ, D>(qe + kQE, kk));
+      mbar_wait(&full[s[1]], par[1]);
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        mma3_ss(dpt, dpt_small, desc_k8<kRows, D>(vt, kk),
+                desc_k8<kRows, D>(vt + kKE, kk), desc_k8<kBQ, D>(de, kk),
+                desc_k8<kBQ, D>(de + kQE, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(st);
+      fence_acc(dpt);
+      fence_acc(dpt_small);
+      add_small(dpt, dpt_small);
+      const float* sl = sStat + 2 * s[0] * kBQ;
+      const float* sd = sl + kBQ;
+#pragma unroll
+      for (int nt = 0; nt < NQ; ++nt) {
+        const int col = 8 * nt + 2 * t;  // the q row within the tile
+        const float2 l2 = *reinterpret_cast<const float2*>(sl + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(sd + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pv = expf(st[nt][e] - ((e & 1) ? l2.y : l2.x));
+          dpt[nt][e] = pv * (dpt[nt][e] - ((e & 1) ? d2.y : d2.x));
+          st[nt][e] = pv;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&empty[s[0]]);
+        mbar_arrive(&empty[s[1]]);
+      }
+      uint32_t ph[NQ][4], pl[NQ][4];  // P^T, then dS^T, as (hi, lo)
+      acc_to_a(st, ph, pl);
+      mbar_wait(&full[s[2]], par[2]);
+      add_fresh<D>(dva, [&](auto& t, uint64_t off) {
+#pragma unroll
+        for (int kk = 0; kk < NQ; ++kk)
+          mma3_rs(t, ph[kk], pl[kk], desc_k8<D, kBQ>(dte, kk) + off,
+                  desc_k8<D, kBQ>(dte + kQE, kk) + off);
+      });
+      fence_frag(ph);
+      fence_frag(pl);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s[2]]);
+      acc_to_a(dpt, ph, pl);
+      mbar_wait(&full[s[3]], par[3]);
+      add_fresh<D>(dka, [&](auto& t, uint64_t off) {
+#pragma unroll
+        for (int kk = 0; kk < NQ; ++kk)
+          mma3_rs(t, ph[kk], pl[kk], desc_k8<D, kBQ>(qte, kk) + off,
+                  desc_k8<D, kBQ>(qte + kQE, kk) + off);
+      });
+      fence_frag(ph);
+      fence_frag(pl);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s[3]]);
+    }
+
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int row = k0 + kRows * wg + r0 + g + 8 * half;
+      if (row >= N) continue;
+      float* dst = dqkv + ((size_t)b * N + row) * 3 * A + h * D + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        *reinterpret_cast<float2*>(dst + A + 8 * nt) =
+            make_float2(dka[nt][2 * half], dka[nt][2 * half + 1]);
+        *reinterpret_cast<float2*>(dst + 2 * A + 8 * nt) =
+            make_float2(dva[nt][2 * half], dva[nt][2 * half + 1]);
+      }
+    }
+  }
+}
+
+// -------------------------------------------------------------------------
+// f32 dQ (K2): FMA kernel (flash_tiles.cuh's 256 threads as 16 x 16). A
+// 64 x 64 score tile is a 4 x 4 micro-tile a thread, rows 4*ty + i,
+// columns tx + 16*j; the 64 x D dQ tile a 4 x D/16 one.
 // -------------------------------------------------------------------------
 
 constexpr int kLdS = kRows + 1;  // padded row stride of the score tiles
-
-template <int D>
-constexpr size_t smem_fwd_f32() {
-  return ((size_t)3 * kRows * (D + 1) + kRows * kLdS) * sizeof(float);
-}
-
-// Grid (ceil(N / 64), B * H). One block: one head's 64 query rows against
-// all N keys, streamed in 64-row tiles with an online softmax.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    fwd_f32(const float* __restrict__ qkv, float* __restrict__ out,
-            float* __restrict__ lse, int N, int H, float q_scale) {
-  constexpr int LD = D + 1, JO = D / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kRows * LD;
-  float* sV = sK + kRows * LD;
-  float* sP = sV + kRows * LD;
-  const int A = H * D, ld = 3 * A;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kRows;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* base = qkv + (size_t)b * N * ld;
-
-  load_f32<kRows, D>(sQ, base + h * D, q0, N, ld, q_scale);
-  float m[4], l[4], o[4][JO] = {};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = -INFINITY, l[i] = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += kRows) {
-    __syncthreads();  // the previous tile's sK/sV/sP reads are done
-    load_f32<kRows, D>(sK, base + A + h * D, k0, N, ld, 1.f);
-    load_f32<kRows, D>(sV, base + 2 * A + h * D, k0, N, ld, 1.f);
-    __syncthreads();
-    float s[4][4] = {};
-    gemm<4, 4, D, LD, 1, 1, LD>(s, sQ, sK, ty, tx, 1.f);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (k0 + tx + 16 * j >= N) s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // every tile holds at least one valid column, so m_new is finite
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        rs += p;
-        sP[(4 * ty + i) * kLdS + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * corr + row_sum16(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < JO; ++j) o[i][j] *= corr;
-    }
-    __syncthreads();
-    gemm<4, JO, kRows, kLdS, 1, LD, 1>(o, sP, sV, ty, tx, 1.f);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= N) continue;
-    float* dst = out + ((size_t)b * N + row) * A + h * D + tx;
-#pragma unroll
-    for (int j = 0; j < JO; ++j) dst[16 * j] = o[i][j] / l[i];
-    if (tx == 0) lse[(size_t)bh * N + row] = m[i] + logf(l[i]);
-  }
-}
 
 // P and dS of one (q tile, kv tile) pair from the thread's score and dP
 // micro-tiles, in place. kv columns >= N and q rows with +inf LSE get
@@ -261,77 +688,6 @@ __device__ __forceinline__ void load_q_side_f32(
   acc += __shfl_xor_sync(0xffffffffu, acc, 1);
   acc += __shfl_xor_sync(0xffffffffu, acc, 2);
   if (part == 0) sDelta[r] = acc;
-}
-
-template <int D>
-constexpr size_t smem_dkv_f32() {
-  return ((size_t)4 * kRows * (D + 1) + 2 * kRows * kLdS + 2 * kRows) *
-         sizeof(float);
-}
-
-// Grid (ceil(N / 64), B * H). One block: one head's 64 key/value rows;
-// loops over all q tiles and accumulates dK and dV in registers.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    bwd_dkv_f32(const float* __restrict__ qkv, const float* __restrict__ out,
-                const float* __restrict__ lse,
-                const float* __restrict__ dout, float* __restrict__ dqkv,
-                int N, int H, float q_scale) {
-  constexpr int LD = D + 1, JO = D / 16;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + kRows * LD;
-  float* sQ = sV + kRows * LD;
-  float* sdO = sQ + kRows * LD;
-  float* sP = sdO + kRows * LD;
-  float* sdS = sP + kRows * kLdS;
-  float* sLse = sdS + kRows * kLdS;
-  float* sDelta = sLse + kRows;
-  const int A = H * D, ld = 3 * A;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * kRows;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* qkv_b = qkv + (size_t)b * N * ld;
-
-  load_f32<kRows, D>(sK, qkv_b + A + h * D, k0, N, ld, 1.f);
-  load_f32<kRows, D>(sV, qkv_b + 2 * A + h * D, k0, N, ld, 1.f);
-  float dk[4][JO] = {}, dv[4][JO] = {};
-
-  for (int q0 = 0; q0 < N; q0 += kRows) {
-    __syncthreads();  // the previous q tile's reads are done
-    load_q_side_f32<D>(sQ, sdO, sLse, sDelta, qkv_b,
-                       out + (size_t)b * N * A, dout + (size_t)b * N * A,
-                       lse + (size_t)bh * N, q0, N, A, h, q_scale);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    gemm<4, 4, D, LD, 1, 1, LD>(s, sQ, sK, ty, tx, 1.f);
-    gemm<4, 4, D, LD, 1, 1, LD>(dp, sdO, sV, ty, tx, 1.f);
-    // this block's kv rows >= N are never stored, so no column mask
-    p_and_ds_f32(s, dp, sLse, sDelta, 0, kRows, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sP[(4 * ty + i) * kLdS + tx + 16 * j] = s[i][j];
-        sdS[(4 * ty + i) * kLdS + tx + 16 * j] = dp[i][j];
-      }
-    __syncthreads();
-    // rows of dV/dK are kv positions: A[kv, q] = P[q, kv]
-    gemm<4, JO, kRows, 1, kLdS, LD, 1>(dv, sP, sdO, ty, tx, 1.f);
-    gemm<4, JO, kRows, 1, kLdS, LD, 1>(dk, sdS, sQ, ty, tx, 1.f);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + 4 * ty + i;
-    if (row >= N) continue;
-    float* dst = dqkv + ((size_t)b * N + row) * ld + h * D + tx;
-#pragma unroll
-    for (int j = 0; j < JO; ++j) {
-      dst[A + 16 * j] = dk[i][j];
-      dst[2 * A + 16 * j] = dv[i][j];
-    }
-  }
 }
 
 template <int D>
@@ -579,6 +935,15 @@ int row_map(CUtensorMap* map, const void* base, int B, int N, int A) {
   return tile_map(map, base, A, N, B, A, (long)N * A, box_cols<D>());
 }
 
+// An f32 (B, N, cols) map (the fused qkv at cols = 3A, dO at A) in boxes of
+// sub_cols<D>() columns and box_rows rows.
+template <int D>
+int f32_map(CUtensorMap* map, const void* base, int B, int N, int cols,
+            int box_rows) {
+  return tile_map_f32(map, base, cols, N, B, cols, (long)N * cols,
+                      sub_cols<D>(), box_rows);
+}
+
 // K1/K2 through K3's entry points (above head dim 128: the strip kernels at
 // 192 and 256, the column-split ones above): q, k and v (and dq, dk, dv)
 // the column views of qkv (dqkv) at offsets 0, A and 2A, row stride 3A.
@@ -629,12 +994,16 @@ int run_fwd(const void* qkv, void* out, void* lse, int B, int N, int H,
         q_scale);
     return 0;
   } else {
-    constexpr size_t smem = smem_fwd_f32<D>();
+    using P = FwdF32<D>;
+    CUtensorMap tqkv;
+    if (int e = f32_map<D>(&tqkv, qkv, B, N, 3 * H * D, kRows)) return e;
+    constexpr size_t smem = P::smem();
     auto kernel = fwd_f32<D>;
     if (int e = max_smem((const void*)kernel, smem)) return e;
-    kernel<<<grid_for(B, N, H), kThreads, smem, st>>>(
-        static_cast<const float*>(qkv), static_cast<float*>(out),
-        static_cast<float*>(lse), N, H, q_scale);
+    kernel<<<dim3((N + P::kWGs * kRows - 1) / (P::kWGs * kRows), B * H),
+             P::kThreads, smem, st>>>(tqkv, static_cast<float*>(out),
+                                      static_cast<float*>(lse), N, H,
+                                      q_scale);
     return 0;
   }
 }
@@ -670,14 +1039,22 @@ int run_dkv(const void* qkv, const void* out, const void* lse,
                                            lse, delta, nullptr, dk, dk + A,
                                            3 * A, B, N, H, dk_fix, st);
   } else {
-    // f32 works in base e: dK needs no 1/log2(e) fix
-    constexpr size_t smem = smem_dkv_f32<D>();
+    // f32 works in base e: dK needs no 1/log2(e) fix; delta is the
+    // caller's (fa.mh_delta)
+    if (!delta) return kBadArgument;
+    using P = DkvF32<D>;
+    const int A = H * D;
+    CUtensorMap tqkv, tdo;
+    if (int e = f32_map<D>(&tqkv, qkv, B, N, 3 * A, P::kBQ)) return e;
+    if (int e = f32_map<D>(&tdo, dout, B, N, A, P::kBQ)) return e;
+    constexpr size_t smem = P::smem();
     auto kernel = bwd_dkv_f32<D>;
     if (int e = max_smem((const void*)kernel, smem)) return e;
-    kernel<<<grid_for(B, N, H), kThreads, smem, st>>>(
-        static_cast<const float*>(qkv), static_cast<const float*>(out),
-        static_cast<const float*>(lse), static_cast<const float*>(dout),
-        static_cast<float*>(dqkv), N, H, q_scale);
+    kernel<<<dim3((N + P::kWGs * kRows - 1) / (P::kWGs * kRows), B * H),
+             P::kThreads, smem, st>>>(
+        tqkv, tdo, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<float*>(dqkv), N, H,
+        q_scale);
     return 0;
   }
 }
@@ -719,9 +1096,9 @@ int run_dq(const void* qkv, const void* out, const void* lse,
 // All entry points return 0 on success, a cudaError_t from the launch, or -1
 // for arguments the kernels do not take (a head dim up to 256 that is not
 // built, or one above it that is no multiple of 64; above 256 every entry
-// point runs K3's, whose column-split kernels take D at run time). `is_bf16` selects __nv_bfloat16 (the tensor-core
-// kernels) over float (the FMA kernels). q_scale and k_scale are already
-// rounded to the element type; bf16 rows must be 16-byte aligned.
+// point runs K3's, whose column-split kernels take D at run time).
+// `is_bf16` selects __nv_bfloat16 over float. q_scale and k_scale are
+// already rounded to the element type; rows must be 16-byte aligned.
 
 extern "C" int qkv_attn_fwd(const void* qkv, void* out, void* lse, int B,
                             int N, int H, int D, float q_scale, int is_bf16,
@@ -763,8 +1140,7 @@ extern "C" int qkv_attn_bwd_prep(const void* qkv, const void* out,
 }
 
 // bf16: delta and qs come from qkv_attn_bwd_prep (out is not read); f32:
-// qs is null and, up to D = 128, delta too: the kernel forms both from out
-// and qkv.
+// qs is null and delta comes from fa.mh_delta (out is not read).
 extern "C" int qkv_attn_bwd_dkv(const void* qkv, const void* out,
                                 const void* lse, const void* dout,
                                 const void* delta, const void* qs, void* dqkv,
@@ -785,8 +1161,8 @@ extern "C" int qkv_attn_bwd_dkv(const void* qkv, const void* out,
 }
 
 // bf16: delta, qs and (up to D = 128, unless k_scale is a power of two) ks
-// come from qkv_attn_bwd_prep; f32: qs and ks are null, and delta too up to
-// D = 128 (the kernel reads out and qkv).
+// come from qkv_attn_bwd_prep; f32: qs and ks are null, and up to D = 128
+// the FMA kernel forms delta from out and qkv (above it K3's reads delta).
 extern "C" int qkv_attn_bwd_dq(const void* qkv, const void* out,
                                const void* lse, const void* dout,
                                const void* delta, const void* qs,

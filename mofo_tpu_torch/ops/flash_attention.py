@@ -10,7 +10,8 @@ run:
     A = H * D. The forward returns out (B, N, A)
     and a compact (B, H, N) f32 row log-sum-exp; the backward returns one
     (B, N, 3A) dqkv, in bf16 after a prep pass (qkv_attn_bwd_prep: delta =
-    rowsum(dO * O) and q * q_scale, read once) that its two kernels share.
+    rowsum(dO * O) and q * q_scale, read once) that its two kernels share,
+    in f32 after mh_delta's reduction.
   - flash_attention_mh (:901), separate q, k, v (B, N, A) with an optional
     (B, N) f32 kv bias row (0 / -1e30), the masked cross-attention of the
     BB-focused classifier's MCA block: K3 (_mh_fwd_impl / _mh_fwd_kernel
@@ -36,8 +37,11 @@ Every bf16 kernel is a TMA + wgmma kernel (csrc/wgmma_tiles.cuh; the
 backwards up to head dim 128 share csrc/wgmma_attn_bwd.cuh, the K3 forward
 and every backward at 192 and 256 csrc/wgmma_attn_wide.cuh's strip
 kernels, every kernel above 256 csrc/wgmma_attn_split.cuh's column-split
-ones; K1/K2 reach both through K3's entry points); every f32 kernel runs
-FMAs (above 256 flash_split_f32.cuh's column-split ones).
+ones; K1/K2 reach both through K3's entry points). In f32, K1's forward
+and K2's dK/dV up to head dim 128 are TMA + wgmma kernels too, their
+products in 3xTF32 (csrc/wgmma_tf32.cuh: each operand split into two TF32
+parts, three TF32 products, as accurate as f32); K2's dQ, K3's and K4's
+f32 kernels run FMAs (above 256 flash_split_f32.cuh's column-split ones).
 
 fp16 callers (the fp16 finetune) run the bf16 kernels: each public entry
 point casts f16 operands to bf16 and the output back to f16 inside autograd,
@@ -97,7 +101,8 @@ HEAD_DIMS = (16, 32, 64, 128, 192, 256)
 SPLIT_BOX = 64
 
 # the bf16 backward runs qkv_attn_bwd_prep once before its two kernels; the
-# f32 backward runs the two kernels alone (QKV_F32_KERNELS)
+# f32 backward runs the two kernels alone (QKV_F32_KERNELS), after
+# mh_delta's reduction
 QKV_KERNELS = ("qkv_attn_fwd", "qkv_attn_bwd_prep", "qkv_attn_bwd_dkv",
                "qkv_attn_bwd_dq")
 QKV_F32_KERNELS = ("qkv_attn_fwd", "qkv_attn_bwd_dkv", "qkv_attn_bwd_dq")
@@ -463,7 +468,7 @@ def qkv_attn_bwd_prep(qkv, out, dout, scale: float, heads: int):
         raise ValueError("out and dout must be (B, N, A), qkv's dtype")
     if qkv.dtype != torch.bfloat16:
         raise ValueError("qkv_attn_bwd_prep is the bf16 backward's: the f32 "
-                         "kernels read out themselves")
+                         "backward takes mh_delta")
     A = A3 // 3
     q_scale, k_scale, _ = _scales(scale, qkv.dtype)
     delta = torch.empty((B, heads, N), dtype=torch.float32, device=qkv.device)
@@ -478,14 +483,12 @@ def qkv_attn_bwd_prep(qkv, out, dout, scale: float, heads: int):
 
 def _qkv_prep(qkv, out, dout, scale, heads):
     """(delta, qs, ks) of the backward kernels: the prep pass in bf16; in
-    f32 (delta, None, None) above head dim 128, whose kernels (K3's) take
-    delta from mh_delta's reduction, and all None below, where the kernels
-    form delta themselves."""
+    f32 (delta, None, None), delta from mh_delta's reduction, which the
+    dK/dV kernel reads (the f32 dQ kernel up to head dim 128 forms its own
+    from out; K3's kernels above it read this one)."""
     if qkv.dtype == torch.bfloat16:
         return qkv_attn_bwd_prep(qkv, out, dout, scale, heads)
-    if qkv_head_dim(qkv, heads) > 128:
-        return mh_delta(out, dout, heads), None, None
-    return None, None, None
+    return mh_delta(out, dout, heads), None, None
 
 
 def _prep_ptrs(qkv, out, dout, scale, heads, prep):
@@ -497,11 +500,10 @@ def _prep_ptrs(qkv, out, dout, scale, heads, prep):
     B, N, A3 = qkv.shape
     if qkv.dtype == torch.bfloat16 and qs is None:
         raise ValueError("the bf16 kernels need the prep pass's q * q_scale")
-    if (delta is None) != (qkv.dtype == torch.float32 and
-                           qkv_head_dim(qkv, heads) <= 128):
+    if delta is None:
         raise ValueError("delta comes from the prep pass (bf16) or "
-                         "mh_delta (f32 above head dim 128)")
-    if delta is not None and delta.shape != (B, heads, N) or (
+                         "mh_delta (f32)")
+    if delta.shape != (B, heads, N) or (
             qs is not None and qs.shape != (B, N, A3 // 3)) or (
             ks is not None and ks.shape != (B, N, A3 // 3)):
         raise ValueError("prep must be (delta (B, H, N), qs (B, N, A), ks)")
@@ -540,7 +542,8 @@ def qkv_attn_bwd_dq(qkv, out, lse, dout, dqkv, scale: float, heads: int,
 def qkv_attn_bwd(qkv, out, lse, dout, scale: float, heads: int):
     """Backward: dqkv (B, N, 3A). On CUDA two kernels fill it, dK/dV
     (qkv_attn_bwd_dkv) and dQ (qkv_attn_bwd_dq), in bf16 after one prep pass
-    (qkv_attn_bwd_prep); plain version on the CPU."""
+    (qkv_attn_bwd_prep), in f32 after mh_delta; plain version on the
+    CPU."""
     if qkv.device.type == "cpu":
         return attention_qkv_bwd_plain(qkv, out, lse, dout, scale, heads)
     dqkv = torch.empty_like(qkv)

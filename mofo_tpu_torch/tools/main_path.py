@@ -21,7 +21,9 @@ tools/profile_step.py and tests/test_torch_gpu.py.
   `hm_inputs` / `hm_attention_against_plain`: the same for the head-major
   kernels (K4) on (B*H, N, D) q, k, v, D in 16, 32, 64;
   `compare_with_plain` / `check_against_plain`: the bounds that hold one
-  against the other, `check_prep` / `check_mh_prep` / `check_hm_prep`: the
+  against the other, `f32_precision` / `attention_qkv_f64`: the 3xTF32
+  kernels' error against a float64 run beside the plain f32 version's,
+  `check_prep` / `check_mh_prep` / `check_hm_prep`: the
   bf16 backwards' prep passes against their plain versions, and
   `planted_faults` /
   `hm_planted_faults` / `group_unwritten` (the column-split kernels' last
@@ -111,6 +113,13 @@ BF16_REL = 2.0 ** -6
 BF16_LSE_ATOL = 1e-4
 # the column-split kernels (head dims above 256): output columns a block
 SPLIT_GROUP = 256
+# f32 kernels whose products run in 3xTF32 (K1's forward, K2's dK/dV):
+# against one float64 run, each of their outputs' max error may be at most
+# PRECISION_FACTOR times the plain f32 version's (TF32 off, the card's
+# default); the plain version with TF32 on (1xTF32) must miss that bound
+PRECISION_FACTOR = 4.0
+# the outputs those kernels write: out and lse (K1), dk and dv (K2)
+TF32X3_OUTPUTS = ("out", "lse", "dk", "dv")
 # the K2 and K4 prep passes: q * scale (and k * scale) bit-equal to the plain
 # version; delta, an f32 sum of D products taken in another order, within
 # PREP_DELTA_RTOL of its row's sum of |dO * O|
@@ -583,6 +592,71 @@ def attention_against_plain(qkv: torch.Tensor, heads: int, scale: float):
     got = _parts(out, lse, dqkv)
     got["at_width"] = (*xs, out_w)
     return got, _parts(p_out, p_lse, p_dqkv)
+
+
+def attention_qkv_f64(qkv: torch.Tensor, dout: torch.Tensor, scale: float,
+                      heads: int) -> dict:
+    """K1/K2's function in float64 on the same qkv and dout (the scale the
+    kernels take, fa._rounded to f32): out, lse, dq, dk, dv, each in f64,
+    in the kernels' layouts. The precision check's reference."""
+    q, k, v = fa.split_heads(qkv.double(), heads)
+    sc = fa._rounded(scale, torch.float32)
+    B, N, A = dout.shape
+    do = dout.double().reshape(B, N, heads, A // heads).transpose(1, 2)
+    s = torch.matmul(q * sc, k.transpose(-1, -2))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    o = torch.matmul(p, v)
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    dp = torch.matmul(do, v.transpose(-1, -2))
+    ds = p * (dp - (do * o).sum(dim=-1, keepdim=True))
+    dk = torch.matmul(ds.transpose(-1, -2), q * sc)
+    dq = torch.matmul(ds, k) * sc
+    return {"out": fa.merge_heads(o), "lse": lse, "dq": fa.merge_heads(dq),
+            "dk": fa.merge_heads(dk), "dv": fa.merge_heads(dv)}
+
+
+def f32_precision(qkv: torch.Tensor, heads: int, scale: float,
+                  seed: int = 0) -> dict:
+    """The precision check of the 3xTF32 kernels on f32 qkv (CUDA): the
+    kernels (fa.qkv_attn_fwd, fa.qkv_attn_bwd), the plain f32 versions with
+    TF32 off and the same plain versions with TF32 on (1xTF32, the planted
+    fault), each output's max abs error against attention_qkv_f64. The
+    backward of all three takes the f64 run's out and lse rounded to f32
+    and one dout from `seed`. Returns the errors, each TF32X3_OUTPUTS
+    output's error over the plain version's, and "beyond" / "fault_beyond":
+    the outputs whose error exceeds PRECISION_FACTOR times the plain
+    version's (the fault must have some)."""
+    B, N, A3 = qkv.shape
+    g = torch.Generator().manual_seed(seed)
+    dout = torch.randn(B, N, A3 // 3, generator=g).to(qkv.device)
+    ref = attention_qkv_f64(qkv, dout, scale, heads)
+    out, lse = ref["out"].float(), ref["lse"].float()
+
+    def run(fwd, bwd) -> dict:
+        o, l = fwd(qkv, scale, heads)
+        got = _parts(o, l, bwd(qkv, out, lse, dout, scale, heads))
+        return {k: _max_abs(got[k].double() - ref[k]) for k in OUTPUTS}
+
+    kept = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        err = {"kernels": run(fa.qkv_attn_fwd, fa.qkv_attn_bwd),
+               "plain": run(fa.attention_qkv_fwd_plain,
+                            fa.attention_qkv_bwd_plain)}
+        torch.backends.cuda.matmul.allow_tf32 = True
+        err["plain_tf32"] = run(fa.attention_qkv_fwd_plain,
+                                fa.attention_qkv_bwd_plain)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = kept
+    bound = {k: PRECISION_FACTOR * err["plain"][k] for k in TF32X3_OUTPUTS}
+    return {"max_abs_err_vs_f64": err,
+            "over_plain": {k: err["kernels"][k] / err["plain"][k]
+                           for k in TF32X3_OUTPUTS},
+            "beyond": [k for k in TF32X3_OUTPUTS
+                       if not err["kernels"][k] <= bound[k]],
+            "fault_beyond": [k for k in TF32X3_OUTPUTS
+                             if not err["plain_tf32"][k] <= bound[k]]}
 
 
 def mh_inputs(B: int, N: int, H: int, D: int, dtype: torch.dtype,

@@ -43,6 +43,7 @@ from mofo_tpu_torch.tools.main_path import (
     check_prep,
     compare_with_plain,
     count_pads,
+    f32_precision,
     finetune_model,
     forced_draws,
     frame_ids,
@@ -107,7 +108,7 @@ def test_autograd_runs_the_kernels(cuda):
     fa.reset_launch_counts()
     (fa.flash_attention_qkv(qkv, scale=SCALE, num_heads=2) ** 2).sum() \
         .backward()
-    # f32: the FMA kernels form delta themselves, no prep pass
+    # f32: no prep pass (delta is mh_delta's reduction)
     assert fa.launch_counts == {**dict.fromkeys(fa.KERNELS, 0),
                                 **dict.fromkeys(fa.QKV_F32_KERNELS, 1)}
     ref = x.cpu().clone().requires_grad_(True)
@@ -115,6 +116,34 @@ def test_autograd_runs_the_kernels(cuda):
         .backward()
     np.testing.assert_allclose(qkv.grad.cpu().numpy(), ref.grad.numpy(),
                                atol=5e-4, rtol=0)
+
+
+@pytest.mark.parametrize("scale", [None, 0.1])
+@pytest.mark.parametrize("N", [1, 65, 200, 1568])
+@pytest.mark.parametrize("hd,H", [(16, 8), (32, 4), (64, 2), (128, 2)])
+def test_3xtf32_kernels_at_every_head_dim(cuda, hd, H, N, scale):
+    """K1's f32 forward and K2's f32 dK/dV (3xTF32 on wgmma) at each head
+    dim they take, ragged N, at D^-1/2 and at 0.1; the planted faults
+    rejected (above N = 1, where dQ is rounding noise around 0)."""
+    got, want = attention_against_plain(
+        _qkv(2, N, H, torch.float32, cuda, seed=hd + N, d=hd), H,
+        scale or hd ** -0.5)
+    torch.cuda.synchronize()
+    _check_at_edge(got, want, N)
+    if N > 1:
+        for fault, outputs in planted_faults(got).items():
+            assert compare_with_plain(outputs, want)["beyond_bounds"], fault
+
+
+@pytest.mark.parametrize("hd,H", [(16, 8), (32, 6), (64, 6), (128, 4)])
+def test_3xtf32_kernels_are_as_precise_as_f32(cuda, hd, H):
+    """Against a float64 run each output of the 3xTF32 kernels is within
+    PRECISION_FACTOR of the plain f32 version's error; the plain version
+    with TF32 on misses that bound."""
+    res = f32_precision(_qkv(2, 1568, H, torch.float32, cuda, seed=5, d=hd),
+                        H, hd ** -0.5)
+    assert res["beyond"] == [], res
+    assert res["fault_beyond"], res
 
 
 def _check_at_edge(got, want, N):
