@@ -199,16 +199,17 @@ Phases, each printing one JSON line:
                frame pairs of the shortest video through tvl1_flow on the
                card against the CPU (FLOW_CPU_MAX, FLOW_CPU_P99; with the
                count of results of each elementwise op that round
-               differently on the two devices, op_roundings); four pairs
+               differently on the two devices, op_roundings); two pairs
                batched against one call a pair on the card (BATCHED_ATOL),
                both timed; that video's JSON from --device cpu against
-               --device cuda, both on FACTORY_CPU_FRAMES = 20 of its frames
+               --device cuda, both on FACTORY_CPU_FRAMES = 8 of its frames
                (--max_frames; at most FACTORY_BOX_PX per coordinate).
                Printed, not
                gated: seconds per video by stage (decode, flow, maps, boxes,
                write), flow ms per pair and per video, peak memory, and the
-               mean IoU of the per-frame boxes (--no_clip_union) against
-               MemoryReader's square. Then the loop closed: the ViT-S MOFO
+               mean IoU of the shortest video's per-frame boxes
+               (--no_clip_union) against MemoryReader's square. Then the
+               loop closed: the ViT-S MOFO
                pretrain runner, one epoch on the 4 videos at B=4 (decoded by
                VideoReader) with the factory's JSON as --bb_json, its K1/K2
                and K4 launches checked.
@@ -236,7 +237,7 @@ Phases, each printing one JSON line:
                the gradient needs; none for rollout), the seconds; gradcam++
                and rollout again on the CPU, within VIS_ATOL.
  27. factory_chunks - motion_factory.video_flows on a cv2-written 1920 x
-               1080, 10-frame video of a square moving rigidly, under a byte
+               1080, 7-frame video of a square moving rigidly, under a byte
                budget of CHUNK_PAIRS pairs (3 calls) and in one call: flows
                and per-frame boxes equal, each run's peak memory and seconds,
                the boxes' mean IoU with the square.
@@ -421,7 +422,9 @@ delta reduction); qkv_head_dims checks f32 at scale 0.1 on each ragged
 geometry; after it, f32_precision holds K1's forward and K2's dK/dV (3xTF32
 on wgmma) against a float64 run (each output within PRECISION_FACTOR of
 the plain f32 version's error, the plain version with TF32 on beyond it)
-at every head dim they take and the ViT-B decoder; after vis, f32_eval
+at every head dim they take and the ViT-B decoder, and K3's forward and
+dK/dV at head dims 256 and 192 (3xTF32, D streamed in 64-column chunks)
+at MH_F32_PRECISION_CHECKS with the kv bias; after vis, f32_eval
 times feature_extract's forward (B = 4) and the f32 ViT-B step, launches
 held exactly.
 The kernels phase also checks and times K1/K2 at the mesh's per-rank
@@ -519,6 +522,7 @@ from mofo_tpu_torch.tools.main_path import (
     masked_kv_grad,
     memory_box_json,
     mh_attention_against_plain,
+    mh_f32_precision,
     mh_inputs,
     moved_draws,
     plain_attention,
@@ -591,6 +595,15 @@ LARGE_CHECKS = {"res384_vitl_h16": (1, 4608, 16), "res512_h16": (1, 8192, 16)}
 F32_PRECISION_CHECKS = {"d16": (2, 1568, 8, 16), "d32": (2, 1568, 6, 32),
                         "d64": (2, 1568, 6, 64), "d128": (2, 1568, 4, 128),
                         "decoder": (STEP_BATCH, 1568, 6, 64)}
+# and K3's 3xTF32 forward and dK/dV (head dims 192 and 256, D streamed in
+# 64-column chunks), with the kv bias and k, v column views of one fused
+# kv: (B, N, H, D) the MCA at a reduced batch, the MCA at 4 heads, the
+# ragged one and N = 1 (held there to the against-plain bounds: the plain
+# version is exact at one kv column, and TF32 does not change it)
+MH_F32_PRECISION_CHECKS = {"mca_b4": (4, 1568, 3, 256),
+                           "mca_h4_d192": (4, 1568, 4, 192),
+                           "ragged_d256": (4, 100, 1, 256),
+                           "n1_d256": (4, 1, 1, 256)}
 # K1/K2's f32 instances are timed at the bf16 rows' main shapes (K3's at
 # the MCA, K4's at the runner's decoder: each family's timed geometry)
 F32_TIMED = ("decoder", "backbone")
@@ -786,7 +799,9 @@ FACTORY_VIDEOS = 4
 FACTORY_BATCH = 4
 # the frames (stride-sampled) of the factory's card-against-CPU run: the
 # CPU's TV-L1 takes ~2 s a pair, and the script has a time limit
-FACTORY_CPU_FRAMES = 20
+FACTORY_CPU_FRAMES = 8
+# the pairs batched against one call a pair (a timed comparison)
+FACTORY_BATCHED_PAIRS = 2
 FLOW_CPU_MAX = 1e-3
 FLOW_CPU_P99 = 1e-4
 BATCHED_ATOL = 1e-5
@@ -815,12 +830,12 @@ KEEP_SHARE_ATOL = 1e-3
 VIS_MODEL = "vit_base_patch16_224"
 VIS_METHODS = ("grad", "rollout", "gradcam", "gradcam++")
 VIS_LAYER = 5  # attention_vis's default Grad-CAM target Block
-# the factory on a 1080p video whose square moves rigidly: 9 pairs, at
+# the factory on a 1080p video whose square moves rigidly: 6 pairs, at
 # most CHUNK_PAIRS a call under the forced budget (3 calls; 15 pairs at 5
-# a call before the head-dim phases needed the time)
+# a call, then 9 at 3, before the script needed the time)
 CHUNK_HW = (1080, 1920)
-CHUNK_FRAMES = 10
-CHUNK_PAIRS = 3
+CHUNK_FRAMES = 7
+CHUNK_PAIRS = 2
 SQUARE = 360
 SQUARE_STEP = (6, 4)  # px a frame, (x, y)
 # the optimizer zoo (phases zoo_parity, zoo_steps, adahessian_step,
@@ -1218,8 +1233,10 @@ def phase_f32_precision(smi: str) -> dict:
     float64 run at F32_PRECISION_CHECKS (every head dim they take, and
     the ViT-B decoder): each output's error within PRECISION_FACTOR of
     the plain f32 version's (TF32 off), and the plain version with TF32
-    on (1xTF32, the planted fault) beyond it (main_path.f32_precision).
-    Returns {label: each output's error over the plain version's}."""
+    on (1xTF32, the planted fault) beyond it (main_path.f32_precision);
+    then K3's at MH_F32_PRECISION_CHECKS (main_path.mh_f32_precision; at
+    N = 1 the against-plain bounds). Returns {label: each output's error
+    over the plain version's}."""
     out = {}
     for label, (B, N, H, d) in F32_PRECISION_CHECKS.items():
         res = f32_precision(_qkv(B, N, H, torch.float32, seed=5, d=d), H,
@@ -1229,6 +1246,20 @@ def phase_f32_precision(smi: str) -> dict:
         if res["beyond"] or not res["fault_beyond"]:
             raise AssertionError(f"f32 precision at {label}: {res}")
         out[label] = res["over_plain"]
+    for label, (B, N, H, d) in MH_F32_PRECISION_CHECKS.items():
+        q, k, v, b = mh_inputs(B, N, H, d, torch.float32, 5, "cuda")
+        res = mh_f32_precision(q, k, v, b, H, d ** -0.5)
+        if N == 1:  # one kv column: out = v exactly in the plain version
+            got, want = mh_attention_against_plain(q, k, v, b, H, d ** -0.5)
+            res["against_plain"] = compare_with_plain(got, want)
+            ok = not res["against_plain"]["beyond_bounds"]
+        else:
+            ok = not res["beyond"] and res["fault_beyond"]
+        emit("f32_precision", geometry=f"k3_{label}", B=B, N=N, H=H, D=d,
+             factor=PRECISION_FACTOR, nvidia_smi=smi, **res)
+        if not ok:
+            raise AssertionError(f"K3 f32 precision at {label}: {res}")
+        out[f"k3_{label}"] = res["over_plain"]
     return out
 
 
@@ -3252,20 +3283,21 @@ def phase_factory(smi: str) -> dict:
                 <= FLOW_CPU_P99):
             problems.append(f"TV-L1 card vs CPU {card_vs_cpu}")
 
-        # 3. four pairs batched against one call a pair, on the card
+        # 3. pairs batched against one call a pair, on the card
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        batched = flow.tvl1_flow_batch(frames[:5])
+        batched = flow.tvl1_flow_batch(frames[:FACTORY_BATCHED_PAIRS + 1])
         torch.cuda.synchronize()
         batched_s = time.perf_counter() - t0
         t0 = time.perf_counter()
         singles = torch.stack([flow.tvl1_flow(frames[i], frames[i + 1])
-                               for i in range(4)])
+                               for i in range(FACTORY_BATCHED_PAIRS)])
         torch.cuda.synchronize()
         singles_s = time.perf_counter() - t0
         gap = float((batched - singles).abs().max())
-        batched_vs_pairs = {"pairs": 4, "max_abs_px": gap,
-                            "bound": BATCHED_ATOL, "batched_s": batched_s,
+        batched_vs_pairs = {"pairs": FACTORY_BATCHED_PAIRS,
+                            "max_abs_px": gap, "bound": BATCHED_ATOL,
+                            "batched_s": batched_s,
                             "one_call_a_pair_s": singles_s}
         if not gap <= BATCHED_ATOL:
             problems.append(f"batched vs per pair {batched_vs_pairs}")
@@ -3289,9 +3321,10 @@ def phase_factory(smi: str) -> dict:
         if not box_gap.max() <= FACTORY_BOX_PX:
             problems.append(f"boxes card vs CPU {boxes_card_vs_cpu}")
 
-        # 5. per-frame boxes against the moving square (information)
+        # 5. per-frame boxes against the moving square (information), on
+        # the shortest video
         frame_json = os.path.join(tmp, "per_frame.json")
-        _, _, per_frame_s = _factory(["--data_path", listing, "--output",
+        _, _, per_frame_s = _factory(["--data_path", path, "--output",
                                       frame_json, "--no_clip_union"])
         ious = {}
         for key, got in _json_boxes(frame_json).items():

@@ -64,10 +64,16 @@
 //     columns over the grid, each group forming S (and dP) again; the
 //     MCA's 2 and 1 heads (D = 384, 768) and ViT-L's 3 (341, padded to 384)
 //     run there.
-//   - The f32 kernels (the parity path) use FMAs, since tensor cores would
-//     round f32 to TF32; above D = 128 their tiles shrink to 32 rows so that
-//     a padded tile (32 x 257 f32, 33 KB) leaves room for the rest. All
-//     tiles above 48 KB are dynamic shared memory.
+//   - The f32 forward and dK/dV at D = 192 and 256 (the parity path's MCA,
+//     and K1/K2's f32 at those widths) are wgmma_tf32_wide.cuh's: products
+//     in 3xTF32 on wgmma (each operand split into TF32 hi and lo, lo.hi +
+//     hi.lo + hi.hi in f32: as accurate as f32), fed by TMA, with D
+//     streamed in 64-column chunks beside one resident (hi, lo) strip, and
+//     dK and dV written by separate blocks. The other f32 kernels (every
+//     kernel up to D = 128, and dQ at every D) use FMAs (flash_tiles.cuh):
+//     above D = 128 their tiles shrink to 32 rows so that a padded tile (32
+//     x 257 f32, 33 KB) leaves room for the rest. All tiles above 48 KB are
+//     dynamic shared memory.
 // Ragged N is masked in-kernel (kv columns >= N score -inf, q rows >= N carry
 // +inf LSE in the backward and are never stored); nothing is padded in HBM.
 //
@@ -87,6 +93,7 @@
 #include "wgmma_attn_bwd.cuh"
 #include "wgmma_attn_split.cuh"
 #include "wgmma_attn_wide.cuh"
+#include "wgmma_tf32_wide.cuh"
 #include "wgmma_tiles.cuh"
 
 namespace {
@@ -369,7 +376,7 @@ bool bad(int B, int N, int H, int ldq, int ldk, int ldv, int A) {
 }
 
 // Tiles of the f32 FMA kernels: 64 x 64 up to D = 128, 32 x 32 above (a
-// padded 32 x 257 f32 tile is 33 KB).
+// padded 32 x 257 f32 tile is 33 KB; there only dQ runs on FMAs).
 template <int D>
 constexpr int stream_rows() { return D <= 128 ? 64 : 32; }
 
@@ -394,15 +401,20 @@ int fwd(const void* q, const void* k, const void* v, const float* bias,
     return launch_strip_fwd<D>(tq, tk, tv, bias, out, lse, B, N, H, q_scale,
                                st);
   }
-  constexpr int T = stream_rows<D>();
-  constexpr size_t smem = smem_fwd_f32<D, T, T>();
-  auto kernel = mh_fwd_f32<D, T, T>;
-  if (int e = max_smem((const void*)kernel, smem)) return e;
-  kernel<<<dim3(cdiv(N, T), B * H), kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), bias, static_cast<float*>(out), lse, N,
-      H, ldq, ldk, ldv, q_scale);
-  return 0;
+  if constexpr (D >= 192) {  // 3xTF32 on wgmma, D streamed in chunks
+    return launch_fwd_tf32<D>(q, k, v, bias, out, lse, B, N, H, ldq, ldk,
+                              ldv, q_scale, st);
+  } else {
+    constexpr int T = stream_rows<D>();
+    constexpr size_t smem = smem_fwd_f32<D, T, T>();
+    auto kernel = mh_fwd_f32<D, T, T>;
+    if (int e = max_smem((const void*)kernel, smem)) return e;
+    kernel<<<dim3(cdiv(N, T), B * H), kThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), bias, static_cast<float*>(out), lse, N,
+        H, ldq, ldk, ldv, q_scale);
+    return 0;
+  }
 }
 
 // The tensor maps of the bf16 backward: k and v on their own row strides
@@ -441,16 +453,21 @@ int bwd_dkv(const void* q, const void* k, const void* v, const float* bias,
                                         dk, dv, lddkv, B, N, H, dk_fix, st);
   }
   // f32 works in base e: dK needs no 1/log2(e) fix
-  constexpr int T = stream_rows<D>();
-  constexpr size_t smem = smem_dkv_f32<D, T, T>();
-  auto kernel = mh_bwd_dkv_f32<D, T, T>;
-  if (int e = max_smem((const void*)kernel, smem)) return e;
-  kernel<<<dim3(cdiv(N, T), B * H), kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), bias, static_cast<const float*>(dout),
-      lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), N, H,
-      ldq, ldk, ldv, lddkv, q_scale);
-  return 0;
+  if constexpr (D >= 192) {  // 3xTF32 on wgmma: dV and dK blocks
+    return launch_dkv_tf32<D>(q, k, v, bias, dout, lse, delta, dk, dv, B, N,
+                              H, ldq, ldk, ldv, lddkv, q_scale, st);
+  } else {
+    constexpr int T = stream_rows<D>();
+    constexpr size_t smem = smem_dkv_f32<D, T, T>();
+    auto kernel = mh_bwd_dkv_f32<D, T, T>;
+    if (int e = max_smem((const void*)kernel, smem)) return e;
+    kernel<<<dim3(cdiv(N, T), B * H), kThreads, smem, st>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), bias, static_cast<const float*>(dout),
+        lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), N, H,
+        ldq, ldk, ldv, lddkv, q_scale);
+    return 0;
+  }
 }
 
 template <int D>
@@ -536,9 +553,12 @@ int split_dq(const void* q, const void* k, const void* v, const float* bias,
 
 // All entry points return 0 on success, a cudaError_t from the launch, or -1
 // for arguments the kernels do not take (a head dim up to 256 that is not
-// built, or one above it that is no multiple of 64). `bf16` selects __nv_bfloat16 (the tensor-core kernels) over float
-// (the FMA kernels). q_scale and k_scale are already rounded to the element
-// type; bf16 rows must be 16-byte aligned. ld* are row strides in elements;
+// built, or one above it that is no multiple of 64). `bf16` selects
+// __nv_bfloat16 (the tensor-core kernels) over float (3xTF32 on the tensor
+// cores for the forward and dK/dV at head dims 192 and 256, FMAs for the
+// rest). q_scale and k_scale are already rounded to the element type; rows
+// must be 16-byte aligned (bf16, and f32 at 192 and 256, where TMA reads
+// them). ld* are row strides in elements;
 // dout and out are (B, N, H*D) contiguous; lse and delta (B, H, N) f32;
 // bias (B, N) f32 or null. qkv_flash_attention.cu calls these four above
 // head dim 128 with q, k and v (and dk, dv, dq) as column views of the

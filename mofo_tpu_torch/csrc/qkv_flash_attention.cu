@@ -29,10 +29,12 @@
 // D: right first, not tuned (D = 128 holds an O accumulator twice D = 64's).
 // At D = 192 and 256 a thread's registers cannot hold q's fragments beside
 // the 64 x D output, nor dK/dV's two accumulators: those head dims run K3's
-// strip kernels (wgmma_attn_wide.cuh) through K3's entry points
-// (mh_flash_attention.cu), which take q, k and v as row-strided column views
-// of the fused qkv and write dK, dV and dQ into the views of one dqkv; their
-// f32 backward takes delta from the caller. Above 256 the same entry points
+// strip kernels (wgmma_attn_wide.cuh; in f32 the forward and dK/dV are
+// wgmma_tf32_wide.cuh's 3xTF32 kernels with D streamed in 64-column chunks)
+// through K3's entry points (mh_flash_attention.cu), which take q, k and v
+// as row-strided column views of the fused qkv and write dK, dV and dQ into
+// the views of one dqkv; their f32 backward takes delta from the caller.
+// Above 256 the same entry points
 // run the column-split kernels (wgmma_attn_split.cuh), after the prep
 // pass's wide form (a warp a head row).
 //

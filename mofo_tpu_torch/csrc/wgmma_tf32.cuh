@@ -1,7 +1,9 @@
 // Hopper building blocks of the f32 attention kernels on the tensor cores
-// (qkv_flash_attention.cu's K1 forward and K2 dK/dV in f32): products in
-// 3xTF32 on wgmma, f32 tiles loaded by TMA, and the passes that split a
-// tile into its TF32 parts. Everything is in an anonymous namespace: each
+// (qkv_flash_attention.cu's K1 forward and K2 dK/dV in f32 up to head dim
+// 128, and wgmma_tf32_wide.cuh's K3 forward and dK/dV at 192 and 256, which
+// K1/K2 reach through K3's entry points): products in 3xTF32 on wgmma, f32
+// tiles loaded by TMA, and the passes that split a tile into its TF32
+// parts. Everything is in an anonymous namespace: each
 // source that includes it gets its own copy.
 //
 // 3xTF32. wgmma takes f32 operands as TF32 (10 explicit mantissa bits), at

@@ -659,7 +659,7 @@ def _check_mh(q, k, v, kv_bias, heads: int):
         raise ValueError(f"unsupported dtype {q.dtype} (float32, bfloat16)")
     if B * heads > 65535:
         raise ValueError("B * H exceeds the kernels' grid limit of 65535")
-    align = 8 if q.dtype == torch.bfloat16 else 1  # 16-byte bf16 rows
+    align = 16 // q.element_size()  # 16-byte rows: TMA reads them
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"{name} must be {tuple(q.shape)} {q.dtype} on "

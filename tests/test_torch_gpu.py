@@ -44,6 +44,7 @@ from mofo_tpu_torch.tools.main_path import (
     compare_with_plain,
     count_pads,
     f32_precision,
+    f32_rows_beyond,
     finetune_model,
     forced_draws,
     frame_ids,
@@ -54,6 +55,7 @@ from mofo_tpu_torch.tools.main_path import (
     masked_kv_grad,
     memory_box_json,
     mh_attention_against_plain,
+    mh_f32_precision,
     mh_inputs,
     moved_draws,
     planted_faults,
@@ -120,11 +122,13 @@ def test_autograd_runs_the_kernels(cuda):
 
 @pytest.mark.parametrize("scale", [None, 0.1])
 @pytest.mark.parametrize("N", [1, 65, 200, 1568])
-@pytest.mark.parametrize("hd,H", [(16, 8), (32, 4), (64, 2), (128, 2)])
+@pytest.mark.parametrize("hd,H", [(16, 8), (32, 4), (64, 2), (128, 2),
+                                  (192, 2), (256, 1)])
 def test_3xtf32_kernels_at_every_head_dim(cuda, hd, H, N, scale):
     """K1's f32 forward and K2's f32 dK/dV (3xTF32 on wgmma) at each head
-    dim they take, ragged N, at D^-1/2 and at 0.1; the planted faults
-    rejected (above N = 1, where dQ is rounding noise around 0)."""
+    dim they take (192 and 256 through K3's entry points, on its chunked
+    kernels), ragged N, at D^-1/2 and at 0.1; the planted faults rejected
+    (above N = 1, where dQ is rounding noise around 0)."""
     got, want = attention_against_plain(
         _qkv(2, N, H, torch.float32, cuda, seed=hd + N, d=hd), H,
         scale or hd ** -0.5)
@@ -135,7 +139,8 @@ def test_3xtf32_kernels_at_every_head_dim(cuda, hd, H, N, scale):
             assert compare_with_plain(outputs, want)["beyond_bounds"], fault
 
 
-@pytest.mark.parametrize("hd,H", [(16, 8), (32, 6), (64, 6), (128, 4)])
+@pytest.mark.parametrize("hd,H", [(16, 8), (32, 6), (64, 6), (128, 4),
+                                  (192, 4), (256, 3)])
 def test_3xtf32_kernels_are_as_precise_as_f32(cuda, hd, H):
     """Against a float64 run each output of the 3xTF32 kernels is within
     PRECISION_FACTOR of the plain f32 version's error; the plain version
@@ -570,9 +575,65 @@ def test_mh_autograd_runs_the_kernels(cuda):
     refs = [t.detach().cpu().clone().requires_grad_(True) for t in (q, k, v)]
     (fa.flash_attention_mh(*refs, scale=0.0625, num_heads=1,
                            kv_bias=b.cpu()) ** 2).sum().backward()
-    for t, r in zip(ts, refs):
-        np.testing.assert_allclose(t.grad.cpu().numpy(), r.grad.numpy(),
-                                   atol=5e-4, rtol=0)
+    # within 5e-4 of the CPU's gradients, held row by row as
+    # main_path.f32_rows_beyond holds K3's outputs: where the CPU's own row
+    # is more than 5e-4 off the same loss's float64 gradient (dV of sample
+    # 0's one unmasked column sums 100 like terms, |dV| ~ 500), within
+    # PRECISION_FACTOR of the CPU's error against float64
+    exact = [t.detach().cpu().double().requires_grad_(True)
+             for t in (q, k, v)]
+    s = (exact[0] * fa._rounded(0.0625, torch.float32)) @ \
+        exact[1].transpose(-1, -2) + b.cpu().double()[:, None, :]
+    ((torch.softmax(s, -1) @ exact[2]) ** 2).sum().backward()
+    for t, r, e in zip(ts, refs, exact):
+        held = f32_rows_beyond(t.grad.cpu(), r.grad, e.grad, 5e-4)
+        assert held["beyond"] == 0, held
+
+
+@pytest.mark.parametrize("B,N,H,D,scale", [
+    (4, 1568, 3, 256, None), (4, 1568, 4, 192, None), (4, 100, 1, 256, None),
+    (4, 100, 1, 256, 0.1), (3, 200, 2, 192, 0.1)])
+def test_k3_3xtf32_kernels_are_as_precise_as_f32(cuda, B, N, H, D, scale):
+    """K3's f32 forward and dK/dV at head dims 256 and 192 (3xTF32 on
+    wgmma, D streamed in 64-column chunks): the MCA at a reduced batch, the
+    MCA at 4 heads, the ragged N, scale 0.1, with the kv bias and k, v
+    column views of one fused kv. Against a float64 run each output is
+    within PRECISION_FACTOR of the plain f32 version's error; the plain
+    version with TF32 on misses that bound."""
+    q, k, v, b = mh_inputs(B, N, H, D, torch.float32, 5, cuda)
+    assert k.stride(1) == 2 * H * D
+    res = mh_f32_precision(q, k, v, b, H, scale or D ** -0.5)
+    assert res["beyond"] == [], res
+    assert res["fault_beyond"], res
+
+
+@pytest.mark.parametrize("fused_kv", [True, False])
+@pytest.mark.parametrize("scale", [None, 0.1])
+@pytest.mark.parametrize("N", [1, 65, 100, 1568])
+@pytest.mark.parametrize("H,D", [(1, 256), (2, 192)])
+def test_k3_3xtf32_kernels_at_tile_edges(cuda, H, D, N, scale, fused_kv):
+    """The same kernels against their plain versions at N on both sides of
+    their 64-row tiles and N = 1 (there held as _check_at_edge holds it:
+    the plain version is exact, and dS is rounding noise around 0), with
+    the kv bias, k and v fused or apart. Above N = 1 masked kv rows get
+    zero dK/dV and the planted faults are rejected (at N = 1 a sample may
+    have its one column masked: then that row takes every query, in the
+    plain version too)."""
+    q, k, v, b = mh_inputs(2, N, H, D, torch.float32, N + D, cuda)
+    if not fused_kv:
+        k, v = k.contiguous(), v.contiguous()
+    fa.reset_launch_counts()
+    got, want = mh_attention_against_plain(q, k, v, b, H, scale or D ** -0.5)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["mh_attn_fwd"] == 1
+    assert fa.launch_counts["mh_attn_bwd_dkv"] == 1
+    _check_at_edge(got, want, N)
+    if N > 1:
+        assert masked_kv_grad(got, b) == 0.0
+        ignored, _ = mh_attention_against_plain(q, k, v, None, H,
+                                                scale or D ** -0.5)
+        for fault, outputs in planted_faults(got, ignored).items():
+            assert compare_with_plain(outputs, want)["beyond_bounds"], fault
 
 
 def test_mh_wrapper_rejects_what_the_kernels_do_not_take(cuda):

@@ -213,7 +213,8 @@ def test_bias_masks_exactly_like_dropping_the_columns():
 def test_kernel_bounds_reject_planted_faults(dtype):
     """The bounds that hold the K3 kernels against their plain versions on
     the card pass the plain versions themselves (the CPU route) and reject
-    the bias ignored, a zeroed dQ and a dK without its 1/log2(e) fix."""
+    the bias ignored, a zeroed dQ, a dK without its 1/log2(e) fix and a dV
+    zeroed outside its peak row."""
     q, k, v, b = main_path.mh_inputs(2, 100, 1, 256, dtype, 6, "cpu")
     got, want = main_path.mh_attention_against_plain(q, k, v, b, 1, 0.0625)
     res = main_path.check_against_plain(got, want)
@@ -222,7 +223,8 @@ def test_kernel_bounds_reject_planted_faults(dtype):
     no_bias, _ = main_path.mh_attention_against_plain(q, k, v, None, 1,
                                                       0.0625)
     faults = main_path.planted_faults(got, no_bias)
-    assert set(faults) == {"dq_zero", "dk_without_fix", "bias_ignored"}
+    assert set(faults) == {"dq_zero", "dk_without_fix", "bias_ignored",
+                           "dv_off_peak_row_zero"}
     for outputs in faults.values():
         with pytest.raises(AssertionError, match="beyond the bounds"):
             main_path.check_against_plain(outputs, want)
