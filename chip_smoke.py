@@ -41,7 +41,7 @@ Phases, each printing one JSON line:
   6. parity  - a ViT-B-width model cut to 2+1 blocks, f32, B=1: loss and
                gradient norm on the card (kernels) against the CPU (plain
                versions), same weights and masks. f32 runs the f32
-               kernels (K1's forward and K2's dK/dV in 3xTF32), so this
+               kernels (K1's forward, K2's dK/dV and dQ in 3xTF32), so this
                phase does not cover the bf16 kernels of the step: phase 3
                holds those.
   7. finetune_step - the ViT-B BB-focused MCA finetune step at the
@@ -419,12 +419,13 @@ and the backbone, K3 at the MCA, K4 at the runner's decoder; bounds with
 4-byte elements at PEAK_TF32X3 and, beside it, PEAK_FMA_F32; lines
 k1_f32_vs_library and k2_f32_vs_library, the latter with the backward's
 delta reduction); qkv_head_dims checks f32 at scale 0.1 on each ragged
-geometry; after it, f32_precision holds K1's forward and K2's dK/dV (3xTF32
-on wgmma) against a float64 run (each output within PRECISION_FACTOR of
-the plain f32 version's error, the plain version with TF32 on beyond it)
-at every head dim they take and the ViT-B decoder, and K3's forward and
-dK/dV at head dims 256 and 192 (3xTF32, D streamed in 64-column chunks)
-at MH_F32_PRECISION_CHECKS with the kv bias; after vis, f32_eval
+geometry; after it, f32_precision holds K1's forward and K2's dK/dV and
+dQ (3xTF32 on wgmma) against a float64 run (each output within
+PRECISION_FACTOR of the plain f32 version's error, the plain version with
+TF32 on beyond it) at every head dim they take and the ViT-B decoder, and
+K3's dQ at every head dim with its forward and dK/dV at 256 and 192
+(3xTF32, D streamed in 64-column chunks there) at MH_F32_PRECISION_CHECKS
+with the kv bias; after vis, f32_eval
 times feature_extract's forward (B = 4) and the f32 ViT-B step, launches
 held exactly.
 The kernels phase also checks and times K1/K2 at the mesh's per-rank
@@ -595,13 +596,16 @@ LARGE_CHECKS = {"res384_vitl_h16": (1, 4608, 16), "res512_h16": (1, 8192, 16)}
 F32_PRECISION_CHECKS = {"d16": (2, 1568, 8, 16), "d32": (2, 1568, 6, 32),
                         "d64": (2, 1568, 6, 64), "d128": (2, 1568, 4, 128),
                         "decoder": (STEP_BATCH, 1568, 6, 64)}
-# and K3's 3xTF32 forward and dK/dV (head dims 192 and 256, D streamed in
-# 64-column chunks), with the kv bias and k, v column views of one fused
-# kv: (B, N, H, D) the MCA at a reduced batch, the MCA at 4 heads, the
-# ragged one and N = 1 (held there to the against-plain bounds: the plain
-# version is exact at one kv column, and TF32 does not change it)
+# and K3's 3xTF32 kernels (dQ at every head dim; the forward and dK/dV at
+# 192 and 256, D streamed in 64-column chunks), with the kv bias and k, v
+# column views of one fused kv: (B, N, H, D) the MCA at a reduced batch,
+# the MCA at 4, 8 and 16 heads (the narrow dQ at 128 and 64), the ragged
+# one and N = 1 (held there to the against-plain bounds: the plain version
+# is exact at one kv column, and TF32 does not change it)
 MH_F32_PRECISION_CHECKS = {"mca_b4": (4, 1568, 3, 256),
                            "mca_h4_d192": (4, 1568, 4, 192),
+                           "mca_h8_d128": (4, 1568, 8, 128),
+                           "mca_h16_d64": (4, 1568, 16, 64),
                            "ragged_d256": (4, 100, 1, 256),
                            "n1_d256": (4, 1, 1, 256)}
 # K1/K2's f32 instances are timed at the bf16 rows' main shapes (K3's at
@@ -1229,8 +1233,8 @@ def f32_ratios(times: dict, fwd: str, bwd: tuple) -> dict:
 
 
 def phase_f32_precision(smi: str) -> dict:
-    """The 3xTF32 kernels (K1's f32 forward, K2's f32 dK/dV) against one
-    float64 run at F32_PRECISION_CHECKS (every head dim they take, and
+    """The 3xTF32 kernels (K1's f32 forward, K2's f32 dK/dV and dQ)
+    against one float64 run at F32_PRECISION_CHECKS (every head dim they take, and
     the ViT-B decoder): each output's error within PRECISION_FACTOR of
     the plain f32 version's (TF32 off), and the plain version with TF32
     on (1xTF32, the planted fault) beyond it (main_path.f32_precision);
@@ -1243,7 +1247,7 @@ def phase_f32_precision(smi: str) -> dict:
                             d ** -0.5)
         emit("f32_precision", geometry=label, B=B, N=N, H=H, D=d,
              factor=PRECISION_FACTOR, nvidia_smi=smi, **res)
-        if res["beyond"] or not res["fault_beyond"]:
+        if res["beyond"] or "dq" not in res["fault_beyond"]:
             raise AssertionError(f"f32 precision at {label}: {res}")
         out[label] = res["over_plain"]
     for label, (B, N, H, d) in MH_F32_PRECISION_CHECKS.items():
@@ -1254,7 +1258,7 @@ def phase_f32_precision(smi: str) -> dict:
             res["against_plain"] = compare_with_plain(got, want)
             ok = not res["against_plain"]["beyond_bounds"]
         else:
-            ok = not res["beyond"] and res["fault_beyond"]
+            ok = not res["beyond"] and "dq" in res["fault_beyond"]
         emit("f32_precision", geometry=f"k3_{label}", B=B, N=N, H=H, D=d,
              factor=PRECISION_FACTOR, nvidia_smi=smi, **res)
         if not ok:
@@ -1396,7 +1400,8 @@ def time_mh_kernels(q, k, v, b, H, D) -> dict:
 def check_mh_kernels(q, k, v, b, H, scale: float) -> dict:
     """check_kernels for K3 on q, k, v and the bias row b (or None): the
     bounds, in bf16 the backward's prep pass too, the planted faults (with a
-    bias also the kernels' outputs without it) rejected, and masked kv rows
+    bias also the kernels' outputs without it; in f32 with a one-column
+    sample also dQ moved on that sample's rows) rejected, and masked kv rows
     with exactly zero dK/dV."""
     got, want = mh_attention_against_plain(q, k, v, b, H, scale)
     torch.cuda.synchronize()
@@ -1409,8 +1414,8 @@ def check_mh_kernels(q, k, v, b, H, scale: float) -> dict:
     if b is not None:
         ignored, _ = mh_attention_against_plain(q, k, v, None, H, scale)
     res["planted"] = {}
-    for fault, outputs in split_faults(planted_faults(got, ignored), got, H,
-                                       q.shape[-1] // H).items():
+    for fault, outputs in split_faults(planted_faults(got, ignored, want),
+                                       got, H, q.shape[-1] // H).items():
         caught = compare_with_plain(outputs, want)
         if not caught["beyond_bounds"]:
             raise AssertionError(f"the bounds let a planted fault pass: "

@@ -64,16 +64,18 @@
 //     columns over the grid, each group forming S (and dP) again; the
 //     MCA's 2 and 1 heads (D = 384, 768) and ViT-L's 3 (341, padded to 384)
 //     run there.
-//   - The f32 forward and dK/dV at D = 192 and 256 (the parity path's MCA,
-//     and K1/K2's f32 at those widths) are wgmma_tf32_wide.cuh's: products
-//     in 3xTF32 on wgmma (each operand split into TF32 hi and lo, lo.hi +
-//     hi.lo + hi.hi in f32: as accurate as f32), fed by TMA, with D
-//     streamed in 64-column chunks beside one resident (hi, lo) strip, and
-//     dK and dV written by separate blocks. The other f32 kernels (every
-//     kernel up to D = 128, and dQ at every D) use FMAs (flash_tiles.cuh):
-//     above D = 128 their tiles shrink to 32 rows so that a padded tile (32
-//     x 257 f32, 33 KB) leaves room for the rest. All tiles above 48 KB are
-//     dynamic shared memory.
+//   - The f32 dQ at every D up to 256, and the f32 forward and dK/dV at D
+//     = 192 and 256 (the parity path's MCA, and K1/K2's f32 at those
+//     widths; K2's f32 dQ at every D), run products in 3xTF32 on wgmma
+//     (each operand split into TF32 hi and lo, lo.hi + hi.lo + hi.hi in
+//     f32: as accurate as f32), fed by TMA: dQ up to 128 is
+//     wgmma_tf32_dq.cuh's narrow kernel (q * q_scale and dO resident as
+//     (hi, lo) pairs, K, V and K transposed streamed, a bias flag), the
+//     rest wgmma_tf32_wide.cuh's, with D streamed in 64-column chunks
+//     beside one resident (hi, lo) strip, and dK and dV written by
+//     separate blocks. The f32 forward and dK/dV up to D = 128 use FMAs
+//     (flash_tiles.cuh, 64 x 64 tiles). All tiles above 48 KB are dynamic
+//     shared memory.
 // Ragged N is masked in-kernel (kv columns >= N score -inf, q rows >= N carry
 // +inf LSE in the backward and are never stored); nothing is padded in HBM.
 //
@@ -93,6 +95,7 @@
 #include "wgmma_attn_bwd.cuh"
 #include "wgmma_attn_split.cuh"
 #include "wgmma_attn_wide.cuh"
+#include "wgmma_tf32_dq.cuh"
 #include "wgmma_tf32_wide.cuh"
 #include "wgmma_tiles.cuh"
 
@@ -201,84 +204,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, int BQ, int BK>
-constexpr size_t smem_dq_f32() {
-  return ((size_t)(2 * BQ + 2 * BK) * (D + 1) + BQ * (BK + 1) + 2 * BQ +
-          BK) * sizeof(float);
-}
-
-// Grid (ceil(N / BQ), B * H). One block: one head's BQ query rows; loops
-// over all kv tiles and accumulates dQ = dS (K * scale) in registers; dq at
-// row stride lddq.
-template <int D, int BQ, int BK>
-__global__ void __launch_bounds__(kThreads)
-    mh_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v,
-                  const float* __restrict__ bias,
-                  const float* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, float* __restrict__ dq,
-                  int N, int H, int ldq, int ldk, int ldv, int lddq,
-                  float q_scale, float k_scale) {
-  constexpr int I = BQ / 16, JS = BK / 16, JO = D / 16, LD = D + 1,
-                LDP = BK + 1;
-  extern __shared__ float fsmem[];
-  float* sQ = fsmem;
-  float* sdO = sQ + BQ * LD;
-  float* sK = sdO + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sdS = sV + BK * LD;
-  float* sLse = sdS + BQ * LDP;
-  float* sDelta = sLse + BQ;
-  float* sB = sDelta + BQ;
-  const int A = H * D;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* kb = k + (size_t)b * N * ldk + h * D;
-  const float* vb = v + (size_t)b * N * ldv + h * D;
-  const float* bb = bias ? bias + (size_t)b * N : nullptr;
-
-  load_f32<BQ, D>(sQ, q + (size_t)b * N * ldq + h * D, q0, N, ldq, q_scale);
-  load_f32<BQ, D>(sdO, dout + (size_t)b * N * A + h * D, q0, N, A, 1.f);
-  load_stats(sLse, sDelta, lse + (size_t)bh * N, delta + (size_t)bh * N, q0,
-             N, BQ);
-  float acc[I][JO] = {};
-
-  for (int k0 = 0; k0 < N; k0 += BK) {
-    __syncthreads();  // the q side is written / the last tile is consumed
-    load_f32<BK, D>(sK, kb, k0, N, ldk, 1.f);
-    load_f32<BK, D>(sV, vb, k0, N, ldv, 1.f);
-    load_bias(sB, bb, k0, N, BK);
-    __syncthreads();
-    float s[I][JS] = {}, dp[I][JS] = {};
-    gemm<I, JS, D, LD, 1, 1, LD>(s, sQ, sK, ty, tx, 1.f);
-    gemm<I, JS, D, LD, 1, 1, LD>(dp, sdO, sV, ty, tx, 1.f);
-#pragma unroll
-    for (int i = 0; i < I; ++i) {
-      const int r = I * ty + i;
-#pragma unroll
-      for (int j = 0; j < JS; ++j) {
-        const int c = tx + 16 * j;
-        // columns >= N carry -inf bias, rows >= N +inf LSE: p = 0
-        const float p = expf(s[i][j] + sB[c] - sLse[r]);
-        sdS[r * LDP + c] = p * (dp[i][j] - sDelta[r]);
-      }
-    }
-    __syncthreads();
-    gemm<I, JO, BK, LDP, 1, LD, 1>(acc, sdS, sK, ty, tx, k_scale);
-  }
-
-#pragma unroll
-  for (int i = 0; i < I; ++i) {
-    const int row = q0 + I * ty + i;
-    if (row >= N) continue;
-    float* dst = dq + ((size_t)b * N + row) * lddq + h * D + tx;
-#pragma unroll
-    for (int j = 0; j < JO; ++j) dst[16 * j] = acc[i][j];
-  }
-}
-
 template <int D, int BKV, int BQ>
 constexpr size_t smem_dkv_f32() {
   return ((size_t)(2 * BKV + 2 * BQ) * (D + 1) + 2 * BKV * (BQ + 1) +
@@ -375,10 +300,8 @@ bool bad(int B, int N, int H, int ldq, int ldk, int ldv, int A) {
          ldv < A;
 }
 
-// Tiles of the f32 FMA kernels: 64 x 64 up to D = 128, 32 x 32 above (a
-// padded 32 x 257 f32 tile is 33 KB; there only dQ runs on FMAs).
-template <int D>
-constexpr int stream_rows() { return D <= 128 ? 64 : 32; }
+// Tiles of the f32 FMA kernels (the forward and dK/dV up to D = 128).
+constexpr int kFmaRows = 64;
 
 // A (B, N, A) bf16 operand at row stride ld, boxes of box_cols<D>().
 template <int D>
@@ -405,7 +328,7 @@ int fwd(const void* q, const void* k, const void* v, const float* bias,
     return launch_fwd_tf32<D>(q, k, v, bias, out, lse, B, N, H, ldq, ldk,
                               ldv, q_scale, st);
   } else {
-    constexpr int T = stream_rows<D>();
+    constexpr int T = kFmaRows;
     constexpr size_t smem = smem_fwd_f32<D, T, T>();
     auto kernel = mh_fwd_f32<D, T, T>;
     if (int e = max_smem((const void*)kernel, smem)) return e;
@@ -457,7 +380,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const float* bias,
     return launch_dkv_tf32<D>(q, k, v, bias, dout, lse, delta, dk, dv, B, N,
                               H, ldq, ldk, ldv, lddkv, q_scale, st);
   } else {
-    constexpr int T = stream_rows<D>();
+    constexpr int T = kFmaRows;
     constexpr size_t smem = smem_dkv_f32<D, T, T>();
     auto kernel = mh_bwd_dkv_f32<D, T, T>;
     if (int e = max_smem((const void*)kernel, smem)) return e;
@@ -497,16 +420,10 @@ int bwd_dq(const void* q, const void* k, const void* v, const float* bias,
                                        dq, lddq, B, N, H, k_scale, st);
     }
   }
-  constexpr int T = stream_rows<D>();
-  constexpr size_t smem = smem_dq_f32<D, T, T>();
-  auto kernel = mh_bwd_dq_f32<D, T, T>;
-  if (int e = max_smem((const void*)kernel, smem)) return e;
-  kernel<<<dim3(cdiv(N, T), B * H), kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), bias, static_cast<const float*>(dout),
-      lse, delta, static_cast<float*>(dq), N, H, ldq, ldk, ldv, lddq,
-      q_scale, k_scale);
-  return 0;
+  // f32: 3xTF32 on wgmma at every D, the narrow kernel up to 128 (its bias
+  // flag set by a non-null bias), D streamed in chunks at 192 and 256
+  return launch_dq_tf32<D>(q, k, v, bias, dout, lse, delta, dq, B, N, H,
+                           ldq, ldk, ldv, lddq, q_scale, k_scale, st);
 }
 
 // ---- above head dim 256: the column-split kernels, D at run time ----------
@@ -555,10 +472,10 @@ int split_dq(const void* q, const void* k, const void* v, const float* bias,
 // for arguments the kernels do not take (a head dim up to 256 that is not
 // built, or one above it that is no multiple of 64). `bf16` selects
 // __nv_bfloat16 (the tensor-core kernels) over float (3xTF32 on the tensor
-// cores for the forward and dK/dV at head dims 192 and 256, FMAs for the
-// rest). q_scale and k_scale are already rounded to the element type; rows
-// must be 16-byte aligned (bf16, and f32 at 192 and 256, where TMA reads
-// them). ld* are row strides in elements;
+// cores for dQ, and for the forward and dK/dV at head dims 192 and 256;
+// FMAs for the forward and dK/dV up to 128). q_scale and k_scale are
+// already rounded to the element type; rows must be 16-byte aligned (TMA
+// reads them). ld* are row strides in elements;
 // dout and out are (B, N, H*D) contiguous; lse and delta (B, H, N) f32;
 // bias (B, N) f32 or null. qkv_flash_attention.cu calls these four above
 // head dim 128 with q, k and v (and dk, dv, dq) as column views of the
@@ -635,8 +552,8 @@ extern "C" int mh_attn_bwd_dkv(const void* q, const void* k, const void* v,
 }
 
 // bf16: delta, qs and (up to D = 128 and above 256, unless k_scale is a
-// power of two) ks come from mh_attn_bwd_prep; f32: qs and ks are null. dq at row stride
-// lddq.
+// power of two) ks come from mh_attn_bwd_prep; f32: qs and ks are null,
+// delta is the caller's reduction. dq at row stride lddq.
 extern "C" int mh_attn_bwd_dq(const void* q, const void* k, const void* v,
                               const void* bias, const void* dout,
                               const void* lse, const void* delta,

@@ -29,7 +29,7 @@
 // D: right first, not tuned (D = 128 holds an O accumulator twice D = 64's).
 // At D = 192 and 256 a thread's registers cannot hold q's fragments beside
 // the 64 x D output, nor dK/dV's two accumulators: those head dims run K3's
-// strip kernels (wgmma_attn_wide.cuh; in f32 the forward and dK/dV are
+// strip kernels (wgmma_attn_wide.cuh; in f32 the forward, dK/dV and dQ are
 // wgmma_tf32_wide.cuh's 3xTF32 kernels with D streamed in 64-column chunks)
 // through K3's entry points (mh_flash_attention.cu), which take q, k and v
 // as row-strided column views of the fused qkv and write dK, dV and dQ into
@@ -75,12 +75,12 @@
 //     reads a scaled copy that the prep pass writes. The split into dK/dV
 //     over kv tiles and dQ over q tiles keeps one writer per output: no
 //     atomics, deterministic sums, 7 products in all.
-//   - The f32 forward and dK/dV (K1, K2; redesigned for Hopper, built on
-//     wgmma_tf32.cuh) replace the FMA kernels, which kept f32 off the
+//   - The f32 forward, dK/dV and dQ (K1, K2; redesigned for Hopper, built
+//     on wgmma_tf32.cuh) replace the FMA kernels, which kept f32 off the
 //     tensor cores because TF32 rounds it: each thread's 4 x 4 micro-tile
 //     read 8 shared-memory words for every 16 FMAs, tiles loaded between
-//     two __syncthreads, and dK/dV formed delta again for every q tile (O
-//     read ceil(N / 64) times). Both now
+//     two __syncthreads, and dK/dV and dQ formed delta again for every
+//     tile (O read ceil(N / 64) times). The forward and dK/dV here
 //     run their products in 3xTF32 on wgmma (each operand split into hi =
 //     rna(x) and lo = rna(x - hi), lo.hi + hi.lo + hi.hi in f32: as
 //     accurate as f32, at up to 495 / 3 TFLOP/s). A producer warpgroup
@@ -99,9 +99,10 @@
 //     Bound by operations at N >= 1568; the split passes' shared-memory
 //     traffic and the waits between a chain and the softmax keep them
 //     above the 3xTF32 bound (root PERF.md, section 6).
-//   - The f32 dQ stays on FMAs (flash_tiles.cuh: 4 x 4 micro-tiles, 16 x 16
-//     threads, shared-memory rows padded to D + 1 and 65 f32 values so the
-//     micro-tile reads are free of bank conflicts) and forms delta itself.
+//   - The f32 dQ runs K3's kernel (wgmma_tf32_dq.cuh, 3xTF32 on wgmma)
+//     through K3's entry point at every head dim, its bias flag off, on
+//     the column views of qkv, delta from fa.mh_delta: the TPU's f32 K2
+//     backward runs K3's _mh_dqkv_kernel too (its blocked fallback).
 //   The f32 card-against-CPU step checks of chip_smoke.py run these f32
 //   kernels; the bf16 kernels are held against their plain versions on
 //   their own (mofo_tpu_torch/tools/main_path.py's bounds) and in a bf16
@@ -120,8 +121,8 @@
 //     1/log2(e)); f32 works in base e. Forward and backward always agree;
 //   - in bf16, dS is the bf16 product of P with the f32 difference
 //     (dP - delta) rounded to bf16; in f32 it is P * (dP - delta);
-//   - f32 products are 3xTF32 (forward, dK/dV) or f32 FMAs (dQ), each
-//     within a few times the plain f32 version's error against float64.
+//   - f32 products are 3xTF32, each output within a few times the plain
+//     f32 version's error against float64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -129,7 +130,6 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include "flash_tiles.cuh"
 #include "wgmma_attn_bwd.cuh"
 #include "wgmma_attn_split.cuh"
 #include "wgmma_tf32.cuh"
@@ -169,51 +169,6 @@ constexpr int kRows = 64;  // rows of every tile (q and kv)
 // a (hi, lo) TF32 pair, as loaded or transposed. The consumer warpgroups
 // run the products on the pairs.
 // -------------------------------------------------------------------------
-
-// 104 registers a producer thread, 200 a consumer thread: 104 x 128 + 200
-// x 256 = 168 x 384. A transposed split holds 32 values across its barrier
-// and their addresses: at D = 64 a producer spilled 68-260 bytes with 40 to
-// 88 registers, none with 104; the consumers need fewer than 200.
-__device__ __forceinline__ void producer_registers_f32() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 104;\n" ::: "memory");
-}
-__device__ __forceinline__ void consumer_registers_f32() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n" ::: "memory");
-}
-
-// The output columns of one product chain into a fresh accumulator: all D
-// up to 64, 64 at D = 128 (two chains, one per 64-row half of the B tile).
-template <int D>
-__host__ __device__ constexpr int chain_cols() {
-  return D < 64 ? D : 64;
-}
-
-// acc[64 g / 8 + ...] += the product chain of `chain` into a fresh f32
-// accumulator (chain(t, desc_offset) issues it; desc_offset moves B's
-// descriptors to the rows of group g), group by group of chain_cols<D>()
-// output columns: the tensor cores' own accumulation truncates, so a long
-// sum (over N) runs in registers in f32, and each chain sums only one
-// tile's products.
-template <int D, typename Chain>
-__device__ __forceinline__ void add_fresh(float (&acc)[D / 8][4],
-                                          Chain chain) {
-  constexpr int NG = chain_cols<D>() / 8;
-#pragma unroll
-  for (int grp = 0; grp < D / 8 / NG; ++grp) {
-    float t[NG][4] = {};
-    wgmma_fence();
-    chain(t, (uint64_t)grp * (kRows * 128 >> 4));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_acc(t);
-#pragma unroll
-    for (int nt = 0; nt < NG; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[grp * NG + nt][e] += t[nt][e];
-  }
-}
-
-constexpr int kProducerBar = 1;  // named barriers: 1, and 2 + warpgroup
 
 // The f32 forward's block at head dim D: kWGs consumer warpgroups of 64
 // query rows (one at D = 128, where two O accumulators and two warpgroups'
@@ -637,126 +592,6 @@ __global__ void __launch_bounds__(DkvF32<D>::kThreads, 1)
 }
 
 // -------------------------------------------------------------------------
-// f32 dQ (K2): FMA kernel (flash_tiles.cuh's 256 threads as 16 x 16). A
-// 64 x 64 score tile is a 4 x 4 micro-tile a thread, rows 4*ty + i,
-// columns tx + 16*j; the 64 x D dQ tile a 4 x D/16 one.
-// -------------------------------------------------------------------------
-
-constexpr int kLdS = kRows + 1;  // padded row stride of the score tiles
-
-// P and dS of one (q tile, kv tile) pair from the thread's score and dP
-// micro-tiles, in place. kv columns >= N and q rows with +inf LSE get
-// p = 0 and so ds = 0.
-__device__ __forceinline__ void p_and_ds_f32(float (&s)[4][4],
-                                             float (&dp)[4][4],
-                                             const float* sLse,
-                                             const float* sDelta, int k0,
-                                             int N, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float p = k0 + tx + 16 * j < N ? expf(s[i][j] - sLse[r]) : 0.f;
-      s[i][j] = p;
-      dp[i][j] = p * (dp[i][j] - sDelta[r]);
-    }
-  }
-}
-
-// Loads one q tile's scaled q and dO, its LSE (+inf on rows >= N) and
-// computes its delta = rowsum(dO * O), O read from device memory.
-template <int D>
-__device__ __forceinline__ void load_q_side_f32(
-    float* sQ, float* sdO, float* sLse, float* sDelta, const float* qkv_b,
-    const float* out_b, const float* dout_b, const float* lse_bh, int q0,
-    int N, int A, int h, float q_scale) {
-  load_f32<kRows, D>(sQ, qkv_b + h * D, q0, N, 3 * A, q_scale);
-  load_f32<kRows, D>(sdO, dout_b + h * D, q0, N, A, 1.f);
-  if (threadIdx.x < kRows) {
-    const int row = q0 + threadIdx.x;
-    sLse[threadIdx.x] = row < N ? lse_bh[row] : INFINITY;
-  }
-  __syncthreads();
-  // four threads to a row
-  const int r = threadIdx.x / 4, part = threadIdx.x % 4, row = q0 + r;
-  float acc = 0.f;
-  if (row < N) {
-    const float* o = out_b + (size_t)row * A + h * D;
-#pragma unroll
-    for (int c = part * (D / 4); c < (part + 1) * (D / 4); ++c)
-      acc = fmaf(sdO[r * (D + 1) + c], o[c], acc);
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-  if (part == 0) sDelta[r] = acc;
-}
-
-template <int D>
-constexpr size_t smem_dq_f32() {
-  return ((size_t)5 * kRows * (D + 1) + kRows * kLdS + 2 * kRows) *
-         sizeof(float);
-}
-
-// Grid (ceil(N / 64), B * H). One block: one head's 64 query rows; loops
-// over all kv tiles and accumulates dQ in registers.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    bwd_dq_f32(const float* __restrict__ qkv, const float* __restrict__ out,
-               const float* __restrict__ lse, const float* __restrict__ dout,
-               float* __restrict__ dqkv, int N, int H, float q_scale,
-               float k_scale) {
-  constexpr int LD = D + 1, JO = D / 16;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sdO = sQ + kRows * LD;
-  float* sK = sdO + kRows * LD;
-  float* sKs = sK + kRows * LD;
-  float* sV = sKs + kRows * LD;
-  float* sdS = sV + kRows * LD;
-  float* sLse = sdS + kRows * kLdS;
-  float* sDelta = sLse + kRows;
-  const int A = H * D, ld = 3 * A;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kRows;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* qkv_b = qkv + (size_t)b * N * ld;
-
-  load_q_side_f32<D>(sQ, sdO, sLse, sDelta, qkv_b, out + (size_t)b * N * A,
-                     dout + (size_t)b * N * A, lse + (size_t)bh * N, q0, N,
-                     A, h, q_scale);
-  float dq[4][JO] = {};
-
-  for (int k0 = 0; k0 < N; k0 += kRows) {
-    __syncthreads();  // delta is written / the previous kv tile is consumed
-    load_f32<kRows, D>(sK, qkv_b + A + h * D, k0, N, ld, 1.f);
-    load_f32<kRows, D>(sKs, qkv_b + A + h * D, k0, N, ld, k_scale);
-    load_f32<kRows, D>(sV, qkv_b + 2 * A + h * D, k0, N, ld, 1.f);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    gemm<4, 4, D, LD, 1, 1, LD>(s, sQ, sK, ty, tx, 1.f);
-    gemm<4, 4, D, LD, 1, 1, LD>(dp, sdO, sV, ty, tx, 1.f);
-    p_and_ds_f32(s, dp, sLse, sDelta, k0, N, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        sdS[(4 * ty + i) * kLdS + tx + 16 * j] = dp[i][j];
-    __syncthreads();
-    gemm<4, JO, kRows, kLdS, 1, LD, 1>(dq, sdS, sKs, ty, tx, 1.f);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= N) continue;
-    float* dst = dqkv + ((size_t)b * N + row) * ld + h * D + tx;
-#pragma unroll
-    for (int j = 0; j < JO; ++j) dst[16 * j] = dq[i][j];
-  }
-}
-
-// -------------------------------------------------------------------------
 // bf16 forward (K1), redesigned for Hopper (wgmma_tiles.cuh). A warp's 16
 // accumulator rows are in mma.sync's m16n8 layout (g = lane / 4, t = lane %
 // 4): c[nt] holds rows g (c0, c1) and g + 8 (c2, c3), columns 8 nt + 2t and
@@ -906,10 +741,6 @@ __global__ void __launch_bounds__(kHopperThreads, 1)
 // -------------------------------------------------------------------------
 // Launchers
 // -------------------------------------------------------------------------
-
-dim3 grid_for(int B, int N, int H) {
-  return dim3((N + kRows - 1) / kRows, B * H);
-}
 
 bool bad(int B, int N, int H) {
   return B < 1 || N < 1 || H < 1 || (long)B * H > 65535;
@@ -1069,7 +900,12 @@ int run_dq(const void* qkv, const void* out, const void* lse,
   if constexpr (D > 128) {
     return k3_dq(qkv, lse, dout, delta, qs, ks, dqkv, B, N, H, D, q_scale,
                  k_scale, is_bf16, st);
-  } else if (is_bf16) {
+  } else if (!is_bf16) {
+    // f32: K3's 3xTF32 dQ (wgmma_tf32_dq.cuh) with its bias flag off, on
+    // the column views; delta is the caller's (fa.mh_delta)
+    return k3_dq(qkv, lse, dout, delta, qs, ks, dqkv, B, N, H, D, q_scale,
+                 k_scale, is_bf16, st);
+  } else {
     if (!delta || !qs) return kBadArgument;
     const int A = H * D;
     CUtensorMap tqkv, tqs, tdo, tks;
@@ -1081,15 +917,6 @@ int run_dq(const void* qkv, const void* out, const void* lse,
                                           ks ? &tks : nullptr, A, 2 * A, lse,
                                           delta, nullptr, dqkv, 3 * A, B, N,
                                           H, k_scale, st);
-  } else {
-    constexpr size_t smem = smem_dq_f32<D>();
-    auto kernel = bwd_dq_f32<D>;
-    if (int e = max_smem((const void*)kernel, smem)) return e;
-    kernel<<<grid_for(B, N, H), kThreads, smem, st>>>(
-        static_cast<const float*>(qkv), static_cast<const float*>(out),
-        static_cast<const float*>(lse), static_cast<const float*>(dout),
-        static_cast<float*>(dqkv), N, H, q_scale, k_scale);
-    return 0;
   }
 }
 
@@ -1163,8 +990,8 @@ extern "C" int qkv_attn_bwd_dkv(const void* qkv, const void* out,
 }
 
 // bf16: delta, qs and (up to D = 128, unless k_scale is a power of two) ks
-// come from qkv_attn_bwd_prep; f32: qs and ks are null, and up to D = 128
-// the FMA kernel forms delta from out and qkv (above it K3's reads delta).
+// come from qkv_attn_bwd_prep; f32: qs and ks are null, delta comes from
+// fa.mh_delta and K3's dQ kernels read it (out is not read).
 extern "C" int qkv_attn_bwd_dq(const void* qkv, const void* out,
                                const void* lse, const void* dout,
                                const void* delta, const void* qs,

@@ -1,10 +1,12 @@
 // Hopper building blocks of the f32 attention kernels on the tensor cores
 // (qkv_flash_attention.cu's K1 forward and K2 dK/dV in f32 up to head dim
-// 128, and wgmma_tf32_wide.cuh's K3 forward and dK/dV at 192 and 256, which
+// 128, wgmma_tf32_dq.cuh's dQ of K3 and K2 up to 128, and
+// wgmma_tf32_wide.cuh's K3 forward, dK/dV and dQ at 192 and 256, which
 // K1/K2 reach through K3's entry points): products in 3xTF32 on wgmma, f32
-// tiles loaded by TMA, and the passes that split a tile into its TF32
-// parts. Everything is in an anonymous namespace: each
-// source that includes it gets its own copy.
+// tiles loaded by TMA, the passes that split a tile into its TF32 parts,
+// and the blocks' register split and fresh-accumulator chains. Everything
+// is in an anonymous namespace: each source that includes it gets its own
+// copy.
 //
 // 3xTF32. wgmma takes f32 operands as TF32 (10 explicit mantissa bits), at
 // 495 TFLOP/s dense against 67 TFLOP/s for f32 FMAs. Each operand x is
@@ -138,6 +140,53 @@ __device__ __forceinline__ void fence_frag(uint32_t (&a)[KS][4]) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
+
+// --- the f32 kernels' blocks -----------------------------------------------------
+
+// 104 registers a producer thread, 200 a consumer thread: 104 x 128 + 200
+// x 256 = 168 x 384. A transposed split holds 32 values across its barrier
+// and their addresses: at D = 64 a producer spilled 68-260 bytes with 40 to
+// 88 registers, none with 104; the consumers need fewer than 200.
+__device__ __forceinline__ void producer_registers_f32() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 104;\n" ::: "memory");
+}
+__device__ __forceinline__ void consumer_registers_f32() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n" ::: "memory");
+}
+
+// The output columns of one product chain into a fresh accumulator: all D
+// up to 64, 64 at D = 128 (two chains, one per 64-row half of the B tile).
+template <int D>
+__host__ __device__ constexpr int chain_cols() {
+  return D < 64 ? D : 64;
+}
+
+// acc[64 g / 8 + ...] += the product chain of `chain` into a fresh f32
+// accumulator (chain(t, desc_offset) issues it; desc_offset moves B's
+// descriptors to the rows of group g), group by group of chain_cols<D>()
+// output columns: the tensor cores' own accumulation truncates, so a long
+// sum (over N) runs in registers in f32, and each chain sums only one
+// tile's products.
+template <int D, typename Chain>
+__device__ __forceinline__ void add_fresh(float (&acc)[D / 8][4],
+                                          Chain chain) {
+  constexpr int NG = chain_cols<D>() / 8;
+#pragma unroll
+  for (int grp = 0; grp < D / 8 / NG; ++grp) {
+    float t[NG][4] = {};
+    wgmma_fence();
+    chain(t, (uint64_t)grp * (kTileRows * 128 >> 4));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(t);
+#pragma unroll
+    for (int nt = 0; nt < NG; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[grp * NG + nt][e] += t[nt][e];
+  }
+}
+
+constexpr int kProducerBar = 1;  // named barriers: 1, and 2 + warpgroup
 
 // --- the split passes (one warpgroup: index p in [0, 128)) -------------------
 

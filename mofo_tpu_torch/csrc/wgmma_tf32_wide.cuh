@@ -1,10 +1,10 @@
-// K3's f32 forward and dK/dV at head dims 192 and 256 for Hopper: products
-// in 3xTF32 on wgmma (wgmma_tf32.cuh's splits, descriptors and products),
-// fed by TMA, with D streamed in 64-column chunks. mh_flash_attention.cu
-// runs them for K3 and, through K3's entry points, for K1/K2 above head dim
-// 128 (q, k and v column views of the fused qkv). They replace the FMA
-// kernels mh_fwd_f32 and mh_bwd_dkv_f32 at these widths; K3's f32 dQ stays
-// on FMAs.
+// K3's f32 forward, dK/dV and dQ at head dims 192 and 256 for Hopper:
+// products in 3xTF32 on wgmma (wgmma_tf32.cuh's splits, descriptors and
+// products), fed by TMA, with D streamed in 64-column chunks.
+// mh_flash_attention.cu runs them for K3 and, through K3's entry points,
+// for K1/K2 above head dim 128 (q, k and v column views of the fused qkv).
+// They replace the FMA kernels mh_fwd_f32, mh_bwd_dkv_f32 and
+// mh_bwd_dq_f32 at these widths (dQ up to 128 is wgmma_tf32_dq.cuh's).
 //
 // Why chunks. A 64 x D f32 (hi, lo) pair is 512 D bytes: 128 KB at D = 256.
 // A block can keep one such strip in its 227 KB of shared memory, not two,
@@ -42,11 +42,28 @@
 //     64), and 384 threads leave the producer 64 registers. The dK block
 //     forms dP^T before S^T, so dP^T's tile, S^T's and a fresh accumulator
 //     are live together (224 registers), not P^T's besides.
+//   - The dQ kernel: a block owns 64 query rows of one head; 64 x D of dQ
+//     is 128 registers at D = 256. S = (q * q_scale) K^T needs q * q_scale
+//     over all of D and dP = dO V^T needs dO over all of D: two resident
+//     (hi, lo) strips would take 256 KB at D = 256. So q * q_scale stays
+//     the resident strip (the A operand of S), and dO is streamed again
+//     with each kv tile as ring entries beside V, K and K transposed: the
+//     walk of the dK block with q and K trading places (dO's chunks are
+//     this block's rows, V's and K's the tile's). For each kv tile: V and
+//     dO chunks in turn (dP, one k-step a chain), K's chunks as loaded (S),
+//     then K * k_scale transposed (dQ_c += dS (K * k_scale)_c). 3 D / 64
+//     chunk products a kv tile, the floor; the cost of the layout is D /
+//     64 more splits a tile (dO's, again) and dO's bytes read again from
+//     L2. The other choice, q * q_scale and dO resident as raw f32 strips
+//     (128 KB) with each chunk's A fragments split in registers, would put
+//     a chunk's 64 fragment registers beside the 224 above. The registers
+//     are the dK block's: dQ, dP's tile, S's and a fresh accumulator (224),
+//     then dS's (hi, lo) fragments and a fresh accumulator beside dQ.
 //
 // Shared memory at D = 256 (D = 192): 1024 bytes of alignment, the (hi,
 // lo) strip 131,072 (98,304), the ring 98,304 (131,072), 1 KB of per-tile
-// values (the forward's bias row, the backward's LSE and delta, two tiles
-// deep) and the barriers: 231,480 (231,496) bytes of 232,448.
+// values (the forward's and dQ's bias row, dK/dV's LSE and delta, two
+// tiles deep) and the barriers: 231,480 (231,496) bytes of 232,448.
 //
 // The ring. Entry e of the walk lives in slot e % kEntries. Its TMA load
 // (16 KB of raw f32 into the entry's hi tile, or into its lo tile when the
@@ -76,8 +93,9 @@
 // f32, the (B, N) bias added after the fold (kv columns >= N score -inf),
 // base e, P not rounded, 1 / l dividing the output; dS^T = P^T (dP^T -
 // delta) with delta (B, H, N) from the caller (fa.mh_delta); dK needs no
-// fix in base e. Rows past N arrive as zeros from TMA; q rows >= N carry
-// +inf LSE in the backward (P = 0) and are never stored.
+// fix in base e; dQ takes K * k_scale (k times the true scale), scaled
+// before its split. Rows past N arrive as zeros from TMA; q rows >= N
+// carry +inf LSE in the backward (P = 0) and are never stored.
 
 #pragma once
 
@@ -442,6 +460,8 @@ __host__ __device__ constexpr int wide_entries() {
 // transposed; the dK block (1) V chunk r / 2 and dO chunk r / 2 as loaded
 // in turn (r < 2 kC), q * q_scale chunk r - 2 kC as loaded, then chunk
 // r - 3 kC transposed. Which tensor: 0 q, 1 v, 2 dO; the chunk; transposed.
+// The dQ kernel walks a kv tile as the dK block walks a q tile, with K in
+// q's place (tensor 0: K, and K * k_scale when transposed).
 struct WideEntry {
   int tensor, chunk;
   bool transposed;
@@ -634,6 +654,152 @@ __global__ void __launch_bounds__(kWideThreads, 1)
 }
 
 // -------------------------------------------------------------------------
+// dQ
+// -------------------------------------------------------------------------
+
+// Grid (ceil(N / 64), B * H). One block: the 64 query rows x of one head
+// y against all N keys, streamed in 64-row tiles; dQ at row stride lddq;
+// delta (B, H, N) from the caller. The walk of kv tile j (kEPT = 4 kC
+// entries from e0 = kEPT j, wide_entry<kC, 1> with K for q): V_j and dO
+// chunks in turn, K_j's chunks as loaded, then K_j * k_scale's chunks
+// transposed; the tile's first entry stages its bias row (-inf past N).
+template <int D>
+__global__ void __launch_bounds__(kWideThreads, 1)
+    mh_dq_tf32(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ bias, const float* __restrict__ lse,
+               const float* __restrict__ delta, float* __restrict__ dq,
+               int lddq, int N, int H, float q_scale, float k_scale) {
+  using P = WideF32<D>;
+  constexpr int kC = P::kC, kE = P::kEntries;
+  constexpr int kEPT = wide_entries<kC, 1>();
+  extern __shared__ unsigned char wsmem[];
+  float* sQ = reinterpret_cast<float*>(smem_1024(wsmem));  // hi, then lo
+  float* sE = sQ + 2 * P::kStrip;
+  float* sBias = sE + kE * kPairElems;  // [tile parity][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sBias + P::kSide);
+  uint64_t* qbar = bars + 2 * kE;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * kChunk;
+  const int T = (N + kChunk - 1) / kChunk;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const WideRing<kE> ring = wide_ring<kE>(sE, bars, kEPT * T);
+  auto load = [&](int e, float* hi, uint64_t* bar) {
+    const WideEntry w = wide_entry<kC, 1>(e % kEPT);
+    // dO's chunks are this block's q rows; K's and V's the tile's
+    tma_f32<kChunk, kChunk, kChunk>(
+        hi + (w.transposed ? kChunkElems : 0),
+        w.tensor == 0 ? &tk : w.tensor == 1 ? &tv : &tdo, bar,
+        h * D + kChunk * w.chunk, w.tensor == 2 ? q0 : e / kEPT * kChunk,
+        b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(qbar, P::kStrip * sizeof(float));
+    tma_f32<kChunk, D, kChunk>(sQ, &tq, qbar, h * D, q0, b);
+    for (int e = 0; e < kE; ++e) ring_issue(ring, e, load);
+  }
+
+  if (warp >= 4) {  // producer
+    const float* bias_b = bias ? bias + (size_t)b * N : nullptr;
+    produce(
+        ring, threadIdx.x - kWarpgroup,
+        [&](int e) { return wide_entry<kC, 1>(e % kEPT).transposed; },
+        [&](int e) {
+          return wide_entry<kC, 1>(e % kEPT).transposed ? k_scale : 1.f;
+        },
+        [&](int e, int p) {
+          const int j = e / kEPT;
+          if (e % kEPT == 0 && p < kChunk) {
+            const int col = j * kChunk + p;
+            sBias[(j & 1) * kChunk + p] =
+                col < N ? (bias_b ? bias_b[col] : 0.f) : -INFINITY;
+          }
+        });
+    return;
+  }
+
+  const int r0 = 16 * warp, g = lane >> 2, t = lane & 3;
+  float lse_r[2], delta_r[2];  // rows >= N: P = 0, dS = 0
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + r0 + g + 8 * half;
+    lse_r[half] = row < N ? lse[(size_t)bh * N + row] : INFINITY;
+    delta_r[half] = row < N ? delta[(size_t)bh * N + row] : 0.f;
+  }
+  mbar_wait(qbar, 0);
+  split_rows<kChunk, D>(sQ, sQ + P::kStrip, q_scale, threadIdx.x);
+  fence_proxy_async();
+  warpgroup_sync(kWideConsumerBar);
+  float acc[D / 8][4] = {};  // dQ
+
+  for (int j = 0; j < T; ++j) {
+    const int e0 = kEPT * j;
+    float dp[8][4], part[8][4];  // dP = dO V^T, a chunk's share
+    // kept rolled, as the dK block's walk
+#pragma unroll 1
+    for (int c = 0; c < kC; ++c) {
+      const float* vt = ring.wait(e0 + 2 * c);
+      const float* ot = ring.wait(e0 + 2 * c + 1);
+      add_dp_chunk(
+          dp, part, c, [&](int kk) { return chunk_k8(ot, kk); },
+          [&](int kk) { return chunk_k8(vt, kk); });
+      ring_refill(ring, e0 + 2 * c, 2, load);
+    }
+    // S = (q * q_scale) K^T over the chunks
+    float sc[8][4] = {};
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const float* kt = ring.wait(e0 + 2 * kC + c);
+      add_chunk(sc, 0, [&](auto& f) {
+        chain_ss(
+            f, [&](int kk) { return strip_k8<D>(sQ, c, kk); },
+            [&](int kk) { return chunk_k8(kt, kk); }, P::kStripLo, kChunkLo);
+      });
+      ring_refill(ring, e0 + 2 * kC + c, 1, load);
+    }
+    // the bias after the fold (-inf past N); P and dS = P (dP - delta)
+    const float* sb = sBias + (j & 1) * kChunk;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const float2 b2 = *reinterpret_cast<const float2*>(sb + 8 * nt + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pv = expf(sc[nt][e] + ((e & 1) ? b2.y : b2.x) -
+                              lse_r[e >> 1]);
+        dp[nt][e] = pv * (dp[nt][e] - delta_r[e >> 1]);
+      }
+    }
+    uint32_t ph[8][4], pl[8][4];  // dS, as (hi, lo)
+    acc_to_a(dp, ph, pl);
+    // dQ_c += dS (K * k_scale)_c, from the transposed chunks
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      const int e = e0 + 3 * kC + c;
+      const float* bt = ring.wait(e);
+      add_chunk(acc, c, [&](auto& f) {
+        chain_rs(f, ph, pl, [&](int kk) { return chunk_k8(bt, kk); });
+      });
+      fence_frag(ph);
+      fence_frag(pl);
+      ring_refill(ring, e, 1, load);
+    }
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = q0 + r0 + g + 8 * half;
+    if (row >= N) continue;
+    float* dst = dq + ((size_t)b * N + row) * lddq + h * D + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      *reinterpret_cast<float2*>(dst + 8 * nt) =
+          make_float2(acc[nt][2 * half], acc[nt][2 * half + 1]);
+  }
+}
+
+// -------------------------------------------------------------------------
 // Launchers
 // -------------------------------------------------------------------------
 
@@ -681,6 +847,27 @@ int launch_dkv_tf32(const void* q, const void* k, const void* v,
   kernel<<<dim3((N + kChunk - 1) / kChunk, B * H, 2), kWideThreads, smem,
            st>>>(tq, tk, tv, tdo, bias, lse, delta, static_cast<float*>(dk),
                  static_cast<float*>(dv), lddkv, N, H, q_scale);
+  return 0;
+}
+
+template <int D>
+int launch_dq_tf32_wide(const void* q, const void* k, const void* v,
+                        const float* bias, const void* dout, const float* lse,
+                        const float* delta, void* dq, int B, int N, int H,
+                        int ldq, int ldk, int ldv, int lddq, float q_scale,
+                        float k_scale, cudaStream_t st) {
+  const int A = H * D;
+  CUtensorMap tq, tk, tv, tdo;
+  if (int e = wide_map(&tq, q, B, N, A, ldq)) return e;
+  if (int e = wide_map(&tk, k, B, N, A, ldk)) return e;
+  if (int e = wide_map(&tv, v, B, N, A, ldv)) return e;
+  if (int e = wide_map(&tdo, dout, B, N, A, A)) return e;
+  constexpr size_t smem = WideF32<D>::smem();
+  auto kernel = mh_dq_tf32<D>;
+  if (int e = max_smem((const void*)kernel, smem)) return e;
+  kernel<<<dim3((N + kChunk - 1) / kChunk, B * H), kWideThreads, smem, st>>>(
+      tq, tk, tv, tdo, bias, lse, delta, static_cast<float*>(dq), lddq, N, H,
+      q_scale, k_scale);
   return 0;
 }
 

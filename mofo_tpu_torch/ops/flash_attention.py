@@ -37,11 +37,14 @@ Every bf16 kernel is a TMA + wgmma kernel (csrc/wgmma_tiles.cuh; the
 backwards up to head dim 128 share csrc/wgmma_attn_bwd.cuh, the K3 forward
 and every backward at 192 and 256 csrc/wgmma_attn_wide.cuh's strip
 kernels, every kernel above 256 csrc/wgmma_attn_split.cuh's column-split
-ones; K1/K2 reach both through K3's entry points). In f32, K1's forward
-and K2's dK/dV up to head dim 128 are TMA + wgmma kernels too, their
+ones; K1/K2 reach both through K3's entry points). In f32, K1's forward,
+K2's dK/dV and K2's and K3's dQ are TMA + wgmma kernels too, their
 products in 3xTF32 (csrc/wgmma_tf32.cuh: each operand split into two TF32
-parts, three TF32 products, as accurate as f32); K2's dQ, K3's and K4's
-f32 kernels run FMAs (above 256 flash_split_f32.cuh's column-split ones).
+parts, three TF32 products, as accurate as f32; dQ in wgmma_tf32_dq.cuh,
+K2's through K3's entry point), as are K3's forward and dK/dV at head dims
+192 and 256 (wgmma_tf32_wide.cuh); K3's forward and dK/dV up to 128 and
+K4's f32 kernels run FMAs (above 256 flash_split_f32.cuh's column-split
+ones).
 
 fp16 callers (the fp16 finetune) run the bf16 kernels: each public entry
 point casts f16 operands to bf16 and the output back to f16 inside autograd,
@@ -484,8 +487,7 @@ def qkv_attn_bwd_prep(qkv, out, dout, scale: float, heads: int):
 def _qkv_prep(qkv, out, dout, scale, heads):
     """(delta, qs, ks) of the backward kernels: the prep pass in bf16; in
     f32 (delta, None, None), delta from mh_delta's reduction, which the
-    dK/dV kernel reads (the f32 dQ kernel up to head dim 128 forms its own
-    from out; K3's kernels above it read this one)."""
+    dK/dV and dQ kernels read (out is not read by either)."""
     if qkv.dtype == torch.bfloat16:
         return qkv_attn_bwd_prep(qkv, out, dout, scale, heads)
     return mh_delta(out, dout, heads), None, None

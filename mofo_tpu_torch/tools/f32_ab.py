@@ -66,6 +66,11 @@ MEASUREMENTS = {
     "mca_bf16": ("k3", (10, 1568, 3, 256), "bfloat16"),
     "d256": ("qkv", (10, 1568, 3, 256), "float32"),
     "bb_step": ("bb_step", (10,), "float32"),
+    # K3 with the BB-focused MCA at 8 and 16 heads (D = 128 and 64, the
+    # narrow kernels) and at 2 heads (D = 384, the column-split kernels)
+    "mca_h8": ("k3", (10, 1568, 8, 128), "float32"),
+    "mca_h16": ("k3", (10, 1568, 16, 64), "float32"),
+    "mca_h2": ("k3", (10, 1568, 2, 384), "float32"),
 }
 CLASSIFIER = "vit_base_patch16_224_feature_ext"
 REPS = 3  # timed calls after one warm-up (model-level numbers)

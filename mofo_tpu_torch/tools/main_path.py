@@ -115,14 +115,15 @@ BF16_REL = 2.0 ** -6
 BF16_LSE_ATOL = 1e-4
 # the column-split kernels (head dims above 256): output columns a block
 SPLIT_GROUP = 256
-# f32 kernels whose products run in 3xTF32 (K1's forward, K2's dK/dV up
-# to head dim 128; K3's forward and dK/dV at 192 and 256, which K1/K2 reach):
-# against one float64 run, each of their outputs' max error may be at most
-# PRECISION_FACTOR times the plain f32 version's (TF32 off, the card's
-# default); the plain version with TF32 on (1xTF32) must miss that bound
+# f32 kernels whose products run in 3xTF32 (K1's forward, K2's dK/dV and
+# dQ up to head dim 128; K3's dQ at every head dim up to 256, its forward
+# and dK/dV at 192 and 256, which K1/K2 reach): against one float64 run,
+# each of their outputs' max error may be at most PRECISION_FACTOR times
+# the plain f32 version's (TF32 off, the card's default); the plain
+# version with TF32 on (1xTF32) must miss that bound
 PRECISION_FACTOR = 4.0
-# the outputs those kernels write: out and lse (forward), dk and dv
-TF32X3_OUTPUTS = ("out", "lse", "dk", "dv")
+# the outputs those kernels write: out and lse (forward), dq, dk and dv
+TF32X3_OUTPUTS = ("out", "lse", "dq", "dk", "dv")
 # the K2 and K4 prep passes: q * scale (and k * scale) bit-equal to the plain
 # version; delta, an f32 sum of D products taken in another order, within
 # PREP_DELTA_RTOL of its row's sum of |dO * O|
@@ -742,6 +743,24 @@ def mh_inputs(B: int, N: int, H: int, D: int, dtype: torch.dtype,
     return q, kv[..., :A], kv[..., A:], kv_bias
 
 
+def one_column_rows(q, kv_bias, heads: int) -> dict:
+    """The rows of each K3 output (OUTPUTS; a row: the last dim) that
+    compare_with_plain may hold to float64, taken from the inputs alone:
+    those of a sample in which every query attends one kv column with P =
+    1 (exactly one column unmasked by kv_bias, or N = 1; mh_inputs' sample
+    0). There dS = P (dP - delta) is rounding noise around 0, and dV sums
+    N like terms: dQ's rows are the sample's query rows, dK's and dV's its
+    kv rows. out and lse have none."""
+    B, N, _ = q.shape
+    cols = torch.full((B,), N) if kv_bias is None else \
+        (kv_bias == 0).sum(-1).cpu()
+    one = (cols == 1) | (N == 1)
+    rows = one[:, None].expand(B, N)
+    return {"out": torch.zeros(B, N, dtype=torch.bool),
+            "lse": torch.zeros(B, heads, N, dtype=torch.bool),
+            "dq": rows, "dk": rows, "dv": rows}
+
+
 def mh_attention_against_plain(q, k, v, kv_bias, heads: int, scale: float):
     """(got, want) of the K3 kernels (their plain versions on CPU tensors)
     and the plain versions on the same inputs; the backward takes the
@@ -764,6 +783,7 @@ def mh_attention_against_plain(q, k, v, kv_bias, heads: int, scale: float):
         exact.update(zip(("dq", "dk", "dv"), mh_backward_f64(
             q, k, v, kv_bias, out, lse, dout, scale, heads)))
         want["exact"] = exact
+        want["loose_rows"] = one_column_rows(q, kv_bias, heads)
     return got, want
 
 
@@ -809,14 +829,17 @@ def _max_abs(t: torch.Tensor) -> float:
 
 
 def f32_rows_beyond(got: torch.Tensor, plain: torch.Tensor, exact,
-                    atol: float) -> dict:
+                    atol: float, loose_rows=None) -> dict:
     """Holds an f32 output to its plain version row by row (a row: the last
     dim; pass the lse as lse[..., None]). Every element must be within
     `atol` of the plain version's, except in a row where the plain version
     itself is more than `atol` off the float64 answer `exact` (None: no
     such row): there the row's largest error against float64 may be at
-    most PRECISION_FACTOR times the plain version's. Returns the rows
-    beyond ("beyond") and the rows held to float64 ("held_to_f64").
+    most PRECISION_FACTOR times the plain version's. `loose_rows` (a bool
+    mask of the rows, from the inputs: one_column_rows) names the rows
+    that may be held so; a row held to float64 outside it counts as
+    beyond (None: any row may). Returns the rows beyond ("beyond"), the
+    rows held to float64 ("held_to_f64") and their mask ("held").
 
     Such a row is one whose entries are long sums of like terms, or
     cancel to rounding noise. In mh_inputs' sample 0 one kv column is
@@ -824,19 +847,23 @@ def f32_rows_beyond(got: torch.Tensor, plain: torch.Tensor, exact,
     row sums N like terms (with dout = 2 out, |dV| ~ 2N |v|; at the MCA
     ~7e3, where 5e-4 is under one f32 ulp), which the plain version sums
     in cuBLAS's order (0.16 off float64 at the MCA) and a tiled kernel in
-    another (0.0023); its dK row is dS^T q with dS = dP - delta, rounding
-    noise around 0 in either version. Every other row keeps `atol`
-    against the plain version."""
+    another (0.0023); its dK and dQ rows are products of dS = dP - delta,
+    rounding noise around 0 in either version. Every other row keeps
+    `atol` against the plain version."""
     g, p = got.double(), plain.double()
     off = (~((g - p).abs() <= atol)).any(-1)  # NaN is off too
     if exact is None:
-        return {"beyond": int(off.sum()), "held_to_f64": 0}
+        return {"beyond": int(off.sum()), "held_to_f64": 0,
+                "held": torch.zeros_like(off)}
     x = exact.to(g.device).double()
     p_err = (p - x).abs().amax(-1)
     loose = (p_err > atol) & \
         ((g - x).abs().amax(-1) <= PRECISION_FACTOR * p_err)
+    if loose_rows is not None:
+        loose &= loose_rows.to(loose.device)
+    held = off & loose
     return {"beyond": int((off & ~loose).sum()),
-            "held_to_f64": int((off & loose).sum())}
+            "held_to_f64": int(held.sum()), "held": held}
 
 
 def compare_with_plain(got: dict, want: dict) -> dict:
@@ -846,19 +873,21 @@ def compare_with_plain(got: dict, want: dict) -> dict:
     checks that failed. In f32 each output is held to F32_ATOL of the plain
     version's; where want carries "exact" (the float64 outputs on the same
     inputs; mh_attention_against_plain's f32 K3), row by row as
-    f32_rows_beyond holds it."""
+    f32_rows_beyond holds it, only the rows of want["loose_rows"] held to
+    float64."""
     err = {k: _max_abs(got[k].float() - want[k].float()) for k in OUTPUTS}
     res = {"max_abs_err": err,
            "max_abs_plain": {k: _max_abs(want[k]) for k in OUTPUTS}}
     if got["out"].dtype == torch.float32:
         exact = want.get("exact")
+        loose_rows = want.get("loose_rows", {})
 
         def rows(k, t):
             return t[..., None] if k == "lse" else t
         held = {k: f32_rows_beyond(
             rows(k, got[k]), rows(k, want[k]),
-            None if exact is None else rows(k, exact[k]), F32_ATOL[k])
-            for k in OUTPUTS}
+            None if exact is None else rows(k, exact[k]), F32_ATOL[k],
+            loose_rows.get(k)) for k in OUTPUTS}
         bad = [k for k in OUTPUTS if held[k]["beyond"]]
         if exact is not None:
             res["rows_held_to_f64"] = {k: held[k]["held_to_f64"]
@@ -892,11 +921,16 @@ def check_against_plain(got: dict, want: dict) -> dict:
     return res
 
 
-def planted_faults(got: dict, bias_ignored: dict = None) -> dict:
+def planted_faults(got: dict, bias_ignored: dict = None,
+                   want: dict = None) -> dict:
     """Wrong kernels' outputs that compare_with_plain must reject: dQ
     zeroed, dK without its 1/log2(e) fix (bf16; in f32, dK times log2(e))
     and, for K3, `bias_ignored`: the kernels' outputs on the same q, k, v
-    run without the bias, and dV zeroed outside its peak row."""
+    run without the bias, and dV zeroed outside its peak row. Given the
+    f32 K3 `want` of mh_attention_against_plain with a one-column sample
+    (its loose rows), also dQ moved on those rows only, each element by
+    more than PRECISION_FACTOR times the plain row's error against float64
+    plus F32_ATOL["dq"] ("dq_one_column_rows_off")."""
     dk = (got["dk"].float() * fa.LOG2E).to(got["dk"].dtype)
     faults = {"dq_zero": dict(got, dq=torch.zeros_like(got["dq"])),
               "dk_without_fix": dict(got, dk=dk)}
@@ -908,6 +942,16 @@ def planted_faults(got: dict, bias_ignored: dict = None) -> dict:
         faults["dv_off_peak_row_zero"] = dict(got, dv=torch.where(
             (peak == peak.max())[..., None], got["dv"],
             torch.zeros_like(got["dv"])))
+    if want is not None and "exact" in want and \
+            want["loose_rows"]["dq"].any():
+        g = got["dq"].double()
+        x = want["exact"]["dq"].to(g.device).double()
+        p = want["dq"].to(g.device).double()
+        shift = PRECISION_FACTOR * (p - x).abs().amax(-1) + \
+            (g - x).abs().amax(-1) + 2 * F32_ATOL["dq"]
+        rows = want["loose_rows"]["dq"].to(g.device)[..., None]
+        faults["dq_one_column_rows_off"] = dict(got, dq=torch.where(
+            rows, g + shift[..., None], g).to(got["dq"].dtype))
     return faults
 
 

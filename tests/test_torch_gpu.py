@@ -148,7 +148,7 @@ def test_3xtf32_kernels_are_as_precise_as_f32(cuda, hd, H):
     res = f32_precision(_qkv(2, 1568, H, torch.float32, cuda, seed=5, d=hd),
                         H, hd ** -0.5)
     assert res["beyond"] == [], res
-    assert res["fault_beyond"], res
+    assert "dq" in res["fault_beyond"], res
 
 
 def _check_at_edge(got, want, N):
@@ -489,7 +489,7 @@ def test_mh_kernels_match_plain(cuda, dtype, B, N, H, D, bias):
     ignored = None
     if bias:
         ignored, _ = mh_attention_against_plain(q, k, v, None, H, D ** -0.5)
-    for fault, outputs in planted_faults(got, ignored).items():
+    for fault, outputs in planted_faults(got, ignored, want).items():
         assert compare_with_plain(outputs, want)["beyond_bounds"], fault
 
 
@@ -592,33 +592,38 @@ def test_mh_autograd_runs_the_kernels(cuda):
 
 @pytest.mark.parametrize("B,N,H,D,scale", [
     (4, 1568, 3, 256, None), (4, 1568, 4, 192, None), (4, 100, 1, 256, None),
-    (4, 100, 1, 256, 0.1), (3, 200, 2, 192, 0.1)])
+    (4, 100, 1, 256, 0.1), (3, 200, 2, 192, 0.1), (4, 1568, 8, 128, None),
+    (4, 1568, 16, 64, None), (4, 100, 2, 64, 0.1), (3, 200, 4, 32, None),
+    (3, 130, 8, 16, 0.1)])
 def test_k3_3xtf32_kernels_are_as_precise_as_f32(cuda, B, N, H, D, scale):
-    """K3's f32 forward and dK/dV at head dims 256 and 192 (3xTF32 on
-    wgmma, D streamed in 64-column chunks): the MCA at a reduced batch, the
-    MCA at 4 heads, the ragged N, scale 0.1, with the kv bias and k, v
-    column views of one fused kv. Against a float64 run each output is
-    within PRECISION_FACTOR of the plain f32 version's error; the plain
-    version with TF32 on misses that bound."""
+    """K3's f32 dQ at every head dim (3xTF32 on wgmma; the narrow kernel up
+    to 128) and its forward and dK/dV at 256 and 192 (D streamed in
+    64-column chunks): the MCA at a reduced batch, the MCA at 4, 8 and 16
+    heads, the ragged N, scale 0.1, with the kv bias and k, v column views
+    of one fused kv. Against a float64 run each output is within
+    PRECISION_FACTOR of the plain f32 version's error (dQ among them); the
+    plain version with TF32 on misses that bound."""
     q, k, v, b = mh_inputs(B, N, H, D, torch.float32, 5, cuda)
     assert k.stride(1) == 2 * H * D
     res = mh_f32_precision(q, k, v, b, H, scale or D ** -0.5)
     assert res["beyond"] == [], res
-    assert res["fault_beyond"], res
+    assert "dq" in res["fault_beyond"], res
 
 
 @pytest.mark.parametrize("fused_kv", [True, False])
 @pytest.mark.parametrize("scale", [None, 0.1])
 @pytest.mark.parametrize("N", [1, 65, 100, 1568])
-@pytest.mark.parametrize("H,D", [(1, 256), (2, 192)])
+@pytest.mark.parametrize("H,D", [(1, 256), (2, 192), (2, 128), (2, 64),
+                                 (4, 16)])
 def test_k3_3xtf32_kernels_at_tile_edges(cuda, H, D, N, scale, fused_kv):
     """The same kernels against their plain versions at N on both sides of
-    their 64-row tiles and N = 1 (there held as _check_at_edge holds it:
-    the plain version is exact, and dS is rounding noise around 0), with
-    the kv bias, k and v fused or apart. Above N = 1 masked kv rows get
-    zero dK/dV and the planted faults are rejected (at N = 1 a sample may
-    have its one column masked: then that row takes every query, in the
-    plain version too)."""
+    their 64-row tiles (32-row kv tiles in dQ at 128) and N = 1 (there held
+    as _check_at_edge holds it: the plain version is exact, and dS is
+    rounding noise around 0), with the kv bias, k and v fused or apart.
+    Above N = 1 masked kv rows get zero dK/dV and the planted faults are
+    rejected, dQ moved on the one-column sample's rows among them (at N =
+    1 a sample may have its one column masked: then that row takes every
+    query, in the plain version too)."""
     q, k, v, b = mh_inputs(2, N, H, D, torch.float32, N + D, cuda)
     if not fused_kv:
         k, v = k.contiguous(), v.contiguous()
@@ -627,12 +632,15 @@ def test_k3_3xtf32_kernels_at_tile_edges(cuda, H, D, N, scale, fused_kv):
     torch.cuda.synchronize()
     assert fa.launch_counts["mh_attn_fwd"] == 1
     assert fa.launch_counts["mh_attn_bwd_dkv"] == 1
+    assert fa.launch_counts["mh_attn_bwd_dq"] == 1
     _check_at_edge(got, want, N)
     if N > 1:
         assert masked_kv_grad(got, b) == 0.0
         ignored, _ = mh_attention_against_plain(q, k, v, None, H,
                                                 scale or D ** -0.5)
-        for fault, outputs in planted_faults(got, ignored).items():
+        faults = planted_faults(got, ignored, want)
+        assert "dq_one_column_rows_off" in faults
+        for fault, outputs in faults.items():
             assert compare_with_plain(outputs, want)["beyond_bounds"], fault
 
 

@@ -32,6 +32,10 @@ from mofo_tpu_torch.tools.main_path import (
     attention_qkv_f64,
 )
 
+# the outputs of the kernels emulated here (dQ's walk:
+# tests/test_torch_tf32_dq.py)
+EMULATED = tuple(k for k in TF32X3_OUTPUTS if k != "dq")
+
 
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
@@ -232,7 +236,7 @@ def _errors_vs_f64(qkv, dout, H, D, fwd, dkv) -> dict:
                  ref["lse"].astype(np.float32), dout)
     got = {"out": out, "lse": lse, "dk": dk, "dv": dv}
     return {k: float(np.abs(got[k].astype(np.float64) - ref[k]).max())
-            for k in TF32X3_OUTPUTS}
+            for k in EMULATED}
 
 
 def _plain(H, D):
@@ -266,7 +270,7 @@ def test_3xtf32_is_as_precise_as_f32(B, N, H, D):
     qkv, dout = _inputs(B, N, H, D, seed=3)
     plain = _errors_vs_f64(qkv, dout, H, D, *_plain(H, D))
     tf32x3 = _errors_vs_f64(qkv, dout, H, D, *_emulated(H, D, mm3))
-    for k in TF32X3_OUTPUTS:
+    for k in EMULATED:
         assert tf32x3[k] <= PRECISION_FACTOR * plain[k], (k, tf32x3, plain)
 
 
@@ -277,7 +281,7 @@ def test_1xtf32_misses_the_precision_bound(B, N, H, D):
     qkv, dout = _inputs(B, N, H, D, seed=3)
     plain = _errors_vs_f64(qkv, dout, H, D, *_plain(H, D))
     tf32 = _errors_vs_f64(qkv, dout, H, D, *_emulated(H, D, mm1))
-    for k in TF32X3_OUTPUTS:
+    for k in EMULATED:
         assert tf32[k] > 10 * PRECISION_FACTOR * plain[k], (k, tf32, plain)
 
 
