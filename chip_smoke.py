@@ -392,14 +392,16 @@ Phases, each printing one JSON line:
                attention weight's gradient within ATTN_GRAD_RTOL, which
                the same steps with K3's dQ zeroed must fail.
  44. wide_head_dims - every family above head dim 256, on the column-split
-               kernels (csrc/wgmma_attn_split.cuh, flash_split_f32.cuh):
+               kernels (csrc/wgmma_attn_split.cuh; f32 flash_split_f32.cuh
+               and wgmma_tf32_split.cuh):
                K1/K2 at (B, 1568, H, D) = (2, 2, 264 -> 320), (2, 2, 320),
                (2, 1, 512); K3 with the kv bias at (10, 3, 341 -> 384),
                (10, 2, 384), (10, 1, 768), (2, 1, 1024), the MCA's own;
                K4 at (B*H, N) = (4, 1568) with D = 320, 512, 1024; bf16
                and f32 against the plain versions at the unpadded D with
                main_path's bounds, the prep pass, and the planted faults
-               (dQ zeroed, one output group left unwritten) rejected; then
+               (dQ zeroed, one output group left unwritten, dK's last
+               group alone left unwritten) rejected; then
                kernel, plain, library and pad times, each beside its bound
                at the least work and with the groups' recomputed S and dP
                counted, and the library call's backends (flash takes no
@@ -425,7 +427,10 @@ PRECISION_FACTOR of the plain f32 version's error, the plain version with
 TF32 on beyond it) at every head dim they take and the ViT-B decoder, and
 K3's dQ at every head dim with its forward and dK/dV at 256 and 192
 (3xTF32, D streamed in 64-column chunks there) at MH_F32_PRECISION_CHECKS
-with the kv bias; after vis, f32_eval
+with the kv bias, and above 256 the column-split 3xTF32 backward of K1/K2
+(d320), K3 (the MCA at 2 and 1 heads, ragged, N = 1) and K4
+(HM_F32_PRECISION_CHECKS), the 1xTF32 fault beyond the bound on dQ
+everywhere and on dK and dV at F32_FAULT_BEYOND; after vis, f32_eval
 times feature_extract's forward (B = 4) and the f32 ViT-B step, launches
 held exactly.
 The kernels phase also checks and times K1/K2 at the mesh's per-rank
@@ -523,6 +528,7 @@ from mofo_tpu_torch.tools.main_path import (
     masked_kv_grad,
     memory_box_json,
     mh_attention_against_plain,
+    hm_f32_precision,
     mh_f32_precision,
     mh_inputs,
     moved_draws,
@@ -595,7 +601,9 @@ LARGE_CHECKS = {"res384_vitl_h16": (1, 4608, 16), "res512_h16": (1, 8192, 16)}
 # at every head dim they take, and the ViT-B decoder's own
 F32_PRECISION_CHECKS = {"d16": (2, 1568, 8, 16), "d32": (2, 1568, 6, 32),
                         "d64": (2, 1568, 6, 64), "d128": (2, 1568, 4, 128),
-                        "decoder": (STEP_BATCH, 1568, 6, 64)}
+                        "decoder": (STEP_BATCH, 1568, 6, 64),
+                        # above 256: K3's column-split kernels
+                        "d320": (2, 1568, 2, 320)}
 # and K3's 3xTF32 kernels (dQ at every head dim; the forward and dK/dV at
 # 192 and 256, D streamed in 64-column chunks), with the kv bias and k, v
 # column views of one fused kv: (B, N, H, D) the MCA at a reduced batch,
@@ -607,7 +615,22 @@ MH_F32_PRECISION_CHECKS = {"mca_b4": (4, 1568, 3, 256),
                            "mca_h8_d128": (4, 1568, 8, 128),
                            "mca_h16_d64": (4, 1568, 16, 64),
                            "ragged_d256": (4, 100, 1, 256),
-                           "n1_d256": (4, 1, 1, 256)}
+                           "n1_d256": (4, 1, 1, 256),
+                           # the column-split kernels: the MCA at 2 and 1
+                           # heads, ragged, N = 1
+                           "mca_h2_d384": (4, 1568, 2, 384),
+                           "mca_h1_d768": (2, 1568, 1, 768),
+                           "ragged_d384": (4, 100, 1, 384),
+                           "n1_d384": (4, 1, 1, 384)}
+# and K4's column-split kernels: (B*H, N, D)
+HM_F32_PRECISION_CHECKS = {"d320": (4, 1568, 320), "d512": (4, 1568, 512)}
+# f32_precision's geometries at which the 1xTF32 fault must land beyond
+# the bound on dK and dV too (on dQ it must everywhere): the column-split
+# geometries above N = 1, where the FMA backward's run of the same check
+# (NVIDIA H100 80GB HBM3, 700.00 W) showed it beyond on both
+F32_FAULT_BEYOND = dict.fromkeys(
+    ("d320", "k3_mca_h2_d384", "k3_mca_h1_d768", "k3_ragged_d384",
+     "k4_d320", "k4_d512"), ("dk", "dv"))
 # K1/K2's f32 instances are timed at the bf16 rows' main shapes (K3's at
 # the MCA, K4's at the runner's decoder: each family's timed geometry)
 F32_TIMED = ("decoder", "backbone")
@@ -983,9 +1006,11 @@ def check_kernels(x, H, scale: float = SCALE) -> dict:
 def split_faults(faults: dict, got: dict, heads: int, d: int) -> dict:
     """`faults` and, at a head dim above 256 (the column-split kernels),
     the last output group of every head left unwritten
-    (main_path.group_unwritten)."""
+    (main_path.group_unwritten), and dK's last group alone (its blocks are
+    not dV's)."""
     if fa.head_dim_width(d) > fa.HEAD_DIMS[-1]:
         faults["group_unwritten"] = group_unwritten(got, heads)
+        faults["dk_group_unwritten"] = group_unwritten(got, heads, ("dk",))
     return faults
 
 
@@ -1239,15 +1264,17 @@ def phase_f32_precision(smi: str) -> dict:
     the plain f32 version's (TF32 off), and the plain version with TF32
     on (1xTF32, the planted fault) beyond it (main_path.f32_precision);
     then K3's at MH_F32_PRECISION_CHECKS (main_path.mh_f32_precision; at
-    N = 1 the against-plain bounds). Returns {label: each output's error
-    over the plain version's}."""
+    N = 1 the against-plain bounds) and K4's at HM_F32_PRECISION_CHECKS
+    (main_path.hm_f32_precision); the fault beyond the bound on dQ and, at
+    F32_FAULT_BEYOND's geometries, on dK and dV (fault_caught). Returns
+    {label: each output's error over the plain version's}."""
     out = {}
     for label, (B, N, H, d) in F32_PRECISION_CHECKS.items():
         res = f32_precision(_qkv(B, N, H, torch.float32, seed=5, d=d), H,
                             d ** -0.5)
         emit("f32_precision", geometry=label, B=B, N=N, H=H, D=d,
              factor=PRECISION_FACTOR, nvidia_smi=smi, **res)
-        if res["beyond"] or "dq" not in res["fault_beyond"]:
+        if not fault_caught(label, res):
             raise AssertionError(f"f32 precision at {label}: {res}")
         out[label] = res["over_plain"]
     for label, (B, N, H, d) in MH_F32_PRECISION_CHECKS.items():
@@ -1258,13 +1285,29 @@ def phase_f32_precision(smi: str) -> dict:
             res["against_plain"] = compare_with_plain(got, want)
             ok = not res["against_plain"]["beyond_bounds"]
         else:
-            ok = not res["beyond"] and "dq" in res["fault_beyond"]
+            ok = fault_caught(f"k3_{label}", res)
         emit("f32_precision", geometry=f"k3_{label}", B=B, N=N, H=H, D=d,
              factor=PRECISION_FACTOR, nvidia_smi=smi, **res)
         if not ok:
             raise AssertionError(f"K3 f32 precision at {label}: {res}")
         out[f"k3_{label}"] = res["over_plain"]
+    for label, (BH, N, d) in HM_F32_PRECISION_CHECKS.items():
+        q, k, v = hm_inputs(BH, N, torch.float32, 5, "cuda", D=d)
+        res = hm_f32_precision(q, k, v, d ** -0.5)
+        emit("f32_precision", geometry=f"k4_{label}", BH=BH, N=N, D=d,
+             factor=PRECISION_FACTOR, nvidia_smi=smi, **res)
+        if not fault_caught(f"k4_{label}", res):
+            raise AssertionError(f"K4 f32 precision at {label}: {res}")
+        out[f"k4_{label}"] = res["over_plain"]
     return out
+
+
+def fault_caught(geometry: str, res: dict) -> bool:
+    """A precision report's verdict: no output beyond the bound, and the
+    1xTF32 fault beyond it on dQ and on F32_FAULT_BEYOND's outputs of the
+    geometry."""
+    need = {"dq", *F32_FAULT_BEYOND.get(geometry, ())}
+    return not res["beyond"] and need <= set(res["fault_beyond"])
 
 
 def phase_kernels():

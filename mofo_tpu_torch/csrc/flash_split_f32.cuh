@@ -1,21 +1,20 @@
-// The column-split f32 (parity) attention kernels: every head dim D above
-// 256 for K1/K2 (through K3's entry points), K3 and K4, on flash_tiles.cuh's
-// FMA products. The split is wgmma_attn_split.cuh's: block (x, y, z) owns
+// The column-split f32 (parity) forward: every head dim D above 256 for
+// K1/K2 (through K3's entry points), K3 and K4, on flash_tiles.cuh's FMA
+// products (the backward above 256 is wgmma_tf32_split.cuh's 3xTF32
+// kernels). The split is wgmma_attn_split.cuh's: block (x, y, z) owns
 // output columns [256 z, 256 z + 256) of its head (fewer in the last
-// group), and a contraction over D (S = Q K^T, dP = dO V^T) streams 64-column
-// chunks of both operands through shared memory into one f32 sum. Every
-// group forms the same S in the same order, so group 0 alone writes the
-// LSE; each output has one writer.
+// group), and S = Q K^T streams 64-column chunks of both operands through
+// shared memory into one f32 sum. Every group forms the same S in the same
+// order, so group 0 alone writes the LSE; each output has one writer.
 //
-// Layout: q, k, v (and dk, dv, dq) at their own row strides, plane b = y / H
-// at columns h D, h = y % H (K4: H = 1); out, dout (B, N, H D) contiguous;
-// lse and delta (B H, N) f32; bias (B, N) f32 or null. Tiles are 32 rows
-// (a 32 x 257 f32 group tile is 33 KB); kv columns >= N score -inf, q rows
-// >= N carry +inf LSE.
+// Layout: q, k, v at their own row strides, plane b = y / H at columns
+// h D, h = y % H (K4: H = 1); out (B, N, H D) contiguous; lse (B H, N)
+// f32; bias (B, N) f32 or null. Tiles are 32 rows (a 32 x 257 f32 group
+// tile is 33 KB); kv columns >= N score -inf.
 //
 // Numerics: f32 in base e; q times the scale as it is loaded; K3 and K1 an
 // online softmax and 1/l dividing the output; K4 (kTwoPass) two passes,
-// p / l before P.V; dS = P (dP - delta); dQ takes k times k_scale.
+// p / l before P.V; the LSE a natural log.
 
 #pragma once
 
@@ -48,17 +47,6 @@ __device__ __forceinline__ void load_kv_terms(float* sB, const float* bias_b,
                                               int k0, int N) {
   for (int i = threadIdx.x; i < kSplitRows; i += blockDim.x)
     sB[i] = k0 + i < N ? (bias_b ? bias_b[k0 + i] : 0.f) : -INFINITY;
-}
-
-// A q tile's LSE (+inf past N: P = 0) and delta.
-__device__ __forceinline__ void load_q_stats(float* sLse, float* sDelta,
-                                             const float* lse,
-                                             const float* delta, int q0,
-                                             int N) {
-  for (int i = threadIdx.x; i < kSplitRows; i += blockDim.x) {
-    sLse[i] = q0 + i < N ? lse[q0 + i] : INFINITY;
-    sDelta[i] = q0 + i < N ? delta[q0 + i] : 0.f;
-  }
 }
 
 // Writes a thread's rows (I ty + i, from row0) of a 32 x 256 accumulator,
@@ -179,169 +167,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr size_t smem_split_dq_f32() {
-  constexpr int R = kSplitRows;
-  return ((size_t)4 * R * (kSplitChunk + 1) + R * (R + 1) +
-          R * (kSplitCols + 1) + 3 * R) * sizeof(float);
-}
-
-// Grid (ceil(N / 32), B * H, G). One block: 32 query rows of one head,
-// output columns of group z of dQ = dS (K * k_scale), at row stride lddq.
-__global__ void __launch_bounds__(kThreads)
-    split_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ bias,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dq,
-                     int N, int H, int D, int ldq, int ldk, int ldv, int lddq,
-                     float q_scale, float k_scale) {
-  constexpr int R = kSplitRows, C = kSplitChunk, G = kSplitCols;
-  constexpr int I = R / 16, JS = R / 16, JO = G / 16, LC = C + 1,
-                LP = R + 1, LG = G + 1;
-  extern __shared__ float fsmem[];
-  float* sQ = fsmem;
-  float* sdO = sQ + R * LC;
-  float* sK = sdO + R * LC;
-  float* sV = sK + R * LC;
-  float* sdS = sV + R * LC;
-  float* sKg = sdS + R * LP;
-  float* sLse = sKg + R * LG;
-  float* sDelta = sLse + R;
-  float* sB = sDelta + R;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, A = H * D;
-  const int c0 = G * blockIdx.z, cols = min(G, D - c0);
-  const int q0 = blockIdx.x * R;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* qb = q + (size_t)b * N * ldq + h * D;
-  const float* ob = dout + (size_t)b * N * A + h * D;
-  const float* kb = k + (size_t)b * N * ldk + h * D;
-  const float* vb = v + (size_t)b * N * ldv + h * D;
-  const float* bb = bias ? bias + (size_t)b * N : nullptr;
-
-  load_q_stats(sLse, sDelta, lse + (size_t)bh * N, delta + (size_t)bh * N,
-               q0, N);
-  float acc[I][JO] = {};
-  for (int k0 = 0; k0 < N; k0 += R) {
-    float s[I][JS] = {}, dp[I][JS] = {};
-    for (int cc = 0; cc < D; cc += C) {
-      __syncthreads();  // the previous chunk's (and tile's) reads are done
-      load_cols<C>(sQ, qb + cc, q0, N, ldq, C, q_scale);
-      load_cols<C>(sdO, ob + cc, q0, N, A, C, 1.f);
-      load_cols<C>(sK, kb + cc, k0, N, ldk, C, 1.f);
-      load_cols<C>(sV, vb + cc, k0, N, ldv, C, 1.f);
-      if (cc == 0) load_kv_terms(sB, bb, k0, N);
-      __syncthreads();
-      gemm<I, JS, C, LC, 1, 1, LC>(s, sQ, sK, ty, tx, 1.f);
-      gemm<I, JS, C, LC, 1, 1, LC>(dp, sdO, sV, ty, tx, 1.f);
-    }
-#pragma unroll
-    for (int i = 0; i < I; ++i) {
-      const int r = I * ty + i;
-#pragma unroll
-      for (int j = 0; j < JS; ++j) {
-        const int c = tx + 16 * j;
-        // columns >= N carry -inf, rows >= N +inf LSE: p = 0
-        const float p = expf(s[i][j] + sB[c] - sLse[r]);
-        sdS[r * LP + c] = p * (dp[i][j] - sDelta[r]);
-      }
-    }
-    load_cols<G>(sKg, kb + c0, k0, N, ldk, cols, 1.f);
-    __syncthreads();
-    gemm<I, JO, R, LP, 1, LG, 1>(acc, sdS, sKg, ty, tx, k_scale);
-  }
-  store_group(dq + (size_t)b * N * lddq + h * D + c0, lddq, acc, q0, N, cols,
-              nullptr, ty, tx);
-}
-
-constexpr size_t smem_split_dkv_f32() {
-  constexpr int R = kSplitRows;
-  return ((size_t)4 * R * (kSplitChunk + 1) + 2 * R * (R + 1) +
-          2 * R * (kSplitCols + 1) + 3 * R) * sizeof(float);
-}
-
-// Grid (ceil(N / 32), B * H, G). One block: 32 key/value rows of one head,
-// output columns of group z of dK and dV (row stride lddkv). It forms
-// S^T = K Q^T and dP^T = V dO^T over the head dim, so P^T and dS^T are the
-// row-major A operands of dV += P^T dO and dK += dS^T Q on the group's
-// columns.
-__global__ void __launch_bounds__(kThreads)
-    split_bwd_dkv_f32(const float* __restrict__ q,
-                      const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ bias,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      float* __restrict__ dk, float* __restrict__ dv, int N,
-                      int H, int D, int ldq, int ldk, int ldv, int lddkv,
-                      float q_scale) {
-  constexpr int R = kSplitRows, C = kSplitChunk, G = kSplitCols;
-  constexpr int I = R / 16, JQ = R / 16, JO = G / 16, LC = C + 1,
-                LP = R + 1, LG = G + 1;
-  extern __shared__ float fsmem[];
-  float* sK = fsmem;
-  float* sV = sK + R * LC;
-  float* sQ = sV + R * LC;
-  float* sdO = sQ + R * LC;
-  float* sP = sdO + R * LC;
-  float* sdS = sP + R * LP;
-  float* sQg = sdS + R * LP;
-  float* sdOg = sQg + R * LG;
-  float* sLse = sdOg + R * LG;
-  float* sDelta = sLse + R;
-  float* sB = sDelta + R;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H, A = H * D;
-  const int c0 = G * blockIdx.z, cols = min(G, D - c0);
-  const int k0 = blockIdx.x * R;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* qb = q + (size_t)b * N * ldq + h * D;
-  const float* ob = dout + (size_t)b * N * A + h * D;
-  const float* kb = k + (size_t)b * N * ldk + h * D;
-  const float* vb = v + (size_t)b * N * ldv + h * D;
-  const float* bb = bias ? bias + (size_t)b * N : nullptr;
-
-  // this block's kv rows >= N are never stored: any finite bias will do
-  for (int i = threadIdx.x; i < R; i += blockDim.x)
-    sB[i] = (k0 + i < N && bb) ? bb[k0 + i] : 0.f;
-  float dka[I][JO] = {}, dva[I][JO] = {};
-  for (int q0 = 0; q0 < N; q0 += R) {
-    float st[I][JQ] = {}, dpt[I][JQ] = {};
-    for (int cc = 0; cc < D; cc += C) {
-      __syncthreads();  // the previous chunk's (and tile's) reads are done
-      load_cols<C>(sK, kb + cc, k0, N, ldk, C, 1.f);
-      load_cols<C>(sV, vb + cc, k0, N, ldv, C, 1.f);
-      load_cols<C>(sQ, qb + cc, q0, N, ldq, C, q_scale);
-      load_cols<C>(sdO, ob + cc, q0, N, A, C, 1.f);
-      if (cc == 0)
-        load_q_stats(sLse, sDelta, lse + (size_t)bh * N,
-                     delta + (size_t)bh * N, q0, N);
-      __syncthreads();
-      gemm<I, JQ, C, LC, 1, 1, LC>(st, sK, sQ, ty, tx, 1.f);
-      gemm<I, JQ, C, LC, 1, 1, LC>(dpt, sV, sdO, ty, tx, 1.f);
-    }
-#pragma unroll
-    for (int i = 0; i < I; ++i) {
-      const int r = I * ty + i;
-#pragma unroll
-      for (int j = 0; j < JQ; ++j) {
-        const int c = tx + 16 * j;
-        const float p = expf(st[i][j] + sB[r] - sLse[c]);
-        sP[r * LP + c] = p;
-        sdS[r * LP + c] = p * (dpt[i][j] - sDelta[c]);
-      }
-    }
-    load_cols<G>(sQg, qb + c0, q0, N, ldq, cols, q_scale);
-    load_cols<G>(sdOg, ob + c0, q0, N, A, cols, 1.f);
-    __syncthreads();
-    gemm<I, JO, R, LP, 1, LG, 1>(dva, sP, sdOg, ty, tx, 1.f);
-    gemm<I, JO, R, LP, 1, LG, 1>(dka, sdS, sQg, ty, tx, 1.f);
-  }
-  const size_t off = (size_t)b * N * lddkv + h * D + c0;
-  store_group(dk + off, lddkv, dka, k0, N, cols, nullptr, ty, tx);
-  store_group(dv + off, lddkv, dva, k0, N, cols, nullptr, ty, tx);
-}
-
 // -------------------------------------------------------------------------
 // Launchers: B planes of N rows, H heads of D columns (a multiple of 64)
 // a plane; each returns 0, kBadArgument or a cudaError_t from the set-up.
@@ -364,39 +189,6 @@ int launch_split_fwd_f32(const void* q, const void* k, const void* v,
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), bias, static_cast<float*>(out), lse, N,
       H, D, ldq, ldk, ldv, q_scale);
-  return 0;
-}
-
-int launch_split_dq_f32(const void* q, const void* k, const void* v,
-                        const float* bias, const void* dout, const float* lse,
-                        const float* delta, void* dq, int B, int N, int H,
-                        int D, int ldq, int ldk, int ldv, int lddq,
-                        float q_scale, float k_scale, cudaStream_t st) {
-  if (D % kSplitChunk) return kBadArgument;
-  constexpr size_t smem = smem_split_dq_f32();
-  if (int e = max_smem((const void*)split_bwd_dq_f32, smem)) return e;
-  split_bwd_dq_f32<<<split_grid_f32(B, N, H, D), kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), bias, static_cast<const float*>(dout),
-      lse, delta, static_cast<float*>(dq), N, H, D, ldq, ldk, ldv, lddq,
-      q_scale, k_scale);
-  return 0;
-}
-
-int launch_split_dkv_f32(const void* q, const void* k, const void* v,
-                         const float* bias, const void* dout,
-                         const float* lse, const float* delta, void* dk,
-                         void* dv, int B, int N, int H, int D, int ldq,
-                         int ldk, int ldv, int lddkv, float q_scale,
-                         cudaStream_t st) {
-  if (D % kSplitChunk) return kBadArgument;
-  constexpr size_t smem = smem_split_dkv_f32();
-  if (int e = max_smem((const void*)split_bwd_dkv_f32, smem)) return e;
-  split_bwd_dkv_f32<<<split_grid_f32(B, N, H, D), kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), bias, static_cast<const float*>(dout),
-      lse, delta, static_cast<float*>(dk), static_cast<float*>(dv), N, H, D,
-      ldq, ldk, ldv, lddkv, q_scale);
   return 0;
 }
 

@@ -16,8 +16,8 @@
 // Layout. q, k, v, out, dout, dq, dk and dv are (BH, N, D) contiguous with
 // D one of the built head dims 16, 32, 64, 128, 192 and 256
 // (wgmma_tiles.cuh's by_head_dim) or, above 256, any multiple of 64 (the
-// column-split kernels of wgmma_attn_split.cuh and flash_split_f32.cuh,
-// D at run time); the wrapper pads any other D with zero columns: 64 for the ViT-S pretrain decoder's 3 x 64 heads,
+// column-split kernels of wgmma_attn_split.cuh, flash_split_f32.cuh and
+// wgmma_tf32_split.cuh, D at run time); the wrapper pads any other D with zero columns: 64 for the ViT-S pretrain decoder's 3 x 64 heads,
 // which take the head-major route of models/layers.Attention because
 // A = 192 is not a multiple of 128, 32 and 16 for the tiny presets' encoder
 // and decoder heads, the others for an attn_head_dim whose A is not a
@@ -84,6 +84,9 @@
 //     pass's k * scale copy unless the scale is a power of two.
 //   - The f32 kernels (the parity path) use FMAs, since tensor cores would
 //     round f32 to TF32; above D = 128 their tiles shrink to 32 rows.
+//     Above D = 256 the f32 backward is wgmma_tf32_split.cuh's 3xTF32
+//     column-split dK/dV and dQ (each operand split into TF32 hi and lo
+//     parts, three products: as accurate as f32), shared with K3.
 // Ragged N is masked in-kernel: kv columns >= N and q rows >= N get P = 0;
 // nothing is padded in HBM.
 //
@@ -104,6 +107,7 @@
 #include "wgmma_attn_bwd.cuh"
 #include "wgmma_attn_split.cuh"
 #include "wgmma_attn_wide.cuh"
+#include "wgmma_tf32_split.cuh"
 #include "wgmma_tiles.cuh"
 
 namespace {
@@ -788,8 +792,9 @@ int run_dq(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // ---- above head dim 256: the column-split kernels, D at run time ----------
-// (wgmma_attn_split.cuh in bf16, base e with two forward passes;
-// flash_split_f32.cuh in f32), every operand a (BH, N, D) plane a head
+// (wgmma_attn_split.cuh in bf16, base e with two forward passes; in f32
+// flash_split_f32.cuh's forward and wgmma_tf32_split.cuh's 3xTF32
+// backward), every operand a (BH, N, D) plane a head
 
 int split_fwd(const void* q, const void* k, const void* v, void* out,
               float* l, int BH, int N, int D, float q_scale, int is_bf16,
@@ -806,9 +811,9 @@ int split_dkv(const void* q, const void* k, const void* v, const void* dout,
               cudaStream_t st) {
   return is_bf16 ? launch_split_dkv<true>(k, v, D, D, qs, dout, nullptr, l,
                                           d, dk, dv, D, BH, N, 1, D, 1.f, st)
-                 : launch_split_dkv_f32(q, k, v, nullptr, dout, l, d, dk, dv,
-                                        BH, N, 1, D, D, D, D, D, q_scale,
-                                        st);
+                 : launch_split_dkv_tf32(q, k, v, nullptr, dout, l, d, dk,
+                                         dv, BH, N, 1, D, D, D, D, D,
+                                         q_scale, st);
 }
 
 int split_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -817,9 +822,9 @@ int split_dq(const void* q, const void* k, const void* v, const void* dout,
              int is_bf16, cudaStream_t st) {
   return is_bf16 ? launch_split_dq<true>(k, v, D, D, qs, ks, dout, nullptr, l,
                                          d, dq, D, BH, N, 1, D, k_scale, st)
-                 : launch_split_dq_f32(q, k, v, nullptr, dout, l, d, dq, BH,
-                                       N, 1, D, D, D, D, D, q_scale, k_scale,
-                                       st);
+                 : launch_split_dq_tf32(q, k, v, nullptr, dout, l, d, dq,
+                                        BH, N, 1, D, D, D, D, D, q_scale,
+                                        k_scale, st);
 }
 
 }  // namespace
@@ -827,7 +832,8 @@ int split_dq(const void* q, const void* k, const void* v, const void* dout,
 // All entry points return 0 on success, a cudaError_t from the launch, or -1
 // for arguments the kernels do not take (a head dim up to 256 that is not
 // built, or one above it that is no multiple of 64). `is_bf16` selects __nv_bfloat16 (the tensor-core kernels)
-// over float (the FMA kernels). q_scale and k_scale are already rounded to
+// over float (the FMA kernels; 3xTF32 for the backward above 256).
+// q_scale and k_scale are already rounded to
 // the element type. Every (BH, N, D) tensor is contiguous and 16-byte
 // aligned; lse and delta are (BH, N) f32.
 

@@ -8,9 +8,10 @@
 // the forward up to 256 and the backward at 192 and 256 are
 // wgmma_attn_wide.cuh's strip kernels, the backward up to 128 and the prep
 // pass wgmma_attn_bwd.cuh's, shared with K2 and K4, and every kernel above
-// 256 wgmma_attn_split.cuh's column-split ones. The f32 tile loads, products
-// and reductions are flash_tiles.cuh's (above 256 flash_split_f32.cuh's),
-// which hm_flash_attention.cu (K4) shares.
+// 256 wgmma_attn_split.cuh's column-split ones. The f32 FMA kernels' tile
+// loads, products and reductions are flash_tiles.cuh's (the column-split
+// forward flash_split_f32.cuh's), which hm_flash_attention.cu (K4) shares;
+// the f32 backward above 256 is wgmma_tf32_split.cuh's.
 //
 // Replaces the TPU kernel K3 of mofo_tpu/ops/flash_attention.py:
 //   mh_attn_fwd      <- _mh_fwd_impl (:653) / _mh_fwd_kernel with has_bias
@@ -73,9 +74,13 @@
 //     (hi, lo) pairs, K, V and K transposed streamed, a bias flag), the
 //     rest wgmma_tf32_wide.cuh's, with D streamed in 64-column chunks
 //     beside one resident (hi, lo) strip, and dK and dV written by
-//     separate blocks. The f32 forward and dK/dV up to D = 128 use FMAs
-//     (flash_tiles.cuh, 64 x 64 tiles). All tiles above 48 KB are dynamic
-//     shared memory.
+//     separate blocks. Above 256 the f32 dK/dV and dQ are
+//     wgmma_tf32_split.cuh's column-split 3xTF32 kernels (both operands of
+//     every contraction over D streamed, balanced groups of at most 256
+//     columns, dV, dK and dQ each by its own blocks). The f32 forward and
+//     dK/dV up to D = 128, and the f32 forward above 256
+//     (flash_split_f32.cuh), use FMAs (flash_tiles.cuh). All tiles above
+//     48 KB are dynamic shared memory.
 // Ragged N is masked in-kernel (kv columns >= N score -inf, q rows >= N carry
 // +inf LSE in the backward and are never stored); nothing is padded in HBM.
 //
@@ -96,6 +101,7 @@
 #include "wgmma_attn_split.cuh"
 #include "wgmma_attn_wide.cuh"
 #include "wgmma_tf32_dq.cuh"
+#include "wgmma_tf32_split.cuh"
 #include "wgmma_tf32_wide.cuh"
 #include "wgmma_tiles.cuh"
 
@@ -427,8 +433,9 @@ int bwd_dq(const void* q, const void* k, const void* v, const float* bias,
 }
 
 // ---- above head dim 256: the column-split kernels, D at run time ----------
-// (wgmma_attn_split.cuh in bf16, flash_split_f32.cuh in f32; D a multiple
-// of 64, the wrapper pads any other)
+// (wgmma_attn_split.cuh in bf16; in f32 flash_split_f32.cuh's forward and
+// wgmma_tf32_split.cuh's 3xTF32 backward; D a multiple of 64, the wrapper
+// pads any other)
 
 int split_fwd(const void* q, const void* k, const void* v, const float* bias,
               void* out, float* lse, int B, int N, int H, int D, int ldq,
@@ -448,9 +455,9 @@ int split_dkv(const void* q, const void* k, const void* v, const float* bias,
   return bf16_ ? launch_split_dkv<false>(k, v, ldk, ldv, qs, dout, bias, lse,
                                          delta, dk, dv, lddkv, B, N, H, D,
                                          dk_fix, st)
-               : launch_split_dkv_f32(q, k, v, bias, dout, lse, delta, dk,
-                                      dv, B, N, H, D, ldq, ldk, ldv, lddkv,
-                                      q_scale, st);
+               : launch_split_dkv_tf32(q, k, v, bias, dout, lse, delta, dk,
+                                       dv, B, N, H, D, ldq, ldk, ldv, lddkv,
+                                       q_scale, st);
 }
 
 int split_dq(const void* q, const void* k, const void* v, const float* bias,
@@ -461,9 +468,9 @@ int split_dq(const void* q, const void* k, const void* v, const float* bias,
   return bf16_ ? launch_split_dq<false>(k, v, ldk, ldv, qs, ks, dout, bias,
                                         lse, delta, dq, lddq, B, N, H, D,
                                         k_scale, st)
-               : launch_split_dq_f32(q, k, v, bias, dout, lse, delta, dq, B,
-                                     N, H, D, ldq, ldk, ldv, lddq, q_scale,
-                                     k_scale, st);
+               : launch_split_dq_tf32(q, k, v, bias, dout, lse, delta, dq,
+                                      B, N, H, D, ldq, ldk, ldv, lddq,
+                                      q_scale, k_scale, st);
 }
 
 }  // namespace
@@ -472,8 +479,9 @@ int split_dq(const void* q, const void* k, const void* v, const float* bias,
 // for arguments the kernels do not take (a head dim up to 256 that is not
 // built, or one above it that is no multiple of 64). `bf16` selects
 // __nv_bfloat16 (the tensor-core kernels) over float (3xTF32 on the tensor
-// cores for dQ, and for the forward and dK/dV at head dims 192 and 256;
-// FMAs for the forward and dK/dV up to 128). q_scale and k_scale are
+// cores for dQ, for the forward and dK/dV at head dims 192 and 256, and for
+// dK/dV above 256; FMAs for the forward and dK/dV up to 128 and the forward
+// above 256). q_scale and k_scale are
 // already rounded to the element type; rows must be 16-byte aligned (TMA
 // reads them). ld* are row strides in elements;
 // dout and out are (B, N, H*D) contiguous; lse and delta (B, H, N) f32;

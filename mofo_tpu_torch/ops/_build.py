@@ -28,7 +28,7 @@ SOURCES = ("qkv_flash_attention.cu", "mh_flash_attention.cu",
 HEADERS = ("flash_tiles.cuh", "wgmma_tiles.cuh", "wgmma_attn_bwd.cuh",
            "wgmma_attn_wide.cuh", "wgmma_attn_split.cuh",
            "flash_split_f32.cuh", "wgmma_tf32.cuh", "wgmma_tf32_wide.cuh",
-           "wgmma_tf32_dq.cuh")
+           "wgmma_tf32_dq.cuh", "wgmma_tf32_split.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -23,18 +23,27 @@ A row is (kind, shape, dtype). The kinds:
   kernels through its entry points.
 - `k3`: K3's kernels with the kv bias the same way
   (chip_smoke.time_mh_kernels) on main_path.mh_inputs at (B, N, H, D).
+- `hm`: K4's kernels the same way (chip_smoke.time_hm_kernels) on
+  main_path.hm_inputs at (B*H, N, D).
 - `classifier_forward`: feature_extract's forward (its default model at
   batch B, 16 x 224^2 clips, no grad), ms a batch and its launches.
 - `pretrain_step`: one ViT-B MOFO pretrain step at B
   (main_path.build_step), ms and launches.
 - `bb_step`: one ViT-B BB-focused MCA finetune step at B
-  (main_path.build_finetune_step, 174 classes), ms and launches a step.
+  (main_path.build_finetune_step, 174 classes; shape (B,) or (B,
+  mca_num_heads)), ms and launches a step.
 - `vis`: cli/vis.py on ViT-B, seconds a call.
+
+Each kernel row carries two bounds (chip_smoke's, at PEAK_TF32X3 in f32):
+bound_ms, the work at its least, and bound_recompute_ms, the products the
+column-split kernels do above head dim 256 (chip_smoke.products at
+split_groups(D) output groups; the least work at or below 256).
 
 Kernel times are chip_smoke.time_ms's medians; model-level times are
 medians of REPS timed calls after one warm-up. Only what both checkouts
 share is used: the wrappers of `ops/flash_attention.py`,
-`main_path.build_step` / `build_finetune_step` / `mh_inputs`,
+`main_path.build_step` / `build_finetune_step` / `mh_inputs` /
+`hm_inputs`,
 `create_model`, `cli.vis` and chip_smoke's timing and video helpers. No
 card: exit 2.
 """
@@ -71,6 +80,13 @@ MEASUREMENTS = {
     "mca_h8": ("k3", (10, 1568, 8, 128), "float32"),
     "mca_h16": ("k3", (10, 1568, 16, 64), "float32"),
     "mca_h2": ("k3", (10, 1568, 2, 384), "float32"),
+    # the column-split kernels' other paths: the MCA at 1 head (D = 768),
+    # at 3 heads of ViT-L width (341, zero-padded to 384), K4 at D = 512,
+    # and the f32 BB-focused step with the MCA at 2 heads
+    "mca_h1": ("k3", (10, 1568, 1, 768), "float32"),
+    "vitl_mca_h3": ("k3", (4, 1568, 3, 341), "float32"),
+    "hm_d512": ("hm", (4, 1568, 512), "float32"),
+    "bb_step_h2": ("bb_step", (10, 2), "float32"),
 }
 CLASSIFIER = "vit_base_patch16_224_feature_ext"
 REPS = 3  # timed calls after one warm-up (model-level numbers)
@@ -88,6 +104,22 @@ def timed(torch, fn) -> dict:
     return {"ms": statistics.median(times[1:]), "ms_all": times}
 
 
+def with_recompute(C, res: dict, bound_fn, d: int, dtype: str,
+                   *shape) -> dict:
+    """Puts bound_fn's least time with the column-split kernels' products
+    at head dim d (chip_smoke.split_groups(d) groups; 0 at or below 256)
+    into each kernel row of res as bound_recompute_ms, at the dtype's peak
+    (PEAK_TF32X3 in f32)."""
+    f32 = dtype == "float32"
+    for name, (bound, by) in bound_fn(
+            *shape, groups=C.split_groups(d), e=4 if f32 else 2,
+            peak=C.PEAK_TF32X3 if f32 else C.PEAK_BF16).items():
+        if name in res:
+            res[name].update(bound_recompute_ms=bound,
+                             bound_recompute_by=by)
+    return res
+
+
 def measure(kind: str, shape: tuple, dtype: str) -> dict:
     """One row of MEASUREMENTS on the card (the checkout's modules are on
     sys.path)."""
@@ -100,11 +132,19 @@ def measure(kind: str, shape: tuple, dtype: str) -> dict:
     dt = getattr(torch, dtype)
     if kind == "qkv":
         B, N, H, D = shape
-        return C.time_kernels(C._qkv(B, N, H, dt, seed=1, d=D), H)
+        return with_recompute(C, C.time_kernels(
+            C._qkv(B, N, H, dt, seed=1, d=D), H), C.bounds, D, dtype,
+            B, N, H, D)
     if kind == "k3":
         B, N, H, D = shape
         q, k, v, b = main_path.mh_inputs(B, N, H, D, dt, 0, "cuda")
-        return C.time_mh_kernels(q, k, v, b, H, D)
+        return with_recompute(C, C.time_mh_kernels(q, k, v, b, H, D),
+                              C.bounds_mh, D, dtype, B, N, H, D)
+    if kind == "hm":
+        BH, N, D = shape
+        q, k, v = main_path.hm_inputs(BH, N, dt, 0, "cuda", D=D)
+        return with_recompute(C, C.time_hm_kernels(q, k, v, 1, BH),
+                              C.bounds_hm, D, dtype, BH, N, D)
     if kind == "classifier_forward":
         from mofo_tpu_torch.models import create_model
 
@@ -129,7 +169,8 @@ def measure(kind: str, shape: tuple, dtype: str) -> dict:
         return dict(res, launches=dict(fa.launch_counts))
     if kind == "bb_step":
         _, state, step, gen, batch, _ = main_path.build_finetune_step(
-            shape[0], dtype=dtype)
+            shape[0], dtype=dtype,
+            mca_num_heads=shape[1] if len(shape) > 1 else 3)
         box = {"state": state}
 
         def one_step():

@@ -22,13 +22,15 @@ tools/profile_step.py and tests/test_torch_gpu.py.
   kernels (K4) on (B*H, N, D) q, k, v, D in 16, 32, 64;
   `compare_with_plain` / `check_against_plain`: the bounds that hold one
   against the other, `f32_precision` / `attention_qkv_f64` (K1/K2) and
-  `mh_f32_precision` / `attention_mh_f64` (K3): the 3xTF32 kernels' error
-  against a float64 run beside the plain f32 version's,
+  `mh_f32_precision` / `attention_mh_f64` (K3) and `hm_f32_precision`
+  (K4): the 3xTF32 kernels' error against a float64 run beside the plain
+  f32 version's,
   `check_prep` / `check_mh_prep` / `check_hm_prep`: the
   bf16 backwards' prep passes against their plain versions, and
   `planted_faults` /
   `hm_planted_faults` / `group_unwritten` (the column-split kernels' last
-  output group left unwritten): wrong outputs those bounds must reject
+  output group left unwritten, `split_group_columns`; or dK's last group
+  alone): wrong outputs those bounds must reject
   (`masked_kv_grad` checks that masked kv rows get zero dK/dV).
 - `forced_draws` / `moved_draws` / `augment_against_cpu`: finetune_augment
   draws that force all 15 RandAugment ops (the geometric ones in both
@@ -648,13 +650,16 @@ def _precision_report(run, kernels, plain) -> dict:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = kept
     bound = {k: PRECISION_FACTOR * err["plain"][k] for k in TF32X3_OUTPUTS}
+    fault_beyond = [k for k in TF32X3_OUTPUTS
+                    if not err["plain_tf32"][k] <= bound[k]]
     return {"max_abs_err_vs_f64": err,
             "over_plain": {k: _ratio(err["kernels"][k], err["plain"][k])
                            for k in TF32X3_OUTPUTS},
             "beyond": [k for k in TF32X3_OUTPUTS
                        if not err["kernels"][k] <= bound[k]],
-            "fault_beyond": [k for k in TF32X3_OUTPUTS
-                             if not err["plain_tf32"][k] <= bound[k]]}
+            "fault_beyond": fault_beyond,
+            "fault_misses": [k for k in TF32X3_OUTPUTS
+                             if k not in fault_beyond]}
 
 
 def _ratio(a: float, b: float) -> float:
@@ -722,6 +727,31 @@ def mh_f32_precision(q, k, v, kv_bias, heads: int, scale: float,
     return _precision_report(
         run, (fa.mh_attn_fwd, fa.mh_attn_bwd),
         (fa.attention_mh_fwd_plain, fa.attention_mh_bwd_plain))
+
+
+def hm_f32_precision(q, k, v, scale: float, seed: int = 0) -> dict:
+    """f32_precision for K4 on f32 (B*H, N, D) q, k, v (CUDA): the kernels
+    (fa.hm_attn_fwd, fa.hm_attn_bwd), the plain f32 versions with TF32 off
+    and on, each output against K4's function in float64 (K3's,
+    attention_mh_f64, with one head and no bias: K4 differs from it only
+    in rounding p / l, which f32 does not); the backward of all three
+    takes the f64 run's out and lse rounded to f32 and one dout from
+    `seed`. The same report as f32_precision's."""
+    g = torch.Generator().manual_seed(seed)
+    dout = torch.randn(q.shape, generator=g).to(q.device)
+    ref = attention_mh_f64(q, k, v, None, dout, scale, 1)
+    ref["lse"] = ref["lse"][:, 0]
+    out, lse = ref["out"].float(), ref["lse"].float()
+
+    def run(fwd, bwd) -> dict:
+        o, l = fwd(q, k, v, scale)
+        dq, dk, dv = bwd(q, k, v, out, lse, dout, scale)
+        got = {"out": o, "lse": l, "dq": dq, "dk": dk, "dv": dv}
+        return {k_: _max_abs(got[k_].double() - ref[k_]) for k_ in OUTPUTS}
+
+    return _precision_report(
+        run, (fa.hm_attn_fwd, fa.hm_attn_bwd),
+        (fa.attention_hm_fwd_plain, fa.attention_hm_bwd_plain))
 
 
 def mh_inputs(B: int, N: int, H: int, D: int, dtype: torch.dtype,
@@ -955,17 +985,42 @@ def planted_faults(got: dict, bias_ignored: dict = None,
     return faults
 
 
-def group_unwritten(got: dict, heads: int) -> dict:
+def split_group_columns(D: int, f32_backward: bool) -> list:
+    """The output groups of the column-split kernels at head dim D (a
+    multiple of SPLIT_BOX above 256): [(first column, columns), ...].
+    G = ceil(D / SPLIT_GROUP) groups; SPLIT_GROUP columns each (the last
+    group the rest), except in the f32 backward (f32_backward;
+    csrc/wgmma_tf32_split.cuh), which balances them over the D / 64
+    chunks, group g taking chunks [g kC / G, (g + 1) kC / G) (kC = D / 64,
+    floor division)."""
+    G = -(-D // SPLIT_GROUP)
+    if not f32_backward:
+        return [(SPLIT_GROUP * g, min(SPLIT_GROUP, D - SPLIT_GROUP * g))
+                for g in range(G)]
+    kc = D // fa.SPLIT_BOX
+    starts = [g * kc // G for g in range(G + 1)]
+    return [(fa.SPLIT_BOX * a, fa.SPLIT_BOX * (b - a))
+            for a, b in zip(starts, starts[1:])]
+
+
+def group_unwritten(got: dict, heads: int,
+                    outputs=("out", "dq", "dk", "dv")) -> dict:
     """The column-split kernels' planted fault (head dims above 256): the
-    last output group of every head (its columns from SPLIT_GROUP * (G - 1)
-    on, G = ceil(D / SPLIT_GROUP)) left unwritten in a zeroed buffer, in
-    out and in dq, dk and dv. compare_with_plain must reject it."""
-    def drop(t):
+    last output group of every head (split_group_columns at the kernels'
+    width, for the output's kernel) left unwritten in a zeroed buffer, in
+    each of
+    `outputs` (out and dq, dk and dv by default; ("dk",): the dK blocks of
+    the last group alone, which the f32 dK/dV kernel runs apart from the
+    dV blocks). compare_with_plain must reject it."""
+    def drop(k):
+        t = got[k]
         lead, D = t.shape[:-1], t.shape[-1] // heads
+        c0, _ = split_group_columns(
+            fa.head_dim_width(D), k != "out" and t.dtype == torch.float32)[-1]
         x = t.reshape(*lead, heads, D).clone()
-        x[..., SPLIT_GROUP * ((D - 1) // SPLIT_GROUP):] = 0
+        x[..., c0:] = 0
         return x.reshape(t.shape)
-    return dict(got, **{k: drop(got[k]) for k in ("out", "dq", "dk", "dv")})
+    return dict(got, **{k: drop(k) for k in outputs})
 
 
 def hm_planted_faults(got: dict) -> dict:

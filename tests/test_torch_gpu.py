@@ -50,6 +50,7 @@ from mofo_tpu_torch.tools.main_path import (
     frame_ids,
     group_unwritten,
     hm_attention_against_plain,
+    hm_f32_precision,
     hm_inputs,
     hm_planted_faults,
     masked_kv_grad,
@@ -417,6 +418,48 @@ def test_hm_above_256(cuda, hd, N, dtype):
     faults = dict(hm_planted_faults(got), unwritten=group_unwritten(got, 1))
     for fault, outputs in faults.items():
         assert compare_with_plain(outputs, want)["beyond_bounds"], fault
+
+
+@pytest.mark.parametrize("family,shape", [
+    ("qkv", (2, 1568, 2, 320)), ("mh", (4, 1568, 2, 384)),
+    ("mh", (2, 1568, 1, 768)), ("mh", (4, 1, 1, 384)),
+    ("hm", (4, 1568, 320))])
+def test_column_split_3xtf32_backward_is_as_precise_as_f32(cuda, family,
+                                                           shape):
+    """The column-split f32 backward (wgmma_tf32_split.cuh, 3xTF32 on
+    wgmma) of K1/K2 at 320, K3 with the kv bias at the MCA's 384 and 768
+    (and N = 1) and K4 at 320: against a float64 run each output within
+    PRECISION_FACTOR of the plain f32 version's error, the plain version
+    with TF32 on beyond it on dQ, dK and dV. At N = 1 (the plain version
+    exact, dS rounding noise) against the plain versions as
+    _check_at_edge holds them. Above N = 1 the fault that leaves dK's last
+    output group unwritten (the dK blocks run apart from the dV blocks) is
+    rejected by the against-plain bounds."""
+    if family == "qkv":
+        B, N, H, d = shape
+        x = _qkv(B, N, H, torch.float32, cuda, seed=5, d=d)
+        res = f32_precision(x, H, d ** -0.5)
+        got, want = attention_against_plain(x, H, d ** -0.5)
+    elif family == "mh":
+        B, N, H, d = shape
+        q, k, v, b = mh_inputs(B, N, H, d, torch.float32, 5, cuda)
+        res = mh_f32_precision(q, k, v, b, H, d ** -0.5)
+        got, want = mh_attention_against_plain(q, k, v, b, H, d ** -0.5)
+    else:
+        BH, N, d = shape
+        H = 1
+        q, k, v = hm_inputs(BH, N, torch.float32, 5, cuda, D=d)
+        res = hm_f32_precision(q, k, v, d ** -0.5)
+        got, want = hm_attention_against_plain(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    if N == 1:
+        _check_at_edge(got, want, N)
+        return
+    assert res["beyond"] == [], res
+    assert {"dq", "dk", "dv"} <= set(res["fault_beyond"]), res
+    check_against_plain(got, want)
+    fault = group_unwritten(got, H, ("dk",))
+    assert compare_with_plain(fault, want)["beyond_bounds"] == ["dk"]
 
 
 def test_wrapper_rejects_what_the_kernels_do_not_take(cuda):
