@@ -166,10 +166,11 @@ Phases, each printing one JSON line:
                ranks on one device; mofo_tpu_torch.tools.ddp_ranks check),
                each on its rows of the global batch G', against one
                process at G' on the same card (tools.ddp_ranks.
-               two_rank_runs): the ViT-B MOFO pretrain step at full width
-               and depth (B=8 a rank, update_freq 2, motion weights, masks
-               drawn in the step), 3 steps in f32 and in bf16; the ViT-B
-               BB-focused MCA finetune step (f32, 10 classes, B=5 a rank,
+               two_rank_runs): the ViT-B MOFO pretrain step at full width,
+               cut to ddp_ranks.DEPTH = (4, 2) Blocks (B=8 a rank,
+               update_freq 2, motion weights, masks drawn in the step), 3
+               steps in f32 and in bf16; the ViT-B BB-focused MCA finetune
+               step at 4 Blocks (f32, 10 classes, B=5 a rank,
                RandAugment, crop, flip, erasing, mixup elem with cutmix,
                drop path 0.1), 2 steps, then one validation pass (its sums
                over the ranks) and the multi-view merge across them. f32:
@@ -192,7 +193,7 @@ Phases, each printing one JSON line:
  22. factory - the offline motion-box factory (mofo_tpu_torch.cli.
                motion_factory's main, in this process, its defaults: TV-L1
                with 4 scales, 8 warps and 100 iterations on the card, window
-               8, --max_frames 64) on FACTORY_VIDEOS = 4 of
+               8, --max_frames 64) on FACTORY_VIDEOS = 2 of
                write_real_data's SSV2-style mp4
                files (256 x 320, 40-60 frames, cv2 writes them here): every
                video in the JSON with a box per frame, no SKIP line; two
@@ -202,7 +203,7 @@ Phases, each printing one JSON line:
                differently on the two devices, op_roundings); two pairs
                batched against one call a pair on the card (BATCHED_ATOL),
                both timed; that video's JSON from --device cpu against
-               --device cuda, both on FACTORY_CPU_FRAMES = 8 of its frames
+               --device cuda, both on FACTORY_CPU_FRAMES = 4 of its frames
                (--max_frames; at most FACTORY_BOX_PX per coordinate).
                Printed, not
                gated: seconds per video by stage (decode, flow, maps, boxes,
@@ -274,35 +275,38 @@ Phases, each printing one JSON line:
  32. mesh_step - 4 ranks on cuda:0 over gloo on the (1, 2, 2) mesh
                (parallel/mesh.py; python -m mofo_tpu_torch.tools.mesh_ranks
                step) against one process at G' on the same card: the ViT-B
-               MOFO pretrain at full width and depth, B=4 a rank (G'=16),
-               2 steps in f32 and 3 in bf16, and the ViT-B BB-focused MCA
-               finetune step (f32, 2 a rank, mixup elem, cutmix, drop path
+               MOFO pretrain at full width cut to mesh_ranks.DEPTH = (4,
+               2) Blocks, B=4 a rank (G'=16), 2 steps in f32 and 3 in bf16,
+               and the ViT-B BB-focused MCA finetune step at 4 Blocks (f32,
+               2 a rank, mixup elem, cutmix, drop path
                0.1) for 2 steps with one validation pass and the
                multi-view merge: losses and gradient norms within
                DDP_F32_RTOL (f32) and BF16_STEP_RTOL (bf16), the parameters
                gathered whole within DDP_F32_ATOL (f32), every rank's
-               launches equal to one process's (16 of each K1/K2 kernel a
+               launches equal to one process's (6 of each K1/K2 kernel a
                pretrain step, at 6 and 3 heads a rank); the fused qkv cut
                as a contiguous third (planted) must move the loss beyond
                DDP_F32_RTOL.
  33. mesh_memory - ViT-L (1024 wide, 16 heads; decoder 512, 8 heads) at
-               full width and depth (MESH_MEMORY_DEPTH) on the 4 ranks of
+               full width, cut to MESH_MEMORY_DEPTH Blocks, on the 4 ranks of
                (1, 2, 2), 2 bf16 steps: each rank's bytes of parameters,
                gradients and AdamW moments against one process's and the
                share the sharding rules give (within 1%), peak memory per
                rank and step ms.
  34. mesh_runner - cli.pretrain_mofo's main in 4 processes that joined a
                gloo group on cuda:0 (mesh_ranks cli), --mesh_fsdp 2
-               --mesh_model 2, ViT-B f32 on 32 synthetic clips at 4 a
-               device, epoch 0 (2 steps) at a constant LR; then epoch 1
+               --mesh_model 2, ViT-B f32 (--decoder_depth 1) on 32
+               synthetic clips at 4 a device, epoch 0 (2 steps) at a
+               constant LR; then epoch 1
                resumed in this one process, against both epochs in one
                process fed the same global batches: the losses within
                DDP_F32_RTOL, log.txt written once, the checkpoint's names
                the reference's, the ranks' launches.
  35. mesh_zoo - the layout-reading optimizers on the 4 ranks of (1, 2, 2)
                (mesh_ranks zoo) against one process at G' on the same card:
-               the ViT-B MOFO pretrain at full width and depth (bf16, 4 a
-               rank, K1/K2) for 2 steps each of adamw (the yardstick),
+               the ViT-B MOFO pretrain at full width cut to
+               mesh_ranks.DEPTH (bf16, 4 a rank, K1/K2) for 2 steps each
+               of adamw (the yardstick),
                adafactor, adamp and sgdp, then the ViT-B BB-MCA finetune
                step (f32, 2 a rank, K1/K2 and K3) for 2 steps of adamp:
                losses and gradient norms within BF16_STEP_RTOL (bf16) and
@@ -392,8 +396,8 @@ Phases, each printing one JSON line:
                attention weight's gradient within ATTN_GRAD_RTOL, which
                the same steps with K3's dQ zeroed must fail.
  44. wide_head_dims - every family above head dim 256, on the column-split
-               kernels (csrc/wgmma_attn_split.cuh; f32 flash_split_f32.cuh
-               and wgmma_tf32_split.cuh):
+               kernels (csrc/wgmma_attn_split.cuh; f32
+               csrc/wgmma_tf32_split.cuh):
                K1/K2 at (B, 1568, H, D) = (2, 2, 264 -> 320), (2, 2, 320),
                (2, 1, 512); K3 with the kv bias at (10, 3, 341 -> 384),
                (10, 2, 384), (10, 1, 768), (2, 1, 1024), the MCA's own;
@@ -401,7 +405,7 @@ Phases, each printing one JSON line:
                and f32 against the plain versions at the unpadded D with
                main_path's bounds, the prep pass, and the planted faults
                (dQ zeroed, one output group left unwritten, dK's last
-               group alone left unwritten) rejected; then
+               group alone and out's alone left unwritten) rejected; then
                kernel, plain, library and pad times, each beside its bound
                at the least work and with the groups' recomputed S and dP
                counted, and the library call's backends (flash takes no
@@ -425,12 +429,13 @@ geometry; after it, f32_precision holds K1's forward and K2's dK/dV and
 dQ (3xTF32 on wgmma) against a float64 run (each output within
 PRECISION_FACTOR of the plain f32 version's error, the plain version with
 TF32 on beyond it) at every head dim they take and the ViT-B decoder, and
-K3's dQ at every head dim with its forward and dK/dV at 256 and 192
+K3's forward and dQ at every head dim with its dK/dV at 256 and 192
 (3xTF32, D streamed in 64-column chunks there) at MH_F32_PRECISION_CHECKS
-with the kv bias, and above 256 the column-split 3xTF32 backward of K1/K2
-(d320), K3 (the MCA at 2 and 1 heads, ragged, N = 1) and K4
-(HM_F32_PRECISION_CHECKS), the 1xTF32 fault beyond the bound on dQ
-everywhere and on dK and dV at F32_FAULT_BEYOND; after vis, f32_eval
+with the kv bias, and above 256 the column-split 3xTF32 forward and
+backward of K1/K2 (d320), K3 (the MCA at 2 and 1 heads, ragged, N = 1)
+and K4 (HM_F32_PRECISION_CHECKS), the 1xTF32 fault beyond the bound on
+dQ everywhere and on out, lse, dK and dV at F32_FAULT_BEYOND; after vis,
+f32_eval
 times feature_extract's forward (B = 4) and the f32 ViT-B step, launches
 held exactly.
 The kernels phase also checks and times K1/K2 at the mesh's per-rank
@@ -625,12 +630,18 @@ MH_F32_PRECISION_CHECKS = {"mca_b4": (4, 1568, 3, 256),
 # and K4's column-split kernels: (B*H, N, D)
 HM_F32_PRECISION_CHECKS = {"d320": (4, 1568, 320), "d512": (4, 1568, 512)}
 # f32_precision's geometries at which the 1xTF32 fault must land beyond
-# the bound on dK and dV too (on dQ it must everywhere): the column-split
-# geometries above N = 1, where the FMA backward's run of the same check
-# (NVIDIA H100 80GB HBM3, 700.00 W) showed it beyond on both
-F32_FAULT_BEYOND = dict.fromkeys(
-    ("d320", "k3_mca_h2_d384", "k3_mca_h1_d768", "k3_ragged_d384",
-     "k4_d320", "k4_d512"), ("dk", "dv"))
+# the bound on other outputs too (on dQ it must everywhere): on out and
+# lse at every geometry above N = 1, and on dK and dV at the column-split
+# ones, where the FMA kernels' runs of the same check (NVIDIA H100 80GB
+# HBM3, 700.00 W) showed it beyond
+F32_FAULT_BEYOND = {
+    **dict.fromkeys(
+        ("d16", "d32", "d64", "d128", "decoder", "k3_mca_b4",
+         "k3_mca_h4_d192", "k3_mca_h8_d128", "k3_mca_h16_d64",
+         "k3_ragged_d256"), ("out", "lse")),
+    **dict.fromkeys(
+        ("d320", "k3_mca_h2_d384", "k3_mca_h1_d768", "k3_ragged_d384",
+         "k4_d320", "k4_d512"), ("out", "lse", "dk", "dv"))}
 # K1/K2's f32 instances are timed at the bf16 rows' main shapes (K3's at
 # the MCA, K4's at the runner's decoder: each family's timed geometry)
 F32_TIMED = ("decoder", "backbone")
@@ -814,19 +825,19 @@ DDP_RUNNER_ARGS = ["--model", VITS_MODEL, "--synthetic", "64",
 DDP_FT_CLIPS = 20
 DDP_FT_ARGS = ["--synthetic", str(DDP_FT_CLIPS), "--batch_size",
                str(FT_BATCH), "--epochs", "1", "--warmup_epochs", "0"]
-# the factory: 4 videos (8 before the head-dim phases needed the time: the
-# same checks on half the videos), TV-L1 on the card against the CPU on two
+# the factory: 2 videos (8, then 4, before later phases needed the time:
+# the same checks on fewer videos), TV-L1 on the card against the CPU on two
 # pairs (the
 # same elementwise ops in the same order on both devices, each rounding
 # alike, op_roundings shows it: bits are expected, the bounds are the ones
 # the slice was specified with), batched against one call a pair (the same
 # ops on the same values), the boxes of --device cuda against --device cpu
 # (a uint8 map level may flip)
-FACTORY_VIDEOS = 4
-FACTORY_BATCH = 4
+FACTORY_VIDEOS = 2
+FACTORY_BATCH = 2
 # the frames (stride-sampled) of the factory's card-against-CPU run: the
-# CPU's TV-L1 takes ~2 s a pair, and the script has a time limit
-FACTORY_CPU_FRAMES = 8
+# CPU's TV-L1 takes 2-5 s a pair, and the script has a time limit
+FACTORY_CPU_FRAMES = 4
 # the pairs batched against one call a pair (a timed comparison)
 FACTORY_BATCHED_PAIRS = 2
 FLOW_CPU_MAX = 1e-3
@@ -892,15 +903,19 @@ ZOO_STEP_OPTS = ("adamw", "lamb", "adafactor", "adamp", "lookahead_adamw")
 ZOO_STEP_CHAIN = 5  # timed steps between two CUDA events
 ADAHESSIAN_CHAIN = 3
 ZOO_RUNNER_OPT = "lookahead_adamp"
-# mesh_memory: ViT-L's (encoder, decoder) Blocks, its full depth; each
-# rank's state bytes against the share the sharding rules give it
-MESH_MEMORY_DEPTH = (24, 4)
+# mesh_memory: ViT-L's (encoder, decoder) Blocks (its full depth, 24 and
+# 4, spent the script's time; every Block shards alike); each rank's state
+# bytes against the share the sharding rules give it
+MESH_MEMORY_DEPTH = (8, 2)
 MESH_MEMORY_RTOL = 0.01
-# mesh_runner: ViT-B f32 on 32 synthetic clips, 4 a device on the mesh and
-# 16 in one process (G' = 16, 2 steps an epoch), at a constant LR (the
-# scaled lr, 1.6e-4 * 16 / 256, is the min_lr): a run of --epochs 1 resumed
-# with --epochs 2 steps as one of --epochs 2 does
-MESH_RUNNER_ARGS = ["--model", MODEL, "--synthetic", "32", "--dtype",
+# mesh_runner: ViT-B f32 (its decoder cut to MESH_RUNNER_DECODER Blocks) on
+# 32 synthetic clips, 4 a device on the mesh and 16 in one process (G' = 16,
+# 2 steps an epoch), at a constant LR (the scaled lr, 1.6e-4 * 16 / 256, is
+# the min_lr): a run of --epochs 1 resumed with --epochs 2 steps as one of
+# --epochs 2 does
+MESH_RUNNER_DECODER = 1
+MESH_RUNNER_ARGS = ["--model", MODEL, "--decoder_depth",
+                    str(MESH_RUNNER_DECODER), "--synthetic", "32", "--dtype",
                     "float32", "--save_ckpt_freq", "1", "--warmup_epochs",
                     "0", "--lr", "1.6e-4", "--min_lr", "1e-5"]
 # mesh_zoo, bf16: the parameters' change against one process's, relative to
@@ -1006,11 +1021,12 @@ def check_kernels(x, H, scale: float = SCALE) -> dict:
 def split_faults(faults: dict, got: dict, heads: int, d: int) -> dict:
     """`faults` and, at a head dim above 256 (the column-split kernels),
     the last output group of every head left unwritten
-    (main_path.group_unwritten), and dK's last group alone (its blocks are
-    not dV's)."""
+    (main_path.group_unwritten), dK's last group alone (its blocks are not
+    dV's) and the forward's last group alone on out."""
     if fa.head_dim_width(d) > fa.HEAD_DIMS[-1]:
         faults["group_unwritten"] = group_unwritten(got, heads)
         faults["dk_group_unwritten"] = group_unwritten(got, heads, ("dk",))
+        faults["out_group_unwritten"] = group_unwritten(got, heads, ("out",))
     return faults
 
 
@@ -4313,8 +4329,9 @@ def phase_mesh_step(smi: str) -> dict:
          nvidia_smi=smi)
     if not all(x > DDP_F32_RTOL for x in planted):
         bad.append(f"the contiguous qkv split passed: {planted}")
-    if any(per_step[k] != 16 for k in fa.QKV_KERNELS):
-        bad.append(f"K1/K2 launches a bf16 step {per_step}, not 16")
+    blocks = sum(mesh_ranks.DEPTH)  # one launch of each a Block
+    if any(per_step[k] != blocks for k in fa.QKV_KERNELS):
+        bad.append(f"K1/K2 launches a bf16 step {per_step}, not {blocks}")
     if bad:
         raise AssertionError(f"mesh ranks vs one process: {bad}")
     return launches
@@ -4538,9 +4555,9 @@ def phase_mesh_runner(smi: str) -> dict:
         problems.append(f"checkpoint names {sorted(names ^ ref_names)[:4]}")
     if not all(x <= DDP_F32_RTOL for v in rel.values() for x in v):
         problems.append(f"resumed vs one process {rel}")
-    per_rank_steps = 2
-    want_launches = {k: per_rank_steps * STEP_LAUNCHES[MODEL][k]
-                     for k in fa.QKV_F32_KERNELS}
+    per_rank_steps = 2  # one of each a Block: 12 encoder, the decoder's
+    want_launches = dict.fromkeys(
+        fa.QKV_F32_KERNELS, per_rank_steps * (12 + MESH_RUNNER_DECODER))
     for r, counts_r in enumerate(launches):
         if {k: counts_r[k] for k in fa.QKV_F32_KERNELS} != want_launches:
             problems.append(f"rank {r} launches {counts_r}")

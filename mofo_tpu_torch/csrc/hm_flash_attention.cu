@@ -16,8 +16,9 @@
 // Layout. q, k, v, out, dout, dq, dk and dv are (BH, N, D) contiguous with
 // D one of the built head dims 16, 32, 64, 128, 192 and 256
 // (wgmma_tiles.cuh's by_head_dim) or, above 256, any multiple of 64 (the
-// column-split kernels of wgmma_attn_split.cuh, flash_split_f32.cuh and
-// wgmma_tf32_split.cuh, D at run time); the wrapper pads any other D with zero columns: 64 for the ViT-S pretrain decoder's 3 x 64 heads,
+// column-split kernels of wgmma_attn_split.cuh and wgmma_tf32_split.cuh,
+// D at run time); the wrapper pads any other D with zero columns: 64 for
+// the ViT-S pretrain decoder's 3 x 64 heads,
 // which take the head-major route of models/layers.Attention because
 // A = 192 is not a multiple of 128, 32 and 16 for the tiny presets' encoder
 // and decoder heads, the others for an attn_head_dim whose A is not a
@@ -84,9 +85,10 @@
 //     pass's k * scale copy unless the scale is a power of two.
 //   - The f32 kernels (the parity path) use FMAs, since tensor cores would
 //     round f32 to TF32; above D = 128 their tiles shrink to 32 rows.
-//     Above D = 256 the f32 backward is wgmma_tf32_split.cuh's 3xTF32
-//     column-split dK/dV and dQ (each operand split into TF32 hi and lo
-//     parts, three products: as accurate as f32), shared with K3.
+//     Above D = 256 every f32 kernel is wgmma_tf32_split.cuh's 3xTF32
+//     column-split one (each operand split into TF32 hi and lo parts,
+//     three products: as accurate as f32), shared with K3: the forward in
+//     two passes (p / l before P.V), dK/dV and dQ.
 // Ragged N is masked in-kernel: kv columns >= N and q rows >= N get P = 0;
 // nothing is padded in HBM.
 //
@@ -102,7 +104,6 @@
 
 #include <type_traits>
 
-#include "flash_split_f32.cuh"
 #include "flash_tiles.cuh"
 #include "wgmma_attn_bwd.cuh"
 #include "wgmma_attn_split.cuh"
@@ -793,16 +794,16 @@ int run_dq(const void* q, const void* k, const void* v, const void* dout,
 
 // ---- above head dim 256: the column-split kernels, D at run time ----------
 // (wgmma_attn_split.cuh in bf16, base e with two forward passes; in f32
-// flash_split_f32.cuh's forward and wgmma_tf32_split.cuh's 3xTF32
-// backward), every operand a (BH, N, D) plane a head
+// wgmma_tf32_split.cuh's 3xTF32 kernels, the forward in two passes too),
+// every operand a (BH, N, D) plane a head
 
 int split_fwd(const void* q, const void* k, const void* v, void* out,
               float* l, int BH, int N, int D, float q_scale, int is_bf16,
               cudaStream_t st) {
   return is_bf16 ? launch_split_fwd<true>(q, k, v, D, D, D, nullptr, out, l,
                                           BH, N, 1, D, q_scale, st)
-                 : launch_split_fwd_f32<true>(q, k, v, nullptr, out, l, BH,
-                                              N, 1, D, D, D, D, q_scale, st);
+                 : launch_split_fwd_tf32<true>(q, k, v, nullptr, out, l, BH,
+                                               N, 1, D, D, D, D, q_scale, st);
 }
 
 int split_dkv(const void* q, const void* k, const void* v, const void* dout,

@@ -76,7 +76,8 @@
 //     over kv tiles and dQ over q tiles keeps one writer per output: no
 //     atomics, deterministic sums, 7 products in all.
 //   - The f32 forward, dK/dV and dQ (K1, K2; redesigned for Hopper, built
-//     on wgmma_tf32.cuh) replace the FMA kernels, which kept f32 off the
+//     on wgmma_tf32.cuh; the forward is wgmma_tf32_fwd.cuh's, shared with
+//     K3, which launches it with its bias flag) replace the FMA kernels, which kept f32 off the
 //     tensor cores because TF32 rounds it: each thread's 4 x 4 micro-tile
 //     read 8 shared-memory words for every 16 FMAs, tiles loaded between
 //     two __syncthreads, and dK/dV and dQ formed delta again for every
@@ -133,6 +134,7 @@
 #include "wgmma_attn_bwd.cuh"
 #include "wgmma_attn_split.cuh"
 #include "wgmma_tf32.cuh"
+#include "wgmma_tf32_fwd.cuh"
 #include "wgmma_tiles.cuh"
 
 // K3's entry points (mh_flash_attention.cu), which run K1/K2 above head dim
@@ -162,210 +164,14 @@ namespace {
 constexpr int kRows = 64;  // rows of every tile (q and kv)
 
 // -------------------------------------------------------------------------
-// f32 forward (K1) and dK/dV (K2), redesigned for Hopper: 3xTF32 products
-// on wgmma (wgmma_tf32.cuh), fed by TMA. A producer warpgroup keeps a ring
-// of kEntries entries full: its first thread starts each tile's TMA load
-// (one tile ahead), and all its 128 threads split the landed f32 tile into
-// a (hi, lo) TF32 pair, as loaded or transposed. The consumer warpgroups
-// run the products on the pairs.
+// f32 dK/dV (K2), redesigned for Hopper: 3xTF32 products on wgmma
+// (wgmma_tf32.cuh), fed by TMA. A producer warpgroup keeps a ring of
+// kEntries entries full: its first thread starts each tile's TMA load (one
+// tile ahead), and all its 128 threads split the landed f32 tile into a
+// (hi, lo) TF32 pair, as loaded or transposed. The consumer warpgroups run
+// the products on the pairs. (K1's f32 forward is wgmma_tf32_fwd.cuh's,
+// shared with K3.)
 // -------------------------------------------------------------------------
-
-// The f32 forward's block at head dim D: kWGs consumer warpgroups of 64
-// query rows (one at D = 128, where two O accumulators and two warpgroups'
-// q tiles do not fit), q's (hi, lo) fragments in registers up to D = 64 and
-// as a (hi, lo) tile pair in shared memory at 128, and a ring of kEntries
-// (hi, lo) pairs: K_j as loaded (entry 2j), V_j transposed (2j + 1).
-template <int D>
-struct FwdF32 {
-  static constexpr int kWGs = D == 128 ? 1 : 2;
-  static constexpr bool kQInRegs = D <= 64;
-  static constexpr int kQTiles = kQInRegs ? 1 : 2;  // a warpgroup's q
-  static constexpr int kTE = kRows * D;  // floats of a 64 x D tile
-  static constexpr int kEntries = D == 128 ? 2 : D == 64 ? 5 : 8;
-  static constexpr int kThreads = (kWGs + 1) * kWarpgroup;
-  static constexpr size_t smem() {
-    return 1024 +
-           (size_t)(kWGs * kQTiles + 2 * kEntries) * kTE * sizeof(float) +
-           (3 * kEntries + 1) * sizeof(uint64_t);
-  }
-};
-
-// Grid (ceil(N / (64 kWGs)), B * H). One block: 64 kWGs query rows of one
-// head against all N keys, streamed once in 64-row tiles with an online
-// softmax (base e). One tensor map over the fused (B, N, 3A) serves q
-// (column h * D), k (A + h * D) and v (2A + h * D); rows past N arrive as
-// zeros. S = (q * q_scale) K^T and O += P V in 3xTF32; P is not rounded,
-// and 1 / l divides the output at the end.
-template <int D>
-__global__ void __launch_bounds__(FwdF32<D>::kThreads, 1)
-    fwd_f32(const __grid_constant__ CUtensorMap tqkv, float* __restrict__ out,
-            float* __restrict__ lse, int N, int H, float q_scale) {
-  using P = FwdF32<D>;
-  constexpr int kTE = P::kTE, kE = P::kEntries, kWGs = P::kWGs;
-  extern __shared__ unsigned char wsmem[];
-  float* sQ = reinterpret_cast<float*>(smem_1024(wsmem));
-  float* sE = sQ + kWGs * P::kQTiles * kTE;  // entry s: hi, then lo
-  uint64_t* full = reinterpret_cast<uint64_t*>(sE + 2 * kE * kTE);
-  uint64_t* empty = full + kE;
-  uint64_t* landed = empty + kE;
-  uint64_t* qbar = landed + kE;
-  const int A = H * D;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * kWGs * kRows;
-  const int T = (N + kRows - 1) / kRows;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kE; ++s) {
-      mbar_init(&full[s], kWarpgroup);  // every producer thread
-      mbar_init(&empty[s], 4 * kWGs);   // one arrival per consumer warp
-      mbar_init(&landed[s], 1);         // the TMA load
-    }
-    mbar_init(qbar, 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (warp >= 4 * kWGs) {  // producer: loads and splits
-    if constexpr (kWGs == 2) producer_registers_f32();
-    const int p = threadIdx.x - 4 * kWGs * 32;
-    const int n = 2 * T;
-    // entry e's raw tile: K_j into its hi tile (split in place), V_j into
-    // its lo tile (split transposed out of it)
-    auto issue = [&](int e) {
-      const int s = e % kE;
-      mbar_wait(&empty[s], ((e / kE) & 1) ^ 1);
-      mbar_expect_tx(&landed[s], kTE * sizeof(float));
-      tma_f32<kRows, D, kRows>(sE + (2 * s + (e & 1)) * kTE, &tqkv,
-                               &landed[s], (1 + (e & 1)) * A + h * D,
-                               (e >> 1) * kRows, b);
-    };
-    if (p == 0) {
-      mbar_expect_tx(qbar, kWGs * kTE * sizeof(float));
-      for (int w = 0; w < kWGs; ++w)
-        tma_f32<kRows, D, kRows>(sQ + w * P::kQTiles * kTE, &tqkv, qbar,
-                                 h * D, q0 + kRows * w, b);
-      issue(0);
-    }
-    for (int e = 0; e < n; ++e) {
-      if (p == 0 && e + 1 < n) issue(e + 1);
-      const int s = e % kE;
-      float* hi = sE + 2 * s * kTE;
-      mbar_wait(&landed[s], (e / kE) & 1);
-      if (e & 1)
-        split_transposed<kRows, D>(hi + kTE, hi, hi + kTE, 1.f, p,
-                                   kProducerBar);
-      else
-        split_rows<kRows, D>(hi, hi + kTE, 1.f, p);
-      fence_proxy_async();
-      mbar_arrive(&full[s]);
-    }
-  } else {
-    if constexpr (kWGs == 2) consumer_registers_f32();
-    const int wg = warp >> 2, r0 = 16 * (warp & 3);
-    const int g = lane >> 2, t = lane & 3;
-    float* sq = sQ + wg * P::kQTiles * kTE;
-    constexpr int KQ = P::kQInRegs ? D / 8 : 1;
-    uint32_t qh[KQ][4], ql[KQ][4];
-    mbar_wait(qbar, 0);
-    if constexpr (P::kQInRegs) {
-      load_a_tf32<D>(qh, ql, sq, r0, q_scale);
-    } else {
-      split_rows<kRows, D>(sq, sq + kTE, q_scale, threadIdx.x & 127);
-      fence_proxy_async();
-      warpgroup_sync(2 + wg);
-    }
-    float o[D / 8][4] = {}, m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-
-    for (int j = 0; j < T; ++j) {
-      const int sk = (2 * j) % kE, sv = (2 * j + 1) % kE;
-      const float* kt = sE + 2 * sk * kTE;  // K hi, K lo
-      const float* vt = sE + 2 * sv * kTE;  // V^T hi, V^T lo
-      float sc[8][4] = {}, sc_small[8][4] = {};
-      mbar_wait(&full[sk], ((2 * j) / kE) & 1);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
-        const uint64_t b_hi = desc_k8<kRows, D>(kt, kk);
-        const uint64_t b_lo = desc_k8<kRows, D>(kt + kTE, kk);
-        if constexpr (P::kQInRegs)
-          mma3_rs(sc, sc_small, qh[kk], ql[kk], b_hi, b_lo);
-        else
-          mma3_ss(sc, sc_small, desc_k8<kRows, D>(sq, kk),
-                  desc_k8<kRows, D>(sq + kTE, kk), b_hi, b_lo);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(sc);
-      fence_acc(sc_small);
-      add_small(sc, sc_small);
-      if constexpr (P::kQInRegs) {
-        fence_frag(qh);
-        fence_frag(ql);
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[sk]);
-      if ((j + 1) * kRows > N) {  // the ragged last tile
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (j * kRows + 8 * nt + 2 * t + (e & 1) >= N)
-              sc[nt][e] = -INFINITY;
-      }
-      float mx[2] = {-INFINITY, -INFINITY}, corr[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        // every tile holds at least one valid column, so the max is finite
-        const float m_new = fmaxf(m[r], quad_max(mx[r]));
-        corr[r] = expf(m[r] - m_new);
-        m[r] = m_new;
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sc[nt][e] = expf(sc[nt][e] - m[e >> 1]);
-          rs[e >> 1] += sc[nt][e];
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(rs[r]);
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[nt][e] *= corr[e >> 1];
-      uint32_t ph[8][4], pl[8][4];  // P, unrounded, as (hi, lo)
-      acc_to_a(sc, ph, pl);
-      mbar_wait(&full[sv], ((2 * j + 1) / kE) & 1);
-      add_fresh<D>(o, [&](auto& t, uint64_t off) {
-#pragma unroll
-        for (int kk = 0; kk < 8; ++kk)
-          mma3_rs(t, ph[kk], pl[kk], desc_k8<D, kRows>(vt, kk) + off,
-                  desc_k8<D, kRows>(vt + kTE, kk) + off);
-      });
-      fence_frag(ph);
-      fence_frag(pl);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[sv]);
-    }
-
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = q0 + kRows * wg + r0 + g + 8 * half;
-      if (row >= N) continue;
-      float* dst = out + ((size_t)b * N + row) * A + h * D + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt)
-        *reinterpret_cast<float2*>(dst + 8 * nt) = make_float2(
-            o[nt][2 * half] / l[half], o[nt][2 * half + 1] / l[half]);
-      if (t == 0) lse[(size_t)bh * N + row] = m[half] + logf(l[half]);
-    }
-  }
-}
 
 // The f32 dK/dV kernel's block at head dim D: kWGs consumer warpgroups of
 // 64 key/value rows (one at D = 128, whose dK and dV accumulators take 128
@@ -826,18 +632,12 @@ int run_fwd(const void* qkv, void* out, void* lse, int B, int N, int H,
         tqkv, static_cast<bf16*>(out), static_cast<float*>(lse), N, H,
         q_scale);
     return 0;
-  } else {
-    using P = FwdF32<D>;
-    CUtensorMap tqkv;
-    if (int e = f32_map<D>(&tqkv, qkv, B, N, 3 * H * D, kRows)) return e;
-    constexpr size_t smem = P::smem();
-    auto kernel = fwd_f32<D>;
-    if (int e = max_smem((const void*)kernel, smem)) return e;
-    kernel<<<dim3((N + P::kWGs * kRows - 1) / (P::kWGs * kRows), B * H),
-             P::kThreads, smem, st>>>(tqkv, static_cast<float*>(out),
-                                      static_cast<float*>(lse), N, H,
-                                      q_scale);
-    return 0;
+  } else {  // 3xTF32 on wgmma (wgmma_tf32_fwd.cuh), no bias
+    const int A = H * D;
+    return launch_fwd_f32<D, false>(qkv, at_col(qkv, A, is_bf16),
+                                    at_col(qkv, 2 * A, is_bf16), nullptr, out,
+                                    static_cast<float*>(lse), B, N, H, 3 * A,
+                                    3 * A, 3 * A, q_scale, st);
   }
 }
 

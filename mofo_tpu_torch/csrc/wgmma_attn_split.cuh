@@ -60,7 +60,6 @@
 
 namespace {
 
-constexpr int kStripMaxDim = 256;  // the strip kernels' widest head dim
 constexpr int kGroupBoxes = 4;     // 64-column boxes of a block's output
 constexpr int kSlotBoxes = 3;      // boxes a ring slot holds
 constexpr int kSlotElems = kSlotBoxes * kTileElems;

@@ -575,6 +575,8 @@ int tile_map(CUtensorMap* map, const void* base, long cols, long rows,
 
 // --- host: the built head dims ---------------------------------------------
 
+constexpr int kStripMaxDim = 256;  // the widest built head dim (the strips')
+
 // Runs f(std::integral_constant<int, D>()) for a head dim D the kernels are
 // built for (HEAD_DIMS of mofo_tpu_torch/ops/flash_attention.py, the same
 // six for K1/K2, K3 and K4); kBadArgument for any other D, which the

@@ -37,15 +37,16 @@ Every bf16 kernel is a TMA + wgmma kernel (csrc/wgmma_tiles.cuh; the
 backwards up to head dim 128 share csrc/wgmma_attn_bwd.cuh, the K3 forward
 and every backward at 192 and 256 csrc/wgmma_attn_wide.cuh's strip
 kernels, every kernel above 256 csrc/wgmma_attn_split.cuh's column-split
-ones; K1/K2 reach both through K3's entry points). In f32, K1's forward,
-K2's dK/dV and K2's and K3's dQ are TMA + wgmma kernels too, their
-products in 3xTF32 (csrc/wgmma_tf32.cuh: each operand split into two TF32
-parts, three TF32 products, as accurate as f32; dQ in wgmma_tf32_dq.cuh,
-K2's through K3's entry point), as are K3's forward and dK/dV at head dims
-192 and 256 (wgmma_tf32_wide.cuh) and, above 256, the column-split dK/dV
-and dQ of every family (wgmma_tf32_split.cuh); K3's forward and dK/dV up
-to 128, K4's f32 kernels up to 256 and the column-split f32 forward
-(flash_split_f32.cuh) run FMAs.
+ones; K1/K2 reach both through K3's entry points). In f32, K1's and K3's
+forward up to head dim 128, K2's dK/dV and K2's and K3's dQ are TMA +
+wgmma kernels too, their products in 3xTF32 (csrc/wgmma_tf32.cuh: each
+operand split into two TF32 parts, three TF32 products, as accurate as
+f32; the forward in wgmma_tf32_fwd.cuh, K3's with its bias row; dQ in
+wgmma_tf32_dq.cuh, K2's through K3's entry point), as are K3's forward
+and dK/dV at head dims 192 and 256 (wgmma_tf32_wide.cuh) and, above 256,
+the column-split forward, dK/dV and dQ of every family
+(wgmma_tf32_split.cuh; K4's forward in two passes); K3's dK/dV up to 128
+and K4's f32 kernels up to 256 run FMAs.
 
 fp16 callers (the fp16 finetune) run the bf16 kernels: each public entry
 point casts f16 operands to bf16 and the output back to f16 inside autograd,

@@ -16,9 +16,10 @@
 
 `two_rank_runs(0, 1)` is the single process at G' that chip_smoke.py holds
 the ranks against, on the same card: the ViT-B MOFO pretrain step at full
-width and depth (B=8 a rank, update_freq 2, motion-weighted loss, masks
-drawn in the step) for 3 steps in f32 and in bf16, and the ViT-B
-BB-focused MCA finetune step (f32, 10 classes, B=5 a rank, RandAugment,
+width, cut to DEPTH Blocks (B=8 a rank, update_freq 2, motion-weighted
+loss, masks drawn in the step) for 3 steps in f32 and in bf16, and the
+ViT-B BB-focused MCA finetune step at DEPTH[0] Blocks (f32, 10 classes,
+B=5 a rank, RandAugment,
 crop, flip, erasing, mixup elem with cutmix, drop path 0.1) for 2 steps,
 then one validation pass and the multi-view merge of its views.
 """
@@ -42,6 +43,9 @@ from mofo_tpu_torch.ops import flash_attention as fa
 from mofo_tpu_torch.tools import main_path as mp
 
 WORLD = 2
+# the ViT-B (encoder, decoder) Blocks of the runs: every layer kind at full
+# width; full depth (12, 4) spent the script's time on gloo
+DEPTH = (4, 2)
 PRETRAIN_BK = (8, 2)  # a rank's batch and update_freq
 FINETUNE_B = 5
 STEPS = {"pretrain": 3, "finetune": 2}
@@ -81,7 +85,8 @@ def two_rank_runs(rank: int, world: int) -> dict:
                              masking=MaskingConfig(mask_type="tube_bb"),
                              motion_loss_weight=True)
         model = create_model(mp.MODEL, device="cuda", seed=1,
-                             dtype=getattr(torch, dtype))
+                             dtype=getattr(torch, dtype),
+                             encoder_depth=DEPTH[0], decoder_depth=DEPTH[1])
         out[f"pretrain_{dtype}"] = mp.pretrain_steps(
             model, cfg, batch, STEPS["pretrain"], wrap=wrap)
         del model, batch
@@ -97,8 +102,8 @@ def two_rank_runs(rank: int, world: int) -> dict:
         batch = mp.rank_batch(batch, rank, WORLD)
         views = mp.rank_batch(views, rank, WORLD)
     out["finetune_float32"] = mp.finetune_steps(
-        mp.finetune_model(cfg), cfg, batch, STEPS["finetune"], wrap=wrap,
-        augment=True, eval_batch=views)
+        mp.finetune_model(cfg, depth=DEPTH[0]), cfg, batch, STEPS["finetune"],
+        wrap=wrap, augment=True, eval_batch=views)
     out["launches"] = dict(fa.launch_counts)
     return out
 

@@ -87,6 +87,9 @@ MEASUREMENTS = {
     "vitl_mca_h3": ("k3", (4, 1568, 3, 341), "float32"),
     "hm_d512": ("hm", (4, 1568, 512), "float32"),
     "bb_step_h2": ("bb_step", (10, 2), "float32"),
+    # the f32 BB-focused step with the MCA at 8 heads of 128 (K3's narrow
+    # f32 forward)
+    "bb_step_h8": ("bb_step", (10, 8), "float32"),
 }
 CLASSIFIER = "vit_base_patch16_224_feature_ext"
 REPS = 3  # timed calls after one warm-up (model-level numbers)

@@ -29,8 +29,8 @@ tools/profile_step.py and tests/test_torch_gpu.py.
   bf16 backwards' prep passes against their plain versions, and
   `planted_faults` /
   `hm_planted_faults` / `group_unwritten` (the column-split kernels' last
-  output group left unwritten, `split_group_columns`; or dK's last group
-  alone): wrong outputs those bounds must reject
+  output group left unwritten, `split_group_columns`; or dK's or out's
+  last group alone): wrong outputs those bounds must reject
   (`masked_kv_grad` checks that masked kv rows get zero dK/dV).
 - `forced_draws` / `moved_draws` / `augment_against_cpu`: finetune_augment
   draws that force all 15 RandAugment ops (the geometric ones in both
@@ -117,9 +117,10 @@ BF16_REL = 2.0 ** -6
 BF16_LSE_ATOL = 1e-4
 # the column-split kernels (head dims above 256): output columns a block
 SPLIT_GROUP = 256
-# f32 kernels whose products run in 3xTF32 (K1's forward, K2's dK/dV and
-# dQ up to head dim 128; K3's dQ at every head dim up to 256, its forward
-# and dK/dV at 192 and 256, which K1/K2 reach): against one float64 run,
+# f32 kernels whose products run in 3xTF32 (K1's and K3's forward, K2's
+# dK/dV and dQ up to head dim 128; K3's dQ at every head dim up to 256,
+# its forward and dK/dV at 192 and 256, which K1/K2 reach; every f32
+# kernel above 256): against one float64 run,
 # each of their outputs' max error may be at most PRECISION_FACTOR times
 # the plain f32 version's (TF32 off, the card's default); the plain
 # version with TF32 on (1xTF32) must miss that bound
@@ -985,16 +986,16 @@ def planted_faults(got: dict, bias_ignored: dict = None,
     return faults
 
 
-def split_group_columns(D: int, f32_backward: bool) -> list:
+def split_group_columns(D: int, f32: bool) -> list:
     """The output groups of the column-split kernels at head dim D (a
     multiple of SPLIT_BOX above 256): [(first column, columns), ...].
     G = ceil(D / SPLIT_GROUP) groups; SPLIT_GROUP columns each (the last
-    group the rest), except in the f32 backward (f32_backward;
-    csrc/wgmma_tf32_split.cuh), which balances them over the D / 64
-    chunks, group g taking chunks [g kC / G, (g + 1) kC / G) (kC = D / 64,
-    floor division)."""
+    group the rest) in bf16, while the f32 kernels (f32;
+    csrc/wgmma_tf32_split.cuh: the forward, dK/dV and dQ) balance them
+    over the D / 64 chunks, group g taking chunks [g kC / G, (g + 1) kC /
+    G) (kC = D / 64, floor division)."""
     G = -(-D // SPLIT_GROUP)
-    if not f32_backward:
+    if not f32:
         return [(SPLIT_GROUP * g, min(SPLIT_GROUP, D - SPLIT_GROUP * g))
                 for g in range(G)]
     kc = D // fa.SPLIT_BOX
@@ -1007,16 +1008,16 @@ def group_unwritten(got: dict, heads: int,
                     outputs=("out", "dq", "dk", "dv")) -> dict:
     """The column-split kernels' planted fault (head dims above 256): the
     last output group of every head (split_group_columns at the kernels'
-    width, for the output's kernel) left unwritten in a zeroed buffer, in
-    each of
+    width and dtype) left unwritten in a zeroed buffer, in each of
     `outputs` (out and dq, dk and dv by default; ("dk",): the dK blocks of
     the last group alone, which the f32 dK/dV kernel runs apart from the
-    dV blocks). compare_with_plain must reject it."""
+    dV blocks; ("out",): the forward's alone). compare_with_plain must
+    reject it."""
     def drop(k):
         t = got[k]
         lead, D = t.shape[:-1], t.shape[-1] // heads
-        c0, _ = split_group_columns(
-            fa.head_dim_width(D), k != "out" and t.dtype == torch.float32)[-1]
+        c0, _ = split_group_columns(fa.head_dim_width(D),
+                                    t.dtype == torch.float32)[-1]
         x = t.reshape(*lead, heads, D).clone()
         x[..., c0:] = 0
         return x.reshape(t.shape)

@@ -31,9 +31,10 @@ refuses two ranks on one device), each joining through a FileStore.
 
 `mesh_runs(None)` is the single process at G' that chip_smoke.py holds the
 ranks against, on the same card: the ViT-B MOFO pretrain step at full
-width and depth (PRETRAIN_B a device, so G' = 16 and 8 rows a batch
+width, cut to DEPTH Blocks (PRETRAIN_B a device, so G' = 16 and 8 rows a batch
 coordinate, motion-weighted loss, masks drawn in the step) for 2 steps in
-f32 and 3 in bf16, and the ViT-B BB-focused MCA finetune step (f32, 10
+f32 and 3 in bf16, and the ViT-B BB-focused MCA finetune step at DEPTH[0]
+Blocks (f32, 10
 classes, FINETUNE_B a device, RandAugment, crop, flip, erasing, mixup elem
 with cutmix, drop path 0.1) for 2 steps, then one validation pass and the
 multi-view merge. `zoo_runs(None)` is phase mesh_zoo's single process:
@@ -79,6 +80,10 @@ from mofo_tpu_torch.train.train_state import TrainState
 
 SHAPE = (1, 2, 2)
 WORLD = 4
+# the ViT-B (encoder, decoder) Blocks of phases mesh_step and mesh_zoo
+# (the BB-focused model's encoder too): every layer kind and its sharding
+# at full width; full depth (12, 4) spent the script's time on gloo
+DEPTH = (4, 2)
 PRETRAIN_B = 4  # a device
 FINETUNE_B = 2  # a device
 STEPS = {"pretrain_float32": 2, "pretrain_bfloat16": 3,
@@ -91,11 +96,11 @@ MEMORY_STEPS = 2
 ZOO_STEPS = 2
 ZOO_PRETRAIN_OPTS = ("adamw", "adafactor", "adamp", "sgdp")
 ZOO_FINETUNE_OPT = "adamp"
-# phase mesh_adahessian: ViT-B widths, its (encoder, decoder) Blocks (the
-# full depth), clips a device, steps, and eps 1e-3 (at 1e-8 an update
+# phase mesh_adahessian: ViT-B widths, its (encoder, decoder) Blocks (as
+# DEPTH), clips a device, steps, and eps 1e-3 (at 1e-8 an update
 # divides by probe elements smaller than their rounding across reduction
 # orders)
-AH_DEPTH = (12, 4)
+AH_DEPTH = DEPTH
 AH_B = 2
 AH_STEPS = 2
 AH_EPS = 1e-3
@@ -123,7 +128,8 @@ def mesh_runs(mesh) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(0)
         batch = _coord(mp.synthetic_batch(G, gen, "cuda"), mesh)
         model = create_model(mp.MODEL, device="cuda", seed=1,
-                             dtype=getattr(torch, dtype))
+                             dtype=getattr(torch, dtype),
+                             encoder_depth=DEPTH[0], decoder_depth=DEPTH[1])
         fa.reset_launch_counts()
         run = f"pretrain_{dtype}"
         out[run] = mp.pretrain_steps(
@@ -143,7 +149,8 @@ def mesh_runs(mesh) -> dict:
                          batch_size=len(batch["clip"]))
     fa.reset_launch_counts()
     out["finetune_float32"] = mp.finetune_steps(
-        mp.finetune_model(cfg), cfg, batch, STEPS["finetune_float32"],
+        mp.finetune_model(cfg, depth=DEPTH[0]), cfg, batch,
+        STEPS["finetune_float32"],
         augment=True, eval_batch=views, mesh=mesh)
     out["finetune_float32"]["launches"] = dict(fa.launch_counts)
     return out
@@ -226,7 +233,8 @@ def zoo_runs(mesh) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(0)
         batch = _coord(mp.synthetic_batch(G, gen, "cuda"), mesh)
         model = create_model(mp.MODEL, device="cuda", seed=1,
-                             dtype=torch.bfloat16)
+                             dtype=torch.bfloat16, encoder_depth=DEPTH[0],
+                             decoder_depth=DEPTH[1])
         init = mp._final(model)
         out[f"pretrain_{opt}"] = dict(_timed_run(lambda: mp.pretrain_steps(
             model, _pretrain_cfg(len(batch["clip"]), "bfloat16"), batch,
@@ -239,7 +247,7 @@ def zoo_runs(mesh) -> dict:
     cfg = FinetuneConfig(model=mp.FINETUNE_MODEL, dtype="float32",
                          mixup_mode="elem", nb_classes=NUM_CLASSES,
                          batch_size=len(batch["clip"]))
-    model = mp.finetune_model(cfg)
+    model = mp.finetune_model(cfg, depth=DEPTH[0])
     init = mp._final(model)
     out[f"finetune_{ZOO_FINETUNE_OPT}"] = dict(_timed_run(
         lambda: mp.finetune_steps(model, cfg, batch, ZOO_STEPS,
@@ -322,7 +330,8 @@ def contiguous_qkv_step(mesh) -> float:
     G = PRETRAIN_B * WORLD
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = _coord(mp.synthetic_batch(G, gen, "cuda"), mesh)
-    model = create_model(mp.MODEL, device="cuda", seed=1)
+    model = create_model(mp.MODEL, device="cuda", seed=1,
+                         encoder_depth=DEPTH[0], decoder_depth=DEPTH[1])
     with mock.patch.object(mesh_lib, "sections_of", lambda name: 1):
         res = mp.pretrain_steps(model, _pretrain_cfg(len(batch["clip"]),
                                                      "float32"),

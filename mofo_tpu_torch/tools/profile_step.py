@@ -42,15 +42,21 @@ from mofo_tpu_torch.tools.main_path import (
 _BASE_E = re.compile(r"bwd_d(kv|q)_bf16(<true|ILb1)")
 _BIAS = re.compile(r"bwd_d(kv|q)_bf16(<[^>]*true>|I(Lb[01]E)+Lb1EE)")
 _PREP_K3 = re.compile(r"bwd_prep_bf16(<32>|ILi32E)")
+# the f32 forwards shared across families: K1's narrow kernel with the bias
+# flag set is K3's; the column-split one in two passes is K4's, in one K3's
+_FWD_F32_BIAS = re.compile(r"fwd_f32(<\d+, true>|ILi\d+ELb1E)")
+_SPLIT_FWD_TWO_PASS = re.compile(r"split_fwd_tf32(<\d+, true>|ILi\d+ELb1E)")
 
 
 def _group(name: str) -> str:
     low = name.lower()
-    if "mh_fwd_" in name or "mh_bwd_" in name or _BIAS.search(name) or \
-            _PREP_K3.search(name):
-        return "masked attention, K3 (port kernels)"
-    if "hm_fwd_" in name or "hm_bwd_" in name or _BASE_E.search(name):
+    if "hm_fwd_" in name or "hm_bwd_" in name or _BASE_E.search(name) or \
+            _SPLIT_FWD_TWO_PASS.search(name):
         return "head-major attention, K4 (port kernels)"
+    if "mh_fwd_" in name or "mh_bwd_" in name or _BIAS.search(name) or \
+            _PREP_K3.search(name) or _FWD_F32_BIAS.search(name) or \
+            "split_fwd_tf32" in name:
+        return "masked attention, K3 (port kernels)"
     if "bwd_prep_bf16" in name:  # one kernel, launched by K2 and by K4
         return "backward prep pass, K2 and K4 (port kernels)"
     if any(k in name for k in ("fwd_bf16", "bwd_dkv_bf16",

@@ -462,6 +462,46 @@ def test_column_split_3xtf32_backward_is_as_precise_as_f32(cuda, family,
     assert compare_with_plain(fault, want)["beyond_bounds"] == ["dk"]
 
 
+@pytest.mark.parametrize("N", [1568, 100, 1])
+@pytest.mark.parametrize("family,shape", [
+    ("mh", (4, 16, 64)), ("mh", (4, 8, 128)), ("mh", (4, 2, 384)),
+    ("mh", (2, 1, 768)), ("qkv", (2, 2, 320)), ("hm", (4, 1, 512))])
+def test_3xtf32_forwards_are_as_precise_as_f32(cuda, family, shape, N):
+    """The f32 forwards on 3xTF32 wgmma: K3's up to head dim 128 with its
+    bias row (csrc/wgmma_tf32_fwd.cuh, K1's kernel), and the column-split
+    one above 256 (csrc/wgmma_tf32_split.cuh) of K3 at the MCA's 384 and
+    768, K1/K2 at 320 and K4 at 512 (two passes). Long, ragged and N = 1.
+    Against a float64 run every output within PRECISION_FACTOR of the
+    plain f32 version's error, and the plain version with TF32 on beyond
+    that bound on out and lse; then against the plain versions. At N = 1
+    (the plain version exact, dS rounding noise) against the plain
+    versions as _check_at_edge holds them. Above 256 the fault that leaves
+    the forward's last output group unwritten is rejected, on out alone."""
+    B, H, d = shape
+    if family == "qkv":
+        x = _qkv(B, N, H, torch.float32, cuda, seed=5, d=d)
+        res = f32_precision(x, H, d ** -0.5)
+        got, want = attention_against_plain(x, H, d ** -0.5)
+    elif family == "mh":
+        q, k, v, b = mh_inputs(B, N, H, d, torch.float32, 5, cuda)
+        res = mh_f32_precision(q, k, v, b, H, d ** -0.5)
+        got, want = mh_attention_against_plain(q, k, v, b, H, d ** -0.5)
+    else:
+        q, k, v = hm_inputs(B * H, N, torch.float32, 5, cuda, D=d)
+        res = hm_f32_precision(q, k, v, d ** -0.5)
+        got, want = hm_attention_against_plain(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    if N == 1:
+        _check_at_edge(got, want, N)
+        return
+    assert res["beyond"] == [], res
+    assert {"out", "lse"} <= set(res["fault_beyond"]), res
+    check_against_plain(got, want)
+    if fa.head_dim_width(d) > fa.HEAD_DIMS[-1]:
+        fault = group_unwritten(got, H, ("out",))
+        assert compare_with_plain(fault, want)["beyond_bounds"] == ["out"]
+
+
 def test_wrapper_rejects_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="head dim 48"):
         fa.qkv_attn_fwd(torch.zeros(1, 8, 3 * 2 * 48, device=cuda), 1.0, 2)

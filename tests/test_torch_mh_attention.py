@@ -263,6 +263,7 @@ def test_build_lists_both_sources():
 
     assert _build.SOURCES == ("qkv_flash_attention.cu",
                               "mh_flash_attention.cu",
+                              "mh_flash_attention_f32.cu",
                               "hm_flash_attention.cu")
     assert all((_build.CSRC / s).exists()
                for s in _build.SOURCES + _build.HEADERS)

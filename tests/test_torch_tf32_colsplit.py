@@ -463,10 +463,12 @@ def test_the_block_fits_shared_memory():
 
 
 def test_the_sources_route_the_f32_backward_above_256():
-    """No FMA column-split backward is left: flash_split_f32.cuh keeps the
-    forward only, and the f32 branches of split_dkv / split_dq in K3's and
-    K4's sources launch wgmma_tf32_split.cuh's kernels, whose constants
-    are the ones emulated here."""
+    """No FMA column-split backward is left (nor its forward, nor
+    flash_split_f32.cuh, which held them), and the f32 branches of
+    split_dkv / split_dq in K3's (mh_flash_attention_f32.cu) and K4's
+    sources launch wgmma_tf32_split.cuh's kernels, whose constants are the ones emulated
+    here; so does the f32 branch of split_fwd
+    (tests/test_torch_tf32_fwd.py)."""
     src = {p.name: p.read_text() for p in _build.CSRC.iterdir()}
     for name, text in src.items():
         assert "split_bwd_dq_f32" not in text, name
@@ -474,7 +476,8 @@ def test_the_sources_route_the_f32_backward_above_256():
         assert "launch_split_dq_f32" not in text, name
         assert "launch_split_dkv_f32" not in text, name
     assert "wgmma_tf32_split.cuh" in _build.HEADERS
-    for name in ("mh_flash_attention.cu", "hm_flash_attention.cu"):
+    # K3's f32 launchers are mh_flash_attention_f32.cu's, K4's its own
+    for name in ("mh_flash_attention_f32.cu", "hm_flash_attention.cu"):
         text = src[name]
         assert '#include "wgmma_tf32_split.cuh"' in text
         dkv = text[text.index("int split_dkv("):text.index("int split_dq(")]
@@ -488,4 +491,10 @@ def test_the_sources_route_the_f32_backward_above_256():
     assert f"kSplitGroupChunks = {GROUP_CHUNKS};" in header
     for kernel in ("split_dkv_tf32(", "split_dq_tf32("):
         assert kernel in header
-    assert "split_fwd_f32" in src["flash_split_f32.cuh"]
+    assert "flash_split_f32.cuh" not in src
+    assert "flash_split_f32.cuh" not in _build.HEADERS
+    for name in ("mh_flash_attention_f32.cu", "hm_flash_attention.cu"):
+        text = src[name]
+        fwd = text[text.index("int split_fwd("):text.index("int split_dkv(")]
+        assert "launch_split_fwd_tf32<" in fwd, name
+        assert "split_fwd_f32" not in text, name

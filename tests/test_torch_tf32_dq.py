@@ -388,16 +388,20 @@ def test_the_chunked_dq_keeps_the_forward_s_layout(D):
 
 def test_no_fma_dq_kernel_is_left():
     """In f32 every dQ up to head dim 256 runs one of the two 3xTF32
-    kernels: K3's entry point sends its f32 dQ to launch_dq_tf32 (the
-    narrow mh_dq_f32 up to 128, the chunked mh_dq_tf32 at 192 and 256),
-    K2's f32 dQ goes through K3's entry point at every head dim, and
-    neither source keeps an FMA dQ kernel."""
+    kernels: K3's entry point sends its f32 dQ (through
+    mh_flash_attention_f32.cu's mh_f32_dq) to launch_dq_tf32 (the narrow
+    mh_dq_f32 up to 128, the chunked mh_dq_tf32 at 192 and 256), K2's f32
+    dQ goes through K3's entry point at every head dim, and no source
+    keeps an FMA dQ kernel."""
     from mofo_tpu_torch.ops import _build
 
     qkv = (_build.CSRC / "qkv_flash_attention.cu").read_text()
-    mh = (_build.CSRC / "mh_flash_attention.cu").read_text()
-    for text in (qkv, mh):
+    mh = (_build.CSRC / "mh_flash_attention_f32.cu").read_text()
+    entry = (_build.CSRC / "mh_flash_attention.cu").read_text()
+    for text in (qkv, mh, entry):
         assert "bwd_dq_f32" not in text
+    dq_entry = entry[entry.index('extern "C" int mh_attn_bwd_dq('):]
+    assert "!bf16 ? mh_f32_dq(" in dq_entry
     assert "flash_tiles.cuh" not in qkv
     run_dq = qkv[qkv.index("int run_dq("):qkv.index("}  // namespace")]
     f32 = run_dq[run_dq.index("} else if (!is_bf16) {"):

@@ -2,7 +2,7 @@
 
 mofo_tpu's attention kernels take any head dim D. Above 256 the port's
 CUDA kernels are the column-split ones (csrc/wgmma_attn_split.cuh,
-flash_split_f32.cuh), which take any multiple of 64: on the card the
+wgmma_tf32_split.cuh), which take any multiple of 64: on the card the
 public entry points zero-pad any other D to the next multiple of 64
 (head_dim_width: 264 -> 320, 341 -> 384) and slice the results back. Here,
 on the CPU:
