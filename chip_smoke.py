@@ -429,11 +429,12 @@ geometry; after it, f32_precision holds K1's forward and K2's dK/dV and
 dQ (3xTF32 on wgmma) against a float64 run (each output within
 PRECISION_FACTOR of the plain f32 version's error, the plain version with
 TF32 on beyond it) at every head dim they take and the ViT-B decoder, and
-K3's forward and dQ at every head dim with its dK/dV at 256 and 192
-(3xTF32, D streamed in 64-column chunks there) at MH_F32_PRECISION_CHECKS
-with the kv bias, and above 256 the column-split 3xTF32 forward and
-backward of K1/K2 (d320), K3 (the MCA at 2 and 1 heads, ragged, N = 1)
-and K4 (HM_F32_PRECISION_CHECKS), the 1xTF32 fault beyond the bound on
+K3's forward, dK/dV and dQ at every head dim (3xTF32, D streamed in
+64-column chunks at 256 and 192) at MH_F32_PRECISION_CHECKS with the kv
+bias, K4's two-pass forward at 64, 128 and 256 (HM_F32_PRECISION_CHECKS),
+and above 256 the column-split 3xTF32 forward and backward of K1/K2
+(d320), K3 (the MCA at 2 and 1 heads, ragged, N = 1) and K4
+(HM_F32_PRECISION_CHECKS), the 1xTF32 fault beyond the bound on
 dQ everywhere and on out, lse, dK and dV at F32_FAULT_BEYOND; after vis,
 f32_eval
 times feature_extract's forward (B = 4) and the f32 ViT-B step, launches
@@ -627,21 +628,26 @@ MH_F32_PRECISION_CHECKS = {"mca_b4": (4, 1568, 3, 256),
                            "mca_h1_d768": (2, 1568, 1, 768),
                            "ragged_d384": (4, 100, 1, 384),
                            "n1_d384": (4, 1, 1, 384)}
-# and K4's column-split kernels: (B*H, N, D)
-HM_F32_PRECISION_CHECKS = {"d320": (4, 1568, 320), "d512": (4, 1568, 512)}
+# and K4's 3xTF32 forwards (B*H, N, D): the two-pass narrow one at 64 and
+# 128, the column-split one at one group at 256 (ragged), and the
+# column-split kernels above 256
+HM_F32_PRECISION_CHECKS = {"d64": (4, 1568, 64), "d128": (4, 1568, 128),
+                           "ragged_d256": (4, 100, 256),
+                           "d320": (4, 1568, 320), "d512": (4, 1568, 512)}
 # f32_precision's geometries at which the 1xTF32 fault must land beyond
 # the bound on other outputs too (on dQ it must everywhere): on out and
 # lse at every geometry above N = 1, and on dK and dV at the column-split
-# ones, where the FMA kernels' runs of the same check (NVIDIA H100 80GB
-# HBM3, 700.00 W) showed it beyond
+# ones and at K3's 8 x 128 and 16 x 64, where the FMA kernels' runs of the
+# same check (NVIDIA H100 80GB HBM3, 700.00 W) showed it beyond
 F32_FAULT_BEYOND = {
     **dict.fromkeys(
         ("d16", "d32", "d64", "d128", "decoder", "k3_mca_b4",
-         "k3_mca_h4_d192", "k3_mca_h8_d128", "k3_mca_h16_d64",
-         "k3_ragged_d256"), ("out", "lse")),
+         "k3_mca_h4_d192", "k3_ragged_d256", "k4_d64", "k4_d128",
+         "k4_ragged_d256"), ("out", "lse")),
     **dict.fromkeys(
         ("d320", "k3_mca_h2_d384", "k3_mca_h1_d768", "k3_ragged_d384",
-         "k4_d320", "k4_d512"), ("out", "lse", "dk", "dv"))}
+         "k3_mca_h8_d128", "k3_mca_h16_d64", "k4_d320", "k4_d512"),
+        ("out", "lse", "dk", "dv"))}
 # K1/K2's f32 instances are timed at the bf16 rows' main shapes (K3's at
 # the MCA, K4's at the runner's decoder: each family's timed geometry)
 F32_TIMED = ("decoder", "backbone")

@@ -1,19 +1,18 @@
-// Tile helpers of the f32 flash-attention kernels still on FMAs: K3's
-// dK/dV up to head dim 128 (mh_flash_attention.cu) and K4's f32 kernels up
-// to 256 (hm_flash_attention.cu): shared-memory tile loads, the FMA
-// product, row reductions and a launch helper. They replace the TPU
-// kernels of mofo_tpu/ops/flash_attention.py in f32 (each source names
-// its own). What bounds them: the inner loop (gemm) has each thread read
-// 8 shared-memory words for every 16 FMAs of its 4 x 4 micro-tile, which
-// caps it near half the card's 67 TFLOP/s f32 FMA rate, and the tiles load
-// synchronously between two __syncthreads, so loads and math never
-// overlap. K1's and K3's f32 forwards, K2's f32 dK/dV, the f32 dQs of K2
-// and K3 and every f32 kernel above 256 left these helpers for 3xTF32
+// Tile helpers of the f32 flash-attention kernels still on FMAs: K4's f32
+// dK/dV and dQ up to head dim 256 (hm_flash_attention.cu), the last users:
+// shared-memory tile loads, the FMA product, row reductions and a launch
+// helper. They replace the TPU kernel K4 of mofo_tpu/ops/flash_attention.py
+// in f32 (hm_flash_attention.cu names it). What bounds them: the inner
+// loop (gemm) has each thread read 8 shared-memory words for every 16 FMAs
+// of its 4 x 4 micro-tile, which caps it near half the card's 67 TFLOP/s
+// f32 FMA rate, and the tiles load synchronously between two
+// __syncthreads, so loads and math never overlap. Every other f32 kernel
+// (K1's, K3's and K4's forwards, K2's and K3's dK/dV, the f32 dQs of K2 and
+// K3 and every f32 kernel above 256) left these helpers for 3xTF32
 // products on the tensor cores, fed by TMA (wgmma_tf32.cuh); the kernels
-// here wait for the same redesign
-// (ROADMAP). The bf16 kernels are
-// built from wgmma_tiles.cuh. Everything is in an anonymous namespace:
-// each source that includes it gets its own copy.
+// here wait for the same redesign (ROADMAP). The bf16 kernels are built
+// from wgmma_tiles.cuh. Everything is in an anonymous namespace: each
+// source that includes it gets its own copy.
 
 #pragma once
 

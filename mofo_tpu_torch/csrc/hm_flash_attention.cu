@@ -2,9 +2,11 @@
 // two halves of the backward on (B*H, N, D) q, k and v. Plain C interface,
 // loaded from Python with ctypes (mofo_tpu_torch/ops/flash_attention.py);
 // built by mofo_tpu_torch/ops/_build.py with the other csrc/*.cu sources.
-// The f32 tile loads, products and reductions are flash_tiles.cuh's, the
-// TMA, mbarrier and wgmma pieces of the bf16 forward wgmma_tiles.cuh's, and
-// the bf16 backward's kernels wgmma_attn_bwd.cuh's.
+// The f32 backward's tile loads, products and reductions up to D = 256 are
+// flash_tiles.cuh's, the f32 forward's kernels wgmma_tf32_fwd.cuh's and
+// wgmma_tf32_split.cuh's, the TMA, mbarrier and wgmma pieces of the bf16
+// forward wgmma_tiles.cuh's, and the bf16 backward's kernels
+// wgmma_attn_bwd.cuh's.
 //
 // Replaces the TPU kernel K4 of mofo_tpu/ops/flash_attention.py:
 //   hm_attn_fwd      <- _fwd_impl (:262) / _fwd_kernel (:130)
@@ -83,12 +85,17 @@
 //     groups of 256 columns over the grid (the forward's two passes and the
 //     backward's S and dP formed again by every group); dQ reads the prep
 //     pass's k * scale copy unless the scale is a power of two.
-//   - The f32 kernels (the parity path) use FMAs, since tensor cores would
-//     round f32 to TF32; above D = 128 their tiles shrink to 32 rows.
-//     Above D = 256 every f32 kernel is wgmma_tf32_split.cuh's 3xTF32
-//     column-split one (each operand split into TF32 hi and lo parts,
-//     three products: as accurate as f32), shared with K3: the forward in
-//     two passes (p / l before P.V), dK/dV and dQ.
+//   - The f32 forward runs its products in 3xTF32 on wgmma (each operand
+//     split into TF32 hi and lo parts, three products: as accurate as
+//     f32), in two passes (p / l before P.V): up to D = 128 K1's and K3's
+//     narrow kernel with its two-pass flag (wgmma_tf32_fwd.cuh; the
+//     (BH, N, D) planes as BH planes of one head), at 192 and 256 and
+//     above wgmma_tf32_split.cuh's column-split one (one output group of
+//     3 or 4 chunks at 192 and 256: no recompute), shared with K3. The
+//     f32 dK/dV and dQ up to D = 256 still use FMAs (flash_tiles.cuh; the
+//     ROADMAP's f32 queue); above D = 128 their tiles shrink to 32 rows.
+//     Above D = 256 they are wgmma_tf32_split.cuh's 3xTF32 column-split
+//     kernels too.
 // Ragged N is masked in-kernel: kv columns >= N and q rows >= N get P = 0;
 // nothing is padded in HBM.
 //
@@ -108,6 +115,7 @@
 #include "wgmma_attn_bwd.cuh"
 #include "wgmma_attn_split.cuh"
 #include "wgmma_attn_wide.cuh"
+#include "wgmma_tf32_fwd.cuh"
 #include "wgmma_tf32_split.cuh"
 #include "wgmma_tiles.cuh"
 
@@ -131,90 +139,10 @@ __device__ __forceinline__ void load_stats(float* sLse, float* sDelta,
 }
 
 // -------------------------------------------------------------------------
-// f32: FMA kernels (flash_tiles.cuh's 16 x 16 thread layout)
+// f32: FMA kernels of the backward up to D = 256 (flash_tiles.cuh's 16 x 16
+// thread layout); the f32 forward is wgmma_tf32_fwd.cuh's and
+// wgmma_tf32_split.cuh's (3xTF32, two passes)
 // -------------------------------------------------------------------------
-
-template <int BQ, int BK, int D>
-constexpr size_t smem_fwd_f32() {
-  return ((size_t)(BQ + 2 * BK) * (D + 1) + BQ * (BK + 1)) * sizeof(float);
-}
-
-// Grid (ceil(N / BQ), BH). One block: BQ query rows of one head against all
-// N keys, in two passes over BK-row kv tiles.
-template <int BQ, int BK, int D>
-__global__ void __launch_bounds__(kThreads)
-    hm_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-               const float* __restrict__ v, float* __restrict__ out,
-               float* __restrict__ lse, int N, float q_scale) {
-  constexpr int I = BQ / 16, JS = BK / 16, JO = D / 16, LD = D + 1,
-                LDP = BK + 1;
-  extern __shared__ float fsmem[];
-  float* sQ = fsmem;
-  float* sK = sQ + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sP = sV + BK * LD;
-  const size_t base = (size_t)blockIdx.y * N * D;
-  const int q0 = blockIdx.x * BQ;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-
-  load_f32<BQ, D>(sQ, q + base, q0, N, D, q_scale);
-  float m[I], l[I];
-#pragma unroll
-  for (int i = 0; i < I; ++i) m[i] = -INFINITY, l[i] = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += BK) {  // pass 1: row max and sum
-    __syncthreads();  // sQ is written / the previous tile's reads are done
-    load_f32<BK, D>(sK, k + base, k0, N, D, 1.f);
-    __syncthreads();
-    float s[I][JS] = {};
-    gemm<I, JS, D, LD, 1, 1, LD>(s, sQ, sK, ty, tx, 1.f);
-#pragma unroll
-    for (int i = 0; i < I; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < JS; ++j)
-        if (k0 + tx + 16 * j < N) mx = fmaxf(mx, s[i][j]);
-      // every tile holds a column < N, so m_new is finite
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < JS; ++j)
-        if (k0 + tx + 16 * j < N) rs += expf(s[i][j] - m_new);
-      l[i] = l[i] * expf(m[i] - m_new) + row_sum16(rs);
-      m[i] = m_new;
-    }
-  }
-
-  float o[I][JO] = {};
-  for (int k0 = 0; k0 < N; k0 += BK) {  // pass 2: P = exp(s - m) / l, P.V
-    __syncthreads();
-    load_f32<BK, D>(sK, k + base, k0, N, D, 1.f);
-    load_f32<BK, D>(sV, v + base, k0, N, D, 1.f);
-    __syncthreads();
-    float s[I][JS] = {};
-    gemm<I, JS, D, LD, 1, 1, LD>(s, sQ, sK, ty, tx, 1.f);
-#pragma unroll
-    for (int i = 0; i < I; ++i)
-#pragma unroll
-      for (int j = 0; j < JS; ++j) {
-        const int c = tx + 16 * j;
-        sP[(I * ty + i) * LDP + c] =
-            k0 + c < N ? expf(s[i][j] - m[i]) / l[i] : 0.f;
-      }
-    __syncthreads();
-    gemm<I, JO, BK, LDP, 1, LD, 1>(o, sP, sV, ty, tx, 1.f);
-  }
-
-#pragma unroll
-  for (int i = 0; i < I; ++i) {
-    const int row = q0 + I * ty + i;
-    if (row >= N) continue;
-    float* dst = out + base + (size_t)row * D + tx;
-#pragma unroll
-    for (int j = 0; j < JO; ++j) dst[16 * j] = o[i][j];
-    if (tx == 0) lse[(size_t)blockIdx.y * N + row] = m[i] + logf(l[i]);
-  }
-}
 
 template <int BQ, int BK, int D>
 constexpr size_t smem_dq_f32() {
@@ -713,17 +641,17 @@ int run_fwd(const void* q, const void* k, const void* v, void* out, float* l,
       return launch(hm_fwd_wide_bf16<D>, FwdShape<D>::kSmem);
     else
       return launch(hm_fwd_bf16<D>, smem_fwd_bf16<D>());
+  } else if constexpr (D <= 128) {
+    // 3xTF32 on wgmma in two passes (wgmma_tf32_fwd.cuh, K1's and K3's
+    // kernel): the (BH, N, D) planes as BH planes of one head
+    return launch_fwd_f32<D, false, true>(q, k, v, nullptr, out, l, BH, N, 1,
+                                          D, D, D, q_scale, st);
   } else {
-    constexpr int T = f32_rows<D>();
-    constexpr size_t smem = smem_fwd_f32<T, T, D>();
-    auto kernel = hm_fwd_f32<T, T, D>;
-    if (int e = max_smem((const void*)kernel, smem)) return e;
-    kernel<<<dim3(cdiv(N, T), BH), kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), l, N,
-        q_scale);
+    // 192 and 256: the column-split kernel in two passes at one output
+    // group (wgmma_tf32_split.cuh; NG 3 or 4 chunks, no recompute)
+    return launch_split_fwd_tf32<true>(q, k, v, nullptr, out, l, BH, N, 1, D,
+                                       D, D, D, q_scale, st);
   }
-  return 0;
 }
 
 template <int D>
@@ -832,8 +760,9 @@ int split_dq(const void* q, const void* k, const void* v, const void* dout,
 
 // All entry points return 0 on success, a cudaError_t from the launch, or -1
 // for arguments the kernels do not take (a head dim up to 256 that is not
-// built, or one above it that is no multiple of 64). `is_bf16` selects __nv_bfloat16 (the tensor-core kernels)
-// over float (the FMA kernels; 3xTF32 for the backward above 256).
+// built, or one above it that is no multiple of 64). `is_bf16` selects
+// __nv_bfloat16 (the tensor-core kernels) over float (the 3xTF32 forward;
+// the FMA backward up to 256, 3xTF32 above).
 // q_scale and k_scale are already rounded to
 // the element type. Every (BH, N, D) tensor is contiguous and 16-byte
 // aligned; lse and delta are (BH, N) f32.

@@ -10,10 +10,8 @@
 // pass wgmma_attn_bwd.cuh's, shared with K2 and K4, and every kernel above
 // 256 wgmma_attn_split.cuh's column-split ones. The f32 kernels' launchers
 // are mh_flash_attention_f32.cu's (a source of its own, so that the build
-// compiles them beside these), which the entry points call for float: the
-// f32 dK/dV up to 128 runs FMAs on flash_tiles.cuh's tile loads, products
-// and reductions, which hm_flash_attention.cu (K4) shares; every other f32
-// kernel runs 3xTF32 on wgmma (below).
+// compiles them beside these), which the entry points call for float:
+// every f32 kernel runs 3xTF32 on wgmma (below).
 //
 // Replaces the TPU kernel K3 of mofo_tpu/ops/flash_attention.py:
 //   mh_attn_fwd      <- _mh_fwd_impl (:653) / _mh_fwd_kernel with has_bias
@@ -67,12 +65,14 @@
 //     columns over the grid, each group forming S (and dP) again; the
 //     MCA's 2 and 1 heads (D = 384, 768) and ViT-L's 3 (341, padded to 384)
 //     run there.
-//   - The f32 forward and dQ at every D, and the f32 dK/dV from D = 192
-//     (the parity path's MCA, and K1/K2's f32 at those widths; K2's f32
-//     dQ at every D), run products in 3xTF32 on wgmma (each operand split
+//   - The f32 forward, dK/dV and dQ at every D (the parity path's MCA,
+//     and K1/K2's f32 at 192 and 256; K2's f32 dQ at every D), run
+//     products in 3xTF32 on wgmma (each operand split
 //     into TF32 hi and lo, lo.hi + hi.lo + hi.hi in f32: as accurate as
 //     f32), fed by TMA: the forward up to 128 is wgmma_tf32_fwd.cuh's
-//     (K1's kernel, with the bias flag), dQ up to 128 wgmma_tf32_dq.cuh's
+//     (K1's kernel, with the bias flag), dK/dV up to 128
+//     wgmma_tf32_dkv.cuh's (K2's kernel, with the bias flag: the kv bias
+//     of a thread's two rows in registers), dQ up to 128 wgmma_tf32_dq.cuh's
 //     narrow kernel (q * q_scale and dO resident as (hi, lo) pairs, K, V
 //     and K transposed streamed, a bias flag), the rest at 192 and 256
 //     wgmma_tf32_wide.cuh's, with D streamed in 64-column chunks beside
@@ -80,9 +80,8 @@
 //     blocks. Above 256 the f32 forward, dK/dV and dQ are
 //     wgmma_tf32_split.cuh's column-split 3xTF32 kernels (both operands of
 //     every contraction over D streamed, balanced groups of at most 256
-//     columns, dV, dK and dQ each by its own blocks). The f32 dK/dV up to
-//     D = 128 uses FMAs (flash_tiles.cuh). All tiles above 48 KB are
-//     dynamic shared memory.
+//     columns, dV, dK and dQ each by its own blocks). All tiles above 48
+//     KB are dynamic shared memory.
 // Ragged N is masked in-kernel (kv columns >= N score -inf, q rows >= N carry
 // +inf LSE in the backward and are never stored); nothing is padded in HBM.
 //
@@ -215,8 +214,7 @@ int bwd_dq(const void* k, const void* v, const float* bias, const void* dout,
 // for arguments the kernels do not take (a head dim up to 256 that is not
 // built, or one above it that is no multiple of 64). `bf16` selects
 // __nv_bfloat16 (the tensor-core kernels) over float (3xTF32 on the tensor
-// cores for the forward and dQ at every head dim and for dK/dV from 192;
-// FMAs for dK/dV up to 128). q_scale and k_scale are already rounded to
+// cores at every head dim). q_scale and k_scale are already rounded to
 // the element type; rows must be 16-byte aligned (TMA
 // reads them). ld* are row strides in elements;
 // dout and out are (B, N, H*D) contiguous; lse and delta (B, H, N) f32;

@@ -76,8 +76,9 @@
 //     over kv tiles and dQ over q tiles keeps one writer per output: no
 //     atomics, deterministic sums, 7 products in all.
 //   - The f32 forward, dK/dV and dQ (K1, K2; redesigned for Hopper, built
-//     on wgmma_tf32.cuh; the forward is wgmma_tf32_fwd.cuh's, shared with
-//     K3, which launches it with its bias flag) replace the FMA kernels, which kept f32 off the
+//     on wgmma_tf32.cuh; the forward is wgmma_tf32_fwd.cuh's and dK/dV
+//     wgmma_tf32_dkv.cuh's, both shared with K3, which launches them with
+//     their bias flag) replace the FMA kernels, which kept f32 off the
 //     tensor cores because TF32 rounds it: each thread's 4 x 4 micro-tile
 //     read 8 shared-memory words for every 16 FMAs, tiles loaded between
 //     two __syncthreads, and dK/dV and dQ formed delta again for every
@@ -134,6 +135,7 @@
 #include "wgmma_attn_bwd.cuh"
 #include "wgmma_attn_split.cuh"
 #include "wgmma_tf32.cuh"
+#include "wgmma_tf32_dkv.cuh"
 #include "wgmma_tf32_fwd.cuh"
 #include "wgmma_tiles.cuh"
 
@@ -160,242 +162,6 @@ int mh_attn_bwd_dq(const void* q, const void* k, const void* v,
 }
 
 namespace {
-
-constexpr int kRows = 64;  // rows of every tile (q and kv)
-
-// -------------------------------------------------------------------------
-// f32 dK/dV (K2), redesigned for Hopper: 3xTF32 products on wgmma
-// (wgmma_tf32.cuh), fed by TMA. A producer warpgroup keeps a ring of
-// kEntries entries full: its first thread starts each tile's TMA load (one
-// tile ahead), and all its 128 threads split the landed f32 tile into a
-// (hi, lo) TF32 pair, as loaded or transposed. The consumer warpgroups run
-// the products on the pairs. (K1's f32 forward is wgmma_tf32_fwd.cuh's,
-// shared with K3.)
-// -------------------------------------------------------------------------
-
-// The f32 dK/dV kernel's block at head dim D: kWGs consumer warpgroups of
-// 64 key/value rows (one at D = 128, whose dK and dV accumulators take 128
-// registers), their K and V as (hi, lo) tile pairs in shared memory (the A
-// operands of S^T and dP^T), and a ring of kEntries (hi, lo) pairs of
-// kBQ-row q-side tiles: for q tile j, q * q_scale as loaded (entry 4j), dO
-// as loaded (4j + 1), dO transposed (4j + 2) and q * q_scale transposed
-// (4j + 3); entry 4j also carries the tile's LSE and delta.
-template <int D>
-struct DkvF32 {
-  static constexpr int kWGs = D == 128 ? 1 : 2;
-  static constexpr int kBQ = D == 128 ? 32 : 64;
-  static constexpr int kKE = kRows * D;  // floats of a K or V tile
-  static constexpr int kQE = kBQ * D;    // floats of a q-side tile
-  static constexpr int kEntries = D == 16 ? 8 : D == 32 ? 6 : 3;
-  static constexpr int kThreads = (kWGs + 1) * kWarpgroup;
-  static constexpr size_t smem() {
-    return 1024 +
-           ((size_t)4 * kWGs * kKE + 2 * kEntries * kQE +
-            2 * kEntries * kBQ) * sizeof(float) +
-           (3 * kEntries + 1) * sizeof(uint64_t);
-  }
-};
-
-// Grid (ceil(N / (64 kWGs)), B * H). One block: one head's 64 kWGs
-// key/value rows; streams the q tiles and accumulates dK and dV in
-// registers. Each warpgroup forms S^T = K (q * q_scale)^T and dP^T = V
-// dO^T for its kv rows (A from shared memory), so P^T = exp(S^T - lse) and
-// dS^T = P^T (dP^T - delta) feed dV += P^T dO and dK += dS^T (q * q_scale)
-// straight from the accumulators. delta (B, H, N) comes from the caller
-// (fa.mh_delta), read once per q tile by the producer. Base e: dK needs no
-// fix.
-template <int D>
-__global__ void __launch_bounds__(DkvF32<D>::kThreads, 1)
-    bwd_dkv_f32(const __grid_constant__ CUtensorMap tqkv,
-                const __grid_constant__ CUtensorMap tdo,
-                const float* __restrict__ lse,
-                const float* __restrict__ delta, float* __restrict__ dqkv,
-                int N, int H, float q_scale) {
-  using P = DkvF32<D>;
-  constexpr int kKE = P::kKE, kQE = P::kQE, kBQ = P::kBQ;
-  constexpr int kE = P::kEntries, kWGs = P::kWGs, NQ = kBQ / 8;
-  extern __shared__ unsigned char wsmem[];
-  float* sKV = reinterpret_cast<float*>(smem_1024(wsmem));
-  float* sE = sKV + 4 * kWGs * kKE;  // entry s: hi, then lo
-  float* sStat = sE + 2 * kE * kQE;  // entry s: lse, then delta
-  uint64_t* full = reinterpret_cast<uint64_t*>(sStat + 2 * kE * kBQ);
-  uint64_t* empty = full + kE;
-  uint64_t* landed = empty + kE;
-  uint64_t* kvbar = landed + kE;
-  const int A = H * D;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int k0 = blockIdx.x * kWGs * kRows;
-  const int T = (N + kBQ - 1) / kBQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kE; ++s) {
-      mbar_init(&full[s], kWarpgroup);
-      mbar_init(&empty[s], 4 * kWGs);
-      mbar_init(&landed[s], 1);
-    }
-    mbar_init(kvbar, 1);
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (warp >= 4 * kWGs) {  // producer: loads and splits
-    if constexpr (kWGs == 2) producer_registers_f32();
-    const int p = threadIdx.x - 4 * kWGs * 32;
-    const int n = 4 * T;
-    // entry e's raw tile: as-loaded kinds into the hi tile, transposed ones
-    // into the lo tile; q from the fused map, dO from its own
-    auto issue = [&](int e) {
-      const int s = e % kE, kind = e & 3;
-      mbar_wait(&empty[s], ((e / kE) & 1) ^ 1);
-      mbar_expect_tx(&landed[s], kQE * sizeof(float));
-      tma_f32<kBQ, D, kBQ>(sE + (2 * s + (kind >= 2)) * kQE,
-                           kind == 0 || kind == 3 ? &tqkv : &tdo, &landed[s],
-                           h * D, (e >> 2) * kBQ, b);
-    };
-    if (p == 0) {
-      mbar_expect_tx(kvbar, 2 * kWGs * kKE * sizeof(float));
-      for (int w = 0; w < kWGs; ++w) {
-        const int row = k0 + kRows * w;
-        tma_f32<kRows, D, kBQ>(sKV + 4 * w * kKE, &tqkv, kvbar, A + h * D,
-                               row, b);
-        tma_f32<kRows, D, kBQ>(sKV + (4 * w + 2) * kKE, &tqkv, kvbar,
-                               2 * A + h * D, row, b);
-      }
-      issue(0);
-    }
-    const float* lse_bh = lse + (size_t)bh * N;
-    const float* delta_bh = delta + (size_t)bh * N;
-    for (int e = 0; e < n; ++e) {
-      if (p == 0 && e + 1 < n) issue(e + 1);
-      const int s = e % kE, kind = e & 3;
-      float* hi = sE + 2 * s * kQE;
-      const float mul = kind == 0 || kind == 3 ? q_scale : 1.f;
-      mbar_wait(&landed[s], (e / kE) & 1);
-      if (kind < 2)
-        split_rows<kBQ, D>(hi, hi + kQE, mul, p);
-      else
-        split_transposed<kBQ, D>(hi + kQE, hi, hi + kQE, mul, p,
-                                 kProducerBar);
-      if (kind == 0) {
-        float* st = sStat + 2 * s * kBQ;
-        for (int r = p; r < kBQ; r += kWarpgroup) {
-          const int row = (e >> 2) * kBQ + r;  // rows >= N: P = 0, dS = 0
-          st[r] = row < N ? lse_bh[row] : INFINITY;
-          st[kBQ + r] = row < N ? delta_bh[row] : 0.f;
-        }
-      }
-      fence_proxy_async();
-      mbar_arrive(&full[s]);
-    }
-  } else {
-    if constexpr (kWGs == 2) consumer_registers_f32();
-    const int wg = warp >> 2, r0 = 16 * (warp & 3);
-    const int g = lane >> 2, t = lane & 3;
-    float* kt = sKV + 4 * wg * kKE;  // K hi, K lo, V hi, V lo
-    float* vt = kt + 2 * kKE;
-    mbar_wait(kvbar, 0);
-    split_rows<kRows, D>(kt, kt + kKE, 1.f, threadIdx.x & 127);
-    split_rows<kRows, D>(vt, vt + kKE, 1.f, threadIdx.x & 127);
-    fence_proxy_async();
-    warpgroup_sync(2 + wg);
-    float dka[D / 8][4] = {}, dva[D / 8][4] = {};
-
-    for (int j = 0; j < T; ++j) {
-      int s[4], par[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i] = (4 * j + i) % kE;
-        par[i] = ((4 * j + i) / kE) & 1;
-      }
-      const float* qe = sE + 2 * s[0] * kQE;   // q * scale: hi, lo
-      const float* de = sE + 2 * s[1] * kQE;   // dO
-      const float* dte = sE + 2 * s[2] * kQE;  // dO^T
-      const float* qte = sE + 2 * s[3] * kQE;  // (q * scale)^T
-      // dP^T's small terms apart: dS = P (dP - delta) cancels dP's size
-      // (at N = 1 to rounding noise), so dP carries the shorter chain; S^T
-      // keeps one accumulator (registers)
-      float st[NQ][4] = {}, dpt[NQ][4] = {}, dpt_small[NQ][4] = {};
-      mbar_wait(&full[s[0]], par[0]);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk)
-        mma3_ss(st, desc_k8<kRows, D>(kt, kk),
-                desc_k8<kRows, D>(kt + kKE, kk), desc_k8<kBQ, D>(qe, kk),
-                desc_k8<kBQ, D>(qe + kQE, kk));
-      mbar_wait(&full[s[1]], par[1]);
-#pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk)
-        mma3_ss(dpt, dpt_small, desc_k8<kRows, D>(vt, kk),
-                desc_k8<kRows, D>(vt + kKE, kk), desc_k8<kBQ, D>(de, kk),
-                desc_k8<kBQ, D>(de + kQE, kk));
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_acc(st);
-      fence_acc(dpt);
-      fence_acc(dpt_small);
-      add_small(dpt, dpt_small);
-      const float* sl = sStat + 2 * s[0] * kBQ;
-      const float* sd = sl + kBQ;
-#pragma unroll
-      for (int nt = 0; nt < NQ; ++nt) {
-        const int col = 8 * nt + 2 * t;  // the q row within the tile
-        const float2 l2 = *reinterpret_cast<const float2*>(sl + col);
-        const float2 d2 = *reinterpret_cast<const float2*>(sd + col);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float pv = expf(st[nt][e] - ((e & 1) ? l2.y : l2.x));
-          dpt[nt][e] = pv * (dpt[nt][e] - ((e & 1) ? d2.y : d2.x));
-          st[nt][e] = pv;
-        }
-      }
-      __syncwarp();
-      if (lane == 0) {
-        mbar_arrive(&empty[s[0]]);
-        mbar_arrive(&empty[s[1]]);
-      }
-      uint32_t ph[NQ][4], pl[NQ][4];  // P^T, then dS^T, as (hi, lo)
-      acc_to_a(st, ph, pl);
-      mbar_wait(&full[s[2]], par[2]);
-      add_fresh<D>(dva, [&](auto& t, uint64_t off) {
-#pragma unroll
-        for (int kk = 0; kk < NQ; ++kk)
-          mma3_rs(t, ph[kk], pl[kk], desc_k8<D, kBQ>(dte, kk) + off,
-                  desc_k8<D, kBQ>(dte + kQE, kk) + off);
-      });
-      fence_frag(ph);
-      fence_frag(pl);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s[2]]);
-      acc_to_a(dpt, ph, pl);
-      mbar_wait(&full[s[3]], par[3]);
-      add_fresh<D>(dka, [&](auto& t, uint64_t off) {
-#pragma unroll
-        for (int kk = 0; kk < NQ; ++kk)
-          mma3_rs(t, ph[kk], pl[kk], desc_k8<D, kBQ>(qte, kk) + off,
-                  desc_k8<D, kBQ>(qte + kQE, kk) + off);
-      });
-      fence_frag(ph);
-      fence_frag(pl);
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[s[3]]);
-    }
-
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int row = k0 + kRows * wg + r0 + g + 8 * half;
-      if (row >= N) continue;
-      float* dst = dqkv + ((size_t)b * N + row) * 3 * A + h * D + 2 * t;
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        *reinterpret_cast<float2*>(dst + A + 8 * nt) =
-            make_float2(dka[nt][2 * half], dka[nt][2 * half + 1]);
-        *reinterpret_cast<float2*>(dst + 2 * A + 8 * nt) =
-            make_float2(dva[nt][2 * half], dva[nt][2 * half + 1]);
-      }
-    }
-  }
-}
 
 // -------------------------------------------------------------------------
 // bf16 forward (K1), redesigned for Hopper (wgmma_tiles.cuh). A warp's 16
@@ -574,15 +340,6 @@ int row_map(CUtensorMap* map, const void* base, int B, int N, int A) {
   return tile_map(map, base, A, N, B, A, (long)N * A, box_cols<D>());
 }
 
-// An f32 (B, N, cols) map (the fused qkv at cols = 3A, dO at A) in boxes of
-// sub_cols<D>() columns and box_rows rows.
-template <int D>
-int f32_map(CUtensorMap* map, const void* base, int B, int N, int cols,
-            int box_rows) {
-  return tile_map_f32(map, base, cols, N, B, cols, (long)N * cols,
-                      sub_cols<D>(), box_rows);
-}
-
 // K1/K2 through K3's entry points (above head dim 128: the strip kernels at
 // 192 and 256, the column-split ones above): q, k and v (and dq, dk, dv)
 // the column views of qkv (dqkv) at offsets 0, A and 2A, row stride 3A.
@@ -672,23 +429,16 @@ int run_dkv(const void* qkv, const void* out, const void* lse,
                                            lse, delta, nullptr, dk, dk + A,
                                            3 * A, B, N, H, dk_fix, st);
   } else {
-    // f32 works in base e: dK needs no 1/log2(e) fix; delta is the
-    // caller's (fa.mh_delta)
-    if (!delta) return kBadArgument;
-    using P = DkvF32<D>;
+    // f32: 3xTF32 on wgmma (wgmma_tf32_dkv.cuh, shared with K3) with its
+    // bias flag off, on the column views; base e, so dK needs no
+    // 1/log2(e) fix; delta is the caller's (fa.mh_delta)
     const int A = H * D;
-    CUtensorMap tqkv, tdo;
-    if (int e = f32_map<D>(&tqkv, qkv, B, N, 3 * A, P::kBQ)) return e;
-    if (int e = f32_map<D>(&tdo, dout, B, N, A, P::kBQ)) return e;
-    constexpr size_t smem = P::smem();
-    auto kernel = bwd_dkv_f32<D>;
-    if (int e = max_smem((const void*)kernel, smem)) return e;
-    kernel<<<dim3((N + P::kWGs * kRows - 1) / (P::kWGs * kRows), B * H),
-             P::kThreads, smem, st>>>(
-        tqkv, tdo, static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<float*>(dqkv), N, H,
-        q_scale);
-    return 0;
+    return launch_dkv_f32<D, false>(
+        qkv, at_col(qkv, A, is_bf16), at_col(qkv, 2 * A, is_bf16), nullptr,
+        dout, static_cast<const float*>(lse),
+        static_cast<const float*>(delta), at_col(dqkv, A, is_bf16),
+        at_col(dqkv, 2 * A, is_bf16), B, N, H, 3 * A, 3 * A, 3 * A, 3 * A,
+        q_scale, st);
   }
 }
 

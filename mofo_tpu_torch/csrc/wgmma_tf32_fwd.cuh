@@ -1,19 +1,24 @@
-// The f32 forward of K1 and K3 up to head dim 128 for Hopper: products in
-// 3xTF32 on wgmma (wgmma_tf32.cuh's splits, descriptors and products), fed
-// by TMA. qkv_flash_attention.cu's qkv_attn_fwd runs it for K1 (q, k and v
-// the column views of the fused (B, N, 3A) qkv at row stride 3A, no bias)
-// and mh_flash_attention.cu's mh_attn_fwd for K3 (q at its own row stride,
-// k and v the column views of one fused (B, N, 2A) kv, the (B, N) kv bias
-// row). It replaces the FMA kernel mh_fwd_f32 (K3) and computes what
-// mofo_tpu's _mh_fwd_kernel (mofo_tpu/ops/flash_attention.py:460, called by
-// _mh_fwd_impl at :678 for K3 and by _qkv_fwd_impl at :1173 for K1)
-// computes in f32. Above 128 K3's entry point runs wgmma_tf32_wide.cuh's
-// forward (192, 256) and wgmma_tf32_split.cuh's column-split one.
+// The f32 forward of K1, K3 and K4 up to head dim 128 for Hopper: products
+// in 3xTF32 on wgmma (wgmma_tf32.cuh's splits, descriptors and products),
+// fed by TMA. qkv_flash_attention.cu's qkv_attn_fwd runs it for K1 (q, k
+// and v the column views of the fused (B, N, 3A) qkv at row stride 3A, no
+// bias), mh_flash_attention.cu's mh_attn_fwd for K3 (q at its own row
+// stride, k and v the column views of one fused (B, N, 2A) kv, the (B, N)
+// kv bias row) and hm_flash_attention.cu's hm_attn_fwd for K4 in two
+// passes (its (B H, N, D) planes as B H planes of one head, row stride D).
+// It replaces the FMA kernels mh_fwd_f32 (K3) and hm_fwd_f32 (K4) and
+// computes what mofo_tpu's _mh_fwd_kernel (mofo_tpu/ops/flash_attention.py
+// :460, called by _mh_fwd_impl at :678 for K3 and by _qkv_fwd_impl at
+// :1173 for K1) and _fwd_kernel (:130, called by _fwd_impl at :275 for
+// K4) compute in f32. Above 128 K3's entry point runs wgmma_tf32_wide.cuh's
+// forward (192, 256) and wgmma_tf32_split.cuh's column-split one; K4's
+// runs the column-split one in two passes at 192 and 256 too.
 //
 // What bounds it. S = (q * q_scale) K^T and O += P V are 4 N^2 D FLOP a
 // head on N D values of each operand: at N = 1568 it is bound by
 // operations, 0.610 ms at the BB-focused MCA's 8 x 128 and 16 x 64 (B =
-// 10) at 495 / 3 TFLOP/s.
+// 10) and 0.366 ms at the ViT-S decoder's (96, 1568) x 64 at 495 / 3
+// TFLOP/s. K4's two passes form S twice: 6 N^2 D FLOP, 0.549 ms there.
 //
 // The walk. A block owns 64 kWGs query rows of one head (kWGs consumer
 // warpgroups of 64 rows: two up to D = 64, one at 128, where two O
@@ -29,11 +34,22 @@
 // the accumulators into the A fragments of P V, split in registers, in the
 // K order permuted within groups of 8 that the transposed V tile shares.
 //
+// The two passes (kTwoPass, K4). The reference normalizes p / l before
+// P V (_fwd_kernel), which an online softmax cannot do, so the walk is
+// pass 1, K_j alone as entry j (S, the row's m and l, no P V), then pass
+// 2, K_j and V_j again as entries T + 2j and T + 2j + 1 (S once more, P
+// = exp(s - m) / l, O += P V, no 1 / l at the end): 3 T entries over T
+// kv tiles (fwd_entry_f32), the ring and its slots as in one pass. m and
+// l stay in registers (two each a thread) between the passes; pass 2
+// forms the same S in the same order, so exp(s - m) <= 1. The LSE m +
+// log(l) is pass 1's. wgmma_tf32_split.cuh's split_fwd_tf32<NG, true>
+// orders its walk the same way (split_fwd_step).
+//
 // The bias flag (kBias). K3's producer stages the tile's bias row with
 // each K entry (bias, or 0 without one, and -inf for kv columns >= N),
 // and the consumer adds it to S after the fold, before it releases the
-// K slot. K1's (kBias false) masks columns >= N of the ragged last tile
-// in registers and reads no row.
+// K slot. K1's and K4's (kBias false) mask columns >= N of the ragged last
+// tile in registers and read no row.
 //
 // The budget (232,448 bytes of shared memory a block; 200 registers a
 // consumer thread with two consumer warpgroups and setmaxnreg, 255 with
@@ -51,10 +67,14 @@
 //   D = 128: one (hi, lo) q pair + 2 entries of 64 KB: 1024 + 196,608 +
 //     512 + 56 = 198,200. A third entry (64 KB) would not fit; the bias
 //     rows (512 bytes) do.
+// The two passes take the same shared memory: an entry holds one tile
+// (K_j, or V_j), in pass 1 as in pass 2; the ring streams (K) tiles in
+// pass 1 and (K, V) tile pairs in pass 2.
 // A consumer holds O (D / 2 registers), S and its small terms (32 each),
 // then P's (hi, lo) fragments (64) beside O and a fresh accumulator for
 // P V's chain (64 output columns: 32): 112 at D = 64 with q's fragments
-// (D / 2 each, hi and lo), 160 at 128 (q read from shared memory).
+// (D / 2 each, hi and lo), 160 at 128 (q read from shared memory); in
+// two passes O is live in pass 2 alone.
 //
 // Precision (wgmma_tf32.cuh's note): S sums its small terms (lo.hi,
 // hi.lo) in an accumulator of their own, so the hi.hi chain that truncates
@@ -63,11 +83,12 @@
 // time), added to O in f32: the tensor cores' accumulation truncates to
 // the running sum, so a sum over N runs in registers in f32.
 //
-// Numerics (_mh_fwd_kernel's in f32, as mh_fwd_f32 had them): q times
-// q_scale in f32 as it is split; the bias added after the fold; base e; P
-// = exp(s - m) not rounded; 1 / l divides the output; the LSE m + log(l)
-// a natural log. Rows past N arrive as zeros from TMA and are never
-// stored.
+// Numerics (_mh_fwd_kernel's in f32, as mh_fwd_f32 had them; K4's
+// _fwd_kernel's, as hm_fwd_f32 had them): q times q_scale in f32 as it is
+// split; the bias added after the fold; base e; P = exp(s - m) not
+// rounded; 1 / l divides the output (K4: P = exp(s - m) / l before P V);
+// the LSE m + log(l) a natural log. Rows past N arrive as zeros from TMA
+// and are never stored.
 
 #pragma once
 
@@ -95,11 +116,30 @@ struct FwdF32 {
   }
 };
 
+// Entry e of a block's walk over T kv tiles: K_j (split as loaded) or V_j
+// (split transposed). One pass: K_j and V_j are entries 2j and 2j + 1.
+// Two passes (kTwoPass): K_j alone is entry j (pass 1), then K_j and V_j
+// are entries T + 2j and T + 2j + 1 (pass 2).
+struct FwdEntry {
+  bool v;
+  int j;
+};
+__host__ __device__ constexpr FwdEntry fwd_entry_f32(bool two_pass, int T,
+                                                     int e) {
+  return two_pass && e < T
+             ? FwdEntry{false, e}
+             : FwdEntry{((two_pass ? e - T : e) & 1) != 0,
+                        (two_pass ? e - T : e) >> 1};
+}
+
 // Grid (ceil(N / (64 kWGs)), B * H). One block: 64 kWGs query rows of one
 // head against all N keys. q, k and v through their own tensor maps
 // (columns h * D of plane b = y / H; rows past N arrive as zeros); bias (B,
 // N) f32 or null (kBias only); out (B, N, H D) contiguous, lse (B H, N).
-template <int D, bool kBias>
+// One pass (K1, K3): an online softmax, 1 / l dividing the output at the
+// end. Two passes (kTwoPass, K4 on (B H, N, D) planes, H = 1): pass 1 the
+// row statistics alone (S, no P V), pass 2 P = exp(s - m) / l before P V.
+template <int D, bool kBias, bool kTwoPass>
 __global__ void __launch_bounds__(FwdF32<D>::kThreads, 1)
     fwd_f32(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tk,
@@ -136,16 +176,17 @@ __global__ void __launch_bounds__(FwdF32<D>::kThreads, 1)
   if (warp >= 4 * kWGs) {  // producer: loads and splits
     if constexpr (kWGs == 2) producer_registers_f32();
     const int p = threadIdx.x - 4 * kWGs * 32;
-    const int n = 2 * T;
+    const int n = (kTwoPass ? 3 : 2) * T;
     // entry e's raw tile: K_j into its hi tile (split in place), V_j into
     // its lo tile (split transposed out of it)
     auto issue = [&](int e) {
       const int s = e % kE;
+      const FwdEntry w = fwd_entry_f32(kTwoPass, T, e);
       mbar_wait(&empty[s], ((e / kE) & 1) ^ 1);
       mbar_expect_tx(&landed[s], kTE * sizeof(float));
-      tma_f32<kFwdRows, D, kFwdRows>(sE + (2 * s + (e & 1)) * kTE,
-                                     (e & 1) ? &tv : &tk, &landed[s], h * D,
-                                     (e >> 1) * kFwdRows, b);
+      tma_f32<kFwdRows, D, kFwdRows>(sE + (2 * s + w.v) * kTE,
+                                     w.v ? &tv : &tk, &landed[s], h * D,
+                                     w.j * kFwdRows, b);
     };
     if (p == 0) {
       mbar_expect_tx(qbar, kWGs * kTE * sizeof(float));
@@ -158,15 +199,16 @@ __global__ void __launch_bounds__(FwdF32<D>::kThreads, 1)
     for (int e = 0; e < n; ++e) {
       if (p == 0 && e + 1 < n) issue(e + 1);
       const int s = e % kE;
+      const FwdEntry w = fwd_entry_f32(kTwoPass, T, e);
       float* hi = sE + 2 * s * kTE;
       mbar_wait(&landed[s], (e / kE) & 1);
-      if (e & 1) {
+      if (w.v) {
         split_transposed<kFwdRows, D>(hi + kTE, hi, hi + kTE, 1.f, p,
                                       kProducerBar);
       } else {
         split_rows<kFwdRows, D>(hi, hi + kTE, 1.f, p);
         if (kBias && p < kFwdRows) {  // K_j's slot carries tile j's row
-          const int col = (e >> 1) * kFwdRows + p;
+          const int col = w.j * kFwdRows + p;
           sBias[s * kFwdRows + p] =
               col < N ? (bias_b ? bias_b[col] : 0.f) : -INFINITY;
         }
@@ -191,12 +233,14 @@ __global__ void __launch_bounds__(FwdF32<D>::kThreads, 1)
     }
     float o[D / 8][4] = {}, m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-    for (int j = 0; j < T; ++j) {
-      const int sk = (2 * j) % kE, sv = (2 * j + 1) % kE;
+    // S of kv tile j from entry e (K_j's), K_j's slot released after it:
+    // the bias after the fold (-inf past N), or without a bias row the
+    // ragged last tile's columns past N at -inf
+    auto scores = [&](float (&sc)[8][4], int e, int j) {
+      const int sk = e % kE;
       const float* kt = sE + 2 * sk * kTE;  // K hi, K lo
-      const float* vt = sE + 2 * sv * kTE;  // V^T hi, V^T lo
-      float sc[8][4] = {}, sc_small[8][4] = {};
-      mbar_wait(&full[sk], ((2 * j) / kE) & 1);
+      float sc_small[8][4] = {};
+      mbar_wait(&full[sk], (e / kE) & 1);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 8; ++kk) {
@@ -224,7 +268,7 @@ __global__ void __launch_bounds__(FwdF32<D>::kThreads, 1)
           const float2 b2 =
               *reinterpret_cast<const float2*>(sb + 8 * nt + 2 * t);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) sc[nt][e] += (e & 1) ? b2.y : b2.x;
+          for (int i = 0; i < 4; ++i) sc[nt][i] += (i & 1) ? b2.y : b2.x;
         }
       }
       __syncwarp();
@@ -233,38 +277,19 @@ __global__ void __launch_bounds__(FwdF32<D>::kThreads, 1)
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (j * kFwdRows + 8 * nt + 2 * t + (e & 1) >= N)
-              sc[nt][e] = -INFINITY;
+          for (int i = 0; i < 4; ++i)
+            if (j * kFwdRows + 8 * nt + 2 * t + (i & 1) >= N)
+              sc[nt][i] = -INFINITY;
       }
-      float mx[2] = {-INFINITY, -INFINITY}, corr[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        // every tile holds at least one valid column, so the max is finite
-        const float m_new = fmaxf(m[r], quad_max(mx[r]));
-        corr[r] = expf(m[r] - m_new);
-        m[r] = m_new;
-      }
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          sc[nt][e] = expf(sc[nt][e] - m[e >> 1]);
-          rs[e >> 1] += sc[nt][e];
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(rs[r]);
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[nt][e] *= corr[e >> 1];
-      uint32_t ph[8][4], pl[8][4];  // P, unrounded, as (hi, lo)
+    };
+    // O += P V_j from entry e (V_j's transposed pair), V_j's slot released
+    // after it; P unrounded, as (hi, lo) A fragments
+    auto accumulate = [&](const float (&sc)[8][4], int e) {
+      const int sv = e % kE;
+      const float* vt = sE + 2 * sv * kTE;  // V^T hi, V^T lo
+      uint32_t ph[8][4], pl[8][4];
       acc_to_a(sc, ph, pl);
-      mbar_wait(&full[sv], ((2 * j + 1) / kE) & 1);
+      mbar_wait(&full[sv], (e / kE) & 1);
       add_fresh<D>(o, [&](auto& f, uint64_t off) {
 #pragma unroll
         for (int kk = 0; kk < 8; ++kk)
@@ -275,6 +300,55 @@ __global__ void __launch_bounds__(FwdF32<D>::kThreads, 1)
       fence_frag(pl);
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty[sv]);
+    };
+
+    // the online softmax: the whole forward in one pass, or pass 1's row
+    // statistics alone
+    for (int j = 0; j < T; ++j) {
+      const int e = kTwoPass ? j : 2 * j;
+      float sc[8][4] = {};
+      scores(sc, e, j);
+      float mx[2] = {-INFINITY, -INFINITY}, corr[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mx[i >> 1] = fmaxf(mx[i >> 1], sc[nt][i]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // every tile holds at least one valid column, so the max is finite
+        const float m_new = fmaxf(m[r], quad_max(mx[r]));
+        corr[r] = expf(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          sc[nt][i] = expf(sc[nt][i] - m[i >> 1]);
+          rs[i >> 1] += sc[nt][i];
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(rs[r]);
+      if constexpr (!kTwoPass) {
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o[nt][i] *= corr[i >> 1];
+        accumulate(sc, e + 1);
+      }
+    }
+    if constexpr (kTwoPass) {
+      for (int j = 0; j < T; ++j) {  // pass 2: P = exp(s - m) / l, P V
+        const int e = T + 2 * j;
+        float sc[8][4] = {};
+        scores(sc, e, j);  // the same S as pass 1's, in the same order
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            sc[nt][i] = expf(sc[nt][i] - m[i >> 1]) / l[i >> 1];
+        accumulate(sc, e + 1);
+      }
     }
 
 #pragma unroll
@@ -284,8 +358,10 @@ __global__ void __launch_bounds__(FwdF32<D>::kThreads, 1)
       float* dst = out + ((size_t)b * N + row) * A + h * D + 2 * t;
 #pragma unroll
       for (int nt = 0; nt < D / 8; ++nt)
-        *reinterpret_cast<float2*>(dst + 8 * nt) = make_float2(
-            o[nt][2 * half] / l[half], o[nt][2 * half + 1] / l[half]);
+        *reinterpret_cast<float2*>(dst + 8 * nt) =
+            kTwoPass ? make_float2(o[nt][2 * half], o[nt][2 * half + 1])
+                     : make_float2(o[nt][2 * half] / l[half],
+                                   o[nt][2 * half + 1] / l[half]);
       if (t == 0) lse[(size_t)bh * N + row] = m[half] + logf(l[half]);
     }
   }
@@ -294,9 +370,10 @@ __global__ void __launch_bounds__(FwdF32<D>::kThreads, 1)
 // The f32 forward at head dim D (16, 32, 64, 128): q, k and v (B, N, H D)
 // at row strides ldq, ldk, ldv (multiples of 4: TMA wants 16-byte rows),
 // each in boxes of sub_cols<D>() columns and 64 rows; bias (B, N) or null
-// with kBias (K3), none without (K1). Returns 0, kBadArgument or a
-// cudaError_t from the set-up.
-template <int D, bool kBias>
+// with kBias (K3), none without (K1, K4); kTwoPass: K4's two passes (q, k,
+// v its (B H, N, D) planes: B = B H, H = 1, row stride D). Returns 0,
+// kBadArgument or a cudaError_t from the set-up.
+template <int D, bool kBias, bool kTwoPass = false>
 int launch_fwd_f32(const void* q, const void* k, const void* v,
                    const float* bias, void* out, float* lse, int B, int N,
                    int H, int ldq, int ldk, int ldv, float q_scale,
@@ -313,7 +390,7 @@ int launch_fwd_f32(const void* q, const void* k, const void* v,
       return e;
   }
   constexpr size_t smem = P::smem();
-  auto kernel = fwd_f32<D, kBias>;
+  auto kernel = fwd_f32<D, kBias, kTwoPass>;
   if (int e = max_smem((const void*)kernel, smem)) return e;
   kernel<<<dim3((N + P::kWGs * kFwdRows - 1) / (P::kWGs * kFwdRows), B * H),
            P::kThreads, smem, st>>>(m[0], m[1], m[2], kBias ? bias : nullptr,

@@ -1,6 +1,7 @@
 // The column-split f32 kernels for Hopper: the forward, dK/dV and dQ at
 // every head dim D above 256 (a multiple of 64, at run time), for K1/K2
-// (through K3's entry points), K3 and K4, with products in 3xTF32 on wgmma
+// (through K3's entry points), K3 and K4 (whose two-pass forward also runs
+// here at 192 and 256, one output group), with products in 3xTF32 on wgmma
 // (wgmma_tf32.cuh's splits, descriptors and products) fed by TMA, and
 // wgmma_tf32_wide.cuh's ring, producer walk and chains. They replace the
 // FMA kernels that flash_split_f32.cuh had (split_fwd_f32 and the backward
@@ -23,7 +24,8 @@
 // takes chunks [g kC / G, (g + 1) kC / G), so at 384 two groups of 192
 // columns (not 256 + 128), at 768 three of 256, at 320 128 + 192. The
 // widest group has NG = ceil(kC / G) chunks, 3 or 4 (kC / G > 2.5 above
-// 256): the kernels are templates on NG, and a narrower group skips its
+// 256; K4's forward at 192 and 256 is one group of 3 or 4): the kernels
+// are templates on NG, and a narrower group skips its
 // last chunk. 64 x 256 of dK and dV together would be 256 registers a
 // thread, so dK/dV splits the roles over z as mh_dkv_tf32 does: block (x,
 // y, 2 g + role) writes dV (role 0) or dK (role 1) of group g of its 64 kv
@@ -86,9 +88,11 @@
 // and stages the tile's per-row values with its first entry.
 //
 // Shared memory: 1024 bytes of alignment, a ring of kSplitEntries = 7
-// (hi, lo) entries (229,376 bytes), the per-tile values two tiles deep (1
-// KB: dK/dV's LSE and delta of the q tile, dQ's and the forward's bias row
-// of the kv tile, -inf past N)
+// (hi, lo) entries (229,376 bytes), the per-tile values (1 KB: dK/dV's LSE
+// and delta of the q tile and dQ's bias row of the kv tile, -inf past N,
+// two tiles deep; the forward's bias row four tiles deep: at 192 (kC = 3)
+// pass 1's walk is 6 entries a tile, so the producer may stage tile t + 2's
+// row while the consumer still reads tile t's)
 // and 15 barriers: 231,544 of 232,448 bytes.
 //
 // Precision (wgmma_tf32_wide.cuh's note): every chunk's chain
@@ -487,7 +491,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   const int pairs = split_pairs_tf32(kRoleFwd, kC);
   const SplitGroup grp = split_group_tf32(kC, blockIdx.z);
   float* sE = reinterpret_cast<float*>(smem_1024(wsmem));
-  float* sSide = sE + kE * kPairElems;  // [tile parity][64]: the bias row
+  float* sSide = sE + kE * kPairElems;  // [tile % 4][64]: the bias row
   uint64_t* bars = reinterpret_cast<uint64_t*>(sSide + 4 * kChunk);
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * kChunk;
@@ -520,7 +524,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
           const FwdStep st = split_fwd_step(kTwoPass, kC, grp.n, T, e);
           if (st.r || p >= kChunk) return;
           const int col = st.tile % T * kChunk + p;
-          sSide[(st.tile & 1) * kChunk + p] =
+          sSide[(st.tile & 3) * kChunk + p] =
               col < N ? (bias_b ? bias_b[col] : 0.f) : -INFINITY;
         });
     return;
@@ -534,7 +538,7 @@ __global__ void __launch_bounds__(kWideThreads, 1)
     float sc[8][4] = {};
     score_walk(sc, ring, e0, kC, load);
     // the bias after the fold; -inf past N (every tile holds a column < N)
-    const float* sb = sSide + (tile & 1) * kChunk;
+    const float* sb = sSide + (tile & 3) * kChunk;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const float2 b2 = *reinterpret_cast<const float2*>(sb + 8 * nt + 2 * t);
@@ -630,10 +634,12 @@ int split_maps_tf32(CUtensorMap (&m)[4], const void* q, const void* k,
 }
 
 // The kernel instance of D (NG = 3 or 4) after its shared-memory limit is
-// set, through run(kernel).
+// set, through run(kernel). D above 256, or with strip_dims at 192 and 256
+// too (one output group of 3 or 4 chunks: K4's two-pass forward).
 template <typename Kernel3, typename Kernel4, typename Run>
-int split_launch_tf32(int D, Kernel3 k3, Kernel4 k4, Run run) {
-  if (D % kChunk || D <= 4 * kChunk) return kBadArgument;
+int split_launch_tf32(int D, Kernel3 k3, Kernel4 k4, Run run,
+                      bool strip_dims = false) {
+  if (D % kChunk || D <= (strip_dims ? 2 : 4) * kChunk) return kBadArgument;
   const int ng = split_widest_tf32(D / kChunk);
   if (ng == 3) {
     if (int e = max_smem((const void*)k3, kSplitTf32Smem)) return e;
@@ -686,8 +692,10 @@ int launch_split_dq_tf32(const void* q, const void* k, const void* v,
       });
 }
 
-// The forward (kTwoPass: K4's two passes): q, k, v at row strides ldq,
-// ldk, ldv; out (B, N, H D) contiguous; lse (B H, N); bias (B, N) or null.
+// The forward (kTwoPass: K4's two passes, which also take D = 192 and 256
+// at one group; K1/K2 and K3 run wgmma_tf32_wide.cuh's forward there): q,
+// k, v at row strides ldq, ldk, ldv; out (B, N, H D) contiguous; lse (B H,
+// N); bias (B, N) or null.
 template <bool kTwoPass>
 int launch_split_fwd_tf32(const void* q, const void* k, const void* v,
                           const float* bias, void* out, float* lse, int B,
@@ -708,7 +716,8 @@ int launch_split_fwd_tf32(const void* q, const void* k, const void* v,
             m[0], m[1], m[2], bias, static_cast<float*>(out), lse, N, H, D,
             q_scale);
         return 0;
-      });
+      },
+      kTwoPass);
 }
 
 }  // namespace

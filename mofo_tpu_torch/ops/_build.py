@@ -27,8 +27,8 @@ SOURCES = ("qkv_flash_attention.cu", "mh_flash_attention.cu",
 # included by the sources, part of the key
 HEADERS = ("flash_tiles.cuh", "wgmma_tiles.cuh", "wgmma_attn_bwd.cuh",
            "wgmma_attn_wide.cuh", "wgmma_attn_split.cuh", "wgmma_tf32.cuh",
-           "wgmma_tf32_fwd.cuh", "wgmma_tf32_wide.cuh", "wgmma_tf32_dq.cuh",
-           "wgmma_tf32_split.cuh")
+           "wgmma_tf32_fwd.cuh", "wgmma_tf32_dkv.cuh", "wgmma_tf32_wide.cuh",
+           "wgmma_tf32_dq.cuh", "wgmma_tf32_split.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",

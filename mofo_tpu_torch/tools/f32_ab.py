@@ -27,8 +27,8 @@ A row is (kind, shape, dtype). The kinds:
   main_path.hm_inputs at (B*H, N, D).
 - `classifier_forward`: feature_extract's forward (its default model at
   batch B, 16 x 224^2 clips, no grad), ms a batch and its launches.
-- `pretrain_step`: one ViT-B MOFO pretrain step at B
-  (main_path.build_step), ms and launches.
+- `pretrain_step`: one MOFO pretrain step at B (main_path.build_step;
+  shape (B,) ViT-B, or (B, model name)), ms and launches.
 - `bb_step`: one ViT-B BB-focused MCA finetune step at B
   (main_path.build_finetune_step, 174 classes; shape (B,) or (B,
   mca_num_heads)), ms and launches a step.
@@ -37,7 +37,9 @@ A row is (kind, shape, dtype). The kinds:
 Each kernel row carries two bounds (chip_smoke's, at PEAK_TF32X3 in f32):
 bound_ms, the work at its least, and bound_recompute_ms, the products the
 column-split kernels do above head dim 256 (chip_smoke.products at
-split_groups(D) output groups; the least work at or below 256).
+split_groups(D) output groups; the least work at or below 256). K4's f32
+forward up to 256 also carries bound_two_pass_ms: its two passes form S
+twice (chip_smoke.products(1, two_pass=True), 3 products).
 
 Kernel times are chip_smoke.time_ms's medians; model-level times are
 medians of REPS timed calls after one warm-up. Only what both checkouts
@@ -90,6 +92,16 @@ MEASUREMENTS = {
     # the f32 BB-focused step with the MCA at 8 heads of 128 (K3's narrow
     # f32 forward)
     "bb_step_h8": ("bb_step", (10, 8), "float32"),
+    # K4's f32 forward up to 256 (two passes) at the ViT-S decoder (3 x
+    # 64 heads, B = 32) and at 128 and 256; the f32 BB-focused step with
+    # the MCA at 16 heads of 64; the f32 ViT-S pretrain step, whose
+    # decoder launches K4 four times
+    "hm_vits": ("hm", (96, 1568, 64), "float32"),
+    "hm_d128": ("hm", (48, 1568, 128), "float32"),
+    "hm_d256": ("hm", (24, 1568, 256), "float32"),
+    "bb_step_h16": ("bb_step", (10, 16), "float32"),
+    "vits_step": ("pretrain_step", (32, "pretrain_videomae_small_patch16_224"),
+                  "float32"),
 }
 CLASSIFIER = "vit_base_patch16_224_feature_ext"
 REPS = 3  # timed calls after one warm-up (model-level numbers)
@@ -146,8 +158,14 @@ def measure(kind: str, shape: tuple, dtype: str) -> dict:
     if kind == "hm":
         BH, N, D = shape
         q, k, v = main_path.hm_inputs(BH, N, dt, 0, "cuda", D=D)
-        return with_recompute(C, C.time_hm_kernels(q, k, v, 1, BH),
-                              C.bounds_hm, D, dtype, BH, N, D)
+        res = with_recompute(C, C.time_hm_kernels(q, k, v, 1, BH),
+                             C.bounds_hm, D, dtype, BH, N, D)
+        if D <= fa.HEAD_DIMS[-1] and dtype == "float32":
+            # the two passes' floor: S twice and P V, products(1, True)
+            res["hm_attn_fwd"]["bound_two_pass_ms"] = C.bounds_hm(
+                BH, N, D, groups=1, e=4,
+                peak=C.PEAK_TF32X3)["hm_attn_fwd"][0]
+        return res
     if kind == "classifier_forward":
         from mofo_tpu_torch.models import create_model
 
@@ -161,8 +179,8 @@ def measure(kind: str, shape: tuple, dtype: str) -> dict:
             res = timed(torch, lambda: model(clips, return_features=True))
         return dict(res, launches=dict(fa.launch_counts))
     if kind == "pretrain_step":
-        _, state, step, gen, batch = main_path.build_step(shape[0],
-                                                          dtype=dtype)
+        _, state, step, gen, batch = main_path.build_step(
+            shape[0], *shape[1:], dtype=dtype)
         box = {"state": state}
 
         def one_step():

@@ -465,12 +465,15 @@ def test_column_split_3xtf32_backward_is_as_precise_as_f32(cuda, family,
 @pytest.mark.parametrize("N", [1568, 100, 1])
 @pytest.mark.parametrize("family,shape", [
     ("mh", (4, 16, 64)), ("mh", (4, 8, 128)), ("mh", (4, 2, 384)),
-    ("mh", (2, 1, 768)), ("qkv", (2, 2, 320)), ("hm", (4, 1, 512))])
+    ("mh", (2, 1, 768)), ("qkv", (2, 2, 320)), ("hm", (4, 1, 512)),
+    ("hm", (4, 3, 64)), ("hm", (4, 1, 128)), ("hm", (4, 1, 256))])
 def test_3xtf32_forwards_are_as_precise_as_f32(cuda, family, shape, N):
     """The f32 forwards on 3xTF32 wgmma: K3's up to head dim 128 with its
-    bias row (csrc/wgmma_tf32_fwd.cuh, K1's kernel), and the column-split
-    one above 256 (csrc/wgmma_tf32_split.cuh) of K3 at the MCA's 384 and
-    768, K1/K2 at 320 and K4 at 512 (two passes). Long, ragged and N = 1.
+    bias row (csrc/wgmma_tf32_fwd.cuh, K1's kernel), K4's there in two
+    passes (the same kernel) and at 256 (the column-split kernel at one
+    output group, two passes), and the column-split one above 256
+    (csrc/wgmma_tf32_split.cuh) of K3 at the MCA's 384 and 768, K1/K2 at
+    320 and K4 at 512 (two passes). Long, ragged and N = 1.
     Against a float64 run every output within PRECISION_FACTOR of the
     plain f32 version's error, and the plain version with TF32 on beyond
     that bound on out and lse; then against the plain versions. At N = 1
@@ -683,14 +686,18 @@ def test_k3_3xtf32_kernels_are_as_precise_as_f32(cuda, B, N, H, D, scale):
     to 128) and its forward and dK/dV at 256 and 192 (D streamed in
     64-column chunks): the MCA at a reduced batch, the MCA at 4, 8 and 16
     heads, the ragged N, scale 0.1, with the kv bias and k, v column views
-    of one fused kv. Against a float64 run each output is within
+    of one fused kv; dK/dV up to 128 on K2's kernel with its bias flag
+    (csrc/wgmma_tf32_dkv.cuh). Against a float64 run each output is within
     PRECISION_FACTOR of the plain f32 version's error (dQ among them); the
-    plain version with TF32 on misses that bound."""
+    plain version with TF32 on misses that bound, on dK and dV too at the
+    MCA's 8 x 128 and 16 x 64 (where the FMA kernel's run showed it)."""
     q, k, v, b = mh_inputs(B, N, H, D, torch.float32, 5, cuda)
     assert k.stride(1) == 2 * H * D
     res = mh_f32_precision(q, k, v, b, H, scale or D ** -0.5)
     assert res["beyond"] == [], res
     assert "dq" in res["fault_beyond"], res
+    if (N, H, D) in ((1568, 8, 128), (1568, 16, 64)):
+        assert {"dk", "dv"} <= set(res["fault_beyond"]), res
 
 
 @pytest.mark.parametrize("fused_kv", [True, False])

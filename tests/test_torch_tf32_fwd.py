@@ -323,11 +323,12 @@ def test_the_forward_walk(D):
 
 @pytest.mark.parametrize("D", WIDE_DIMS)
 def test_forward_bias_rows_live_long_enough(D):
-    """Tile t's bias row lives in slot t % 2, written when the producer
+    """Tile t's bias row lives in slot t % 4, written when the producer
     splits the tile's first entry e0(t), whose load starts once the
-    consumer is done with entry e0(t) - ENTRIES; tile t - 2's row is read
-    after its pair walk: e0(t) - ENTRIES >= e0(t - 2) + 2 kC, over both
-    passes of K4's walk too."""
+    consumer is done with entry e0(t) - ENTRIES; above 256 even tile t -
+    2's row is read after its pair walk: e0(t) - ENTRIES >= e0(t - 2) + 2
+    kC, over both passes of K4's walk too (at 192 and 256:
+    tests/test_torch_tf32_k4_fwd_k3_dkv.py)."""
     kc = D // CHUNK
     for c0, n in groups(kc):
         for two_pass in (False, True):
@@ -341,7 +342,7 @@ def test_forward_bias_rows_live_long_enough(D):
 
 def test_the_forwards_fit_shared_memory():
     """The column-split forward takes the backward's layout (1024 bytes of
-    alignment, ENTRIES (hi, lo) 64 x 64 entries, two tiles' bias rows in
+    alignment, ENTRIES (hi, lo) 64 x 64 entries, four tiles' bias rows in
     its 1 KB of per-tile values, 2 ENTRIES + 1 barriers): 231,544 bytes.
     The narrow forward (FwdF32): 1024 bytes of alignment, its q tiles,
     its entries (a (hi, lo) pair of 64 x D tiles each), a 64-float bias row
@@ -390,7 +391,7 @@ def test_the_sources_route_the_f32_forwards():
     run_fwd = qkv[qkv.index("int run_fwd("):qkv.index("int fused_maps(")]
     assert "launch_fwd_f32<D, false>(" in run_fwd
     entry = src["mh_flash_attention.cu"]
-    assert "smem_fwd_f32" not in entry + mh  # K4's FMA forward keeps its own
+    assert "smem_fwd_f32" not in entry + mh  # nor K4's (it went too)
     fwd_entry = entry[entry.index('extern "C" int mh_attn_fwd('):]
     assert "!bf16 ? mh_f32_fwd(" in fwd_entry
     fwd = mh[mh.index("int fwd("):mh.index("int bwd_dkv(")]
