@@ -637,16 +637,18 @@ HM_F32_PRECISION_CHECKS = {"d64": (4, 1568, 64), "d128": (4, 1568, 128),
 # f32_precision's geometries at which the 1xTF32 fault must land beyond
 # the bound on other outputs too (on dQ it must everywhere): on out and
 # lse at every geometry above N = 1, and on dK and dV at the column-split
-# ones and at K3's 8 x 128 and 16 x 64, where the FMA kernels' runs of the
-# same check (NVIDIA H100 80GB HBM3, 700.00 W) showed it beyond
+# ones, at K3's 8 x 128 and 16 x 64 and at K4's up to 256, where the FMA
+# kernels' runs of the same check (NVIDIA H100 80GB HBM3, 700.00 W)
+# showed it beyond (the fault is the plain version with TF32 on: no
+# kernel moves it)
 F32_FAULT_BEYOND = {
     **dict.fromkeys(
         ("d16", "d32", "d64", "d128", "decoder", "k3_mca_b4",
-         "k3_mca_h4_d192", "k3_ragged_d256", "k4_d64", "k4_d128",
-         "k4_ragged_d256"), ("out", "lse")),
+         "k3_mca_h4_d192", "k3_ragged_d256"), ("out", "lse")),
     **dict.fromkeys(
         ("d320", "k3_mca_h2_d384", "k3_mca_h1_d768", "k3_ragged_d384",
-         "k3_mca_h8_d128", "k3_mca_h16_d64", "k4_d320", "k4_d512"),
+         "k3_mca_h8_d128", "k3_mca_h16_d64", "k4_d64", "k4_d128",
+         "k4_ragged_d256", "k4_d320", "k4_d512"),
         ("out", "lse", "dk", "dv"))}
 # K1/K2's f32 instances are timed at the bf16 rows' main shapes (K3's at
 # the MCA, K4's at the runner's decoder: each family's timed geometry)

@@ -2,11 +2,11 @@
 // two halves of the backward on (B*H, N, D) q, k and v. Plain C interface,
 // loaded from Python with ctypes (mofo_tpu_torch/ops/flash_attention.py);
 // built by mofo_tpu_torch/ops/_build.py with the other csrc/*.cu sources.
-// The f32 backward's tile loads, products and reductions up to D = 256 are
-// flash_tiles.cuh's, the f32 forward's kernels wgmma_tf32_fwd.cuh's and
-// wgmma_tf32_split.cuh's, the TMA, mbarrier and wgmma pieces of the bf16
-// forward wgmma_tiles.cuh's, and the bf16 backward's kernels
-// wgmma_attn_bwd.cuh's.
+// The f32 forward's kernels are wgmma_tf32_fwd.cuh's and
+// wgmma_tf32_split.cuh's, the f32 backward is K3's launchers' (mh_f32.cuh,
+// built from mh_flash_attention_f32.cu), the TMA, mbarrier and wgmma pieces
+// of the bf16 forward are wgmma_tiles.cuh's, and the bf16 backward's
+// kernels wgmma_attn_bwd.cuh's.
 //
 // Replaces the TPU kernel K4 of mofo_tpu/ops/flash_attention.py:
 //   hm_attn_fwd      <- _fwd_impl (:262) / _fwd_kernel (:130)
@@ -91,11 +91,16 @@
 //     narrow kernel with its two-pass flag (wgmma_tf32_fwd.cuh; the
 //     (BH, N, D) planes as BH planes of one head), at 192 and 256 and
 //     above wgmma_tf32_split.cuh's column-split one (one output group of
-//     3 or 4 chunks at 192 and 256: no recompute), shared with K3. The
-//     f32 dK/dV and dQ up to D = 256 still use FMAs (flash_tiles.cuh; the
-//     ROADMAP's f32 queue); above D = 128 their tiles shrink to 32 rows.
-//     Above D = 256 they are wgmma_tf32_split.cuh's 3xTF32 column-split
-//     kernels too.
+//     3 or 4 chunks at 192 and 256: no recompute), shared with K3.
+//   - The f32 dK/dV and dQ are K3's at every D, through its launchers
+//     mh_f32_dkv and mh_f32_dq: K4's (BH, N, D) planes are K3's (B, N,
+//     H D) at B = BH, H = 1, every row stride D and no kv bias, and in f32
+//     K4 computes what K3 does (it differs only in rounding p / l, which
+//     f32 does not). So up to 128 they are K2's unbiased 3xTF32 kernels
+//     (wgmma_tf32_dkv.cuh's dK/dV, wgmma_tf32_dq.cuh's narrow dQ), at 192
+//     and 256 wgmma_tf32_wide.cuh's chunked ones, above 256
+//     wgmma_tf32_split.cuh's column-split ones, all in base e; delta is the
+//     caller's (BH, N) reduction (fa.hm_delta), K3's (B, H, N) at H = 1.
 // Ragged N is masked in-kernel: kv columns >= N and q rows >= N get P = 0;
 // nothing is padded in HBM.
 //
@@ -111,7 +116,7 @@
 
 #include <type_traits>
 
-#include "flash_tiles.cuh"
+#include "mh_f32.cuh"  // the f32 backward (mh_flash_attention_f32.cu)
 #include "wgmma_attn_bwd.cuh"
 #include "wgmma_attn_split.cuh"
 #include "wgmma_attn_wide.cuh"
@@ -120,173 +125,6 @@
 #include "wgmma_tiles.cuh"
 
 namespace {
-
-// Rows of the f32 kernels' streamed tiles (and q tiles): 64 up to D = 128,
-// 32 above (a padded 32 x 257 f32 tile is 33 KB).
-template <int D>
-constexpr int f32_rows() { return D <= 128 ? 64 : 32; }
-
-// One q tile's LSE and delta; rows >= N get 0 (their P is masked).
-__device__ __forceinline__ void load_stats(float* sLse, float* sDelta,
-                                           const float* lse,
-                                           const float* delta, int row0,
-                                           int N, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int row = row0 + i;
-    sLse[i] = row < N ? lse[row] : 0.f;
-    sDelta[i] = row < N ? delta[row] : 0.f;
-  }
-}
-
-// -------------------------------------------------------------------------
-// f32: FMA kernels of the backward up to D = 256 (flash_tiles.cuh's 16 x 16
-// thread layout); the f32 forward is wgmma_tf32_fwd.cuh's and
-// wgmma_tf32_split.cuh's (3xTF32, two passes)
-// -------------------------------------------------------------------------
-
-template <int BQ, int BK, int D>
-constexpr size_t smem_dq_f32() {
-  return ((size_t)(2 * BQ + 2 * BK) * (D + 1) + BQ * (BK + 1) + 2 * BQ) *
-         sizeof(float);
-}
-
-// Grid (ceil(N / BQ), BH). One block: BQ query rows of one head; loops over
-// all kv tiles and accumulates dQ = dS (K * scale) in registers.
-template <int BQ, int BK, int D>
-__global__ void __launch_bounds__(kThreads)
-    hm_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v,
-                  const float* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, float* __restrict__ dq,
-                  int N, float q_scale, float k_scale) {
-  constexpr int I = BQ / 16, JS = BK / 16, JO = D / 16, LD = D + 1,
-                LDP = BK + 1;
-  extern __shared__ float fsmem[];
-  float* sQ = fsmem;
-  float* sdO = sQ + BQ * LD;
-  float* sK = sdO + BQ * LD;
-  float* sV = sK + BK * LD;
-  float* sdS = sV + BK * LD;
-  float* sLse = sdS + BQ * LDP;
-  float* sDelta = sLse + BQ;
-  const size_t base = (size_t)blockIdx.y * N * D;
-  const int q0 = blockIdx.x * BQ;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-
-  load_f32<BQ, D>(sQ, q + base, q0, N, D, q_scale);
-  load_f32<BQ, D>(sdO, dout + base, q0, N, D, 1.f);
-  load_stats(sLse, sDelta, lse + (size_t)blockIdx.y * N,
-             delta + (size_t)blockIdx.y * N, q0, N, BQ);
-  float acc[I][JO] = {};
-
-  for (int k0 = 0; k0 < N; k0 += BK) {
-    __syncthreads();  // the q side is written / the last tile is consumed
-    load_f32<BK, D>(sK, k + base, k0, N, D, 1.f);
-    load_f32<BK, D>(sV, v + base, k0, N, D, 1.f);
-    __syncthreads();
-    float s[I][JS] = {}, dp[I][JS] = {};
-    gemm<I, JS, D, LD, 1, 1, LD>(s, sQ, sK, ty, tx, 1.f);
-    gemm<I, JS, D, LD, 1, 1, LD>(dp, sdO, sV, ty, tx, 1.f);
-#pragma unroll
-    for (int i = 0; i < I; ++i) {
-      const int r = I * ty + i;
-#pragma unroll
-      for (int j = 0; j < JS; ++j) {
-        const int c = tx + 16 * j;
-        const float p = k0 + c < N ? expf(s[i][j] - sLse[r]) : 0.f;
-        sdS[r * LDP + c] = p * (dp[i][j] - sDelta[r]);
-      }
-    }
-    __syncthreads();
-    gemm<I, JO, BK, LDP, 1, LD, 1>(acc, sdS, sK, ty, tx, k_scale);
-  }
-
-#pragma unroll
-  for (int i = 0; i < I; ++i) {
-    const int row = q0 + I * ty + i;
-    if (row >= N) continue;
-    float* dst = dq + base + (size_t)row * D + tx;
-#pragma unroll
-    for (int j = 0; j < JO; ++j) dst[16 * j] = acc[i][j];
-  }
-}
-
-template <int BKV, int BQ, int D>
-constexpr size_t smem_dkv_f32() {
-  return ((size_t)(2 * BKV + 2 * BQ) * (D + 1) + 2 * BKV * (BQ + 1) +
-          2 * BQ) * sizeof(float);
-}
-
-// Grid (ceil(N / BKV), BH). One block: BKV key/value rows of one head; loops
-// over all q tiles and accumulates dK and dV in registers. It forms
-// S^T = K Q^T and dP^T = V dO^T directly (rows kv, columns q), so P^T and
-// dS^T are row-major A operands of dV += P^T dO and dK += dS^T Q.
-template <int BKV, int BQ, int D>
-__global__ void __launch_bounds__(kThreads)
-    hm_bwd_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v,
-                   const float* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, float* __restrict__ dk,
-                   float* __restrict__ dv, int N, float q_scale) {
-  constexpr int I = BKV / 16, JQ = BQ / 16, JO = D / 16, LD = D + 1,
-                LDP = BQ + 1;
-  extern __shared__ float fsmem[];
-  float* sK = fsmem;
-  float* sV = sK + BKV * LD;
-  float* sQ = sV + BKV * LD;
-  float* sdO = sQ + BQ * LD;
-  float* sP = sdO + BQ * LD;
-  float* sdS = sP + BKV * LDP;
-  float* sLse = sdS + BKV * LDP;
-  float* sDelta = sLse + BQ;
-  const size_t base = (size_t)blockIdx.y * N * D;
-  const int k0 = blockIdx.x * BKV;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-
-  load_f32<BKV, D>(sK, k + base, k0, N, D, 1.f);
-  load_f32<BKV, D>(sV, v + base, k0, N, D, 1.f);
-  float dka[I][JO] = {}, dva[I][JO] = {};
-
-  for (int q0 = 0; q0 < N; q0 += BQ) {
-    __syncthreads();  // the previous q tile's reads are done
-    load_f32<BQ, D>(sQ, q + base, q0, N, D, q_scale);
-    load_f32<BQ, D>(sdO, dout + base, q0, N, D, 1.f);
-    load_stats(sLse, sDelta, lse + (size_t)blockIdx.y * N,
-               delta + (size_t)blockIdx.y * N, q0, N, BQ);
-    __syncthreads();
-    float st[I][JQ] = {}, dpt[I][JQ] = {};
-    gemm<I, JQ, D, LD, 1, 1, LD>(st, sK, sQ, ty, tx, 1.f);
-    gemm<I, JQ, D, LD, 1, 1, LD>(dpt, sV, sdO, ty, tx, 1.f);
-#pragma unroll
-    for (int i = 0; i < I; ++i) {
-      const int r = I * ty + i;
-#pragma unroll
-      for (int j = 0; j < JQ; ++j) {
-        const int c = tx + 16 * j;
-        const float p = q0 + c < N ? expf(st[i][j] - sLse[c]) : 0.f;
-        sP[r * LDP + c] = p;
-        sdS[r * LDP + c] = p * (dpt[i][j] - sDelta[c]);
-      }
-    }
-    __syncthreads();
-    gemm<I, JO, BQ, LDP, 1, LD, 1>(dva, sP, sdO, ty, tx, 1.f);
-    gemm<I, JO, BQ, LDP, 1, LD, 1>(dka, sdS, sQ, ty, tx, 1.f);
-  }
-
-#pragma unroll
-  for (int i = 0; i < I; ++i) {
-    const int row = k0 + I * ty + i;
-    if (row >= N) continue;
-    const size_t off = base + (size_t)row * D + tx;
-#pragma unroll
-    for (int j = 0; j < JO; ++j) {
-      dk[off + 16 * j] = dka[i][j];
-      dv[off + 16 * j] = dva[i][j];
-    }
-  }
-}
 
 // -------------------------------------------------------------------------
 // bf16: tensor-core kernels (wgmma; a warp's 16 accumulator rows are in
@@ -654,76 +492,53 @@ int run_fwd(const void* q, const void* k, const void* v, void* out, float* l,
   }
 }
 
+// The bf16 backward at a built D (the f32 one is K3's: the entry points)
 template <int D>
-int run_dkv(const void* q, const void* k, const void* v, const void* dout,
-            const float* l, const float* d, const void* qs, void* dk,
-            void* dv, int BH, int N, float q_scale, int is_bf16,
-            cudaStream_t st) {
-  if (is_bf16) {
-    if (!qs) return kBadArgument;
-    CUtensorMap tk, tv, tqs, tdo;
-    if (int e = hm_map<D>(&tk, k, BH, N)) return e;
-    if (int e = hm_map<D>(&tv, v, BH, N)) return e;
-    if (int e = hm_map<D>(&tqs, qs, BH, N)) return e;
-    if (int e = hm_map<D>(&tdo, dout, BH, N)) return e;
-    if constexpr (D <= 128)
-      return launch_bwd_dkv<true, false, D>(tk, tv, tqs, tdo, 0, 0, l, d,
-                                            nullptr, dk, dv, D, BH, N, 1, 1.f,
-                                            st);
-    else
-      return launch_strip_dkv<D, true>(tk, tv, tqs, tdo, nullptr, l, d, dk,
-                                       dv, D, BH, N, 1, 1.f, st);
-  }
-  constexpr int T = f32_rows<D>();
-  constexpr size_t smem = smem_dkv_f32<T, T, D>();
-  auto kernel = hm_bwd_dkv_f32<T, T, D>;
-  if (int e = max_smem((const void*)kernel, smem)) return e;
-  kernel<<<dim3(cdiv(N, T), BH), kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), l, d,
-      static_cast<float*>(dk), static_cast<float*>(dv), N, q_scale);
-  return 0;
+int run_dkv(const void* k, const void* v, const void* dout, const float* l,
+            const float* d, const void* qs, void* dk, void* dv, int BH,
+            int N, cudaStream_t st) {
+  if (!qs) return kBadArgument;
+  CUtensorMap tk, tv, tqs, tdo;
+  if (int e = hm_map<D>(&tk, k, BH, N)) return e;
+  if (int e = hm_map<D>(&tv, v, BH, N)) return e;
+  if (int e = hm_map<D>(&tqs, qs, BH, N)) return e;
+  if (int e = hm_map<D>(&tdo, dout, BH, N)) return e;
+  if constexpr (D <= 128)
+    return launch_bwd_dkv<true, false, D>(tk, tv, tqs, tdo, 0, 0, l, d,
+                                          nullptr, dk, dv, D, BH, N, 1, 1.f,
+                                          st);
+  else
+    return launch_strip_dkv<D, true>(tk, tv, tqs, tdo, nullptr, l, d, dk, dv,
+                                     D, BH, N, 1, 1.f, st);
 }
 
 template <int D>
-int run_dq(const void* q, const void* k, const void* v, const void* dout,
-           const float* l, const float* d, const void* qs, const void* ks,
-           void* dq_out, int BH, int N, float q_scale, float k_scale,
-           int is_bf16, cudaStream_t st) {
-  if (is_bf16) {
-    if (!qs) return kBadArgument;
-    CUtensorMap tk, tv, tqs, tdo, tks;
-    if (int e = hm_map<D>(&tk, k, BH, N)) return e;
-    if (int e = hm_map<D>(&tv, v, BH, N)) return e;
-    if (int e = hm_map<D>(&tqs, qs, BH, N)) return e;
-    if (int e = hm_map<D>(&tdo, dout, BH, N)) return e;
-    if constexpr (D <= 128) {
-      if (ks)
-        if (int e = hm_map<D>(&tks, ks, BH, N)) return e;
-      return launch_bwd_dq<true, false, D>(tk, tv, tqs, tdo,
-                                           ks ? &tks : nullptr, 0, 0, l, d,
-                                           nullptr, dq_out, D, BH, N, 1,
-                                           k_scale, st);
-    } else {
-      return launch_strip_dq<D, true>(tk, tv, tqs, tdo, nullptr, l, d,
-                                      dq_out, D, BH, N, 1, k_scale, st);
-    }
+int run_dq(const void* k, const void* v, const void* dout, const float* l,
+           const float* d, const void* qs, const void* ks, void* dq_out,
+           int BH, int N, float k_scale, cudaStream_t st) {
+  if (!qs) return kBadArgument;
+  CUtensorMap tk, tv, tqs, tdo, tks;
+  if (int e = hm_map<D>(&tk, k, BH, N)) return e;
+  if (int e = hm_map<D>(&tv, v, BH, N)) return e;
+  if (int e = hm_map<D>(&tqs, qs, BH, N)) return e;
+  if (int e = hm_map<D>(&tdo, dout, BH, N)) return e;
+  if constexpr (D <= 128) {
+    if (ks)
+      if (int e = hm_map<D>(&tks, ks, BH, N)) return e;
+    return launch_bwd_dq<true, false, D>(tk, tv, tqs, tdo,
+                                         ks ? &tks : nullptr, 0, 0, l, d,
+                                         nullptr, dq_out, D, BH, N, 1,
+                                         k_scale, st);
+  } else {
+    return launch_strip_dq<D, true>(tk, tv, tqs, tdo, nullptr, l, d, dq_out,
+                                    D, BH, N, 1, k_scale, st);
   }
-  constexpr int T = f32_rows<D>();
-  constexpr size_t smem = smem_dq_f32<T, T, D>();
-  auto kernel = hm_bwd_dq_f32<T, T, D>;
-  if (int e = max_smem((const void*)kernel, smem)) return e;
-  kernel<<<dim3(cdiv(N, T), BH), kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), l, d,
-      static_cast<float*>(dq_out), N, q_scale, k_scale);
-  return 0;
 }
 
 // ---- above head dim 256: the column-split kernels, D at run time ----------
-// (wgmma_attn_split.cuh in bf16, base e with two forward passes; in f32
-// wgmma_tf32_split.cuh's 3xTF32 kernels, the forward in two passes too),
-// every operand a (BH, N, D) plane a head
+// (wgmma_attn_split.cuh in bf16, base e with two forward passes; the f32
+// forward wgmma_tf32_split.cuh's 3xTF32 kernel in two passes too, the f32
+// backward K3's), every operand a (BH, N, D) plane a head
 
 int split_fwd(const void* q, const void* k, const void* v, void* out,
               float* l, int BH, int N, int D, float q_scale, int is_bf16,
@@ -734,26 +549,18 @@ int split_fwd(const void* q, const void* k, const void* v, void* out,
                                                N, 1, D, D, D, D, q_scale, st);
 }
 
-int split_dkv(const void* q, const void* k, const void* v, const void* dout,
-              const float* l, const float* d, const void* qs, void* dk,
-              void* dv, int BH, int N, int D, float q_scale, int is_bf16,
-              cudaStream_t st) {
-  return is_bf16 ? launch_split_dkv<true>(k, v, D, D, qs, dout, nullptr, l,
-                                          d, dk, dv, D, BH, N, 1, D, 1.f, st)
-                 : launch_split_dkv_tf32(q, k, v, nullptr, dout, l, d, dk,
-                                         dv, BH, N, 1, D, D, D, D, D,
-                                         q_scale, st);
+int split_dkv(const void* k, const void* v, const void* dout, const float* l,
+              const float* d, const void* qs, void* dk, void* dv, int BH,
+              int N, int D, cudaStream_t st) {
+  return launch_split_dkv<true>(k, v, D, D, qs, dout, nullptr, l, d, dk, dv,
+                                D, BH, N, 1, D, 1.f, st);
 }
 
-int split_dq(const void* q, const void* k, const void* v, const void* dout,
-             const float* l, const float* d, const void* qs, const void* ks,
-             void* dq, int BH, int N, int D, float q_scale, float k_scale,
-             int is_bf16, cudaStream_t st) {
-  return is_bf16 ? launch_split_dq<true>(k, v, D, D, qs, ks, dout, nullptr, l,
-                                         d, dq, D, BH, N, 1, D, k_scale, st)
-                 : launch_split_dq_tf32(q, k, v, nullptr, dout, l, d, dq,
-                                        BH, N, 1, D, D, D, D, D, q_scale,
-                                        k_scale, st);
+int split_dq(const void* k, const void* v, const void* dout, const float* l,
+             const float* d, const void* qs, const void* ks, void* dq,
+             int BH, int N, int D, float k_scale, cudaStream_t st) {
+  return launch_split_dq<true>(k, v, D, D, qs, ks, dout, nullptr, l, d, dq,
+                               D, BH, N, 1, D, k_scale, st);
 }
 
 }  // namespace
@@ -761,10 +568,9 @@ int split_dq(const void* q, const void* k, const void* v, const void* dout,
 // All entry points return 0 on success, a cudaError_t from the launch, or -1
 // for arguments the kernels do not take (a head dim up to 256 that is not
 // built, or one above it that is no multiple of 64). `is_bf16` selects
-// __nv_bfloat16 (the tensor-core kernels) over float (the 3xTF32 forward;
-// the FMA backward up to 256, 3xTF32 above).
-// q_scale and k_scale are already rounded to
-// the element type. Every (BH, N, D) tensor is contiguous and 16-byte
+// __nv_bfloat16 over float; every kernel runs on the tensor cores (bf16,
+// or 3xTF32 in f32). q_scale and k_scale are already rounded to the
+// element type. Every (BH, N, D) tensor is contiguous and 16-byte
 // aligned; lse and delta are (BH, N) f32.
 
 extern "C" int hm_attn_fwd(const void* q, const void* k, const void* v,
@@ -807,7 +613,9 @@ extern "C" int hm_attn_bwd_prep(const void* q, const void* k,
 }
 
 // bf16: delta and qs come from hm_attn_bwd_prep (q is not read); f32: qs is
-// null and the kernel scales q itself.
+// null, delta is the caller's, and K3's launcher runs with one head a plane
+// and no bias (its kernels scale q themselves); whatever it returns is
+// returned.
 extern "C" int hm_attn_bwd_dkv(const void* q, const void* k, const void* v,
                                const void* dout, const void* lse,
                                const void* delta, const void* qs, void* dk,
@@ -817,20 +625,21 @@ extern "C" int hm_attn_bwd_dkv(const void* q, const void* k, const void* v,
   const auto l = static_cast<const float*>(lse);
   const auto d_ = static_cast<const float*>(delta);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (int e = D > kStripMaxDim
-                  ? split_dkv(q, k, v, dout, l, d_, qs, dk, dv, BH, N, D,
-                              q_scale, is_bf16, st)
+  if (int e = !is_bf16 ? mh_f32_dkv(q, k, v, nullptr, dout, l, d_, dk, dv,
+                                    BH, N, 1, D, D, D, D, D, q_scale, st)
+              : D > kStripMaxDim
+                  ? split_dkv(k, v, dout, l, d_, qs, dk, dv, BH, N, D, st)
                   : by_head_dim(D, [&](auto d) {
                       return run_dkv<decltype(d)::value>(
-                          q, k, v, dout, l, d_, qs, dk, dv, BH, N, q_scale,
-                          is_bf16, st);
+                          k, v, dout, l, d_, qs, dk, dv, BH, N, st);
                     }))
     return e;
   return (int)cudaGetLastError();
 }
 
 // bf16: delta, qs and (unless k_scale is a power of two) ks come from
-// hm_attn_bwd_prep; f32: qs and ks are null and the kernel scales q and k.
+// hm_attn_bwd_prep; f32: qs and ks are null and K3's launcher runs as for
+// dK/dV (its kernels scale q and k themselves).
 extern "C" int hm_attn_bwd_dq(const void* q, const void* k, const void* v,
                               const void* dout, const void* lse,
                               const void* delta, const void* qs,
@@ -841,13 +650,14 @@ extern "C" int hm_attn_bwd_dq(const void* q, const void* k, const void* v,
   const auto l = static_cast<const float*>(lse);
   const auto d_ = static_cast<const float*>(delta);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (int e = D > kStripMaxDim
-                  ? split_dq(q, k, v, dout, l, d_, qs, ks, dq, BH, N, D,
-                             q_scale, k_scale, is_bf16, st)
+  if (int e = !is_bf16 ? mh_f32_dq(q, k, v, nullptr, dout, l, d_, dq, BH, N,
+                                   1, D, D, D, D, D, q_scale, k_scale, st)
+              : D > kStripMaxDim
+                  ? split_dq(k, v, dout, l, d_, qs, ks, dq, BH, N, D,
+                             k_scale, st)
                   : by_head_dim(D, [&](auto d) {
                       return run_dq<decltype(d)::value>(
-                          q, k, v, dout, l, d_, qs, ks, dq, BH, N, q_scale,
-                          k_scale, is_bf16, st);
+                          k, v, dout, l, d_, qs, ks, dq, BH, N, k_scale, st);
                     }))
     return e;
   return (int)cudaGetLastError();

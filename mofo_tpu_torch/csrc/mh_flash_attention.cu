@@ -96,24 +96,11 @@
 //   - in bf16 dS is the bf16 product of P with (dP - delta) rounded to bf16;
 //     in f32 it is P * (dP - delta).
 
+#include "mh_f32.cuh"  // the f32 launchers (mh_flash_attention_f32.cu)
 #include "wgmma_attn_bwd.cuh"
 #include "wgmma_attn_split.cuh"
 #include "wgmma_attn_wide.cuh"
 #include "wgmma_tiles.cuh"
-
-// The f32 kernels' launchers, built from mh_flash_attention_f32.cu: the
-// entry points' arguments, float, each returning as they do.
-int mh_f32_fwd(const void* q, const void* k, const void* v, const float* bias,
-               void* out, float* lse, int B, int N, int H, int D, int ldq,
-               int ldk, int ldv, float q_scale, cudaStream_t st);
-int mh_f32_dkv(const void* q, const void* k, const void* v, const float* bias,
-               const void* dout, const float* lse, const float* delta,
-               void* dk, void* dv, int B, int N, int H, int D, int ldq,
-               int ldk, int ldv, int lddkv, float q_scale, cudaStream_t st);
-int mh_f32_dq(const void* q, const void* k, const void* v, const float* bias,
-              const void* dout, const float* lse, const float* delta,
-              void* dq, int B, int N, int H, int D, int ldq, int ldk, int ldv,
-              int lddq, float q_scale, float k_scale, cudaStream_t st);
 
 namespace {
 

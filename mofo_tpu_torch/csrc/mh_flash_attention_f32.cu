@@ -4,9 +4,11 @@
 // own so that the build compiles them in an nvcc process of their own
 // beside the bf16 kernels' (ops/_build.py starts one a source, together).
 // mh_flash_attention.cu's entry points call mh_f32_fwd, mh_f32_dkv and
-// mh_f32_dq for float; each returns 0, kBadArgument for a head dim that is
-// not built (up to 256) or no multiple of 64 (above), or a cudaError_t
-// from the set-up.
+// mh_f32_dq for float, and hm_flash_attention.cu's backward calls
+// mh_f32_dkv and mh_f32_dq for K4 (one head a plane, no bias; mh_f32.cuh
+// declares them); each returns 0, kBadArgument for a head dim that is not
+// built (up to 256) or no multiple of 64 (above), or a cudaError_t from the
+// set-up.
 //   - the forward: wgmma_tf32_fwd.cuh's narrow kernel with the bias flag up
 //     to 128 (K1's), wgmma_tf32_wide.cuh's at 192 and 256,
 //     wgmma_tf32_split.cuh's column-split one above;
@@ -19,6 +21,7 @@
 // (_mh_fwd_impl :653 / _mh_fwd_kernel :460, _mh_bwd_impl :737 /
 // _mh_dqkv_kernel :523), as mh_flash_attention.cu lists.
 
+#include "mh_f32.cuh"
 #include "wgmma_tf32_dkv.cuh"
 #include "wgmma_tf32_dq.cuh"
 #include "wgmma_tf32_fwd.cuh"

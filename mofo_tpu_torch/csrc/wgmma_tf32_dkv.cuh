@@ -5,12 +5,15 @@
 // and dV written into dqkv's views at 3A, no bias) and
 // mh_flash_attention_f32.cu's launchers for K3 (q at its own row stride, k
 // and v the column views of one fused (B, N, 2A) kv, the (B, N) kv bias
-// row, dK and dV at their own row stride). It replaces K3's FMA kernel
-// mh_bwd_dkv_f32 and computes what mofo_tpu's _mh_dqkv_kernel
-// (mofo_tpu/ops/flash_attention.py:523, called by _mh_bwd_impl at :783 for
-// K3 and, K2's f32 fallback, through _qkv_bwd_impl at :1271) computes for
-// dK and dV in f32. Above 128 K3's entry point runs wgmma_tf32_wide.cuh's
-// dK/dV (192, 256) and wgmma_tf32_split.cuh's column-split one.
+// row, dK and dV at their own row stride; without a bias the unbiased
+// instance, which hm_flash_attention.cu's f32 backward runs for K4 too: one
+// head a (BH, N, D) plane, row strides D). It replaces the FMA kernels
+// mh_bwd_dkv_f32 (K3) and hm_bwd_dkv_f32 (K4) and computes what
+// mofo_tpu's _mh_dqkv_kernel (mofo_tpu/ops/flash_attention.py:523, called
+// by _mh_bwd_impl at :783 for K3 and, K2's f32 fallback, through
+// _qkv_bwd_impl at :1271) computes for dK and dV in f32. Above 128 K3's
+// entry point runs wgmma_tf32_wide.cuh's dK/dV (192, 256) and
+// wgmma_tf32_split.cuh's column-split one.
 //
 // What bounds it. S^T, dP^T, dV += P^T dO and dK += dS^T (q * q_scale) are
 // 8 N^2 D FLOP a head on N D values of each of q, k, v and dO: at N = 1568
@@ -72,10 +75,16 @@
 //     added into the running sum of N equal terms, a small term loses its
 //     bits below the sum's 26th (dV of such a row was 3 f32 ulps low, 5.2e-4
 //     from the plain version's at N = 100).
-// Without the bias (K2) the only such rows are N = 1's, where both sums
-// have one term: dP^T sums its small terms in an accumulator of their own
-// over the whole chain, issued behind S^T's, and dV's and dK's chains run
-// 64 output columns at a time. Either way each chain over a q tile runs
+// Without the bias (K2, K3 without one, K4) the only such rows are N = 1's,
+// where both sums have one term: dP^T sums its small terms in an
+// accumulator of their own over the whole chain, issued behind S^T's, and
+// dV's and dK's chains run 64 output columns at a time. At D = 128 S^T
+// does the same (kSApart): its one chain of 16 k-steps cut every small
+// term against a running sum of |S| (toward zero: a bias in P that a
+// float64 LSE does not share), and put dK at (4, 100) x 128 (K4's planes;
+// NVIDIA H100 80GB HBM3) beyond 4x the plain version's error against
+// float64; the tensor-core sum model (tests/test_torch_tf32_k4_bwd.py)
+// puts it at 4.3x, 2.6x with the small terms apart. Either way each chain over a q tile runs
 // into a fresh accumulator, added in f32: the tensor cores' accumulation
 // truncates to the running sum, so a sum over N runs in registers in f32.
 //
@@ -162,6 +171,9 @@ __global__ void __launch_bounds__(DkvF32<D>::kThreads, 1)
   // it took 8 x 128 from 5.9 to 5.6 ms and 16 x 64 from 3.3 to 3.7;
   // tools/f32_ab.py, NVIDIA H100 80GB HBM3)
   constexpr int kAhead = D == 128 ? 1 : 0;
+  // the unbiased S^T's small terms in an accumulator of their own at 128
+  // (the precision note)
+  constexpr bool kSApart = !kBias && D == 128;
   extern __shared__ unsigned char wsmem[];
   float* sKV = reinterpret_cast<float*>(smem_1024(wsmem));
   float* sE = sKV + 4 * kWGs * kKE;  // entry s: hi, then lo
@@ -268,17 +280,23 @@ __global__ void __launch_bounds__(DkvF32<D>::kThreads, 1)
       const float* de = sE + 2 * s[1] * kQE;   // dO
       const float* dte = sE + 2 * s[2] * kQE;  // dO^T
       const float* qte = sE + 2 * s[3] * kQE;  // (q * scale)^T
-      // S^T keeps one accumulator (registers); dP^T as the precision note
-      // says
-      float st[NQ][4] = {}, dpt[NQ][4];
+      // S^T keeps one accumulator (registers; kSApart: two); dP^T as the
+      // precision note says
+      float st[NQ][4] = {}, st_small[NQ][4] = {}, dpt[NQ][4];
       auto scores = [&] {
         mbar_wait(&full[s[0]], par[0]);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < D / 8; ++kk)
-          mma3_ss(st, desc_k8<kDkvRows, D>(kt, kk),
-                  desc_k8<kDkvRows, D>(kt + kKE, kk),
-                  desc_k8<kBQ, D>(qe, kk), desc_k8<kBQ, D>(qe + kQE, kk));
+        for (int kk = 0; kk < D / 8; ++kk) {
+          const uint64_t a_hi = desc_k8<kDkvRows, D>(kt, kk);
+          const uint64_t a_lo = desc_k8<kDkvRows, D>(kt + kKE, kk);
+          const uint64_t b_hi = desc_k8<kBQ, D>(qe, kk);
+          const uint64_t b_lo = desc_k8<kBQ, D>(qe + kQE, kk);
+          if constexpr (kSApart)
+            mma3_ss(st, st_small, a_hi, a_lo, b_hi, b_lo);
+          else
+            mma3_ss(st, a_hi, a_lo, b_hi, b_lo);
+        }
       };
       if constexpr (kBias) {
         // dP^T first (S^T's accumulator is not live across its waits), one
@@ -345,6 +363,10 @@ __global__ void __launch_bounds__(DkvF32<D>::kThreads, 1)
         fence_acc(dpt);
         fence_acc(dpt_small);
         add_small(dpt, dpt_small);
+        if constexpr (kSApart) {
+          fence_acc(st_small);
+          add_small(st, st_small);
+        }
       }
       const float* sl = sStat + 2 * s[0] * kBQ;
       const float* sd = sl + kBQ;

@@ -4,10 +4,13 @@
 // up to 256 in f32, and qkv_flash_attention.cu's qkv_attn_bwd_dq reaches
 // it for K2 through K3's entry point (q, k and v the column views of the
 // fused qkv, no bias, dQ into dqkv's columns [0, A) at row stride 3A). It
-// replaces the FMA kernels mh_bwd_dq_f32 (K3) and bwd_dq_f32 (K2), and the
-// TPU kernels' dQ: _mh_dqkv_kernel (mofo_tpu/ops/flash_attention.py:523,
-// called by _mh_bwd_impl at :783), which the f32 K2 backward runs as its
-// blocked fallback (:1229-1244). Two forms:
+// runs for K4 too, through the same launcher (hm_flash_attention.cu's f32
+// backward: one head a (BH, N, D) plane, row strides D, no bias). It
+// replaces the FMA kernels mh_bwd_dq_f32 (K3), bwd_dq_f32 (K2) and
+// hm_bwd_dq_f32 (K4), and the TPU kernels' dQ: _mh_dqkv_kernel
+// (mofo_tpu/ops/flash_attention.py:523, called by _mh_bwd_impl at :783),
+// which the f32 K2 backward runs as its blocked fallback (:1229-1244). Two
+// forms:
 //   - the narrow one (this file), head dims 16, 32, 64 and 128, with a
 //     bias flag (K3 with a kv bias; K2 and K3 without);
 //   - the chunked one at 192 and 256 (wgmma_tf32_wide.cuh's mh_dq_tf32),

@@ -2,9 +2,11 @@
 // products in 3xTF32 on wgmma (wgmma_tf32.cuh's splits, descriptors and
 // products), fed by TMA, with D streamed in 64-column chunks.
 // mh_flash_attention.cu runs them for K3 and, through K3's entry points,
-// for K1/K2 above head dim 128 (q, k and v column views of the fused qkv).
-// They replace the FMA kernels mh_fwd_f32, mh_bwd_dkv_f32 and
-// mh_bwd_dq_f32 at these widths (dQ up to 128 is wgmma_tf32_dq.cuh's).
+// for K1/K2 above head dim 128 (q, k and v column views of the fused qkv);
+// hm_flash_attention.cu runs the dK/dV and dQ for K4's f32 backward (one
+// head a plane, no bias). They replace the FMA kernels mh_fwd_f32,
+// mh_bwd_dkv_f32 and mh_bwd_dq_f32 (and K4's hm_bwd_dkv_f32 and
+// hm_bwd_dq_f32) at these widths (dQ up to 128 is wgmma_tf32_dq.cuh's).
 //
 // Why chunks. A 64 x D f32 (hi, lo) pair is 512 D bytes: 128 KB at D = 256.
 // A block can keep one such strip in its 227 KB of shared memory, not two,

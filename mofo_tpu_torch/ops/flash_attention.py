@@ -46,8 +46,9 @@ its bias row, K4's in two passes; dK/dV in wgmma_tf32_dkv.cuh, K3's with
 its bias; dQ in wgmma_tf32_dq.cuh, K2's through K3's entry point), as are
 K3's forward and dK/dV at head dims 192 and 256 (wgmma_tf32_wide.cuh) and,
 above 256 (and K4's forward at 192 and 256), the column-split kernels of
-every family (wgmma_tf32_split.cuh; K4's forward in two passes); K4's f32
-dK/dV and dQ up to 256 run FMAs.
+every family (wgmma_tf32_split.cuh; K4's forward in two passes). K4's f32
+dK/dV and dQ are K3's at every head dim (its entry points call K3's
+launchers with one head a plane and no bias). No kernel runs on FMAs.
 
 fp16 callers (the fp16 finetune) run the bf16 kernels: each public entry
 point casts f16 operands to bf16 and the output back to f16 inside autograd,

@@ -33,6 +33,11 @@ A row is (kind, shape, dtype). The kinds:
   (main_path.build_finetune_step, 174 classes; shape (B,) or (B,
   mca_num_heads)), ms and launches a step.
 - `vis`: cli/vis.py on ViT-B, seconds a call.
+- `hm_precision`: K4's f32 kernels against one float64 run at (B*H, N, D)
+  (main_path.hm_f32_precision on main_path.hm_inputs with seed 5, as
+  chip_smoke.py's f32_precision phase runs it): each output's error, the
+  plain f32 version's and the 1xTF32 fault's, and where each lands
+  against the bound.
 
 Each kernel row carries two bounds (chip_smoke's, at PEAK_TF32X3 in f32):
 bound_ms, the work at its least, and bound_recompute_ms, the products the
@@ -102,6 +107,11 @@ MEASUREMENTS = {
     "bb_step_h16": ("bb_step", (10, 16), "float32"),
     "vits_step": ("pretrain_step", (32, "pretrain_videomae_small_patch16_224"),
                   "float32"),
+    # K4's f32 precision at chip_smoke.py's HM_F32_PRECISION_CHECKS up to
+    # 256, where its f32 backward moved onto K3's launchers
+    "prec_k4_d64": ("hm_precision", (4, 1568, 64), "float32"),
+    "prec_k4_d128": ("hm_precision", (4, 1568, 128), "float32"),
+    "prec_k4_ragged_d256": ("hm_precision", (4, 100, 256), "float32"),
 }
 CLASSIFIER = "vit_base_patch16_224_feature_ext"
 REPS = 3  # timed calls after one warm-up (model-level numbers)
@@ -166,6 +176,10 @@ def measure(kind: str, shape: tuple, dtype: str) -> dict:
                 BH, N, D, groups=1, e=4,
                 peak=C.PEAK_TF32X3)["hm_attn_fwd"][0]
         return res
+    if kind == "hm_precision":
+        BH, N, D = shape
+        q, k, v = main_path.hm_inputs(BH, N, dt, 5, "cuda", D=D)
+        return main_path.hm_f32_precision(q, k, v, D ** -0.5)
     if kind == "classifier_forward":
         from mofo_tpu_torch.models import create_model
 

@@ -36,39 +36,81 @@ from mofo_tpu_torch.tools.main_path import (
 )
 
 
-# the instances of the shared bf16 backward kernels (wgmma_attn_bwd.cuh) by
-# their demangled or mangled template arguments: base e is K4's, the bias
-# flag (the last argument) and the prep pass at 32 chunks a head K3's
-_BASE_E = re.compile(r"bwd_d(kv|q)_bf16(<true|ILb1)")
-_BIAS = re.compile(r"bwd_d(kv|q)_bf16(<[^>]*true>|I(Lb[01]E)+Lb1EE)")
-_PREP_K3 = re.compile(r"bwd_prep_bf16(<32>|ILi32E)")
-# the f32 kernels shared across families: K1's narrow forward (fwd_f32<D,
-# bias, two passes>) with the bias flag set is K3's, in two passes K4's;
-# K2's dK/dV (bwd_dkv_f32<D, bias>) with the bias flag set is K3's; the
-# column-split forward in two passes is K4's, in one K3's
-_FWD_F32_BIAS = re.compile(r"fwd_f32(<\d+, true, \w+>|ILi\d+ELb1ELb[01]E)")
-_FWD_F32_TWO_PASS = re.compile(
-    r"fwd_f32(<\d+, \w+, true>|ILi\d+ELb[01]ELb1E)")
-_DKV_F32_BIAS = re.compile(r"bwd_dkv_f32(<\d+, true>|ILi\d+ELb1E)")
-_SPLIT_FWD_TWO_PASS = re.compile(r"split_fwd_tf32(<\d+, true>|ILi\d+ELb1E)")
+# Every kernel that csrc/ defines, by name: (the template argument that
+# says base e or two passes, i.e. K4; the one that is the kv-bias flag, i.e.
+# K3; the families that launch it otherwise). An instance whose name cannot
+# tell its family goes into the group of all the families that launch it:
+# the unbiased f32 dK/dV and dQ, for one, are K2's, K3's without a kv bias
+# and K4's (its (BH, N, D) planes as K3's at H = 1).
+_CSRC_KERNELS = {
+    # bf16 (wgmma_tiles.cuh and the wgmma_attn_*.cuh kernels)
+    "fwd_bf16": (None, None, "K1"),
+    "hm_fwd_bf16": (None, None, "K4"),
+    "hm_fwd_wide_bf16": (None, None, "K4"),
+    "bwd_prep_bf16": (None, None, "K2, K3 and K4"),
+    "bwd_prep_wide_bf16": (None, None, "K2, K3 and K4"),
+    "bwd_dkv_bf16": (0, 1, "K2"),  # <kBaseE, kBias, D>
+    "bwd_dq_bf16": (0, 2, "K2"),  # <kBaseE, kScaledCopy, kBias, D>
+    "strip_fwd_bf16": (None, None, "K1 and K3"),
+    "strip_bwd_dkv_bf16": (1, None, "K2 and K3"),  # <D, kBaseE>
+    "strip_bwd_dq_bf16": (1, None, "K2 and K3"),
+    "split_fwd_bf16": (0, None, "K1 and K3"),  # <kBaseE>
+    "split_bwd_dkv_bf16": (0, None, "K2 and K3"),
+    "split_bwd_dq_bf16": (0, None, "K2 and K3"),
+    # f32, 3xTF32 (the wgmma_tf32_*.cuh kernels)
+    "fwd_f32": (2, 1, "K1"),  # <D, kBias, kTwoPass>
+    "bwd_dkv_f32": (None, 1, "K2, K3 and K4"),  # <D, kBias>
+    "mh_dq_f32": (None, 1, "K2, K3 and K4"),  # <D, kBias>
+    "mh_fwd_tf32": (None, None, "K1 and K3"),
+    "mh_dkv_tf32": (None, None, "K2, K3 and K4"),
+    "mh_dq_tf32": (None, None, "K2, K3 and K4"),
+    "split_fwd_tf32": (1, None, "K1 and K3"),  # <NG, kTwoPass>
+    "split_dkv_tf32": (None, None, "K2, K3 and K4"),
+    "split_dq_tf32": (None, None, "K2, K3 and K4"),
+}
+_FAMILY_GROUPS = {"K1": "attention, K1/K2 (port kernels)",
+                  "K2": "attention, K1/K2 (port kernels)",
+                  "K3": "masked attention, K3 (port kernels)",
+                  "K4": "head-major attention, K4 (port kernels)"}
+# the kernels live in anonymous namespaces: "void (anonymous
+# namespace)::name<64, false>(...)" demangled; mangled "_ZN", the
+# namespace's length and name (nvcc's "_GLOBAL__N__<hash>_<file>_cu_<hash>",
+# gcc's "_GLOBAL__N_1"), the kernel's length and name, "I...E" (Li64E, Lb0E)
+_DEMANGLED = re.compile(r"\(anonymous namespace\)::(\w+)(?:<([^<>]*)>)?\(")
+_MANGLED = re.compile(r"_ZN(\d+)_GLOBAL__N_")
+
+
+def _kernel(name: str):
+    """(csrc kernel name, its template arguments as ints) or None."""
+    m = _DEMANGLED.search(name)
+    if m:
+        args = [a.strip() for a in (m.group(2) or "").split(",") if a]
+        return m.group(1), [int(a == "true") if a in ("true", "false")
+                            else int(a) for a in args]
+    m = _MANGLED.search(name)
+    n = m and re.match(r"\d+", name[m.end(1) + int(m.group(1)):])
+    if n:
+        start = n.end() + m.end(1) + int(m.group(1))
+        base = name[start:start + int(n.group())]
+        args = re.match(r"I((?:L[ib]\d+E)+)E", name[start + len(base):])
+        return base, [int(a) for a in re.findall(
+            r"L[ib](\d+)E", args.group(1) if args else "")]
+    return None
 
 
 def _group(name: str) -> str:
+    kernel = _kernel(name)
+    if kernel and kernel[0] in _CSRC_KERNELS:
+        base, args = kernel
+        k4_arg, bias_arg, families = _CSRC_KERNELS[base]
+        if k4_arg is not None and k4_arg < len(args) and args[k4_arg]:
+            families = "K4"
+        elif bias_arg is not None and bias_arg < len(args) and \
+                args[bias_arg]:
+            families = "K3"
+        return _FAMILY_GROUPS.get(
+            families, f"attention shared by {families} (port kernels)")
     low = name.lower()
-    if "hm_fwd_" in name or "hm_bwd_" in name or _BASE_E.search(name) or \
-            _SPLIT_FWD_TWO_PASS.search(name) or \
-            _FWD_F32_TWO_PASS.search(name):
-        return "head-major attention, K4 (port kernels)"
-    if "mh_fwd_" in name or "mh_bwd_" in name or _BIAS.search(name) or \
-            _PREP_K3.search(name) or _FWD_F32_BIAS.search(name) or \
-            _DKV_F32_BIAS.search(name) or "split_fwd_tf32" in name:
-        return "masked attention, K3 (port kernels)"
-    if "bwd_prep_bf16" in name:  # one kernel, launched by K2 and by K4
-        return "backward prep pass, K2 and K4 (port kernels)"
-    if any(k in name for k in ("fwd_bf16", "bwd_dkv_bf16",
-                               "bwd_dq_bf16", "fwd_f32", "bwd_dkv_f32",
-                               "bwd_dq_f32")):
-        return "attention, K1/K2 (port kernels)"
     if any(k in low for k in ("gemm", "cutlass", "xmma", "nvjet")):
         return "gemm (cuBLAS)"
     if "foreach" in low or "multi_tensor" in low:

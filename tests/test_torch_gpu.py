@@ -505,6 +505,24 @@ def test_3xtf32_forwards_are_as_precise_as_f32(cuda, family, shape, N):
         assert compare_with_plain(fault, want)["beyond_bounds"] == ["out"]
 
 
+@pytest.mark.parametrize("d,N", [(16, 1568), (32, 1568), (192, 1568),
+                                 (192, 100)])
+def test_k4_f32_backward_on_k3_kernels_is_as_precise_as_f32(cuda, d, N):
+    """K4's f32 dK/dV and dQ run K3's 3xTF32 kernels with one head a plane
+    and no bias (K2's unbiased dK/dV and the narrow dQ at 16 and 32, the
+    chunked ones at 192; the forwards' test holds 64, 128 and 256):
+    against a float64 run every output within PRECISION_FACTOR of the
+    plain f32 version's error, the 1xTF32 fault beyond it on dQ; then
+    against the plain versions."""
+    q, k, v = hm_inputs(4, N, torch.float32, 5, cuda, D=d)
+    res = hm_f32_precision(q, k, v, d ** -0.5)
+    got, want = hm_attention_against_plain(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert res["beyond"] == [], res
+    assert "dq" in res["fault_beyond"], res
+    check_against_plain(got, want)
+
+
 def test_wrapper_rejects_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="head dim 48"):
         fa.qkv_attn_fwd(torch.zeros(1, 8, 3 * 2 * 48, device=cuda), 1.0, 2)

@@ -464,11 +464,12 @@ def test_the_block_fits_shared_memory():
 
 def test_the_sources_route_the_f32_backward_above_256():
     """No FMA column-split backward is left (nor its forward, nor
-    flash_split_f32.cuh, which held them), and the f32 branches of
-    split_dkv / split_dq in K3's (mh_flash_attention_f32.cu) and K4's
-    sources launch wgmma_tf32_split.cuh's kernels, whose constants are the ones emulated
-    here; so does the f32 branch of split_fwd
-    (tests/test_torch_tf32_fwd.py)."""
+    flash_split_f32.cuh, which held them), and split_dkv / split_dq in
+    K3's f32 launchers (mh_flash_attention_f32.cu) launch
+    wgmma_tf32_split.cuh's kernels, whose constants are the ones emulated
+    here; K4's f32 backward reaches them through those launchers (its own
+    split_dkv / split_dq are bf16 only), and K4's split_fwd launches the
+    f32 one itself, as K3's does (tests/test_torch_tf32_fwd.py)."""
     src = {p.name: p.read_text() for p in _build.CSRC.iterdir()}
     for name, text in src.items():
         assert "split_bwd_dq_f32" not in text, name
@@ -476,7 +477,8 @@ def test_the_sources_route_the_f32_backward_above_256():
         assert "launch_split_dq_f32" not in text, name
         assert "launch_split_dkv_f32" not in text, name
     assert "wgmma_tf32_split.cuh" in _build.HEADERS
-    # K3's f32 launchers are mh_flash_attention_f32.cu's, K4's its own
+    # K3's f32 launchers are mh_flash_attention_f32.cu's, and K4's f32
+    # backward is theirs (tests/test_torch_tf32_k4_bwd.py)
     for name in ("mh_flash_attention_f32.cu", "hm_flash_attention.cu"):
         text = src[name]
         assert '#include "wgmma_tf32_split.cuh"' in text
@@ -484,8 +486,11 @@ def test_the_sources_route_the_f32_backward_above_256():
         dq = text[text.index("int split_dq("):text.index("}  // namespace",
                                                          text.index(
                                                              "int split_dq("))]
-        assert "launch_split_dkv_tf32(" in dkv, name
-        assert "launch_split_dq_tf32(" in dq, name
+        k3 = name == "mh_flash_attention_f32.cu"
+        assert ("launch_split_dkv_tf32(" in dkv) == k3, name
+        assert ("launch_split_dq_tf32(" in dq) == k3, name
+    hm = src["hm_flash_attention.cu"]
+    assert "!is_bf16 ? mh_f32_dkv(" in hm and "!is_bf16 ? mh_f32_dq(" in hm
     header = src["wgmma_tf32_split.cuh"]
     assert f"kSplitEntries = {ENTRIES};" in header
     assert f"kSplitGroupChunks = {GROUP_CHUNKS};" in header

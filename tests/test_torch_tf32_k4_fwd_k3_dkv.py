@@ -552,10 +552,13 @@ def test_f32_ab_has_this_slice_rows():
 def test_the_profile_files_the_shared_f32_kernels_by_family():
     """tools/profile_step.py's groups: the narrow forward in two passes is
     K4's, with the bias flag K3's, with neither K1's; the dK/dV kernel with
-    the bias flag K3's, without K2's; demangled names and mangled ones."""
+    the bias flag K3's, without it the group of K2, K3 (no kv bias) and K4,
+    which all launch the unbiased instance (K4 since its f32 backward runs
+    K3's launchers); demangled names and mangled ones."""
     k1, k3, k4 = ("attention, K1/K2 (port kernels)",
                   "masked attention, K3 (port kernels)",
                   "head-major attention, K4 (port kernels)")
+    shared = "attention shared by K2, K3 and K4 (port kernels)"
     anon = "void (anonymous namespace)::"
     cases = {
         anon + "fwd_f32<64, false, true>(CUtensorMap_st)": k4,
@@ -565,10 +568,10 @@ def test_the_profile_files_the_shared_f32_kernels_by_family():
         anon + "fwd_f32<64, false, false>(CUtensorMap_st)": k1,
         anon + "bwd_dkv_f32<128, true>(CUtensorMap_st)": k3,
         "_ZN12_GLOBAL__N_111bwd_dkv_f32ILi64ELb1EEEv14CUtensorMap_st": k3,
-        anon + "bwd_dkv_f32<64, false>(CUtensorMap_st)": k1,
-        "_ZN12_GLOBAL__N_111bwd_dkv_f32ILi64ELb0EEEv14CUtensorMap_st": k1,
+        anon + "bwd_dkv_f32<64, false>(CUtensorMap_st)": shared,
+        "_ZN12_GLOBAL__N_111bwd_dkv_f32ILi64ELb0EEEv14CUtensorMap_st": shared,
         anon + "split_fwd_tf32<4, true>(CUtensorMap_st)": k4,
-        anon + "hm_bwd_dkv_f32<64, 64, 64>(float const*)": k4,
+        anon + "mh_dq_f32<64, false>(CUtensorMap_st)": shared,
     }
     for name, want in cases.items():
         assert _group(name) == want, name
